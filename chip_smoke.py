@@ -16,16 +16,32 @@ from the root of a checkout. Phases, each of which raises on failure:
    than the plain version); times the kernel, the plain version and, where
    one PyTorch call computes the same function, that call (`library_ms`,
    which the port never calls);
-4. slice — zeroes the kernels' launch counts, runs the 1-hop COUNT (Q1),
-   the 2-hop COUNT (Q2) and the row-returning 2-hop (Q3) through
-   ``db.query``, reads the counts, and fails unless every kernel launched;
-   Q1 and Q2 must equal the exact numpy counts and Q3's rows the numpy
-   rows; then times each query (median of 5 after the first run), splits
-   it into its layers (plan, solve, marshal) and reads the card's busy
-   share with torch.profiler.
+4. record — the recording path, with the plan cache off so that every
+   call records (solves eagerly, reading each size on the host): zeroes
+   the kernels' launch counts, runs the 1-hop COUNT (Q1), the 2-hop COUNT
+   (Q2) and the row-returning 2-hop (Q3) through ``db.query``, reads the
+   counts, and fails unless every kernel of the path launched; Q1 and Q2
+   must equal the exact numpy counts and Q3's rows the numpy rows; then
+   times each query (median of 5 after the first run), splits it into its
+   layers (plan, solve, marshal) and reads the card's busy share with
+   torch.profiler;
+5. replay — the plan cache on, launch counts zeroed: the first call of
+   Q1, Q2 and Q3 records and captures the replay as a CUDA graph, then 5
+   timed calls replay it, each equal to numpy, with the statement holding
+   exactly one captured plan whose replay counter advanced; Q3 at a lower
+   ``k`` replays the same plan, at a ``k`` past the recorded buckets it
+   re-records a second variant (both equal to numpy); a small row query
+   takes the direct-fetch buffer. Prints record, capture and replay
+   times, the replay's layers (parameter upload, dispatch, device wait,
+   fetch, marshal), its busy share, the launches per replay and the
+   reserved device memory after each capture; fails unless every kernel
+   launched. Then holds the replay's kernels (front-pack, meta row, int16
+   narrowing) against their plain versions at Q3's shapes and at edge
+   lengths, and times them.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with every kernel's numbers
+(``launches`` from phase 5); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -59,7 +75,12 @@ REPLACES = {
     "take_pad_f32": "orientdb_tpu/ops/csr.py:211",
     "take_pad_b8": "orientdb_tpu/ops/csr.py:211",
     "mask_count": "orientdb_tpu/ops/csr.py:222",
+    "front_pack": "orientdb_tpu/exec/tpu_engine.py:3030",
+    "replay_meta": "orientdb_tpu/exec/tpu_engine.py:3041",
+    "narrow_i16": "orientdb_tpu/exec/tpu_engine.py:3197",
 }
+#: the kernels a recording run launches (the replay's three are not on it)
+RECORD_KERNELS = [n for n in REPLACES if n not in ("front_pack", "replay_meta", "narrow_i16")]
 EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
 
 Q1 = (
@@ -76,6 +97,11 @@ Q3 = (
     "RETURN p.uid AS p, f.uid AS f, g.uid AS g"
 )
 Q3_K = 2000
+Q3_K_SMALLER = 1000
+Q3_K_OVERFLOW = 50_000
+# a 1-hop row query small enough for the direct-fetch buffer
+Q_DIRECT = "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f} RETURN p.uid AS p, f.uid AS f"
+Q_DIRECT_K = 100
 
 
 def _require(cond: bool, what: str) -> None:
@@ -273,9 +299,7 @@ def check_kernels(torch, K, dg) -> Kernels:
             name,
             lambda v=vals: K.indptr_segment_sum(v, indptr, vb),
             lambda v=vals: K.plain_indptr_segment_sum(v, indptr, vb),
-            (lambda v=vals: torch.segment_reduce(v, "sum", offsets=indptr))
-            if not exact
-            else None,
+            lambda v=vals: torch.segment_reduce(v, "sum", offsets=indptr),
             4.0 * E + 4.0 * (V + 1) + 4.0 * vb,
         )
 
@@ -293,11 +317,13 @@ def check_kernels(torch, K, dg) -> Kernels:
             ix = idx_rand[:n].contiguous()
             ks.same(name, K.take_pad(vals, ix, fill), K.plain_take_pad(vals, ix, fill))
             ks.same(name, K.take_pad(vals[:n].contiguous(), idx_rand, fill), K.plain_take_pad(vals[:n].contiguous(), idx_rand, fill))
+        # every index of dst is in range, so on these inputs one
+        # index_select computes the same function
         ks.timed(
             name,
             lambda v=vals, fl=fill: K.take_pad(v, dst, fl),
             lambda v=vals, fl=fill: K.plain_take_pad(v, dst, fl),
-            None,
+            lambda v=vals: torch.index_select(v, 0, dst),
             4.0 * E + elt * E + elt * E,
         )
     torch.cuda.synchronize()
@@ -355,9 +381,9 @@ def run_slice(np, torch, K, db, snap, card: str):
         "Q3 rows differ from numpy",
     )
     if db.device.type == "cuda":
-        missing = [n for n, c in launches.items() if c == 0]
-        _require(not missing, f"kernels never launched on the main path: {missing}")
-    print(f"slice: Q1={want1} Q2={want2} Q3 rows={len(r3)}; launches {launches}")
+        missing = [n for n in RECORD_KERNELS if launches[n] == 0]
+        _require(not missing, f"kernels never launched on the recording path: {missing}")
+    print(f"record: Q1={want1} Q2={want2} Q3 rows={len(r3)}; launches {launches}")
     for name, sql, params, rows in (
         ("Q1", Q1, None, 1),
         ("Q2", Q2, None, 1),
@@ -378,6 +404,254 @@ def run_slice(np, torch, K, db, snap, card: str):
         if db.device.type == "cuda":
             print(f"device {name}: {device_share(torch, db, sql, params, med)}")
     return launches
+
+
+def numpy_direct_rows(np, snap, k: int):
+    """Sorted (p, f) rows of Q_DIRECT from the host arrays."""
+    csr = snap.edge_classes["knows"]
+    ip = csr.indptr_out.astype(np.int64)
+    ps = np.repeat(np.arange(k), np.diff(ip[: k + 1]))
+    rows = np.stack([ps, csr.dst[ip[0] : ip[k]].astype(np.int64)], 1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def _sorted_rows(np, rows, names):
+    got = np.array([tuple(r[n] for n in names) for r in rows], np.int64).reshape(-1, len(names))
+    return got[np.lexsort(got.T[::-1])]
+
+
+def _only_plan(TE, snap, sql):
+    """The statement's cache entry (PlanVariants): exactly one."""
+    from orientdb_tpu_torch.sql.parser import parse
+
+    stmt = parse(sql)
+    found = [v for k, v in TE._plan_cache(snap).items() if k[0] == stmt]
+    _require(len(found) == 1, f"{len(found)} cache entries for {sql}")
+    return found[0]
+
+
+def run_replay(np, torch, K, db, snap, card: str):
+    """Phase 5: the replay path through ``db.query`` with the plan cache
+    on, launch counts zeroed just before it and read just after. Returns
+    (launches, the Q3 plan)."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+
+    V = snap.num_vertices
+    age = snap.v_columns["age"].values
+    want = {
+        "Q1": [{"n": numpy_1hop_count(snap, age > 40, age < 30)}],
+        "Q2": [{"n": numpy_2hop_count(snap, age > 40, np.ones(V, bool), age < 30)}],
+    }
+    q3_want = {k: numpy_q3_rows(np, snap, k) for k in (Q3_K, Q3_K_SMALLER, Q3_K_OVERFLOW)}
+
+    def check(name, rows, params):
+        if name in want:
+            _require(rows == want[name], f"{name} {rows} != numpy {want[name]}")
+        elif name == "Q3":
+            got = _sorted_rows(np, rows, ("p", "f", "g"))
+            exp = q3_want[params["k"]]
+            _require(got.shape == exp.shape and np.array_equal(got, exp), f"Q3 k={params['k']} rows differ from numpy")
+        else:
+            got = _sorted_rows(np, rows, ("p", "f"))
+            exp = numpy_direct_rows(np, snap, params["k"])
+            _require(got.shape == exp.shape and np.array_equal(got, exp), "direct-fetch rows differ from numpy")
+
+    sync = torch.cuda.synchronize
+    K.reset_launches()
+    plans = {}
+    for name, sql, params in (
+        ("Q1", Q1, None),
+        ("Q2", Q2, None),
+        ("Q3", Q3, {"k": Q3_K}),
+        ("direct", Q_DIRECT, {"k": Q_DIRECT_K}),
+    ):
+        t0 = time.perf_counter()
+        rows = db.query(sql, params).to_dicts()
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check(name, rows, params)
+        variants = _only_plan(TE, snap, sql)
+        _require(len(variants.plans) == 1, f"{name}: {len(variants.plans)} variants")
+        plan = variants.plans[0]
+        _require(plan.graph is not None and plan.replays == 0, f"{name}: not captured")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rows = db.query(sql, params).to_dicts()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(name, rows, params)
+        _require(plan.replays == 5 and len(_only_plan(TE, snap, sql).plans) == 1, f"{name}: replays {plan.replays}")
+        med = statistics.median(times)
+        per = plan.launches
+        print(
+            f"replay {name}: record {first_ms - plan.capture_ms:.3f} ms, capture {plan.capture_ms:.3f} ms, "
+            f"replay median {med:.3f} ms over {len(times)} runs (runs {[round(t, 3) for t in times]}), "
+            f"{len(rows) / med * 1e3:.1f} rows/s; launches per replay {sum(per.values())} {per}; "
+            f"reserved after capture {plan.reserved_bytes} bytes; direct_fetch {plan.direct_fetch} [{card}]"
+        )
+        print(f"replay layers {name}: {replay_layers(torch, db, sql, plan, params)}")
+        print(f"replay device {name}: {device_share(torch, db, sql, params, med)}")
+        plans[name] = plan
+    _require(plans["direct"].direct_fetch and not plans["Q3"].direct_fetch, "direct-fetch path not taken")
+
+    # parameter-generic Q3: under capacity it replays the recorded plan, past
+    # the recorded buckets it re-records into a second variant
+    q3 = plans["Q3"]
+    size, replays = len(TE._plan_cache(snap)), q3.replays
+    rows = db.query(Q3, {"k": Q3_K_SMALLER}).to_dicts()
+    check("Q3", rows, {"k": Q3_K_SMALLER})
+    _require(q3.replays == replays + 1 and len(TE._plan_cache(snap)) == size, "k=1000 did not replay the k=2000 plan")
+    print(f"replay Q3 k={Q3_K_SMALLER}: {len(rows)} rows from the k={Q3_K} plan (replay {q3.replays})")
+    t0 = time.perf_counter()
+    rows = db.query(Q3, {"k": Q3_K_OVERFLOW}).to_dicts()
+    sync()
+    over_ms = (time.perf_counter() - t0) * 1e3
+    check("Q3", rows, {"k": Q3_K_OVERFLOW})
+    variants = _only_plan(TE, snap, Q3)
+    _require(len(variants.plans) == 2 and variants.plans[1] is q3, "k=50000 did not re-record a second variant")
+    _require(q3.replays == replays + 2, "k=50000 did not try the recorded plan first")
+    big = variants.plans[0]
+    print(
+        f"replay Q3 k={Q3_K_OVERFLOW}: {len(rows)} rows; the k={Q3_K} plan's replay overflowed and a "
+        f"second variant recorded (width {big.width} vs {q3.width}) and captured in {over_ms:.3f} ms "
+        f"(capture {big.capture_ms:.3f} ms, reserved {big.reserved_bytes} bytes)"
+    )
+    for k in (Q3_K_OVERFLOW, Q3_K):
+        rows = db.query(Q3, {"k": k}).to_dicts()
+        check("Q3", rows, {"k": k})
+    _require(big.replays == 1 and q3.replays == replays + 3, "variants are not sticky per value")
+    sync()
+    launches = dict(K.LAUNCHES)
+    missing = [n for n in REPLACES if launches[n] == 0]
+    _require(not missing, f"kernels never launched on the replay path: {missing}")
+    print(
+        f"replay: all equal numpy; launches {launches}; "
+        f"reserved {torch.cuda.memory_reserved()} bytes after {sum(len(v.plans) for v in TE._plan_cache(snap).values())} captures"
+    )
+    return launches, q3
+
+
+def replay_layers(torch, db, sql, plan, params, reps: int = 5) -> str:
+    """Median ms of a replay's layers over ``reps`` calls: the front door
+    (parse, plan-cache lookup, variant pick), parameter upload and replay
+    launch (host, inside `dispatch`), device wait (until the result copies
+    are done), fetch (host arrays) and marshal (rows)."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.exec.result import ResultSet
+    from orientdb_tpu_torch.sql.parser import parse
+
+    runs = []
+    for _ in range(reps):
+        tf = time.perf_counter()
+        variants, _rows = TE._prepare(db, parse(sql), params or {})
+        _require(variants.pick(params or {}) is plan, "front door picked another plan")
+        t0 = time.perf_counter()
+        fetch = plan.dispatch(params)
+        t1 = time.perf_counter()
+        fetch.event.synchronize()
+        t2 = time.perf_counter()
+        meta, data = plan.fetch(fetch)
+        t3 = time.perf_counter()
+        ResultSet(plan.materialize(meta, data, params)).to_dicts()
+        t4 = time.perf_counter()
+        up = plan.dispatch_s["param_upload"]
+        runs.append(
+            ((t0 - tf) * 1e3, up * 1e3, (t1 - t0 - up) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3, (t4 - t3) * 1e3)
+        )
+    front, up, disp, wait, fetch_ms, marshal = (statistics.median(r[i] for r in runs) for i in range(6))
+    return (
+        f"front door {front:.3f} ms, param upload {up:.3f} ms, dispatch {disp:.3f} ms, "
+        f"device wait {wait:.3f} ms, fetch {fetch_ms:.3f} ms, marshal {marshal:.3f} ms"
+    )
+
+
+def _graph_ms(torch, fn, reps: int = 20) -> float:
+    """Mean milliseconds of ``fn`` captured once in a CUDA graph and
+    replayed ``reps`` times between CUDA events: the device time of a
+    call without its host launch overhead, as a captured plan runs it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_replay_kernels(torch, K, ks, plan, params) -> None:
+    """K6–K8 against their plain versions at the shapes Q3's replay gives
+    them (its replay-mode table, run eagerly) and at edge lengths; then
+    their times."""
+    dev = plan.solver.device
+    i32 = torch.int32
+    torch.cuda.synchronize()
+    plan._upload(plan._dyn_args(params))
+    table = plan._replay_table()
+    W, C = plan.width, plan.ncols
+    valid = table.valid_device[:W].contiguous()
+    cols = [table.cols[a] for a in plan.v_names]
+    count = table.count_device.to(i32)
+    over = torch.zeros((), dtype=i32, device=dev)
+    data = K.front_pack(valid, cols)
+    ks.same("front_pack", data, K.plain_front_pack(valid, cols))
+    ks.same("front_pack", K.front_pack(valid, cols * 6), K.plain_front_pack(valid, cols * 6))
+    ks.same("replay_meta", K.replay_meta(data, count, over), K.plain_replay_meta(data, count, over))
+    ks.same("narrow_i16", K.narrow_i16(data), K.plain_narrow_i16(data))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for n in EDGE_LENGTHS:
+        v = (torch.rand(n, generator=gen, device=dev) < 0.5).to(i32)
+        cs = [torch.randint(-1, 1 << 20, (n,), generator=gen, device=dev, dtype=i32) for _ in range(C)]
+        d = K.front_pack(v, cs)
+        ks.same("front_pack", d, K.plain_front_pack(v, cs))
+        for cnt in (0, n // 2, n):
+            c_dev = torch.full((), cnt, dtype=i32, device=dev)
+            ks.same("replay_meta", K.replay_meta(d, c_dev, over), K.plain_replay_meta(d, c_dev, over))
+            small = d % 1000
+            ks.same("replay_meta", K.replay_meta(small, c_dev, over), K.plain_replay_meta(small, c_dev, over))
+        wide = torch.randint(-(2**31), 2**31 - 1, (n * C,), generator=gen, device=dev, dtype=i32)
+        ks.same("narrow_i16", K.narrow_i16(wide), K.plain_narrow_i16(wide))
+    live = int(count)
+    ks.timed(
+        "front_pack",
+        lambda: K.front_pack(valid, cols),
+        lambda: K.plain_front_pack(valid, cols),
+        None,
+        4.0 * W * (1 + 2 * C),
+    )
+    ks.timed(
+        "replay_meta",
+        lambda: K.replay_meta(data, count, over),
+        lambda: K.plain_replay_meta(data, count, over),
+        None,
+        4.0 * live * C + 8.0 + 12.0,
+    )
+    ks.timed(
+        "narrow_i16",
+        lambda: K.narrow_i16(data),
+        lambda: K.plain_narrow_i16(data),
+        lambda: data.to(torch.int16),
+        6.0 * W * C,
+    )
+    # the plain versions read sizes on the host (boolean indexing), so
+    # only the kernels and the library cast are captured
+    for name, kernel in (
+        ("front_pack", lambda: K.front_pack(valid, cols)),
+        ("replay_meta", lambda: K.replay_meta(data, count, over)),
+        ("narrow_i16", lambda: K.narrow_i16(data)),
+        ("narrow_i16 library", lambda: data.to(torch.int16)),
+    ):
+        print(f"kernel {name} in a captured graph: {_graph_ms(torch, kernel):.4f} ms")
+    torch.cuda.synchronize()
+    print(f"replay kernels: equal their plain versions at W={W}, C={C}, live rows {live}")
 
 
 def query_layers(torch, db, sql, params, sync) -> str:
@@ -442,6 +716,7 @@ def main() -> int:
     from orientdb_tpu_torch.ops import csr as K
     from orientdb_tpu_torch.ops.device_graph import device_graph
     from orientdb_tpu_torch.storage.bigshape import build_person_knows
+    from orientdb_tpu_torch.utils.config import config
 
     # 1. device
     _require(torch.cuda.is_available(), "CUDA is not available")
@@ -472,15 +747,27 @@ def main() -> int:
     ks = check_kernels(torch, K, dg)
     print(f"kernels: all equal their plain versions ({time.perf_counter() - t0:.1f} s)")
 
-    # 4. the slice through the port's front door
+    # 4. the recording path through the port's front door (cache off)
     torch.cuda.reset_peak_memory_stats()
-    launches = run_slice(np, torch, K, db, snap, card)
+    cache_size = config.plan_cache_size
+    config.plan_cache_size = 0
+    try:
+        run_slice(np, torch, K, db, snap, card)
+    finally:
+        config.plan_cache_size = cache_size
     mem = dg.memory_report()
     print(
         f"memory: graph {mem['total_bytes']} bytes on the card "
         f"{mem['per_device']}, host-only columns {mem['pruned_bytes']} bytes; "
-        f"peak allocated during the slice {torch.cuda.max_memory_allocated()} bytes"
+        f"peak allocated during the recording path {torch.cuda.max_memory_allocated()} bytes"
     )
+
+    # 5. the replay path: record + capture once, then captured replays
+    torch.cuda.reset_peak_memory_stats()
+    launches, q3_plan = run_replay(np, torch, K, db, snap, card)
+    print(f"memory: peak allocated during the replay path {torch.cuda.max_memory_allocated()} bytes")
+    check_replay_kernels(torch, K, ks, q3_plan, {"k": Q3_K})
+
     for name, row in ks.rows.items():
         row["launches"] = launches[name]
         row["max_abs_err"] = ks.err[name]
@@ -490,6 +777,7 @@ def main() -> int:
             f"launches {row['launches']}"
         )
     _require(set(ks.rows) == set(REPLACES), "a kernel was not timed")
+    _require(all(r["launches"] > 0 for r in ks.rows.values()), "a kernel never launched")
     print(json.dumps({"kernels": [ks.rows[n] for n in REPLACES]}))
     print(
         json.dumps(

@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the CSR primitives of the
-// compiled MATCH path. Port of the jitted functions of
-// orientdb_tpu/ops/csr.py; the wrappers are in orientdb_tpu_torch/ops/csr.py
+// compiled MATCH path and for the result stage of a captured replay. Port of
+// the jitted functions of orientdb_tpu/ops/csr.py and of the front-pack,
+// meta and page functions of orientdb_tpu/exec/tpu_engine.py; the wrappers are in orientdb_tpu_torch/ops/csr.py
 // and bind these functions through ctypes (orientdb_tpu_torch/ops/_kernels.py).
 //
 // Build:
@@ -333,6 +334,82 @@ __global__ void mask_count_kernel(const unsigned char* __restrict__ mask, long l
   if ((threadIdx.x & 31) == 0 && c) atomicAdd(out, c);
 }
 
+// ---------------------------------------------------------------------------
+// K6: front_pack (replaces the front-pack of _CompiledPlan._replay_core,
+// orientdb_tpu/exec/tpu_engine.py:3030-3039: compact_indices over the valid
+// mask, then a stack of take_pad(col, perm, -1)).
+// Bound: W*4 bytes of valid + W*4 of ranks + C*W*4 of columns read,
+// C*W*4 written (Q3's W = 2^17, C = 3: ~2.6 MB, under a microsecond of
+// bytes). Design: after K1's inclusive scan of the valid mask, one thread
+// per slot moves its C values to row ranks[t]-1 of a row-major [W, C]
+// output (a page of the result is then a contiguous prefix of rows), and
+// every row at or past the live count is -1. The reference's [W] perm is
+// never materialised. Column pointers travel by value, kMaxCols a launch.
+// ---------------------------------------------------------------------------
+constexpr int kMaxCols = 16;
+struct ColPtrs {
+  const int* p[kMaxCols];
+};
+
+__global__ void front_pack_kernel(const int* __restrict__ valid,
+                                  const int* __restrict__ ranks, long long w,
+                                  ColPtrs cols, int ncols, int col0, int stride,
+                                  int* __restrict__ out) {
+  long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= w) return;
+  if (valid[t] != 0) {
+    long long r = static_cast<long long>(ranks[t]) - 1;
+    for (int c = 0; c < ncols; ++c) out[r * stride + col0 + c] = cols.p[c][t];
+  }
+  if (t >= static_cast<long long>(ranks[w - 1])) {
+    for (int c = 0; c < ncols; ++c) out[t * stride + col0 + c] = -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7: replay_meta (replaces _CompiledPlan._fits16_flag :3041 and the meta
+// stack of _replay :3179-3181 / the direct buffer's meta row :3169-3173).
+// Bound: count*C*4 bytes of the live prefix read, 12 bytes written.
+// Design: one block strides over the live prefix of the front-packed [W, C]
+// rows (count clipped to [0, W]); __syncthreads_or joins the "a value is
+// outside (-32768, 32767)" bits, and thread 0 writes [count, overflow,
+// fits16]. One block is enough for the result widths of a row plan; the
+// result sizes nothing else, so no grid-wide reduction is needed.
+// ---------------------------------------------------------------------------
+constexpr int kMetaThreads = 1024;
+
+__global__ void replay_meta_kernel(const int* __restrict__ data, long long w,
+                                   int ncols, const int* __restrict__ count,
+                                   const int* __restrict__ overflow,
+                                   int* __restrict__ out) {
+  long long n = *count;
+  if (n < 0) n = 0;
+  if (n > w) n = w;
+  n *= ncols;
+  int bad = 0;
+  for (long long i = threadIdx.x; i < n; i += kMetaThreads) {
+    int x = data[i];
+    bad |= (x >= 32767) | (x <= -32768);
+  }
+  bad = __syncthreads_or(bad);
+  if (threadIdx.x == 0) {
+    out[0] = *count;
+    out[1] = *overflow;
+    out[2] = bad ? 0 : 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8: narrow_i16 (replaces the int16 pages of _replay :3197-3201,
+// `.astype(jnp.int16)`). Bound: n*4 bytes read, n*2 written. One thread per
+// element; the conversion keeps the low 16 bits, as XLA's s32->s16 does.
+// ---------------------------------------------------------------------------
+__global__ void narrow_i16_kernel(const int* __restrict__ in, long long n,
+                                  short* __restrict__ out) {
+  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n) out[i] = static_cast<short>(static_cast<unsigned short>(in[i] & 0xffff));
+}
+
 }  // namespace
 
 extern "C" {
@@ -467,6 +544,41 @@ int csr_mask_count(const void* mask, long long n, void* out, void* stream) {
     if (blocks > 4096) blocks = 4096;
     mask_count_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         static_cast<const unsigned char*>(mask), n, static_cast<unsigned*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `col_ptrs` is a HOST array of `ncols` (<= kMaxCols) device pointers; the
+// columns land at [col0, col0 + ncols) of each output row of `stride` ints.
+int csr_front_pack(const void* valid, const void* ranks, long long w,
+                   const void* col_ptrs, int ncols, int col0, int stride,
+                   void* out, void* stream) {
+  if (ncols < 0 || ncols > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
+  ColPtrs cols = {};
+  const void* const* ptrs = static_cast<const void* const*>(col_ptrs);
+  for (int c = 0; c < ncols; ++c) cols.p[c] = static_cast<const int*>(ptrs[c]);
+  if (w > 0 && ncols > 0) {
+    front_pack_kernel<<<blocks_for(w, kThreads), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(valid), static_cast<const int*>(ranks), w, cols,
+        ncols, col0, stride, static_cast<int*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int csr_replay_meta(const void* data, long long w, int ncols, const void* count,
+                    const void* overflow, void* out, void* stream) {
+  replay_meta_kernel<<<1, kMetaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(data), w, ncols, static_cast<const int*>(count),
+      static_cast<const int*>(overflow), static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int csr_narrow_i16(const void* in, long long n, void* out, void* stream) {
+  if (n > 0) {
+    narrow_i16_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(in), n, static_cast<short*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

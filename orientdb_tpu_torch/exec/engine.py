@@ -1,6 +1,7 @@
 """Port of `orientdb_tpu/exec/engine.py`: the front door. Every query of the
-port runs through `execute_query`: parse, compile the MATCH solver, solve
-on the database's device, marshal a `ResultSet`.
+port runs through `execute_query`: parse, then `tpu_engine.execute`, which
+records the statement on its first call and replays its cached plan on
+every later one, and a `ResultSet` of the rows.
 
 Unlike the reference's front door there is no interpreter to fall back
 to: a statement outside the compiled subset raises `Uncompilable` with the

@@ -1,5 +1,5 @@
 """Port of `orientdb_tpu/exec/tpu_engine.py`, the compiled MATCH solver on
-one device, run eagerly.
+one device: an eager recording run, then captured replays.
 
 As in the reference:
 - the pattern compiles to a static plan of steps (root scan, edge
@@ -17,17 +17,27 @@ As in the reference:
 - rows marshal through the reference's columnar fast path and the
   DISTINCT / ORDER BY / SKIP / LIMIT tail.
 
-Every query runs the way the reference runs its first (recording)
-execution: eagerly, observing each frontier size on the host to size the
-next buffer (`SizeSchedule`). The reference's jitted replay of a recorded
-plan (`_CompiledPlan`) is not ported yet. A MATCH shape outside this slice
-raises `Uncompilable` with the reason; nothing falls back to an
-interpreter.
+The first execution of a statement records: it runs eagerly, observing
+each frontier size on the host to size the next buffer (`SizeSchedule`),
+and returns its rows. The recorded solve becomes a `_CompiledPlan` in a
+per-snapshot plan cache; on a card the plan captures the replay-mode solve
+as one CUDA graph (all plans of a device share one memory pool and replay
+on one stream under a lock), and every later call, for any value of its
+numeric parameters, uploads the parameters and replays that graph: no host
+read, a device overflow flag that sends the call back to a re-record, the
+live rows front-packed on the card and copied with the meta row into
+pinned host memory. On the CPU a replay runs the same replay-mode solve
+without capture. A MATCH shape outside this slice raises `Uncompilable`
+with the reason; nothing falls back to an interpreter.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import dataclasses
+import threading
+import time
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,11 +64,17 @@ from orientdb_tpu_torch.ops.predicates import (
     ParamBox,
     Uncompilable,
     compile_predicate,
+    split_params,
 )
 from orientdb_tpu_torch.sql import ast as A
 from orientdb_tpu_torch.utils.config import config
 
 I32 = torch.int32
+F32 = torch.float32
+
+#: smallest page (rows) of a replay's result ladder; pow2 rounding up from
+#: here bounds the distinct page shapes per buffer to log2(W)
+_PAGE_MIN = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +99,8 @@ class Table:
     @property
     def count_device(self) -> torch.Tensor:
         if self.count_dev is None:
-            return torch.tensor(self.count, dtype=I32, device=self.device)
+            # a fill, not a host→device copy: capturable
+            return torch.full((), self.count, dtype=I32, device=self.device)
         return self.count_dev
 
     @property
@@ -145,31 +162,65 @@ def _cap_of(n: int) -> int:
     return K.bucket(max(1, int(n * config.schedule_headroom)))
 
 
-def _observe_compact(sched: "SizeSchedule", mask: torch.Tensor):
+def _observe_compact(sched: "SizeSchedule", mask: torch.Tensor, min_capacity: int = 0):
     """Shared compaction protocol: surviving-row indices sized via the
-    schedule (one blocking sync). Returns (indices, host count, device
-    count)."""
+    schedule (one blocking sync on the recording run, free on a replay).
+    Returns (indices, host count, device count)."""
     count_dev = K.mask_count(mask)
-    count = sched.observe(count_dev)
-    return K.compact_indices(mask, _cap_of(count)), count, count_dev
+    count = sched.observe(count_dev, min_capacity=min_capacity)
+    return (
+        K.compact_indices(mask, max(min_capacity, _cap_of(count))),
+        count,
+        count_dev,
+    )
 
 
 class SizeSchedule:
     """Host observations of device scalars (frontier totals, compact
     counts), in the order the solve takes them.
 
-    PyTorch runs eagerly, so every solve is what the reference calls a
-    recording run: each observation is one blocking device→host read that
-    sizes the next buffer. The recorded values are what a captured replay
-    will need."""
+    The recording run pays one blocking device→host read per observation
+    to learn the buffer sizes. A replay (`start_replay`) reads none: each
+    observation returns the recorded value, and every non-free one ORs
+    ``live > capacity`` into a device ``overflow`` flag (capacity 0 where
+    the recording saw 0 and skipped the work). A raised flag means the
+    replay's buffers were too small for its parameters: the result is
+    discarded and the caller re-records (buckets grow, so re-records
+    converge). Live sizes under capacity flow through the table's device
+    valid mask and count."""
 
     def __init__(self) -> None:
         self.values: List[int] = []
+        self.pos = 0
+        self.recording = True
+        self.overflow: Optional[torch.Tensor] = None  # device bool on a replay
 
-    def observe(self, dev_scalar: torch.Tensor) -> int:
-        v = int(dev_scalar)
-        self.values.append(v)
+    def observe(self, dev_scalar: torch.Tensor, free: bool = False, min_capacity: int = 0) -> int:
+        """``free=True`` marks a value that sizes no buffer and gates no
+        control flow (the COUNT pushdown total), exempt from the overflow
+        check. ``min_capacity`` is the buffer floor the call site allocates
+        even for a recorded zero: replays may fill it without flagging."""
+        if self.recording:
+            v = int(dev_scalar)
+            self.values.append(v)
+            return v
+        v = self.values[self.pos]
+        self.pos += 1
+        if not free:
+            cap = max(min_capacity, _cap_of(v) if v > 0 else 0)
+            flag = dev_scalar > cap
+            self.overflow = flag if self.overflow is None else (self.overflow | flag)
         return v
+
+    def overflow_flag(self, device) -> torch.Tensor:
+        if self.overflow is None:
+            return torch.zeros((), dtype=torch.bool, device=device)
+        return self.overflow
+
+    def start_replay(self) -> None:
+        self.recording = False
+        self.pos = 0
+        self.overflow = None
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +391,7 @@ class TpuMatchSolver:
                 self.dg.columns,
                 self.dg.non_columnar,
                 reserved=set(self.pattern.nodes.keys()),
+                device=self.dg.device,
             )
         return self._vertex_scope_cache
 
@@ -349,7 +401,7 @@ class TpuMatchSolver:
         parts = []
         for f in node.filters:
             if f.class_name:
-                parts.append(self._class_mask_fn(self.dg.class_ids(f.class_name)))
+                parts.append(self._class_mask_fn(self.dg.class_table(f.class_name)))
             if f.where is not None:
                 parts.append(
                     compile_predicate(f.where, self._vertex_scope(), self.param_box)
@@ -363,11 +415,12 @@ class TpuMatchSolver:
 
         return mask
 
-    def _class_mask_fn(self, ids: torch.Tensor):
-        def fn(idx, env, ids=ids):
-            if ids.shape[0] == 0:
-                return torch.zeros(idx.shape, dtype=torch.bool, device=idx.device)
-            return torch.isin(K.take_pad(self.dg.v_class, idx, -1), ids)
+    def _class_mask_fn(self, table: torch.Tensor):
+        """Class-closure membership of each slot's vertex: its class id
+        looked up in the closure's bool table (padding reads False)."""
+
+        def fn(idx, env, table=table):
+            return K.take_pad(table, K.take_pad(self.dg.v_class, idx, -1), False)
 
         return fn
 
@@ -394,7 +447,8 @@ class TpuMatchSolver:
         however large the fan-out."""
         cap = max(1, config.max_expansion_cap)
         indptr = dec.indptr_out if d == "out" else dec.indptr_in
-        total = self.sched.observe(K.value_sum(K.degree_counts(indptr, srcs)))
+        # free: it picks the chunking; each chunk's own observe checks growth
+        total = self.sched.observe(K.value_sum(K.degree_counts(indptr, srcs)), free=True)
         n_chunks = max(1, -(-_cap_of(total) // cap))
         if n_chunks == 1:
             return [self._expand_one_dir(dec, d, srcs)]
@@ -473,21 +527,24 @@ class TpuMatchSolver:
             raise Uncompilable(f"alias {src_alias} not bound before expansion")
         w = self._pushdown_weights(steps, torch.int32)
         total_dev = K.value_sum(K.take_pad(w, srcs, 0))
-        # int32 overflow guard: a float32 twin of the whole weight chain
-        # detects wraps anywhere in the segment sums — float32 is inexact
-        # above 2^24 but its ~1e-7 relative error is far below the mismatch
-        # a wrap produces
-        wf = self._pushdown_weights(steps, torch.float32)
-        approx = float(K.value_sum(K.take_pad(wf, srcs, 0.0)))
-        exact = int(total_dev)
-        if not (
-            0 <= approx < 2**31 * 0.99
-            and abs(approx - exact) <= max(1e-3 * approx, 1.0)
-        ):
-            raise Uncompilable(
-                f"COUNT pushdown overflows int32 (≈{approx:.6g} vs {exact})"
-            )
-        t = Table(self.device, count=self.sched.observe(total_dev), width=0)
+        if self.sched.recording:
+            # int32 overflow guard: a float32 twin of the whole weight chain
+            # detects wraps anywhere in the segment sums — float32 is
+            # inexact above 2^24 but its ~1e-7 relative error is far below
+            # the mismatch a wrap produces. Record-time only: the snapshot
+            # is immutable, so a replay sees the same data.
+            wf = self._pushdown_weights(steps, torch.float32)
+            approx = float(K.value_sum(K.take_pad(wf, srcs, 0.0)))
+            exact = int(total_dev)
+            if not (
+                0 <= approx < 2**31 * 0.99
+                and abs(approx - exact) <= max(1e-3 * approx, 1.0)
+            ):
+                raise Uncompilable(
+                    f"COUNT pushdown overflows int32 (≈{approx:.6g} vs {exact})"
+                )
+        # free: the count IS the result; it sizes no buffer
+        t = Table(self.device, count=self.sched.observe(total_dev, free=True), width=0)
         t.count_dev = total_dev
         return t
 
@@ -575,7 +632,14 @@ class TpuMatchSolver:
         table = table.gather(keep)
         table.count = packed_n
         table.count_dev = packed_dev
+        # the pairing stride is the RECORDED new_n, so a replay is valid only
+        # when both cardinalities equal the recording's: flag otherwise
         old_n, new_n = table.count, n
+        old_dev = table.count_device
+        sched = self.sched
+        if not sched.recording:
+            flag = (old_dev != old_n) | (n_dev != new_n)
+            sched.overflow = flag if sched.overflow is None else (sched.overflow | flag)
         total = old_n * new_n
         width = K.bucket(max(total, 1))
         if new_n == 0:
@@ -591,7 +655,7 @@ class TpuMatchSolver:
         sel = torch.where(valid, pos % new_n, -1)
         t = table.gather(rows)
         t.count = total
-        t.count_dev = table.count_device * n_dev
+        t.count_dev = old_dev * n_dev
         t.cols[alias] = K.take_pad(cand, sel, -1)
         return t
 
@@ -665,7 +729,7 @@ class TpuMatchSolver:
         padding, and the valid mask is authoritative."""
         if table.valid is None:
             return np.arange(table.count)
-        return np.flatnonzero(table.valid.cpu().numpy() > 0)
+        return np.flatnonzero(_host(table.valid) > 0)
 
     def count_only_name(self) -> Optional[str]:
         """Projection name when RETURN is a lone COUNT(*) (no grouping)."""
@@ -683,22 +747,26 @@ class TpuMatchSolver:
             return r[0].alias or expr_name(r[0].expr, 0)
         return None
 
-    def finalize_count(self, name: str, count: int) -> List[Result]:
+    def finalize_count(self, name: str, count: int, params: Optional[Dict] = None) -> List[Result]:
         # aggregate path applies only ORDER/SKIP/LIMIT (no DISTINCT)
+        params = self.params if params is None else params
         out = [Result(props={name: count})]
-        out = _order_rows(out, self.stmt.order_by, self.db, self.params, None)
+        out = _order_rows(out, self.stmt.order_by, self.db, params, None)
         return _skip_limit(
-            out, self.stmt.skip, self.stmt.limit, EvalContext(self.db, params=self.params)
+            out, self.stmt.skip, self.stmt.limit, EvalContext(self.db, params=params)
         )
 
-    def rows_from_table(self, table: Table):
-        """Result rows straight from the device columns: a lone count(*) is
-        the table's count; ``alias.prop`` projections decode the snapshot's
-        host columns at the bound vertex ids (`_check_returns` admitted
-        only these shapes)."""
+    def rows_from_table(self, table: Table, params: Optional[Dict] = None):
+        """Result rows from the table's columns (device tensors on the
+        recording run, host arrays of a replay's fetched page): a lone
+        count(*) is the table's count; ``alias.prop`` projections decode
+        the snapshot's host columns at the bound vertex ids
+        (`_check_returns` admitted only these shapes). ``params`` are the
+        call's (a replay serves other values than the recording's)."""
+        params = self.params if params is None else params
         name = self.count_only_name()
         if name is not None:
-            return self.finalize_count(name, table.count)
+            return self.finalize_count(name, table.count, params)
         stmt = self.stmt
         sel = self._live_rows(table)
         n = int(sel.shape[0])
@@ -712,7 +780,7 @@ class TpuMatchSolver:
             if alias not in host_cols:
                 dev_col = table.cols.get(alias)
                 host_cols[alias] = (
-                    dev_col.cpu().numpy()[sel] if dev_col is not None
+                    _host(dev_col)[sel] if dev_col is not None
                     else np.full(n, -1, np.int32)
                 )
             idx = host_cols[alias]
@@ -737,10 +805,527 @@ class TpuMatchSolver:
         if not (stmt.distinct or stmt.order_by or stmt.skip or stmt.limit):
             return ColumnarRows(names, [c.tolist() for c in obj_cols], n)
         out = [Result(props=dict(zip(names, r))) for r in zip(*obj_cols)]
-        return finalize_match_rows(self.db, stmt, out, self.params, None)
+        return finalize_match_rows(self.db, stmt, out, params, None)
+
+
+def _host(col) -> np.ndarray:
+    """A column as a host array: a device tensor is copied (recording
+    runs), a replay's fetched page already is one."""
+    if isinstance(col, torch.Tensor):
+        return col.cpu().numpy()
+    return np.asarray(col)
+
+
+
+# ---------------------------------------------------------------------------
+# compiled plan: the captured replay
+# ---------------------------------------------------------------------------
+
+
+class ScheduleOverflow(Exception):
+    """A parameter-generic replay's live sizes exceeded the recorded
+    schedule's capacities; the result was discarded. Caller re-records."""
+
+
+#: serialises replays: all plans of a device share one graph memory pool,
+#: so one replay's intermediates may overwrite another's outputs; each
+#: replay's outputs are copied out before the lock is released
+_REPLAY_LOCK = threading.RLock()
+#: device → (graph memory pool handle, replay stream)
+_REPLAY_RESOURCES: Dict[torch.device, Tuple[object, "torch.cuda.Stream"]] = {}
+
+
+def _replay_resources(device: torch.device):
+    with _REPLAY_LOCK:
+        res = _REPLAY_RESOURCES.get(device)
+        if res is None:
+            with torch.cuda.device(device):
+                res = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+            _REPLAY_RESOURCES[device] = res
+    return res
+
+
+class _Fetch:
+    """A dispatched replay's results on their way to the host: the host
+    tensors (pinned, filled by copies queued behind the replay on a card)
+    and the event that marks the copies done (None on the CPU)."""
+
+    __slots__ = ("event", "host")
+
+    def __init__(self, event, host: List[torch.Tensor]) -> None:
+        self.event = event
+        self.host = host
+
+
+class _CompiledPlan:
+    """A solver whose size schedule is learned: re-executions replay the
+    whole solve without a host read.
+
+    Numeric query parameters are inputs of the replay (`ParamBox`), so ONE
+    recorded plan serves every parameter value. Because buffer sizes were
+    recorded under the recording parameters, the replay returns beside the
+    result the true row count and an overflow flag; materialisation reads
+    the live prefix, and an overflow raises `ScheduleOverflow` so the front
+    door re-records.
+
+    On a card, `capture` runs one eager replay on the replay stream (the
+    first launch of every kernel happens outside capture) and captures the
+    next into a `torch.cuda.CUDAGraph` sharing the device's memory pool.
+    The dynamic parameters live in a static device buffer that `dispatch`
+    fills from pinned host memory before ``graph.replay()``; the outputs
+    are the graph's static tensors, copied into pinned host buffers behind
+    the replay. On the CPU, `dispatch` runs the same replay-mode solve
+    directly: the captured replay's plain version.
+
+    A row plan's result is the front-packed int32 [W, C] page (rows
+    leading, so every page of the ladder is a prefix view) with a meta row
+    ``[count, overflow, fits16]``; a small one (``direct_fetch``) is ONE
+    flat buffer: the W·C data values then the meta row."""
+
+    def __init__(self, solver: TpuMatchSolver, table: Table) -> None:
+        self.solver = solver
+        self.v_names = sorted(table.cols)
+        # edge and depth columns come with their slices (edge binding,
+        # depth aliases); the layout keeps their places
+        self.e_names: List[str] = []
+        self.d_names: List[str] = []
+        self.count = table.count
+        self.width = table.width
+        self.count_name = solver.count_only_name()
+        self.fetch_limit = self._literal_fetch_limit(solver.stmt)
+        #: result columns in the packed data (vertex + 2 per edge + depth)
+        self.ncols = len(self.v_names) + 2 * len(self.e_names) + len(self.d_names)
+        #: small full buffers ship whole, data and meta in one copy
+        self.direct_fetch = (
+            self.count_name is None
+            and self.ncols > 0
+            and self.width >= 2
+            and 4 * self.width * self.ncols <= config.result_direct_bytes
+        )
+        #: page-ladder budget, frozen per plan (retuning applies from the
+        #: next recording, never to a captured graph)
+        self.page_budget_bytes = int(config.result_page_budget_bytes)
+        #: dynamic parameters the compiled predicates actually read
+        self.dyn_spec = dict(solver.param_box.used)
+        #: static int32 parameter buffer (float32 values by their bits)
+        self._params_dev: Optional[torch.Tensor] = None
+        self.graph = None  # torch.cuda.CUDAGraph once captured
+        self.out: Optional[Dict] = None  # the graph's static outputs
+        #: kernel launches of one replay, counted while capturing
+        self.launches: Dict[str, int] = {}
+        self.replays = 0
+        #: host seconds of the last dispatch: parameter upload, replay launch
+        self.dispatch_s: Dict[str, float] = {}
+        self.capture_ms: Optional[float] = None
+        #: torch.cuda.memory_reserved right after the capture
+        self.reserved_bytes: Optional[int] = None
+
+    # -- the replay body -----------------------------------------------------
+
+    def _replay_table(self) -> Table:
+        """The recorded solve in replay mode: recorded sizes, the device
+        overflow flag, the parameters read from the static buffer, and no
+        lazy upload."""
+        solver = self.solver
+        buf = self._params_dev
+        fbuf = buf.view(F32)
+        dyn = {
+            k: (fbuf[i] if kind == "float" else buf[i])
+            for i, (k, kind) in enumerate(self.dyn_spec.items())
+        }
+        solver.param_box.set_current(dyn)
+        try:
+            solver.sched.start_replay()
+            with solver.dg.sealed():
+                table = solver.solve_table()
+        finally:
+            solver.param_box.reset()
+        if solver.sched.pos != len(solver.sched.values):
+            raise RuntimeError(
+                f"replay observed {solver.sched.pos} sizes, the recording "
+                f"{len(solver.sched.values)}"
+            )
+        return table
+
+    def _replay_core(self, out: Optional[torch.Tensor] = None):
+        """Run the replay-mode solve and front-pack the result columns
+        (into ``out`` when given). Returns ``(count_dev, overflow, data)``,
+        ``data`` the [W, C] int32 page (None for count-only or column-less
+        plans)."""
+        table = self._replay_table()
+        overflow = self.solver.sched.overflow_flag(self.solver.device).to(I32)
+        count_dev = table.count_device.to(I32)
+        if self.count_name is not None or self.width == 0:
+            return count_dev, overflow, None
+        flat = [table.cols[a] for a in self.v_names]
+        if not flat:
+            return count_dev, overflow, None
+        width = flat[0].shape[0]
+        data = K.front_pack(table.valid_device[:width].contiguous(), flat, out=out)
+        return count_dev, overflow, data
+
+    def _replay(self) -> Dict:
+        """The replay's outputs: ``{"meta"}`` for a count plan, ``{"direct"}``
+        for a direct-fetch plan, else ``{"meta", "pages32", "pages16"}``."""
+        dev = self.solver.device
+        if self.direct_fetch:
+            W, C = self.width, self.ncols
+            buf = torch.empty(W * C + 3, dtype=I32, device=dev)
+            count_dev, overflow, data = self._replay_core(out=buf[: W * C].view(W, C))
+            if data is not None:
+                K.replay_meta(data, count_dev, overflow, out=buf[W * C :])
+                return {"direct": buf}
+        else:
+            count_dev, overflow, data = self._replay_core()
+        if data is None:
+            # COUNT(*) plan (or column-less table): two scalars suffice
+            return {"meta": torch.stack([count_dev, overflow, torch.zeros_like(count_dev)])}
+        meta = K.replay_meta(data, count_dev, overflow)
+        # the full pages in both widths, and under the budget the pow2
+        # ladder of prefix pages that a batch elects from after reading the
+        # meta row: with rows leading, every page is a view
+        data16 = K.narrow_i16(data)
+        W, C = data.shape
+        pages32: List[torch.Tensor] = []
+        pages16: List[torch.Tensor] = []
+        if 12 * W * C <= self.page_budget_bytes:
+            p = _PAGE_MIN
+            while p < W:
+                pages32.append(data[:p])
+                pages16.append(data16[:p])
+                p *= 2
+        pages32.append(data)
+        pages16.append(data16)
+        return {"meta": meta, "pages32": pages32, "pages16": pages16}
+
+    # -- capture and dispatch -------------------------------------------------
+
+    def _dyn_args(self, params: Optional[Dict]) -> np.ndarray:
+        """The dynamic parameters as one host int32 array (float32 values
+        by their bits), in `dyn_spec` order."""
+        params = params if params is not None else self.solver.params
+        host = np.zeros(max(len(self.dyn_spec), 1), np.int32)
+        for i, (k, kind) in enumerate(self.dyn_spec.items()):
+            v = params[k]
+            if kind == "float":
+                host[i] = np.float32(v).view(np.int32)
+            else:
+                host[i] = int(v)
+        return host
+
+    def _upload(self, host: np.ndarray) -> None:
+        src = torch.from_numpy(host)
+        if self._params_dev.device.type == "cuda":
+            # pinned, so the copy is asynchronous (and capturable)
+            self._params_dev.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            self._params_dev.copy_(src)
+
+    def capture(self) -> None:
+        """Make the plan replayable: the static parameter buffer, and on a
+        card the CUDA graph. A capture failure raises."""
+        t0 = time.perf_counter()
+        dev = self.solver.device
+        self._params_dev = torch.zeros(max(len(self.dyn_spec), 1), dtype=I32, device=dev)
+        if dev.type != "cuda":
+            self._upload(self._dyn_args(None))
+            return
+        pool, stream = _replay_resources(dev)
+        with _REPLAY_LOCK:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self._upload(self._dyn_args(None))
+                self._replay()  # warm-up: every kernel's first launch, uncaptured
+            stream.synchronize()
+            before = dict(K.LAUNCHES)
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    out = self._replay()
+            finally:
+                # capturing launches nothing: the launches land on replays
+                recorded = {k: K.LAUNCHES[k] - before[k] for k in before}
+                K.LAUNCHES.update(before)
+        self.graph, self.out = graph, out
+        self.launches = {k: n for k, n in recorded.items() if n}
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.reserved_bytes = torch.cuda.memory_reserved(dev)
+
+    def _outputs_to_fetch(self, out: Dict) -> List[torch.Tensor]:
+        # the lone-query path ships the full int32 page (the ladder is the
+        # batch path's to elect from)
+        if "direct" in out:
+            return [out["direct"]]
+        return [out["meta"]] + ([out["pages32"][-1]] if "pages32" in out else [])
+
+    def dispatch(self, params: Optional[Dict] = None) -> _Fetch:
+        """Upload the parameters and run the replay; the results' copies to
+        the host are queued before the replay lock is released."""
+        t0 = time.perf_counter()
+        host_params = self._dyn_args(params)
+        dev = self.solver.device
+        if self.graph is None and dev.type == "cuda":
+            raise RuntimeError("dispatch of a plan that was never captured")
+        with _REPLAY_LOCK:
+            if self.graph is None:
+                self._upload(host_params)
+                t1 = time.perf_counter()
+                fetch = _Fetch(None, self._outputs_to_fetch(self._replay()))
+            else:
+                _pool, stream = _replay_resources(dev)
+                caller = torch.cuda.current_stream(dev)
+                with torch.cuda.stream(stream):
+                    stream.wait_stream(caller)
+                    self._upload(host_params)
+                    t1 = time.perf_counter()
+                    self.graph.replay()
+                    host = []
+                    for t in self._outputs_to_fetch(self.out):
+                        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        h.copy_(t, non_blocking=True)
+                        host.append(h)
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                fetch = _Fetch(event, host)
+            for name, n in self.launches.items():
+                K.LAUNCHES[name] += n
+            self.replays += 1
+        self.dispatch_s = {"param_upload": t1 - t0, "replay": time.perf_counter() - t1}
+        return fetch
+
+    def fetch(self, fetch: _Fetch) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """Wait for the copies, then ``(meta, data)`` as host arrays."""
+        if fetch.event is not None:
+            fetch.event.synchronize()
+        arrs = [h.numpy() for h in fetch.host]
+        if self.direct_fetch:
+            flat = arrs[0]
+            n = self.width * self.ncols
+            return flat[n:], flat[:n].reshape(self.width, self.ncols)
+        return arrs[0], (arrs[1] if len(arrs) > 1 else None)
+
+    def materialize(self, meta: np.ndarray, data: Optional[np.ndarray], params: Optional[Dict] = None):
+        """Marshal rows from a fetched ``(meta, data)``; only the first
+        `fetch_rows_needed(count)` rows of ``data`` are read."""
+        count, overflow = int(meta[0]), int(meta[1])
+        if overflow:
+            raise ScheduleOverflow(str(self.solver.stmt))
+        if self.count_name is not None:
+            return self.solver.finalize_count(self.count_name, count, params)
+        if data is None:
+            # column-less non-count table (degenerate): count empty rows
+            return self.solver.rows_from_table(Table(torch.device("cpu"), count=count), params)
+        return self.solver.rows_from_table(
+            self._table_from(data, self.fetch_rows_needed(count)), params
+        )
+
+    def rows(self, params: Optional[Dict] = None):
+        meta, data = self.fetch(self.dispatch(params))
+        return self.materialize(meta, data, params)
+
+    def fetch_rows_needed(self, count: int) -> int:
+        """How many live rows the host needs to marshal the result:
+        `count`, or `skip+limit` when a literal LIMIT can cut the transfer
+        (no DISTINCT/UNWIND/ORDER/aggregate: those need every row)."""
+        lim = self.fetch_limit
+        return count if lim is None else min(count, lim)
+
+    @staticmethod
+    def _literal_fetch_limit(stmt) -> Optional[int]:
+        """skip+limit as a plain int when LIMIT can cut the TRANSFER:
+        row-per-binding results only, and literal SKIP/LIMIT."""
+        if not isinstance(stmt, A.MatchStatement):
+            return None
+        if stmt.distinct or stmt.unwind or stmt.order_by or stmt.group_by:
+            return None
+        if stmt.limit is None:
+            return None
+        if any(contains_aggregate(p.expr) for p in stmt.returns):
+            return None
+        if len(stmt.returns) == 1 and isinstance(stmt.returns[0].expr, A.ContextVar):
+            return None
+
+        def lit(e):
+            if e is None:
+                return 0
+            if isinstance(e, A.Literal) and isinstance(e.value, int):
+                return e.value
+            return None
+
+        limit, skip = lit(stmt.limit), lit(stmt.skip)
+        if limit is None or skip is None or limit < 0:
+            return None
+        return skip + limit
+
+    def _table_from(self, data: np.ndarray, count: int) -> Table:
+        """Host table from the fetched [W, C] page: rows were front-packed
+        (stable) on the device, so the first `count` rows are the live ones
+        in expansion order."""
+        n = min(count, data.shape[0])
+        t = Table(torch.device("cpu"), count=n, width=n)
+        for i, a in enumerate(self.v_names):
+            t.cols[a] = data[:n, i]
+        return t
+
+
+# ---------------------------------------------------------------------------
+# plan cache and front door
+# ---------------------------------------------------------------------------
+
+
+def _params_key(params) -> Optional[Tuple]:
+    """Plan-cache key fragment: STATIC parameter values plus the
+    names/kinds of dynamic (numeric) ones — dynamic values are replay
+    inputs, so plans are shared across them."""
+    dyn, static = split_params(params)
+    try:
+        t = (
+            tuple(sorted((str(k), kind) for k, kind in dyn.items())),
+            tuple(sorted((str(k), type(v).__name__, v) for k, v in static.items())),
+        )
+        hash(t)
+        return t
+    except TypeError:
+        return None  # unhashable param values → skip plan cache
+
+
+def _plan_cache(snap) -> "OrderedDict":
+    """The snapshot's plan cache (it dies with the snapshot)."""
+    cache = getattr(snap, "_plan_cache", None)
+    if cache is None:
+        cache = snap._plan_cache = OrderedDict()
+    return cache
+
+
+def _cache_key(stmt, params) -> Optional[Tuple]:
+    """(statement, parameter key, config): the knobs that size a plan's
+    buffers are read while it records, so a plan only ever replays under
+    the configuration it was recorded with; retuning records anew."""
+    if not isinstance(stmt, A.MatchStatement):
+        return None
+    pk = _params_key(params)
+    if pk is None:
+        return None
+    try:
+        key = (stmt, pk, dataclasses.astuple(config))
+        hash(key)
+        return key
+    except TypeError:  # statement holds an unhashable literal
+        return None
+
+
+def _record(db, stmt, params):
+    """Recording first execution: eager solve with blocking size observes.
+    Returns (plan, rows); the plan is not captured yet."""
+    solver = TpuMatchSolver(db, stmt, params)
+    table = solver.solve_table()
+    rows = solver.rows_from_table(table)
+    return _CompiledPlan(solver, table), rows
+
+
+def _prepare(db, stmt, params):
+    """Plan-cache lookup, recording (and executing) on a miss.
+
+    Returns ``(variants, None)`` on a cache hit, or ``(None, rows)`` when
+    this call WAS the recording first execution (its plan captured and
+    cached when the statement is cacheable)."""
+    if not isinstance(stmt, A.MatchStatement):
+        raise Uncompilable(f"{type(stmt).__name__} has no compiled form in this slice")
+    params = params or {}
+    snap = db.current_snapshot()
+    if snap is None:
+        raise Uncompilable("no snapshot attached")
+    cache = _plan_cache(snap)
+    key = _cache_key(stmt, params)
+    if key is not None:
+        variants = cache.get(key)
+        if variants is not None:
+            cache.move_to_end(key)  # LRU: keep hot plans
+            return variants, None
+    plan, rows = _record(db, stmt, params)
+    if key is not None and config.plan_cache_size > 0:
+        plan.capture()
+        while len(cache) >= config.plan_cache_size:
+            cache.popitem(last=False)
+        v = PlanVariants(plan)
+        v.remember(params, plan)
+        cache[key] = v
+    return None, rows
+
+
+class PlanVariants:
+    """Schedule variants for one cached statement, with a sticky
+    per-parameter routing map: parameter populations whose live sizes
+    cluster differently each keep a fitting variant, and repeated
+    parameter values dispatch straight to the variant that last served
+    them."""
+
+    __slots__ = ("plans", "by_param")
+
+    _STICKY_MAX = 4096
+
+    def __init__(self, first) -> None:
+        self.plans = [first]
+        self.by_param: Dict = {}
+
+    @staticmethod
+    def _pkey(params):
+        try:
+            t = tuple(sorted((str(k), str(v)) for k, v in (params or {}).items()))
+            hash(t)
+            return t
+        except TypeError:
+            return None
+
+    def pick(self, params):
+        plan = self.by_param.get(self._pkey(params))
+        return plan if plan in self.plans else self.plans[0]
+
+    def remember(self, params, plan) -> None:
+        k = self._pkey(params)
+        if k is None:
+            return
+        if len(self.by_param) >= self._STICKY_MAX:
+            self.by_param.clear()
+        self.by_param[k] = plan
+
+    def add(self, plan) -> None:
+        self.plans.insert(0, plan)
+        del self.plans[max(1, config.plan_variants) :]
+        self.by_param = {k: p for k, p in self.by_param.items() if p in self.plans}
+
+
+def _run_variants(db, stmt, params, variants: PlanVariants, tried=None):
+    """Walk the remaining variants after an overflow; when every one
+    overflows, record (and capture) a NEW variant under these
+    parameters."""
+    for plan in list(variants.plans):
+        if plan is tried:
+            continue
+        try:
+            rows = plan.rows(params)
+        except ScheduleOverflow:
+            continue
+        variants.remember(params, plan)
+        return rows
+    plan, rows = _record(db, stmt, params)
+    plan.capture()
+    variants.add(plan)
+    variants.remember(params, plan)
+    return rows
 
 
 def execute(db, stmt: A.MatchStatement, params: Dict):
-    """Solve one MATCH statement on the database's device; the rows."""
-    solver = TpuMatchSolver(db, stmt, params)
-    return solver.rows_from_table(solver.solve_table())
+    """Solve one MATCH statement on the database's device; the rows. The
+    first call of a statement records; later calls replay its plan."""
+    params = params or {}
+    variants, rows = _prepare(db, stmt, params)
+    if variants is None:
+        return rows
+    plan = variants.pick(params)
+    try:
+        rows = plan.rows(params)
+        variants.remember(params, plan)
+    except ScheduleOverflow:
+        rows = _run_variants(db, stmt, params, variants, tried=plan)
+    return rows

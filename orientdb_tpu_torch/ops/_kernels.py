@@ -50,6 +50,9 @@ SIGNATURES = {
     "csr_take_pad_f32": [_P, _N, _P, _N, _F, _P, _P],
     "csr_take_pad_b8": [_P, _N, _P, _N, _I, _P, _P],
     "csr_mask_count": [_P, _N, _P, _P],
+    "csr_front_pack": [_P, _P, _N, _P, _I, _I, _I, _P, _P],
+    "csr_replay_meta": [_P, _N, _I, _P, _P, _P, _P],
+    "csr_narrow_i16": [_P, _N, _P, _P],
 }
 
 _lock = threading.Lock()

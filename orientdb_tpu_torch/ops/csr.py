@@ -1,6 +1,8 @@
 """Port of `orientdb_tpu/ops/csr.py`: the CSR primitives of the compiled
-MATCH path, each as a wrapper over a hand-written CUDA kernel
-(`csrc/csr_kernels.cu`) beside its plain PyTorch version.
+MATCH path, and the result stage of a replay (front-pack, meta row, int16
+narrowing of `orientdb_tpu/exec/tpu_engine.py`'s `_CompiledPlan`), each as
+a wrapper over a hand-written CUDA kernel (`csrc/csr_kernels.cu`) beside its
+plain PyTorch version.
 
 A wrapper checks dtype, contiguity and device, then:
 - a CPU tensor goes to the plain version (``plain_*``), the reference's
@@ -9,15 +11,18 @@ A wrapper checks dtype, contiguity and device, then:
   loaded, or a launch is refused, the wrapper raises: nothing falls back.
 
 Each kernel launch adds one to ``LAUNCHES[name]`` (launches made through the
-wrappers only), so a run can show that its main path went through the
-kernels. Sizes follow the reference's static-shape discipline: buffers are
-bucketed to powers of two (`bucket`) and padding rows carry -1. Every
+wrappers; a captured replay adds its plan's recorded launches once per
+replay, `tpu_engine._CompiledPlan`), so a run can show that its main path
+went through the kernels. Sizes follow the reference's static-shape
+discipline: buffers are bucketed to powers of two (`bucket`) and padding
+rows carry -1. Every
 integer result is int32, as in the reference (JAX runs with x64 off).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -42,6 +47,9 @@ LAUNCHES: Dict[str, int] = {
         "take_pad_f32",
         "take_pad_b8",
         "mask_count",
+        "front_pack",
+        "replay_meta",
+        "narrow_i16",
     )
 }
 
@@ -429,4 +437,133 @@ def mask_count(mask: torch.Tensor) -> torch.Tensor:
         out.data_ptr(),
         _stream(mask),
     )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6–K8: the result stage of a replay
+# ---------------------------------------------------------------------------
+
+_PACK_COLS = 16  # columns a front_pack launch moves (the kernel's kMaxCols)
+
+
+def _check_out(out: torch.Tensor, shape, dtype, what: str) -> None:
+    if tuple(out.shape) != tuple(shape) or out.dtype != dtype or not out.is_contiguous():
+        raise ValueError(f"{what}: out must be a contiguous {dtype} tensor of shape {tuple(shape)}")
+
+
+def plain_front_pack(valid: torch.Tensor, cols: List[torch.Tensor]) -> torch.Tensor:
+    """The reference's front-pack with rows leading: ``perm =
+    compact_indices(valid != 0, W)``, then ``take_pad(col, perm, -1)`` per
+    column, stacked as the columns of an int32 [W, C]."""
+    perm = plain_compact_indices(valid != 0, valid.shape[0])
+    return torch.stack([plain_take_pad(c, perm, -1) for c in cols], dim=1)
+
+
+def front_pack(
+    valid: torch.Tensor, cols: List[torch.Tensor], out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Live rows (``valid != 0``) first, in slot order, then rows of -1:
+    int32 [W, C], row-major, so that a page of the result is a prefix of
+    its rows. ``out`` (optional) receives the result."""
+    _check(valid, (I32,), "front_pack valid")
+    W, C = valid.shape[0], len(cols)
+    if C == 0:
+        raise ValueError("front_pack: no columns")
+    for c in cols:
+        _check(c, (I32,), "front_pack column")
+        if c.shape[0] != W:
+            raise ValueError("front_pack: a column and the valid mask differ in length")
+    if out is None:
+        out = torch.empty((W, C), dtype=I32, device=valid.device)
+    _check_out(out, (W, C), I32, "front_pack")
+    if not _on_card(valid, out, *cols):
+        out.copy_(plain_front_pack(valid, cols))
+        return out
+    if W == 0:
+        return out
+    lib = _kernels.load()
+    ranks = value_cumsum(valid)
+    for c0 in range(0, C, _PACK_COLS):
+        chunk = cols[c0 : c0 + _PACK_COLS]
+        ptrs = (ctypes.c_void_p * len(chunk))(*(c.data_ptr() for c in chunk))
+        _launch(
+            "front_pack",
+            lib.csr_front_pack,
+            valid.data_ptr(),
+            ranks.data_ptr(),
+            W,
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            len(chunk),
+            c0,
+            C,
+            out.data_ptr(),
+            _stream(valid),
+        )
+    return out
+
+
+def plain_replay_meta(
+    data: torch.Tensor, count: torch.Tensor, overflow: torch.Tensor
+) -> torch.Tensor:
+    """``[count, overflow, fits16]``: fits16 is 1 when every value of the
+    first ``count`` rows lies strictly inside (-32768, 32767), as the
+    reference's `_fits16_flag` (padding reads as 0)."""
+    live = torch.arange(data.shape[0], dtype=I32, device=data.device) < count
+    masked = torch.where(live[:, None], data, 0)
+    if masked.numel():
+        fits = (masked.max() < 32767) & (masked.min() > -32768)
+    else:
+        fits = torch.ones((), dtype=torch.bool, device=data.device)
+    return torch.stack([count.to(I32), overflow.to(I32), fits.to(I32)])
+
+
+def replay_meta(
+    data: torch.Tensor,
+    count: torch.Tensor,
+    overflow: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The meta row of a replay's result, int32 [3]: the live count, the
+    overflow flag and the int16 election flag over the front-packed
+    int32 [W, C] ``data``. ``out`` (optional) receives the row."""
+    if data.dtype != I32 or data.dim() != 2 or not data.is_contiguous():
+        raise ValueError("replay_meta data: expected a contiguous int32 [W, C] tensor")
+    for t, what in ((count, "count"), (overflow, "overflow")):
+        if t.dtype != I32 or t.dim() != 0:
+            raise TypeError(f"replay_meta {what}: expected a 0-d int32 tensor")
+    if out is None:
+        out = torch.empty(3, dtype=I32, device=data.device)
+    _check_out(out, (3,), I32, "replay_meta")
+    if not _on_card(data, count, overflow, out):
+        out.copy_(plain_replay_meta(data, count, overflow))
+        return out
+    lib = _kernels.load()
+    _launch(
+        "replay_meta",
+        lib.csr_replay_meta,
+        data.data_ptr(),
+        data.shape[0],
+        data.shape[1],
+        count.data_ptr(),
+        overflow.data_ptr(),
+        out.data_ptr(),
+        _stream(data),
+    )
+    return out
+
+
+def plain_narrow_i16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int16)
+
+
+def narrow_i16(x: torch.Tensor) -> torch.Tensor:
+    """int32 → int16 keeping the low 16 bits (XLA's and torch's cast)."""
+    if x.dtype != I32 or not x.is_contiguous():
+        raise ValueError("narrow_i16: expected a contiguous int32 tensor")
+    if not _on_card(x):
+        return plain_narrow_i16(x)
+    lib = _kernels.load()
+    out = torch.empty(x.shape, dtype=torch.int16, device=x.device)
+    _launch("narrow_i16", lib.csr_narrow_i16, x.data_ptr(), x.numel(), out.data_ptr(), _stream(x))
     return out

@@ -5,13 +5,17 @@ Adjacency (both CSR directions and the in-CSR's edge ids) and the class-id
 column upload when the graph is built; property columns register lazily
 and reach the device the first time a predicate or a marshalled projection
 reads them (`_put_lazy` / `ensure_key`), so columns no query touches cost
-no device memory. The device graph is cached per snapshot in this module's
-own weak map (rebuilt when another device asks), so it is freed with its
-snapshot; the snapshot itself holds no device state.
+no device memory. Every upload belongs to a recording run: inside
+`DeviceGraph.sealed()` (a replay, captured or not) a lazy upload raises
+instead, since a pageable host→device copy cannot be captured. The device
+graph is cached per snapshot in this module's own weak map (rebuilt when
+another device asks), so it is freed with its snapshot; the snapshot itself
+holds no device state.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import weakref
 from typing import Dict, Set
@@ -93,6 +97,7 @@ class DeviceGraph:
         # no reference to the snapshot itself: it is this graph's key in the
         # weak cache below, and a value holding its key would never be freed
         self._class_closure = snap.class_closure
+        self.num_classes = len(snap.class_names)
         self.device = device
         self.num_vertices = snap.num_vertices
         self.arrays: Dict[str, torch.Tensor] = {}
@@ -106,7 +111,8 @@ class DeviceGraph:
         self.edges: Dict[str, DeviceEdgeClass] = {
             n: DeviceEdgeClass(c, self) for n, c in snap.edge_classes.items()
         }
-        self._class_ids: Dict[str, torch.Tensor] = {}
+        self._class_tables: Dict[str, torch.Tensor] = {}
+        self._sealed = False
 
     def _put(self, key: str, arr: np.ndarray) -> str:
         self.arrays[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -118,8 +124,15 @@ class DeviceGraph:
         return key
 
     def ensure_key(self, key: str) -> None:
-        """Upload a lazily registered array if it is not on the device yet."""
+        """Upload a lazily registered array if it is not on the device yet.
+        Raises inside `sealed()`: a replay reads only what its recording
+        uploaded."""
         if key in self._pending:
+            if self._sealed:
+                raise RuntimeError(
+                    f"array {key!r} would upload during a replay; every "
+                    "upload belongs to the recording run"
+                )
             with self._pending_lock:
                 arr = self._pending.pop(key, None)
                 if arr is not None:
@@ -148,15 +161,26 @@ class DeviceGraph:
             "pruned_arrays": len(self._pending),
         }
 
-    def class_ids(self, class_name: str) -> torch.Tensor:
+    @contextlib.contextmanager
+    def sealed(self):
+        """Refuse lazy uploads for the duration (a replay)."""
+        prev, self._sealed = self._sealed, True
+        try:
+            yield self
+        finally:
+            self._sealed = prev
+
+    def class_table(self, class_name: str) -> torch.Tensor:
+        """bool [num_classes] membership table of a class's polymorphic
+        closure, uploaded once: a class mask is then one `take_pad`
+        through it (the reference's ``jnp.isin`` over the closure ids)."""
         key = class_name.lower()
-        ids = self._class_ids.get(key)
-        if ids is None:
-            closure = self._class_closure.get(key, np.zeros(0, np.int32))
-            ids = self._class_ids[key] = torch.from_numpy(
-                np.ascontiguousarray(closure)
-            ).to(self.device)
-        return ids
+        table = self._class_tables.get(key)
+        if table is None:
+            host = np.zeros(max(self.num_classes, 1), bool)
+            host[self._class_closure.get(key, np.zeros(0, np.int32))] = True
+            table = self._class_tables[key] = torch.from_numpy(host).to(self.device)
+        return table
 
 
 _CACHE: "weakref.WeakKeyDictionary[GraphSnapshot, DeviceGraph]" = (

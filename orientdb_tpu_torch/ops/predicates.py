@@ -63,15 +63,27 @@ def split_params(params: Dict) -> Tuple[Dict[object, str], Dict[object, object]]
 class ParamBox:
     """Parameter environment shared by a solver's compiled predicates:
     numeric parameters are read from ``current`` when a mask is evaluated,
-    so one compiled set of closures serves any numeric value."""
+    so one compiled set of closures serves any numeric value.
+
+    A recording run reads the concrete values; a replay swaps in 0-d
+    tensors (`set_current`) that the replay's dispatch fills on the device,
+    so no parameter value is baked into a captured graph."""
 
     def __init__(self, params: Dict) -> None:
         self.initial = dict(params)
         self.current = dict(params)
         self.dynamic, self.static = split_params(params)
+        #: dynamic keys actually referenced by some compiled predicate
+        self.used: Dict[object, str] = {}
 
     def __contains__(self, k) -> bool:
         return k in self.initial
+
+    def set_current(self, values: Dict) -> None:
+        self.current = {**self.initial, **values}
+
+    def reset(self) -> None:
+        self.current = dict(self.initial)
 
 
 class ColumnScope:
@@ -83,11 +95,14 @@ class ColumnScope:
         columns: Dict[str, DeviceColumn],
         non_columnar: Set[str],
         reserved: Set[str] = frozenset(),
+        device: torch.device = torch.device("cpu"),
     ) -> None:
         self.columns = columns
         self.non_columnar = non_columnar
         #: names that are MATCH aliases / variables → binding-dependent
         self.reserved = reserved
+        #: where the columns live: compile-time tables upload here once
+        self.device = device
 
     def resolve(self, name: str):
         if name in self.reserved:
@@ -221,20 +236,26 @@ class Compiler:
 
     def _param_val(self, key) -> _Val:
         """A parameter reference: numerics read the box's current value when
-        the mask is evaluated; everything else bakes as a constant."""
+        the mask is evaluated (a number while recording, a 0-d device tensor
+        on a replay); everything else bakes as a constant."""
         box = self.params
         if not isinstance(box, ParamBox) or key not in box.dynamic:
             v = box.initial[key] if isinstance(box, ParamBox) else box[key]
             return _const_val(v)
         kind = box.dynamic[key]
+        box.used[key] = kind
         dtype = F32 if kind == "float" else I32
 
         def emit(idx, env, box=box, key=key, dtype=dtype):
             v = box.current[key]
-            return (
-                torch.full(idx.shape, v, dtype=dtype, device=idx.device),
-                _full_bool(idx, True),
-            )
+            if isinstance(v, torch.Tensor):
+                # broadcast on the device: torch.full would read the value
+                # on the host, and a Python number would be baked into a
+                # captured graph
+                vals = v.to(dtype).expand(idx.shape)
+            else:
+                vals = torch.full(idx.shape, v, dtype=dtype, device=idx.device)
+            return vals, _full_bool(idx, True)
 
         return _Val(kind, emit)
 
@@ -335,15 +356,16 @@ class Compiler:
         return fn
 
     def _code_table_mask(self, v: _Val, table: np.ndarray) -> BoolFn:
-        """Membership of each slot's string code in a host-computed table."""
-        host = torch.from_numpy(table)
+        """Membership of each slot's string code in a host-computed table,
+        uploaded once here, at compile, onto the scope's device."""
+        if table.size == 0:
+            return lambda idx, env: _zeros_bool(idx)
+        dev = torch.from_numpy(table).to(self.scope.device)
 
-        def fn(idx, env, v=v, host=host):
-            if host.shape[0] == 0:
-                return _zeros_bool(idx)
+        def fn(idx, env, v=v, dev=dev):
             vals, pres = v.emit(idx, env)
-            codes = vals.clamp(0, host.shape[0] - 1)
-            return pres & K.take_pad(host.to(idx.device), codes, False)
+            codes = vals.clamp(0, dev.shape[0] - 1)
+            return pres & K.take_pad(dev, codes, False)
 
         return fn
 

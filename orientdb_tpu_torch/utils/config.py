@@ -24,6 +24,19 @@ class Config:
     # Buffer headroom multiplier: buffers are sized bucket(observed * this)
     # (tpu_engine._cap_of), as in the reference.
     schedule_headroom: float = 2.0
+    # Plan cache entries per snapshot (tpu_engine._prepare).
+    plan_cache_size: int = 256
+    # Schedule variants kept per cached statement: parameter values whose
+    # live sizes exceed every variant's capacities record a new variant
+    # (tpu_engine.PlanVariants).
+    plan_variants: int = 8
+    # Device-memory budget for a replay's result page ladder (pow2 prefix
+    # pages in int32 and int16, ~12 bytes a slot in the reference's
+    # layout): plans whose ladder would exceed it emit only the full pages.
+    result_page_budget_bytes: int = 16 << 20
+    # Full result buffers at or below this many bytes replay into ONE
+    # fused buffer (data rows + a meta row), fetched with one copy.
+    result_direct_bytes: int = 64 << 10
 
 
 config = Config()

@@ -116,3 +116,59 @@ def test_queries_on_card_equal_cpu(card, skew):
             else:
                 assert sorted(got, key=key) == sorted(want, key=key)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,c", [(8, 1), (257, 3), (131_072, 3), (1_024, 17)])
+def test_result_stage_kernels_equal_plain_on_card(card, w, c):
+    """K6 front_pack, K7 replay_meta and K8 narrow_i16 against their plain
+    versions (exactly: every value is int32 or int16)."""
+    rng = np.random.default_rng(w + c)
+    valid = _t((rng.random(w) < 0.4).astype(np.int32)).to(card)
+    cols = [_t(rng.integers(-1, 50_000, w, dtype=np.int32)).to(card) for _ in range(c)]
+    data = T.front_pack(valid, cols)
+    assert torch.equal(data, T.plain_front_pack(valid, cols))
+    small = T.front_pack(valid, [col % 1_000 for col in cols])
+    for d in (data, small):
+        for n in (0, 1, int(valid.sum()), w + 5):
+            count = torch.tensor(n, dtype=torch.int32, device=card)
+            over = torch.tensor(n % 2, dtype=torch.int32, device=card)
+            assert torch.equal(
+                T.replay_meta(d, count, over), T.plain_replay_meta(d, count, over)
+            )
+    wide = _t(rng.integers(-(2**31), 2**31 - 1, w * c, dtype=np.int64).astype(np.int32)).to(card)
+    assert torch.equal(T.narrow_i16(wide), T.plain_narrow_i16(wide))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_replays_equal_cpu(card):
+    """Record, capture and replay on the card against the same calls on
+    the CPU (whose replays run uncaptured), across parameter values that
+    replay under capacity and that overflow into a second variant."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+
+    queries = [
+        ("MATCH {class:Person, as:p, where:(age > 40)}-knows->{as:f}"
+         "-knows->{as:g, where:(age < 30)} RETURN count(*) AS n", [None] * 3),
+        ("MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f}"
+         "-knows->{as:g, where:(age < 30)} RETURN p.uid AS p, f.uid AS f, g.uid AS g",
+         [{"k": 300}, {"k": 300}, {"k": 120}, {"k": 2_000}, {"k": 300}]),
+        ("MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f} "
+         "RETURN p.uid AS p, f.uid AS f", [{"k": 40}, {"k": 40}, {"k": 10}]),
+    ]
+    kw = dict(avg_knows=6, seed=11)
+    gpu, gsnap = build_person_knows(5_000, device=card, **kw)
+    cpu, _ = build_person_knows(5_000, device="cpu", **kw)
+    key = lambda r: tuple(sorted(r.items()))  # noqa: E731
+    for sql, param_list in queries:
+        for params in param_list:
+            got = gpu.query(sql, params).to_dicts()
+            want = cpu.query(sql, params).to_dicts()
+            assert sorted(got, key=key) == sorted(want, key=key)
+    plans = [p for v in TE._plan_cache(gsnap).values() for p in v.plans]
+    assert all(p.graph is not None for p in plans)
+    assert sum(p.replays for p in plans) >= 5
+    assert any(p.direct_fetch for p in plans)
+    torch.cuda.synchronize()
