@@ -15,29 +15,36 @@ from the root of a checkout. Phases, each of which raises on failure:
    exactly, float32 results to rtol 1e-6 (the kernels add in another order
    than the plain version); times the kernel, the plain version and, where
    one PyTorch call computes the same function, that call (`library_ms`,
-   which the port never calls);
+   which the port never calls). The bitmap-BFS kernels (K9–K12) are held
+   exactly at V1's shapes (8-row chunks of 2^23-vertex bitmaps over the
+   ~80M edges), on live BFS levels, in both directions, with an edge mask,
+   a WHILE gate, an empty frontier, an empty edge list, all-padding rows,
+   duplicate targets and a bound (close-arm) row vector;
 4. record — the recording path, with the plan cache off so that every
    call records (solves eagerly, reading each size on the host): zeroes
    the kernels' launch counts, runs the 1-hop COUNT (Q1), the 2-hop COUNT
-   (Q2) and the row-returning 2-hop (Q3) through ``db.query``, reads the
-   counts, and fails unless every kernel of the path launched; Q1 and Q2
-   must equal the exact numpy counts and Q3's rows the numpy rows; then
-   times each query (median of 5 after the first run), splits it into its
-   layers (plan, solve, marshal) and reads the card's busy share with
-   torch.profiler;
+   (Q2), the row-returning 2-hop (Q3), the variable-depth COUNT (V1), the
+   variable-depth rows with a depth alias (V2) and the NOT anti-join (V3)
+   through ``db.query``, reads the counts, and fails unless every kernel of
+   the path launched; Q1, Q2 and V1 must equal the exact numpy counts and
+   Q3, V2 and V3's rows the numpy rows (V1/V2 by a per-root breadth-first
+   walk over the host CSR); then times each query (median of 5 after the
+   first run), splits it into its layers (plan, solve, marshal) and reads
+   the card's busy share with torch.profiler;
 5. replay — the plan cache on, launch counts zeroed: the first call of
-   Q1, Q2 and Q3 records and captures the replay as a CUDA graph, then 5
-   timed calls replay it, each equal to numpy, with the statement holding
-   exactly one captured plan whose replay counter advanced; Q3 at a lower
-   ``k`` replays the same plan, at a ``k`` past the recorded buckets it
-   re-records a second variant (both equal to numpy); a small row query
-   takes the direct-fetch buffer. Prints record, capture and replay
-   times, the replay's layers (parameter upload, dispatch, device wait,
-   fetch, marshal), its busy share, the launches per replay and the
-   reserved device memory after each capture; fails unless every kernel
-   launched. Then holds the replay's kernels (front-pack, meta row, int16
-   narrowing) against their plain versions at Q3's shapes and at edge
-   lengths, and times them.
+   Q1, Q2, Q3, V1, V2 and V3 records and captures the replay as a CUDA
+   graph, then 5 timed calls replay it, each equal to numpy, with the
+   statement holding exactly one captured plan whose replay counter
+   advanced; Q3, V2 and V3 at a lower ``k`` replay the same plan, Q3 and
+   V2 at a ``k`` past the recorded buckets re-record a second variant
+   (all equal to numpy); a small row query takes the direct-fetch buffer.
+   Prints record, capture and replay times, the replay's layers
+   (parameter upload, dispatch, device wait, fetch, marshal), its busy
+   share, the launches per replay and the reserved device memory after
+   each capture; fails unless every kernel launched, and the bitmap-BFS
+   kernels inside the V plans' replays. Then holds the replay's kernels
+   (front-pack, meta row, int16 narrowing) against their plain versions
+   at Q3's shapes and at edge lengths, and times them.
 
 The line before the last is one JSON object with every kernel's numbers
 (``launches`` from phase 5); the last line is ``{"ok": true, "device":
@@ -58,6 +65,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from orientdb_tpu_torch.storage.bigshape import (  # noqa: E402
     numpy_1hop_count,
     numpy_2hop_count,
+    numpy_has_out_neighbour,
+    numpy_var_depth_rows,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -78,7 +87,12 @@ REPLACES = {
     "front_pack": "orientdb_tpu/exec/tpu_engine.py:3030",
     "replay_meta": "orientdb_tpu/exec/tpu_engine.py:3041",
     "narrow_i16": "orientdb_tpu/exec/tpu_engine.py:3197",
+    "rows_to_bitmap": "orientdb_tpu/ops/csr.py:251",
+    "bitmap_hop": "orientdb_tpu/ops/csr.py:260",
+    "bitmap_emit": "orientdb_tpu/exec/tpu_engine.py:475",
+    "frontier_advance": "orientdb_tpu/exec/tpu_engine.py:2171",
 }
+BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop", "bitmap_emit", "frontier_advance"]
 #: the kernels a recording run launches (the replay's three are not on it)
 RECORD_KERNELS = [n for n in REPLACES if n not in ("front_pack", "replay_meta", "narrow_i16")]
 EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
@@ -102,6 +116,23 @@ Q3_K_OVERFLOW = 50_000
 # a 1-hop row query small enough for the direct-fetch buffer
 Q_DIRECT = "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f} RETURN p.uid AS p, f.uid AS f"
 Q_DIRECT_K = 100
+# variable-depth COUNT in the reference bench's shape (bench.py:1285)
+V1 = (
+    "MATCH {class:Person, as:p, where:(uid < 200)}"
+    "-knows->{as:f, while:($depth < 3), where:(age < 30)} RETURN count(*) AS n"
+)
+# variable-depth rows, both directions, with a depth alias
+V2 = (
+    "MATCH {class:Person, as:p, where:(uid < :k)}"
+    "-knows-{as:f, maxDepth:2, depthAlias:d} RETURN p.uid AS p, f.uid AS f, d AS d"
+)
+V2_K, V2_K_SMALLER, V2_K_OVERFLOW = 16, 8, 64
+# the NOT anti-join
+V3 = (
+    "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f}, "
+    "NOT {as:f}-knows->{where:(age > 70)} RETURN p.uid AS p, f.uid AS f"
+)
+V3_K, V3_K_SMALLER = 16, 8
 
 
 def _require(cond: bool, what: str) -> None:
@@ -330,6 +361,180 @@ def check_kernels(torch, K, dg) -> Kernels:
     return ks
 
 
+def check_bitmap_kernels(torch, K, ks, dg) -> None:
+    """K9–K12 against their plain versions at V1's shapes: one chunk of 8
+    binding rows (the roots 0..7), vb = bucket(V) = 2^23, the ~80M knows
+    edges in out-CSR order; on the roots and on two live BFS levels, in
+    both directions, with an edge mask, a WHILE gate, and at the edge
+    cases. Every result is bool or int32 and must be equal. Then times."""
+    from orientdb_tpu_torch.exec.tpu_engine import TpuMatchSolver
+
+    dev = dg.device
+    i32, b8 = torch.int32, torch.bool
+    dec = dg.edges["knows"]
+    V, E = dg.num_vertices, dec.num_edges
+    vb = K.bucket(V)
+    C = TpuMatchSolver._var_chunk_rows(512, vb)
+    _require(C == 8, f"V1's chunk is {C} rows, not 8")
+    src, dst = dec.edge_src, dec.dst
+    age = dg.columns["age"].values
+    pad = torch.zeros(vb - V, dtype=b8, device=dev)
+    young = torch.cat([age < 30, pad])  # V1's node mask
+    gate = torch.cat([age < 40, pad])  # a vertex WHILE gate
+    gen = torch.Generator(device=dev).manual_seed(9)
+    emask = torch.rand(E, generator=gen, device=dev) < 0.7
+
+    def same(name, got, want):
+        ks.same(name, got, want)
+
+    # -- K9 ------------------------------------------------------------------
+    roots = torch.arange(C, dtype=i32, device=dev)
+    odd = torch.tensor([-1, 5, vb + 3, -7, 0, V - 1, -1, 12], dtype=i32, device=dev)
+    for rows in (roots, odd, torch.full((C,), -1, dtype=i32, device=dev), roots[:0]):
+        same("rows_to_bitmap", K.rows_to_bitmap(rows, vb), K.plain_rows_to_bitmap(rows, vb))
+    fr0 = K.rows_to_bitmap(roots, vb)
+    alive0 = K.mask_count(roots >= 0)
+
+    # -- K10: two live levels, out and in, masked, gated, empty cases -----------
+    def hop_both(act, emit, m, fr, g=None, alive=None):
+        got = K.bitmap_hop(act, emit, m, fr, gate=g, alive=alive)
+        same("bitmap_hop", got, K.plain_bitmap_hop(act, emit, m, fr, g, alive))
+        return got
+
+    fr1 = hop_both(src, dst, None, fr0, alive=alive0)
+    fr2 = hop_both(src, dst, None, fr1, alive=K.mask_count(fr1.view(-1)))
+    _require(int(fr2.sum()) > 100 * C, "level 2 of the check is not live")
+    hop_both(dst, src, None, fr1)  # the in direction
+    hop_both(src, dst, emask, fr1)  # masked edges
+    hop_both(src, dst, None, fr1, g=gate)  # WHILE gate at the active endpoint
+    acc = K.bitmap_hop(src, dst, None, fr1)  # both directions, ORed in place
+    K.bitmap_hop(dst, src, None, fr1, out=acc)
+    same("bitmap_hop", acc, K.plain_bitmap_hop(src, dst, None, fr1) | K.plain_bitmap_hop(dst, src, None, fr1))
+    zero_fr = torch.zeros_like(fr1)
+    hop_both(src, dst, None, zero_fr, alive=torch.zeros((), dtype=i32, device=dev))
+    empty = src[:0]
+    hop_both(empty, empty, None, fr1)
+    hop_both(src, dst, None, K.rows_to_bitmap(torch.full((C,), -1, dtype=i32, device=dev), vb))
+    # duplicate targets with mixed activity, and endpoints to clip
+    few = torch.randint(0, 3, (4096,), generator=gen, device=dev, dtype=i32)
+    act = torch.randint(-2, 64, (4096,), generator=gen, device=dev, dtype=i32)
+    small = torch.rand((C, 64), generator=gen, device=dev) < 0.3
+    hop_both(act, few, None, small)
+    hop_both(act, few + 62, emask[:4096].contiguous(), small)
+
+    # -- K11: open and close emissions, each output --------------------------
+    bound = torch.tensor([-2, -1, 0, 5, vb - 1, -2, 7, 3], dtype=i32, device=dev)
+    hits = torch.nonzero(fr2[:, :V]).to(i32)  # a reached (row, vertex) per row
+    for r in range(C):
+        rv = hits[hits[:, 0] == r]
+        if r % 2 == 0 and rv.shape[0]:
+            bound[r] = rv[0, 1]
+    for reached in (fr0, fr1, fr2, zero_fr):
+        for b in (None, bound):
+            got = K.bitmap_emit(reached, young, b, emit=True, any_row=True, count=True)
+            same("bitmap_emit", got, K.plain_bitmap_emit(reached, young, b, True, True, True))
+            (_e, _a, c_only) = K.bitmap_emit(reached, young, b, emit=False, count=True)
+            same("bitmap_emit", c_only, got[2])
+    same("bitmap_emit", K.bitmap_emit(small, few[:64] > 0, None, True, True, True),
+         K.plain_bitmap_emit(small, few[:64] > 0, None, True, True, True))
+
+    # -- K12: the level step, in place ------------------------------------------
+    for nxt, vis in ((fr1, fr0 | fr1), (fr2, fr0 | fr1), (fr2, zero_fr), (small, small.roll(1, 1))):
+        n1, v1, n2, v2 = nxt.clone(), vis.clone(), nxt.clone(), vis.clone()
+        got = K.frontier_advance(n1, v1)
+        want = K.plain_frontier_advance(n2, v2)
+        same("frontier_advance", (n1, v1, got), (n2, v2, want))
+    torch.cuda.synchronize()
+
+    # -- times at V1's shapes -------------------------------------------------------
+    ks.timed(
+        "rows_to_bitmap",
+        lambda: K.rows_to_bitmap(roots, vb),
+        lambda: K.plain_rows_to_bitmap(roots, vb),
+        None,  # F.one_hot refuses the -1 ids and returns int64
+        4.0 * C + C * vb,
+    )
+    alive1 = K.mask_count(fr1.view(-1))
+    in_csr = None
+    try:
+        # the hop as one sparse product: counts of active in-edges per
+        # (vertex, row), the transposed adjacency in CSR (rows = dst)
+        crow = torch.cat([dec.indptr_in, dec.indptr_in[-1:].expand(vb - V)])
+        in_csr = torch.sparse_csr_tensor(
+            crow, dec.src, torch.ones(E, device=dev), size=(vb, vb)
+        )
+        fr1_t = fr1.t().float().contiguous()
+    except (RuntimeError, TypeError) as e:
+        print(f"library call for bitmap_hop refused: {e}")
+    ks.timed(
+        "bitmap_hop",
+        lambda: K.bitmap_hop(src, dst, None, fr1, alive=alive1),
+        lambda: K.plain_bitmap_hop(src, dst, None, fr1, None, alive1),
+        None if in_csr is None else (lambda: torch.sparse.mm(in_csr, fr1_t)),
+        8.0 * E + 2.0 * C * vb + 4.0,
+    )
+    ks.timed(
+        "bitmap_emit",
+        lambda: K.bitmap_emit(fr2, young, None, emit=False, count=True),
+        lambda: K.plain_bitmap_emit(fr2, young, None, False, False, True),
+        None,  # a logical_and then a count_nonzero: two calls
+        1.0 * C * vb + vb + 4.0,
+    )
+    n_t, v_t = fr2.clone(), (fr0 | fr1).clone()
+    ks.timed(
+        "frontier_advance",
+        lambda: K.frontier_advance(n_t, v_t),
+        lambda: K.plain_frontier_advance(n_t, v_t),
+        None,  # an in-place and-not, an or and a count: three calls at least
+        4.0 * C * vb + 4.0,
+    )
+    for name, fn in (
+        ("bitmap_hop (empty frontier, early exit)", lambda: K.bitmap_hop(src, dst, None, zero_fr, alive=torch.zeros((), dtype=i32, device=dev))),
+        ("bitmap_hop (in direction)", lambda: K.bitmap_hop(dst, src, None, fr1, alive=alive1)),
+        ("bitmap_emit (emit + count)", lambda: K.bitmap_emit(fr2, young, None, emit=True, count=True)),
+    ):
+        print(f"kernel {name}: {_time_ms(torch, fn):.4f} ms")
+    torch.cuda.synchronize()
+    print(f"bitmap kernels: equal their plain versions at C={C}, vb={vb}, E={E}")
+
+
+class VRef:
+    """numpy answers of V1–V3 from the host arrays, by k."""
+
+    def __init__(self, np, snap):
+        self.np, self.snap = np, snap
+        age = snap.v_columns["age"].values
+        self.v1 = int(numpy_var_depth_rows(snap, range(200), "out", age < 30, while_depth=3).shape[0])
+        self._drop = numpy_has_out_neighbour(snap, age > 70)
+        self._v2, self._v3 = {}, {}
+
+    def v2(self, k):
+        if k not in self._v2:
+            ones = self.np.ones(self.snap.num_vertices, bool)
+            self._v2[k] = numpy_var_depth_rows(self.snap, range(k), "both", ones, max_depth=2)
+        return self._v2[k]
+
+    def v3(self, k):
+        np = self.np
+        if k not in self._v3:
+            csr = self.snap.edge_classes["knows"]
+            p = np.repeat(np.arange(k), np.diff(csr.indptr_out[: k + 1]))
+            f = csr.dst[: csr.indptr_out[k]].astype(np.int64)
+            rows = np.stack([p, f], 1)[~self._drop[f]]
+            self._v3[k] = rows[np.lexsort(rows.T[::-1])]
+        return self._v3[k]
+
+    def check(self, name, rows, params):
+        np = self.np
+        if name == "V1":
+            _require(rows == [{"n": self.v1}], f"V1 {rows} != numpy {self.v1}")
+            return
+        cols = ("p", "f", "d") if name == "V2" else ("p", "f")
+        want = self.v2(params["k"]) if name == "V2" else self.v3(params["k"])
+        got = _sorted_rows(np, rows, cols)
+        _require(got.shape == want.shape and np.array_equal(got, want), f"{name} k={params['k']} rows differ from numpy")
+
+
 def numpy_q3_rows(np, snap, k: int):
     """Sorted (p, f, g) rows of Q3 from the host arrays."""
     csr = snap.edge_classes["knows"]
@@ -348,7 +553,7 @@ def numpy_q3_rows(np, snap, k: int):
     return rows[np.lexsort(rows.T[::-1])]
 
 
-def run_slice(np, torch, K, db, snap, card: str):
+def run_slice(np, torch, K, db, snap, card: str, vref: VRef):
     """Phase 4: the main path through ``db.query``, with the launch counts
     zeroed just before it and read just after. Returns the counts."""
     V = snap.num_vertices
@@ -357,21 +562,26 @@ def run_slice(np, torch, K, db, snap, card: str):
     want2 = numpy_2hop_count(snap, age > 40, np.ones(V, bool), age < 30)
     want3 = numpy_q3_rows(np, snap, Q3_K)
     sync = torch.cuda.synchronize if db.device.type == "cuda" else (lambda: None)
+    queries = (
+        ("Q1", Q1, None),
+        ("Q2", Q2, None),
+        ("Q3", Q3, {"k": Q3_K}),
+        ("V1", V1, None),
+        ("V2", V2, {"k": V2_K}),
+        ("V3", V3, {"k": V3_K}),
+    )
+    results = {}
     K.reset_launches()
-    r1 = db.query(Q1).to_dicts()
-    sync()
-    after1 = dict(K.LAUNCHES)
-    r2 = db.query(Q2).to_dicts()
-    sync()
-    after2 = dict(K.LAUNCHES)
-    r3 = db.query(Q3, {"k": Q3_K}).to_dicts()
-    sync()
-    launches = dict(K.LAUNCHES)
-    for name, before, after in (
-        ("Q1", {}, after1), ("Q2", after1, after2), ("Q3", after2, launches)
-    ):
-        per = {k: after[k] - before.get(k, 0) for k in after}
+    before = dict(K.LAUNCHES)
+    for name, sql, params in queries:
+        results[name] = db.query(sql, params).to_dicts()
+        sync()
+        after = dict(K.LAUNCHES)
+        per = {k: after[k] - before[k] for k in after}
         print(f"launches {name}: {sum(per.values())} {per}")
+        before = after
+    launches = dict(K.LAUNCHES)
+    r1, r2, r3 = results["Q1"], results["Q2"], results["Q3"]
     _require(r1 == [{"n": want1}], f"Q1 {r1} != numpy {want1}")
     _require(r2 == [{"n": want2}], f"Q2 {r2} != numpy {want2}")
     got3 = np.array([(r["p"], r["f"], r["g"]) for r in r3], np.int64).reshape(-1, 3)
@@ -380,15 +590,17 @@ def run_slice(np, torch, K, db, snap, card: str):
         got3.shape == want3.shape and np.array_equal(got3, want3),
         "Q3 rows differ from numpy",
     )
+    for name, _sql, params in queries[3:]:
+        vref.check(name, results[name], params)
     if db.device.type == "cuda":
         missing = [n for n in RECORD_KERNELS if launches[n] == 0]
         _require(not missing, f"kernels never launched on the recording path: {missing}")
-    print(f"record: Q1={want1} Q2={want2} Q3 rows={len(r3)}; launches {launches}")
-    for name, sql, params, rows in (
-        ("Q1", Q1, None, 1),
-        ("Q2", Q2, None, 1),
-        ("Q3", Q3, {"k": Q3_K}, len(r3)),
-    ):
+    print(
+        f"record: Q1={want1} Q2={want2} Q3 rows={len(r3)} V1={vref.v1} "
+        f"V2 rows={len(results['V2'])} V3 rows={len(results['V3'])}; launches {launches}"
+    )
+    for name, sql, params in queries:
+        rows = len(results[name])
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -430,7 +642,7 @@ def _only_plan(TE, snap, sql):
     return found[0]
 
 
-def run_replay(np, torch, K, db, snap, card: str):
+def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
     """Phase 5: the replay path through ``db.query`` with the plan cache
     on, launch counts zeroed just before it and read just after. Returns
     (launches, the Q3 plan)."""
@@ -445,7 +657,9 @@ def run_replay(np, torch, K, db, snap, card: str):
     q3_want = {k: numpy_q3_rows(np, snap, k) for k in (Q3_K, Q3_K_SMALLER, Q3_K_OVERFLOW)}
 
     def check(name, rows, params):
-        if name in want:
+        if name.startswith("V"):
+            vref.check(name, rows, params)
+        elif name in want:
             _require(rows == want[name], f"{name} {rows} != numpy {want[name]}")
         elif name == "Q3":
             got = _sorted_rows(np, rows, ("p", "f", "g"))
@@ -464,6 +678,9 @@ def run_replay(np, torch, K, db, snap, card: str):
         ("Q2", Q2, None),
         ("Q3", Q3, {"k": Q3_K}),
         ("direct", Q_DIRECT, {"k": Q_DIRECT_K}),
+        ("V1", V1, None),
+        ("V2", V2, {"k": V2_K}),
+        ("V3", V3, {"k": V3_K}),
     ):
         t0 = time.perf_counter()
         rows = db.query(sql, params).to_dicts()
@@ -494,6 +711,34 @@ def run_replay(np, torch, K, db, snap, card: str):
         print(f"replay device {name}: {device_share(torch, db, sql, params, med)}")
         plans[name] = plan
     _require(plans["direct"].direct_fetch and not plans["Q3"].direct_fetch, "direct-fetch path not taken")
+    # the bitmap-BFS kernels run inside the V plans' captured replays
+    for name, kernels in (("V1", BITMAP_KERNELS), ("V2", BITMAP_KERNELS), ("V3", BITMAP_KERNELS[:3])):
+        missing = [n for n in kernels if plans[name].launches.get(n, 0) == 0]
+        _require(not missing, f"{name}: {missing} not in its captured replay")
+
+    # parameter-generic V2 and V3: a lower k replays the recorded plan, V2
+    # past its root buckets re-records a second variant
+    for name, sql, k in (("V2", V2, V2_K_SMALLER), ("V3", V3, V3_K_SMALLER)):
+        plan = plans[name]
+        replays = plan.replays
+        rows = db.query(sql, {"k": k}).to_dicts()
+        check(name, rows, {"k": k})
+        _require(plan.replays == replays + 1 and len(_only_plan(TE, snap, sql).plans) == 1, f"{name} k={k} did not replay")
+        print(f"replay {name} k={k}: {len(rows)} rows from the k={V2_K if name == 'V2' else V3_K} plan")
+    v2 = plans["V2"]
+    t0 = time.perf_counter()
+    rows = db.query(V2, {"k": V2_K_OVERFLOW}).to_dicts()
+    sync()
+    over_ms = (time.perf_counter() - t0) * 1e3
+    check("V2", rows, {"k": V2_K_OVERFLOW})
+    variants = _only_plan(TE, snap, V2)
+    _require(len(variants.plans) == 2 and variants.plans[1] is v2, "V2 k=64 did not re-record a second variant")
+    big = variants.plans[0]
+    print(
+        f"replay V2 k={V2_K_OVERFLOW}: {len(rows)} rows; the k={V2_K} plan overflowed and a second variant "
+        f"recorded (width {big.width} vs {v2.width}) and captured in {over_ms:.3f} ms "
+        f"(capture {big.capture_ms:.3f} ms, reserved {big.reserved_bytes} bytes)"
+    )
 
     # parameter-generic Q3: under capacity it replays the recorded plan, past
     # the recorded buckets it re-records into a second variant
@@ -654,6 +899,28 @@ def check_replay_kernels(torch, K, ks, plan, params) -> None:
     print(f"replay kernels: equal their plain versions at W={W}, C={C}, live rows {live}")
 
 
+def time_node_masks(torch, db, card: str) -> None:
+    """Q1's two node masks evaluated over the [vb] vertex universe (the
+    compiled predicates: column gathers through `take_pad` and torch
+    elementwise ops), eagerly and inside a captured graph, beside their
+    byte bound: the ids read, each column read once, the mask written."""
+    from orientdb_tpu_torch.exec.tpu_engine import TpuMatchSolver
+    from orientdb_tpu_torch.sql.parser import parse
+
+    solver = TpuMatchSolver(db, parse(Q1), {})
+    V = solver.dg.num_vertices
+    vb, univ = solver._universe()
+    # p: class Person (v_class, 4 bytes) AND age > 40 (values 4 + presence 1)
+    for alias, col_bytes in (("p", 9.0 * V), ("f", 5.0 * V)):
+        fn = lambda a=alias: solver._node_masks[a](univ)  # noqa: E731
+        bound_ms = (4.0 * vb + col_bytes + vb) / HBM_BYTES_PER_S * 1e3
+        print(
+            f"predicate Q1 node mask {alias}: {_time_ms(torch, fn):.4f} ms eager, "
+            f"{_graph_ms(torch, fn):.4f} ms in a captured graph, bound {bound_ms:.4f} ms "
+            f"over vb={vb} [{card}]"
+        )
+
+
 def query_layers(torch, db, sql, params, sync) -> str:
     """Median ms of the query's layers over 3 runs: parse + plan + predicate
     compile, the device solve (with its host syncs), and row marshalling."""
@@ -718,6 +985,7 @@ def main() -> int:
     from orientdb_tpu_torch.storage.bigshape import build_person_knows
     from orientdb_tpu_torch.utils.config import config
 
+    t_start = time.perf_counter()
     # 1. device
     _require(torch.cuda.is_available(), "CUDA is not available")
     card = subprocess.run(
@@ -745,14 +1013,22 @@ def main() -> int:
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
     ks = check_kernels(torch, K, dg)
+    check_bitmap_kernels(torch, K, ks, dg)
     print(f"kernels: all equal their plain versions ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    vref = VRef(np, snap)
+    print(f"numpy references of V1–V3: {time.perf_counter() - t0:.1f} s")
+
+    time_node_masks(torch, db, card)
 
     # 4. the recording path through the port's front door (cache off)
     torch.cuda.reset_peak_memory_stats()
     cache_size = config.plan_cache_size
     config.plan_cache_size = 0
     try:
-        run_slice(np, torch, K, db, snap, card)
+        t0 = time.perf_counter()
+        run_slice(np, torch, K, db, snap, card, vref)
+        print(f"record phase: {time.perf_counter() - t0:.1f} s")
     finally:
         config.plan_cache_size = cache_size
     mem = dg.memory_report()
@@ -764,7 +1040,9 @@ def main() -> int:
 
     # 5. the replay path: record + capture once, then captured replays
     torch.cuda.reset_peak_memory_stats()
-    launches, q3_plan = run_replay(np, torch, K, db, snap, card)
+    t0 = time.perf_counter()
+    launches, q3_plan = run_replay(np, torch, K, db, snap, card, vref)
+    print(f"replay phase: {time.perf_counter() - t0:.1f} s")
     print(f"memory: peak allocated during the replay path {torch.cuda.max_memory_allocated()} bytes")
     check_replay_kernels(torch, K, ks, q3_plan, {"k": Q3_K})
 
@@ -778,6 +1056,7 @@ def main() -> int:
         )
     _require(set(ks.rows) == set(REPLACES), "a kernel was not timed")
     _require(all(r["launches"] > 0 for r in ks.rows.values()), "a kernel never launched")
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [ks.rows[n] for n in REPLACES]}))
     print(
         json.dumps(

@@ -1,8 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for the CSR primitives of the
-// compiled MATCH path and for the result stage of a captured replay. Port of
-// the jitted functions of orientdb_tpu/ops/csr.py and of the front-pack,
-// meta and page functions of orientdb_tpu/exec/tpu_engine.py; the wrappers are in orientdb_tpu_torch/ops/csr.py
-// and bind these functions through ctypes (orientdb_tpu_torch/ops/_kernels.py).
+// compiled MATCH path, the bitmap BFS of variable-depth and NOT arms, and
+// the result stage of a captured replay. Port of the jitted functions of
+// orientdb_tpu/ops/csr.py and of the level emission, level step, front-pack,
+// meta and page functions of orientdb_tpu/exec/tpu_engine.py; the wrappers
+// are in orientdb_tpu_torch/ops/csr.py and bind these functions through
+// ctypes (orientdb_tpu_torch/ops/_kernels.py).
 //
 // Build:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -410,6 +412,199 @@ __global__ void narrow_i16_kernel(const int* __restrict__ in, long long n,
   if (i < n) out[i] = static_cast<short>(static_cast<unsigned short>(in[i] & 0xffff));
 }
 
+// ---------------------------------------------------------------------------
+// K9–K12: the bitmap BFS of variable-depth MATCH arms and of NOT arms.
+// A frontier is a [C, vb] bool bitmap (one byte a vertex, row c for binding
+// row c of a chunk), vb = bucket(V) = 2^23 at 8M vertices and C = 8, so one
+// bitmap is 64 MiB. bool bytes are 0 or 1, so a 32-bit word of them ANDs,
+// ORs and popcounts (__popc counts set bytes) as four flags at once.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kMaxBlocks = 132 * 32;  // grid-stride loops: 32 blocks an SM
+
+inline unsigned grid_for(long long n, long long per_thread) {
+  long long b = (n + kThreads * per_thread - 1) / (kThreads * per_thread);
+  if (b < 1) b = 1;
+  return static_cast<unsigned>(b < kMaxBlocks ? b : kMaxBlocks);
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// Adds each thread's `c` into *out: warp shuffles, one atomic a warp.
+__device__ inline void warp_count_add(unsigned c, unsigned* out) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(kFull, c, o);
+  if ((threadIdx.x & 31) == 0 && c) atomicAdd(out, c);
+}
+
+union Bytes16 {
+  uint4 v;
+  unsigned w[4];
+  unsigned char b[16];
+};
+
+// ---------------------------------------------------------------------------
+// K9: rows_to_bitmap (replaces csr.rows_to_bitmap, orientdb_tpu/ops/csr.py:251).
+// Bound: C*4 bytes read, C*vb written (64 MiB at C = 8: ~0.02 ms). The
+// entry point zeroes the bitmap (cudaMemsetAsync, the write bound) and one
+// thread per row sets its clipped column; a row id < 0 leaves its row zero.
+// ---------------------------------------------------------------------------
+__global__ void rows_to_bitmap_kernel(const int* __restrict__ rows, long long c,
+                                      long long vb, unsigned char* __restrict__ out) {
+  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= c) return;
+  int r = rows[i];
+  if (r < 0) return;
+  long long col = r < vb ? r : vb - 1;  // jnp.clip(rows, 0, vb - 1)
+  out[i * vb + col] = 1;
+}
+
+// ---------------------------------------------------------------------------
+// K10: bitmap_hop (replaces csr.bitmap_hop, orientdb_tpu/ops/csr.py:260, as
+// build_bitmap_hops drives it, orientdb_tpu/exec/tpu_engine.py:487).
+// out[c, emit[e]] |= frontier[c, act[e]] & mask[e] (& gate[act[e]]).
+// Bound: 8 bytes of endpoints (+1 of mask, +1 of gate) an edge, the
+// frontier read once and `out` written once: 9*E + 2*64 MiB ~ 0.85 GB,
+// ~0.25 ms at E = 80M. Design: a grid-stride loop over the edges, one edge
+// a thread; per edge the C frontier bytes at the active endpoint are read
+// (out-CSR order makes `act` = edge_src ascending for an out hop, so those
+// reads coalesce; an in hop reads them scattered) and a 1 is stored at the
+// emitted endpoint only where a row is active. Threads that race on one
+// byte all store 1, so no atomics are needed; a 0 is never stored (the
+// entry point zeroes `out` first, or accumulates into it). `alive` (may be
+// null) is the frontier's popcount on the device (K12's, or the roots'):
+// when it is 0 every thread returns at once, so the many hops that walk an
+// empty frontier cost a memset and a launch. The optional `gate` is the
+// WHILE condition at the level being expanded, read at the active endpoint
+// (the reference's `frontier & gate[None, :]`, folded in).
+// ---------------------------------------------------------------------------
+__global__ void bitmap_hop_kernel(const int* __restrict__ act,
+                                  const int* __restrict__ emit,
+                                  const unsigned char* __restrict__ emask,
+                                  long long ne,
+                                  const unsigned char* __restrict__ frontier,
+                                  const unsigned char* __restrict__ gate,
+                                  long long c, long long vb,
+                                  const int* __restrict__ alive,
+                                  unsigned char* __restrict__ out) {
+  if (alive != nullptr && *alive == 0) return;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       e < ne; e += stride) {
+    if (emask != nullptr && !emask[e]) continue;
+    long long a = act[e];
+    a = a < 0 ? 0 : (a < vb ? a : vb - 1);  // jnp.clip(act_idx, 0, vb - 1)
+    if (gate != nullptr && !gate[a]) continue;
+    long long m = emit[e];
+    m = m < 0 ? 0 : (m < vb ? m : vb - 1);  // jnp.clip(emit_idx, 0, vb - 1)
+    for (long long r = 0; r < c; ++r) {
+      if (frontier[r * vb + a]) out[r * vb + m] = 1;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K11: bitmap_emit (replaces tpu_engine._var_emit_mask,
+// orientdb_tpu/exec/tpu_engine.py:475, with the level sums of the COUNT
+// path :2136-2138 and the NOT arm's cur.any(axis=1) :1335).
+// emit = reached & node[None, :] (& column == bound[c]); outputs (each may
+// be null): the emit bitmap, a per-row any, and the popcount (an int32
+// device scalar). Bound: C*vb + vb bytes read, C*vb written when the
+// bitmap is asked for (~0.04 ms), else 4 bytes (~0.02 ms). Design: 16
+// bytes a thread in a grid-stride loop when vb is a multiple of 16 and the
+// pointers are 16-byte aligned (a group never straddles two rows), one
+// byte a thread otherwise; `node` is re-read once a row and stays in L2.
+// The any flags store only 1s (benign races on a zeroed row flag); the
+// count adds per warp into the zeroed scalar.
+// ---------------------------------------------------------------------------
+template <bool kVec>
+__global__ void bitmap_emit_kernel(const unsigned char* __restrict__ reached,
+                                   const unsigned char* __restrict__ node,
+                                   const int* __restrict__ bound, long long c,
+                                   long long vb, unsigned char* __restrict__ emit,
+                                   unsigned char* __restrict__ any,
+                                   unsigned* __restrict__ count) {
+  constexpr long long kW = kVec ? 16 : 1;
+  const long long groups = c * vb / kW;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  unsigned cnt = 0;
+  for (long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       g < groups; g += stride) {
+    const long long i = g * kW;
+    const long long row = i / vb;
+    const long long col0 = i - row * vb;
+    unsigned n_set;
+    if constexpr (kVec) {
+      Bytes16 x, y;
+      x.v = reinterpret_cast<const uint4*>(reached)[g];
+      y.v = reinterpret_cast<const uint4*>(node + col0)[0];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x.w[k] &= y.w[k];
+      if (bound != nullptr) {
+        const long long b = bound[row];
+        const bool inside = b >= col0 && b < col0 + 16;
+        const unsigned char keep = inside ? x.b[b - col0] : 0;
+        x.v = make_uint4(0, 0, 0, 0);
+        if (inside) x.b[b - col0] = keep;
+      }
+      n_set = __popc(x.w[0]) + __popc(x.w[1]) + __popc(x.w[2]) + __popc(x.w[3]);
+      if (emit != nullptr) reinterpret_cast<uint4*>(emit)[g] = x.v;
+    } else {
+      unsigned char v = reached[i] & node[col0];
+      if (bound != nullptr && static_cast<long long>(bound[row]) != col0) v = 0;
+      n_set = v;
+      if (emit != nullptr) emit[i] = v;
+    }
+    if (any != nullptr && n_set) any[row] = 1;
+    cnt += n_set;
+  }
+  if (count != nullptr) warp_count_add(cnt, count);
+}
+
+// ---------------------------------------------------------------------------
+// K12: frontier_advance (replaces the level step of _expand_var_depth,
+// orientdb_tpu/exec/tpu_engine.py:2171-2176: nxt & ~visited, visited | nxt,
+// mask_count(nxt)). In place on both bitmaps: nxt &= ~visited;
+// visited |= nxt; the popcount of the new nxt into an int32 device scalar
+// (the level's alive observe, and K10's early exit on the next level).
+// Bound: 2 bitmaps read and written, 4*64 MiB ~ 0.08 ms. Design: 16 bytes
+// a thread (grid-stride) when the bitmaps are 16-byte aligned and a
+// multiple of 16 long, else one byte a thread; the count adds per warp.
+// ---------------------------------------------------------------------------
+template <bool kVec>
+__global__ void frontier_advance_kernel(unsigned char* __restrict__ nxt,
+                                        unsigned char* __restrict__ visited,
+                                        long long n, unsigned* __restrict__ count) {
+  constexpr long long kW = kVec ? 16 : 1;
+  const long long groups = n / kW;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  unsigned cnt = 0;
+  for (long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+       g < groups; g += stride) {
+    if constexpr (kVec) {
+      Bytes16 x, v;
+      x.v = reinterpret_cast<const uint4*>(nxt)[g];
+      v.v = reinterpret_cast<const uint4*>(visited)[g];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        x.w[k] &= ~v.w[k];
+        v.w[k] |= x.w[k];
+        cnt += __popc(x.w[k]);
+      }
+      reinterpret_cast<uint4*>(nxt)[g] = x.v;
+      reinterpret_cast<uint4*>(visited)[g] = v.v;
+    } else {
+      unsigned char x = nxt[g] & static_cast<unsigned char>(!visited[g]);
+      nxt[g] = x;
+      visited[g] |= x;
+      cnt += x;
+    }
+  }
+  warp_count_add(cnt, count);
+}
+
 }  // namespace
 
 extern "C" {
@@ -579,6 +774,93 @@ int csr_narrow_i16(const void* in, long long n, void* out, void* stream) {
     narrow_i16_kernel<<<blocks_for(n, kThreads), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(in), n, static_cast<short*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int csr_rows_to_bitmap(const void* rows, long long c, long long vb, void* out,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c * vb > 0) {
+    cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(c * vb), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rows_to_bitmap_kernel<<<blocks_for(c, kThreads), kThreads, 0, s>>>(
+        static_cast<const int*>(rows), c, vb, static_cast<unsigned char*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `emask`, `gate` and `alive` may be null (every edge / no WHILE gate / no
+// early exit). With `zero_out` the entry point clears `out` first; without,
+// the hop ORs into it (the second direction of a `both` arm, or another
+// edge class).
+int csr_bitmap_hop(const void* act, const void* emit, const void* emask,
+                   long long ne, const void* frontier, const void* gate,
+                   long long c, long long vb, const void* alive, int zero_out,
+                   void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (zero_out && c * vb > 0) {
+    cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(c * vb), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (ne > 0 && c > 0 && vb > 0) {
+    bitmap_hop_kernel<<<grid_for(ne, 1), kThreads, 0, s>>>(
+        static_cast<const int*>(act), static_cast<const int*>(emit),
+        static_cast<const unsigned char*>(emask), ne,
+        static_cast<const unsigned char*>(frontier),
+        static_cast<const unsigned char*>(gate), c, vb,
+        static_cast<const int*>(alive), static_cast<unsigned char*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `bound`, `emit`, `any` and `count` may be null. `any` ([C] bytes) and
+// `count` (one int32) are zeroed here before the pass.
+int csr_bitmap_emit(const void* reached, const void* node, const void* bound,
+                    long long c, long long vb, void* emit, void* any, void* count,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (any != nullptr && c > 0) {
+    e = cudaMemsetAsync(any, 0, static_cast<size_t>(c), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (count != nullptr) {
+    e = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long n = c * vb;
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const bool vec = vb % 16 == 0 && aligned16(reached) && aligned16(node) &&
+                   (emit == nullptr || aligned16(emit));
+  const unsigned char* r = static_cast<const unsigned char*>(reached);
+  const unsigned char* nd = static_cast<const unsigned char*>(node);
+  const int* b = static_cast<const int*>(bound);
+  unsigned char* em = static_cast<unsigned char*>(emit);
+  unsigned char* an = static_cast<unsigned char*>(any);
+  unsigned* cn = static_cast<unsigned*>(count);
+  if (vec) {
+    bitmap_emit_kernel<true><<<grid_for(n, 16), kThreads, 0, s>>>(r, nd, b, c, vb, em, an, cn);
+  } else {
+    bitmap_emit_kernel<false><<<grid_for(n, 1), kThreads, 0, s>>>(r, nd, b, c, vb, em, an, cn);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Both bitmaps hold `n` bytes; `count` (one int32) is zeroed here.
+int csr_frontier_advance(void* nxt, void* visited, long long n, void* count,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  unsigned char* x = static_cast<unsigned char*>(nxt);
+  unsigned char* v = static_cast<unsigned char*>(visited);
+  unsigned* cn = static_cast<unsigned*>(count);
+  if (n % 16 == 0 && aligned16(nxt) && aligned16(visited)) {
+    frontier_advance_kernel<true><<<grid_for(n, 16), kThreads, 0, s>>>(x, v, n, cn);
+  } else {
+    frontier_advance_kernel<false><<<grid_for(n, 1), kThreads, 0, s>>>(x, v, n, cn);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,9 +11,15 @@ As in the reference:
 - each pattern-edge hop is a batched CSR count → scan → gather
   (`ops/csr.py`, hand-written CUDA kernels on the card) with node WHERE
   clauses applied as columnar masks (`ops/predicates.py`);
+- a variable-depth arm (``while:`` / ``maxDepth:`` / ``depthAlias:``) walks
+  the graph breadth-first in chunks of binding rows, one ``[rows,
+  bucket(V)]`` bool bitmap per chunk and level (the bitmap-BFS kernels
+  K9–K12), emitting each vertex at its minimum discovery depth; a NOT arm
+  is the same bitmap chain run as an anti-join;
 - a lone ``RETURN count(*)`` collapses its terminal chain of hops into
-  per-vertex weight passes over the edge list (the COUNT pushdown), with a
-  float32 twin that refuses int32 overflow;
+  per-vertex weight passes over the edge list (the COUNT pushdown), or a
+  terminal variable-depth arm into per-level popcounts, with a float32
+  twin that refuses int32 overflow;
 - rows marshal through the reference's columnar fast path and the
   DISTINCT / ORDER BY / SKIP / LIMIT tail.
 
@@ -89,6 +95,8 @@ class Table:
         self.device = device
         #: alias → int32 [width] dense vertex index (-1 null / padding)
         self.cols: Dict[str, torch.Tensor] = {}
+        #: depth alias → int32 [width] discovery depth (-1 null / padding)
+        self.depth_cols: Dict[str, torch.Tensor] = {}
         self.count = count  # valid rows; starts at 1 (the empty binding)
         self.width = width  # bucketed column length (0 = no columns yet)
         #: device twin of `count` (0-d int32); None until a step sets it
@@ -118,6 +126,8 @@ class Table:
         t = Table(self.device, count=self.count, width=int(rows.shape[0]))
         for a, c in self.cols.items():
             t.cols[a] = K.take_pad(c, rows, -1)
+        for a, c in self.depth_cols.items():
+            t.depth_cols[a] = K.take_pad(c, rows, -1)
         t.valid = K.take_pad(self.valid_device, rows, 0)
         return t
 
@@ -137,6 +147,8 @@ def _concat_tables(parts: List[Table], counts: List[int], device) -> Table:
         out.count_dev = out.count_dev + p.count_device
     for a in parts[0].cols.keys():
         out.cols[a] = _pad_concat([p.cols[a] for p in parts], out.width, device)
+    for a in parts[0].depth_cols.keys():
+        out.depth_cols[a] = _pad_concat([p.depth_cols[a] for p in parts], out.width, device)
     out.valid = _pad_concat([p.valid_device for p in parts], out.width, device, pad=0)
     return out
 
@@ -162,11 +174,18 @@ def _cap_of(n: int) -> int:
     return K.bucket(max(1, int(n * config.schedule_headroom)))
 
 
-def _observe_compact(sched: "SizeSchedule", mask: torch.Tensor, min_capacity: int = 0):
+def _observe_compact(
+    sched: "SizeSchedule",
+    mask: torch.Tensor,
+    min_capacity: int = 0,
+    count_dev: Optional[torch.Tensor] = None,
+):
     """Shared compaction protocol: surviving-row indices sized via the
     schedule (one blocking sync on the recording run, free on a replay).
+    ``count_dev`` is the mask's popcount when the caller has it already.
     Returns (indices, host count, device count)."""
-    count_dev = K.mask_count(mask)
+    if count_dev is None:
+        count_dev = K.mask_count(mask)
     count = sched.observe(count_dev, min_capacity=min_capacity)
     return (
         K.compact_indices(mask, max(min_capacity, _cap_of(count))),
@@ -294,6 +313,40 @@ def build_plan(pattern: Pattern, interp: MatchInterpreter) -> List[PlanStep]:
 
 
 # ---------------------------------------------------------------------------
+# bitmap hops (variable-depth arms and NOT arms)
+# ---------------------------------------------------------------------------
+
+
+def build_bitmap_hops(dg: DeviceGraph, items) -> List:
+    """Frontier-hop closures for ``(class, direction)`` items over each
+    class's flat edge list in out-CSR order: an out hop activates on
+    ``edge_src`` and emits ``dst``, an in hop the reverse. Each closure
+    maps a ``[C, vb]`` frontier (with an optional WHILE ``gate``, the
+    frontier's device popcount ``alive``, and an ``out`` bitmap to OR
+    into) to the bitmap of the vertices reached (`K.bitmap_hop`). Reading
+    ``edge_src`` uploads it on the recording run."""
+    hops = []
+    for cname, d in items:
+        dec = dg.edges[cname]
+        a, em = (dec.edge_src, dec.dst) if d == "out" else (dec.dst, dec.edge_src)
+        hops.append(
+            lambda fr, gate=None, alive=None, out=None, a=a, em=em: K.bitmap_hop(
+                a, em, None, fr, gate, alive, out
+            )
+        )
+    return hops
+
+
+def _run_hops(hops, frontier, gate=None, alive=None) -> torch.Tensor:
+    """OR of every hop of a level: the first writes a zeroed bitmap, the
+    others OR into it (zeros when the arm has no edge class)."""
+    out = None
+    for hop in hops:
+        out = hop(frontier, gate, alive, out)
+    return torch.zeros_like(frontier) if out is None else out
+
+
+# ---------------------------------------------------------------------------
 # the solver
 # ---------------------------------------------------------------------------
 
@@ -323,24 +376,67 @@ class TpuMatchSolver:
         self._node_masks = {
             alias: self._compile_node(node) for alias, node in self.pattern.nodes.items()
         }
+        # WHILE conditions compile with $depth as a per-level scalar
+        self._while_fns: Dict[int, object] = {}
+        for e in self.pattern.edges:
+            w = e.item.target.while_cond
+            if w is not None:
+                self._while_fns[id(e)] = compile_predicate(
+                    w, self._vertex_scope(), self.param_box, allow_depth=True
+                )
+        # NOT arms: per arm (aliases, admission masks, path items) for the
+        # bitmap anti-join; the arm's own filters only, as in the reference
+        self._not_compiled = []
+        for path in self.not_paths:
+            sub = Pattern()
+            aliases = [sub.node(path.first).alias]
+            for it in path.items:
+                aliases.append(sub.node(it.target).alias)
+            masks = [self._compile_node(sub.nodes[a]) for a in aliases]
+            self._not_compiled.append((aliases, masks, list(path.items)))
 
     # -- compile-time gating ------------------------------------------------
 
     def _check_supported(self) -> None:
         """Refuse, with the reason, every MATCH shape this slice does not
-        compile."""
-        if self.not_paths:
-            raise Uncompilable("NOT arms are not compiled in this slice")
+        compile: the reference's own rules for NOT arms and variable-depth
+        arms, and edge binding, edge aliases, edge WHERE (the snapshot has
+        no edge property columns), OPTIONAL arms and rid filters."""
+        for path in self.not_paths:
+            for flt in [path.first] + [it.target for it in path.items]:
+                if flt is None:
+                    continue
+                if flt.while_cond is not None or flt.max_depth is not None:
+                    raise Uncompilable("variable-depth NOT arm")
+                if flt.optional or flt.depth_alias or flt.path_alias:
+                    raise Uncompilable("optional/depth/path alias in NOT arm")
+                if flt.rid is not None:
+                    raise Uncompilable("rid filter in NOT arm")
+                if flt.where is not None and _expr_uses_bindings(
+                    flt.where, self.pattern.nodes
+                ):
+                    raise Uncompilable("NOT-arm WHERE references bindings")
+            for it in path.items:
+                if (it.method or "").lower() in (
+                    "outv", "inv", "bothv", "oute", "ine", "bothe"
+                ):
+                    raise Uncompilable("method form in NOT arm")
+                f = it.edge_filter
+                if f is not None and f.alias:
+                    raise Uncompilable("edge alias in NOT arm")
+                if f is not None and f.where is not None:
+                    raise Uncompilable("edge WHERE in NOT arm")
         for e in self.pattern.edges:
             item = e.item
             if (item.method or "").lower() in (
                 "oute", "ine", "bothe", "outv", "inv", "bothv"
             ):
                 raise Uncompilable("edge binding (outE/inE/outV/inV arms)")
-            if item.target.while_cond is not None or item.target.max_depth is not None:
-                raise Uncompilable("variable-depth arm (WHILE / maxDepth)")
-            if item.target.path_alias or item.target.depth_alias:
-                raise Uncompilable("pathAlias / depthAlias")
+            if item.target.path_alias:
+                raise Uncompilable("pathAlias not compiled (per-path state)")
+            w = item.target.while_cond
+            if w is not None and _expr_uses_bindings(w, self.pattern.nodes):
+                raise Uncompilable("WHILE condition references bindings")
             if item.negated:
                 raise Uncompilable("negated path item")
             if self.interp._edge_is_optional(e):
@@ -367,21 +463,33 @@ class TpuMatchSolver:
             raise Uncompilable("GROUP BY / UNWIND")
         if self.count_only_name() is not None:
             return
+        depth_aliases = self._depth_aliases()
         for p in stmt.returns:
             e = p.expr
             if contains_aggregate(e):
                 raise Uncompilable("aggregate RETURN other than a lone count(*)")
+            if isinstance(e, A.Identifier) and e.name in depth_aliases:
+                continue
             if not (
                 isinstance(e, A.FieldAccess)
                 and isinstance(e.base, A.Identifier)
                 and e.base.name in self.pattern.nodes
             ):
                 raise Uncompilable(
-                    "RETURN shape needs host records (only alias.property "
-                    "and a lone count(*) are compiled)"
+                    "RETURN shape needs host records (only alias.property, "
+                    "depth aliases and a lone count(*) are compiled)"
                 )
             if e.name in self.snap.v_non_columnar or e.name.startswith("@"):
                 raise Uncompilable(f"RETURN of non-columnar property {e.name!r}")
+
+    def _depth_aliases(self) -> set:
+        """Depth aliases of the variable-depth arms (a depth column each)."""
+        out = set()
+        for e in self.pattern.edges:
+            t = e.item.target
+            if t.depth_alias and (t.while_cond is not None or t.max_depth is not None):
+                out.add(t.depth_alias)
+        return out
 
     # -- predicate compilation ---------------------------------------------
 
@@ -470,8 +578,16 @@ class TpuMatchSolver:
         return self._expand_csr(dec.indptr_in, dec.src, srcs)
 
     def solve_table(self) -> Table:
+        """The plan's steps, then the NOT anti-join, then the COUNT
+        pushdown or the variable-depth COUNT (the reference's order)."""
         pushdown = self._count_pushdown_steps()
-        steps = self.plan[: len(self.plan) - len(pushdown)] if pushdown else self.plan
+        var_count = None if pushdown else self._var_count_step()
+        if pushdown:
+            steps = self.plan[: len(self.plan) - len(pushdown)]
+        elif var_count is not None:
+            steps = self.plan[:-1]
+        else:
+            steps = self.plan
         table = Table(self.device, count=1, width=0)
         for step in steps:
             if table.empty():
@@ -480,8 +596,12 @@ class TpuMatchSolver:
                 table = self._root(table, step.alias)
             else:
                 table = self._expand(table, step)
+        if self._not_compiled and not table.empty():
+            table = self._apply_not_paths(table)
         if pushdown and not table.empty():
             return self._apply_count_pushdown(table, pushdown)
+        if var_count is not None and not table.empty():
+            return self._expand_var_depth(table, var_count, count_only=True)
         return table
 
     # -- COUNT(*) aggregate pushdown ----------------------------------------
@@ -491,14 +611,19 @@ class TpuMatchSolver:
         can aggregate without materializing binding tables: each terminal
         hop collapses to one O(E) segment-sum pass —
         ``w_k[v] = Σ_{edges v→u} mask(u)·w_{k+1}[u]`` — and the count is
-        ``Σ_rows w_1[src]``."""
-        if self.count_only_name() is None or self.stmt.group_by:
+        ``Σ_rows w_1[src]``. A NOT arm disables it (its anti-join needs
+        the rows), and the suffix ends at a variable-depth arm: a weight
+        pass is one fixed hop (`_var_count_step` counts such an arm)."""
+        if self.count_only_name() is None or self.stmt.group_by or self._not_compiled:
             return []
         suffix: List[PlanStep] = []
         for step in reversed(self.plan):
             if step.kind != "expand" or step.close:
                 break
             e = step.edge
+            t = e.item.target
+            if t.while_cond is not None or t.max_depth is not None or t.depth_alias:
+                break
             dst_alias = e.from_alias if step.reverse else e.to_alias
             # dst must be terminal: touched by no other edge than this one
             # and (for non-last suffix members) the src of the next step
@@ -518,6 +643,31 @@ class TpuMatchSolver:
                     break
             suffix.insert(0, step)
         return suffix
+
+    def _var_count_step(self) -> Optional[PlanStep]:
+        """The plan's last step when it is a terminal variable-depth arm a
+        lone COUNT(*) can count by per-level popcounts
+        (`_expand_var_depth(count_only=True)`), the sibling of
+        `_count_pushdown_steps`, which stops at such arms."""
+        if (
+            self.count_only_name() is None
+            or self.stmt.group_by
+            or self._not_compiled
+            or not self.plan
+        ):
+            return None
+        step = self.plan[-1]
+        if step.kind != "expand" or step.close:
+            return None
+        e = step.edge
+        t = e.item.target
+        if t.while_cond is None and t.max_depth is None:
+            return None  # a fixed hop: the weight pushdown covers it
+        dst_alias = e.from_alias if step.reverse else e.to_alias
+        for e2 in self.pattern.edges:
+            if e2 is not e and dst_alias in (e2.from_alias, e2.to_alias):
+                return None  # dst takes part in another arm: rows needed
+        return step
 
     def _apply_count_pushdown(self, table: Table, steps: List[PlanStep]) -> Table:
         first = steps[0]
@@ -548,14 +698,19 @@ class TpuMatchSolver:
         t.count_dev = total_dev
         return t
 
-    def _pushdown_weights(self, steps: List[PlanStep], dtype) -> torch.Tensor:
+    def _universe(self):
+        """(vb, the [vb] vertex ids with -1 past V): the domain of
+        per-vertex masks (weight passes, bitmap levels)."""
         V = self.dg.num_vertices
         vb = K.bucket(max(V, 1))
+        univ = torch.arange(vb, dtype=I32, device=self.device)
+        return vb, torch.where(univ < V, univ, -1)
+
+    def _pushdown_weights(self, steps: List[PlanStep], dtype) -> torch.Tensor:
         # vertex universe for [vb]-wide node-mask precomputes, used where
         # the edge list outnumbers the vertices: one bool gather per edge
         # then replaces re-evaluating the predicate's column gathers
-        univ = torch.arange(vb, dtype=I32, device=self.device)
-        univ = torch.where(univ < V, univ, -1)
+        vb, univ = self._universe()
         w = None  # None ≡ all-ones (the implicit weight after the last hop)
         for step in reversed(steps):
             w = self._pushdown_weight_step(step, w, univ, vb, dtype)
@@ -682,6 +837,8 @@ class TpuMatchSolver:
         compact the survivors into a new table."""
         e = step.edge
         item = e.item
+        if item.target.while_cond is not None or item.target.max_depth is not None:
+            return self._expand_var_depth(table, step)
         direction = item.direction
         if step.reverse:
             direction = _REVERSE_DIR[direction]
@@ -720,6 +877,233 @@ class TpuMatchSolver:
             t.cols[dst_alias] = torch.full((t.width,), -1, dtype=I32, device=self.device)
             return t
         return _concat_tables(parts, counts, self.device)
+
+    # -- variable-depth (WHILE / maxDepth) arms -----------------------------
+
+    _VAR_DEPTH_CHUNK = 256
+
+    @staticmethod
+    def _var_chunk_rows(width: int, vb: int) -> int:
+        """Rows per frontier-bitmap chunk: no wider than the (bucketed)
+        binding table, at most 256, and few enough that one ``[rows, vb]``
+        bool bitmap stays inside ``config.var_depth_bitmap_budget`` bytes
+        (8 rows of 2^23 vertices at 8M persons)."""
+        budget_rows = max(1, config.var_depth_bitmap_budget // max(vb, 1))
+        return max(1, min(TpuMatchSolver._VAR_DEPTH_CHUNK, width, budget_rows))
+
+    def _chunk_rows(self, valid_dev: torch.Tensor, cs: int, C: int):
+        """Table rows ``cs .. cs+C`` of a chunk, -1 where the slot is past
+        the table or not live, and their liveness. Chunks run over the
+        bucketed width, not the recorded count: on a replay live rows may
+        sit in any slot under the recorded capacity."""
+        rows = torch.arange(cs, cs + C, dtype=I32, device=self.device)
+        in_range = torch.where(rows < valid_dev.shape[0], rows, -1)
+        live = K.take_pad(valid_dev, in_range, 0) > 0
+        return torch.where(live, rows, -1), live
+
+    def _expand_var_depth(self, table: Table, step: PlanStep, count_only: bool = False) -> Table:
+        """Breadth-wise frontier iteration with per-row visited bitmaps:
+        emit the origin at depth 0, then one bitmap hop per level, the
+        WHILE condition gating the vertices expanded at the level's
+        ``$depth``, stopping at maxDepth or when the frontier is exhausted.
+        Depths are minimum discovery depths.
+
+        The recording runs ``config.var_depth_pad_levels`` empty levels past
+        exhaustion and keeps a minimum-capacity emission at every level, so
+        that a replay whose walk is up to that many levels deeper runs in
+        place; the per-level alive observes are free (the loop's trip count
+        replays from the schedule), and the observe after the loop raises
+        the replay's overflow flag when its frontier is still alive.
+
+        ``count_only`` is the variable-depth COUNT (`_var_count_step`): the
+        sum of each level's emission popcount, no rows."""
+        e = step.edge
+        item = e.item
+        direction = item.direction
+        if step.reverse:
+            direction = _REVERSE_DIR[direction]
+        src_alias = e.to_alias if step.reverse else e.from_alias
+        dst_alias = e.from_alias if step.reverse else e.to_alias
+        srcs = table.cols.get(src_alias)
+        if srcs is None:
+            raise Uncompilable(f"alias {src_alias} not bound before expansion")
+        max_depth = item.target.max_depth
+        while_fn = self._while_fns.get(id(e))
+        depth_alias = item.target.depth_alias
+        vb, univ = self._universe()
+        node_vec = self._node_masks[dst_alias](univ).contiguous()
+        dirs = ("out", "in") if direction == "both" else (direction,)
+        hops = build_bitmap_hops(
+            self.dg, [(c, d) for c in self._resolve_edge_classes(item) for d in dirs]
+        )
+        gates: Dict[int, torch.Tensor] = {}  # depth → WHILE gate, shared by chunks
+        parts: List[Table] = []
+        counts: List[int] = []
+        recording = self.sched.recording
+        total_dev = torch.zeros((), dtype=I32, device=self.device)
+        totalf_dev = torch.zeros((), dtype=F32, device=self.device)
+        width = table.width or 1
+        C = self._var_chunk_rows(width, vb)
+        valid_dev = table.valid_device
+        pad = max(1, config.var_depth_pad_levels)
+        for cs in range(0, width, C):
+            chunk_rows, _live = self._chunk_rows(valid_dev, cs, C)
+            src_chunk = K.take_pad(srcs, chunk_rows, -1)
+            bound_chunk = (
+                K.take_pad(table.cols[dst_alias], chunk_rows, -2) if step.close else None
+            )
+
+            def emit_level(reached, depth):
+                nonlocal total_dev, totalf_dev
+                if not count_only:
+                    self._emit_var_level(
+                        table, reached, node_vec, bound_chunk, cs, depth,
+                        dst_alias, depth_alias, vb, parts, counts,
+                    )
+                    return
+                _, _, n = K.bitmap_emit(reached, node_vec, bound_chunk, emit=False, count=True)
+                total_dev = total_dev + n
+                if recording:
+                    totalf_dev = totalf_dev + n.to(F32)
+
+            frontier = K.rows_to_bitmap(src_chunk, vb)
+            # the frontier is its own visited set until the first level step
+            # updates it in place (after the hop has read the frontier)
+            visited = frontier
+            alive_dev = K.mask_count(src_chunk >= 0)
+            emit_level(frontier, 0)
+            depth = 0
+            empty_streak = 0
+            ended_by_bound = False
+            while True:
+                if max_depth is not None and depth >= max_depth:
+                    ended_by_bound = True
+                    break
+                gate = None
+                if while_fn is not None:
+                    gate = gates.get(depth)
+                    if gate is None:
+                        gate = gates[depth] = while_fn(univ, {"depth": depth}).contiguous()
+                nxt = _run_hops(hops, frontier, gate, alive_dev)
+                alive_dev = K.frontier_advance(nxt, visited)
+                alive = self.sched.observe(alive_dev, free=True)
+                empty_streak = empty_streak + 1 if alive == 0 else 0
+                depth += 1
+                emit_level(nxt, depth)
+                frontier = nxt
+                if empty_streak >= pad:
+                    break
+                if depth > self.dg.num_vertices:  # no shortest path is longer
+                    ended_by_bound = True
+                    break
+            if not ended_by_bound:
+                # ended by exhaustion: the recorded value is 0, so a replay
+                # whose frontier is still alive here flags an overflow
+                self.sched.observe(alive_dev)
+        if count_only:
+            if recording:
+                approx = float(totalf_dev)
+                exact = int(total_dev)
+                if not (
+                    0 <= approx < 2**31 * 0.99
+                    and abs(approx - exact) <= max(1e-3 * approx, 1.0)
+                ):
+                    raise Uncompilable(f"var-depth COUNT overflows int32 (≈{approx:.6g})")
+            # free: the count IS the result
+            t = Table(self.device, count=self.sched.observe(total_dev, free=True), width=0)
+            t.count_dev = total_dev
+            return t
+        if not parts:
+            t = table.gather(torch.full((K.bucket(1),), -1, dtype=I32, device=self.device))
+            t.count = 0
+            t.count_dev = torch.zeros((), dtype=I32, device=self.device)
+            t.cols[dst_alias] = torch.full((t.width,), -1, dtype=I32, device=self.device)
+            if depth_alias:
+                t.depth_cols[depth_alias] = torch.full((t.width,), -1, dtype=I32, device=self.device)
+            return t
+        return _concat_tables(parts, counts, self.device)
+
+    def _emit_var_level(
+        self, table, reached, node_vec, bound_chunk, cs, depth, dst_alias,
+        depth_alias, vb, parts, counts,
+    ) -> None:
+        """One BFS level's (row, vertex, depth) bindings as a part table.
+        A level whose recorded emission is empty still appends a
+        minimum-capacity part, so a replay may emit there without an
+        overflow."""
+        emit, _, n_dev = K.bitmap_emit(reached, node_vec, bound_chunk, emit=True, count=True)
+        keep, kn, kn_dev = _observe_compact(
+            self.sched, emit.view(-1), min_capacity=K.bucket(0), count_dev=n_dev
+        )
+        ok = keep >= 0
+        rowid = torch.where(ok, cs + keep // vb, -1)
+        part = table.gather(rowid)
+        part.count = kn
+        part.count_dev = kn_dev
+        part.cols[dst_alias] = torch.where(ok, keep % vb, -1)
+        if depth_alias:
+            part.depth_cols[depth_alias] = torch.where(ok, depth, -1).to(I32)
+        parts.append(part)
+        counts.append(kn)
+
+    # -- NOT arms: the bitmap anti-join --------------------------------------
+
+    def _apply_not_paths(self, table: Table) -> Table:
+        """Drop the rows for which a NOT arm is satisfiable."""
+        for aliases, masks, items in self._not_compiled:
+            if table.empty():
+                return table
+            table = self._apply_not_path(table, aliases, masks, items)
+        return table
+
+    def _apply_not_path(self, table: Table, aliases, masks, items) -> Table:
+        """One NOT arm as a chunked bitmap chain: the candidates of its first
+        position (the one-hot of the bound alias, or its admission mask
+        over every vertex), one hop per arm item with the target's mask
+        (and binding, where the alias is bound) ANDed in; a row with a
+        survivor at the chain's end matches the arm and is dropped."""
+        width = table.width or 1
+        vb, univ = self._universe()
+        node_vecs = [m(univ).contiguous() for m in masks]
+        hops_per_item = []
+        for it in items:
+            dirs = ("out", "in") if it.direction == "both" else (it.direction,)
+            hops_per_item.append(
+                build_bitmap_hops(
+                    self.dg, [(c, d) for c in self._resolve_edge_classes(it) for d in dirs]
+                )
+            )
+        valid_dev = table.valid_device
+        exists_chunks = []
+        C = self._var_chunk_rows(width, vb)
+        for cs in range(0, width, C):
+            chunk_rows, live = self._chunk_rows(valid_dev, cs, C)
+            if aliases[0] in table.cols:
+                src = K.take_pad(table.cols[aliases[0]], chunk_rows, -1)
+                cur, _, alive = K.bitmap_emit(
+                    K.rows_to_bitmap(src, vb), node_vecs[0], emit=True, count=True
+                )
+            else:
+                cur, alive = (node_vecs[0][None, :] & live[:, None]).contiguous(), None
+            exists = None if items else cur.any(dim=1)
+            for k, hops in enumerate(hops_per_item):
+                nxt = _run_hops(hops, cur, None, alive)
+                tgt = aliases[k + 1]
+                bound = (
+                    K.take_pad(table.cols[tgt], chunk_rows, -2) if tgt in table.cols else None
+                )
+                last = k == len(hops_per_item) - 1
+                cur, exists, alive = K.bitmap_emit(
+                    nxt, node_vecs[k + 1], bound, emit=not last, any_row=last, count=not last
+                )
+            exists_chunks.append(exists)
+        exists = torch.cat(exists_chunks)[:width]
+        keep_mask = valid_dev[:width].to(torch.bool) & ~exists
+        keep, kn, kn_dev = self._compact(keep_mask)
+        t = table.gather(keep)
+        t.count = kn
+        t.count_dev = kn_dev
+        return t
 
     # -- marshalling --------------------------------------------------------
 
@@ -760,8 +1144,9 @@ class TpuMatchSolver:
         """Result rows from the table's columns (device tensors on the
         recording run, host arrays of a replay's fetched page): a lone
         count(*) is the table's count; ``alias.prop`` projections decode
-        the snapshot's host columns at the bound vertex ids
-        (`_check_returns` admitted only these shapes). ``params`` are the
+        the snapshot's host columns at the bound vertex ids, and depth
+        aliases read their depth column (`_check_returns` admitted only
+        these shapes). ``params`` are the
         call's (a replay serves other values than the recording's)."""
         params = self.params if params is None else params
         name = self.count_only_name()
@@ -776,6 +1161,12 @@ class TpuMatchSolver:
         for i, p in enumerate(stmt.returns):
             e = p.expr
             names.append(p.alias or _match_proj_name(e, i))
+            if isinstance(e, A.Identifier):  # a depth alias: plain ints
+                d = _host(table.depth_cols[e.name])[sel]
+                o = d.astype(object)
+                o[d < 0] = None
+                obj_cols.append(o)
+                continue
             alias = e.base.name
             if alias not in host_cols:
                 dev_col = table.cols.get(alias)
@@ -885,10 +1276,9 @@ class _CompiledPlan:
     def __init__(self, solver: TpuMatchSolver, table: Table) -> None:
         self.solver = solver
         self.v_names = sorted(table.cols)
-        # edge and depth columns come with their slices (edge binding,
-        # depth aliases); the layout keeps their places
+        # edge columns come with edge binding; the layout keeps their place
         self.e_names: List[str] = []
-        self.d_names: List[str] = []
+        self.d_names = sorted(table.depth_cols)
         self.count = table.count
         self.width = table.width
         self.count_name = solver.count_only_name()
@@ -958,6 +1348,7 @@ class _CompiledPlan:
         if self.count_name is not None or self.width == 0:
             return count_dev, overflow, None
         flat = [table.cols[a] for a in self.v_names]
+        flat.extend(table.depth_cols[a] for a in self.d_names)
         if not flat:
             return count_dev, overflow, None
         width = flat[0].shape[0]
@@ -1165,6 +1556,8 @@ class _CompiledPlan:
         t = Table(torch.device("cpu"), count=n, width=n)
         for i, a in enumerate(self.v_names):
             t.cols[a] = data[:n, i]
+        for i, a in enumerate(self.d_names, start=len(self.v_names) + 2 * len(self.e_names)):
+            t.depth_cols[a] = data[:n, i]
         return t
 
 

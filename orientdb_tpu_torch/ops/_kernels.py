@@ -53,6 +53,10 @@ SIGNATURES = {
     "csr_front_pack": [_P, _P, _N, _P, _I, _I, _I, _P, _P],
     "csr_replay_meta": [_P, _N, _I, _P, _P, _P, _P],
     "csr_narrow_i16": [_P, _N, _P, _P],
+    "csr_rows_to_bitmap": [_P, _N, _N, _P, _P],
+    "csr_bitmap_hop": [_P, _P, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
+    "csr_bitmap_emit": [_P, _P, _P, _N, _N, _P, _P, _P, _P],
+    "csr_frontier_advance": [_P, _P, _N, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,9 @@
 """Port of `orientdb_tpu/ops/csr.py`: the CSR primitives of the compiled
-MATCH path, and the result stage of a replay (front-pack, meta row, int16
-narrowing of `orientdb_tpu/exec/tpu_engine.py`'s `_CompiledPlan`), each as
-a wrapper over a hand-written CUDA kernel (`csrc/csr_kernels.cu`) beside its
-plain PyTorch version.
+MATCH path, the bitmap BFS of variable-depth and NOT arms (with the level
+emission and level step of `orientdb_tpu/exec/tpu_engine.py`), and the
+result stage of a replay (front-pack, meta row, int16 narrowing of that
+module's `_CompiledPlan`), each as a wrapper over a hand-written CUDA
+kernel (`csrc/csr_kernels.cu`) beside its plain PyTorch version.
 
 A wrapper checks dtype, contiguity and device, then:
 - a CPU tensor goes to the plain version (``plain_*``), the reference's
@@ -50,6 +51,10 @@ LAUNCHES: Dict[str, int] = {
         "front_pack",
         "replay_meta",
         "narrow_i16",
+        "rows_to_bitmap",
+        "bitmap_hop",
+        "bitmap_emit",
+        "frontier_advance",
     )
 }
 
@@ -81,6 +86,21 @@ def _check(t: torch.Tensor, dtypes, what: str) -> None:
         raise ValueError(f"{what}: expected a 1-d tensor, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
+
+
+def _check2d(t: torch.Tensor, dtypes, what: str) -> None:
+    """`_check` for the [C, vb] bitmaps of the bitmap BFS."""
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what}: dtype {t.dtype} not in {dtypes}")
+    if t.dim() != 2:
+        raise ValueError(f"{what}: expected a 2-d tensor, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+
+
+def _check_scalar(t: torch.Tensor, what: str) -> None:
+    if t.dtype != I32 or t.dim() != 0:
+        raise TypeError(f"{what}: expected a 0-d int32 tensor")
 
 
 def _on_card(*ts: torch.Tensor) -> bool:
@@ -567,3 +587,246 @@ def narrow_i16(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=torch.int16, device=x.device)
     _launch("narrow_i16", lib.csr_narrow_i16, x.data_ptr(), x.numel(), out.data_ptr(), _stream(x))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K9–K12: the bitmap BFS (variable-depth arms, NOT arms)
+# ---------------------------------------------------------------------------
+
+B8 = torch.bool
+
+
+def plain_rows_to_bitmap(rows: torch.Tensor, vb: int) -> torch.Tensor:
+    """The reference's ``zeros.at[arange(C), clip(rows)].max(rows >= 0)``."""
+    C = rows.shape[0]
+    out = torch.zeros((C, vb), dtype=torch.uint8, device=rows.device)
+    if C and vb:
+        r = rows.clamp(0, vb - 1).long()
+        out.scatter_(1, r[:, None], (rows >= 0).to(torch.uint8)[:, None])
+    return out.bool()
+
+
+def rows_to_bitmap(rows: torch.Tensor, vb: int) -> torch.Tensor:
+    """[C] vertex ids (-1 = none) → [C, vb] one-hot frontier bitmap."""
+    _check(rows, (I32,), "rows_to_bitmap rows")
+    if not _on_card(rows):
+        return plain_rows_to_bitmap(rows, vb)
+    lib = _kernels.load()
+    out = torch.empty((rows.shape[0], vb), dtype=B8, device=rows.device)
+    _launch(
+        "rows_to_bitmap",
+        lib.csr_rows_to_bitmap,
+        rows.data_ptr(),
+        rows.shape[0],
+        vb,
+        out.data_ptr(),
+        _stream(rows),
+    )
+    return out
+
+
+def plain_bitmap_hop(
+    act_idx: torch.Tensor,
+    emit_idx: torch.Tensor,
+    edge_mask: Optional[torch.Tensor],
+    frontier: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The reference's hop: ``act = frontier[:, clip(act_idx)] & mask``,
+    scattered by max into the clipped ``emit_idx`` columns. The scatter
+    stores True at every active (row, edge) pair and nothing else, so
+    duplicate targets are exact (an unconditional store of ``act`` would
+    let a False overwrite a True). It materialises the [C, E] activity.
+    ``gate`` is ANDed into the frontier first; ``alive`` (the frontier's
+    popcount, or 0) zeroes the result on the device as the kernel's early
+    exit does."""
+    C, vb = frontier.shape
+    out = torch.zeros((C, vb), dtype=B8, device=frontier.device)
+    E = act_idx.shape[0]
+    if E == 0 or C == 0 or vb == 0:
+        return out
+    fr = frontier if gate is None else frontier & gate[None, :]
+    act = fr[:, act_idx.clamp(0, vb - 1).long()]
+    if edge_mask is not None:
+        act = act & edge_mask[None, :]
+    if alive is not None:
+        act = act & (alive != 0)
+    rows, edges = act.nonzero(as_tuple=True)
+    cols = emit_idx.clamp(0, vb - 1).long()[edges]
+    out.view(-1)[rows * vb + cols] = True
+    return out
+
+
+def bitmap_hop(
+    act_idx: torch.Tensor,
+    emit_idx: torch.Tensor,
+    edge_mask: Optional[torch.Tensor],
+    frontier: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One frontier hop over an edge list as dense bitmaps:
+    ``out[c, emit_idx[e]] |= frontier[c, act_idx[e]] & edge_mask[e]``.
+
+    act_idx/emit_idx int32 [E] are the endpoint that must be in the
+    frontier and the endpoint reached (swapped to walk edges backwards);
+    ``edge_mask`` bool [E] or None (every edge); ``frontier`` bool [C, vb].
+    ``gate`` (bool [vb], optional) restricts the active endpoints (a WHILE
+    condition); ``alive`` (0-d int32, optional) must be the frontier's
+    popcount: at 0 the kernel returns without reading the edge list. With
+    ``out`` the hop ORs into it (a second direction or edge class), else
+    into a new zeroed bitmap. Returns the bitmap."""
+    _check(act_idx, (I32,), "bitmap_hop act_idx")
+    _check(emit_idx, (I32,), "bitmap_hop emit_idx")
+    _check2d(frontier, (B8,), "bitmap_hop frontier")
+    E = act_idx.shape[0]
+    C, vb = frontier.shape
+    if emit_idx.shape[0] != E:
+        raise ValueError("bitmap_hop: act_idx and emit_idx differ in length")
+    opt = []
+    if edge_mask is not None:
+        _check(edge_mask, (B8,), "bitmap_hop edge_mask")
+        if edge_mask.shape[0] != E:
+            raise ValueError("bitmap_hop: edge_mask and the edge list differ in length")
+        opt.append(edge_mask)
+    if gate is not None:
+        _check(gate, (B8,), "bitmap_hop gate")
+        if gate.shape[0] != vb:
+            raise ValueError("bitmap_hop: gate and the frontier differ in width")
+        opt.append(gate)
+    if alive is not None:
+        _check_scalar(alive, "bitmap_hop alive")
+        opt.append(alive)
+    if out is not None:
+        _check_out(out, (C, vb), B8, "bitmap_hop")
+        opt.append(out)
+    if not _on_card(act_idx, emit_idx, frontier, *opt):
+        hop = plain_bitmap_hop(act_idx, emit_idx, edge_mask, frontier, gate, alive)
+        if out is None:
+            return hop
+        out |= hop
+        return out
+    lib = _kernels.load()
+    zero = out is None
+    if zero:
+        out = torch.empty((C, vb), dtype=B8, device=frontier.device)
+    _launch(
+        "bitmap_hop",
+        lib.csr_bitmap_hop,
+        act_idx.data_ptr(),
+        emit_idx.data_ptr(),
+        None if edge_mask is None else edge_mask.data_ptr(),
+        E,
+        frontier.data_ptr(),
+        None if gate is None else gate.data_ptr(),
+        C,
+        vb,
+        None if alive is None else alive.data_ptr(),
+        int(zero),
+        out.data_ptr(),
+        _stream(frontier),
+    )
+    return out
+
+
+EmitResult = Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def plain_bitmap_emit(
+    reached: torch.Tensor,
+    node: torch.Tensor,
+    bound: Optional[torch.Tensor] = None,
+    emit: bool = True,
+    any_row: bool = False,
+    count: bool = False,
+) -> EmitResult:
+    """The reference's `_var_emit_mask`, with its per-row any and its
+    int32 popcount."""
+    e = reached & node[None, :]
+    if bound is not None:
+        vcol = torch.arange(reached.shape[1], dtype=I32, device=reached.device)
+        e = e & (vcol[None, :] == bound[:, None])
+    return (
+        e if emit else None,
+        e.any(dim=1) if any_row else None,
+        e.sum(dtype=I32) if count else None,
+    )
+
+
+def bitmap_emit(
+    reached: torch.Tensor,
+    node: torch.Tensor,
+    bound: Optional[torch.Tensor] = None,
+    emit: bool = True,
+    any_row: bool = False,
+    count: bool = False,
+) -> EmitResult:
+    """One BFS level's emission: ``reached & node[None, :]``, restricted to
+    column ``bound[c]`` in row c when ``bound`` (int32 [C]) is given (a
+    close arm's bound endpoint; a negative bound matches nothing).
+    Returns ``(bitmap, per-row any, popcount)``, each None unless asked
+    for: bool [C, vb], bool [C] and a 0-d int32."""
+    _check2d(reached, (B8,), "bitmap_emit reached")
+    _check(node, (B8,), "bitmap_emit node")
+    C, vb = reached.shape
+    if node.shape[0] != vb:
+        raise ValueError("bitmap_emit: node mask and bitmap differ in width")
+    opt = []
+    if bound is not None:
+        _check(bound, (I32,), "bitmap_emit bound")
+        if bound.shape[0] != C:
+            raise ValueError("bitmap_emit: bound and bitmap differ in rows")
+        opt.append(bound)
+    if not _on_card(reached, node, *opt):
+        return plain_bitmap_emit(reached, node, bound, emit, any_row, count)
+    lib = _kernels.load()
+    dev = reached.device
+    e_out = torch.empty((C, vb), dtype=B8, device=dev) if emit else None
+    a_out = torch.empty(C, dtype=B8, device=dev) if any_row else None
+    c_out = torch.empty((), dtype=I32, device=dev) if count else None
+    _launch(
+        "bitmap_emit",
+        lib.csr_bitmap_emit,
+        reached.data_ptr(),
+        node.data_ptr(),
+        None if bound is None else bound.data_ptr(),
+        C,
+        vb,
+        None if e_out is None else e_out.data_ptr(),
+        None if a_out is None else a_out.data_ptr(),
+        None if c_out is None else c_out.data_ptr(),
+        _stream(reached),
+    )
+    return e_out, a_out, c_out
+
+
+def plain_frontier_advance(nxt: torch.Tensor, visited: torch.Tensor) -> torch.Tensor:
+    nxt &= ~visited
+    visited |= nxt
+    return nxt.sum(dtype=I32)
+
+
+def frontier_advance(nxt: torch.Tensor, visited: torch.Tensor) -> torch.Tensor:
+    """The BFS level step, in place on both bitmaps: ``nxt &= ~visited;
+    visited |= nxt``. Returns the popcount of the new ``nxt`` as a 0-d
+    int32 (the level's alive count)."""
+    _check2d(nxt, (B8,), "frontier_advance nxt")
+    _check2d(visited, (B8,), "frontier_advance visited")
+    if nxt.shape != visited.shape:
+        raise ValueError("frontier_advance: bitmaps differ in shape")
+    if not _on_card(nxt, visited):
+        return plain_frontier_advance(nxt, visited)
+    lib = _kernels.load()
+    count = torch.empty((), dtype=I32, device=nxt.device)
+    _launch(
+        "frontier_advance",
+        lib.csr_frontier_advance,
+        nxt.data_ptr(),
+        visited.data_ptr(),
+        nxt.numel(),
+        count.data_ptr(),
+        _stream(nxt),
+    )
+    return count

@@ -2,10 +2,10 @@
 device, as torch tensors.
 
 Adjacency (both CSR directions and the in-CSR's edge ids) and the class-id
-column upload when the graph is built; property columns register lazily
-and reach the device the first time a predicate or a marshalled projection
-reads them (`_put_lazy` / `ensure_key`), so columns no query touches cost
-no device memory. Every upload belongs to a recording run: inside
+column upload when the graph is built; property columns and each edge
+class's per-edge sources (the bitmap hops' edge list) register lazily and
+reach the device the first time a query reads them (`_put_lazy` /
+`ensure_key`), so arrays no query touches cost no device memory. Every upload belongs to a recording run: inside
 `DeviceGraph.sealed()` (a replay, captured or not) a lazy upload raises
 instead, since a pageable host→device copy cannot be captured. The device
 graph is cached per snapshot in this module's own weak map (rebuilt when
@@ -53,9 +53,10 @@ class DeviceColumn:
 
 
 class DeviceEdgeClass:
-    """One edge class's CSR adjacency (both directions) on the device."""
+    """One edge class's CSR adjacency (both directions) on the device, and
+    its edge list in out order (``edge_src`` beside ``dst``)."""
 
-    __slots__ = ("class_name", "num_edges", "_g", "_p")
+    __slots__ = ("class_name", "num_edges", "_g", "_p", "_k_edge_src")
 
     def __init__(self, csr, g: "DeviceGraph") -> None:
         self.class_name = csr.class_name
@@ -66,6 +67,9 @@ class DeviceEdgeClass:
         g._put(f"{p}:dst", csr.dst)
         g._put(f"{p}:src", csr.src)
         g._put(f"{p}:edge_id_in", csr.edge_id_in)
+        # derived on the host and uploaded on first read: only variable-
+        # depth and NOT arms walk the flat edge list
+        self._k_edge_src = g._put_lazy(f"{p}:edge_src", lambda csr=csr: csr.edge_src)
         self.num_edges = int(csr.dst.shape[0])
 
     @property
@@ -75,6 +79,11 @@ class DeviceEdgeClass:
     @property
     def dst(self) -> torch.Tensor:
         return self._g.arrays[f"{self._p}:dst"]
+
+    @property
+    def edge_src(self) -> torch.Tensor:
+        self._g.ensure_key(self._k_edge_src)
+        return self._g.arrays[self._k_edge_src]
 
     @property
     def indptr_in(self) -> torch.Tensor:
@@ -118,8 +127,9 @@ class DeviceGraph:
         self.arrays[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
         return key
 
-    def _put_lazy(self, key: str, arr: np.ndarray) -> str:
-        """Register a host array for upload on first read (`ensure_key`)."""
+    def _put_lazy(self, key: str, arr) -> str:
+        """Register a host array (or a function making it) for upload on
+        first read (`ensure_key`)."""
         self._pending[key] = arr
         return key
 
@@ -136,7 +146,7 @@ class DeviceGraph:
             with self._pending_lock:
                 arr = self._pending.pop(key, None)
                 if arr is not None:
-                    self._put(key, arr)
+                    self._put(key, arr() if callable(arr) else arr)
 
     @property
     def v_class(self) -> torch.Tensor:
@@ -157,7 +167,9 @@ class DeviceGraph:
         return {
             "per_device": cats,
             "total_bytes": sum(cats.values()),
-            "pruned_bytes": sum(int(a.nbytes) for a in self._pending.values()),
+            "pruned_bytes": sum(
+                int(getattr(a, "nbytes", 0)) for a in self._pending.values()
+            ),
             "pruned_arrays": len(self._pending),
         }
 

@@ -15,7 +15,9 @@ elementwise operations. Semantics follow the reference (and through it
 String columns are dictionary-coded with a sorted dictionary, so ordered
 compares against a literal become int32 compares against the literal's
 bisect rank, and LIKE / MATCHES / CONTAINSTEXT are evaluated on the host
-over the dictionary into a code-membership table. Binding references
+over the dictionary into a code-membership table. A WHILE condition
+compiles with ``allow_depth``: ``$depth`` is then an int32 scalar read from
+``env["depth"]``, the level being expanded. Binding references
 (``alias.prop`` of an earlier alias) and the haversine ``distance()`` are
 not ported. Anything outside the subset raises `Uncompilable`.
 """
@@ -191,9 +193,10 @@ def _as_dtype(vals, present, kind):
 
 
 class Compiler:
-    def __init__(self, scope: ColumnScope, params):
+    def __init__(self, scope: ColumnScope, params, allow_depth: bool = False):
         self.scope = scope
         self.params = params
+        self.allow_depth = allow_depth
 
     def compile_bool(self, expr: A.Expression) -> BoolFn:
         return self._bool(expr)
@@ -215,6 +218,16 @@ class Compiler:
                 return _const_val(None)
             return _column_val(col)
         if isinstance(expr, A.ContextVar):
+            if expr.name == "depth" and self.allow_depth:
+                # the level is host-known (it replays from the recorded
+                # schedule), so the fill bakes it: no host read
+                return _Val(
+                    "int",
+                    lambda idx, env: (
+                        torch.full(idx.shape, env["depth"], dtype=I32, device=idx.device),
+                        _full_bool(idx, True),
+                    ),
+                )
             raise Uncompilable(f"context var ${expr.name} not columnar")
         if isinstance(expr, A.Unary):
             if expr.op in ("-", "+"):
@@ -532,8 +545,11 @@ def _host_cmp(op: str, a: str, b: str) -> bool:
     }[op]
 
 
-def compile_predicate(expr: A.Expression, scope: ColumnScope, params) -> BoolFn:
-    """Compile a WHERE AST into `fn(idx_array, env) -> bool mask`.
+def compile_predicate(
+    expr: A.Expression, scope: ColumnScope, params, allow_depth: bool = False
+) -> BoolFn:
+    """Compile a WHERE AST into `fn(idx_array, env) -> bool mask`;
+    ``allow_depth`` admits ``$depth`` (read from ``env["depth"]``).
 
     Raises Uncompilable outside the columnar subset."""
-    return Compiler(scope, params).compile_bool(expr)
+    return Compiler(scope, params, allow_depth=allow_depth).compile_bool(expr)

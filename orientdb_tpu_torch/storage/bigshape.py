@@ -5,12 +5,13 @@ The same seed gives byte-identical arrays in both packages: the random
 draws happen in the reference's order, and the CSR assembly is the
 reference's. The returned database holds the schema only, so queries run
 on the compiled path; parity comes from `numpy_1hop_count` /
-`numpy_2hop_count` (exact int64 over the same arrays).
+`numpy_2hop_count` (exact int64 over the same arrays), and for variable-depth
+and NOT arms from `numpy_var_depth_rows` / `numpy_has_out_neighbour`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -130,3 +131,58 @@ def numpy_2hop_count(snap: GraphSnapshot, src_mask, mid_mask, dst_mask) -> int:
     w2 = _seg_sum(dst_mask[csr.dst].astype(np.int64), csr.indptr_out)
     w1 = _seg_sum((mid_mask[csr.dst] * w2[csr.dst]).astype(np.int64), csr.indptr_out)
     return int((w1 * src_mask.astype(np.int64)).sum())
+
+
+def _neighbours(indptr: np.ndarray, nbrs: np.ndarray, vs: np.ndarray) -> np.ndarray:
+    """Concatenated CSR slices of the vertices ``vs``."""
+    ip = indptr.astype(np.int64)
+    deg = ip[vs + 1] - ip[vs]
+    first = np.repeat(ip[vs] - (np.cumsum(deg) - deg), deg)
+    return nbrs[first + np.arange(int(deg.sum()))].astype(np.int64)
+
+
+def numpy_var_depth_rows(
+    snap: GraphSnapshot,
+    roots,
+    direction: str,
+    node_mask: np.ndarray,
+    max_depth: Optional[int] = None,
+    while_depth: Optional[int] = None,
+    while_mask: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Sorted int64 ``(root, vertex, depth)`` rows of a variable-depth
+    ``knows`` arm: a breadth-first walk from each root (``direction`` out,
+    in or both) that emits every vertex passing ``node_mask`` at its
+    minimum discovery depth, the root at depth 0; the walk expands level
+    ``d`` only while ``d < max_depth`` and, for the WHILE condition
+    ``$depth < while_depth AND while_mask``, only the level's vertices that
+    pass it."""
+    csr = snap.edge_classes["knows"]
+    sides = {"out": [(csr.indptr_out, csr.dst)], "in": [(csr.indptr_in, csr.src)]}
+    sides["both"] = sides["out"] + sides["in"]
+    out = []
+    for r in roots:
+        frontier = np.array([r], np.int64)
+        seen = frontier
+        depth = 0
+        while frontier.size:
+            keep = frontier[node_mask[frontier]]
+            out.append(np.stack([np.full(keep.size, r), keep, np.full(keep.size, depth)], 1))
+            if max_depth is not None and depth >= max_depth:
+                break
+            if while_depth is not None and depth >= while_depth:
+                break
+            grow = frontier if while_mask is None else frontier[while_mask[frontier]]
+            reached = np.concatenate([_neighbours(ip, nb, grow) for ip, nb in sides[direction]])
+            frontier = np.setdiff1d(np.unique(reached), seen)
+            seen = np.union1d(seen, frontier)
+            depth += 1
+    rows = np.concatenate(out) if out else np.zeros((0, 3), np.int64)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def numpy_has_out_neighbour(snap: GraphSnapshot, mask: np.ndarray) -> np.ndarray:
+    """bool [V]: the vertex has a ``knows`` out-neighbour passing ``mask``
+    (a NOT arm ``{as:x}-knows->{where:(...)}``)."""
+    csr = snap.edge_classes["knows"]
+    return _seg_sum(mask[csr.dst].astype(np.int64), csr.indptr_out) > 0

@@ -46,9 +46,13 @@ class EdgeClassCSR:
 
     out:  indptr_out[V+1], dst[E]      (CSR order == edge dense order)
     in:   indptr_in[V+1], src[E], edge_id_in[E] (edge ids into out order)
+    edge_src[E]: each edge's source in out order, derived from indptr_out
+    on first use (the bitmap hops of variable-depth arms and NOT arms)
     """
 
-    __slots__ = ("class_name", "indptr_out", "dst", "indptr_in", "src", "edge_id_in")
+    __slots__ = (
+        "class_name", "indptr_out", "dst", "indptr_in", "src", "edge_id_in", "_edge_src"
+    )
 
     def __init__(self, class_name: str):
         self.class_name = class_name
@@ -57,10 +61,21 @@ class EdgeClassCSR:
         self.indptr_in: np.ndarray = np.zeros(1, np.int32)
         self.src: np.ndarray = np.zeros(0, np.int32)
         self.edge_id_in: np.ndarray = np.zeros(0, np.int32)
+        self._edge_src: Optional[np.ndarray] = None
 
     @property
     def num_edges(self) -> int:
         return int(self.dst.shape[0])
+
+    @property
+    def edge_src(self) -> np.ndarray:
+        """Per-edge source vertex in out-CSR order (computed once)."""
+        if self._edge_src is None:
+            self._edge_src = np.repeat(
+                np.arange(self.indptr_out.shape[0] - 1, dtype=np.int32),
+                np.diff(self.indptr_out),
+            )
+        return self._edge_src
 
 
 class GraphSnapshot:

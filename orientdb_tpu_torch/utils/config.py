@@ -21,9 +21,17 @@ class Config:
     # Ceiling on one expansion output buffer (rows); larger expansions are
     # chunked over the binding table (tpu_engine._expand_one_dir_chunked).
     max_expansion_cap: int = 1 << 22
+    # Byte budget for one variable-depth frontier bitmap chunk ([rows,
+    # bucket(V)] bools): the chunk's row count shrinks as the graph grows
+    # (tpu_engine._var_chunk_rows).
+    var_depth_bitmap_budget: int = 1 << 26
     # Buffer headroom multiplier: buffers are sized bucket(observed * this)
     # (tpu_engine._cap_of), as in the reference.
     schedule_headroom: float = 2.0
+    # Extra empty BFS levels a variable-depth (WHILE) recording runs past
+    # frontier exhaustion, so that a replay whose walk is up to this many
+    # levels deeper executes in place (tpu_engine._expand_var_depth).
+    var_depth_pad_levels: int = 2
     # Plan cache entries per snapshot (tpu_engine._prepare).
     plan_cache_size: int = 256
     # Schedule variants kept per cached statement: parameter values whose

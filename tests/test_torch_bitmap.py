@@ -1,0 +1,212 @@
+"""The port's bitmap-BFS primitives (`orientdb_tpu_torch.ops.csr` K9–K12)
+against the reference's functions on the same numpy-seeded inputs, on the
+CPU, where each wrapper runs its plain PyTorch version.
+
+Reference functions: `orientdb_tpu.ops.csr.rows_to_bitmap` and
+`bitmap_hop`, `orientdb_tpu.exec.tpu_engine._var_emit_mask` (with the
+popcount and per-row any its callers take), and the level step of
+`_expand_var_depth` (``nxt & ~visited``, ``visited | nxt``,
+`csr.mask_count`). Every value is bool or int32, so every comparison is
+exact. The kernels themselves run only on a card
+(`tests/test_torch_kernels.py`)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from orientdb_tpu.exec.tpu_engine import _var_emit_mask as j_var_emit_mask
+from orientdb_tpu.ops import csr as J
+from orientdb_tpu_torch.ops import csr as T
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))  # a writable copy (JAX arrays are read-only)
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x)
+
+
+def _bitmap(rng, c: int, vb: int, density: float) -> np.ndarray:
+    return rng.random((c, vb)) < density
+
+
+def _edges(rng, vb: int, e: int, dup_targets: bool = False):
+    """An edge list over vb vertices, in out-CSR order (sources ascending);
+    with ``dup_targets`` most edges share a few targets."""
+    src = np.sort(rng.integers(0, vb, e)).astype(np.int32)
+    hi = 3 if dup_targets else vb
+    dst = rng.integers(0, hi, e).astype(np.int32)
+    return src, dst
+
+
+@pytest.mark.parametrize("c,vb", [(1, 8), (8, 64), (5, 100), (32, 256)])
+def test_rows_to_bitmap(c, vb):
+    rng = np.random.default_rng(c * 31 + vb)
+    rows = rng.integers(-2, vb + 3, c).astype(np.int32)  # -1/-2 rows and ids past vb
+    rows[0] = -1
+    want = _np(J.rows_to_bitmap(jnp.asarray(rows), vb))
+    got = T.rows_to_bitmap(_t(rows), vb)
+    assert got.dtype == torch.bool and got.shape == (c, vb)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_rows_to_bitmap_all_padding():
+    rows = np.full(8, -1, np.int32)
+    assert not T.rows_to_bitmap(_t(rows), 64).any()
+    assert T.rows_to_bitmap(_t(rows[:0]), 64).shape == (0, 64)
+
+
+def _j_hop(act, emit, mask, frontier):
+    return _np(J.bitmap_hop(jnp.asarray(act), jnp.asarray(emit), jnp.asarray(mask), jnp.asarray(frontier)))
+
+
+@pytest.mark.parametrize("direction", ["out", "in", "both"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all_edges", "masked"])
+@pytest.mark.parametrize("dup", [False, True], ids=["spread", "dup_targets"])
+def test_bitmap_hop(direction, masked, dup):
+    rng = np.random.default_rng(7 + masked + 2 * dup)
+    c, vb, e = 6, 128, 900
+    src, dst = _edges(rng, vb, e, dup_targets=dup)
+    mask = rng.random(e) < 0.6 if masked else np.ones(e, bool)
+    frontier = _bitmap(rng, c, vb, 0.05)
+    frontier[2] = False  # an empty row
+    dirs = {"out": [(src, dst)], "in": [(dst, src)], "both": [(src, dst), (dst, src)]}[direction]
+    want = np.zeros((c, vb), bool)
+    for a, m in dirs:
+        want |= _j_hop(a, m, mask, frontier)
+    out = None
+    for a, m in dirs:
+        out = T.bitmap_hop(_t(a), _t(m), _t(mask) if masked else None, _t(frontier), out=out)
+    assert np.array_equal(out.numpy(), want)
+    # the plain version alone equals the reference too
+    a, m = dirs[0]
+    assert np.array_equal(
+        T.plain_bitmap_hop(_t(a), _t(m), _t(mask), _t(frontier)).numpy(), _j_hop(a, m, mask, frontier)
+    )
+
+
+def test_bitmap_hop_duplicate_targets_mixed_activity():
+    """Three edges into one target, only the middle one active: a scatter
+    that stores each edge's activity would end on False."""
+    src = np.array([0, 1, 2], np.int32)
+    dst = np.array([5, 5, 5], np.int32)
+    frontier = np.zeros((2, 8), bool)
+    frontier[0, 1] = True
+    frontier[1, 0] = frontier[1, 2] = True
+    want = _j_hop(src, dst, np.ones(3, bool), frontier)
+    got = T.bitmap_hop(_t(src), _t(dst), None, _t(frontier)).numpy()
+    assert np.array_equal(got, want) and got[0, 5] and got[1, 5]
+    mask = np.array([True, False, True])
+    got = T.bitmap_hop(_t(src), _t(dst), _t(mask), _t(frontier)).numpy()
+    assert np.array_equal(got, _j_hop(src, dst, mask, frontier)) and not got[0, 5] and got[1, 5]
+
+
+def test_bitmap_hop_empty_edge_list_and_padding_rows():
+    vb = 64
+    rows = np.array([-1, 4, -1, 63], np.int32)
+    frontier = _np(J.rows_to_bitmap(jnp.asarray(rows), vb))
+    empty = np.zeros(0, np.int32)
+    want = _j_hop(empty, empty, np.zeros(0, bool), frontier)
+    got = T.bitmap_hop(_t(empty), _t(empty), None, T.rows_to_bitmap(_t(rows), vb))
+    assert np.array_equal(got.numpy(), want) and not want.any()
+    # out-of-range endpoints clip as the reference's jnp.clip does
+    src = np.array([-3, 4, 63, 70], np.int32)
+    dst = np.array([1, 99, -5, 2], np.int32)
+    got = T.bitmap_hop(_t(src), _t(dst), None, _t(frontier))
+    assert np.array_equal(got.numpy(), _j_hop(src, dst, np.ones(4, bool), frontier))
+    # rows of -1 reach nothing
+    assert not got[0].any() and not got[2].any()
+
+
+def test_bitmap_hop_gate_and_alive():
+    """The WHILE gate folds into the hop as ``frontier & gate``; ``alive``
+    (the frontier's popcount) changes nothing unless it is 0, which only
+    an empty frontier has."""
+    rng = np.random.default_rng(11)
+    c, vb, e = 4, 96, 500
+    src, dst = _edges(rng, vb, e)
+    frontier = _bitmap(rng, c, vb, 0.1)
+    gate = rng.random(vb) < 0.5
+    ones = np.ones(e, bool)
+    want = _j_hop(src, dst, ones, frontier & gate[None, :])
+    alive = torch.tensor(int(frontier.sum()), dtype=torch.int32)
+    got = T.bitmap_hop(_t(src), _t(dst), None, _t(frontier), gate=_t(gate), alive=alive)
+    assert np.array_equal(got.numpy(), want)
+    zero = np.zeros((c, vb), bool)
+    got = T.bitmap_hop(_t(src), _t(dst), None, _t(zero), alive=torch.zeros((), dtype=torch.int32))
+    assert not got.any()
+    # accumulating into an existing bitmap ORs
+    base = _bitmap(rng, c, vb, 0.02)
+    out = T.bitmap_hop(_t(src), _t(dst), None, _t(frontier), out=_t(base.copy()))
+    assert np.array_equal(out.numpy(), base | _j_hop(src, dst, ones, frontier))
+
+
+@pytest.mark.parametrize("bound", [False, True], ids=["open", "close"])
+@pytest.mark.parametrize("c,vb", [(1, 16), (8, 64), (7, 40)])
+def test_bitmap_emit_equals_var_emit_mask(bound, c, vb):
+    rng = np.random.default_rng(c + vb + bound)
+    reached = _bitmap(rng, c, vb, 0.3)
+    node = rng.random(vb) < 0.5
+    b = None
+    if bound:
+        b = rng.integers(-2, vb, c).astype(np.int32)
+        b[0] = -2  # padding rows bind -2 and match nothing
+        # most bound endpoints reached and admitted
+        for i in range(1, c, 2):
+            reached[i, b[i]] = node[b[i]] = True
+    want = _np(j_var_emit_mask(jnp.asarray(reached), jnp.asarray(node), None if b is None else jnp.asarray(b), vb))
+    emit, any_row, count = T.bitmap_emit(
+        _t(reached), _t(node), None if b is None else _t(b), emit=True, any_row=True, count=True
+    )
+    assert np.array_equal(emit.numpy(), want)
+    assert np.array_equal(any_row.numpy(), want.any(axis=1))
+    assert count.dtype == torch.int32 and count.dim() == 0
+    assert int(count) == int(_np(jnp.sum(jnp.asarray(want), dtype=jnp.int32)))
+    # each output alone
+    assert T.bitmap_emit(_t(reached), _t(node), None if b is None else _t(b), emit=False)[0] is None
+    only_count = T.bitmap_emit(
+        _t(reached), _t(node), None if b is None else _t(b), emit=False, count=True
+    )
+    assert only_count[0] is None and only_count[1] is None and int(only_count[2]) == int(want.sum())
+
+
+@pytest.mark.parametrize("c,vb", [(1, 8), (8, 64), (3, 50)])
+def test_frontier_advance_equals_level_step(c, vb):
+    rng = np.random.default_rng(c * vb)
+    nxt = _bitmap(rng, c, vb, 0.4)
+    visited = _bitmap(rng, c, vb, 0.5)
+    jn = jnp.asarray(nxt) & ~jnp.asarray(visited)
+    jv = jnp.asarray(visited) | jn
+    jcount = int(_np(J.mask_count(jn.reshape(-1))))
+    tn, tv = _t(nxt.copy()), _t(visited.copy())
+    count = T.frontier_advance(tn, tv)
+    assert np.array_equal(tn.numpy(), _np(jn)) and np.array_equal(tv.numpy(), _np(jv))
+    assert count.dtype == torch.int32 and int(count) == jcount
+    # a second step from the same bitmaps finds nothing new
+    assert int(T.frontier_advance(tn, tv)) == 0 and not tn.any()
+
+
+def _bad_calls():
+    b2 = torch.zeros((2, 8), dtype=torch.bool)
+    i = torch.zeros(4, dtype=torch.int32)
+    return {
+        "rows_dtype": lambda: T.rows_to_bitmap(i.long(), 8),
+        "rows_2d": lambda: T.rows_to_bitmap(i.view(2, 2), 8),
+        "hop_1d_frontier": lambda: T.bitmap_hop(i, i, None, b2.view(-1)),
+        "hop_lengths": lambda: T.bitmap_hop(i, i[:3], None, b2),
+        "hop_gate_width": lambda: T.bitmap_hop(i, i, None, b2, gate=torch.zeros(7, dtype=torch.bool)),
+        "hop_alive_dtype": lambda: T.bitmap_hop(i, i, None, b2, alive=torch.zeros((), dtype=torch.int64)),
+        "hop_noncontiguous": lambda: T.bitmap_hop(i, i, None, torch.zeros((8, 2), dtype=torch.bool).t()),
+        "emit_node_width": lambda: T.bitmap_emit(b2, torch.zeros(9, dtype=torch.bool)),
+        "emit_bound_rows": lambda: T.bitmap_emit(b2, torch.zeros(8, dtype=torch.bool), i),
+        "emit_dtype": lambda: T.bitmap_emit(b2.to(torch.uint8), torch.zeros(8, dtype=torch.bool)),
+        "advance_shapes": lambda: T.frontier_advance(b2, torch.zeros((2, 4), dtype=torch.bool)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_bad_calls()))
+def test_bitmap_wrappers_refuse_bad_inputs(name):
+    with pytest.raises((TypeError, ValueError)):
+        _bad_calls()[name]()

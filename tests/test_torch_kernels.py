@@ -172,3 +172,73 @@ def test_captured_replays_equal_cpu(card):
     assert sum(p.replays for p in plans) >= 5
     assert any(p.direct_fetch for p in plans)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,vb,e", [(1, 8, 0), (8, 64, 700), (5, 40, 300), (8, 1 << 16, 200_000), (256, 1 << 12, 30_000)])
+def test_bitmap_kernels_equal_plain_on_card(card, c, vb, e):
+    """K9 rows_to_bitmap, K10 bitmap_hop, K11 bitmap_emit and K12
+    frontier_advance against their plain versions, exactly (bool and
+    int32): padding and out-of-range ids, both directions, an edge mask,
+    a gate, duplicate targets, an empty frontier, a bound row vector, and
+    vb not a multiple of 16 (the one-byte paths)."""
+    rng = np.random.default_rng(c + vb + e)
+    rows = _t(rng.integers(-2, vb + 2, c, dtype=np.int32)).to(card)
+    assert torch.equal(T.rows_to_bitmap(rows, vb), T.plain_rows_to_bitmap(rows, vb))
+    src = _t(np.sort(rng.integers(-1, vb + 1, e)).astype(np.int32)).to(card)
+    dst = _t(rng.integers(0, max(vb // 8, 1), e, dtype=np.int32)).to(card)  # duplicate targets
+    emask = _t(rng.random(e) < 0.6).to(card)
+    gate = _t(rng.random(vb) < 0.5).to(card)
+    fr = _t(rng.random((c, vb)) < 0.05).to(card)
+    alive = T.mask_count(fr.view(-1))
+    for act, emit in ((src, dst), (dst, src)):
+        for m, g in ((None, None), (emask, None), (None, gate), (emask, gate)):
+            got = T.bitmap_hop(act, emit, m, fr, gate=g, alive=alive)
+            assert torch.equal(got, T.plain_bitmap_hop(act, emit, m, fr, g, alive))
+    both = T.bitmap_hop(src, dst, None, fr)
+    T.bitmap_hop(dst, src, None, fr, out=both)
+    assert torch.equal(both, T.plain_bitmap_hop(src, dst, None, fr) | T.plain_bitmap_hop(dst, src, None, fr))
+    zero = torch.zeros_like(fr)
+    assert not T.bitmap_hop(src, dst, None, zero, alive=T.mask_count(zero.view(-1))).any()
+    node = _t(rng.random(vb) < 0.5).to(card)
+    bound = _t(rng.integers(-2, vb, c, dtype=np.int32)).to(card)
+    reached = fr | both
+    for b in (None, bound):
+        for flags in ((True, True, True), (False, False, True), (True, False, False), (False, True, False)):
+            got = T.bitmap_emit(reached, node, b, *flags)
+            want = T.plain_bitmap_emit(reached, node, b, *flags)
+            for x, y in zip(got, want):
+                assert (x is None and y is None) or torch.equal(x, y)
+    n1, v1, n2, v2 = both.clone(), fr.clone(), both.clone(), fr.clone()
+    assert torch.equal(T.frontier_advance(n1, v1), T.plain_frontier_advance(n2, v2))
+    assert torch.equal(n1, n2) and torch.equal(v1, v2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_var_depth_and_not_on_card_equal_cpu(card):
+    """Variable-depth (rows and COUNT) and NOT queries on the card, recorded
+    and replayed from captured graphs, against the CPU."""
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+
+    queries = [
+        ("MATCH {class:Person, as:p, where:(uid < 60)}-knows->{as:f, while:($depth < 3), "
+         "where:(age < 30)} RETURN count(*) AS n", [None] * 3),
+        ("MATCH {class:Person, as:p, where:(uid < :k)}-knows-{as:f, maxDepth:2, depthAlias:d} "
+         "RETURN p.uid AS p, f.uid AS f, d AS d", [{"k": 16}, {"k": 16}, {"k": 8}, {"k": 64}]),
+        ("MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f}, "
+         "NOT {as:f}-knows->{where:(age > 70)} RETURN p.uid AS p, f.uid AS f",
+         [{"k": 16}, {"k": 16}, {"k": 8}]),
+        ("MATCH {class:Person, as:p, where:(uid < 6)}-knows->{as:f}"
+         "-knows-{as:p, while:($depth < 3 AND age < 70)} RETURN p.uid AS p, f.uid AS f", [None] * 2),
+    ]
+    kw = dict(avg_knows=6, seed=11)
+    gpu, _ = build_person_knows(5_000, device=card, **kw)
+    cpu, _ = build_person_knows(5_000, device="cpu", **kw)
+    key = lambda r: tuple(sorted(r.items()))  # noqa: E731
+    for sql, param_list in queries:
+        for params in param_list:
+            got = gpu.query(sql, params).to_dicts()
+            want = cpu.query(sql, params).to_dicts()
+            assert sorted(got, key=key) == sorted(want, key=key)
+    torch.cuda.synchronize()

@@ -290,8 +290,12 @@ def test_demodb_shapes(demodb, sql):
 @pytest.mark.parametrize(
     "sql",
     [
-        "MATCH {class:Profiles, as:p}-HasFriend->{as:f, while:($depth < 3)} RETURN count(*) AS n",
-        "MATCH {class:Profiles, as:p}-HasFriend->{as:f}, NOT {as:p}-Likes->{as:f} RETURN count(*) AS n",
+        # a pathAlias on a WHILE arm (per-path state) and a variable-depth
+        # NOT arm: the reference refuses both too
+        "MATCH {class:Profiles, as:p}-HasFriend->{as:f, while:($depth < 3), pathAlias:pa} "
+        "RETURN count(*) AS n",
+        "MATCH {class:Profiles, as:p}-HasFriend->{as:f}, "
+        "NOT {as:p}-HasFriend->{as:g, while:($depth < 2)} RETURN count(*) AS n",
         "MATCH {class:Profiles, as:p}-HasFriend->{as:f, optional:true} RETURN p.uid AS p",
         "MATCH {class:Profiles, as:p}.outE('HasFriend'){as:e} RETURN count(*) AS n",
         "TRAVERSE out('HasFriend') FROM (SELECT FROM Profiles WHERE uid = 1)",

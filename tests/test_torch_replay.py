@@ -465,7 +465,28 @@ def test_cpu_replay_reads_no_host_value(monkeypatch):
     host: every size comes from the recording, the overflow check stays a
     device flag, and the parameters are read on the device."""
     db, snap = build_person_knows(3_000, avg_knows=6, seed=7, device="cpu")
-    queries = [(Q1, None), (Q2, None), (Q3, {"k": 40}), (Q_ROWS_1HOP, {"k": 300})]
+    queries = [
+        (Q1, None),
+        (Q2, None),
+        (Q3, {"k": 40}),
+        (Q_ROWS_1HOP, {"k": 300}),
+        # the bitmap BFS: variable-depth COUNT and rows, the NOT anti-join
+        (
+            "MATCH {class:Person, as:p, where:(uid < 200)}"
+            "-knows->{as:f, while:($depth < 3), where:(age < 30)} RETURN count(*) AS n",
+            None,
+        ),
+        (
+            "MATCH {class:Person, as:p, where:(uid < :k)}"
+            "-knows-{as:f, maxDepth:2, depthAlias:d} RETURN p.uid AS p, f.uid AS f, d AS d",
+            {"k": 16},
+        ),
+        (
+            "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f}, "
+            "NOT {as:f}-knows->{where:(age > 70)} RETURN p.uid AS p, f.uid AS f",
+            {"k": 16},
+        ),
+    ]
     first = {sql: db.query(sql, params).to_dicts() for sql, params in queries}
     active = [False]
     for name in _HOST_READS:
