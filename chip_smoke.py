@@ -44,15 +44,31 @@ from the root of a checkout. Phases, each of which raises on failure:
    each capture; fails unless every kernel launched, and the bitmap-BFS
    kernels inside the V plans' replays. Then holds the replay's kernels
    (front-pack, meta row, int16 narrowing) against their plain versions
-   at Q3's shapes and at edge lengths, and times them.
+   at Q3's shapes and at edge lengths, and times them;
+6. SNB shape — frees the Person–knows graph (plan cache and device
+   cache), builds config 5's graph (`build_snb_shape(8_000_000,
+   msgs_per_person=2, avg_knows=10, seed=7)`: 24M vertices, ~80M knows
+   edges with a ``creationDate`` column, 16M hasCreator edges) and prints
+   both graphs' resident and peak bytes. E1 (the config-5 COUNT with an
+   edge WHERE, `bench.py:357`), E2 (method-form rows with an edge alias,
+   and ``.bothE()``/``.bothV()``), E3 (the IS3 shape, ORDER BY), E4 (an
+   OPTIONAL left join) and E5 (the IS7 shape: a binding-referencing WHERE
+   and an arm-optional probe) run first on the recording path (plan cache
+   off, launch counts zeroed before and read after), then record, capture
+   and replay, each second parameter value replaying the same plan; every
+   result equals its numpy enumeration. Then holds `rows_with_matches`
+   (K13) against its plain version at E4's shapes, at edge cases and on
+   2^26 slots, and times it beside ``torch.bincount``.
 
 The line before the last is one JSON object with every kernel's numbers
-(``launches`` from phase 5); the last line is ``{"ok": true, "device":
+(``launches`` from phase 5, and from phase 6's replay path for
+`rows_with_matches`); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -65,7 +81,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from orientdb_tpu_torch.storage.bigshape import (  # noqa: E402
     numpy_1hop_count,
     numpy_2hop_count,
+    numpy_config5_count,
     numpy_has_out_neighbour,
+    numpy_incident_rows,
+    numpy_optional_rows,
+    numpy_out_edge_rows,
+    numpy_probe_rows,
+    numpy_undirected_rows,
     numpy_var_depth_rows,
 )
 
@@ -91,10 +113,21 @@ REPLACES = {
     "bitmap_hop": "orientdb_tpu/ops/csr.py:260",
     "bitmap_emit": "orientdb_tpu/exec/tpu_engine.py:475",
     "frontier_advance": "orientdb_tpu/exec/tpu_engine.py:2171",
+    "rows_with_matches": "orientdb_tpu/ops/csr.py:283",
 }
 BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop", "bitmap_emit", "frontier_advance"]
-#: the kernels a recording run launches (the replay's three are not on it)
-RECORD_KERNELS = [n for n in REPLACES if n not in ("front_pack", "replay_meta", "narrow_i16")]
+REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
+#: the kernels of the Person–knows phases (the OPTIONAL arm's left-join
+#: count runs on the SNB-shape phase)
+PK_KERNELS = [n for n in REPLACES if n != "rows_with_matches"]
+#: the kernels a Person–knows recording run launches
+RECORD_KERNELS = [n for n in PK_KERNELS if n not in REPLAY_ONLY]
+#: the kernels the SNB-shape cells E1–E5 launch while recording (no bitmap
+#: BFS there), and on their replays (no float32 overflow twin)
+E_RECORD_KERNELS = [n for n in REPLACES if n not in REPLAY_ONLY and n not in BITMAP_KERNELS]
+E_REPLAY_KERNELS = [
+    n for n in REPLACES if n not in BITMAP_KERNELS and n not in ("scan_f32", "segment_sum_f32", "take_pad_f32")
+]
 EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
 
 Q1 = (
@@ -133,6 +166,47 @@ V3 = (
     "NOT {as:f}-knows->{where:(age > 70)} RETURN p.uid AS p, f.uid AS f"
 )
 V3_K, V3_K_SMALLER = 16, 8
+
+# the SNB-shape cells (config 5's graph): the config-5 COUNT (bench.py:357),
+# method-form rows, the IS3 shape, an OPTIONAL left join, the IS7 shape
+E1 = (
+    "MATCH {class:Person, as:p, where:(age > 40)}"
+    ".outE('knows'){where:(creationDate > :d)}"
+    ".inV(){as:f, where:(age < 30)}, "
+    "{class:Message, as:m}-hasCreator->{as:f} "
+    "RETURN count(*) AS n"
+)
+E2 = (
+    "MATCH {class:Person, as:p, where:(uid < :n)}"
+    ".outE('knows'){as:e, where:(creationDate > :d)}.inV(){as:f, where:(age < 30)} "
+    "RETURN p.uid AS p, f.uid AS f, e.creationDate AS cd"
+)
+E2_BOTH = (
+    "MATCH {class:Person, as:p, where:(uid < :n)}.bothE('knows'){as:e}, "
+    "{as:e}.bothV(){as:v} RETURN p.uid AS p, v.uid AS v"
+)
+E3 = (
+    "MATCH {class:Person, as:p, where:(uid < :n)}-knows{as:kn}-{as:f} "
+    "RETURN p.uid AS p, f.uid AS f, kn.creationDate AS cd ORDER BY cd DESC, f ASC"
+)
+E4 = (
+    "MATCH {class:Person, as:p, where:(uid < :n)}"
+    "-knows->{as:f, optional:true, where:(age > 75)} RETURN p.uid AS p, f.uid AS f"
+)
+E5 = (
+    "MATCH {class:Person, as:p, where:(uid < :n)}-knows->{as:f, where:(age < p.age)}, "
+    "{as:f}-knows{as:kn, optional:true, where:(creationDate > :d)}-{as:p} "
+    "RETURN p.uid AS p, f.uid AS f, kn IS NOT NULL AS probe"
+)
+#: cell → (query, the recording's parameters, parameters that replay its plan)
+E_CELLS = {
+    "E1": (E1, {"d": 12_000}, [{"d": 15_000}, {"d": 18_500}]),
+    "E2": (E2, {"n": 20_000, "d": 15_000}, [{"n": 10_000, "d": 15_000}]),
+    "E2b": (E2_BOTH, {"n": 64}, [{"n": 32}]),
+    "E3": (E3, {"n": 256}, [{"n": 128}]),
+    "E4": (E4, {"n": 20_000}, [{"n": 10_000}]),
+    "E5": (E5, {"n": 2_000, "d": 15_000}, [{"n": 1_000, "d": 15_000}]),
+}
 
 
 def _require(cond: bool, what: str) -> None:
@@ -628,7 +702,10 @@ def numpy_direct_rows(np, snap, k: int):
 
 
 def _sorted_rows(np, rows, names):
-    got = np.array([tuple(r[n] for n in names) for r in rows], np.int64).reshape(-1, len(names))
+    """Rows as a sorted int64 array (None as -1, bools as 0/1)."""
+    got = np.array(
+        [tuple(-1 if r[n] is None else int(r[n]) for n in names) for r in rows], np.int64
+    ).reshape(-1, len(names))
     return got[np.lexsort(got.T[::-1])]
 
 
@@ -768,7 +845,7 @@ def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
     _require(big.replays == 1 and q3.replays == replays + 3, "variants are not sticky per value")
     sync()
     launches = dict(K.LAUNCHES)
-    missing = [n for n in REPLACES if launches[n] == 0]
+    missing = [n for n in PK_KERNELS if launches[n] == 0]
     _require(not missing, f"kernels never launched on the replay path: {missing}")
     print(
         f"replay: all equal numpy; launches {launches}; "
@@ -975,6 +1052,226 @@ def device_share(torch, db, sql, params, wall_ms: float) -> str:
     )
 
 
+class ERef:
+    """numpy answers of E1–E5 from the SNB-shape host arrays, by cell and
+    parameters."""
+
+    _COLS = {"E2": ("p", "f", "cd"), "E2b": ("p", "v"), "E4": ("p", "f"), "E5": ("p", "f", "probe")}
+
+    def __init__(self, np, snap):
+        self.np, self.snap = np, snap
+        age = snap.v_columns["age"].values
+        self.young, self.old = age < 30, age > 75
+        self._want = {}
+
+    def want(self, name, p):
+        key = (name, tuple(sorted(p.items())))
+        if key not in self._want:
+            snap = self.snap
+            if name == "E1":
+                v = numpy_config5_count(snap, p["d"])
+            elif name == "E2":
+                v = numpy_out_edge_rows(snap, p["n"], p["d"], self.young)
+            elif name == "E2b":
+                v = numpy_incident_rows(snap, p["n"])
+            elif name == "E3":
+                v = numpy_undirected_rows(snap, p["n"])
+            elif name == "E4":
+                v = numpy_optional_rows(snap, p["n"], self.old)
+            else:
+                v = numpy_probe_rows(snap, p["n"], p["d"])
+            self._want[key] = v
+        return self._want[key]
+
+    def check(self, name, rows, p):
+        np = self.np
+        want = self.want(name, p)
+        if name == "E1":
+            _require(rows == [{"n": want}], f"E1 d={p['d']}: {rows} != numpy {want}")
+            return
+        if name == "E3":
+            # ORDER BY cd DESC, f ASC: the keys in order, the rows as a multiset
+            got = np.array([(r["p"], r["f"], r["cd"]) for r in rows], np.int64).reshape(-1, 3)
+            _require(
+                got.shape == want.shape
+                and np.array_equal(got[:, 1:], want[:, 1:])
+                and np.array_equal(got[np.lexsort(got.T[::-1])], want[np.lexsort(want.T[::-1])]),
+                f"E3 {p}: rows differ from numpy",
+            )
+            return
+        if name == "E4":
+            nulls = sum(r["f"] is None for r in rows)
+            _require(0 < nulls < len(rows), f"E4 {p}: {nulls} of {len(rows)} rows unmatched")
+        if name == "E5":
+            _require(all(isinstance(r["probe"], bool) for r in rows), "E5: probe is not a bool")
+            _require({r["probe"] for r in rows} == {True, False}, "E5: one probe value only")
+        got = _sorted_rows(np, rows, self._COLS[name])
+        _require(got.shape == want.shape and np.array_equal(got, want), f"{name} {p}: rows differ from numpy")
+
+
+def run_edges_record(np, torch, K, db, card: str, eref: ERef):
+    """Phase 6a: E1–E5 on the recording path (plan cache off) through
+    ``db.query``, launch counts zeroed just before and read just after;
+    then each cell's times, layers and busy share."""
+    sync = torch.cuda.synchronize
+    results = {}
+    K.reset_launches()
+    before = dict(K.LAUNCHES)
+    for name, (sql, params, _rest) in E_CELLS.items():
+        results[name] = db.query(sql, params).to_dicts()
+        sync()
+        after = dict(K.LAUNCHES)
+        per = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        print(f"launches {name}: {sum(per.values())} {per}")
+        before = after
+    launches = dict(K.LAUNCHES)
+    for name, (_sql, params, _rest) in E_CELLS.items():
+        eref.check(name, results[name], params)
+    missing = [n for n in E_RECORD_KERNELS if launches[n] == 0]
+    _require(not missing, f"kernels never launched on the SNB-shape recording path: {missing}")
+    print(
+        "record E: " + ", ".join(
+            f"{n}={results[n][0]['n']}" if n == "E1" else f"{n} rows={len(results[n])}" for n in E_CELLS
+        ) + f"; launches {launches}"
+    )
+    for name, (sql, params, _rest) in E_CELLS.items():
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            db.query(sql, params).to_dicts()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(times)
+        rows = len(results[name])
+        print(
+            f"query {name}: median {med:.3f} ms over {len(times)} runs "
+            f"(runs {[round(t, 3) for t in times]}), {rows / med * 1e3:.1f} rows/s [{card}]"
+        )
+        print(f"layers {name}: {query_layers(torch, db, sql, params, sync)}")
+        print(f"device {name}: {device_share(torch, db, sql, params, med)}")
+    return launches
+
+
+def run_edges_replay(np, torch, K, db, snap, card: str, eref: ERef):
+    """Phase 6b: E1–E5 with the plan cache on, launch counts zeroed just
+    before and read just after: each cell records and captures once,
+    replays 5 timed calls, then replays its other parameter values from
+    the same plan. Returns (launches, plans by cell)."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+
+    sync = torch.cuda.synchronize
+    K.reset_launches()
+    plans = {}
+    for name, (sql, params, rest) in E_CELLS.items():
+        t0 = time.perf_counter()
+        rows = db.query(sql, params).to_dicts()
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        eref.check(name, rows, params)
+        plan = _only_plan(TE, snap, sql).plans[0]
+        _require(plan.graph is not None and plan.replays == 0, f"{name}: not captured")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rows = db.query(sql, params).to_dicts()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            eref.check(name, rows, params)
+        for p in rest:
+            eref.check(name, db.query(sql, p).to_dicts(), p)
+        variants = _only_plan(TE, snap, sql)
+        _require(
+            len(variants.plans) == 1 and plan.replays == 5 + len(rest),
+            f"{name}: {len(variants.plans)} variants, {plan.replays} replays",
+        )
+        med = statistics.median(times)
+        per = plan.launches
+        print(
+            f"replay {name}: record {first_ms - plan.capture_ms:.3f} ms, capture {plan.capture_ms:.3f} ms, "
+            f"replay median {med:.3f} ms over {len(times)} runs (runs {[round(t, 3) for t in times]}), "
+            f"{len(rows) / med * 1e3:.1f} rows/s; {rest} replayed the {params} plan "
+            f"(plan.replays {plan.replays}); launches per replay {sum(per.values())} {per}; "
+            f"reserved after capture {plan.reserved_bytes} bytes [{card}]"
+        )
+        print(f"replay layers {name}: {replay_layers(torch, db, sql, plan, params)}")
+        print(f"replay device {name}: {device_share(torch, db, sql, params, med)}")
+        plans[name] = plan
+    for name in ("E4", "E5"):
+        _require(plans[name].launches.get("rows_with_matches", 0) > 0, f"{name}: rows_with_matches not in its replay")
+    sync()
+    launches = dict(K.LAUNCHES)
+    missing = [n for n in E_REPLAY_KERNELS if launches[n] == 0]
+    _require(not missing, f"kernels never launched on the SNB-shape replay path: {missing}")
+    print(
+        "rows_with_matches launches per replay: "
+        + ", ".join(f"{n} {plans[n].launches.get('rows_with_matches', 0)}" for n in E_CELLS)
+    )
+    print(f"replay E: all equal numpy; launches {launches}")
+    return launches, plans
+
+
+def check_rows_with_matches(torch, K, ks, dg) -> None:
+    """K13 against its plain version at E4's shapes (the roots p < 20000
+    in their recorded buffer, one out hop over knows, the age > 75 mask)
+    and at edge cases, exactly; times it there, beside the bincount
+    yardstick; then checks and times it on 2^26 ascending slots."""
+    from orientdb_tpu_torch.exec.tpu_engine import _cap_of
+
+    dev = dg.device
+    i32 = torch.int32
+    dec = dg.edges["knows"]
+    age = dg.columns["age"].values
+    n = E_CELLS["E4"][1]["n"]
+    width = _cap_of(n)
+    srcs = torch.cat([torch.arange(n, dtype=i32, device=dev), torch.full((width - n,), -1, dtype=i32, device=dev)])
+    counts = K.degree_counts(dec.indptr_out, srcs)
+    offsets = K.exclusive_cumsum(counts)
+    total = K.value_sum(counts)
+    row, _pos, nbr = K.gather_expand(dec.indptr_out, dec.dst, srcs, offsets, total, _cap_of(int(total)))
+    mask = (row >= 0) & (K.take_pad(age, nbr, 0) > 75)
+    W = int(row.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(13)
+    perm = torch.randperm(W, generator=gen, device=dev)
+    cases = [
+        (row, mask, width),
+        (row, mask, 1),
+        (row[perm].contiguous(), mask[perm].contiguous(), width),  # shuffled rows
+        (torch.full_like(row, -1), mask, width),  # all padding
+        (row, torch.zeros_like(mask), width),  # all masked
+        (row, mask, n // 2),  # ids past the end
+    ]
+    for k in EDGE_LENGTHS:
+        cases.append((row[:k].contiguous(), mask[:k].contiguous(), 7))
+    for r, m, segs in cases:
+        ks.same("rows_with_matches", K.rows_with_matches(r, m, segs), K.plain_rows_with_matches(r, m, segs))
+        acc = torch.full((segs,), 5, dtype=i32, device=dev)
+        ks.same("rows_with_matches", K.rows_with_matches(r, m, segs, out=acc), K.plain_rows_with_matches(r, m, segs) + 5)
+    matched = int((K.plain_rows_with_matches(row, mask, width) > 0).sum())
+    ok = mask & (row >= 0)
+    ks.timed(
+        "rows_with_matches",
+        lambda: K.rows_with_matches(row, mask, width),
+        lambda: K.plain_rows_with_matches(row, mask, width),
+        lambda: torch.bincount(row[ok], minlength=width),
+        5.0 * W + 4.0 * width,
+    )
+    # the config-5 expansion's scale: 2^26 ascending slots, ten a row
+    Wb = 1 << 26
+    rows_b = torch.arange(Wb, dtype=i32, device=dev) // 10
+    mask_b = torch.rand(Wb, generator=gen, device=dev) < 0.5
+    segs_b = K.bucket(Wb // 10 + 1)
+    ks.same("rows_with_matches", K.rows_with_matches(rows_b, mask_b, segs_b), K.plain_rows_with_matches(rows_b, mask_b, segs_b))
+    big_ms = _time_ms(torch, lambda: K.rows_with_matches(rows_b, mask_b, segs_b))
+    big_plain = _time_ms(torch, lambda: K.plain_rows_with_matches(rows_b, mask_b, segs_b))
+    big_bound = (5.0 * Wb + 4.0 * segs_b) / HBM_BYTES_PER_S * 1e3
+    print(
+        f"kernel rows_with_matches at E4's shapes: W={W}, num_segments={width}, {matched} of {n} rows matched; "
+        f"at W=2^26 ascending (10 a row), num_segments={segs_b}: {big_ms:.4f} ms, plain {big_plain:.4f} ms, "
+        f"bound {big_bound:.4f} ms"
+    )
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -982,7 +1279,7 @@ def main() -> int:
     from orientdb_tpu_torch.ops import _kernels
     from orientdb_tpu_torch.ops import csr as K
     from orientdb_tpu_torch.ops.device_graph import device_graph
-    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows, build_snb_shape
     from orientdb_tpu_torch.utils.config import config
 
     t_start = time.perf_counter()
@@ -1031,11 +1328,12 @@ def main() -> int:
         print(f"record phase: {time.perf_counter() - t0:.1f} s")
     finally:
         config.plan_cache_size = cache_size
-    mem = dg.memory_report()
+    pk_mem = dg.memory_report()
+    pk_peak = torch.cuda.max_memory_allocated()
     print(
-        f"memory: graph {mem['total_bytes']} bytes on the card "
-        f"{mem['per_device']}, host-only columns {mem['pruned_bytes']} bytes; "
-        f"peak allocated during the recording path {torch.cuda.max_memory_allocated()} bytes"
+        f"memory: graph {pk_mem['total_bytes']} bytes on the card "
+        f"{pk_mem['per_device']}, host-only columns {pk_mem['pruned_bytes']} bytes; "
+        f"peak allocated during the recording path {pk_peak} bytes"
     )
 
     # 5. the replay path: record + capture once, then captured replays
@@ -1044,7 +1342,56 @@ def main() -> int:
     launches, q3_plan = run_replay(np, torch, K, db, snap, card, vref)
     print(f"replay phase: {time.perf_counter() - t0:.1f} s")
     print(f"memory: peak allocated during the replay path {torch.cuda.max_memory_allocated()} bytes")
+    pk_peak = max(pk_peak, torch.cuda.max_memory_allocated())
     check_replay_kernels(torch, K, ks, q3_plan, {"k": Q3_K})
+    pk_peak = max(pk_peak, torch.cuda.max_memory_allocated())
+
+    # 6. the SNB-shape graph of config 5, after freeing the Person–knows one
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+
+    TE._plan_cache(snap).clear()
+    del db, snap, dg, q3_plan, vref
+    gc.collect()  # the snapshot's cycle (snapshot → plan cache → plan → solver)
+    gc.collect()  # the device graph's, released by the weak map in the first pass
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(
+        f"graph Person–knows: resident {pk_mem['total_bytes']} bytes {pk_mem['per_device']}, "
+        f"peak allocated {pk_peak} bytes; allocated after freeing it {torch.cuda.memory_allocated()} bytes"
+    )
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sdb, ssnap = build_snb_shape(8_000_000, msgs_per_person=2, avg_knows=10, seed=7)
+    sdg = device_graph(ssnap, sdb.device)
+    torch.cuda.synchronize()
+    print(
+        f"graph SNB-shape: V={ssnap.num_vertices} knows E={ssnap.edge_classes['knows'].num_edges} "
+        f"hasCreator E={ssnap.edge_classes['hasCreator'].num_edges}, built and uploaded in "
+        f"{time.perf_counter() - t0:.1f} s"
+    )
+    t0 = time.perf_counter()
+    eref = ERef(np, ssnap)
+    for name, (_sql, params, rest) in E_CELLS.items():
+        for p in [params] + rest:
+            eref.want(name, p)
+    print(f"numpy references of E1–E5: {time.perf_counter() - t0:.1f} s")
+    config.plan_cache_size = 0
+    try:
+        t0 = time.perf_counter()
+        run_edges_record(np, torch, K, sdb, card, eref)
+        print(f"record phase E: {time.perf_counter() - t0:.1f} s")
+    finally:
+        config.plan_cache_size = cache_size
+    t0 = time.perf_counter()
+    e_launches, _e_plans = run_edges_replay(np, torch, K, sdb, ssnap, card, eref)
+    print(f"replay phase E: {time.perf_counter() - t0:.1f} s")
+    check_rows_with_matches(torch, K, ks, sdg)
+    s_mem = sdg.memory_report()
+    print(
+        f"graph SNB-shape: resident {s_mem['total_bytes']} bytes {s_mem['per_device']}, host-only "
+        f"columns {s_mem['pruned_bytes']} bytes; peak allocated {torch.cuda.max_memory_allocated()} bytes"
+    )
+    launches["rows_with_matches"] = e_launches["rows_with_matches"]
 
     for name, row in ks.rows.items():
         row["launches"] = launches[name]

@@ -17,7 +17,10 @@ schema has. ``arrays`` holds:
   "dictionary"}``, and ``v_non_columnar`` (optional): the property names
   seen without a columnar encoding, which predicates must refuse;
 - ``edge_classes``: class name → ``{"indptr_out", "dst", "indptr_in",
-  "src", "edge_id_in"}``.
+  "src", "edge_id_in"}``, and optionally ``"columns"`` (edge property name
+  → a column as in ``v_columns``, indexed by edge id in out-CSR order) and
+  ``"non_columnar"`` (the edge property names without a columnar
+  encoding).
 """
 
 from __future__ import annotations
@@ -36,6 +39,20 @@ from orientdb_tpu_torch.storage.snapshot import (
 
 def _i32(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def _columns(cols: Dict) -> Dict[str, PropertyColumn]:
+    out = {}
+    for pname, col in cols.items():
+        dictionary = col.get("dictionary")
+        out[pname] = PropertyColumn(
+            pname,
+            col["kind"],
+            np.ascontiguousarray(col["values"]),
+            np.ascontiguousarray(col["present"], dtype=bool),
+            list(dictionary) if dictionary is not None else None,
+        )
+    return out
 
 
 def snapshot_from_arrays(
@@ -60,20 +77,14 @@ def snapshot_from_arrays(
         k: (int(lo), int(hi)) for k, (lo, hi) in arrays["class_vertex_range"].items()
     }
     snap.edge_closure = {k: list(v) for k, v in arrays["edge_closure"].items()}
-    for pname, col in arrays["v_columns"].items():
-        dictionary = col.get("dictionary")
-        snap.v_columns[pname] = PropertyColumn(
-            pname,
-            col["kind"],
-            np.ascontiguousarray(col["values"]),
-            np.ascontiguousarray(col["present"], dtype=bool),
-            list(dictionary) if dictionary is not None else None,
-        )
+    snap.v_columns = _columns(arrays["v_columns"])
     snap.v_non_columnar = set(arrays.get("v_non_columnar", ()))
     for cname, e in arrays["edge_classes"].items():
         csr = EdgeClassCSR(cname)
         for key in ("indptr_out", "dst", "indptr_in", "src", "edge_id_in"):
             setattr(csr, key, _i32(e[key]))
+        csr.edge_columns = _columns(e.get("columns", {}))
+        csr.non_columnar = set(e.get("non_columnar", ()))
         snap.edge_classes[cname] = csr
     db.attach_snapshot(snap)
     return db, snap

@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels for the CSR primitives of the
 // compiled MATCH path, the bitmap BFS of variable-depth and NOT arms, and
 // the result stage of a captured replay. Port of the jitted functions of
-// orientdb_tpu/ops/csr.py and of the level emission, level step, front-pack,
+// orientdb_tpu/ops/csr.py (the OPTIONAL arm's rows_with_matches among them)
+// and of the level emission, level step, front-pack,
 // meta and page functions of orientdb_tpu/exec/tpu_engine.py; the wrappers
 // are in orientdb_tpu_torch/ops/csr.py and bind these functions through
 // ctypes (orientdb_tpu_torch/ops/_kernels.py).
@@ -605,6 +606,37 @@ __global__ void frontier_advance_kernel(unsigned char* __restrict__ nxt,
   warp_count_add(cnt, count);
 }
 
+// ---------------------------------------------------------------------------
+// K13: rows_with_matches (replaces csr.rows_with_matches,
+// orientdb_tpu/ops/csr.py:283): the OPTIONAL arm's left-join bookkeeping,
+// out[r] += #{i : mask[i] && rows[i] == r} for 0 <= r < nseg; ids outside
+// the range are dropped, as segment_sum drops them.
+// Bound: w*(4+1) bytes read, nseg*4 written (2^26 slots: 336 MB, ~0.1 ms).
+// Design: one slot a thread, grid-stride over warp-aligned bases so that
+// every lane of a warp runs each iteration. An expansion's rows ascend, so
+// a warp's 32 slots name one or two rows: __match_any_sync groups the lanes
+// by row and the lowest lane of each group adds the group's size, one
+// integer atomic a distinct row a warp (integer adds commute: exact).
+// ---------------------------------------------------------------------------
+__global__ void rows_with_matches_kernel(const int* __restrict__ rows,
+                                         const unsigned char* __restrict__ mask,
+                                         long long w, long long nseg,
+                                         unsigned* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads + (threadIdx.x & ~31);
+       base < w; base += stride) {
+    const long long i = base + lane;
+    int r = -1;
+    if (i < w && mask[i]) {
+      const int v = rows[i];
+      if (v >= 0 && v < nseg) r = v;
+    }
+    const unsigned peers = __match_any_sync(kFull, r);
+    if (r >= 0 && lane == __ffs(peers) - 1) atomicAdd(out + r, __popc(peers));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -861,6 +893,23 @@ int csr_frontier_advance(void* nxt, void* visited, long long n, void* count,
     frontier_advance_kernel<true><<<grid_for(n, 16), kThreads, 0, s>>>(x, v, n, cn);
   } else {
     frontier_advance_kernel<false><<<grid_for(n, 1), kThreads, 0, s>>>(x, v, n, cn);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `out` holds `nseg` int32 counts; zeroed here first when `zero` is set,
+// else the counts add into it.
+int csr_rows_with_matches(const void* rows, const void* mask, long long w,
+                          long long nseg, int zero, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (zero && nseg > 0) {
+    cudaError_t e = cudaMemsetAsync(out, 0, nseg * sizeof(unsigned), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (w > 0 && nseg > 0) {
+    rows_with_matches_kernel<<<grid_for(w, 1), kThreads, 0, s>>>(
+        static_cast<const int*>(rows), static_cast<const unsigned char*>(mask), w, nseg,
+        static_cast<unsigned*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -48,7 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from orientdb_tpu_torch.exec.eval import EvalContext, contains_aggregate
+from orientdb_tpu_torch.exec.eval import EvalContext, contains_aggregate, evaluate
 from orientdb_tpu_torch.exec.oracle import (
     MatchInterpreter,
     Pattern,
@@ -95,6 +95,9 @@ class Table:
         self.device = device
         #: alias → int32 [width] dense vertex index (-1 null / padding)
         self.cols: Dict[str, torch.Tensor] = {}
+        #: edge alias → (int32 [width] edge class index into the solver's
+        #: `edge_class_list`, int32 [width] edge id in out order); -1 null
+        self.edge_cols: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         #: depth alias → int32 [width] discovery depth (-1 null / padding)
         self.depth_cols: Dict[str, torch.Tensor] = {}
         self.count = count  # valid rows; starts at 1 (the empty binding)
@@ -126,6 +129,8 @@ class Table:
         t = Table(self.device, count=self.count, width=int(rows.shape[0]))
         for a, c in self.cols.items():
             t.cols[a] = K.take_pad(c, rows, -1)
+        for a, (ci, eid) in self.edge_cols.items():
+            t.edge_cols[a] = (K.take_pad(ci, rows, -1), K.take_pad(eid, rows, -1))
         for a, c in self.depth_cols.items():
             t.depth_cols[a] = K.take_pad(c, rows, -1)
         t.valid = K.take_pad(self.valid_device, rows, 0)
@@ -147,6 +152,11 @@ def _concat_tables(parts: List[Table], counts: List[int], device) -> Table:
         out.count_dev = out.count_dev + p.count_device
     for a in parts[0].cols.keys():
         out.cols[a] = _pad_concat([p.cols[a] for p in parts], out.width, device)
+    for a in parts[0].edge_cols.keys():
+        out.edge_cols[a] = tuple(
+            _pad_concat([p.edge_cols[a][i] for p in parts], out.width, device)
+            for i in (0, 1)
+        )
     for a in parts[0].depth_cols.keys():
         out.depth_cols[a] = _pad_concat([p.depth_cols[a] for p in parts], out.width, device)
     out.valid = _pad_concat([p.valid_device for p in parts], out.width, device, pad=0)
@@ -251,7 +261,7 @@ class PlanStep:
     __slots__ = ("kind", "alias", "edge", "reverse", "close")
 
     def __init__(self, kind, alias=None, edge=None, reverse=False, close=False):
-        self.kind = kind  # 'root' | 'expand'
+        self.kind = kind  # 'root' | 'expand' | 'optional'
         self.alias = alias
         self.edge: Optional[PatternEdge] = edge
         self.reverse = reverse
@@ -268,7 +278,11 @@ class PlanStep:
 def build_plan(pattern: Pattern, interp: MatchInterpreter) -> List[PlanStep]:
     """Static replay of the reference's greedy edge ordering: the bound
     alias set evolves independently of the data, so the order is known
-    before any device work."""
+    before any device work. Required arms first (an arm's edge-filter
+    alias binds with it), then the isolated roots, then the OPTIONAL arms
+    in the order the reference's interpreter takes them: the first in
+    list order with a bound endpoint, reversed when only its target is
+    bound, closing when both are."""
     steps: List[PlanStep] = []
     bound: set = set()
     required = [e for e in pattern.edges if not interp._edge_is_optional(e)]
@@ -304,12 +318,53 @@ def build_plan(pattern: Pattern, interp: MatchInterpreter) -> List[PlanStep]:
             steps.append(PlanStep("expand", edge=e, reverse=True))
         bound.add(e.from_alias)
         bound.add(e.to_alias)
+        f = e.item.edge_filter
+        if f is not None and f.alias:
+            bound.add(f.alias)
     for n in interp.enumerable_isolated(required, optionals):
         if n.alias in bound:
             continue
+        if n.is_edge_alias:
+            raise Uncompilable("unbound edge alias would scan all edges")
         steps.append(PlanStep("root", alias=n.alias))
         bound.add(n.alias)
+    opts = list(optionals)
+    while opts:
+        pick = next(
+            (i for i, e in enumerate(opts) if e.from_alias in bound or e.to_alias in bound),
+            None,
+        )
+        if pick is None:
+            # fully detached optional arms bind nothing: their aliases
+            # marshal as null
+            break
+        e = opts.pop(pick)
+        fb, tb = e.from_alias in bound, e.to_alias in bound
+        steps.append(PlanStep("optional", edge=e, reverse=not fb, close=fb and tb))
+        bound.add(e.from_alias)
+        bound.add(e.to_alias)
     return steps
+
+
+_EDGE_METHODS = ("oute", "ine", "bothe")
+_VERTEX_METHODS = ("outv", "inv", "bothv")
+
+
+def _alias_expression(e: A.Expression, names: set) -> bool:
+    """True when ``e`` is built of null tests, NOT / AND / OR and literals
+    over bare alias names: a projection the port evaluates from which
+    aliases a row binds, with no record behind them."""
+    if isinstance(e, A.Identifier):
+        return e.name in names
+    if isinstance(e, A.Literal):
+        return True
+    if isinstance(e, A.IsNull):
+        return _alias_expression(e.expr, names)
+    if isinstance(e, A.Unary) and e.op == "NOT":
+        return _alias_expression(e.expr, names)
+    if isinstance(e, A.Binary) and e.op in ("AND", "OR"):
+        return _alias_expression(e.left, names) and _alias_expression(e.right, names)
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -318,20 +373,21 @@ def build_plan(pattern: Pattern, interp: MatchInterpreter) -> List[PlanStep]:
 
 
 def build_bitmap_hops(dg: DeviceGraph, items) -> List:
-    """Frontier-hop closures for ``(class, direction)`` items over each
-    class's flat edge list in out-CSR order: an out hop activates on
-    ``edge_src`` and emits ``dst``, an in hop the reverse. Each closure
-    maps a ``[C, vb]`` frontier (with an optional WHILE ``gate``, the
-    frontier's device popcount ``alive``, and an ``out`` bitmap to OR
+    """Frontier-hop closures for ``(class, direction, emask)`` items over
+    each class's flat edge list in out-CSR order: an out hop activates on
+    ``edge_src`` and emits ``dst``, an in hop the reverse; ``emask`` (bool
+    [E] in out order, or None) admits the edges of an edge WHERE. Each
+    closure maps a ``[C, vb]`` frontier (with an optional WHILE ``gate``,
+    the frontier's device popcount ``alive``, and an ``out`` bitmap to OR
     into) to the bitmap of the vertices reached (`K.bitmap_hop`). Reading
     ``edge_src`` uploads it on the recording run."""
     hops = []
-    for cname, d in items:
+    for cname, d, emask in items:
         dec = dg.edges[cname]
         a, em = (dec.edge_src, dec.dst) if d == "out" else (dec.dst, dec.edge_src)
         hops.append(
-            lambda fr, gate=None, alive=None, out=None, a=a, em=em: K.bitmap_hop(
-                a, em, None, fr, gate, alive, out
+            lambda fr, gate=None, alive=None, out=None, a=a, em=em, m=emask: K.bitmap_hop(
+                a, em, m, fr, gate, alive, out
             )
         )
     return hops
@@ -365,16 +421,45 @@ class TpuMatchSolver:
         self.interp = MatchInterpreter(db, stmt, params)
         self.pattern = self.interp.pattern
         self.not_paths = self.interp.not_paths
+        #: edge classes in a fixed order: an edge binding's class index
+        self.edge_class_list = sorted(snap.edge_classes.keys())
+        self.edge_class_idx = {n: i for i, n in enumerate(self.edge_class_list)}
         self._check_supported()
         self._check_returns()
         self.plan = build_plan(self.pattern, self.interp)
         self.dg: DeviceGraph = device_graph(snap, db.device)
         self.sched = SizeSchedule()
         self._vertex_scope_cache: Optional[ColumnScope] = None
-        # compile every node predicate up front: an unsupported one fails
-        # before any device work
+        # the vertex aliases bound before each alias's first bind and before
+        # each step: what a binding-referencing WHERE there may read (the
+        # reference's interpreter checks with the bindings made so far)
+        vertex_aliases = {a for a, n in self.pattern.nodes.items() if not n.is_edge_alias}
+        self._alias_visible: Dict[str, set] = {}
+        self._step_visible: Dict[int, set] = {}
+        bound_so_far: set = set()
+        for step in self.plan:
+            if step.kind == "root":
+                self._alias_visible.setdefault(step.alias, set())
+                bound_so_far.add(step.alias)
+                continue
+            e = step.edge
+            src = e.to_alias if step.reverse else e.from_alias
+            dst = e.from_alias if step.reverse else e.to_alias
+            vis = bound_so_far & vertex_aliases
+            self._step_visible[id(step)] = vis
+            self._alias_visible.setdefault(dst, vis)
+            bound_so_far.add(src)
+            bound_so_far.add(dst)
+            f = e.item.edge_filter
+            if f is not None and f.alias:
+                bound_so_far.add(f.alias)
+        # compile every vertex node predicate up front: an unsupported one
+        # fails before any device work (an edge alias's filters are edge
+        # WHEREs, compiled per edge class by the edge-binding expansion)
         self._node_masks = {
-            alias: self._compile_node(node) for alias, node in self.pattern.nodes.items()
+            alias: self._compile_node(node)
+            for alias, node in self.pattern.nodes.items()
+            if not node.is_edge_alias
         }
         # WHILE conditions compile with $depth as a per-level scalar
         self._while_fns: Dict[int, object] = {}
@@ -399,9 +484,10 @@ class TpuMatchSolver:
 
     def _check_supported(self) -> None:
         """Refuse, with the reason, every MATCH shape this slice does not
-        compile: the reference's own rules for NOT arms and variable-depth
-        arms, and edge binding, edge aliases, edge WHERE (the snapshot has
-        no edge property columns), OPTIONAL arms and rid filters."""
+        compile: the reference's own rules (NOT arms, variable-depth arms,
+        edge-binding and endpoint arms, binding references inside WHILE
+        arms, unbound edge aliases), and rid filters, which need RIDs."""
+        nodes = self.pattern.nodes
         for path in self.not_paths:
             for flt in [path.first] + [it.target for it in path.items]:
                 if flt is None:
@@ -412,75 +498,99 @@ class TpuMatchSolver:
                     raise Uncompilable("optional/depth/path alias in NOT arm")
                 if flt.rid is not None:
                     raise Uncompilable("rid filter in NOT arm")
-                if flt.where is not None and _expr_uses_bindings(
-                    flt.where, self.pattern.nodes
-                ):
+                if flt.where is not None and _expr_uses_bindings(flt.where, nodes):
                     raise Uncompilable("NOT-arm WHERE references bindings")
             for it in path.items:
-                if (it.method or "").lower() in (
-                    "outv", "inv", "bothv", "oute", "ine", "bothe"
-                ):
+                if (it.method or "").lower() in _EDGE_METHODS + _VERTEX_METHODS:
                     raise Uncompilable("method form in NOT arm")
                 f = it.edge_filter
                 if f is not None and f.alias:
                     raise Uncompilable("edge alias in NOT arm")
-                if f is not None and f.where is not None:
-                    raise Uncompilable("edge WHERE in NOT arm")
+                if f is not None and f.where is not None and _expr_uses_bindings(f.where, nodes):
+                    raise Uncompilable("NOT-arm edge WHERE references bindings")
         for e in self.pattern.edges:
             item = e.item
-            if (item.method or "").lower() in (
-                "oute", "ine", "bothe", "outv", "inv", "bothv"
-            ):
-                raise Uncompilable("edge binding (outE/inE/outV/inV arms)")
+            m = (item.method or "").lower()
+            var_depth = item.target.while_cond is not None or item.target.max_depth is not None
+            if m in _EDGE_METHODS and item.edge_filter is None and var_depth:
+                raise Uncompilable("variable-depth edge-binding arm")
+            if m in _VERTEX_METHODS and var_depth:
+                raise Uncompilable("variable-depth endpoint arm")
             if item.target.path_alias:
                 raise Uncompilable("pathAlias not compiled (per-path state)")
-            w = item.target.while_cond
-            if w is not None and _expr_uses_bindings(w, self.pattern.nodes):
-                raise Uncompilable("WHILE condition references bindings")
             if item.negated:
                 raise Uncompilable("negated path item")
-            if self.interp._edge_is_optional(e):
-                raise Uncompilable("OPTIONAL arm")
+            if not var_depth:
+                continue
+            # a variable-depth arm evaluates its masks vertex-wise (no
+            # per-row bindings) and binds no discovery edge
             f = item.edge_filter
+            if f is not None and f.where is not None and _expr_uses_bindings(f.where, nodes):
+                raise Uncompilable("edge WHERE references bindings (WHILE arm)")
+            if item.target.where is not None and _expr_uses_bindings(item.target.where, nodes):
+                raise Uncompilable("node WHERE references bindings (WHILE arm)")
             if f is not None and f.alias:
-                raise Uncompilable("edge alias binding")
-            if f is not None and f.where is not None:
-                raise Uncompilable("edge WHERE")
-        for node in self.pattern.nodes.values():
+                raise Uncompilable("edge alias on a WHILE arrow (discovery-edge binding)")
+            w = item.target.while_cond
+            if w is not None and _expr_uses_bindings(w, nodes):
+                raise Uncompilable("WHILE condition references bindings")
+        # an edge alias binds through an arm's edge braces or as the target
+        # of a bare edge-binding arm (.outE(){as:e}); no other way
+        edge_filter_aliases = {
+            e.item.edge_filter.alias
+            for e in self.pattern.edges
+            if e.item.edge_filter is not None and e.item.edge_filter.alias
+        }
+        edge_bind_targets = {
+            e.to_alias
+            for e in self.pattern.edges
+            if (e.item.method or "").lower() in _EDGE_METHODS and e.item.edge_filter is None
+        }
+        for node in nodes.values():
+            if (
+                node.is_edge_alias
+                and node.alias not in edge_filter_aliases
+                and node.alias not in edge_bind_targets
+            ):
+                raise Uncompilable("edge-alias pattern nodes not compiled yet")
             for f in node.filters:
                 if f.rid is not None:
-                    raise Uncompilable("rid filter")
-                if f.where is not None and _expr_uses_bindings(
-                    f.where, self.pattern.nodes
-                ):
-                    raise Uncompilable("WHERE referencing other aliases")
+                    raise Uncompilable("rid filter (the port has no RIDs)")
 
     def _check_returns(self) -> None:
-        """The slice marshals a lone count(*) or alias.property columns
-        straight from the snapshot; any other RETURN needs host records."""
+        """The slice marshals a lone count(*), ``alias.property`` columns
+        of vertex and edge aliases, depth aliases, and expressions whose
+        only references are aliases (``kn IS NOT NULL``) straight from the
+        snapshot; any other RETURN needs host records."""
         stmt = self.stmt
         if stmt.group_by or stmt.unwind:
             raise Uncompilable("GROUP BY / UNWIND")
         if self.count_only_name() is not None:
             return
         depth_aliases = self._depth_aliases()
+        nodes = self.pattern.nodes
         for p in stmt.returns:
             e = p.expr
             if contains_aggregate(e):
                 raise Uncompilable("aggregate RETURN other than a lone count(*)")
             if isinstance(e, A.Identifier) and e.name in depth_aliases:
                 continue
-            if not (
-                isinstance(e, A.FieldAccess)
-                and isinstance(e.base, A.Identifier)
-                and e.base.name in self.pattern.nodes
-            ):
-                raise Uncompilable(
-                    "RETURN shape needs host records (only alias.property, "
-                    "depth aliases and a lone count(*) are compiled)"
-                )
-            if e.name in self.snap.v_non_columnar or e.name.startswith("@"):
-                raise Uncompilable(f"RETURN of non-columnar property {e.name!r}")
+            if isinstance(e, A.FieldAccess) and isinstance(e.base, A.Identifier) and e.base.name in nodes:
+                if nodes[e.base.name].is_edge_alias:
+                    refused = set().union(
+                        *(c.non_columnar for c in self.snap.edge_classes.values())
+                    )
+                else:
+                    refused = self.snap.v_non_columnar
+                if e.name in refused or e.name.startswith("@"):
+                    raise Uncompilable(f"RETURN of non-columnar property {e.name!r}")
+                continue
+            if not isinstance(e, A.Identifier) and _alias_expression(e, set(nodes) | depth_aliases):
+                continue
+            raise Uncompilable(
+                "RETURN shape needs host records (only alias.property, depth "
+                "aliases, expressions over aliases and a lone count(*) are compiled)"
+            )
 
     def _depth_aliases(self) -> set:
         """Depth aliases of the variable-depth arms (a depth column each)."""
@@ -504,24 +614,77 @@ class TpuMatchSolver:
         return self._vertex_scope_cache
 
     def _compile_node(self, node: PatternNode):
-        """Node admission mask: fn(idx) -> bool mask over vertex ids
-        (class closure ∧ WHERE, padding excluded)."""
+        """Node admission mask: fn(idx, env=None) -> bool mask over vertex
+        ids (class closure ∧ WHERE, padding excluded). A WHERE that reads
+        earlier bindings (``alias.prop``) compiles against the aliases
+        visible at the node's first bind; the mask then needs
+        ``env["bindings"]`` (``mask.uses_bindings``)."""
         parts = []
+        uses_bindings = False
         for f in node.filters:
             if f.class_name:
                 parts.append(self._class_mask_fn(self.dg.class_table(f.class_name)))
-            if f.where is not None:
-                parts.append(
-                    compile_predicate(f.where, self._vertex_scope(), self.param_box)
+            if f.where is None:
+                continue
+            if _expr_uses_bindings(f.where, self.pattern.nodes):
+                scope = ColumnScope(
+                    self.dg.columns,
+                    self.dg.non_columnar,
+                    reserved=set(self.pattern.nodes.keys()),
+                    device=self.dg.device,
+                    binding_columns=self.dg.columns,
+                    binding_non_columnar=self.dg.non_columnar,
+                    visible_aliases=self._alias_visible.get(node.alias, set()),
                 )
+                parts.append(compile_predicate(f.where, scope, self.param_box))
+                uses_bindings = uses_bindings or scope.uses_bindings
+            else:
+                parts.append(compile_predicate(f.where, self._vertex_scope(), self.param_box))
 
-        def mask(idx, parts=parts):
+        def mask(idx, env=None, parts=parts):
+            env = env or {}
             m = idx >= 0
             for p in parts:
-                m = m & p(idx, {})
+                m = m & p(idx, env)
             return m
 
+        mask.uses_bindings = uses_bindings
         return mask
+
+    def _edge_where(self, concrete: str, where: A.Expression, visible: Optional[set] = None):
+        """Edge-property predicate over edge ids of one edge class; with
+        ``visible``, ``alias.prop`` of those vertex aliases compiles too,
+        and the function (``uses_bindings``) then needs
+        ``env["bindings"]`` aligned with its slots."""
+        dec = self.dg.edges[concrete]
+        scope = ColumnScope(
+            dec.columns,
+            dec.non_columnar,
+            reserved=set(self.pattern.nodes.keys()),
+            device=self.dg.device,
+            binding_columns=self.dg.columns if visible else None,
+            binding_non_columnar=self.dg.non_columnar,
+            visible_aliases=visible or set(),
+        )
+        fn = compile_predicate(where, scope, self.param_box)
+        fn.uses_bindings = scope.uses_bindings
+        return fn
+
+    @staticmethod
+    def _binding_env(table: Table, row: Optional[torch.Tensor], visible: set) -> Dict:
+        """``env`` of a binding-referencing predicate: each visible alias's
+        vertex ids per slot, aligned with ``row`` (the table row of each
+        expansion slot; None: the table's own rows)."""
+
+        def col(a):
+            if a not in table.cols:
+                n = row.shape[0] if row is not None else (table.width or 1)
+                return torch.full((n,), -1, dtype=I32, device=table.device)
+            if row is None:
+                return table.cols[a]
+            return K.take_pad(table.cols[a], row, -1)
+
+        return {"bindings": {a: col(a) for a in visible}}
 
     def _class_mask_fn(self, table: torch.Tensor):
         """Class-closure membership of each slot's vertex: its class id
@@ -542,14 +705,14 @@ class TpuMatchSolver:
         offsets = K.exclusive_cumsum(counts)
         total_dev = K.value_sum(counts)
         total = self.sched.observe(total_dev)
-        row, _edge_pos, nbr = K.gather_expand(
+        row, edge_pos, nbr = K.gather_expand(
             indptr, nbrs, srcs, offsets, total_dev, _cap_of(total)
         )
-        return row, nbr, total
+        return row, edge_pos, nbr, total
 
     def _expand_one_dir_chunked(self, dec, d: str, srcs):
         """Expansion slabs for one (class, direction): usually ONE
-        ``(row, nbr, total)``, but when the output would exceed
+        ``(row, eid, nbr, total)``, but when the output would exceed
         config.max_expansion_cap rows, the binding table splits into
         contiguous row ranges expanded separately, so buffers stay bounded
         however large the fan-out."""
@@ -564,18 +727,19 @@ class TpuMatchSolver:
         step = -(-width // n_chunks)
         slabs = []
         for a in range(0, width, step):
-            row, nbr, t = self._expand_one_dir(dec, d, srcs[a : a + step])
+            row, eid, nbr, t = self._expand_one_dir(dec, d, srcs[a : a + step])
             row = torch.where(row >= 0, row + a, row)  # local → table rows
-            slabs.append((row, nbr, t))
+            slabs.append((row, eid, nbr, t))
         return slabs
 
     def _expand_one_dir(self, dec, d: str, srcs):
-        """One (edge class, direction) expansion → (row, neighbor, host
-        total). Edge ids are not carried: edge WHERE and edge binding are
-        not in this slice."""
+        """One (edge class, direction) expansion → (row, edge id in out
+        order, neighbor, host total): an in-walk maps its CSR position
+        through the class's ``edge_id_in``."""
         if d == "out":
             return self._expand_csr(dec.indptr_out, dec.dst, srcs)
-        return self._expand_csr(dec.indptr_in, dec.src, srcs)
+        row, pos, nbr, total = self._expand_csr(dec.indptr_in, dec.src, srcs)
+        return row, K.take_pad(dec.edge_id_in, pos, -1), nbr, total
 
     def solve_table(self) -> Table:
         """The plan's steps, then the NOT anti-join, then the COUNT
@@ -591,17 +755,18 @@ class TpuMatchSolver:
         table = Table(self.device, count=1, width=0)
         for step in steps:
             if table.empty():
+                # an empty required pipeline: optional arms add no rows
                 return table
             if step.kind == "root":
                 table = self._root(table, step.alias)
             else:
-                table = self._expand(table, step)
+                table = self._expand(table, step, optional=step.kind == "optional")
         if self._not_compiled and not table.empty():
             table = self._apply_not_paths(table)
         if pushdown and not table.empty():
             return self._apply_count_pushdown(table, pushdown)
         if var_count is not None and not table.empty():
-            return self._expand_var_depth(table, var_count, count_only=True)
+            return self._expand_var_depth(table, var_count, optional=False, count_only=True)
         return table
 
     # -- COUNT(*) aggregate pushdown ----------------------------------------
@@ -610,10 +775,13 @@ class TpuMatchSolver:
         """Longest plan suffix of terminal chain expansions a lone COUNT(*)
         can aggregate without materializing binding tables: each terminal
         hop collapses to one O(E) segment-sum pass —
-        ``w_k[v] = Σ_{edges v→u} mask(u)·w_{k+1}[u]`` — and the count is
-        ``Σ_rows w_1[src]``. A NOT arm disables it (its anti-join needs
-        the rows), and the suffix ends at a variable-depth arm: a weight
-        pass is one fixed hop (`_var_count_step` counts such an arm)."""
+        ``w_k[v] = Σ_{edges v→u} emask(e)·mask(u)·w_{k+1}[u]`` — and the
+        count is ``Σ_rows w_1[src]``. A NOT arm disables it (its anti-join
+        needs the rows), and the suffix ends at a variable-depth arm (a
+        weight pass is one fixed hop; `_var_count_step` counts such an
+        arm), at an arm that binds an edge alias, at an edge-binding or
+        endpoint arm, and at a predicate that reads other bindings (a
+        weight pass has no rows to read them from)."""
         if self.count_only_name() is None or self.stmt.group_by or self._not_compiled:
             return []
         suffix: List[PlanStep] = []
@@ -621,10 +789,28 @@ class TpuMatchSolver:
             if step.kind != "expand" or step.close:
                 break
             e = step.edge
-            t = e.item.target
-            if t.while_cond is not None or t.max_depth is not None or t.depth_alias:
+            item = e.item
+            t = item.target
+            f = item.edge_filter
+            if (
+                t.while_cond is not None
+                or t.max_depth is not None
+                or t.depth_alias
+                or (f is not None and f.alias)
+            ):
+                break
+            if (
+                f is not None
+                and f.where is not None
+                and _expr_uses_bindings(f.where, self.pattern.nodes)
+            ):
+                break
+            m = (item.method or "").lower()
+            if (m in _EDGE_METHODS and f is None) or m in _VERTEX_METHODS:
                 break
             dst_alias = e.from_alias if step.reverse else e.to_alias
+            if self._node_masks[dst_alias].uses_bindings:
+                break
             # dst must be terminal: touched by no other edge than this one
             # and (for non-last suffix members) the src of the next step
             used_elsewhere = False
@@ -633,6 +819,9 @@ class TpuMatchSolver:
                     continue
                 in_suffix_head = suffix and e2 is suffix[0].edge
                 if dst_alias in (e2.from_alias, e2.to_alias) and not in_suffix_head:
+                    used_elsewhere = True
+                f2 = e2.item.edge_filter
+                if f2 is not None and f2.alias == dst_alias:
                     used_elsewhere = True
             if used_elsewhere:
                 break
@@ -658,15 +847,25 @@ class TpuMatchSolver:
             return None
         step = self.plan[-1]
         if step.kind != "expand" or step.close:
-            return None
+            return None  # an optional arm adds its unmatched rows too
         e = step.edge
         t = e.item.target
         if t.while_cond is None and t.max_depth is None:
             return None  # a fixed hop: the weight pushdown covers it
+        f = e.item.edge_filter
+        if f is not None and f.alias:
+            return None
         dst_alias = e.from_alias if step.reverse else e.to_alias
+        if self._node_masks[dst_alias].uses_bindings:
+            return None
         for e2 in self.pattern.edges:
-            if e2 is not e and dst_alias in (e2.from_alias, e2.to_alias):
+            if e2 is e:
+                continue
+            if dst_alias in (e2.from_alias, e2.to_alias):
                 return None  # dst takes part in another arm: rows needed
+            f2 = e2.item.edge_filter
+            if f2 is not None and f2.alias == dst_alias:
+                return None
         return step
 
     def _apply_count_pushdown(self, table: Table, steps: List[PlanStep]) -> Table:
@@ -706,6 +905,15 @@ class TpuMatchSolver:
         univ = torch.arange(vb, dtype=I32, device=self.device)
         return vb, torch.where(univ < V, univ, -1)
 
+    def _edge_mask(self, cname: str, where) -> Optional[torch.Tensor]:
+        """An edge WHERE (no binding references) over every edge of one
+        class, bool [E] in out order; None without a WHERE."""
+        if where is None:
+            return None
+        E = self.dg.edges[cname].num_edges
+        eids = torch.arange(E, dtype=I32, device=self.device)
+        return self._edge_where(cname, where)(eids, {}).contiguous()
+
     def _pushdown_weights(self, steps: List[PlanStep], dtype) -> torch.Tensor:
         # vertex universe for [vb]-wide node-mask precomputes, used where
         # the edge list outnumbers the vertices: one bool gather per edge
@@ -729,23 +937,29 @@ class TpuMatchSolver:
             if any(self.dg.edges[c].num_edges >= vb for c in classes)
             else None
         )
+        f = item.edge_filter
         new_w = torch.zeros(vb, dtype=dtype, device=self.device)
         for cname in classes:
             dec = self.dg.edges[cname]
             E = dec.num_edges
             if E == 0:
                 continue
+            emask = self._edge_mask(cname, f.where if f is not None else None)
             for d in ("out", "in") if direction == "both" else (direction,):
                 # both CSR orders are on the device, so either direction
-                # sums per vertex with indptr_segment_sum
+                # sums per vertex with indptr_segment_sum; the in walk
+                # reads the out-order edge mask through edge_id_in
                 if d == "out":
-                    emit, ip = dec.dst, dec.indptr_out
+                    emit, ip, em = dec.dst, dec.indptr_out, emask
                 else:
                     emit, ip = dec.src, dec.indptr_in
+                    em = None if emask is None else K.take_pad(emask, dec.edge_id_in, False)
                 if E >= vb:
                     contrib = K.take_pad(ok_vec, emit, False)
                 else:
                     contrib = node_mask(emit)
+                if em is not None:
+                    contrib = contrib & em
                 vals = contrib.to(dtype)
                 if w is not None:
                     vals = vals * K.take_pad(w, emit, 0)
@@ -831,14 +1045,51 @@ class TpuMatchSolver:
             concrete = keep
         return concrete
 
-    def _expand(self, table: Table, step: PlanStep) -> Table:
-        """One required (non-optional) arm: expand every live row over the
-        arm's edge classes and directions, admit the reached vertices, and
-        compact the survivors into a new table."""
+    def _empty_like(self, table: Table, dst_alias: str, edge_alias=None, depth_alias=None) -> Table:
+        """A table of no rows with the columns an arm adds, so that later
+        steps find the structure they expect."""
+        t = table.gather(torch.full((K.bucket(1),), -1, dtype=I32, device=self.device))
+        t.count = 0
+        t.count_dev = torch.zeros((), dtype=I32, device=self.device)
+        null = torch.full((t.width,), -1, dtype=I32, device=self.device)
+        if dst_alias is not None:
+            t.cols[dst_alias] = null
+        if edge_alias is not None:
+            t.edge_cols[edge_alias] = (null, null)
+        if depth_alias:
+            t.depth_cols[depth_alias] = null
+        return t
+
+    def _unmatched_part(self, table: Table, matched: torch.Tensor):
+        """The left join's other half: the table's live rows with no match
+        (``matched`` bool [width]), compacted through the size schedule —
+        recorded while recording, a device overflow flag on a replay.
+        Returns (part or None, the kept table rows)."""
+        valid = table.valid_device[: table.width].to(torch.bool)
+        ukeep, un, un_dev = self._compact(valid & ~matched)
+        if un == 0:
+            return None, ukeep
+        part = table.gather(ukeep)
+        part.count = un
+        part.count_dev = un_dev
+        return part, ukeep
+
+    def _expand(self, table: Table, step: PlanStep, optional: bool = False) -> Table:
+        """One arm: expand every live row over the arm's edge classes and
+        directions, apply the edge WHERE and the reached vertices' mask
+        (with the rows' bindings where they read them), and compact the
+        survivors into a new table. An OPTIONAL arm also keeps each live
+        row with no survivor (`K.rows_with_matches` counts them), with the
+        reference's null rules."""
         e = step.edge
         item = e.item
         if item.target.while_cond is not None or item.target.max_depth is not None:
-            return self._expand_var_depth(table, step)
+            return self._expand_var_depth(table, step, optional)
+        m = (item.method or "").lower()
+        if m in _EDGE_METHODS and item.edge_filter is None:
+            return self._expand_bind_edge(table, step, optional)
+        if m in _VERTEX_METHODS:
+            return self._expand_edge_endpoint(table, step, optional, m)
         direction = item.direction
         if step.reverse:
             direction = _REVERSE_DIR[direction]
@@ -847,19 +1098,40 @@ class TpuMatchSolver:
         srcs = table.cols.get(src_alias)
         if srcs is None:
             raise Uncompilable(f"alias {src_alias} not bound before expansion")
+        f = item.edge_filter
+        edge_alias = f.alias if f is not None and f.alias else None
+        visible = self._step_visible.get(id(step), set())
         node_mask = self._node_masks[dst_alias]
+        width = table.width or 1
+        matched_any = torch.zeros(width, dtype=I32, device=self.device) if optional else None
         parts: List[Table] = []
         counts: List[int] = []
         for cname in self._resolve_edge_classes(item):
             dec = self.dg.edges[cname]
+            where_fn = (
+                self._edge_where(cname, f.where, visible)
+                if f is not None and f.where is not None
+                else None
+            )
+            uses = node_mask.uses_bindings or (where_fn is not None and where_fn.uses_bindings)
             for d in ("out", "in") if direction == "both" else (direction,):
-                for row, nbr, total in self._expand_one_dir_chunked(dec, d, srcs):
+                for row, eid, nbr, total in self._expand_one_dir_chunked(dec, d, srcs):
                     if total == 0:
                         continue
-                    mask = (row >= 0) & node_mask(nbr)
+                    env = self._binding_env(table, row, visible) if uses else {}
+                    mask = row >= 0
+                    if where_fn is not None:
+                        mask = mask & where_fn(eid, env)
+                    # a close step does not re-run a binding-referencing
+                    # mask: the reference checks the alias once, when it
+                    # first binds
+                    if not (step.close and node_mask.uses_bindings):
+                        mask = mask & node_mask(nbr, env)
                     if step.close:
                         bound = K.take_pad(table.cols[dst_alias], row, -2)
                         mask = mask & (nbr == bound)
+                    if optional:
+                        K.rows_with_matches(row, mask, width, out=matched_any)
                     keep, kn, kn_dev = self._compact(mask)
                     if kn == 0:
                         continue
@@ -867,15 +1139,164 @@ class TpuMatchSolver:
                     part.count = kn
                     part.count_dev = kn_dev
                     part.cols[dst_alias] = K.take_pad(nbr, keep, -1)
+                    if edge_alias is not None:
+                        part.edge_cols[edge_alias] = self._edge_binding(
+                            cname, K.take_pad(eid, keep, -1)
+                        )
                     parts.append(part)
                     counts.append(kn)
+        if optional:
+            upart, ukeep = self._unmatched_part(table, matched_any[: table.width] > 0)
+            if upart is not None:
+                null = torch.full((upart.width,), -1, dtype=I32, device=self.device)
+                arm_opt = f is not None and f.optional
+                if step.close and arm_opt:
+                    pass  # a probe between two bound aliases: both survive
+                elif step.close:
+                    # the reference keeps a bound endpoint when the source
+                    # is null, and nulls it when a bound source found no
+                    # match
+                    src_g = K.take_pad(srcs, ukeep, -1)
+                    upart.cols[dst_alias] = torch.where(src_g < 0, upart.cols[dst_alias], -1)
+                else:
+                    upart.cols[dst_alias] = null
+                if edge_alias is not None:
+                    upart.edge_cols[edge_alias] = (null, null)
+                parts.append(upart)
+                counts.append(upart.count)
         if not parts:
-            # preserve column structure for downstream steps
-            t = table.gather(torch.full((K.bucket(1),), -1, dtype=I32, device=self.device))
-            t.count = 0
-            t.count_dev = torch.zeros((), dtype=I32, device=self.device)
-            t.cols[dst_alias] = torch.full((t.width,), -1, dtype=I32, device=self.device)
-            return t
+            return self._empty_like(table, dst_alias, edge_alias)
+        return _concat_tables(parts, counts, self.device)
+
+    def _edge_binding(self, cname: str, eid: torch.Tensor):
+        """The (class index, edge id) columns of edges of one class."""
+        return torch.where(eid >= 0, self.edge_class_idx[cname], -1).to(I32), eid
+
+    # -- method-form arms ---------------------------------------------------
+
+    def _expand_bind_edge(self, table: Table, step: PlanStep, optional: bool) -> Table:
+        """A bare ``.outE('EC'){as:e}``: the target alias binds the EDGE.
+        Expansion slots carry the edge id; the target's class and WHERE
+        apply to the edge (an edge class restriction and an edge WHERE)."""
+        e = step.edge
+        item = e.item
+        if step.reverse:
+            raise Uncompilable("reverse edge-binding arm")
+        src_alias, dst_alias = e.from_alias, e.to_alias
+        srcs = table.cols.get(src_alias)
+        if srcs is None:
+            raise Uncompilable(f"alias {src_alias} not bound before expansion")
+        dst_node = self.pattern.nodes[dst_alias]
+        tgt_classes = [f.class_name for f in dst_node.filters if f.class_name]
+        tgt_wheres = [f.where for f in dst_node.filters if f.where is not None]
+        concrete = self._resolve_edge_classes(item)
+        for tc in tgt_classes:
+            concrete = [
+                c
+                for c in concrete
+                if (cl := self.db.schema.get_class(c)) is not None and cl.is_subclass_of(tc)
+            ]
+        visible = self._step_visible.get(id(step), set())
+        parts: List[Table] = []
+        counts: List[int] = []
+        width = table.width or 1
+        matched_any = torch.zeros(width, dtype=I32, device=self.device) if optional else None
+        for cname in concrete:
+            dec = self.dg.edges[cname]
+            where_fns = [self._edge_where(cname, w, visible) for w in tgt_wheres]
+            uses = any(fn.uses_bindings for fn in where_fns)
+            ecls = self.edge_class_idx[cname]
+            for d in ("out", "in") if item.direction == "both" else (item.direction,):
+                row, eid, _nbr, total = self._expand_one_dir(dec, d, srcs)
+                if total == 0:
+                    continue
+                env = self._binding_env(table, row, visible) if uses else {}
+                mask = (row >= 0) & (eid >= 0)
+                for fn in where_fns:
+                    mask = mask & fn(eid, env)
+                if step.close:
+                    bci, beid = table.edge_cols[dst_alias]
+                    mask = (
+                        mask
+                        & (K.take_pad(bci, row, -2) == ecls)
+                        & (K.take_pad(beid, row, -2) == eid)
+                    )
+                if optional:
+                    K.rows_with_matches(row, mask, width, out=matched_any)
+                keep, kn, kn_dev = self._compact(mask)
+                if kn == 0:
+                    continue
+                part = table.gather(K.take_pad(row, keep, -1))
+                part.count = kn
+                part.count_dev = kn_dev
+                part.edge_cols[dst_alias] = self._edge_binding(cname, K.take_pad(eid, keep, -1))
+                parts.append(part)
+                counts.append(kn)
+        if optional:
+            upart, _ukeep = self._unmatched_part(table, matched_any[:width] > 0)
+            if upart is not None:
+                if not step.close:
+                    null = torch.full((upart.width,), -1, dtype=I32, device=self.device)
+                    upart.edge_cols[dst_alias] = (null, null)
+                parts.append(upart)
+                counts.append(upart.count)
+        if not parts:
+            return self._empty_like(table, None, dst_alias)
+        return _concat_tables(parts, counts, self.device)
+
+    def _expand_edge_endpoint(self, table: Table, step: PlanStep, optional: bool, m: str) -> Table:
+        """``.outV()/.inV()/.bothV()`` from a bound edge alias to its
+        endpoint vertex: a 1:1 (1:2 for bothV) gather per row through the
+        edge columns, ``edge_src`` for the source and ``dst`` for the
+        target, no fan-out."""
+        e = step.edge
+        if step.reverse:
+            raise Uncompilable("reverse endpoint arm")
+        src_alias, dst_alias = e.from_alias, e.to_alias
+        ecols = table.edge_cols.get(src_alias)
+        if ecols is None:
+            raise Uncompilable(f"edge alias {src_alias} not bound before endpoint step")
+        ci, eid = ecols
+        width = table.width or 1
+        node_mask = self._node_masks[dst_alias]
+        env = {}
+        if node_mask.uses_bindings:
+            env = self._binding_env(table, None, self._step_visible.get(id(step), set()))
+        live = table.valid_device[:width].to(torch.bool)
+        parts: List[Table] = []
+        counts: List[int] = []
+        matched_any = torch.zeros(width, dtype=torch.bool, device=self.device)
+        for kind in {"outv": ("src",), "inv": ("dst",), "bothv": ("src", "dst")}[m]:
+            cand = torch.full((width,), -1, dtype=I32, device=self.device)
+            for k, cname in enumerate(self.edge_class_list):
+                dec = self.dg.edges[cname]
+                if dec.num_edges == 0:
+                    continue
+                arr = dec.edge_src if kind == "src" else dec.dst
+                g = K.take_pad(arr, torch.where(ci == k, eid, -1), -1)
+                cand = torch.where(ci == k, g, cand)
+            mask = live & (cand >= 0) & node_mask(cand, env)
+            if step.close:
+                mask = mask & (cand == table.cols[dst_alias])
+            matched_any = matched_any | mask
+            keep, kn, kn_dev = self._compact(mask)
+            if kn == 0:
+                continue
+            part = table.gather(keep)
+            part.count = kn
+            part.count_dev = kn_dev
+            part.cols[dst_alias] = K.take_pad(cand, keep, -1)
+            parts.append(part)
+            counts.append(kn)
+        if optional:
+            upart, _ukeep = self._unmatched_part(table, matched_any)
+            if upart is not None:
+                if not step.close:
+                    upart.cols[dst_alias] = torch.full((upart.width,), -1, dtype=I32, device=self.device)
+                parts.append(upart)
+                counts.append(upart.count)
+        if not parts:
+            return self._empty_like(table, dst_alias)
         return _concat_tables(parts, counts, self.device)
 
     # -- variable-depth (WHILE / maxDepth) arms -----------------------------
@@ -901,7 +1322,9 @@ class TpuMatchSolver:
         live = K.take_pad(valid_dev, in_range, 0) > 0
         return torch.where(live, rows, -1), live
 
-    def _expand_var_depth(self, table: Table, step: PlanStep, count_only: bool = False) -> Table:
+    def _expand_var_depth(
+        self, table: Table, step: PlanStep, optional: bool = False, count_only: bool = False
+    ) -> Table:
         """Breadth-wise frontier iteration with per-row visited bitmaps:
         emit the origin at depth 0, then one bitmap hop per level, the
         WHILE condition gating the vertices expanded at the level's
@@ -915,8 +1338,10 @@ class TpuMatchSolver:
         replays from the schedule), and the observe after the loop raises
         the replay's overflow flag when its frontier is still alive.
 
-        ``count_only`` is the variable-depth COUNT (`_var_count_step`): the
-        sum of each level's emission popcount, no rows."""
+        ``optional`` keeps each live row that emitted at no level, with the
+        null rules of `_expand`. ``count_only`` is the variable-depth COUNT
+        (`_var_count_step`): the sum of each level's emission popcount, no
+        rows."""
         e = step.edge
         item = e.item
         direction = item.direction
@@ -933,12 +1358,16 @@ class TpuMatchSolver:
         vb, univ = self._universe()
         node_vec = self._node_masks[dst_alias](univ).contiguous()
         dirs = ("out", "in") if direction == "both" else (direction,)
-        hops = build_bitmap_hops(
-            self.dg, [(c, d) for c in self._resolve_edge_classes(item) for d in dirs]
-        )
+        f = item.edge_filter
+        hop_items = []
+        for c in self._resolve_edge_classes(item):
+            emask = self._edge_mask(c, f.where if f is not None else None)
+            hop_items.extend((c, d, emask) for d in dirs)
+        hops = build_bitmap_hops(self.dg, hop_items)
         gates: Dict[int, torch.Tensor] = {}  # depth → WHILE gate, shared by chunks
         parts: List[Table] = []
         counts: List[int] = []
+        matched_chunks: List[torch.Tensor] = []
         recording = self.sched.recording
         total_dev = torch.zeros((), dtype=I32, device=self.device)
         totalf_dev = torch.zeros((), dtype=F32, device=self.device)
@@ -952,14 +1381,17 @@ class TpuMatchSolver:
             bound_chunk = (
                 K.take_pad(table.cols[dst_alias], chunk_rows, -2) if step.close else None
             )
+            matched = torch.zeros(C, dtype=torch.bool, device=self.device) if optional else None
 
             def emit_level(reached, depth):
-                nonlocal total_dev, totalf_dev
+                nonlocal total_dev, totalf_dev, matched
                 if not count_only:
-                    self._emit_var_level(
+                    hit = self._emit_var_level(
                         table, reached, node_vec, bound_chunk, cs, depth,
-                        dst_alias, depth_alias, vb, parts, counts,
+                        dst_alias, depth_alias, vb, parts, counts, any_row=optional,
                     )
+                    if optional:
+                        matched = matched | hit
                     return
                 _, _, n = K.bitmap_emit(reached, node_vec, bound_chunk, emit=False, count=True)
                 total_dev = total_dev + n
@@ -1000,6 +1432,8 @@ class TpuMatchSolver:
                 # ended by exhaustion: the recorded value is 0, so a replay
                 # whose frontier is still alive here flags an overflow
                 self.sched.observe(alive_dev)
+            if optional:
+                matched_chunks.append(matched)
         if count_only:
             if recording:
                 approx = float(totalf_dev)
@@ -1013,25 +1447,38 @@ class TpuMatchSolver:
             t = Table(self.device, count=self.sched.observe(total_dev, free=True), width=0)
             t.count_dev = total_dev
             return t
+        if optional:
+            matched_all = torch.cat(matched_chunks)[: table.width]
+            upart, ukeep = self._unmatched_part(table, matched_all)
+            if upart is not None:
+                null = torch.full((upart.width,), -1, dtype=I32, device=self.device)
+                if step.close and f is not None and f.optional:
+                    pass  # a probe between two bound aliases: both survive
+                elif step.close:
+                    src_g = K.take_pad(srcs, ukeep, -1)
+                    upart.cols[dst_alias] = torch.where(src_g < 0, upart.cols[dst_alias], -1)
+                else:
+                    upart.cols[dst_alias] = null
+                if depth_alias:
+                    upart.depth_cols[depth_alias] = null
+                parts.append(upart)
+                counts.append(upart.count)
         if not parts:
-            t = table.gather(torch.full((K.bucket(1),), -1, dtype=I32, device=self.device))
-            t.count = 0
-            t.count_dev = torch.zeros((), dtype=I32, device=self.device)
-            t.cols[dst_alias] = torch.full((t.width,), -1, dtype=I32, device=self.device)
-            if depth_alias:
-                t.depth_cols[depth_alias] = torch.full((t.width,), -1, dtype=I32, device=self.device)
-            return t
+            return self._empty_like(table, dst_alias, depth_alias=depth_alias)
         return _concat_tables(parts, counts, self.device)
 
     def _emit_var_level(
         self, table, reached, node_vec, bound_chunk, cs, depth, dst_alias,
-        depth_alias, vb, parts, counts,
-    ) -> None:
+        depth_alias, vb, parts, counts, any_row: bool = False,
+    ):
         """One BFS level's (row, vertex, depth) bindings as a part table.
         A level whose recorded emission is empty still appends a
         minimum-capacity part, so a replay may emit there without an
-        overflow."""
-        emit, _, n_dev = K.bitmap_emit(reached, node_vec, bound_chunk, emit=True, count=True)
+        overflow. With ``any_row``, returns which chunk rows emitted (an
+        OPTIONAL arm's match flags)."""
+        emit, hit, n_dev = K.bitmap_emit(
+            reached, node_vec, bound_chunk, emit=True, any_row=any_row, count=True
+        )
         keep, kn, kn_dev = _observe_compact(
             self.sched, emit.view(-1), min_capacity=K.bucket(0), count_dev=n_dev
         )
@@ -1045,6 +1492,7 @@ class TpuMatchSolver:
             part.depth_cols[depth_alias] = torch.where(ok, depth, -1).to(I32)
         parts.append(part)
         counts.append(kn)
+        return hit
 
     # -- NOT arms: the bitmap anti-join --------------------------------------
 
@@ -1059,20 +1507,22 @@ class TpuMatchSolver:
     def _apply_not_path(self, table: Table, aliases, masks, items) -> Table:
         """One NOT arm as a chunked bitmap chain: the candidates of its first
         position (the one-hot of the bound alias, or its admission mask
-        over every vertex), one hop per arm item with the target's mask
-        (and binding, where the alias is bound) ANDed in; a row with a
-        survivor at the chain's end matches the arm and is dropped."""
+        over every vertex), one hop per arm item (over the edges its edge
+        WHERE admits) with the target's mask (and binding, where the alias
+        is bound) ANDed in; a row with a survivor at the chain's end
+        matches the arm and is dropped."""
         width = table.width or 1
         vb, univ = self._universe()
         node_vecs = [m(univ).contiguous() for m in masks]
         hops_per_item = []
         for it in items:
             dirs = ("out", "in") if it.direction == "both" else (it.direction,)
-            hops_per_item.append(
-                build_bitmap_hops(
-                    self.dg, [(c, d) for c in self._resolve_edge_classes(it) for d in dirs]
-                )
-            )
+            f = it.edge_filter
+            hop_items = []
+            for c in self._resolve_edge_classes(it):
+                emask = self._edge_mask(c, f.where if f is not None else None)
+                hop_items.extend((c, d, emask) for d in dirs)
+            hops_per_item.append(build_bitmap_hops(self.dg, hop_items))
         valid_dev = table.valid_device
         exists_chunks = []
         C = self._var_chunk_rows(width, vb)
@@ -1144,10 +1594,13 @@ class TpuMatchSolver:
         """Result rows from the table's columns (device tensors on the
         recording run, host arrays of a replay's fetched page): a lone
         count(*) is the table's count; ``alias.prop`` projections decode
-        the snapshot's host columns at the bound vertex ids, and depth
-        aliases read their depth column (`_check_returns` admitted only
-        these shapes). ``params`` are the
-        call's (a replay serves other values than the recording's)."""
+        the snapshot's host columns, of the vertex at a vertex alias's id
+        or of the edge at an edge alias's (class index, edge id); depth
+        aliases read their depth column; an expression over aliases
+        evaluates per row with each bound alias a non-null value and each
+        unbound one null (`_check_returns` admitted only these shapes).
+        ``params`` are the call's (a replay serves other values than the
+        recording's)."""
         params = self.params if params is None else params
         name = self.count_only_name()
         if name is not None:
@@ -1155,48 +1608,124 @@ class TpuMatchSolver:
         stmt = self.stmt
         sel = self._live_rows(table)
         n = int(sel.shape[0])
+        host: Dict[str, np.ndarray] = {}
+
+        def ids(alias):
+            """The alias's ids at the live rows: vertex ids, or (class
+            index, edge id) of an edge alias; None where it never binds."""
+            if alias not in host:
+                if alias in table.cols:
+                    host[alias] = _host(table.cols[alias])[sel]
+                elif alias in table.edge_cols:
+                    ci, eid = table.edge_cols[alias]
+                    host[alias] = (_host(ci)[sel], _host(eid)[sel])
+                elif alias in table.depth_cols:
+                    host[alias] = _host(table.depth_cols[alias])[sel]
+                else:
+                    host[alias] = None
+            return host[alias]
+
         names = []
         obj_cols = []
-        host_cols: Dict[str, np.ndarray] = {}
         for i, p in enumerate(stmt.returns):
             e = p.expr
             names.append(p.alias or _match_proj_name(e, i))
             if isinstance(e, A.Identifier):  # a depth alias: plain ints
-                d = _host(table.depth_cols[e.name])[sel]
+                d = ids(e.name)
                 o = d.astype(object)
                 o[d < 0] = None
                 obj_cols.append(o)
-                continue
-            alias = e.base.name
-            if alias not in host_cols:
-                dev_col = table.cols.get(alias)
-                host_cols[alias] = (
-                    _host(dev_col)[sel] if dev_col is not None
-                    else np.full(n, -1, np.int32)
-                )
-            idx = host_cols[alias]
-            col = self.snap.v_columns.get(e.name)
-            if col is None:
-                obj_cols.append(np.full(n, None, object))  # never present
-                continue
-            ci = np.clip(idx, 0, max(len(col.values) - 1, 0))
-            vals = col.values[ci]
-            pres = col.present[ci] & (idx >= 0)
-            if col.kind == "str":
-                d = col.dict_array()
-                o = d[np.clip(vals, 0, len(d) - 1)]
-            elif col.kind == "bool":
-                o = (vals != 0).astype(object)
-            elif col.kind == "float":
-                o = vals.astype(float).astype(object)
+            elif isinstance(e, A.FieldAccess):
+                if self.pattern.nodes[e.base.name].is_edge_alias:
+                    obj_cols.append(self._edge_values(ids(e.base.name), e.name, n))
+                else:
+                    idx = ids(e.base.name)
+                    col = self.snap.v_columns.get(e.name)
+                    if idx is None or col is None:
+                        obj_cols.append(np.full(n, None, object))  # never present
+                    else:
+                        obj_cols.append(_decode(col, idx))
             else:
-                o = vals.astype(object)
-            o[~pres] = None
-            obj_cols.append(o)
+                obj_cols.append(self._alias_expression_values(e, ids, n, params))
         if not (stmt.distinct or stmt.order_by or stmt.skip or stmt.limit):
             return ColumnarRows(names, [c.tolist() for c in obj_cols], n)
         out = [Result(props=dict(zip(names, r))) for r in zip(*obj_cols)]
         return finalize_match_rows(self.db, stmt, out, params, None)
+
+    def _edge_values(self, pair, prop: str, n: int) -> np.ndarray:
+        """An edge property at each row's bound edge, read from its class's
+        edge column (None where unbound or absent)."""
+        out = np.full(n, None, object)
+        if pair is None:
+            return out
+        ci, eid = pair
+        for k, cname in enumerate(self.edge_class_list):
+            col = self.snap.edge_classes[cname].edge_columns.get(prop)
+            if col is None:
+                continue
+            rows = np.flatnonzero((ci == k) & (eid >= 0))
+            if rows.size:
+                out[rows] = _decode(col, eid[rows])
+        return out
+
+    def _alias_expression_values(self, e, ids, n: int, params) -> np.ndarray:
+        """An expression over aliases, row by row: a bound vertex or edge
+        alias reads as True, an unbound one as None, a depth alias as its
+        depth."""
+        refs = sorted(_identifiers(e))
+        flags = {}
+        for a in refs:
+            v = ids(a)
+            if v is None:
+                flags[a] = np.full(n, None, object)
+            elif isinstance(v, tuple):
+                flags[a] = np.where(v[1] >= 0, True, None)
+            elif a in self.pattern.nodes:
+                flags[a] = np.where(v >= 0, True, None)
+            else:
+                o = v.astype(object)
+                o[v < 0] = None
+                flags[a] = o
+        out = np.empty(n, object)
+        if isinstance(e, A.IsNull) and isinstance(e.expr, A.Identifier):
+            # the common probe (``kn IS NOT NULL``), without a row loop
+            null = np.equal(flags[e.expr.name], None)
+            out[:] = (~null if e.negated else null).tolist()
+            return out
+        for i in range(n):
+            ctx = EvalContext(self.db, params=params, variables={a: flags[a][i] for a in refs})
+            out[i] = evaluate(ctx, e)
+        return out
+
+
+def _identifiers(e) -> set:
+    """The bare names an alias expression (`_alias_expression`) reads."""
+    if isinstance(e, A.Identifier):
+        return {e.name}
+    if isinstance(e, (A.IsNull, A.Unary)):
+        return _identifiers(e.expr)
+    if isinstance(e, A.Binary):
+        return _identifiers(e.left) | _identifiers(e.right)
+    return set()
+
+
+def _decode(col, idx: np.ndarray) -> np.ndarray:
+    """A property column's values at ``idx`` as Python objects: strings
+    from the dictionary, None where absent or ``idx`` < 0."""
+    ci = np.clip(idx, 0, max(len(col.values) - 1, 0))
+    vals = col.values[ci]
+    pres = col.present[ci] & (idx >= 0)
+    if col.kind == "str":
+        d = col.dict_array()
+        o = d[np.clip(vals, 0, len(d) - 1)]
+    elif col.kind == "bool":
+        o = (vals != 0).astype(object)
+    elif col.kind == "float":
+        o = vals.astype(float).astype(object)
+    else:
+        o = vals.astype(object)
+    o[~pres] = None
+    return o
 
 
 def _host(col) -> np.ndarray:
@@ -1276,8 +1805,8 @@ class _CompiledPlan:
     def __init__(self, solver: TpuMatchSolver, table: Table) -> None:
         self.solver = solver
         self.v_names = sorted(table.cols)
-        # edge columns come with edge binding; the layout keeps their place
-        self.e_names: List[str] = []
+        #: edge aliases: two columns each, class index then edge id
+        self.e_names = sorted(table.edge_cols)
         self.d_names = sorted(table.depth_cols)
         self.count = table.count
         self.width = table.width
@@ -1348,6 +1877,8 @@ class _CompiledPlan:
         if self.count_name is not None or self.width == 0:
             return count_dev, overflow, None
         flat = [table.cols[a] for a in self.v_names]
+        for a in self.e_names:
+            flat.extend(table.edge_cols[a])
         flat.extend(table.depth_cols[a] for a in self.d_names)
         if not flat:
             return count_dev, overflow, None
@@ -1556,6 +2087,9 @@ class _CompiledPlan:
         t = Table(torch.device("cpu"), count=n, width=n)
         for i, a in enumerate(self.v_names):
             t.cols[a] = data[:n, i]
+        for i, a in enumerate(self.e_names):
+            j = len(self.v_names) + 2 * i
+            t.edge_cols[a] = (data[:n, j], data[:n, j + 1])
         for i, a in enumerate(self.d_names, start=len(self.v_names) + 2 * len(self.e_names)):
             t.depth_cols[a] = data[:n, i]
         return t

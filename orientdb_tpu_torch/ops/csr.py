@@ -1,6 +1,7 @@
 """Port of `orientdb_tpu/ops/csr.py`: the CSR primitives of the compiled
-MATCH path, the bitmap BFS of variable-depth and NOT arms (with the level
-emission and level step of `orientdb_tpu/exec/tpu_engine.py`), and the
+MATCH path, the OPTIONAL arm's left-join count (`rows_with_matches`), the
+bitmap BFS of variable-depth and NOT arms (with the level emission and
+level step of `orientdb_tpu/exec/tpu_engine.py`), and the
 result stage of a replay (front-pack, meta row, int16 narrowing of that
 module's `_CompiledPlan`), each as a wrapper over a hand-written CUDA
 kernel (`csrc/csr_kernels.cu`) beside its plain PyTorch version.
@@ -55,6 +56,7 @@ LAUNCHES: Dict[str, int] = {
         "bitmap_hop",
         "bitmap_emit",
         "frontier_advance",
+        "rows_with_matches",
     )
 }
 
@@ -830,3 +832,65 @@ def frontier_advance(nxt: torch.Tensor, visited: torch.Tensor) -> torch.Tensor:
         _stream(nxt),
     )
     return count
+
+
+# ---------------------------------------------------------------------------
+# K13: rows_with_matches (the OPTIONAL arm's left join)
+# ---------------------------------------------------------------------------
+
+
+def plain_rows_with_matches(
+    rows: torch.Tensor, mask: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """The reference's segment sum of the surviving slots by origin row,
+    as an int32 index_add (ids outside ``[0, num_segments)`` dropped)."""
+    out = torch.zeros(num_segments, dtype=I32, device=rows.device)
+    if num_segments == 0 or rows.shape[0] == 0:
+        return out
+    ok = mask & (rows >= 0) & (rows < num_segments)
+    out.index_add_(0, torch.where(ok, rows, 0).long(), ok.to(I32))
+    return out
+
+
+def rows_with_matches(
+    rows: torch.Tensor,
+    mask: torch.Tensor,
+    num_segments: int,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per origin row, the count of surviving expansion slots:
+    ``out[r] = #{i : mask[i] and rows[i] == r}`` for ``0 <= r <
+    num_segments`` (int32 [num_segments]); ``rows`` int32 [W] with -1
+    padding, ``mask`` bool [W]. With ``out`` the counts add into it (the
+    next edge class or direction of the same arm), else into a new zeroed
+    tensor. Returns the counts."""
+    _check(rows, (I32,), "rows_with_matches rows")
+    _check(mask, (B8,), "rows_with_matches mask")
+    if mask.shape[0] != rows.shape[0]:
+        raise ValueError("rows_with_matches: rows and mask differ in length")
+    opt = []
+    if out is not None:
+        _check_out(out, (num_segments,), I32, "rows_with_matches")
+        opt.append(out)
+    if not _on_card(rows, mask, *opt):
+        got = plain_rows_with_matches(rows, mask, num_segments)
+        if out is None:
+            return got
+        out += got
+        return out
+    lib = _kernels.load()
+    zero = out is None
+    if zero:
+        out = torch.empty(num_segments, dtype=I32, device=rows.device)
+    _launch(
+        "rows_with_matches",
+        lib.csr_rows_with_matches,
+        rows.data_ptr(),
+        mask.data_ptr(),
+        rows.shape[0],
+        num_segments,
+        int(zero),
+        out.data_ptr(),
+        _stream(rows),
+    )
+    return out

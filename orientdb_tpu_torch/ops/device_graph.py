@@ -2,8 +2,9 @@
 device, as torch tensors.
 
 Adjacency (both CSR directions and the in-CSR's edge ids) and the class-id
-column upload when the graph is built; property columns and each edge
-class's per-edge sources (the bitmap hops' edge list) register lazily and
+column upload when the graph is built; vertex and edge property columns
+and each edge class's per-edge sources (the bitmap hops' edge list, the
+``.outV()`` endpoints) register lazily and
 reach the device the first time a query reads them (`_put_lazy` /
 `ensure_key`), so arrays no query touches cost no device memory. Every upload belongs to a recording run: inside
 `DeviceGraph.sealed()` (a replay, captured or not) a lazy upload raises
@@ -53,10 +54,14 @@ class DeviceColumn:
 
 
 class DeviceEdgeClass:
-    """One edge class's CSR adjacency (both directions) on the device, and
-    its edge list in out order (``edge_src`` beside ``dst``)."""
+    """One edge class's CSR adjacency (both directions) on the device, its
+    edge list in out order (``edge_src`` beside ``dst``), and its edge
+    property columns (``columns``, indexed by edge id in out order, under
+    the class's key prefix)."""
 
-    __slots__ = ("class_name", "num_edges", "_g", "_p", "_k_edge_src")
+    __slots__ = (
+        "class_name", "num_edges", "columns", "non_columnar", "_g", "_p", "_k_edge_src"
+    )
 
     def __init__(self, csr, g: "DeviceGraph") -> None:
         self.class_name = csr.class_name
@@ -68,8 +73,13 @@ class DeviceEdgeClass:
         g._put(f"{p}:src", csr.src)
         g._put(f"{p}:edge_id_in", csr.edge_id_in)
         # derived on the host and uploaded on first read: only variable-
-        # depth and NOT arms walk the flat edge list
+        # depth and NOT arms walk the flat edge list, and ``.outV()`` reads
+        # an edge's source
         self._k_edge_src = g._put_lazy(f"{p}:edge_src", lambda csr=csr: csr.edge_src)
+        self.columns: Dict[str, DeviceColumn] = {
+            n: DeviceColumn(c, g, f"{p}:c:{n}") for n, c in csr.edge_columns.items()
+        }
+        self.non_columnar: Set[str] = set(csr.non_columnar)
         self.num_edges = int(csr.dst.shape[0])
 
     @property
@@ -155,10 +165,12 @@ class DeviceGraph:
     def memory_report(self) -> Dict[str, object]:
         """Device bytes by category, and the bytes of columns still on the
         host because no query has read them."""
-        cats = {"adjacency": 0, "vertex_columns": 0, "other": 0}
+        cats = {"adjacency": 0, "vertex_columns": 0, "edge_columns": 0, "other": 0}
         for key, arr in self.arrays.items():
             if key == "v_class" or key.startswith("v:"):
                 cat = "vertex_columns"
+            elif key.startswith("e:") and ":c:" in key:
+                cat = "edge_columns"
             elif key.startswith("e:"):
                 cat = "adjacency"
             else:

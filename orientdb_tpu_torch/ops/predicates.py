@@ -17,16 +17,19 @@ compares against a literal become int32 compares against the literal's
 bisect rank, and LIKE / MATCHES / CONTAINSTEXT are evaluated on the host
 over the dictionary into a code-membership table. A WHILE condition
 compiles with ``allow_depth``: ``$depth`` is then an int32 scalar read from
-``env["depth"]``, the level being expanded. Binding references
-(``alias.prop`` of an earlier alias) and the haversine ``distance()`` are
-not ported. Anything outside the subset raises `Uncompilable`.
+``env["depth"]``, the level being expanded. A scope may be an edge class's
+property columns (an edge WHERE over edge ids) as well as the vertex
+columns; with ``binding_columns`` it also admits ``alias.prop`` references
+to earlier bound aliases, read per slot through ``env["bindings"]``. The
+haversine ``distance()`` is not ported. Anything outside the subset raises
+`Uncompilable`.
 """
 
 from __future__ import annotations
 
 import bisect
 import re
-from typing import Callable, Dict, Sequence, Set, Tuple
+from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -90,7 +93,13 @@ class ParamBox:
 
 class ColumnScope:
     """Resolves bare field names for one predicate scope (the vertex
-    property columns)."""
+    property columns, or an edge class's).
+
+    With ``binding_columns`` (the vertex columns) the compiler also accepts
+    ``alias.prop`` for the aliases in ``visible_aliases``: the value is a
+    gather through the alias's per-slot vertex ids, which the caller passes
+    at evaluation as ``env["bindings"][alias]`` (int32, aligned with the
+    mask's slots); ``uses_bindings`` records that it must."""
 
     def __init__(
         self,
@@ -98,6 +107,9 @@ class ColumnScope:
         non_columnar: Set[str],
         reserved: Set[str] = frozenset(),
         device: torch.device = torch.device("cpu"),
+        binding_columns: Optional[Dict[str, DeviceColumn]] = None,
+        binding_non_columnar: Set[str] = frozenset(),
+        visible_aliases: Set[str] = frozenset(),
     ) -> None:
         self.columns = columns
         self.non_columnar = non_columnar
@@ -105,6 +117,11 @@ class ColumnScope:
         self.reserved = reserved
         #: where the columns live: compile-time tables upload here once
         self.device = device
+        self.binding_columns = binding_columns
+        self.binding_non_columnar = binding_non_columnar
+        self.visible_aliases = visible_aliases
+        #: set when a binding reference compiled
+        self.uses_bindings = False
 
     def resolve(self, name: str):
         if name in self.reserved:
@@ -116,6 +133,18 @@ class ColumnScope:
         if name in self.non_columnar:
             raise Uncompilable(f"property {name!r} has no columnar encoding")
         return None  # never present → null column
+
+    def resolve_binding(self, alias: str, prop: str) -> Optional[DeviceColumn]:
+        """The column of ``alias.prop`` for a visible bound alias (None:
+        never present); raises Uncompilable when ineligible."""
+        if self.binding_columns is None or alias not in self.visible_aliases:
+            raise Uncompilable(f"alias {alias!r} not visible to this predicate")
+        if prop.startswith("@") or prop.startswith("$"):
+            raise Uncompilable(f"meta field {prop!r} not columnar")
+        if prop in self.binding_non_columnar:
+            raise Uncompilable(f"property {prop!r} has no columnar encoding")
+        self.uses_bindings = True
+        return self.binding_columns.get(prop)
 
 
 # A value node: kind + emit(idx, env) -> (values, present). kind one of
@@ -180,6 +209,17 @@ def _column_val(col: DeviceColumn) -> _Val:
     return _Val(col.kind, emit, dictionary=col.dictionary)
 
 
+def _binding_val(alias: str, col: DeviceColumn) -> _Val:
+    """``alias.prop``: the property gathered through the per-slot vertex
+    ids of ``env["bindings"][alias]`` (-1: unbound, reads absent)."""
+
+    def emit(idx, env, alias=alias, col=col):
+        rows = env["bindings"][alias]
+        return K.take_pad(col.values, rows, 0), K.take_pad(col.present, rows, False)
+
+    return _Val(col.kind, emit, dictionary=col.dictionary)
+
+
 _NUMERIC = ("int", "float", "bool")
 
 
@@ -217,6 +257,16 @@ class Compiler:
             if col is None:
                 return _const_val(None)
             return _column_val(col)
+        if (
+            isinstance(expr, A.FieldAccess)
+            and isinstance(expr.base, A.Identifier)
+            and self.scope.binding_columns is not None
+            and expr.base.name in self.scope.visible_aliases
+        ):
+            col = self.scope.resolve_binding(expr.base.name, expr.name)
+            if col is None:
+                return _const_val(None)
+            return _binding_val(expr.base.name, col)
         if isinstance(expr, A.ContextVar):
             if expr.name == "depth" and self.allow_depth:
                 # the level is host-known (it replays from the recorded

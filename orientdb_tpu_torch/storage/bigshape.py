@@ -1,12 +1,16 @@
 """Port of `orientdb_tpu/storage/bigshape.py`: the array-native Person–knows
-snapshot (the SF100-shape bench graph) and its exact numpy references.
+snapshot (the SF100-shape bench graph), the SNB-shape snapshot of the
+config-5 workload (Person–knows with a ``creationDate`` edge column, and
+Message–hasCreator), and their exact numpy references.
 
 The same seed gives byte-identical arrays in both packages: the random
 draws happen in the reference's order, and the CSR assembly is the
 reference's. The returned database holds the schema only, so queries run
 on the compiled path; parity comes from `numpy_1hop_count` /
-`numpy_2hop_count` (exact int64 over the same arrays), and for variable-depth
-and NOT arms from `numpy_var_depth_rows` / `numpy_has_out_neighbour`.
+`numpy_2hop_count` / `numpy_config5_count` (exact int64 over the same
+arrays), for variable-depth and NOT arms from `numpy_var_depth_rows` /
+`numpy_has_out_neighbour`, and for edge bindings, OPTIONAL arms and
+binding references from the row enumerations at the end of this module.
 """
 
 from __future__ import annotations
@@ -113,6 +117,101 @@ def build_person_knows(
     return db, snap
 
 
+def build_snb_shape(
+    n_persons: int,
+    msgs_per_person: int = 2,
+    avg_knows: int = 10,
+    seed: int = 0,
+    name: str = "snbshape",
+    device=None,
+) -> Tuple[Database, GraphSnapshot]:
+    """The LDBC SNB interactive shape at array scale, config 5's graph:
+
+    - Person–knows–Person, ``avg_knows`` Poisson out-degree, with a
+      ``creationDate`` edge column (ints 10000–19999 by edge id);
+    - Message–hasCreator–Person, one creator a message; messages follow
+      the persons in the vertex index space;
+    - ``uid`` on every vertex, ``age`` (18–79) on persons only and
+      ``length`` (1–1999) on messages only, with presence masks.
+
+    The reference's record ids (``v_cluster``, ``v_position``,
+    ``rid_to_idx``) are not built: the port has no RIDs."""
+    rng = np.random.default_rng(seed)
+    db = Database(name, device=device)
+    db.schema.create_vertex_class("Person")
+    db.schema.create_vertex_class("Message")
+    db.schema.create_edge_class("knows")
+    db.schema.create_edge_class("hasCreator")
+
+    P = int(n_persons)
+    M = P * int(msgs_per_person)
+    V = P + M  # persons [0, P), messages [P, V)
+
+    deg = np.zeros(V, np.int64)
+    deg[:P] = rng.poisson(avg_knows, P)
+    E = int(deg.sum())
+    dst = rng.integers(0, P, E, dtype=np.int64)  # always a Person
+    knows = _csr_from_degrees("knows", deg, dst)
+    knows.edge_columns = {
+        "creationDate": PropertyColumn(
+            "creationDate",
+            "int",
+            rng.integers(10_000, 20_000, E, dtype=np.int32),
+            np.ones(E, bool),
+        ),
+    }
+
+    hc_deg = np.zeros(V, np.int64)
+    hc_deg[P:] = 1
+    creators = rng.integers(0, P, M, dtype=np.int64)
+    hc = _csr_from_degrees("hasCreator", hc_deg, creators)
+
+    snap = GraphSnapshot()
+    snap.num_vertices = V
+    all_classes = sorted(db.schema.classes(), key=lambda c: c.name)
+    snap.class_names = [c.name for c in all_classes]
+    snap.class_id_of = {c.name.lower(): i for i, c in enumerate(all_classes)}
+    snap.v_class = np.concatenate(
+        [
+            np.full(P, snap.class_id_of["person"], np.int32),
+            np.full(M, snap.class_id_of["message"], np.int32),
+        ]
+    )
+    for c in all_classes:
+        closure = [
+            snap.class_id_of[s.name.lower()]
+            for s in c.subclasses(include_self=True)
+        ]
+        snap.class_closure[c.name.lower()] = np.array(sorted(closure), np.int32)
+    ranges = {"person": (0, P), "message": (P, V)}
+    for c in all_classes:
+        if c.is_vertex_type and not c.abstract:
+            snap.class_vertex_range[c.name.lower()] = ranges.get(c.name.lower(), (0, 0))
+
+    person_pres = np.zeros(V, bool)
+    person_pres[:P] = True
+    age = np.zeros(V, np.int32)
+    age[:P] = rng.integers(18, 80, P, dtype=np.int32)
+    length = np.zeros(V, np.int32)
+    length[P:] = rng.integers(1, 2000, M, dtype=np.int32)
+    snap.v_columns = {
+        "uid": PropertyColumn("uid", "int", np.arange(V, dtype=np.int32), np.ones(V, bool)),
+        "age": PropertyColumn("age", "int", age, person_pres),
+        "length": PropertyColumn("length", "int", length, ~person_pres),
+    }
+    snap.edge_classes["knows"] = knows
+    snap.edge_classes["hasCreator"] = hc
+    for c in all_classes:
+        if c.is_edge_type:
+            snap.edge_closure[c.name.lower()] = sorted(
+                s.name
+                for s in c.subclasses(include_self=True)
+                if s.name in snap.edge_classes
+            )
+    db.attach_snapshot(snap)
+    return db, snap
+
+
 def _seg_sum(vals: np.ndarray, indptr: np.ndarray) -> np.ndarray:
     tot = np.concatenate([[0], np.cumsum(vals, dtype=np.int64)])
     return tot[indptr[1:].astype(np.int64)] - tot[indptr[:-1].astype(np.int64)]
@@ -131,6 +230,10 @@ def numpy_2hop_count(snap: GraphSnapshot, src_mask, mid_mask, dst_mask) -> int:
     w2 = _seg_sum(dst_mask[csr.dst].astype(np.int64), csr.indptr_out)
     w1 = _seg_sum((mid_mask[csr.dst] * w2[csr.dst]).astype(np.int64), csr.indptr_out)
     return int((w1 * src_mask.astype(np.int64)).sum())
+
+
+def _sorted(rows: np.ndarray) -> np.ndarray:
+    return rows[np.lexsort(rows.T[::-1])]
 
 
 def _neighbours(indptr: np.ndarray, nbrs: np.ndarray, vs: np.ndarray) -> np.ndarray:
@@ -177,8 +280,7 @@ def numpy_var_depth_rows(
             frontier = np.setdiff1d(np.unique(reached), seen)
             seen = np.union1d(seen, frontier)
             depth += 1
-    rows = np.concatenate(out) if out else np.zeros((0, 3), np.int64)
-    return rows[np.lexsort(rows.T[::-1])]
+    return _sorted(np.concatenate(out) if out else np.zeros((0, 3), np.int64))
 
 
 def numpy_has_out_neighbour(snap: GraphSnapshot, mask: np.ndarray) -> np.ndarray:
@@ -186,3 +288,134 @@ def numpy_has_out_neighbour(snap: GraphSnapshot, mask: np.ndarray) -> np.ndarray
     (a NOT arm ``{as:x}-knows->{where:(...)}``)."""
     csr = snap.edge_classes["knows"]
     return _seg_sum(mask[csr.dst].astype(np.int64), csr.indptr_out) > 0
+
+
+def numpy_config5_count(snap: GraphSnapshot, d_cut: int) -> int:
+    """Exact count of the config-5 multi-pattern MATCH:
+
+        MATCH {class:Person, as:p, where:(age > 40)}
+              .outE('knows'){where:(creationDate > d_cut)}
+              .inV(){as:f, where:(age < 30)},
+              {class:Message, as:m}-hasCreator->{as:f}
+        RETURN count(*)
+
+    = Σ over knows edges (p→f) passing the vertex and edge predicates of
+    the number of messages whose creator is f."""
+    knows = snap.edge_classes["knows"]
+    hc = snap.edge_classes["hasCreator"]
+    age_col = snap.v_columns["age"]
+    age, pres = age_col.values, age_col.present
+    cdate = knows.edge_columns["creationDate"].values
+    msg_cnt = np.diff(hc.indptr_in).astype(np.int64)  # messages per person
+    dst = knows.dst
+    w = ((age[dst] < 30) & pres[dst] & (cdate > d_cut)).astype(np.int64) * msg_cnt[dst]
+    per_src = _seg_sum(w, knows.indptr_out)
+    src_mask = ((age > 40) & pres).astype(np.int64)
+    return int((per_src * src_mask).sum())
+
+
+# ---------------------------------------------------------------------------
+# row enumerations of the ``knows`` edges of the persons 0..n-1 (uid = index)
+# ---------------------------------------------------------------------------
+
+
+def _slices(indptr: np.ndarray, vs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(owner, CSR position) of every slot of the vertices ``vs``'s CSR
+    slices, in order."""
+    ip = indptr.astype(np.int64)
+    deg = ip[vs + 1] - ip[vs]
+    owner = np.repeat(vs, deg)
+    first = np.repeat(ip[vs] - (np.cumsum(deg) - deg), deg)
+    return owner, first + np.arange(int(deg.sum()))
+
+
+def numpy_out_edge_rows(snap: GraphSnapshot, n: int, d_cut: int, dst_mask) -> np.ndarray:
+    """Sorted ``(p, f, creationDate)`` of the out edges p→f of the persons
+    p < n with ``creationDate > d_cut`` and ``dst_mask[f]``: the rows of
+    ``{as:p}.outE('knows'){as:e, where:(creationDate > d)}.inV(){as:f}``."""
+    csr = snap.edge_classes["knows"]
+    cd = csr.edge_columns["creationDate"].values
+    p, e = _slices(csr.indptr_out, np.arange(n))
+    f = csr.dst[e].astype(np.int64)
+    keep = (cd[e] > d_cut) & dst_mask[f]
+    return _sorted(np.stack([p[keep], f[keep], cd[e][keep].astype(np.int64)], 1))
+
+
+def numpy_incident_rows(snap: GraphSnapshot, n: int) -> np.ndarray:
+    """Sorted ``(p, v)`` of ``{as:p}.bothE('knows'){as:e}, {as:e}.bothV(){as:v}``
+    for p < n: each edge at p (out, then in) gives its source and its
+    target."""
+    csr = snap.edge_classes["knows"]
+    po, eo = _slices(csr.indptr_out, np.arange(n))
+    pi, ei = _slices(csr.indptr_in, np.arange(n))
+    src = np.concatenate([po, csr.src[ei].astype(np.int64)])
+    tgt = np.concatenate([csr.dst[eo].astype(np.int64), pi])
+    p = np.concatenate([po, pi])
+    return _sorted(np.stack([np.concatenate([p, p]), np.concatenate([src, tgt])], 1))
+
+
+def numpy_undirected_rows(snap: GraphSnapshot, n: int) -> np.ndarray:
+    """``(p, f, creationDate)`` of ``{as:p}-knows{as:kn}-{as:f}`` for p < n
+    (each edge at p, either direction), in the query's ORDER BY cd DESC,
+    f ASC, ties by p."""
+    csr = snap.edge_classes["knows"]
+    cd = csr.edge_columns["creationDate"].values
+    po, eo = _slices(csr.indptr_out, np.arange(n))
+    pi, ei = _slices(csr.indptr_in, np.arange(n))
+    p = np.concatenate([po, pi])
+    f = np.concatenate([csr.dst[eo], csr.src[ei]]).astype(np.int64)
+    c = np.concatenate([cd[eo], cd[csr.edge_id_in[ei]]]).astype(np.int64)
+    order = np.lexsort((p, f, -c))
+    return np.stack([p, f, c], 1)[order]
+
+
+def numpy_optional_rows(snap: GraphSnapshot, n: int, dst_mask) -> np.ndarray:
+    """Sorted ``(p, f)`` of ``{as:p}-knows->{as:f, optional:true}`` for
+    p < n with the target admitted by ``dst_mask``: the matches, and
+    ``(p, -1)`` for each p with none."""
+    csr = snap.edge_classes["knows"]
+    p, e = _slices(csr.indptr_out, np.arange(n))
+    f = csr.dst[e].astype(np.int64)
+    keep = dst_mask[f]
+    lonely = np.setdiff1d(np.arange(n), p[keep])
+    rows = np.concatenate(
+        [np.stack([p[keep], f[keep]], 1), np.stack([lonely, np.full(lonely.size, -1)], 1)]
+    )
+    return _sorted(rows)
+
+
+def numpy_probe_rows(snap: GraphSnapshot, n: int, d_cut: int) -> np.ndarray:
+    """Sorted ``(p, f, probe)`` of the IS7 shape
+    ``{as:p}-knows->{as:f, where:(age < p.age)},
+    {as:f}-knows{as:kn, optional:true, where:(creationDate > d)}-{as:p}``
+    for p < n: each first-arm row (p, f) repeats once for every knows edge
+    between f and p, either direction, with ``creationDate > d_cut`` (probe
+    1), or appears once with probe 0 when there is none."""
+    csr = snap.edge_classes["knows"]
+    cd = csr.edge_columns["creationDate"].values
+    age = snap.v_columns["age"].values
+    p_all, e = _slices(csr.indptr_out, np.arange(n))
+    f = csr.dst[e].astype(np.int64)
+    keep = age[f] < age[p_all]
+    p, f = p_all[keep], f[keep]
+    V = np.int64(snap.num_vertices)
+    # the hot edges p→x at the persons p, keyed (p, x), and the hot edges
+    # f→x at the targets f, keyed (x, f): both name the pair (p, f)
+    hot_p = cd[e] > d_cut
+    fu = np.unique(f)
+    fo, fe = _slices(csr.indptr_out, fu)
+    hot_f = cd[fe] > d_cut
+    keys = np.concatenate(
+        [
+            p_all[hot_p] * V + csr.dst[e][hot_p],
+            csr.dst[fe][hot_f].astype(np.int64) * V + fo[hot_f],
+        ]
+    )
+    keys, counts = np.unique(keys, return_counts=True)
+    want = p * V + f
+    at = np.clip(np.searchsorted(keys, want), 0, max(keys.size - 1, 0))
+    k = np.where(keys[at] == want, counts[at], 0) if keys.size else np.zeros(p.size, np.int64)
+    reps = np.maximum(k, 1)
+    rows = np.stack([np.repeat(p, reps), np.repeat(f, reps), np.repeat((k > 0).astype(np.int64), reps)], 1)
+    return _sorted(rows)
+

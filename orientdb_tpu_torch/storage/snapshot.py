@@ -2,8 +2,9 @@
 host numpy containers.
 
 The layout is the reference's: a dense int32 vertex universe, per-edge-class
-CSR in both directions (with the in-CSR's edge ids into out order), global
-vertex property columns with presence masks (strings dictionary-coded with a
+CSR in both directions (with the in-CSR's edge ids into out order) and its
+edge property columns by edge id, global vertex property columns with
+presence masks (strings dictionary-coded with a
 sorted dictionary), and the class-id column with its polymorphic closure
 table. The device copy lives in `ops/device_graph.py`, cached per snapshot
 by that module; the snapshot itself holds no device state. Building a
@@ -19,7 +20,8 @@ import numpy as np
 
 
 class PropertyColumn:
-    """One global vertex property column."""
+    """One global property column: a vertex property over the vertex
+    universe, or an edge property over one edge class's edge ids."""
 
     __slots__ = ("name", "kind", "values", "present", "dictionary", "_dict_arr")
 
@@ -47,11 +49,15 @@ class EdgeClassCSR:
     out:  indptr_out[V+1], dst[E]      (CSR order == edge dense order)
     in:   indptr_in[V+1], src[E], edge_id_in[E] (edge ids into out order)
     edge_src[E]: each edge's source in out order, derived from indptr_out
-    on first use (the bitmap hops of variable-depth arms and NOT arms)
+    on first use (the bitmap hops, edge endpoints of ``.outV()``)
+    edge_columns: property name → PropertyColumn indexed by edge id (out
+    order); non_columnar: edge property names seen without a columnar
+    encoding, which predicates and projections refuse
     """
 
     __slots__ = (
-        "class_name", "indptr_out", "dst", "indptr_in", "src", "edge_id_in", "_edge_src"
+        "class_name", "indptr_out", "dst", "indptr_in", "src", "edge_id_in",
+        "edge_columns", "non_columnar", "_edge_src",
     )
 
     def __init__(self, class_name: str):
@@ -61,6 +67,8 @@ class EdgeClassCSR:
         self.indptr_in: np.ndarray = np.zeros(1, np.int32)
         self.src: np.ndarray = np.zeros(0, np.int32)
         self.edge_id_in: np.ndarray = np.zeros(0, np.int32)
+        self.edge_columns: Dict[str, PropertyColumn] = {}
+        self.non_columnar: set = set()
         self._edge_src: Optional[np.ndarray] = None
 
     @property

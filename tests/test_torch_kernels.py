@@ -242,3 +242,55 @@ def test_var_depth_and_not_on_card_equal_cpu(card):
             want = cpu.query(sql, params).to_dicts()
             assert sorted(got, key=key) == sorted(want, key=key)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,n", [(0, 1), (1, 7), (255, 1024), (257, 7), (1 << 20, 50_000), ((1 << 22) + 3, 1)])
+def test_rows_with_matches_equals_plain_on_card(card, w, n):
+    """The OPTIONAL arm's left-join count: ascending rows as an expansion
+    emits them, shuffled rows, ids past the end, padding and the
+    accumulating form, exactly."""
+    rng = np.random.default_rng(w + n)
+    asc = np.sort(rng.integers(-1, n + 2, w)).astype(np.int32)
+    for rows in (asc, rng.permutation(asc), np.full(w, -1, np.int32)):
+        r = _t(rows).to(card)
+        m = _t(rng.random(w) < 0.5).to(card)
+        want = T.plain_rows_with_matches(r, m, n)
+        assert torch.equal(T.rows_with_matches(r, m, n), want)
+        acc = torch.full((n,), 3, dtype=torch.int32, device=card)
+        assert torch.equal(T.rows_with_matches(r, m, n, out=acc), want + 3)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_edge_and_optional_shapes_on_card_equal_cpu(card):
+    """Edge bindings, edge WHERE, OPTIONAL arms and binding references on
+    the SNB-shape graph, recorded and replayed from captured graphs on the
+    card, against the CPU."""
+    from orientdb_tpu_torch.storage.bigshape import build_snb_shape
+
+    queries = [
+        ("MATCH {class:Person, as:p, where:(age > 40)}.outE('knows'){where:(creationDate > :d)}"
+         ".inV(){as:f, where:(age < 30)}, {class:Message, as:m}-hasCreator->{as:f} "
+         "RETURN count(*) AS n", [{"d": 12_000}, {"d": 15_000}, {"d": 18_500}]),
+        ("MATCH {class:Person, as:p, where:(uid < :n)}.bothE('knows'){as:e}, "
+         "{as:e}.bothV(){as:v} RETURN p.uid AS p, v.uid AS v", [{"n": 64}, {"n": 64}, {"n": 32}]),
+        ("MATCH {class:Person, as:p, where:(uid < :n)}-knows{as:kn}-{as:f} "
+         "RETURN p.uid AS p, f.uid AS f, kn.creationDate AS cd", [{"n": 256}, {"n": 256}, {"n": 128}]),
+        ("MATCH {class:Person, as:p, where:(uid < :n)}-knows->{as:f, optional:true, "
+         "where:(age > 75)} RETURN p.uid AS p, f.uid AS f", [{"n": 2_000}, {"n": 2_000}, {"n": 1_000}]),
+        ("MATCH {class:Person, as:p, where:(uid < :n)}-knows->{as:f, where:(age < p.age)}, "
+         "{as:f}-knows{as:kn, optional:true, where:(creationDate > :d)}-{as:p} "
+         "RETURN p.uid AS p, f.uid AS f, kn IS NOT NULL AS probe",
+         [{"n": 2_000, "d": 15_000}, {"n": 2_000, "d": 15_000}, {"n": 1_000, "d": 15_000}]),
+    ]
+    kw = dict(msgs_per_person=2, avg_knows=10, seed=7)
+    gpu, _ = build_snb_shape(3_000, device=card, **kw)
+    cpu, _ = build_snb_shape(3_000, device="cpu", **kw)
+    key = lambda r: tuple(sorted((k, repr(v)) for k, v in r.items()))  # noqa: E731
+    for sql, param_list in queries:
+        for params in param_list:
+            got = gpu.query(sql, params).to_dicts()
+            want = cpu.query(sql, params).to_dicts()
+            assert sorted(got, key=key) == sorted(want, key=key)
+    torch.cuda.synchronize()

@@ -184,8 +184,20 @@ def _carry_arrays(jdb, jsnap):
         "v_non_columnar": sorted(jsnap.v_non_columnar),
         "edge_classes": {
             n: {
-                k: getattr(c, k)
-                for k in ("indptr_out", "dst", "indptr_in", "src", "edge_id_in")
+                **{
+                    k: getattr(c, k)
+                    for k in ("indptr_out", "dst", "indptr_in", "src", "edge_id_in")
+                },
+                "columns": {
+                    cn: {
+                        "kind": col.kind,
+                        "values": col.values,
+                        "present": col.present,
+                        "dictionary": col.dictionary,
+                    }
+                    for cn, col in c.edge_columns.items()
+                },
+                "non_columnar": sorted(c.non_columnar),
             }
             for n, c in jsnap.edge_classes.items()
         },
@@ -282,6 +294,24 @@ def test_demodb_shapes(demodb, sql):
         assert canonical_rows(got) == j_canonical_rows(want)
 
 
+@pytest.mark.parametrize(
+    "sql",
+    [
+        "MATCH {class:Profiles, as:p}-HasFriend->{as:f, optional:true} RETURN p.uid AS p",
+        "MATCH {class:Profiles, as:p}.outE('HasFriend'){as:e} RETURN count(*) AS n",
+    ],
+    ids=["optional", "edge_binding"],
+)
+def test_demodb_optional_and_edge_binding(demodb, sql):
+    """Two shapes this test file once listed as refused: an OPTIONAL arm
+    and an edge-binding arm, now held against the reference."""
+    jdb, db, snap = demodb
+    want = jdb.query(sql, engine="tpu", strict=True).to_dicts()
+    assert len(want) > 0
+    for _call in range(2):  # the recording, then the replay
+        assert canonical_rows(db.query(sql).to_dicts()) == j_canonical_rows(want)
+
+
 # ---------------------------------------------------------------------------
 # refusals and independence
 # ---------------------------------------------------------------------------
@@ -296,12 +326,15 @@ def test_demodb_shapes(demodb, sql):
         "RETURN count(*) AS n",
         "MATCH {class:Profiles, as:p}-HasFriend->{as:f}, "
         "NOT {as:p}-HasFriend->{as:g, while:($depth < 2)} RETURN count(*) AS n",
-        "MATCH {class:Profiles, as:p}-HasFriend->{as:f, optional:true} RETURN p.uid AS p",
-        "MATCH {class:Profiles, as:p}.outE('HasFriend'){as:e} RETURN count(*) AS n",
+        # a rid filter (the port has no RIDs), a record RETURN, and a
+        # variable-depth edge-binding arm
+        "MATCH {rid:#12:0, as:p}-HasFriend->{as:f} RETURN f.uid AS f",
+        "MATCH {class:Profiles, as:p}-HasFriend->{as:f} RETURN $matches",
+        "MATCH {class:Profiles, as:p}.outE('HasFriend'){as:e, maxDepth:2} RETURN count(*) AS n",
         "TRAVERSE out('HasFriend') FROM (SELECT FROM Profiles WHERE uid = 1)",
         "MATCH {class:Profiles, as:p}-HasFriend->{as:f} RETURN p",
     ],
-    ids=["while", "not", "optional", "edge_binding", "traverse", "record_return"],
+    ids=["while", "not", "rid_filter", "matches_return", "var_depth_edge_binding", "traverse", "record_return"],
 )
 def test_shapes_outside_the_slice_raise(demodb, sql):
     jdb, db, snap = demodb
