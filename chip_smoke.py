@@ -58,11 +58,30 @@ from the root of a checkout. Phases, each of which raises on failure:
    and replay, each second parameter value replaying the same plan; every
    result equals its numpy enumeration. Then holds `rows_with_matches`
    (K13) against its plain version at E4's shapes, at edge cases and on
-   2^26 slots, and times it beside ``torch.bincount``.
+   2^26 slots, and times it beside ``torch.bincount``;
+7. batches — ``db.query_batch`` on both graphs while each is resident (the
+   Person–knows cells before phase 6 frees that graph, the SNB-shape cells
+   after E1–E5), the plan cache cleared first and each statement recorded
+   once at its cell's largest parameter, launch counts zeroed before each
+   graph's cells and read after: BQ1/BQ2 (Q1/Q2 × 64, one shared replay),
+   BQ3 (Q3 × 16, k = 1000 + 62·i: a rows group of 16 lanes, its page
+   elected through K14 `group_page`), BV2/BV3 (V2/V3 × 8, k = 9..16:
+   groups with the bitmap BFS inside the lanes), Bmix (seven items of six
+   plans: one replay each, pages elected from each plan's ladder, order
+   kept), BQ3o (BQ3 with lane 15 at k = 50,000: that lane alone
+   re-records), BE1 (E1 × 64, `bench.py:372-377`: a count group of 16
+   lanes in 4 chunks), BE2 (E2 × 16: a rows group with edge columns) and
+   BE5 (E5 × 8, K13 inside the lanes). Every item equals numpy. Each cell
+   prints its path, each group's capture ms, graph nodes, launches per
+   group replay and reserved bytes, its batch q/s (the reference's
+   statistic, `bench.py:273`) beside the same items as sequential
+   ``db.query`` calls, and one batch's busy share. K14 is held exactly
+   against its plain version at BQ3's lane stack and at edge cases, and
+   timed beside its bound and the library's slice copy.
 
 The line before the last is one JSON object with every kernel's numbers
-(``launches`` from phase 5, and from phase 6's replay path for
-`rows_with_matches`); the last line is ``{"ok": true, "device":
+(``launches`` from phase 5, from phase 6's replay path for
+`rows_with_matches` and from phase 7 for `group_page`); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -82,6 +101,7 @@ from orientdb_tpu_torch.storage.bigshape import (  # noqa: E402
     numpy_1hop_count,
     numpy_2hop_count,
     numpy_config5_count,
+    numpy_config5_counts,
     numpy_has_out_neighbour,
     numpy_incident_rows,
     numpy_optional_rows,
@@ -114,19 +134,25 @@ REPLACES = {
     "bitmap_emit": "orientdb_tpu/exec/tpu_engine.py:475",
     "frontier_advance": "orientdb_tpu/exec/tpu_engine.py:2171",
     "rows_with_matches": "orientdb_tpu/ops/csr.py:283",
+    "group_page": "orientdb_tpu/exec/tpu_engine.py:3131",
 }
 BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop", "bitmap_emit", "frontier_advance"]
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
-#: the kernels of the Person–knows phases (the OPTIONAL arm's left-join
+#: the kernel only the batch path launches (phase 7)
+BATCH_ONLY = ("group_page",)
+#: the kernels of the Person–knows phases 4–5 (the OPTIONAL arm's left-join
 #: count runs on the SNB-shape phase)
-PK_KERNELS = [n for n in REPLACES if n != "rows_with_matches"]
+PK_KERNELS = [n for n in REPLACES if n != "rows_with_matches" and n not in BATCH_ONLY]
 #: the kernels a Person–knows recording run launches
 RECORD_KERNELS = [n for n in PK_KERNELS if n not in REPLAY_ONLY]
 #: the kernels the SNB-shape cells E1–E5 launch while recording (no bitmap
 #: BFS there), and on their replays (no float32 overflow twin)
-E_RECORD_KERNELS = [n for n in REPLACES if n not in REPLAY_ONLY and n not in BITMAP_KERNELS]
+E_RECORD_KERNELS = [
+    n for n in REPLACES if n not in REPLAY_ONLY and n not in BITMAP_KERNELS and n not in BATCH_ONLY
+]
 E_REPLAY_KERNELS = [
-    n for n in REPLACES if n not in BITMAP_KERNELS and n not in ("scan_f32", "segment_sum_f32", "take_pad_f32")
+    n for n in REPLACES
+    if n not in BITMAP_KERNELS and n not in BATCH_ONLY and n not in ("scan_f32", "segment_sum_f32", "take_pad_f32")
 ]
 EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
 
@@ -722,7 +748,7 @@ def _only_plan(TE, snap, sql):
 def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
     """Phase 5: the replay path through ``db.query`` with the plan cache
     on, launch counts zeroed just before it and read just after. Returns
-    (launches, the Q3 plan)."""
+    (launches, the Q3 plan, Q3's sorted numpy rows at k = 50,000)."""
     from orientdb_tpu_torch.exec import tpu_engine as TE
 
     V = snap.num_vertices
@@ -851,7 +877,7 @@ def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
         f"replay: all equal numpy; launches {launches}; "
         f"reserved {torch.cuda.memory_reserved()} bytes after {sum(len(v.plans) for v in TE._plan_cache(snap).values())} captures"
     )
-    return launches, q3
+    return launches, q3, q3_want[Q3_K_OVERFLOW]
 
 
 def replay_layers(torch, db, sql, plan, params, reps: int = 5) -> str:
@@ -1028,11 +1054,16 @@ def device_share(torch, db, sql, params, wall_ms: float) -> str:
     (torch.profiler), against that run's own wall time: the device's busy
     share. The profiler slows the run; ``wall_ms`` is the unprofiled
     median, printed beside it."""
+    return busy_share(torch, lambda: db.query(sql, params).to_dicts(), wall_ms)
+
+
+def busy_share(torch, run, wall_ms: float) -> str:
+    """`device_share` of any callable (one query, or one batch)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        db.query(sql, params).to_dicts()
+        run()
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -1272,6 +1303,343 @@ def check_rows_with_matches(torch, K, ks, dg) -> None:
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: batches (db.query_batch)
+# ---------------------------------------------------------------------------
+
+
+def _batch_qps(run, n_items: int, iters: int = 3, reps: int = 3) -> float:
+    """The reference bench's statistic (`bench.py:273`, after its warm
+    rounds): the median over ``reps`` of ``iters`` timed runs, in items/s."""
+    qps = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        qps.append(iters * n_items / (time.perf_counter() - t0))
+    return statistics.median(qps)
+
+
+def _cell_plans(TE, snap, sqls):
+    """Every cached plan (all variants) of the statements ``sqls``."""
+    from orientdb_tpu_torch.sql.parser import parse
+
+    stmts = {parse(s) for s in sqls}
+    return [p for k, v in TE._plan_cache(snap).items() if k[0] in stmts for p in v.plans]
+
+
+class BatchCell:
+    """One batch cell: its items, the check of each item's rows, the path
+    its plans must take (``shared``, ``group``, ``per-lane``; None where
+    the plan decides) and the (sql, params) each statement is first
+    recorded with (its cell's largest parameter)."""
+
+    def __init__(self, name, sqls, plist, check, path, warm=()):
+        self.name, self.sqls, self.check, self.path, self.warm = name, sqls, check, path, warm
+        self.plist = plist if plist is not None else [None] * len(sqls)
+        #: peak device bytes allocated while the cell ran (`run_batch_cell`)
+        self.peak_bytes = 0
+
+
+def run_batch_cell(torch, K, TE, db, snap, card, cell: BatchCell, timed: bool = True):
+    """One cell through ``db.query_batch``: the first batch (a group's
+    capture included) checked item by item; the path each plan took, from
+    its replay counters; each group's capture ms, graph nodes, launches per
+    group replay and reserved bytes beside the plan's own; the peak device
+    memory above the resident graph while the warm-up recorded and
+    captured the plans, and while the first batch ran (a group whose lanes
+    kept their intermediates would hold Bb times a lane's). When
+    ``timed``: the batch's q/s by the reference's statistic (two warm
+    rounds, then the median of 3 reps of 3 batches, each result's rows
+    built and dropped), the same items as sequential ``db.query`` calls in
+    q/s (median of 3 runs), one batch's host split (parsing the
+    statements; ``query_batch``: dispatch, meta wave, page election and
+    fetch, marshal; ``to_dicts``) and its busy share. Returns ``(plan,
+    replays, group replays)`` of the first batch for every plan that
+    served the cell."""
+    from orientdb_tpu_torch.sql.parser import parse
+
+    sync = torch.cuda.synchronize
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for sql, params in cell.warm:
+        db.query(sql, params).to_dicts()
+    sync()
+    cell.peak_bytes = torch.cuda.max_memory_allocated()
+    warm_peak = cell.peak_bytes - base
+    before = {id(p): (p.replays, p.group_replays) for p in _cell_plans(TE, snap, cell.sqls)}
+    l0 = dict(K.LAUNCHES)
+
+    def run():
+        for rs in db.query_batch(cell.sqls, cell.plist):
+            rs.to_dicts()
+        sync()
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = [rs.to_dicts() for rs in db.query_batch(cell.sqls, cell.plist)]
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    first_peak = torch.cuda.max_memory_allocated() - base
+    for i, r in enumerate(rows):
+        cell.check(i, r)
+    launched = {k: K.LAUNCHES[k] - l0[k] for k in l0 if K.LAUNCHES[k] != l0[k]}
+    stmts = [parse(s) for s in cell.sqls]
+    paths = []
+    for p in _cell_plans(TE, snap, cell.sqls):
+        r0, g0 = before.get(id(p), (0, 0))
+        dr, dg = p.replays - r0, p.group_replays - g0
+        if id(p) not in before:
+            kind = "recorded"
+        elif dg:
+            kind = "group"
+        elif dr == 1 and stmts.count(p.solver.stmt) >= TE._GROUP_MIN and not p.dyn_spec:
+            kind = "shared"
+        elif dr:
+            kind = "per-lane"
+        else:
+            continue
+        d = (
+            f"{kind} (width {p.width}, columns {p.ncols}, direct_fetch {p.direct_fetch}, "
+            f"batchable {p.batchable()}, replays +{dr}, group replays +{dg}"
+        )
+        if kind == "group":
+            Bb = min(1 << (len(cell.sqls) - 1).bit_length(), p._group_lane_cap())
+            g = p.groups[Bb]
+            d += (
+                f"; Bb {Bb}, {dg} chunks, capture {g.capture_ms} ms, {g.nodes} graph nodes, "
+                f"launches per group replay {sum(g.launches.values())} {g.launches}, reserved after "
+                f"the group capture {g.reserved_bytes} bytes vs {p.reserved_bytes} after the plan's own"
+            )
+        paths.append((kind, p, dr, dg, d + ")"))
+    print(
+        f"batch {cell.name}: {len(cell.sqls)} items, first batch {first_ms:.3f} ms, all equal numpy; "
+        f"paths: {'; '.join(d for *_x, d in paths)}; launches {launched}; peak allocated above the "
+        f"resident {warm_peak} bytes while the warm-up recorded and captured, {first_peak} bytes in "
+        f"the first batch [{card}]"
+    )
+    kinds = {k for k, *_x in paths}
+    if cell.path is not None:
+        _require(kinds == {cell.path}, f"batch {cell.name}: paths {kinds}, want {cell.path}")
+    if timed:
+        run()  # the second warm round
+        bq = _batch_qps(run, len(cell.sqls))
+
+        def seq():
+            for s, p in zip(cell.sqls, cell.plist):
+                db.query(s, p).to_dicts()
+            sync()
+
+        seq()
+        sq = _batch_qps(seq, len(cell.sqls), iters=1)
+        print(
+            f"batch {cell.name}: {bq:.1f} q/s batched, {sq:.1f} q/s as sequential db.query "
+            f"(x{bq / sq:.2f}) [{card}]"
+        )
+        t0 = time.perf_counter()
+        for s in cell.sqls:
+            parse(s)
+        t1 = time.perf_counter()
+        rss = db.query_batch(cell.sqls, cell.plist)
+        sync()
+        t2 = time.perf_counter()
+        for rs in rss:
+            rs.to_dicts()
+        t3 = time.perf_counter()
+        print(
+            f"batch layers {cell.name}: parsing the statements {(t1 - t0) * 1e3:.3f} ms (inside "
+            f"query_batch), query_batch {(t2 - t1) * 1e3:.3f} ms, to_dicts {(t3 - t2) * 1e3:.3f} ms"
+        )
+        print(f"batch device {cell.name}: {busy_share(torch, run, len(cell.sqls) / bq * 1e3)}")
+    cell.peak_bytes = max(cell.peak_bytes, torch.cuda.max_memory_allocated())
+    return [(p, dr, dg) for _k, p, dr, dg, _d in paths]
+
+
+def _rows_check(np, name, want_of, cols):
+    """Check of item i's rows against ``want_of(i)`` (sorted int64 rows)."""
+
+    def check(i, rows):
+        got = _sorted_rows(np, rows, cols)
+        want = want_of(i)
+        _require(got.shape == want.shape and np.array_equal(got, want), f"batch {name} item {i}: rows differ from numpy")
+
+    return check
+
+
+def _below(rows, k):
+    """The sorted rows (root id first) of the roots p < k."""
+    return rows[rows[:, 0] < k]
+
+
+def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big):
+    """Phase 7a: the batch cells on the Person–knows graph, the plan cache
+    cleared first; then K14 against its plain version at BQ3's lane stack.
+    ``q3_big`` holds Q3's sorted numpy rows at k = 50,000; every Q3 item
+    filters them by p < k. Returns the peak device bytes allocated."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+
+    TE._plan_cache(snap).clear()
+    V = snap.num_vertices
+    age = snap.v_columns["age"].values
+    n1 = numpy_1hop_count(snap, age > 40, age < 30)
+    n2 = numpy_2hop_count(snap, age > 40, np.ones(V, bool), age < 30)
+    ks3 = [1000 + 62 * i for i in range(16)]
+    kv = list(range(9, 17))
+    v2_all, v3_all = vref.v2(16), vref.v3(16)
+
+    def count_is(n):
+        return lambda i, rows: _require(rows == [{"n": n}], f"count {rows} != numpy {n}")
+
+    q3_rows = lambda k: _rows_check(np, "Q3", lambda i: _below(q3_big, k), ("p", "f", "g"))  # noqa: E731
+    done = []
+    for cell in (
+        BatchCell("BQ1", [Q1] * 64, None, count_is(n1), "shared", warm=[(Q1, None)]),
+        BatchCell("BQ2", [Q2] * 64, None, count_is(n2), "shared", warm=[(Q2, None)]),
+        BatchCell("BQ3", [Q3] * 16, [{"k": k} for k in ks3],
+                  _rows_check(np, "BQ3", lambda i: _below(q3_big, ks3[i]), ("p", "f", "g")), "group",
+                  warm=[(Q3, {"k": max(ks3)})]),
+    ):
+        run_batch_cell(torch, K, TE, db, snap, card, cell)
+        done.append(cell)
+    (q3,) = _cell_plans(TE, snap, [Q3])
+    _require(q3._rows_grouped() and 16 in q3.groups, "BQ3 is not a rows group of 16 lanes")
+    check_group_page(torch, K, ks, q3.groups[16].out["data"], q3, ks3, q3_big)
+    for cell in (
+        BatchCell("BV2", [V2] * 8, [{"k": k} for k in kv],
+                  _rows_check(np, "BV2", lambda i: _below(v2_all, kv[i]), ("p", "f", "d")), "group",
+                  warm=[(V2, {"k": 16})]),
+        BatchCell("BV3", [V3] * 8, [{"k": k} for k in kv],
+                  _rows_check(np, "BV3", lambda i: _below(v3_all, kv[i]), ("p", "f")), "group",
+                  warm=[(V3, {"k": 16})]),
+    ):
+        ((plan, _dr, _dg),) = run_batch_cell(torch, K, TE, db, snap, card, cell)
+        done.append(cell)
+        g = plan.groups[8]
+        print(f"batch {cell.name}: direct_fetch {plan.direct_fetch}, rows group {plan._rows_grouped()}")
+        if cell.name == "BV2":
+            missing = [n for n in BITMAP_KERNELS if g.launches.get(n, 0) == 0]
+            _require(plan._rows_grouped(), "BV2 is not a rows group")
+            _require(db.device.type != "cuda" or not missing, f"BV2: {missing} not in the group replay")
+    mix = [
+        (Q1, None, count_is(n1)),
+        (Q3, {"k": 2000}, q3_rows(2000)),
+        (V1, None, lambda i, rows: vref.check("V1", rows, None)),
+        (Q_DIRECT, {"k": Q_DIRECT_K},
+         _rows_check(np, "Bmix", lambda i: numpy_direct_rows(np, snap, Q_DIRECT_K), ("p", "f"))),
+        (Q3, {"k": 1000}, q3_rows(1000)),
+        (V3, {"k": 16}, lambda i, rows: vref.check("V3", rows, {"k": 16})),
+        (V2, {"k": 16}, lambda i, rows: vref.check("V2", rows, {"k": 16})),
+    ]
+    done.append(BatchCell("Bmix", [m[0] for m in mix], [m[1] for m in mix], lambda i, rows: mix[i][2](i, rows),
+                          "per-lane", warm=[(V1, None), (Q_DIRECT, {"k": Q_DIRECT_K})]))
+    run_batch_cell(torch, K, TE, db, snap, card, done[-1])
+    # BQ3o: lane 15 past the recorded buckets re-records alone
+    ks_o = ks3[:15] + [Q3_K_OVERFLOW]
+    plist = [{"k": k} for k in ks_o]
+    done.append(BatchCell("BQ3o", [Q3] * 16, plist,
+                          _rows_check(np, "BQ3o", lambda i: _below(q3_big, ks_o[i]), ("p", "f", "g")), None))
+    run_batch_cell(torch, K, TE, db, snap, card, done[-1], timed=False)
+    variants = _only_plan(TE, snap, Q3)
+    _require(
+        len(variants.plans) == 2 and variants.plans[1] is q3
+        and all(variants.pick(p) is q3 for p in plist[:15]) and variants.pick(plist[15]) is variants.plans[0],
+        "BQ3o: lane 15 did not re-record alone",
+    )
+    print(
+        f"batch BQ3o: lane 15 (k={Q3_K_OVERFLOW}) overflowed and recorded a second variant "
+        f"(width {variants.plans[0].width} vs {q3.width}); lanes 0-14 kept their rows from the group"
+    )
+    return max(c.peak_bytes for c in done)
+
+
+def check_group_page(torch, K, ks, stack, plan, ks3, q3_big):
+    """K14 against its plain version at BQ3's lane stack (16 lanes of Q3's
+    [W, 3] front-packs) at the page BQ3 elects, in int32 and int16, and at
+    edge cases (B < Bb, n = W, n·C not a multiple of 4, C = 1, one row, an
+    empty page), exactly; then its time at BQ3's page (int32: Q3's uids
+    pass 32767) beside its bound and the library's slice copy, and the
+    int16 page and the full stack; its own launches are not counted."""
+    counted = dict(K.LAUNCHES)  # these launches compare and time: not the main path's
+    Bb, W, C = (int(x) for x in stack.shape)
+    need = int(max(_below(q3_big, k).shape[0] for k in ks3))
+    n = plan._page_round(W, need)
+    one_col = stack[:, :, :1].contiguous()
+    one_row = stack[:, :1].contiguous()
+    for f16 in (False, True):
+        for st, B, m in ((stack, Bb, n), (stack, 11, n), (stack, Bb, W), (stack, 3, 5), (stack, Bb, 1),
+                         (one_col, Bb, n), (one_col, 5, 7), (one_row, Bb, 1), (stack, 0, 0)):
+            ks.same("group_page", K.group_page(st, B, m, f16), K.plain_group_page(st, B, m, f16))
+    torch.cuda.synchronize()
+    ks.timed(
+        "group_page",
+        lambda: K.group_page(stack, Bb, n, False),
+        lambda: K.plain_group_page(stack, Bb, n, False),
+        lambda: stack[:Bb, :n].clone(),
+        8.0 * Bb * n * C,
+    )
+    ms16 = _time_ms(torch, lambda: K.group_page(stack, Bb, n, True))
+    lib16 = _time_ms(torch, lambda: stack[:Bb, :n].to(torch.int16))
+    bound16 = 6.0 * Bb * n * C / HBM_BYTES_PER_S * 1e3
+    ms_w = _time_ms(torch, lambda: K.group_page(stack, Bb, W, False))
+    print(
+        f"kernel group_page: equals its plain version at BQ3's stack [{Bb}, {W}, {C}], elected page "
+        f"n={n} (largest lane {need} rows); int16 at that page {ms16:.4f} ms (library .to(int16) "
+        f"{lib16:.4f} ms, bound {bound16:.4f} ms); int32 full stack n=W {ms_w:.4f} ms; in a captured "
+        f"graph, int32 at the page {_graph_ms(torch, lambda: K.group_page(stack, Bb, n, False)):.4f} ms "
+        f"(library .clone() {_graph_ms(torch, lambda: stack[:Bb, :n].clone()):.4f} ms), int16 "
+        f"{_graph_ms(torch, lambda: K.group_page(stack, Bb, n, True)):.4f} ms"
+    )
+    K.LAUNCHES.update(counted)
+
+
+def run_batches_snb(np, torch, K, db, snap, card):
+    """Phase 7b: the batch cells on the SNB-shape graph, the plan cache
+    cleared first. Returns the peak device bytes allocated."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+
+    TE._plan_cache(snap).clear()
+    ds = [12_000 + (i * 211) % 8_000 for i in range(64)]
+    t0 = time.perf_counter()
+    counts = numpy_config5_counts(snap, ds)
+    ns2 = [10_000 + 625 * i for i in range(16)]
+    ns5 = [1_000 + 125 * i for i in range(8)]
+    young = snap.v_columns["age"].values < 30
+    e2_all = numpy_out_edge_rows(snap, max(ns2), 15_000, young)
+    e5_all = numpy_probe_rows(snap, max(ns5), 15_000)
+    print(f"numpy references of BE1, BE2, BE5: {time.perf_counter() - t0:.1f} s")
+
+    def e1_check(i, rows):
+        _require(rows == [{"n": counts[i]}], f"BE1 item {i}: {rows} != numpy {counts[i]}")
+
+    cells = (
+        BatchCell("BE1", [E1] * 64, [{"d": d} for d in ds], e1_check, "group", warm=[(E1, {"d": min(ds)})]),
+        BatchCell("BE2", [E2] * 16, [{"n": n, "d": 15_000} for n in ns2],
+                  _rows_check(np, "BE2", lambda i: _below(e2_all, ns2[i]), ("p", "f", "cd")), "group",
+                  warm=[(E2, {"n": max(ns2), "d": 15_000})]),
+        BatchCell("BE5", [E5] * 8, [{"n": n, "d": 15_000} for n in ns5],
+                  _rows_check(np, "BE5", lambda i: _below(e5_all, ns5[i]), ("p", "f", "probe")), None,
+                  warm=[(E5, {"n": max(ns5), "d": 15_000})]),
+    )
+    for cell in cells:
+        k13 = K.LAUNCHES["rows_with_matches"]
+        ((plan, _dr, dg),) = run_batch_cell(torch, K, TE, db, snap, card, cell)
+        if cell.name == "BE1":
+            _require(
+                plan.count_name is not None and plan._group_lane_cap() == 16 and dg == 4,
+                f"BE1: not a count group of 16 lanes in 4 chunks ({dg} chunks)",
+            )
+        elif cell.name == "BE2":
+            _require(plan._rows_grouped(), "BE2 is not a rows group")
+        else:
+            print(f"batch BE5: batchable {plan.batchable()}, rows group {plan._rows_grouped()}")
+            _require(
+                db.device.type != "cuda" or K.LAUNCHES["rows_with_matches"] > k13,
+                "BE5: rows_with_matches never launched",
+            )
+    return max(c.peak_bytes for c in cells)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1339,18 +1707,28 @@ def main() -> int:
     # 5. the replay path: record + capture once, then captured replays
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    launches, q3_plan = run_replay(np, torch, K, db, snap, card, vref)
+    launches, q3_plan, q3_big = run_replay(np, torch, K, db, snap, card, vref)
     print(f"replay phase: {time.perf_counter() - t0:.1f} s")
     print(f"memory: peak allocated during the replay path {torch.cuda.max_memory_allocated()} bytes")
     pk_peak = max(pk_peak, torch.cuda.max_memory_allocated())
     check_replay_kernels(torch, K, ks, q3_plan, {"k": Q3_K})
     pk_peak = max(pk_peak, torch.cuda.max_memory_allocated())
 
+    # 7a. batches on the Person–knows graph, while it is resident
+    t0 = time.perf_counter()
+    K.reset_launches()
+    b_peak = run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big)
+    torch.cuda.synchronize()
+    batch_launches = dict(K.LAUNCHES)
+    print(f"batch phase: {time.perf_counter() - t0:.1f} s; launches {batch_launches}")
+    print(f"memory: peak allocated through the batch phase {b_peak} bytes")
+    pk_peak = max(pk_peak, b_peak)
+
     # 6. the SNB-shape graph of config 5, after freeing the Person–knows one
     from orientdb_tpu_torch.exec import tpu_engine as TE
 
     TE._plan_cache(snap).clear()
-    del db, snap, dg, q3_plan, vref
+    del db, snap, dg, q3_plan, vref, q3_big
     gc.collect()  # the snapshot's cycle (snapshot → plan cache → plan → solver)
     gc.collect()  # the device graph's, released by the weak map in the first pass
     torch.cuda.synchronize()
@@ -1386,12 +1764,23 @@ def main() -> int:
     e_launches, _e_plans = run_edges_replay(np, torch, K, sdb, ssnap, card, eref)
     print(f"replay phase E: {time.perf_counter() - t0:.1f} s")
     check_rows_with_matches(torch, K, ks, sdg)
+
+    # 7b. batches on the SNB-shape graph
+    t0 = time.perf_counter()
+    K.reset_launches()
+    s_peak = max(torch.cuda.max_memory_allocated(), run_batches_snb(np, torch, K, sdb, ssnap, card))
+    torch.cuda.synchronize()
+    print(f"batch phase E: {time.perf_counter() - t0:.1f} s; launches {dict(K.LAUNCHES)}")
+    for name in BATCH_ONLY:
+        batch_launches[name] += K.LAUNCHES[name]
     s_mem = sdg.memory_report()
     print(
         f"graph SNB-shape: resident {s_mem['total_bytes']} bytes {s_mem['per_device']}, host-only "
-        f"columns {s_mem['pruned_bytes']} bytes; peak allocated {torch.cuda.max_memory_allocated()} bytes"
+        f"columns {s_mem['pruned_bytes']} bytes; peak allocated {max(s_peak, torch.cuda.max_memory_allocated())} bytes"
     )
     launches["rows_with_matches"] = e_launches["rows_with_matches"]
+    for name in BATCH_ONLY:
+        launches[name] = batch_launches[name]
 
     for name, row in ks.rows.items():
         row["launches"] = launches[name]

@@ -1,9 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for the CSR primitives of the
-// compiled MATCH path, the bitmap BFS of variable-depth and NOT arms, and
-// the result stage of a captured replay. Port of the jitted functions of
+// compiled MATCH path, the bitmap BFS of variable-depth and NOT arms, the
+// result stage of a captured replay and the page of a batch's rows group.
+// Port of the jitted functions of
 // orientdb_tpu/ops/csr.py (the OPTIONAL arm's rows_with_matches among them)
 // and of the level emission, level step, front-pack,
-// meta and page functions of orientdb_tpu/exec/tpu_engine.py; the wrappers
+// meta, page and group-page functions of orientdb_tpu/exec/tpu_engine.py; the wrappers
 // are in orientdb_tpu_torch/ops/csr.py and bind these functions through
 // ctypes (orientdb_tpu_torch/ops/_kernels.py).
 //
@@ -637,6 +638,73 @@ __global__ void rows_with_matches_kernel(const int* __restrict__ rows,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K14: group_page (replaces _CompiledPlan._page_fn / group_page,
+// orientdb_tpu/exec/tpu_engine.py:3074 / :3131): the compact page of a rows
+// group after the meta wave, out[b, r, c] = in[b, r, c] for b < B, r < n,
+// c < C, narrowed to int16 (low 16 bits, as narrow_i16) when every live
+// value of every lane fits. The stack is lane-major with rows leading
+// ([Bb, W, C]; the reference's is [Bb, C, W]), so lane b's page is ONE
+// contiguous run of n*C values at b*W*C in the stack and at b*n*C in the
+// page: the kernel is a copy of B runs.
+// Bound: B*n*C*4 bytes read + B*n*C*(4 or 2) written (BQ3's full int32
+// page, 16 x 131072 x 3: 50 MB, ~0.015 ms).
+// Design: gridDim.y walks the lanes, gridDim.x grid-strides over a run;
+// 16-byte loads and stores where the run and the stack's lane stride allow
+// (four int32 a thread, or eight int32 read as two int4 and stored as eight
+// int16), else one value a thread.
+// ---------------------------------------------------------------------------
+__device__ inline unsigned pack_i16(int lo, int hi) {
+  return (static_cast<unsigned>(lo) & 0xffffu) | (static_cast<unsigned>(hi) << 16);
+}
+
+template <bool kNarrow, bool kVec>
+__global__ void group_page_kernel(const int* __restrict__ in, long long src_run,
+                                  long long lanes, long long run, void* __restrict__ out) {
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long b = blockIdx.y; b < lanes; b += gridDim.y) {
+    const int* src = in + b * src_run;
+    if (kNarrow) {
+      short* dst = static_cast<short*>(out) + b * run;
+      if (kVec) {
+        const int4* s4 = reinterpret_cast<const int4*>(src);
+        uint4* d4 = reinterpret_cast<uint4*>(dst);
+        for (long long v = first; v < run / 8; v += step) {
+          const int4 a = s4[2 * v];
+          const int4 c = s4[2 * v + 1];
+          d4[v] = make_uint4(pack_i16(a.x, a.y), pack_i16(a.z, a.w), pack_i16(c.x, c.y),
+                             pack_i16(c.z, c.w));
+        }
+      } else {
+        for (long long i = first; i < run; i += step) {
+          dst[i] = static_cast<short>(static_cast<unsigned short>(src[i] & 0xffff));
+        }
+      }
+    } else {
+      int* dst = static_cast<int*>(out) + b * run;
+      if (kVec) {
+        const int4* s4 = reinterpret_cast<const int4*>(src);
+        int4* d4 = reinterpret_cast<int4*>(dst);
+        for (long long v = first; v < run / 4; v += step) d4[v] = s4[v];
+      } else {
+        for (long long i = first; i < run; i += step) dst[i] = src[i];
+      }
+    }
+  }
+}
+
+template <bool kNarrow, bool kVec>
+void launch_group_page(const int* in, long long src_run, long long lanes, long long run,
+                       void* out, cudaStream_t s) {
+  const long long per_thread = kVec ? (kNarrow ? 8 : 4) : 1;
+  const unsigned gy = static_cast<unsigned>(lanes < 65535 ? lanes : 65535);
+  unsigned gx = grid_for(run, per_thread);
+  const unsigned share = kMaxBlocks / gy > 0 ? kMaxBlocks / gy : 1;
+  if (gx > share) gx = share;
+  group_page_kernel<kNarrow, kVec><<<dim3(gx, gy), kThreads, 0, s>>>(in, src_run, lanes, run, out);
+}
+
 }  // namespace
 
 extern "C" {
@@ -910,6 +978,30 @@ int csr_rows_with_matches(const void* rows, const void* mask, long long w,
     rows_with_matches_kernel<<<grid_for(w, 1), kThreads, 0, s>>>(
         static_cast<const int*>(rows), static_cast<const unsigned char*>(mask), w, nseg,
         static_cast<unsigned*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `in` is an int32 [*, w, ncols] stack; `out` receives lanes [0, b) and rows
+// [0, n) of it as a contiguous [b, n, ncols] page, int16 when `narrow` is set.
+int csr_group_page(const void* in, long long w, int ncols, long long b, long long n,
+                   int narrow, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long run = n * ncols;
+  const long long src_run = w * ncols;
+  if (b <= 0 || run <= 0) return static_cast<int>(cudaGetLastError());
+  const int* src = static_cast<const int*>(in);
+  const bool aligned = aligned16(in) && aligned16(out) && src_run % 4 == 0;
+  if (narrow) {
+    if (aligned && run % 8 == 0) {
+      launch_group_page<true, true>(src, src_run, b, run, out, s);
+    } else {
+      launch_group_page<true, false>(src, src_run, b, run, out, s);
+    }
+  } else if (aligned && run % 4 == 0) {
+    launch_group_page<false, true>(src, src_run, b, run, out, s);
+  } else {
+    launch_group_page<false, false>(src, src_run, b, run, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,12 +33,20 @@ numeric parameters, uploads the parameters and replays that graph: no host
 read, a device overflow flag that sends the call back to a re-record, the
 live rows front-packed on the card and copied with the meta row into
 pinned host memory. On the CPU a replay runs the same replay-mode solve
-without capture. A MATCH shape outside this slice raises `Uncompilable`
-with the reason; nothing falls back to an interpreter.
+without capture. A batch (`execute_batch`) dispatches its cached plans
+back to back: four or more items of one plan replay as one group graph
+that runs the replay lane after lane on a stack of parameter rows, a plan
+without numeric parameters replays once for all its items, and after one
+wave of meta rows each row-returning item or group ships one page (a
+group's cut from its lane stack by the `group_page` kernel). A MATCH
+shape outside this slice raises `Uncompilable` with the reason; nothing
+falls back to an interpreter.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import threading
 import time
@@ -81,6 +89,11 @@ F32 = torch.float32
 #: smallest page (rows) of a replay's result ladder; pow2 rounding up from
 #: here bounds the distinct page shapes per buffer to log2(W)
 _PAGE_MIN = 1024
+#: a rows group's compact page covers the lanes' largest live count rounded
+#: up to a multiple of this many rows (capped at the full width)
+_GROUP_PAGE_ROUND = 2048
+#: minimum same-plan items of a batch that replay as one group
+_GROUP_MIN = 4
 
 
 # ---------------------------------------------------------------------------
@@ -1045,6 +1058,12 @@ class TpuMatchSolver:
             concrete = keep
         return concrete
 
+    def edge_classes_read(self) -> set:
+        """The concrete edge classes the pattern's arms and NOT arms walk."""
+        items = [e.item for e in self.pattern.edges]
+        items += [it for path in self.not_paths for it in path.items]
+        return {c for it in items for c in self._resolve_edge_classes(it)}
+
     def _empty_like(self, table: Table, dst_alias: str, edge_alias=None, depth_alias=None) -> Table:
         """A table of no rows with the columns an arm adds, so that later
         steps find the structure they expect."""
@@ -1765,16 +1784,86 @@ def _replay_resources(device: torch.device):
     return res
 
 
+def _on_replay_stream(device: torch.device):
+    """Context running work on the device's replay stream (no-op on the
+    CPU): what reads a replay's outputs queues behind it there."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.stream(_replay_resources(device)[1])
+
+
+def _to_host(ts: List[torch.Tensor]) -> "_Fetch":
+    """Queue copies of ``ts`` into pinned host memory on the current
+    stream, and the event that marks them done (the tensors themselves on
+    the CPU)."""
+    if ts[0].device.type != "cuda":
+        return _Fetch(None, ts)
+    host = []
+    for t in ts:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    event = torch.cuda.Event()
+    event.record()
+    return _Fetch(event, host)
+
+
 class _Fetch:
     """A dispatched replay's results on their way to the host: the host
     tensors (pinned, filled by copies queued behind the replay on a card)
-    and the event that marks the copies done (None on the CPU)."""
+    and the event that marks the copies done (None on the CPU). A batch
+    item of a rows plan also keeps its page ladder on the device
+    (``pages``: the int32 and the int16 prefix views) until the batch
+    elects a page from it after the meta wave."""
 
-    __slots__ = ("event", "host")
+    __slots__ = ("event", "host", "pages")
 
-    def __init__(self, event, host: List[torch.Tensor]) -> None:
+    def __init__(self, event, host: List[torch.Tensor], pages=None) -> None:
         self.event = event
         self.host = host
+        self.pages = pages
+
+    def arrays(self) -> List[np.ndarray]:
+        """Wait for the copies; the host arrays."""
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.numpy() for h in self.host]
+
+
+class _GroupReplay:
+    """The group replay of one (plan, lane bucket ``Bb``): the static
+    ``[Bb, P]`` int32 parameter stack, the stacked outputs the lanes write
+    (on a card allocated once, outside the graph pool, so no other plan's
+    replay can overwrite them before the batch reads them; on the CPU the
+    last dispatch's) and, on a card, the
+    captured graph with its kernel launches, node count, capture time and
+    the reserved device memory right after the capture."""
+
+    __slots__ = ("stack", "out", "graph", "launches", "nodes", "capture_ms", "reserved_bytes")
+
+    def __init__(self, stack: torch.Tensor, out: Optional[Dict[str, torch.Tensor]]) -> None:
+        self.stack = stack
+        self.out = out
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        self.nodes: Optional[int] = None
+        self.capture_ms: Optional[float] = None
+        self.reserved_bytes: Optional[int] = None
+
+
+def _graph_nodes(graph) -> int:
+    """Node count of a captured graph kept uninstantiated
+    (``CUDAGraph(keep_graph=True)``), read with libcuda's
+    ``cuGraphGetNodes``."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    fn = lib.cuGraphGetNodes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    fn.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    rc = fn(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return int(n.value)
 
 
 class _CompiledPlan:
@@ -1838,15 +1927,20 @@ class _CompiledPlan:
         self.capture_ms: Optional[float] = None
         #: torch.cuda.memory_reserved right after the capture
         self.reserved_bytes: Optional[int] = None
+        #: lane bucket → group replay (`dispatch_many`)
+        self.groups: Dict[int, _GroupReplay] = {}
+        #: group replays run: one per chunk of a batch's group
+        self.group_replays = 0
 
     # -- the replay body -----------------------------------------------------
 
-    def _replay_table(self) -> Table:
+    def _replay_table(self, params: Optional[torch.Tensor] = None) -> Table:
         """The recorded solve in replay mode: recorded sizes, the device
-        overflow flag, the parameters read from the static buffer, and no
-        lazy upload."""
+        overflow flag, the parameters read from an int32 device row (the
+        static buffer, or a group lane's row of its stack), and no lazy
+        upload."""
         solver = self.solver
-        buf = self._params_dev
+        buf = self._params_dev if params is None else params
         fbuf = buf.view(F32)
         dyn = {
             k: (fbuf[i] if kind == "float" else buf[i])
@@ -1866,12 +1960,14 @@ class _CompiledPlan:
             )
         return table
 
-    def _replay_core(self, out: Optional[torch.Tensor] = None):
-        """Run the replay-mode solve and front-pack the result columns
-        (into ``out`` when given). Returns ``(count_dev, overflow, data)``,
-        ``data`` the [W, C] int32 page (None for count-only or column-less
-        plans)."""
-        table = self._replay_table()
+    def _replay_core(
+        self, out: Optional[torch.Tensor] = None, params: Optional[torch.Tensor] = None
+    ):
+        """Run the replay-mode solve on ``params`` (default: the static
+        buffer) and front-pack the result columns (into ``out`` when given).
+        Returns ``(count_dev, overflow, data)``, ``data`` the [W, C] int32
+        page (None for count-only or column-less plans)."""
+        table = self._replay_table(params)
         overflow = self.solver.sched.overflow_flag(self.solver.device).to(I32)
         count_dev = table.count_device.to(I32)
         if self.count_name is not None or self.width == 0:
@@ -1919,6 +2015,176 @@ class _CompiledPlan:
         pages32.append(data)
         pages16.append(data16)
         return {"meta": meta, "pages32": pages32, "pages16": pages16}
+
+    # -- the group replay (a batch's same-plan items) -------------------------
+
+    def batchable(self) -> bool:
+        """Eligible for the group replay: count-only and direct-fetch plans
+        (one small output a lane), and row plans whose full int32 page fits
+        ``config.result_group_lane_bytes`` (the group keeps one a lane and
+        elects ONE compact page for all of them after the meta wave). The
+        reference's mesh and tier exclusions have no counterpart: the port
+        has neither a mesh nor tiering yet."""
+        return not self._rows_grouped() or 4 * self.width * self.ncols <= config.result_group_lane_bytes
+
+    def _rows_grouped(self) -> bool:
+        """True when a group replays the rows form (meta rows plus the lane
+        stack of front-packed pages) rather than one small output a lane."""
+        return not (self.count_name is not None or self.width == 0 or self.direct_fetch)
+
+    def _group_lane_cap(self) -> int:
+        """Most lanes in one group replay: lanes x 4E must fit
+        ``config.group_hbm_budget_bytes``, E the largest edge class the
+        plan's arms walk (the reference's formula, sized there by the
+        classes its recording touched), floored to a power of two; a plan
+        that reads no edges is not capped."""
+        dg = self.solver.dg
+        E = max(
+            (dg.edges[c].num_edges for c in self.solver.edge_classes_read() if c in dg.edges),
+            default=0,
+        )
+        if E <= 0:
+            return 1 << 30
+        cap = max(1, int(config.group_hbm_budget_bytes) // (4 * E))
+        return 1 << (cap.bit_length() - 1)
+
+    @staticmethod
+    def _page_round(W: int, need: int) -> int:
+        """Rows of a rows group's compact page covering ``need`` live rows:
+        rounded up to a multiple of ``_GROUP_PAGE_ROUND``, capped at W."""
+        return min(W, -(-max(need, 1) // _GROUP_PAGE_ROUND) * _GROUP_PAGE_ROUND)
+
+    def _group_outputs(self, Bb: int) -> Dict[str, torch.Tensor]:
+        """The stacked outputs of ``Bb`` lanes: ``direct`` [Bb, W·C + 3] for a
+        direct-fetch plan, else ``meta`` [Bb, 3] rows and, for a rows plan
+        with columns, ``data`` [Bb, W, C] (no page ladder a lane: the group
+        elects one page for all lanes)."""
+        dev = self.solver.device
+        W, C = self.width, self.ncols
+        if self.direct_fetch:
+            return {"direct": torch.empty((Bb, W * C + 3), dtype=I32, device=dev)}
+        out = {"meta": torch.empty((Bb, 3), dtype=I32, device=dev)}
+        if self._rows_grouped() and C > 0:
+            out["data"] = torch.empty((Bb, W, C), dtype=I32, device=dev)
+        return out
+
+    def _replay_lanes(self, stack: torch.Tensor, out: Dict[str, torch.Tensor]) -> None:
+        """The group replay's body, the port's form of the reference's
+        ``jax.vmap(replay)``: lane k runs the replay-mode solve on row k of
+        the parameter stack and writes only row k of ``out``. Lanes run one
+        after another, each dropping its table before the next starts; the
+        solver resets its parameters, schedule cursor and overflow flag for
+        each lane, so each lane's meta row carries its own flag."""
+        W, C = self.width, self.ncols
+        for k in range(stack.shape[0]):
+            if "direct" in out:
+                row = out["direct"][k]
+                count_dev, overflow, data = self._replay_core(
+                    out=row[: W * C].view(W, C), params=stack[k]
+                )
+                K.replay_meta(data, count_dev, overflow, out=row[W * C :])
+                continue
+            count_dev, overflow, data = self._replay_core(
+                out=out["data"][k] if "data" in out else None, params=stack[k]
+            )
+            if data is None:
+                out["meta"][k].copy_(torch.stack([count_dev, overflow, torch.zeros_like(count_dev)]))
+            else:
+                K.replay_meta(data, count_dev, overflow, out=out["meta"][k])
+
+    def _group_replay(self, Bb: int, first: np.ndarray) -> _GroupReplay:
+        """The (cached) group replay of ``Bb`` lanes. On a card its first use
+        captures it: one eager run of the lane loop on the replay stream
+        (with ``first``, the first chunk's parameters), then the capture
+        into the device's shared graph pool. A capture failure raises."""
+        g = self.groups.get(Bb)
+        if g is not None:
+            return g
+        dev = self.solver.device
+        P = max(len(self.dyn_spec), 1)
+        if dev.type != "cuda":
+            # the plain version: outputs are made anew by each dispatch
+            g = self.groups[Bb] = _GroupReplay(torch.zeros((Bb, P), dtype=I32, device=dev), None)
+            return g
+        t0 = time.perf_counter()
+        pool, stream = _replay_resources(dev)
+        with _REPLAY_LOCK:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                g = _GroupReplay(torch.zeros((Bb, P), dtype=I32, device=dev), self._group_outputs(Bb))
+                g.stack.copy_(torch.from_numpy(first).pin_memory(), non_blocking=True)
+                self._replay_lanes(g.stack, g.out)  # warm-up, uncaptured
+            stream.synchronize()
+            before = dict(K.LAUNCHES)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            try:
+                with torch.cuda.graph(graph, pool=pool, stream=stream):
+                    self._replay_lanes(g.stack, g.out)
+            finally:
+                recorded = {k: K.LAUNCHES[k] - before[k] for k in before}
+                K.LAUNCHES.update(before)
+            g.nodes = _graph_nodes(graph)
+            graph.instantiate()
+        g.graph = graph
+        g.launches = {k: n for k, n in recorded.items() if n}
+        g.capture_ms = (time.perf_counter() - t0) * 1e3
+        g.reserved_bytes = torch.cuda.memory_reserved(dev)
+        self.groups[Bb] = g
+        return g
+
+    def dispatch_many(self, params_list: List[Dict]) -> Optional["_Group"]:
+        """B same-plan replays as ONE group: the lanes padded to the next
+        power of two ``Bb`` (capped by `_group_lane_cap`; the padding lanes
+        repeat the last lane's parameters), a batch over the cap replaying
+        the group in ``ceil(B / Bb)`` chunks. Each chunk is one parameter
+        upload from its own pinned buffer, one ``graph.replay()`` and the
+        copy of its stacked meta rows (or direct buffers) to pinned host
+        memory, queued before the next chunk. A rows group keeps its lane
+        stack on the card for the page election. Returns None for a rows
+        plan whose bucket exceeds the cap (it stays per-lane, as in the
+        reference: its page election takes one stack)."""
+        B = len(params_list)
+        Bb = 1 << (B - 1).bit_length()
+        cap = self._group_lane_cap()
+        if Bb > cap and self._rows_grouped():
+            return None
+        Bb = min(Bb, cap)
+        nchunks = -(-B // Bb)
+        host = np.stack([self._dyn_args(p) for p in params_list])
+        host = np.concatenate([host, np.repeat(host[-1:], nchunks * Bb - B, axis=0)])
+        dev = self.solver.device
+        with _REPLAY_LOCK:
+            g = self._group_replay(Bb, host[:Bb])
+            if g.graph is None:
+                chunks = []
+                for c in range(nchunks):
+                    g.stack.copy_(torch.from_numpy(host[c * Bb : (c + 1) * Bb]))
+                    out = self._group_outputs(Bb)
+                    self._replay_lanes(g.stack, out)
+                    chunks.append(out)
+                key = "direct" if self.direct_fetch else "meta"
+                fetch = _Fetch(None, [torch.cat([o[key] for o in chunks])])
+                g.out = chunks[-1]
+                data_dev = g.out.get("data")
+            else:
+                _pool, stream = _replay_resources(dev)
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                fetched = g.out["direct" if self.direct_fetch else "meta"]
+                with torch.cuda.stream(stream):
+                    h = torch.empty((nchunks * Bb, *fetched.shape[1:]), dtype=I32, pin_memory=True)
+                    for c in range(nchunks):
+                        src = torch.from_numpy(host[c * Bb : (c + 1) * Bb]).pin_memory()
+                        g.stack.copy_(src, non_blocking=True)
+                        g.graph.replay()
+                        h[c * Bb : (c + 1) * Bb].copy_(fetched, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(stream)
+                fetch = _Fetch(event, [h])
+                data_dev = g.out.get("data")
+                for name, n in g.launches.items():
+                    K.LAUNCHES[name] += n * nchunks
+            self.group_replays += nchunks
+        return _Group(self, fetch, data_dev=data_dev)
 
     # -- capture and dispatch -------------------------------------------------
 
@@ -1973,16 +2239,33 @@ class _CompiledPlan:
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.reserved_bytes = torch.cuda.memory_reserved(dev)
 
-    def _outputs_to_fetch(self, out: Dict) -> List[torch.Tensor]:
-        # the lone-query path ships the full int32 page (the ladder is the
-        # batch path's to elect from)
+    def _outputs_to_fetch(self, out: Dict, keep_pages: bool) -> List[torch.Tensor]:
+        # the lone-query path ships the full int32 page; a batch item ships
+        # its meta row first and elects a page of its ladder after it
         if "direct" in out:
             return [out["direct"]]
-        return [out["meta"]] + ([out["pages32"][-1]] if "pages32" in out else [])
+        if keep_pages or "pages32" not in out:
+            return [out["meta"]]
+        return [out["meta"], out["pages32"][-1]]
 
-    def dispatch(self, params: Optional[Dict] = None) -> _Fetch:
+    def _kept_pages(self, out: Dict):
+        """The page ladder of a replay's outputs, as (int32, int16) lists of
+        prefix views; of private copies of the full pages when the plan is
+        captured (a graph's outputs are overwritten by its next replay, and
+        may be by other plans' replays in the shared pool)."""
+        if "pages32" not in out:
+            return None
+        full32, full16 = out["pages32"][-1], out["pages16"][-1]
+        if self.graph is not None:
+            full32, full16 = full32.clone(), full16.clone()
+        sizes = [int(p.shape[0]) for p in out["pages32"]]
+        return [full32[:n] for n in sizes], [full16[:n] for n in sizes]
+
+    def dispatch(self, params: Optional[Dict] = None, keep_pages: bool = False) -> _Fetch:
         """Upload the parameters and run the replay; the results' copies to
-        the host are queued before the replay lock is released."""
+        the host are queued before the replay lock is released. With
+        ``keep_pages`` (a batch item) a rows plan ships its meta row only
+        and keeps its page ladder on the device (`_Fetch.pages`)."""
         t0 = time.perf_counter()
         host_params = self._dyn_args(params)
         dev = self.solver.device
@@ -1992,23 +2275,19 @@ class _CompiledPlan:
             if self.graph is None:
                 self._upload(host_params)
                 t1 = time.perf_counter()
-                fetch = _Fetch(None, self._outputs_to_fetch(self._replay()))
+                out = self._replay()
             else:
                 _pool, stream = _replay_resources(dev)
-                caller = torch.cuda.current_stream(dev)
+                stream.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(stream):
-                    stream.wait_stream(caller)
                     self._upload(host_params)
                     t1 = time.perf_counter()
                     self.graph.replay()
-                    host = []
-                    for t in self._outputs_to_fetch(self.out):
-                        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                        h.copy_(t, non_blocking=True)
-                        host.append(h)
-                    event = torch.cuda.Event()
-                    event.record(stream)
-                fetch = _Fetch(event, host)
+                out = self.out
+            with _on_replay_stream(dev):
+                fetch = _to_host(self._outputs_to_fetch(out, keep_pages))
+                if keep_pages:
+                    fetch.pages = self._kept_pages(out)
             for name, n in self.launches.items():
                 K.LAUNCHES[name] += n
             self.replays += 1
@@ -2016,10 +2295,9 @@ class _CompiledPlan:
         return fetch
 
     def fetch(self, fetch: _Fetch) -> Tuple[np.ndarray, Optional[np.ndarray]]:
-        """Wait for the copies, then ``(meta, data)`` as host arrays."""
-        if fetch.event is not None:
-            fetch.event.synchronize()
-        arrs = [h.numpy() for h in fetch.host]
+        """Wait for the copies, then ``(meta, data)`` as host arrays (``data``
+        None for a count plan, or a batch item that kept its pages)."""
+        arrs = fetch.arrays()
         if self.direct_fetch:
             flat = arrs[0]
             n = self.width * self.ncols
@@ -2256,3 +2534,207 @@ def execute(db, stmt: A.MatchStatement, params: Dict):
     except ScheduleOverflow:
         rows = _run_variants(db, stmt, params, variants, tried=plan)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# batches
+# ---------------------------------------------------------------------------
+
+
+class _Group:
+    """A dispatched group's results: its stacked meta rows (or direct-fetch
+    buffers) on their way to pinned host memory, fetched once and sliced
+    per lane. A rows group also holds its ``[Bb, W, C]`` lane stack on the
+    device (``data_dev``), or for a shared dispatch of a rows plan that
+    replay's page ladder (``shared_pages``): after the meta wave the batch
+    elects ONE compact page for all its lanes (``data_np``)."""
+
+    __slots__ = ("plan", "fetch", "data_dev", "shared_pages", "data_np", "_np")
+
+    def __init__(self, plan, fetch: _Fetch, data_dev=None, shared_pages=None) -> None:
+        self.plan = plan
+        self.fetch = fetch
+        self.data_dev = data_dev
+        self.shared_pages = shared_pages
+        self.data_np: Optional[np.ndarray] = None
+        self._np: Optional[np.ndarray] = None
+
+    def arr(self) -> np.ndarray:
+        if self._np is None:
+            self._np = self.fetch.arrays()[0]
+        return self._np
+
+
+class _Lane:
+    """One item of a group: row ``k`` of the group's stacked results, or
+    ``k=None`` for a shared dispatch (no dynamic parameter: every lane is
+    the same replay)."""
+
+    __slots__ = ("grp", "k")
+
+    def __init__(self, grp: _Group, k: Optional[int]) -> None:
+        self.grp = grp
+        self.k = k
+
+    def fetched(self) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """``(meta, data)`` as `_CompiledPlan.materialize` takes them."""
+        plan = self.grp.plan
+        a = self.grp.arr()
+        row = a if self.k is None else a[self.k]
+        if plan.direct_fetch:
+            n = plan.width * plan.ncols
+            return row[n:], row[:n].reshape(plan.width, plan.ncols)
+        d = self.grp.data_np
+        if d is not None and self.k is not None:
+            d = d[self.k]
+        return row, d
+
+
+def _group_dispatch(plan: _CompiledPlan, params_list: List[Dict]):
+    """Dispatch B same-plan items as one group: ``(group, lane index per
+    item)``, or None when the plan's rows group is over its lane cap (the
+    items then dispatch one by one). A plan that reads no dynamic
+    parameter replays once for all its items."""
+    if not plan.dyn_spec:
+        fetch = plan.dispatch({}, keep_pages=True)
+        return _Group(plan, fetch, shared_pages=fetch.pages), [None] * len(params_list)
+    grp = plan.dispatch_many(params_list)
+    if grp is None:
+        return None
+    return grp, list(range(len(params_list)))
+
+
+def _dispatch_prepared(prepared) -> List[Tuple]:
+    """Dispatch every prepared item: runs of one plan of at least
+    ``_GROUP_MIN`` batchable items as one group, the rest one replay each.
+    Returns ``(i, variants, plan, handle)`` rows, ``handle`` a `_Fetch` or
+    a `_Lane`."""
+    groups: Dict[int, List[int]] = {}
+    for j, (_i, _v, plan, _p) in enumerate(prepared):
+        if plan.batchable():
+            groups.setdefault(id(plan), []).append(j)
+    grouped = {j for idxs in groups.values() if len(idxs) >= _GROUP_MIN for j in idxs}
+    pending = []
+    for j, (i, variants, plan, params) in enumerate(prepared):
+        if j not in grouped:
+            pending.append((i, variants, plan, plan.dispatch(params, keep_pages=True)))
+    for idxs in groups.values():
+        if len(idxs) < _GROUP_MIN:
+            continue
+        plan = prepared[idxs[0]][2]
+        g = _group_dispatch(plan, [prepared[j][3] for j in idxs])
+        if g is None:
+            for j in idxs:
+                i, variants, _p, params = prepared[j]
+                pending.append((i, variants, plan, plan.dispatch(params, keep_pages=True)))
+            continue
+        grp, ks = g
+        for k, j in zip(ks, idxs):
+            i, variants, _p, _params = prepared[j]
+            pending.append((i, variants, plan, _Lane(grp, k)))
+    return pending
+
+
+def _elect_pages(pending):
+    """The meta wave and the page elections: each item's meta row as its
+    copy lands; a single rows item's page, the smallest of its ladder that
+    covers its live rows (int16 when they fit); and a rows group's ONE
+    compact page over all its lanes, `K.group_page` of the lane stack (or
+    the shared replay's ladder page). The elected pages' copies are queued
+    on the replay stream. Returns ``(fetched, page fetch per item, [(group,
+    page fetch)])``, ``fetched`` each item's ``(meta, data)`` so far."""
+    fetched: List[Tuple[np.ndarray, Optional[np.ndarray]]] = []
+    pages: List[Optional[_Fetch]] = [None] * len(pending)
+    lanes: Dict[int, Tuple[_Group, List[np.ndarray]]] = {}
+    for j, (_i, _v, plan, h) in enumerate(pending):
+        if isinstance(h, _Lane):
+            meta, data = h.fetched()
+            fetched.append((meta, data))
+            if h.grp.data_dev is not None or h.grp.shared_pages is not None:
+                lanes.setdefault(id(h.grp), (h.grp, []))[1].append(meta)
+            continue
+        meta, data = plan.fetch(h)
+        fetched.append((meta, data))
+        if h.pages is None or int(meta[1]):
+            continue  # count plan, direct buffer, or overflow
+        ladder = h.pages[1] if int(meta[2]) else h.pages[0]
+        need = plan.fetch_rows_needed(int(meta[0]))
+        pages[j] = _to_host([next(p for p in ladder if p.shape[0] >= need)])
+    grp_pages = []
+    for grp, metas in lanes.values():
+        plan = grp.plan
+        live = [m for m in metas if not int(m[1])]  # overflow lanes re-run later
+        if not live:
+            continue
+        need = max(max(plan.fetch_rows_needed(int(m[0])) for m in live), 1)
+        fits16 = all(int(m[2]) for m in live)
+        if grp.shared_pages is not None:
+            ladder = grp.shared_pages[1 if fits16 else 0]
+            page = next(p for p in ladder if p.shape[0] >= need)
+        else:
+            n = plan._page_round(int(grp.data_dev.shape[1]), need)
+            page = K.group_page(grp.data_dev, len(metas), n, fits16)
+        grp_pages.append((grp, _to_host([page])))
+    return fetched, pages, grp_pages
+
+
+def _finish_pending(db, items, pending, fetched, pages, grp_pages, out) -> None:
+    """Wait for the elected pages and marshal every dispatched item into
+    ``out``. Items whose replay overflowed re-run through their variants
+    (recording a new one when none fits); identical ``(statement,
+    params)`` items share one resolution."""
+    for grp, f in grp_pages:
+        grp.data_np = f.arrays()[0].astype(np.int32, copy=False)
+    overflowed = []
+    for j, ((i, variants, plan, h), (meta, data)) in enumerate(zip(pending, fetched)):
+        if isinstance(h, _Lane):
+            meta, data = h.fetched()  # the group's elected page has landed now
+        elif pages[j] is not None:
+            data = pages[j].arrays()[0].astype(np.int32, copy=False)
+        params = items[i][1]
+        try:
+            out[i] = plan.materialize(meta, data, params)
+            variants.remember(params, plan)
+        except ScheduleOverflow:
+            overflowed.append((i, variants, plan))
+    resolved: Dict[Tuple, object] = {}
+    for i, variants, plan in overflowed:
+        stmt, params = items[i]
+        pk = PlanVariants._pkey(params)
+        rk = (id(variants), pk) if pk is not None else None
+        if rk is not None and rk in resolved:
+            out[i] = resolved[rk]
+            continue
+        out[i] = _run_variants(db, stmt, params, variants, tried=plan)
+        if rk is not None:
+            resolved[rk] = out[i]
+
+
+def execute_batch(db, items: List[Tuple[A.MatchStatement, Dict]]) -> List:
+    """Solve ``[(stmt, params), ...]``; the rows of each, in item order.
+
+    Every item resolves its plan first (a statement's first call records
+    and returns its rows directly). Then, holding the replay lock, every
+    cached plan dispatches back to back: runs of at least ``_GROUP_MIN``
+    items of one batchable plan as one group replay (`_group_dispatch`),
+    the others one replay each; the meta wave reads every meta row and the
+    page elections queue one page copy per rows item or rows group. The
+    host then marshals the rows, and overflowed items re-run."""
+    out: List = [None] * len(items)
+    prepared = []
+    for i, (stmt, params) in enumerate(items):
+        variants, rows = _prepare(db, stmt, params)
+        if variants is None:
+            out[i] = rows
+            continue
+        prepared.append((i, variants, variants.pick(params), params))
+    if not prepared:
+        return out
+    with _REPLAY_LOCK:
+        # the lock spans the elections: a group's lane stack and the kept
+        # ladders stay untouched until their pages are queued
+        pending = _dispatch_prepared(prepared)
+        with _on_replay_stream(db.device):
+            fetched, pages, grp_pages = _elect_pages(pending)
+    _finish_pending(db, items, pending, fetched, pages, grp_pages, out)
+    return out

@@ -1,6 +1,7 @@
 """Port of `orientdb_tpu/models/database.py`, trimmed to what the compiled
 MATCH path reads: the schema, the attached snapshot, class counts for the
-planner's estimates, ``query`` and the device the database runs on.
+planner's estimates, ``query``, ``query_batch`` and the device the database
+runs on.
 
 Records, transactions and the write-ahead log are not ported: a port
 database is a schema over an attached columnar snapshot, which is what the
@@ -75,3 +76,12 @@ class Database:
         from orientdb_tpu_torch.exec.engine import execute_query
 
         return execute_query(self, sql, params)
+
+    def query_batch(self, sqls, params_list=None):
+        """Run a batch of MATCH statements in ~one device round trip: every
+        cached plan dispatches back to back (same-plan items as one group
+        replay) and the results come back in one overlapped wave. One
+        ResultSet per statement, in order."""
+        from orientdb_tpu_torch.exec.engine import execute_query_batch
+
+        return execute_query_batch(self, sqls, params_list)

@@ -3,7 +3,8 @@ MATCH path, the OPTIONAL arm's left-join count (`rows_with_matches`), the
 bitmap BFS of variable-depth and NOT arms (with the level emission and
 level step of `orientdb_tpu/exec/tpu_engine.py`), and the
 result stage of a replay (front-pack, meta row, int16 narrowing of that
-module's `_CompiledPlan`), each as a wrapper over a hand-written CUDA
+module's `_CompiledPlan`) and the compact page of a batch's rows group
+(`group_page`), each as a wrapper over a hand-written CUDA
 kernel (`csrc/csr_kernels.cu`) beside its plain PyTorch version.
 
 A wrapper checks dtype, contiguity and device, then:
@@ -57,6 +58,7 @@ LAUNCHES: Dict[str, int] = {
         "bitmap_emit",
         "frontier_advance",
         "rows_with_matches",
+        "group_page",
     )
 }
 
@@ -892,5 +894,46 @@ def rows_with_matches(
         int(zero),
         out.data_ptr(),
         _stream(rows),
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K14: the compact page of a batch's rows group
+# ---------------------------------------------------------------------------
+
+
+def plain_group_page(stack: torch.Tensor, B: int, n: int, fits16: bool) -> torch.Tensor:
+    """The reference's ``d[:B, :, :n]`` (cast to int16 when ``fits16``) in
+    the port's rows-leading layout, as a contiguous [B, n, C] page."""
+    return stack[:B, :n].to(torch.int16 if fits16 else I32).contiguous()
+
+
+def group_page(stack: torch.Tensor, B: int, n: int, fits16: bool) -> torch.Tensor:
+    """The page a rows group ships after its meta wave: lanes ``[0, B)`` and
+    rows ``[0, n)`` of the int32 [Bb, W, C] lane stack, as a contiguous
+    [B, n, C] tensor, int16 (low 16 bits) when ``fits16``."""
+    if stack.dtype != I32 or stack.dim() != 3 or not stack.is_contiguous():
+        raise ValueError("group_page: expected a contiguous int32 [Bb, W, C] stack")
+    Bb, W, C = stack.shape
+    if not (0 <= B <= Bb and 0 <= n <= W):
+        raise ValueError(f"group_page: page [{B}, {n}] outside the stack [{Bb}, {W}]")
+    if not _on_card(stack):
+        return plain_group_page(stack, B, n, fits16)
+    out = torch.empty((B, n, C), dtype=torch.int16 if fits16 else I32, device=stack.device)
+    if out.numel() == 0:
+        return out
+    lib = _kernels.load()
+    _launch(
+        "group_page",
+        lib.csr_group_page,
+        stack.data_ptr(),
+        W,
+        C,
+        B,
+        n,
+        int(fits16),
+        out.data_ptr(),
+        _stream(stack),
     )
     return out

@@ -45,6 +45,18 @@ class Config:
     # Full result buffers at or below this many bytes replay into ONE
     # fused buffer (data rows + a meta row), fetched with one copy.
     result_direct_bytes: int = 64 << 10
+    # Row-returning plans join a batch's group replay when one lane's full
+    # int32 result stack fits this budget (the group keeps B of them on the
+    # device); bigger plans keep per-lane dispatch and page election
+    # (tpu_engine._CompiledPlan.batchable).
+    result_group_lane_bytes: int = 4 << 20
+    # Lanes of one group replay are capped as the reference caps them, so
+    # that lanes x 4E (E the largest edge class the plan reads) stays inside
+    # this budget; larger batches replay the group in several chunks
+    # (tpu_engine._CompiledPlan._group_lane_cap). The reference's vmapped
+    # lanes each hold an O(E) intermediate; the port's run one after
+    # another, so here the cap bounds the captured graph's size.
+    group_hbm_budget_bytes: int = 6 << 30
 
 
 config = Config()

@@ -294,3 +294,66 @@ def test_edge_and_optional_shapes_on_card_equal_cpu(card):
             want = cpu.query(sql, params).to_dicts()
             assert sorted(got, key=key) == sorted(want, key=key)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bb,w,c,b,n",
+    [(16, 131_072, 3, 16, 8_192), (16, 131_072, 3, 11, 131_072), (8, 4_096, 4, 3, 2_048),
+     (4, 1_024, 3, 4, 5), (2, 8, 1, 1, 7), (1, 1, 2, 1, 1), (4, 64, 3, 0, 0)],
+)
+def test_group_page_equals_plain_on_card(card, bb, w, c, b, n):
+    """K14 group_page against its plain version, exactly, in int32 and
+    int16: B < Bb, n = W, n·C not a multiple of 4 or 8, C = 1, one row,
+    and an empty page."""
+    rng = np.random.default_rng(bb * w + c + b + n)
+    stack = _t(rng.integers(-(2**31), 2**31 - 1, (bb, w, c), dtype=np.int64).astype(np.int32)).to(card)
+    for fits16 in (False, True):
+        got = T.group_page(stack, b, n, fits16)
+        want = T.plain_group_page(stack, b, n, fits16)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_group_replays_equal_cpu(card):
+    """A batch's group replays captured on the card (count, rows and
+    direct-fetch groups, every lane's parameters different, one lane
+    overflowing into a new variant, a shared no-parameter replay and a
+    mixed batch) against the same batches on the CPU, whose lanes run
+    uncaptured."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+
+    count = ("MATCH {class:Person, as:p, where:(age > :a)}-knows->{as:f, where:(age < 30)} "
+             "RETURN count(*) AS n")
+    rows = ("MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f}"
+            "-knows->{as:g, where:(age < 30)} RETURN p.uid AS p, f.uid AS f, g.uid AS g")
+    small = "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f} RETURN p.uid AS p, f.uid AS f"
+    shared = "MATCH {class:Person, as:p, where:(age > 40)}-knows->{as:f} RETURN count(*) AS n"
+    batches = [
+        ([count] * 12, [{"a": 20 + 4 * i} for i in range(12)]),
+        ([rows] * 8, [{"k": 400 - 20 * i} for i in range(8)]),
+        ([rows] * 8, [{"k": 400 - 20 * i} for i in range(7)] + [{"k": 3_000}]),
+        ([small] * 6, [{"k": 10 + 5 * i} for i in range(6)]),
+        ([shared] * 5, None),
+        ([count, rows, small, shared, rows], [{"a": 50}, {"k": 250}, {"k": 12}, None, {"k": 100}]),
+    ]
+    kw = dict(avg_knows=6, seed=11)
+    gpu, gsnap = build_person_knows(5_000, device=card, **kw)
+    cpu, _ = build_person_knows(5_000, device="cpu", **kw)
+    gpu.query(rows, {"k": 400})
+    cpu.query(rows, {"k": 400})
+    key = lambda r: tuple(sorted(r.items()))  # noqa: E731
+    for sqls, plist in batches:
+        for _ in range(2):
+            got = [sorted(rs.to_dicts(), key=key) for rs in gpu.query_batch(sqls, plist)]
+            want = [sorted(rs.to_dicts(), key=key) for rs in cpu.query_batch(sqls, plist)]
+            assert got == want
+    plans = [p for v in TE._plan_cache(gsnap).values() for p in v.plans]
+    groups = [g for p in plans for g in p.groups.values()]
+    assert groups and all(g.graph is not None and g.nodes > 0 for g in groups)
+    assert any(p.direct_fetch and p.group_replays for p in plans)
+    assert any(p._rows_grouped() and p.group_replays for p in plans)
+    torch.cuda.synchronize()
