@@ -10,7 +10,7 @@ from the root of a checkout. Phases, each of which raises on failure:
    them;
 2. build — compiles `orientdb_tpu_torch/csrc/csr_kernels.cu` with nvcc;
 3. kernels — on the SF100-shape Person–knows graph (8M persons, ~80M knows
-   edges, seed 5), holds each kernel against its plain PyTorch version at
+   edges, seed 5, with the port's float32 lat/lng columns), holds each kernel against its plain PyTorch version at
    the main path's shapes and at edge-case lengths: int32 and bool results
    exactly, float32 results to rtol 1e-6 (the kernels add in another order
    than the plain version); times the kernel, the plain version and, where
@@ -19,7 +19,14 @@ from the root of a checkout. Phases, each of which raises on failure:
    exactly at V1's shapes (8-row chunks of 2^23-vertex bitmaps over the
    ~80M edges), on live BFS levels, in both directions, with an edge mask,
    a WHILE gate, an empty frontier, an empty edge list, all-padding rows,
-   duplicate targets and a bound (close-arm) row vector;
+   duplicate targets and a bound (close-arm) row vector. K15
+   `predicate_eval` is held exactly against its plain version on every
+   instruction family of its predicate programs (`K15_WHERES`) over 2^23
+   synthetic slots with ~10 % absent values, ids with -1 and past-end
+   entries, identity mode, binding rows, the WHILE level and a parameter
+   row (distance() masks outside the boundary band: float64 distance
+   within 0.01 km + 1e-5·r of r), with split launches against one, then
+   timed on Q1's two node masks over the 2^23-vertex universe;
 4. record — the recording path, with the plan cache off so that every
    call records (solves eagerly, reading each size on the host): zeroes
    the kernels' launch counts, runs the 1-hop COUNT (Q1), the 2-hop COUNT
@@ -44,7 +51,15 @@ from the root of a checkout. Phases, each of which raises on failure:
    each capture; fails unless every kernel launched, and the bitmap-BFS
    kernels inside the V plans' replays. Then holds the replay's kernels
    (front-pack, meta row, int16 narrowing) against their plain versions
-   at Q3's shapes and at edge lengths, and times them;
+   at Q3's shapes and at edge lengths, and times them. Then the G cells
+   (``distance()``): G1, a root-scan COUNT over the 8M persons through
+   float parameters (recorded at r = 8000 km, r = 300 and 2500 replay the
+   plan), G2, rows in miles (r = 100, then 60), and G3, a binding-
+   referencing distance inside an expansion (k = 100,000 roots, r = 2000),
+   on the recording path and as replays, launch counts zeroed before and
+   read after each; each equals the float64 numpy haversine outside the
+   boundary band (a COUNT lies between the count outside the band and that
+   plus the band's slots), whose slots are printed;
 6. SNB shape — frees the Person–knows graph (plan cache and device
    cache), builds config 5's graph (`build_snb_shape(8_000_000,
    msgs_per_person=2, avg_knows=10, seed=7)`: 24M vertices, ~80M knows
@@ -71,7 +86,9 @@ from the root of a checkout. Phases, each of which raises on failure:
    kept), BQ3o (BQ3 with lane 15 at k = 50,000: that lane alone
    re-records), BE1 (E1 × 64, `bench.py:372-377`: a count group of 16
    lanes in 4 chunks), BE2 (E2 × 16: a rows group with edge columns) and
-   BE5 (E5 × 8, K13 inside the lanes). Every item equals numpy. Each cell
+   BE5 (E5 × 8, K13 inside the lanes), and BG1 (G1 × 16, r = 300 + 500·i:
+   a count group). Every item equals numpy (BG1 outside the band); K15
+   launches in both graphs' batch cells. Each cell
    prints its path, each group's capture ms, graph nodes, launches per
    group replay and reserved bytes, its batch q/s (the reference's
    statistic, `bench.py:273`) beside the same items as sequential
@@ -81,8 +98,8 @@ from the root of a checkout. Phases, each of which raises on failure:
 
 The line before the last is one JSON object with every kernel's numbers
 (``launches`` from phase 5, from phase 6's replay path for
-`rows_with_matches` and from phase 7 for `group_page`); the last line is ``{"ok": true, "device":
-{...}}``.
+`rows_with_matches` and from phase 7 for `group_page`; K15's time is Q1's
+node mask p); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -102,6 +119,7 @@ from orientdb_tpu_torch.storage.bigshape import (  # noqa: E402
     numpy_2hop_count,
     numpy_config5_count,
     numpy_config5_counts,
+    numpy_distance_km,
     numpy_has_out_neighbour,
     numpy_incident_rows,
     numpy_optional_rows,
@@ -135,6 +153,7 @@ REPLACES = {
     "frontier_advance": "orientdb_tpu/exec/tpu_engine.py:2171",
     "rows_with_matches": "orientdb_tpu/ops/csr.py:283",
     "group_page": "orientdb_tpu/exec/tpu_engine.py:3131",
+    "predicate_eval": "orientdb_tpu/ops/predicates.py:550",
 }
 BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop", "bitmap_emit", "frontier_advance"]
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
@@ -233,6 +252,27 @@ E_CELLS = {
     "E4": (E4, {"n": 20_000}, [{"n": 10_000}]),
     "E5": (E5, {"n": 2_000, "d": 15_000}, [{"n": 1_000, "d": 15_000}]),
 }
+
+# the G cells: distance() over the Person–knows graph's lat/lng columns
+G1 = "MATCH {class:Person, as:p, where:(distance(lat, lng, :x, :y) < :r)} RETURN count(*) AS n"
+G2 = (
+    "MATCH {class:Person, as:p, where:(distance(lat, lng, 48.0, 2.0, 'mi') < :r)} "
+    "RETURN p.uid AS uid"
+)
+G3 = (
+    "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f, "
+    "where:(distance(lat, lng, p.lat, p.lng) < :r)} RETURN count(*) AS n"
+)
+G3_K = 100_000
+G_CELLS = {
+    "G1": (G1, {"x": 48.0, "y": 2.0, "r": 8000.0}, [{"x": 48.0, "y": 2.0, "r": 300.0}, {"x": 48.0, "y": 2.0, "r": 2500.0}]),
+    "G2": (G2, {"r": 100}, [{"r": 60}]),
+    "G3": (G3, {"k": G3_K, "r": 2000.0}, []),
+}
+#: the kernels of the G cells (a root scan, one hop with a binding-
+#: referencing mask, a rows front-pack)
+G_RECORD_KERNELS = ["predicate_eval", "compact_indices", "mask_count", "degree_counts", "gather_expand", "scan_i32"]
+G_REPLAY_KERNELS = G_RECORD_KERNELS + ["front_pack", "replay_meta"]
 
 
 def _require(cond: bool, what: str) -> None:
@@ -1002,26 +1042,64 @@ def check_replay_kernels(torch, K, ks, plan, params) -> None:
     print(f"replay kernels: equal their plain versions at W={W}, C={C}, live rows {live}")
 
 
-def time_node_masks(torch, db, card: str) -> None:
-    """Q1's two node masks evaluated over the [vb] vertex universe (the
-    compiled predicates: column gathers through `take_pad` and torch
-    elementwise ops), eagerly and inside a captured graph, beside their
-    byte bound: the ids read, each column read once, the mask written."""
+def time_predicate_kernel(np, torch, K, ks, db, card: str) -> None:
+    """K15: first held exactly against `plain_predicate_eval` on every
+    instruction family at 2^23 synthetic slots (`check_predicate_kernel`;
+    distance() outside the boundary band); then timed on Q1's two node masks
+    as the main path runs them, over the [vb] vertex universe in identity
+    mode (one launch a mask), eagerly and inside a captured graph, beside
+    the plain version and the byte bound: each column read once, the
+    class ids (mask p), the mask written. These launches are not counted."""
     from orientdb_tpu_torch.exec.tpu_engine import TpuMatchSolver
     from orientdb_tpu_torch.sql.parser import parse
 
+    counted = dict(K.LAUNCHES)
+    t0 = time.perf_counter()
+    band, checked, length = check_predicate_kernel(np, torch, K, 1 << 23)
+    torch.cuda.synchronize()
+    gc.collect()  # the synthetic device graph's cycle (graph ↔ column proxies)
+    print(
+        f"kernel predicate_eval: equals its plain version on {checked} programs of "
+        f"{len(K15_WHERES)} WHEREs (+ class lookup) over 2^23 slots, ids and identity mode; "
+        f"the long program {length} instructions; distance() band slots {band} "
+        f"({time.perf_counter() - t0:.1f} s)"
+    )
     solver = TpuMatchSolver(db, parse(Q1), {})
     V = solver.dg.num_vertices
-    vb, univ = solver._universe()
+    vb = solver._vb()
     # p: class Person (v_class, 4 bytes) AND age > 40 (values 4 + presence 1)
     for alias, col_bytes in (("p", 9.0 * V), ("f", 5.0 * V)):
-        fn = lambda a=alias: solver._node_masks[a](univ)  # noqa: E731
-        bound_ms = (4.0 * vb + col_bytes + vb) / HBM_BYTES_PER_S * 1e3
+        pred = solver._node_masks[alias]
+        (prog,) = pred.programs
+        bufs = prog.buffers({}, [], vb)
+        ks.same("predicate_eval", pred.identity(vb, V), K.plain_predicate_eval(prog.prog, bufs, None, vb, V))
+        bound = col_bytes + vb
+        kernel = lambda pr=pred: pr.identity(vb, V)  # noqa: E731
+        plain = lambda pg=prog, b=bufs: K.plain_predicate_eval(pg.prog, b, None, vb, V)  # noqa: E731
+        if alias == "p":
+            ks.timed("predicate_eval", kernel, plain, None, bound)
         print(
-            f"predicate Q1 node mask {alias}: {_time_ms(torch, fn):.4f} ms eager, "
-            f"{_graph_ms(torch, fn):.4f} ms in a captured graph, bound {bound_ms:.4f} ms "
+            f"kernel predicate_eval, Q1 node mask {alias} ({len(prog.prog.rows)} instructions): "
+            f"{_time_ms(torch, kernel):.4f} ms eager, {_graph_ms(torch, kernel):.4f} ms in a captured "
+            f"graph, plain {_time_ms(torch, plain):.4f} ms, bound {bound / HBM_BYTES_PER_S * 1e3:.4f} ms "
             f"over vb={vb} [{card}]"
         )
+    # G1's mask: class AND distance() through the parameter row; lat/lng
+    # values and presence, the class ids, the mask written
+    pred = TpuMatchSolver(db, parse(G1), dict(G_CELLS["G1"][1]))._node_masks["p"]
+    (prog,) = pred.programs
+    bufs = prog.buffers({}, [], vb)
+    row = pred.box.row(pred.device)
+    plain = lambda: K.plain_predicate_eval(prog.prog, bufs, None, vb, V, params=row)  # noqa: E731
+    kernel = lambda: pred.identity(vb, V)  # noqa: E731
+    diff = int((kernel() != plain()).sum())
+    print(
+        f"kernel predicate_eval, G1 node mask p ({len(prog.prog.rows)} instructions, distance()): "
+        f"{_time_ms(torch, kernel):.4f} ms eager, {_graph_ms(torch, kernel):.4f} ms in a captured graph, "
+        f"plain {_time_ms(torch, plain):.4f} ms, bound {(14.0 * V + vb) / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        f"(bytes); {diff} slots differ from the plain version (boundary band) [{card}]"
+    )
+    K.LAUNCHES.update(counted)
 
 
 def query_layers(torch, db, sql, params, sync) -> str:
@@ -1140,15 +1218,65 @@ class ERef:
         _require(got.shape == want.shape and np.array_equal(got, want), f"{name} {p}: rows differ from numpy")
 
 
-def run_edges_record(np, torch, K, db, card: str, eref: ERef):
-    """Phase 6a: E1–E5 on the recording path (plan cache off) through
-    ``db.query``, launch counts zeroed just before and read just after;
-    then each cell's times, layers and busy share."""
+class GRef:
+    """numpy answers of G1–G3 (float64 haversine over the float32 columns).
+    A slot of the boundary band (`distance_band`) may fall either way: a
+    COUNT must lie between the count outside the band and that plus the
+    band's slots, rows must equal numpy outside the band."""
+
+    def __init__(self, np, snap):
+        self.np = np
+        lat, lng = snap.v_columns["lat"], snap.v_columns["lng"]
+        self.live = lat.present & lng.present
+        self.d = numpy_distance_km(lat.values, lng.values, 48.0, 2.0)
+        csr = snap.edge_classes["knows"]
+        ip = csr.indptr_out
+        ps = np.repeat(np.arange(G3_K), np.diff(ip[: G3_K + 1]))
+        fs = csr.dst[ip[0] : ip[G3_K]]
+        self.g3_live = self.live[ps] & self.live[fs]
+        self.g3_d = numpy_distance_km(lat.values[fs], lng.values[fs], lat.values[ps], lng.values[ps])
+        #: (cell, r) → slots in the band
+        self.band = {}
+
+    def count_range(self, d, live, r):
+        band = distance_band(self.np, d, r) & live
+        lo = int((live & (d < r) & ~band).sum())
+        return lo, lo + int(band.sum()), int(band.sum())
+
+    def check(self, name, rows, p):
+        np = self.np
+        r = p["r"]
+        if name == "G2":
+            band = distance_band(np, self.d, r / 0.621371192) & self.live
+            want = self.live & (self.d * 0.621371192 < r)
+            uids = np.array([x["uid"] for x in rows], np.int64)
+            got = np.zeros(want.shape[0], bool)
+            got[uids] = True
+            _require(len(set(uids.tolist())) == uids.shape[0] > 0, f"G2 r={r}: duplicate or no rows")
+            _require(not ((got ^ want) & ~band).any(), f"G2 r={r}: rows differ from numpy outside the band")
+            self.band[(name, r)] = int(band.sum())
+            return
+        if name == "G3":
+            _require(p["k"] == G3_K, "G3 is checked at k = 100,000")
+            lo, hi, nb = self.count_range(self.g3_d, self.g3_live, r)
+        else:
+            _require((p["x"], p["y"]) == (48.0, 2.0), "G1 is checked at (48, 2)")
+            lo, hi, nb = self.count_range(self.d, self.live, r)
+        got = rows[0]["n"] if rows else None
+        _require(got is not None and lo <= got <= hi, f"{name} r={r}: {got} outside numpy's [{lo}, {hi}]")
+        self.band[(name, r)] = nb
+
+
+def run_edges_record(np, torch, K, db, card: str, eref, cells=E_CELLS, kernels=E_RECORD_KERNELS):
+    """Phase 6a: E1–E5 (or other ``cells``, held by ``eref``) on the
+    recording path (plan cache off) through ``db.query``, launch counts
+    zeroed just before and read just after, every kernel of ``kernels``
+    launched; then each cell's times, layers and busy share."""
     sync = torch.cuda.synchronize
     results = {}
     K.reset_launches()
     before = dict(K.LAUNCHES)
-    for name, (sql, params, _rest) in E_CELLS.items():
+    for name, (sql, params, _rest) in cells.items():
         results[name] = db.query(sql, params).to_dicts()
         sync()
         after = dict(K.LAUNCHES)
@@ -1156,16 +1284,17 @@ def run_edges_record(np, torch, K, db, card: str, eref: ERef):
         print(f"launches {name}: {sum(per.values())} {per}")
         before = after
     launches = dict(K.LAUNCHES)
-    for name, (_sql, params, _rest) in E_CELLS.items():
+    for name, (_sql, params, _rest) in cells.items():
         eref.check(name, results[name], params)
-    missing = [n for n in E_RECORD_KERNELS if launches[n] == 0]
-    _require(not missing, f"kernels never launched on the SNB-shape recording path: {missing}")
+    missing = [n for n in kernels if launches[n] == 0]
+    _require(not missing, f"kernels never launched on the recording path of {list(cells)}: {missing}")
     print(
-        "record E: " + ", ".join(
-            f"{n}={results[n][0]['n']}" if n == "E1" else f"{n} rows={len(results[n])}" for n in E_CELLS
+        "record: " + ", ".join(
+            f"{n}={results[n][0]['n']}" if results[n] and list(results[n][0]) == ["n"]
+            else f"{n} rows={len(results[n])}" for n in cells
         ) + f"; launches {launches}"
     )
-    for name, (sql, params, _rest) in E_CELLS.items():
+    for name, (sql, params, _rest) in cells.items():
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -1183,17 +1312,18 @@ def run_edges_record(np, torch, K, db, card: str, eref: ERef):
     return launches
 
 
-def run_edges_replay(np, torch, K, db, snap, card: str, eref: ERef):
-    """Phase 6b: E1–E5 with the plan cache on, launch counts zeroed just
-    before and read just after: each cell records and captures once,
-    replays 5 timed calls, then replays its other parameter values from
-    the same plan. Returns (launches, plans by cell)."""
+def run_edges_replay(np, torch, K, db, snap, card: str, eref, cells=E_CELLS, kernels=E_REPLAY_KERNELS):
+    """Phase 6b: E1–E5 (or other ``cells``) with the plan cache on, launch
+    counts zeroed just before and read just after: each cell records and
+    captures once, replays 5 timed calls, then replays its other parameter
+    values from the same plan; every kernel of ``kernels`` launched.
+    Returns (launches, plans by cell)."""
     from orientdb_tpu_torch.exec import tpu_engine as TE
 
     sync = torch.cuda.synchronize
     K.reset_launches()
     plans = {}
-    for name, (sql, params, rest) in E_CELLS.items():
+    for name, (sql, params, rest) in cells.items():
         t0 = time.perf_counter()
         rows = db.query(sql, params).to_dicts()
         sync()
@@ -1228,16 +1358,18 @@ def run_edges_replay(np, torch, K, db, snap, card: str, eref: ERef):
         print(f"replay device {name}: {device_share(torch, db, sql, params, med)}")
         plans[name] = plan
     for name in ("E4", "E5"):
-        _require(plans[name].launches.get("rows_with_matches", 0) > 0, f"{name}: rows_with_matches not in its replay")
+        if name in cells:
+            _require(plans[name].launches.get("rows_with_matches", 0) > 0, f"{name}: rows_with_matches not in its replay")
     sync()
     launches = dict(K.LAUNCHES)
-    missing = [n for n in E_REPLAY_KERNELS if launches[n] == 0]
-    _require(not missing, f"kernels never launched on the SNB-shape replay path: {missing}")
-    print(
-        "rows_with_matches launches per replay: "
-        + ", ".join(f"{n} {plans[n].launches.get('rows_with_matches', 0)}" for n in E_CELLS)
-    )
-    print(f"replay E: all equal numpy; launches {launches}")
+    missing = [n for n in kernels if launches[n] == 0]
+    _require(not missing, f"kernels never launched on the replay path of {list(cells)}: {missing}")
+    for kernel in ("rows_with_matches", "predicate_eval"):
+        print(
+            f"{kernel} launches per replay: "
+            + ", ".join(f"{n} {plans[n].launches.get(kernel, 0)}" for n in cells)
+        )
+    print(f"replay {list(cells)}: all equal numpy; launches {launches}")
     return launches, plans
 
 
@@ -1472,7 +1604,7 @@ def _below(rows, k):
     return rows[rows[:, 0] < k]
 
 
-def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big):
+def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big, gref):
     """Phase 7a: the batch cells on the Person–knows graph, the plan cache
     cleared first; then K14 against its plain version at BQ3's lane stack.
     ``q3_big`` holds Q3's sorted numpy rows at k = 50,000; every Q3 item
@@ -1502,6 +1634,11 @@ def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big):
     ):
         run_batch_cell(torch, K, TE, db, snap, card, cell)
         done.append(cell)
+    g1 = [{"x": 48.0, "y": 2.0, "r": 300.0 + 500.0 * i} for i in range(16)]
+    bg1 = BatchCell("BG1", [G1] * 16, g1, lambda i, rows: gref.check("G1", rows, g1[i]), "group",
+                    warm=[(G1, G_CELLS["G1"][1])])
+    run_batch_cell(torch, K, TE, db, snap, card, bg1)
+    done.append(bg1)
     (q3,) = _cell_plans(TE, snap, [Q3])
     _require(q3._rows_grouped() and 16 in q3.groups, "BQ3 is not a rows group of 16 lanes")
     check_group_page(torch, K, ks, q3.groups[16].out["data"], q3, ks3, q3_big)
@@ -1640,6 +1777,185 @@ def run_batches_snb(np, torch, K, db, snap, card):
     return max(c.peak_bytes for c in cells)
 
 
+# ---------------------------------------------------------------------------
+# K15: the predicate-program kernel on synthetic columns
+# ---------------------------------------------------------------------------
+
+#: WHERE clauses over `k15_snapshot`'s columns, every instruction family of
+#: the predicate programs (`PredOp`); the last is a ~50-instruction program
+K15_WHERES = [
+    # int, float and mixed compares; bool vs int; incomparables
+    "i > 3", "i <= j", "i = j", "i != 5", "f < 2.5", "f >= g", "i < f", "f = 3",
+    "b = 1", "b < 1", "i != 'x'",
+    # string rank, code tables, truthiness, same-dictionary codes, IN
+    "s >= 'm'", "s < 'k1'", "s = 'q2'", "s != 'zz'", "s LIKE 'a%'", "s MATCHES '[a-f].*'",
+    "s CONTAINSTEXT '1'", "s", "s = s", "i IN [20, 'x', 30.5, -7]",
+    # arithmetic: wraps, negatives, zero divisors, floor modulo
+    "i + j > 0", "i - j * 3 < 7", "i % j = 1", "i % j < 0", "f / g > 1.5", "f % g > 0.5",
+    "i / j > 0.5", "-i > 3", "-big < 0", "big + big > 0", "big * 3 < 0", "f * 2.5 - i > 1",
+    # nulls and boolean structure
+    "f IS NULL", "s IS NOT NULL", "missing IS NULL", "NOT (f > 1 AND (b OR s IS NULL))",
+    "i BETWEEN -3 AND 7", "b", "i", "f", "missing > 3 OR NOT (i < 2)",
+    # the WHILE level and parameters
+    "$depth < j", "i < :k AND f > :x AND b = :t",
+    # binding references and distance()
+    "i < p.i AND f > p.f",
+    "distance(lat, lng, :x, :y) < :r",
+    "distance(lat, lng, p.lat, p.lng, 'mi') < 900",
+    "(i > 3 AND f < 2.5 OR s LIKE 'b%') AND NOT (j = 0) AND (i % j < 2 OR f / g > 1) "
+    "AND i IN [1, 2, 3, 5, 8, 13] AND (b OR s >= 'm') AND distance(lat, lng, 40.0, -3.5) < 4000 "
+    "AND -i < big AND (f IS NOT NULL OR i + j * 2 > 7)",
+]
+K15_PARAMS = {"k": 17, "x": 48.0, "y": 2.0, "r": 2500.0, "t": True}
+#: the distance() WHEREs above: the other point ("param" :x/:y, "bind" p's
+#: lat/lng, or a constant), the unit scale and the radius
+K15_DIST = {
+    "distance(lat, lng, :x, :y) < :r": ((48.0, 2.0), 1.0, 2500.0),
+    "distance(lat, lng, p.lat, p.lng, 'mi') < 900": ("bind", 0.621371192, 900.0),
+    K15_WHERES[-1]: ((40.0, -3.5), 1.0, 4000.0),
+}
+K15_DEPTH = 2
+
+
+def k15_snapshot(np, n: int, seed: int):
+    """``n`` vertices of three classes with int, float, bool and string
+    columns (about 10 % absent, int32 extremes, zero and negative
+    divisors, empty strings) and lat/lng."""
+    from orientdb_tpu_torch.storage.snapshot import GraphSnapshot, PropertyColumn
+
+    rng = np.random.default_rng(seed)
+    snap = GraphSnapshot()
+    snap.num_vertices = n
+    snap.class_names = ["A", "B", "C"]
+    snap.class_id_of = {"a": 0, "b": 1, "c": 2}
+    snap.class_closure = {"a": np.array([0, 1], np.int32), "b": np.array([1], np.int32), "c": np.array([2], np.int32)}
+    snap.v_class = rng.integers(0, 3, n, dtype=np.int32)
+    i32 = np.iinfo(np.int32)
+
+    def col(name, kind, vals, dictionary=None):
+        snap.v_columns[name] = PropertyColumn(name, kind, vals, rng.random(n) >= 0.1, dictionary)
+
+    i = rng.integers(-1000, 1000, n, dtype=np.int32)
+    i[rng.integers(0, n, max(n // 64, 1))] = i32.min
+    i[rng.integers(0, n, max(n // 64, 1))] = i32.max
+    col("i", "int", i)
+    col("j", "int", rng.integers(-5, 6, n, dtype=np.int32))
+    big = rng.integers(2**30, i32.max, n, dtype=np.int32)
+    big[::3] = -big[::3]
+    big[::7] = i32.min
+    col("big", "int", big)
+    f = (rng.standard_normal(n) * 100).astype(np.float32)
+    f[::11] = 0.0
+    f[::13] = -0.0
+    col("f", "float", f)
+    g = rng.integers(-4, 5, n).astype(np.float32) * np.float32(0.75)
+    col("g", "float", g)
+    col("b", "bool", rng.integers(0, 2, n, dtype=np.int32))
+    words = sorted({""} | {f"{c}{d}" for c in "abcdefghijklmnopqrstu" for d in range(3)})
+    col("s", "str", rng.integers(0, len(words), n, dtype=np.int32), words)
+    col("lat", "float", rng.uniform(-85, 85, n).astype(np.float32))
+    col("lng", "float", rng.uniform(-180, 180, n).astype(np.float32))
+    return snap
+
+
+def distance_band(np, d64, r: float):
+    """Slots whose float64 distance (km) lies within 0.01 km + 1e-5·r of
+    the radius r (km): the only ones where a float32 mask may differ (the
+    kernels' and the libraries' sin/cos/asin differ in the last bits)."""
+    return np.abs(d64 - r) <= 0.01 + 1e-5 * r
+
+
+def _k15_band(np, snap, ids, rows, where):
+    """The boundary band of a distance() WHERE of K15_WHERES, per slot."""
+    other, scale, r = K15_DIST[where]
+    lat, lng = snap.v_columns["lat"].values, snap.v_columns["lng"].values
+    n = lat.shape[0]
+    at = np.clip(ids, 0, n - 1)
+    if other == "bind":
+        rr = np.clip(rows, 0, n - 1)
+        d = numpy_distance_km(lat[at], lng[at], lat[rr], lng[rr])
+    else:
+        d = numpy_distance_km(lat[at], lng[at], other[0], other[1])
+    return distance_band(np, d, r / scale)
+
+
+def check_predicate_kernel(np, torch, K, n: int, seed: int = 15, device: str = "cuda"):
+    """K15 against `plain_predicate_eval` on ``n`` synthetic slots: each
+    WHERE of `K15_WHERES` compiled (padding not ANDed in, so padding reads
+    are exercised), over ids with -1 and past-end entries and in identity
+    mode (a third of the slots past ``n_valid``), with slot-aligned binding
+    rows, the WHILE level and a parameter row; values and masks exactly,
+    distance() masks outside the boundary band. Also the class-closure
+    lookup, and the ~50-instruction program forced into split launches
+    (stack 4, 8 buffers) against itself unsplit. Returns (band slots,
+    programs checked, the long program's instruction count). On a CPU
+    ``device`` both sides are the plain version: the compile and the splits
+    are what is checked there."""
+    from orientdb_tpu_torch.ops.device_graph import DeviceGraph
+    from orientdb_tpu_torch.ops.predicates import (
+        ColumnScope, ParamBox, Predicate, class_term, compile_where, valid_term,
+    )
+    from orientdb_tpu_torch.sql.parser import parse
+
+    dev = torch.device(device)
+    snap = k15_snapshot(np, n, seed)
+    dg = DeviceGraph(snap, dev)
+    rng = np.random.default_rng(seed + 1)
+    ids_np = rng.integers(-1, n + 3, n).astype(np.int32)
+    ids_np[::17] = -1
+    rows_np = rng.integers(-1, n + 2, n).astype(np.int32)
+    ids = torch.from_numpy(ids_np).to(dev)
+    env = {"bindings": {"p": torch.from_numpy(rows_np).to(dev)}, "depth": K15_DEPTH}
+    box = ParamBox(K15_PARAMS)
+    scope = ColumnScope(
+        dg.columns, dg.non_columnar, device=dev, binding_columns=dg.columns, visible_aliases={"p"}
+    )
+    base, n_valid = 5, n - n // 3
+    band_total, checked = 0, 0
+
+    def run(pred, fn, mode):
+        """Every launch of ``pred``, kernel and plain on the same inputs
+        (the kernel's splits feed both); returns the two final outputs."""
+        a = (ids, n, n, 0) if mode == "ids" else (None, n, n_valid, base)
+        row = box.row(dev) if pred.uses_params else None
+        tmps, got = [], None
+        for prog in pred.programs:
+            bufs = prog.buffers(env, tmps, n)
+            got = K.predicate_eval(prog.prog, bufs, *a, K15_DEPTH, row, values=True)
+            want = fn(prog.prog, bufs, *a, K15_DEPTH, row, values=True)
+            tmps.append(got)
+            yield prog, got, want
+
+    for where in K15_WHERES + ["class"]:
+        if where == "class":
+            pred = Predicate([valid_term(), class_term(dg.v_class, dg.class_table("A"))], dev)
+        else:
+            term = compile_where(parse(f"SELECT FROM V WHERE {where}").where, scope, box, allow_depth=True)
+            pred = Predicate([term], dev, box, uses_bindings=True)
+        for mode in ("ids", "identity"):
+            for prog, (gv, gp), (wv, wp) in run(pred, K.plain_predicate_eval, mode):
+                checked += 1
+                if where not in K15_DIST:
+                    _require(torch.equal(gv, wv) and torch.equal(gp, wp), f"K15 {where!r} ({mode}) differs from plain")
+                    continue
+                diff = (gp != wp).cpu().numpy()
+                slot_ids = ids_np if mode == "ids" else np.where(np.arange(n) < n_valid, np.arange(n) + base, -1)
+                band = _k15_band(np, snap, slot_ids, rows_np, where)
+                _require(not (diff & ~band).any(), f"K15 {where!r} ({mode}) differs outside the band")
+                band_total += int(band.sum())
+    # the long program, split into launches of stack 4 and 8 buffers
+    long_term = lambda: compile_where(parse(f"SELECT FROM V WHERE {K15_WHERES[-1]}").where, scope, box)  # noqa: E731
+    whole = Predicate([long_term()], dev, box, uses_bindings=True)
+    split = Predicate([long_term()], dev, box, uses_bindings=True, max_stack=4, max_bufs=8)
+    _require(len(split.programs) > 1 and len(whole.programs) == 1, "the long program did not split")
+    for mode in ("ids", "identity"):
+        a = (ids, env) if mode == "ids" else None
+        got_whole = whole(*a) if a else whole.identity(n, n_valid, base, env)
+        got_split = split(*a) if a else split.identity(n, n_valid, base, env)
+        _require(torch.equal(got_whole, got_split), f"K15 split launches differ from one launch ({mode})")
+    return band_total, checked, len(whole.programs[0].prog.rows)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1667,7 +1983,7 @@ def main() -> int:
 
     # the SF100-shape graph (set-up: host build, then upload)
     t0 = time.perf_counter()
-    db, snap = build_person_knows(8_000_000, avg_knows=10, seed=5)
+    db, snap = build_person_knows(8_000_000, avg_knows=10, seed=5, geo=True)
     dg = device_graph(snap, db.device)
     torch.cuda.synchronize()
     print(
@@ -1684,7 +2000,7 @@ def main() -> int:
     vref = VRef(np, snap)
     print(f"numpy references of V1–V3: {time.perf_counter() - t0:.1f} s")
 
-    time_node_masks(torch, db, card)
+    time_predicate_kernel(np, torch, K, ks, db, card)
 
     # 4. the recording path through the port's front door (cache off)
     torch.cuda.reset_peak_memory_stats()
@@ -1714,13 +2030,30 @@ def main() -> int:
     check_replay_kernels(torch, K, ks, q3_plan, {"k": Q3_K})
     pk_peak = max(pk_peak, torch.cuda.max_memory_allocated())
 
+    # 5b. distance(): the G cells on the same graph, recording then replays
+    t0 = time.perf_counter()
+    gref = GRef(np, snap)
+    print(f"numpy references of G1–G3: {time.perf_counter() - t0:.1f} s")
+    config.plan_cache_size = 0
+    try:
+        t0 = time.perf_counter()
+        run_edges_record(np, torch, K, db, card, gref, G_CELLS, G_RECORD_KERNELS)
+        print(f"record phase G: {time.perf_counter() - t0:.1f} s")
+    finally:
+        config.plan_cache_size = cache_size
+    t0 = time.perf_counter()
+    run_edges_replay(np, torch, K, db, snap, card, gref, G_CELLS, G_REPLAY_KERNELS)
+    print(f"replay phase G: {time.perf_counter() - t0:.1f} s; boundary-band slots by (cell, r): {gref.band}")
+    pk_peak = max(pk_peak, torch.cuda.max_memory_allocated())
+
     # 7a. batches on the Person–knows graph, while it is resident
     t0 = time.perf_counter()
     K.reset_launches()
-    b_peak = run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big)
+    b_peak = run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big, gref)
     torch.cuda.synchronize()
     batch_launches = dict(K.LAUNCHES)
     print(f"batch phase: {time.perf_counter() - t0:.1f} s; launches {batch_launches}")
+    _require(batch_launches["predicate_eval"] > 0, "predicate_eval never launched in the batch phase")
     print(f"memory: peak allocated through the batch phase {b_peak} bytes")
     pk_peak = max(pk_peak, b_peak)
 
@@ -1728,7 +2061,7 @@ def main() -> int:
     from orientdb_tpu_torch.exec import tpu_engine as TE
 
     TE._plan_cache(snap).clear()
-    del db, snap, dg, q3_plan, vref, q3_big
+    del db, snap, dg, q3_plan, vref, q3_big, gref
     gc.collect()  # the snapshot's cycle (snapshot → plan cache → plan → solver)
     gc.collect()  # the device graph's, released by the weak map in the first pass
     torch.cuda.synchronize()
@@ -1771,6 +2104,7 @@ def main() -> int:
     s_peak = max(torch.cuda.max_memory_allocated(), run_batches_snb(np, torch, K, sdb, ssnap, card))
     torch.cuda.synchronize()
     print(f"batch phase E: {time.perf_counter() - t0:.1f} s; launches {dict(K.LAUNCHES)}")
+    _require(K.LAUNCHES["predicate_eval"] > 0, "predicate_eval never launched in the SNB-shape batch phase")
     for name in BATCH_ONLY:
         batch_launches[name] += K.LAUNCHES[name]
     s_mem = sdg.memory_report()

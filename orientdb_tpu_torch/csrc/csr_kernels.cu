@@ -1,6 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the CSR primitives of the
 // compiled MATCH path, the bitmap BFS of variable-depth and NOT arms, the
-// result stage of a captured replay and the page of a batch's rows group.
+// result stage of a captured replay, the page of a batch's rows group and the
+// interpreter of a compiled WHERE program.
 // Port of the jitted functions of
 // orientdb_tpu/ops/csr.py (the OPTIONAL arm's rows_with_matches among them)
 // and of the level emission, level step, front-pack,
@@ -705,6 +706,272 @@ void launch_group_page(const int* in, long long src_run, long long lanes, long l
   group_page_kernel<kNarrow, kVec><<<dim3(gx, gy), kThreads, 0, s>>>(in, src_run, lanes, run, out);
 }
 
+
+// ---------------------------------------------------------------------------
+// K15: predicate_eval (replaces the closures of predicates.Compiler,
+// orientdb_tpu/ops/predicates.py: _column_val :198, _binding_val :213,
+// _distance :318, _param_val :371, _arith :392, _bool :428, _truthy :475,
+// _code_table_mask :492, _in :533, _compare :550, _cmp_str_lit :627, and the
+// class-closure test of tpu_engine's node masks): one compiled WHERE program
+// over n slots.
+//
+// A program is a postfix list of int4 instructions {op, a, b, c} (PredOp in
+// orientdb_tpu_torch/ops/csr.py) over a per-slot stack of (32 bits, present)
+// pairs; a mask is a pair whose `present` is the mask. Value kinds are
+// resolved at compile time, so no instruction carries a runtime type tag.
+// Bound: bytes. Each slot reads its id (4 bytes, none in identity mode), a
+// value and a presence byte for each column the program reads (a random
+// gather where the ids are random), the slot's binding rows, and writes one
+// byte; a distance() slot does ~40 float operations and four transcendental
+// calls, far under the card's float32 rate.
+// Design: a grid-stride loop, one slot a thread; the block copies the program
+// into shared memory once (when it fits in 48 KB; else it is read from device
+// memory through the read-only cache), and every thread then runs the same
+// instruction sequence, so control flow never diverges — only the gathers are
+// data-dependent. The stack's top entry lives in registers, the presence
+// bits below it in one register and their values in a per-thread array of
+// kStack (local memory); the compiler orders each subtree deeper-operand-first and splits whatever still
+// needs more into earlier launches (a split's values and presence come back
+// through TMP). Every per-call pointer and scalar is a launch argument (a
+// __grid_constant__ struct, indexed in place), so a captured CUDA graph bakes
+// them per launch; parameters are always read from
+// device memory. Arithmetic follows the reference: int32 in uint32 (wraps),
+// float32 one IEEE operation at a time (the _rn intrinsics: no FMA
+// contraction), floor modulo, division and modulo by zero absent.
+// ---------------------------------------------------------------------------
+constexpr int kStack = 16;     // per-thread value stack (PRED_STACK)
+constexpr int kMaxBufs = 32;   // buffers a launch reads (PRED_BUFS)
+constexpr int kProgSmem = 48 * 1024;
+
+enum PredOp : int {
+  kCol = 1, kBCol = 2, kConst = 3, kParam = 4, kDepth = 5, kTmp = 6, kI2F = 7, kNeg = 8,
+  kArith = 9, kCmp = 10, kTable = 11, kTruthy = 12, kIsNull = 13, kAnd = 14, kOr = 15,
+  kNot = 16, kMask = 17, kClass = 18, kValid = 19, kDist = 20,
+};
+
+struct PredArgs {
+  const int4* prog;
+  long long len;
+  const int* ids;          // null: identity mode
+  long long n;
+  long long n_valid;
+  long long base;
+  const int* params;
+  unsigned char* out_p;
+  int* out_v;              // null unless the caller wants the values (a split)
+  int depth;
+  int nbufs;
+  const void* buf[kMaxBufs];
+  long long blen[kMaxBufs];
+};
+
+// The padding-safe gather of take_pad: a negative index or an empty column
+// reads absent (value 0), an index past the end reads the last element.
+// Ids and column lengths are int32 (a column is indexed by int32 ids).
+__device__ __forceinline__ bool pred_gather(const PredArgs& a, int vbuf, int pbuf, int i,
+                                            unsigned* v) {
+  const int len = static_cast<int>(a.blen[vbuf]);
+  if (i < 0 || len == 0) {
+    *v = 0u;
+    return false;
+  }
+  const int j = i < len ? i : len - 1;
+  *v = static_cast<const unsigned*>(a.buf[vbuf])[j];
+  return static_cast<const unsigned char*>(a.buf[pbuf])[j] != 0;
+}
+
+__device__ __forceinline__ float as_f(unsigned v) { return __uint_as_float(v); }
+__device__ __forceinline__ unsigned as_u(float f) { return __float_as_uint(f); }
+
+__device__ __forceinline__ unsigned pred_arith(int op, int kind, unsigned x, unsigned y,
+                                               bool* ok) {
+  if (kind) {
+    const float fx = as_f(x), fy = as_f(y);
+    switch (op) {
+      case 0: return as_u(__fadd_rn(fx, fy));
+      case 1: return as_u(__fsub_rn(fx, fy));
+      case 2: return as_u(__fmul_rn(fx, fy));
+      case 3: {
+        *ok = fy != 0.0f;
+        return as_u(__fdiv_rn(fx, *ok ? fy : 1.0f));
+      }
+      default: {
+        *ok = fy != 0.0f;
+        const float d = *ok ? fy : 1.0f;
+        float m = fmodf(fx, d);
+        if (m != 0.0f && ((d < 0.0f) != (m < 0.0f))) m = __fadd_rn(m, d);
+        return as_u(m);
+      }
+    }
+  }
+  switch (op) {
+    case 0: return x + y;
+    case 1: return x - y;
+    case 2: return x * y;
+    default: {  // floor modulo (division is always float32)
+      const int ix = static_cast<int>(x), iy = static_cast<int>(y);
+      *ok = iy != 0;
+      if (iy == 0 || iy == -1) return 0u;  // x mod -1 = 0; INT_MIN % -1 traps
+      int m = ix % iy;
+      if (m != 0 && ((iy < 0) != (m < 0))) m += iy;
+      return static_cast<unsigned>(m);
+    }
+  }
+}
+
+__device__ __forceinline__ bool pred_cmp(int op, int kind, unsigned x, unsigned y) {
+  if (kind) {
+    const float fx = as_f(x), fy = as_f(y);
+    switch (op) {
+      case 0: return fx == fy;
+      case 1: return fx != fy;
+      case 2: return fx < fy;
+      case 3: return fx <= fy;
+      case 4: return fx > fy;
+      default: return fx >= fy;
+    }
+  }
+  const int ix = static_cast<int>(x), iy = static_cast<int>(y);
+  switch (op) {
+    case 0: return ix == iy;
+    case 1: return ix != iy;
+    case 2: return ix < iy;
+    case 3: return ix <= iy;
+    case 4: return ix > iy;
+    default: return ix >= iy;
+  }
+}
+
+// The reference's float32 haversine, operation by operation:
+// deg2rad as a multiply, h, clip to [0, 1], 2R * asin(sqrt(h)) * scale.
+__device__ __forceinline__ float pred_haversine(float lat1, float lon1, float lat2, float lon2,
+                                                float scale) {
+  const float k = 0.017453292519943295f;
+  lat1 = __fmul_rn(lat1, k);
+  lon1 = __fmul_rn(lon1, k);
+  lat2 = __fmul_rn(lat2, k);
+  lon2 = __fmul_rn(lon2, k);
+  const float s1 = sinf(__fdiv_rn(__fsub_rn(lat2, lat1), 2.0f));
+  const float s2 = sinf(__fdiv_rn(__fsub_rn(lon2, lon1), 2.0f));
+  const float cc = __fmul_rn(cosf(lat1), cosf(lat2));
+  float h = __fadd_rn(__fmul_rn(s1, s1), __fmul_rn(cc, __fmul_rn(s2, s2)));
+  h = h < 0.0f ? 0.0f : (h > 1.0f ? 1.0f : h);  // NaN stays NaN, as clip
+  return __fmul_rn(__fmul_rn(12742.0f, asinf(sqrtf(h))), scale);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    predicate_eval_kernel(const __grid_constant__ PredArgs a, int smem) {
+  extern __shared__ int4 sprog[];
+  const int4* prog = a.prog;
+  if (smem) {
+    for (long long i = threadIdx.x; i < a.len; i += blockDim.x) sprog[i] = a.prog[i];
+    __syncthreads();
+    prog = sprog;
+  }
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const int len = static_cast<int>(a.len);
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < a.n;
+       i += step) {
+    const int id = a.ids ? a.ids[i] : (i < a.n_valid ? static_cast<int>(a.base + i) : -1);
+    // the top entry lives in registers (tv, tp); the values below it in
+    // sv[0..d] (sv[0] the empty stack's placeholder), their presence bits in
+    // spm (bit 0: the entry just below the top)
+    unsigned sv[kStack];
+    unsigned spm = 0u;
+    int d = -1;
+    unsigned tv = 0u;
+    bool tp = false;
+    for (int pc = 0; pc < len; ++pc) {
+      const int4 ins = smem ? prog[pc] : __ldg(prog + pc);
+      const int op = ins.x;
+      if (op <= kTmp || op == kMask || op == kClass || op == kValid) {  // pushes
+        sv[++d] = tv;
+        spm = (spm << 1) | (tp ? 1u : 0u);
+        switch (op) {
+          case kCol: tp = pred_gather(a, ins.y, ins.z, id, &tv); break;
+          case kBCol:
+            tp = pred_gather(a, ins.y, ins.z, static_cast<const int*>(a.buf[ins.w])[i], &tv);
+            break;
+          case kConst: tv = static_cast<unsigned>(ins.y); tp = ins.z != 0; break;
+          case kParam: tv = static_cast<unsigned>(a.params[ins.y]); tp = true; break;
+          case kDepth: tv = static_cast<unsigned>(a.depth); tp = true; break;
+          case kTmp:
+            tv = static_cast<const unsigned*>(a.buf[ins.y])[i];
+            tp = static_cast<const unsigned char*>(a.buf[ins.z])[i] != 0;
+            break;
+          case kMask: tv = 0u; tp = ins.y != 0; break;
+          case kClass: {
+            const int nc = static_cast<int>(a.blen[ins.y]), nt = static_cast<int>(a.blen[ins.z]);
+            bool m = false;
+            if (id >= 0 && nc > 0) {
+              const int cls = static_cast<const int*>(a.buf[ins.y])[id < nc ? id : nc - 1];
+              if (cls >= 0 && nt > 0) {
+                m = static_cast<const unsigned char*>(a.buf[ins.z])[cls < nt ? cls : nt - 1] != 0;
+              }
+            }
+            tv = 0u;
+            tp = m;
+            break;
+          }
+          default: tv = 0u; tp = id >= 0; break;  // kValid
+        }
+        continue;
+      }
+      switch (op) {
+        case kI2F: tv = as_u(__int2float_rn(static_cast<int>(tv))); break;
+        case kNeg: tv = ins.z ? (tv ^ 0x80000000u) : (0u - tv); break;
+        case kArith: {
+          unsigned x = sv[d--], y = tv;
+          bool px = spm & 1u, py = tp;
+          spm >>= 1;
+          if (ins.w) { unsigned t = x; x = y; y = t; bool q = px; px = py; py = q; }
+          bool ok = true;
+          tv = pred_arith(ins.y, ins.z, x, y, &ok);
+          tp = px && py && ok;
+          break;
+        }
+        case kCmp: {
+          unsigned x = sv[d--], y = tv;
+          const bool both = (spm & 1u) && tp;
+          spm >>= 1;
+          if (ins.w) { unsigned t = x; x = y; y = t; }
+          tp = both && pred_cmp(ins.y, ins.z, x, y);
+          tv = 0u;
+          break;
+        }
+        case kTable: {
+          const int n = static_cast<int>(a.blen[ins.y]);
+          const int c = static_cast<int>(tv);
+          const int j = c < 0 ? 0 : (c >= n ? n - 1 : c);
+          tp = tp && n > 0 && static_cast<const unsigned char*>(a.buf[ins.y])[j] != 0;
+          tv = 0u;
+          break;
+        }
+        case kTruthy:
+          tp = tp && (ins.z ? as_f(tv) != 0.0f : tv != 0u);
+          tv = 0u;
+          break;
+        case kIsNull: tp = ins.y ? tp : !tp; tv = 0u; break;
+        case kAnd: tp = (spm & 1u) && tp; spm >>= 1; --d; break;
+        case kOr: tp = (spm & 1u) || tp; spm >>= 1; --d; break;
+        case kNot: tp = !tp; break;
+        case kDist: {
+          const bool p = (spm & 7u) == 7u && tp;
+          tv = as_u(pred_haversine(as_f(sv[d - 2]), as_f(sv[d - 1]), as_f(sv[d]), as_f(tv),
+                                   __int_as_float(ins.y)));
+          tp = p;
+          spm >>= 3;
+          d -= 3;
+          break;
+        }
+        default: break;
+      }
+    }
+    a.out_p[i] = tp ? 1 : 0;
+    if (a.out_v) a.out_v[i] = static_cast<int>(tv);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1003,6 +1270,18 @@ int csr_group_page(const void* in, long long w, int ncols, long long b, long lon
   } else {
     launch_group_page<false, false>(src, src_run, b, run, out, s);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `args` is a PredArgs (the wrapper's ctypes twin); the kernel takes it by
+// value, so a captured graph keeps this launch's pointers and scalars.
+int csr_predicate_eval(const void* args, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PredArgs& a = *static_cast<const PredArgs*>(args);
+  if (a.n <= 0) return static_cast<int>(cudaGetLastError());
+  const long long bytes = a.len * static_cast<long long>(sizeof(int4));
+  const int smem = bytes <= kProgSmem ? static_cast<int>(bytes) : 0;
+  predicate_eval_kernel<<<grid_for(a.n, 1), kThreads, smem, s>>>(a, smem);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -76,9 +76,14 @@ from orientdb_tpu_torch.ops.device_graph import DeviceGraph, device_graph
 from orientdb_tpu_torch.ops.predicates import (
     ColumnScope,
     ParamBox,
+    Predicate,
     Uncompilable,
+    class_term,
     compile_predicate,
+    compile_where,
+    pack_params,
     split_params,
+    valid_term,
 )
 from orientdb_tpu_torch.sql import ast as A
 from orientdb_tpu_torch.utils.config import config
@@ -443,6 +448,9 @@ class TpuMatchSolver:
         self.dg: DeviceGraph = device_graph(snap, db.device)
         self.sched = SizeSchedule()
         self._vertex_scope_cache: Optional[ColumnScope] = None
+        #: (edge class, WHERE, visible aliases) → its compiled Predicate:
+        #: compiled (and uploaded) while recording, reused by the replays
+        self._edge_preds: Dict[tuple, Predicate] = {}
         # the vertex aliases bound before each alias's first bind and before
         # each step: what a binding-referencing WHERE there may read (the
         # reference's interpreter checks with the bindings made so far)
@@ -475,7 +483,7 @@ class TpuMatchSolver:
             if not node.is_edge_alias
         }
         # WHILE conditions compile with $depth as a per-level scalar
-        self._while_fns: Dict[int, object] = {}
+        self._while_fns: Dict[int, Predicate] = {}
         for e in self.pattern.edges:
             w = e.item.target.while_cond
             if w is not None:
@@ -626,17 +634,17 @@ class TpuMatchSolver:
             )
         return self._vertex_scope_cache
 
-    def _compile_node(self, node: PatternNode):
-        """Node admission mask: fn(idx, env=None) -> bool mask over vertex
-        ids (class closure ∧ WHERE, padding excluded). A WHERE that reads
-        earlier bindings (``alias.prop``) compiles against the aliases
-        visible at the node's first bind; the mask then needs
+    def _compile_node(self, node: PatternNode) -> Predicate:
+        """Node admission mask over vertex ids: padding excluded, every
+        class closure and every WHERE, ANDed in ONE predicate program. A
+        WHERE that reads earlier bindings (``alias.prop``) compiles against
+        the aliases visible at the node's first bind; the mask then needs
         ``env["bindings"]`` (``mask.uses_bindings``)."""
-        parts = []
+        terms = [valid_term()]
         uses_bindings = False
         for f in node.filters:
             if f.class_name:
-                parts.append(self._class_mask_fn(self.dg.class_table(f.class_name)))
+                terms.append(class_term(self.dg.v_class, self.dg.class_table(f.class_name)))
             if f.where is None:
                 continue
             if _expr_uses_bindings(f.where, self.pattern.nodes):
@@ -649,26 +657,23 @@ class TpuMatchSolver:
                     binding_non_columnar=self.dg.non_columnar,
                     visible_aliases=self._alias_visible.get(node.alias, set()),
                 )
-                parts.append(compile_predicate(f.where, scope, self.param_box))
+                terms.append(compile_where(f.where, scope, self.param_box))
                 uses_bindings = uses_bindings or scope.uses_bindings
             else:
-                parts.append(compile_predicate(f.where, self._vertex_scope(), self.param_box))
+                terms.append(compile_where(f.where, self._vertex_scope(), self.param_box))
+        return Predicate(terms, self.dg.device, self.param_box, uses_bindings)
 
-        def mask(idx, env=None, parts=parts):
-            env = env or {}
-            m = idx >= 0
-            for p in parts:
-                m = m & p(idx, env)
-            return m
-
-        mask.uses_bindings = uses_bindings
-        return mask
-
-    def _edge_where(self, concrete: str, where: A.Expression, visible: Optional[set] = None):
-        """Edge-property predicate over edge ids of one edge class; with
-        ``visible``, ``alias.prop`` of those vertex aliases compiles too,
-        and the function (``uses_bindings``) then needs
-        ``env["bindings"]`` aligned with its slots."""
+    def _edge_where(
+        self, concrete: str, where: A.Expression, visible: Optional[set] = None
+    ) -> Predicate:
+        """Edge-property predicate over edge ids of one edge class, compiled
+        once per solver; with ``visible``, ``alias.prop`` of those vertex
+        aliases compiles too, and the predicate (``uses_bindings``) then
+        needs ``env["bindings"]`` aligned with its slots."""
+        key = (concrete, id(where), frozenset(visible or ()))
+        pred = self._edge_preds.get(key)
+        if pred is not None:
+            return pred
         dec = self.dg.edges[concrete]
         scope = ColumnScope(
             dec.columns,
@@ -679,9 +684,8 @@ class TpuMatchSolver:
             binding_non_columnar=self.dg.non_columnar,
             visible_aliases=visible or set(),
         )
-        fn = compile_predicate(where, scope, self.param_box)
-        fn.uses_bindings = scope.uses_bindings
-        return fn
+        pred = self._edge_preds[key] = compile_predicate(where, scope, self.param_box)
+        return pred
 
     @staticmethod
     def _binding_env(table: Table, row: Optional[torch.Tensor], visible: set) -> Dict:
@@ -698,15 +702,6 @@ class TpuMatchSolver:
             return K.take_pad(table.cols[a], row, -1)
 
         return {"bindings": {a: col(a) for a in visible}}
-
-    def _class_mask_fn(self, table: torch.Tensor):
-        """Class-closure membership of each slot's vertex: its class id
-        looked up in the closure's bool table (padding reads False)."""
-
-        def fn(idx, env, table=table):
-            return K.take_pad(table, K.take_pad(self.dg.v_class, idx, -1), False)
-
-        return fn
 
     # -- execution ----------------------------------------------------------
 
@@ -910,34 +905,33 @@ class TpuMatchSolver:
         t.count_dev = total_dev
         return t
 
-    def _universe(self):
-        """(vb, the [vb] vertex ids with -1 past V): the domain of
-        per-vertex masks (weight passes, bitmap levels)."""
-        V = self.dg.num_vertices
-        vb = K.bucket(max(V, 1))
-        univ = torch.arange(vb, dtype=I32, device=self.device)
-        return vb, torch.where(univ < V, univ, -1)
+    def _vb(self) -> int:
+        """The bucketed vertex universe: the domain of per-vertex masks
+        (weight passes, bitmap levels), ids past V padding."""
+        return K.bucket(max(self.dg.num_vertices, 1))
+
+    def _vertex_vec(self, pred: Predicate, env: Optional[Dict] = None) -> torch.Tensor:
+        """A vertex predicate over the whole universe, in identity mode."""
+        return pred.identity(self._vb(), self.dg.num_vertices, env=env)
 
     def _edge_mask(self, cname: str, where) -> Optional[torch.Tensor]:
         """An edge WHERE (no binding references) over every edge of one
         class, bool [E] in out order; None without a WHERE."""
         if where is None:
             return None
-        E = self.dg.edges[cname].num_edges
-        eids = torch.arange(E, dtype=I32, device=self.device)
-        return self._edge_where(cname, where)(eids, {}).contiguous()
+        return self._edge_where(cname, where).identity(self.dg.edges[cname].num_edges)
 
     def _pushdown_weights(self, steps: List[PlanStep], dtype) -> torch.Tensor:
-        # vertex universe for [vb]-wide node-mask precomputes, used where
-        # the edge list outnumbers the vertices: one bool gather per edge
-        # then replaces re-evaluating the predicate's column gathers
-        vb, univ = self._universe()
+        # [vb]-wide node-mask precomputes are used where the edge list
+        # outnumbers the vertices: one bool gather per edge then replaces
+        # re-evaluating the predicate's column gathers
+        vb = self._vb()
         w = None  # None ≡ all-ones (the implicit weight after the last hop)
         for step in reversed(steps):
-            w = self._pushdown_weight_step(step, w, univ, vb, dtype)
+            w = self._pushdown_weight_step(step, w, vb, dtype)
         return w
 
-    def _pushdown_weight_step(self, step, w, univ, vb, dtype):
+    def _pushdown_weight_step(self, step, w, vb, dtype):
         item = step.edge.item
         direction = item.direction
         if step.reverse:
@@ -946,7 +940,7 @@ class TpuMatchSolver:
         node_mask = self._node_masks[dst_alias]
         classes = self._resolve_edge_classes(item)
         ok_vec = (
-            node_mask(univ)
+            self._vertex_vec(node_mask)
             if any(self.dg.edges[c].num_edges >= vb for c in classes)
             else None
         )
@@ -993,10 +987,9 @@ class TpuMatchSolver:
                 lo, hi = self.snap.vertex_hull(f.class_name)
                 start, end = max(start, lo), min(end, hi)
         size = max(end - start, 0)
-        idx = start + torch.arange(K.bucket(max(size, 1)), dtype=I32, device=self.device)
-        idx = torch.where(idx < end, idx, -1)
-        cand, n, n_dev = self._compact(self._node_masks[alias](idx))
-        return K.take_pad(idx, cand, -1), n, n_dev
+        mask = self._node_masks[alias].identity(K.bucket(max(size, 1)), size, base=start)
+        cand, n, n_dev = self._compact(mask)
+        return (torch.where(cand >= 0, cand + start, -1) if start else cand), n, n_dev
 
     def _root(self, table: Table, alias: str) -> Table:
         cand, n, n_dev = self._root_candidates(alias)
@@ -1374,8 +1367,8 @@ class TpuMatchSolver:
         max_depth = item.target.max_depth
         while_fn = self._while_fns.get(id(e))
         depth_alias = item.target.depth_alias
-        vb, univ = self._universe()
-        node_vec = self._node_masks[dst_alias](univ).contiguous()
+        vb = self._vb()
+        node_vec = self._vertex_vec(self._node_masks[dst_alias])
         dirs = ("out", "in") if direction == "both" else (direction,)
         f = item.edge_filter
         hop_items = []
@@ -1434,7 +1427,7 @@ class TpuMatchSolver:
                 if while_fn is not None:
                     gate = gates.get(depth)
                     if gate is None:
-                        gate = gates[depth] = while_fn(univ, {"depth": depth}).contiguous()
+                        gate = gates[depth] = self._vertex_vec(while_fn, {"depth": depth})
                 nxt = _run_hops(hops, frontier, gate, alive_dev)
                 alive_dev = K.frontier_advance(nxt, visited)
                 alive = self.sched.observe(alive_dev, free=True)
@@ -1531,8 +1524,8 @@ class TpuMatchSolver:
         is bound) ANDed in; a row with a survivor at the chain's end
         matches the arm and is dropped."""
         width = table.width or 1
-        vb, univ = self._universe()
-        node_vecs = [m(univ).contiguous() for m in masks]
+        vb = self._vb()
+        node_vecs = [self._vertex_vec(m) for m in masks]
         hops_per_item = []
         for it in items:
             dirs = ("out", "in") if it.direction == "both" else (it.direction,)
@@ -1940,13 +1933,7 @@ class _CompiledPlan:
         static buffer, or a group lane's row of its stack), and no lazy
         upload."""
         solver = self.solver
-        buf = self._params_dev if params is None else params
-        fbuf = buf.view(F32)
-        dyn = {
-            k: (fbuf[i] if kind == "float" else buf[i])
-            for i, (k, kind) in enumerate(self.dyn_spec.items())
-        }
-        solver.param_box.set_current(dyn)
+        solver.param_box.set_row(self._params_dev if params is None else params)
         try:
             solver.sched.start_replay()
             with solver.dg.sealed():
@@ -2191,15 +2178,7 @@ class _CompiledPlan:
     def _dyn_args(self, params: Optional[Dict]) -> np.ndarray:
         """The dynamic parameters as one host int32 array (float32 values
         by their bits), in `dyn_spec` order."""
-        params = params if params is not None else self.solver.params
-        host = np.zeros(max(len(self.dyn_spec), 1), np.int32)
-        for i, (k, kind) in enumerate(self.dyn_spec.items()):
-            v = params[k]
-            if kind == "float":
-                host[i] = np.float32(v).view(np.int32)
-            else:
-                host[i] = int(v)
-        return host
+        return pack_params(params if params is not None else self.solver.params, self.dyn_spec)
 
     def _upload(self, host: np.ndarray) -> None:
         src = torch.from_numpy(host)

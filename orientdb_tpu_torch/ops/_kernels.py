@@ -59,6 +59,7 @@ SIGNATURES = {
     "csr_frontier_advance": [_P, _P, _N, _P, _P],
     "csr_rows_with_matches": [_P, _P, _N, _N, _I, _P, _P],
     "csr_group_page": [_P, _N, _I, _N, _N, _I, _P, _P],
+    "csr_predicate_eval": [_P, _P],
 }
 
 _lock = threading.Lock()

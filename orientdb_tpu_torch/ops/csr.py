@@ -4,8 +4,10 @@ bitmap BFS of variable-depth and NOT arms (with the level emission and
 level step of `orientdb_tpu/exec/tpu_engine.py`), and the
 result stage of a replay (front-pack, meta row, int16 narrowing of that
 module's `_CompiledPlan`) and the compact page of a batch's rows group
-(`group_page`), each as a wrapper over a hand-written CUDA
-kernel (`csrc/csr_kernels.cu`) beside its plain PyTorch version.
+(`group_page`), and the interpreter of a compiled WHERE program
+(`predicate_eval`, the masks of `ops/predicates.py`), each as a wrapper
+over a hand-written CUDA kernel (`csrc/csr_kernels.cu`) beside its plain
+PyTorch version.
 
 A wrapper checks dtype, contiguity and device, then:
 - a CPU tensor goes to the plain version (``plain_*``), the reference's
@@ -25,6 +27,7 @@ integer result is int32, as in the reference (JAX runs with x64 off).
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -59,6 +62,7 @@ LAUNCHES: Dict[str, int] = {
         "frontier_advance",
         "rows_with_matches",
         "group_page",
+        "predicate_eval",
     )
 }
 
@@ -937,3 +941,302 @@ def group_page(stack: torch.Tensor, B: int, n: int, fits16: bool) -> torch.Tenso
         _stream(stack),
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# K15: predicate_eval — a compiled WHERE program over the slots
+# ---------------------------------------------------------------------------
+
+
+class PredOp:
+    """Opcodes of a predicate program (the kernel's `PredOp`). A program is
+    an int32 [L, 4] array of postfix instructions ``(op, a, b, c)`` over a
+    per-slot stack of (int32 bits, present) pairs; a mask is a pair whose
+    ``present`` is the mask and whose value is 0. Buffer operands index the
+    call's buffer list (``bufs``)."""
+
+    COL = 1  # push column[id]: a values, b presence (padding-safe gather)
+    BCOL = 2  # push column[rows[slot]]: a values, b presence, c binding rows
+    CONST = 3  # push (a, b): value bits, present
+    PARAM = 4  # push (params[a], 1)
+    DEPTH = 5  # push (depth, 1)
+    TMP = 6  # push (a[slot], b[slot]): an earlier launch's values / presence
+    I2F = 7  # int32 → float32, rounding to nearest
+    NEG = 8  # b: kind (0 int32, 1 float32)
+    ARITH = 9  # a: ARITH_OPS index, b: kind, c: operands swapped on the stack
+    CMP = 10  # a: CMP_OPS index, b: kind, c: swapped → mask
+    TABLE = 11  # a: bool code table → present & table[clamp(v)]
+    TRUTHY = 12  # b: kind → present & v != 0
+    ISNULL = 13  # a: negated → present (IS NOT NULL) or its negation
+    AND = 14
+    OR = 15
+    NOT = 16
+    MASK = 17  # a: the constant mask bit
+    CLASS = 18  # a: class ids (v_class), b: closure table → table[v_class[id]]
+    VALID = 19  # id >= 0
+    DIST = 20  # a: scale (float32 bits); pops lat1, lng1, lat2, lng2 (float32)
+
+
+ARITH_OPS = ("+", "-", "*", "/", "%")
+CMP_OPS = ("=", "!=", "<", "<=", ">", ">=")
+#: the kernel's per-thread value stack (kStack) and buffer table (kMaxBufs);
+#: the compiler splits whatever would not fit into earlier launches
+PRED_STACK = 16
+PRED_BUFS = 32
+_DEG2RAD = 0.017453292519943295  # pi / 180, the reference's deg2rad factor
+
+
+class PredProgram:
+    """A predicate program, uploaded once: its instructions ``(op, a, b,
+    c)`` on the host (what the plain version runs, so that it reads nothing
+    from a tensor) and as the kernel's contiguous int32 [L, 4] array on
+    ``device``."""
+
+    def __init__(self, rows, device) -> None:
+        self.rows = [tuple(int(x) for x in r) for r in rows]
+        if not self.rows or any(len(r) != 4 for r in self.rows):
+            raise ValueError("a predicate program is a non-empty list of 4-tuples")
+        self.code = torch.tensor(self.rows, dtype=I32).reshape(-1, 4).to(device)
+
+
+class _PredArgs(ctypes.Structure):
+    """The kernel's `PredArgs`, passed by value into the launch."""
+
+    _fields_ = [
+        ("prog", ctypes.c_void_p),
+        ("len", ctypes.c_longlong),
+        ("ids", ctypes.c_void_p),
+        ("n", ctypes.c_longlong),
+        ("n_valid", ctypes.c_longlong),
+        ("base", ctypes.c_longlong),
+        ("params", ctypes.c_void_p),
+        ("out_p", ctypes.c_void_p),
+        ("out_v", ctypes.c_void_p),
+        ("depth", ctypes.c_int),
+        ("nbufs", ctypes.c_int),
+        ("buf", ctypes.c_void_p * PRED_BUFS),
+        ("blen", ctypes.c_longlong * PRED_BUFS),
+    ]
+
+
+def _bits_f(v: torch.Tensor) -> torch.Tensor:
+    return v.view(F32)
+
+
+def _f_bits(v: torch.Tensor) -> torch.Tensor:
+    return v.contiguous().view(I32)
+
+
+def _plain_gather(vals: torch.Tensor, pres: torch.Tensor, idx: torch.Tensor):
+    """``plain_take_pad`` of a column's values (as int32 bits, absent → 0)
+    and presence (absent → False) through ``idx``."""
+    bits = vals.view(I32) if vals.dtype == F32 else vals
+    return plain_take_pad(bits, idx, 0), plain_take_pad(pres, idx, False)
+
+
+def _plain_haversine(lat1, lon1, lat2, lon2, scale):
+    """The reference's float32 haversine (`orientdb_tpu/ops/predicates.py`
+    `_distance`): each step a separate float32 operation."""
+    dev = lat1.device
+    k = torch.tensor(_DEG2RAD, dtype=F32, device=dev)
+    lat1, lon1, lat2, lon2 = (x * k for x in (lat1, lon1, lat2, lon2))
+    s1 = torch.sin((lat2 - lat1) / 2.0)
+    s2 = torch.sin((lon2 - lon1) / 2.0)
+    h = s1 * s1 + torch.cos(lat1) * torch.cos(lat2) * (s2 * s2)
+    h = torch.clamp(h, 0.0, 1.0)
+    two_r = torch.tensor(12742.0, dtype=F32, device=dev)
+    return two_r * torch.asin(torch.sqrt(h)) * torch.tensor(scale, dtype=F32, device=dev)
+
+
+def _plain_arith(op: str, kind: int, x, y):
+    """(value bits, extra presence) of ``x op y``: int32 wrapping, or
+    float32; ``/`` and ``%`` by zero are absent, ``%`` is floor modulo."""
+    if kind:
+        xf, yf = _bits_f(x), _bits_f(y)
+        nz = yf != 0
+        safe = torch.where(nz, yf, torch.ones_like(yf))
+        if op == "+":
+            return _f_bits(xf + yf), None
+        if op == "-":
+            return _f_bits(xf - yf), None
+        if op == "*":
+            return _f_bits(xf * yf), None
+        if op == "/":
+            return _f_bits(xf / safe), nz
+        return _f_bits(torch.remainder(xf, safe)), nz
+    if op == "+":
+        return x + y, None
+    if op == "-":
+        return x - y, None
+    if op == "*":
+        return x * y, None
+    nz = y != 0
+    if op == "/":  # the compiler makes every division float32
+        raise ValueError("integer division in a predicate program")
+    # x mod -1 is 0 (and INT_MIN % -1 would trap in C)
+    unit = (y == 0) | (y == -1)
+    r = torch.remainder(x, torch.where(unit, torch.ones_like(y), y))
+    return torch.where(y == -1, torch.zeros_like(r), r), nz
+
+
+def _plain_cmp(op: str, kind: int, x, y) -> torch.Tensor:
+    if kind:
+        x, y = _bits_f(x), _bits_f(y)
+    return {
+        "=": torch.eq,
+        "!=": torch.ne,
+        "<": torch.lt,
+        "<=": torch.le,
+        ">": torch.gt,
+        ">=": torch.ge,
+    }[op](x, y)
+
+
+def _slot_ids(ids, n, n_valid, base, device) -> torch.Tensor:
+    if ids is not None:
+        return ids
+    i = torch.arange(n, dtype=I32, device=device)
+    return torch.where(i < n_valid, i + base, -1).to(I32)
+
+
+def plain_predicate_eval(
+    prog: PredProgram,
+    bufs: List[torch.Tensor],
+    ids: Optional[torch.Tensor] = None,
+    n: int = 0,
+    n_valid: Optional[int] = None,
+    base: int = 0,
+    depth: int = 0,
+    params: Optional[torch.Tensor] = None,
+    values: bool = False,
+):
+    """The kernel's interpreter in torch: the same program, each
+    instruction one vectorised operation over every slot."""
+    O = PredOp
+    dev = prog.code.device
+    n = ids.shape[0] if ids is not None else n
+    sid = _slot_ids(ids, n, n if n_valid is None else n_valid, base, dev)
+    zero = torch.zeros(n, dtype=I32, device=dev)
+    stack: List[Tuple[torch.Tensor, torch.Tensor]] = []
+
+    def full_mask(b: bool):
+        return torch.full((n,), bool(b), dtype=torch.bool, device=dev)
+
+    for op, a, b, c in prog.rows:
+        if op == O.COL:
+            stack.append(_plain_gather(bufs[a], bufs[b], sid))
+        elif op == O.BCOL:
+            stack.append(_plain_gather(bufs[a], bufs[b], bufs[c]))
+        elif op == O.CONST:
+            stack.append((torch.full((n,), a, dtype=I32, device=dev), full_mask(b)))
+        elif op == O.PARAM:
+            stack.append((params[a : a + 1].expand(n), full_mask(True)))
+        elif op == O.DEPTH:
+            stack.append((torch.full((n,), depth, dtype=I32, device=dev), full_mask(True)))
+        elif op == O.TMP:
+            stack.append((bufs[a], bufs[b]))
+        elif op in (O.I2F, O.NEG, O.TABLE, O.TRUTHY, O.ISNULL, O.NOT):
+            v, p = stack.pop()
+            if op == O.I2F:
+                stack.append((_f_bits(v.to(F32)), p))
+            elif op == O.NEG:
+                stack.append(((_f_bits(-_bits_f(v)) if b else -v), p))
+            elif op == O.TABLE:
+                t = bufs[a]
+                hit = t[v.clamp(0, t.shape[0] - 1).long()] if t.shape[0] else torch.zeros_like(p)
+                stack.append((zero, p & hit))
+            elif op == O.TRUTHY:
+                stack.append((zero, p & ((_bits_f(v) if b else v) != 0)))
+            elif op == O.ISNULL:
+                stack.append((zero, p if a else ~p))
+            else:
+                stack.append((zero, ~p))
+        elif op in (O.ARITH, O.CMP, O.AND, O.OR):
+            y, x = stack.pop(), stack.pop()
+            if c and op in (O.ARITH, O.CMP):
+                x, y = y, x
+            (xv, xp), (yv, yp) = x, y
+            if op == O.ARITH:
+                v, nz = _plain_arith(ARITH_OPS[a], b, xv, yv)
+                p = xp & yp if nz is None else xp & yp & nz
+                stack.append((v, p))
+            elif op == O.CMP:
+                stack.append((zero, xp & yp & _plain_cmp(CMP_OPS[a], b, xv, yv)))
+            else:
+                stack.append((zero, (xp & yp) if op == O.AND else (xp | yp)))
+        elif op == O.MASK:
+            stack.append((zero, full_mask(a)))
+        elif op == O.CLASS:
+            cls = plain_take_pad(bufs[a], sid, -1)
+            stack.append((zero, plain_take_pad(bufs[b], cls, False)))
+        elif op == O.VALID:
+            stack.append((zero, sid >= 0))
+        elif op == O.DIST:
+            ops = [stack.pop() for _ in range(4)][::-1]
+            p = ops[0][1] & ops[1][1] & ops[2][1] & ops[3][1]
+            scale = struct.unpack("<f", struct.pack("<i", a))[0]
+            d = _plain_haversine(*(_bits_f(v) for v, _ in ops), scale)
+            stack.append((_f_bits(d), p))
+        else:
+            raise ValueError(f"predicate program: unknown opcode {op}")
+    ((v, p),) = stack
+    v = v.contiguous()
+    return (v, p) if values else p
+
+
+def predicate_eval(
+    prog: PredProgram,
+    bufs: List[torch.Tensor],
+    ids: Optional[torch.Tensor] = None,
+    n: int = 0,
+    n_valid: Optional[int] = None,
+    base: int = 0,
+    depth: int = 0,
+    params: Optional[torch.Tensor] = None,
+    values: bool = False,
+):
+    """Run a compiled predicate program (`PredOp`) over ``n`` slots and
+    return its bool mask, or ``(int32 value bits, mask)`` with ``values``.
+
+    Slot i's id is ``ids[i]``, or in identity mode (``ids`` None) ``base +
+    i`` for ``i < n_valid`` and -1 past it; -1 reads every column as
+    absent. ``bufs`` are the program's buffers (1-d contiguous int32,
+    float32 or bool: column values and presence, slot-aligned binding rows,
+    code and class tables, an earlier launch's values and presence),
+    ``params`` the int32 parameter row (float32 values by their bits),
+    ``depth`` the WHILE level."""
+    if len(bufs) > PRED_BUFS:
+        raise ValueError(f"predicate_eval: {len(bufs)} buffers > {PRED_BUFS}")
+    for t in bufs:
+        _check(t, (I32, F32, torch.bool), "predicate_eval buffer")
+    ts = [prog.code, *bufs]
+    if ids is not None:
+        _check(ids, (I32,), "predicate_eval ids")
+        n = ids.shape[0]
+        ts.append(ids)
+    if params is not None:
+        _check(params, (I32,), "predicate_eval params")
+        ts.append(params)
+    if n_valid is None:
+        n_valid = n
+    if not _on_card(*ts):
+        return plain_predicate_eval(prog, bufs, ids, n, n_valid, base, depth, params, values)
+    dev = prog.code.device
+    out_p = torch.empty(n, dtype=torch.bool, device=dev)
+    out_v = torch.empty(n, dtype=I32, device=dev) if values else None
+    if n > 0:
+        args = _PredArgs()
+        args.prog = prog.code.data_ptr()
+        args.len = len(prog.rows)
+        args.ids = ids.data_ptr() if ids is not None else None
+        args.n, args.n_valid, args.base = n, n_valid, base
+        args.params = params.data_ptr() if params is not None else None
+        args.out_p = out_p.data_ptr()
+        args.out_v = out_v.data_ptr() if out_v is not None else None
+        args.depth, args.nbufs = int(depth), len(bufs)
+        for j, t in enumerate(bufs):
+            args.buf[j] = t.data_ptr()
+            args.blen[j] = t.shape[0]
+        lib = _kernels.load()
+        _launch("predicate_eval", lib.csr_predicate_eval, ctypes.byref(args), _stream(prog.code))
+    return (out_v, out_p) if values else out_p

@@ -5,12 +5,14 @@ Message–hasCreator), and their exact numpy references.
 
 The same seed gives byte-identical arrays in both packages: the random
 draws happen in the reference's order, and the CSR assembly is the
-reference's. The returned database holds the schema only, so queries run
+reference's. The ``lat``/``lng`` columns of ``build_person_knows(...,
+geo=True)`` are the port's own, from a stream of their own. The returned database holds the schema only, so queries run
 on the compiled path; parity comes from `numpy_1hop_count` /
 `numpy_2hop_count` / `numpy_config5_count` (exact int64 over the same
 arrays), for variable-depth and NOT arms from `numpy_var_depth_rows` /
-`numpy_has_out_neighbour`, and for edge bindings, OPTIONAL arms and
-binding references from the row enumerations at the end of this module.
+`numpy_has_out_neighbour`, for edge bindings, OPTIONAL arms and
+binding references from the row enumerations at the end of this module,
+and for ``distance()`` from `numpy_distance_km` (float64).
 """
 
 from __future__ import annotations
@@ -58,13 +60,17 @@ def build_person_knows(
     supernode_degree: int = 0,
     name: str = "bigshape",
     device=None,
+    geo: bool = False,
 ) -> Tuple[Database, GraphSnapshot]:
     """A Person–knows graph as (schema-only Database, attached snapshot).
 
     Properties: ``uid`` (dense id) and ``age`` (18–79) on Person.
     ``supernodes`` plants that many vertices of out-degree
-    ``supernode_degree`` on top of the Poisson base. ``device`` is the
-    database's (the card unless the caller asks for the CPU)."""
+    ``supernode_degree`` on top of the Poisson base. ``geo`` adds float32
+    ``lat`` (uniform on (-85, 85)) and ``lng`` (on (-180, 180)), each about
+    2 % absent, drawn from a stream of their own (`geo_rng`), so every other
+    array is the same as without them. ``device`` is the database's (the
+    card unless the caller asks for the CPU)."""
     rng = np.random.default_rng(seed)
     db = Database(name, device=device)
     db.schema.create_vertex_class("Person")
@@ -105,6 +111,11 @@ def build_person_knows(
             "age", "int", rng.integers(18, 80, V, dtype=np.int32), ones
         ),
     }
+    if geo:
+        grng = geo_rng(seed)
+        for cname, lim in (("lat", 85.0), ("lng", 180.0)):
+            vals = grng.uniform(-lim, lim, V).astype(np.float32)
+            snap.v_columns[cname] = PropertyColumn(cname, "float", vals, grng.random(V) >= 0.02)
     snap.edge_classes["knows"] = csr
     for c in all_classes:
         if c.is_edge_type:
@@ -115,6 +126,11 @@ def build_person_knows(
             )
     db.attach_snapshot(snap)
     return db, snap
+
+
+def geo_rng(seed: int) -> np.random.Generator:
+    """The ``lat``/``lng`` draws' own stream (apart from the graph's)."""
+    return np.random.default_rng([seed, 0x6E0])
 
 
 def build_snb_shape(
@@ -438,3 +454,10 @@ def numpy_probe_rows(snap: GraphSnapshot, n: int, d_cut: int) -> np.ndarray:
     rows = np.stack([np.repeat(p, reps), np.repeat(f, reps), np.repeat((k > 0).astype(np.int64), reps)], 1)
     return _sorted(rows)
 
+
+def numpy_distance_km(lat1, lon1, lat2, lon2) -> np.ndarray:
+    """The haversine in float64 over degrees (the reference's formula,
+    `orientdb_tpu/utils/geo.py`), km."""
+    lat1, lon1, lat2, lon2 = (np.radians(np.asarray(x, np.float64)) for x in (lat1, lon1, lat2, lon2))
+    h = np.sin((lat2 - lat1) / 2) ** 2 + np.cos(lat1) * np.cos(lat2) * np.sin((lon2 - lon1) / 2) ** 2
+    return 2.0 * 6371.0 * np.arcsin(np.sqrt(np.clip(h, 0.0, 1.0)))

@@ -357,3 +357,75 @@ def test_captured_group_replays_equal_cpu(card):
     assert any(p.direct_fetch and p.group_replays for p in plans)
     assert any(p._rows_grouped() and p.group_replays for p in plans)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 257, 70_001])
+def test_predicate_eval_equals_plain_on_card(card, n):
+    """K15 against its plain version on every instruction family of
+    `chip_smoke.K15_WHERES` (ids with padding and past-end entries, and
+    identity mode; distance() masks outside the boundary band), the class
+    lookup, and split launches against one launch."""
+    import chip_smoke
+
+    band, checked, length = chip_smoke.check_predicate_kernel(np, torch, T, n, seed=n)
+    torch.cuda.synchronize()
+    assert checked >= 2 * len(chip_smoke.K15_WHERES) and length > 40
+
+
+@pytest.mark.cuda
+def test_predicate_eval_long_program_on_card(card):
+    """A program past the kernel's shared-memory copy (a 1,000-item IN
+    list: ~4,000 instructions, read from device memory) and an empty slot
+    range, against the plain version."""
+    import chip_smoke
+    from orientdb_tpu_torch.ops.device_graph import DeviceGraph
+    from orientdb_tpu_torch.ops.predicates import ColumnScope, Predicate, compile_where
+    from orientdb_tpu_torch.sql.parser import parse
+
+    snap = chip_smoke.k15_snapshot(np, 50_000, 3)
+    dg = DeviceGraph(snap, card)
+    scope = ColumnScope(dg.columns, dg.non_columnar, device=card)
+    items = ", ".join(str(v) for v in range(-500, 500))
+    pred = Predicate([compile_where(parse(f"SELECT FROM V WHERE i IN [{items}]").where, scope, {})], card)
+    (prog,) = pred.programs
+    assert len(prog.prog.rows) * 16 > 48 * 1024
+    bufs = prog.buffers({}, [], 50_000)
+    ids = torch.from_numpy(np.random.default_rng(4).integers(-1, 50_003, 50_000).astype(np.int32)).to(card)
+    got = T.predicate_eval(prog.prog, bufs, ids, values=True)
+    want = T.plain_predicate_eval(prog.prog, bufs, ids, values=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) > 0
+    assert T.predicate_eval(prog.prog, bufs, ids[:0]).shape == (0,)
+
+
+@pytest.mark.cuda
+def test_distance_queries_on_card_equal_cpu(card):
+    """distance() MATCH shapes (a COUNT recorded then replayed at other
+    radii, miles rows) on the card against the CPU on the same graph: they
+    may differ only on slots of the boundary band (float64 distance within
+    0.01 km + 1e-5·r of r), whose count bounds the difference."""
+    import chip_smoke
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows, numpy_distance_km
+
+    kw = dict(avg_knows=6, seed=21, geo=True)
+    gpu, snap = build_person_knows(20_000, device=card, **kw)
+    cpu, _ = build_person_knows(20_000, device="cpu", **kw)
+    lat, lng = (snap.v_columns[c] for c in ("lat", "lng"))
+    d = numpy_distance_km(lat.values, lng.values, 48.0, 2.0)
+    live = lat.present & lng.present
+    count = ("MATCH {class:Person, as:p, where:(distance(lat, lng, :x, :y) < :r)} "
+             "RETURN count(*) AS n")
+    rows = ("MATCH {class:Person, as:p, where:(distance(lat, lng, 48.0, 2.0, 'mi') < :r)} "
+            "RETURN p.uid AS uid")
+    for r in (8000.0, 300.0, 2500.0):
+        band = int((chip_smoke.distance_band(np, d, r) & live).sum())
+        got = gpu.query(count, {"x": 48.0, "y": 2.0, "r": r}).to_dicts()[0]["n"]
+        want = cpu.query(count, {"x": 48.0, "y": 2.0, "r": r}).to_dicts()[0]["n"]
+        assert abs(got - want) <= band
+    for r in (2000, 1200):
+        band = set(np.flatnonzero(chip_smoke.distance_band(np, d, r / 0.621371192) & live).tolist())
+        got = {x["uid"] for x in gpu.query(rows, {"r": r}).to_dicts()}
+        want = {x["uid"] for x in cpu.query(rows, {"r": r}).to_dicts()}
+        assert (got ^ want) <= band and got
+    torch.cuda.synchronize()
