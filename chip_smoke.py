@@ -94,16 +94,40 @@ from the root of a checkout. Phases, each of which raises on failure:
    statistic, `bench.py:273`) beside the same items as sequential
    ``db.query`` calls, and one batch's busy share. K14 is held exactly
    against its plain version at BQ3's lane stack and at edge cases, and
-   timed beside its bound and the library's slice copy.
+   timed beside its bound and the library's slice copy;
+8. deltas — after phase 7a frees A, A's twin (copied before A's upload)
+   is padded with `arm_delta_maintenance(db, 65_536, 1_048_576)` (V_cap
+   8,065,536 keeps vb = 2^23; NB = 2^18 buckets of BK = 8) and uploaded.
+   D1 (a 1-hop COUNT over the roots ``uid < 100,000``: the pushdown on
+   clean topology), Q3 (k = 2000), V1 and BQ3 record and capture, then
+   the seeded write batches go through ``apply_batch`` as changefeed
+   events: W1 16,384 new persons with one out and one in ``knows`` edge
+   each plus 98,304 edges between base persons (131,072 slab edges), W2
+   age updates on 16,384 base persons (DATA only: the cached plans must
+   replay their captured graphs), W3 deletes of 4,096 slab edges by RID
+   and 256 base persons (16 of them Q3 roots) with the cascade, and W4 16
+   edges out of one person (its bucket overflows and the class switches
+   to the K17 window scan; then only Q3 at k = 200 and the direct rows
+   run). After each batch every cell equals numpy over the live host
+   arrays (the base CSR minus tombstones plus the live slab edges); no
+   bucket overflows before W4; no resident tensor is reallocated. Prints
+   each batch's maintainer host ms, bytes uploaded, K16 launches and the
+   patches' device ms, and each cell's first and second call; launch
+   counts zeroed before W1 and read after W4 (K16–K18, K10, K14, K15
+   must launch). K16 is held against its plain version on W1's segments,
+   K18 at D1's probe, K17 at Q3 k = 200's second hop after W4, each
+   timed eager and in a captured graph.
 
 The line before the last is one JSON object with every kernel's numbers
 (``launches`` from phase 5, from phase 6's replay path for
-`rows_with_matches` and from phase 7 for `group_page`; K15's time is Q1's
-node mask p); the last line is ``{"ok": true, "device": {...}}``.
+`rows_with_matches`, from phase 7 for `group_page` and from phase 8 for
+K16–K18; K15's time is Q1's node mask p); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import statistics
@@ -130,6 +154,10 @@ from orientdb_tpu_torch.storage.bigshape import (  # noqa: E402
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+#: H100 SXM float32 rate outside the tensor cores (NVIDIA data sheet): the
+#: data sheet's highest rate for 32-bit scalar operations, so an upper bound
+#: on the card's int32 compare rate too
+SCALAR_OPS_PER_S = 67e12
 F32_RTOL = 1e-6
 SOURCE = "orientdb_tpu_torch/csrc/csr_kernels.cu"
 REPLACES = {
@@ -154,24 +182,31 @@ REPLACES = {
     "rows_with_matches": "orientdb_tpu/ops/csr.py:283",
     "group_page": "orientdb_tpu/exec/tpu_engine.py:3131",
     "predicate_eval": "orientdb_tpu/ops/predicates.py:550",
+    "scatter_set": "orientdb_tpu/ops/device_graph.py:382",
+    "slab_scan": "orientdb_tpu/exec/tpu_engine.py:1007",
+    "slab_probe": "orientdb_tpu/exec/tpu_engine.py:1061",
 }
 BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop", "bitmap_emit", "frontier_advance"]
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
 #: the kernel only the batch path launches (phase 7)
 BATCH_ONLY = ("group_page",)
+#: the kernels only a delta-maintained snapshot launches (phase 8)
+DELTA_ONLY = ("scatter_set", "slab_scan", "slab_probe")
 #: the kernels of the Person–knows phases 4–5 (the OPTIONAL arm's left-join
 #: count runs on the SNB-shape phase)
-PK_KERNELS = [n for n in REPLACES if n != "rows_with_matches" and n not in BATCH_ONLY]
+PK_KERNELS = [n for n in REPLACES if n != "rows_with_matches" and n not in BATCH_ONLY + DELTA_ONLY]
 #: the kernels a Person–knows recording run launches
 RECORD_KERNELS = [n for n in PK_KERNELS if n not in REPLAY_ONLY]
 #: the kernels the SNB-shape cells E1–E5 launch while recording (no bitmap
 #: BFS there), and on their replays (no float32 overflow twin)
 E_RECORD_KERNELS = [
-    n for n in REPLACES if n not in REPLAY_ONLY and n not in BITMAP_KERNELS and n not in BATCH_ONLY
+    n for n in REPLACES
+    if n not in REPLAY_ONLY and n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY
 ]
 E_REPLAY_KERNELS = [
     n for n in REPLACES
-    if n not in BITMAP_KERNELS and n not in BATCH_ONLY and n not in ("scan_f32", "segment_sum_f32", "take_pad_f32")
+    if n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY
+    and n not in ("scan_f32", "segment_sum_f32", "take_pad_f32")
 ]
 EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
 
@@ -331,8 +366,10 @@ class Kernels:
             _require(err <= max(bound, F32_RTOL), f"{name}: |err| {err} > {bound}")
             self.err[name] = max(self.err[name], err)
 
-    def timed(self, name, kernel, plain, library, bound_bytes: float) -> None:
+    def timed(self, name, kernel, plain, library, bound_bytes: float, bound_ops: float = 0.0) -> None:
         torch = self.torch
+        t_bytes = bound_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = bound_ops / SCALAR_OPS_PER_S * 1e3
         self.rows[name] = {
             "name": name,
             "route": "cuda",
@@ -340,8 +377,8 @@ class Kernels:
             "replaces": REPLACES[name],
             "ms": _time_ms(torch, kernel),
             "plain_ms": _time_ms(torch, plain),
-            "bound_ms": bound_bytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
             "library_ms": _library_ms(torch, name, library),
         }
 
@@ -1616,7 +1653,7 @@ def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big, gref):
     age = snap.v_columns["age"].values
     n1 = numpy_1hop_count(snap, age > 40, age < 30)
     n2 = numpy_2hop_count(snap, age > 40, np.ones(V, bool), age < 30)
-    ks3 = [1000 + 62 * i for i in range(16)]
+    ks3 = [Q3_K // 2 + Q3_K // 32 * i for i in range(16)]  # 1000 + 62·i, as BQ3
     kv = list(range(9, 17))
     v2_all, v3_all = vref.v2(16), vref.v3(16)
 
@@ -1775,6 +1812,497 @@ def run_batches_snb(np, torch, K, db, snap, card):
                 "BE5: rows_with_matches never launched",
             )
     return max(c.peak_bytes for c in cells)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: delta maintenance on configuration A
+# ---------------------------------------------------------------------------
+
+#: the delta cells: a 1-hop COUNT over bounded roots (the pushdown before
+#: the writes, the full solve with a K18 probe after them), Q3, V1, BQ3
+D1 = (
+    "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f, where:(age > 40)} "
+    "RETURN count(*) AS n"
+)
+D1_K = 100_000
+D_SPARE_VERTICES, D_SPARE_EDGES = 65_536, 1_048_576
+W_PERSONS, W_EXTRA_EDGES, W_UPDATES, W_DEL_EDGES, W_DEL_PERSONS, W_FANOUT = 16_384, 98_304, 16_384, 4_096, 256, 16
+
+
+class DeltaWriter:
+    """Seeded write batches over a Person–knows graph, as the reference's
+    changefeed events (``op``, ``rid``, ``class``, ``record``). A vertex's
+    RID position is its dense index (a new person's too: it lands in the
+    next vertex slab row), and so is its ``uid``; an edge's RID position is
+    its creation count."""
+
+    def __init__(self, np, db, snap, seed: int):
+        self.np, self.snap = np, snap
+        self.rng = np.random.default_rng(seed)
+        self.pc = db.schema.get_class("Person").cluster_ids[0]
+        self.kc = db.schema.get_class("knows").cluster_ids[0]
+        self.base = snap._overlay.base_vertices
+        self.next_v = self.base
+        self.edges = []  # RIDs of the edges made, in order
+        self.dead = set()  # the persons deleted
+
+    def _person_record(self, i: int, age: int):
+        rec = {"uid": int(i), "age": int(age)}
+        for c in ("lat", "lng"):
+            col = self.snap.v_columns.get(c)
+            if col is not None and i < col.values.shape[0] and bool(col.present[i]):
+                rec[c] = float(col.values[i])
+        return rec
+
+    def person(self):
+        i = self.next_v
+        self.next_v += 1
+        age = int(self.rng.integers(18, 80))
+        return i, {"op": "create", "rid": f"#{self.pc}:{i}", "class": "Person", "record": {"uid": i, "age": age}}
+
+    def edge(self, s: int, d: int):
+        rid = f"#{self.kc}:{len(self.edges)}"
+        self.edges.append(rid)
+        return {
+            "op": "create", "rid": rid, "class": "knows",
+            "record": {"@out": f"#{self.pc}:{s}", "@in": f"#{self.pc}:{d}"},
+        }
+
+    def w1(self, persons: int, extra: int):
+        """New persons, each with one out and one in edge to a random base
+        person, and edges between random base persons."""
+        ev = []
+        for _ in range(persons):
+            i, e = self.person()
+            ev.append(e)
+            a, b = (int(x) for x in self.rng.integers(0, self.base, 2))
+            ev += [self.edge(i, a), self.edge(b, i)]
+        for s, d in self.rng.integers(0, self.base, (extra, 2)).tolist():
+            ev.append(self.edge(s, d))
+        return ev
+
+    def w2(self, n: int):
+        """Age updates on distinct random base persons (DATA only): each
+        record carries every columnar field, as a changefeed's does."""
+        ids = self.rng.choice(self.base, n, replace=False)
+        return [
+            {"op": "update", "rid": f"#{self.pc}:{int(i)}", "class": "Person",
+             "record": self._person_record(int(i), int(self.rng.integers(18, 80)))}
+            for i in ids
+        ]
+
+    def w3(self, edges: int, persons: int, low_uid: int):
+        """Deletes: slab edges by RID, then base persons (a sixteenth of
+        them under ``low_uid``, inside the cells' roots), with the
+        cascade."""
+        picks = self.rng.choice(len(self.edges), edges, replace=False)
+        ev = [{"op": "delete", "rid": self.edges[int(j)]} for j in picks]
+        low = self.rng.choice(low_uid, persons // 16, replace=False)
+        high = self.rng.integers(low_uid, self.base, persons - low.shape[0])
+        self.dead = set(low.tolist()) | set(high.tolist())
+        for i in sorted(self.dead):
+            ev.append({"op": "delete", "rid": f"#{self.pc}:{int(i)}", "class": "Person"})
+        return ev
+
+    def w4(self, src: int, n: int):
+        """``n`` edges out of one person to live base persons: its out
+        bucket overflows."""
+        ev = []
+        for d in self.rng.integers(0, self.base, n).tolist():
+            while d in self.dead:
+                d = int(self.rng.integers(0, self.base))
+            ev.append(self.edge(src, d))
+        return ev
+
+
+class DRef:
+    """numpy answers of the delta cells, kept apart from the maintainer
+    under test: the base graph as copied before arming, and the write
+    batches' events read by their plain meaning (a created person or edge
+    exists, an update sets ``age``, a deleted person takes every edge at
+    either end with it)."""
+
+    def __init__(self, np, db, snap):
+        self.np = np
+        self.pc = db.schema.get_class("Person").cluster_ids[0]
+        csr = snap.edge_classes["knows"]
+        n = snap.num_vertices
+        cap = n + D_SPARE_VERTICES
+        ip = csr.indptr_out.astype(np.int64)
+        self.ip = np.concatenate([ip, np.full(cap - n, ip[-1])])  # new persons: no base edges
+        self.dst = csr.dst.copy()
+        self.alive = np.zeros(cap, bool)
+        self.alive[:n] = snap.v_class >= 0
+        self.person = np.zeros(cap, bool)
+        self.person[:n] = snap.v_class == snap.class_id_of["person"]
+        self.age = np.zeros(cap, np.int64)
+        self.age[:n] = snap.v_columns["age"].values
+        self.uid = np.zeros(cap, np.int64)
+        self.uid[:n] = snap.v_columns["uid"].values
+        self.made = {}  # edge RID -> (out, in) positions, of the edges the batches made
+        self.refresh()
+
+    def apply(self, events):
+        def pos(rid):
+            c, p = rid.lstrip("#").split(":")
+            return int(c), int(p)
+
+        for ev in events:
+            c, p = pos(ev["rid"])
+            if ev["op"] == "delete":
+                if c == self.pc:
+                    self.alive[p] = False
+                else:
+                    del self.made[ev["rid"]]
+            elif c == self.pc:
+                rec = ev["record"]
+                self.alive[p] = self.person[p] = True
+                self.uid[p], self.age[p] = rec["uid"], rec["age"]
+            else:
+                rec = ev["record"]
+                self.made[ev["rid"]] = (pos(rec["@out"])[1], pos(rec["@in"])[1])
+
+    def refresh(self):
+        """Index the live made edges by their source."""
+        np = self.np
+        e = np.array(list(self.made.values()), np.int64).reshape(-1, 2)
+        e = e[self.alive[e[:, 0]] & self.alive[e[:, 1]]]
+        order = np.argsort(e[:, 0], kind="stable")
+        self.s_src, self.s_dst = e[order, 0], e[order, 1]
+
+    def out(self, srcs):
+        """(index into ``srcs``, neighbour) of every live out edge."""
+        np = self.np
+        deg = self.ip[srcs + 1] - self.ip[srcs]
+        i = np.repeat(np.arange(srcs.shape[0]), deg)
+        pos = np.repeat(self.ip[srcs] - (np.cumsum(deg) - deg), deg) + np.arange(int(deg.sum()))
+        nb = self.dst[pos].astype(np.int64)
+        keep = self.alive[srcs[i]] & self.alive[nb]
+        lo = np.searchsorted(self.s_src, srcs, "left")
+        cnt = np.searchsorted(self.s_src, srcs, "right") - lo
+        i2 = np.repeat(np.arange(srcs.shape[0]), cnt)
+        pos2 = np.repeat(lo - (np.cumsum(cnt) - cnt), cnt) + np.arange(int(cnt.sum()))
+        return np.concatenate([i[keep], i2]), np.concatenate([nb[keep], self.s_dst[pos2]])
+
+    def roots(self, k: int):
+        return self.np.flatnonzero(self.alive & self.person & (self.uid < k)).astype(self.np.int64)
+
+    def d1(self, k: int) -> int:
+        _i, f = self.out(self.roots(k))
+        return int((self.alive[f] & (self.age[f] > 40)).sum())
+
+    def q3(self, k: int):
+        np = self.np
+        r = self.roots(k)
+        i, f = self.out(r)
+        j, g = self.out(f)
+        keep = self.alive[g] & (self.age[g] < 30)
+        rows = np.stack([self.uid[r[i[j]]], self.uid[f[j]], self.uid[g]], 1)[keep].astype(np.int64)
+        return rows[np.lexsort(rows.T[::-1])]
+
+    def direct(self, k: int):
+        np = self.np
+        r = self.roots(k)
+        i, f = self.out(r)
+        rows = np.stack([self.uid[r[i]], self.uid[f]], 1).astype(np.int64)
+        return rows[np.lexsort(rows.T[::-1])]
+
+    def v1(self) -> int:
+        np = self.np
+        n = 0
+        for r in self.roots(200):
+            frontier = np.array([r], np.int64)
+            seen = frontier
+            for depth in range(4):
+                n += int((self.alive[frontier] & (self.age[frontier] < 30)).sum())
+                if depth == 3:
+                    break
+                _i, nb = self.out(frontier)
+                frontier = np.setdiff1d(np.unique(nb), seen)
+                seen = np.union1d(seen, frontier)
+        return n
+
+
+def _delta_cells(np, dref):
+    """cell → (sql, params, check of the rows)."""
+    def count_is(want):
+        return lambda rows: _require(rows == [{"n": want()}], f"count {rows} != numpy {want()}")
+
+    def rows_are(want, names):
+        return lambda rows: _require(
+            np.array_equal(_sorted_rows(np, rows, names), want()), "rows differ from numpy"
+        )
+
+    return {
+        "D1": (D1, {"k": D1_K}, count_is(lambda: dref.d1(D1_K))),
+        "Q3": (Q3, {"k": Q3_K}, rows_are(lambda: dref.q3(Q3_K), ("p", "f", "g"))),
+        "V1": (V1, {}, count_is(dref.v1)),
+    }
+
+
+def run_deltas(np, torch, K, TE, ks, db, snap, card):
+    """Phase 8: delta maintenance on configuration A, padded before its
+    upload. Records D1, Q3, V1 and BQ3, then applies W1–W4 through
+    `apply_batch`, each cell after each batch held against numpy over the
+    live arrays. Returns the kernels' launches over the phase."""
+    from orientdb_tpu_torch.ops.device_graph import device_graph
+    from orientdb_tpu_torch.storage.deltas import arm_delta_maintenance
+
+    sync = torch.cuda.synchronize
+    dref = DRef(np, db, snap)
+    t0 = time.perf_counter()
+    m = arm_delta_maintenance(db, D_SPARE_VERTICES, D_SPARE_EDGES)
+    ov = snap._overlay
+    dg = device_graph(snap, db.device)
+    sync()
+    vb = K.bucket(snap.num_vertices)
+    _require(vb == K.bucket(ov.base_vertices), f"padding to {snap.num_vertices} vertices grew vb to {vb}")
+    mem = dg.memory_report()
+    slab_bytes = sum(
+        a.numel() * a.element_size() for k, a in dg.arrays.items() if k.startswith("bk:") or k.endswith(":live")
+    )
+    print(
+        f"delta: A padded to V_cap={snap.num_vertices} E_cap={snap.edge_classes['knows'].num_edges} "
+        f"(NB={ov.bk_nb}, BK={ov.bk_bk}), uploaded in {time.perf_counter() - t0:.1f} s; resident "
+        f"{mem['total_bytes']} bytes, of them live mask + bucket tables {slab_bytes} bytes"
+    )
+    cells = _delta_cells(np, dref)
+    ks3 = [Q3_K // 2 + Q3_K // 32 * i for i in range(16)]  # 1000 + 62·i, as BQ3
+
+    def bq3():
+        """BQ3 (Q3 × 16 through query_batch, rows built); returns its ms
+        (the check against numpy after it is not timed)."""
+        t = time.perf_counter()
+        got = [rs.to_dicts() for rs in db.query_batch([Q3] * 16, [{"k": k} for k in ks3])]
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        every = dref.q3(Q3_K)
+        for k, rows in zip(ks3, got):
+            want = every[every[:, 0] < k]
+            _require(np.array_equal(_sorted_rows(np, rows, ("p", "f", "g")), want), f"BQ3 k={k}")
+        return ms
+
+    def run_cells(tag, names=("D1", "Q3", "V1"), batch=True):
+        out = []
+        for name in names:
+            sql, params, check = cells[name]
+            for call in ("first", "second"):
+                t = time.perf_counter()
+                rows = db.query(sql, params).to_dicts()
+                sync()
+                out.append(f"{name} {call} {(time.perf_counter() - t) * 1e3:.3f} ms")
+                check(rows)
+            v = _only_plan(TE, snap, sql)
+            out[-1] += f" [{len(v.plans)} plan(s), {v.plans[0].replays} replays]"
+        if batch:
+            out.append(f"BQ3 {bq3():.3f} ms")
+        print(f"delta {tag}: " + "; ".join(out) + " (each equal to numpy)")
+
+    run_cells("before the writes (first call records and captures)")
+    _require(ov.plan_gen == 0, "a plan generation moved before any write")
+    d1_plan = _only_plan(TE, snap, D1).plans[0]
+    _require(d1_plan.solver._count_pushdown_steps(), "D1 does not take the pushdown on clean topology")
+    ptrs = {k: a.data_ptr() for k, a in dg.arrays.items()}
+
+    writer = DeltaWriter(np, db, snap, seed=8)
+    K.reset_launches()
+    batches = [
+        ("W1", lambda: writer.w1(W_PERSONS, W_EXTRA_EDGES)),
+        ("W2", lambda: writer.w2(W_UPDATES)),
+        ("W3", lambda: writer.w3(W_DEL_EDGES, W_DEL_PERSONS, Q3_K)),
+    ]
+    for tag, make in batches:
+        plans = {n: _only_plan(TE, snap, cells[n][0]).plans[0] for n in cells} if tag == "W2" else None
+        gen = ov.plan_gen
+        events = make()
+        n_events = len(events)
+        t = time.perf_counter()
+        ok = m.apply_batch(events)
+        sync()
+        host_ms = (time.perf_counter() - t) * 1e3
+        _require(ok, f"{tag} poisoned the overlay: {ov.poisoned}")
+        t = time.perf_counter()
+        dref.apply(events)
+        dref.refresh()
+        ref_s = time.perf_counter() - t
+        # the batch's event dicts go before the cells are timed: the
+        # collector would otherwise walk them inside a query's time
+        del events
+        gc.collect()
+        print(
+            f"delta {tag}: {n_events} events, maintainer {host_ms:.1f} ms (host, to the last patch), "
+            f"uploaded {m.last['upload_bytes']} bytes, K16 launches {m.last['launches']}, patches on the "
+            f"card {m.patch_device_ms():.3f} ms; plan_gen {gen} -> {ov.plan_gen}; overlay {ov.stats()}"
+        )
+        print(f"delta {tag}: numpy reference applied the events in {ref_s:.1f} s")
+        if tag == "W2":
+            _require(ov.plan_gen == gen, "a DATA-only batch moved the plan generation")
+            before = {n: (p.graph, p.replays) for n, p in plans.items()}
+        run_cells(f"after {tag}")
+        if tag == "W1":
+            _require(ov.plan_gen == gen + 1 and ov.topology_dirty, "W1 did not re-record once")
+            _require(not _only_plan(TE, snap, D1).plans[0].solver._count_pushdown_steps(), "D1 kept the pushdown")
+        if tag == "W2":
+            for n, p in plans.items():
+                now = _only_plan(TE, snap, cells[n][0]).plans
+                _require(now == [p] and p.graph is before[n][0] and p.replays == before[n][1] + 2,
+                         f"{n} did not replay its captured graph after a DATA-only batch")
+        _require(not ov.bucket_overflow, f"{tag} overflowed a bucket: {ov.bucket_overflow}")
+    _require(all(dg.arrays[k].data_ptr() == p for k, p in ptrs.items()), "a patch reallocated a resident tensor")
+    path = dict(K.LAUNCHES)
+    for name in ("scatter_set", "slab_probe", "predicate_eval", "bitmap_hop", "group_page"):
+        _require(path[name] > 0, f"{name} never launched in the delta phase")
+    check_delta_kernels(np, torch, K, ks, dg, snap)
+
+    # W4: one person's out bucket overflows, the class switches to K17
+    K.reset_launches()
+    src = int(dref.roots(200)[0])
+    events = writer.w4(src, W_FANOUT)
+    gen = ov.plan_gen
+    t = time.perf_counter()
+    m.apply_batch(events)
+    sync()
+    print(
+        f"delta W4: {len(events)} events, maintainer {(time.perf_counter() - t) * 1e3:.1f} ms, uploaded "
+        f"{m.last['upload_bytes']} bytes, K16 launches {m.last['launches']}; plan_gen {gen} -> {ov.plan_gen}; "
+        f"bucket_overflow {sorted(ov.bucket_overflow)}"
+    )
+    _require(ov.bucket_overflow == {"knows"} and ov.plan_gen > gen, "W4 did not overflow the bucket")
+    dref.apply(events)
+    dref.refresh()
+    small = {"Q3": (Q3, {"k": 200}, lambda rows: _require(
+        np.array_equal(_sorted_rows(np, rows, ("p", "f", "g")), dref.q3(200)), "Q3 k=200 after W4")),
+        "direct": (Q_DIRECT, {"k": Q_DIRECT_K}, lambda rows: _require(
+            np.array_equal(_sorted_rows(np, rows, ("p", "f")), dref.direct(Q_DIRECT_K)), "direct after W4"))}
+    cells.update(small)
+    run_cells("after W4", names=("Q3", "direct"), batch=False)
+    w4 = dict(K.LAUNCHES)
+    _require(w4["slab_scan"] > 0 and w4["slab_probe"] == 0, f"W4's cells did not scan the slab: {w4}")
+    check_slab_scan(torch, K, ks, dg, snap, src)
+    for name in ("scatter_set", "slab_scan", "slab_probe"):
+        path[name] += w4[name]
+    return path
+
+
+def check_delta_kernels(np, torch, K, ks, dg, snap):
+    """K16 against its plain version at W1's segments (the dst and live
+    slots of 131,072 new edges), on copies of the resident arrays; K18 at
+    D1's probe (the 100,000 roots of `uid < 100,000`); each timed, and in
+    a captured graph, beside its bound; their launches are not counted."""
+    counted = dict(K.LAUNCHES)
+    dev = dg.device
+    ov = snap._overlay
+    sl = ov.edge_slabs["knows"]
+    dec = dg.edges["knows"]
+    S = sl.next_slot - sl.base
+    idx = torch.arange(sl.base, sl.next_slot, dtype=torch.int32, device=dev)
+    for arr in (dec.dst, dec.live, dg.columns["age"].values):
+        n = min(S, arr.shape[0])
+        ii = idx[:n] if arr.shape[0] > sl.base else torch.arange(n, dtype=torch.int32, device=dev)
+        vals = arr[ii.long()].flip(0).contiguous()
+        a, b = arr.clone(), arr.clone()
+        K.scatter_set(a, ii, vals)
+        K.plain_scatter_set(b, ii, vals)
+        ks.same("scatter_set", a, b)
+    a = dec.dst.clone()
+    vals = dec.dst[idx.long()].contiguous()
+    idx64 = idx.long()
+    w = 4
+    ks.timed(
+        "scatter_set",
+        lambda: K.scatter_set(a, idx, vals),
+        lambda: K.plain_scatter_set(a, idx, vals),
+        lambda: a.index_put_((idx64,), vals),
+        S * (4.0 + w) + S * w,
+    )
+    g_ms = _graph_ms(torch, lambda: K.scatter_set(a, idx, vals))
+    srcs = torch.full((K.bucket(D1_K),), -1, dtype=torch.int32, device=dev)
+    srcs[:D1_K] = torch.arange(D1_K, dtype=torch.int32, device=dev)
+    tab = dg.arrays["bk:knows:out"]
+    out = [0]
+
+    def size_for(total):
+        out[0] = max(K.bucket(int(total)), 8)
+        return out[0]
+
+    got = K.slab_probe(tab, dec.edge_src, dec.dst, dec.live, srcs, sl.base, ov.bk_nb, ov.bk_bk, size_for)
+    want = K.plain_slab_probe(tab, dec.edge_src, dec.dst, dec.live, srcs, sl.base, ov.bk_nb, ov.bk_bk, size_for)
+    ks.same("slab_probe", got, want)
+    n = out[0]
+    fixed = lambda t: n  # noqa: E731 — no host read: capturable
+    R, BK = srcs.shape[0], ov.bk_bk
+    # what this probe reads: every source, the BK entries of each real
+    # source's bucket, the owning endpoint and liveness behind each filled
+    # entry, a neighbour per match; and the n output slots it writes
+    host_tab = ov.bk["knows"]["out"].reshape(ov.bk_nb, BK)
+    filled = int((host_tab[np.arange(D1_K) & (ov.bk_nb - 1)] >= 0).sum())
+    matches = int(want[3])
+    ks.timed(
+        "slab_probe",
+        lambda: K.slab_probe(tab, dec.edge_src, dec.dst, dec.live, srcs, sl.base, ov.bk_nb, BK, fixed),
+        lambda: K.plain_slab_probe(tab, dec.edge_src, dec.dst, dec.live, srcs, sl.base, ov.bk_nb, BK, fixed),
+        None,
+        R * 4.0 + D1_K * BK * 4.0 + filled * 5.0 + matches * 4.0 + n * 12.0,
+    )
+    p_ms = _graph_ms(torch, lambda: K.slab_probe(tab, dec.edge_src, dec.dst, dec.live, srcs, sl.base, ov.bk_nb, BK, fixed))
+    print(
+        f"kernel scatter_set: equals its plain version on W1's segments ({S} slots of dst, live, age); "
+        f"{ks.rows['scatter_set']['ms']:.4f} ms ({g_ms:.4f} in a graph), bound {ks.rows['scatter_set']['bound_ms']:.4f}; "
+        f"kernel slab_probe: equals its plain version at D1's probe (R={R}, BK={BK}, total {int(want[3])}); "
+        f"{ks.rows['slab_probe']['ms']:.4f} ms ({p_ms:.4f} in a graph), bound {ks.rows['slab_probe']['bound_ms']:.4f} "
+        f"({filled} filled bucket entries probed)"
+    )
+    K.LAUNCHES.update(counted)
+
+
+def check_slab_scan(torch, K, ks, dg, snap, src: int):
+    """K17 against its plain version at the shape of Q3 k=200's second hop
+    after W4 (the 2-hop frontier of the roots, the used slab window), and
+    with padding rows and a truncating capacity; timed, and in a captured
+    graph, beside its bound; its launches are not counted."""
+    from orientdb_tpu_torch.exec.tpu_engine import _cap_of
+
+    counted = dict(K.LAUNCHES)
+    dev = dg.device
+    sl = snap._overlay.edge_slabs["knows"]
+    dec = dg.edges["knows"]
+    used = sl.next_slot - sl.base
+    W = min(sl.cap - sl.base, _cap_of(used))
+    a, e, lv = (t[sl.base : sl.base + W] for t in (dec.edge_src, dec.dst, dec.live))
+    csr = snap.edge_classes["knows"]
+    f = csr.dst[csr.indptr_out[0] : csr.indptr_out[200]]
+    f = f[f >= 0]
+    R = K.bucket(f.shape[0])
+    srcs = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    srcs[: f.shape[0]] = torch.from_numpy(f.astype("int32")).to(dev)
+    srcs[0] = src  # the overflowed person
+    out = [0]
+
+    def size_for(total):
+        out[0] = max(_cap_of(int(total)), 8)
+        return out[0]
+
+    ks.same("slab_scan", K.slab_scan(a, e, lv, srcs, sl.base, size_for),
+            K.plain_slab_scan(a, e, lv, srcs, sl.base, size_for))
+    ks.same("slab_scan", K.slab_scan(a, e, lv, srcs, sl.base, lambda t: 8),
+            K.plain_slab_scan(a, e, lv, srcs, sl.base, lambda t: 8))
+    n = out[0]
+    fixed = lambda t: n  # noqa: E731
+    ks.timed(
+        "slab_scan",
+        lambda: K.slab_scan(a, e, lv, srcs, sl.base, fixed),
+        lambda: K.plain_slab_scan(a, e, lv, srcs, sl.base, fixed),
+        None,
+        R * 4.0 + W * 9.0 + n * 12.0,
+        f.shape[0] * float(W),  # a compare per (real source, window slot)
+    )
+    g_ms = _graph_ms(torch, lambda: K.slab_scan(a, e, lv, srcs, sl.base, fixed))
+    print(
+        f"kernel slab_scan: equals its plain version at R={R}, W={W} (used {used}); "
+        f"{ks.rows['slab_scan']['ms']:.4f} ms ({g_ms:.4f} in a graph), bound {ks.rows['slab_scan']['bound_ms']:.4f} "
+        f"({ks.rows['slab_scan']['bound_by']}: {f.shape[0] * W} compares)"
+    )
+    K.LAUNCHES.update(counted)
 
 
 # ---------------------------------------------------------------------------
@@ -1984,6 +2512,9 @@ def main() -> int:
     # the SF100-shape graph (set-up: host build, then upload)
     t0 = time.perf_counter()
     db, snap = build_person_knows(8_000_000, avg_knows=10, seed=5, geo=True)
+    # phase 8's twin of A, copied before A's upload: it is padded for
+    # deltas before its own
+    ddb = copy.deepcopy(db)
     dg = device_graph(snap, db.device)
     torch.cuda.synchronize()
     print(
@@ -2070,6 +2601,21 @@ def main() -> int:
         f"graph Person–knows: resident {pk_mem['total_bytes']} bytes {pk_mem['per_device']}, "
         f"peak allocated {pk_peak} bytes; allocated after freeing it {torch.cuda.memory_allocated()} bytes"
     )
+    # 8. delta maintenance on A's twin, padded before its upload
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    delta_launches = run_deltas(np, torch, K, TE, ks, ddb, ddb.current_snapshot(), card)
+    TE._plan_cache(ddb.current_snapshot()).clear()
+    print(
+        f"delta phase: {time.perf_counter() - t0:.1f} s; launches {delta_launches}; peak allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes"
+    )
+    del ddb
+    gc.collect()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sdb, ssnap = build_snb_shape(8_000_000, msgs_per_person=2, avg_knows=10, seed=7)
@@ -2115,6 +2661,8 @@ def main() -> int:
     launches["rows_with_matches"] = e_launches["rows_with_matches"]
     for name in BATCH_ONLY:
         launches[name] = batch_launches[name]
+    for name in DELTA_ONLY:
+        launches[name] = delta_launches[name]
 
     for name, row in ks.rows.items():
         row["launches"] = launches[name]

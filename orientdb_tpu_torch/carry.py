@@ -13,14 +13,18 @@ schema has. ``arrays`` holds:
 
 - ``num_vertices``, ``v_class``, ``class_names``, ``class_id_of``,
   ``class_closure``, ``class_vertex_range``, ``edge_closure``;
+- ``v_cluster`` / ``v_position`` (optional): each vertex's RID, from which
+  the snapshot's ``rid_to_idx`` lookup is built (cluster -1 where a vertex
+  has none; all -1 when absent);
 - ``v_columns``: property name → ``{"kind", "values", "present",
   "dictionary"}``, and ``v_non_columnar`` (optional): the property names
   seen without a columnar encoding, which predicates must refuse;
 - ``edge_classes``: class name → ``{"indptr_out", "dst", "indptr_in",
   "src", "edge_id_in"}``, and optionally ``"columns"`` (edge property name
-  → a column as in ``v_columns``, indexed by edge id in out-CSR order) and
+  → a column as in ``v_columns``, indexed by edge id in out-CSR order),
   ``"non_columnar"`` (the edge property names without a columnar
-  encoding).
+  encoding) and ``"e_cluster"`` / ``"e_position"`` (each edge's RID by
+  edge id, cluster -1 where it has none).
 """
 
 from __future__ import annotations
@@ -70,6 +74,9 @@ def snapshot_from_arrays(
     snap = GraphSnapshot()
     snap.num_vertices = int(arrays["num_vertices"])
     snap.v_class = _i32(arrays["v_class"])
+    none = np.full(snap.num_vertices, -1, np.int32)
+    snap.v_cluster = _i32(arrays.get("v_cluster", none))
+    snap.v_position = _i32(arrays.get("v_position", none))
     snap.class_names = list(arrays["class_names"])
     snap.class_id_of = dict(arrays["class_id_of"])
     snap.class_closure = {k: _i32(v) for k, v in arrays["class_closure"].items()}
@@ -85,6 +92,9 @@ def snapshot_from_arrays(
             setattr(csr, key, _i32(e[key]))
         csr.edge_columns = _columns(e.get("columns", {}))
         csr.non_columnar = set(e.get("non_columnar", ()))
+        if "e_cluster" in e:
+            csr.e_cluster = _i32(e["e_cluster"])
+            csr.e_position = _i32(e["e_position"])
         snap.edge_classes[cname] = csr
     db.attach_snapshot(snap)
     return db, snap

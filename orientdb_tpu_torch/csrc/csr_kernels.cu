@@ -1,11 +1,14 @@
 // Hand-written Hopper (sm_90a) kernels for the CSR primitives of the
 // compiled MATCH path, the bitmap BFS of variable-depth and NOT arms, the
-// result stage of a captured replay, the page of a batch's rows group and the
-// interpreter of a compiled WHERE program.
+// result stage of a captured replay, the page of a batch's rows group, the
+// interpreter of a compiled WHERE program, and the delta path: the in-place
+// patch scatter and the two append-slab expansions.
 // Port of the jitted functions of
 // orientdb_tpu/ops/csr.py (the OPTIONAL arm's rows_with_matches among them)
 // and of the level emission, level step, front-pack,
-// meta, page and group-page functions of orientdb_tpu/exec/tpu_engine.py; the wrappers
+// meta, page, group-page and slab-expansion functions of
+// orientdb_tpu/exec/tpu_engine.py and of DeviceGraph.apply_patches in
+// orientdb_tpu/ops/device_graph.py; the wrappers
 // are in orientdb_tpu_torch/ops/csr.py and bind these functions through
 // ctypes (orientdb_tpu_torch/ops/_kernels.py).
 //
@@ -972,6 +975,197 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K16: scatter_set (replaces device_graph.apply_patches :382, the
+// `arr.at[idx].set(vals)` of one delta key).
+// Bound: S*(4 + w) bytes read (index and value) + S*w written, w = 4 (int32,
+// float32) or 1 (bool).
+// Design: one thread per (index, value) pair, a plain store into the
+// resident array, in place: a captured replay keeps the array's pointer.
+// The maintainer keeps one (phase, value) per cell and the pow2 padding
+// repeats the last pair, so repeated indices always carry the same value
+// and no atomics are needed. An index outside [0, len) is dropped (the
+// wrapper refuses such a segment before it uploads it).
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void scatter_set_kernel(T* __restrict__ arr, long long len,
+                                   const int* __restrict__ idx,
+                                   const T* __restrict__ vals, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += stride) {
+    const long long j = idx[i];
+    if (j >= 0 && j < len) arr[j] = vals[i];
+  }
+}
+
+// Sum of one value per thread across the block, returned to every thread.
+__device__ unsigned block_sum(unsigned v, unsigned* warp_sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  unsigned t = 0u;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) t += warp_sums[k];
+  __syncthreads();
+  return t;
+}
+
+// ---------------------------------------------------------------------------
+// K17: slab_scan (replaces tpu_engine._expand_slab :1007, the window scan a
+// class falls back to once one of its slab buckets overflowed).
+// Bound: the larger of R*4 (sources) + W*(4 + 4 + 1) bytes (the window's
+// active and emitted endpoints and liveness) read plus the output, and the
+// R*W compares (rows with a source times window slots), the reference's own
+// cost, at the card's 32-bit scalar rate.
+// Design: the [R, W] match mask is never stored. A count pass gives each
+// row its matches (kSlabRows rows a block, each window entry loaded once
+// for all of them); the exclusive scan of the counts (K1) gives each row
+// its output offset; an emit pass, one block per row with matches, walks
+// the window in order and writes (row, base + j, e[j]) at offset + rank,
+// ranks from a block scan, and stops after the row's last match:
+// row-major order, as compact_indices over the reshaped mask gives it.
+// Slots from the total to the capacity get -1.
+// ---------------------------------------------------------------------------
+constexpr int kSlabRows = 8;
+
+__global__ void slab_scan_count_kernel(const int* __restrict__ a,
+                                       const unsigned char* __restrict__ live, long long w,
+                                       const int* __restrict__ srcs, long long r,
+                                       int* __restrict__ counts) {
+  __shared__ unsigned warp_sums[kWarps];
+  for (long long r0 = blockIdx.x * static_cast<long long>(kSlabRows); r0 < r;
+       r0 += static_cast<long long>(gridDim.x) * kSlabRows) {
+    int src[kSlabRows];
+    unsigned c[kSlabRows];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < kSlabRows; ++k) {
+      src[k] = r0 + k < r ? srcs[r0 + k] : -1;
+      c[k] = 0u;
+      any = any || src[k] >= 0;
+    }
+    if (any) {  // uniform across the block
+      for (long long j = threadIdx.x; j < w; j += blockDim.x) {
+        if (!live[j]) continue;
+        const int x = a[j];
+#pragma unroll
+        for (int k = 0; k < kSlabRows; ++k) c[k] += (src[k] >= 0 && x == src[k]) ? 1u : 0u;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSlabRows; ++k) {
+      const unsigned t = block_sum(c[k], warp_sums);
+      if (threadIdx.x == 0 && r0 + k < r) counts[r0 + k] = static_cast<int>(t);
+    }
+  }
+}
+
+__global__ void slab_scan_emit_kernel(const int* __restrict__ a, const int* __restrict__ e,
+                                      const unsigned char* __restrict__ live, long long w,
+                                      const int* __restrict__ srcs,
+                                      const int* __restrict__ counts,
+                                      const int* __restrict__ offsets, long long r,
+                                      const int* __restrict__ total, int base, long long out,
+                                      int* __restrict__ row_o, int* __restrict__ eid_o,
+                                      int* __restrict__ nbr_o) {
+  __shared__ unsigned warp_sums[kWarps];
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  long long t = *total;
+  if (t < 0) t = 0;
+  for (long long q = t + blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; q < out;
+       q += stride) {
+    row_o[q] = -1;
+    eid_o[q] = -1;
+    nbr_o[q] = -1;
+  }
+  for (long long row = blockIdx.x; row < r; row += gridDim.x) {
+    const int src = srcs[row];
+    if (src < 0 || counts[row] == 0) continue;  // uniform across the block
+    long long pos = offsets[row];
+    const long long end = pos + counts[row];  // past the row's last hit
+    for (long long j0 = 0; j0 < w && pos < end && pos < out; j0 += blockDim.x) {
+      const long long j = j0 + threadIdx.x;
+      const unsigned hit = (j < w && live[j] && a[j] == src) ? 1u : 0u;
+      const unsigned rank = block_exclusive_scan<unsigned>(hit, warp_sums);
+      if (hit) {
+        const long long q = pos + rank;
+        if (q < out) {
+          row_o[q] = static_cast<int>(row);
+          eid_o[q] = base + static_cast<int>(j);
+          nbr_o[q] = e[j];
+        }
+      }
+      pos += __syncthreads_count(hit);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K18: slab_probe (replaces tpu_engine._expand_slab_bucketed :1061, the
+// usual slab path).
+// Bound: R*4 bytes (sources) + (rows with a source)*BK*4 (their buckets'
+// entries) + (filled entries probed)*(4 + 1) (the owning endpoint and
+// liveness behind each) + matches*4 (their neighbours) read, plus the
+// decode's output (12 bytes a slot); a -1 source and an empty entry read
+// nothing behind the table.
+// Design: one thread per (row, bucket slot) probes bucket src & (NB-1) (a
+// -1 source masks to the last bucket, as in the reference, and matches
+// nothing) and writes the match flag and the relative slot; the existing
+// compact_indices (K3) compacts the flags in row-major order; the decode
+// pass, one thread per output slot, writes (row, base + rel, nbr_a[base +
+// rel]), -1 past the compacted count.
+// ---------------------------------------------------------------------------
+__global__ void slab_probe_kernel(const int* __restrict__ tab, const int* __restrict__ own,
+                                  const unsigned char* __restrict__ live, long long ecap,
+                                  const int* __restrict__ srcs, long long r, int nb, int bk,
+                                  int base, unsigned char* __restrict__ mask,
+                                  int* __restrict__ rel_o) {
+  const long long n = r * bk;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += stride) {
+    const long long row = i / bk;
+    const int slot = static_cast<int>(i - row * bk);
+    const int src = srcs[row];
+    const int b = src & (nb - 1);
+    const int rel = tab[static_cast<long long>(b) * bk + slot];
+    bool m = false;
+    if (rel >= 0 && src >= 0) {
+      const long long at = static_cast<long long>(base) + rel;
+      m = at < ecap && own[at] == src && live[at] != 0;
+    }
+    mask[i] = m ? 1 : 0;
+    rel_o[i] = rel;
+  }
+}
+
+__global__ void slab_decode_kernel(const int* __restrict__ idx, long long out,
+                                   const int* __restrict__ rel, int bk, int base,
+                                   const int* __restrict__ nbr_a, long long ecap,
+                                   int* __restrict__ row_o, int* __restrict__ eid_o,
+                                   int* __restrict__ nbr_o) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; q < out;
+       q += stride) {
+    const int i = idx[q];
+    if (i < 0) {
+      row_o[q] = -1;
+      eid_o[q] = -1;
+      nbr_o[q] = -1;
+      continue;
+    }
+    const int eid = base + rel[i];
+    const long long at = eid < 0 ? 0 : (eid < ecap ? eid : ecap - 1);
+    row_o[q] = i / bk;
+    eid_o[q] = eid;
+    nbr_o[q] = nbr_a[at];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1282,6 +1476,88 @@ int csr_predicate_eval(const void* args, void* stream) {
   const long long bytes = a.len * static_cast<long long>(sizeof(int4));
   const int smem = bytes <= kProgSmem ? static_cast<int>(bytes) : 0;
   predicate_eval_kernel<<<grid_for(a.n, 1), kThreads, smem, s>>>(a, smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `arr` (`len` elements of `elem` bytes: 4 for int32 and float32, 1 for
+// bool) receives vals[i] at idx[i] for i < n, in place.
+int csr_scatter_set(void* arr, long long len, const void* idx, const void* vals, long long n,
+                    int elem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (elem == 4) {
+    scatter_set_kernel<unsigned><<<grid_for(n, 1), kThreads, 0, s>>>(
+        static_cast<unsigned*>(arr), len, static_cast<const int*>(idx),
+        static_cast<const unsigned*>(vals), n);
+  } else if (elem == 1) {
+    scatter_set_kernel<unsigned char><<<grid_for(n, 1), kThreads, 0, s>>>(
+        static_cast<unsigned char*>(arr), len, static_cast<const int*>(idx),
+        static_cast<const unsigned char*>(vals), n);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Per row r < `r`, the live window entries j < `w` with a[j] == srcs[r]
+// (0 for a padding row): int32 `counts`.
+int csr_slab_scan_count(const void* a, const void* live, long long w, const void* srcs,
+                        long long r, void* counts, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (r <= 0) return static_cast<int>(cudaGetLastError());
+  long long blocks = (r + kSlabRows - 1) / kSlabRows;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  slab_scan_count_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const int*>(a), static_cast<const unsigned char*>(live), w,
+      static_cast<const int*>(srcs), r, static_cast<int*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The matches of csr_slab_scan_count in row-major order into `out` slots of
+// row / eid / nbr; `offsets` is the exclusive scan of `counts` and `total`
+// (device int32) its sum; slots from the total on are -1.
+int csr_slab_scan_emit(const void* a, const void* e, const void* live, long long w,
+                       const void* srcs, const void* counts, const void* offsets, long long r,
+                       const void* total, int base, long long out, void* row, void* eid,
+                       void* nbr, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = r > out ? r : out;
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  slab_scan_emit_kernel<<<grid_for(n, 1), kThreads, 0, s>>>(
+      static_cast<const int*>(a), static_cast<const int*>(e),
+      static_cast<const unsigned char*>(live), w, static_cast<const int*>(srcs),
+      static_cast<const int*>(counts), static_cast<const int*>(offsets), r,
+      static_cast<const int*>(total), base, out, static_cast<int*>(row),
+      static_cast<int*>(eid), static_cast<int*>(nbr));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// For each (row, bucket slot) of the [r, bk] probe: the match flag (bool
+// `mask`) and the table's relative slab slot (int32 `rel`).
+int csr_slab_probe(const void* tab, const void* own, const void* live, long long ecap,
+                   const void* srcs, long long r, int nb, int bk, int base, void* mask,
+                   void* rel, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n = r * bk;
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  slab_probe_kernel<<<grid_for(n, 1), kThreads, 0, s>>>(
+      static_cast<const int*>(tab), static_cast<const int*>(own),
+      static_cast<const unsigned char*>(live), ecap, static_cast<const int*>(srcs), r, nb, bk,
+      base, static_cast<unsigned char*>(mask), static_cast<int*>(rel));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The probe's compacted flat indices `idx` (`out` slots, -1 padded) decoded
+// into row / eid / nbr.
+int csr_slab_decode(const void* idx, long long out, const void* rel, int bk, int base,
+                    const void* nbr_a, long long ecap, void* row, void* eid, void* nbr,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out <= 0) return static_cast<int>(cudaGetLastError());
+  slab_decode_kernel<<<grid_for(out, 1), kThreads, 0, s>>>(
+      static_cast<const int*>(idx), out, static_cast<const int*>(rel), bk, base,
+      static_cast<const int*>(nbr_a), ecap, static_cast<int*>(row), static_cast<int*>(eid),
+      static_cast<int*>(nbr));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,6 +20,12 @@ As in the reference:
   per-vertex weight passes over the edge list (the COUNT pushdown), or a
   terminal variable-depth arm into per-level popcounts, with a float32
   twin that refuses int32 overflow;
+- on a snapshot padded for delta maintenance (`storage/deltas`), each
+  expansion also reads the edge class's append slab (K18 `slab_probe`
+  through the bucket tables, K17 `slab_scan` once a bucket overflowed),
+  tombstoned base slots become padding, bitmap hops mask on the ``live``
+  edge mask and classless nodes on ``v_class >= 0``; plans carry the
+  overlay's generation and re-record when the structure moves;
 - rows marshal through the reference's columnar fast path and the
   DISTINCT / ORDER BY / SKIP / LIMIT tail.
 
@@ -81,6 +87,7 @@ from orientdb_tpu_torch.ops.predicates import (
     class_term,
     compile_predicate,
     compile_where,
+    live_term,
     pack_params,
     split_params,
     valid_term,
@@ -99,6 +106,10 @@ _PAGE_MIN = 1024
 _GROUP_PAGE_ROUND = 2048
 #: minimum same-plan items of a batch that replay as one group
 _GROUP_MIN = 4
+#: slab expansions' buffer floor (delta-maintained snapshots): recordings
+#: keep this many output slots even for a near-empty slab, so a filling slab
+#: crosses few pow2 buckets (each crossing re-records)
+SLAB_FLOOR = 256
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +447,13 @@ class TpuMatchSolver:
             raise Uncompilable("no snapshot attached")
         self.snap = snap
         self.device = db.device
+        #: delta overlay (storage/deltas) of a maintained snapshot: plans
+        #: record its generation and re-record when the structure moves
+        self.overlay = snap._overlay
+        if self.overlay is not None and self.overlay.poisoned is not None:
+            raise Uncompilable(f"delta overlay poisoned: {self.overlay.poisoned}")
+        self.delta_gen = self.overlay.plan_gen if self.overlay is not None else 0
+        self._slab_floor = SLAB_FLOOR
         self.interp = MatchInterpreter(db, stmt, params)
         self.pattern = self.interp.pattern
         self.not_paths = self.interp.not_paths
@@ -642,6 +660,10 @@ class TpuMatchSolver:
         ``env["bindings"]`` (``mask.uses_bindings``)."""
         terms = [valid_term()]
         uses_bindings = False
+        if self.overlay is not None and not any(f.class_name for f in node.filters):
+            # spare and deleted rows of a maintained universe carry class
+            # -1: a class filter excludes them, a bare node needs v_class >= 0
+            terms.append(class_term(self.dg.v_class, self.dg.any_class_table()))
         for f in node.filters:
             if f.class_name:
                 terms.append(class_term(self.dg.v_class, self.dg.class_table(f.class_name)))
@@ -684,7 +706,13 @@ class TpuMatchSolver:
             binding_non_columnar=self.dg.non_columnar,
             visible_aliases=visible or set(),
         )
-        pred = self._edge_preds[key] = compile_predicate(where, scope, self.param_box)
+        terms = [valid_term(), compile_where(where, scope, self.param_box)]
+        if self.overlay is not None:
+            # tombstones and spare slots: the live mask in the same program
+            terms.append(live_term(dec.live, dec.dst))
+        pred = self._edge_preds[key] = Predicate(
+            terms, self.dg.device, self.param_box, scope.uses_bindings
+        )
         return pred
 
     @staticmethod
@@ -716,7 +744,52 @@ class TpuMatchSolver:
         row, edge_pos, nbr = K.gather_expand(
             indptr, nbrs, srcs, offsets, total_dev, _cap_of(total)
         )
+        if self.overlay is not None:
+            # a tombstoned base edge keeps its CSR slot with a -1 endpoint:
+            # padding, so that it never binds
+            dead = nbr < 0
+            row = torch.where(dead, -1, row)
+            edge_pos = torch.where(dead, -1, edge_pos)
         return row, edge_pos, nbr, total
+
+    def _expand_slab(self, dec, d: str, srcs):
+        """The append slab's part of one (class, direction) expansion:
+        ``(row, edge id, neighbour, host total)`` of the live slab edges
+        whose active endpoint is a row's source, or None when the class has
+        no slab. The bucket probe (K18) unless one of the class's buckets
+        overflowed; then the scan of the used window (K17), whose width is
+        the observed used-slot count. Both outputs are sized by the
+        observed total with the slab floor."""
+        ov = self.overlay
+        cname = dec.class_name
+        base, cap = ov.edge_base(cname), dec.num_edges
+        if cap <= base:
+            return None
+        floor = min(cap - base, self._slab_floor)
+        seen: List[int] = []
+
+        def size_for(total_dev):
+            seen.append(self.sched.observe(total_dev, min_capacity=floor))
+            return max(_cap_of(max(seen[0], 1)), floor)
+
+        own, nbr_a = (dec.edge_src, dec.dst) if d == "out" else (dec.dst, dec.edge_src)
+        if cname in ov.bk and cname not in ov.bucket_overflow:
+            tab = self.dg.arrays[f"bk:{cname}:{d}"]
+            row, eid, nbr, _ = K.slab_probe(
+                tab, own, nbr_a, dec.live, srcs, base, ov.bk_nb, ov.bk_bk, size_for
+            )
+            return row, eid, nbr, seen[0]
+        # used slots are append-only: edge_src >= 0 marks them after a
+        # tombstone too, so the window bound survives deletes
+        used = self.sched.observe(
+            K.mask_count(dec.edge_src[base:cap] >= 0), min_capacity=floor
+        )
+        W = min(cap - base, max(_cap_of(max(used, 1)), floor))
+        row, eid, nbr, _ = K.slab_scan(
+            own[base : base + W], nbr_a[base : base + W], dec.live[base : base + W],
+            srcs, base, size_for,
+        )
+        return row, eid, nbr, seen[0]
 
     def _expand_one_dir_chunked(self, dec, d: str, srcs):
         """Expansion slabs for one (class, direction): usually ONE
@@ -745,9 +818,20 @@ class TpuMatchSolver:
         order, neighbor, host total): an in-walk maps its CSR position
         through the class's ``edge_id_in``."""
         if d == "out":
-            return self._expand_csr(dec.indptr_out, dec.dst, srcs)
-        row, pos, nbr, total = self._expand_csr(dec.indptr_in, dec.src, srcs)
-        return row, K.take_pad(dec.edge_id_in, pos, -1), nbr, total
+            row, eid, nbr, total = self._expand_csr(dec.indptr_out, dec.dst, srcs)
+        else:
+            row, pos, nbr, total = self._expand_csr(dec.indptr_in, dec.src, srcs)
+            eid = K.take_pad(dec.edge_id_in, pos, -1)
+        if self.overlay is not None and self.overlay.topology_dirty:
+            # appended edges live outside the base CSR: the slab's slots
+            # follow the base slots (padding interleaves; masks key on row)
+            slab = self._expand_slab(dec, d, srcs)
+            if slab is not None:
+                row = torch.cat([row, slab[0]])
+                eid = torch.cat([eid, slab[1]])
+                nbr = torch.cat([nbr, slab[2]])
+                total = total + slab[3]
+        return row, eid, nbr, total
 
     def solve_table(self) -> Table:
         """The plan's steps, then the NOT anti-join, then the COUNT
@@ -791,6 +875,10 @@ class TpuMatchSolver:
         endpoint arm, and at a predicate that reads other bindings (a
         weight pass has no rows to read them from)."""
         if self.count_only_name() is None or self.stmt.group_by or self._not_compiled:
+            return []
+        if self.overlay is not None and self.overlay.topology_dirty:
+            # the weight chain sums over the base CSR: slab edges would be
+            # missed and tombstones counted; the full solve reads the slab
             return []
         suffix: List[PlanStep] = []
         for step in reversed(self.plan):
@@ -916,9 +1004,10 @@ class TpuMatchSolver:
 
     def _edge_mask(self, cname: str, where) -> Optional[torch.Tensor]:
         """An edge WHERE (no binding references) over every edge of one
-        class, bool [E] in out order; None without a WHERE."""
+        class, bool [E] in out order; None without a WHERE. On a maintained
+        snapshot the class's live mask, ANDed into the WHERE's program."""
         if where is None:
-            return None
+            return self.dg.edges[cname].live if self.overlay is not None else None
         return self._edge_where(cname, where).identity(self.dg.edges[cname].num_edges)
 
     def _pushdown_weights(self, steps: List[PlanStep], dtype) -> torch.Tensor:
@@ -982,11 +1071,25 @@ class TpuMatchSolver:
         the hull can contain foreign vertices."""
         node = self.pattern.nodes[alias]
         start, end = 0, self.dg.num_vertices
+        has_class = False
         for f in node.filters:
             if f.class_name:
+                has_class = True
                 lo, hi = self.snap.vertex_hull(f.class_name)
                 start, end = max(start, lo), min(end, hi)
         size = max(end - start, 0)
+        slo, shi = self.snap.slab_vertex_range() if has_class else (0, 0)
+        if shi > slo:
+            # inserted vertices land in the append slab, outside every
+            # class hull: a second scan segment (a classless hull already
+            # ends at the padded universe)
+            slab = shi - slo
+            pos = torch.arange(K.bucket(max(size + slab, 1)), dtype=I32, device=self.device)
+            idx = torch.where(
+                pos < size, start + pos, torch.where(pos < size + slab, slo + (pos - size), -1)
+            ).to(I32)
+            cand, n, n_dev = self._compact(self._node_masks[alias](idx))
+            return K.take_pad(idx, cand, -1), n, n_dev
         mask = self._node_masks[alias].identity(K.bucket(max(size, 1)), size, base=start)
         cand, n, n_dev = self._compact(mask)
         return (torch.where(cand >= 0, cand + start, -1) if start else cand), n, n_dev
@@ -1759,6 +1862,21 @@ class ScheduleOverflow(Exception):
     schedule's capacities; the result was discarded. Caller re-records."""
 
 
+def _check_delta_gen(solver) -> None:
+    """Refuse the dispatch of a plan recorded under an older delta
+    structure (a first topology delta, a dictionary append or a bucket
+    overflow bumps the generation and clears the plan cache; this guards
+    plans picked before the bump): `ScheduleOverflow` sends the caller into
+    the re-record path. A poisoned overlay refuses every compiled query."""
+    ov = solver.overlay
+    if ov is None:
+        return
+    if ov.poisoned is not None:
+        raise Uncompilable(f"delta overlay poisoned: {ov.poisoned}")
+    if ov.plan_gen != solver.delta_gen:
+        raise ScheduleOverflow(f"delta structure moved (gen {solver.delta_gen} -> {ov.plan_gen})")
+
+
 #: serialises replays: all plans of a device share one graph memory pool,
 #: so one replay's intermediates may overwrite another's outputs; each
 #: replay's outputs are copied out before the lock is released
@@ -2177,7 +2295,9 @@ class _CompiledPlan:
 
     def _dyn_args(self, params: Optional[Dict]) -> np.ndarray:
         """The dynamic parameters as one host int32 array (float32 values
-        by their bits), in `dyn_spec` order."""
+        by their bits), in `dyn_spec` order. Raises when the plan is stale
+        under delta maintenance (`_check_delta_gen`)."""
+        _check_delta_gen(self.solver)
         return pack_params(params if params is not None else self.solver.params, self.dyn_spec)
 
     def _upload(self, host: np.ndarray) -> None:
@@ -2706,7 +2826,13 @@ def execute_batch(db, items: List[Tuple[A.MatchStatement, Dict]]) -> List:
         if variants is None:
             out[i] = rows
             continue
-        prepared.append((i, variants, variants.pick(params), params))
+        plan = variants.pick(params)
+        try:
+            _check_delta_gen(plan.solver)
+        except ScheduleOverflow:
+            out[i] = _run_variants(db, stmt, params, variants, tried=plan)
+            continue
+        prepared.append((i, variants, plan, params))
     if not prepared:
         return out
     with _REPLAY_LOCK:

@@ -60,6 +60,11 @@ SIGNATURES = {
     "csr_rows_with_matches": [_P, _P, _N, _N, _I, _P, _P],
     "csr_group_page": [_P, _N, _I, _N, _N, _I, _P, _P],
     "csr_predicate_eval": [_P, _P],
+    "csr_scatter_set": [_P, _N, _P, _P, _N, _I, _P],
+    "csr_slab_scan_count": [_P, _P, _N, _P, _N, _P, _P],
+    "csr_slab_scan_emit": [_P, _P, _P, _N, _P, _P, _P, _N, _P, _I, _N, _P, _P, _P, _P],
+    "csr_slab_probe": [_P, _P, _P, _N, _P, _N, _I, _I, _I, _P, _P, _P],
+    "csr_slab_decode": [_P, _N, _P, _I, _I, _P, _N, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -4,10 +4,12 @@ bitmap BFS of variable-depth and NOT arms (with the level emission and
 level step of `orientdb_tpu/exec/tpu_engine.py`), and the
 result stage of a replay (front-pack, meta row, int16 narrowing of that
 module's `_CompiledPlan`) and the compact page of a batch's rows group
-(`group_page`), and the interpreter of a compiled WHERE program
-(`predicate_eval`, the masks of `ops/predicates.py`), each as a wrapper
-over a hand-written CUDA kernel (`csrc/csr_kernels.cu`) beside its plain
-PyTorch version.
+(`group_page`), the interpreter of a compiled WHERE program
+(`predicate_eval`, the masks of `ops/predicates.py`), and the delta path:
+the in-place patch scatter of `ops/device_graph.DeviceGraph.apply_patches`
+(`scatter_set`) and the append-slab expansions of a delta-maintained
+snapshot (`slab_scan`, `slab_probe`), each as a wrapper over a hand-written
+CUDA kernel (`csrc/csr_kernels.cu`) beside its plain PyTorch version.
 
 A wrapper checks dtype, contiguity and device, then:
 - a CPU tensor goes to the plain version (``plain_*``), the reference's
@@ -63,6 +65,9 @@ LAUNCHES: Dict[str, int] = {
         "rows_with_matches",
         "group_page",
         "predicate_eval",
+        "scatter_set",
+        "slab_scan",
+        "slab_probe",
     )
 }
 
@@ -1240,3 +1245,171 @@ def predicate_eval(
         lib = _kernels.load()
         _launch("predicate_eval", lib.csr_predicate_eval, ctypes.byref(args), _stream(prog.code))
     return (out_v, out_p) if values else out_p
+
+
+# ---------------------------------------------------------------------------
+# K16–K18: the delta path (in-place patches, append-slab expansions)
+# ---------------------------------------------------------------------------
+
+_ELEM = {I32: 4, F32: 4, torch.bool: 1}
+
+
+def plain_scatter_set(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> None:
+    """The reference's ``arr.at[idx].set(vals)``, in place (repeated
+    indices carry the same value by the caller's contract)."""
+    if idx.shape[0]:
+        arr[idx.long()] = vals
+
+
+def scatter_set(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> None:
+    """``arr[idx[i]] = vals[i]`` in place, for int32, float32 or bool
+    ``arr``: the storage, and so every captured replay's pointer to it,
+    stays the same. ``idx`` int32 [S] (each in ``[0, len(arr))``), ``vals``
+    [S] of ``arr``'s dtype; a repeated index must carry one value."""
+    _check(arr, tuple(_ELEM), "scatter_set arr")
+    _check(idx, (I32,), "scatter_set idx")
+    _check(vals, (arr.dtype,), "scatter_set vals")
+    if vals.shape[0] != idx.shape[0]:
+        raise ValueError("scatter_set: idx and vals differ in length")
+    if not _on_card(arr, idx, vals):
+        plain_scatter_set(arr, idx, vals)
+        return
+    if idx.shape[0] == 0:
+        return
+    lib = _kernels.load()
+    _launch(
+        "scatter_set",
+        lib.csr_scatter_set,
+        arr.data_ptr(),
+        arr.shape[0],
+        idx.data_ptr(),
+        vals.data_ptr(),
+        idx.shape[0],
+        _ELEM[arr.dtype],
+        _stream(arr),
+    )
+
+
+def plain_slab_scan(a, e, live, srcs, base: int, size_for):
+    """The reference's `_expand_slab` after its window cut: the [R, W] mask
+    ``a[j] == srcs[r] ∧ live[j] ∧ srcs[r] >= 0``, its first ``out`` True
+    positions in row-major order, decoded to (row, base + j, e[j])."""
+    W, R = a.shape[0], srcs.shape[0]
+    step = max(1, (1 << 28) // max(W, 1))  # rows a mask block: nonzero's element limit
+    hits, total = [], torch.zeros((), dtype=I32, device=a.device)
+    for r0 in range(0, R, step):
+        s = srcs[r0 : r0 + step]
+        m = (a[None, :] == s[:, None]) & live[None, :] & (s >= 0)[:, None]
+        total = total + m.sum(dtype=I32)
+        hits.append(m.reshape(-1).nonzero()[:, 0] + r0 * W)
+    out = size_for(total)
+    hit = torch.cat(hits)[:out] if hits else torch.zeros(0, dtype=torch.int64, device=a.device)
+    row = torch.full((out,), -1, dtype=I32, device=a.device)
+    eid, nbr = row.clone(), row.clone()
+    n = hit.shape[0]
+    row[:n] = (hit // W).to(I32)
+    j = hit % W
+    eid[:n] = (base + j).to(I32)
+    nbr[:n] = e[j]
+    return row, eid, nbr, total
+
+
+def slab_scan(a, e, live, srcs, base: int, size_for):
+    """Window scan of an append slab: every live window slot j (``a``, ``e``
+    int32 [W] the active and emitted endpoints, ``live`` bool [W]) whose
+    active endpoint is the row's source (``srcs`` int32 [R], -1 padding).
+    ``size_for(total)`` maps the device total (0-d int32) to the output
+    capacity (the caller's size schedule). Returns int32 ``(row, base + j,
+    e[j])`` of that capacity in row-major order, -1 past the total, and the
+    total. Two launches: a count pass and an emit pass (with K1's scan of
+    the counts between them)."""
+    for t, what in ((a, "a"), (e, "e"), (srcs, "srcs")):
+        _check(t, (I32,), f"slab_scan {what}")
+    _check(live, (torch.bool,), "slab_scan live")
+    W, R = a.shape[0], srcs.shape[0]
+    if e.shape[0] != W or live.shape[0] != W:
+        raise ValueError("slab_scan: a, e and live differ in length")
+    if not _on_card(a, e, live, srcs):
+        return plain_slab_scan(a, e, live, srcs, base, size_for)
+    lib = _kernels.load()
+    dev = a.device
+    counts = torch.empty(R, dtype=I32, device=dev)
+    _launch(
+        "slab_scan", lib.csr_slab_scan_count,
+        a.data_ptr(), live.data_ptr(), W, srcs.data_ptr(), R, counts.data_ptr(), _stream(a),
+    )
+    offsets = exclusive_cumsum(counts)
+    total = value_sum(counts)
+    out = size_for(total)
+    row = torch.empty(out, dtype=I32, device=dev)
+    eid, nbr = torch.empty_like(row), torch.empty_like(row)
+    _launch(
+        "slab_scan", lib.csr_slab_scan_emit,
+        a.data_ptr(), e.data_ptr(), live.data_ptr(), W, srcs.data_ptr(), counts.data_ptr(),
+        offsets.data_ptr(), R, total.data_ptr(), int(base), out,
+        row.data_ptr(), eid.data_ptr(), nbr.data_ptr(), _stream(a),
+    )
+    return row, eid, nbr, total
+
+
+def plain_slab_probe(tab, own, nbr_a, live, srcs, base: int, nb: int, bk: int, size_for):
+    """The reference's `_expand_slab_bucketed`: probe each source's bucket
+    ``srcs & (nb - 1)`` (BK relative slots of ``tab``), keep the live slots
+    whose owning endpoint is the source, compact row-major and decode."""
+    dev = srcs.device
+    R = srcs.shape[0]
+    b = srcs & (nb - 1)
+    slots = b[:, None] * bk + torch.arange(bk, dtype=I32, device=dev)[None, :]
+    rel = tab[slots.long()]
+    at = (base + rel.clamp(min=0)).long()
+    m = (rel >= 0) & (srcs >= 0)[:, None] & (own[at] == srcs[:, None]) & live[at]
+    total = m.sum(dtype=I32)
+    idx = plain_compact_indices(m.reshape(-1), size_for(total))
+    ok = idx >= 0
+    rel_sel = rel.reshape(-1)[idx.clamp(min=0).long()] if R else torch.zeros_like(idx)
+    eid = torch.where(ok, base + rel_sel, -1).to(I32)
+    nbr = torch.where(ok, nbr_a[(base + rel_sel).clamp(min=0).long()], -1).to(I32)
+    return torch.where(ok, idx // bk, -1).to(I32), eid, nbr, total
+
+
+def slab_probe(tab, own, nbr_a, live, srcs, base: int, nb: int, bk: int, size_for):
+    """Bucket probe of an append slab: ``tab`` int32 [nb·bk] holds each
+    bucket's relative slab slots (-1 empty), ``own`` / ``nbr_a`` int32 [E]
+    the endpoint a slot is keyed by and the one it reaches, ``live`` bool
+    [E]; ``srcs`` int32 [R] (-1 padding). ``size_for`` as in `slab_scan`.
+    Returns int32 ``(row, base + rel, nbr_a[base + rel])`` in row-major
+    order, -1 past the total, and the total. Two launches: the probe, which
+    writes the [R·bk] match mask and relative slots, and the decode of
+    their compaction (K5's count and K3 between them)."""
+    for t, what in ((tab, "tab"), (own, "own"), (nbr_a, "nbr_a"), (srcs, "srcs")):
+        _check(t, (I32,), f"slab_probe {what}")
+    _check(live, (torch.bool,), "slab_probe live")
+    if tab.shape[0] != nb * bk:
+        raise ValueError("slab_probe: the table is not nb * bk slots")
+    if own.shape[0] != live.shape[0] or nbr_a.shape[0] != live.shape[0]:
+        raise ValueError("slab_probe: own, nbr_a and live differ in length")
+    if nb & (nb - 1):
+        raise ValueError("slab_probe: nb must be a power of two")
+    if not _on_card(tab, own, nbr_a, live, srcs):
+        return plain_slab_probe(tab, own, nbr_a, live, srcs, base, nb, bk, size_for)
+    lib = _kernels.load()
+    dev = srcs.device
+    R, E = srcs.shape[0], live.shape[0]
+    mask = torch.empty(R * bk, dtype=torch.bool, device=dev)
+    rel = torch.empty(R * bk, dtype=I32, device=dev)
+    _launch(
+        "slab_probe", lib.csr_slab_probe,
+        tab.data_ptr(), own.data_ptr(), live.data_ptr(), E, srcs.data_ptr(), R, nb, bk,
+        int(base), mask.data_ptr(), rel.data_ptr(), _stream(srcs),
+    )
+    total = mask_count(mask)
+    out = size_for(total)
+    idx = compact_indices(mask, out)
+    row = torch.empty(out, dtype=I32, device=dev)
+    eid, nbr = torch.empty_like(row), torch.empty_like(row)
+    _launch(
+        "slab_probe", lib.csr_slab_decode,
+        idx.data_ptr(), out, rel.data_ptr(), bk, int(base), nbr_a.data_ptr(), E,
+        row.data_ptr(), eid.data_ptr(), nbr.data_ptr(), _stream(srcs),
+    )
+    return row, eid, nbr, total

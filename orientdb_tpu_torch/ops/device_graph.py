@@ -12,6 +12,13 @@ instead, since a pageable host→device copy cannot be captured. The device
 graph is cached per snapshot in this module's own weak map (rebuilt when
 another device asks), so it is freed with its snapshot; the snapshot itself
 holds no device state.
+
+A snapshot padded for delta maintenance (`storage/deltas`) also uploads
+each edge class's ``live`` mask and its slab bucket tables
+(``bk:{class}:out`` / ``bk:{class}:in``); `DeviceGraph.apply_patches`
+writes a write batch's patches into the resident tensors in place (K16
+`scatter_set`), so every captured replay sees them through the pointers it
+holds.
 """
 
 from __future__ import annotations
@@ -24,20 +31,24 @@ from typing import Dict, Set
 import numpy as np
 import torch
 
+from orientdb_tpu_torch.ops import csr as K
 from orientdb_tpu_torch.storage.snapshot import GraphSnapshot, PropertyColumn
 
 
 class DeviceColumn:
     """A property column proxy: values + presence mask in ``graph.arrays``.
     The (sorted) dictionary of a string column stays on the host, where
-    string predicates are evaluated into code tables."""
+    string predicates are evaluated into code tables; it is the host
+    column's own list, so strings a write batch appends show here too."""
 
-    __slots__ = ("name", "kind", "dictionary", "_g", "_kv", "_kp")
+    __slots__ = ("name", "kind", "dictionary", "host", "_g", "_kv", "_kp")
 
     def __init__(self, col: PropertyColumn, g: "DeviceGraph", prefix: str):
         self.name = col.name
         self.kind = col.kind
         self.dictionary = col.dictionary
+        #: the host column (its ``dict_unsorted`` flag and ``dict_lookup``)
+        self.host = col
         self._g = g
         self._kv = g._put_lazy(f"{prefix}:v", col.values)
         self._kp = g._put_lazy(f"{prefix}:p", col.present)
@@ -76,6 +87,9 @@ class DeviceEdgeClass:
         # depth and NOT arms walk the flat edge list, and ``.outV()`` reads
         # an edge's source
         self._k_edge_src = g._put_lazy(f"{p}:edge_src", lambda csr=csr: csr.edge_src)
+        if csr.live is not None:
+            # delta-slab liveness: spare slots and tombstones read False
+            g._put(f"{p}:live", csr.live)
         self.columns: Dict[str, DeviceColumn] = {
             n: DeviceColumn(c, g, f"{p}:c:{n}") for n, c in csr.edge_columns.items()
         }
@@ -85,6 +99,10 @@ class DeviceEdgeClass:
     @property
     def indptr_out(self) -> torch.Tensor:
         return self._g.arrays[f"{self._p}:indptr_out"]
+
+    @property
+    def live(self) -> torch.Tensor:
+        return self._g.arrays[f"{self._p}:live"]
 
     @property
     def dst(self) -> torch.Tensor:
@@ -122,6 +140,7 @@ class DeviceGraph:
         self.arrays: Dict[str, torch.Tensor] = {}
         self._pending: Dict[str, np.ndarray] = {}
         self._pending_lock = threading.Lock()
+        self._armed = snap._overlay is not None
         self._put("v_class", snap.v_class)
         self.columns: Dict[str, DeviceColumn] = {
             n: DeviceColumn(c, self, f"v:{n}") for n, c in snap.v_columns.items()
@@ -130,11 +149,19 @@ class DeviceGraph:
         self.edges: Dict[str, DeviceEdgeClass] = {
             n: DeviceEdgeClass(c, self) for n, c in snap.edge_classes.items()
         }
+        ov = snap._overlay
+        for cname, tables in (ov.bk.items() if ov is not None else ()):
+            # the slab's bucket tables, patch-maintained like the live mask
+            self._put(f"bk:{cname}:out", tables["out"])
+            self._put(f"bk:{cname}:in", tables["in"])
         self._class_tables: Dict[str, torch.Tensor] = {}
         self._sealed = False
 
     def _put(self, key: str, arr: np.ndarray) -> str:
-        self.arrays[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        # an armed snapshot's host arrays are patched apart from the device
+        # ones (`apply_patches`), so on the CPU they get a copy too
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        self.arrays[key] = t.to(self.device, copy=self._armed)
         return key
 
     def _put_lazy(self, key: str, arr) -> str:
@@ -161,6 +188,33 @@ class DeviceGraph:
     @property
     def v_class(self) -> torch.Tensor:
         return self.arrays["v_class"]
+
+    def apply_patches(self, patches: Dict[str, tuple]) -> int:
+        """Scatter one phase of a write batch into the resident tensors:
+        ``{key: (indices, values)}``, one K16 `scatter_set` launch per key,
+        in place, on the current stream (the maintainer runs the phases on
+        the replay stream). Each segment is padded to a power of two by
+        repeating its last pair, as the reference pads it. Keys still
+        pending a lazy upload are skipped: their host arrays are already
+        patched, so the upload carries the delta. Returns the host→device
+        bytes shipped."""
+        nbytes = 0
+        with self._pending_lock:
+            for key, (idx, vals) in patches.items():
+                cur = self.arrays.get(key)
+                if cur is None:
+                    continue
+                ia = np.asarray(idx, np.int32)
+                va = np.asarray(vals).astype(_NP_DTYPE[cur.dtype])
+                if ia.size and (ia.min() < 0 or ia.max() >= cur.shape[0]):
+                    raise IndexError(f"patch of {key!r} outside [0, {cur.shape[0]})")
+                cap = 1 << max(0, int(ia.shape[0] - 1).bit_length())
+                if cap > ia.shape[0]:
+                    ia = np.concatenate([ia, np.full(cap - ia.shape[0], ia[-1], ia.dtype)])
+                    va = np.concatenate([va, np.full(cap - va.shape[0], va[-1], va.dtype)])
+                K.scatter_set(cur, _upload(ia, self.device), _upload(va, self.device))
+                nbytes += int(ia.nbytes) + int(va.nbytes)
+        return nbytes
 
     def memory_report(self) -> Dict[str, object]:
         """Device bytes by category, and the bytes of columns still on the
@@ -194,6 +248,16 @@ class DeviceGraph:
         finally:
             self._sealed = prev
 
+    def any_class_table(self) -> torch.Tensor:
+        """bool [num_classes] of all True: as a class term, ``v_class >= 0``
+        (the liveness of a delta-maintained vertex universe, whose spare
+        and deleted rows carry class -1)."""
+        table = self._class_tables.get(None)
+        if table is None:
+            host = np.ones(max(self.num_classes, 1), bool)
+            table = self._class_tables[None] = torch.from_numpy(host).to(self.device)
+        return table
+
     def class_table(self, class_name: str) -> torch.Tensor:
         """bool [num_classes] membership table of a class's polymorphic
         closure, uploaded once: a class mask is then one `take_pad`
@@ -207,10 +271,28 @@ class DeviceGraph:
         return table
 
 
+_NP_DTYPE = {torch.int32: np.int32, torch.float32: np.float32, torch.bool: np.bool_}
+
+
+def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A patch segment on ``device``: from pinned memory, asynchronously on
+    the current stream, on a card."""
+    t = torch.from_numpy(host)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 _CACHE: "weakref.WeakKeyDictionary[GraphSnapshot, DeviceGraph]" = (
     weakref.WeakKeyDictionary()
 )
 _CACHE_LOCK = threading.Lock()
+
+
+def cached_device_graph(snap: GraphSnapshot):
+    """The snapshot's device graph if one was built, else None."""
+    with _CACHE_LOCK:
+        return _CACHE.get(snap)
 
 
 def device_graph(snap: GraphSnapshot, device: torch.device) -> DeviceGraph:

@@ -22,7 +22,9 @@ columnar subset:
 
 String columns are dictionary-coded with a sorted dictionary, so ordered
 compares against a literal become int32 compares against the literal's
-bisect rank, and LIKE / MATCHES / CONTAINSTEXT are evaluated on the host
+bisect rank (a dictionary a write batch appended to is no longer sorted:
+equality and IN then look the literal's code up, and ordered compares
+refuse to compile, as the reference's `_dict_sorted` does), and LIKE / MATCHES / CONTAINSTEXT are evaluated on the host
 over the dictionary into a code-membership table. A WHILE condition
 compiles with ``allow_depth``: ``$depth`` is then the launch's level
 (``env["depth"]``). A scope may be an edge class's property columns (an
@@ -247,12 +249,14 @@ def _f32_bits(v: float) -> int:
 # 'int' 'float' 'bool' 'str' 'null' 'strlit'. For 'str', `dictionary` is the
 # sorted host dictionary; for 'strlit' it is the literal string (no node).
 class _Val:
-    __slots__ = ("kind", "node", "dictionary")
+    __slots__ = ("kind", "node", "dictionary", "column")
 
-    def __init__(self, kind: str, node: Optional[_Node], dictionary=None):
+    def __init__(self, kind: str, node: Optional[_Node], dictionary=None, column=None):
         self.kind = kind
         self.node = node
         self.dictionary = dictionary
+        #: the DeviceColumn a 'str' value reads (its dictionary's sortedness)
+        self.column = column
 
 
 def _const_val(v) -> _Val:
@@ -278,7 +282,7 @@ def _const_val(v) -> _Val:
 def _column_val(col: DeviceColumn) -> _Val:
     # padding slots (id < 0) read as absent
     node = _Node(O.COL, srcs=(("col", col, "values"), ("col", col, "present")))
-    return _Val(col.kind, node, dictionary=col.dictionary)
+    return _Val(col.kind, node, dictionary=col.dictionary, column=col)
 
 
 def _binding_val(alias: str, col: DeviceColumn) -> _Val:
@@ -288,7 +292,7 @@ def _binding_val(alias: str, col: DeviceColumn) -> _Val:
         O.BCOL,
         srcs=(("col", col, "values"), ("col", col, "present"), ("bind", alias, None)),
     )
-    return _Val(col.kind, node, dictionary=col.dictionary)
+    return _Val(col.kind, node, dictionary=col.dictionary, column=col)
 
 
 _NUMERIC = ("int", "float", "bool")
@@ -539,6 +543,10 @@ class Compiler:
             return _mask(False)
         if a_str and b.kind == "str":
             if a.dictionary is not None and a.dictionary is b.dictionary:
+                if op not in ("=", "!=") and not _dict_sorted(a):
+                    raise Uncompilable(
+                        "ordered string compare on a delta-appended dictionary"
+                    )
                 # same sorted dictionary (same column on both sides): code
                 # order == lexicographic order, so the codes compare as ints
                 a = _Val("int", a.node)
@@ -560,6 +568,17 @@ class Compiler:
 
     def _cmp_str_lit(self, op: str, col: _Val, lit: str) -> _Node:
         d: Sequence[str] = col.dictionary or []
+        if not _dict_sorted(col):
+            # a write batch APPENDED strings: codes are no longer ranked, so
+            # bisect is wrong; equality looks the code up
+            if op not in ("=", "!="):
+                raise Uncompilable(
+                    "ordered string compare on a delta-appended dictionary"
+                )
+            code = col.column.host.dict_lookup.get(lit)
+            if code is None:
+                return _mask(False) if op == "=" else _presence(col)
+            return _Node(O.CMP, (K.CMP_OPS.index(op), 0, 0), kids=[col.node, _const(code, True)])
         lo = bisect.bisect_left(d, lit)
         hi = bisect.bisect_right(d, lit)
         exact = lo if (lo < len(d) and d[lo] == lit) else None
@@ -583,6 +602,12 @@ def _presence(v: _Val) -> _Node:
     if v.kind == "null":
         return _mask(False)
     return _Node(O.ISNULL, (1, 0, 0), kids=[v.node])
+
+
+def _dict_sorted(v: _Val) -> bool:
+    """True while the column's dictionary codes are in lexicographic order
+    (every build sorts; a write batch's append clears it)."""
+    return v.column is None or not v.column.host.dict_unsorted
 
 
 def _flip(op: str) -> str:
@@ -783,6 +808,14 @@ def class_term(v_class: torch.Tensor, table: torch.Tensor) -> _Node:
     """Class-closure membership of each slot's vertex: its class id looked
     up in the closure's bool table (padding reads False)."""
     return _Node(O.CLASS, srcs=(("tensor", v_class, None), ("tensor", table, None)))
+
+
+def live_term(live: torch.Tensor, values: torch.Tensor) -> _Node:
+    """``live[id]`` of a delta-maintained edge list (bool [E]): the mask read
+    as the presence of a column whose values (``values``, any int32 [E] of
+    the class) are never used."""
+    col = _Node(O.COL, srcs=(("tensor", values, None), ("tensor", live, None)))
+    return _Node(O.ISNULL, (1, 0, 0), kids=[col])
 
 
 def compile_where(

@@ -87,6 +87,9 @@ def build_person_knows(
 
     snap = GraphSnapshot()
     snap.num_vertices = V
+    person_cluster = db.schema.get_class("Person").cluster_ids[0]
+    snap.v_cluster = np.full(V, person_cluster, np.int32)
+    snap.v_position = np.arange(V, dtype=np.int32)
     all_classes = sorted(db.schema.classes(), key=lambda c: c.name)
     snap.class_names = [c.name for c in all_classes]
     snap.class_id_of = {c.name.lower(): i for i, c in enumerate(all_classes)}
@@ -184,6 +187,14 @@ def build_snb_shape(
 
     snap = GraphSnapshot()
     snap.num_vertices = V
+    pc = db.schema.get_class("Person").cluster_ids[0]
+    mc = db.schema.get_class("Message").cluster_ids[0]
+    snap.v_cluster = np.concatenate(
+        [np.full(P, pc, np.int32), np.full(M, mc, np.int32)]
+    )
+    snap.v_position = np.concatenate(
+        [np.arange(P, dtype=np.int32), np.arange(M, dtype=np.int32)]
+    )
     all_classes = sorted(db.schema.classes(), key=lambda c: c.name)
     snap.class_names = [c.name for c in all_classes]
     snap.class_id_of = {c.name.lower(): i for i, c in enumerate(all_classes)}

@@ -5,11 +5,15 @@ The layout is the reference's: a dense int32 vertex universe, per-edge-class
 CSR in both directions (with the in-CSR's edge ids into out order) and its
 edge property columns by edge id, global vertex property columns with
 presence masks (strings dictionary-coded with a
-sorted dictionary), and the class-id column with its polymorphic closure
-table. The device copy lives in `ops/device_graph.py`, cached per snapshot
-by that module; the snapshot itself holds no device state. Building a
-snapshot from host records waits for the record store: snapshots come from
-`storage/bigshape.py` or from `carry.snapshot_from_arrays`.
+sorted dictionary), the class-id column with its polymorphic closure
+table, and each vertex's RID as the parallel ``v_cluster`` / ``v_position``
+arrays (edges' RIDs likewise, where the source had them). The device copy
+lives in `ops/device_graph.py`, cached per snapshot by that module; the
+snapshot itself holds no device state. Building a snapshot from host
+records waits for the record store: snapshots come from
+`storage/bigshape.py` or from `carry.snapshot_from_arrays`. A snapshot
+padded for delta maintenance (`storage/deltas.pad_for_deltas`) carries its
+overlay in ``_overlay``.
 """
 
 from __future__ import annotations
@@ -18,12 +22,90 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from orientdb_tpu_torch.models.rid import RID
+
+#: sentinel for "property missing" in numeric columns (presence is in the
+#: mask; the sentinel only keeps padded values well-defined)
+MISSING_INT = np.int32(-(2**31) + 1)
+MISSING_FLOAT = np.float32(np.nan)
+
+
+def _as_rid(rid) -> RID:
+    return RID(int(rid[0]), int(rid[1]))
+
+
+class RidIndex:
+    """RID → dense index, built from parallel int32 cluster / position
+    arrays (entries with cluster < 0 have no RID): the reference's
+    ``rid_to_idx`` dict without a Python object per record. The keys are
+    ``cluster << 32 | position``, sorted once (stably, so that a repeated
+    RID maps to its last index, as the dict comprehension does); inserts
+    and deletes after the build live in a side table."""
+
+    def __init__(self, cluster: np.ndarray, position: np.ndarray) -> None:
+        c = np.asarray(cluster, np.int64)
+        ok = np.flatnonzero(c >= 0)
+        keys = (c[ok] << 32) | (np.asarray(position, np.int64)[ok] & 0xFFFFFFFF)
+        order = np.argsort(keys, kind="stable")
+        self._keys = keys[order]
+        self._idx = ok[order]
+        self._added: Dict[RID, int] = {}
+        self._removed: set = set()
+
+    def _base(self, rid: RID) -> Optional[int]:
+        if rid.cluster < 0:
+            return None
+        key = (rid.cluster << 32) | (rid.position & 0xFFFFFFFF)
+        j = int(np.searchsorted(self._keys, key, side="right")) - 1
+        if j < 0 or int(self._keys[j]) != key:
+            return None
+        return int(self._idx[j])
+
+    def get(self, rid, default=None):
+        rid = _as_rid(rid)
+        if rid in self._added:
+            return self._added[rid]
+        if rid in self._removed:
+            return default
+        i = self._base(rid)
+        return default if i is None else i
+
+    def __contains__(self, rid) -> bool:
+        return self.get(rid) is not None
+
+    def __setitem__(self, rid, idx: int) -> None:
+        rid = _as_rid(rid)
+        self._added[rid] = int(idx)
+        self._removed.discard(rid)
+
+    def pop(self, rid, default=None):
+        rid = _as_rid(rid)
+        i = self.get(rid)
+        if i is None:
+            return default
+        self._added.pop(rid, None)
+        if self._base(rid) is not None:
+            self._removed.add(rid)
+        return i
+
+    def items(self):
+        """Every live (RID, index) pair: the base entries, then the side
+        table's."""
+        for k, i in zip(self._keys.tolist(), self._idx.tolist()):
+            rid = RID(k >> 32, k & 0xFFFFFFFF)
+            if rid not in self._removed and rid not in self._added and self._base(rid) == i:
+                yield rid, i
+        yield from self._added.items()
+
 
 class PropertyColumn:
     """One global property column: a vertex property over the vertex
     universe, or an edge property over one edge class's edge ids."""
 
-    __slots__ = ("name", "kind", "values", "present", "dictionary", "_dict_arr")
+    __slots__ = (
+        "name", "kind", "values", "present", "dictionary", "dict_unsorted",
+        "_lookup", "_dict_arr",
+    )
 
     def __init__(self, name: str, kind: str, values, present, dictionary=None):
         self.name = name
@@ -31,7 +113,18 @@ class PropertyColumn:
         self.values = values  # np.ndarray
         self.present = present  # np.ndarray bool
         self.dictionary: Optional[List[str]] = dictionary  # sorted, for 'str'
+        #: True once the delta maintainer APPENDED a string (codes no longer
+        #: sorted): equality stays exact, ordered compares refuse to compile
+        self.dict_unsorted = False
+        self._lookup: Optional[Dict[str, int]] = None
         self._dict_arr = None
+
+    @property
+    def dict_lookup(self) -> Optional[Dict[str, int]]:
+        """String → code of a dictionary column, built on first use."""
+        if self._lookup is None and self.dictionary is not None:
+            self._lookup = {s: i for i, s in enumerate(self.dictionary)}
+        return self._lookup
 
     def dict_array(self) -> np.ndarray:
         """The dictionary as an object ndarray, built once (row marshalling
@@ -53,11 +146,16 @@ class EdgeClassCSR:
     edge_columns: property name → PropertyColumn indexed by edge id (out
     order); non_columnar: edge property names seen without a columnar
     encoding, which predicates and projections refuse
+    e_cluster / e_position[E]: each edge's RID (cluster -1: none), or None
+    when the source had no edge RIDs
+    live[E]: liveness when the snapshot carries delta slabs
+    (`storage/deltas.pad_for_deltas`); None on classic snapshots
     """
 
     __slots__ = (
         "class_name", "indptr_out", "dst", "indptr_in", "src", "edge_id_in",
-        "edge_columns", "non_columnar", "_edge_src",
+        "edge_columns", "non_columnar", "e_cluster", "e_position", "live",
+        "_edge_src",
     )
 
     def __init__(self, class_name: str):
@@ -69,6 +167,9 @@ class EdgeClassCSR:
         self.edge_id_in: np.ndarray = np.zeros(0, np.int32)
         self.edge_columns: Dict[str, PropertyColumn] = {}
         self.non_columnar: set = set()
+        self.e_cluster: Optional[np.ndarray] = None
+        self.e_position: Optional[np.ndarray] = None
+        self.live: Optional[np.ndarray] = None
         self._edge_src: Optional[np.ndarray] = None
 
     @property
@@ -91,6 +192,10 @@ class GraphSnapshot:
 
     def __init__(self) -> None:
         self.num_vertices: int = 0
+        # dense index → RID (parallel int32 arrays; cluster -1: no RID)
+        self.v_cluster: np.ndarray = np.zeros(0, np.int32)
+        self.v_position: np.ndarray = np.zeros(0, np.int32)
+        self._rid_index: Optional[RidIndex] = None
         self.class_names: List[str] = []  # class_id → name
         self.class_id_of: Dict[str, int] = {}  # class name (lower) → id
         self.v_class: np.ndarray = np.zeros(0, np.int32)
@@ -104,6 +209,25 @@ class GraphSnapshot:
         self.edge_classes: Dict[str, EdgeClassCSR] = {}
         #: edge class name (lower) → concrete edge class names
         self.edge_closure: Dict[str, List[str]] = {}
+        #: delta overlay (`storage/deltas.SnapshotOverlay`) once padded
+        self._overlay = None
+
+    @property
+    def rid_to_idx(self) -> RidIndex:
+        """RID → dense index, built from ``v_cluster`` / ``v_position`` on
+        first use (the reference's dict of the same name)."""
+        if self._rid_index is None:
+            self._rid_index = RidIndex(self.v_cluster, self.v_position)
+        return self._rid_index
+
+    def slab_vertex_range(self) -> tuple:
+        """(start, end) of the vertex append slab; ``(0, 0)`` on classic
+        snapshots. Root scans of armed snapshots cover it beside the class
+        hull."""
+        ov = self._overlay
+        if ov is None:
+            return (0, 0)
+        return (ov.base_vertices, ov.cap_vertices)
 
     def vertex_hull(self, name: str) -> tuple:
         """(start, end) dense-index hull of a class's polymorphic closure.

@@ -429,3 +429,122 @@ def test_distance_queries_on_card_equal_cpu(card):
         want = {x["uid"] for x in cpu.query(rows, {"r": r}).to_dicts()}
         assert (got ^ want) <= band and got
     torch.cuda.synchronize()
+
+
+def _slab_arrays(rng, v, base, used, cap, nb, bk, dead_frac):
+    """A padded edge list whose slab holds ``used`` edges, a fraction of
+    them tombstoned, with bucket tables as the maintainer builds them (a
+    full bucket takes no more entries)."""
+    src = np.full(cap, -1, np.int32)
+    dst = np.full(cap, -1, np.int32)
+    live = np.zeros(cap, bool)
+    src[: base + used] = rng.integers(0, v, base + used)
+    dst[: base + used] = rng.integers(0, v, base + used)
+    live[: base + used] = rng.random(base + used) >= dead_frac
+    tabs = {}
+    for d, key in (("out", src), ("in", dst)):
+        tab, fill = np.full(nb * bk, -1, np.int32), np.zeros(nb, np.int64)
+        for rel in range(used):
+            b = int(key[base + rel]) & (nb - 1)
+            if fill[b] < bk:
+                tab[b * bk + fill[b]] = rel
+                fill[b] += 1
+        tabs[d] = tab
+    return src, dst, live, tabs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,base,used,cap_out", [(1, 0, 1, 8), (300, 1_000, 700, 8), (4_096, 50_000, 20_000, 0)])
+def test_delta_kernels_equal_plain_on_card(card, r, base, used, cap_out):
+    """K16 `scatter_set` (int32, float32, bool), K18 `slab_probe` and K17
+    `slab_scan` against their plain versions, with -1 sources, tombstones,
+    both directions, and capacities that hold the total or cut it."""
+    rng = np.random.default_rng(r + used)
+    v, nb, bk = 5_000, 256, 8
+    cap = base + used + 64
+    src, dst, live, tabs = _slab_arrays(rng, v, base, used, cap, nb, bk, 0.2)
+    for dtype in (np.int32, np.float32, np.bool_):
+        arr = _t((rng.random(cap) * 100).astype(dtype)).to(card)
+        idx = rng.permutation(cap)[: min(cap, 3 * r)].astype(np.int32)
+        vals = _t((rng.random(idx.shape[0]) * 100).astype(dtype)).to(card)
+        a, b = arr.clone(), arr.clone()
+        T.scatter_set(a, _t(idx).to(card), vals)
+        T.plain_scatter_set(b, _t(idx).to(card), vals)
+        assert torch.equal(a, b)
+    srcs = rng.integers(0, v, r).astype(np.int32)
+    srcs[::3] = -1
+    g = {k: _t(x).to(card) for k, x in (("src", src), ("dst", dst), ("live", live), ("srcs", srcs))}
+    size = (lambda t: max(T.bucket(int(t)), 8)) if cap_out == 0 else (lambda t: cap_out)
+    for d in ("out", "in"):
+        own, nbr = (g["src"], g["dst"]) if d == "out" else (g["dst"], g["src"])
+        tab = _t(tabs[d]).to(card)
+        got = T.slab_probe(tab, own, nbr, g["live"], g["srcs"], base, nb, bk, size)
+        want = T.plain_slab_probe(tab, own, nbr, g["live"], g["srcs"], base, nb, bk, size)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        w = slice(base, cap)
+        win = (own[w].contiguous(), nbr[w].contiguous(), g["live"][w].contiguous())
+        got = T.slab_scan(*win, g["srcs"], base, size)
+        want = T.plain_slab_scan(*win, g["srcs"], base, size)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_delta_batches_on_card_equal_cpu(card):
+    """Write batches applied in place on the card against the same batches
+    on the CPU: after a DATA-only batch a cached plan replays the SAME
+    captured graph on the same tensors (same ``data_ptr``); a first
+    topology batch re-records once; a bucket overflow switches to the
+    window scan; every result equals the CPU twin's."""
+    import chip_smoke
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.ops.device_graph import cached_device_graph
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+    from orientdb_tpu_torch.storage.deltas import arm_delta_maintenance
+
+    kw = dict(avg_knows=6, seed=23)
+    twins = [build_person_knows(4_000, device=dev, **kw) for dev in (card, "cpu")]
+    ms = [arm_delta_maintenance(db, 256, 4_096) for db, _ in twins]
+    qs = [(chip_smoke.D1, {"k": 1_000}), (chip_smoke.Q3, {"k": 300}), (chip_smoke.V1, {}),
+          (chip_smoke.Q_DIRECT, {"k": 50})]
+
+    def same_results():
+        for sql, p in qs:
+            got, want = (sorted(map(str, db.query(sql, p).to_dicts())) for db, _ in twins)
+            assert got == want, sql
+
+    def plans():
+        return {sql: chip_smoke._only_plan(TE, twins[0][1], sql).plans for sql, _ in qs}
+
+    def apply(batch):
+        for m in ms:
+            assert m.apply_batch([dict(e) for e in batch])
+
+    same_results()
+    same_results()
+    writer = chip_smoke.DeltaWriter(np, twins[0][0], twins[0][1], seed=3)
+    w1 = writer.w1(64, 512)
+    apply(w1)
+    ov = twins[0][1]._overlay
+    assert ov.plan_gen == 1
+    same_results()
+    same_results()
+    before = plans()
+    graphs = {sql: (p[0].graph, p[0].replays) for sql, p in before.items()}
+    dg = cached_device_graph(twins[0][1])
+    ptrs = {k: a.data_ptr() for k, a in dg.arrays.items()}
+    apply(writer.w2(500))
+    assert ov.plan_gen == 1
+    same_results()
+    after = plans()
+    for sql, (graph, replays) in graphs.items():
+        assert after[sql] == before[sql] and after[sql][0].graph is graph
+        assert graph is not None and after[sql][0].replays == replays + 1
+    apply(writer.w3(40, 32, 300))
+    same_results()
+    assert {k: a.data_ptr() for k, a in dg.arrays.items()} == ptrs
+    apply(writer.w4(5, 12))
+    assert ov.bucket_overflow == {"knows"} and ov.plan_gen == 2
+    same_results()
+    same_results()
+    torch.cuda.synchronize()
