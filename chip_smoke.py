@@ -51,7 +51,8 @@ from the root of a checkout. Phases, each of which raises on failure:
    each capture; fails unless every kernel launched, and the bitmap-BFS
    kernels inside the V plans' replays. Then holds the replay's kernels
    (front-pack, meta row, int16 narrowing) against their plain versions
-   at Q3's shapes and at edge lengths, and times them. Then the G cells
+   at Q3's shapes and at edge lengths, and times them. Then T1 (phase 9's
+   query) on resident A, timed as phase 9 times it. Then the G cells
    (``distance()``): G1, a root-scan COUNT over the 8M persons through
    float parameters (recorded at r = 8000 km, r = 300 and 2500 replay the
    plan), G2, rows in miles (r = 100, then 60), and G3, a binding-
@@ -117,12 +118,33 @@ from the root of a checkout. Phases, each of which raises on failure:
    must launch). K16 is held against its plain version on W1's segments,
    K18 at D1's probe, K17 at Q3 k = 200's second hop after W4, each
    timed eager and in a captured graph.
+9. tiering — after phase 8, A's second twin (copied before A's upload)
+   is attached with ``tier_hbm_cap_bytes`` = its adjacency bytes / 2
+   (configuration T, `bench.py:507`; ``tier_block_edges`` 65,536): its
+   ``knows`` edges page between a device pool and host memory, and the
+   flat ``dst``/``src``/``edge_id_in``/``edge_src`` never reach the card.
+   Prints each partition's V/E/W/Wp/B/P and T's resident bytes beside A's
+   flat ones. Launch counts zeroed, then: T1 (the reference's tiered bench
+   query, `bench.py:466-470`, u = (i·131) mod (V/4), i < 64) timed as in
+   phase 5, where it ran on resident A, and the tiered/resident ratio
+   (`bench.py:531`); T1c (u = (i·65,537) mod V, i < 1,024: more blocks
+   than the pool holds) on the recording path, with evictions; a replay
+   whose root's block is outside its footprint (the cold-miss flag, then
+   clean once resident, then a re-record through the front door); T2
+   (rows through the ``in`` partition, k = 100); T3 (``while:($depth <
+   2)`` from 16 roots, twice). K19–K21 must have launched. Then holds
+   K19–K21 exactly against their plain versions at T's pool shapes,
+   every page evicted, an empty pool, C = 8 and in a captured graph, and
+   times them; then T_GROW (a 2-hop COUNT from ``uid < 2000``) grows the
+   pool, and T1 re-records and re-captures under the new generation.
+   Every result equals numpy over the host CSR. Prints ``stats()`` and the
+   bytes loaded after each pass.
 
 The line before the last is one JSON object with every kernel's numbers
 (``launches`` from phase 5, from phase 6's replay path for
-`rows_with_matches`, from phase 7 for `group_page` and from phase 8 for
-K16–K18; K15's time is Q1's node mask p); the last line is ``{"ok":
-true, "device": {...}}``.
+`rows_with_matches`, from phase 7 for `group_page`, from phase 8 for
+K16–K18 and from phase 9 for K19–K21; K15's time is Q1's node mask p);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -185,6 +207,9 @@ REPLACES = {
     "scatter_set": "orientdb_tpu/ops/device_graph.py:382",
     "slab_scan": "orientdb_tpu/exec/tpu_engine.py:1007",
     "slab_probe": "orientdb_tpu/exec/tpu_engine.py:1061",
+    "paged_hop": "orientdb_tpu/storage/tiering.py:575",
+    "paged_hop_miss": "orientdb_tpu/storage/tiering.py:590",
+    "paged_expand": "orientdb_tpu/storage/tiering.py:606",
 }
 BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop", "bitmap_emit", "frontier_advance"]
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
@@ -192,20 +217,24 @@ REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
 BATCH_ONLY = ("group_page",)
 #: the kernels only a delta-maintained snapshot launches (phase 8)
 DELTA_ONLY = ("scatter_set", "slab_scan", "slab_probe")
+#: the kernels only a tiered snapshot launches (phase 9)
+TIER_ONLY = ("paged_hop", "paged_hop_miss", "paged_expand")
 #: the kernels of the Person–knows phases 4–5 (the OPTIONAL arm's left-join
 #: count runs on the SNB-shape phase)
-PK_KERNELS = [n for n in REPLACES if n != "rows_with_matches" and n not in BATCH_ONLY + DELTA_ONLY]
+PK_KERNELS = [
+    n for n in REPLACES if n != "rows_with_matches" and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY
+]
 #: the kernels a Person–knows recording run launches
 RECORD_KERNELS = [n for n in PK_KERNELS if n not in REPLAY_ONLY]
 #: the kernels the SNB-shape cells E1–E5 launch while recording (no bitmap
 #: BFS there), and on their replays (no float32 overflow twin)
 E_RECORD_KERNELS = [
     n for n in REPLACES
-    if n not in REPLAY_ONLY and n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY
+    if n not in REPLAY_ONLY and n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY
 ]
 E_REPLAY_KERNELS = [
     n for n in REPLACES
-    if n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY
+    if n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY
     and n not in ("scan_f32", "segment_sum_f32", "take_pad_f32")
 ]
 EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
@@ -2345,6 +2374,428 @@ K15_DIST = {
 K15_DEPTH = 2
 
 
+# ---------------------------------------------------------------------------
+# phase 9: tiered snapshots (configuration T: A at half its adjacency bytes)
+# ---------------------------------------------------------------------------
+
+# the reference's tiered bench query (bench.py:466-470) on Person–knows
+T1 = (
+    "MATCH {class:Person, as:p, where:(uid = :u)}"
+    "-knows->{as:f, where:(age < 30)} RETURN count(*) AS n"
+)
+# rows through the in partition
+T2 = "MATCH {class:Person, as:p, where:(uid < :k)}<-knows-{as:f} RETURN p.uid AS pu, f.uid AS fu"
+T2_K = 100
+# variable depth: K19 hops and K20 flags
+T3 = (
+    "MATCH {class:Person, as:p, where:(uid = :u)}"
+    "-knows->{as:f, while:($depth < 2)} RETURN count(*) AS n"
+)
+# a 2-hop COUNT whose second frontier spans every block: the pool grows
+T_GROW_K = 2000
+T_GROW = (
+    f"MATCH {{class:Person, as:p, where:(uid < {T_GROW_K})}}"
+    "-knows->{as:f}-knows->{as:g} RETURN count(*) AS n"
+)
+T_V = 8_000_000
+#: T1's parameters (bench.py:471: u = (i·131) mod (V/4), i < 64), and
+#: T1c's, spread over every block (u = (i·65,537) mod V, i < 1,024)
+T1_PARAMS = [{"u": (i * 131) % (T_V // 4)} for i in range(64)]
+T1C_PARAMS = [{"u": (i * 65_537) % T_V} for i in range(1_024)]
+T3_ROOTS = [(i * 500_009) % T_V for i in range(16)]
+
+
+class TRef:
+    """numpy answers of T1–T3 and the growth COUNT from the host CSR."""
+
+    def __init__(self, np, snap):
+        self.np = np
+        self.snap = snap
+        csr = snap.edge_classes["knows"]
+        self.ip, self.dst = csr.indptr_out, csr.dst
+        self.ipi, self.src = csr.indptr_in, csr.src
+        self.age = snap.v_columns["age"].values
+
+    def t1(self, u: int) -> int:
+        return int((self.age[self.dst[self.ip[u] : self.ip[u + 1]]] < 30).sum())
+
+    def t2(self, k: int):
+        np = self.np
+        deg = np.diff(self.ipi[: k + 1])
+        p = np.repeat(np.arange(k), deg)
+        f = self.src[self.ipi[0] : self.ipi[k]]
+        return np.unique(np.stack([p, f], 1).astype(np.int64), axis=0)
+
+    def t3(self, u: int) -> int:
+        np = self.np
+        ones = np.ones(self.snap.num_vertices, bool)
+        return int(numpy_var_depth_rows(self.snap, [u], "out", ones, while_depth=2).shape[0])
+
+    def grow(self) -> int:
+        """T_GROW's count: the 2-hop paths p → f → g from the persons with
+        uid = p < T_GROW_K (a dense id), Σ over their out-neighbours f of
+        deg(f)."""
+        np = self.np
+        return int(np.diff(self.ip)[self.dst[: self.ip[T_GROW_K]]].sum(dtype=np.int64))
+
+
+def t1_qps(db, tref) -> float:
+    """T1 over its 64 parameters as the reference times it (`bench.py:471-
+    487`, ``time_singles``): two warm passes (the first checks every count
+    against numpy), then three timed sequential passes of 64
+    ``db.query(...).to_dicts()`` calls; their median q/s."""
+    for p in T1_PARAMS:
+        rows = db.query(T1, p).to_dicts()
+        _require(rows == [{"n": tref.t1(p["u"])}], f"T1 u={p['u']}: {rows}")
+    for p in T1_PARAMS:
+        db.query(T1, p).to_dicts()
+    qpss = []
+    for _ in range(3):
+        t = time.perf_counter()
+        for p in T1_PARAMS:
+            db.query(T1, p).to_dicts()
+        qpss.append(len(T1_PARAMS) / (time.perf_counter() - t))
+    return statistics.median(qpss)
+
+
+def run_tiered(np, torch, K, TE, ks, db, snap, card, a_qps: float, a_bytes: int):
+    """Phase 9: configuration T, A's graph (copied before A's upload)
+    admitted at ``tier_hbm_cap_bytes`` = adjacency / 2 (`bench.py:507`).
+    Runs T1 (timed as on A), T1c (churn, on the recording path), a replay
+    off its footprint (the cold-miss flag), T2, T3, then holds K19–K21
+    against their plain versions, then grows the pool with T_GROW and
+    shows the plans re-capture. Returns the main path's launches."""
+    from orientdb_tpu_torch.ops.device_graph import device_graph
+    from orientdb_tpu_torch.storage import tiering
+    from orientdb_tpu_torch.utils.config import config
+
+    sync = torch.cuda.synchronize
+    tref = TRef(np, snap)
+    adj = tiering.adjacency_bytes(snap)
+    cache = config.plan_cache_size
+    config.tier_hbm_cap_bytes = adj // 2
+    try:
+        t0 = time.perf_counter()
+        db.attach_snapshot(snap)
+        tier = snap._tier
+        _require(tier is not None, "T was not admitted to the tier plane")
+        t_admit = time.perf_counter() - t0
+        dg = device_graph(snap, db.device)
+        sync()
+        mem = dg.memory_report()
+        print(
+            f"tier: T admitted at cap {config.tier_hbm_cap_bytes} bytes (adjacency {adj}) in {t_admit:.1f} s, "
+            f"device graph built in {time.perf_counter() - t0 - t_admit:.1f} s; resident {mem['total_bytes']} "
+            f"bytes {mem['per_device']} against A's flat {a_bytes}; pools {tier.pool_bytes()} bytes, "
+            f"hot {tier.hot_bytes()} bytes"
+        )
+        for key, part in sorted(tier.parts.items()):
+            print(
+                f"tier partition {key}: V={part.V} E={part.E} W={part.W} Wp={part.Wp} B={part.B} P={part.P} "
+                f"({part.block_bytes()} bytes a page)"
+            )
+        _require(mem["total_bytes"] < a_bytes, "T's resident bytes are not below A's flat ones")
+        for k in ("dst", "src", "edge_id_in", "edge_src"):
+            _require(f"e:knows:{k}" not in dg.arrays and f"e:knows:{k}" not in dg._pending, f"knows {k} uploaded")
+        K.reset_launches()
+        mark = [tier.loaded_bytes, tier.prefetch_misses]
+
+        def loaded(tag, t_s):
+            print(
+                f"tier {tag}: {t_s:.2f} s; loaded {tier.loaded_bytes - mark[0]} bytes "
+                f"({tier.prefetch_misses - mark[1]} blocks); stats {tier.stats()}"
+            )
+            mark[:] = [tier.loaded_bytes, tier.prefetch_misses]
+
+        # T1: the reference's tiered/resident statistic
+        t = time.perf_counter()
+        qps = t1_qps(db, tref)
+        print(f"tier T1: {qps:.1f} q/s tiered, {a_qps:.1f} q/s resident; tiered_vs_resident {qps / a_qps:.4f}")
+        loaded("T1", time.perf_counter() - t)
+        # T1c: every block, more than the pool holds, on the recording path
+        ev0 = tier.evictions
+        config.plan_cache_size = 0
+        t = time.perf_counter()
+        try:
+            for p in T1C_PARAMS:
+                rows = db.query(T1, p).to_dicts()
+                _require(rows == [{"n": tref.t1(p["u"])}], f"T1c u={p['u']}: {rows}")
+        finally:
+            config.plan_cache_size = cache
+        _require(tier.evictions > ev0, "T1c evicted nothing")
+        loaded(f"T1c ({len(T1C_PARAMS)} recordings, evictions {tier.evictions - ev0})", time.perf_counter() - t)
+        cold_miss_replay(np, TE, db, snap, tier, tref)
+        # T2: rows through the in partition (K21 reads eid from the pool)
+        t = time.perf_counter()
+        for k in (T2_K, T2_K, T2_K // 2):
+            rows = db.query(T2, {"k": k}).to_dicts()
+            _require(np.array_equal(_sorted_rows(np, rows, ("pu", "fu")), tref.t2(k)), f"T2 k={k}")
+        _require(_only_plan(TE, snap, T2).plans[0].replays == 2, "T2 did not replay")
+        loaded("T2", time.perf_counter() - t)
+        # T3: K19 hops with K20 flags, 16 roots recorded, then replayed
+        t = time.perf_counter()
+        for rep in range(2):
+            for u in T3_ROOTS:
+                rows = db.query(T3, {"u": u}).to_dicts()
+                _require(rows == [{"n": tref.t3(u)}], f"T3 u={u}: {rows}")
+        t3 = _only_plan(TE, snap, T3)
+        print(f"tier T3: {len(t3.plans)} variants kept, replays {[p.replays for p in t3.plans]}")
+        loaded("T3", time.perf_counter() - t)
+        sync()
+        path = dict(K.LAUNCHES)
+        for name in TIER_ONLY:
+            _require(path[name] > 0, f"{name} never launched in the tiered phase")
+        check_tier_kernels(np, torch, K, ks, dg, tier)
+        # growth: a frontier over every block; the plans re-capture
+        t1_old = list(_only_plan(TE, snap, T1).plans)
+        gen, P0 = tier.generation, tier.parts[("knows", "out")].P
+        want = tref.grow()
+        t = time.perf_counter()
+        for _ in range(2):
+            rows = db.query(T_GROW).to_dicts()
+            _require(rows == [{"n": want}], f"T_GROW: {rows}")
+        part = tier.parts[("knows", "out")]
+        _require(tier.generation > gen and part.P > P0, "T_GROW did not grow the pool")
+        u = T1_PARAMS[0]["u"]
+        rows = db.query(T1, {"u": u}).to_dicts()
+        _require(rows == [{"n": tref.t1(u)}], f"T1 after growth: {rows}")
+        v1 = _only_plan(TE, snap, T1)
+        _require(
+            v1.plans[0] not in t1_old and v1.plans[0].tier_gen == tier.generation
+            and (v1.plans[0].graph is not None or db.device.type != "cuda"),
+            "T1 did not re-capture under the new generation",
+        )
+        db.query(T1, {"u": u}).to_dicts()
+        _require(v1.plans[0].replays >= 1, "the re-captured T1 plan does not replay")
+        print(
+            f"tier growth: generation {gen} -> {tier.generation}, out pool P {P0} -> {part.P} "
+            f"(pools {tier.pool_bytes()} bytes); T1 re-recorded and re-captured under it"
+        )
+        loaded("T_GROW", time.perf_counter() - t)
+        sync()
+        launches = dict(K.LAUNCHES)
+        print("tier launches: " + ", ".join(f"{n} {launches[n]}" for n in TIER_ONLY))
+        TE._plan_cache(snap).clear()
+        return launches
+    finally:
+        config.tier_hbm_cap_bytes = 0
+        config.plan_cache_size = cache
+
+
+def cold_miss_replay(np, TE, db, snap, tier, tref) -> None:
+    """A replay whose root's block lies outside its footprint: a T1 plan
+    dispatched at a cold root with the same sizes as its recording's (the
+    same degree and the same count, so no buffer overflows) raises the
+    cold-miss flag in its meta row; once the block is resident the same
+    replay is clean and right; through the front door another cold root
+    re-records (one more variant)."""
+    part = tier.parts[("knows", "out")]
+    variants = _only_plan(TE, snap, T1)
+    plan = variants.plans[-1]  # the oldest variant kept
+    u0 = int(plan.solver.params["u"])
+    fp = {b for (_k, b) in plan.tier_footprint}
+    deg = np.diff(tref.ip)
+    cands = np.nonzero(deg == deg[u0])[0]
+    cold = cands[(part.page_of[part.block_of_v[cands]] < 0) & ~np.isin(part.block_of_v[cands], list(fp))]
+    same = [int(u) for u in cold[:4096] if tref.t1(int(u)) == tref.t1(u0)]
+    _require(len(same) >= 2, "no cold root with T1's sizes")
+    uc, uc2 = same[0], same[-1]
+    handle = plan.dispatch({"u": uc})
+    meta, _ = plan.fetch(handle)
+    plan.release(handle)
+    _require(int(meta[1]) == 1, f"the off-footprint replay did not flag: meta {meta}")
+    tier.ensure_vertices("knows", "out", [uc])
+    handle = plan.dispatch({"u": uc})
+    meta, _ = plan.fetch(handle)
+    plan.release(handle)
+    _require(int(meta[1]) == 0 and int(meta[0]) == tref.t1(uc), f"resident replay at u={uc}: meta {meta}")
+    old = list(variants.plans)
+    rows = db.query(T1, {"u": uc2}).to_dicts()
+    _require(rows == [{"n": tref.t1(uc2)}], f"T1 at a cold root u={uc2}: {rows}")
+    new = variants.plans[0]
+    _require(
+        new not in old and ((("knows", "out"), int(part.block_of_v[uc2])) in new.tier_footprint),
+        "the cold root did not re-record",
+    )
+    print(
+        f"tier cold miss: T1 recorded at u={u0} replayed at u={uc} (block {int(part.block_of_v[uc])} cold) "
+        f"flagged; resident it returned {int(meta[0])}; u={uc2} re-recorded a variant "
+        f"({len(old)} -> {len(variants.plans)} kept)"
+    )
+
+
+def check_tier_kernels(np, torch, K, ks, dg, tier):
+    """K19–K21 against their plain versions at T's pool shapes (the knows
+    pools of P pages of Wp slots), exactly: K19 on T3's 8-row frontiers
+    with a WHILE gate and on the in pool with an edge mask, K20 on the same
+    frontiers, K21 at T1c's roots (out) and T2's (in); each again with
+    every page evicted, with an empty pool, and in a captured graph. Then
+    times each beside its bound (bytes at 3.35 TB/s); their launches are
+    not counted."""
+    from orientdb_tpu_torch.storage import tiering
+
+    counted = dict(K.LAUNCHES)
+    dev = dg.device
+    i32, b8 = torch.int32, torch.bool
+    V = dg.num_vertices
+    vb = K.bucket(V)
+    C = 8
+    gen = torch.Generator(device=dev).manual_seed(19)
+    pools = {}
+    for d in ("out", "in"):
+        k = tiering._keys("knows", d)
+        pools[d] = {n: dg.arrays[k[n]] for n in k}
+        pools[d]["indptr"] = dg.arrays[f"e:knows:indptr_{d}"]
+    po = pools["out"]
+    E = dg.edges["knows"].num_edges
+    gate = torch.rand(vb, generator=gen, device=dev) < 0.9
+    emask = torch.rand(E, generator=gen, device=dev) < 0.7
+    roots = torch.tensor(T3_ROOTS[:C], dtype=i32, device=dev)
+    fr0 = K.rows_to_bitmap(roots, vb)
+    fr1 = K.plain_paged_hop(po["own"], po["nbr"], po["eid"], None, fr0)
+    fr1[:, 0] = True  # vertex 0, the clip target of a -1 endpoint
+    alive1 = K.mask_count(fr1.view(-1))
+    zero = torch.zeros((), dtype=i32, device=dev)
+    evicted = {d: dict(p, own=torch.full_like(p["own"], -1), pageof=torch.full_like(p["pageof"], -1)) for d, p in pools.items()}
+    empty = {
+        d: dict(p, own=p["own"][:0], nbr=p["nbr"][:0], eid=p["eid"][:0], pageof=torch.full_like(p["pageof"], -1))
+        for d, p in pools.items()
+    }
+
+    def hop(p, m, fr, g=None, alive=None):
+        got = K.paged_hop(p["own"], p["nbr"], p["eid"], m, fr, g, alive)
+        ks.same("paged_hop", got, K.plain_paged_hop(p["own"], p["nbr"], p["eid"], m, fr, g, alive))
+
+    def miss(p, fr, g=None, alive=None):
+        got = K.paged_hop_miss(fr, p["blockv"], p["pageof"], p["indptr"], g, alive)
+        ks.same("paged_hop_miss", got, K.plain_paged_hop_miss(fr, p["blockv"], p["pageof"], p["indptr"], g, alive))
+        return bool(got)
+
+    for case in (pools, evicted, empty):
+        for d, m in (("out", None), ("in", emask)):
+            p = case[d]
+            for fr in (fr0, fr1):
+                hop(p, m, fr)
+                hop(p, m, fr, gate, alive1)
+                miss(p, fr)
+                miss(p, fr, gate)
+            hop(p, m, torch.zeros_like(fr1), alive=zero)
+            _require(not miss(p, torch.zeros_like(fr1)), "K20 flagged an empty frontier")
+            _require(miss(evicted[d], fr1), "K20 missed an all-evicted pool")
+
+    def expand_args(p, srcs):
+        counts = K.degree_counts(p["indptr"], srcs)
+        offsets = K.exclusive_cumsum(counts)
+        total = K.value_sum(counts)
+        return offsets, total, K.bucket(max(int(total), 1))
+
+    def expand(p, d, srcs):
+        offsets, total, n = expand_args(p, srcs)
+        args = (p["indptr"], srcs, offsets, total, n, p["blockv"], p["pageof"], p["estart"], p["nbr"], p["eid"], d == "out")
+        got = K.paged_expand(*args)
+        want = K.plain_paged_expand(*args)
+        ks.same("paged_expand", got, want)
+        return want
+
+    t1c = torch.tensor([q["u"] for q in T1C_PARAMS] + [-1] * 7, dtype=i32, device=dev)
+    t2 = torch.cat([torch.arange(T2_K, dtype=i32, device=dev), torch.full((K.bucket(T2_K) - T2_K,), -1, dtype=i32, device=dev)])
+    for case in (pools, evicted, empty):
+        for d, srcs in (("out", t1c), ("in", t2), ("out", t1c[:1]), ("in", t1c[-8:])):
+            expand(case[d], d, srcs)
+    _require(bool(expand(evicted["out"], "out", t1c)[3]), "K21 did not flag an all-evicted pool")
+    # in a captured graph: the same launches replayed
+    offs, tot, n = expand_args(po, t1c)
+    outs = {}
+
+    def captured():
+        outs["hop"] = K.paged_hop(po["own"], po["nbr"], po["eid"], None, fr1, gate, alive1)
+        outs["miss"] = K.paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1)
+        outs["expand"] = K.paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True)
+
+    captured()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured()
+    graph.replay()
+    torch.cuda.synchronize()
+    ks.same("paged_hop", outs["hop"], K.plain_paged_hop(po["own"], po["nbr"], po["eid"], None, fr1, gate, alive1))
+    ks.same("paged_hop_miss", outs["miss"], K.plain_paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1))
+    ks.same(
+        "paged_expand", outs["expand"],
+        K.plain_paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True),
+    )
+    torch.cuda.synchronize()
+
+    # -- times ----------------------------------------------------------------
+    S = po["own"].numel()
+    live = int((po["own"] >= 0).sum())
+    bv = po["blockv"].long()
+    res_v = int(((bv >= 0) & (po["pageof"][bv.clamp(min=0)] >= 0)).sum())
+    act_v = fr1.any(0) & gate
+    own_live = po["own"].view(-1)[po["own"].view(-1) >= 0].long()
+    act_slots = int(act_v[own_live.clamp(max=vb - 1)].sum())
+    sp = None
+    try:
+        # the hop as one sparse product over the resident slots (rows = the
+        # reached endpoint): counts of active slots per (vertex, row)
+        ok = (po["own"] >= 0).view(-1)
+        idx = torch.stack([po["nbr"].view(-1)[ok].long(), po["own"].view(-1)[ok].long()])
+        sp = torch.sparse_coo_tensor(idx, torch.ones(live, device=dev), (vb, vb)).coalesce().to_sparse_csr()
+        fr1_t = fr1.t().float().contiguous()
+    except (RuntimeError, TypeError) as e:
+        print(f"library call for paged_hop refused: {e}")
+    ks.timed(
+        "paged_hop",
+        lambda: K.paged_hop(po["own"], po["nbr"], po["eid"], None, fr1, gate, alive1),
+        lambda: K.plain_paged_hop(po["own"], po["nbr"], po["eid"], None, fr1, gate, alive1),
+        None if sp is None else (lambda: torch.sparse.mm(sp, fr1_t)),
+        # own over the pool; the frontier rows and the gate at the vertices
+        # of resident blocks; nbr at the live slots whose owner is active
+        # (in a frontier row and the gate); the [C, vb] result written once
+        4.0 * S + (C + 1.0) * res_v + 4.0 * act_slots + C * vb + 4.0,
+    )
+    in_fr = int(fr1[:, :V].any(0).sum())
+    active = int(act_v[:V].sum())
+    ks.timed(
+        "paged_hop_miss",
+        lambda: K.paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1),
+        lambda: K.plain_paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1),
+        None,  # a scatter-max over the blocks then an any: two calls at least
+        # the frontier's first V columns; the gate at the vertices active
+        # in a row; indptr, blockv and pageof at the gated active vertices;
+        # one flag byte
+        1.0 * C * V + in_fr + active * 16.0 + 1.0,
+    )
+    R = t1c.shape[0]
+    ks.timed(
+        "paged_expand",
+        lambda: K.paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True),
+        lambda: K.plain_paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True),
+        None,  # a searchsorted then four gathers and the nulling selects
+        # per source its offset, indptr pair, block, page and block start;
+        # a pool read per live slot; three int32 outputs a slot; the flag
+        R * 24.0 + 4.0 + int(tot) * 4.0 + n * 12.0 + 1.0,
+    )
+    g_ms = {
+        "paged_hop": _graph_ms(torch, lambda: K.paged_hop(po["own"], po["nbr"], po["eid"], None, fr1, gate, alive1)),
+        "paged_hop_miss": _graph_ms(torch, lambda: K.paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1)),
+        "paged_expand": _graph_ms(torch, lambda: K.paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True)),
+    }
+    for name in TIER_ONLY:
+        r = ks.rows[name]
+        print(
+            f"kernel {name}: equals its plain version (T's pools, every page evicted, an empty pool, C={C}, "
+            f"captured); {r['ms']:.4f} ms ({g_ms[name]:.4f} in a graph), bound {r['bound_ms']:.4f}, "
+            f"plain {r['plain_ms']:.4f}, library {r['library_ms']}"
+        )
+    print(
+        f"tier kernels: pool S={S} slots ({live} live, {act_slots} with an active owner), "
+        f"V={V} ({res_v} in resident blocks), vb={vb}, K21 R={R} total {int(tot)}"
+    )
+    K.LAUNCHES.update(counted)
+
+
 def k15_snapshot(np, n: int, seed: int):
     """``n`` vertices of three classes with int, float, bool and string
     columns (about 10 % absent, int32 extremes, zero and negative
@@ -2513,8 +2964,9 @@ def main() -> int:
     t0 = time.perf_counter()
     db, snap = build_person_knows(8_000_000, avg_knows=10, seed=5, geo=True)
     # phase 8's twin of A, copied before A's upload: it is padded for
-    # deltas before its own
+    # deltas before its own; phase 9's, admitted to the tier plane
     ddb = copy.deepcopy(db)
+    tdb = copy.deepcopy(db)
     dg = device_graph(snap, db.device)
     torch.cuda.synchronize()
     print(
@@ -2560,6 +3012,10 @@ def main() -> int:
     pk_peak = max(pk_peak, torch.cuda.max_memory_allocated())
     check_replay_kernels(torch, K, ks, q3_plan, {"k": Q3_K})
     pk_peak = max(pk_peak, torch.cuda.max_memory_allocated())
+    # T1 on resident A: the denominator of phase 9's tiered/resident ratio
+    t0 = time.perf_counter()
+    a_qps = t1_qps(db, TRef(np, snap))
+    print(f"T1 resident: {a_qps:.1f} q/s over {len(T1_PARAMS)} roots ({time.perf_counter() - t0:.1f} s)")
 
     # 5b. distance(): the G cells on the same graph, recording then replays
     t0 = time.perf_counter()
@@ -2616,6 +3072,19 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # 9. tiered snapshots on A's second twin, at half its adjacency bytes
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tier_launches = run_tiered(np, torch, K, TE, ks, tdb, tdb.current_snapshot(), card, a_qps, pk_mem["total_bytes"])
+    print(
+        f"tier phase: {time.perf_counter() - t0:.1f} s; peak allocated {torch.cuda.max_memory_allocated()} bytes"
+    )
+    del tdb
+    gc.collect()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sdb, ssnap = build_snb_shape(8_000_000, msgs_per_person=2, avg_knows=10, seed=7)
@@ -2663,6 +3132,8 @@ def main() -> int:
         launches[name] = batch_launches[name]
     for name in DELTA_ONLY:
         launches[name] = delta_launches[name]
+    for name in TIER_ONLY:
+        launches[name] = tier_launches[name]
 
     for name, row in ks.rows.items():
         row["launches"] = launches[name]

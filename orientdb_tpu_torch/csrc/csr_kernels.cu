@@ -1,14 +1,16 @@
 // Hand-written Hopper (sm_90a) kernels for the CSR primitives of the
 // compiled MATCH path, the bitmap BFS of variable-depth and NOT arms, the
 // result stage of a captured replay, the page of a batch's rows group, the
-// interpreter of a compiled WHERE program, and the delta path: the in-place
-// patch scatter and the two append-slab expansions.
+// interpreter of a compiled WHERE program, the delta path (the in-place
+// patch scatter and the two append-slab expansions) and the tier plane's
+// paged hop, cold-miss flag and paged gather.
 // Port of the jitted functions of
 // orientdb_tpu/ops/csr.py (the OPTIONAL arm's rows_with_matches among them)
 // and of the level emission, level step, front-pack,
 // meta, page, group-page and slab-expansion functions of
 // orientdb_tpu/exec/tpu_engine.py and of DeviceGraph.apply_patches in
-// orientdb_tpu/ops/device_graph.py; the wrappers
+// orientdb_tpu/ops/device_graph.py and of paged_hop / paged_hop_miss /
+// paged_expand in orientdb_tpu/storage/tiering.py; the wrappers
 // are in orientdb_tpu_torch/ops/csr.py and bind these functions through
 // ctypes (orientdb_tpu_torch/ops/_kernels.py).
 //
@@ -1166,6 +1168,161 @@ __global__ void slab_decode_kernel(const int* __restrict__ idx, long long out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tier plane's paged reads (replace orientdb_tpu/storage/tiering.py
+// paged_hop :575, paged_hop_miss :590, paged_expand :606). A paged
+// (edge class, direction) partition keeps its edges in a device pool of P
+// pages of Wp slots, three int32 rows a page: `own` (the endpoint that must
+// be active, -1 on an unused slot and on every slot of an evicted page),
+// `nbr` (the endpoint reached) and `eid` (the edge id in out order); a
+// `pageof[B]` indirection maps each vertex-range block to its page (-1 =
+// cold) and `blockv[V]` each vertex to its block. Loads and evictions write
+// these rows in place on the replay stream, so a captured replay reads them
+// through the pointers it holds. Every gather below keeps take_pad's
+// semantics: a negative index reads the fill, an index past the end the
+// last value.
+// ---------------------------------------------------------------------------
+
+// K19: paged_hop. out[c, nbr[s]] |= frontier[c, own[s]] over the flattened
+// pool [P*Wp], for slots with own[s] >= 0 and, with an edge mask,
+// emask[eid[s]] (a -1 eid reads False, as take_pad(emask, eid, False)).
+// Bound: `own` over the whole pool (4 bytes a slot), the frontier rows and
+// the gate at the vertices of resident blocks (C + 1 bytes a vertex), nbr
+// (+4 eid and 1 mask byte with an edge mask) only at the live slots whose
+// owner is active, and `out` written once. Design: K10's grid-stride loop
+// over the slots with K10's options (gate, alive, out). `own` is tested
+// before anything else: an evicted page keeps stale nbr and eid rows behind
+// its -1 owner row, and K10's clip of a -1 endpoint to vertex 0 would let a
+// frontier holding vertex 0 reach every stale neighbour. The gate and the
+// frontier come next, so eid, the mask and nbr are read only at slots whose
+// owner is active. The mask is gathered through eid here, so no [P*Wp] mask
+// is ever stored. Stores are only 1s, with no atomics, as in K10.
+__global__ void paged_hop_kernel(const int* __restrict__ own, const int* __restrict__ nbr,
+                                 const int* __restrict__ eid, long long ns,
+                                 const unsigned char* __restrict__ emask, long long ne,
+                                 const unsigned char* __restrict__ frontier,
+                                 const unsigned char* __restrict__ gate, long long c,
+                                 long long vb, const int* __restrict__ alive,
+                                 unsigned char* __restrict__ out) {
+  if (alive != nullptr && *alive == 0) return;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long s = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; s < ns;
+       s += stride) {
+    const int o = own[s];
+    if (o < 0) continue;
+    const long long a = o < vb ? o : vb - 1;
+    if (gate != nullptr && !gate[a]) continue;
+    bool act = false;  // every row read: independent loads, no chain
+    for (long long r = 0; r < c; ++r) act |= frontier[r * vb + a] != 0;
+    if (!act) continue;
+    if (emask != nullptr) {
+      const int e = eid[s];
+      if (e < 0 || ne <= 0) continue;
+      if (!emask[e < ne ? e : ne - 1]) continue;
+    }
+    long long m = nbr[s];
+    m = m < 0 ? 0 : (m < vb ? m : vb - 1);
+    for (long long r = 0; r < c; ++r) {
+      if (frontier[r * vb + a]) out[r * vb + m] = 1;
+    }
+  }
+}
+
+// K20: paged_hop_miss. Sets *flag when some vertex v < V is active in a
+// frontier row (and in the WHILE gate), has degree > 0 in this direction,
+// and its block is cold: the reference's scatter-max of the active vertices
+// over the blocks followed by any(touched & pageof < 0), without the [B]
+// temporary. Bound: the frontier's first V columns (C bytes a vertex), the
+// gate at the vertices active in a row, and at those that pass it 8 bytes
+// of indptr and 8 of blockv and pageof.
+// Design: one thread per vertex in a grid-stride loop, the frontier tested
+// first (most vertices are inactive), all C rows loaded without an early
+// exit so the loads overlap; the entry point zeroes the flag and
+// threads store only 1s; nothing syncs. `alive` (may be null) at 0 exits.
+__global__ void paged_hop_miss_kernel(const unsigned char* __restrict__ frontier,
+                                      const unsigned char* __restrict__ gate, long long c,
+                                      long long vb, const int* __restrict__ blockv,
+                                      long long nv, const int* __restrict__ pageof,
+                                      long long nb, const int* __restrict__ indptr,
+                                      const int* __restrict__ alive,
+                                      unsigned char* __restrict__ flag) {
+  if (alive != nullptr && *alive == 0) return;
+  const long long n = nv < vb ? nv : vb;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long v = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; v < n;
+       v += stride) {
+    bool act = false;  // every row read: independent loads, no chain
+    for (long long r = 0; r < c; ++r) act |= frontier[r * vb + v] != 0;
+    if (!act || (gate != nullptr && !gate[v])) continue;
+    if (indptr[v + 1] - indptr[v] <= 0) continue;
+    const int b = blockv[v];
+    if (b >= 0 && b < nb && pageof[b] < 0) *flag = 1;
+  }
+}
+
+// K21: paged_expand. The CSR gather of K2b (row by an upper-bound search
+// over the exclusive offsets, edge_pos from the resident indptr), fused
+// with the block -> page indirection: nbr (and, for the in direction, eid)
+// read from pool[pageof[blockv[src]] * Wp + edge_pos - estart[b]], with the
+// reference's clips clip(src, 0, V-1), clip(p, 0) and clip(local, 0,
+// Wp-1). A live slot whose block is cold (p < 0) sets *flag; row, eid and
+// nbr are -1 there and past the total. The out direction's eid is
+// edge_pos. Bound: K2b's (12 bytes a source, three int32 outputs a slot)
+// plus a slot's blockv, pageof, estart and one or two pool reads. Design:
+// one thread per output slot; the three index reads of a slot hit L2
+// (blockv, pageof and estart of one source are shared by its slots).
+__global__ void paged_expand_kernel(const int* __restrict__ indptr, long long nv,
+                                    const int* __restrict__ srcs,
+                                    const int* __restrict__ offsets, long long k,
+                                    const int* __restrict__ total, long long out_size,
+                                    const int* __restrict__ blockv,
+                                    const int* __restrict__ pageof, long long nb,
+                                    const int* __restrict__ estart,
+                                    const int* __restrict__ pool_nbr,
+                                    const int* __restrict__ pool_eid, long long ns,
+                                    long long wp, int out_dir, int* __restrict__ row_out,
+                                    int* __restrict__ eid_out, int* __restrict__ nbr_out,
+                                    unsigned char* __restrict__ flag) {
+  long long q = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (q >= out_size) return;
+  if (q >= static_cast<long long>(*total) || k == 0 || nv <= 0) {
+    row_out[q] = -1;
+    eid_out[q] = -1;
+    nbr_out[q] = -1;
+    return;
+  }
+  long long lo = 0, hi = k;  // first row whose offset is > q
+  while (lo < hi) {
+    long long mid = (lo + hi) >> 1;
+    if (static_cast<long long>(offsets[mid]) <= q) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const long long r = lo > 0 ? lo - 1 : 0;  // clip(row, 0, K-1)
+  const int src = srcs[r];
+  long long s = src < 0 ? 0 : src;  // clip(src, 0, V-1)
+  if (s > nv - 1) s = nv - 1;
+  const int edge_pos = indptr[s] + static_cast<int>(q - offsets[r]);
+  const int b = blockv[s];
+  const int p = b < 0 ? -1 : pageof[b < nb ? b : nb - 1];
+  if (p < 0) {  // a cold block: the slot is nulled and flags
+    *flag = 1;
+    row_out[q] = -1;
+    eid_out[q] = -1;
+    nbr_out[q] = -1;
+    return;
+  }
+  long long local = static_cast<long long>(edge_pos) - estart[b < nb ? b : nb - 1];
+  local = local < 0 ? 0 : (local < wp ? local : wp - 1);
+  long long flat = static_cast<long long>(p) * wp + local;
+  if (flat > ns - 1) flat = ns - 1;
+  row_out[q] = static_cast<int>(r);
+  nbr_out[q] = ns > 0 ? pool_nbr[flat] : -1;
+  eid_out[q] = out_dir ? edge_pos : (ns > 0 ? pool_eid[flat] : -1);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1558,6 +1715,69 @@ int csr_slab_decode(const void* idx, long long out, const void* rel, int bk, int
       static_cast<const int*>(idx), out, static_cast<const int*>(rel), bk, base,
       static_cast<const int*>(nbr_a), ecap, static_cast<int*>(row), static_cast<int*>(eid),
       static_cast<int*>(nbr));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K19. `emask`, `gate` and `alive` may be null; `zero_out` as for
+// csr_bitmap_hop. `own`, `nbr` and `eid` are the pool's `ns` = P*Wp slots.
+int csr_paged_hop(const void* own, const void* nbr, const void* eid, long long ns,
+                  const void* emask, long long ne, const void* frontier, const void* gate,
+                  long long c, long long vb, const void* alive, int zero_out, void* out,
+                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (zero_out && c * vb > 0) {
+    cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(c * vb), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (ns > 0 && c > 0 && vb > 0) {
+    paged_hop_kernel<<<grid_for(ns, 1), kThreads, 0, s>>>(
+        static_cast<const int*>(own), static_cast<const int*>(nbr),
+        static_cast<const int*>(eid), ns, static_cast<const unsigned char*>(emask), ne,
+        static_cast<const unsigned char*>(frontier), static_cast<const unsigned char*>(gate), c,
+        vb, static_cast<const int*>(alive), static_cast<unsigned char*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K20. `flag` is one byte, zeroed here; `gate` and `alive` may be null.
+int csr_paged_hop_miss(const void* frontier, const void* gate, long long c, long long vb,
+                       const void* blockv, long long nv, const void* pageof, long long nb,
+                       const void* indptr, const void* alive, void* flag, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(flag, 0, 1, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n = nv < vb ? nv : vb;
+  if (n > 0 && c > 0) {
+    paged_hop_miss_kernel<<<grid_for(n, 1), kThreads, 0, s>>>(
+        static_cast<const unsigned char*>(frontier), static_cast<const unsigned char*>(gate), c,
+        vb, static_cast<const int*>(blockv), nv, static_cast<const int*>(pageof), nb,
+        static_cast<const int*>(indptr), static_cast<const int*>(alive),
+        static_cast<unsigned char*>(flag));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K21. `pool_eid` may be null when `out_dir`; `flag` is one byte, zeroed
+// here. `ns` is the pool's P*Wp slots.
+int csr_paged_expand(const void* indptr, long long nv, const void* srcs, const void* offsets,
+                     long long k, const void* total, long long out_size, const void* blockv,
+                     const void* pageof, long long nb, const void* estart,
+                     const void* pool_nbr, const void* pool_eid, long long ns, long long wp,
+                     int out_dir, void* row_out, void* eid_out, void* nbr_out, void* flag,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(flag, 0, 1, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (out_size > 0) {
+    paged_expand_kernel<<<blocks_for(out_size, kThreads), kThreads, 0, s>>>(
+        static_cast<const int*>(indptr), nv, static_cast<const int*>(srcs),
+        static_cast<const int*>(offsets), k, static_cast<const int*>(total), out_size,
+        static_cast<const int*>(blockv), static_cast<const int*>(pageof), nb,
+        static_cast<const int*>(estart), static_cast<const int*>(pool_nbr),
+        static_cast<const int*>(pool_eid), ns, wp, out_dir, static_cast<int*>(row_out),
+        static_cast<int*>(eid_out), static_cast<int*>(nbr_out),
+        static_cast<unsigned char*>(flag));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -26,6 +26,13 @@ As in the reference:
   tombstoned base slots become padding, bitmap hops mask on the ``live``
   edge mask and classless nodes on ``v_class >= 0``; plans carry the
   overlay's generation and re-record when the structure moves;
+- on a tiered snapshot (`storage/tiering`), a paged edge class expands
+  through K21 `paged_expand` and hops through K19 `paged_hop` over the
+  tier's page pools; the recording run faults every touched block in and
+  the touched set becomes the plan's footprint, which each dispatch
+  prefetches and pins; a replay's cold-miss flags (K21's, K20
+  `paged_hop_miss`) join its overflow flag, and a pool that grew into new
+  tensors sends the plans captured before it back to a re-record;
 - rows marshal through the reference's columnar fast path and the
   DISTINCT / ORDER BY / SKIP / LIMIT tail.
 
@@ -51,10 +58,8 @@ falls back to an interpreter.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
-import threading
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -92,7 +97,9 @@ from orientdb_tpu_torch.ops.predicates import (
     split_params,
     valid_term,
 )
+from orientdb_tpu_torch.ops.replay_stream import REPLAY_LOCK, on_replay_stream, replay_resources
 from orientdb_tpu_torch.sql import ast as A
+from orientdb_tpu_torch.storage import tiering
 from orientdb_tpu_torch.utils.config import config
 
 I32 = torch.int32
@@ -270,6 +277,16 @@ class SizeSchedule:
             self.overflow = flag if self.overflow is None else (self.overflow | flag)
         return v
 
+    def note_flag(self, dev_flag: torch.Tensor) -> None:
+        """OR a device failure bit computed elsewhere into the overflow flag
+        (a tiered replay's cold-miss flag: a replay that wandered onto a
+        block outside its footprint is discarded and re-records, which
+        faults the block in). No-op while recording, which ensures
+        residency eagerly."""
+        if self.recording:
+            return
+        self.overflow = dev_flag if self.overflow is None else (self.overflow | dev_flag)
+
     def overflow_flag(self, device) -> torch.Tensor:
         if self.overflow is None:
             return torch.zeros((), dtype=torch.bool, device=device)
@@ -401,7 +418,7 @@ def _alias_expression(e: A.Expression, names: set) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def build_bitmap_hops(dg: DeviceGraph, items) -> List:
+def build_bitmap_hops(dg: DeviceGraph, items, sched: SizeSchedule, tier=None, touched=None) -> List:
     """Frontier-hop closures for ``(class, direction, emask)`` items over
     each class's flat edge list in out-CSR order: an out hop activates on
     ``edge_src`` and emits ``dst``, an in hop the reverse; ``emask`` (bool
@@ -409,9 +426,27 @@ def build_bitmap_hops(dg: DeviceGraph, items) -> List:
     closure maps a ``[C, vb]`` frontier (with an optional WHILE ``gate``,
     the frontier's device popcount ``alive``, and an ``out`` bitmap to OR
     into) to the bitmap of the vertices reached (`K.bitmap_hop`). Reading
-    ``edge_src`` uploads it on the recording run."""
+    ``edge_src`` uploads it on the recording run.
+
+    A (class, direction) that ``tier`` pages hops over its page pool (K19
+    `paged_hop`) instead: while ``sched`` records, the gated frontier's
+    blocks are faulted in first (into ``touched``, the plan's footprint);
+    on a replay K20 `paged_hop_miss` raises the cold-miss flag into
+    ``sched``. Both read the pools from ``dg.arrays`` at the hop, so a
+    recording after a pool grew reads the new tensors."""
     hops = []
     for cname, d, emask in items:
+        if tier is not None and tier.pages_dir(cname, d):
+
+            def paged(fr, gate=None, alive=None, out=None, cname=cname, d=d, emask=emask):
+                if sched.recording:
+                    tier.ensure_frontier(cname, d, fr, touched, gate)
+                else:
+                    sched.note_flag(tiering.paged_hop_miss(dg.arrays, cname, d, fr, gate, alive))
+                return tiering.paged_hop(dg.arrays, cname, d, emask, fr, gate, alive, out)
+
+            hops.append(paged)
+            continue
         dec = dg.edges[cname]
         a, em = (dec.edge_src, dec.dst) if d == "out" else (dec.dst, dec.edge_src)
         hops.append(
@@ -453,6 +488,11 @@ class TpuMatchSolver:
         if self.overlay is not None and self.overlay.poisoned is not None:
             raise Uncompilable(f"delta overlay poisoned: {self.overlay.poisoned}")
         self.delta_gen = self.overlay.plan_gen if self.overlay is not None else 0
+        #: hot/cold tier manager (storage/tiering) of a tiered snapshot; the
+        #: recording run collects every block it faults into tier_touched,
+        #: the plan's footprint
+        self.tier = snap._tier
+        self.tier_touched: set = set()
         self._slab_floor = SLAB_FLOOR
         self.interp = MatchInterpreter(db, stmt, params)
         self.pattern = self.interp.pattern
@@ -525,8 +565,14 @@ class TpuMatchSolver:
         """Refuse, with the reason, every MATCH shape this slice does not
         compile: the reference's own rules (NOT arms, variable-depth arms,
         edge-binding and endpoint arms, binding references inside WHILE
-        arms, unbound edge aliases), and rid filters, which need RIDs."""
+        arms, unbound edge aliases), and rid filters, which need RIDs. On a
+        tiered snapshot the method-form arms, which read the flat edge
+        arrays the tier leaves on the host, refuse too."""
         nodes = self.pattern.nodes
+        if self.tier is not None:
+            for e in self.pattern.edges:
+                if (e.item.method or "").lower() in _EDGE_METHODS + _VERTEX_METHODS:
+                    raise Uncompilable("method-form arm on a tiered snapshot")
         for path in self.not_paths:
             for flt in [path.first] + [it.target for it in path.items]:
                 if flt is None:
@@ -813,10 +859,33 @@ class TpuMatchSolver:
             slabs.append((row, eid, nbr, t))
         return slabs
 
+    def _expand_paged(self, dec, d: str, srcs):
+        """The expansion of a paged (class, direction): row and edge
+        position from the resident indptr as in `_expand_csr`, the
+        neighbour and (in) the edge id from the tier's pool through the
+        block → page indirection (K21). The recording run faults the
+        sources' blocks in first (the plan's footprint); a replay raises
+        K21's cold-miss flag into the overflow flag instead."""
+        if self.sched.recording:
+            self.tier.ensure_vertices(dec.class_name, d, srcs, self.tier_touched)
+        indptr = dec.indptr_out if d == "out" else dec.indptr_in
+        counts = K.degree_counts(indptr, srcs)
+        offsets = K.exclusive_cumsum(counts)
+        total_dev = K.value_sum(counts)
+        total = self.sched.observe(total_dev)
+        row, eid, nbr, cold = tiering.paged_expand(
+            self.dg.arrays, dec.class_name, d, srcs, offsets, total_dev, _cap_of(total)
+        )
+        self.sched.note_flag(cold)
+        return row, eid, nbr, total
+
     def _expand_one_dir(self, dec, d: str, srcs):
         """One (edge class, direction) expansion → (row, edge id in out
         order, neighbor, host total): an in-walk maps its CSR position
-        through the class's ``edge_id_in``."""
+        through the class's ``edge_id_in``; a paged one reads the tier's
+        pool (`_expand_paged`)."""
+        if self.tier is not None and self.tier.pages_dir(dec.class_name, d):
+            return self._expand_paged(dec, d, srcs)
         if d == "out":
             row, eid, nbr, total = self._expand_csr(dec.indptr_out, dec.dst, srcs)
         else:
@@ -879,6 +948,10 @@ class TpuMatchSolver:
         if self.overlay is not None and self.overlay.topology_dirty:
             # the weight chain sums over the base CSR: slab edges would be
             # missed and tombstones counted; the full solve reads the slab
+            return []
+        if self.tier is not None:
+            # the weight passes read the flat [E] arrays, paged out on a
+            # tiered snapshot; the full solve counts through the paged path
             return []
         suffix: List[PlanStep] = []
         for step in reversed(self.plan):
@@ -1478,7 +1551,7 @@ class TpuMatchSolver:
         for c in self._resolve_edge_classes(item):
             emask = self._edge_mask(c, f.where if f is not None else None)
             hop_items.extend((c, d, emask) for d in dirs)
-        hops = build_bitmap_hops(self.dg, hop_items)
+        hops = build_bitmap_hops(self.dg, hop_items, self.sched, self.tier, self.tier_touched)
         gates: Dict[int, torch.Tensor] = {}  # depth → WHILE gate, shared by chunks
         parts: List[Table] = []
         counts: List[int] = []
@@ -1637,7 +1710,9 @@ class TpuMatchSolver:
             for c in self._resolve_edge_classes(it):
                 emask = self._edge_mask(c, f.where if f is not None else None)
                 hop_items.extend((c, d, emask) for d in dirs)
-            hops_per_item.append(build_bitmap_hops(self.dg, hop_items))
+            hops_per_item.append(
+                build_bitmap_hops(self.dg, hop_items, self.sched, self.tier, self.tier_touched)
+            )
         valid_dev = table.valid_device
         exists_chunks = []
         C = self._var_chunk_rows(width, vb)
@@ -1877,30 +1952,14 @@ def _check_delta_gen(solver) -> None:
         raise ScheduleOverflow(f"delta structure moved (gen {solver.delta_gen} -> {ov.plan_gen})")
 
 
-#: serialises replays: all plans of a device share one graph memory pool,
-#: so one replay's intermediates may overwrite another's outputs; each
-#: replay's outputs are copied out before the lock is released
-_REPLAY_LOCK = threading.RLock()
-#: device → (graph memory pool handle, replay stream)
-_REPLAY_RESOURCES: Dict[torch.device, Tuple[object, "torch.cuda.Stream"]] = {}
-
-
-def _replay_resources(device: torch.device):
-    with _REPLAY_LOCK:
-        res = _REPLAY_RESOURCES.get(device)
-        if res is None:
-            with torch.cuda.device(device):
-                res = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
-            _REPLAY_RESOURCES[device] = res
-    return res
-
-
-def _on_replay_stream(device: torch.device):
-    """Context running work on the device's replay stream (no-op on the
-    CPU): what reads a replay's outputs queues behind it there."""
-    if device.type != "cuda":
-        return contextlib.nullcontext()
-    return torch.cuda.stream(_replay_resources(device)[1])
+def _check_tier_gen(plan) -> None:
+    """Refuse the dispatch of a tiered plan captured under an older tier
+    generation: a pool grew into new tensors since, and the captured graph
+    holds the old pointers. `ScheduleOverflow` sends the caller into the
+    re-record path, which captures anew."""
+    tier = plan.solver.tier
+    if tier is not None and tier.generation != plan.tier_gen:
+        raise ScheduleOverflow(f"tier pool grew (gen {plan.tier_gen} -> {tier.generation})")
 
 
 def _to_host(ts: List[torch.Tensor]) -> "_Fetch":
@@ -1927,12 +1986,14 @@ class _Fetch:
     (``pages``: the int32 and the int16 prefix views) until the batch
     elects a page from it after the meta wave."""
 
-    __slots__ = ("event", "host", "pages")
+    __slots__ = ("event", "host", "pages", "pinned")
 
     def __init__(self, event, host: List[torch.Tensor], pages=None) -> None:
         self.event = event
         self.host = host
         self.pages = pages
+        #: the tier footprint this dispatch pinned, until its plan releases it
+        self.pinned = None
 
     def arrays(self) -> List[np.ndarray]:
         """Wait for the copies; the host arrays."""
@@ -2042,6 +2103,11 @@ class _CompiledPlan:
         self.groups: Dict[int, _GroupReplay] = {}
         #: group replays run: one per chunk of a batch's group
         self.group_replays = 0
+        #: tiered snapshots: the blocks the recording faulted in, which every
+        #: dispatch prefetches and pins, and the tier generation the plan was
+        #: captured under
+        self.tier_footprint = frozenset(solver.tier_touched)
+        self.tier_gen = solver.tier.generation if solver.tier is not None else 0
 
     # -- the replay body -----------------------------------------------------
 
@@ -2127,9 +2193,13 @@ class _CompiledPlan:
         """Eligible for the group replay: count-only and direct-fetch plans
         (one small output a lane), and row plans whose full int32 page fits
         ``config.result_group_lane_bytes`` (the group keeps one a lane and
-        elects ONE compact page for all of them after the meta wave). The
-        reference's mesh and tier exclusions have no counterpart: the port
-        has neither a mesh nor tiering yet."""
+        elects ONE compact page for all of them after the meta wave). A
+        tiered plan is not: each dispatch prefetches and pins its own
+        footprint, so its batch items replay one by one, as the reference
+        excludes them. The reference's mesh exclusion has no counterpart:
+        the port has no mesh yet."""
+        if self.solver.tier is not None:
+            return False
         return not self._rows_grouped() or 4 * self.width * self.ncols <= config.result_group_lane_bytes
 
     def _rows_grouped(self) -> bool:
@@ -2212,8 +2282,8 @@ class _CompiledPlan:
             g = self.groups[Bb] = _GroupReplay(torch.zeros((Bb, P), dtype=I32, device=dev), None)
             return g
         t0 = time.perf_counter()
-        pool, stream = _replay_resources(dev)
-        with _REPLAY_LOCK:
+        pool, stream = replay_resources(dev)
+        with REPLAY_LOCK:
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 g = _GroupReplay(torch.zeros((Bb, P), dtype=I32, device=dev), self._group_outputs(Bb))
@@ -2258,7 +2328,7 @@ class _CompiledPlan:
         host = np.stack([self._dyn_args(p) for p in params_list])
         host = np.concatenate([host, np.repeat(host[-1:], nchunks * Bb - B, axis=0)])
         dev = self.solver.device
-        with _REPLAY_LOCK:
+        with REPLAY_LOCK:
             g = self._group_replay(Bb, host[:Bb])
             if g.graph is None:
                 chunks = []
@@ -2272,7 +2342,7 @@ class _CompiledPlan:
                 g.out = chunks[-1]
                 data_dev = g.out.get("data")
             else:
-                _pool, stream = _replay_resources(dev)
+                _pool, stream = replay_resources(dev)
                 stream.wait_stream(torch.cuda.current_stream(dev))
                 fetched = g.out["direct" if self.direct_fetch else "meta"]
                 with torch.cuda.stream(stream):
@@ -2296,8 +2366,10 @@ class _CompiledPlan:
     def _dyn_args(self, params: Optional[Dict]) -> np.ndarray:
         """The dynamic parameters as one host int32 array (float32 values
         by their bits), in `dyn_spec` order. Raises when the plan is stale
-        under delta maintenance (`_check_delta_gen`)."""
+        under delta maintenance (`_check_delta_gen`) or tiering
+        (`_check_tier_gen`)."""
         _check_delta_gen(self.solver)
+        _check_tier_gen(self)
         return pack_params(params if params is not None else self.solver.params, self.dyn_spec)
 
     def _upload(self, host: np.ndarray) -> None:
@@ -2313,12 +2385,14 @@ class _CompiledPlan:
         card the CUDA graph. A capture failure raises."""
         t0 = time.perf_counter()
         dev = self.solver.device
+        if self.solver.tier is not None:
+            self.tier_gen = self.solver.tier.generation
         self._params_dev = torch.zeros(max(len(self.dyn_spec), 1), dtype=I32, device=dev)
         if dev.type != "cuda":
             self._upload(self._dyn_args(None))
             return
-        pool, stream = _replay_resources(dev)
-        with _REPLAY_LOCK:
+        pool, stream = replay_resources(dev)
+        with REPLAY_LOCK:
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 self._upload(self._dyn_args(None))
@@ -2364,34 +2438,67 @@ class _CompiledPlan:
         """Upload the parameters and run the replay; the results' copies to
         the host are queued before the replay lock is released. With
         ``keep_pages`` (a batch item) a rows plan ships its meta row only
-        and keeps its page ladder on the device (`_Fetch.pages`)."""
+        and keeps its page ladder on the device (`_Fetch.pages`). A tiered
+        plan first prefetches and pins its footprint (`_pin`); the pins
+        ride on the returned fetch until `release`."""
         t0 = time.perf_counter()
         host_params = self._dyn_args(params)
         dev = self.solver.device
         if self.graph is None and dev.type == "cuda":
             raise RuntimeError("dispatch of a plan that was never captured")
-        with _REPLAY_LOCK:
-            if self.graph is None:
-                self._upload(host_params)
-                t1 = time.perf_counter()
-                out = self._replay()
-            else:
-                _pool, stream = _replay_resources(dev)
-                stream.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(stream):
+        with REPLAY_LOCK:
+            pinned = self._pin()
+            try:
+                if self.graph is None:
                     self._upload(host_params)
                     t1 = time.perf_counter()
-                    self.graph.replay()
-                out = self.out
-            with _on_replay_stream(dev):
-                fetch = _to_host(self._outputs_to_fetch(out, keep_pages))
-                if keep_pages:
-                    fetch.pages = self._kept_pages(out)
+                    out = self._replay()
+                else:
+                    _pool, stream = replay_resources(dev)
+                    stream.wait_stream(torch.cuda.current_stream(dev))
+                    with torch.cuda.stream(stream):
+                        self._upload(host_params)
+                        t1 = time.perf_counter()
+                        self.graph.replay()
+                    out = self.out
+                with on_replay_stream(dev):
+                    fetch = _to_host(self._outputs_to_fetch(out, keep_pages))
+                    if keep_pages:
+                        fetch.pages = self._kept_pages(out)
+            except BaseException:
+                if pinned is not None:
+                    self.solver.tier.release_footprint(pinned)
+                raise
+            fetch.pinned = pinned
             for name, n in self.launches.items():
                 K.LAUNCHES[name] += n
             self.replays += 1
         self.dispatch_s = {"param_upload": t1 - t0, "replay": time.perf_counter() - t1}
         return fetch
+
+    def _pin(self):
+        """A tiered plan's footprint prefetch (loads queued on the replay
+        stream ahead of the replay) and pins; the footprint, or None for an
+        untiered plan. Raises `ScheduleOverflow`, unpinned, when the
+        prefetch grew a pool (the captured graph reads the old tensors)."""
+        tier = self.solver.tier
+        if tier is None:
+            return None
+        tier.prepare_dispatch(self.tier_footprint)
+        try:
+            _check_tier_gen(self)
+        except ScheduleOverflow:
+            tier.release_footprint(self.tier_footprint)
+            raise
+        return self.tier_footprint
+
+    def release(self, handle) -> None:
+        """Drop the footprint pins a dispatch took, once (a no-op for an
+        untiered plan's fetch, a group lane or None)."""
+        pinned = getattr(handle, "pinned", None)
+        if pinned is not None:
+            handle.pinned = None
+            self.solver.tier.release_footprint(pinned)
 
     def fetch(self, fetch: _Fetch) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Wait for the copies, then ``(meta, data)`` as host arrays (``data``
@@ -2419,8 +2526,12 @@ class _CompiledPlan:
         )
 
     def rows(self, params: Optional[Dict] = None):
-        meta, data = self.fetch(self.dispatch(params))
-        return self.materialize(meta, data, params)
+        handle = self.dispatch(params)
+        try:
+            meta, data = self.fetch(handle)
+            return self.materialize(meta, data, params)
+        finally:
+            self.release(handle)
 
     def fetch_rows_needed(self, count: int) -> int:
         """How many live rows the host needs to marshal the result:
@@ -2703,20 +2814,30 @@ def _group_dispatch(plan: _CompiledPlan, params_list: List[Dict]):
     return grp, list(range(len(params_list)))
 
 
-def _dispatch_prepared(prepared) -> List[Tuple]:
+def _dispatch_item(plan: _CompiledPlan, params: Dict) -> Optional[_Fetch]:
+    """One batch item's replay, keeping its pages; None when the plan went
+    stale under the batch (an earlier item's footprint prefetch grew a tier
+    pool): the item then re-runs through its variants after the batch."""
+    try:
+        return plan.dispatch(params, keep_pages=True)
+    except ScheduleOverflow:
+        return None
+
+
+def _dispatch_prepared(prepared, pending: List[Tuple]) -> None:
     """Dispatch every prepared item: runs of one plan of at least
     ``_GROUP_MIN`` batchable items as one group, the rest one replay each.
-    Returns ``(i, variants, plan, handle)`` rows, ``handle`` a `_Fetch` or
-    a `_Lane`."""
+    Appends ``(i, variants, plan, handle)`` rows to ``pending`` as they
+    dispatch, ``handle`` a `_Fetch`, a `_Lane`, or None for an item to
+    re-run (`_dispatch_item`)."""
     groups: Dict[int, List[int]] = {}
     for j, (_i, _v, plan, _p) in enumerate(prepared):
         if plan.batchable():
             groups.setdefault(id(plan), []).append(j)
     grouped = {j for idxs in groups.values() if len(idxs) >= _GROUP_MIN for j in idxs}
-    pending = []
     for j, (i, variants, plan, params) in enumerate(prepared):
         if j not in grouped:
-            pending.append((i, variants, plan, plan.dispatch(params, keep_pages=True)))
+            pending.append((i, variants, plan, _dispatch_item(plan, params)))
     for idxs in groups.values():
         if len(idxs) < _GROUP_MIN:
             continue
@@ -2725,13 +2846,12 @@ def _dispatch_prepared(prepared) -> List[Tuple]:
         if g is None:
             for j in idxs:
                 i, variants, _p, params = prepared[j]
-                pending.append((i, variants, plan, plan.dispatch(params, keep_pages=True)))
+                pending.append((i, variants, plan, _dispatch_item(plan, params)))
             continue
         grp, ks = g
         for k, j in zip(ks, idxs):
             i, variants, _p, _params = prepared[j]
             pending.append((i, variants, plan, _Lane(grp, k)))
-    return pending
 
 
 def _elect_pages(pending):
@@ -2746,6 +2866,9 @@ def _elect_pages(pending):
     pages: List[Optional[_Fetch]] = [None] * len(pending)
     lanes: Dict[int, Tuple[_Group, List[np.ndarray]]] = {}
     for j, (_i, _v, plan, h) in enumerate(pending):
+        if h is None:
+            fetched.append((None, None))
+            continue
         if isinstance(h, _Lane):
             meta, data = h.fetched()
             fetched.append((meta, data))
@@ -2786,6 +2909,9 @@ def _finish_pending(db, items, pending, fetched, pages, grp_pages, out) -> None:
         grp.data_np = f.arrays()[0].astype(np.int32, copy=False)
     overflowed = []
     for j, ((i, variants, plan, h), (meta, data)) in enumerate(zip(pending, fetched)):
+        if h is None:
+            overflowed.append((i, variants, plan))
+            continue
         if isinstance(h, _Lane):
             meta, data = h.fetched()  # the group's elected page has landed now
         elif pages[j] is not None:
@@ -2796,6 +2922,8 @@ def _finish_pending(db, items, pending, fetched, pages, grp_pages, out) -> None:
             variants.remember(params, plan)
         except ScheduleOverflow:
             overflowed.append((i, variants, plan))
+        finally:
+            plan.release(h)  # before any re-run faults blocks in
     resolved: Dict[Tuple, object] = {}
     for i, variants, plan in overflowed:
         stmt, params = items[i]
@@ -2829,17 +2957,23 @@ def execute_batch(db, items: List[Tuple[A.MatchStatement, Dict]]) -> List:
         plan = variants.pick(params)
         try:
             _check_delta_gen(plan.solver)
+            _check_tier_gen(plan)
         except ScheduleOverflow:
             out[i] = _run_variants(db, stmt, params, variants, tried=plan)
             continue
         prepared.append((i, variants, plan, params))
     if not prepared:
         return out
-    with _REPLAY_LOCK:
-        # the lock spans the elections: a group's lane stack and the kept
-        # ladders stay untouched until their pages are queued
-        pending = _dispatch_prepared(prepared)
-        with _on_replay_stream(db.device):
-            fetched, pages, grp_pages = _elect_pages(pending)
-    _finish_pending(db, items, pending, fetched, pages, grp_pages, out)
+    pending = []
+    try:
+        with REPLAY_LOCK:
+            # the lock spans the elections: a group's lane stack and the
+            # kept ladders stay untouched until their pages are queued
+            _dispatch_prepared(prepared, pending)
+            with on_replay_stream(db.device):
+                fetched, pages, grp_pages = _elect_pages(pending)
+        _finish_pending(db, items, pending, fetched, pages, grp_pages, out)
+    finally:
+        for _i, _v, plan, h in pending:
+            plan.release(h)  # tier pins of items that never materialised
     return out

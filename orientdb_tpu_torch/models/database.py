@@ -44,6 +44,12 @@ class Database:
         self._snapshot = None
 
     def attach_snapshot(self, snapshot) -> None:
+        """Attach a snapshot; with ``config.tier_hbm_cap_bytes`` set and the
+        snapshot's adjacency above it, admit it to the tier plane before its
+        device graph is built (`storage/tiering.maybe_tier_snapshot`)."""
+        from orientdb_tpu_torch.storage.tiering import maybe_tier_snapshot
+
+        maybe_tier_snapshot(snapshot)
         self._snapshot = snapshot
 
     def current_snapshot(self):

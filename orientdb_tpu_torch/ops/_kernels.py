@@ -65,6 +65,11 @@ SIGNATURES = {
     "csr_slab_scan_emit": [_P, _P, _P, _N, _P, _P, _P, _N, _P, _I, _N, _P, _P, _P, _P],
     "csr_slab_probe": [_P, _P, _P, _N, _P, _N, _I, _I, _I, _P, _P, _P],
     "csr_slab_decode": [_P, _N, _P, _I, _I, _P, _N, _P, _P, _P, _P],
+    "csr_paged_hop": [_P, _P, _P, _N, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
+    "csr_paged_hop_miss": [_P, _P, _N, _N, _P, _N, _P, _N, _P, _P, _P, _P],
+    "csr_paged_expand": [
+        _P, _N, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P, _P, _N, _N, _I, _P, _P, _P, _P, _P
+    ],
 }
 
 _lock = threading.Lock()

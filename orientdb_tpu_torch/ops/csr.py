@@ -8,7 +8,9 @@ module's `_CompiledPlan`) and the compact page of a batch's rows group
 (`predicate_eval`, the masks of `ops/predicates.py`), and the delta path:
 the in-place patch scatter of `ops/device_graph.DeviceGraph.apply_patches`
 (`scatter_set`) and the append-slab expansions of a delta-maintained
-snapshot (`slab_scan`, `slab_probe`), each as a wrapper over a hand-written
+snapshot (`slab_scan`, `slab_probe`), and the paged reads of a tiered
+snapshot (`paged_hop`, `paged_hop_miss`, `paged_expand`, over the page
+pools of `storage/tiering`), each as a wrapper over a hand-written
 CUDA kernel (`csrc/csr_kernels.cu`) beside its plain PyTorch version.
 
 A wrapper checks dtype, contiguity and device, then:
@@ -68,6 +70,9 @@ LAUNCHES: Dict[str, int] = {
         "scatter_set",
         "slab_scan",
         "slab_probe",
+        "paged_hop",
+        "paged_hop_miss",
+        "paged_expand",
     )
 }
 
@@ -1413,3 +1418,269 @@ def slab_probe(tab, own, nbr_a, live, srcs, base: int, nb: int, bk: int, size_fo
         row.data_ptr(), eid.data_ptr(), nbr.data_ptr(), _stream(srcs),
     )
     return row, eid, nbr, total
+
+
+# ---------------------------------------------------------------------------
+# K19–K21: the tier plane's paged reads (storage/tiering)
+# ---------------------------------------------------------------------------
+
+
+def _check_pool(t: torch.Tensor, what: str) -> None:
+    """A page pool row set: int32 [P, Wp], contiguous."""
+    if t.dtype != I32 or t.dim() != 2 or not t.is_contiguous():
+        raise TypeError(f"{what}: expected a contiguous int32 [P, Wp] pool")
+
+
+def plain_paged_hop(own, nbr, eid, emask, frontier, gate=None, alive=None) -> torch.Tensor:
+    """The reference's `paged_hop`: the flattened pool as an edge list
+    whose slots count when ``own >= 0`` (and ``take_pad(emask, eid,
+    False)``), through `plain_bitmap_hop`."""
+    own_f, nbr_f = own.reshape(-1), nbr.reshape(-1)
+    m = own_f >= 0
+    if emask is not None:
+        m = m & plain_take_pad(emask, eid.reshape(-1), False)
+    return plain_bitmap_hop(own_f, nbr_f, m, frontier, gate, alive)
+
+
+def paged_hop(
+    own: torch.Tensor,
+    nbr: torch.Tensor,
+    eid: torch.Tensor,
+    emask: Optional[torch.Tensor],
+    frontier: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One frontier hop over a paged partition's pool (K19):
+    ``out[c, nbr[s]] |= frontier[c, own[s]]`` for the pool slots with
+    ``own[s] >= 0`` and, with ``emask`` (bool [E] in out order), a True
+    ``emask[eid[s]]`` (-1 reads False). ``own`` / ``nbr`` / ``eid`` int32
+    [P, Wp]; ``gate``, ``alive`` and ``out`` as for `bitmap_hop`."""
+    for t, what in ((own, "own"), (nbr, "nbr"), (eid, "eid")):
+        _check_pool(t, f"paged_hop {what}")
+    if nbr.shape != own.shape or eid.shape != own.shape:
+        raise ValueError("paged_hop: own, nbr and eid differ in shape")
+    _check2d(frontier, (B8,), "paged_hop frontier")
+    C, vb = frontier.shape
+    opt = []
+    if emask is not None:
+        _check(emask, (B8,), "paged_hop emask")
+        opt.append(emask)
+    if gate is not None:
+        _check(gate, (B8,), "paged_hop gate")
+        if gate.shape[0] != vb:
+            raise ValueError("paged_hop: gate and the frontier differ in width")
+        opt.append(gate)
+    if alive is not None:
+        _check_scalar(alive, "paged_hop alive")
+        opt.append(alive)
+    if out is not None:
+        _check_out(out, (C, vb), B8, "paged_hop")
+        opt.append(out)
+    if not _on_card(own, nbr, eid, frontier, *opt):
+        hop = plain_paged_hop(own, nbr, eid, emask, frontier, gate, alive)
+        if out is None:
+            return hop
+        out |= hop
+        return out
+    lib = _kernels.load()
+    zero = out is None
+    if zero:
+        out = torch.empty((C, vb), dtype=B8, device=frontier.device)
+    _launch(
+        "paged_hop",
+        lib.csr_paged_hop,
+        own.data_ptr(),
+        nbr.data_ptr(),
+        eid.data_ptr(),
+        own.numel(),
+        None if emask is None else emask.data_ptr(),
+        0 if emask is None else emask.shape[0],
+        frontier.data_ptr(),
+        None if gate is None else gate.data_ptr(),
+        C,
+        vb,
+        None if alive is None else alive.data_ptr(),
+        int(zero),
+        out.data_ptr(),
+        _stream(frontier),
+    )
+    return out
+
+
+def plain_paged_hop_miss(frontier, blockv, pageof, indptr, gate=None, alive=None) -> torch.Tensor:
+    """The reference's `paged_hop_miss`: ``any(touched & (pageof < 0))``
+    with ``touched`` the scatter-max of the active vertices (in a frontier
+    row, with degree > 0) over their blocks. ``gate`` is ANDed into the
+    frontier first; ``alive`` at 0 gives False."""
+    V, B = blockv.shape[0], pageof.shape[0]
+    fa = frontier.any(dim=0)[:V]
+    if gate is not None:
+        fa = fa & gate[: fa.shape[0]]
+    if alive is not None:
+        fa = fa & (alive != 0)
+    deg = (indptr[1:] - indptr[:-1])[: fa.shape[0]]
+    b = blockv[: fa.shape[0]][fa & (deg > 0)].long()
+    touched = torch.zeros(B, dtype=B8, device=frontier.device)
+    touched[b[(b >= 0) & (b < B)]] = True
+    return (touched & (pageof < 0)).any()
+
+
+def paged_hop_miss(
+    frontier: torch.Tensor,
+    blockv: torch.Tensor,
+    pageof: torch.Tensor,
+    indptr: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The cold-miss flag of a paged hop (K20), a 0-d bool on the device:
+    True when a vertex ``v < V`` active in some frontier row (and in
+    ``gate``) has edges in this direction (``indptr`` int32 [V+1]) and its
+    block ``blockv[v]`` is cold (``pageof`` int32 [B] below 0). Nothing is
+    read back to the host."""
+    for t, what in ((blockv, "blockv"), (pageof, "pageof"), (indptr, "indptr")):
+        _check(t, (I32,), f"paged_hop_miss {what}")
+    _check2d(frontier, (B8,), "paged_hop_miss frontier")
+    C, vb = frontier.shape
+    V = blockv.shape[0]
+    if indptr.shape[0] != V + 1:
+        raise ValueError("paged_hop_miss: indptr is not V + 1 long")
+    opt = []
+    if gate is not None:
+        _check(gate, (B8,), "paged_hop_miss gate")
+        if gate.shape[0] != vb:
+            raise ValueError("paged_hop_miss: gate and the frontier differ in width")
+        opt.append(gate)
+    if alive is not None:
+        _check_scalar(alive, "paged_hop_miss alive")
+        opt.append(alive)
+    if not _on_card(frontier, blockv, pageof, indptr, *opt):
+        return plain_paged_hop_miss(frontier, blockv, pageof, indptr, gate, alive)
+    lib = _kernels.load()
+    flag = torch.empty((), dtype=B8, device=frontier.device)
+    _launch(
+        "paged_hop_miss",
+        lib.csr_paged_hop_miss,
+        frontier.data_ptr(),
+        None if gate is None else gate.data_ptr(),
+        C,
+        vb,
+        blockv.data_ptr(),
+        V,
+        pageof.data_ptr(),
+        pageof.shape[0],
+        indptr.data_ptr(),
+        None if alive is None else alive.data_ptr(),
+        flag.data_ptr(),
+        _stream(frontier),
+    )
+    return flag
+
+
+def plain_paged_expand(indptr, srcs, offsets, total, out_size, blockv, pageof, estart, pool_nbr, pool_eid, out_dir):
+    """The reference's `paged_expand`: `plain_gather_expand` without a
+    neighbour array for row and edge_pos, then the block → page
+    indirection with its clips, cold and padding slots nulled, and the
+    flag ``any(live & cold)``. Every gather is a `plain_take_pad`."""
+    dev = srcs.device
+    empty = torch.zeros(0, dtype=I32, device=dev)
+    row, edge_pos, _ = plain_gather_expand(indptr, empty, srcs, offsets, total, out_size)
+    V, B, Wp = blockv.shape[0], pageof.shape[0], pool_nbr.shape[1]
+    src = plain_take_pad(srcs, row, -1)
+    live = row >= 0
+    b = plain_take_pad(blockv, src.clamp(0, max(V - 1, 0)), -1)
+    bc = b.clamp(max=max(B - 1, 0))
+    p = plain_take_pad(pageof, bc, -1)
+    local = edge_pos - plain_take_pad(estart, bc, 0)
+    flat = p.clamp(min=0).long() * Wp + local.clamp(0, Wp - 1).long()
+
+    def take(pool):
+        if pool.numel() == 0:
+            return torch.full_like(row, -1)
+        return pool.reshape(-1)[flat.clamp(max=pool.numel() - 1)]
+
+    nbr = take(pool_nbr)
+    eid = edge_pos if out_dir else take(pool_eid)
+    cold = live & (p < 0)
+    ok = live & ~cold
+    return torch.where(ok, row, -1), torch.where(ok, eid, -1), torch.where(ok, nbr, -1), cold.any()
+
+
+def paged_expand(
+    indptr: torch.Tensor,
+    srcs: torch.Tensor,
+    offsets: torch.Tensor,
+    total: torch.Tensor,
+    out_size: int,
+    blockv: torch.Tensor,
+    pageof: torch.Tensor,
+    estart: torch.Tensor,
+    pool_nbr: torch.Tensor,
+    pool_eid: Optional[torch.Tensor],
+    out_dir: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CSR gather of a paged partition (K21): ``(row, eid, nbr,
+    cold)``. Row and edge position come from the resident ``indptr`` as in
+    `gather_expand` (``offsets`` / ``total`` / ``out_size`` as there); the
+    neighbour (and, for the in direction, the edge id in out order) from
+    the pool ``pool_nbr`` / ``pool_eid`` (int32 [P, Wp]) at page
+    ``pageof[blockv[src]]``, slot ``edge_pos - estart[block]``. The out
+    direction's edge id is the edge position (``pool_eid`` may be None).
+    Slots of a cold block are -1 and raise ``cold``, a 0-d bool on the
+    device."""
+    for t, what in (
+        (indptr, "indptr"), (srcs, "srcs"), (offsets, "offsets"), (blockv, "blockv"),
+        (pageof, "pageof"), (estart, "estart"),
+    ):
+        _check(t, (I32,), f"paged_expand {what}")
+    _check_scalar(total, "paged_expand total")
+    _check_pool(pool_nbr, "paged_expand pool_nbr")
+    if offsets.shape[0] != srcs.shape[0]:
+        raise ValueError("paged_expand: offsets and srcs differ in length")
+    if indptr.shape[0] != blockv.shape[0] + 1 or estart.shape[0] != pageof.shape[0] + 1:
+        raise ValueError("paged_expand: indptr / blockv or estart / pageof lengths disagree")
+    opt = []
+    if not out_dir:
+        if pool_eid is None:
+            raise ValueError("paged_expand: the in direction reads pool_eid")
+        _check_pool(pool_eid, "paged_expand pool_eid")
+        if pool_eid.shape != pool_nbr.shape:
+            raise ValueError("paged_expand: pool_nbr and pool_eid differ in shape")
+        opt.append(pool_eid)
+    if not _on_card(indptr, srcs, offsets, total, blockv, pageof, estart, pool_nbr, *opt):
+        return plain_paged_expand(
+            indptr, srcs, offsets, total, out_size, blockv, pageof, estart, pool_nbr, pool_eid, out_dir
+        )
+    lib = _kernels.load()
+    dev = srcs.device
+    row = torch.empty(out_size, dtype=I32, device=dev)
+    eid, nbr = torch.empty_like(row), torch.empty_like(row)
+    cold = torch.empty((), dtype=B8, device=dev)
+    _launch(
+        "paged_expand",
+        lib.csr_paged_expand,
+        indptr.data_ptr(),
+        blockv.shape[0],
+        srcs.data_ptr(),
+        offsets.data_ptr(),
+        srcs.shape[0],
+        total.data_ptr(),
+        out_size,
+        blockv.data_ptr(),
+        pageof.data_ptr(),
+        pageof.shape[0],
+        estart.data_ptr(),
+        pool_nbr.data_ptr(),
+        None if out_dir else pool_eid.data_ptr(),
+        pool_nbr.numel(),
+        pool_nbr.shape[1],
+        int(bool(out_dir)),
+        row.data_ptr(),
+        eid.data_ptr(),
+        nbr.data_ptr(),
+        cold.data_ptr(),
+        _stream(srcs),
+    )
+    return row, eid, nbr, cold

@@ -13,6 +13,10 @@ graph is cached per snapshot in this module's own weak map (rebuilt when
 another device asks), so it is freed with its snapshot; the snapshot itself
 holds no device state.
 
+A tiered snapshot (`storage/tiering`) uploads only the indptrs of a paged
+edge class; `TierManager.install` adds the block indexes and the page pools
+(``t:{class}:{direction}:*``), which loads and evictions write in place.
+
 A snapshot padded for delta maintenance (`storage/deltas`) also uploads
 each edge class's ``live`` mask and its slab bucket tables
 (``bk:{class}:out`` / ``bk:{class}:in``); `DeviceGraph.apply_patches`
@@ -68,25 +72,30 @@ class DeviceEdgeClass:
     """One edge class's CSR adjacency (both directions) on the device, its
     edge list in out order (``edge_src`` beside ``dst``), and its edge
     property columns (``columns``, indexed by edge id in out order, under
-    the class's key prefix)."""
+    the class's key prefix). A class paged by the tier plane (``paged``)
+    uploads only its indptrs: its edges live in the tier's page pools, and
+    reading ``dst``, ``src``, ``edge_id_in`` or ``edge_src`` raises."""
 
     __slots__ = (
-        "class_name", "num_edges", "columns", "non_columnar", "_g", "_p", "_k_edge_src"
+        "class_name", "num_edges", "columns", "non_columnar", "paged", "_g", "_p", "_k_edge_src"
     )
 
-    def __init__(self, csr, g: "DeviceGraph") -> None:
+    def __init__(self, csr, g: "DeviceGraph", paged: bool = False) -> None:
         self.class_name = csr.class_name
         self._g = g
+        self.paged = paged
         p = self._p = f"e:{csr.class_name}"
         g._put(f"{p}:indptr_out", csr.indptr_out)
         g._put(f"{p}:indptr_in", csr.indptr_in)
-        g._put(f"{p}:dst", csr.dst)
-        g._put(f"{p}:src", csr.src)
-        g._put(f"{p}:edge_id_in", csr.edge_id_in)
-        # derived on the host and uploaded on first read: only variable-
-        # depth and NOT arms walk the flat edge list, and ``.outV()`` reads
-        # an edge's source
-        self._k_edge_src = g._put_lazy(f"{p}:edge_src", lambda csr=csr: csr.edge_src)
+        self._k_edge_src = f"{p}:edge_src"
+        if not paged:
+            g._put(f"{p}:dst", csr.dst)
+            g._put(f"{p}:src", csr.src)
+            g._put(f"{p}:edge_id_in", csr.edge_id_in)
+            # derived on the host and uploaded on first read: only variable-
+            # depth and NOT arms walk the flat edge list, and ``.outV()``
+            # reads an edge's source
+            g._put_lazy(self._k_edge_src, lambda csr=csr: csr.edge_src)
         if csr.live is not None:
             # delta-slab liveness: spare slots and tombstones read False
             g._put(f"{p}:live", csr.live)
@@ -104,14 +113,20 @@ class DeviceEdgeClass:
     def live(self) -> torch.Tensor:
         return self._g.arrays[f"{self._p}:live"]
 
+    def _flat(self, name: str) -> torch.Tensor:
+        if self.paged:
+            raise KeyError(f"{self.class_name}.{name} is paged by the tier plane, not on the device")
+        return self._g.arrays[f"{self._p}:{name}"]
+
     @property
     def dst(self) -> torch.Tensor:
-        return self._g.arrays[f"{self._p}:dst"]
+        return self._flat("dst")
 
     @property
     def edge_src(self) -> torch.Tensor:
-        self._g.ensure_key(self._k_edge_src)
-        return self._g.arrays[self._k_edge_src]
+        if not self.paged:
+            self._g.ensure_key(self._k_edge_src)
+        return self._flat("edge_src")
 
     @property
     def indptr_in(self) -> torch.Tensor:
@@ -119,11 +134,11 @@ class DeviceEdgeClass:
 
     @property
     def src(self) -> torch.Tensor:
-        return self._g.arrays[f"{self._p}:src"]
+        return self._flat("src")
 
     @property
     def edge_id_in(self) -> torch.Tensor:
-        return self._g.arrays[f"{self._p}:edge_id_in"]
+        return self._flat("edge_id_in")
 
 
 class DeviceGraph:
@@ -146,9 +161,14 @@ class DeviceGraph:
             n: DeviceColumn(c, self, f"v:{n}") for n, c in snap.v_columns.items()
         }
         self.non_columnar: Set[str] = set(snap.v_non_columnar)
+        tier = snap._tier
         self.edges: Dict[str, DeviceEdgeClass] = {
-            n: DeviceEdgeClass(c, self) for n, c in snap.edge_classes.items()
+            n: DeviceEdgeClass(c, self, tier is not None and tier.pages_dir(n, "out"))
+            for n, c in snap.edge_classes.items()
         }
+        if tier is not None:
+            # the block indexes, the page pools and their hot seed
+            tier.install(self)
         ov = snap._overlay
         for cname, tables in (ov.bk.items() if ov is not None else ()):
             # the slab's bucket tables, patch-maintained like the live mask
@@ -219,9 +239,11 @@ class DeviceGraph:
     def memory_report(self) -> Dict[str, object]:
         """Device bytes by category, and the bytes of columns still on the
         host because no query has read them."""
-        cats = {"adjacency": 0, "vertex_columns": 0, "edge_columns": 0, "other": 0}
+        cats = {"adjacency": 0, "tier": 0, "vertex_columns": 0, "edge_columns": 0, "other": 0}
         for key, arr in self.arrays.items():
-            if key == "v_class" or key.startswith("v:"):
+            if key.startswith("t:"):
+                cat = "tier"  # page pools and block indexes (storage/tiering)
+            elif key == "v_class" or key.startswith("v:"):
                 cat = "vertex_columns"
             elif key.startswith("e:") and ":c:" in key:
                 cat = "edge_columns"

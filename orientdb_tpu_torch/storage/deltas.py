@@ -46,6 +46,7 @@ import torch
 
 from orientdb_tpu_torch.models.rid import RID
 from orientdb_tpu_torch.ops.device_graph import cached_device_graph
+from orientdb_tpu_torch.ops.replay_stream import REPLAY_LOCK, on_replay_stream, replay_resources
 from orientdb_tpu_torch.storage.snapshot import (
     MISSING_FLOAT,
     MISSING_INT,
@@ -227,11 +228,16 @@ def pad_for_deltas(
     slab), per class and direction.
 
     Must run before the snapshot's first device upload: the padded host
-    arrays are what reaches the card."""
+    arrays are what reaches the card. A tiered snapshot refuses."""
     if cached_device_graph(snap) is not None:
         raise ValueError("pad_for_deltas must run before device upload")
     if snap._overlay is not None:
         raise ValueError("snapshot is already padded for deltas")
+    if snap._tier is not None:
+        raise ValueError(
+            "tiered snapshots are immutable: delta maintenance needs the flat "
+            "resident edge arrays — raise tier_hbm_cap_bytes to detach the tier"
+        )
     sv = max(1, int(spare_vertices))
     se = max(1, int(spare_edges))
     base_v = snap.num_vertices
@@ -390,18 +396,17 @@ class SnapshotMaintainer:
         dg = cached_device_graph(ov.snap)
         if dg is None:
             return
-        from orientdb_tpu_torch.exec import tpu_engine as TE
         from orientdb_tpu_torch.ops import csr as K
 
         before = K.LAUNCHES["scatter_set"]
         phases = patches.phases  # host work first: the phases then run back to back
         n = 0
-        with TE._REPLAY_LOCK:
+        with REPLAY_LOCK:
             cuda = dg.device.type == "cuda"
             if cuda:
-                stream = TE._replay_resources(dg.device)[1]
+                stream = replay_resources(dg.device)[1]
                 stream.wait_stream(torch.cuda.current_stream(dg.device))
-            with TE._on_replay_stream(dg.device):
+            with on_replay_stream(dg.device):
                 if cuda:
                     self._events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                     self._events[0].record()

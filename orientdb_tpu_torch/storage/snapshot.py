@@ -13,7 +13,8 @@ snapshot itself holds no device state. Building a snapshot from host
 records waits for the record store: snapshots come from
 `storage/bigshape.py` or from `carry.snapshot_from_arrays`. A snapshot
 padded for delta maintenance (`storage/deltas.pad_for_deltas`) carries its
-overlay in ``_overlay``.
+overlay in ``_overlay``, a tiered one (`storage/tiering`) its tier manager
+in ``_tier``.
 """
 
 from __future__ import annotations
@@ -211,6 +212,9 @@ class GraphSnapshot:
         self.edge_closure: Dict[str, List[str]] = {}
         #: delta overlay (`storage/deltas.SnapshotOverlay`) once padded
         self._overlay = None
+        #: hot/cold tier manager (`storage/tiering.TierManager`) once
+        #: admitted under ``config.tier_hbm_cap_bytes``
+        self._tier = None
 
     @property
     def rid_to_idx(self) -> RidIndex:

@@ -57,6 +57,15 @@ class Config:
     # lanes each hold an O(E) intermediate; the port's run one after
     # another, so here the cap bounds the captured graph's size.
     group_hbm_budget_bytes: int = 6 << 30
+    # Tiered snapshots (storage/tiering): when tier_hbm_cap_bytes > 0 and a
+    # snapshot's flat adjacency exceeds it, admission attaches a TierManager:
+    # the adjacency pages between a device-resident hot pool and cold blocks
+    # in host memory instead of uploading flat. 0 disables tiering.
+    # tier_block_edges sets the target edges per block (the quotient
+    # blocking widens a block that lands on a hub vertex rather than
+    # splitting it).
+    tier_hbm_cap_bytes: int = 0
+    tier_block_edges: int = 65536
 
 
 config = Config()

@@ -548,3 +548,148 @@ def test_delta_batches_on_card_equal_cpu(card):
     same_results()
     same_results()
     torch.cuda.synchronize()
+
+
+def _paged_pool(rng, v: int, avg: float, block_edges: int, pages: int):
+    """A random CSR cut into a tier partition's blocks (`storage/tiering`)
+    and a pool of ``pages`` pages: random resident blocks at random pages,
+    free pages, and one evicted page that keeps its stale nbr/eid rows
+    behind a -1 owner row. Returns numpy arrays."""
+    from orientdb_tpu_torch.storage import tiering
+    from orientdb_tpu_torch.utils.config import config
+
+    indptr, nbrs = _csr(rng, v, avg, tail_zero=3)
+    E = nbrs.shape[0]
+    host = {
+        "own": np.repeat(np.arange(v, dtype=np.int32), np.diff(indptr)),
+        "nbr": nbrs,
+        "eid": rng.permutation(E).astype(np.int32),
+    }
+    saved = config.tier_block_edges
+    config.tier_block_edges = block_edges
+    try:
+        part = tiering._Partition("c", "in", indptr, host)
+    finally:
+        config.tier_block_edges = saved
+    pools = {n: np.full((pages, part.Wp), -1, np.int32) for n in ("own", "nbr", "eid")}
+    pageof = np.full(part.B, -1, np.int32)
+    blocks = rng.permutation(part.B)[: max(pages - 1, 0)]
+    slots = rng.permutation(pages)
+    for p, b in zip(slots, blocks):
+        for n in pools:
+            pools[n][p] = part.block_values(n, int(b))
+        pageof[b] = p
+    if pages > len(blocks):  # the evicted page
+        p = slots[len(blocks)]
+        b = int(rng.integers(0, part.B))
+        for n in ("nbr", "eid"):
+            pools[n][p] = part.block_values(n, b)
+    # -1 edge ids under live owners (take_pad(emask, -1) reads False)
+    live = pools["own"] >= 0
+    pools["eid"][live & (rng.random(live.shape) < 0.1)] = -1
+    return indptr, part, pools, pageof
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "v,avg,block_edges,pages,c",
+    [(60, 3.0, 16, 3, 1), (60, 3.0, 16, 0, 2), (5_000, 6.0, 256, 20, 8), (100_000, 8.0, 4_096, 60, 8)],
+)
+def test_paged_kernels_equal_plain_on_card(card, v, avg, block_edges, pages, c):
+    """K19 paged_hop, K20 paged_hop_miss and K21 paged_expand against their
+    plain versions, exactly: resident, free and evicted pages with vertex 0
+    in every frontier row, an edge mask with -1 edge ids, a WHILE gate, an
+    empty frontier, padding sources and cold blocks, both directions of
+    K21, and an empty pool."""
+    rng = np.random.default_rng(v + pages)
+    indptr, part, pools, pageof = _paged_pool(rng, v, avg, block_edges, pages)
+    vb = T.bucket(v)
+    d = {n: _t(a).to(card) for n, a in pools.items()}
+    ip, pg = _t(indptr).to(card), _t(pageof).to(card)
+    bv, es = _t(part.block_of_v).to(card), _t(part.edge_start).to(card)
+    fr = rng.random((c, vb)) < 0.05
+    fr[:, 0] = True
+    fr_t = _t(fr).to(card)
+    emask = _t(rng.random(part.E) < 0.7).to(card)
+    gate = _t(rng.random(vb) < 0.8).to(card)
+    for m in (None, emask):
+        for g in (None, gate):
+            got = T.paged_hop(d["own"], d["nbr"], d["eid"], m, fr_t, g)
+            assert torch.equal(got, T.plain_paged_hop(d["own"], d["nbr"], d["eid"], m, fr_t, g))
+            acc = torch.zeros_like(fr_t)
+            acc[:, -1] = True
+            T.paged_hop(d["own"], d["nbr"], d["eid"], m, fr_t, g, out=acc)
+            assert torch.equal(acc, got | (torch.arange(vb, device=card) == vb - 1)[None, :])
+            want = T.plain_paged_hop_miss(fr_t, bv, pg, ip, g)
+            assert bool(T.paged_hop_miss(fr_t, bv, pg, ip, g)) == bool(want)
+    zero = torch.zeros((), dtype=torch.int32, device=card)
+    empty = torch.zeros_like(fr_t)
+    assert not bool(T.paged_hop_miss(empty, bv, pg, ip))
+    assert not bool(T.paged_hop_miss(fr_t, bv, pg, ip, alive=zero))
+    assert not T.paged_hop(d["own"], d["nbr"], d["eid"], None, fr_t, alive=zero).any()
+    for R in (1, 255, 4_097):
+        srcs = rng.integers(-1, v, R).astype(np.int32)
+        s_t = _t(srcs).to(card)
+        counts = T.degree_counts(ip, s_t)
+        offsets = T.exclusive_cumsum(counts)
+        total = T.value_sum(counts)
+        out_size = T.bucket(max(int(total), 1))
+        for out_dir in (True, False):
+            got = T.paged_expand(ip, s_t, offsets, total, out_size, bv, pg, es, d["nbr"], d["eid"], out_dir)
+            want = T.plain_paged_expand(ip, s_t, offsets, total, out_size, bv, pg, es, d["nbr"], d["eid"], out_dir)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_tiered_queries_on_card_equal_cpu(card, monkeypatch):
+    """A tiered snapshot (the cap at half its adjacency) on the card against
+    its CPU twin: 1-hop COUNT, in-direction rows, variable depth and a NOT
+    arm, recorded, replayed off and on their footprints, then after a 2-hop
+    whose frontier grows the pool (every plan re-records); the residency
+    counters move alike on both."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.storage import tiering
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+    from orientdb_tpu_torch.utils.config import config
+
+    monkeypatch.setattr(config, "tier_block_edges", 1_024)
+    twins = [build_person_knows(20_000, avg_knows=6, seed=13, device=dev) for dev in (card, "cpu")]
+    adj = tiering.adjacency_bytes(twins[0][1])
+    monkeypatch.setattr(config, "tier_hbm_cap_bytes", adj // 2)
+    for db, snap in twins:
+        db.attach_snapshot(snap)
+        assert snap._tier is not None
+    qs = [
+        ("MATCH {class:Person, as:p, where:(uid = :u)}-knows->{as:f, where:(age < 30)} "
+         "RETURN count(*) AS n", "u"),
+        ("MATCH {class:Person, as:p, where:(uid < :u)}<-knows-{as:f} RETURN p.uid AS pu, f.uid AS fu", "u"),
+        ("MATCH {class:Person, as:p, where:(uid = :u)}-knows->{as:f, while:($depth < 2)} "
+         "RETURN count(*) AS n", "u"),
+        ("MATCH {class:Person, as:p, where:(uid = :u)}-knows->{as:f}, "
+         "NOT {as:f}-knows->{where:(age > 60)} RETURN f.uid AS fu", "u"),
+    ]
+
+    def run(us):
+        for sql, name in qs:
+            for u in us:
+                got, want = (sorted(map(str, db.query(sql, {name: u}).to_dicts())) for db, _ in twins)
+                assert got == want, (sql, u)
+
+    run([3, 3, 9_001, 3, 17_777, 9_001])
+    counts = [
+        {k: s._tier.stats()[k] for k in ("prefetch_hits", "prefetch_misses", "evictions")} for _, s in twins
+    ]
+    assert counts[0] == counts[1] and counts[0]["evictions"] > 0
+    grow = "MATCH {class:Person, as:p, where:(uid < 500)}-knows->{as:f}-knows->{as:g} RETURN count(*) AS n"
+    got, want = (db.query(grow).to_dicts() for db, _ in twins)
+    assert got == want
+    tier = twins[0][1]._tier
+    assert tier.generation > 0
+    run([3, 9_001])
+    plans = [p for v in TE._plan_cache(twins[0][1]).values() for p in v.plans]
+    assert all(p.graph is not None for p in plans)
+    assert any(p.tier_gen == tier.generation and p.replays > 0 for p in plans)
+    assert all(not p.pins for p in tier.parts.values())
+    torch.cuda.synchronize()
