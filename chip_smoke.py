@@ -61,6 +61,27 @@ from the root of a checkout. Phases, each of which raises on failure:
    read after each; each equals the float64 numpy haversine outside the
    boundary band (a COUNT lies between the count outside the band and that
    plus the band's slots), whose slots are printed;
+5c. TRAVERSE and record rows — on A while it is resident: TR1 (the
+   reference bench's TRAVERSE, `bench.py:1290`: ``out('knows')`` from the
+   compiled SELECT ``uid < 50``, ``WHILE $depth < 2``), TR2 (``both``,
+   MAXDEPTH 3: in hops), TR3 (``WHILE $depth < 4 AND age > 30``: the
+   admission gate), TR4 (the whole closure of one person, ~8M records), S1
+   (``SELECT count(*)`` over an age range), S2 (``SELECT FROM Person WHERE
+   uid < :k``: record rows, parameter-generic), M1 / M2 (a rid-filtered
+   MATCH returning ``p, f, f.@class``, then ``$elements``), first on the
+   recording path (plan cache off, launch counts zeroed before and read
+   after: K16, K10, K12, K3 and K15 must launch), then recorded, captured
+   and replayed 5 times; every result equals numpy (a level-wise BFS over
+   the host CSR with the reference's admission rule and emission order;
+   record dicts against the host columns; TR4's ids in order, its first
+   1,000,000 rows decoded and timed). BT1: TR1 x 8 through
+   ``db.query_batch`` as one shared dispatch. Prints record, capture and
+   replay times, launches per replay, levels, rows, layers and the busy
+   share. Then holds K12 with its gate (TR3's first level, empty and
+   all-true gates), K15's ID instruction (M1's mask, a compare against -2)
+   and K3's offset form (TR4's largest level, the buffer's end) exactly
+   against their plain versions and re-times the three rows in these
+   forms;
 6. SNB shape — frees the Person–knows graph (plan cache and device
    cache), builds config 5's graph (`build_snb_shape(8_000_000,
    msgs_per_person=2, avg_knows=10, seed=7)`: 24M vertices, ~80M knows
@@ -117,7 +138,10 @@ from the root of a checkout. Phases, each of which raises on failure:
    counts zeroed before W1 and read after W4 (K16–K18, K10, K14, K15
    must launch). K16 is held against its plain version on W1's segments,
    K18 at D1's probe, K17 at Q3 k = 200's second hop after W4, each
-   timed eager and in a captured graph.
+   timed eager and in a captured graph. TR1 runs before the writes, after
+   W1 (the cleared cache records it anew) and after W2 (its stale data
+   version sends the cached plan to a re-record), each equal to numpy over
+   the base graph plus the events.
 9. tiering — after phase 8, A's second twin (copied before A's upload)
    is attached with ``tier_hbm_cap_bytes`` = its adjacency bytes / 2
    (configuration T, `bench.py:507`; ``tier_block_edges`` 65,536): its
@@ -135,16 +159,22 @@ from the root of a checkout. Phases, each of which raises on failure:
    2)`` from 16 roots, twice). K19–K21 must have launched. Then holds
    K19–K21 exactly against their plain versions at T's pool shapes,
    every page evicted, an empty pool, C = 8 and in a captured graph, and
-   times them; then T_GROW (a 2-hop COUNT from ``uid < 2000``) grows the
-   pool, and T1 re-records and re-captures under the new generation.
+   times them; then T4c (TR1's shape from 50 roots in a cold block: its
+   recording faults blocks in, its prefetch reloads them after an eviction
+   pass, a replay without the roots' block flags and re-records); then
+   T_GROW (a 2-hop COUNT from ``uid < 2000``) grows the pool, and T1
+   re-records and re-captures under the new generation; then T4 (TR1 on
+   T: K19 and K20 inside a captured TRAVERSE replay).
    Every result equals numpy over the host CSR. Prints ``stats()`` and the
    bytes loaded after each pass.
 
 The line before the last is one JSON object with every kernel's numbers
 (``launches`` from phase 5, from phase 6's replay path for
 `rows_with_matches`, from phase 7 for `group_page`, from phase 8 for
-K16–K18 and from phase 9 for K19–K21; K15's time is Q1's node mask p);
-the last line is ``{"ok": true, "device": {...}}``.
+K16–K18 and from phase 9 for K19–K21, each plus phase 5c's replay path;
+K3, K12 and K15 timed in their TRAVERSE forms: the offset form on TR4's
+largest level, the gated step at [1, 2^23], M1's node mask with its ID
+instruction); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1502,8 +1532,475 @@ def check_rows_with_matches(torch, K, ks, dg) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: TRAVERSE, record rows and compiled SELECT on A
+# ---------------------------------------------------------------------------
+
+TR1 = (
+    "TRAVERSE out('knows') FROM (SELECT FROM Person WHERE uid < 50) "
+    "WHILE $depth < 2 STRATEGY BREADTH_FIRST"
+)
+TR2 = "TRAVERSE both('knows') FROM (SELECT FROM Person WHERE uid < 20) MAXDEPTH 3 STRATEGY BREADTH_FIRST"
+TR3 = (
+    "TRAVERSE out('knows') FROM (SELECT FROM Person WHERE uid < 100) "
+    "WHILE $depth < 4 AND age > 30 STRATEGY BREADTH_FIRST"
+)
+#: the whole closure of one person (unconditional DEPTH_FIRST: reachability)
+TR4 = "TRAVERSE out('knows') FROM #{c}:0"
+TR4_DICTS = 1_000_000
+S1 = "SELECT count(*) AS n FROM Person WHERE age > 35 AND age < 55"
+S2 = "SELECT FROM Person WHERE uid < :k"
+S2_K, S2_K_SMALLER = 2000, 1000
+M_POS = 123_457
+M1 = "MATCH {{class:Person, rid:#{c}:{p}, as:p}}-knows->{{as:f}} RETURN p, f, f.@class"
+M2 = "MATCH {{class:Person, rid:#{c}:{p}, as:p}}-knows->{{as:f}} RETURN $elements"
+BT1_ITEMS = 8
+#: the kernels a TRAVERSE replay runs: the root seed (K16), the hops (K10),
+#: the admission (K12), the level's compaction (K3) and the WHILE gate (K15)
+TRAVERSE_KERNELS = ["scatter_set", "bitmap_hop", "frontier_advance", "compact_indices", "predicate_eval"]
+
+
+def csr_neighbours(np, indptr, nbrs, f):
+    """Every neighbour (with repeats) of the vertices ``f`` in one CSR."""
+    deg = indptr[f + 1] - indptr[f]
+    start = np.repeat(indptr[f] - (np.cumsum(deg) - deg), deg)
+    return nbrs[start + np.arange(int(deg.sum()))]
+
+
+def numpy_traverse(np, n, roots, expand, max_depth=None, admit=None):
+    """The reference's BREADTH_FIRST TRAVERSE over host arrays: depth 0 the
+    roots in their order (first occurrence kept), then each level's newly
+    reached vertices that ``admit(depth)`` keeps (a bool, or a bool [n]
+    vector), ascending; it stops on an empty level or at ``max_depth``.
+    Returns (vertex ids in emission order, level sizes)."""
+    roots = np.asarray(roots, np.int64)
+    _, first = np.unique(roots, return_index=True)
+    roots = roots[np.sort(first)]
+    visited = np.zeros(n, bool)
+    visited[roots] = True
+    parts, levels = [roots], [int(roots.shape[0])]
+    frontier, depth = roots, 0
+    while max_depth is None or depth < max_depth:
+        new = np.zeros(n, bool)
+        new[expand(frontier)] = True
+        new &= ~visited
+        if admit is not None:
+            new &= admit(depth + 1)
+        level = np.flatnonzero(new)
+        if level.size == 0:
+            break
+        visited[level] = True
+        parts.append(level)
+        levels.append(int(level.size))
+        frontier, depth = level, depth + 1
+    return np.concatenate(parts), levels
+
+
+class TRRef:
+    """numpy answers of the phase 5c cells from A's host arrays."""
+
+    def __init__(self, np, snap, pc: int):
+        self.np, self.snap, self.pc = np, snap, pc
+        csr = snap.edge_classes["knows"]
+        n = snap.num_vertices
+        ip_out, ip_in = csr.indptr_out.astype(np.int64), csr.indptr_in.astype(np.int64)
+        self.age = snap.v_columns["age"].values
+        self.out = lambda f: csr_neighbours(np, ip_out, csr.dst, f)  # noqa: E731
+        both = lambda f: np.concatenate([self.out(f), csr_neighbours(np, ip_in, csr.src, f)])  # noqa: E731
+        old = self.age > 30
+        self.tr = {
+            "TR1": numpy_traverse(np, n, np.arange(50), self.out, admit=lambda d: d < 2),
+            "TR2": numpy_traverse(np, n, np.arange(20), both, max_depth=3),
+            "TR3": numpy_traverse(np, n, np.arange(100), self.out, admit=lambda d: old & (d < 4)),
+            "TR4": numpy_traverse(np, n, np.arange(1), self.out),
+        }
+        self.s1 = int(((self.age > 35) & (self.age < 55)).sum())
+        self.m_f = self.out(np.array([M_POS]))
+
+    def rid(self, i) -> str:
+        return f"#{self.pc}:{i}"
+
+    def check_records(self, name, rows, ids, stride: int = 1) -> None:
+        """Each ``stride``-th record row against the host columns at its
+        vertex: ``@rid``, ``@class``, ``uid``, ``age``, ``lat`` / ``lng``
+        (float32 values; an absent one leaves its key out)."""
+        cols = self.snap.v_columns
+        for j in range(0, len(rows), stride):
+            r, i = rows[j], int(ids[j])
+            want = {"@rid": self.rid(i), "@class": "Person", "uid": i, "age": int(self.age[i])}
+            for g in ("lat", "lng"):
+                if cols[g].present[i]:
+                    want[g] = float(cols[g].values[i])
+            _require(r == want, f"{name}: record {j} {r} != {want}")
+
+    def check(self, name, rows, params=None) -> None:
+        np = self.np
+        if name == "S1":
+            _require(rows == [{"n": self.s1}], f"S1 {rows} != numpy {self.s1}")
+            return
+        if name == "S2":
+            k = params["k"]
+            ids = sorted(int(r["uid"]) for r in rows)
+            _require(ids == list(range(k)), f"S2 k={k}: the uids are not 0..k-1")
+            self.check_records(name, sorted(rows, key=lambda r: r["uid"]), range(k))
+            return
+        if name == "M1":
+            got = sorted((r["p"], r["f"], r["f.@class"]) for r in rows)
+            want = sorted((self.rid(M_POS), self.rid(int(f)), "Person") for f in self.m_f)
+            _require(got == want, "M1 rows differ from numpy")
+            return
+        if name == "M2":
+            want = [x for f in self.m_f for x in (M_POS, int(f))]
+            _require([r["@rid"] for r in rows] == [self.rid(i) for i in want], "M2 records differ from numpy")
+            self.check_records(name, rows, want)
+            return
+        ids, _levels = self.tr[name]
+        got = np.array([int(r["@rid"].split(":")[1]) for r in rows], np.int64)
+        _require(np.array_equal(got, ids), f"{name}: records differ from numpy (order included)")
+        self.check_records(name, rows, ids, stride=max(1, len(rows) // 20_000))
+
+
+def _tr_cells(pc: int):
+    """cell → (statement, parameters); TR4 and the M cells name Person's
+    cluster."""
+    return {
+        "TR1": (TR1, None),
+        "TR2": (TR2, None),
+        "TR3": (TR3, None),
+        "TR4": (TR4.format(c=pc), None),
+        "S1": (S1, None),
+        "S2": (S2, {"k": S2_K}),
+        "M1": (M1.format(c=pc, p=M_POS), None),
+        "M2": (M2.format(c=pc, p=M_POS), None),
+    }
+
+
+def _tr4_ids(rs):
+    """TR4's vertex ids from its result set, without decoding a record."""
+    _require(hasattr(rs._rows, "ids"), "TR4 did not return record rows")
+    return rs._rows.ids
+
+
+def run_traverse(np, torch, K, TE, ks, db, snap, card: str):
+    """Phase 5c: TRAVERSE, record rows and compiled SELECT on A through
+    ``db.query`` / ``db.query_batch``. Each cell first on the recording
+    path (plan cache off), launch counts zeroed before and read after, then
+    recorded, captured and replayed 5 times with the cache on; every
+    result equals numpy (TR4's ids in order, its first 1,000,000 rows
+    decoded and timed). BT1: TR1 × 8 as one shared dispatch. Then the
+    kernel forms of this path against their plain versions. Returns the
+    replay path's launches."""
+    from orientdb_tpu_torch.exec.result import RecordRows
+    from orientdb_tpu_torch.ops.device_graph import device_graph
+    from orientdb_tpu_torch.utils.config import config
+
+    sync = torch.cuda.synchronize
+    pc = db.schema.get_class("Person").cluster_ids[0]
+    t0 = time.perf_counter()
+    ref = TRRef(np, snap, pc)
+    print(
+        f"numpy references of TR1–TR4, S1, M1: {time.perf_counter() - t0:.1f} s; levels "
+        + ", ".join(f"{n} {lv}" for n, (_ids, lv) in ref.tr.items())
+    )
+    cells = _tr_cells(pc)
+
+    def run(name, sql, params):
+        """The cell through the front door: its rows, or TR4's vertex ids
+        (its records stay undecoded). Timed without its check."""
+        rs = db.query(sql, params)
+        return _tr4_ids(rs) if name == "TR4" else rs.to_dicts()
+
+    def check(name, out, params):
+        if name == "TR4":
+            _require(np.array_equal(out, ref.tr["TR4"][0]), "TR4: vertex ids differ from numpy (order included)")
+        else:
+            ref.check(name, out, params)
+
+    # the recording path, the plan cache off
+    cache = config.plan_cache_size
+    config.plan_cache_size = 0
+    try:
+        K.reset_launches()
+        before = dict(K.LAUNCHES)
+        for name, (sql, params) in cells.items():
+            t = time.perf_counter()
+            out = run(name, sql, params)
+            sync()
+            ms = (time.perf_counter() - t) * 1e3
+            check(name, out, params)
+            after = dict(K.LAUNCHES)
+            per = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            before = after
+            print(f"record {name}: {ms:.3f} ms (plan cache off); launches {sum(per.values())} {per} [{card}]")
+        sync()
+        rec = dict(K.LAUNCHES)
+        missing = [n for n in TRAVERSE_KERNELS if rec[n] == 0]
+        _require(not missing, f"kernels never launched on the TRAVERSE recording path: {missing}")
+    finally:
+        config.plan_cache_size = cache
+
+    # record + capture, then 5 replays
+    K.reset_launches()
+    plans = {}
+    for name, (sql, params) in cells.items():
+        t = time.perf_counter()
+        out = run(name, sql, params)
+        sync()
+        first_ms = (time.perf_counter() - t) * 1e3
+        check(name, out, params)
+        plan = _only_plan(TE, snap, sql).plans[0]
+        _require(plan.graph is not None and plan.replays == 0, f"{name}: not captured")
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            out = run(name, sql, params)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            check(name, out, params)
+        _require(plan.replays == 5 and len(_only_plan(TE, snap, sql).plans) == 1, f"{name}: replays {plan.replays}")
+        med = statistics.median(times)
+        levels = getattr(plan.solver, "levels", None)
+        print(
+            f"replay {name}: record {first_ms - plan.capture_ms:.3f} ms, capture {plan.capture_ms:.3f} ms, "
+            f"replay median {med:.3f} ms over {len(times)} runs (runs {[round(x, 3) for x in times]}); "
+            f"{len(out)} rows, levels {levels}; launches per replay {sum(plan.launches.values())} "
+            f"{plan.launches}; reserved after capture {plan.reserved_bytes} bytes [{card}]"
+        )
+        if name == "TR4":
+            print(f"replay device TR4: {busy_share(torch, lambda: db.query(sql), med)}")
+            ids = out
+            t = time.perf_counter()
+            rows = RecordRows(snap, ids[:TR4_DICTS]).to_dicts()
+            dict_ms = (time.perf_counter() - t) * 1e3
+            ref.check_records("TR4", rows, ids[:TR4_DICTS], stride=97)
+            print(
+                f"replay TR4: {len(ids)} records; to_dicts() of the first {len(rows)} rows {dict_ms:.3f} ms "
+                f"({len(rows) / dict_ms * 1e3:.0f} rows/s) [{card}]"
+            )
+            del rows
+        else:
+            print(f"replay layers {name}: {replay_layers(torch, db, sql, plan, params)}")
+            print(f"replay device {name}: {device_share(torch, db, sql, params, med)}")
+        plans[name] = plan
+    # S2 at a smaller k replays the k = 2000 plan (SELECT is parameter-generic)
+    s2 = plans["S2"]
+    before = s2.replays
+    check("S2", run("S2", S2, {"k": S2_K_SMALLER}), {"k": S2_K_SMALLER})
+    _require(
+        s2.replays == before + 1 and len(_only_plan(TE, snap, S2).plans) == 1,
+        "S2 k=1000 did not replay the k=2000 plan",
+    )
+    print(f"replay S2 k={S2_K_SMALLER}: {S2_K_SMALLER} records from the k={S2_K} plan (replay {s2.replays})")
+    for name in ("TR1", "TR2", "TR3", "TR4"):
+        _require(isinstance(plans[name], TE._CompiledTraverse), f"{name} is not a TRAVERSE plan")
+    for kernel in TRAVERSE_KERNELS:
+        _require(
+            any(plans[n].launches.get(kernel, 0) > 0 for n in ("TR1", "TR3")),
+            f"{kernel} not in the TRAVERSE replays",
+        )
+    # BT1: TR1 x 8 through query_batch, one shared dispatch; then the
+    # reference's batch statistic beside the same items run one by one
+    tr1 = plans["TR1"]
+    before = tr1.replays
+    for rs in db.query_batch([TR1] * BT1_ITEMS):
+        ref.check("TR1", rs.to_dicts())
+    _require(tr1.replays == before + 1, f"BT1 was not one shared dispatch ({tr1.replays - before} replays)")
+
+    def batched():
+        return [rs.to_dicts() for rs in db.query_batch([TR1] * BT1_ITEMS)]
+
+    def sequential():
+        return [db.query(TR1).to_dicts() for _ in range(BT1_ITEMS)]
+
+    # one shot of each right after the cells above, then the reference's
+    # statistic, before and after a full collection, each with the time the
+    # collector spent inside it (a full pass walks every object the cells
+    # above left alive)
+    shots = []
+    for fn in (batched, sequential):
+        with GcClock() as g:
+            t = time.perf_counter()
+            fn()
+            shots.append(f"{(time.perf_counter() - t) * 1e3:.3f} ms (collector: {g})")
+    tracked = len(gc.get_objects())
+    stats, qps = [], {}
+    for when in ("before", "after"):
+        if when == "after":
+            t = time.perf_counter()
+            gc.collect()
+            stats.append(f"a full collection {(time.perf_counter() - t) * 1e3:.3f} ms")
+        for fn in (batched, sequential):
+            with GcClock() as g:
+                qps[fn.__name__, when] = _batch_qps(fn, BT1_ITEMS)
+            stats.append(f"{fn.__name__} {when} {qps[fn.__name__, when]:.1f} q/s (collector: {g})")
+    print(
+        f"batch BT1 shots: batched {shots[0]}, sequential {shots[1]}; {tracked} objects tracked "
+        f"before the collection [{card}]"
+    )
+    print(
+        f"batch BT1: TR1 x {BT1_ITEMS} in one shared dispatch (each equal to numpy): "
+        f"{qps['batched', 'after']:.1f} q/s against {qps['sequential', 'after']:.1f} q/s sequential after a full "
+        f"collection; " + "; ".join(stats) + f" [{card}]"
+    )
+    sync()
+    launches = dict(K.LAUNCHES)
+    print(f"traverse replay path: all equal numpy; launches {launches}")
+    check_traverse_kernels(np, torch, K, ks, device_graph(snap, db.device), ref, plans)
+    TE._plan_cache(snap).clear()
+    return launches
+
+
+def check_traverse_kernels(np, torch, K, ks, dg, ref, plans) -> None:
+    """The three kernel forms of the TRAVERSE path against their plain
+    versions, exactly, at TR3's and TR4's shapes: K12 with its admission
+    gate on TR3's first level ([1, 2^23] bitmaps; TR3's gate, an empty
+    gate, an all-true gate, none; row lengths off the 16-byte path), K15's
+    ID instruction in M1's node mask over the 2^23-slot universe (and a
+    compare against -2), K3's offset form on TR4's largest level (and at
+    the buffer's end, and at edge lengths). Then re-times the three rows
+    in their new forms; the gate-free K12 and the ID-free K15 keep their
+    checks of phase 3 and print their times beside."""
+    from orientdb_tpu_torch.ops.predicates import Predicate, id_term
+
+    dev = dg.device
+    V = dg.num_vertices
+    vb = K.bucket(V)
+    dec = dg.edges["knows"]
+    counted = dict(K.LAUNCHES)
+
+    # K12: TR3's first level, gated by age > 30 at $depth 1
+    roots = torch.zeros((1, vb), dtype=torch.bool, device=dev)
+    roots[0, :100] = True
+    nxt = K.bitmap_hop(dec.edge_src, dec.dst, None, roots)
+    tr3 = plans["TR3"].solver
+    gate = tr3.while_fn.identity(vb, V, env={"depth": 1})
+    cases = [gate, torch.zeros(vb, dtype=torch.bool, device=dev), torch.ones(vb, dtype=torch.bool, device=dev), None]
+    for g in cases:
+        n1, v1, n2, v2 = nxt.clone(), roots.clone(), nxt.clone(), roots.clone()
+        ks.same("frontier_advance", (n1, v1, K.frontier_advance(n1, v1, g)), (n2, v2, K.plain_frontier_advance(n2, v2, g)))
+    for n in EDGE_LENGTHS[1:]:
+        a, b = nxt[:, :n].contiguous(), roots[:, :n].contiguous()
+        g = gate[:n].contiguous()
+        n1, v1, n2, v2 = a.clone(), b.clone(), a.clone(), b.clone()
+        ks.same("frontier_advance", (n1, v1, K.frontier_advance(n1, v1, g)), (n2, v2, K.plain_frontier_advance(n2, v2, g)))
+    n_t, v_t = nxt.clone(), roots.clone()
+    reached = int(K.mask_count(nxt.view(-1)))
+    ks.timed(
+        "frontier_advance",
+        lambda: K.frontier_advance(n_t, v_t, gate),
+        lambda: K.plain_frontier_advance(n_t, v_t, gate),
+        None,  # an and-not, an and, an or and a count: four calls at least
+        # nxt read once; visited and gate read, nxt and visited written, at
+        # the reached slots only (nothing changes elsewhere); the count
+        vb + 4.0 * reached + 4.0,
+    )
+    print(
+        f"kernel frontier_advance gated at [1, {vb}] ({int(K.frontier_advance(nxt.clone(), roots.clone(), gate))} "
+        f"admitted of {reached} reached): {ks.rows['frontier_advance']['ms']:.4f} ms; "
+        f"gate-free {_time_ms(torch, lambda: K.frontier_advance(n_t, v_t)):.4f} ms, in a graph "
+        f"{_graph_ms(torch, lambda: K.frontier_advance(n_t, v_t, gate)):.4f} ms"
+    )
+
+    # K15: M1's node mask p (valid, Person's class, the ID compare)
+    m1 = plans["M1"].solver
+    pred = m1._node_masks["p"]
+    (prog,) = pred.programs
+    _require(any(r[0] == K.PredOp.ID for r in prog.prog.rows), "M1's mask has no ID instruction")
+    bufs = prog.buffers({}, [], vb)
+    ks.same("predicate_eval", pred.identity(vb, V), K.plain_predicate_eval(prog.prog, bufs, None, vb, V))
+    _require(int(pred.identity(vb, V).sum()) == 1, "M1's mask does not admit exactly its RID")
+    none = Predicate([id_term(-2)], dev)
+    ids = torch.randint(-2, vb + 2, (1 << 23,), dtype=torch.int32, device=dev)
+    for p in (none, pred):
+        (pg,) = p.programs
+        b = pg.buffers({}, [], ids.shape[0])
+        ks.same("predicate_eval", p(ids), K.plain_predicate_eval(pg.prog, b, ids))
+    _require(not bool(none(ids).any()), "an ID compare against -2 admitted a slot")
+    ks.timed(
+        "predicate_eval",
+        lambda: pred.identity(vb, V),
+        lambda: K.plain_predicate_eval(prog.prog, bufs, None, vb, V),
+        None,  # no single PyTorch call evaluates a predicate program
+        # the mask written; the class id read at the one slot the ID term
+        # admits (every other slot's answer needs no column)
+        vb + 4.0,
+    )
+    print(
+        f"kernel predicate_eval, M1 node mask p ({len(prog.prog.rows)} instructions, ID): "
+        f"{ks.rows['predicate_eval']['ms']:.4f} ms eager, {_graph_ms(torch, lambda: pred.identity(vb, V)):.4f} ms "
+        f"in a captured graph"
+    )
+
+    # K3's offset form: TR4's largest level, written at its offset
+    ids4, levels = ref.tr["TR4"]
+    big = int(np.argmax(levels))
+    off = int(sum(levels[:big]))
+    cnt = levels[big]
+    level = torch.from_numpy(ids4[off : off + cnt]).to(dev)
+    mask = torch.zeros(vb, dtype=torch.bool, device=dev)
+    mask[level.long()] = True
+    total = int(sum(levels))
+    width = K.bucket(total)
+    for size, at in ((cnt, off), (cnt + 5, off), (0, width)):
+        a = torch.full((width,), -1, dtype=torch.int32, device=dev)
+        b = a.clone()
+        K.compact_indices(mask, size, out=a, offset=at)
+        K.plain_compact_indices(mask, size, out=b, offset=at)
+        ks.same("compact_indices", a, b)
+    for n in EDGE_LENGTHS:
+        m = mask[:n].contiguous()
+        a = torch.full((n + 9,), -1, dtype=torch.int32, device=dev)
+        b = a.clone()
+        c = int(m.sum())
+        ks.same("compact_indices", K.compact_indices(m, c, out=a, offset=9 - (n % 9)), K.plain_compact_indices(m, c, out=b, offset=9 - (n % 9)))
+        ks.same("compact_indices", a, b)
+    buf = torch.full((width,), -1, dtype=torch.int32, device=dev)
+    ks.timed(
+        "compact_indices",
+        lambda: K.compact_indices(mask, cnt, out=buf, offset=off),
+        lambda: K.plain_compact_indices(mask, cnt, out=buf, offset=off),
+        lambda: torch.nonzero(mask),
+        vb + 4.0 * cnt,  # the mask read, the level's indices written (K1's scan apart)
+    )
+    print(
+        f"kernel compact_indices, offset form on TR4's level {big} ({cnt} of {vb} slots at offset {off}): "
+        f"{ks.rows['compact_indices']['ms']:.4f} ms"
+    )
+    torch.cuda.synchronize()
+    K.LAUNCHES.update(counted)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: batches (db.query_batch)
 # ---------------------------------------------------------------------------
+
+
+class GcClock:
+    """The collector's passes and milliseconds, by generation, while a
+    block runs (`gc.callbacks`)."""
+
+    def __init__(self) -> None:
+        self.n = [0, 0, 0]
+        self.ms = [0.0, 0.0, 0.0]
+        self._t = None
+
+    def _cb(self, phase, info) -> None:
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            g = info["generation"]
+            self.n[g] += 1
+            self.ms[g] += (time.perf_counter() - self._t) * 1e3
+            self._t = None
+
+    def __enter__(self) -> "GcClock":
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._cb)
+
+    def __str__(self) -> str:
+        return ", ".join(f"gen {g} {self.n[g]} passes {self.ms[g]:.3f} ms" for g in range(3))
 
 
 def _batch_qps(run, n_items: int, iters: int = 3, reps: int = 3) -> float:
@@ -2127,7 +2624,28 @@ def run_deltas(np, torch, K, TE, ks, db, snap, card):
             out.append(f"BQ3 {bq3():.3f} ms")
         print(f"delta {tag}: " + "; ".join(out) + " (each equal to numpy)")
 
+    def tr1(tag):
+        """TR1 on the padded twin against numpy over the base graph plus
+        the events so far (the live edges; order and ages included)."""
+        want, levels = numpy_traverse(
+            np, dref.alive.shape[0], dref.roots(50), lambda f: dref.out(f)[1], admit=lambda d: d < 2
+        )
+        t = time.perf_counter()
+        rows = db.query(TR1).to_dicts()
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+        got = np.array([int(r["@rid"].split(":")[1]) for r in rows], np.int64)
+        _require(np.array_equal(got, want), f"TR1 {tag}: records differ from numpy")
+        _require([r["age"] for r in rows] == dref.age[want].tolist(), f"TR1 {tag}: ages differ from numpy")
+        v = _only_plan(TE, snap, TR1)
+        print(
+            f"delta TR1 {tag}: {ms:.3f} ms, {len(rows)} records, levels {levels}; {len(v.plans)} plan(s), "
+            f"replays {[p.replays for p in v.plans]}, data version {ov.data_version} (equal to numpy)"
+        )
+        return v
+
     run_cells("before the writes (first call records and captures)")
+    tr1_plans = list(tr1("before the writes").plans)
     _require(ov.plan_gen == 0, "a plan generation moved before any write")
     d1_plan = _only_plan(TE, snap, D1).plans[0]
     _require(d1_plan.solver._count_pushdown_steps(), "D1 does not take the pushdown on clean topology")
@@ -2168,6 +2686,15 @@ def run_deltas(np, torch, K, TE, ks, db, snap, card):
             _require(ov.plan_gen == gen, "a DATA-only batch moved the plan generation")
             before = {n: (p.graph, p.replays) for n, p in plans.items()}
         run_cells(f"after {tag}")
+        if tag in ("W1", "W2"):
+            # the TRAVERSE replay is static: after W1 the cleared cache
+            # records it anew, after W2 (which keeps the cache) its stale
+            # data version sends the dispatch to a re-record
+            v = tr1(f"after {tag}")
+            _require(all(p not in tr1_plans for p in v.plans[:1]), f"TR1 did not re-record after {tag}")
+            if tag == "W2":
+                _require(len(v.plans) == 2 and v.plans[1] is tr1_plans[0], "TR1 did not re-record as a variant after W2")
+            tr1_plans = list(v.plans)
         if tag == "W1":
             _require(ov.plan_gen == gen + 1 and ov.topology_dirty, "W1 did not re-record once")
             _require(not _only_plan(TE, snap, D1).plans[0].solver._count_pushdown_steps(), "D1 kept the pushdown")
@@ -2403,6 +2930,11 @@ T_V = 8_000_000
 T1_PARAMS = [{"u": (i * 131) % (T_V // 4)} for i in range(64)]
 T1C_PARAMS = [{"u": (i * 65_537) % T_V} for i in range(1_024)]
 T3_ROOTS = [(i * 500_009) % T_V for i in range(16)]
+#: T4c: TR1's shape from the 50 persons uid >= lo (chosen at run time)
+T4C = (
+    "TRAVERSE out('knows') FROM (SELECT FROM Person WHERE uid >= {lo} AND uid < {hi}) "
+    "WHILE $depth < 2 STRATEGY BREADTH_FIRST"
+)
 
 
 class TRef:
@@ -2463,8 +2995,9 @@ def run_tiered(np, torch, K, TE, ks, db, snap, card, a_qps: float, a_bytes: int)
     admitted at ``tier_hbm_cap_bytes`` = adjacency / 2 (`bench.py:507`).
     Runs T1 (timed as on A), T1c (churn, on the recording path), a replay
     off its footprint (the cold-miss flag), T2, T3, then holds K19–K21
-    against their plain versions, then grows the pool with T_GROW and
-    shows the plans re-capture. Returns the main path's launches."""
+    against their plain versions, then runs T4c (a cold TRAVERSE), then
+    grows the pool with T_GROW and shows the plans re-capture, then T4.
+    Returns the main path's launches."""
     from orientdb_tpu_torch.ops.device_graph import device_graph
     from orientdb_tpu_torch.storage import tiering
     from orientdb_tpu_torch.utils.config import config
@@ -2546,6 +3079,9 @@ def run_tiered(np, torch, K, TE, ks, db, snap, card, a_qps: float, a_bytes: int)
         for name in TIER_ONLY:
             _require(path[name] > 0, f"{name} never launched in the tiered phase")
         check_tier_kernels(np, torch, K, ks, dg, tier)
+        t = time.perf_counter()
+        cold_traverse(np, TE, db, snap, tier, tref, card)
+        loaded("T4c", time.perf_counter() - t)
         # growth: a frontier over every block; the plans re-capture
         t1_old = list(_only_plan(TE, snap, T1).plans)
         gen, P0 = tier.generation, tier.parts[("knows", "out")].P
@@ -2572,6 +3108,32 @@ def run_tiered(np, torch, K, TE, ks, db, snap, card, a_qps: float, a_bytes: int)
             f"(pools {tier.pool_bytes()} bytes); T1 re-recorded and re-captured under it"
         )
         loaded("T_GROW", time.perf_counter() - t)
+        # T4: TR1's shape on T, K19 hops and K20 flags inside a TRAVERSE replay
+        # (after K19–K21's checks and timings, which run on T1–T3's pool)
+        ip64 = tref.ip.astype(np.int64)
+        want, levels = numpy_traverse(
+            np, snap.num_vertices, np.arange(50), lambda f: csr_neighbours(np, ip64, tref.dst, f),
+            admit=lambda d: d < 2,
+        )
+        times = []
+        for _ in range(4):
+            t = time.perf_counter()
+            rows = db.query(TR1).to_dicts()
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            got = np.array([int(r["@rid"].split(":")[1]) for r in rows], np.int64)
+            _require(np.array_equal(got, want), "T4: records differ from numpy")
+        t4 = _only_plan(TE, snap, TR1)
+        plan = t4.plans[0]
+        _require(plan.replays >= 1 and plan.graph is not None, "T4 did not replay a captured plan")
+        for name in ("paged_hop", "paged_hop_miss"):
+            _require(plan.launches.get(name, 0) > 0, f"{name} not in T4's TRAVERSE replay")
+        print(
+            f"tier T4: {len(rows)} records, levels {levels}; calls {[round(x, 3) for x in times]} ms "
+            f"(the first records); {len(t4.plans)} variant(s), replays {[p.replays for p in t4.plans]}; "
+            f"launches per replay {plan.launches}; footprint {len(plan.tier_footprint)} blocks [{card}]"
+        )
+        loaded("T4", sum(times) / 1e3)
         sync()
         launches = dict(K.LAUNCHES)
         print("tier launches: " + ", ".join(f"{n} {launches[n]}" for n in TIER_ONLY))
@@ -2580,6 +3142,97 @@ def run_tiered(np, torch, K, TE, ks, db, snap, card, a_qps: float, a_bytes: int)
     finally:
         config.tier_hbm_cap_bytes = 0
         config.plan_cache_size = cache
+
+
+def cold_traverse(np, TE, db, snap, tier, tref, card) -> None:
+    """T4c: TR1's shape from 50 roots in a cold block (the first from the
+    middle of the id range), on the capped pool. Its recording faults its
+    blocks in (loaded bytes > 0); after an eviction pass (T1 recordings at
+    one root of every other block until the roots' block is cold) its dispatch prefetch loads them back and the replay is clean;
+    after another pass, a replay whose footprint lacks the roots' block
+    (a stale footprint, made by hand: a TRAVERSE bakes its roots, so a full
+    footprint never misses) raises K20's cold-miss flag, and the front door
+    re-records. Every call's records equal numpy."""
+    from orientdb_tpu_torch.utils.config import config
+
+    part = tier.parts[("knows", "out")]
+    V = snap.num_vertices
+
+    def blocks_of(lo):
+        return {int(b) for b in np.unique(part.block_of_v[lo : lo + 50])}
+
+    lo = next((v for v in range(V // 2, V - 50, 50) if all(part.page_of[b] < 0 for b in blocks_of(v))), None)
+    _require(lo is not None, "T4c: no cold block")
+    sql = T4C.format(lo=lo, hi=lo + 50)
+    roots = np.arange(lo, lo + 50)
+    root_blocks = blocks_of(lo)
+    # the eviction pass: T1 at the first person with out-edges of every
+    # other block, in block order
+    has = np.flatnonzero(part.vdeg[:V] > 0)
+    blocks, first = np.unique(part.block_of_v[has], return_index=True)
+    evict_us = [int(u) for b, u in zip(blocks, has[first]) if int(b) not in root_blocks]
+    ip64 = tref.ip.astype(np.int64)
+    want, levels = numpy_traverse(
+        np, snap.num_vertices, roots, lambda f: csr_neighbours(np, ip64, tref.dst, f), admit=lambda d: d < 2
+    )
+
+    def call(tag):
+        rows = db.query(sql).to_dicts()
+        got = np.array([int(r["@rid"].split(":")[1]) for r in rows], np.int64)
+        _require(np.array_equal(got, want), f"T4c {tag}: records differ from numpy")
+
+    def evict_roots() -> int:
+        cache = config.plan_cache_size
+        config.plan_cache_size = 0
+        try:
+            for n, u in enumerate(evict_us, 1):
+                _require(db.query(T1, {"u": u}).to_dicts() == [{"n": tref.t1(u)}], f"T4c pass u={u}")
+                if all(part.page_of[b] < 0 for b in root_blocks):
+                    return n
+        finally:
+            config.plan_cache_size = cache
+        _require(False, f"T4c: {len(evict_us)} recordings left the roots' blocks resident")
+
+    # the recording, then calls until the newest variant replays (a first
+    # dispatch's footprint prefetch may grow the pool, which re-records)
+    loaded0 = tier.loaded_bytes
+    call("record")
+    variants = _only_plan(TE, snap, sql)
+    for _ in range(3):
+        call("replay")
+        if variants.plans[0].replays:
+            break
+    rec_bytes = tier.loaded_bytes - loaded0
+    plan = variants.plans[0]
+    _require(rec_bytes > 0 and plan.replays >= 1, f"T4c: loaded {rec_bytes} bytes, replays {plan.replays}")
+    n1 = evict_roots()
+    before, loaded1 = plan.replays, tier.loaded_bytes
+    call("after an eviction pass")
+    pre_bytes = tier.loaded_bytes - loaded1
+    _require(
+        pre_bytes > 0 and plan.replays == before + 1 and variants.plans[0] is plan,
+        f"T4c after eviction: loaded {pre_bytes} bytes, replays {plan.replays - before}",
+    )
+    n2 = evict_roots()
+    root_keys = {(part.key, b) for b in root_blocks}
+    plan.tier_footprint = plan.tier_footprint - root_keys
+    handle = plan.dispatch()
+    meta, _ = plan.fetch(handle)
+    plan.release(handle)
+    _require(int(meta[1]) == 1, f"T4c: the replay off its roots' block did not flag: meta {meta}")
+    call("re-record")
+    new = variants.plans[0]
+    _require(
+        new is not plan and root_keys <= new.tier_footprint,
+        "T4c: the flagged replay did not re-record",
+    )
+    print(
+        f"tier T4c: roots uid {lo}..{lo + 49} (blocks {sorted(root_blocks)}), {len(want)} records, "
+        f"levels {levels}; the recording and first calls loaded {rec_bytes} bytes; after {n1} evicting recordings the "
+        f"dispatch prefetch loaded {pre_bytes} bytes and replayed clean; after {n2} more, a replay without "
+        f"the roots' block flagged (meta {meta.tolist()}) and re-recorded ({len(variants.plans)} variants, "
+        f"footprint {len(new.tier_footprint)} blocks) [{card}]"
+    )
 
 
 def cold_miss_replay(np, TE, db, snap, tier, tref) -> None:
@@ -3033,6 +3686,18 @@ def main() -> int:
     print(f"replay phase G: {time.perf_counter() - t0:.1f} s; boundary-band slots by (cell, r): {gref.band}")
     pk_peak = max(pk_peak, torch.cuda.max_memory_allocated())
 
+    # 5c. TRAVERSE, record rows and compiled SELECT on the same graph
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tr_launches = run_traverse(np, torch, K, TE, ks, db, snap, card)
+    print(
+        f"traverse phase: {time.perf_counter() - t0:.1f} s; peak allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes"
+    )
+    pk_peak = max(pk_peak, torch.cuda.max_memory_allocated())
+
     # 7a. batches on the Person–knows graph, while it is resident
     t0 = time.perf_counter()
     K.reset_launches()
@@ -3045,8 +3710,6 @@ def main() -> int:
     pk_peak = max(pk_peak, b_peak)
 
     # 6. the SNB-shape graph of config 5, after freeing the Person–knows one
-    from orientdb_tpu_torch.exec import tpu_engine as TE
-
     TE._plan_cache(snap).clear()
     del db, snap, dg, q3_plan, vref, q3_big, gref
     gc.collect()  # the snapshot's cycle (snapshot → plan cache → plan → solver)
@@ -3134,6 +3797,8 @@ def main() -> int:
         launches[name] = delta_launches[name]
     for name in TIER_ONLY:
         launches[name] = tier_launches[name]
+    for name in REPLACES:
+        launches[name] += tr_launches[name]
 
     for name, row in ks.rows.items():
         row["launches"] = launches[name]

@@ -260,16 +260,21 @@ __global__ void gather_expand_kernel(const int* __restrict__ indptr, long long n
 // count is -1. One result covers both of the reference's regimes (nonzero
 // and prefix sum + searchsorted), truncation to the first out_size
 // included. One launch over max(n, out_size) threads.
+// The offset form (`fill` 0: a TRAVERSE level written at its offset into
+// the replay's one output buffer, `out` already advanced by the wrapper)
+// writes only the kept indices and leaves the slots past the count as they
+// are (the buffer is -1-filled once); it launches over n threads.
 // ---------------------------------------------------------------------------
 __global__ void compact_scatter_kernel(const unsigned char* __restrict__ mask,
                                        const int* __restrict__ ranks, long long n,
-                                       long long out_size, int* __restrict__ out) {
+                                       long long out_size, int* __restrict__ out,
+                                       int fill) {
   long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (t < n && mask[t]) {
     long long r = ranks[t];
     if (r <= out_size) out[r - 1] = static_cast<int>(t);
   }
-  if (t < out_size) {
+  if (fill && t < out_size) {
     long long count = n > 0 ? static_cast<long long>(ranks[n - 1]) : 0;
     if (t >= count) out[t] = -1;
   }
@@ -580,24 +585,38 @@ __global__ void bitmap_emit_kernel(const unsigned char* __restrict__ reached,
 // Bound: 2 bitmaps read and written, 4*64 MiB ~ 0.08 ms. Design: 16 bytes
 // a thread (grid-stride) when the bitmaps are 16-byte aligned and a
 // multiple of 16 long, else one byte a thread; the count adds per warp.
+// TRAVERSE's admission (orientdb_tpu/exec/tpu_engine.py:2644-2651) adds a
+// gate: nxt &= ~visited & gate[column], gate a [vb] bool vector broadcast
+// over the rows and read 16 bytes a thread like the bitmaps. The kernel
+// reads every byte of the three, but the function needs visited and gate
+// only where nxt is set, and changes nxt and visited only there: on a
+// sparse level (TRAVERSE's first ones) its bound is nxt read once plus
+// four bytes a reached slot. A vertex the gate rejects is neither emitted
+// nor marked visited. Without a gate the kernel is the one above, bit for
+// bit.
 // ---------------------------------------------------------------------------
-template <bool kVec>
+template <bool kVec, bool kGate>
 __global__ void frontier_advance_kernel(unsigned char* __restrict__ nxt,
                                         unsigned char* __restrict__ visited,
-                                        long long n, unsigned* __restrict__ count) {
+                                        const unsigned char* __restrict__ gate,
+                                        long long n, long long vb,
+                                        unsigned* __restrict__ count) {
   constexpr long long kW = kVec ? 16 : 1;
   const long long groups = n / kW;
+  const long long gate_groups = vb / kW;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   unsigned cnt = 0;
   for (long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
        g < groups; g += stride) {
     if constexpr (kVec) {
-      Bytes16 x, v;
+      Bytes16 x, v, a;
       x.v = reinterpret_cast<const uint4*>(nxt)[g];
       v.v = reinterpret_cast<const uint4*>(visited)[g];
+      if constexpr (kGate) a.v = reinterpret_cast<const uint4*>(gate)[g % gate_groups];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         x.w[k] &= ~v.w[k];
+        if constexpr (kGate) x.w[k] &= a.w[k];
         v.w[k] |= x.w[k];
         cnt += __popc(x.w[k]);
       }
@@ -605,6 +624,7 @@ __global__ void frontier_advance_kernel(unsigned char* __restrict__ nxt,
       reinterpret_cast<uint4*>(visited)[g] = v.v;
     } else {
       unsigned char x = nxt[g] & static_cast<unsigned char>(!visited[g]);
+      if constexpr (kGate) x &= static_cast<unsigned char>(gate[g % gate_groups] != 0);
       nxt[g] = x;
       visited[g] |= x;
       cnt += x;
@@ -717,8 +737,9 @@ void launch_group_page(const int* in, long long src_run, long long lanes, long l
 // orientdb_tpu/ops/predicates.py: _column_val :198, _binding_val :213,
 // _distance :318, _param_val :371, _arith :392, _bool :428, _truthy :475,
 // _code_table_mask :492, _in :533, _compare :550, _cmp_str_lit :627, and the
-// class-closure test of tpu_engine's node masks): one compiled WHERE program
-// over n slots.
+// class-closure test of tpu_engine's node masks, and its rid filter
+// `idx == idx_of(rid)` at orientdb_tpu/exec/tpu_engine.py:874-877, the ID
+// instruction): one compiled WHERE program over n slots.
 //
 // A program is a postfix list of int4 instructions {op, a, b, c} (PredOp in
 // orientdb_tpu_torch/ops/csr.py) over a per-slot stack of (32 bits, present)
@@ -751,7 +772,7 @@ constexpr int kProgSmem = 48 * 1024;
 enum PredOp : int {
   kCol = 1, kBCol = 2, kConst = 3, kParam = 4, kDepth = 5, kTmp = 6, kI2F = 7, kNeg = 8,
   kArith = 9, kCmp = 10, kTable = 11, kTruthy = 12, kIsNull = 13, kAnd = 14, kOr = 15,
-  kNot = 16, kMask = 17, kClass = 18, kValid = 19, kDist = 20,
+  kNot = 16, kMask = 17, kClass = 18, kValid = 19, kDist = 20, kId = 21,
 };
 
 struct PredArgs {
@@ -889,7 +910,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int pc = 0; pc < len; ++pc) {
       const int4 ins = smem ? prog[pc] : __ldg(prog + pc);
       const int op = ins.x;
-      if (op <= kTmp || op == kMask || op == kClass || op == kValid) {  // pushes
+      if (op <= kTmp || op == kMask || op == kClass || op == kValid || op == kId) {  // pushes
         sv[++d] = tv;
         spm = (spm << 1) | (tp ? 1u : 0u);
         switch (op) {
@@ -918,6 +939,7 @@ __global__ void __launch_bounds__(kThreads)
             tp = m;
             break;
           }
+          case kId: tv = static_cast<unsigned>(id); tp = id >= 0; break;
           default: tv = 0u; tp = id >= 0; break;  // kValid
         }
         continue;
@@ -1380,13 +1402,13 @@ int csr_gather_expand(const void* indptr, long long nv, const void* nbrs,
 }
 
 int csr_compact_scatter(const void* mask, const void* ranks, long long n,
-                        long long out_size, void* out, void* stream) {
-  long long threads = n > out_size ? n : out_size;
+                        long long out_size, void* out, int fill, void* stream) {
+  long long threads = fill && out_size > n ? out_size : n;
   if (threads > 0) {
     compact_scatter_kernel<<<blocks_for(threads, kThreads), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const unsigned char*>(mask), static_cast<const int*>(ranks),
-        n, out_size, static_cast<int*>(out));
+        n, out_size, static_cast<int*>(out), fill);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1565,20 +1587,30 @@ int csr_bitmap_emit(const void* reached, const void* node, const void* bound,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both bitmaps hold `n` bytes; `count` (one int32) is zeroed here.
-int csr_frontier_advance(void* nxt, void* visited, long long n, void* count,
-                         void* stream) {
+// Both bitmaps hold `n` bytes (rows of `vb`); `gate` (null: none) holds
+// `vb`; `count` (one int32) is zeroed here.
+int csr_frontier_advance(void* nxt, void* visited, const void* gate, long long n,
+                         long long vb, void* count, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   unsigned char* x = static_cast<unsigned char*>(nxt);
   unsigned char* v = static_cast<unsigned char*>(visited);
+  const unsigned char* a = static_cast<const unsigned char*>(gate);
   unsigned* cn = static_cast<unsigned*>(count);
-  if (n % 16 == 0 && aligned16(nxt) && aligned16(visited)) {
-    frontier_advance_kernel<true><<<grid_for(n, 16), kThreads, 0, s>>>(x, v, n, cn);
+  const bool vec = n % 16 == 0 && aligned16(nxt) && aligned16(visited) &&
+                   (gate == nullptr || (vb % 16 == 0 && aligned16(gate)));
+  if (gate == nullptr) {
+    if (vec) {
+      frontier_advance_kernel<true, false><<<grid_for(n, 16), kThreads, 0, s>>>(x, v, a, n, vb, cn);
+    } else {
+      frontier_advance_kernel<false, false><<<grid_for(n, 1), kThreads, 0, s>>>(x, v, a, n, vb, cn);
+    }
+  } else if (vec) {
+    frontier_advance_kernel<true, true><<<grid_for(n, 16), kThreads, 0, s>>>(x, v, a, n, vb, cn);
   } else {
-    frontier_advance_kernel<false><<<grid_for(n, 1), kThreads, 0, s>>>(x, v, n, cn);
+    frontier_advance_kernel<false, true><<<grid_for(n, 1), kThreads, 0, s>>>(x, v, a, n, vb, cn);
   }
   return static_cast<int>(cudaGetLastError());
 }

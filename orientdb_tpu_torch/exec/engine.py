@@ -1,10 +1,10 @@
 """Port of `orientdb_tpu/exec/engine.py`: the front door. A query of the
-port runs through `execute_query`: parse, then `tpu_engine.execute`, which
-records the statement on its first call and replays its cached plan on
-every later one, and a `ResultSet` of the rows. A batch runs through
-`execute_query_batch` and `tpu_engine.execute_batch`, which dispatches its
-cached plans back to back (same-plan runs as one group replay) and fetches
-their results in one overlapped wave.
+port (MATCH, SELECT or TRAVERSE) runs through `execute_query`: parse, then
+`tpu_engine.execute`, which records the statement on its first call and
+replays its cached plan on every later one, and a `ResultSet` of the rows.
+A batch runs through `execute_query_batch` and `tpu_engine.execute_batch`,
+which dispatches its cached plans back to back (same-plan runs as one group
+replay) and fetches their results in one overlapped wave.
 
 Unlike the reference's front door there is no interpreter to fall back
 to: a statement outside the compiled subset raises `Uncompilable` with the
@@ -17,8 +17,6 @@ from typing import Dict, List, Optional
 
 from orientdb_tpu_torch.exec import tpu_engine
 from orientdb_tpu_torch.exec.result import ResultSet
-from orientdb_tpu_torch.ops.predicates import Uncompilable
-from orientdb_tpu_torch.sql import ast as A
 from orientdb_tpu_torch.sql.parser import parse
 
 
@@ -31,16 +29,8 @@ def _normalize_params(params) -> Dict:
     return {i: v for i, v in enumerate(params)}
 
 
-def _parse_match(sql: str) -> A.MatchStatement:
-    stmt = parse(sql)
-    if not isinstance(stmt, A.MatchStatement):
-        raise Uncompilable(f"{type(stmt).__name__} is not compiled in this slice")
-    return stmt
-
-
 def execute_query(db, sql: str, params: Optional[Dict] = None) -> ResultSet:
-    stmt = _parse_match(sql)
-    return ResultSet(tpu_engine.execute(db, stmt, _normalize_params(params)))
+    return ResultSet(tpu_engine.execute(db, parse(sql), _normalize_params(params)))
 
 
 def execute_query_batch(db, sqls: List[str], params_list=None) -> List[ResultSet]:
@@ -52,5 +42,5 @@ def execute_query_batch(db, sqls: List[str], params_list=None) -> List[ResultSet
         params_list = [None] * n
     if len(params_list) != n:
         raise ValueError("params_list length must match sqls length")
-    items = [(_parse_match(sql), _normalize_params(p)) for sql, p in zip(sqls, params_list)]
+    items = [(parse(sql), _normalize_params(p)) for sql, p in zip(sqls, params_list)]
     return [ResultSet(rows) for rows in tpu_engine.execute_batch(db, items)]

@@ -2,9 +2,10 @@
 path reaches: `EvalContext`, `like_match`, `contains_aggregate`, and an
 `evaluate` over projection rows for the ORDER BY / SKIP / LIMIT tail.
 
-Rows here are projections (`Result` of plain values): there are no host
-records, so graph navigation, record attributes and SQL functions and
-methods are not evaluated (they raise `EvalError`). Null semantics follow
+Rows here are projections (`Result` of plain values) whose values may be
+read-only vertex records (`models/record.VertexRecord`, their columnar
+properties, ``@rid`` and ``@class``); graph navigation and SQL functions
+and methods are not evaluated (they raise `EvalError`). Null semantics follow
 the reference: any comparison with null is false, arithmetic with null is
 null, AND/OR collapse null to false.
 """
@@ -54,11 +55,14 @@ AGGREGATE_FUNCTIONS = {"count", "sum", "min", "max", "avg"}
 
 
 def get_prop(obj, name: str):
-    """Property access on a projection row or a plain mapping."""
+    """Property access on a row, a vertex record or a plain mapping."""
     from orientdb_tpu_torch.exec.result import Result
+    from orientdb_tpu_torch.models.record import VertexRecord
 
     if isinstance(obj, Result):
         return obj.get_property(name)
+    if isinstance(obj, VertexRecord):
+        return obj.get(name)
     if isinstance(obj, dict):
         return obj.get(name)
     return None

@@ -1,8 +1,9 @@
 """Port of `orientdb_tpu/exec/oracle.py`, the host planning and finalising
 parts the compiled MATCH path uses: the pattern build (`Pattern`,
 `PatternNode`, `PatternEdge`), the planner's estimates and admission rules
-(`MatchInterpreter`), and the DISTINCT / ORDER BY / SKIP / LIMIT tail over
-projection rows (`finalize_match_rows`).
+(`MatchInterpreter`), the DISTINCT / ORDER BY / SKIP / LIMIT tail over
+projection rows (`finalize_match_rows`), and FROM-target resolution to
+vertex ids (`resolve_target_ids`, TRAVERSE's roots).
 
 The reference's record-walking interpreter is not ported: the port has no
 host records to walk.
@@ -13,8 +14,13 @@ from __future__ import annotations
 import itertools
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
 from orientdb_tpu_torch.exec.eval import EvalContext, evaluate
-from orientdb_tpu_torch.exec.result import Result
+from orientdb_tpu_torch.exec.result import RecordRows, Result
+from orientdb_tpu_torch.models.record import VertexRecord
+from orientdb_tpu_torch.models.rid import RID
+from orientdb_tpu_torch.ops.predicates import Uncompilable
 from orientdb_tpu_torch.sql import ast as A
 
 
@@ -68,6 +74,9 @@ def _sort_key_fn(vals: List):
             return (2, v)
         if isinstance(v, str):
             return (3, v)
+        if isinstance(v, (RID, VertexRecord)):
+            rid = v.rid if isinstance(v, VertexRecord) else v
+            return (4, (rid.cluster, rid.position))
         return (5, repr(v))
 
     return tuple(rank(v) for v in vals)
@@ -92,6 +101,10 @@ def _order_rows(rows: List[Result], order_by, db, params, parent_ctx) -> List[Re
 
 def _canonical(v) -> object:
     """Hashable canonical form for DISTINCT keys."""
+    if isinstance(v, VertexRecord):
+        return ("rec", str(v.rid))
+    if isinstance(v, RID):
+        return ("rid", str(v))
     if isinstance(v, Result):
         return (
             "row",
@@ -118,6 +131,53 @@ def finalize_match_rows(
     out = _order_rows(out, stmt.order_by, db, params, parent_ctx)
     base_ctx = EvalContext(db, params=params, parent=parent_ctx)
     return _skip_limit(out, stmt.skip, stmt.limit, base_ctx)
+
+
+# ---------------------------------------------------------------------------
+# FROM targets
+# ---------------------------------------------------------------------------
+
+
+def resolve_target_ids(db, target: Optional[A.Target], params) -> np.ndarray:
+    """A FROM target's vertex ids without records, in the order the
+    reference's `resolve_target_rows` yields their records (TRAVERSE's
+    roots): a class target every live member of its closure in index
+    order; ``#c:p`` / ``[#c:p, ...]`` each RID through the snapshot's
+    lookup, a missing one skipped (the reference's ``db.load`` gives None)
+    and an edge's refused; a subquery the vertex ids of its record rows,
+    taken straight from its compiled run (projection rows are no records:
+    skipped). Any other target raises `Uncompilable`."""
+    snap = db.current_snapshot()
+    if isinstance(target, A.ClassTarget):
+        cls = db.schema.get_class(target.name)
+        if cls is None:
+            raise Uncompilable(f"class '{target.name}' not found")
+        if cls.is_edge_type:
+            raise Uncompilable("TRAVERSE root is not a snapshot vertex")
+        if target.polymorphic:
+            ids = snap.vertex_class_ids(cls.name)
+        else:
+            ids = [snap.class_id_of.get(cls.name.lower(), -1)]
+        return np.flatnonzero(np.isin(snap.v_class, ids)).astype(np.int32)
+    if isinstance(target, A.RidTarget):
+        out = []
+        for r in target.rids:
+            i = snap.idx_of(RID(r.cluster, r.position))
+            if i is not None:
+                out.append(i)
+                continue
+            owner = next((c for c in db.schema.classes() if r.cluster in c.cluster_ids), None)
+            if owner is not None and owner.is_edge_type:
+                raise Uncompilable("TRAVERSE root is not a snapshot vertex")
+        return np.asarray(out, np.int32)
+    if isinstance(target, A.SubQueryTarget):
+        from orientdb_tpu_torch.exec import tpu_engine
+
+        rows = tpu_engine.execute(db, target.query, params)
+        if isinstance(rows, RecordRows):
+            return rows.ids.astype(np.int32)
+        return np.asarray([r.element.idx for r in rows if r.is_element], np.int32)
+    raise Uncompilable(f"TRAVERSE target {type(target).__name__} is not compiled")
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Port of `orientdb_tpu/exec/tpu_engine.py`, the compiled MATCH solver on
-one device: an eager recording run, then captured replays.
+"""Port of `orientdb_tpu/exec/tpu_engine.py`, the compiled MATCH, SELECT and
+TRAVERSE solvers on one device: an eager recording run, then captured
+replays.
 
 As in the reference:
 - the pattern compiles to a static plan of steps (root scan, edge
@@ -34,7 +35,17 @@ As in the reference:
   `paged_hop_miss`) join its overflow flag, and a pool that grew into new
   tensors sends the plans captured before it back to a re-record;
 - rows marshal through the reference's columnar fast path and the
-  DISTINCT / ORDER BY / SKIP / LIMIT tail.
+  DISTINCT / ORDER BY / SKIP / LIMIT tail; a vertex alias's record
+  renders as its RID (``p``, ``p.@rid``), and ``$elements`` and a
+  whole-record SELECT return record rows (`exec/result.RecordRows`); a
+  rid filter is one more term of the node's predicate program;
+- a SELECT over a class compiles as a single-node MATCH
+  (`exec/select_compile`, verdicts cached per statement);
+- a TRAVERSE (`TpuTraverseSolver`) is a level-wise bitmap BFS over one
+  ``[1, vb]`` row from its resolved roots, admitting each level through
+  its WHILE gate at ``$depth + 1`` and writing the level's vertex ids at
+  their offset in one output buffer; its plan (`_CompiledTraverse`)
+  replays as one captured graph with its roots and level counts baked.
 
 The first execution of a statement records: it runs eagerly, observing
 each frontier size on the host to size the next buffer (`SizeSchedule`),
@@ -51,8 +62,8 @@ back to back: four or more items of one plan replay as one group graph
 that runs the replay lane after lane on a stack of parameter rows, a plan
 without numeric parameters replays once for all its items, and after one
 wave of meta rows each row-returning item or group ships one page (a
-group's cut from its lane stack by the `group_page` kernel). A MATCH
-shape outside this slice raises `Uncompilable` with the reason; nothing
+group's cut from its lane stack by the `group_page` kernel). A shape
+outside the compiled subset raises `Uncompilable` with the reason; nothing
 falls back to an interpreter.
 """
 
@@ -81,7 +92,9 @@ from orientdb_tpu_torch.exec.oracle import (
     expr_name,
     finalize_match_rows,
 )
-from orientdb_tpu_torch.exec.result import ColumnarRows, Result
+from orientdb_tpu_torch.exec.result import ColumnarRows, RecordRows, Result, rid_strings
+from orientdb_tpu_torch.models.record import VertexRecord
+from orientdb_tpu_torch.models.rid import RID
 from orientdb_tpu_torch.ops import csr as K
 from orientdb_tpu_torch.ops.device_graph import DeviceGraph, device_graph
 from orientdb_tpu_torch.ops.predicates import (
@@ -92,6 +105,7 @@ from orientdb_tpu_torch.ops.predicates import (
     class_term,
     compile_predicate,
     compile_where,
+    id_term,
     live_term,
     pack_params,
     split_params,
@@ -471,11 +485,26 @@ def _run_hops(hops, frontier, gate=None, alive=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _check_record_rows(snap) -> None:
+    """Record rows need every vertex property columnar: a snapshot that saw
+    properties without a columnar encoding cannot tell which records carry
+    them."""
+    if snap.v_non_columnar:
+        raise Uncompilable(
+            f"record rows on a snapshot with non-columnar properties {sorted(snap.v_non_columnar)}"
+        )
+
+
 class TpuMatchSolver:
-    def __init__(self, db, stmt: A.MatchStatement, params: Dict) -> None:
+    def __init__(
+        self, db, stmt: A.MatchStatement, params: Dict, element_alias: Optional[str] = None
+    ) -> None:
         self.db = db
         self.stmt = stmt
         self.params = params
+        #: a rewritten whole-record SELECT (`select_compile`): the alias
+        #: whose records the rows are, after the ORDER / SKIP / LIMIT tail
+        self.element_alias = element_alias
         self.param_box = ParamBox(params)
         snap = db.current_snapshot()
         if snap is None:
@@ -565,7 +594,7 @@ class TpuMatchSolver:
         """Refuse, with the reason, every MATCH shape this slice does not
         compile: the reference's own rules (NOT arms, variable-depth arms,
         edge-binding and endpoint arms, binding references inside WHILE
-        arms, unbound edge aliases), and rid filters, which need RIDs. On a
+        arms, unbound edge aliases, rid filters inside NOT arms). On a
         tiered snapshot the method-form arms, which read the flat edge
         arrays the tier leaves on the host, refuse too."""
         nodes = self.pattern.nodes
@@ -638,15 +667,17 @@ class TpuMatchSolver:
                 and node.alias not in edge_bind_targets
             ):
                 raise Uncompilable("edge-alias pattern nodes not compiled yet")
-            for f in node.filters:
-                if f.rid is not None:
-                    raise Uncompilable("rid filter (the port has no RIDs)")
 
     def _check_returns(self) -> None:
         """The slice marshals a lone count(*), ``alias.property`` columns
         of vertex and edge aliases, depth aliases, and expressions whose
         only references are aliases (``kn IS NOT NULL``) straight from the
-        snapshot; any other RETURN needs host records."""
+        snapshot; of a vertex alias also its record (``p``, rendered as its
+        RID), ``p.@rid`` and ``p.@class``; and a lone ``$matches`` or
+        ``$elements`` over vertex aliases. Record rows (``$elements``, a
+        whole-record SELECT) need a columnar snapshot (`_check_record_rows`).
+        Any other RETURN, and an edge alias in a record form, needs host
+        records."""
         stmt = self.stmt
         if stmt.group_by or stmt.unwind:
             raise Uncompilable("GROUP BY / UNWIND")
@@ -654,28 +685,62 @@ class TpuMatchSolver:
             return
         depth_aliases = self._depth_aliases()
         nodes = self.pattern.nodes
+        if self.element_alias is not None:
+            _check_record_rows(self.snap)
+        special = self._special_return()
+        if special is not None:
+            if special not in ("matches", "elements"):
+                raise Uncompilable(f"RETURN ${special} needs host records")
+            edges = [a for a in self._named() if nodes[a].is_edge_alias]
+            if edges:
+                raise Uncompilable(f"RETURN ${special} over edge aliases {edges} (edge records)")
+            if special == "elements":
+                _check_record_rows(self.snap)
+            return
         for p in stmt.returns:
             e = p.expr
             if contains_aggregate(e):
                 raise Uncompilable("aggregate RETURN other than a lone count(*)")
             if isinstance(e, A.Identifier) and e.name in depth_aliases:
                 continue
+            if isinstance(e, A.Identifier) and e.name in nodes:
+                if nodes[e.name].is_edge_alias:
+                    raise Uncompilable(f"RETURN of edge alias {e.name!r} (edge records)")
+                continue
             if isinstance(e, A.FieldAccess) and isinstance(e.base, A.Identifier) and e.base.name in nodes:
                 if nodes[e.base.name].is_edge_alias:
                     refused = set().union(
                         *(c.non_columnar for c in self.snap.edge_classes.values())
                     )
+                    if e.name.startswith("@"):
+                        raise Uncompilable(f"RETURN of edge attribute {e.name!r} (edge records)")
                 else:
                     refused = self.snap.v_non_columnar
+                    if e.name in ("@rid", "@class"):
+                        continue
                 if e.name in refused or e.name.startswith("@"):
                     raise Uncompilable(f"RETURN of non-columnar property {e.name!r}")
                 continue
             if not isinstance(e, A.Identifier) and _alias_expression(e, set(nodes) | depth_aliases):
                 continue
             raise Uncompilable(
-                "RETURN shape needs host records (only alias.property, depth "
-                "aliases, expressions over aliases and a lone count(*) are compiled)"
+                "RETURN shape needs host records (only alias.property, records of "
+                "vertex aliases, depth aliases, expressions over aliases and a lone "
+                "count(*) are compiled)"
             )
+
+    def _special_return(self) -> Optional[str]:
+        """``matches`` / ``elements`` / ... for a lone context-variable
+        RETURN, else None."""
+        r = self.stmt.returns
+        if len(r) == 1 and isinstance(r[0].expr, A.ContextVar):
+            return r[0].expr.name.lower()
+        return None
+
+    def _named(self) -> List[str]:
+        """The pattern's named aliases in pattern order (``$matches`` /
+        ``$elements``)."""
+        return [n.alias for n in self.pattern.nodes.values() if not n.anonymous]
 
     def _depth_aliases(self) -> set:
         """Depth aliases of the variable-depth arms (a depth column each)."""
@@ -700,7 +765,7 @@ class TpuMatchSolver:
 
     def _compile_node(self, node: PatternNode) -> Predicate:
         """Node admission mask over vertex ids: padding excluded, every
-        class closure and every WHERE, ANDed in ONE predicate program. A
+        class closure, rid filter and WHERE, ANDed in ONE predicate program. A
         WHERE that reads earlier bindings (``alias.prop``) compiles against
         the aliases visible at the node's first bind; the mask then needs
         ``env["bindings"]`` (``mask.uses_bindings``)."""
@@ -713,6 +778,10 @@ class TpuMatchSolver:
         for f in node.filters:
             if f.class_name:
                 terms.append(class_term(self.dg.v_class, self.dg.class_table(f.class_name)))
+            if f.rid is not None:
+                # -2 matches nothing (padding is -1)
+                want = self.snap.idx_of(RID(f.rid.cluster, f.rid.position))
+                terms.append(id_term(-2 if want is None else want))
             if f.where is None:
                 continue
             if _expr_uses_bindings(f.where, self.pattern.nodes):
@@ -1785,12 +1854,15 @@ class TpuMatchSolver:
         recording run, host arrays of a replay's fetched page): a lone
         count(*) is the table's count; ``alias.prop`` projections decode
         the snapshot's host columns, of the vertex at a vertex alias's id
-        or of the edge at an edge alias's (class index, edge id); depth
-        aliases read their depth column; an expression over aliases
-        evaluates per row with each bound alias a non-null value and each
-        unbound one null (`_check_returns` admitted only these shapes).
-        ``params`` are the call's (a replay serves other values than the
-        recording's)."""
+        or of the edge at an edge alias's (class index, edge id); a vertex
+        alias's record renders as its RID (``p``, ``p.@rid``; ``p.@class``
+        its class); depth aliases read their depth column; an expression
+        over aliases evaluates per row with each bound alias a non-null
+        value and each unbound one null (`_check_returns` admitted only
+        these shapes). ``$matches`` is one RID column per named alias,
+        ``$elements`` and a whole-record SELECT are record rows
+        (`RecordRows`). ``params`` are the call's (a replay serves other
+        values than the recording's)."""
         params = self.params if params is None else params
         name = self.count_only_name()
         if name is not None:
@@ -1799,6 +1871,9 @@ class TpuMatchSolver:
         sel = self._live_rows(table)
         n = int(sel.shape[0])
         host: Dict[str, np.ndarray] = {}
+        # the DISTINCT / ORDER BY / SKIP / LIMIT tail reads records and RIDs
+        # as objects; without it a record renders straight to its RID string
+        tail = bool(stmt.distinct or stmt.order_by or stmt.skip or stmt.limit)
 
         def ids(alias):
             """The alias's ids at the live rows: vertex ids, or (class
@@ -1815,32 +1890,83 @@ class TpuMatchSolver:
                     host[alias] = None
             return host[alias]
 
-        names = []
-        obj_cols = []
-        for i, p in enumerate(stmt.returns):
-            e = p.expr
-            names.append(p.alias or _match_proj_name(e, i))
-            if isinstance(e, A.Identifier):  # a depth alias: plain ints
-                d = ids(e.name)
-                o = d.astype(object)
-                o[d < 0] = None
-                obj_cols.append(o)
-            elif isinstance(e, A.FieldAccess):
-                if self.pattern.nodes[e.base.name].is_edge_alias:
-                    obj_cols.append(self._edge_values(ids(e.base.name), e.name, n))
-                else:
-                    idx = ids(e.base.name)
-                    col = self.snap.v_columns.get(e.name)
-                    if idx is None or col is None:
-                        obj_cols.append(np.full(n, None, object))  # never present
-                    else:
-                        obj_cols.append(_decode(col, idx))
-            else:
-                obj_cols.append(self._alias_expression_values(e, ids, n, params))
-        if not (stmt.distinct or stmt.order_by or stmt.skip or stmt.limit):
+        special = self._special_return()
+        if special == "elements" or self.element_alias is not None:
+            return self._record_rows(ids, n, tail, params)
+        if special == "matches":
+            names = self._named()
+            obj_cols = [self._record_values(ids(a), n, tail) for a in names]
+        else:
+            names, obj_cols = [], []
+            for i, p in enumerate(stmt.returns):
+                names.append(p.alias or _match_proj_name(p.expr, i))
+                obj_cols.append(self._projection_values(p.expr, ids, n, tail, params))
+        if not tail:
             return ColumnarRows(names, [c.tolist() for c in obj_cols], n)
         out = [Result(props=dict(zip(names, r))) for r in zip(*obj_cols)]
         return finalize_match_rows(self.db, stmt, out, params, None)
+
+    def _projection_values(self, e, ids, n: int, tail: bool, params) -> np.ndarray:
+        """One RETURN item's values at the live rows, as an object array."""
+        nodes = self.pattern.nodes
+        if isinstance(e, A.Identifier) and e.name in nodes:
+            return self._record_values(ids(e.name), n, tail)
+        if isinstance(e, A.Identifier):  # a depth alias: plain ints
+            d = ids(e.name)
+            o = d.astype(object)
+            o[d < 0] = None
+            return o
+        if isinstance(e, A.FieldAccess):
+            if nodes[e.base.name].is_edge_alias:
+                return self._edge_values(ids(e.base.name), e.name, n)
+            idx = ids(e.base.name)
+            if e.name == "@rid":
+                return self._record_values(idx, n, tail, rid_only=True)
+            if e.name == "@class":
+                out = np.full(n, None, object)
+                if idx is not None:
+                    ok = idx >= 0
+                    out[ok] = np.asarray(self.snap.class_names, object)[self.snap.v_class[idx[ok]]]
+                return out
+            col = self.snap.v_columns.get(e.name)
+            if idx is None or col is None:
+                return np.full(n, None, object)  # never present
+            return col.objects_at(idx)
+        return self._alias_expression_values(e, ids, n, params)
+
+    def _record_values(self, idx, n: int, tail: bool, rid_only: bool = False) -> np.ndarray:
+        """A vertex alias's records at the live rows (None where unbound):
+        for the tail, `VertexRecord` objects (``rid_only``: `RID` objects),
+        else their RID strings, as the reference's rows render them."""
+        out = np.full(n, None, object)
+        if idx is None:
+            return out
+        pos = np.flatnonzero(idx >= 0)
+        if not tail:
+            out[pos] = rid_strings(*self.snap.rids_of(idx[pos]))
+            return out
+        for j, i in zip(pos.tolist(), idx[pos].tolist()):
+            out[j] = self.snap.rid_of(i) if rid_only else VertexRecord(self.snap, i)
+        return out
+
+    def _record_rows(self, ids, n: int, tail: bool, params):
+        """Element rows: ``$elements`` (each named alias's record, row after
+        row) or a whole-record SELECT (the element alias's records, after
+        the tail ran over rows binding it)."""
+        aliases = [self.element_alias] if self.element_alias is not None else self._named()
+        cols = [ids(a) for a in aliases]
+        mat = np.stack([c if c is not None else np.full(n, -1, np.int32) for c in cols], 1)
+        flat = mat.reshape(-1)
+        rec = flat[flat >= 0]
+        if not tail:
+            return RecordRows(self.snap, rec)
+        if self.element_alias is None:
+            out = [Result(element=VertexRecord(self.snap, i)) for i in rec.tolist()]
+            return finalize_match_rows(self.db, self.stmt, out, params, None)
+        a = self.element_alias
+        out = [Result(props={a: VertexRecord(self.snap, i)}) for i in cols[0].tolist()]
+        out = finalize_match_rows(self.db, self.stmt, out, params, None)
+        return [Result(element=r.get_property(a)) for r in out]
 
     def _edge_values(self, pair, prop: str, n: int) -> np.ndarray:
         """An edge property at each row's bound edge, read from its class's
@@ -1855,7 +1981,7 @@ class TpuMatchSolver:
                 continue
             rows = np.flatnonzero((ci == k) & (eid >= 0))
             if rows.size:
-                out[rows] = _decode(col, eid[rows])
+                out[rows] = col.objects_at(eid[rows])
         return out
 
     def _alias_expression_values(self, e, ids, n: int, params) -> np.ndarray:
@@ -1899,25 +2025,6 @@ def _identifiers(e) -> set:
     return set()
 
 
-def _decode(col, idx: np.ndarray) -> np.ndarray:
-    """A property column's values at ``idx`` as Python objects: strings
-    from the dictionary, None where absent or ``idx`` < 0."""
-    ci = np.clip(idx, 0, max(len(col.values) - 1, 0))
-    vals = col.values[ci]
-    pres = col.present[ci] & (idx >= 0)
-    if col.kind == "str":
-        d = col.dict_array()
-        o = d[np.clip(vals, 0, len(d) - 1)]
-    elif col.kind == "bool":
-        o = (vals != 0).astype(object)
-    elif col.kind == "float":
-        o = vals.astype(float).astype(object)
-    else:
-        o = vals.astype(object)
-    o[~pres] = None
-    return o
-
-
 def _host(col) -> np.ndarray:
     """A column as a host array: a device tensor is copied (recording
     runs), a replay's fetched page already is one."""
@@ -1925,6 +2032,151 @@ def _host(col) -> np.ndarray:
         return col.cpu().numpy()
     return np.asarray(col)
 
+
+
+# ---------------------------------------------------------------------------
+# TRAVERSE
+# ---------------------------------------------------------------------------
+
+
+class TpuTraverseSolver:
+    """Compiled TRAVERSE: level-wise bitmap BFS over one ``[1, vb]`` row.
+
+    The roots (`oracle.resolve_target_ids`, deduplicated in first-occurrence
+    order) are set in a zeroed bitmap by K16 `scatter_set`; each level ORs
+    one frontier hop per (edge class, direction) of the fields (K10, or K19
+    on a tiered snapshot; the frontier itself is not gated), then admits
+    ``nxt &= ~visited & gate(depth + 1); visited |= nxt`` in one K12 launch,
+    the WHILE gate a K15 program over the vertex universe at ``$depth + 1``
+    (so a vertex it rejects is neither emitted nor visited), and K3 writes
+    the level's vertex ids, ascending, at its offset in the one output
+    buffer. Depth 0 emits the roots in the caller's order. The walk stops on
+    an empty level, at MAXDEPTH, or past |V| levels.
+
+    As in the reference: BREADTH_FIRST admits every record at its minimum
+    discovery depth, which is what level-wise BFS computes; DEPTH_FIRST
+    compiles only without MAXDEPTH and WHILE (the result is then the
+    reachability closure); LIMIT (it slices in traversal order), ``*``,
+    ``outE/inE/bothE`` and non-literal edge classes raise `Uncompilable`.
+
+    The recording run reads each level's count on the host; a replay bakes
+    them (and the roots), so it is valid only on the snapshot it recorded:
+    a delta-maintained snapshot that applied a batch since re-records
+    (`_check_traverse_static`), and a replay whose level differs from the
+    recording raises its overflow flag."""
+
+    def __init__(self, db, stmt: A.TraverseStatement, params: Dict) -> None:
+        self.db = db
+        self.stmt = stmt
+        self.params = params or {}
+        snap = db.current_snapshot()
+        if snap is None:
+            raise Uncompilable("no snapshot attached")
+        self.snap = snap
+        self.device = db.device
+        self.overlay = snap._overlay
+        if self.overlay is not None and self.overlay.poisoned is not None:
+            raise Uncompilable(f"delta overlay poisoned: {self.overlay.poisoned}")
+        self.delta_gen = self.overlay.plan_gen if self.overlay is not None else 0
+        self.delta_data_version = self.overlay.data_version if self.overlay is not None else 0
+        self.tier = snap._tier
+        self.tier_touched: set = set()
+        self.sched = SizeSchedule()
+        if stmt.limit is not None:
+            raise Uncompilable("TRAVERSE LIMIT slices in traversal order")
+        if stmt.strategy == "DEPTH_FIRST" and (
+            stmt.max_depth is not None or stmt.while_cond is not None
+        ):
+            raise Uncompilable("DEPTH_FIRST with MAXDEPTH/WHILE admits at non-minimal depths")
+        self.hop_dirs = self._compile_fields(stmt.fields)
+        _check_record_rows(snap)
+        self.dg: DeviceGraph = device_graph(snap, db.device)
+        self.while_fn = None
+        if stmt.while_cond is not None:
+            scope = ColumnScope(self.dg.columns, self.dg.non_columnar, device=self.dg.device)
+            self.while_fn = compile_predicate(stmt.while_cond, scope, self.params, allow_depth=True)
+        from orientdb_tpu_torch.exec.oracle import resolve_target_ids
+
+        ids = resolve_target_ids(db, stmt.target, self.params)
+        _, first = np.unique(ids, return_index=True)
+        self.roots = ids[np.sort(first)].astype(np.int32)
+        self._roots_dev = torch.from_numpy(self.roots).to(self.device)
+        self._root_bits = torch.ones(self.roots.shape[0], dtype=torch.bool, device=self.device)
+        #: host count of each emitted level (depth 0 the roots), as recorded
+        self.levels: List[int] = []
+
+    def _compile_fields(self, fields) -> List[Tuple[str, str]]:
+        """``out()/in()/both()`` fields with literal edge classes (or none)
+        → the (concrete edge class, direction) of each hop."""
+        if not fields:
+            raise Uncompilable("TRAVERSE * follows edges as records")
+        dirs: List[Tuple[str, Optional[str]]] = []
+        for f in fields:
+            if not isinstance(f, A.FunctionCall):
+                raise Uncompilable("TRAVERSE field is not out()/in()/both()")
+            name = f.name.lower()
+            if name not in ("out", "in", "both"):
+                raise Uncompilable(f"TRAVERSE {name}() emits non-vertex records")
+            classes: List[Optional[str]] = [] if f.args else [None]
+            for a in f.args:
+                if not (isinstance(a, A.Literal) and isinstance(a.value, str)):
+                    raise Uncompilable("non-literal edge class in TRAVERSE field")
+                classes.append(a.value)
+            dirs.extend((name, c) for c in classes)
+        items = []
+        for direction, cls in dirs:
+            for cname in self.snap.concrete_edge_classes(cls):
+                for d in ("out", "in") if direction == "both" else (direction,):
+                    items.append((cname, d))
+        return items
+
+    @property
+    def vb(self) -> int:
+        return K.bucket(max(self.dg.num_vertices, 1))
+
+    def solve(self, out: torch.Tensor) -> int:
+        """Write the emitted vertex ids into ``out`` (int32, at least the
+        total long; slots past it untouched), level by level, and return
+        the host total."""
+        V, vb = self.dg.num_vertices, self.vb
+        sched = self.sched
+        live = self.overlay is not None
+        items = [(c, d, self.dg.edges[c].live if live else None) for c, d in self.hop_dirs]
+        hops = build_bitmap_hops(self.dg, items, sched, self.tier, self.tier_touched)
+        nr = int(self.roots.shape[0])
+        frontier = torch.zeros((1, vb), dtype=torch.bool, device=self.device)
+        if nr:
+            K.scatter_set(frontier.view(-1), self._roots_dev, self._root_bits)
+            out[:nr].copy_(self._roots_dev)
+        # the frontier is its own visited set until the first level step
+        # updates it in place (after the hop has read the frontier)
+        visited = frontier
+        alive = torch.full((), nr, dtype=I32, device=self.device)
+        self.levels = [nr]
+        total, depth = nr, 0
+        max_depth = self.stmt.max_depth
+        while max_depth is None or depth < max_depth:
+            nxt = _run_hops(hops, frontier, None, alive)
+            gate = None
+            if self.while_fn is not None:
+                gate = self.while_fn.identity(vb, V, env={"depth": depth + 1})
+            alive = K.frontier_advance(nxt, visited, gate)
+            kn = sched.observe(alive, free=True)
+            if not sched.recording:
+                sched.note_flag(alive != kn)
+            if kn == 0:
+                break
+            K.compact_indices(nxt.view(-1), kn, out=out, offset=total)
+            total += kn
+            depth += 1
+            self.levels.append(kn)
+            frontier = nxt
+            if depth > V:  # no minimum depth exceeds |V|
+                break
+        return total
+
+    def rows_from(self, ids) -> RecordRows:
+        return RecordRows(self.snap, _host(ids))
 
 
 # ---------------------------------------------------------------------------
@@ -1950,6 +2202,18 @@ def _check_delta_gen(solver) -> None:
         raise Uncompilable(f"delta overlay poisoned: {ov.poisoned}")
     if ov.plan_gen != solver.delta_gen:
         raise ScheduleOverflow(f"delta structure moved (gen {solver.delta_gen} -> {ov.plan_gen})")
+
+
+def _check_traverse_static(solver) -> None:
+    """Refuse the dispatch of a TRAVERSE plan on a delta-maintained snapshot
+    that applied a batch since its recording: the replay bakes its roots and
+    level counts, so `ScheduleOverflow` sends the caller into a re-record."""
+    ov = solver.overlay
+    if ov is not None and ov.data_version != solver.delta_data_version:
+        raise ScheduleOverflow(
+            "traverse recording is stale under delta maintenance "
+            f"(data v{solver.delta_data_version} -> v{ov.data_version})"
+        )
 
 
 def _check_tier_gen(plan) -> None:
@@ -2063,15 +2327,22 @@ class _CompiledPlan:
     ``[count, overflow, fits16]``; a small one (``direct_fetch``) is ONE
     flat buffer: the W·C data values then the meta row."""
 
-    def __init__(self, solver: TpuMatchSolver, table: Table) -> None:
+    def __init__(
+        self,
+        solver,
+        count: int,
+        width: int,
+        names: Tuple[List[str], List[str], List[str]] = ([], [], []),
+        count_name: Optional[str] = None,
+        dyn_spec: Optional[Dict] = None,
+    ) -> None:
         self.solver = solver
-        self.v_names = sorted(table.cols)
-        #: edge aliases: two columns each, class index then edge id
-        self.e_names = sorted(table.edge_cols)
-        self.d_names = sorted(table.depth_cols)
-        self.count = table.count
-        self.width = table.width
-        self.count_name = solver.count_only_name()
+        #: result columns by alias: vertex, edge (class index then edge id)
+        #: and depth aliases
+        self.v_names, self.e_names, self.d_names = names
+        self.count = count
+        self.width = width
+        self.count_name = count_name
         self.fetch_limit = self._literal_fetch_limit(solver.stmt)
         #: result columns in the packed data (vertex + 2 per edge + depth)
         self.ncols = len(self.v_names) + 2 * len(self.e_names) + len(self.d_names)
@@ -2086,7 +2357,11 @@ class _CompiledPlan:
         #: next recording, never to a captured graph)
         self.page_budget_bytes = int(config.result_page_budget_bytes)
         #: dynamic parameters the compiled predicates actually read
-        self.dyn_spec = dict(solver.param_box.used)
+        self.dyn_spec = dict(dyn_spec or {})
+        #: lane bucket → group replay (`dispatch_many`)
+        self.groups: Dict[int, _GroupReplay] = {}
+        #: group replays run: one per chunk of a batch's group
+        self.group_replays = 0
         #: static int32 parameter buffer (float32 values by their bits)
         self._params_dev: Optional[torch.Tensor] = None
         self.graph = None  # torch.cuda.CUDAGraph once captured
@@ -2099,15 +2374,19 @@ class _CompiledPlan:
         self.capture_ms: Optional[float] = None
         #: torch.cuda.memory_reserved right after the capture
         self.reserved_bytes: Optional[int] = None
-        #: lane bucket → group replay (`dispatch_many`)
-        self.groups: Dict[int, _GroupReplay] = {}
-        #: group replays run: one per chunk of a batch's group
-        self.group_replays = 0
         #: tiered snapshots: the blocks the recording faulted in, which every
         #: dispatch prefetches and pins, and the tier generation the plan was
         #: captured under
         self.tier_footprint = frozenset(solver.tier_touched)
         self.tier_gen = solver.tier.generation if solver.tier is not None else 0
+
+    @classmethod
+    def of_table(cls, solver: TpuMatchSolver, table: Table) -> "_CompiledPlan":
+        """The plan of a recorded MATCH (or rewritten SELECT) solve."""
+        names = (sorted(table.cols), sorted(table.edge_cols), sorted(table.depth_cols))
+        return cls(
+            solver, table.count, table.width, names, solver.count_only_name(), solver.param_box.used
+        )
 
     # -- the replay body -----------------------------------------------------
 
@@ -2363,13 +2642,17 @@ class _CompiledPlan:
 
     # -- capture and dispatch -------------------------------------------------
 
-    def _dyn_args(self, params: Optional[Dict]) -> np.ndarray:
-        """The dynamic parameters as one host int32 array (float32 values
-        by their bits), in `dyn_spec` order. Raises when the plan is stale
-        under delta maintenance (`_check_delta_gen`) or tiering
-        (`_check_tier_gen`)."""
+    def check_fresh(self) -> None:
+        """Raise when the plan is stale under delta maintenance
+        (`_check_delta_gen`) or tiering (`_check_tier_gen`)."""
         _check_delta_gen(self.solver)
         _check_tier_gen(self)
+
+    def _dyn_args(self, params: Optional[Dict]) -> np.ndarray:
+        """The dynamic parameters as one host int32 array (float32 values
+        by their bits), in `dyn_spec` order; raises when the plan is stale
+        (`check_fresh`)."""
+        self.check_fresh()
         return pack_params(params if params is not None else self.solver.params, self.dyn_spec)
 
     def _upload(self, host: np.ndarray) -> None:
@@ -2583,6 +2866,55 @@ class _CompiledPlan:
         return t
 
 
+class _CompiledTraverse(_CompiledPlan):
+    """A recorded TRAVERSE as a replayable plan, with `_CompiledPlan`'s
+    dispatch / fetch / materialize surface, so that `execute` and
+    `execute_batch` take both.
+
+    The replay is as static as the reference's: the roots and every level's
+    count are baked, parameter values join the plan key (`_cache_key`), and
+    no parameter row is read. Its output is one direct-fetch buffer: the
+    emitted vertex ids (``width`` = bucket(total) slots, -1-filled once per
+    replay, each level written at its recorded offset by K3) and the meta
+    row ``[total, overflow, 0]``. On a card `capture` records the replay as
+    one CUDA graph. Every batch item of the plan is the identical replay, so
+    a batch's items share one dispatch (``dyn_spec`` is empty); a tiered
+    plan is not batchable (each dispatch prefetches and pins its
+    footprint)."""
+
+    def __init__(self, solver: TpuTraverseSolver, count: int) -> None:
+        super().__init__(solver, count, K.bucket(max(count, 1)), (["id"], [], []))
+        #: the ids ship whole whatever their size: there is no page ladder
+        self.direct_fetch = True
+
+    def _replay(self) -> Dict:
+        solver = self.solver
+        dev, W = solver.device, self.width
+        buf = torch.full((W + 3,), -1, dtype=I32, device=dev)
+        solver.sched.start_replay()
+        with solver.dg.sealed():
+            total = solver.solve(buf[:W])
+        if solver.sched.pos != len(solver.sched.values):
+            raise RuntimeError(
+                f"replay observed {solver.sched.pos} sizes, the recording {len(solver.sched.values)}"
+            )
+        overflow = solver.sched.overflow_flag(dev).to(I32)
+        buf[W:].copy_(torch.stack([torch.full((), total, dtype=I32, device=dev), overflow, torch.zeros_like(overflow)]))
+        return {"direct": buf}
+
+    def check_fresh(self) -> None:
+        super().check_fresh()
+        _check_traverse_static(self.solver)
+
+    def batchable(self) -> bool:
+        return self.solver.tier is None
+
+    def materialize(self, meta: np.ndarray, data: Optional[np.ndarray], params: Optional[Dict] = None):
+        if int(meta[1]):
+            raise ScheduleOverflow(str(self.solver.stmt))
+        return self.solver.rows_from(data[: int(meta[0]), 0])
+
+
 # ---------------------------------------------------------------------------
 # plan cache and front door
 # ---------------------------------------------------------------------------
@@ -2612,13 +2944,28 @@ def _plan_cache(snap) -> "OrderedDict":
     return cache
 
 
+def _all_values_key(params) -> Optional[Tuple]:
+    """Every parameter value in the key (a TRAVERSE plan bakes them)."""
+    try:
+        t = tuple(sorted((str(k), type(v).__name__, v) for k, v in params.items()))
+        hash(t)
+        return t
+    except TypeError:
+        return None
+
+
 def _cache_key(stmt, params) -> Optional[Tuple]:
     """(statement, parameter key, config): the knobs that size a plan's
     buffers are read while it records, so a plan only ever replays under
-    the configuration it was recorded with; retuning records anew."""
-    if not isinstance(stmt, A.MatchStatement):
+    the configuration it was recorded with; retuning records anew. MATCH
+    and (rewritten) SELECT plans are parameter-generic; TRAVERSE bakes the
+    parameter values."""
+    if isinstance(stmt, (A.MatchStatement, A.SelectStatement)):
+        pk = _params_key(params)
+    elif isinstance(stmt, A.TraverseStatement):
+        pk = _all_values_key(params)
+    else:
         return None
-    pk = _params_key(params)
     if pk is None:
         return None
     try:
@@ -2629,13 +2976,63 @@ def _cache_key(stmt, params) -> Optional[Tuple]:
         return None
 
 
+#: SELECT → MATCH translation verdicts, keyed by statement (the rewrite is
+#: parameter-independent), read by every recording: a positive entry skips
+#: re-deriving the rewrite when a statement records again (a re-record, the
+#: plan cache off or evicted), a negative one (the `Uncompilable` reason)
+#: refuses an ineligible shape, which never reaches the plan cache, at once
+_TRANSLATE_CACHE: "OrderedDict" = OrderedDict()
+_TRANSLATE_CACHE_MAX = 512
+
+
+def _translate(stmt):
+    """``(statement to solve, element alias)``: a SELECT rewritten to a
+    single-node MATCH (`select_compile.rewrite_select`); MATCH and TRAVERSE
+    pass through."""
+    if not isinstance(stmt, A.SelectStatement):
+        return stmt, None
+    try:
+        hashable = True
+        verdict = _TRANSLATE_CACHE.get(stmt)
+    except TypeError:  # the statement holds an unhashable literal
+        hashable, verdict = False, None
+    if verdict is not None:
+        _TRANSLATE_CACHE.move_to_end(stmt)
+        if isinstance(verdict, str):
+            raise Uncompilable(verdict)
+        return verdict
+    from orientdb_tpu_torch.exec.select_compile import rewrite_select
+
+    try:
+        out = rewrite_select(stmt)
+    except Uncompilable as e:
+        if hashable:
+            _translate_remember(stmt, str(e))
+        raise
+    if hashable:
+        _translate_remember(stmt, out)
+    return out
+
+
+def _translate_remember(stmt, verdict) -> None:
+    while len(_TRANSLATE_CACHE) >= _TRANSLATE_CACHE_MAX:
+        _TRANSLATE_CACHE.popitem(last=False)
+    _TRANSLATE_CACHE[stmt] = verdict
+
+
 def _record(db, stmt, params):
     """Recording first execution: eager solve with blocking size observes.
     Returns (plan, rows); the plan is not captured yet."""
-    solver = TpuMatchSolver(db, stmt, params)
+    if isinstance(stmt, A.TraverseStatement):
+        tsolver = TpuTraverseSolver(db, stmt, params)
+        buf = torch.full((tsolver.vb,), -1, dtype=I32, device=tsolver.device)
+        total = tsolver.solve(buf)
+        return _CompiledTraverse(tsolver, total), tsolver.rows_from(buf[:total])
+    match, element_alias = _translate(stmt)
+    solver = TpuMatchSolver(db, match, params, element_alias)
     table = solver.solve_table()
     rows = solver.rows_from_table(table)
-    return _CompiledPlan(solver, table), rows
+    return _CompiledPlan.of_table(solver, table), rows
 
 
 def _prepare(db, stmt, params):
@@ -2644,8 +3041,8 @@ def _prepare(db, stmt, params):
     Returns ``(variants, None)`` on a cache hit, or ``(None, rows)`` when
     this call WAS the recording first execution (its plan captured and
     cached when the statement is cacheable)."""
-    if not isinstance(stmt, A.MatchStatement):
-        raise Uncompilable(f"{type(stmt).__name__} has no compiled form in this slice")
+    if not isinstance(stmt, (A.MatchStatement, A.SelectStatement, A.TraverseStatement)):
+        raise Uncompilable(f"{type(stmt).__name__} has no compiled form")
     params = params or {}
     snap = db.current_snapshot()
     if snap is None:
@@ -2730,9 +3127,10 @@ def _run_variants(db, stmt, params, variants: PlanVariants, tried=None):
     return rows
 
 
-def execute(db, stmt: A.MatchStatement, params: Dict):
-    """Solve one MATCH statement on the database's device; the rows. The
-    first call of a statement records; later calls replay its plan."""
+def execute(db, stmt, params: Dict):
+    """Solve one MATCH, SELECT or TRAVERSE statement on the database's
+    device; the rows. The first call of a statement records; later calls
+    replay its plan."""
     params = params or {}
     variants, rows = _prepare(db, stmt, params)
     if variants is None:
@@ -2937,7 +3335,7 @@ def _finish_pending(db, items, pending, fetched, pages, grp_pages, out) -> None:
             resolved[rk] = out[i]
 
 
-def execute_batch(db, items: List[Tuple[A.MatchStatement, Dict]]) -> List:
+def execute_batch(db, items: List[Tuple[A.Statement, Dict]]) -> List:
     """Solve ``[(stmt, params), ...]``; the rows of each, in item order.
 
     Every item resolves its plan first (a statement's first call records
@@ -2956,8 +3354,7 @@ def execute_batch(db, items: List[Tuple[A.MatchStatement, Dict]]) -> List:
             continue
         plan = variants.pick(params)
         try:
-            _check_delta_gen(plan.solver)
-            _check_tier_gen(plan)
+            plan.check_fresh()
         except ScheduleOverflow:
             out[i] = _run_variants(db, stmt, params, variants, tried=plan)
             continue

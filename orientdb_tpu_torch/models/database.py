@@ -1,5 +1,5 @@
 """Port of `orientdb_tpu/models/database.py`, trimmed to what the compiled
-MATCH path reads: the schema, the attached snapshot, class counts for the
+path reads: the schema, the attached snapshot, class counts for the
 planner's estimates, ``query``, ``query_batch`` and the device the database
 runs on.
 
@@ -35,7 +35,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Database:
-    """A schema plus an attached snapshot, answering MATCH on ``device``."""
+    """A schema plus an attached snapshot, answering MATCH, SELECT and
+    TRAVERSE on ``device``."""
 
     def __init__(self, name: str = "db", device=None) -> None:
         self.name = name
@@ -77,14 +78,14 @@ class Database:
         return total
 
     def query(self, sql: str, params: Optional[Dict[str, object]] = None):
-        """Run a MATCH statement on the compiled path
+        """Run a MATCH, SELECT or TRAVERSE statement on the compiled path
         ([E] ODatabaseSession.query)."""
         from orientdb_tpu_torch.exec.engine import execute_query
 
         return execute_query(self, sql, params)
 
     def query_batch(self, sqls, params_list=None):
-        """Run a batch of MATCH statements in ~one device round trip: every
+        """Run a batch of statements in ~one device round trip: every
         cached plan dispatches back to back (same-plan items as one group
         replay) and the results come back in one overlapped wave. One
         ResultSet per statement, in order."""

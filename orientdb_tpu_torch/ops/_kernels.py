@@ -43,7 +43,7 @@ SIGNATURES = {
     "csr_scan_f32": [_P, _P, _N, _P, _I, _P],
     "csr_degree_counts": [_P, _N, _P, _N, _P, _P],
     "csr_gather_expand": [_P, _N, _P, _N, _P, _P, _N, _P, _N, _P, _P, _P, _P],
-    "csr_compact_scatter": [_P, _P, _N, _N, _P, _P],
+    "csr_compact_scatter": [_P, _P, _N, _N, _P, _I, _P],
     "csr_segment_sum_i32": [_P, _N, _P, _N, _N, _P, _P],
     "csr_segment_sum_f32": [_P, _N, _P, _N, _N, _P, _P],
     "csr_take_pad_i32": [_P, _N, _P, _N, _I, _P, _P],
@@ -56,7 +56,7 @@ SIGNATURES = {
     "csr_rows_to_bitmap": [_P, _N, _N, _P, _P],
     "csr_bitmap_hop": [_P, _P, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
     "csr_bitmap_emit": [_P, _P, _P, _N, _N, _P, _P, _P, _P],
-    "csr_frontier_advance": [_P, _P, _N, _P, _P],
+    "csr_frontier_advance": [_P, _P, _P, _N, _N, _P, _P],
     "csr_rows_with_matches": [_P, _P, _N, _N, _I, _P, _P],
     "csr_group_page": [_P, _N, _I, _N, _N, _I, _P, _P],
     "csr_predicate_eval": [_P, _P],

@@ -329,27 +329,45 @@ def gather_expand(
 # ---------------------------------------------------------------------------
 
 
-def plain_compact_indices(mask: torch.Tensor, out_size: int) -> torch.Tensor:
-    out = torch.full((out_size,), -1, dtype=I32, device=mask.device)
-    if mask.shape[0] == 0:
-        return out
-    ranks = plain_cumsum(mask.to(I32))
-    keep = mask & (ranks <= out_size)
-    pos = torch.arange(mask.shape[0], dtype=I32, device=mask.device)
-    out[(ranks[keep] - 1).long()] = pos[keep]
-    return out
+def plain_compact_indices(
+    mask: torch.Tensor, out_size: int, out: Optional[torch.Tensor] = None, offset: int = 0
+) -> torch.Tensor:
+    res = torch.full((out_size,), -1, dtype=I32, device=mask.device)
+    if mask.shape[0]:
+        ranks = plain_cumsum(mask.to(I32))
+        keep = mask & (ranks <= out_size)
+        pos = torch.arange(mask.shape[0], dtype=I32, device=mask.device)
+        res[(ranks[keep] - 1).long()] = pos[keep]
+    if out is None:
+        return res
+    kept = min(int(mask.sum()), out_size)
+    out[offset : offset + kept] = res[:kept]
+    return out[offset : offset + out_size]
 
 
-def compact_indices(mask: torch.Tensor, out_size: int) -> torch.Tensor:
+def compact_indices(
+    mask: torch.Tensor, out_size: int, out: Optional[torch.Tensor] = None, offset: int = 0
+) -> torch.Tensor:
     """Indices of True entries (ascending), -1-padded to `out_size`; the
-    first `out_size` when there are more."""
+    first `out_size` when there are more.
+
+    The offset form (``out`` given: an int32 buffer) writes the indices into
+    ``out[offset : offset + out_size]`` and returns that view; the slots past
+    the mask's count are left as they are (the caller fills the buffer
+    once)."""
     _check(mask, (torch.bool,), "compact_indices")
-    if not _on_card(mask):
-        return plain_compact_indices(mask, out_size)
+    if out is not None:
+        _check(out, (I32,), "compact_indices out")
+        if offset < 0 or offset + out_size > out.shape[0]:
+            raise ValueError(
+                f"compact_indices: [{offset}, {offset + out_size}) outside the {out.shape[0]}-slot buffer"
+            )
+    if not (_on_card(mask) if out is None else _on_card(mask, out)):
+        return plain_compact_indices(mask, out_size, out, offset)
     lib = _kernels.load()
     n = mask.shape[0]
     ranks = mask_cumsum(mask)
-    out = torch.empty(out_size, dtype=I32, device=mask.device)
+    dst = torch.empty(out_size, dtype=I32, device=mask.device) if out is None else out
     _launch(
         "compact_indices",
         lib.csr_compact_scatter,
@@ -357,10 +375,11 @@ def compact_indices(mask: torch.Tensor, out_size: int) -> torch.Tensor:
         ranks.data_ptr(),
         n,
         out_size,
-        out.data_ptr(),
+        dst.data_ptr() + 4 * offset,
+        int(out is None),
         _stream(mask),
     )
-    return out
+    return dst if out is None else out[offset : offset + out_size]
 
 
 # ---------------------------------------------------------------------------
@@ -820,22 +839,36 @@ def bitmap_emit(
     return e_out, a_out, c_out
 
 
-def plain_frontier_advance(nxt: torch.Tensor, visited: torch.Tensor) -> torch.Tensor:
+def plain_frontier_advance(
+    nxt: torch.Tensor, visited: torch.Tensor, gate: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     nxt &= ~visited
+    if gate is not None:
+        nxt &= gate[None, :]
     visited |= nxt
     return nxt.sum(dtype=I32)
 
 
-def frontier_advance(nxt: torch.Tensor, visited: torch.Tensor) -> torch.Tensor:
+def frontier_advance(
+    nxt: torch.Tensor, visited: torch.Tensor, gate: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """The BFS level step, in place on both bitmaps: ``nxt &= ~visited;
-    visited |= nxt``. Returns the popcount of the new ``nxt`` as a 0-d
-    int32 (the level's alive count)."""
+    visited |= nxt``. With ``gate`` (bool [vb], broadcast over the rows),
+    TRAVERSE's admission: ``nxt &= ~visited & gate[None, :]`` first, so a
+    vertex the gate rejects is neither kept nor marked visited. Returns the
+    popcount of the new ``nxt`` as a 0-d int32 (the level's alive count)."""
     _check2d(nxt, (B8,), "frontier_advance nxt")
     _check2d(visited, (B8,), "frontier_advance visited")
     if nxt.shape != visited.shape:
         raise ValueError("frontier_advance: bitmaps differ in shape")
-    if not _on_card(nxt, visited):
-        return plain_frontier_advance(nxt, visited)
+    ts = [nxt, visited]
+    if gate is not None:
+        _check(gate, (B8,), "frontier_advance gate")
+        if gate.shape[0] != nxt.shape[1]:
+            raise ValueError("frontier_advance: gate and bitmap rows differ in length")
+        ts.append(gate)
+    if not _on_card(*ts):
+        return plain_frontier_advance(nxt, visited, gate)
     lib = _kernels.load()
     count = torch.empty((), dtype=I32, device=nxt.device)
     _launch(
@@ -843,7 +876,9 @@ def frontier_advance(nxt: torch.Tensor, visited: torch.Tensor) -> torch.Tensor:
         lib.csr_frontier_advance,
         nxt.data_ptr(),
         visited.data_ptr(),
+        None if gate is None else gate.data_ptr(),
         nxt.numel(),
+        nxt.shape[1],
         count.data_ptr(),
         _stream(nxt),
     )
@@ -985,6 +1020,7 @@ class PredOp:
     CLASS = 18  # a: class ids (v_class), b: closure table → table[v_class[id]]
     VALID = 19  # id >= 0
     DIST = 20  # a: scale (float32 bits); pops lat1, lng1, lat2, lng2 (float32)
+    ID = 21  # push (id, id >= 0): the slot's vertex id (a rid filter's operand)
 
 
 ARITH_OPS = ("+", "-", "*", "/", "%")
@@ -1181,6 +1217,8 @@ def plain_predicate_eval(
             stack.append((zero, plain_take_pad(bufs[b], cls, False)))
         elif op == O.VALID:
             stack.append((zero, sid >= 0))
+        elif op == O.ID:
+            stack.append((sid, sid >= 0))
         elif op == O.DIST:
             ops = [stack.pop() for _ in range(4)][::-1]
             p = ops[0][1] & ops[1][1] & ops[2][1] & ops[3][1]

@@ -810,6 +810,13 @@ def class_term(v_class: torch.Tensor, table: torch.Tensor) -> _Node:
     return _Node(O.CLASS, srcs=(("tensor", v_class, None), ("tensor", table, None)))
 
 
+def id_term(want: int) -> _Node:
+    """``id == want`` (the ID instruction against a constant): a rid filter,
+    ``want`` the RID's vertex index, or -2 when the RID is no snapshot
+    vertex (it then matches nothing, padding's -1 included)."""
+    return _Node(O.CMP, (K.CMP_OPS.index("="), 0, 0), kids=[_Node(O.ID), _const(int(want), True)])
+
+
 def live_term(live: torch.Tensor, values: torch.Tensor) -> _Node:
     """``live[id]`` of a delta-maintained edge list (bool [E]): the mask read
     as the presence of a column whose values (``values``, any int32 [E] of

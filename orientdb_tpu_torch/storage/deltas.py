@@ -105,6 +105,10 @@ class SnapshotOverlay:
         #: generation
         self.topology_dirty = False
         self.plan_gen = 0
+        #: bumped once per applied batch: a TRAVERSE replay, static by
+        #: construction (its roots and level counts are baked), re-records
+        #: when any batch landed since its recording
+        self.data_version = 0
         self.applied_events = 0
         self.upload_bytes = 0
         #: why the overlay can no longer track the writes (None: healthy)
@@ -382,6 +386,7 @@ class SnapshotMaintainer:
                 ov.poison(f"{type(e).__name__}: {e}")
         self._flush_patches(ov, patches)
         ov.applied_events += len(events)
+        ov.data_version += 1
         return ov.poisoned is None
 
     def _flush_patches(self, ov: SnapshotOverlay, patches: _PatchSet) -> None:

@@ -136,6 +136,24 @@ class PropertyColumn:
             )
         return self._dict_arr
 
+    def objects_at(self, idx: np.ndarray) -> np.ndarray:
+        """The values at ``idx`` as Python objects (an object ndarray):
+        strings from the dictionary, None where absent or ``idx`` < 0."""
+        ci = np.clip(idx, 0, max(len(self.values) - 1, 0))
+        vals = self.values[ci]
+        pres = self.present[ci] & (idx >= 0)
+        if self.kind == "str":
+            d = self.dict_array()
+            o = d[np.clip(vals, 0, len(d) - 1)]
+        elif self.kind == "bool":
+            o = (vals != 0).astype(object)
+        elif self.kind == "float":
+            o = vals.astype(float).astype(object)
+        else:
+            o = vals.astype(object)
+        o[~pres] = None
+        return o
+
 
 class EdgeClassCSR:
     """CSR adjacency for one concrete edge class, both directions.
@@ -223,6 +241,21 @@ class GraphSnapshot:
         if self._rid_index is None:
             self._rid_index = RidIndex(self.v_cluster, self.v_position)
         return self._rid_index
+
+    def rid_of(self, idx: int) -> RID:
+        """The RID of vertex ``idx``."""
+        return RID(int(self.v_cluster[idx]), int(self.v_position[idx]))
+
+    def idx_of(self, rid) -> Optional[int]:
+        """The vertex index of ``rid``, or None when it is no snapshot
+        vertex."""
+        return self.rid_to_idx.get(rid)
+
+    def rids_of(self, ids: np.ndarray) -> tuple:
+        """The RIDs of the vertices ``ids`` (each >= 0) as parallel int32
+        ``(cluster, position)`` arrays: the marshal's vectorised `rid_of`."""
+        ids = np.asarray(ids, np.int64)
+        return self.v_cluster[ids], self.v_position[ids]
 
     def slab_vertex_range(self) -> tuple:
         """(start, end) of the vertex append slab; ``(0, 0)`` on classic

@@ -693,3 +693,80 @@ def test_tiered_queries_on_card_equal_cpu(card, monkeypatch):
     assert any(p.tier_gen == tier.generation and p.replays > 0 for p in plans)
     assert all(not p.pins for p in tier.parts.values())
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,vb", [(1, 16), (1, 1 << 20), (3, 40), (8, 1 << 12)])
+def test_traverse_kernel_forms_equal_plain_on_card(card, c, vb):
+    """The three kernel forms TRAVERSE adds, against their plain versions:
+    K12 with its admission gate (random, empty and all-true gates, and
+    without one; a row length off the 16-byte path), K15's ID instruction
+    (against -2, a live id and the last slot; ids and identity mode) and
+    K3's offset form (a level inside the buffer, a slot past its count, the
+    buffer's end)."""
+    from orientdb_tpu_torch.ops.predicates import Predicate, id_term
+
+    rng = np.random.default_rng(c * vb)
+    for gate in (rng.random(vb) < 0.5, np.zeros(vb, bool), np.ones(vb, bool), None):
+        nxt, vis = rng.random((c, vb)) < 0.3, rng.random((c, vb)) < 0.3
+        a = [_t(nxt.copy()).to(card), _t(vis.copy()).to(card)]
+        b = [_t(nxt.copy()).to(card), _t(vis.copy()).to(card)]
+        g = None if gate is None else _t(gate).to(card)
+        got, want = T.frontier_advance(a[0], a[1], g), T.plain_frontier_advance(b[0], b[1], g)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and torch.equal(got, want)
+    ids = rng.integers(-2, vb + 2, c * vb, dtype=np.int32)
+    cpu = torch.device("cpu")
+    for want_id in (-2, max(int(ids[0]), 0), vb - 1):
+        on, off = Predicate([id_term(want_id)], card), Predicate([id_term(want_id)], cpu)
+        assert torch.equal(on(_t(ids).to(card)).cpu(), off(_t(ids)))
+        assert torch.equal(on.identity(c * vb, vb - 3, 2).cpu(), off.identity(c * vb, vb - 3, 2))
+    mask = rng.random(c * vb) < 0.2
+    n = int(mask.sum())
+    base = np.full(n + 20, -7, np.int32)
+    for size, offset in ((n, 13), (n + 7, 13), (0, n + 20)):
+        on, off = _t(base.copy()).to(card), _t(base.copy())
+        T.compact_indices(_t(mask).to(card), size, out=on, offset=offset)
+        T.plain_compact_indices(_t(mask), size, out=off, offset=offset)
+        assert torch.equal(on.cpu(), off)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_traverse_and_records_on_card_equal_cpu(card):
+    """TRAVERSE (recorded, then captured replays, and a batch's shared
+    dispatch), whole-record SELECT, a rid filter and the record RETURNs on
+    the card against the same calls on the CPU."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.sql.parser import parse
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+
+    kw = dict(avg_knows=6, seed=11)
+    gpu, gsnap = build_person_knows(5_000, device=card, **kw)
+    cpu, _ = build_person_knows(5_000, device="cpu", **kw)
+    c = gpu.schema.get_class("Person").cluster_ids[0]
+    trav = "TRAVERSE out('knows') FROM (SELECT FROM Person WHERE uid < 20) WHILE $depth < 2 STRATEGY BREADTH_FIRST"
+    queries = [
+        (trav, None),
+        ("TRAVERSE both('knows') FROM (SELECT FROM Person WHERE uid < 5) MAXDEPTH 2 STRATEGY BREADTH_FIRST", None),
+        ("TRAVERSE out('knows') FROM (SELECT FROM Person WHERE uid < 30) WHILE $depth < 4 AND age > 30 "
+         "STRATEGY BREADTH_FIRST", None),
+        (f"TRAVERSE out('knows') FROM #{c}:0", None),
+        ("SELECT FROM Person WHERE uid < :k", {"k": 300}),
+        ("SELECT FROM Person WHERE uid < :k", {"k": 100}),
+        ("SELECT count(*) AS n FROM Person WHERE age > 35 AND age < 55", None),
+        (f"MATCH {{class:Person, rid:#{c}:5, as:p}}-knows->{{as:f}} RETURN p, f, f.@class", None),
+        (f"MATCH {{class:Person, rid:#{c}:5, as:p}}-knows->{{as:f}} RETURN $elements", None),
+    ]
+    for sql, params in queries:
+        for _ in range(3):
+            assert gpu.query(sql, params).to_dicts() == cpu.query(sql, params).to_dicts()
+    want = cpu.query(trav).to_dicts()
+    (variants,) = [v for k, v in TE._plan_cache(gsnap).items() if k[0] == parse(trav)]
+    plan = variants.plans[0]
+    before = plan.replays
+    assert [rs.to_dicts() for rs in gpu.query_batch([trav] * 8)] == [want] * 8
+    assert plan.replays == before + 1
+    plans = [p for v in TE._plan_cache(gsnap).values() for p in v.plans]
+    assert all(p.graph is not None for p in plans)
+    assert any(isinstance(p, TE._CompiledTraverse) and p.launches.get("frontier_advance") for p in plans)
+    torch.cuda.synchronize()

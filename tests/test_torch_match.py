@@ -326,13 +326,15 @@ def test_demodb_optional_and_edge_binding(demodb, sql):
         "RETURN count(*) AS n",
         "MATCH {class:Profiles, as:p}-HasFriend->{as:f}, "
         "NOT {as:p}-HasFriend->{as:g, while:($depth < 2)} RETURN count(*) AS n",
-        # a rid filter (the port has no RIDs), a record RETURN, and a
-        # variable-depth edge-binding arm
-        "MATCH {rid:#12:0, as:p}-HasFriend->{as:f} RETURN f.uid AS f",
-        "MATCH {class:Profiles, as:p}-HasFriend->{as:f} RETURN $matches",
+        # a rid filter inside a NOT arm, a RETURN of paths (host records), a
+        # variable-depth edge-binding arm, a TRAVERSE with LIMIT (it slices
+        # in traversal order) and an edge record
+        "MATCH {class:Profiles, as:p}-HasFriend->{as:f}, NOT {as:f}-HasFriend->{rid:#12:0} "
+        "RETURN f.uid AS f",
+        "MATCH {class:Profiles, as:p}-HasFriend->{as:f} RETURN $paths",
         "MATCH {class:Profiles, as:p}.outE('HasFriend'){as:e, maxDepth:2} RETURN count(*) AS n",
-        "TRAVERSE out('HasFriend') FROM (SELECT FROM Profiles WHERE uid = 1)",
-        "MATCH {class:Profiles, as:p}-HasFriend->{as:f} RETURN p",
+        "TRAVERSE out('HasFriend') FROM (SELECT FROM Profiles WHERE uid = 1) LIMIT 3",
+        "MATCH {class:Profiles, as:p}.outE('HasFriend'){as:e} RETURN e",
     ],
     ids=["while", "not", "rid_filter", "matches_return", "var_depth_edge_binding", "traverse", "record_return"],
 )
