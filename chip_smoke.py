@@ -117,6 +117,22 @@ from the root of a checkout. Phases, each of which raises on failure:
    ``db.query`` calls, and one batch's busy share. K14 is held exactly
    against its plain version at BQ3's lane stack and at edge cases, and
    timed beside its bound and the library's slice copy;
+7m. mesh — after phase 7a, while A is resident, A's twin (its host arrays
+   shared) is attached with ``make_mesh(4)`` (`LocalShards` on the card):
+   the sharded layout (1.98 GB beside A's 1.54 GB) is printed with the
+   card's name and power limit. Launch counts zeroed, then MQ1–MQ3 (Q1–Q3,
+   k = 2000), MR1 (``-knows-`` rows from ``uid < 2000``), MV1 (V1) and MTR1
+   (TR1) through ``db.query`` (recorded, captured, 5 replays), each equal
+   to numpy and to the single-device port's answer on A in this run and
+   printed beside the single-device replay, with its busy share and
+   launches per replay, and MBFS (`bfs_reachability` over ``knows`` from 8
+   roots spread over the shards, depth 3, 2 replicas) against a numpy
+   BFS; K2's range form, K22, K10's eid form, K23 and K24 must have
+   launched. Then each is held exactly against its plain version at the
+   cells' shapes and timed beside its bound; then MQ2n: MQ2 and MBFS over
+   a one-rank NCCL process group (`ProcessShards`, replays uncaptured).
+   After phase 6's E cells, ME1: E1 at d = 12,000 and 15,000 on B's twin
+   split four ways, equal to numpy and the single-device port;
 8. deltas — after phase 7a frees A, A's twin (copied before A's upload)
    is padded with `arm_delta_maintenance(db, 65_536, 1_048_576)` (V_cap
    8,065,536 keeps vb = 2^23; NB = 2^18 buckets of BK = 8) and uploaded.
@@ -171,7 +187,8 @@ from the root of a checkout. Phases, each of which raises on failure:
 The line before the last is one JSON object with every kernel's numbers
 (``launches`` from phase 5, from phase 6's replay path for
 `rows_with_matches`, from phase 7 for `group_page`, from phase 8 for
-K16–K18 and from phase 9 for K19–K21, each plus phase 5c's replay path;
+K16–K18, from phase 9 for K19–K21 and from phase 7m's cells for the mesh
+kernels, each but the mesh's plus phase 5c's replay path;
 K3, K12 and K15 timed in their TRAVERSE forms: the offset form on TR4's
 largest level, the gated step at [1, 2^23], M1's node mask with its ID
 instruction); the last line is ``{"ok": true, "device": {...}}``.
@@ -240,6 +257,11 @@ REPLACES = {
     "paged_hop": "orientdb_tpu/storage/tiering.py:575",
     "paged_hop_miss": "orientdb_tpu/storage/tiering.py:590",
     "paged_expand": "orientdb_tpu/storage/tiering.py:606",
+    "degree_counts_range": "orientdb_tpu/parallel/mesh_graph.py:258",
+    "shard_gather": "orientdb_tpu/parallel/mesh_graph.py:345",
+    "bitmap_hop_eid": "orientdb_tpu/parallel/mesh_graph.py:426",
+    "shard_weight_pass": "orientdb_tpu/parallel/mesh_graph.py:480",
+    "rowshard_hop": "orientdb_tpu/parallel/sharded.py:202",
 }
 BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop", "bitmap_emit", "frontier_advance"]
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
@@ -249,10 +271,12 @@ BATCH_ONLY = ("group_page",)
 DELTA_ONLY = ("scatter_set", "slab_scan", "slab_probe")
 #: the kernels only a tiered snapshot launches (phase 9)
 TIER_ONLY = ("paged_hop", "paged_hop_miss", "paged_expand")
+#: the kernels only a meshed snapshot launches (phase 7m)
+MESH_ONLY = ("degree_counts_range", "shard_gather", "bitmap_hop_eid", "shard_weight_pass", "rowshard_hop")
 #: the kernels of the Person–knows phases 4–5 (the OPTIONAL arm's left-join
 #: count runs on the SNB-shape phase)
 PK_KERNELS = [
-    n for n in REPLACES if n != "rows_with_matches" and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY
+    n for n in REPLACES if n != "rows_with_matches" and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY + MESH_ONLY
 ]
 #: the kernels a Person–knows recording run launches
 RECORD_KERNELS = [n for n in PK_KERNELS if n not in REPLAY_ONLY]
@@ -260,11 +284,11 @@ RECORD_KERNELS = [n for n in PK_KERNELS if n not in REPLAY_ONLY]
 #: BFS there), and on their replays (no float32 overflow twin)
 E_RECORD_KERNELS = [
     n for n in REPLACES
-    if n not in REPLAY_ONLY and n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY
+    if n not in REPLAY_ONLY and n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY + MESH_ONLY
 ]
 E_REPLAY_KERNELS = [
     n for n in REPLACES
-    if n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY
+    if n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY + MESH_ONLY
     and n not in ("scan_f32", "segment_sum_f32", "take_pad_f32")
 ]
 EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
@@ -3588,6 +3612,408 @@ def check_predicate_kernel(np, torch, K, n: int, seed: int = 15, device: str = "
     return band_total, checked, len(whole.programs[0].prog.rows)
 
 
+# ---------------------------------------------------------------------------
+# phase 7m: the mesh (A on a 4-shard LocalShards mesh; ME1 on B; MQ2n over a
+# one-rank NCCL process group)
+# ---------------------------------------------------------------------------
+
+M_SHARDS = 4
+MR1 = "MATCH {class:Person, as:p, where:(uid < 2000)}-knows-{as:f} RETURN p.uid AS p, f.uid AS f"
+#: BFS roots spread over the four shards' row ranges, depth 3, 2 replicas
+MBFS_ROOTS = [0, 1, 1_999_999, 2_000_000, 3_456_789, 4_000_001, 6_000_000, 7_999_999]
+MBFS_DEPTH, MBFS_REPLICAS = 3, 2
+ME1_PARAMS = [{"d": 12_000}, {"d": 15_000}]
+
+
+def mesh_twin(db, snap, mesh):
+    """A second database over ``snap``'s host arrays (shared, not copied),
+    attached with ``mesh``: its device graph is the sharded layout, beside
+    the resident single-device one."""
+    msnap = copy.copy(snap)
+    msnap.__dict__.pop("_plan_cache", None)
+    msnap._mesh = None
+    mdb = copy.copy(db)
+    mdb._snapshot = None
+    mdb.attach_snapshot(msnap, mesh=mesh)
+    return mdb, msnap
+
+
+def numpy_mr1_rows(np, snap, k: int):
+    """Sorted (p, f) rows of MR1: every out and in edge at p < k."""
+    csr = snap.edge_classes["knows"]
+    rows = []
+    for ip, nb in ((csr.indptr_out, csr.dst), (csr.indptr_in, csr.src)):
+        p = np.repeat(np.arange(k), np.diff(ip[: k + 1]))
+        rows.append(np.stack([p, nb[ip[0] : ip[k]].astype(np.int64)], 1))
+    rows = np.concatenate(rows)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def numpy_bfs(np, snap, roots, depth: int):
+    """visited [Q, V] of a breadth-first walk over the out-CSR from each
+    root, ``depth`` hops, the root included."""
+    csr = snap.edge_classes["knows"]
+    ip = csr.indptr_out.astype(np.int64)
+    V = snap.num_vertices
+    out = np.zeros((len(roots), V), bool)
+    for q, r in enumerate(roots):
+        frontier = np.array([r], np.int64)
+        out[q, r] = True
+        for _ in range(depth):
+            nxt = np.unique(csr_neighbours(np, ip, csr.dst, frontier))
+            nxt = nxt[~out[q, nxt]]
+            out[q, nxt] = True
+            frontier = nxt
+    return out
+
+
+def _mesh_cell(np, torch, K, TE, db, snap, name, sql, params, check, single_ms, card, uncaptured=False):
+    """One mesh cell through the front door: the recording (+ capture),
+    then 5 replays, each checked; prints the times beside the single-device
+    replay median, the busy share and the launches per replay. Returns the
+    rows."""
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    rows = db.query(sql, params).to_dicts()
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(rows)
+    plan = _only_plan(TE, snap, sql).plans[0]
+    captured = db.device.type == "cuda" and not uncaptured
+    _require((plan.graph is not None) == captured and plan.replays == 0, f"{name}: capture state")
+    times = []
+    before = dict(K.LAUNCHES)
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rows = db.query(sql, params).to_dicts()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        check(rows)
+    _require(plan.replays == 5 and len(_only_plan(TE, snap, sql).plans) == 1, f"{name}: replays {plan.replays}")
+    per = plan.launches if not uncaptured else {
+        k: (K.LAUNCHES[k] - before[k]) // 5 for k in K.LAUNCHES if K.LAUNCHES[k] != before[k]
+    }
+    med = statistics.median(times)
+    cap = plan.capture_ms or 0.0
+    print(
+        f"mesh {name}: record {first_ms - cap:.3f} ms, capture {cap:.3f} ms, replay median {med:.3f} ms "
+        f"(runs {[round(t, 3) for t in times]}) against the single-device replay {single_ms:.3f} ms; "
+        f"launches per replay {sum(per.values())} {per} [{card}]"
+    )
+    print(f"mesh device {name}: {device_share(torch, db, sql, params, med)}")
+    return rows
+
+
+def _single_ms(torch, db, sql, params) -> float:
+    """Median of 5 single-device replays of a cached statement."""
+    db.query(sql, params).to_dicts()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        db.query(sql, params).to_dicts()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def run_mesh(np, torch, K, TE, ks, db, snap, card: str, vref: VRef):
+    """Phase 7m: A's twin on a 4-shard `LocalShards` mesh on the card. The
+    cells MQ1–MQ3, MR1, MV1, MTR1 through ``db.query`` (recorded, captured,
+    5 replays) and MBFS through `bfs_reachability`, each equal to numpy and
+    to the single-device port's answer on A in this run; the launch counts
+    zeroed just before the cells and read just after. Then the mesh kernels
+    against their plain versions at the cells' shapes, and MQ2n: MQ2 and
+    MBFS over a one-rank NCCL `ProcessShards` group. Returns the cells'
+    launches."""
+    from orientdb_tpu_torch.ops.device_graph import device_graph
+    from orientdb_tpu_torch.parallel.sharded import ShardedCSR, bfs_reachability, make_mesh
+
+    sync = torch.cuda.synchronize
+    V = snap.num_vertices
+    age = snap.v_columns["age"].values
+    t0 = time.perf_counter()
+    mdb, msnap = mesh_twin(db, snap, make_mesh(M_SHARDS))
+    mdg = device_graph(msnap, mdb.device)
+    sync()
+    sh_bytes = sum(a.numel() * a.element_size() for k, a in mdg.arrays.items() if k.startswith("sh:"))
+    knows = sum(
+        a.numel() * a.element_size() for k, a in mdg.arrays.items() if k.startswith("sh:knows:")
+    )
+    a_bytes = device_graph(snap, db.device).memory_report()["total_bytes"]
+    print(
+        f"mesh: {M_SHARDS} shards of R={mdg.mesh_graph.rows_per_shard} rows; sharded layout {sh_bytes} bytes "
+        f"(knows {knows}, {knows // M_SHARDS} a shard; out emax {mdg.mesh_graph.edge['knows'].out_emax}, "
+        f"edge-list slice W={mdg.mesh_graph.edge['knows'].e_slice}) beside A's {a_bytes} resident; "
+        f"built and uploaded in {time.perf_counter() - t0:.1f} s [{card}]"
+    )
+    t0 = time.perf_counter()
+    want = {
+        "MQ1": [{"n": numpy_1hop_count(snap, age > 40, age < 30)}],
+        "MQ2": [{"n": numpy_2hop_count(snap, age > 40, np.ones(V, bool), age < 30)}],
+    }
+    q3_rows, mr1_rows = numpy_q3_rows(np, snap, Q3_K), numpy_mr1_rows(np, snap, 2000)
+    csr = snap.edge_classes["knows"]
+    out_nb = lambda f: csr_neighbours(np, csr.indptr_out.astype(np.int64), csr.dst, f)  # noqa: E731
+    tr1_ids, _ = numpy_traverse(np, V, np.arange(50), out_nb, admit=lambda d: d < 2)
+    roots = np.zeros((len(MBFS_ROOTS), V), bool)
+    roots[np.arange(len(MBFS_ROOTS)), MBFS_ROOTS] = True
+    bfs_want = numpy_bfs(np, snap, MBFS_ROOTS, MBFS_DEPTH)
+    print(f"numpy references of the mesh cells: {time.perf_counter() - t0:.1f} s")
+
+    cells = {
+        "MQ1": (Q1, None, lambda r: _require(r == want["MQ1"], f"MQ1 {r} != numpy {want['MQ1']}")),
+        "MQ2": (Q2, None, lambda r: _require(r == want["MQ2"], f"MQ2 {r} != numpy {want['MQ2']}")),
+        "MQ3": (Q3, {"k": Q3_K}, lambda r: _require(
+            np.array_equal(_sorted_rows(np, r, ("p", "f", "g")), q3_rows), "MQ3 rows differ from numpy")),
+        "MR1": (MR1, None, lambda r: _require(
+            np.array_equal(_sorted_rows(np, r, ("p", "f")), mr1_rows), "MR1 rows differ from numpy")),
+        "MV1": (V1, None, lambda r: vref.check("V1", r, None)),
+        "MTR1": (TR1, None, lambda r: _require(
+            np.array_equal(np.array([int(x["@rid"].split(":")[1]) for x in r]), tr1_ids),
+            "MTR1 records differ from numpy (order included)")),
+    }
+    single = {}
+    for name, (sql, params, check) in cells.items():
+        rows = db.query(sql, params).to_dicts()
+        check(rows)
+        single[name] = (rows, _single_ms(torch, db, sql, params))
+
+    def same_as_single(name, rows):
+        key = (lambda r: tuple(sorted(map(str, r.items())))) if name != "MTR1" else None
+        a, b = (rows, single[name][0]) if key is None else (sorted(rows, key=key), sorted(single[name][0], key=key))
+        _require(a == b, f"{name}: the mesh's rows differ from the single-device port's")
+
+    # the main path: counts zeroed just before, read just after
+    sync()
+    K.reset_launches()
+    t_cells = time.perf_counter()
+    for name, (sql, params, check) in cells.items():
+        rows = _mesh_cell(np, torch, K, TE, mdb, msnap, name, sql, params, check, single[name][1], card)
+        same_as_single(name, rows)
+    scsr = ShardedCSR.from_snapshot(msnap, make_mesh(M_SHARDS, MBFS_REPLICAS), "knows")
+    times = []
+    for _ in range(3):
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        got = bfs_reachability(scsr, roots, MBFS_DEPTH)
+        times.append((time.perf_counter() - t0) * 1e3)
+        _require(np.array_equal(got, bfs_want), "MBFS differs from numpy")
+    per = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES if K.LAUNCHES[k] != before[k]}
+    print(
+        f"mesh MBFS: {len(MBFS_ROOTS)} roots, depth {MBFS_DEPTH}, replicas {MBFS_REPLICAS}: "
+        f"{int(got.sum())} reached; {[round(t, 3) for t in times]} ms a call (host clock, with the "
+        f"upload of the roots and the fetch of [Q, V]); launches a call {sum(per.values())} {per} [{card}]"
+    )
+    mbfs = lambda: bfs_reachability(scsr, roots, MBFS_DEPTH)  # noqa: E731
+    print(f"mesh device MBFS: {busy_share(torch, mbfs, statistics.median(times))}")
+    sync()
+    launches = dict(K.LAUNCHES)
+    missing = [n for n in MESH_ONLY if launches[n] == 0]
+    _require(not missing, f"mesh kernels never launched on the mesh path: {missing}")
+    print(
+        f"mesh cells: {time.perf_counter() - t_cells:.1f} s; launches "
+        f"{ {n: launches[n] for n in MESH_ONLY} }, all {sum(launches.values())}"
+    )
+    check_mesh_kernels(np, torch, K, ks, mdg, msnap, roots)
+    TE._plan_cache(msnap).clear()
+    del mdb, msnap, mdg, scsr
+    gc.collect()
+    gc.collect()
+    sync()
+    torch.cuda.empty_cache()
+    run_mesh_nccl(np, torch, K, TE, db, snap, card, want["MQ2"], roots, bfs_want)
+    return launches
+
+
+def run_mesh_nccl(np, torch, K, TE, db, snap, card, mq2_want, roots, bfs_want) -> None:
+    """MQ2n: MQ2 and MBFS on a one-rank NCCL process group
+    (`ProcessShards`: the same kernels, merged by NCCL collectives, the
+    plan replayed uncaptured)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from orientdb_tpu_torch.ops.device_graph import device_graph
+    from orientdb_tpu_torch.parallel.sharded import ShardedCSR, bfs_reachability, make_mesh
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+        try:
+            group = dist.group.WORLD
+            ndb, nsnap = mesh_twin(db, snap, make_mesh(1, group=group))
+            device_graph(nsnap, ndb.device)
+            single_ms = _single_ms(torch, db, Q2, None)
+            _mesh_cell(
+                np, torch, K, TE, ndb, nsnap, "MQ2n", Q2, None,
+                lambda r: _require(r == mq2_want, f"MQ2n {r} != numpy {mq2_want}"), single_ms, card,
+                uncaptured=True,
+            )
+            scsr = ShardedCSR.from_snapshot(nsnap, make_mesh(1, MBFS_REPLICAS, group=group), "knows")
+            t1 = time.perf_counter()
+            got = bfs_reachability(scsr, roots, MBFS_DEPTH)
+            _require(np.array_equal(got, bfs_want), "MBFS over NCCL differs from numpy")
+            print(f"mesh MBFS over NCCL: {(time.perf_counter() - t1) * 1e3:.3f} ms [{card}]")
+            TE._plan_cache(nsnap).clear()
+            del ndb, nsnap, scsr
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"mesh MQ2n phase: {time.perf_counter() - t0:.1f} s")
+
+
+def check_mesh_kernels(np, torch, K, ks, mdg, msnap, roots) -> None:
+    """K2's range form and K22 at MQ3's second hop (its ~20k sources, out
+    and in), K10's eid form at MV1's 8-row frontiers (and with an edge mask
+    and a gate), K23 at MQ2's pass over the 80M-edge slices (int32; the
+    float32 twin to rtol 1e-6) and K24 at MBFS's first hop, each against
+    its plain version exactly, then timed beside its bound (counted from
+    these inputs at 3.35 TB/s); their launches are not counted."""
+    counted = dict(K.LAUNCHES)
+    dev = mdg.device
+    A = mdg.arrays
+    S = M_SHARDS
+    csr = msnap.edge_classes["knows"]
+    V = msnap.num_vertices
+    vb = K.bucket(V)
+    span = A["sh:rowspan"]
+    # MQ3's second hop: the friends of uid < 2000
+    srcs = torch.from_numpy(csr.dst[: csr.indptr_out[Q3_K]].astype(np.int32)).to(dev)
+    n = srcs.shape[0]
+    for d, extra in (("out", "ebase"), ("in", "eid")):
+        ind, nbr, ex = A[f"sh:knows:{d}:indptr"], A[f"sh:knows:{d}:nbr"], A[f"sh:knows:{d}:{extra}"]
+        counts, tots = K.degree_counts_range(ind, span, srcs)
+        ks.same("degree_counts_range", (counts, tots), K.plain_degree_counts_range(ind, span, srcs))
+        offsets = K.exclusive_cumsum(counts.view(-1))
+        total, mx = int(tots.sum()), int(tots.max())
+        for cap, cap_total in ((K.bucket(mx), K.bucket(total)), (max(mx // 2, 1), max(total // 3, 1))):
+            for plus_one in (False, True):
+                args = (ind, nbr, ex, span, srcs, offsets, tots, 0, cap, cap_total, d == "out", plus_one)
+                ks.same("shard_gather", K.shard_gather(*args), K.plain_shard_gather(*args))
+        if d == "out":
+            g_args = (ind, nbr, ex, span, srcs, offsets, tots, 0, K.bucket(mx), K.bucket(total), True, False)
+            g_total, g_cap_total = total, K.bucket(total)
+            r_args = (ind, span, srcs)
+    ks.timed(
+        "degree_counts_range",
+        lambda: K.degree_counts_range(*r_args),
+        lambda: K.plain_degree_counts_range(*r_args),
+        None,
+        4 * n + 8 * n + 4 * S * n,
+    )
+    ks.timed(
+        "shard_gather",
+        lambda: K.shard_gather(*g_args),
+        lambda: K.plain_shard_gather(*g_args),
+        None,
+        12 * g_cap_total + 4 * n * (S + 2) + 4 * g_total,
+    )
+    # MV1's frontiers: 8 rows, each a root's out-neighbours
+    el = [A[f"sh:knows:el:{k}"] for k in ("src", "dst", "eid")]
+    ip = csr.indptr_out
+    fr = torch.zeros((8, vb), dtype=torch.bool, device=dev)
+    for c in range(8):
+        fr[c, torch.from_numpy(csr.dst[ip[c] : ip[c + 1]].astype(np.int64)).to(dev)] = True
+    gen = torch.Generator(device=dev).manual_seed(23)
+    emask = torch.rand(csr.num_edges, generator=gen, device=dev) < 0.7
+    gate = torch.rand(vb, generator=gen, device=dev) < 0.8
+    for a, e in ((el[0], el[1]), (el[1], el[0])):
+        for m, g in ((None, None), (emask, gate)):
+            ks.same("bitmap_hop_eid", K.bitmap_hop_eid(a, e, el[2], m, fr, g), K.plain_bitmap_hop_eid(a, e, el[2], m, fr, g))
+    slots = el[0].numel()
+    active = int((fr.any(0)[el[0].view(-1).clamp(min=0).long()] & (el[0].view(-1) >= 0)).sum())
+    ks.timed(
+        "bitmap_hop_eid",
+        lambda: K.bitmap_hop_eid(el[0], el[1], el[2], None, fr),
+        lambda: K.plain_bitmap_hop_eid(el[0], el[1], el[2], None, fr),
+        None,
+        4 * slots + 2 * fr.numel() + 4 * active,
+    )
+    # MQ2's weight pass: ok = age < 30 over the universe, w a weight vector
+    age = torch.from_numpy(msnap.v_columns["age"].values).to(dev)
+    ok = torch.zeros(vb, dtype=torch.bool, device=dev)
+    ok[:V] = age < 30
+    w_i = torch.randint(0, 40, (vb,), generator=gen, device=dev, dtype=torch.int32)
+    for m in (None, emask):
+        for w in (None, w_i):
+            got = K.shard_weight_pass(el[0], el[1], el[2], m, ok, w, torch.zeros(vb, dtype=torch.int32, device=dev))
+            want = K.plain_shard_weight_pass(el[0], el[1], el[2], m, ok, w, torch.zeros(vb, dtype=torch.int32, device=dev))
+            ks.same("shard_weight_pass", got, want)
+    w_f = w_i.float()
+    ks.same(
+        "shard_weight_pass",
+        K.shard_weight_pass(el[0], el[1], el[2], None, ok, w_f, torch.zeros(vb, device=dev)),
+        K.plain_shard_weight_pass(el[0], el[1], el[2], None, ok, w_f, torch.zeros(vb, device=dev)),
+        exact=False,
+    )
+    live = csr.num_edges
+    ks.timed(
+        "shard_weight_pass",
+        lambda: K.shard_weight_pass(el[0], el[1], el[2], None, ok, w_i, torch.zeros(vb, dtype=torch.int32, device=dev)),
+        lambda: K.plain_shard_weight_pass(el[0], el[1], el[2], None, ok, w_i, torch.zeros(vb, dtype=torch.int32, device=dev)),
+        None,
+        4 * slots + live * (4 + 1) + int(ok[el[1].view(-1).clamp(min=0).long()].sum()) * 4 + 8 * vb,
+    )
+    # MBFS's first hop: the roots of one replica block, [S, Q, R]
+    ind, dst = A["sh:knows:out:indptr"], A["sh:knows:out:nbr"]
+    R = ind.shape[1] - 1
+    qb = len(MBFS_ROOTS) // MBFS_REPLICAS
+    block = np.zeros((qb, S * R), bool)
+    block[:, :V] = roots[:qb]
+    f0 = torch.from_numpy(np.ascontiguousarray(block.reshape(qb, S, R).transpose(1, 0, 2))).to(dev)
+    ks.same("rowshard_hop", K.rowshard_hop(ind, dst, f0, S), K.plain_rowshard_hop(ind, dst, f0, S))
+    lit = [r for r in MBFS_ROOTS[:qb]]
+    lit_edges = int(sum(ip[r + 1] - ip[r] for r in lit))
+    ks.timed(
+        "rowshard_hop",
+        lambda: K.rowshard_hop(ind, dst, f0, S),
+        lambda: K.plain_rowshard_hop(ind, dst, f0, S),
+        None,
+        2 * f0.numel() + 8 * len(lit) + 4 * lit_edges,
+    )
+    K.LAUNCHES.update(counted)
+    print("mesh kernels: K2's range form, K22, K10's eid form, K23 and K24 equal their plain versions")
+
+
+def run_mesh_snb(np, torch, K, TE, sdb, ssnap, card, eref) -> dict:
+    """ME1: the config-5 COUNT at two :d values on B's twin on a 4-shard
+    mesh (the check `tools/dryrun.py:170-190` runs on the reference's
+    mesh), equal to numpy and to the single-device port. Returns its
+    launches."""
+    from orientdb_tpu_torch.ops.device_graph import device_graph
+    from orientdb_tpu_torch.parallel.sharded import make_mesh
+
+    t0 = time.perf_counter()
+    mdb, msnap = mesh_twin(sdb, ssnap, make_mesh(M_SHARDS))
+    mdg = device_graph(msnap, mdb.device)
+    torch.cuda.synchronize()
+    sh_bytes = sum(a.numel() * a.element_size() for k, a in mdg.arrays.items() if k.startswith("sh:"))
+    print(f"mesh B: sharded layout {sh_bytes} bytes, built and uploaded in {time.perf_counter() - t0:.1f} s")
+    K.reset_launches()
+    for p in ME1_PARAMS:
+        want = [{"n": eref.want("E1", p)}]
+        single = sdb.query(E1, p).to_dicts()
+        _require(single == want, f"E1 d={p['d']} {single} != numpy {want}")
+        single_ms = _single_ms(torch, sdb, E1, p)
+        TE._plan_cache(msnap).clear()
+        _mesh_cell(
+            np, torch, K, TE, mdb, msnap, f"ME1 d={p['d']}", E1, p,
+            lambda r, want=want: _require(r == want, f"ME1 {r} != numpy {want}"), single_ms, card,
+        )
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    print(f"mesh ME1 launches { {n: launches[n] for n in MESH_ONLY} }")
+    TE._plan_cache(msnap).clear()
+    del mdb, msnap, mdg
+    gc.collect()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3709,6 +4135,15 @@ def main() -> int:
     print(f"memory: peak allocated through the batch phase {b_peak} bytes")
     pk_peak = max(pk_peak, b_peak)
 
+    # 7m. the mesh: A's twin on a 4-shard mesh, while A is resident
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_launches = run_mesh(np, torch, K, TE, ks, db, snap, card, vref)
+    print(
+        f"mesh phase: {time.perf_counter() - t0:.1f} s; peak allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes"
+    )
+
     # 6. the SNB-shape graph of config 5, after freeing the Person–knows one
     TE._plan_cache(snap).clear()
     del db, snap, dg, q3_plan, vref, q3_big, gref
@@ -3775,6 +4210,9 @@ def main() -> int:
     e_launches, _e_plans = run_edges_replay(np, torch, K, sdb, ssnap, card, eref)
     print(f"replay phase E: {time.perf_counter() - t0:.1f} s")
     check_rows_with_matches(torch, K, ks, sdg)
+    t0 = time.perf_counter()
+    run_mesh_snb(np, torch, K, TE, sdb, ssnap, card, eref)
+    print(f"mesh phase B: {time.perf_counter() - t0:.1f} s")
 
     # 7b. batches on the SNB-shape graph
     t0 = time.perf_counter()
@@ -3797,6 +4235,8 @@ def main() -> int:
         launches[name] = delta_launches[name]
     for name in TIER_ONLY:
         launches[name] = tier_launches[name]
+    for name in MESH_ONLY:
+        launches[name] = mesh_launches[name]
     for name in REPLACES:
         launches[name] += tr_launches[name]
 

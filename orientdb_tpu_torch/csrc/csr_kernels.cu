@@ -2,15 +2,19 @@
 // compiled MATCH path, the bitmap BFS of variable-depth and NOT arms, the
 // result stage of a captured replay, the page of a batch's rows group, the
 // interpreter of a compiled WHERE program, the delta path (the in-place
-// patch scatter and the two append-slab expansions) and the tier plane's
-// paged hop, cold-miss flag and paged gather.
+// patch scatter and the two append-slab expansions), the tier plane's
+// paged hop, cold-miss flag and paged gather, and the mesh's per-shard
+// expansion totals and gather, edge-list hop, weight pass and row-sharded
+// BFS hop.
 // Port of the jitted functions of
 // orientdb_tpu/ops/csr.py (the OPTIONAL arm's rows_with_matches among them)
 // and of the level emission, level step, front-pack,
 // meta, page, group-page and slab-expansion functions of
 // orientdb_tpu/exec/tpu_engine.py and of DeviceGraph.apply_patches in
 // orientdb_tpu/ops/device_graph.py and of paged_hop / paged_hop_miss /
-// paged_expand in orientdb_tpu/storage/tiering.py; the wrappers
+// paged_expand in orientdb_tpu/storage/tiering.py and of the shard_map
+// kernels of orientdb_tpu/parallel/mesh_graph.py and
+// orientdb_tpu/parallel/sharded.py; the wrappers
 // are in orientdb_tpu_torch/ops/csr.py and bind these functions through
 // ctypes (orientdb_tpu_torch/ops/_kernels.py).
 //
@@ -1345,6 +1349,232 @@ __global__ void paged_expand_kernel(const int* __restrict__ indptr, long long nv
   eid_out[q] = out_dir ? edge_pos : (ns > 0 ? pool_eid[flat] : -1);
 }
 
+// ---------------------------------------------------------------------------
+// The mesh (orientdb_tpu/parallel/mesh_graph.py, orientdb_tpu/parallel/
+// sharded.py). A sharded array keeps the reference's host layout with a
+// leading [S_l, ...] axis (S_l the shards held by this process: all S in one
+// process, one a rank of a process group), and each kernel launches once
+// over every shard it holds. Where the reference merges shards with a
+// collective, these kernels write the merged result directly: rows at each
+// shard's global offset (disjoint), 1s into one bitmap, integer atomics into
+// one vector. A rank of a process group runs the same kernels at S_l = 1 on
+// a zeroed private buffer and merges with the collective (`plus_one` makes
+// K22's disjoint rows summable: value + 1, 0 elsewhere).
+// ---------------------------------------------------------------------------
+
+// K2 range form (replaces mesh_graph.expand_totals,
+// orientdb_tpu/parallel/mesh_graph.py:258). Grid (sources, shards): shard s
+// counts the out-degree of each source inside its row range [lo, hi), read
+// from `span` ([S_l, 2], the `sh:rowspan` rows) on the device, through its
+// rebased indptr row `ind + s * r1`; counts[s, i] is written and the shard's
+// total added into tots[s] (integer atomics a warp: exact). Bound: the
+// sources once a shard, two indptr reads an owned source, counts written.
+__global__ void degree_counts_range_kernel(const int* __restrict__ ind, long long r1,
+                                           const int* __restrict__ span,
+                                           const int* __restrict__ srcs, long long n,
+                                           int* __restrict__ counts,
+                                           unsigned* __restrict__ tots) {
+  const long long s = blockIdx.y;
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  unsigned c = 0;
+  if (i < n) {
+    const int lo = span[2 * s];
+    const int hi = span[2 * s + 1];
+    const int src = srcs[i];
+    const long long nv = r1 - 1;
+    if (src >= lo && src < hi && nv > 0) {
+      long long ls = static_cast<long long>(src) - lo;
+      if (ls > nv - 1) ls = nv - 1;
+      const int* row = ind + s * r1;
+      c = static_cast<unsigned>(row[ls + 1] - row[ls]);
+    }
+    counts[s * n + i] = static_cast<int>(c);
+  }
+  warp_count_add(c, tots + s);
+}
+
+// K22: shard_gather (replaces mesh_graph.expand_gather,
+// orientdb_tpu/parallel/mesh_graph.py:345). Output slot p of the merged
+// [cap_total] segment belongs to the shard s whose range [base_s, base_s +
+// min(tot_s, cap)) holds it, base_s the exclusive prefix of the global
+// totals `tots` ([S]; this process holds shards s0 .. s0 + S_l - 1). Within
+// the shard, q = p - base_s is found as in K2b: an upper-bound search over
+// the shard's row of `offsets` (the flat exclusive scan of K2's [S_l, n]
+// counts, rebased by its first element), then the rebased edge position
+// epos = ind[s][src - lo] + (q - off), the neighbour nbr[s][epos] and the
+// edge id epos + ebase[s] (out, extra is [S_l, 1]) or eid[s][epos] (in,
+// extra is [S_l, emax]). Slots of no shard are -1 (or 0 with `plus_one`,
+// which writes value + 1 elsewhere). The segment is shard-major, as the
+// reference's psum of disjoint rows leaves it; an empty shard owns no slot,
+// which is the reference's cond-skip decided on the device. Bound: three
+// int32 outputs a slot, the S totals, log2(n) offsets and four reads a live
+// slot. One thread a slot; the totals' prefix is computed per block in
+// shared memory (S <= 1024).
+__global__ void shard_gather_kernel(const int* __restrict__ ind, long long r1,
+                                    const int* __restrict__ nbr, long long emax,
+                                    const int* __restrict__ extra, long long extra_w,
+                                    const int* __restrict__ span,
+                                    const int* __restrict__ srcs, long long n,
+                                    const int* __restrict__ offsets,
+                                    const int* __restrict__ tots, long long n_shards,
+                                    long long s0, long long s_local, long long cap,
+                                    long long cap_total, int is_out, int plus_one,
+                                    int* __restrict__ row_out, int* __restrict__ eid_out,
+                                    int* __restrict__ nbr_out) {
+  __shared__ long long base[1025];
+  if (threadIdx.x == 0) {
+    long long acc = 0;
+    for (long long t = 0; t < n_shards; ++t) {
+      base[t] = acc;
+      acc += static_cast<long long>(tots[t]);
+    }
+    base[n_shards] = acc;
+  }
+  __syncthreads();
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= cap_total) return;
+  const int pad = plus_one ? 0 : -1;
+  long long sl = -1;
+  for (long long k = 0; k < s_local; ++k) {
+    const long long t = s0 + k;
+    long long lim = base[t + 1] - base[t];
+    if (lim > cap) lim = cap;
+    if (p >= base[t] && p < base[t] + lim) {
+      sl = k;
+      break;
+    }
+  }
+  if (sl < 0 || n == 0) {
+    row_out[p] = pad;
+    eid_out[p] = pad;
+    nbr_out[p] = pad;
+    return;
+  }
+  const long long q = p - base[s0 + sl];
+  const int* off = offsets + sl * n;
+  const long long row0 = off[0];
+  long long lo = 0, hi = n;  // first row whose offset is > q
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (static_cast<long long>(off[mid]) - row0 <= q) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const long long r = lo > 0 ? lo - 1 : 0;
+  const long long nv = r1 - 1;
+  long long ls = static_cast<long long>(srcs[r]) - span[2 * sl];
+  ls = ls < 0 ? 0 : (ls < nv ? ls : nv - 1);  // clip(src, 0, R-1)
+  const long long epos =
+      static_cast<long long>(ind[sl * r1 + ls]) + (q - (static_cast<long long>(off[r]) - row0));
+  long long c = epos < 0 ? 0 : (epos < emax ? epos : emax - 1);
+  const int nb = nbr[sl * emax + c];
+  int eid;
+  if (is_out) {
+    eid = static_cast<int>(epos) + extra[sl * extra_w];
+  } else {
+    eid = epos < 0 ? -1 : extra[sl * extra_w + c];
+  }
+  const int add = plus_one ? 1 : 0;
+  row_out[p] = static_cast<int>(r) + add;
+  eid_out[p] = eid + add;
+  nbr_out[p] = nb + add;
+}
+
+// K23: shard_weight_pass (replaces mesh_graph.sharded_weight_pass,
+// orientdb_tpu/parallel/mesh_graph.py:480). One fused pass over the edge-
+// list slots of every shard held: a slot with seg >= 0, emask[eid] (when a
+// mask is given; eid -1 reads False) and ok[emit] (take_pad: -1 reads
+// False, past the end the last) adds w[emit] (1 without w) into
+// out[clip(seg, 0, vb - 1)]. The reference clips seg the same way and masks
+// the -1 padding with seg >= 0, so no slot writes out of bounds. int32 adds
+// are integer atomics (exact, wrapping); the float32 twin's atomics add in
+// another order than the reference's segment_sum + psum. Bound: 12 bytes of
+// slots, the mask, ok and w at each slot, out read and written.
+template <typename T>
+__global__ void shard_weight_pass_kernel(const int* __restrict__ seg,
+                                         const int* __restrict__ emit,
+                                         const int* __restrict__ eid, long long ns,
+                                         const unsigned char* __restrict__ emask, long long ne,
+                                         const unsigned char* __restrict__ ok,
+                                         const T* __restrict__ w, long long vb,
+                                         T* __restrict__ out) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; j < ns;
+       j += stride) {
+    const int sg = seg[j];
+    if (sg < 0) continue;
+    if (emask != nullptr) {
+      const int e = eid[j];
+      if (e < 0 || ne <= 0 || !emask[e < ne ? e : ne - 1]) continue;
+    }
+    const int m = emit[j];
+    if (m < 0) continue;
+    const long long mc = m < vb ? m : vb - 1;
+    if (!ok[mc]) continue;
+    const T v = w != nullptr ? w[mc] : T(1);
+    const long long dst = sg < vb ? sg : vb - 1;
+    atomicAdd(out + dst, v);
+  }
+}
+
+// K24: rowshard_hop (replaces the hop of sharded.build_bfs_step,
+// orientdb_tpu/parallel/sharded.py:202-257). Row-sharded multi-source BFS:
+// shard s holds rows [s R, (s+1) R) of the out-CSR (rebased indptr [S_l,
+// R+1], dst [S_l, e_max]) and its [Q, R] slice of the frontier; an edge of a
+// lit row r reaching d sets out[d / R, q, d % R] for every query q lit at r
+// (out is [S, Q, R], shard-major, so a process group's reduce-scatter hands
+// each rank its own slice). Edges past indptr[R] or with d < 0 are the
+// reference's dead padding (edge_live); d clips to [0, S R - 1] as dst_c
+// does. Design: a warp per local row (no [e_max] source array, where the
+// reference derives each edge's row by searchsorted), the lit queries of a
+// row as a ballot mask of 32, the row's edges strided over the lanes;
+// stores are only 1s, no atomics. Bound: the frontier read once, 8 bytes of
+// indptr and 4 of dst a lit row's edge, out written once.
+__global__ void rowshard_hop_kernel(const int* __restrict__ indptr, long long r,
+                                    const int* __restrict__ dst, long long emax,
+                                    const unsigned char* __restrict__ frontier,
+                                    long long s_local, long long q, long long v_pad,
+                                    unsigned char* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * kWarps;
+  const long long rows = s_local * r;
+  for (long long g = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+       g < rows; g += warps) {
+    const long long sl = g / r;
+    const long long row = g - sl * r;
+    const unsigned char* fr = frontier + sl * q * r + row;
+    const int* ip = indptr + sl * (r + 1);
+    long long b = -1, e = -1;
+    for (long long q0 = 0; q0 < q; q0 += 32) {
+      const unsigned bits = __ballot_sync(kFull, q0 + lane < q && fr[(q0 + lane) * r] != 0);
+      if (bits == 0) continue;
+      if (b < 0) {
+        long long lim = ip[r];
+        if (lim > emax) lim = emax;
+        b = ip[row];
+        e = ip[row + 1];
+        if (b < 0) b = 0;
+        if (e > lim) e = lim;
+      }
+      for (long long i = b + lane; i < e; i += 32) {
+        long long d = dst[sl * emax + i];
+        if (d < 0) continue;
+        if (d > v_pad - 1) d = v_pad - 1;
+        const long long t = d / r;
+        const long long c = d - t * r;
+        unsigned m = bits;
+        while (m) {
+          const long long k = __ffs(m) - 1;
+          m &= m - 1;
+          out[(t * q + q0 + k) * r + c] = 1;
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1809,6 +2039,109 @@ int csr_paged_expand(const void* indptr, long long nv, const void* srcs, const v
         static_cast<const int*>(pool_eid), ns, wp, out_dir, static_cast<int*>(row_out),
         static_cast<int*>(eid_out), static_cast<int*>(nbr_out),
         static_cast<unsigned char*>(flag));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 range form. `tots` ([S_l] int32) is zeroed here; `counts` is [S_l, n].
+int csr_degree_counts_range(const void* ind, long long r1, const void* span, const void* srcs,
+                            long long n, long long s_local, void* counts, void* tots,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (s_local <= 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaMemsetAsync(tots, 0, static_cast<size_t>(s_local) * sizeof(int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n > 0) {
+    degree_counts_range_kernel<<<dim3(blocks_for(n, kThreads), static_cast<unsigned>(s_local)),
+                                 kThreads, 0, s>>>(
+        static_cast<const int*>(ind), r1, static_cast<const int*>(span),
+        static_cast<const int*>(srcs), n, static_cast<int*>(counts),
+        static_cast<unsigned*>(tots));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K22. `tots` holds the totals of all `n_shards` shards; this process holds
+// shards s0 .. s0 + s_local - 1 (the leading axis of ind, nbr, extra, span
+// and offsets). At most 1024 shards.
+int csr_shard_gather(const void* ind, long long r1, const void* nbr, long long emax,
+                     const void* extra, long long extra_w, const void* span, const void* srcs,
+                     long long n, const void* offsets, const void* tots, long long n_shards,
+                     long long s0, long long s_local, long long cap, long long cap_total,
+                     int is_out, int plus_one, void* row_out, void* eid_out, void* nbr_out,
+                     void* stream) {
+  if (n_shards > 1024 || s0 < 0 || s0 + s_local > n_shards) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (cap_total > 0) {
+    shard_gather_kernel<<<blocks_for(cap_total, kThreads), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(ind), r1, static_cast<const int*>(nbr), emax,
+        static_cast<const int*>(extra), extra_w, static_cast<const int*>(span),
+        static_cast<const int*>(srcs), n, static_cast<const int*>(offsets),
+        static_cast<const int*>(tots), n_shards, s0, s_local, cap, cap_total, is_out, plus_one,
+        static_cast<int*>(row_out), static_cast<int*>(eid_out), static_cast<int*>(nbr_out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10's eid form (the mesh hop over edge-list slices): K19's slot kernel,
+// with act as the owner row, emit as the neighbour and the mask read
+// through eid. Arguments as for csr_paged_hop.
+int csr_bitmap_hop_eid(const void* act, const void* emit, const void* eid, long long ns,
+                       const void* emask, long long ne, const void* frontier, const void* gate,
+                       long long c, long long vb, const void* alive, int zero_out, void* out,
+                       void* stream) {
+  return csr_paged_hop(act, emit, eid, ns, emask, ne, frontier, gate, c, vb, alive, zero_out,
+                       out, stream);
+}
+
+// K23. `emask` and `w` may be null (every edge / weight 1); `out` ([vb])
+// accumulates.
+int csr_shard_weight_pass_i32(const void* seg, const void* emit, const void* eid, long long ns,
+                              const void* emask, long long ne, const void* ok, const void* w,
+                              long long vb, void* out, void* stream) {
+  if (ns > 0 && vb > 0) {
+    shard_weight_pass_kernel<int><<<grid_for(ns, 1), kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(seg), static_cast<const int*>(emit),
+        static_cast<const int*>(eid), ns, static_cast<const unsigned char*>(emask), ne,
+        static_cast<const unsigned char*>(ok), static_cast<const int*>(w), vb,
+        static_cast<int*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int csr_shard_weight_pass_f32(const void* seg, const void* emit, const void* eid, long long ns,
+                              const void* emask, long long ne, const void* ok, const void* w,
+                              long long vb, void* out, void* stream) {
+  if (ns > 0 && vb > 0) {
+    shard_weight_pass_kernel<float><<<grid_for(ns, 1), kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(seg), static_cast<const int*>(emit),
+        static_cast<const int*>(eid), ns, static_cast<const unsigned char*>(emask), ne,
+        static_cast<const unsigned char*>(ok), static_cast<const float*>(w), vb,
+        static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K24. `frontier` is [s_local, q, r]; `out` is [n_shards, q, r], zeroed
+// here first when `zero_out` is set.
+int csr_rowshard_hop(const void* indptr, long long r, const void* dst, long long emax,
+                     const void* frontier, long long s_local, long long q, long long n_shards,
+                     int zero_out, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n_out = n_shards * q * r;
+  if (zero_out && n_out > 0) {
+    cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(n_out), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (s_local > 0 && q > 0 && r > 0 && emax > 0) {
+    rowshard_hop_kernel<<<grid_for(s_local * r * 32, 1), kThreads, 0, s>>>(
+        static_cast<const int*>(indptr), r, static_cast<const int*>(dst), emax,
+        static_cast<const unsigned char*>(frontier), s_local, q, n_shards * r,
+        static_cast<unsigned char*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,6 +34,13 @@ As in the reference:
   prefetches and pins; a replay's cold-miss flags (K21's, K20
   `paged_hop_miss`) join its overflow flag, and a pool that grew into new
   tensors sends the plans captured before it back to a re-record;
+- on a snapshot attached with a mesh (`parallel/`), an expansion is the
+  shards' K2 range-form totals then K22 `shard_gather` (no chunking), a
+  bitmap hop K10's eid form over the edge-list slices, a COUNT weight pass
+  K23 `shard_weight_pass`, and an endpoint step reads the sharded edge list;
+  a plan over `LocalShards` captures as any other, one over `ProcessShards`
+  replays uncaptured (its merges are collectives), and mesh plans replay
+  one by one in a batch;
 - rows marshal through the reference's columnar fast path and the
   DISTINCT / ORDER BY / SKIP / LIMIT tail; a vertex alias's record
   renders as its RID (``p``, ``p.@rid``), and ``$elements`` and a
@@ -112,6 +119,7 @@ from orientdb_tpu_torch.ops.predicates import (
     valid_term,
 )
 from orientdb_tpu_torch.ops.replay_stream import REPLAY_LOCK, on_replay_stream, replay_resources
+from orientdb_tpu_torch.parallel import mesh_graph as MG
 from orientdb_tpu_torch.sql import ast as A
 from orientdb_tpu_torch.storage import tiering
 from orientdb_tpu_torch.utils.config import config
@@ -447,9 +455,24 @@ def build_bitmap_hops(dg: DeviceGraph, items, sched: SizeSchedule, tier=None, to
     blocks are faulted in first (into ``touched``, the plan's footprint);
     on a replay K20 `paged_hop_miss` raises the cold-miss flag into
     ``sched``. Both read the pools from ``dg.arrays`` at the hop, so a
-    recording after a pool grew reads the new tensors."""
+    recording after a pool grew reads the new tensors.
+
+    On a meshed snapshot every hop runs over the class's sharded edge list
+    (`mesh_graph.sharded_bitmap_hop`, K10's eid form): an out hop activates
+    on ``el:src`` and emits ``el:dst``, the mask read through ``el:eid``."""
+    mg = dg.mesh_graph
     hops = []
     for cname, d, emask in items:
+        if mg is not None:
+            p = mg.edge[cname].prefix
+            src_sh, dst_sh, eid_sh = (dg.arrays[f"{p}:el:{k}"] for k in ("src", "dst", "eid"))
+            a_sh, e_sh = (src_sh, dst_sh) if d == "out" else (dst_sh, src_sh)
+            hops.append(
+                lambda fr, gate=None, alive=None, out=None, a=a_sh, em=e_sh, i=eid_sh, m=emask: (
+                    MG.sharded_bitmap_hop(mg.mesh, a, em, i, m, fr, gate, alive, out)
+                )
+            )
+            continue
         if tier is not None and tier.pages_dir(cname, d):
 
             def paged(fr, gate=None, alive=None, out=None, cname=cname, d=d, emask=emask):
@@ -911,7 +934,10 @@ class TpuMatchSolver:
         ``(row, eid, nbr, total)``, but when the output would exceed
         config.max_expansion_cap rows, the binding table splits into
         contiguous row ranges expanded separately, so buffers stay bounded
-        however large the fan-out."""
+        however large the fan-out. A meshed snapshot never chunks, as in
+        the reference."""
+        if self.dg.mesh_graph is not None:
+            return [self._expand_one_dir(dec, d, srcs)]
         cap = max(1, config.max_expansion_cap)
         indptr = dec.indptr_out if d == "out" else dec.indptr_in
         # free: it picks the chunking; each chunk's own observe checks growth
@@ -948,11 +974,36 @@ class TpuMatchSolver:
         self.sched.note_flag(cold)
         return row, eid, nbr, total
 
+    def _expand_sharded(self, dec, d: str, srcs):
+        """The expansion of one (class, direction) over the mesh: the
+        shards' totals (K2's range form), the largest sizing each shard's
+        block and their sum the merged segment (both recorded, so that a
+        replay that outgrows either raises the overflow flag), then K22
+        places every shard's rows at its global offset. The segment is in
+        shard-major order, as the reference's merge leaves it."""
+        mg = self.dg.mesh_graph
+        arrays = self.dg.arrays
+        p = mg.edge[dec.class_name].prefix
+        ind_sh = arrays[f"{p}:{d}:indptr"]
+        nbr_sh = arrays[f"{p}:{d}:nbr"]
+        span = arrays["sh:rowspan"]
+        extra = arrays[f"{p}:out:ebase"] if d == "out" else arrays[f"{p}:in:eid"]
+        tots = MG.expand_totals(mg.mesh, ind_sh, span, srcs)
+        total = self.sched.observe(K.value_sum(tots))
+        max_local = self.sched.observe(tots.max())
+        row, eid, nbr = MG.expand_gather(
+            mg.mesh, ind_sh, nbr_sh, extra, span, srcs,
+            _cap_of(max(max_local, 1)), _cap_of(max(total, 1)), d == "out",
+        )
+        return row, eid, nbr, total
+
     def _expand_one_dir(self, dec, d: str, srcs):
         """One (edge class, direction) expansion → (row, edge id in out
         order, neighbor, host total): an in-walk maps its CSR position
         through the class's ``edge_id_in``; a paged one reads the tier's
-        pool (`_expand_paged`)."""
+        pool (`_expand_paged`); a meshed one the shards (`_expand_sharded`)."""
+        if self.dg.mesh_graph is not None:
+            return self._expand_sharded(dec, d, srcs)
         if self.tier is not None and self.tier.pages_dir(dec.class_name, d):
             return self._expand_paged(dec, d, srcs)
         if d == "out":
@@ -1170,9 +1221,11 @@ class TpuMatchSolver:
         dst_alias = step.edge.from_alias if step.reverse else step.edge.to_alias
         node_mask = self._node_masks[dst_alias]
         classes = self._resolve_edge_classes(item)
+        mg = self.dg.mesh_graph
+        # the mesh's weight passes always read the [vb] node vector
         ok_vec = (
             self._vertex_vec(node_mask)
-            if any(self.dg.edges[c].num_edges >= vb for c in classes)
+            if mg is not None or any(self.dg.edges[c].num_edges >= vb for c in classes)
             else None
         )
         f = item.edge_filter
@@ -1184,6 +1237,17 @@ class TpuMatchSolver:
                 continue
             emask = self._edge_mask(cname, f.where if f is not None else None)
             for d in ("out", "in") if direction == "both" else (direction,):
+                if mg is not None:
+                    # K23 over the sharded edge list: an out walk sums at
+                    # the source and weighs the target, an in walk the
+                    # reverse; the mask is read through the slices' eid
+                    p = mg.edge[cname].prefix
+                    src_sh, dst_sh, eid_sh = (
+                        self.dg.arrays[f"{p}:el:{k}"] for k in ("src", "dst", "eid")
+                    )
+                    seg_sh, emit_sh = (src_sh, dst_sh) if d == "out" else (dst_sh, src_sh)
+                    MG.sharded_weight_pass(mg.mesh, seg_sh, emit_sh, eid_sh, emask, ok_vec, w, new_w)
+                    continue
                 # both CSR orders are on the device, so either direction
                 # sums per vertex with indptr_segment_sum; the in walk
                 # reads the out-order edge mask through edge_id_in
@@ -1505,7 +1569,8 @@ class TpuMatchSolver:
         """``.outV()/.inV()/.bothV()`` from a bound edge alias to its
         endpoint vertex: a 1:1 (1:2 for bothV) gather per row through the
         edge columns, ``edge_src`` for the source and ``dst`` for the
-        target, no fan-out."""
+        target (on a mesh the sharded edge list's ``el:src`` / ``el:dst``),
+        no fan-out."""
         e = step.edge
         if step.reverse:
             raise Uncompilable("reverse endpoint arm")
@@ -1529,8 +1594,14 @@ class TpuMatchSolver:
                 dec = self.dg.edges[cname]
                 if dec.num_edges == 0:
                     continue
-                arr = dec.edge_src if kind == "src" else dec.dst
-                g = K.take_pad(arr, torch.where(ci == k, eid, -1), -1)
+                ids = torch.where(ci == k, eid, -1)
+                mg = self.dg.mesh_graph
+                if mg is not None:
+                    key = f"{mg.edge[cname].prefix}:el:{'src' if kind == 'src' else 'dst'}"
+                    g = MG.edge_endpoint(mg.mesh, self.dg.arrays[key], ids)
+                else:
+                    arr = dec.edge_src if kind == "src" else dec.dst
+                    g = K.take_pad(arr, ids, -1)
                 cand = torch.where(ci == k, g, cand)
             mask = live & (cand >= 0) & node_mask(cand, env)
             if step.close:
@@ -2475,9 +2546,8 @@ class _CompiledPlan:
         elects ONE compact page for all of them after the meta wave). A
         tiered plan is not: each dispatch prefetches and pins its own
         footprint, so its batch items replay one by one, as the reference
-        excludes them. The reference's mesh exclusion has no counterpart:
-        the port has no mesh yet."""
-        if self.solver.tier is not None:
+        excludes them; so is a mesh plan, as in the reference."""
+        if self.solver.tier is not None or self.solver.dg.mesh_graph is not None:
             return False
         return not self._rows_grouped() or 4 * self.width * self.ncols <= config.result_group_lane_bytes
 
@@ -2671,7 +2741,7 @@ class _CompiledPlan:
         if self.solver.tier is not None:
             self.tier_gen = self.solver.tier.generation
         self._params_dev = torch.zeros(max(len(self.dyn_spec), 1), dtype=I32, device=dev)
-        if dev.type != "cuda":
+        if not self._captures():
             self._upload(self._dyn_args(None))
             return
         pool, stream = replay_resources(dev)
@@ -2694,6 +2764,12 @@ class _CompiledPlan:
         self.launches = {k: n for k, n in recorded.items() if n}
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.reserved_bytes = torch.cuda.memory_reserved(dev)
+
+    def _captures(self) -> bool:
+        """Whether the plan replays as a captured graph: on a card, unless
+        its mesh merges through a process group's collectives."""
+        mg = self.solver.dg.mesh_graph
+        return self.solver.device.type == "cuda" and (mg is None or not mg.mesh.collective)
 
     def _outputs_to_fetch(self, out: Dict, keep_pages: bool) -> List[torch.Tensor]:
         # the lone-query path ships the full int32 page; a batch item ships
@@ -2727,23 +2803,29 @@ class _CompiledPlan:
         t0 = time.perf_counter()
         host_params = self._dyn_args(params)
         dev = self.solver.device
-        if self.graph is None and dev.type == "cuda":
+        if self.graph is None and self._captures():
             raise RuntimeError("dispatch of a plan that was never captured")
         with REPLAY_LOCK:
             pinned = self._pin()
             try:
-                if self.graph is None:
+                if dev.type != "cuda":
                     self._upload(host_params)
                     t1 = time.perf_counter()
                     out = self._replay()
                 else:
+                    # on the replay stream, where the copies to the host
+                    # queue behind it (an uncaptured replay too: a plan
+                    # whose mesh merges through a process group)
                     _pool, stream = replay_resources(dev)
                     stream.wait_stream(torch.cuda.current_stream(dev))
                     with torch.cuda.stream(stream):
                         self._upload(host_params)
                         t1 = time.perf_counter()
-                        self.graph.replay()
-                    out = self.out
+                        if self.graph is None:
+                            out = self._replay()
+                        else:
+                            self.graph.replay()
+                            out = self.out
                 with on_replay_stream(dev):
                     fetch = _to_host(self._outputs_to_fetch(out, keep_pages))
                     if keep_pages:
@@ -2907,7 +2989,7 @@ class _CompiledTraverse(_CompiledPlan):
         _check_traverse_static(self.solver)
 
     def batchable(self) -> bool:
-        return self.solver.tier is None
+        return self.solver.tier is None and self.solver.dg.mesh_graph is None
 
     def materialize(self, meta: np.ndarray, data: Optional[np.ndarray], params: Optional[Dict] = None):
         if int(meta[1]):

@@ -44,12 +44,23 @@ class Database:
         self.schema = Schema()
         self._snapshot = None
 
-    def attach_snapshot(self, snapshot) -> None:
-        """Attach a snapshot; with ``config.tier_hbm_cap_bytes`` set and the
-        snapshot's adjacency above it, admit it to the tier plane before its
-        device graph is built (`storage/tiering.maybe_tier_snapshot`)."""
+    def attach_snapshot(self, snapshot, mesh=None) -> None:
+        """Attach a snapshot; with ``mesh`` (`parallel/sharded.make_mesh`)
+        its device graph shards the adjacency over the mesh's shards, which
+        every compiled MATCH and TRAVERSE then runs through. With
+        ``config.tier_hbm_cap_bytes`` set and the snapshot's adjacency above
+        it, admit it to the tier plane before its device graph is built
+        (`storage/tiering.maybe_tier_snapshot`, which refuses a mesh). Both
+        must come before the snapshot's first device upload."""
+        from orientdb_tpu_torch.ops.device_graph import cached_device_graph
         from orientdb_tpu_torch.storage.tiering import maybe_tier_snapshot
 
+        if mesh is not None:
+            if mesh.device != self.device:
+                raise ValueError(f"the mesh lives on {mesh.device}, the database on {self.device}")
+            if cached_device_graph(snapshot) is not None:
+                raise ValueError("attach the mesh before the snapshot's first device upload")
+            snapshot._mesh = mesh
         maybe_tier_snapshot(snapshot)
         self._snapshot = snapshot
 

@@ -70,6 +70,14 @@ SIGNATURES = {
     "csr_paged_expand": [
         _P, _N, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P, _P, _N, _N, _I, _P, _P, _P, _P, _P
     ],
+    "csr_degree_counts_range": [_P, _N, _P, _P, _N, _N, _P, _P, _P],
+    "csr_shard_gather": [
+        _P, _N, _P, _N, _P, _N, _P, _P, _N, _P, _P, _N, _N, _N, _N, _N, _I, _I, _P, _P, _P, _P
+    ],
+    "csr_bitmap_hop_eid": [_P, _P, _P, _N, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
+    "csr_shard_weight_pass_i32": [_P, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P],
+    "csr_shard_weight_pass_f32": [_P, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P],
+    "csr_rowshard_hop": [_P, _N, _P, _N, _P, _N, _N, _N, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,9 @@ the in-place patch scatter of `ops/device_graph.DeviceGraph.apply_patches`
 (`scatter_set`) and the append-slab expansions of a delta-maintained
 snapshot (`slab_scan`, `slab_probe`), and the paged reads of a tiered
 snapshot (`paged_hop`, `paged_hop_miss`, `paged_expand`, over the page
-pools of `storage/tiering`), each as a wrapper over a hand-written
+pools of `storage/tiering`), and the mesh's per-shard kernels
+(`degree_counts_range`, `shard_gather`, `bitmap_hop_eid`,
+`shard_weight_pass`, `rowshard_hop`, for `parallel/`), each as a wrapper over a hand-written
 CUDA kernel (`csrc/csr_kernels.cu`) beside its plain PyTorch version.
 
 A wrapper checks dtype, contiguity and device, then:
@@ -73,6 +75,11 @@ LAUNCHES: Dict[str, int] = {
         "paged_hop",
         "paged_hop_miss",
         "paged_expand",
+        "degree_counts_range",
+        "shard_gather",
+        "bitmap_hop_eid",
+        "shard_weight_pass",
+        "rowshard_hop",
     )
 }
 
@@ -1722,3 +1729,396 @@ def paged_expand(
         _stream(srcs),
     )
     return row, eid, nbr, cold
+
+
+# ---------------------------------------------------------------------------
+# The mesh (`parallel/mesh_graph.py`, `parallel/sharded.py`): K2's range
+# form, K22 `shard_gather`, K10's eid form, K23 `shard_weight_pass`, K24
+# `rowshard_hop`. A sharded tensor has a leading axis over the S_l shards
+# this process holds (all S in one process, one a rank of a process group);
+# each wrapper launches one kernel over all of them.
+# ---------------------------------------------------------------------------
+
+
+def _check_sharded(t: torch.Tensor, what: str, dtypes=(I32,)) -> None:
+    """A sharded int32 array: [S_l, W], contiguous."""
+    if t.dtype not in dtypes or t.dim() != 2 or not t.is_contiguous():
+        raise TypeError(f"{what}: expected a contiguous [S_l, W] tensor of {dtypes}")
+
+
+def plain_degree_counts_range(ind_sh: torch.Tensor, span: torch.Tensor, srcs: torch.Tensor):
+    """The reference's per-shard count (`mesh_graph.expand_totals` body):
+    each shard's sources are those inside its ``span`` row range, rebased,
+    others -1 (count 0)."""
+    rows = []
+    for s in range(ind_sh.shape[0]):
+        lo, hi = span[s, 0], span[s, 1]
+        ls = torch.where((srcs >= lo) & (srcs < hi), srcs - lo, -1).to(I32)
+        rows.append(plain_degree_counts(ind_sh[s], ls))
+    counts = (
+        torch.stack(rows)
+        if rows
+        else torch.zeros((0, srcs.shape[0]), dtype=I32, device=srcs.device)
+    )
+    return counts, counts.sum(1, dtype=I32)
+
+
+def degree_counts_range(ind_sh: torch.Tensor, span: torch.Tensor, srcs: torch.Tensor):
+    """K2's range form: for each shard s held, ``counts[s, i]`` is the out-
+    degree of ``srcs[i]`` in shard s's rebased indptr row when ``span[s, 0]
+    <= srcs[i] < span[s, 1]`` (the shard owns it), else 0; ``tots[s]`` is
+    the row's sum. ``ind_sh`` int32 [S_l, R+1], ``span`` int32 [S_l, 2],
+    ``srcs`` int32 [n]. Returns (counts [S_l, n], tots [S_l])."""
+    _check_sharded(ind_sh, "degree_counts_range ind_sh")
+    _check_sharded(span, "degree_counts_range span")
+    _check(srcs, (I32,), "degree_counts_range srcs")
+    if span.shape != (ind_sh.shape[0], 2):
+        raise ValueError("degree_counts_range: span must be [S_l, 2]")
+    if not _on_card(ind_sh, span, srcs):
+        return plain_degree_counts_range(ind_sh, span, srcs)
+    lib = _kernels.load()
+    S_l, n = ind_sh.shape[0], srcs.shape[0]
+    counts = torch.empty((S_l, n), dtype=I32, device=srcs.device)
+    tots = torch.empty(S_l, dtype=I32, device=srcs.device)
+    _launch(
+        "degree_counts_range",
+        lib.csr_degree_counts_range,
+        ind_sh.data_ptr(),
+        ind_sh.shape[1],
+        span.data_ptr(),
+        srcs.data_ptr(),
+        n,
+        S_l,
+        counts.data_ptr(),
+        tots.data_ptr(),
+        _stream(srcs),
+    )
+    return counts, tots
+
+
+def plain_shard_gather(
+    ind_sh, nbr_sh, extra_sh, span, srcs, offsets, tots, s0: int, cap: int, cap_total: int,
+    is_out: bool, plus_one: bool = False,
+):
+    """The reference's `expand_gather` body, shard by shard: count, scan and
+    `gather_expand` at ``cap``, the edge id (``epos + ebase``, or the in
+    CSR's ``eid`` row), then the live rows scattered at the shard's global
+    offset (the exclusive prefix of ``tots``) shifted by one, positions at
+    or past ``cap_total`` dropped. The sum of the shards' segments, minus
+    one (or as it is with ``plus_one``, for a collective to add). The
+    ``offsets`` the kernel searches are derived again here, as the
+    reference derives them."""
+    dev = srcs.device
+    seg = torch.zeros((3, cap_total), dtype=I32, device=dev)
+    before = torch.cumsum(tots, 0, dtype=I32) - tots
+    counts, _ = plain_degree_counts_range(ind_sh, span, srcs)
+    for s in range(ind_sh.shape[0]):
+        lo = span[s, 0]
+        ls = torch.where((srcs >= lo) & (srcs < span[s, 1]), srcs - lo, -1).to(I32)
+        tot = counts[s].sum(dtype=I32)
+        if int(tot) == 0:
+            continue  # the reference's cond-skip: nothing to place
+        offs = plain_cumsum(counts[s], exclusive=True)
+        row, epos, nbr = plain_gather_expand(ind_sh[s], nbr_sh[s], ls, offs, tot, cap)
+        if is_out:
+            eid = torch.where(epos >= 0, epos + extra_sh[s, 0], -1).to(I32)
+        else:
+            eid = plain_take_pad(extra_sh[s], epos, -1)
+        pos = torch.arange(cap, dtype=I32, device=dev)
+        dest = torch.where(pos < tot, pos + before[s0 + s], cap_total).long()
+        keep = dest < cap_total
+        for k, v in enumerate((row, eid, nbr)):
+            seg[k].index_add_(0, dest[keep], (v + 1)[keep])
+    if not plus_one:
+        seg -= 1
+    return seg[0], seg[1], seg[2]
+
+
+def shard_gather(
+    ind_sh: torch.Tensor,
+    nbr_sh: torch.Tensor,
+    extra_sh: torch.Tensor,
+    span: torch.Tensor,
+    srcs: torch.Tensor,
+    offsets: torch.Tensor,
+    tots: torch.Tensor,
+    s0: int,
+    cap: int,
+    cap_total: int,
+    is_out: bool,
+    plus_one: bool = False,
+):
+    """K22: the sharded CSR expansion's merged segment. Each shard s held
+    (global index ``s0 + s``) expands the sources it owns (`degree_counts_
+    range`) into at most ``cap`` rows and places them, front-packed, at its
+    global offset (the exclusive prefix of ``tots``, int32 [S], every
+    shard's total) in the ``[cap_total]`` segment; slots past a shard's rows
+    and past the last are -1. ``offsets`` int32 [S_l * n] is the flat
+    exclusive scan of K2's range-form counts. ``extra_sh`` is the shard's
+    edge-id base ([S_l, 1], ``is_out``) or its in-CSR edge ids ([S_l,
+    emax]). Returns (row, eid, nbr), int32 [cap_total] each, in shard-major
+    order. With ``plus_one`` (a rank of a process group) the values are
+    shifted by one and the slots of other shards 0, so that the ranks'
+    segments sum to the merged one plus one."""
+    for t, what in ((ind_sh, "ind_sh"), (nbr_sh, "nbr_sh"), (extra_sh, "extra_sh"), (span, "span")):
+        _check_sharded(t, f"shard_gather {what}")
+    _check(srcs, (I32,), "shard_gather srcs")
+    _check(offsets, (I32,), "shard_gather offsets")
+    _check(tots, (I32,), "shard_gather tots")
+    S_l, n = ind_sh.shape[0], srcs.shape[0]
+    if offsets.shape[0] != S_l * n:
+        raise ValueError("shard_gather: offsets must hold S_l * n entries")
+    if not (0 <= s0 and s0 + S_l <= tots.shape[0] <= 1024):
+        raise ValueError("shard_gather: shards outside the totals (at most 1024 shards)")
+    if not _on_card(ind_sh, nbr_sh, extra_sh, span, srcs, offsets, tots):
+        return plain_shard_gather(
+            ind_sh, nbr_sh, extra_sh, span, srcs, offsets, tots, s0, cap, cap_total, is_out,
+            plus_one,
+        )
+    lib = _kernels.load()
+    row = torch.empty(cap_total, dtype=I32, device=srcs.device)
+    eid, nbr = torch.empty_like(row), torch.empty_like(row)
+    _launch(
+        "shard_gather",
+        lib.csr_shard_gather,
+        ind_sh.data_ptr(),
+        ind_sh.shape[1],
+        nbr_sh.data_ptr(),
+        nbr_sh.shape[1],
+        extra_sh.data_ptr(),
+        extra_sh.shape[1],
+        span.data_ptr(),
+        srcs.data_ptr(),
+        n,
+        offsets.data_ptr(),
+        tots.data_ptr(),
+        tots.shape[0],
+        s0,
+        S_l,
+        cap,
+        cap_total,
+        int(bool(is_out)),
+        int(bool(plus_one)),
+        row.data_ptr(),
+        eid.data_ptr(),
+        nbr.data_ptr(),
+        _stream(srcs),
+    )
+    return row, eid, nbr
+
+
+def plain_bitmap_hop_eid(act, emit, eid, emask, frontier, gate=None, alive=None) -> torch.Tensor:
+    """The reference's shard hop (`sharded_bitmap_hop` body): slots count
+    where ``act >= 0`` and ``take_pad(emask, eid, False)``, then
+    `plain_bitmap_hop` (K19's plain version over the flat slots)."""
+    return plain_paged_hop(act, emit, eid, emask, frontier, gate, alive)
+
+
+def bitmap_hop_eid(
+    act: torch.Tensor,
+    emit: torch.Tensor,
+    eid: torch.Tensor,
+    emask: Optional[torch.Tensor],
+    frontier: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K10's eid form: one frontier hop over the edge-list slices of every
+    shard held (``act`` / ``emit`` / ``eid`` int32 [S_l, W], -1 padded):
+    ``out[c, emit[s]] |= frontier[c, act[s]]`` for the slots with ``act[s]
+    >= 0`` and, with ``emask`` (bool [E] in out order), ``emask[eid[s]]``.
+    ``gate``, ``alive`` and ``out`` as for `bitmap_hop`: the shards' hops
+    OR into one bitmap."""
+    for t, what in ((act, "act"), (emit, "emit"), (eid, "eid")):
+        _check_sharded(t, f"bitmap_hop_eid {what}")
+    if emit.shape != act.shape or eid.shape != act.shape:
+        raise ValueError("bitmap_hop_eid: act, emit and eid differ in shape")
+    _check2d(frontier, (B8,), "bitmap_hop_eid frontier")
+    C, vb = frontier.shape
+    opt = []
+    if emask is not None:
+        _check(emask, (B8,), "bitmap_hop_eid emask")
+        opt.append(emask)
+    if gate is not None:
+        _check(gate, (B8,), "bitmap_hop_eid gate")
+        if gate.shape[0] != vb:
+            raise ValueError("bitmap_hop_eid: gate and the frontier differ in width")
+        opt.append(gate)
+    if alive is not None:
+        _check_scalar(alive, "bitmap_hop_eid alive")
+        opt.append(alive)
+    if out is not None:
+        _check_out(out, (C, vb), B8, "bitmap_hop_eid")
+        opt.append(out)
+    if not _on_card(act, emit, eid, frontier, *opt):
+        hop = plain_bitmap_hop_eid(act, emit, eid, emask, frontier, gate, alive)
+        if out is None:
+            return hop
+        out |= hop
+        return out
+    lib = _kernels.load()
+    zero = out is None
+    if zero:
+        out = torch.empty((C, vb), dtype=B8, device=frontier.device)
+    _launch(
+        "bitmap_hop_eid",
+        lib.csr_bitmap_hop_eid,
+        act.data_ptr(),
+        emit.data_ptr(),
+        eid.data_ptr(),
+        act.numel(),
+        None if emask is None else emask.data_ptr(),
+        0 if emask is None else emask.shape[0],
+        frontier.data_ptr(),
+        None if gate is None else gate.data_ptr(),
+        C,
+        vb,
+        None if alive is None else alive.data_ptr(),
+        int(zero),
+        out.data_ptr(),
+        _stream(frontier),
+    )
+    return out
+
+
+def plain_shard_weight_pass(seg, emit, eid, emask, ok, w, out) -> torch.Tensor:
+    """The reference's `sharded_weight_pass` body over the flat slots:
+    ``vals = (take_pad(emask, eid, False) & (seg >= 0) & take_pad(ok, emit,
+    False)) * take_pad(w, emit, 0)`` summed into ``out`` at ``clip(seg, 0,
+    vb - 1)``."""
+    seg, emit, eid = seg.reshape(-1), emit.reshape(-1), eid.reshape(-1)
+    vb = out.shape[0]
+    m = (seg >= 0) & plain_take_pad(ok, emit, False)
+    if emask is not None:
+        m = m & plain_take_pad(emask, eid, False)
+    vals = m.to(out.dtype)
+    if w is not None:
+        vals = vals * plain_take_pad(w, emit, 0)
+    out.index_add_(0, seg.clamp(0, vb - 1).long(), vals)
+    return out
+
+
+def shard_weight_pass(
+    seg: torch.Tensor,
+    emit: torch.Tensor,
+    eid: torch.Tensor,
+    emask: Optional[torch.Tensor],
+    ok: torch.Tensor,
+    w: Optional[torch.Tensor],
+    out: torch.Tensor,
+) -> torch.Tensor:
+    """K23: one COUNT-pushdown weight pass over the edge-list slices of
+    every shard held (``seg`` / ``emit`` / ``eid`` int32 [S_l, W], -1
+    padded), added into ``out`` (int32 or float32 [vb]) in place:
+    ``out[clip(seg)] += emask[eid] & ok[emit] ? w[emit] : 0`` for the slots
+    with ``seg >= 0``; ``emask`` (bool [E]) None admits every edge and
+    ``w`` (``out``'s dtype, [vb]) None weighs 1. Returns ``out``."""
+    for t, what in ((seg, "seg"), (emit, "emit"), (eid, "eid")):
+        _check_sharded(t, f"shard_weight_pass {what}")
+    if emit.shape != seg.shape or eid.shape != seg.shape:
+        raise ValueError("shard_weight_pass: seg, emit and eid differ in shape")
+    _check(out, (I32, F32), "shard_weight_pass out")
+    vb = out.shape[0]
+    _check(ok, (B8,), "shard_weight_pass ok")
+    if ok.shape[0] != vb:
+        raise ValueError("shard_weight_pass: ok and out differ in length")
+    opt = [ok, out]
+    if emask is not None:
+        _check(emask, (B8,), "shard_weight_pass emask")
+        opt.append(emask)
+    if w is not None:
+        _check(w, (out.dtype,), "shard_weight_pass w")
+        if w.shape[0] != vb:
+            raise ValueError("shard_weight_pass: w and out differ in length")
+        opt.append(w)
+    if not _on_card(seg, emit, eid, *opt):
+        return plain_shard_weight_pass(seg, emit, eid, emask, ok, w, out)
+    lib = _kernels.load()
+    fn = lib.csr_shard_weight_pass_i32 if out.dtype == I32 else lib.csr_shard_weight_pass_f32
+    _launch(
+        "shard_weight_pass",
+        fn,
+        seg.data_ptr(),
+        emit.data_ptr(),
+        eid.data_ptr(),
+        seg.numel(),
+        None if emask is None else emask.data_ptr(),
+        0 if emask is None else emask.shape[0],
+        ok.data_ptr(),
+        None if w is None else w.data_ptr(),
+        vb,
+        out.data_ptr(),
+        _stream(out),
+    )
+    return out
+
+
+def plain_rowshard_hop(indptr_sh, dst_sh, frontier, n_shards: int) -> torch.Tensor:
+    """The reference's BFS contribution (`build_bfs_step`'s ``expand``),
+    shard by shard: each edge's local source by ``searchsorted`` over the
+    rebased indptr, live where ``dst >= 0`` and before ``indptr[-1]``, its
+    clipped target set in every lit query's row; laid out [S, Q, R]."""
+    S_l, Q, R = frontier.shape
+    v_pad = n_shards * R
+    flat = torch.zeros((Q, v_pad), dtype=B8, device=frontier.device)
+    for s in range(S_l):
+        ind, dst = indptr_sh[s], dst_sh[s]
+        epos = torch.arange(dst.shape[0], dtype=I32, device=dst.device)
+        src_local = (torch.searchsorted(ind, epos, right=True, out_int32=True) - 1).clamp(0, R - 1)
+        live = (dst >= 0) & (epos < ind[-1])
+        active = frontier[s][:, src_local.long()] & live[None, :]
+        q_idx, e_idx = active.nonzero(as_tuple=True)
+        flat[q_idx, dst.clamp(0, v_pad - 1).long()[e_idx]] = True
+    return flat.view(Q, n_shards, R).permute(1, 0, 2).contiguous()
+
+
+def rowshard_hop(
+    indptr_sh: torch.Tensor,
+    dst_sh: torch.Tensor,
+    frontier: torch.Tensor,
+    n_shards: int,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K24: one hop of the row-sharded multi-source BFS. Shard s held owns
+    rows [s R, (s+1) R) (``indptr_sh`` int32 [S_l, R+1] rebased, ``dst_sh``
+    int32 [S_l, e_max] -1 padded) and its frontier slice ``frontier[s]``
+    (bool [S_l, Q, R]); every edge of a lit row sets its target in that
+    query's row of the result, bool [n_shards, Q, R] (the target's shard,
+    query, local row). Into a new zeroed tensor, or ``out`` zeroed first."""
+    _check_sharded(indptr_sh, "rowshard_hop indptr_sh")
+    _check_sharded(dst_sh, "rowshard_hop dst_sh")
+    if frontier.dtype != B8 or frontier.dim() != 3 or not frontier.is_contiguous():
+        raise TypeError("rowshard_hop frontier: expected a contiguous bool [S_l, Q, R] tensor")
+    S_l, Q, R = frontier.shape
+    if indptr_sh.shape != (S_l, R + 1) or dst_sh.shape[0] != S_l:
+        raise ValueError("rowshard_hop: indptr, dst and the frontier disagree on shards or rows")
+    opt = []
+    if out is not None:
+        _check_out(out, (n_shards, Q, R), B8, "rowshard_hop")
+        opt.append(out)
+    if not _on_card(indptr_sh, dst_sh, frontier, *opt):
+        hop = plain_rowshard_hop(indptr_sh, dst_sh, frontier, n_shards)
+        if out is None:
+            return hop
+        out.copy_(hop)
+        return out
+    lib = _kernels.load()
+    if out is None:
+        out = torch.empty((n_shards, Q, R), dtype=B8, device=frontier.device)
+    _launch(
+        "rowshard_hop",
+        lib.csr_rowshard_hop,
+        indptr_sh.data_ptr(),
+        R,
+        dst_sh.data_ptr(),
+        dst_sh.shape[1],
+        frontier.data_ptr(),
+        S_l,
+        Q,
+        n_shards,
+        1,
+        out.data_ptr(),
+        _stream(frontier),
+    )
+    return out

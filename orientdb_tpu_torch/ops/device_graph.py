@@ -17,6 +17,11 @@ A tiered snapshot (`storage/tiering`) uploads only the indptrs of a paged
 edge class; `TierManager.install` adds the block indexes and the page pools
 (``t:{class}:{direction}:*``), which loads and evictions write in place.
 
+A snapshot attached with a mesh (`models/database.Database.attach_snapshot`)
+uploads no flat adjacency: every mesh path reads the sharded layout that
+`parallel/mesh_graph.MeshGraph` puts under ``sh:*`` keys, the rows of the
+shards this process holds. A mesh refuses a delta overlay and a tier.
+
 A snapshot padded for delta maintenance (`storage/deltas`) also uploads
 each edge class's ``live`` mask and its slab bucket tables
 (``bk:{class}:out`` / ``bk:{class}:in``); `DeviceGraph.apply_patches`
@@ -74,21 +79,25 @@ class DeviceEdgeClass:
     property columns (``columns``, indexed by edge id in out order, under
     the class's key prefix). A class paged by the tier plane (``paged``)
     uploads only its indptrs: its edges live in the tier's page pools, and
-    reading ``dst``, ``src``, ``edge_id_in`` or ``edge_src`` raises."""
+    reading ``dst``, ``src``, ``edge_id_in`` or ``edge_src`` raises. A
+    class of a meshed snapshot (``sharded``) uploads no adjacency at all."""
 
     __slots__ = (
-        "class_name", "num_edges", "columns", "non_columnar", "paged", "_g", "_p", "_k_edge_src"
+        "class_name", "num_edges", "columns", "non_columnar", "paged", "sharded", "_g", "_p",
+        "_k_edge_src",
     )
 
-    def __init__(self, csr, g: "DeviceGraph", paged: bool = False) -> None:
+    def __init__(self, csr, g: "DeviceGraph", paged: bool = False, sharded: bool = False) -> None:
         self.class_name = csr.class_name
         self._g = g
         self.paged = paged
+        self.sharded = sharded
         p = self._p = f"e:{csr.class_name}"
-        g._put(f"{p}:indptr_out", csr.indptr_out)
-        g._put(f"{p}:indptr_in", csr.indptr_in)
         self._k_edge_src = f"{p}:edge_src"
-        if not paged:
+        if not sharded:
+            g._put(f"{p}:indptr_out", csr.indptr_out)
+            g._put(f"{p}:indptr_in", csr.indptr_in)
+        if not (paged or sharded):
             g._put(f"{p}:dst", csr.dst)
             g._put(f"{p}:src", csr.src)
             g._put(f"{p}:edge_id_in", csr.edge_id_in)
@@ -105,15 +114,22 @@ class DeviceEdgeClass:
         self.non_columnar: Set[str] = set(csr.non_columnar)
         self.num_edges = int(csr.dst.shape[0])
 
+    def _resident(self, name: str) -> torch.Tensor:
+        if self.sharded:
+            raise KeyError(f"{self.class_name}.{name}: a meshed snapshot keeps only the sharded layout")
+        return self._g.arrays[f"{self._p}:{name}"]
+
     @property
     def indptr_out(self) -> torch.Tensor:
-        return self._g.arrays[f"{self._p}:indptr_out"]
+        return self._resident("indptr_out")
 
     @property
     def live(self) -> torch.Tensor:
         return self._g.arrays[f"{self._p}:live"]
 
     def _flat(self, name: str) -> torch.Tensor:
+        if self.sharded:
+            return self._resident(name)
         if self.paged:
             raise KeyError(f"{self.class_name}.{name} is paged by the tier plane, not on the device")
         return self._g.arrays[f"{self._p}:{name}"]
@@ -124,13 +140,13 @@ class DeviceEdgeClass:
 
     @property
     def edge_src(self) -> torch.Tensor:
-        if not self.paged:
+        if not (self.paged or self.sharded):
             self._g.ensure_key(self._k_edge_src)
         return self._flat("edge_src")
 
     @property
     def indptr_in(self) -> torch.Tensor:
-        return self._g.arrays[f"{self._p}:indptr_in"]
+        return self._resident("indptr_in")
 
     @property
     def src(self) -> torch.Tensor:
@@ -156,6 +172,24 @@ class DeviceGraph:
         self._pending: Dict[str, np.ndarray] = {}
         self._pending_lock = threading.Lock()
         self._armed = snap._overlay is not None
+        #: the sharding context (`parallel/mesh_graph.MeshGraph`) of a meshed
+        #: snapshot, else None
+        self.mesh_graph = None
+        mesh = getattr(snap, "_mesh", None)
+        if mesh is not None:
+            if snap._overlay is not None:
+                raise ValueError(
+                    "delta-maintained snapshots are single-device; compact before attaching a mesh"
+                )
+            if snap._tier is not None:
+                raise ValueError(
+                    "tiered snapshots are single-device; drop the mesh or raise tier_hbm_cap_bytes"
+                )
+            if mesh.device != device:
+                raise ValueError(f"the mesh lives on {mesh.device}, the graph on {device}")
+            from orientdb_tpu_torch.parallel.mesh_graph import MeshGraph
+
+            self.mesh_graph = MeshGraph(mesh)
         self._put("v_class", snap.v_class)
         self.columns: Dict[str, DeviceColumn] = {
             n: DeviceColumn(c, self, f"v:{n}") for n, c in snap.v_columns.items()
@@ -163,9 +197,13 @@ class DeviceGraph:
         self.non_columnar: Set[str] = set(snap.v_non_columnar)
         tier = snap._tier
         self.edges: Dict[str, DeviceEdgeClass] = {
-            n: DeviceEdgeClass(c, self, tier is not None and tier.pages_dir(n, "out"))
+            n: DeviceEdgeClass(
+                c, self, tier is not None and tier.pages_dir(n, "out"), mesh is not None
+            )
             for n, c in snap.edge_classes.items()
         }
+        if self.mesh_graph is not None:
+            self.mesh_graph.build(self, snap)
         if tier is not None:
             # the block indexes, the page pools and their hot seed
             tier.install(self)
@@ -247,7 +285,7 @@ class DeviceGraph:
                 cat = "vertex_columns"
             elif key.startswith("e:") and ":c:" in key:
                 cat = "edge_columns"
-            elif key.startswith("e:"):
+            elif key.startswith("e:") or key.startswith("sh:"):
                 cat = "adjacency"
             else:
                 cat = "other"

@@ -233,6 +233,8 @@ class GraphSnapshot:
         #: hot/cold tier manager (`storage/tiering.TierManager`) once
         #: admitted under ``config.tier_hbm_cap_bytes``
         self._tier = None
+        #: the mesh (`parallel/collectives`) the snapshot is attached with
+        self._mesh = None
 
     @property
     def rid_to_idx(self) -> RidIndex:
