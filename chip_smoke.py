@@ -26,7 +26,16 @@ from the root of a checkout. Phases, each of which raises on failure:
    entries, identity mode, binding rows, the WHILE level and a parameter
    row (distance() masks outside the boundary band: float64 distance
    within 0.01 km + 1e-5·r of r), with split launches against one, then
-   timed on Q1's two node masks over the 2^23-vertex universe;
+   timed on Q1's two node masks over the 2^23-vertex universe. K1 (the
+   single-pass look-back scan) is held in every form (inclusive,
+   exclusive, with its device total, the total alone, a bool mask's ranks
+   through its int32 cast) at Q2's ~80M weights, around its tile and K3's
+   and at 4,097 tiles, and over 1,000 replays of one captured launch on
+   fresh inputs; K3 (the one-pass compaction on the same look-back) at
+   Q3's roots, with truncation, and at the same lengths. Both are timed
+   eagerly and in a captured graph beside `torch.cumsum` /
+   `torch.nonzero`, and each must enqueue one CUDA kernel and one memset a
+   call, counted from the nodes of a graph that captured the call;
 4. record — the recording path, with the plan cache off so that every
    call records (solves eagerly, reading each size on the host): zeroes
    the kernels' launch counts, runs the 1-hop COUNT (Q1), the 2-hop COUNT
@@ -292,6 +301,16 @@ E_REPLAY_KERNELS = [
     and n not in ("scan_f32", "segment_sum_f32", "take_pad_f32")
 ]
 EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
+#: K1's and K3's eager times before their look-back redesign (the
+#: three-pass scan, and the cast + scan + scatter compaction; `PERF.md` §6),
+#: printed beside this run's
+WAS_MS = {"scan_i32": 0.3601, "scan_f32": 0.3599, "compact fill": 0.0921, "compact offset": 0.1179}
+#: `PERF.md` §5's replay medians (ms) of the cells that run K1 and K3
+SECTION5_REPLAY_MS = {
+    "Q1": 3.265, "Q2": 6.992, "Q3": 31.646, "V1": 99.821, "E1": 12.615, "TR1": 2.160, "TR4": 30.330,
+}
+#: this run's replay medians (ms), by cell
+REPLAY_MS = {}
 
 Q1 = (
     "MATCH {class:Person, as:p, where:(age > 40)}"
@@ -466,6 +485,71 @@ class Kernels:
         }
 
 
+def old_scan_launches(n: int) -> int:
+    """Kernels the earlier three-pass scan enqueued for n elements: a
+    tile-sum and a tile-scan launch a level over tiles of 1,024, then one
+    scan of the last level."""
+    launches = 0
+    while n > 1024:
+        n = -(-n // 1024)
+        launches += 2
+    return launches + 1
+
+
+def one_kernel_one_memset(torch, what: str, fn) -> str:
+    """Requires that one call of ``fn`` enqueues one CUDA kernel and one
+    memset, counted from the nodes of a graph that captured the call
+    (libcuda's ``cuGraphGetNodes`` / ``cuGraphNodeGetType``), and says so."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    drv = ctypes.CDLL("libcuda.so.1")
+    count = ctypes.c_size_t(0)
+    _require(drv.cuGraphGetNodes(raw, None, ctypes.byref(count)) == 0, "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    _require(drv.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0, "cuGraphGetNodes")
+    types = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _require(drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0, "cuGraphNodeGetType")
+        types.append(kind.value)
+    # CU_GRAPH_NODE_TYPE_KERNEL 0, CU_GRAPH_NODE_TYPE_MEMSET 2
+    _require(
+        len(types) == 2 and types.count(0) == 1 and types.count(2) == 1,
+        f"{what}: a call enqueues graph nodes of types {types}, not one kernel and one memset",
+    )
+    return "1 kernel + 1 memset"
+
+
+def captured_scan_replays(torch, K, ks, vals, n: int, reps: int = 1000) -> None:
+    """1,000 replays of one captured K1 launch on the same look-back state:
+    each replay scans the other of two inputs into a poisoned output and
+    must equal the plain version, so state left from the replay before
+    would show. Its launches are not counted."""
+    counted = dict(K.LAUNCHES)
+    inputs = [vals[:n].clone(), vals[-n:].clone()]
+    wants = [K.plain_cumsum(v) for v in inputs]
+    _require(not torch.equal(wants[0], wants[1]), "the two replay inputs have the same scan")
+    static = inputs[0].clone()
+    K.value_cumsum(static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.value_cumsum(static)
+    for i in range(reps):
+        static.copy_(inputs[i % 2])
+        out.fill_(-7)
+        graph.replay()
+        ks.same("scan_i32", out, wants[i % 2])
+    print(f"kernel scan_i32: {reps} replays of one captured launch (n={n}) equal the plain version")
+    K.LAUNCHES.update(counted)
+
+
 def check_kernels(torch, K, dg) -> Kernels:
     from orientdb_tpu_torch.exec.tpu_engine import _cap_of
 
@@ -492,14 +576,32 @@ def check_kernels(torch, K, dg) -> Kernels:
     width = _cap_of(f.shape[0])
     srcs = torch.cat([f, torch.full((width - f.shape[0],), -1, dtype=i32, device=dev)])
 
-    # -- K1 scans ------------------------------------------------------------
+    # -- K1 scans: every form, at Q2's weights and around the tile -----------
+    from orientdb_tpu_torch.ops import _kernels
+
+    lib = _kernels.load()
+    for what, scratch, tile in (("K1", lib.csr_scan_scratch, K._TILE), ("K3", lib.csr_compact_scratch, K._COMPACT_TILE)):
+        # the plain versions' tiles mirror the library's: a state word a tile
+        _require(scratch(tile) == 16 and scratch(tile + 1) == 24, f"{what}'s tile is not csr.py's {tile}")
+    tile = K._TILE
+    tile_lengths = sorted(
+        {0, 1, 4097 * max(tile, K._COMPACT_TILE) + 5}
+        | {n for t in (tile, K._COMPACT_TILE) for n in (t - 1, t, t + 1, 2 * t + 1)}
+    )
     for name, vals in (("scan_i32", vals_i), ("scan_f32", vals_f)):
         exact = vals.dtype == i32
-        for excl in (False, True):
-            ks.same(name, K._scan(vals, excl), K.plain_cumsum(vals, excl), exact)
-        for n in EDGE_LENGTHS:
-            v = vals[:n].contiguous()
-            ks.same(name, K.value_cumsum(v), K.plain_cumsum(v), exact)
+        for n in [E] + tile_lengths + EDGE_LENGTHS:
+            v = vals[:n]
+            for excl in (False, True):
+                ks.same(name, K._scan(v, excl), K.plain_cumsum(v, excl), exact)
+            inc = K.plain_cumsum(v)
+            want = inc[-1] if n else torch.zeros((), dtype=v.dtype, device=dev)
+            ks.same(name, K.exclusive_cumsum_total(v), (inc - v, want), exact)
+            ks.same(name, K.value_sum(v), want, exact)
+    for n in [E] + tile_lengths + EDGE_LENGTHS:
+        ks.same("scan_i32", K.mask_cumsum(contrib[:n]), K.plain_cumsum(contrib[:n].to(i32)))
+    captured_scan_replays(torch, K, ks, vals_i, tile_lengths[-1])
+    for name, vals in (("scan_i32", vals_i), ("scan_f32", vals_f)):
         ks.timed(
             name,
             lambda v=vals: K.value_cumsum(v),
@@ -507,6 +609,23 @@ def check_kernels(torch, K, dg) -> Kernels:
             lambda v=vals: torch.cumsum(v, 0, dtype=v.dtype),
             8.0 * E,
         )
+        row = ks.rows[name]
+        print(
+            f"kernel {name} at n={E}: {row['ms']:.4f} ms eager (was {WAS_MS[name]}), "
+            f"{_graph_ms(torch, lambda v=vals: K.value_cumsum(v)):.4f} ms in a graph; torch.cumsum "
+            f"{row['library_ms']:.4f} eager, {_graph_ms(torch, lambda v=vals: torch.cumsum(v, 0, dtype=v.dtype)):.4f} "
+            f"in a graph; bound {row['bound_ms']:.4f} ms; "
+            f"sum alone {_time_ms(torch, lambda v=vals: K.value_sum(v)):.4f} eager, "
+            f"{_graph_ms(torch, lambda v=vals: K.value_sum(v)):.4f} in a graph (bound {4.0 * E / 3.35e12 * 1e3:.4f}); "
+            f"offsets + total {_graph_ms(torch, lambda v=vals: K.exclusive_cumsum_total(v)):.4f} in a graph"
+        )
+    print(
+        f"kernel scan_i32 launches per _scan call at n={E}: "
+        f"{one_kernel_one_memset(torch, 'value_cumsum', lambda: K.value_cumsum(vals_i))} "
+        f"(offsets + total: {one_kernel_one_memset(torch, 'exclusive_cumsum_total', lambda: K.exclusive_cumsum_total(vals_i))}; "
+        f"sum alone: {one_kernel_one_memset(torch, 'value_sum', lambda: K.value_sum(vals_i))}); "
+        f"the three-pass scan before enqueued {old_scan_launches(E)} kernels"
+    )
 
     # -- K3 compaction (both of the reference's regimes) ----------------------
     dense = ok_vec & (univ < V)
@@ -520,9 +639,9 @@ def check_kernels(torch, K, dg) -> Kernels:
             K.compact_indices(mask, out_size),
             K.plain_compact_indices(mask, out_size),
         )
-    for n in EDGE_LENGTHS:
-        m = dense[:n].contiguous()
-        for out_size in (8, K.bucket(max(n, 1))):
+    for n in EDGE_LENGTHS + tile_lengths:
+        m = contrib[:n] if n > len(dense) else dense[:n]
+        for out_size in (8, K.bucket(max(int(m.sum()), 1)), K.bucket(max(n, 1))):
             ks.same("compact_indices", K.compact_indices(m, out_size), K.plain_compact_indices(m, out_size))
     out_size = _cap_of(Q3_K)
     ks.timed(
@@ -531,6 +650,15 @@ def check_kernels(torch, K, dg) -> Kernels:
         lambda: K.plain_compact_indices(root_mask, out_size),
         lambda: torch.nonzero(root_mask),
         vb + 4.0 * out_size,
+    )
+    row = ks.rows["compact_indices"]
+    print(
+        f"kernel compact_indices, fill form at Q3's roots ({Q3_K} of {vb} slots into {out_size}): "
+        f"{row['ms']:.4f} ms eager (was {WAS_MS['compact fill']}), "
+        f"{_graph_ms(torch, lambda: K.compact_indices(root_mask, out_size)):.4f} ms in a graph; "
+        f"torch.nonzero {row['library_ms']:.4f} eager (it reads its size on the host: no graph); "
+        f"bound {row['bound_ms']:.4f} ms; per call {one_kernel_one_memset(torch, 'compact_indices fill form', lambda: K.compact_indices(root_mask, out_size))}; "
+        f"before: a cast, {old_scan_launches(vb)} scan kernels and a scatter"
     )
 
     # -- K5b popcount ---------------------------------------------------------
@@ -963,6 +1091,7 @@ def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
             check(name, rows, params)
         _require(plan.replays == 5 and len(_only_plan(TE, snap, sql).plans) == 1, f"{name}: replays {plan.replays}")
         med = statistics.median(times)
+        REPLAY_MS.setdefault(name, med)
         per = plan.launches
         print(
             f"replay {name}: record {first_ms - plan.capture_ms:.3f} ms, capture {plan.capture_ms:.3f} ms, "
@@ -1466,6 +1595,7 @@ def run_edges_replay(np, torch, K, db, snap, card: str, eref, cells=E_CELLS, ker
             f"{name}: {len(variants.plans)} variants, {plan.replays} replays",
         )
         med = statistics.median(times)
+        REPLAY_MS.setdefault(name, med)
         per = plan.launches
         print(
             f"replay {name}: record {first_ms - plan.capture_ms:.3f} ms, capture {plan.capture_ms:.3f} ms, "
@@ -1782,6 +1912,7 @@ def run_traverse(np, torch, K, TE, ks, db, snap, card: str):
             check(name, out, params)
         _require(plan.replays == 5 and len(_only_plan(TE, snap, sql).plans) == 1, f"{name}: replays {plan.replays}")
         med = statistics.median(times)
+        REPLAY_MS.setdefault(name, med)
         levels = getattr(plan.solver, "levels", None)
         print(
             f"replay {name}: record {first_ms - plan.capture_ms:.3f} ms, capture {plan.capture_ms:.3f} ms, "
@@ -1983,11 +2114,15 @@ def check_traverse_kernels(np, torch, K, ks, dg, ref, plans) -> None:
         lambda: K.compact_indices(mask, cnt, out=buf, offset=off),
         lambda: K.plain_compact_indices(mask, cnt, out=buf, offset=off),
         lambda: torch.nonzero(mask),
-        vb + 4.0 * cnt,  # the mask read, the level's indices written (K1's scan apart)
+        vb + 4.0 * cnt,  # the mask read, the level's indices written
     )
+    row = ks.rows["compact_indices"]
     print(
         f"kernel compact_indices, offset form on TR4's level {big} ({cnt} of {vb} slots at offset {off}): "
-        f"{ks.rows['compact_indices']['ms']:.4f} ms"
+        f"{row['ms']:.4f} ms eager (was {WAS_MS['compact offset']}), "
+        f"{_graph_ms(torch, lambda: K.compact_indices(mask, cnt, out=buf, offset=off)):.4f} ms in a graph; "
+        f"torch.nonzero {row['library_ms']:.4f} eager; bound {row['bound_ms']:.4f} ms; per call "
+        f"{one_kernel_one_memset(torch, 'compact_indices offset form', lambda: K.compact_indices(mask, cnt, out=buf, offset=off))}"
     )
     torch.cuda.synchronize()
     K.LAUNCHES.update(counted)
@@ -2796,6 +2931,7 @@ def check_delta_kernels(np, torch, K, ks, dg, snap):
         S * (4.0 + w) + S * w,
     )
     g_ms = _graph_ms(torch, lambda: K.scatter_set(a, idx, vals))
+    gl_ms = _graph_ms(torch, lambda: a.index_put_((idx64,), vals))
     srcs = torch.full((K.bucket(D1_K),), -1, dtype=torch.int32, device=dev)
     srcs[:D1_K] = torch.arange(D1_K, dtype=torch.int32, device=dev)
     tab = dg.arrays["bk:knows:out"]
@@ -2827,7 +2963,8 @@ def check_delta_kernels(np, torch, K, ks, dg, snap):
     p_ms = _graph_ms(torch, lambda: K.slab_probe(tab, dec.edge_src, dec.dst, dec.live, srcs, sl.base, ov.bk_nb, BK, fixed))
     print(
         f"kernel scatter_set: equals its plain version on W1's segments ({S} slots of dst, live, age); "
-        f"{ks.rows['scatter_set']['ms']:.4f} ms ({g_ms:.4f} in a graph), bound {ks.rows['scatter_set']['bound_ms']:.4f}; "
+        f"{ks.rows['scatter_set']['ms']:.4f} ms ({g_ms:.4f} in a graph), bound {ks.rows['scatter_set']['bound_ms']:.4f}, "
+        f"library index_put_ {ks.rows['scatter_set']['library_ms']:.4f} ({gl_ms:.4f} in a graph); "
         f"kernel slab_probe: equals its plain version at D1's probe (R={R}, BK={BK}, total {int(want[3])}); "
         f"{ks.rows['slab_probe']['ms']:.4f} ms ({p_ms:.4f} in a graph), bound {ks.rows['slab_probe']['bound_ms']:.4f} "
         f"({filled} filled bucket entries probed)"
@@ -4248,6 +4385,10 @@ def main() -> int:
             f"library {row['library_ms']}, bound {row['bound_ms']:.4f} ms, "
             f"launches {row['launches']}"
         )
+    print(
+        "replay medians beside PERF.md §5 (ms): "
+        + ", ".join(f"{c} {REPLAY_MS.get(c, float('nan')):.3f} (§5 {w})" for c, w in SECTION5_REPLAY_MS.items())
+    )
     _require(set(ks.rows) == set(REPLACES), "a kernel was not timed")
     _require(all(r["launches"] > 0 for r in ks.rows.values()), "a kernel never launched")
     print(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -31,10 +31,13 @@
 // integer operations on them, so each is bound by device-memory bytes
 // (3.35 TB/s on an H100 SXM), never by arithmetic. The designs are the
 // simple correct ones: coalesced loads, one pass per output where the
-// algorithm allows it, no atomics where the order of a float sum matters.
+// algorithm allows it, no atomics where the order of a float sum matters
+// (K1's float32 form, which runs only while recording, adds its tile
+// prefixes in the order its look-back finds them).
 // int32 sums are taken in uint32 so that overflow wraps modulo 2^32 as the
 // reference's int32 arithmetic does (signed overflow is undefined in C++).
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,8 +45,6 @@ namespace {
 
 constexpr int kThreads = 256;               // threads per block, every kernel
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 4;                   // scan items per thread
-constexpr long long kTile = kThreads * kItems;  // scan elements per block
 constexpr unsigned kFull = 0xffffffffu;
 
 inline unsigned blocks_for(long long n, long long per_block) {
@@ -55,17 +56,243 @@ inline unsigned blocks_for(long long n, long long per_block) {
 // csr.mask_cumsum :97, csr._block_scan_f32 :118, csr.exclusive_cumsum :47).
 //
 // Bound: n*4 bytes read + n*4 bytes written (80M int32: 640 MB, ~0.19 ms).
-// Design: reduce-then-scan in three launches per level. (1) each block sums
-// its tile of kTile elements; (2) the tile sums are scanned, recursively, by
-// the same routine; (3) each block scans its tile in shared memory and adds
-// the scanned sum of the tiles before it. Reads 2n, writes n: within 1.5x of
-// the one-pass bound, with no inter-block communication. The TPU version's
-// triangular matmul on 16-bit halves was a way to use the systolic array;
-// int32 adds are exact here, so only its result is ported.
+// Design: a single-pass scan with decoupled look-back (Merrill and Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA,
+// 2016): one launch that reads every element once and writes it once,
+// after one cudaMemsetAsync of the look-back state on the same stream (a
+// captured graph replays it as a memset node). Each block takes its tile
+// from an atomic counter in that state, so it only ever waits on a tile
+// that a running or finished block holds (spinning on blockIdx.x - 1 can
+// deadlock when the predecessor is not resident). A warp loads its part of
+// the tile warp-striped with 16-byte loads (kScanVecs of them a thread,
+// 4 elements each: a tile of 16,384, which measured fastest of 4,096,
+// 8,192 and 16,384 at 80M elements, PERF.md §6: fewer tiles, a shorter
+// look-back chain), scans it in registers and shuffles, and the block adds
+// its warps' sums in shared memory. Thread 0 publishes the tile's aggregate, warp 0
+// looks back 32 predecessor words at a time for the nearest inclusive
+// prefix and publishes the tile's own; each word is 64 bits, the status in
+// the high half and the value's bits in the low half, stored with release
+// and loaded with acquire semantics. Forms: inclusive or exclusive; an
+// optional device total written by the last tile; no output at all (the
+// total alone: a sum in one read). int32 sums are taken in uint32 and wrap modulo 2^32 as the
+// reference's do; a float32 tile prefix adds the predecessors in whatever
+// order the look-back finds them (a tile's own sum has a fixed order). The
+// TPU version's triangular matmul on 16-bit halves was a way to use the
+// systolic array; int32 adds are exact here, so only its result is ported.
 // ---------------------------------------------------------------------------
 
+constexpr int kScanVecs = 16;  // K1's 16-byte loads a thread
+constexpr long long kScanTile = kThreads * 4LL * kScanVecs;
+constexpr int kCompactVecs = 4;  // K3's 16-byte mask loads a thread
+constexpr long long kCompactTile = kThreads * 16LL * kCompactVecs;
+
+// A look-back word's status (its high half). The entry point sets the
+// state to 0xFF bytes before the launch, so an all-ones status is "not published
+// yet", and the tile counter (the state's first word) starts at 0xFFFFFFFF:
+// the first block to add one holds tile 0.
+constexpr unsigned kLbEmpty = 0xffffffffu;
+constexpr unsigned kLbAggregate = 1u;
+constexpr unsigned kLbPrefix = 2u;
+
+__device__ __forceinline__ unsigned lb_bits(unsigned v) { return v; }
+__device__ __forceinline__ unsigned lb_bits(float v) { return __float_as_uint(v); }
+template <typename T>
+__device__ __forceinline__ T lb_value(unsigned bits);
+template <>
+__device__ __forceinline__ unsigned lb_value<unsigned>(unsigned bits) { return bits; }
+template <>
+__device__ __forceinline__ float lb_value<float>(unsigned bits) { return __uint_as_float(bits); }
+
+__device__ __forceinline__ void lb_publish(unsigned long long* word, unsigned status,
+                                           unsigned bits) {
+  cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> w(*word);
+  w.store((static_cast<unsigned long long>(status) << 32) | bits, cuda::memory_order_release);
+}
+
+__device__ __forceinline__ unsigned long long lb_load(unsigned long long* word) {
+  cuda::atomic_ref<unsigned long long, cuda::thread_scope_device> w(*word);
+  return w.load(cuda::memory_order_acquire);
+}
+
+// The block's tile, from the counter in state[0]; every thread gets it.
+__device__ __forceinline__ unsigned lb_tile(unsigned long long* state, unsigned* slot) {
+  if (threadIdx.x == 0) *slot = atomicAdd(reinterpret_cast<unsigned*>(state), 1u) + 1u;
+  __syncthreads();
+  return *slot;
+}
+
+// Run by warp 0 of the block that holds `tile` (> 0) after thread 0 has
+// published the tile's aggregate: the sum of every tile before it, found by
+// looking back 32 predecessor words at a time until one holds an inclusive
+// prefix (tile 0's always does). Publishes the tile's inclusive prefix and
+// returns the exclusive one, in every lane. (Reading 4 or 8 words a lane
+// a step measured slower at 80M elements.)
+template <typename T>
+__device__ T lb_look_back(unsigned long long* flags, unsigned tile, T aggregate) {
+  const int lane = threadIdx.x & 31;
+  T run = T(0);
+  long long pred = static_cast<long long>(tile) - 1 - lane;  // lane 0 the nearest
+  for (;;) {
+    unsigned long long w = 0;
+    unsigned st = kLbPrefix;  // before tile 0: a zero prefix
+    do {
+      if (pred >= 0) {
+        w = lb_load(flags + pred);
+        st = static_cast<unsigned>(w >> 32);
+      }
+    } while (__any_sync(kFull, st == kLbEmpty));
+    const unsigned prefixes = __ballot_sync(kFull, st == kLbPrefix);
+    const int last = prefixes ? __ffs(prefixes) - 1 : 31;  // the nearest prefix
+    T v = lane <= last ? lb_value<T>(static_cast<unsigned>(w)) : T(0);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+    run += __shfl_sync(kFull, v, 0);
+    if (prefixes) break;
+    pred -= 32;
+  }
+  if (lane == 0) lb_publish(flags + tile, kLbPrefix, lb_bits(run + aggregate));
+  return run;
+}
+
+// A tile's warp scan. Warp w owns elements [w*32*I, (w+1)*32*I) of the tile
+// (I = kVec*VECS items a thread); load v of lane l covers the kVec elements
+// from (v*32 + l)*kVec there, so each load instruction of a warp reads 512
+// contiguous bytes. In the tile's order (v, l, j) precedes (v', l', j')
+// when it is lexicographically smaller. Returns the warp's sum; base[v] is
+// the sum of the warp's elements before lane l's load v.
+template <typename T, int VECS, int kVec>
+__device__ __forceinline__ T warp_striped_scan(const T (&x)[VECS][kVec], T (&base)[VECS]) {
+  const int lane = threadIdx.x & 31;
+  T warp_run = T(0);
+#pragma unroll
+  for (int v = 0; v < VECS; ++v) {
+    T s = T(0);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) s += x[v][j];
+    T incl = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      T y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    T excl = __shfl_up_sync(kFull, incl, 1);
+    if (lane == 0) excl = T(0);
+    base[v] = warp_run + excl;
+    warp_run += __shfl_sync(kFull, incl, 31);
+  }
+  return warp_run;
+}
+
+// The block's part of a look-back pass, after every warp has its sum:
+// the warps before this one (warp_off), and the exclusive prefix of the
+// tile (from the look-back), which the last tile also adds to its own
+// aggregate into `total` (when given). `s_warp` and `s_prefix` are the
+// caller's shared memory.
+template <typename T>
+__device__ __forceinline__ T tile_prefix(unsigned long long* state, unsigned tile,
+                                         long long tiles, T warp_sum, T* s_warp, T* s_prefix,
+                                         T* total, T& warp_off) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) s_warp[warp] = warp_sum;
+  __syncthreads();
+  T aggregate = T(0);
+  warp_off = T(0);
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) warp_off += s_warp[w];
+    aggregate += s_warp[w];
+  }
+  if (warp == 0) {
+    T prefix = T(0);
+    if (tile == 0) {
+      if (lane == 0) lb_publish(state + 1, kLbPrefix, lb_bits(aggregate));
+    } else {
+      if (lane == 0) lb_publish(state + 1 + tile, kLbAggregate, lb_bits(aggregate));
+      prefix = lb_look_back<T>(state + 1, tile, aggregate);
+    }
+    if (lane == 0) {
+      *s_prefix = prefix;
+      if (total != nullptr && tile == tiles - 1) *total = prefix + aggregate;
+    }
+  }
+  __syncthreads();
+  return *s_prefix;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scan_lookback_kernel(const T* __restrict__ in, T* __restrict__ out, T* __restrict__ total,
+                     long long n, unsigned long long* __restrict__ state, int exclusive,
+                     int vec_ok) {
+  constexpr int kVec = 4;  // elements a 16-byte load
+  constexpr int VECS = kScanVecs;
+  constexpr long long kTileN = kScanTile;
+  __shared__ unsigned s_tile;
+  __shared__ T s_warp[kWarps];
+  __shared__ T s_prefix;
+  const unsigned tile = lb_tile(state, &s_tile);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long wbase = tile * kTileN + static_cast<long long>(warp) * 32 * kVec * VECS;
+
+  T x[VECS][kVec];
+#pragma unroll
+  for (int v = 0; v < VECS; ++v) {
+    const long long e0 = wbase + static_cast<long long>(v * 32 + lane) * kVec;
+    if (vec_ok && e0 + kVec <= n) {
+      union {
+        uint4 raw;
+        T e[kVec];
+      } u;
+      u.raw = __ldg(reinterpret_cast<const uint4*>(in + e0));
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) x[v][j] = u.e[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) x[v][j] = e0 + j < n ? in[e0 + j] : T(0);
+    }
+  }
+  T base[VECS];
+  const T warp_sum = warp_striped_scan<T, VECS, kVec>(x, base);
+  T warp_off;
+  const T prefix = tile_prefix<T>(state, tile, (n + kTileN - 1) / kTileN, warp_sum, s_warp,
+                                  &s_prefix, total, warp_off);
+  if (out == nullptr) return;
+  const T start = prefix + warp_off;
+#pragma unroll
+  for (int v = 0; v < VECS; ++v) {
+    const long long e0 = wbase + static_cast<long long>(v * 32 + lane) * kVec;
+    T acc = start + base[v];
+    T y[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      if (exclusive) {
+        y[j] = acc;
+        acc += x[v][j];
+      } else {
+        acc += x[v][j];
+        y[j] = acc;
+      }
+    }
+    if (vec_ok && e0 + kVec <= n) {
+      uint4* dst = reinterpret_cast<uint4*>(out + e0);
+#pragma unroll
+      for (int q = 0; q < kVec / 4; ++q) {
+        dst[q] = make_uint4(lb_bits(y[4 * q]), lb_bits(y[4 * q + 1]), lb_bits(y[4 * q + 2]),
+                            lb_bits(y[4 * q + 3]));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        if (e0 + j < n) out[e0 + j] = y[j];
+      }
+    }
+  }
+}
+
 // Exclusive scan of one value per thread across the block; every thread
-// gets the sum of the values of the threads before it.
+// gets the sum of the values of the threads before it (K17's emit pass).
 template <typename T>
 __device__ T block_exclusive_scan(T v, T* warp_sums) {
   const int lane = threadIdx.x & 31;
@@ -96,89 +323,23 @@ __device__ T block_exclusive_scan(T v, T* warp_sums) {
   return excl + warp_sums[warp];
 }
 
-template <typename T>
-__global__ void tile_sums_kernel(const T* __restrict__ in, long long n,
-                                 T* __restrict__ sums) {
-  __shared__ T warp_sums[kWarps];
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-  T acc = T(0);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    long long i = base + k * kThreads + threadIdx.x;
-    if (i < n) acc += in[i];
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(kFull, acc, o);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    T w = threadIdx.x < kWarps ? warp_sums[threadIdx.x] : T(0);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) w += __shfl_down_sync(kFull, w, o);
-    if (threadIdx.x == 0) sums[blockIdx.x] = w;
-  }
-}
-
-// Scan of one tile per block. `tile_prefix` (may be null) holds the
-// inclusive scan of the tile sums: tile b adds tile_prefix[b-1]. `in` and
-// `out` may alias: a block reads its whole tile before writing it.
-template <typename T>
-__global__ void tile_scan_kernel(const T* in, T* out, long long n,
-                                 const T* __restrict__ tile_prefix,
-                                 int exclusive) {
-  __shared__ T tile[kTile];
-  __shared__ T warp_sums[kWarps];
-  const long long base = static_cast<long long>(blockIdx.x) * kTile;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    int j = k * kThreads + threadIdx.x;
-    long long i = base + j;
-    tile[j] = i < n ? in[i] : T(0);
-  }
-  __syncthreads();
-  T local[kItems];
-  T run = T(0);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    local[k] = run;  // exclusive within this thread's items
-    run += tile[threadIdx.x * kItems + k];
-  }
-  T prefix = block_exclusive_scan(run, warp_sums);
-  if (tile_prefix != nullptr && blockIdx.x > 0) {
-    prefix += tile_prefix[blockIdx.x - 1];
-  }
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    int j = threadIdx.x * kItems + k;
-    T x = tile[j];
-    tile[j] = exclusive ? prefix + local[k] : prefix + (local[k] + x);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    int j = k * kThreads + threadIdx.x;
-    long long i = base + j;
-    if (i < n) out[i] = tile[j];
-  }
-}
+// The look-back state's bytes for `tiles` tiles: the counter, then one
+// word a tile.
+inline long long lb_state_bytes(long long tiles) { return 8 * (tiles + 1); }
 
 template <typename T>
-cudaError_t scan_rec(const T* in, T* out, long long n, T* scratch,
-                     int exclusive, cudaStream_t s) {
-  if (n <= 0) return cudaSuccess;
-  const long long tiles = (n + kTile - 1) / kTile;
-  if (tiles == 1) {
-    tile_scan_kernel<T><<<1, kThreads, 0, s>>>(in, out, n, nullptr, exclusive);
-    return cudaGetLastError();
+cudaError_t scan_lookback(const T* in, T* out, T* total, long long n,
+                          unsigned long long* state, int exclusive, cudaStream_t s) {
+  if (n <= 0) {
+    return total != nullptr ? cudaMemsetAsync(total, 0, sizeof(T), s) : cudaSuccess;
   }
-  T* sums = scratch;
-  tile_sums_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(in, n, sums);
-  cudaError_t e = cudaGetLastError();
+  const long long tiles = (n + kScanTile - 1) / kScanTile;
+  cudaError_t e = cudaMemsetAsync(state, 0xff, lb_state_bytes(tiles), s);
   if (e != cudaSuccess) return e;
-  e = scan_rec<T>(sums, sums, tiles, scratch + tiles, 0, s);
-  if (e != cudaSuccess) return e;
-  tile_scan_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-      in, out, n, sums, exclusive);
+  const int vec_ok = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  scan_lookback_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+      in, out, total, n, state, exclusive, vec_ok);
   return cudaGetLastError();
 }
 
@@ -257,30 +418,91 @@ __global__ void gather_expand_kernel(const int* __restrict__ indptr, long long n
 
 // ---------------------------------------------------------------------------
 // K3: compact_indices (replaces csr.compact_indices :185).
-// Bound: n bytes of mask read, out_size*4 bytes written (the scan of the
-// mask is K1 and counted there).
-// Design: after K1's inclusive scan of the mask, each True position i with
-// rank r <= out_size writes i to slot r-1, and every slot at or past the
-// count is -1. One result covers both of the reference's regimes (nonzero
-// and prefix sum + searchsorted), truncation to the first out_size
-// included. One launch over max(n, out_size) threads.
-// The offset form (`fill` 0: a TRAVERSE level written at its offset into
-// the replay's one output buffer, `out` already advanced by the wrapper)
-// writes only the kept indices and leaves the slots past the count as they
-// are (the buffer is -1-filled once); it launches over n threads.
+// Bound: n bytes of mask read + 4 bytes a written slot: out_size*4 in the
+// fill form, 4 a kept index in the offset form.
+// Design: one pass on K1's look-back, with no scan launch and no ranks
+// array. Each thread loads 16 mask bytes at a time with 16-byte loads
+// (kCompactVecs of them, warp-striped as in K1: a tile of 16,384 bytes,
+// which measured as fast as 32,768, PERF.md §6) and counts their nonzero bytes;
+// the block scans the counts as K1 does, which gives each thread its
+// exclusive rank in the tile, and looks back for the tile's offset. Each
+// kept index i of global rank r (1-based) with r <= out_size goes to slot
+// r-1, in ascending order; anything past out_size is dropped (the
+// reference's truncation). A warp stages the kept indices of one load in
+// shared memory in rank order and writes them with consecutive lanes on
+// consecutive slots, so the stores coalesce whatever the mask's density.
+// Every index has one slot, so the output does not depend on the order in
+// which the look-back finds the tiles. One result covers both of the
+// reference's regimes (nonzero, and prefix sum + searchsorted).
+// The fill form (`fill` 1) gives the out_size slots -1 past the count: the
+// wrapper allocates the look-back state right behind the slots, so the one
+// cudaMemsetAsync of 0xFF bytes that empties the state also sets every
+// slot to -1 before the kernel writes the kept ones. The offset form (`fill`
+// 0: a TRAVERSE level written at its offset into the replay's one output
+// buffer, `out` already advanced by the wrapper) writes only the kept
+// indices and leaves the slots past the count as they are (the buffer is
+// -1-filled once).
 // ---------------------------------------------------------------------------
-__global__ void compact_scatter_kernel(const unsigned char* __restrict__ mask,
-                                       const int* __restrict__ ranks, long long n,
-                                       long long out_size, int* __restrict__ out,
-                                       int fill) {
-  long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (t < n && mask[t]) {
-    long long r = ranks[t];
-    if (r <= out_size) out[r - 1] = static_cast<int>(t);
+__global__ void __launch_bounds__(kThreads)
+compact_lookback_kernel(const unsigned char* __restrict__ mask, long long n, long long out_size,
+                        int* __restrict__ out, unsigned long long* __restrict__ state,
+                        int vec_ok) {
+  constexpr int VECS = kCompactVecs;
+  constexpr long long kTileN = kCompactTile;
+  __shared__ unsigned s_tile;
+  __shared__ unsigned s_warp[kWarps];
+  __shared__ unsigned s_prefix;
+  __shared__ int s_stage[kWarps][32 * 16];  // a warp's kept indices of one load
+  const unsigned tile = lb_tile(state, &s_tile);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long wbase = tile * kTileN + static_cast<long long>(warp) * 32 * 16 * VECS;
+  unsigned bits[VECS];  // bit j of load v: byte e0 + j is nonzero
+  unsigned x[VECS][1];
+#pragma unroll
+  for (int v = 0; v < VECS; ++v) {
+    const long long e0 = wbase + static_cast<long long>(v * 32 + lane) * 16;
+    unsigned b = 0;
+    if (vec_ok && e0 + 16 <= n) {
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(mask + e0));
+      const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const unsigned nz = __vcmpne4(w[q], 0u);  // 0xFF in each nonzero byte
+#pragma unroll
+        for (int k = 0; k < 4; ++k) b |= ((nz >> (8 * k + 7)) & 1u) << (4 * q + k);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (e0 + j < n && mask[e0 + j]) b |= 1u << j;
+      }
+    }
+    bits[v] = b;
+    x[v][0] = __popc(b);
   }
-  if (fill && t < out_size) {
-    long long count = n > 0 ? static_cast<long long>(ranks[n - 1]) : 0;
-    if (t >= count) out[t] = -1;
+  unsigned base[VECS];
+  const unsigned warp_sum = warp_striped_scan<unsigned, VECS, 1>(x, base);
+  unsigned warp_off;
+  const unsigned prefix = tile_prefix<unsigned>(state, tile, (n + kTileN - 1) / kTileN, warp_sum,
+                                                s_warp, &s_prefix, nullptr, warp_off);
+  const long long start = static_cast<long long>(prefix) + warp_off;  // the warp's first rank
+  int* stage = s_stage[warp];
+#pragma unroll
+  for (int v = 0; v < VECS; ++v) {
+    // the warp's kept indices of load v have the consecutive ranks from
+    // start + first: staged in shared memory in rank order, then written
+    // by consecutive lanes to consecutive slots
+    const unsigned first = __shfl_sync(kFull, base[v], 0);
+    const unsigned count = __shfl_sync(kFull, base[v] + x[v][0], 31) - first;
+    const long long r0 = start + first;
+    if (count == 0 || r0 >= out_size) continue;  // uniform across the warp
+    const long long e0 = wbase + static_cast<long long>(v * 32 + lane) * 16;
+    unsigned pos = base[v] - first;
+    for (unsigned b = bits[v]; b != 0; b &= b - 1) stage[pos++] = static_cast<int>(e0 + __ffs(b) - 1);
+    __syncwarp();
+    for (unsigned i = lane; i < count && r0 + i < out_size; i += 32) out[r0 + i] = stage[i];
+    __syncwarp();
   }
 }
 
@@ -1579,30 +1801,31 @@ __global__ void rowshard_hop_kernel(const int* __restrict__ indptr, long long r,
 
 extern "C" {
 
-// Scratch elements (of the scan's type) that csr_scan_* needs for n inputs:
-// one tile sum per tile at every level above the last.
+// Bytes of look-back state that K1 (csr_scan_*) and K3 (csr_compact)
+// need for n elements: the tile counter, then one word a tile.
 long long csr_scan_scratch(long long n) {
-  long long total = 0;
-  while (n > kTile) {
-    n = (n + kTile - 1) / kTile;
-    total += n;
-  }
-  return total;
+  return lb_state_bytes(n > 0 ? (n + kScanTile - 1) / kScanTile : 0);
 }
 
-int csr_scan_i32(const void* in, void* out, long long n, void* scratch,
+long long csr_compact_scratch(long long n) {
+  return lb_state_bytes(n > 0 ? (n + kCompactTile - 1) / kCompactTile : 0);
+}
+
+// K1 over int32 (as uint32) or float32. `out` (null: no output, the total
+// alone) and `total` (null: none) are optional.
+int csr_scan_i32(const void* in, void* out, void* total, long long n, void* state,
                  int exclusive, void* stream) {
-  return static_cast<int>(scan_rec<unsigned>(
-      static_cast<const unsigned*>(in), static_cast<unsigned*>(out), n,
-      static_cast<unsigned*>(scratch), exclusive,
+  return static_cast<int>(scan_lookback<unsigned>(
+      static_cast<const unsigned*>(in), static_cast<unsigned*>(out),
+      static_cast<unsigned*>(total), n, static_cast<unsigned long long*>(state), exclusive,
       static_cast<cudaStream_t>(stream)));
 }
 
-int csr_scan_f32(const void* in, void* out, long long n, void* scratch,
+int csr_scan_f32(const void* in, void* out, void* total, long long n, void* state,
                  int exclusive, void* stream) {
-  return static_cast<int>(scan_rec<float>(
-      static_cast<const float*>(in), static_cast<float*>(out), n,
-      static_cast<float*>(scratch), exclusive, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(scan_lookback<float>(
+      static_cast<const float*>(in), static_cast<float*>(out), static_cast<float*>(total), n,
+      static_cast<unsigned long long*>(state), exclusive, static_cast<cudaStream_t>(stream)));
 }
 
 int csr_degree_counts(const void* indptr, long long nv, const void* srcs,
@@ -1631,14 +1854,24 @@ int csr_gather_expand(const void* indptr, long long nv, const void* nbrs,
   return static_cast<int>(cudaGetLastError());
 }
 
-int csr_compact_scatter(const void* mask, const void* ranks, long long n,
-                        long long out_size, void* out, int fill, void* stream) {
-  long long threads = fill && out_size > n ? out_size : n;
-  if (threads > 0) {
-    compact_scatter_kernel<<<blocks_for(threads, kThreads), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned char*>(mask), static_cast<const int*>(ranks),
-        n, out_size, static_cast<int*>(out), fill);
+// K3. The fill form (`fill` 1) needs `state` right behind the out_size
+// slots of `out` in one allocation: one memset of 0xFF bytes covers both.
+int csr_compact(const void* mask, long long n, long long out_size, void* out, void* state,
+                int fill, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const long long tiles = n > 0 ? (n + kCompactTile - 1) / kCompactTile : 0;
+  char* lo = static_cast<char*>(fill ? out : state);
+  char* hi = static_cast<char*>(state) + lb_state_bytes(tiles);
+  if (fill && static_cast<char*>(state) < static_cast<char*>(out) + 4 * out_size) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaMemsetAsync(lo, 0xff, hi - lo, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n > 0 && out_size > 0) {
+    const int vec_ok = reinterpret_cast<uintptr_t>(mask) % 16 == 0;
+    compact_lookback_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+        static_cast<const unsigned char*>(mask), n, out_size, static_cast<int*>(out),
+        static_cast<unsigned long long*>(state), vec_ok);
   }
   return static_cast<int>(cudaGetLastError());
 }

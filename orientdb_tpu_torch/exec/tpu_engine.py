@@ -343,6 +343,26 @@ class PlanStep:
         return f"{self.kind.upper()} {e.from_alias}{arrow}{e.to_alias}"
 
 
+def _edge_class_of(node: PatternNode, interp: MatchInterpreter) -> Optional[str]:
+    """The edge class (or ``E``) among ``node``'s class filters, if any."""
+    for f in node.filters:
+        cls = interp.db.schema.get_class(f.class_name) if f.class_name else None
+        if cls is not None and cls.is_edge_type:
+            return cls.name
+    return None
+
+
+def _root_step(node: PatternNode, interp: MatchInterpreter) -> PlanStep:
+    """The root step of ``node``. A root scans the vertex hull of its
+    classes, which an edge class (or ``E``) does not have: it would answer
+    empty where the reference's oracle reads edge records, so it refuses.
+    A SELECT over an edge class is such a root after its rewrite."""
+    cls = _edge_class_of(node, interp)
+    if cls is not None:
+        raise Uncompilable(f"root {node.alias!r} scans edge class {cls!r} (edge records)")
+    return PlanStep("root", alias=node.alias)
+
+
 def build_plan(pattern: Pattern, interp: MatchInterpreter) -> List[PlanStep]:
     """Static replay of the reference's greedy edge ordering: the bound
     alias set evolves independently of the data, so the order is known
@@ -374,7 +394,12 @@ def build_plan(pattern: Pattern, interp: MatchInterpreter) -> List[PlanStep]:
         if r == 3:
             fn, tn = pattern.nodes[e.from_alias], pattern.nodes[e.to_alias]
             root = fn if interp.estimate(fn) <= interp.estimate(tn) else tn
-            steps.append(PlanStep("root", alias=root.alias))
+            if _edge_class_of(root, interp) is not None:
+                # an edge-class endpoint admits no vertex, from either end:
+                # the answer is empty from the other side too, which has a
+                # hull to scan
+                root = tn if root is fn else fn
+            steps.append(_root_step(root, interp))
             bound.add(root.alias)
             edges.insert(0, e)
             continue
@@ -394,7 +419,7 @@ def build_plan(pattern: Pattern, interp: MatchInterpreter) -> List[PlanStep]:
             continue
         if n.is_edge_alias:
             raise Uncompilable("unbound edge alias would scan all edges")
-        steps.append(PlanStep("root", alias=n.alias))
+        steps.append(_root_step(n, interp))
         bound.add(n.alias)
     opts = list(optionals)
     while opts:
@@ -876,8 +901,7 @@ class TpuMatchSolver:
 
     def _expand_csr(self, indptr, nbrs, srcs):
         counts = K.degree_counts(indptr, srcs)
-        offsets = K.exclusive_cumsum(counts)
-        total_dev = K.value_sum(counts)
+        offsets, total_dev = K.exclusive_cumsum_total(counts)
         total = self.sched.observe(total_dev)
         row, edge_pos, nbr = K.gather_expand(
             indptr, nbrs, srcs, offsets, total_dev, _cap_of(total)
@@ -965,8 +989,7 @@ class TpuMatchSolver:
             self.tier.ensure_vertices(dec.class_name, d, srcs, self.tier_touched)
         indptr = dec.indptr_out if d == "out" else dec.indptr_in
         counts = K.degree_counts(indptr, srcs)
-        offsets = K.exclusive_cumsum(counts)
-        total_dev = K.value_sum(counts)
+        offsets, total_dev = K.exclusive_cumsum_total(counts)
         total = self.sched.observe(total_dev)
         row, eid, nbr, cold = tiering.paged_expand(
             self.dg.arrays, dec.class_name, d, srcs, offsets, total_dev, _cap_of(total)

@@ -39,11 +39,12 @@ _F = ctypes.c_float
 #: C entry point → argument types (every pointer and the stream as void*)
 SIGNATURES = {
     "csr_scan_scratch": [_N],
-    "csr_scan_i32": [_P, _P, _N, _P, _I, _P],
-    "csr_scan_f32": [_P, _P, _N, _P, _I, _P],
+    "csr_compact_scratch": [_N],
+    "csr_scan_i32": [_P, _P, _P, _N, _P, _I, _P],
+    "csr_scan_f32": [_P, _P, _P, _N, _P, _I, _P],
     "csr_degree_counts": [_P, _N, _P, _N, _P, _P],
     "csr_gather_expand": [_P, _N, _P, _N, _P, _P, _N, _P, _N, _P, _P, _P, _P],
-    "csr_compact_scatter": [_P, _P, _N, _N, _P, _I, _P],
+    "csr_compact": [_P, _N, _N, _P, _P, _I, _P],
     "csr_segment_sum_i32": [_P, _N, _P, _N, _N, _P, _P],
     "csr_segment_sum_f32": [_P, _N, _P, _N, _N, _P, _P],
     "csr_take_pad_i32": [_P, _N, _P, _N, _I, _P, _P],
@@ -122,6 +123,6 @@ def load():
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = _N if name == "csr_scan_scratch" else _I
+                fn.restype = _N if name.endswith("_scratch") else _I
             _lib = lib
     return _lib

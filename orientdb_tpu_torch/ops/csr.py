@@ -152,7 +152,11 @@ def _launch(name: str, fn, *args) -> None:
 # K1: prefix sums (value_cumsum / mask_cumsum / exclusive_cumsum)
 # ---------------------------------------------------------------------------
 
-_TILE = 1024  # the kernel's elements per block
+#: the kernels' tiles (`csrc/csr_kernels.cu`'s kScanTile and kCompactTile,
+#: chosen on the card, `PERF.md` §6), mirrored for the plain versions'
+#: blocking; the look-back state is sized by the library itself
+_TILE = 16384  # K1's elements per tile
+_COMPACT_TILE = 16384  # K3's mask bytes per tile
 
 
 def plain_cumsum(vals: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
@@ -170,30 +174,41 @@ def plain_cumsum(vals: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
     return inc - vals if exclusive else inc
 
 
-def _scan(vals: torch.Tensor, exclusive: bool) -> torch.Tensor:
-    _check(vals, (I32, F32), "scan")
-    if not _on_card(vals):
-        return plain_cumsum(vals, exclusive)
+def _scan_card(
+    vals: torch.Tensor, exclusive: bool, out: bool = True, total: bool = False
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """One K1 launch (after one memset of its state) on a CUDA tensor: the
+    scan (``out``) and/or the sum (``total``, a 0-d tensor)."""
     lib = _kernels.load()
-    n = vals.shape[0]
-    out = torch.empty_like(vals)
+    n, dev = vals.shape[0], vals.device
+    res = torch.empty_like(vals) if out else None
     if n == 0:
-        return out
-    scratch = torch.empty(
-        int(lib.csr_scan_scratch(n)), dtype=vals.dtype, device=vals.device
-    )
+        return res, torch.zeros((), dtype=vals.dtype, device=dev) if total else None
+    tot = torch.empty((), dtype=vals.dtype, device=dev) if total else None
+    # the look-back state, per call so that two streams never share one; in a
+    # capture it comes from the graph's pool and the memset empties it at
+    # every replay
+    state = torch.empty(int(lib.csr_scan_scratch(n)), dtype=torch.uint8, device=dev)
     is_int = vals.dtype == I32
     _launch(
         "scan_i32" if is_int else "scan_f32",
         lib.csr_scan_i32 if is_int else lib.csr_scan_f32,
         vals.data_ptr(),
-        out.data_ptr(),
+        None if res is None else res.data_ptr(),
+        None if tot is None else tot.data_ptr(),
         n,
-        scratch.data_ptr(),
+        state.data_ptr(),
         int(exclusive),
         _stream(vals),
     )
-    return out
+    return res, tot
+
+
+def _scan(vals: torch.Tensor, exclusive: bool) -> torch.Tensor:
+    _check(vals, (I32, F32), "scan")
+    if not _on_card(vals):
+        return plain_cumsum(vals, exclusive)
+    return _scan_card(vals, exclusive)[0]
 
 
 def value_cumsum(vals: torch.Tensor) -> torch.Tensor:
@@ -205,6 +220,17 @@ def exclusive_cumsum(counts: torch.Tensor) -> torch.Tensor:
     return _scan(counts, exclusive=True)
 
 
+def exclusive_cumsum_total(counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`exclusive_cumsum` and `value_sum` of the same values in one pass:
+    (offsets, total as a 0-d tensor)."""
+    _check(counts, (I32, F32), "exclusive_cumsum_total")
+    if not _on_card(counts):
+        inc = plain_cumsum(counts)
+        total = inc[-1] if counts.shape[0] else torch.zeros((), dtype=counts.dtype, device=counts.device)
+        return inc - counts, total
+    return _scan_card(counts, exclusive=True, total=True)
+
+
 def mask_cumsum(mask: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of a boolean mask, as int32."""
     _check(mask, (torch.bool,), "mask_cumsum")
@@ -214,10 +240,13 @@ def mask_cumsum(mask: torch.Tensor) -> torch.Tensor:
 def value_sum(vals: torch.Tensor) -> torch.Tensor:
     """Sum of int32/float32 values as a 0-d tensor of the same dtype: the
     last element of the inclusive scan (int32 wraps as the reference's
-    int32 reduction does)."""
+    int32 reduction does); on the card K1 without its output."""
+    _check(vals, (I32, F32), "value_sum")
     if vals.shape[0] == 0:
         return torch.zeros((), dtype=vals.dtype, device=vals.device)
-    return value_cumsum(vals)[-1]
+    if not _on_card(vals):
+        return plain_cumsum(vals)[-1]
+    return _scan_card(vals, exclusive=False, out=False, total=True)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -372,21 +401,29 @@ def compact_indices(
     if not (_on_card(mask) if out is None else _on_card(mask, out)):
         return plain_compact_indices(mask, out_size, out, offset)
     lib = _kernels.load()
-    n = mask.shape[0]
-    ranks = mask_cumsum(mask)
-    dst = torch.empty(out_size, dtype=I32, device=mask.device) if out is None else out
+    n, dev = mask.shape[0], mask.device
+    state_bytes = int(lib.csr_compact_scratch(n))
+    if out is None:
+        # the fill form: the look-back state right behind the slots (8-byte
+        # aligned), so that one memset sets both
+        lead = out_size + (out_size & 1)
+        buf = torch.empty(lead + state_bytes // 4, dtype=I32, device=dev)
+        dst, state = buf.data_ptr(), buf.data_ptr() + 4 * lead
+    else:
+        buf = torch.empty(state_bytes, dtype=torch.uint8, device=dev)
+        dst, state = out.data_ptr() + 4 * offset, buf.data_ptr()
     _launch(
         "compact_indices",
-        lib.csr_compact_scatter,
+        lib.csr_compact,
         mask.data_ptr(),
-        ranks.data_ptr(),
         n,
         out_size,
-        dst.data_ptr() + 4 * offset,
+        dst,
+        state,
         int(out is None),
         _stream(mask),
     )
-    return dst if out is None else out[offset : offset + out_size]
+    return buf[:out_size] if out is None else out[offset : offset + out_size]
 
 
 # ---------------------------------------------------------------------------
@@ -1388,8 +1425,7 @@ def slab_scan(a, e, live, srcs, base: int, size_for):
         "slab_scan", lib.csr_slab_scan_count,
         a.data_ptr(), live.data_ptr(), W, srcs.data_ptr(), R, counts.data_ptr(), _stream(a),
     )
-    offsets = exclusive_cumsum(counts)
-    total = value_sum(counts)
+    offsets, total = exclusive_cumsum_total(counts)
     out = size_for(total)
     row = torch.empty(out, dtype=I32, device=dev)
     eid, nbr = torch.empty_like(row), torch.empty_like(row)

@@ -91,6 +91,54 @@ def test_mask_cumsum_and_exclusive_cumsum(n):
     assert int(T.value_sum(_t(v))) == int(want_sum)
 
 
+# the edges of the kernels' look-back tiles (csr.py `_TILE` for K1,
+# `_COMPACT_TILE` for K3), and a length of many tiles
+TILE_LENGTHS = sorted(
+    {37 * T._COMPACT_TILE + 11}
+    | {n for t in (T._TILE, T._COMPACT_TILE) for n in (t - 1, t, t + 1, 2 * t + 1)}
+)
+
+
+@pytest.mark.parametrize("n", TILE_LENGTHS)
+def test_scans_at_the_lookback_tile(n):
+    """value_cumsum (int32 exactly, float32 to rtol 1e-5), exclusive_cumsum,
+    exclusive_cumsum_total, mask_cumsum and value_sum at the blocking of
+    the single-pass scan, against the reference."""
+    rng = np.random.default_rng(n + 31)
+    v = rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+    np.testing.assert_array_equal(T.value_cumsum(_t(v)).numpy(), _np(J.value_cumsum(jnp.asarray(v))))
+    want_ex = _np(J.exclusive_cumsum(jnp.asarray(v)))
+    np.testing.assert_array_equal(T.exclusive_cumsum(_t(v)).numpy(), want_ex)
+    want_sum = int(np.int32(_np(jnp.sum(jnp.asarray(v)))))
+    offsets, total = T.exclusive_cumsum_total(_t(v))
+    np.testing.assert_array_equal(offsets.numpy(), want_ex)
+    assert total.shape == () and int(total) == want_sum
+    assert int(T.value_sum(_t(v))) == want_sum
+    f = rng.random(n, dtype=np.float32)
+    _assert_f32_close(T.value_cumsum(_t(f)).numpy(), _np(J.value_cumsum(jnp.asarray(f))))
+    _assert_f32_close(np.asarray(float(T.value_sum(_t(f)))), np.asarray(float(f.astype(np.float64).sum())))
+    m = rng.random(n) < 0.4
+    np.testing.assert_array_equal(T.mask_cumsum(_t(m)).numpy(), _np(J.mask_cumsum(jnp.asarray(m))))
+
+
+@pytest.mark.parametrize("n", TILE_LENGTHS)
+@pytest.mark.parametrize("density", [0.02, 0.5])
+def test_compact_indices_at_the_lookback_tile(n, density):
+    """compact_indices in the fill form (with truncation) and the offset
+    form at the blocking of the one-pass compaction, against the
+    reference."""
+    m = np.random.default_rng(n + 32).random(n) < density
+    trues = int(m.sum())
+    for out_size in sorted({8, max(1, trues // 2), T.bucket(max(trues, 1)), T.bucket(n)}):
+        want = _np(J.compact_indices(jnp.asarray(m), out_size))
+        np.testing.assert_array_equal(T.compact_indices(_t(m), out_size).numpy(), want)
+        buf = torch.full((out_size + 5,), -1, dtype=torch.int32)
+        got = T.compact_indices(_t(m), out_size, out=buf, offset=5)
+        kept = min(trues, out_size)
+        np.testing.assert_array_equal(got.numpy()[:kept], want[:kept])
+        assert (buf.numpy()[:5] == -1).all() and (buf.numpy()[5 + kept :] == -1).all()
+
+
 @pytest.mark.parametrize("n", LENGTHS)
 def test_degree_counts_with_padding(n):
     rng = np.random.default_rng(n + 3)

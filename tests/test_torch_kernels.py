@@ -85,6 +85,75 @@ def test_kernels_equal_plain_on_card(card, n):
     torch.cuda.synchronize()
 
 
+#: lengths around K1's and K3's tiles, and one of 4,097 tiles of the larger:
+#: a look-back that walks back past many predecessors
+TILE_LENGTHS = sorted(
+    {0, 1, 4097 * max(T._TILE, T._COMPACT_TILE) + 5}
+    | {n for t in (T._TILE, T._COMPACT_TILE) for n in (t - 1, t, t + 1, 2 * t + 1)}
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TILE_LENGTHS)
+def test_scan_forms_equal_plain_on_card(card, n):
+    """K1's one-pass forms (inclusive, exclusive, with the device total,
+    the total alone, a bool mask's ranks) and K3's one-pass compaction
+    (fill and offset forms, with truncation) against their plain versions
+    at the tile's edges: int32 and indices exactly, float32 to rtol 1e-5."""
+    rng = np.random.default_rng(n + 21)
+    v_i = _t(rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(np.int32)).to(card)
+    v_f = _t(rng.random(n, dtype=np.float32)).to(card)
+    mask = _t(rng.random(n) < 0.3).to(card)
+    for exclusive in (False, True):
+        assert torch.equal(T._scan(v_i, exclusive), T.plain_cumsum(v_i, exclusive))
+        torch.testing.assert_close(
+            T._scan(v_f, exclusive), T.plain_cumsum(v_f, exclusive), rtol=F32_RTOL, atol=F32_RTOL * max(n, 1)
+        )
+    offsets, total = T.exclusive_cumsum_total(v_i)
+    assert torch.equal(offsets, T.plain_cumsum(v_i, True))
+    want = T.plain_cumsum(v_i)[-1] if n else torch.zeros((), dtype=torch.int32, device=card)
+    assert total.shape == () and int(total) == int(want)
+    assert int(T.value_sum(v_i)) == int(want)
+    want_f = float(v_f.double().sum())
+    assert abs(float(T.value_sum(v_f)) - want_f) <= F32_RTOL * max(want_f, 1.0)
+    assert torch.equal(T.mask_cumsum(mask), T.plain_cumsum(mask.to(torch.int32)))
+    kept = int(mask.sum())
+    for out_size in (8, max(kept // 2, 1), T.bucket(max(kept, 1)), n + 3):
+        assert torch.equal(T.compact_indices(mask, out_size), T.plain_compact_indices(mask, out_size))
+        a = torch.full((out_size + 11,), -1, dtype=torch.int32, device=card)
+        b = a.clone()
+        got = T.compact_indices(mask, out_size, out=a, offset=11)
+        assert torch.equal(got, T.plain_compact_indices(mask, out_size, out=b, offset=11))
+        assert torch.equal(a, b)
+    if n > 1:  # unaligned starts: the scalar path of the 16-byte loads
+        assert torch.equal(T._scan(v_i[1:], False), T.plain_cumsum(v_i[1:]))
+        assert torch.equal(T.compact_indices(mask[1:], n), T.plain_compact_indices(mask[1:], n))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_scan_replays_equal_plain(card):
+    """1,000 replays of one captured K1 launch on the same look-back state:
+    each replay scans another input into a poisoned output and must equal
+    the plain version, so state left over from the replay before shows."""
+    n = 1_000_003
+    rng = np.random.default_rng(5)
+    inputs = [_t(rng.integers(0, 2**20, n, dtype=np.int32)).to(card) for _ in range(2)]
+    wants = [T.plain_cumsum(v) for v in inputs]
+    static = inputs[0].clone()
+    T.value_cumsum(static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = T.value_cumsum(static)
+    for i in range(1000):
+        static.copy_(inputs[i % 2])
+        out.fill_(-7)
+        graph.replay()
+        assert torch.equal(out, wants[i % 2]), i
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("skew", [0, 20])
 def test_queries_on_card_equal_cpu(card, skew):
