@@ -19,7 +19,12 @@ from the root of a checkout. Phases, each of which raises on failure:
    exactly at V1's shapes (8-row chunks of 2^23-vertex bitmaps over the
    ~80M edges), on live BFS levels, in both directions, with an edge mask,
    a WHILE gate, an empty frontier, an empty edge list, all-padding rows,
-   duplicate targets and a bound (close-arm) row vector. K15
+   duplicate targets and a bound (close-arm) row vector; K10 in both
+   forms: the CSR form (the engine's hop, `bitmap_hop_csr`) at the roots,
+   levels 1 and 2, every vertex active and 33 rows, out and in (the mask
+   through ``edge_id_in``), masked, gated, both directions ORed, each
+   timed eagerly and in a graph beside the edge-list form (which the
+   engine runs over a dirty delta slab) and ``torch.sparse.mm``. K15
    `predicate_eval` is held exactly against its plain version on every
    instruction family of its predicate programs (`K15_WHERES`) over 2^23
    synthetic slots with ~10 % absent values, ids with -1 and past-end
@@ -196,7 +201,7 @@ from the root of a checkout. Phases, each of which raises on failure:
 The line before the last is one JSON object with every kernel's numbers
 (``launches`` from phase 5, from phase 6's replay path for
 `rows_with_matches`, from phase 7 for `group_page`, from phase 8 for
-K16–K18, from phase 9 for K19–K21 and from phase 7m's cells for the mesh
+K16–K18 and K10's edge-list form, from phase 9 for K19–K21 and from phase 7m's cells for the mesh
 kernels, each but the mesh's plus phase 5c's replay path;
 K3, K12 and K15 timed in their TRAVERSE forms: the offset form on TR4's
 largest level, the gated step at [1, 2^23], M1's node mask with its ID
@@ -255,6 +260,7 @@ REPLACES = {
     "narrow_i16": "orientdb_tpu/exec/tpu_engine.py:3197",
     "rows_to_bitmap": "orientdb_tpu/ops/csr.py:251",
     "bitmap_hop": "orientdb_tpu/ops/csr.py:260",
+    "bitmap_hop_csr": "orientdb_tpu/ops/csr.py:260",
     "bitmap_emit": "orientdb_tpu/exec/tpu_engine.py:475",
     "frontier_advance": "orientdb_tpu/exec/tpu_engine.py:2171",
     "rows_with_matches": "orientdb_tpu/ops/csr.py:283",
@@ -272,12 +278,13 @@ REPLACES = {
     "shard_weight_pass": "orientdb_tpu/parallel/mesh_graph.py:480",
     "rowshard_hop": "orientdb_tpu/parallel/sharded.py:202",
 }
-BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop", "bitmap_emit", "frontier_advance"]
+BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop_csr", "bitmap_emit", "frontier_advance"]
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
 #: the kernel only the batch path launches (phase 7)
 BATCH_ONLY = ("group_page",)
-#: the kernels only a delta-maintained snapshot launches (phase 8)
-DELTA_ONLY = ("scatter_set", "slab_scan", "slab_probe")
+#: the kernels only a delta-maintained snapshot launches (phase 8; K10's
+#: edge-list form walks the slab's slots once the topology is dirty)
+DELTA_ONLY = ("scatter_set", "slab_scan", "slab_probe", "bitmap_hop")
 #: the kernels only a tiered snapshot launches (phase 9)
 TIER_ONLY = ("paged_hop", "paged_hop_miss", "paged_expand")
 #: the kernels only a meshed snapshot launches (phase 7m)
@@ -810,6 +817,25 @@ def check_bitmap_kernels(torch, K, ks, dg) -> None:
     hop_both(act, few, None, small)
     hop_both(act, few + 62, emask[:4096].contiguous(), small)
 
+    # -- K10's CSR form at V1's shapes: the engine's hop ------------------------
+    csr_out = (dec.indptr_out, dst, None)
+    csr_in = (dec.indptr_in, dec.src, dec.edge_id_in)  # the mask through eid
+    dense = torch.ones_like(fr1)
+    fr33 = K.bitmap_hop_csr(*csr_out, None, K.rows_to_bitmap(torch.arange(33, dtype=i32, device=dev), vb))
+    for fr in (fr0, fr1, fr2, dense, fr33, zero_fr):
+        alive = K.mask_count(fr.view(-1))
+        for hop in (csr_out, csr_in):
+            for m, g in ((None, None), (emask, None), (None, gate), (emask, gate)):
+                got = K.bitmap_hop_csr(*hop, m, fr, gate=g, alive=alive)
+                same("bitmap_hop_csr", got, K.plain_bitmap_hop_csr(*hop, m, fr, g, alive))
+        acc = K.bitmap_hop_csr(*csr_out, emask, fr)  # both directions, ORed in place
+        K.bitmap_hop_csr(*csr_in, emask, fr, out=acc)
+        same("bitmap_hop_csr", acc,
+             K.plain_bitmap_hop_csr(*csr_out, emask, fr) | K.plain_bitmap_hop_csr(*csr_in, emask, fr))
+    # the CSR form equals the edge-list form over the edges it expands to
+    same("bitmap_hop_csr", K.bitmap_hop_csr(*csr_out, emask, fr2), K.bitmap_hop(src, dst, emask, fr2))
+    same("bitmap_hop_csr", K.bitmap_hop_csr(*csr_in, None, fr2), K.bitmap_hop(dst, src, None, fr2))
+
     # -- K11: open and close emissions, each output --------------------------
     bound = torch.tensor([-2, -1, 0, 5, vb - 1, -2, 7, 3], dtype=i32, device=dev)
     hits = torch.nonzero(fr2[:, :V]).to(i32)  # a reached (row, vertex) per row
@@ -854,13 +880,17 @@ def check_bitmap_kernels(torch, K, ks, dg) -> None:
         fr1_t = fr1.t().float().contiguous()
     except (RuntimeError, TypeError) as e:
         print(f"library call for bitmap_hop refused: {e}")
+    # the edge-list form must read every edge's active endpoint, and the
+    # emitted endpoint of each edge whose endpoint is active
+    act_edges = int(fr1.any(0)[src.long()].sum())
     ks.timed(
         "bitmap_hop",
         lambda: K.bitmap_hop(src, dst, None, fr1, alive=alive1),
         lambda: K.plain_bitmap_hop(src, dst, None, fr1, None, alive1),
         None if in_csr is None else (lambda: torch.sparse.mm(in_csr, fr1_t)),
-        8.0 * E + 2.0 * C * vb + 4.0,
+        4.0 * E + 4.0 * act_edges + 2.0 * C * vb + 4.0,
     )
+    time_bitmap_hop_csr(torch, K, ks, dg, fr0, fr1, fr2, dense, fr33, zero_fr, emask, gate, in_csr)
     ks.timed(
         "bitmap_emit",
         lambda: K.bitmap_emit(fr2, young, None, emit=False, count=True),
@@ -877,13 +907,105 @@ def check_bitmap_kernels(torch, K, ks, dg) -> None:
         4.0 * C * vb + 4.0,
     )
     for name, fn in (
-        ("bitmap_hop (empty frontier, early exit)", lambda: K.bitmap_hop(src, dst, None, zero_fr, alive=torch.zeros((), dtype=i32, device=dev))),
-        ("bitmap_hop (in direction)", lambda: K.bitmap_hop(dst, src, None, fr1, alive=alive1)),
         ("bitmap_emit (emit + count)", lambda: K.bitmap_emit(fr2, young, None, emit=True, count=True)),
     ):
         print(f"kernel {name}: {_time_ms(torch, fn):.4f} ms")
     torch.cuda.synchronize()
     print(f"bitmap kernels: equal their plain versions at C={C}, vb={vb}, E={E}")
+
+
+def csr_hop_bytes(torch, indptr, fr, gate, masked: bool, eid: bool):
+    """(bytes, active vertices, their edges): the bytes K10's CSR form must
+    move for this frontier are the frontier (and gate) read once, 8 bytes
+    of indptr an active vertex, 4 of nbr (+1 of mask, +4 of eid) an edge of
+    an active vertex, and the bitmap written once."""
+    C, vb = fr.shape
+    nv = indptr.shape[0] - 1
+    act = fr.any(0)[:nv]
+    if gate is not None:
+        act = act & gate[:nv]
+    deg = (indptr[1:] - indptr[:-1]).long()
+    n_act, n_edges = int(act.sum()), int(deg[act].sum())
+    per_edge = 4.0 + (1.0 if masked else 0.0) + (4.0 if masked and eid else 0.0)
+    return 2.0 * C * vb + (vb if gate is not None else 0.0) + 8.0 * n_act + per_edge * n_edges, n_act, n_edges
+
+
+def time_bitmap_hop_csr(torch, K, ks, dg, fr0, fr1, fr2, dense, fr33, zero_fr, emask, gate, in_csr):
+    """K10's CSR form timed at V1's shapes, each beside the edge-list form
+    on the same hop and `torch.sparse.mm` (counts, not bits; the yardstick
+    of `PERF.md` §6): the roots, levels 1 and 2 from 8 roots, every vertex
+    active, out and in, masked through eid, gated, C = 33, both directions
+    ORed, an empty frontier. The row of the JSON line is level 1's out hop
+    (the timed shape of the edge-list row). Bounds from this run's data."""
+    i32 = torch.int32
+    dec = dg.edges["knows"]
+    E = dec.num_edges
+    vb = fr1.shape[1]
+    src, dst = dec.edge_src, dec.dst
+    out_ip, in_ip = dec.indptr_out, dec.indptr_in
+    csr_out = (out_ip, dst, None)
+    csr_in = (in_ip, dec.src, dec.edge_id_in)
+    out_sp = None
+    try:
+        crow = torch.cat([out_ip, out_ip[-1:].expand(vb + 1 - out_ip.shape[0])])
+        out_sp = torch.sparse_csr_tensor(crow, dst, torch.ones(E, device=dst.device), size=(vb, vb))
+    except (RuntimeError, TypeError) as e:
+        print(f"library call for bitmap_hop_csr refused: {e}")
+    alive1 = K.mask_count(fr1.view(-1))
+    b1, n_act, n_edges = csr_hop_bytes(torch, out_ip, fr1, None, False, False)
+    ks.timed(
+        "bitmap_hop_csr",
+        lambda: K.bitmap_hop_csr(*csr_out, None, fr1, alive=alive1),
+        lambda: K.plain_bitmap_hop_csr(*csr_out, None, fr1, None, alive1),
+        None if in_csr is None else (lambda: torch.sparse.mm(in_csr, fr1.t().float().contiguous())),
+        b1,
+    )
+    row = ks.rows["bitmap_hop_csr"]
+    print(
+        f"kernel bitmap_hop_csr (level 1 out, {n_act} active vertices, {n_edges} edges): {row['ms']:.4f} ms, "
+        f"{_graph_ms(torch, lambda: K.bitmap_hop_csr(*csr_out, None, fr1, alive=alive1)):.4f} in a graph, "
+        f"bound {row['bound_ms']:.4f}; edge-list {ks.rows['bitmap_hop']['ms']:.4f}, sparse.mm {row['library_ms']}"
+    )
+
+    def spmm(sp, fr):
+        if sp is None:
+            return None
+        fr_t = fr.t().float().contiguous()
+        return lambda: torch.sparse.mm(sp, fr_t)
+
+    both = lambda fr, m: K.bitmap_hop_csr(*csr_in, m, fr, out=K.bitmap_hop_csr(*csr_out, m, fr))  # noqa: E731
+    both_el = lambda fr, m: K.bitmap_hop(dst, src, m, fr, out=K.bitmap_hop(src, dst, m, fr))  # noqa: E731
+    cases = [
+        ("roots out", fr0, csr_out, (src, dst), None, None, in_csr),
+        ("level 1 in", fr1, csr_in, (dst, src), None, None, out_sp),
+        ("level 2 out", fr2, csr_out, (src, dst), None, None, in_csr),
+        ("level 2 in", fr2, csr_in, (dst, src), None, None, out_sp),
+        ("dense out", dense, csr_out, (src, dst), None, None, in_csr),
+        ("dense in", dense, csr_in, (dst, src), None, None, out_sp),
+        ("level 1 in, masked through eid", fr1, csr_in, (dst, src), emask, None, None),
+        ("level 2 out, masked", fr2, csr_out, (src, dst), emask, None, None),
+        ("level 2 out, gated", fr2, csr_out, (src, dst), None, gate, None),
+        ("C=33 level 1 out", fr33, csr_out, (src, dst), None, None, in_csr),
+    ]
+    for name, fr, hop, el, m, g, sp in cases:
+        alive = K.mask_count(fr.view(-1))
+        nbytes, n_act, n_edges = csr_hop_bytes(torch, hop[0], fr, g, m is not None, hop[2] is not None)
+        ms = _time_ms(torch, lambda: K.bitmap_hop_csr(*hop, m, fr, gate=g, alive=alive))
+        g_ms = _graph_ms(torch, lambda: K.bitmap_hop_csr(*hop, m, fr, gate=g, alive=alive))
+        el_ms = _time_ms(torch, lambda: K.bitmap_hop(*el, m, fr, gate=g, alive=alive))
+        lib = _library_ms(torch, "bitmap_hop_csr", spmm(sp, fr))
+        print(
+            f"kernel bitmap_hop_csr ({name}, {n_act} active vertices, {n_edges} edges): {ms:.4f} ms, "
+            f"{g_ms:.4f} in a graph, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f}; edge-list {el_ms:.4f}, "
+            f"sparse.mm {lib}"
+        )
+    for name, fr in (("level 1 both, ORed", fr1), ("level 2 both, ORed", fr2)):
+        ms, el_ms = _time_ms(torch, lambda: both(fr, None)), _time_ms(torch, lambda: both_el(fr, None))
+        print(f"kernel bitmap_hop_csr ({name}): {ms:.4f} ms, edge-list {el_ms:.4f}")
+    zero = torch.zeros((), dtype=i32, device=fr1.device)
+    ms = _time_ms(torch, lambda: K.bitmap_hop_csr(*csr_out, None, zero_fr, alive=zero))
+    el_ms = _time_ms(torch, lambda: K.bitmap_hop(src, dst, None, zero_fr, alive=zero))
+    print(f"kernel bitmap_hop_csr (empty frontier, early exit): {ms:.4f} ms, edge-list {el_ms:.4f}")
 
 
 class VRef:
@@ -1710,7 +1832,7 @@ M2 = "MATCH {{class:Person, rid:#{c}:{p}, as:p}}-knows->{{as:f}} RETURN $element
 BT1_ITEMS = 8
 #: the kernels a TRAVERSE replay runs: the root seed (K16), the hops (K10),
 #: the admission (K12), the level's compaction (K3) and the WHILE gate (K15)
-TRAVERSE_KERNELS = ["scatter_set", "bitmap_hop", "frontier_advance", "compact_indices", "predicate_eval"]
+TRAVERSE_KERNELS = ["scatter_set", "bitmap_hop_csr", "frontier_advance", "compact_indices", "predicate_eval"]
 
 
 def csr_neighbours(np, indptr, nbrs, f):
@@ -2415,8 +2537,9 @@ def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big, gref):
 def check_group_page(torch, K, ks, stack, plan, ks3, q3_big):
     """K14 against its plain version at BQ3's lane stack (16 lanes of Q3's
     [W, 3] front-packs) at the page BQ3 elects, in int32 and int16, and at
-    edge cases (B < Bb, n = W, n·C not a multiple of 4, C = 1, one row, an
-    empty page), exactly; then its time at BQ3's page (int32: Q3's uids
+    edge cases (B < Bb, B = 1, n = W, n·C not a multiple of 4 or 8, C = 1,
+    one row, an empty page, a lane stride that breaks 16-byte alignment),
+    exactly; then its time at BQ3's page (int32: Q3's uids
     pass 32767) beside its bound and the library's slice copy, and the
     int16 page and the full stack; its own launches are not counted."""
     counted = dict(K.LAUNCHES)  # these launches compare and time: not the main path's
@@ -2425,9 +2548,15 @@ def check_group_page(torch, K, ks, stack, plan, ks3, q3_big):
     n = plan._page_round(W, need)
     one_col = stack[:, :, :1].contiguous()
     one_row = stack[:, :1].contiguous()
+    # W - 1 rows of 3 columns: a lane stride that breaks the source's
+    # 16-byte alignment, so each lane starts at its own offset; at the
+    # elected page n the output's lanes stay aligned and the sources are
+    # read with 4-byte loads, at n - 1 both shift alike
+    odd = stack[:, : W - 1].contiguous()
     for f16 in (False, True):
         for st, B, m in ((stack, Bb, n), (stack, 11, n), (stack, Bb, W), (stack, 3, 5), (stack, Bb, 1),
-                         (one_col, Bb, n), (one_col, 5, 7), (one_row, Bb, 1), (stack, 0, 0)):
+                         (one_col, Bb, n), (one_col, 5, 7), (one_row, Bb, 1), (stack, 0, 0),
+                         (odd, Bb, n), (odd, Bb, n - 1), (odd, 1, n - 3), (stack, 1, n), (stack, Bb, n - 3)):
             ks.same("group_page", K.group_page(st, B, m, f16), K.plain_group_page(st, B, m, f16))
     torch.cuda.synchronize()
     ks.timed(
@@ -2441,13 +2570,21 @@ def check_group_page(torch, K, ks, stack, plan, ks3, q3_big):
     lib16 = _time_ms(torch, lambda: stack[:Bb, :n].to(torch.int16))
     bound16 = 6.0 * Bb * n * C / HBM_BYTES_PER_S * 1e3
     ms_w = _time_ms(torch, lambda: K.group_page(stack, Bb, W, False))
+    for m in (n, n - 1):
+        print(
+            f"kernel group_page (unaligned: stride {(W - 1) * C} values, run {m * C}): "
+            f"{_time_ms(torch, lambda: K.group_page(odd, Bb, m, False)):.4f} ms, "
+            f"{_graph_ms(torch, lambda: K.group_page(odd, Bb, m, False), 200):.4f} in a graph "
+            f"(library .clone() {_graph_ms(torch, lambda: odd[:Bb, :m].clone(), 200):.4f}); int16 "
+            f"{_graph_ms(torch, lambda: K.group_page(odd, Bb, m, True), 200):.4f} in a graph"
+        )
     print(
         f"kernel group_page: equals its plain version at BQ3's stack [{Bb}, {W}, {C}], elected page "
         f"n={n} (largest lane {need} rows); int16 at that page {ms16:.4f} ms (library .to(int16) "
         f"{lib16:.4f} ms, bound {bound16:.4f} ms); int32 full stack n=W {ms_w:.4f} ms; in a captured "
-        f"graph, int32 at the page {_graph_ms(torch, lambda: K.group_page(stack, Bb, n, False)):.4f} ms "
-        f"(library .clone() {_graph_ms(torch, lambda: stack[:Bb, :n].clone()):.4f} ms), int16 "
-        f"{_graph_ms(torch, lambda: K.group_page(stack, Bb, n, True)):.4f} ms"
+        f"graph (200 replays), int32 at the page {_graph_ms(torch, lambda: K.group_page(stack, Bb, n, False), 200):.4f} ms "
+        f"(library .clone() {_graph_ms(torch, lambda: stack[:Bb, :n].clone(), 200):.4f} ms), int16 "
+        f"{_graph_ms(torch, lambda: K.group_page(stack, Bb, n, True), 200):.4f} ms"
     )
     K.LAUNCHES.update(counted)
 
@@ -2865,7 +3002,7 @@ def run_deltas(np, torch, K, TE, ks, db, snap, card):
         _require(not ov.bucket_overflow, f"{tag} overflowed a bucket: {ov.bucket_overflow}")
     _require(all(dg.arrays[k].data_ptr() == p for k, p in ptrs.items()), "a patch reallocated a resident tensor")
     path = dict(K.LAUNCHES)
-    for name in ("scatter_set", "slab_probe", "predicate_eval", "bitmap_hop", "group_page"):
+    for name in ("scatter_set", "slab_probe", "predicate_eval", "bitmap_hop", "bitmap_hop_csr", "group_page"):
         _require(path[name] > 0, f"{name} never launched in the delta phase")
     check_delta_kernels(np, torch, K, ks, dg, snap)
 

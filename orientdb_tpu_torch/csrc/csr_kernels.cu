@@ -701,8 +701,9 @@ __global__ void rows_to_bitmap_kernel(const int* __restrict__ rows, long long c,
 }
 
 // ---------------------------------------------------------------------------
-// K10: bitmap_hop (replaces csr.bitmap_hop, orientdb_tpu/ops/csr.py:260, as
-// build_bitmap_hops drives it, orientdb_tpu/exec/tpu_engine.py:487).
+// K10, edge-list form: bitmap_hop (csr.bitmap_hop, orientdb_tpu/ops/csr.py:260,
+// over an arbitrary edge list; the engine runs it over a delta slab's slots,
+// which no CSR row holds, beside the CSR form below).
 // out[c, emit[e]] |= frontier[c, act[e]] & mask[e] (& gate[act[e]]).
 // Bound: 8 bytes of endpoints (+1 of mask, +1 of gate) an edge, the
 // frontier read once and `out` written once: 9*E + 2*64 MiB ~ 0.85 GB,
@@ -740,6 +741,157 @@ __global__ void bitmap_hop_kernel(const int* __restrict__ act,
     m = m < 0 ? 0 : (m < vb ? m : vb - 1);  // jnp.clip(emit_idx, 0, vb - 1)
     for (long long r = 0; r < c; ++r) {
       if (frontier[r * vb + a]) out[r * vb + m] = 1;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K10, CSR form: bitmap_hop_csr (replaces csr.bitmap_hop,
+// orientdb_tpu/ops/csr.py:260, as build_bitmap_hops drives it,
+// orientdb_tpu/exec/tpu_engine.py:487, over a class's base CSR).
+// out[c, nbr[s]] |= frontier[c, v] & gate[v] & mask[eid[s] or s] for every
+// slot s of row v of `indptr`: the rows are the endpoint that must be
+// active (indptr_out for an out hop, indptr_in for an in hop), `nbr` the
+// endpoint reached, `eid` (may be null) the slot's out-order edge id, read
+// only to index `mask`. The mask is tested first and `nbr` clipped after,
+// as the reference's edge list does (a tombstoned slot's -1 neighbour is
+// masked by `live` before its clip could alias vertex 0).
+// Bound: the work depends on the frontier. Read: C*vb frontier bytes (and
+// vb of gate), 8 bytes of indptr an active vertex, 4 of nbr (+1 of mask,
+// +4 of eid) an edge of an active vertex; written: C*vb. At V1's level 1
+// (8 roots, ~80 active vertices, [8, 2^23]): 2*64 MiB, ~0.04 ms.
+// Design: a warp takes 128 vertices a step (4 a lane: one 32-bit load a
+// frontier row, coalesced), ANDs in the gate and packs its vertices' rows
+// into a 32-bit row mask (rows in blocks of 32 when C > 32). A ballot skips
+// the group when none is active, so a sparse hop costs its frontier read
+// and the zeroing. Otherwise the warp lists its active vertices of nonzero
+// degree in shared memory (start slot, exclusive prefix of degree, row
+// mask; two warp scans), walks the flat span of their edges 32 slots a
+// step, each lane finding its slot's vertex by a binary search of the
+// prefixes, and stores a 1 for each set row bit at the reached vertex.
+// Consecutive vertices' slots are contiguous in `nbr`, so those reads
+// coalesce at any density. Racing stores all write 1: no atomics. The grid
+// is sized from the row count, never from the active count, so a captured
+// replay needs no host read; `alive` at 0 returns at once.
+// ---------------------------------------------------------------------------
+constexpr int kHopGroup = 128;  // vertices a warp step: 4 a lane
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+bitmap_hop_csr_kernel(const int* __restrict__ indptr, long long nv,
+                      const int* __restrict__ nbr, const int* __restrict__ eid,
+                      const unsigned char* __restrict__ emask, long long ne,
+                      const unsigned char* __restrict__ frontier,
+                      const unsigned char* __restrict__ gate, long long c, long long vb,
+                      const int* __restrict__ alive, unsigned char* __restrict__ out) {
+  if (alive != nullptr && *alive == 0) return;
+  __shared__ int s_start[kWarps][kHopGroup];
+  __shared__ int s_pref[kWarps][kHopGroup];
+  __shared__ unsigned s_rows[kWarps][kHopGroup];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const long long groups = (nv + kHopGroup - 1) / kHopGroup;
+  const long long wstride = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long g = static_cast<long long>(blockIdx.x) * kWarps + w; g < groups; g += wstride) {
+    const long long v0 = g * kHopGroup + 4 * lane;  // this lane's first vertex
+    for (long long rb = 0; rb < c; rb += 32) {
+      const int nr = static_cast<int>(c - rb < 32 ? c - rb : 32);
+      unsigned mk[4] = {0u, 0u, 0u, 0u};
+      if (v0 < nv) {
+        const unsigned char* f = frontier + rb * vb + v0;
+        if (kVec) {
+          // vb % 4 == 0 and v0 < nv <= vb: the 4 bytes lie inside the row
+#pragma unroll 8
+          for (int r = 0; r < nr; ++r) {
+            const unsigned x = __ldg(reinterpret_cast<const unsigned*>(f + r * vb));
+#pragma unroll
+            for (int k = 0; k < 4; ++k) mk[k] |= static_cast<unsigned>(((x >> (8 * k)) & 0xffu) != 0) << r;
+          }
+          if (gate != nullptr) {
+            const unsigned x = __ldg(reinterpret_cast<const unsigned*>(gate + v0));
+#pragma unroll
+            for (int k = 0; k < 4; ++k) if (((x >> (8 * k)) & 0xffu) == 0) mk[k] = 0;
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (v0 + k >= nv) break;
+            for (int r = 0; r < nr; ++r) mk[k] |= static_cast<unsigned>(f[r * vb + k] != 0) << r;
+            if (gate != nullptr && !gate[v0 + k]) mk[k] = 0;
+          }
+        }
+#pragma unroll
+        for (int k = 1; k < 4; ++k) if (v0 + k >= nv) mk[k] = 0;
+      }
+      if (!__any_sync(kFull, (mk[0] | mk[1] | mk[2] | mk[3]) != 0u)) continue;
+      // the lane's active vertices of nonzero degree
+      int st[4], dg[4];
+      int cnt = 0, dsum = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        st[k] = 0;
+        dg[k] = 0;
+        if (mk[k] != 0u) {
+          st[k] = indptr[v0 + k];
+          dg[k] = indptr[v0 + k + 1] - st[k];
+          if (dg[k] > 0) {
+            ++cnt;
+            dsum += dg[k];
+          } else {
+            mk[k] = 0u;
+          }
+        }
+      }
+      int ic = cnt, id = dsum;  // inclusive warp scans
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int tc = __shfl_up_sync(kFull, ic, o);
+        const int td = __shfl_up_sync(kFull, id, o);
+        if (lane >= o) {
+          ic += tc;
+          id += td;
+        }
+      }
+      const int na = __shfl_sync(kFull, ic, 31);
+      const int total = __shfl_sync(kFull, id, 31);
+      int pos = ic - cnt, off = id - dsum;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (mk[k] != 0u) {
+          s_start[w][pos] = st[k];
+          s_pref[w][pos] = off;
+          s_rows[w][pos] = mk[k];
+          ++pos;
+          off += dg[k];
+        }
+      }
+      __syncwarp();
+      for (int p = lane; p < total; p += 32) {
+        int lo = 0, hi = na - 1;  // the last entry whose prefix is <= p
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (s_pref[w][mid] <= p) lo = mid; else hi = mid - 1;
+        }
+        const long long slot = static_cast<long long>(s_start[w][lo]) + (p - s_pref[w][lo]);
+        if (emask != nullptr) {
+          long long e = slot;
+          if (eid != nullptr) {
+            const int x = eid[slot];  // take_pad(mask, eid, False)
+            if (x < 0 || ne <= 0) continue;
+            e = x < ne ? x : ne - 1;
+          }
+          if (!emask[e]) continue;
+        }
+        long long m = nbr[slot];
+        m = m < 0 ? 0 : (m < vb ? m : vb - 1);  // jnp.clip(emit_idx, 0, vb - 1)
+        unsigned rows = s_rows[w][lo];
+        while (rows != 0u) {
+          const int r = __ffs(rows) - 1;
+          rows &= rows - 1u;
+          out[(rb + r) * vb + m] = 1;
+        }
+      }
+      __syncwarp();
     }
   }
 }
@@ -901,60 +1053,96 @@ __global__ void rows_with_matches_kernel(const int* __restrict__ rows,
 // page: the kernel is a copy of B runs.
 // Bound: B*n*C*4 bytes read + B*n*C*(4 or 2) written (BQ3's full int32
 // page, 16 x 131072 x 3: 50 MB, ~0.015 ms).
-// Design: gridDim.y walks the lanes, gridDim.x grid-strides over a run;
-// 16-byte loads and stores where the run and the stack's lane stride allow
-// (four int32 a thread, or eight int32 read as two int4 and stored as eight
-// int16), else one value a thread.
+// Design: a straight-line copy, one launch for every run length and
+// alignment. gridDim.y walks the lanes and gridDim.x covers a lane's run in
+// tiles of kThreads*kPageUnroll 16-byte output units, sized to the run (no
+// grid-stride cap). Each thread starts its kPageUnroll loads (streaming,
+// __ldcs: the stack is read once) before its first store. A unit is 16
+// bytes out: four int32 in, or eight int32 (32 bytes) in the narrow form.
+// Units are aligned to the lane's output run: a scalar head (values before
+// the output's first 16-byte boundary) and a scalar tail (past the last
+// whole unit) are copied by the lane's first block; a source that is not
+// 16-byte aligned at the same value (a lane stride W*C not a multiple of
+// 4, or a head that shifts it) is read with 4-byte loads, still kPageUnroll
+// units in flight.
 // ---------------------------------------------------------------------------
-__device__ inline unsigned pack_i16(int lo, int hi) {
-  return (static_cast<unsigned>(lo) & 0xffffu) | (static_cast<unsigned>(hi) << 16);
+constexpr int kPageUnroll = 4;  // output units a thread
+
+__device__ inline unsigned pack_i16(unsigned lo, unsigned hi) {
+  return (lo & 0xffffu) | (hi << 16);
 }
 
-template <bool kNarrow, bool kVec>
-__global__ void group_page_kernel(const int* __restrict__ in, long long src_run,
-                                  long long lanes, long long run, void* __restrict__ out) {
-  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+template <bool kNarrow>
+__device__ inline void page_store1(unsigned char* dst, long long i, int v) {
+  if (kNarrow) {
+    reinterpret_cast<short*>(dst)[i] = static_cast<short>(static_cast<unsigned short>(v & 0xffff));
+  } else {
+    reinterpret_cast<int*>(dst)[i] = v;
+  }
+}
+
+template <bool kNarrow>
+__global__ void __launch_bounds__(kThreads)
+group_page_kernel(const int* __restrict__ in, long long src_run, long long lanes, long long run,
+                  void* __restrict__ out) {
+  constexpr int kVals = kNarrow ? 8 : 4;  // int32 values a 16-byte output unit
+  constexpr int kOut = kNarrow ? 2 : 4;   // bytes an output value
+  constexpr int kIn = kNarrow ? 2 : 1;    // 16-byte loads a unit
   for (long long b = blockIdx.y; b < lanes; b += gridDim.y) {
     const int* src = in + b * src_run;
-    if (kNarrow) {
-      short* dst = static_cast<short*>(out) + b * run;
-      if (kVec) {
-        const int4* s4 = reinterpret_cast<const int4*>(src);
-        uint4* d4 = reinterpret_cast<uint4*>(dst);
-        for (long long v = first; v < run / 8; v += step) {
-          const int4 a = s4[2 * v];
-          const int4 c = s4[2 * v + 1];
-          d4[v] = make_uint4(pack_i16(a.x, a.y), pack_i16(a.z, a.w), pack_i16(c.x, c.y),
-                             pack_i16(c.z, c.w));
-        }
-      } else {
-        for (long long i = first; i < run; i += step) {
-          dst[i] = static_cast<short>(static_cast<unsigned short>(src[i] & 0xffff));
+    unsigned char* dst = static_cast<unsigned char*>(out) + b * run * kOut;
+    long long head = static_cast<long long>(((16u - (reinterpret_cast<uintptr_t>(dst) & 15u)) & 15u) / kOut);
+    if (head > run) head = run;
+    const long long units = (run - head) / kVals;
+    const long long tail = head + units * kVals;  // first value of the scalar tail
+    const int* s = src + head;
+    uint4* d = reinterpret_cast<uint4*>(dst + head * kOut);
+    const bool s_vec = (reinterpret_cast<uintptr_t>(s) & 15u) == 0;
+    const long long u0 = static_cast<long long>(blockIdx.x) * (kThreads * kPageUnroll) + threadIdx.x;
+    uint4 v[kPageUnroll][kIn];
+#pragma unroll
+    for (int j = 0; j < kPageUnroll; ++j) {
+      const long long u = u0 + static_cast<long long>(j) * kThreads;
+      if (u >= units) continue;
+#pragma unroll
+      for (int h = 0; h < kIn; ++h) {
+        if (s_vec) {
+          v[j][h] = __ldcs(reinterpret_cast<const uint4*>(s) + u * kIn + h);
+        } else {
+          const int* p = s + (u * kIn + h) * 4;
+          v[j][h] = make_uint4(static_cast<unsigned>(__ldcs(p)), static_cast<unsigned>(__ldcs(p + 1)),
+                               static_cast<unsigned>(__ldcs(p + 2)), static_cast<unsigned>(__ldcs(p + 3)));
         }
       }
-    } else {
-      int* dst = static_cast<int*>(out) + b * run;
-      if (kVec) {
-        const int4* s4 = reinterpret_cast<const int4*>(src);
-        int4* d4 = reinterpret_cast<int4*>(dst);
-        for (long long v = first; v < run / 4; v += step) d4[v] = s4[v];
+    }
+#pragma unroll
+    for (int j = 0; j < kPageUnroll; ++j) {
+      const long long u = u0 + static_cast<long long>(j) * kThreads;
+      if (u >= units) continue;
+      if (kNarrow) {
+        d[u] = make_uint4(pack_i16(v[j][0].x, v[j][0].y), pack_i16(v[j][0].z, v[j][0].w),
+                          pack_i16(v[j][kIn - 1].x, v[j][kIn - 1].y),
+                          pack_i16(v[j][kIn - 1].z, v[j][kIn - 1].w));
       } else {
-        for (long long i = first; i < run; i += step) dst[i] = src[i];
+        d[u] = v[j][0];
       }
+    }
+    if (blockIdx.x == 0) {
+      const long long t = threadIdx.x;  // head and tail are each < kVals values
+      if (t < head) page_store1<kNarrow>(dst, t, __ldcs(src + t));
+      if (tail + t < run) page_store1<kNarrow>(dst, tail + t, __ldcs(src + tail + t));
     }
   }
 }
 
-template <bool kNarrow, bool kVec>
+template <bool kNarrow>
 void launch_group_page(const int* in, long long src_run, long long lanes, long long run,
                        void* out, cudaStream_t s) {
-  const long long per_thread = kVec ? (kNarrow ? 8 : 4) : 1;
+  constexpr long long kVals = kNarrow ? 8 : 4;
+  const long long units = run / kVals;  // a lane's units are this or one fewer
+  const unsigned gx = blocks_for(units > 0 ? units : 1, static_cast<long long>(kThreads) * kPageUnroll);
   const unsigned gy = static_cast<unsigned>(lanes < 65535 ? lanes : 65535);
-  unsigned gx = grid_for(run, per_thread);
-  const unsigned share = kMaxBlocks / gy > 0 ? kMaxBlocks / gy : 1;
-  if (gx > share) gx = share;
-  group_page_kernel<kNarrow, kVec><<<dim3(gx, gy), kThreads, 0, s>>>(in, src_run, lanes, run, out);
+  group_page_kernel<kNarrow><<<dim3(gx, gy), kThreads, 0, s>>>(in, src_run, lanes, run, out);
 }
 
 
@@ -2017,6 +2205,34 @@ int csr_bitmap_hop(const void* act, const void* emit, const void* emask,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K10's CSR form. `indptr` has nv + 1 entries (nv <= vb); `eid`, `emask`
+// (ne entries, indexed by eid when given, else by slot), `gate` and `alive`
+// may be null; `zero_out` as for csr_bitmap_hop.
+int csr_bitmap_hop_csr(const void* indptr, long long nv, const void* nbr, const void* eid,
+                       const void* emask, long long ne, const void* frontier, const void* gate,
+                       long long c, long long vb, const void* alive, int zero_out, void* out,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (zero_out && c * vb > 0) {
+    cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(c * vb), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (nv > 0 && c > 0 && vb > 0) {
+    const long long groups = (nv + kHopGroup - 1) / kHopGroup;
+    long long blocks = (groups + kWarps - 1) / kWarps;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    const bool vec = vb % 4 == 0 && (reinterpret_cast<uintptr_t>(frontier) & 3u) == 0 &&
+                     (gate == nullptr || (reinterpret_cast<uintptr_t>(gate) & 3u) == 0);
+    auto kernel = vec ? bitmap_hop_csr_kernel<true> : bitmap_hop_csr_kernel<false>;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        static_cast<const int*>(indptr), nv, static_cast<const int*>(nbr),
+        static_cast<const int*>(eid), static_cast<const unsigned char*>(emask), ne,
+        static_cast<const unsigned char*>(frontier), static_cast<const unsigned char*>(gate), c,
+        vb, static_cast<const int*>(alive), static_cast<unsigned char*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // `bound`, `emit`, `any` and `count` may be null. `any` ([C] bytes) and
 // `count` (one int32) are zeroed here before the pass.
 int csr_bitmap_emit(const void* reached, const void* node, const void* bound,
@@ -2104,17 +2320,10 @@ int csr_group_page(const void* in, long long w, int ncols, long long b, long lon
   const long long src_run = w * ncols;
   if (b <= 0 || run <= 0) return static_cast<int>(cudaGetLastError());
   const int* src = static_cast<const int*>(in);
-  const bool aligned = aligned16(in) && aligned16(out) && src_run % 4 == 0;
   if (narrow) {
-    if (aligned && run % 8 == 0) {
-      launch_group_page<true, true>(src, src_run, b, run, out, s);
-    } else {
-      launch_group_page<true, false>(src, src_run, b, run, out, s);
-    }
-  } else if (aligned && run % 4 == 0) {
-    launch_group_page<false, true>(src, src_run, b, run, out, s);
+    launch_group_page<true>(src, src_run, b, run, out, s);
   } else {
-    launch_group_page<false, false>(src, src_run, b, run, out, s);
+    launch_group_page<false>(src, src_run, b, run, out, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

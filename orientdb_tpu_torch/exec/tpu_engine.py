@@ -25,8 +25,9 @@ As in the reference:
   expansion also reads the edge class's append slab (K18 `slab_probe`
   through the bucket tables, K17 `slab_scan` once a bucket overflowed),
   tombstoned base slots become padding, bitmap hops mask on the ``live``
-  edge mask and classless nodes on ``v_class >= 0``; plans carry the
-  overlay's generation and re-record when the structure moves;
+  edge mask (and, once the topology is dirty, also walk the slab's slots
+  with the edge-list K10) and classless nodes on ``v_class >= 0``; plans
+  carry the overlay's generation and re-record when the structure moves;
 - on a tiered snapshot (`storage/tiering`), a paged edge class expands
   through K21 `paged_expand` and hops through K19 `paged_hop` over the
   tier's page pools; the recording run faults every touched block in and
@@ -465,15 +466,25 @@ def _alias_expression(e: A.Expression, names: set) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def build_bitmap_hops(dg: DeviceGraph, items, sched: SizeSchedule, tier=None, touched=None) -> List:
-    """Frontier-hop closures for ``(class, direction, emask)`` items over
-    each class's flat edge list in out-CSR order: an out hop activates on
-    ``edge_src`` and emits ``dst``, an in hop the reverse; ``emask`` (bool
-    [E] in out order, or None) admits the edges of an edge WHERE. Each
-    closure maps a ``[C, vb]`` frontier (with an optional WHILE ``gate``,
-    the frontier's device popcount ``alive``, and an ``out`` bitmap to OR
-    into) to the bitmap of the vertices reached (`K.bitmap_hop`). Reading
-    ``edge_src`` uploads it on the recording run.
+def build_bitmap_hops(
+    dg: DeviceGraph, items, sched: SizeSchedule, tier=None, touched=None, overlay=None
+) -> List:
+    """Frontier-hop closures for ``(class, direction, emask)`` items, each
+    walking the class's CSR by the endpoint that must be active
+    (`K.bitmap_hop_csr`): an out hop reads the rows of ``indptr_out`` and
+    emits ``dst``, an in hop the rows of ``indptr_in`` and emits ``src``,
+    its mask read through ``edge_id_in``; ``emask`` (bool [E] in out order,
+    or None) admits the edges of an edge WHERE. Each closure maps a ``[C,
+    vb]`` frontier (with an optional WHILE ``gate``, the frontier's device
+    popcount ``alive``, and an ``out`` bitmap to OR into) to the bitmap of
+    the vertices reached.
+
+    On a delta-maintained snapshot whose topology is dirty (``overlay``),
+    appended edges sit in the slab's out-order slots ``[base, cap)``, which
+    no CSR row holds: each hop also runs the edge-list `K.bitmap_hop` over
+    that whole slot range (``edge_src`` beside ``dst``, spare and
+    tombstoned slots masked by ``live``), ORed into the same bitmap.
+    Reading ``edge_src`` uploads it on the recording run.
 
     A (class, direction) that ``tier`` pages hops over its page pool (K19
     `paged_hop`) instead: while ``sched`` records, the gated frontier's
@@ -510,12 +521,24 @@ def build_bitmap_hops(dg: DeviceGraph, items, sched: SizeSchedule, tier=None, to
             hops.append(paged)
             continue
         dec = dg.edges[cname]
-        a, em = (dec.edge_src, dec.dst) if d == "out" else (dec.dst, dec.edge_src)
-        hops.append(
-            lambda fr, gate=None, alive=None, out=None, a=a, em=em, m=emask: K.bitmap_hop(
-                a, em, m, fr, gate, alive, out
-            )
-        )
+        if d == "out":
+            csr = (dec.indptr_out, dec.dst, None)
+        else:
+            csr = (dec.indptr_in, dec.src, dec.edge_id_in)
+        slab = None
+        if overlay is not None and overlay.topology_dirty:
+            # an armed snapshot's emask always carries ``live``
+            w = slice(overlay.edge_slabs[cname].base, overlay.edge_slabs[cname].cap)
+            a, em = (dec.edge_src, dec.dst) if d == "out" else (dec.dst, dec.edge_src)
+            slab = (a[w], em[w], emask[w])
+
+        def flat(fr, gate=None, alive=None, out=None, csr=csr, emask=emask, slab=slab):
+            out = K.bitmap_hop_csr(*csr, emask, fr, gate, alive, out)
+            if slab is not None:
+                K.bitmap_hop(*slab, fr, gate, alive, out)
+            return out
+
+        hops.append(flat)
     return hops
 
 
@@ -1714,7 +1737,9 @@ class TpuMatchSolver:
         for c in self._resolve_edge_classes(item):
             emask = self._edge_mask(c, f.where if f is not None else None)
             hop_items.extend((c, d, emask) for d in dirs)
-        hops = build_bitmap_hops(self.dg, hop_items, self.sched, self.tier, self.tier_touched)
+        hops = build_bitmap_hops(
+            self.dg, hop_items, self.sched, self.tier, self.tier_touched, self.overlay
+        )
         gates: Dict[int, torch.Tensor] = {}  # depth → WHILE gate, shared by chunks
         parts: List[Table] = []
         counts: List[int] = []
@@ -1874,7 +1899,9 @@ class TpuMatchSolver:
                 emask = self._edge_mask(c, f.where if f is not None else None)
                 hop_items.extend((c, d, emask) for d in dirs)
             hops_per_item.append(
-                build_bitmap_hops(self.dg, hop_items, self.sched, self.tier, self.tier_touched)
+                build_bitmap_hops(
+                    self.dg, hop_items, self.sched, self.tier, self.tier_touched, self.overlay
+                )
             )
         valid_dev = table.valid_device
         exists_chunks = []
@@ -2236,7 +2263,7 @@ class TpuTraverseSolver:
         sched = self.sched
         live = self.overlay is not None
         items = [(c, d, self.dg.edges[c].live if live else None) for c, d in self.hop_dirs]
-        hops = build_bitmap_hops(self.dg, items, sched, self.tier, self.tier_touched)
+        hops = build_bitmap_hops(self.dg, items, sched, self.tier, self.tier_touched, self.overlay)
         nr = int(self.roots.shape[0])
         frontier = torch.zeros((1, vb), dtype=torch.bool, device=self.device)
         if nr:

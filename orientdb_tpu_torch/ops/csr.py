@@ -64,6 +64,7 @@ LAUNCHES: Dict[str, int] = {
         "narrow_i16",
         "rows_to_bitmap",
         "bitmap_hop",
+        "bitmap_hop_csr",
         "bitmap_emit",
         "frontier_advance",
         "rows_with_matches",
@@ -812,7 +813,114 @@ def bitmap_hop(
     return out
 
 
-EmitResult = Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]
+def plain_bitmap_hop_csr(
+    indptr: torch.Tensor,
+    nbr: torch.Tensor,
+    eid: Optional[torch.Tensor],
+    edge_mask: Optional[torch.Tensor],
+    frontier: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The reference's hop over the edge list a CSR expands to: row ``v``'s
+    slots activate on ``v`` and emit ``nbr[slot]``, the mask read at
+    ``take_pad(edge_mask, eid[slot], False)`` (at the slot without
+    ``eid``), then `plain_bitmap_hop`."""
+    nv = indptr.shape[0] - 1
+    deg = (indptr[1:] - indptr[:-1]).long()
+    act = torch.repeat_interleave(torch.arange(nv, dtype=I32, device=indptr.device), deg)
+    slots = torch.arange(act.shape[0], device=indptr.device) + indptr[0].long()
+    m = None
+    if edge_mask is not None:
+        m = edge_mask[slots] if eid is None else plain_take_pad(edge_mask, eid[slots], False)
+    return plain_bitmap_hop(act, nbr[slots], m, frontier, gate, alive)
+
+
+def bitmap_hop_csr(
+    indptr: torch.Tensor,
+    nbr: torch.Tensor,
+    eid: Optional[torch.Tensor],
+    edge_mask: Optional[torch.Tensor],
+    frontier: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`bitmap_hop` walked by the endpoint that must be active, reading only
+    the active vertices' adjacency:
+    ``out[c, nbr[s]] |= frontier[c, v] & edge_mask[eid[s]]`` for each slot
+    ``s`` of row ``v``.
+
+    ``indptr`` int32 [nv + 1] (nv ≤ vb) has a row for each active endpoint
+    (``indptr_out`` for an out hop, ``indptr_in`` for an in hop), ``nbr``
+    int32 the endpoint each slot reaches (``dst`` / ``src``); ``eid``
+    (int32, one a slot, or None) maps a slot to its out-order edge id, read
+    only to index ``edge_mask`` (bool, in out order; without ``eid`` it is
+    indexed by slot and has one entry a slot). ``gate``, ``alive`` and
+    ``out`` as for `bitmap_hop`. Returns the bitmap."""
+    _check(indptr, (I32,), "bitmap_hop_csr indptr")
+    _check(nbr, (I32,), "bitmap_hop_csr nbr")
+    _check2d(frontier, (B8,), "bitmap_hop_csr frontier")
+    C, vb = frontier.shape
+    nv = indptr.shape[0] - 1
+    if nv < 0 or nv > vb:
+        raise ValueError(f"bitmap_hop_csr: {nv} rows for a frontier {vb} wide")
+    opt = []
+    if eid is not None:
+        _check(eid, (I32,), "bitmap_hop_csr eid")
+        if eid.shape[0] != nbr.shape[0]:
+            raise ValueError("bitmap_hop_csr: eid and nbr differ in length")
+        opt.append(eid)
+    ne = 0
+    if edge_mask is not None:
+        _check(edge_mask, (B8,), "bitmap_hop_csr edge_mask")
+        ne = edge_mask.shape[0]
+        if eid is None and ne != nbr.shape[0]:
+            raise ValueError("bitmap_hop_csr: edge_mask indexed by slot differs from nbr in length")
+        opt.append(edge_mask)
+    if gate is not None:
+        _check(gate, (B8,), "bitmap_hop_csr gate")
+        if gate.shape[0] != vb:
+            raise ValueError("bitmap_hop_csr: gate and the frontier differ in width")
+        opt.append(gate)
+    if alive is not None:
+        _check_scalar(alive, "bitmap_hop_csr alive")
+        opt.append(alive)
+    if out is not None:
+        _check_out(out, (C, vb), B8, "bitmap_hop_csr")
+        opt.append(out)
+    if not _on_card(indptr, nbr, frontier, *opt):
+        hop = plain_bitmap_hop_csr(indptr, nbr, eid, edge_mask, frontier, gate, alive)
+        if out is None:
+            return hop
+        out |= hop
+        return out
+    lib = _kernels.load()
+    zero = out is None
+    if zero:
+        out = torch.empty((C, vb), dtype=B8, device=frontier.device)
+    _launch(
+        "bitmap_hop_csr",
+        lib.csr_bitmap_hop_csr,
+        indptr.data_ptr(),
+        nv,
+        nbr.data_ptr(),
+        None if eid is None or edge_mask is None else eid.data_ptr(),
+        None if edge_mask is None else edge_mask.data_ptr(),
+        ne,
+        frontier.data_ptr(),
+        None if gate is None else gate.data_ptr(),
+        C,
+        vb,
+        None if alive is None else alive.data_ptr(),
+        int(zero),
+        out.data_ptr(),
+        _stream(frontier),
+    )
+    return out
+
+
+EmitResult =Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
 def plain_bitmap_emit(

@@ -378,7 +378,7 @@ def test_snb_groups_equal_numpy(snb):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("Bb,W,C", [(1, 1, 1), (4, 8, 3), (8, 4096, 2), (16, 2048, 5)])
+@pytest.mark.parametrize("Bb,W,C", [(1, 1, 1), (4, 8, 3), (8, 4096, 2), (16, 2048, 5), (1, 333, 3), (3, 7, 5)])
 def test_plain_group_page_equals_reference_page_fn(Bb, W, C):
     rng = np.random.default_rng(Bb * W + C)
     stack = rng.integers(-40_000, 40_000, (Bb, W, C), dtype=np.int32)

@@ -3,7 +3,8 @@ against the reference's functions on the same numpy-seeded inputs, on the
 CPU, where each wrapper runs its plain PyTorch version.
 
 Reference functions: `orientdb_tpu.ops.csr.rows_to_bitmap` and
-`bitmap_hop`, `orientdb_tpu.exec.tpu_engine._var_emit_mask` (with the
+`bitmap_hop` (also against K10's CSR form, `bitmap_hop_csr`, given the edge
+list its CSR expands to), `orientdb_tpu.exec.tpu_engine._var_emit_mask` (with the
 popcount and per-row any its callers take), and the level step of
 `_expand_var_depth` (``nxt & ~visited``, ``visited | nxt``,
 `csr.mask_count`). Every value is bool or int32, so every comparison is
@@ -143,6 +144,123 @@ def test_bitmap_hop_gate_and_alive():
     assert np.array_equal(out.numpy(), base | _j_hop(src, dst, ones, frontier))
 
 
+def _graph(rng, v: int, avg: float, hub: int = 0):
+    """A CSR over v vertices in both directions: out rows (``indptr_out``,
+    ``dst``), in rows (``indptr_in``, ``src``, ``edge_id_in``), and the
+    out-order edge list (``edge_src``, ``dst``) the reference hops over.
+    About a fifth of the rows are empty; with ``hub`` vertex v // 2 has
+    that many out edges."""
+    deg = rng.poisson(avg, v)
+    deg[rng.random(v) < 0.2] = 0
+    if hub:
+        deg[v // 2] = hub
+    indptr_out = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    edge_src = np.repeat(np.arange(v, dtype=np.int32), deg)
+    dst = rng.integers(0, v, edge_src.shape[0]).astype(np.int32)
+    order_in = np.argsort(dst, kind="stable").astype(np.int32)
+    indptr_in = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=v))]).astype(np.int32)
+    return {
+        "indptr_out": indptr_out, "dst": dst, "edge_src": edge_src,
+        "indptr_in": indptr_in, "src": edge_src[order_in], "edge_id_in": order_in,
+    }
+
+
+def _csr_args(g, direction):
+    """(indptr, nbr, eid) of a hop, and the reference's (act, emit)."""
+    if direction == "out":
+        return (g["indptr_out"], g["dst"], None), (g["edge_src"], g["dst"])
+    return (g["indptr_in"], g["src"], g["edge_id_in"]), (g["dst"], g["edge_src"])
+
+
+def _hop_csr(fn, csr, mask, frontier, gate=None, alive=None, out=None):
+    ip, nbr, eid = csr
+    return fn(_t(ip), _t(nbr), None if eid is None else _t(eid), None if mask is None else _t(mask),
+              _t(frontier), None if gate is None else _t(gate), alive, *([] if out is None else [out]))
+
+
+@pytest.mark.parametrize("c", [1, 8, 33])
+@pytest.mark.parametrize("gated", [False, True], ids=["ungated", "gated"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all_edges", "masked"])
+@pytest.mark.parametrize("direction", ["out", "in"])
+def test_bitmap_hop_csr_equals_reference(direction, masked, gated, c):
+    """K10's CSR form and its plain version against the reference's hop over
+    the out-order edge list the same CSR expands to; an in hop reads its
+    mask through ``edge_id_in``. The frontier is wider than the vertex
+    count (vb > V), with bits set past V."""
+    rng = np.random.default_rng(3 + 2 * masked + 4 * gated + c + (direction == "in"))
+    v, vb = 150, 256
+    g = _graph(rng, v, 4.0)
+    csr, (act, emit) = _csr_args(g, direction)
+    e = g["dst"].shape[0]
+    mask = rng.random(e) < 0.6 if masked else None
+    frontier = _bitmap(rng, c, vb, 0.05)
+    gate = rng.random(vb) < 0.5 if gated else None
+    fr_ref = frontier if gate is None else frontier & gate[None, :]
+    want = _j_hop(act, emit, np.ones(e, bool) if mask is None else mask, fr_ref)
+    for fn in (T.plain_bitmap_hop_csr, T.bitmap_hop_csr):
+        got = _hop_csr(fn, csr, mask, frontier, gate)
+        assert got.dtype == torch.bool and got.shape == (c, vb)
+        assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("direction", ["out", "in"])
+def test_bitmap_hop_csr_tombstones_mask_before_clip(direction):
+    """Tombstoned slots carry a -1 neighbour (``dst`` in out order, ``src``
+    at the in position) and ``live`` False: the mask kills them before the
+    clip could alias vertex 0, as in the reference's edge list."""
+    rng = np.random.default_rng(21 + (direction == "in"))
+    v, vb = 120, 128
+    g = _graph(rng, v, 5.0)
+    e = g["dst"].shape[0]
+    live = np.ones(e, bool)
+    dead = rng.choice(e, e // 5, replace=False)
+    live[dead] = False
+    in_pos = np.empty(e, np.int64)
+    in_pos[g["edge_id_in"]] = np.arange(e)
+    g["dst"] = g["dst"].copy()
+    g["dst"][dead] = -1
+    g["src"] = g["src"].copy()
+    g["src"][in_pos[dead]] = -1
+    csr, (act, emit) = _csr_args(g, direction)
+    frontier = _bitmap(rng, 8, vb, 0.3)
+    frontier[:, 0] = False  # vertex 0 is reached only through a live edge
+    want = _j_hop(act, emit, live, frontier)
+    where = live & (rng.random(e) < 0.7)
+    for fn in (T.plain_bitmap_hop_csr, T.bitmap_hop_csr):
+        assert np.array_equal(_hop_csr(fn, csr, live, frontier).numpy(), want)
+        assert np.array_equal(_hop_csr(fn, csr, where, frontier).numpy(), _j_hop(act, emit, where, frontier))
+
+
+def test_bitmap_hop_csr_alive_out_and_hub():
+    """``alive`` 0 reaches nothing; ``out`` ORs (both directions into one
+    bitmap, as a ``both`` arm does); a hub row and empty rows."""
+    rng = np.random.default_rng(33)
+    v, vb = 300, 300
+    g = _graph(rng, v, 3.0, hub=900)
+    e = g["dst"].shape[0]
+    ones = np.ones(e, bool)
+    frontier = _bitmap(rng, 8, vb, 0.02)
+    frontier[3, v // 2] = True  # the hub is active in row 3
+    alive = torch.tensor(int(frontier.sum()), dtype=torch.int32)
+    out_csr, out_el = _csr_args(g, "out")
+    in_csr, in_el = _csr_args(g, "in")
+    want = _j_hop(*out_el, ones, frontier) | _j_hop(*in_el, ones, frontier)
+    got = _hop_csr(T.bitmap_hop_csr, out_csr, None, frontier, alive=alive)
+    got = _hop_csr(T.bitmap_hop_csr, in_csr, None, frontier, alive=alive, out=got)
+    assert np.array_equal(got.numpy(), want) and got[3].sum() >= 100
+    base = _bitmap(rng, 8, vb, 0.05)
+    acc = _hop_csr(T.bitmap_hop_csr, out_csr, None, frontier, out=_t(base.copy()))
+    assert np.array_equal(acc.numpy(), base | _j_hop(*out_el, ones, frontier))
+    zero = torch.zeros((), dtype=torch.int32)
+    for fn in (T.plain_bitmap_hop_csr, T.bitmap_hop_csr):
+        assert not _hop_csr(fn, out_csr, None, np.zeros((8, vb), bool), alive=zero).any()
+    # every row empty, and a CSR of no vertices
+    empty = np.zeros(v + 1, np.int32), np.zeros(0, np.int32), None
+    assert not _hop_csr(T.bitmap_hop_csr, empty, None, frontier).any()
+    none = np.zeros(1, np.int32), np.zeros(0, np.int32), None
+    assert not _hop_csr(T.bitmap_hop_csr, none, None, frontier).any()
+
+
 @pytest.mark.parametrize("bound", [False, True], ids=["open", "close"])
 @pytest.mark.parametrize("c,vb", [(1, 16), (8, 64), (7, 40)])
 def test_bitmap_emit_equals_var_emit_mask(bound, c, vb):
@@ -199,6 +317,10 @@ def _bad_calls():
         "hop_gate_width": lambda: T.bitmap_hop(i, i, None, b2, gate=torch.zeros(7, dtype=torch.bool)),
         "hop_alive_dtype": lambda: T.bitmap_hop(i, i, None, b2, alive=torch.zeros((), dtype=torch.int64)),
         "hop_noncontiguous": lambda: T.bitmap_hop(i, i, None, torch.zeros((8, 2), dtype=torch.bool).t()),
+        "csr_rows_past_vb": lambda: T.bitmap_hop_csr(torch.zeros(10, dtype=torch.int32), i, None, None, b2),
+        "csr_eid_length": lambda: T.bitmap_hop_csr(i[:3], i, i[:2], None, b2),
+        "csr_mask_length": lambda: T.bitmap_hop_csr(i[:3], i, None, torch.zeros(3, dtype=torch.bool), b2),
+        "csr_indptr_dtype": lambda: T.bitmap_hop_csr(i[:3].long(), i, None, None, b2),
         "emit_node_width": lambda: T.bitmap_emit(b2, torch.zeros(9, dtype=torch.bool)),
         "emit_bound_rows": lambda: T.bitmap_emit(b2, torch.zeros(8, dtype=torch.bool), i),
         "emit_dtype": lambda: T.bitmap_emit(b2.to(torch.uint8), torch.zeros(8, dtype=torch.bool)),

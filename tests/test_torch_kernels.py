@@ -285,6 +285,57 @@ def test_bitmap_kernels_equal_plain_on_card(card, c, vb, e):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "c,v,vb,avg", [(1, 1_000, 1_024, 5.0), (8, 5_000, 8_192, 8.0), (33, 3_000, 4_096, 6.0),
+                   (8, 999, 1_002, 4.0), (8, 200_000, 1 << 18, 10.0)],
+)
+def test_bitmap_hop_csr_equals_plain_on_card(card, c, v, vb, avg):
+    """K10's CSR form against its plain version, exactly: out hops and in
+    hops (the mask read through ``eid``), masked and gated, ``alive`` 0,
+    ORed into ``out``, a hub row and empty rows, tombstoned slots (-1
+    neighbours, mask False), sparse, dense and empty frontiers, C = 1, 8
+    and 33, vb > V, and vb not a multiple of 4 (the one-byte loads)."""
+    rng = np.random.default_rng(c + v + vb)
+    deg = rng.poisson(avg, v)
+    deg[rng.random(v) < 0.2] = 0
+    deg[v // 3] = 20 * int(avg) * 64  # a hub
+    indptr_out = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    edge_src = np.repeat(np.arange(v, dtype=np.int32), deg)
+    e = edge_src.shape[0]
+    dst = rng.integers(0, v, e).astype(np.int32)
+    order_in = np.argsort(dst, kind="stable").astype(np.int32)
+    indptr_in = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=v))]).astype(np.int32)
+    src_in = edge_src[order_in]
+    live = rng.random(e) > 0.05
+    in_pos = np.empty(e, np.int64)
+    in_pos[order_in] = np.arange(e)
+    dst[~live] = -1
+    src_in[in_pos[~live]] = -1
+    hops = {
+        "out": tuple(_t(a).to(card) for a in (indptr_out, dst)) + (None,),
+        "in": tuple(_t(a).to(card) for a in (indptr_in, src_in, order_in)),
+    }
+    live_d = _t(live).to(card)
+    where = live_d & _t(rng.random(e) < 0.7).to(card)
+    gate = _t(rng.random(vb) < 0.5).to(card)
+    frontiers = [_t(rng.random((c, vb)) < p).to(card) for p in (0.0005, 0.05)]
+    frontiers.append(torch.ones((c, vb), dtype=torch.bool, device=card))
+    for fr in frontiers:
+        alive = T.mask_count(fr.view(-1))
+        for ip, nbr, eid in hops.values():
+            for m, g in ((live_d, None), (where, None), (live_d, gate), (where, gate)):
+                got = T.bitmap_hop_csr(ip, nbr, eid, m, fr, gate=g, alive=alive)
+                assert torch.equal(got, T.plain_bitmap_hop_csr(ip, nbr, eid, m, fr, g, alive))
+        both = T.bitmap_hop_csr(*hops["out"], live_d, fr)
+        T.bitmap_hop_csr(*hops["in"], live_d, fr, out=both)
+        want = T.plain_bitmap_hop_csr(*hops["out"], live_d, fr) | T.plain_bitmap_hop_csr(*hops["in"], live_d, fr)
+        assert torch.equal(both, want)
+    zero = torch.zeros((c, vb), dtype=torch.bool, device=card)
+    assert not T.bitmap_hop_csr(*hops["out"], live_d, frontiers[1], alive=T.mask_count(zero.view(-1))).any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_var_depth_and_not_on_card_equal_cpu(card):
     """Variable-depth (rows and COUNT) and NOT queries on the card, recorded
     and replayed from captured graphs, against the CPU."""
@@ -369,12 +420,17 @@ def test_edge_and_optional_shapes_on_card_equal_cpu(card):
 @pytest.mark.parametrize(
     "bb,w,c,b,n",
     [(16, 131_072, 3, 16, 8_192), (16, 131_072, 3, 11, 131_072), (8, 4_096, 4, 3, 2_048),
-     (4, 1_024, 3, 4, 5), (2, 8, 1, 1, 7), (1, 1, 2, 1, 1), (4, 64, 3, 0, 0)],
+     (4, 1_024, 3, 4, 5), (2, 8, 1, 1, 7), (1, 1, 2, 1, 1), (4, 64, 3, 0, 0),
+     (5, 333, 3, 5, 301), (1, 1_000, 3, 1, 999), (3, 7, 5, 2, 7), (16, 131_071, 3, 16, 131_071),
+     (4, 333, 3, 4, 300), (6, 1_001, 3, 5, 777), (16, 131_071, 3, 16, 38_912)],
 )
 def test_group_page_equals_plain_on_card(card, bb, w, c, b, n):
     """K14 group_page against its plain version, exactly, in int32 and
     int16: B < Bb, n = W, n·C not a multiple of 4 or 8, C = 1, one row,
-    and an empty page."""
+    an empty page, B = 1, and lane strides W·C that break the source's
+    16-byte alignment (each lane then starts at its own offset), where
+    the output's alignment shifts alike (n = W) or differently (4-byte
+    source loads)."""
     rng = np.random.default_rng(bb * w + c + b + n)
     stack = _t(rng.integers(-(2**31), 2**31 - 1, (bb, w, c), dtype=np.int64).astype(np.int32)).to(card)
     for fits16 in (False, True):

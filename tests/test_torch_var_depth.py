@@ -49,6 +49,11 @@ V3 = (
     "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f}, "
     "NOT {as:f}-knows->{where:(age > 70)} RETURN p.uid AS p, f.uid AS f"
 )
+# an endpoint arm: reads each bound edge's source
+OUTV = (
+    "MATCH {class:Person, as:p, where:(uid < :k)}.outE('knows'){as:e}, "
+    "{as:e}.outV(){as:s} RETURN p.uid AS p, s.uid AS s"
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -381,22 +386,26 @@ def test_count_pushdown_stops_at_the_while_arm(person_knows):
 
 
 def test_edge_src_uploads_on_the_first_bitmap_hop():
-    """The per-edge sources reach the device with the first variable-depth
-    recording, not before; a replay that would upload them raises."""
+    """Bitmap hops walk the CSR (K10's CSR form), so a variable-depth
+    recording leaves the per-edge sources on the host; they reach the
+    device with the first read that needs them (an ``.outV()`` endpoint
+    arm), not before, and a replay that would upload them raises."""
     db, snap = build_person_knows(800, avg_knows=4, seed=4, device="cpu")
     dg = device_graph(snap, db.device)
     key = "e:knows:edge_src"
     db.query("MATCH {class:Person, as:p, where:(age > 40)}-knows->{as:f} RETURN count(*) AS n")
     assert key not in dg.arrays and key in dg._pending
-    rows = db.query(V2, {"k": 5}).to_dicts()
-    assert key in dg.arrays
+    db.query(V2, {"k": 5}).to_dicts()
+    assert key not in dg.arrays and key in dg._pending
+    rows = db.query(OUTV, {"k": 5}).to_dicts()
+    assert rows and key in dg.arrays
     assert np.array_equal(dg.arrays[key].numpy(), snap.edge_classes["knows"].edge_src)
     dg._pending[key] = lambda: snap.edge_classes["knows"].edge_src
     del dg.arrays[key]
     with pytest.raises(RuntimeError, match="upload during a replay"):
-        db.query(V2, {"k": 5})
+        db.query(OUTV, {"k": 5})
     dg.ensure_key(key)
-    assert canonical_rows(db.query(V2, {"k": 5}).to_dicts()) == canonical_rows(rows)
+    assert canonical_rows(db.query(OUTV, {"k": 5}).to_dicts()) == canonical_rows(rows)
 
 
 @pytest.mark.parametrize(
