@@ -312,6 +312,20 @@ EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
 #: three-pass scan, and the cast + scan + scatter compaction; `PERF.md` §6),
 #: printed beside this run's
 WAS_MS = {"scan_i32": 0.3601, "scan_f32": 0.3599, "compact fill": 0.0921, "compact offset": 0.1179}
+#: K11's and K12's times before their sparse redesign, when each read every
+#: byte of its [8, 2^23] bitmaps at every level (`PERF.md` §6: V1's replay
+#: profile in chip run 3 of PR 12, K12 18.2 ms over 203 launches and K11
+#: 12.7 ms over 267, its depth-0 launches included; the
+#: eager rows of K11 and of the gated [1, 2^23] K12), printed beside this
+#: run's
+WAS_LEVEL_MS = {
+    "K12 level, in a graph": 0.0897,
+    "K12 gated, eager": 0.0333,
+    "K12 gated, in a graph": 0.0116,
+    "K11 count-only, in a graph": 0.0476,
+    "K11 count-only, eager": 0.0531,
+    "K11 emit + count, eager": 0.0667,
+}
 #: `PERF.md` §5's replay medians (ms) of the cells that run K1 and K3
 SECTION5_REPLAY_MS = {
     "Q1": 3.265, "Q2": 6.992, "Q3": 31.646, "V1": 99.821, "E1": 12.615, "TR1": 2.160, "TR4": 30.330,
@@ -843,21 +857,32 @@ def check_bitmap_kernels(torch, K, ks, dg) -> None:
         rv = hits[hits[:, 0] == r]
         if r % 2 == 0 and rv.shape[0]:
             bound[r] = rv[0, 1]
-    for reached in (fr0, fr1, fr2, zero_fr):
+    for reached in (fr0, fr1, fr2, zero_fr, dense):
         for b in (None, bound):
             got = K.bitmap_emit(reached, young, b, emit=True, any_row=True, count=True)
             same("bitmap_emit", got, K.plain_bitmap_emit(reached, young, b, True, True, True))
-            (_e, _a, c_only) = K.bitmap_emit(reached, young, b, emit=False, count=True)
-            same("bitmap_emit", c_only, got[2])
+            for flags in ((False, False, True), (False, True, False), (False, True, True), (True, False, False)):
+                # count-only (the COUNT's depth 0), the NOT arm's last step,
+                # and with ``b`` the close arm's O(C) form
+                part = K.bitmap_emit(reached, young, b, *flags)
+                for x, want in zip(part, got):
+                    _require(x is None or torch.equal(x, want), "bitmap_emit: an output alone differs")
     same("bitmap_emit", K.bitmap_emit(small, few[:64] > 0, None, True, True, True),
          K.plain_bitmap_emit(small, few[:64] > 0, None, True, True, True))
 
-    # -- K12: the level step, in place ------------------------------------------
-    for nxt, vis in ((fr1, fr0 | fr1), (fr2, fr0 | fr1), (fr2, zero_fr), (small, small.roll(1, 1))):
-        n1, v1, n2, v2 = nxt.clone(), vis.clone(), nxt.clone(), vis.clone()
-        got = K.frontier_advance(n1, v1)
-        want = K.plain_frontier_advance(n2, v2)
-        same("frontier_advance", (n1, v1, got), (n2, v2, want))
+    # -- K12: the level step, in place, gated, with the folded count -------------
+    for nxt, vis in ((fr1, fr0), (fr1, fr0 | fr1), (fr2, fr0 | fr1), (fr2, zero_fr), (zero_fr, fr2), (dense, fr2),
+                     (small, small.roll(1, 1))):
+        vb_n = nxt.shape[1]
+        for g in (None, gate if vb_n == vb else None):
+            for nd, b in ((None, None), (young, None), (young, bound)):
+                if vb_n != vb and nd is not None:
+                    nd, b = few[:vb_n] > 0, None if b is None else bound.clamp(max=vb_n - 1)
+                n1, v1, n2, v2 = nxt.clone(), vis.clone(), nxt.clone(), vis.clone()
+                got = K.frontier_advance(n1, v1, g, nd, b)
+                want = K.plain_frontier_advance(n2, v2, g, nd, b)
+                got, want = (got, want) if nd is not None else ((got,), (want,))
+                same("frontier_advance", (n1, v1, *got), (n2, v2, *want))
     torch.cuda.synchronize()
 
     # -- times at V1's shapes -------------------------------------------------------
@@ -891,27 +916,157 @@ def check_bitmap_kernels(torch, K, ks, dg) -> None:
         4.0 * E + 4.0 * act_edges + 2.0 * C * vb + 4.0,
     )
     time_bitmap_hop_csr(torch, K, ks, dg, fr0, fr1, fr2, dense, fr33, zero_fr, emask, gate, in_csr)
+    time_level_steps(torch, K, ks, fr0, fr1, fr2, K.bitmap_hop_csr(*csr_out, None, fr2), dense, young, bound)
+    torch.cuda.synchronize()
+    print(f"bitmap kernels: equal their plain versions at C={C}, vb={vb}, E={E}")
+
+
+def nonzero_groups(torch, bm) -> int:
+    """The 16-byte groups of a [C, vb] bitmap that hold a set byte: the
+    groups K11 and K12 touch beyond their one read (set bytes where vb is
+    not a multiple of 16)."""
+    C, vb = bm.shape
+    if vb % 16:
+        return int(bm.sum())
+    return int(bm.view(C, vb // 16, 16).any(-1).sum())
+
+
+def level_step_bytes(torch, nxt, gate=None, node=None, bound=None) -> float:
+    """The bytes K12 must move for this level: nxt read once, and for each
+    non-zero 16-byte group of it visited loaded and stored, nxt stored, and
+    gate and node loaded (16 bytes each); bound read; the counts written.
+    A dense level comes to 4·C·vb."""
+    C, vb = nxt.shape
+    per = 48.0 + (16.0 if gate is not None else 0.0) + (16.0 if node is not None else 0.0)
+    return (
+        1.0 * C * vb + per * nonzero_groups(torch, nxt) + 4.0 + (4.0 if node is not None else 0.0)
+        + (4.0 * C if bound is not None else 0.0)
+    )
+
+
+def emit_bytes(torch, reached, emit: bool, bound=None) -> float:
+    """The bytes K11 must move: reached read once, 16 bytes of node a
+    non-zero group, the bitmap written when asked for, the count; with
+    ``bound`` and no bitmap only reached[c, bound[c]] and node[bound[c]]
+    (and bound itself) can matter."""
+    C, vb = reached.shape
+    if bound is not None and not emit:
+        return 4.0 * C + 2.0 * C + 4.0
+    return 1.0 * C * vb + 16.0 * nonzero_groups(torch, reached) + (1.0 * C * vb if emit else 0.0) + 4.0
+
+
+def _copies(tensors, n: int):
+    """An iterator over ``n`` fresh copies of ``tensors``, one a call of an
+    in-place kernel: a second call on the same copy would time a level its
+    first call already emptied."""
+    return iter([tuple(t.clone() for t in tensors) for _ in range(n)])
+
+
+def _fresh_ms(torch, fn, tensors, reps: int = 10, graph: bool = False, trials: int = 3) -> float:
+    """Mean ms of ``fn(*copy)`` over ``reps`` calls, each on its own fresh
+    copy of ``tensors`` (``fn`` may change them in place). Eager: the calls
+    between CUDA events. In a graph: the ``reps`` calls captured in one
+    graph, as a captured plan runs them among its other launches, replayed
+    ``trials`` times over refreshed copies (the refresh outside the
+    events)."""
+    ins = [tuple(t.clone() for t in tensors) for _ in range(reps + 1)]
+    fn(*ins[-1])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if not graph:
+        start.record()
+        for i in range(reps):
+            fn(*ins[i])
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(reps):
+            fn(*ins[i])
+    total = 0.0
+    for _ in range(trials):
+        for copy in ins[:reps]:
+            for t, src in zip(copy, tensors):
+                t.copy_(src)
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / (trials * reps)
+
+
+def time_level_steps(torch, K, ks, fr0, fr1, fr2, fr3, dense, young, bound) -> None:
+    """K12 and K11 timed at V1's shapes ([8, 2^23]): K12 on V1's levels 1–3
+    (nxt the hop's output, visited the levels before), an empty level (the
+    WHILE gate closed) and a dense one, eager and in a graph, each call on
+    fresh bitmaps; the folded emission count at level 2, open and close.
+    K11 count-only over the roots (V1's depth 0) and level 2, emit + count,
+    and the close arm's count. Each beside its bound, recounted from these
+    bitmaps, and the earlier design's time (`WAS_LEVEL_MS`). The JSON rows:
+    K11 count-only at level 2, K12 at level 2 (phase 5c re-times K12 in
+    TRAVERSE's gated form)."""
+    C, vb = fr2.shape
+    seen = fr0 | fr1
+    levels = [
+        ("level 1", fr1, fr0),
+        ("level 2", fr2, seen),
+        ("level 3", fr3, seen | fr2),
+        ("empty level", torch.zeros_like(fr2), seen | fr2 | fr3),
+        ("dense level", dense, seen),
+    ]
+    step = lambda n, v: K.frontier_advance(n, v)  # noqa: E731
+    kern, plain = _copies((fr2, seen), 11), _copies((fr2, seen), 11)
+    ks.timed(
+        "frontier_advance",
+        lambda: K.frontier_advance(*next(kern)),
+        lambda: K.plain_frontier_advance(*next(plain)),
+        None,  # an in-place and-not, an or and a count: three calls at least
+        level_step_bytes(torch, fr2),
+    )
+    for name, nxt, vis in levels:
+        print(
+            f"kernel frontier_advance (V1 {name}, [{C}, {vb}], {int(nxt.sum())} reached, "
+            f"{nonzero_groups(torch, nxt)} non-zero groups): {_fresh_ms(torch, step, (nxt, vis)):.4f} ms eager, "
+            f"{_fresh_ms(torch, step, (nxt, vis), graph=True):.4f} in a graph; "
+            f"bound {level_step_bytes(torch, nxt) / HBM_BYTES_PER_S * 1e3:.4f}; "
+            f"was {WAS_LEVEL_MS['K12 level, in a graph']:.4f} in a graph"
+        )
+    for name, b in (("open", None), ("close", bound)):
+        fold = lambda n, v, b=b: K.frontier_advance(n, v, node=young, bound=b)  # noqa: E731
+        n_t, v_t = fr2.clone(), seen.clone()
+        emitted = int(K.frontier_advance(n_t, v_t, node=young, bound=b)[1])
+        print(
+            f"kernel frontier_advance (V1 level 2 with the folded emission count, {name}: {emitted} emitted): "
+            f"{_fresh_ms(torch, fold, (fr2, seen)):.4f} ms eager, {_fresh_ms(torch, fold, (fr2, seen), graph=True):.4f} "
+            f"in a graph (without: {_fresh_ms(torch, step, (fr2, seen), graph=True):.4f}); "
+            f"bound {level_step_bytes(torch, fr2, node=young, bound=b) / HBM_BYTES_PER_S * 1e3:.4f}; "
+            f"was K12 + K11 {WAS_LEVEL_MS['K12 level, in a graph'] + WAS_LEVEL_MS['K11 count-only, in a graph']:.4f}"
+        )
     ks.timed(
         "bitmap_emit",
         lambda: K.bitmap_emit(fr2, young, None, emit=False, count=True),
         lambda: K.plain_bitmap_emit(fr2, young, None, False, False, True),
         None,  # a logical_and then a count_nonzero: two calls
-        1.0 * C * vb + vb + 4.0,
+        emit_bytes(torch, fr2, False),
     )
-    n_t, v_t = fr2.clone(), (fr0 | fr1).clone()
-    ks.timed(
-        "frontier_advance",
-        lambda: K.frontier_advance(n_t, v_t),
-        lambda: K.plain_frontier_advance(n_t, v_t),
-        None,  # an in-place and-not, an or and a count: three calls at least
-        4.0 * C * vb + 4.0,
-    )
-    for name, fn in (
-        ("bitmap_emit (emit + count)", lambda: K.bitmap_emit(fr2, young, None, emit=True, count=True)),
+    for name, reached, b, emit, was in (
+        ("count-only, V1's depth 0", fr0, None, False, "K11 count-only, in a graph"),
+        ("count-only, V1's level 2", fr2, None, False, "K11 count-only, in a graph"),
+        ("emit + count, level 2", fr2, None, True, "K11 emit + count, eager"),
+        ("close-arm count, level 2", fr2, bound, False, "K11 count-only, in a graph"),
+        ("emit + count with bound, level 2", fr2, bound, True, "K11 emit + count, eager"),
     ):
-        print(f"kernel {name}: {_time_ms(torch, fn):.4f} ms")
-    torch.cuda.synchronize()
-    print(f"bitmap kernels: equal their plain versions at C={C}, vb={vb}, E={E}")
+        fn = lambda r, b=b, e=emit: K.bitmap_emit(r, young, b, emit=e, count=True)  # noqa: E731
+        print(
+            f"kernel bitmap_emit ({name}, {nonzero_groups(torch, reached)} non-zero groups): "
+            f"{_time_ms(torch, lambda: fn(reached)):.4f} ms eager, "
+            f"{_fresh_ms(torch, fn, (reached,), graph=True):.4f} in a graph; "
+            f"bound {emit_bytes(torch, reached, emit, b) / HBM_BYTES_PER_S * 1e3:.4f}; was {WAS_LEVEL_MS[was]:.4f} ({was})"
+        )
 
 
 def csr_hop_bytes(torch, indptr, fr, gate, masked: bool, eid: bool):
@@ -1223,6 +1378,8 @@ def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
         )
         print(f"replay layers {name}: {replay_layers(torch, db, sql, plan, params)}")
         print(f"replay device {name}: {device_share(torch, db, sql, params, med)}")
+        if name == "V1":
+            print(f"replay kernels V1 (one profiled replay): {level_profile(torch, lambda: db.query(sql, params).to_dicts())}")
         plans[name] = plan
     _require(plans["direct"].direct_fetch and not plans["Q3"].direct_fetch, "direct-fetch path not taken")
     # the bitmap-BFS kernels run inside the V plans' captured replays
@@ -1506,8 +1663,9 @@ def device_share(torch, db, sql, params, wall_ms: float) -> str:
     return busy_share(torch, lambda: db.query(sql, params).to_dicts(), wall_ms)
 
 
-def busy_share(torch, run, wall_ms: float) -> str:
-    """`device_share` of any callable (one query, or one batch)."""
+def _profiled(torch, run):
+    """One call of ``run`` under torch.profiler: its key averages and its
+    wall ms (the profiler slows it)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1515,21 +1673,50 @@ def busy_share(torch, run, wall_ms: float) -> str:
         run()
         torch.cuda.synchronize()
         run_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+    return prof.key_averages(), run_ms
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0) or 0
 
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", 0) or 0
+
+
+def busy_share(torch, run, wall_ms: float) -> str:
+    """`device_share` of any callable (one query, or one batch)."""
+    events, run_ms = _profiled(torch, run)
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
     if busy_ms == 0:
         return "kernel time not measured (the profiler saw no device activity)"
-    top = sorted(events, key=dev_us, reverse=True)[:6]
-    tops = ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.3f} ms x{e.count}" for e in top)
+    top = sorted(events, key=_device_us, reverse=True)[:6]
+    tops = ", ".join(f"{e.key[:48]} {_device_us(e) / 1e3:.3f} ms x{e.count}" for e in top)
     return (
         f"kernels {busy_ms:.3f} ms in a profiled run of {run_ms:.3f} ms "
         f"(unprofiled median {wall_ms:.3f} ms): busy {busy_ms / run_ms:.1%}, "
         f"idle {1 - busy_ms / run_ms:.1%}; top: {tops}"
     )
+
+
+#: the kernels of a bitmap-BFS level, by the profiler's kernel names
+LEVEL_PROFILE = (
+    ("K10 bitmap_hop_csr", "bitmap_hop_csr_kernel"),
+    ("K12 frontier_advance", "frontier_advance_kernel"),
+    ("K11 bitmap_emit", "bitmap_emit"),
+    ("memsets", "Memset"),
+)
+
+
+def level_profile(torch, run) -> str:
+    """Device ms and launches of K10, K12, K11 and the memsets in one
+    profiled call of ``run``, beside all its kernel time."""
+    events, _ = _profiled(torch, run)
+    total = sum(_device_us(e) for e in events) / 1e3
+    if total == 0:
+        return "kernel time not measured (the profiler saw no device activity)"
+    parts = []
+    for label, key in LEVEL_PROFILE:
+        hit = [e for e in events if key in e.key and _device_us(e) > 0]
+        ms = sum(_device_us(e) for e in hit) / 1e3
+        parts.append(f"{label} {ms:.3f} ms x{sum(e.count for e in hit)}")
+    return f"{', '.join(parts)}, of {total:.3f} ms of kernels"
 
 
 class ERef:
@@ -2159,22 +2346,23 @@ def check_traverse_kernels(np, torch, K, ks, dg, ref, plans) -> None:
         g = gate[:n].contiguous()
         n1, v1, n2, v2 = a.clone(), b.clone(), a.clone(), b.clone()
         ks.same("frontier_advance", (n1, v1, K.frontier_advance(n1, v1, g)), (n2, v2, K.plain_frontier_advance(n2, v2, g)))
-    n_t, v_t = nxt.clone(), roots.clone()
     reached = int(K.mask_count(nxt.view(-1)))
+    kern, plain = _copies((nxt, roots), 11), _copies((nxt, roots), 11)
     ks.timed(
         "frontier_advance",
-        lambda: K.frontier_advance(n_t, v_t, gate),
-        lambda: K.plain_frontier_advance(n_t, v_t, gate),
+        lambda: K.frontier_advance(*next(kern), gate),
+        lambda: K.plain_frontier_advance(*next(plain), gate),
         None,  # an and-not, an and, an or and a count: four calls at least
-        # nxt read once; visited and gate read, nxt and visited written, at
-        # the reached slots only (nothing changes elsewhere); the count
-        vb + 4.0 * reached + 4.0,
+        level_step_bytes(torch, nxt, gate=gate),
     )
+    gated = lambda n, v: K.frontier_advance(n, v, gate)  # noqa: E731
     print(
         f"kernel frontier_advance gated at [1, {vb}] ({int(K.frontier_advance(nxt.clone(), roots.clone(), gate))} "
-        f"admitted of {reached} reached): {ks.rows['frontier_advance']['ms']:.4f} ms; "
-        f"gate-free {_time_ms(torch, lambda: K.frontier_advance(n_t, v_t)):.4f} ms, in a graph "
-        f"{_graph_ms(torch, lambda: K.frontier_advance(n_t, v_t, gate)):.4f} ms"
+        f"admitted of {reached} reached, {nonzero_groups(torch, nxt)} non-zero groups): "
+        f"{ks.rows['frontier_advance']['ms']:.4f} ms (was {WAS_LEVEL_MS['K12 gated, eager']:.4f}); "
+        f"gate-free {_fresh_ms(torch, lambda n, v: K.frontier_advance(n, v), (nxt, roots)):.4f} ms, in a graph "
+        f"{_fresh_ms(torch, gated, (nxt, roots), graph=True):.4f} ms (was {WAS_LEVEL_MS['K12 gated, in a graph']:.4f}); "
+        f"bound {ks.rows['frontier_advance']['bound_ms']:.4f}"
     )
 
     # K15: M1's node mask p (valid, Person's class, the ID compare)

@@ -902,14 +902,78 @@ bitmap_hop_csr_kernel(const int* __restrict__ indptr, long long nv,
 // path :2136-2138 and the NOT arm's cur.any(axis=1) :1335).
 // emit = reached & node[None, :] (& column == bound[c]); outputs (each may
 // be null): the emit bitmap, a per-row any, and the popcount (an int32
-// device scalar). Bound: C*vb + vb bytes read, C*vb written when the
-// bitmap is asked for (~0.04 ms), else 4 bytes (~0.02 ms). Design: 16
-// bytes a thread in a grid-stride loop when vb is a multiple of 16 and the
-// pointers are 16-byte aligned (a group never straddles two rows), one
-// byte a thread otherwise; `node` is re-read once a row and stays in L2.
-// The any flags store only 1s (benign races on a zeroed row flag); the
-// count adds per warp into the zeroed scalar.
+// device scalar).
+// Bound (the least bytes the function needs): reached read once (C*vb),
+// 16 bytes of node for each non-zero group of it, and C*vb written when
+// the bitmap is asked for; with `bound` and no bitmap, 2*C bytes (only
+// reached[c, bound[c]] and node[bound[c]] can be set).
+// Design (redesigned for sparse levels, where most 16-byte groups of
+// `reached` are zero): a streaming pass over `reached`, kInFlight 16-byte
+// loads a thread issued before any is tested; node is loaded only for a
+// non-zero group; a zero group stores a zero emit group when the bitmap is
+// asked for and nothing otherwise. With `bound` and no bitmap,
+// bitmap_emit_bound_kernel reads the two bytes of each row instead (C
+// threads). The any flags store only 1s (benign races on a zeroed row
+// flag); the count is reduced per block, one atomic a block. One byte a
+// thread when vb is not a multiple of 16 or a pointer is not 16-byte
+// aligned (a group never straddles two rows otherwise).
 // ---------------------------------------------------------------------------
+constexpr int kInFlight = 4;  // loads a thread issues before it tests any
+
+// The warp's sum of `c`, in lane 0.
+__device__ inline unsigned warp_total(unsigned c) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(kFull, c, o);
+  return c;
+}
+
+// Adds the block's `a` into *out_a and its `b` into *out_b (null: not
+// counted): warp shuffles, the warps' sums in shared memory, one atomic a
+// block and count. Every thread of the block calls it.
+__device__ inline void block_count_add(unsigned a, unsigned* out_a, unsigned b, unsigned* out_b) {
+  __shared__ unsigned sums[2][kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  a = warp_total(a);
+  b = warp_total(b);
+  if (lane == 0) {
+    sums[0][warp] = a;
+    sums[1][warp] = b;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    a = warp_total(lane < kWarps ? sums[0][lane] : 0u);
+    b = warp_total(lane < kWarps ? sums[1][lane] : 0u);
+    if (lane == 0 && out_a != nullptr && a) atomicAdd(out_a, a);
+    if (lane == 0 && out_b != nullptr && b) atomicAdd(out_b, b);
+  }
+}
+
+__device__ inline bool any16(const uint4& x) { return (x.x | x.y | x.z | x.w) != 0u; }
+
+// x (group cg of a row of `reached` or of the new frontier) restricted to
+// column b and to node[b] (b < 0 or outside the group: nothing). The byte
+// is picked by selects and shifts, so the group stays in registers.
+__device__ inline Bytes16 at_column16(Bytes16 x, const unsigned char* __restrict__ node,
+                                      long long cg, long long b) {
+  const long long j = b - cg * 16;
+  unsigned keep = 0;
+  int wi = 0;
+  if (j >= 0 && j < 16) {
+    wi = static_cast<int>(j >> 2);
+    const unsigned w = wi == 0 ? x.w[0] : wi == 1 ? x.w[1] : wi == 2 ? x.w[2] : x.w[3];
+    const unsigned shift = 8u * static_cast<unsigned>(j & 3);
+    const unsigned byte = (w >> shift) & 0xffu;
+    keep = byte ? (byte & node[b]) << shift : 0u;
+  }
+  x.v = make_uint4(wi == 0 ? keep : 0u, wi == 1 ? keep : 0u, wi == 2 ? keep : 0u, wi == 3 ? keep : 0u);
+  return x;
+}
+
+__device__ inline unsigned popc16(const Bytes16& x) {
+  return __popc(x.w[0]) + __popc(x.w[1]) + __popc(x.w[2]) + __popc(x.w[3]);
+}
+
 template <bool kVec>
 __global__ void bitmap_emit_kernel(const unsigned char* __restrict__ reached,
                                    const unsigned char* __restrict__ node,
@@ -919,39 +983,83 @@ __global__ void bitmap_emit_kernel(const unsigned char* __restrict__ reached,
                                    unsigned* __restrict__ count) {
   constexpr long long kW = kVec ? 16 : 1;
   const long long groups = c * vb / kW;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long row_groups = vb / kW;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads * kInFlight;
   unsigned cnt = 0;
-  for (long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       g < groups; g += stride) {
-    const long long i = g * kW;
-    const long long row = i / vb;
-    const long long col0 = i - row * vb;
-    unsigned n_set;
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads * kInFlight + threadIdx.x;
+       base < groups; base += step) {
     if constexpr (kVec) {
-      Bytes16 x, y;
-      x.v = reinterpret_cast<const uint4*>(reached)[g];
-      y.v = reinterpret_cast<const uint4*>(node + col0)[0];
+      uint4 x[kInFlight];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) x.w[k] &= y.w[k];
-      if (bound != nullptr) {
-        const long long b = bound[row];
-        const bool inside = b >= col0 && b < col0 + 16;
-        const unsigned char keep = inside ? x.b[b - col0] : 0;
-        x.v = make_uint4(0, 0, 0, 0);
-        if (inside) x.b[b - col0] = keep;
+      for (int k = 0; k < kInFlight; ++k) {
+        const long long g = base + static_cast<long long>(k) * kThreads;
+        x[k] = g < groups ? __ldcs(reinterpret_cast<const uint4*>(reached) + g) : make_uint4(0, 0, 0, 0);
       }
-      n_set = __popc(x.w[0]) + __popc(x.w[1]) + __popc(x.w[2]) + __popc(x.w[3]);
-      if (emit != nullptr) reinterpret_cast<uint4*>(emit)[g] = x.v;
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const long long g = base + static_cast<long long>(k) * kThreads;
+        if (g >= groups) break;
+        Bytes16 e;
+        e.v = x[k];
+        if (any16(e.v)) {
+          const long long row = g / row_groups;
+          const long long cg = g - row * row_groups;
+          if (bound != nullptr) {
+            e = at_column16(e, node, cg, bound[row]);
+          } else {
+            Bytes16 y;
+            y.v = __ldg(reinterpret_cast<const uint4*>(node) + cg);
+#pragma unroll
+            for (int w = 0; w < 4; ++w) e.w[w] &= y.w[w];
+          }
+          const unsigned n_set = popc16(e);
+          if (any != nullptr && n_set) any[row] = 1;
+          cnt += n_set;
+        }
+        if (emit != nullptr) reinterpret_cast<uint4*>(emit)[g] = e.v;
+      }
     } else {
-      unsigned char v = reached[i] & node[col0];
-      if (bound != nullptr && static_cast<long long>(bound[row]) != col0) v = 0;
-      n_set = v;
-      if (emit != nullptr) emit[i] = v;
+      unsigned char x[kInFlight];
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const long long g = base + static_cast<long long>(k) * kThreads;
+        x[k] = g < groups ? reached[g] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const long long g = base + static_cast<long long>(k) * kThreads;
+        if (g >= groups) break;
+        unsigned char v = 0;
+        if (x[k]) {
+          const long long row = g / vb;
+          const long long col = g - row * vb;
+          v = x[k] & node[col];
+          if (bound != nullptr && static_cast<long long>(bound[row]) != col) v = 0;
+          if (any != nullptr && v) any[row] = 1;
+          cnt += v;
+        }
+        if (emit != nullptr) emit[g] = v;
+      }
     }
-    if (any != nullptr && n_set) any[row] = 1;
-    cnt += n_set;
   }
-  if (count != nullptr) warp_count_add(cnt, count);
+  if (count != nullptr) block_count_add(cnt, count, 0, nullptr);
+}
+
+// K11 with `bound` and no emit bitmap: row r can emit only at column
+// bound[r], so a thread a row reads reached[r, bound[r]] and node[bound[r]].
+__global__ void bitmap_emit_bound_kernel(const unsigned char* __restrict__ reached,
+                                         const unsigned char* __restrict__ node,
+                                         const int* __restrict__ bound, long long c,
+                                         long long vb, unsigned char* __restrict__ any,
+                                         unsigned* __restrict__ count) {
+  const long long r = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  unsigned v = 0;
+  if (r < c) {
+    const long long b = bound[r];
+    if (b >= 0 && b < vb) v = reached[r * vb + b] & node[b];
+    if (any != nullptr && v) any[r] = 1;
+  }
+  if (count != nullptr) block_count_add(v, count, 0, nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -960,55 +1068,115 @@ __global__ void bitmap_emit_kernel(const unsigned char* __restrict__ reached,
 // mask_count(nxt)). In place on both bitmaps: nxt &= ~visited;
 // visited |= nxt; the popcount of the new nxt into an int32 device scalar
 // (the level's alive observe, and K10's early exit on the next level).
-// Bound: 2 bitmaps read and written, 4*64 MiB ~ 0.08 ms. Design: 16 bytes
-// a thread (grid-stride) when the bitmaps are 16-byte aligned and a
-// multiple of 16 long, else one byte a thread; the count adds per warp.
 // TRAVERSE's admission (orientdb_tpu/exec/tpu_engine.py:2644-2651) adds a
 // gate: nxt &= ~visited & gate[column], gate a [vb] bool vector broadcast
-// over the rows and read 16 bytes a thread like the bitmaps. The kernel
-// reads every byte of the three, but the function needs visited and gate
-// only where nxt is set, and changes nxt and visited only there: on a
-// sparse level (TRAVERSE's first ones) its bound is nxt read once plus
-// four bytes a reached slot. A vertex the gate rejects is neither emitted
-// nor marked visited. Without a gate the kernel is the one above, bit for
-// bit.
+// over the rows; a vertex the gate rejects is neither kept nor marked
+// visited. With `node` (and `bound`), the COUNT path's emission count of
+// the level, K11's count over the new nxt, comes out of the same pass
+// into a second scalar, so a variable-depth COUNT level reads nxt once.
+// Bound: nxt read once (C*vb bytes), plus, for each non-zero 16-byte group
+// of it, 16 bytes of visited loaded and stored, of nxt stored, and of gate
+// and node loaded; a dense level 4*C*vb (4*64 MiB at [8, 2^23]: 0.080 ms),
+// a sparse one ~C*vb (0.020 ms).
+// Design (redesigned for sparse levels): the function needs visited, gate
+// and node only where nxt is set and changes nxt and visited only there,
+// so the kernel streams nxt, kInFlight 16-byte loads a thread in flight,
+// and touches the rest only for a non-zero group; a zero group is skipped
+// (nothing loaded, nothing stored); a non-zero group issues all its other
+// loads before it uses the first. The counts are reduced per block, one
+// atomic a block. Grid-stride over a grid sized to the card (grids of 528
+// and 1,056 blocks, eight loads in flight and one atomic a warp measured
+// within noise of this design, `PERF.md` §6). One byte a
+// thread when the bitmaps are not 16-byte aligned or a multiple of 16 long
+// (or, with gate or node, vb is not a multiple of 16). Skipping a zero
+// group changes no result: nxt & ~visited is zero there and visited keeps
+// its bytes.
 // ---------------------------------------------------------------------------
-template <bool kVec, bool kGate>
+template <bool kVec>
 __global__ void frontier_advance_kernel(unsigned char* __restrict__ nxt,
                                         unsigned char* __restrict__ visited,
                                         const unsigned char* __restrict__ gate,
-                                        long long n, long long vb,
-                                        unsigned* __restrict__ count) {
+                                        const unsigned char* __restrict__ node,
+                                        const int* __restrict__ bound, long long n,
+                                        long long vb, unsigned* __restrict__ count,
+                                        unsigned* __restrict__ emitted) {
   constexpr long long kW = kVec ? 16 : 1;
   const long long groups = n / kW;
-  const long long gate_groups = vb / kW;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  unsigned cnt = 0;
-  for (long long g = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       g < groups; g += stride) {
+  const long long row_groups = vb / kW;  // used only with gate or node
+  const long long step = static_cast<long long>(gridDim.x) * kThreads * kInFlight;
+  unsigned cnt = 0, ecnt = 0;
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads * kInFlight + threadIdx.x;
+       base < groups; base += step) {
     if constexpr (kVec) {
-      Bytes16 x, v, a;
-      x.v = reinterpret_cast<const uint4*>(nxt)[g];
-      v.v = reinterpret_cast<const uint4*>(visited)[g];
-      if constexpr (kGate) a.v = reinterpret_cast<const uint4*>(gate)[g % gate_groups];
+      uint4 x[kInFlight];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        x.w[k] &= ~v.w[k];
-        if constexpr (kGate) x.w[k] &= a.w[k];
-        v.w[k] |= x.w[k];
-        cnt += __popc(x.w[k]);
+      for (int k = 0; k < kInFlight; ++k) {
+        const long long g = base + static_cast<long long>(k) * kThreads;
+        x[k] = g < groups ? __ldcs(reinterpret_cast<const uint4*>(nxt) + g) : make_uint4(0, 0, 0, 0);
       }
-      reinterpret_cast<uint4*>(nxt)[g] = x.v;
-      reinterpret_cast<uint4*>(visited)[g] = v.v;
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        if (!any16(x[k])) continue;  // also every slot past the end
+        const long long g = base + static_cast<long long>(k) * kThreads;
+        // every load of the group is issued before the first is used
+        Bytes16 a, v, s, y;
+        a.v = x[k];
+        v.v = reinterpret_cast<const uint4*>(visited)[g];
+        if (gate != nullptr) s.v = __ldg(reinterpret_cast<const uint4*>(gate) + g % row_groups);
+        long long cg = 0, b = 0;
+        if (node != nullptr) {
+          const long long row = g / row_groups;
+          cg = g - row * row_groups;
+          if (bound != nullptr) {
+            b = bound[row];
+          } else {
+            y.v = __ldg(reinterpret_cast<const uint4*>(node) + cg);
+          }
+        }
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          a.w[w] &= ~v.w[w];
+          if (gate != nullptr) a.w[w] &= s.w[w];
+          v.w[w] |= a.w[w];
+        }
+        cnt += popc16(a);
+        reinterpret_cast<uint4*>(nxt)[g] = a.v;
+        reinterpret_cast<uint4*>(visited)[g] = v.v;
+        if (node != nullptr && bound != nullptr) {
+          ecnt += popc16(at_column16(a, node, cg, b));
+        } else if (node != nullptr) {
+#pragma unroll
+          for (int w = 0; w < 4; ++w) a.w[w] &= y.w[w];
+          ecnt += popc16(a);
+        }
+      }
     } else {
-      unsigned char x = nxt[g] & static_cast<unsigned char>(!visited[g]);
-      if constexpr (kGate) x &= static_cast<unsigned char>(gate[g % gate_groups] != 0);
-      nxt[g] = x;
-      visited[g] |= x;
-      cnt += x;
+      unsigned char x[kInFlight];
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const long long g = base + static_cast<long long>(k) * kThreads;
+        x[k] = g < groups ? nxt[g] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        if (!x[k]) continue;
+        const long long g = base + static_cast<long long>(k) * kThreads;
+        unsigned char a = x[k] & static_cast<unsigned char>(!visited[g]);
+        if (gate != nullptr) a &= static_cast<unsigned char>(gate[g % vb] != 0);
+        nxt[g] = a;
+        visited[g] |= a;
+        cnt += a;
+        if (node != nullptr && a) {
+          const long long row = g / vb;
+          const long long col = g - row * vb;
+          unsigned char e = a & node[col];
+          if (bound != nullptr && static_cast<long long>(bound[row]) != col) e = 0;
+          ecnt += e;
+        }
+      }
     }
   }
-  warp_count_add(cnt, count);
+  block_count_add(cnt, count, ecnt, emitted);
 }
 
 // ---------------------------------------------------------------------------
@@ -2250,46 +2418,55 @@ int csr_bitmap_emit(const void* reached, const void* node, const void* bound,
   }
   const long long n = c * vb;
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const bool vec = vb % 16 == 0 && aligned16(reached) && aligned16(node) &&
-                   (emit == nullptr || aligned16(emit));
   const unsigned char* r = static_cast<const unsigned char*>(reached);
   const unsigned char* nd = static_cast<const unsigned char*>(node);
   const int* b = static_cast<const int*>(bound);
   unsigned char* em = static_cast<unsigned char*>(emit);
   unsigned char* an = static_cast<unsigned char*>(any);
   unsigned* cn = static_cast<unsigned*>(count);
+  if (b != nullptr && em == nullptr) {
+    bitmap_emit_bound_kernel<<<blocks_for(c, kThreads), kThreads, 0, s>>>(r, nd, b, c, vb, an, cn);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool vec = vb % 16 == 0 && aligned16(reached) && aligned16(node) &&
+                   (emit == nullptr || aligned16(emit));
   if (vec) {
-    bitmap_emit_kernel<true><<<grid_for(n, 16), kThreads, 0, s>>>(r, nd, b, c, vb, em, an, cn);
+    bitmap_emit_kernel<true><<<grid_for(n, 16 * kInFlight), kThreads, 0, s>>>(r, nd, b, c, vb, em, an, cn);
   } else {
-    bitmap_emit_kernel<false><<<grid_for(n, 1), kThreads, 0, s>>>(r, nd, b, c, vb, em, an, cn);
+    bitmap_emit_kernel<false><<<grid_for(n, kInFlight), kThreads, 0, s>>>(r, nd, b, c, vb, em, an, cn);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both bitmaps hold `n` bytes (rows of `vb`); `gate` (null: none) holds
-// `vb`; `count` (one int32) is zeroed here.
-int csr_frontier_advance(void* nxt, void* visited, const void* gate, long long n,
-                         long long vb, void* count, void* stream) {
+// Both bitmaps hold `n` bytes (rows of `vb`); `gate` and `node` (null:
+// none) hold `vb`, `bound` (null: none; only with `node`) n / vb int32;
+// `count` and `emitted` (one int32 each; `emitted` only with `node`) are
+// zeroed here.
+int csr_frontier_advance(void* nxt, void* visited, const void* gate, const void* node,
+                         const void* bound, long long n, long long vb, void* count,
+                         void* emitted, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (emitted != nullptr) {
+    e = cudaMemsetAsync(emitted, 0, sizeof(unsigned), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   unsigned char* x = static_cast<unsigned char*>(nxt);
   unsigned char* v = static_cast<unsigned char*>(visited);
   const unsigned char* a = static_cast<const unsigned char*>(gate);
+  const unsigned char* nd = static_cast<const unsigned char*>(node);
+  const int* b = static_cast<const int*>(bound);
   unsigned* cn = static_cast<unsigned*>(count);
+  unsigned* en = static_cast<unsigned*>(emitted);
   const bool vec = n % 16 == 0 && aligned16(nxt) && aligned16(visited) &&
-                   (gate == nullptr || (vb % 16 == 0 && aligned16(gate)));
-  if (gate == nullptr) {
-    if (vec) {
-      frontier_advance_kernel<true, false><<<grid_for(n, 16), kThreads, 0, s>>>(x, v, a, n, vb, cn);
-    } else {
-      frontier_advance_kernel<false, false><<<grid_for(n, 1), kThreads, 0, s>>>(x, v, a, n, vb, cn);
-    }
-  } else if (vec) {
-    frontier_advance_kernel<true, true><<<grid_for(n, 16), kThreads, 0, s>>>(x, v, a, n, vb, cn);
+                   (gate == nullptr || (vb % 16 == 0 && aligned16(gate))) &&
+                   (node == nullptr || (vb % 16 == 0 && aligned16(node)));
+  if (vec) {
+    frontier_advance_kernel<true><<<grid_for(n, 16 * kInFlight), kThreads, 0, s>>>(x, v, a, nd, b, n, vb, cn, en);
   } else {
-    frontier_advance_kernel<false, true><<<grid_for(n, 1), kThreads, 0, s>>>(x, v, a, n, vb, cn);
+    frontier_advance_kernel<false><<<grid_for(n, kInFlight), kThreads, 0, s>>>(x, v, a, nd, b, n, vb, cn, en);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1759,8 +1759,14 @@ class TpuMatchSolver:
             )
             matched = torch.zeros(C, dtype=torch.bool, device=self.device) if optional else None
 
+            def add_count(n):
+                nonlocal total_dev, totalf_dev
+                total_dev = total_dev + n
+                if recording:
+                    totalf_dev = totalf_dev + n.to(F32)
+
             def emit_level(reached, depth):
-                nonlocal total_dev, totalf_dev, matched
+                nonlocal matched
                 if not count_only:
                     hit = self._emit_var_level(
                         table, reached, node_vec, bound_chunk, cs, depth,
@@ -1769,10 +1775,7 @@ class TpuMatchSolver:
                     if optional:
                         matched = matched | hit
                     return
-                _, _, n = K.bitmap_emit(reached, node_vec, bound_chunk, emit=False, count=True)
-                total_dev = total_dev + n
-                if recording:
-                    totalf_dev = totalf_dev + n.to(F32)
+                add_count(K.bitmap_emit(reached, node_vec, bound_chunk, emit=False, count=True)[2])
 
             frontier = K.rows_to_bitmap(src_chunk, vb)
             # the frontier is its own visited set until the first level step
@@ -1793,11 +1796,16 @@ class TpuMatchSolver:
                     if gate is None:
                         gate = gates[depth] = self._vertex_vec(while_fn, {"depth": depth})
                 nxt = _run_hops(hops, frontier, gate, alive_dev)
-                alive_dev = K.frontier_advance(nxt, visited)
+                if count_only:  # the level's emission count comes from the same pass
+                    alive_dev, n = K.frontier_advance(nxt, visited, node=node_vec, bound=bound_chunk)
+                    add_count(n)
+                else:
+                    alive_dev = K.frontier_advance(nxt, visited)
                 alive = self.sched.observe(alive_dev, free=True)
                 empty_streak = empty_streak + 1 if alive == 0 else 0
                 depth += 1
-                emit_level(nxt, depth)
+                if not count_only:
+                    emit_level(nxt, depth)
                 frontier = nxt
                 if empty_streak >= pad:
                     break

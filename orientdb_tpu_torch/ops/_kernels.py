@@ -58,7 +58,7 @@ SIGNATURES = {
     "csr_bitmap_hop": [_P, _P, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
     "csr_bitmap_hop_csr": [_P, _N, _P, _P, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
     "csr_bitmap_emit": [_P, _P, _P, _N, _N, _P, _P, _P, _P],
-    "csr_frontier_advance": [_P, _P, _P, _N, _N, _P, _P],
+    "csr_frontier_advance": [_P, _P, _P, _P, _P, _N, _N, _P, _P, _P],
     "csr_rows_with_matches": [_P, _P, _N, _N, _I, _P, _P],
     "csr_group_page": [_P, _N, _I, _N, _N, _I, _P, _P],
     "csr_predicate_eval": [_P, _P],

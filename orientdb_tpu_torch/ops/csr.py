@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -991,50 +991,80 @@ def bitmap_emit(
     return e_out, a_out, c_out
 
 
+AdvanceResult = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
 def plain_frontier_advance(
-    nxt: torch.Tensor, visited: torch.Tensor, gate: Optional[torch.Tensor] = None
-) -> torch.Tensor:
+    nxt: torch.Tensor,
+    visited: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    node: Optional[torch.Tensor] = None,
+    bound: Optional[torch.Tensor] = None,
+) -> AdvanceResult:
     nxt &= ~visited
     if gate is not None:
         nxt &= gate[None, :]
     visited |= nxt
-    return nxt.sum(dtype=I32)
+    alive = nxt.sum(dtype=I32)
+    if node is None:
+        return alive
+    return alive, plain_bitmap_emit(nxt, node, bound, emit=False, count=True)[2]
 
 
 def frontier_advance(
-    nxt: torch.Tensor, visited: torch.Tensor, gate: Optional[torch.Tensor] = None
-) -> torch.Tensor:
+    nxt: torch.Tensor,
+    visited: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    node: Optional[torch.Tensor] = None,
+    bound: Optional[torch.Tensor] = None,
+) -> AdvanceResult:
     """The BFS level step, in place on both bitmaps: ``nxt &= ~visited;
     visited |= nxt``. With ``gate`` (bool [vb], broadcast over the rows),
     TRAVERSE's admission: ``nxt &= ~visited & gate[None, :]`` first, so a
     vertex the gate rejects is neither kept nor marked visited. Returns the
-    popcount of the new ``nxt`` as a 0-d int32 (the level's alive count)."""
+    popcount of the new ``nxt`` as a 0-d int32 (the level's alive count).
+    With ``node`` (bool [vb]) it returns ``(alive, emitted)``: ``emitted``
+    is `bitmap_emit`'s count over the new ``nxt`` (``bound``, int32 [C],
+    as there), from the same pass."""
     _check2d(nxt, (B8,), "frontier_advance nxt")
     _check2d(visited, (B8,), "frontier_advance visited")
     if nxt.shape != visited.shape:
         raise ValueError("frontier_advance: bitmaps differ in shape")
+    C, vb = nxt.shape
     ts = [nxt, visited]
-    if gate is not None:
-        _check(gate, (B8,), "frontier_advance gate")
-        if gate.shape[0] != nxt.shape[1]:
-            raise ValueError("frontier_advance: gate and bitmap rows differ in length")
-        ts.append(gate)
+    for vec, what in ((gate, "gate"), (node, "node")):
+        if vec is not None:
+            _check(vec, (B8,), f"frontier_advance {what}")
+            if vec.shape[0] != vb:
+                raise ValueError(f"frontier_advance: {what} and bitmap rows differ in length")
+            ts.append(vec)
+    if bound is not None:
+        if node is None:
+            raise ValueError("frontier_advance: bound without node")
+        _check(bound, (I32,), "frontier_advance bound")
+        if bound.shape[0] != C:
+            raise ValueError("frontier_advance: bound and bitmap differ in rows")
+        ts.append(bound)
     if not _on_card(*ts):
-        return plain_frontier_advance(nxt, visited, gate)
+        return plain_frontier_advance(nxt, visited, gate, node, bound)
     lib = _kernels.load()
     count = torch.empty((), dtype=I32, device=nxt.device)
+    emitted = None if node is None else torch.empty((), dtype=I32, device=nxt.device)
     _launch(
         "frontier_advance",
         lib.csr_frontier_advance,
         nxt.data_ptr(),
         visited.data_ptr(),
         None if gate is None else gate.data_ptr(),
+        None if node is None else node.data_ptr(),
+        None if bound is None else bound.data_ptr(),
         nxt.numel(),
-        nxt.shape[1],
+        vb,
         count.data_ptr(),
+        None if emitted is None else emitted.data_ptr(),
         _stream(nxt),
     )
-    return count
+    return count if emitted is None else (count, emitted)
 
 
 # ---------------------------------------------------------------------------

@@ -290,20 +290,125 @@ def test_bitmap_emit_equals_var_emit_mask(bound, c, vb):
     assert only_count[0] is None and only_count[1] is None and int(only_count[2]) == int(want.sum())
 
 
-@pytest.mark.parametrize("c,vb", [(1, 8), (8, 64), (3, 50)])
-def test_frontier_advance_equals_level_step(c, vb):
-    rng = np.random.default_rng(c * vb)
-    nxt = _bitmap(rng, c, vb, 0.4)
+def _advance_case(c, vb, fill, node, bound):
+    tag = "-".join([str(c), str(vb), fill] + (["node"] if node else []) + (["bound"] if bound else []))
+    return pytest.param(c, vb, fill, node, bound, id=tag)
+
+
+#: the level step alone, with the folded emission count (``node``), and
+#: restricted to a close arm's bound column (``bound``); the first three
+#: are the step alone at random densities
+ADVANCE_CASES = [
+    pytest.param(1, 8, "random", False, False, id="1-8"),
+    pytest.param(8, 64, "random", False, False, id="8-64"),
+    pytest.param(3, 50, "random", False, False, id="3-50"),
+] + [
+    _advance_case(c, vb, fill, node, bound)
+    for c, vb in ((1, 8), (4, 50), (8, 64))
+    for fill in ("random", "zero", "one")
+    for node, bound in ((False, False), (True, False), (True, True))
+    if (fill, node) != ("random", False)
+]
+
+
+@pytest.mark.parametrize("c,vb,fill,node,bound", ADVANCE_CASES)
+def test_frontier_advance_equals_level_step(c, vb, fill, node, bound):
+    """K12 against the reference's level step and, with ``node``, against
+    ``jnp.sum(_var_emit_mask(nxt, node, bound), dtype=int32)`` over the new
+    frontier (the COUNT path's emission, which K12 folds in)."""
+    rng = np.random.default_rng(c * vb + 7 * node + 3 * bound)
+    nxt = {"random": _bitmap(rng, c, vb, 0.4), "zero": np.zeros((c, vb), bool), "one": np.ones((c, vb), bool)}[fill]
     visited = _bitmap(rng, c, vb, 0.5)
+    node_v = rng.random(vb) < 0.5 if node else None
+    b = None
+    if bound:
+        # -2 padding rows, and bound endpoints at the first and last column
+        b = rng.integers(0, vb, c).astype(np.int32)
+        b[0] = vb - 1 if c == 1 else -2
+        if c > 2:
+            b[1], b[2] = 0, vb - 1
+        for i in range(c):
+            if b[i] >= 0 and fill != "zero":
+                nxt[i, b[i]], visited[i, b[i]], node_v[b[i]] = True, False, True
     jn = jnp.asarray(nxt) & ~jnp.asarray(visited)
     jv = jnp.asarray(visited) | jn
     jcount = int(_np(J.mask_count(jn.reshape(-1))))
     tn, tv = _t(nxt.copy()), _t(visited.copy())
-    count = T.frontier_advance(tn, tv)
+    got = T.frontier_advance(tn, tv, None, _t(node_v) if node else None, _t(b) if bound else None)
     assert np.array_equal(tn.numpy(), _np(jn)) and np.array_equal(tv.numpy(), _np(jv))
-    assert count.dtype == torch.int32 and int(count) == jcount
+    count = got[0] if node else got
+    assert count.dtype == torch.int32 and count.dim() == 0 and int(count) == jcount
+    if node:
+        emit = j_var_emit_mask(jn, jnp.asarray(node_v), jnp.asarray(b) if bound else None, vb)
+        want = int(_np(jnp.sum(emit, dtype=jnp.int32)))
+        assert got[1].dtype == torch.int32 and got[1].dim() == 0 and int(got[1]) == want
+        if bound and fill != "zero":
+            assert want == int((b >= 0).sum())  # every bound endpoint emits once
     # a second step from the same bitmaps finds nothing new
-    assert int(T.frontier_advance(tn, tv)) == 0 and not tn.any()
+    again = T.frontier_advance(tn, tv, None, _t(node_v) if node else None, _t(b) if bound else None)
+    assert all(int(x) == 0 for x in (again if node else (again,))) and not tn.any()
+
+
+def _person_knows_with_records(n: int, avg: int, seed: int):
+    """A Person–knows graph with records in the reference (so its oracle
+    engine runs), snapshotted there and carried into the port."""
+    from orientdb_tpu import Database
+    from orientdb_tpu.storage.snapshot import attach_fresh_snapshot
+    from orientdb_tpu_torch.carry import snapshot_from_arrays
+    from tests.test_torch_match import _carry_arrays
+
+    rng = np.random.default_rng(seed)
+    jdb = Database("pk_records")
+    jdb.schema.create_vertex_class("Person")
+    jdb.schema.create_edge_class("knows")
+    vs = [jdb.new_vertex("Person", uid=i, age=int(a)) for i, a in enumerate(rng.integers(18, 80, n))]
+    for s, d in zip(rng.integers(0, n, n * avg), rng.integers(0, n, n * avg)):
+        jdb.new_edge("knows", vs[s], vs[d])
+    jsnap = attach_fresh_snapshot(jdb)
+    db, _snap = snapshot_from_arrays(*_carry_arrays(jdb, jsnap), device="cpu")
+    return jdb, db
+
+
+#: variable-depth COUNTs: V1's shape (a WHILE gate and a node mask), a
+#: maxDepth arm over both directions, and roots spread over several chunks
+VAR_COUNTS = [
+    "MATCH {class:Person, as:p, where:(uid < 20)}-knows->{as:f, while:($depth < 3), where:(age < 30)} "
+    "RETURN count(*) AS n",
+    "MATCH {class:Person, as:p, where:(uid < 5)}-knows-{as:f, maxDepth:2} RETURN count(*) AS n",
+    "MATCH {class:Person, as:p, where:(age > 70)}-knows->{as:f, while:($depth < 4)} RETURN count(*) AS n",
+]
+
+
+def test_var_depth_count_folds_the_emission_into_the_level_step(monkeypatch):
+    """The variable-depth COUNT makes one K12 call a level, with the node
+    mask (its emission count comes from that pass), and K11 only for the
+    roots' bitmap at depth 0: one a chunk, as many as K9's. On the CPU the
+    wrappers run their plain versions, so the calls are counted at the
+    wrappers (on a card each call is one launch, `LAUNCHES`). The counts
+    equal the reference's ``engine="tpu"`` and oracle counts, recorded and
+    replayed."""
+    jdb, db = _person_knows_with_records(300, 4, seed=13)
+    calls = {"rows_to_bitmap": 0, "bitmap_hop_csr": 0, "bitmap_emit": 0, "frontier_advance": 0, "folded": 0}
+    for name in ("rows_to_bitmap", "bitmap_hop_csr", "bitmap_emit", "frontier_advance"):
+        def counted(*a, _f=getattr(T, name), _n=name, **kw):
+            calls[_n] += 1
+            if _n == "frontier_advance" and kw.get("node") is not None:
+                calls["folded"] += 1
+            return _f(*a, **kw)
+
+        monkeypatch.setattr(T, name, counted)
+    for sql in VAR_COUNTS:
+        want = jdb.query(sql, engine="tpu", strict=True).to_dicts()
+        assert jdb.query(sql, engine="oracle").to_dicts() == want
+        assert want[0]["n"] > 0
+        for _ in range(2):  # the recording, then a replay
+            for k in calls:
+                calls[k] = 0
+            assert db.query(sql).to_dicts() == want
+            assert calls["frontier_advance"] > 0 and calls["folded"] == calls["frontier_advance"]
+            hops_a_level = 2 if "-knows-{" in sql else 1
+            assert calls["bitmap_hop_csr"] == hops_a_level * calls["frontier_advance"]
+            assert calls["bitmap_emit"] == calls["rows_to_bitmap"] > 0
 
 
 def _bad_calls():
@@ -325,6 +430,12 @@ def _bad_calls():
         "emit_bound_rows": lambda: T.bitmap_emit(b2, torch.zeros(8, dtype=torch.bool), i),
         "emit_dtype": lambda: T.bitmap_emit(b2.to(torch.uint8), torch.zeros(8, dtype=torch.bool)),
         "advance_shapes": lambda: T.frontier_advance(b2, torch.zeros((2, 4), dtype=torch.bool)),
+        "advance_node_width": lambda: T.frontier_advance(b2, b2.clone(), node=torch.zeros(9, dtype=torch.bool)),
+        "advance_bound_without_node": lambda: T.frontier_advance(b2, b2.clone(), bound=i[:2]),
+        "advance_bound_rows": lambda: T.frontier_advance(b2, b2.clone(), node=torch.zeros(8, dtype=torch.bool), bound=i),
+        "advance_bound_dtype": lambda: T.frontier_advance(
+            b2, b2.clone(), node=torch.zeros(8, dtype=torch.bool), bound=i[:2].long()
+        ),
     }
 
 

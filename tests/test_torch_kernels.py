@@ -284,6 +284,125 @@ def test_bitmap_kernels_equal_plain_on_card(card, c, vb, e):
     torch.cuda.synchronize()
 
 
+def _level(rng, c: int, vb: int, kind: str) -> np.ndarray:
+    """A level's bitmap: V1-like sparse rows (a few reached vertices a row),
+    a single set byte at the first or the last slot of each row, every byte
+    set, or a random third."""
+    if kind == "sparse":
+        nxt = np.zeros((c, vb), bool)
+        for r in range(c):
+            nxt[r, rng.integers(0, vb, 9)] = True
+        return nxt
+    if kind == "ends":
+        nxt = np.zeros((c, vb), bool)
+        nxt[0::2, 0] = True
+        nxt[1::2, vb - 1] = True
+        return nxt
+    if kind == "dense":
+        return np.ones((c, vb), bool)
+    return rng.random((c, vb)) < 0.3
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one byte off 16-byte alignment (the
+    kernels' one-byte path)."""
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    v = buf[1 : 1 + t.numel()].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def _bound_for(rng, nxt: np.ndarray) -> np.ndarray:
+    """A close arm's bound column a row: -2 padding, the first and the
+    last column, past the row, and reached slots."""
+    c, vb = nxt.shape
+    b = rng.integers(0, vb, c).astype(np.int32)
+    for r in range(c):
+        hit = np.flatnonzero(nxt[r])
+        b[r] = (-2, 0, vb - 1, vb + 1, hit[0] if hit.size else 3)[r % 5]
+    return b
+
+
+LEVEL_CASES = [
+    (c, vb, kind)
+    for c, vb in ((1, 1 << 16), (8, 1 << 16), (33, 1 << 12), (8, 1_002), (33, 40))
+    for kind in ("sparse", "ends", "dense", "random")
+] + [(8, 1 << 23, "sparse"), (8, 1 << 23, "ends")]  # V1's row width
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,vb,kind", LEVEL_CASES)
+def test_level_step_kernels_equal_plain_on_card(card, c, vb, kind):
+    """K12 frontier_advance (alone, gated, with the folded emission count,
+    with a bound) and K11 bitmap_emit (each output, open and close) against
+    their plain versions, exactly, on V1-like sparse levels, single bytes at
+    a row's ends, every group set and a random third; 16-byte aligned and
+    one byte off (the one-byte path), and rows not a multiple of 16."""
+    rng = np.random.default_rng(c * 7 + vb + len(kind))
+    nxt_np = _level(rng, c, vb, kind)
+    vis_np = rng.random((c, vb)) < (0.5 if kind == "random" else 0.001)
+    nxt, vis = _t(nxt_np).to(card), _t(vis_np).to(card)
+    gate = _t(rng.random(vb) < 0.5).to(card)
+    node = _t(rng.random(vb) < 0.5).to(card)
+    bound = _t(_bound_for(rng, nxt_np & ~vis_np)).to(card)
+    for view in (lambda t: t.clone(), _misaligned):
+        for g in (None, gate):
+            for nd, b in ((None, None), (node, None), (node, bound)):
+                a = [view(nxt), view(vis)]
+                w = [nxt.clone(), vis.clone()]
+                args = (g if g is None else view(g), nd if nd is None else view(nd), b)
+                got = T.frontier_advance(a[0], a[1], *args)
+                want = T.plain_frontier_advance(w[0], w[1], g, nd, b)
+                assert torch.equal(a[0], w[0]) and torch.equal(a[1], w[1])
+                for x, y in zip(got if nd is not None else (got,), want if nd is not None else (want,)):
+                    assert torch.equal(x, y)
+        reached = view(nxt)
+        for b in (None, bound):
+            for flags in ((True, True, True), (False, False, True), (True, False, False), (False, True, False),
+                          (False, True, True)):
+                got = T.bitmap_emit(reached, view(node), b, *flags)
+                want = T.plain_bitmap_emit(nxt, node, b, *flags)
+                for x, y in zip(got, want):
+                    assert (x is None and y is None) or torch.equal(x, y)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,vb", [(8, 1 << 16), (33, 1_002)])
+def test_captured_level_steps_equal_eager_on_card(card, c, vb):
+    """K12 with its folded count and K11's count-only and close-arm forms
+    captured once in a CUDA graph, replayed over several levels copied into
+    the captured buffers: each replay equals the same calls made eagerly."""
+    rng = np.random.default_rng(c + vb)
+    node = _t(rng.random(vb) < 0.5).to(card)
+    nxt_s = torch.zeros((c, vb), dtype=torch.bool, device=card)
+    vis_s = torch.zeros_like(nxt_s)
+    bound_s = torch.zeros(c, dtype=torch.int32, device=card)
+    T.frontier_advance(nxt_s, vis_s, node=node)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        alive, emitted = T.frontier_advance(nxt_s, vis_s, node=node, bound=None)
+        _e, _a, close_n = T.bitmap_emit(nxt_s, node, bound_s, emit=False, any_row=False, count=True)
+        _e, any_row, open_n = T.bitmap_emit(nxt_s, node, None, emit=False, any_row=True, count=True)
+    for kind in ("sparse", "ends", "dense", "random", "sparse"):
+        nxt_np = _level(rng, c, vb, kind)
+        vis_np = rng.random((c, vb)) < 0.01
+        b = _t(_bound_for(rng, nxt_np & ~vis_np)).to(card)
+        nxt_s.copy_(_t(nxt_np).to(card))
+        vis_s.copy_(_t(vis_np).to(card))
+        bound_s.copy_(b)
+        graph.replay()
+        n, v = _t(nxt_np).to(card), _t(vis_np).to(card)
+        want = T.frontier_advance(n, v, node=node)
+        assert torch.equal(nxt_s, n) and torch.equal(vis_s, v)
+        assert torch.equal(alive, want[0]) and torch.equal(emitted, want[1])
+        assert torch.equal(close_n, T.bitmap_emit(n, node, b, emit=False, count=True)[2])
+        e_any = T.bitmap_emit(n, node, None, emit=False, any_row=True, count=True)
+        assert torch.equal(any_row, e_any[1]) and torch.equal(open_n, e_any[2])
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "c,v,vb,avg", [(1, 1_000, 1_024, 5.0), (8, 5_000, 8_192, 8.0), (33, 3_000, 4_096, 6.0),

@@ -298,6 +298,46 @@ def test_gated_frontier_advance_equals_numpy(gate_kind):
     assert count.dtype == torch.int32 and int(count) == int(want_n.sum())
 
 
+@pytest.mark.parametrize("gate_kind", ["random", "empty", "all"])
+@pytest.mark.parametrize("bound", [False, True], ids=["open", "close"])
+def test_gated_frontier_advance_with_emission_count_equals_numpy(gate_kind, bound):
+    """K12's gate beside its folded emission count: the count is taken over
+    the admitted frontier (after the gate), restricted to ``bound[c]``."""
+    rng = np.random.default_rng(5)
+    C, vb = 3, 1 << 10
+    nxt = rng.random((C, vb)) < 0.3
+    vis = rng.random((C, vb)) < 0.4
+    node = rng.random(vb) < 0.5
+    gate = {"random": rng.random(vb) < 0.5, "empty": np.zeros(vb, bool), "all": np.ones(vb, bool)}[gate_kind]
+    b = np.array([-2, 0, vb - 1], np.int32) if bound else None
+    want_n = nxt & ~vis & gate[None, :]
+    emit = want_n & node[None, :]
+    if bound:
+        emit &= np.arange(vb)[None, :] == b[:, None]
+    n_t, v_t = torch.from_numpy(nxt.copy()), torch.from_numpy(vis.copy())
+    alive, emitted = K.frontier_advance(
+        n_t, v_t, torch.from_numpy(gate), torch.from_numpy(node), None if b is None else torch.from_numpy(b)
+    )
+    assert np.array_equal(n_t.numpy(), want_n) and np.array_equal(v_t.numpy(), vis | want_n)
+    assert int(alive) == int(want_n.sum()) and int(emitted) == int(emit.sum())
+
+
+def test_traverse_level_steps_take_no_emission_count(demodb, monkeypatch):
+    """TRAVERSE's level steps call K12 without ``node``: its rows come from
+    the admitted frontier itself, not from an emission count."""
+    jdb, db, snap = demodb
+    nodes = []
+
+    def spy(*a, _f=K.frontier_advance, **kw):
+        nodes.append(kw.get("node", a[3] if len(a) > 3 else None))
+        return _f(*a, **kw)
+
+    monkeypatch.setattr(K, "frontier_advance", spy)
+    sql = "TRAVERSE out('HasFriend') FROM (SELECT FROM Profiles WHERE uid < 5) WHILE $depth < 3 STRATEGY BREADTH_FIRST"
+    assert_traverse_parity(jdb, db, sql)
+    assert nodes and all(n is None for n in nodes)
+
+
 def test_predicate_id_instruction_equals_numpy():
     ids = torch.tensor([-1, 0, 5, 7, 5, -2, 1000], dtype=torch.int32)
     for want in (5, 0, -2, 1000):
