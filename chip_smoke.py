@@ -31,7 +31,14 @@ from the root of a checkout. Phases, each of which raises on failure:
    entries, identity mode, binding rows, the WHILE level and a parameter
    row (distance() masks outside the boundary band: float64 distance
    within 0.01 km + 1e-5·r of r), with split launches against one, then
-   timed on Q1's two node masks over the 2^23-vertex universe. K1 (the
+   timed on Q1's two node masks over the 2^23-vertex universe, on G1's
+   (beside its byte and operation bounds) and on guarded programs whose
+   first conjunct rejects every slot or none. K4 (the merge-path segment
+   sum) is held at Q2's ~80M weights into 2^23 (padded) and into V / 3
+   (cut), at the edge lengths and on a Zipf-degree CSR with a segment of
+   30 tiles and runs of empty segments (int32 exactly, float32 to rtol
+   1e-6, every call twice and bit for bit equal), and timed eagerly and in
+   a graph beside ``torch.segment_reduce``. K1 (the
    single-pass look-back scan) is held in every form (inclusive,
    exclusive, with its device total, the total alone, a bool mask's ranks
    through its int32 cast) at Q2's ~80M weights, around its tile and K3's
@@ -109,7 +116,12 @@ from the root of a checkout. Phases, each of which raises on failure:
    and replay, each second parameter value replaying the same plan; every
    result equals its numpy enumeration. Then holds `rows_with_matches`
    (K13) against its plain version at E4's shapes, at edge cases and on
-   2^26 slots, and times it beside ``torch.bincount``;
+   2^26 slots, and times it beside ``torch.bincount``; then E1's shapes:
+   K15's edge mask (``creationDate > :d`` over the 80M ``knows`` edges,
+   the replayed plan's program and parameter row) exactly against its
+   plain version, timed eagerly and in a graph beside its bound, and K4
+   over the ``knows`` CSR of all 24M vertices into 2^25 (padded and cut,
+   two calls bit for bit), timed the same way beside ``segment_reduce``;
 7. batches — ``db.query_batch`` on both graphs while each is resident (the
    Person–knows cells before phase 6 frees that graph, the SNB-shape cells
    after E1–E5), the plan cache cleared first and each statement recorded
@@ -310,8 +322,12 @@ E_REPLAY_KERNELS = [
 EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
 #: K1's and K3's eager times before their look-back redesign (the
 #: three-pass scan, and the cast + scan + scatter compaction; `PERF.md` §6),
-#: printed beside this run's
-WAS_MS = {"scan_i32": 0.3601, "scan_f32": 0.3599, "compact fill": 0.0921, "compact offset": 0.1179}
+#: and K4's before its merge path, printed beside this run's
+WAS_MS = {
+    "scan_i32": 0.3601, "scan_f32": 0.3599, "compact fill": 0.0921, "compact offset": 0.1179,
+    # K4's warp-a-segment design at A's shape (`PERF.md` §6)
+    "segment_sum_i32": 1.1925, "segment_sum_f32": 1.1950,
+}
 #: K11's and K12's times before their sparse redesign, when each read every
 #: byte of its [8, 2^23] bitmaps at every level (`PERF.md` §6: V1's replay
 #: profile in chip run 3 of PR 12, K12 18.2 ms over 203 launches and K11
@@ -571,7 +587,63 @@ def captured_scan_replays(torch, K, ks, vals, n: int, reps: int = 1000) -> None:
     K.LAUNCHES.update(counted)
 
 
-def check_kernels(torch, K, dg) -> Kernels:
+def segment_sum_bytes(ne: int, nseg: int, out_size: int) -> float:
+    """K4's bound in bytes: each value and indptr entry read once, each
+    output slot written once."""
+    return 4.0 * ne + 4.0 * (nseg + 1) + 4.0 * out_size
+
+
+def same_segment_sum(torch, K, ks, name, vals, indptr, out_size) -> None:
+    """K4 against its plain version (int32 exactly, float32 to rtol 1e-6 of
+    the largest magnitude) and against itself: a second call equal bit for
+    bit."""
+    got = K.indptr_segment_sum(vals, indptr, out_size)
+    ks.same(name, got, K.plain_indptr_segment_sum(vals, indptr, out_size), vals.dtype == torch.int32)
+    again = K.indptr_segment_sum(vals, indptr, out_size)
+    _require(torch.equal(got.view(torch.int32), again.view(torch.int32)), f"{name}: two calls differ")
+
+
+def print_segment_sum(torch, K, row, name, vals, indptr, out_size, shape: str, card: str) -> None:
+    """K4's eager and in-graph times at one shape, beside its bound, the
+    earlier design's time and (float32) `torch.segment_reduce`."""
+    fn = lambda: K.indptr_segment_sum(vals, indptr, out_size)  # noqa: E731
+    nseg = min(indptr.shape[0] - 1, out_size)
+    bound = segment_sum_bytes(vals.shape[0], nseg, out_size) / HBM_BYTES_PER_S * 1e3
+    lib = ""
+    if vals.dtype == torch.float32:
+        seg = lambda: torch.segment_reduce(vals, "sum", offsets=indptr)  # noqa: E731
+        lib = f"; torch.segment_reduce {_time_ms(torch, seg):.4f} eager, {_graph_ms(torch, seg):.4f} in a graph"
+    eager = row["ms"] if row is not None else _time_ms(torch, fn)
+    print(
+        f"kernel {name} at {shape}'s shape ({vals.shape[0]} values, {nseg} segments into {out_size}): "
+        f"{eager:.4f} ms eager (was {WAS_MS[name]} at A's), {_graph_ms(torch, fn):.4f} ms in a graph; "
+        f"bound {bound:.4f} ms{lib} [{card}]"
+    )
+
+
+def check_segment_sum_degrees(np, torch, K, ks, dev) -> None:
+    """K4 on a Zipf-degree CSR from a seed: 1M segments (~28M values, degrees
+    Zipf(1.6) up to 1,000), one of 150,000 values (30 of the kernel's
+    5,120-item tiles), ten runs of 5,000 empty segments, int32 values over
+    the whole range (the sums wrap) and float32 ones; ``out_size`` above
+    and below the segment count."""
+    rng = np.random.default_rng(41)
+    v = 1_000_000
+    deg = np.minimum(rng.zipf(1.6, v), 1_000)
+    deg[v // 2] = 150_000
+    for start in rng.choice(v - 5_000, 10, replace=False):
+        deg[start : start + 5_000] = 0
+    indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)).to(dev)
+    ne = int(indptr[-1])
+    vals_i = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, ne, dtype=np.int32)).to(dev)
+    vals_f = torch.from_numpy(rng.random(ne, dtype=np.float32)).to(dev)
+    for name, vals in (("segment_sum_i32", vals_i), ("segment_sum_f32", vals_f)):
+        for out_size in (K.bucket(v), v // 3):
+            same_segment_sum(torch, K, ks, name, vals, indptr, out_size)
+    print(f"kernel indptr_segment_sum: equals its plain version on a Zipf CSR ({v} segments, {ne} values)")
+
+
+def check_kernels(np, torch, K, dg, card: str) -> Kernels:
     from orientdb_tpu_torch.exec.tpu_engine import _cap_of
 
     ks = Kernels(torch, K)
@@ -727,21 +799,22 @@ def check_kernels(torch, K, dg) -> Kernels:
         12.0 * width + 4.0 * int(total) + 12.0 * size,
     )
 
-    # -- K4 segment sums over the edge list into vb ---------------------------
+    # -- K4 segment sums over the edge list into vb (merge path) -------------
     for name, vals in (("segment_sum_i32", vals_i), ("segment_sum_f32", vals_f)):
-        exact = vals.dtype == i32
-        ks.same(name, K.indptr_segment_sum(vals, indptr, vb), K.plain_indptr_segment_sum(vals, indptr, vb), exact)
+        for out_size in (vb, V // 3):  # padded past nseg, and cut below it
+            same_segment_sum(torch, K, ks, name, vals, indptr, out_size)
         for n in EDGE_LENGTHS:
             ip = torch.clamp(indptr[: n + 1], max=n).contiguous() if n else indptr[:1].clone() * 0
-            v = vals[:n].contiguous()
-            ks.same(name, K.indptr_segment_sum(v, ip, K.bucket(max(n, 1))), K.plain_indptr_segment_sum(v, ip, K.bucket(max(n, 1))), exact)
+            same_segment_sum(torch, K, ks, name, vals[:n].contiguous(), ip, K.bucket(max(n, 1)))
         ks.timed(
             name,
             lambda v=vals: K.indptr_segment_sum(v, indptr, vb),
             lambda v=vals: K.plain_indptr_segment_sum(v, indptr, vb),
             lambda v=vals: torch.segment_reduce(v, "sum", offsets=indptr),
-            4.0 * E + 4.0 * (V + 1) + 4.0 * vb,
+            segment_sum_bytes(E, V, vb),
         )
+        print_segment_sum(torch, K, ks.rows[name], name, vals, indptr, vb, "A", card)
+    check_segment_sum_degrees(np, torch, K, ks, dev)
 
     # -- K5a padding-safe gathers: the weight pass's [E]-wide gathers ----------
     w_i = K.indptr_segment_sum(vals_i, indptr, vb)
@@ -1570,6 +1643,12 @@ def check_replay_kernels(torch, K, ks, plan, params) -> None:
     print(f"replay kernels: equal their plain versions at W={W}, C={C}, live rows {live}")
 
 
+#: float32 operations of one distance() slot, each counted once at the
+#: card's float32 rate (a least time): 17 arithmetic operations and the
+#: compare with r, and six calls (sin and cos twice each, asin, sqrt)
+G1_SLOT_OPS = 24
+
+
 def time_predicate_kernel(np, torch, K, ks, db, card: str) -> None:
     """K15: first held exactly against `plain_predicate_eval` on every
     instruction family at 2^23 synthetic slots (`check_predicate_kernel`;
@@ -1577,8 +1656,13 @@ def time_predicate_kernel(np, torch, K, ks, db, card: str) -> None:
     as the main path runs them, over the [vb] vertex universe in identity
     mode (one launch a mask), eagerly and inside a captured graph, beside
     the plain version and the byte bound: each column read once, the
-    class ids (mask p), the mask written. These launches are not counted."""
+    class ids (mask p), the mask written; G1's mask beside its byte and
+    operation bounds; and guarded programs whose first conjunct rejects
+    every slot or none. These launches are not counted."""
     from orientdb_tpu_torch.exec.tpu_engine import TpuMatchSolver
+    from orientdb_tpu_torch.ops.predicates import (
+        ColumnScope, Predicate, _mask, class_term, compile_where, id_term, valid_term,
+    )
     from orientdb_tpu_torch.sql.parser import parse
 
     counted = dict(K.LAUNCHES)
@@ -1625,8 +1709,26 @@ def time_predicate_kernel(np, torch, K, ks, db, card: str) -> None:
         f"kernel predicate_eval, G1 node mask p ({len(prog.prog.rows)} instructions, distance()): "
         f"{_time_ms(torch, kernel):.4f} ms eager, {_graph_ms(torch, kernel):.4f} ms in a captured graph, "
         f"plain {_time_ms(torch, plain):.4f} ms, bound {(14.0 * V + vb) / HBM_BYTES_PER_S * 1e3:.4f} ms "
-        f"(bytes); {diff} slots differ from the plain version (boundary band) [{card}]"
+        f"(bytes), {G1_SLOT_OPS * V / SCALAR_OPS_PER_S * 1e3:.4f} ms (operations: {G1_SLOT_OPS} a slot); "
+        f"{diff} slots differ from the plain version (boundary band) [{card}]"
     )
+    # guards: a head conjunct that rejects every slot (a rid no vertex
+    # has) or none (a true constant), before Q1's class lookup and column
+    scope = ColumnScope(solver.dg.columns, solver.dg.non_columnar, device=solver.dg.device)
+    for what, head in (("rejects every slot", id_term(-2)), ("rejects none", _mask(True))):
+        pred = Predicate(
+            [valid_term(), head, class_term(solver.dg.v_class, solver.dg.class_table("Person")),
+             compile_where(parse("SELECT FROM V WHERE age > 40").where, scope, {})],
+            solver.dg.device,
+        )
+        (prog,) = pred.programs
+        bufs = prog.buffers({}, [], vb)
+        ks.same("predicate_eval", pred.identity(vb, V), K.plain_predicate_eval(prog.prog, bufs, None, vb, V))
+        kernel = lambda pr=pred: pr.identity(vb, V)  # noqa: E731
+        print(
+            f"kernel predicate_eval, a guard that {what} before Q1's mask p: {_time_ms(torch, kernel):.4f} ms "
+            f"eager, {_graph_ms(torch, kernel):.4f} ms in a captured graph [{card}]"
+        )
     K.LAUNCHES.update(counted)
 
 
@@ -1930,6 +2032,47 @@ def run_edges_replay(np, torch, K, db, snap, card: str, eref, cells=E_CELLS, ker
         )
     print(f"replay {list(cells)}: all equal numpy; launches {launches}")
     return launches, plans
+
+
+def check_snb_kernels(torch, K, ks, dg, e1_plan, card: str) -> None:
+    """E1's shapes on the SNB-shape graph. K15's edge mask (``creationDate >
+    :d``) over the 80M ``knows`` edges in identity mode, as E1's replays run
+    it (its compiled program and parameter row), held exactly against its
+    plain version and timed eagerly and in a captured graph beside its
+    bound (a value and a presence byte read, a mask byte written, an edge);
+    then K4 over the ``knows`` CSR of all 24M vertices into vb = 2^25
+    (Person segments of ~10 edges, 16M empty Message ones), held against its
+    plain version (padded and cut) and timed the same way. These launches
+    are not counted."""
+    counted = dict(K.LAUNCHES)
+    dec = dg.edges["knows"]
+    V, E = dg.num_vertices, dec.num_edges
+    vb = K.bucket(V)
+    (pred,) = [p for (c, _w, _v), p in e1_plan.solver._edge_preds.items() if c == "knows"]
+    row = pred.box.row(pred.device) if pred.uses_params else None
+    tmps = []
+    for prog in pred.programs:
+        values = prog is not pred.programs[-1]
+        bufs = prog.buffers({}, tmps, E)
+        got = K.predicate_eval(prog.prog, bufs, None, E, E, 0, 0, row, values=values)
+        ks.same("predicate_eval", got, K.plain_predicate_eval(prog.prog, bufs, None, E, E, 0, 0, row, values=values))
+        tmps.append(got)
+    emask = tmps[-1]
+    kernel = lambda: pred.identity(E)  # noqa: E731
+    rows = sum(len(p.prog.rows) for p in pred.programs)
+    print(
+        f"kernel predicate_eval, E1 edge mask ({rows} instructions, {E} edges, {int(emask.sum())} admitted): "
+        f"{_time_ms(torch, kernel):.4f} ms eager, {_graph_ms(torch, kernel):.4f} ms in a captured graph, "
+        f"bound {6.0 * E / HBM_BYTES_PER_S * 1e3:.4f} ms [{card}]"
+    )
+    contrib = (K.take_pad(dg.columns["age"].values, dec.dst, 0) < 30) & emask
+    for name, dtype in (("segment_sum_i32", torch.int32), ("segment_sum_f32", torch.float32)):
+        vals = contrib.to(dtype)
+        for out_size in (vb, V // 3):
+            same_segment_sum(torch, K, ks, name, vals, dec.indptr_out, out_size)
+        print_segment_sum(torch, K, None, name, vals, dec.indptr_out, vb, "E1", card)
+    torch.cuda.synchronize()
+    K.LAUNCHES.update(counted)
 
 
 def check_rows_with_matches(torch, K, ks, dg) -> None:
@@ -4517,7 +4660,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
-    ks = check_kernels(torch, K, dg)
+    ks = check_kernels(np, torch, K, dg, card)
     check_bitmap_kernels(torch, K, ks, dg)
     print(f"kernels: all equal their plain versions ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
@@ -4669,9 +4812,10 @@ def main() -> int:
     finally:
         config.plan_cache_size = cache_size
     t0 = time.perf_counter()
-    e_launches, _e_plans = run_edges_replay(np, torch, K, sdb, ssnap, card, eref)
+    e_launches, e_plans = run_edges_replay(np, torch, K, sdb, ssnap, card, eref)
     print(f"replay phase E: {time.perf_counter() - t0:.1f} s")
     check_rows_with_matches(torch, K, ks, sdg)
+    check_snb_kernels(torch, K, ks, sdg, e_plans["E1"], card)
     t0 = time.perf_counter()
     run_mesh_snb(np, torch, K, TE, sdb, ssnap, card, eref)
     print(f"mesh phase B: {time.perf_counter() - t0:.1f} s")

@@ -1,34 +1,48 @@
-"""Times the bitmap BFS's level-step kernels, K12 ``frontier_advance`` and
-K11 ``bitmap_emit``, of one tree of the port on one CUDA card, at the
-variable-depth COUNT's bitmap shapes ([8, 2^23]: 8 binding rows over the
-2^23-vertex bucket of an 8M-person graph) on synthetic levels made from a
-seed: V1-like sparse levels (80, 900 and 9,000 reached vertices a row), an
-empty one and a dense one, and TRAVERSE's gated [1, 2^23] level.
+"""Times kernels of one tree of the port on one CUDA card, on synthetic
+inputs made from a seed at the main path's shapes, so that one call can
+compare two trees on one card:
 
-    python3 level_step_times.py [--tree DIR]
+- the bitmap BFS's level-step kernels, K12 ``frontier_advance`` and K11
+  ``bitmap_emit``, at the variable-depth COUNT's bitmap shapes ([8, 2^23]:
+  8 binding rows over the 2^23-vertex bucket of an 8M-person graph):
+  V1-like sparse levels (80, 900 and 9,000 reached vertices a row), an
+  empty one and a dense one, and TRAVERSE's gated [1, 2^23] level;
+- K4 ``indptr_segment_sum`` (int32 and float32) at A's shape (Poisson(10)
+  degrees over 8M segments, ~80M values, into 2^23) and E1's (the same
+  8M Person segments then 16M empty Message ones, into 2^25);
+- K15 ``predicate_eval`` on the masks the main path runs, each compiled by
+  the tree's own compiler: Q1's node mask p (the class lookup and ``age >
+  40`` over 2^23 slots, 8M valid), M1's (the class lookup and an ID
+  compare), G1's (``distance(lat, lng, :x, :y) < :r``), and E1's edge mask
+  (``creationDate > :d`` over 80M edge slots).
+
+    python3 level_step_times.py [--tree DIR] [--only level,k4,k15]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
-package to time, so one call can time two trees on one card, in turns
-(``--tree A``, ``--tree B``, ``--tree B``, ``--tree A``). Every call of an
-in-place kernel gets bitmaps no earlier call has changed. Each kernel's
-result is checked against its plain version first. Prints one line a case
-and a JSON object of the times (ms) as its last line; exits 1 without a
-card.
+package to time; it is imported before anything else, and the file it was
+loaded from is printed, so a call can time two trees in turns (``--tree
+A``, ``--tree B``, ``--tree B``, ``--tree A``). The timing helpers come from
+this script's ``chip_smoke.py``. Every call of an in-place kernel gets
+bitmaps no earlier call has changed. Each kernel's result is checked
+against its plain version first. Prints one line a case and a JSON object
+of the times (ms, [eager, in a captured graph]) as its last line; exits 1
+without a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import inspect
 import json
 import os
 import subprocess
 import sys
 
-from chip_smoke import _fresh_ms  # this tree's timing of in-place kernels on fresh copies
-
+HERE = os.path.dirname(os.path.abspath(__file__))
 C, VB = 8, 1 << 23
 REACHED = {"level 1": 80, "level 2": 900, "level 3": 9_000}
+PERSONS, MESSAGES, EDGES = 8_000_000, 16_000_000, 80_000_000
 
 
 def _bitmap(torch, gen, c: int, vb: int, per_row: int):
@@ -46,23 +60,11 @@ def _same(torch, got, want, what: str) -> None:
             raise SystemExit(f"{what}: the kernel differs from its plain version")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tree", default=os.path.dirname(os.path.abspath(__file__)))
-    tree = os.path.abspath(ap.parse_args().tree)
-    sys.path.insert(0, tree)
-    import torch
-
-    if not torch.cuda.is_available():
-        print("no CUDA card: the kernels run only on one", file=sys.stderr)
-        return 1
-    from orientdb_tpu_torch.ops import csr as K
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip().splitlines()[0]
+def level_steps(torch, K, cs, times) -> None:
+    """K12 and K11 at V1's bitmap shapes."""
+    _fresh_ms = cs._fresh_ms
     folds = "node" in inspect.signature(K.frontier_advance).parameters
-    print(f"tree {tree}: {card}; K12 folds the emission count: {folds}")
+    print(f"K12 folds the emission count: {folds}")
     gen = torch.Generator(device="cuda").manual_seed(13)
     node = torch.rand(VB, generator=gen, device="cuda") < 0.2  # V1's age < 30 admits ~a fifth
     roots = _bitmap(torch, gen, C, VB, 1)
@@ -71,7 +73,6 @@ def main() -> int:
     levels["dense level"] = torch.ones((C, VB), dtype=torch.bool, device="cuda")
     visited = roots.clone()
     bound = torch.tensor([-2, 0, VB - 1, 5, 77, -2, 1 << 20, VB - 2], dtype=torch.int32, device="cuda")
-    times = {}
     step = lambda n, v: K.frontier_advance(n, v)  # noqa: E731
     for name, nxt in levels.items():
         n1, v1, n2, v2 = nxt.clone(), visited.clone(), nxt.clone(), visited.clone()
@@ -107,7 +108,156 @@ def main() -> int:
         _same(torch, fn(reached), K.plain_bitmap_emit(reached, node, b, *flags), "bitmap_emit")
         times[f"K11 {name}"] = [_fresh_ms(torch, fn, (reached,)), _fresh_ms(torch, fn, (reached,), graph=True)]
         print(f"K11 {name}: {times[f'K11 {name}'][0]:.4f} ms eager, {times[f'K11 {name}'][1]:.4f} in a graph")
-    print(json.dumps({"tree": tree, "card": card, "folds": folds, "ms [eager, graph]": times}))
+
+
+def _poisson_indptr(np, torch, rng, empty_after: int):
+    """Poisson(10) degrees over 8M segments, then ``empty_after`` empty ones."""
+    deg = np.concatenate([rng.poisson(10, PERSONS), np.zeros(empty_after, np.int64)])
+    return torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)).cuda()
+
+
+def segment_sums(np, torch, K, cs, times) -> None:
+    """K4 at A's and E1's shapes, int32 and float32, beside its bound."""
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for shape, empty, out_size in (("A", 0, 1 << 23), ("E1", MESSAGES, 1 << 25)):
+        indptr = _poisson_indptr(np, torch, rng, empty)
+        ne = int(indptr[-1])
+        contrib = torch.rand(ne, generator=gen, device="cuda") < 0.2
+        nseg = indptr.shape[0] - 1
+        bound = (4.0 * ne + 4.0 * (nseg + 1) + 4.0 * out_size) / cs.HBM_BYTES_PER_S * 1e3
+        for dtype in (torch.int32, torch.float32):
+            vals = contrib.to(dtype)
+            got = K.indptr_segment_sum(vals, indptr, out_size)
+            want = K.plain_indptr_segment_sum(vals, indptr, out_size)
+            if dtype == torch.int32:
+                _same(torch, got, want, "indptr_segment_sum")
+            elif float((got.double() - want.double()).abs().max()) > 1e-6 * max(float(want.abs().max()), 1.0):
+                raise SystemExit("indptr_segment_sum float32 differs from its plain version")
+            fn = lambda v=vals: K.indptr_segment_sum(v, indptr, out_size)  # noqa: E731
+            key = f"K4 {shape} {str(dtype).split('.')[-1]}"
+            times[key] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+            print(f"{key} ({ne} values, {nseg} segments into {out_size}): {times[key][0]:.4f} ms eager, "
+                  f"{times[key][1]:.4f} in a graph; bound {bound:.4f}")
+        if shape == "A":
+            print(f"K4 A int32 kernels: {profile(torch, cs, lambda: K.indptr_segment_sum(contrib.to(torch.int32), indptr, out_size))}")
+
+
+def profile(torch, cs, run) -> str:
+    """Device ms of each kernel in one profiled call of ``run``."""
+    events, _ = cs._profiled(torch, run)
+    rows = [e for e in events if cs._device_us(e) > 0]
+    return ", ".join(f"{e.key[:40]} {cs._device_us(e) / 1e3:.4f} ms x{e.count}" for e in rows) or "not measured"
+
+
+def _snapshot(np, n: int, cols):
+    """``n`` vertices of one class ("Person") with the columns ``cols``:
+    name → (kind, values); about 2 % of each column absent."""
+    from orientdb_tpu_torch.storage.snapshot import GraphSnapshot, PropertyColumn
+
+    rng = np.random.default_rng(23)
+    snap = GraphSnapshot()
+    snap.num_vertices = n
+    snap.class_names = ["Person"]
+    snap.class_id_of = {"person": 0}
+    snap.class_closure = {"person": np.array([0], np.int32)}
+    snap.v_class = np.zeros(n, np.int32)
+    for name, (kind, vals) in cols.items():
+        snap.v_columns[name] = PropertyColumn(name, kind, vals, rng.random(n) >= 0.02, None)
+    return snap
+
+
+def predicate_masks(np, torch, K, cs, times) -> None:
+    """K15 on Q1's, M1's, G1's and E1's masks, as each tree compiles them."""
+    from orientdb_tpu_torch.ops.device_graph import DeviceGraph
+    from orientdb_tpu_torch.ops.predicates import (
+        ColumnScope, ParamBox, Predicate, class_term, compile_where, id_term, valid_term,
+    )
+    from orientdb_tpu_torch.sql.parser import parse
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(29)
+    snap = _snapshot(np, PERSONS, {
+        "age": ("int", rng.integers(0, 100, PERSONS, dtype=np.int32)),
+        "lat": ("float", rng.uniform(-85, 85, PERSONS).astype(np.float32)),
+        "lng": ("float", rng.uniform(-180, 180, PERSONS).astype(np.float32)),
+    })
+    dg = DeviceGraph(snap, dev)
+    edges = _snapshot(np, EDGES, {"creationDate": ("int", rng.integers(0, 20_000, EDGES, dtype=np.int32))})
+    eg = DeviceGraph(edges, dev)
+
+    def where(g, text, box):
+        scope = ColumnScope(g.columns, g.non_columnar, device=dev)
+        return compile_where(parse(f"SELECT FROM V WHERE {text}").where, scope, box)
+
+    person = lambda: class_term(dg.v_class, dg.class_table("Person"))  # noqa: E731
+    g1_box = ParamBox({"x": 48.0, "y": 2.0, "r": 2500.0})
+    e1_box = ParamBox({"d": 12_000})
+    vb = 1 << 23
+    cases = (
+        # name, predicate, slots, valid slots, bytes a valid slot must move
+        ("Q1 mask p", Predicate([valid_term(), person(), where(dg, "age > 40", {})], dev), vb, PERSONS, 9.0),
+        ("M1 ID mask", Predicate([valid_term(), person(), id_term(123_457)], dev), vb, PERSONS, 0.0),
+        ("G1 mask", Predicate([valid_term(), person(), where(dg, "distance(lat, lng, :x, :y) < :r", g1_box)],
+                              dev, g1_box), vb, PERSONS, 14.0),
+        ("E1 edge mask", Predicate([valid_term(), where(eg, "creationDate > :d", e1_box)], dev, e1_box),
+         EDGES, EDGES, 5.0),
+    )
+    for name, pred, n, n_valid, per_slot in cases:
+        row = None
+        if pred.uses_params:  # uploaded once, as a replay's static row
+            row = pred.box.row(dev)
+            pred.box.set_row(row)
+        tmps = []
+        for prog in pred.programs:
+            bufs = prog.buffers({}, tmps, n)
+            last = prog is pred.programs[-1]
+            got = K.predicate_eval(prog.prog, bufs, None, n, n_valid, 0, 0, row, values=not last)
+            want = K.plain_predicate_eval(prog.prog, bufs, None, n, n_valid, 0, 0, row, values=not last)
+            if "distance" not in name:
+                _same(torch, got, want, f"predicate_eval ({name})")
+            tmps.append(got)
+        fn = lambda p=pred, n=n, v=n_valid: p.identity(n, v)  # noqa: E731
+        times[f"K15 {name}"] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+        bound = (per_slot * n_valid + n) / cs.HBM_BYTES_PER_S * 1e3
+        rows = sum(len(p.prog.rows) for p in pred.programs)
+        print(f"K15 {name} ({rows} instructions, {n} slots): {times[f'K15 {name}'][0]:.4f} ms eager, "
+              f"{times[f'K15 {name}'][1]:.4f} in a graph; bound {bound:.4f} (bytes)")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--only", default="level,k4,k15")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    # the tree's package first: chip_smoke.py (this script's) imports the
+    # package by name, and the first import binds it for the process
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA card: the kernels run only on one", file=sys.stderr)
+        return 1
+    from orientdb_tpu_torch.ops import csr as K
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip().splitlines()[0]
+    print(f"tree {tree} (kernels from {K.__file__}): {card}")
+    times = {}
+    only = set(args.only.split(","))
+    if "level" in only:
+        level_steps(torch, K, cs, times)
+    if "k4" in only:
+        segment_sums(np, torch, K, cs, times)
+    if "k15" in only:
+        predicate_masks(np, torch, K, cs, times)
+    print(json.dumps({"tree": tree, "kernels": K.__file__, "card": card, "ms [eager, graph]": times}))
     return 0
 
 

@@ -508,32 +508,252 @@ compact_lookback_kernel(const unsigned char* __restrict__ mask, long long n, lon
 
 // ---------------------------------------------------------------------------
 // K4: indptr_segment_sum (replaces csr.indptr_segment_sum :227).
-// Bound: E*4 bytes of values + (V+1)*4 of indptr read, out_size*4 written
-// (80M int32 into 2^23: ~0.37 GB, ~0.11 ms).
-// Design: one warp per segment strides over its CSR slice
-// [indptr[v], indptr[v+1]) with coalesced loads and reduces by shuffles.
-// No atomics, so a float32 sum has one fixed order per segment (it differs
-// from a sequential CPU sum). Segments past V are zero-padded to out_size.
-// The reference's scan-and-difference gives the same int32 sums mod 2^32.
+// Bound: E*4 bytes of values + (nseg+1)*4 of indptr read, out_size*4
+// written (A: 80M int32 into 2^23, ~0.39 GB, ~0.115 ms; E1: 80M into 2^25
+// over 24M segments, ~0.55 GB, ~0.164 ms).
+// Design: a merge-path segmented reduction (Merrill and Garland,
+// "Merge-based Parallel Sparse Matrix-Vector Multiplication", SC'16). The
+// values and the segment ends form one merged sequence of nseg + nv items
+// (a value moves the path down, a segment end moves it right, an end
+// before the value at the same index); each block owns kSegTile
+// consecutive items of it, so its work is the same whatever the degrees
+// (Poisson, Zipf, runs of empty segments, one segment over many tiles).
+// Three launches on the caller's stream:
+//  1. seg_partition_kernel: a warp a tile boundary searches the merge path
+//     for the boundary's segment coordinate, 32 pivots a step (five steps
+//     of dependent loads over 8M segments, against 23 for one thread); the
+//     same launch writes the zero padding [nseg, out_size) with 16-byte
+//     stores;
+//  2. seg_sum_kernel: a block stages its tile's segment ends and values in
+//     shared memory (values with 16-byte loads and stores where the source
+//     is aligned: the 16-byte part lands on aligned shared memory), each thread
+//     finds its own start there and walks its kSegItems items once,
+//     branch-free, writing every segment that ends in its share to shared
+//     memory (an empty one writes 0); the block combines the threads'
+//     trailing partials by a segmented scan (a fixed tree: the float32
+//     order is the same every run) and adds each thread's carry-in to its
+//     first finished segment, then stores its finished segments with
+//     coalesced stores; the partial of the segment still open at the
+//     tile's end (its carry) goes to a small array;
+//  3. seg_fixup_kernel: the first tile of each run of tiles that end in
+//     the same open segment adds the run's carries, in tile order, to that
+//     segment's output (written by the tile where the segment ends).
+// No atomics: int32 sums (in uint32) are exact mod 2^32 in any order, and
+// float32 sums are the same bit for bit from run to run. A segment is
+// [clip(indptr[s]), clip(indptr[s+1])) with clip(x) = min(max(x, 0), ne)
+// for a non-decreasing indptr, the CSR's own; the plain version's
+// scan-and-difference gives the same int32 sums. Measured on the card
+// (PERF.md §6): 20 items a thread beat 8 and 16; what is left over the
+// bound is the walk's shared-memory traffic and the partition search.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void segment_sum_kernel(const T* __restrict__ vals, long long ne,
-                                   const int* __restrict__ indptr, long long nseg,
-                                   long long out_size, T* __restrict__ out) {
-  long long w = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+constexpr int kSegItems = 20;  // merge items a thread
+constexpr long long kSegTile = static_cast<long long>(kThreads) * kSegItems;
+
+__device__ __forceinline__ long long seg_clip(long long x, long long lo, long long hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// The merged sequence's extent: values [v0, v0 + nv), nseg segment ends.
+struct SegSpan {
+  long long v0, nv;
+};
+
+__device__ __forceinline__ SegSpan seg_span(const int* __restrict__ indptr, long long ne,
+                                            long long nseg) {
+  SegSpan s;
+  s.v0 = seg_clip(indptr[0], 0, ne);
+  s.nv = nseg > 0 ? seg_clip(indptr[nseg], s.v0, ne) - s.v0 : 0;
+  return s;
+}
+
+// Segment s's end, relative to v0.
+__device__ __forceinline__ long long seg_end(const int* __restrict__ indptr, SegSpan s,
+                                             long long seg) {
+  return seg_clip(indptr[seg + 1], s.v0, s.v0 + s.nv) - s.v0;
+}
+
+__global__ void seg_partition_kernel(const int* __restrict__ indptr, long long ne, long long nseg,
+                                     long long tiles, int* __restrict__ rowc,
+                                     unsigned* __restrict__ out, long long out_size) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  if (w >= out_size) return;  // uniform across the warp
-  T acc = T(0);
-  if (w < nseg) {
-    long long b = indptr[w];
-    long long e = indptr[w + 1];
-    if (b < 0) b = 0;
-    if (e > ne) e = ne;
-    for (long long i = b + lane; i < e; i += 32) acc += vals[i];
+  if (tiles > 0) {
+    const SegSpan sp = seg_span(indptr, ne, nseg);
+    const long long total = nseg + sp.nv;
+    // a warp a boundary: the number of segment ends among its first d
+    // items is the first x with end(x) > d - x - 1 (true, then false, as x
+    // grows); 32 pivots a step narrow the range 33-fold
+    for (long long t = tid >> 5; t <= tiles; t += step >> 5) {
+      const long long d = t * kSegTile < total ? t * kSegTile : total;
+      long long lo = d > sp.nv ? d - sp.nv : 0;
+      long long hi = d < nseg ? d : nseg;
+      while (hi - lo > 32) {
+        const long long p = lo + (hi - lo) * (lane + 1) / 33;
+        const unsigned below = __ballot_sync(kFull, seg_end(indptr, sp, p) <= d - p - 1);
+        const int c = __popc(below);  // the pivots still before the answer
+        const long long plo = __shfl_sync(kFull, p, c > 0 ? c - 1 : 0);
+        const long long phi = __shfl_sync(kFull, p, c < 32 ? c : 31);
+        if (c > 0) lo = plo + 1;
+        if (c < 32) hi = phi;
+      }
+      const long long x = lo + lane;
+      const unsigned before = __ballot_sync(kFull, x < hi && seg_end(indptr, sp, x) <= d - x - 1);
+      if (lane == 0) rowc[t] = static_cast<int>(lo + __popc(before));
+    }
   }
+  // zeros past the segments: a scalar head up to 16-byte alignment, then
+  // 16-byte stores, then a scalar tail
+  const long long npad = out_size - nseg;
+  if (npad <= 0) return;
+  unsigned* pad = out + nseg;
+  long long head = static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(pad) & 15u)) & 15u) / 4;
+  if (head > npad) head = npad;
+  const long long body = (npad - head) / 4;
+  if (tid < head) pad[tid] = 0u;
+  uint4* vec = reinterpret_cast<uint4*>(pad + head);
+  for (long long k = tid; k < body; k += step) vec[k] = make_uint4(0u, 0u, 0u, 0u);
+  const long long tail = head + 4 * body + tid;
+  if (tail < npad && tid < 4) pad[tail] = 0u;
+}
+
+// 32 bits read as T
+template <typename T>
+__device__ __forceinline__ T bits_as(unsigned u);
+template <>
+__device__ __forceinline__ unsigned bits_as<unsigned>(unsigned u) { return u; }
+template <>
+__device__ __forceinline__ int bits_as<int>(unsigned u) { return static_cast<int>(u); }
+template <>
+__device__ __forceinline__ float bits_as<float>(unsigned u) { return __uint_as_float(u); }
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    seg_sum_kernel(const T* __restrict__ vals, long long ne, const int* __restrict__ indptr,
+                   long long nseg, const int* __restrict__ rowc, T* __restrict__ out,
+                   T* __restrict__ carry) {
+  // the tile's segment ends (relative to its first value), a sentinel end,
+  // then its values placed so that the 16-byte-aligned part of their
+  // source lands on 16-byte-aligned shared memory (up to 3 slots of gap),
+  // and one spare slot a walk may read past the last
+  __shared__ __align__(16) unsigned s_buf[kSegTile + 6];
+  __shared__ T s_out[kSegTile];
+  __shared__ T s_wv[kWarps];
+  __shared__ int s_wf[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const SegSpan sp = seg_span(indptr, ne, nseg);
+  const long long total = nseg + sp.nv;
+  const long long b = blockIdx.x;
+  const long long d0 = b * kSegTile < total ? b * kSegTile : total;
+  const long long d1 = d0 + kSegTile < total ? d0 + kSegTile : total;
+  const int i0 = rowc[b], i1 = rowc[b + 1];
+  const long long j0 = d0 - i0;
+  const int ni = i1 - i0;
+  const int nj = static_cast<int>(d1 - i1 - j0);
+  const unsigned* src = reinterpret_cast<const unsigned*>(vals) + sp.v0 + j0;
+  int head = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(src) & 15u)) & 15u) / 4;
+  if (head > nj) head = nj;
+  int* s_end = reinterpret_cast<int*>(s_buf);
+  unsigned* s_val = s_buf + (((ni + 1 + head + 3) & ~3) - head);
+  for (int k = tid; k < ni; k += kThreads) {
+    s_end[k] = static_cast<int>(seg_end(indptr, sp, i0 + k) - j0);
+  }
+  if (tid == 0) s_end[ni] = 0x7fffffff;  // past the tile's last end: only values
+  {
+    const int body = (nj - head) / 4;
+    if (tid < head) s_val[tid] = src[tid];
+    const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
+    uint4* vdst = reinterpret_cast<uint4*>(s_val + head);
+#pragma unroll 4
+    for (int k = tid; k < body; k += kThreads) vdst[k] = __ldcs(vsrc + k);
+    const int tail = head + 4 * body + tid;
+    if (tid < 4 && tail < nj) s_val[tail] = src[tail];
+  }
+  __syncthreads();
+  // this thread's share of the tile: its start by a search in shared memory
+  const int items = ni + nj;
+  const int ds = tid * kSegItems < items ? tid * kSegItems : items;
+  const int cnt = (ds + kSegItems < items ? ds + kSegItems : items) - ds;
+  int lo = ds > nj ? ds - nj : 0, hi = ds < ni ? ds : ni;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s_end[mid] <= ds - mid - 1) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int xs = lo;
+  // one branch-free walk: a segment end stores the running sum (the first
+  // one without the earlier threads' part of it, added below), a value
+  // adds to it; the current end stays in a register and is read again only
+  // after a segment ended
+  T acc = T(0);
+  int x = xs, y = ds - lo;
+  int e = s_end[x];
+  auto walk = [&](bool all) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(kFull, acc, o);
-  if (lane == 0) out[w] = acc;
+    for (int k = 0; k < kSegItems; ++k) {
+      if (all || k < cnt) {
+        const T val = bits_as<T>(s_val[y]);
+        const bool right = e <= y;
+        if (right) {
+          s_out[x] = acc;
+          e = s_end[x + 1];
+        }
+        acc = right ? T(0) : acc + val;
+        x += right ? 1 : 0;
+        y += right ? 0 : 1;
+      }
+    }
+  };
+  if (cnt == kSegItems) {
+    walk(true);
+  } else {
+    walk(false);
+  }
+  // segmented scan of (segment ended in the share, partial): inclusive
+  // within the warp, then the warps' totals in order
+  bool f = x != xs;
+  T v = acc;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T vo = __shfl_up_sync(kFull, v, o);
+    const bool fo = __shfl_up_sync(kFull, f ? 1 : 0, o) != 0;
+    if (lane >= o) {
+      if (!f) v = vo + v;
+      f = f || fo;
+    }
+  }
+  if (lane == 31) {
+    s_wv[warp] = v;
+    s_wf[warp] = f ? 1 : 0;
+  }
+  __syncthreads();
+  T pv = T(0);  // the warps before this one, combined in order
+  for (int w = 0; w < warp; ++w) pv = s_wf[w] ? s_wv[w] : pv + s_wv[w];
+  const T ev = __shfl_up_sync(kFull, v, 1);
+  const bool ef = __shfl_up_sync(kFull, f ? 1 : 0, 1) != 0;
+  if (tid == kThreads - 1) carry[b] = f ? v : pv + v;
+  // the first segment that ends in the share gets the earlier threads' part
+  if (tid > 0 && x != xs) s_out[xs] = (lane == 0 ? pv : (ef ? ev : pv + ev)) + s_out[xs];
+  __syncthreads();
+  for (int k = tid; k < ni; k += kThreads) out[i0 + k] = s_out[k];
+}
+
+// Adds each run's carries to the segment the run ends in (see above).
+template <typename T>
+__global__ void seg_fixup_kernel(const int* __restrict__ rowc, const T* __restrict__ carry,
+                                 long long tiles, long long nseg, T* __restrict__ out) {
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; t < tiles;
+       t += step) {
+    const int key = rowc[t + 1];
+    if (key >= nseg || (t > 0 && rowc[t] == key)) continue;
+    T s = carry[t];
+    for (long long u = t + 1; u < tiles && rowc[u + 1] == key; ++u) s += carry[u];
+    out[key] += s;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1327,35 +1547,61 @@ void launch_group_page(const int* in, long long src_run, long long lanes, long l
 // orientdb_tpu_torch/ops/csr.py) over a per-slot stack of (32 bits, present)
 // pairs; a mask is a pair whose `present` is the mask. Value kinds are
 // resolved at compile time, so no instruction carries a runtime type tag.
+// A mask's root AND is emitted as guarded conjuncts, cheapest first: each
+// conjunct is followed by GUARD, which pops it and ANDs its presence into
+// the slot's live bit; the mask is then the live bit.
 // Bound: bytes. Each slot reads its id (4 bytes, none in identity mode), a
 // value and a presence byte for each column the program reads (a random
 // gather where the ids are random), the slot's binding rows, and writes one
-// byte; a distance() slot does ~40 float operations and four transcendental
-// calls, far under the card's float32 rate.
-// Design: a grid-stride loop, one slot a thread; the block copies the program
-// into shared memory once (when it fits in 48 KB; else it is read from device
-// memory through the read-only cache), and every thread then runs the same
-// instruction sequence, so control flow never diverges — only the gathers are
-// data-dependent. The stack's top entry lives in registers, the presence
-// bits below it in one register and their values in a per-thread array of
-// kStack (local memory); the compiler orders each subtree deeper-operand-first and splits whatever still
-// needs more into earlier launches (a split's values and presence come back
-// through TMP). Every per-call pointer and scalar is a launch argument (a
-// __grid_constant__ struct, indexed in place), so a captured CUDA graph bakes
-// them per launch; parameters are always read from
-// device memory. Arithmetic follows the reference: int32 in uint32 (wraps),
-// float32 one IEEE operation at a time (the _rn intrinsics: no FMA
-// contraction), floor modulo, division and modulo by zero absent.
+// byte; a slot a GUARD has killed reads nothing more. A distance() slot
+// does ~18 float operations and six calls (sin and cos twice, asin, sqrt).
+// Design: a tiled interpreter. A block takes tiles of kThreads * kPredV
+// slots, kPredV consecutive slots a thread, so each instruction is fetched
+// (from the block's shared-memory copy of the program when it fits in 48 KB,
+// else through the read-only cache) and decoded once per kPredV slots; every
+// thread runs the same instruction sequence, so control flow never
+// diverges. The top of the stack (kPredV values and a presence bit each)
+// lives in registers, in arrays indexed only inside unrolled loops; the
+// entries below it live in dynamic shared memory, [need - 1][kPredV]
+// [kThreads] values and [need - 1][kThreads] presence words, sized by the
+// program's own stack need (PredArgs.need), so a thread's slots sit in
+// separate banks; an empty stack's top is a constant, never stored. In
+// identity mode a thread's column values, class ids and presence bytes are
+// 16- and 4-byte vector loads where aligned; with an id array its kPredV
+// ids, then its kPredV gathers, are issued before their first use. Every
+// load of an instruction is predicated on the slot's live bit, and a warp
+// whose slots are all dead after a GUARD (one ballot) skips the rest of the
+// program. The mask's kPredV bytes go out as one 8-byte store. Every
+// per-call pointer and scalar is a launch argument (a __grid_constant__
+// struct, indexed in place), so a captured CUDA graph bakes them per launch;
+// parameters are always read from device memory. Arithmetic follows the
+// reference: int32 in uint32 (wraps), float32 one IEEE operation at a time
+// (the _rn intrinsics: no FMA contraction), floor modulo, division and
+// modulo by zero absent; a gather clips as take_pad does. Measured on the
+// card (PERF.md §6): 8 slots a thread beat 4; 16 would need more shared
+// memory than a deep program's stack leaves; a one-wave grid looping over
+// tiles was no faster than grid_for's.
 // ---------------------------------------------------------------------------
-constexpr int kStack = 16;     // per-thread value stack (PRED_STACK)
+constexpr int kStack = 16;     // a program's stack need at most (PRED_STACK)
 constexpr int kMaxBufs = 32;   // buffers a launch reads (PRED_BUFS)
 constexpr int kProgSmem = 48 * 1024;
+constexpr int kPredV = 8;      // consecutive slots a thread
+static_assert(kPredV % 4 == 0, "a thread's mask bytes go out as 4-byte words");
+constexpr long long kPredTile = static_cast<long long>(kThreads) * kPredV;
+constexpr unsigned kPredAll = (1u << kPredV) - 1u;
+// shared memory of one stack entry below the top: kPredV values and a
+// presence word a thread
+constexpr int kPredEntryBytes = kThreads * (kPredV + 1) * 4;
 
 enum PredOp : int {
   kCol = 1, kBCol = 2, kConst = 3, kParam = 4, kDepth = 5, kTmp = 6, kI2F = 7, kNeg = 8,
   kArith = 9, kCmp = 10, kTable = 11, kTruthy = 12, kIsNull = 13, kAnd = 14, kOr = 15,
-  kNot = 16, kMask = 17, kClass = 18, kValid = 19, kDist = 20, kId = 21,
+  kNot = 16, kMask = 17, kClass = 18, kValid = 19, kDist = 20, kId = 21, kGuard = 22,
 };
+// the instructions that push an entry, as a bit set of opcodes
+constexpr unsigned kPredPushes = (1u << kCol) | (1u << kBCol) | (1u << kConst) | (1u << kParam) |
+                                 (1u << kDepth) | (1u << kTmp) | (1u << kMask) | (1u << kClass) |
+                                 (1u << kValid) | (1u << kId);
 
 struct PredArgs {
   const int4* prog;
@@ -1369,84 +1615,280 @@ struct PredArgs {
   int* out_v;              // null unless the caller wants the values (a split)
   int depth;
   int nbufs;
+  int need;                // the program's stack need: entries in shared memory
   const void* buf[kMaxBufs];
   long long blen[kMaxBufs];
 };
 
-// The padding-safe gather of take_pad: a negative index or an empty column
-// reads absent (value 0), an index past the end reads the last element.
-// Ids and column lengths are int32 (a column is indexed by int32 ids).
-__device__ __forceinline__ bool pred_gather(const PredArgs& a, int vbuf, int pbuf, int i,
-                                            unsigned* v) {
-  const int len = static_cast<int>(a.blen[vbuf]);
-  if (i < 0 || len == 0) {
-    *v = 0u;
-    return false;
-  }
-  const int j = i < len ? i : len - 1;
-  *v = static_cast<const unsigned*>(a.buf[vbuf])[j];
-  return static_cast<const unsigned char*>(a.buf[pbuf])[j] != 0;
-}
-
 __device__ __forceinline__ float as_f(unsigned v) { return __uint_as_float(v); }
 __device__ __forceinline__ unsigned as_u(float f) { return __float_as_uint(f); }
 
-__device__ __forceinline__ unsigned pred_arith(int op, int kind, unsigned x, unsigned y,
-                                               bool* ok) {
-  if (kind) {
-    const float fx = as_f(x), fy = as_f(y);
-    switch (op) {
-      case 0: return as_u(__fadd_rn(fx, fy));
-      case 1: return as_u(__fsub_rn(fx, fy));
-      case 2: return as_u(__fmul_rn(fx, fy));
-      case 3: {
-        *ok = fy != 0.0f;
-        return as_u(__fdiv_rn(fx, *ok ? fy : 1.0f));
-      }
-      default: {
-        *ok = fy != 0.0f;
-        const float d = *ok ? fy : 1.0f;
-        float m = fmodf(fx, d);
-        if (m != 0.0f && ((d < 0.0f) != (m < 0.0f))) m = __fadd_rn(m, d);
-        return as_u(m);
-      }
-    }
-  }
-  switch (op) {
-    case 0: return x + y;
-    case 1: return x - y;
-    case 2: return x * y;
-    default: {  // floor modulo (division is always float32)
-      const int ix = static_cast<int>(x), iy = static_cast<int>(y);
-      *ok = iy != 0;
-      if (iy == 0 || iy == -1) return 0u;  // x mod -1 = 0; INT_MIN % -1 traps
-      int m = ix % iy;
-      if (m != 0 && ((iy < 0) != (m < 0))) m += iy;
-      return static_cast<unsigned>(m);
-    }
+__device__ __forceinline__ bool pred_aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1u)) == 0;
+}
+
+// kPredV bits, bit v = f(v)
+template <typename F>
+__device__ __forceinline__ unsigned pred_bits(F f) {
+  unsigned m = 0u;
+#pragma unroll
+  for (int v = 0; v < kPredV; ++v) m |= (f(v) ? 1u : 0u) << v;
+  return m;
+}
+
+// four bool bytes of a word → four bits
+__device__ __forceinline__ unsigned pred_byte_bits(unsigned w) {
+  return ((w & 0xffu) ? 1u : 0u) | ((w & 0xff00u) ? 2u : 0u) | ((w & 0xff0000u) ? 4u : 0u) |
+         ((w & 0xff000000u) ? 8u : 0u);
+}
+
+// four bits → four bool bytes of a word
+__device__ __forceinline__ unsigned pred_bit_bytes(unsigned m) {
+  return (m & 1u) | ((m >> 1) & 1u) << 8 | ((m >> 2) & 1u) << 16 | ((m >> 3) & 1u) << 24;
+}
+
+__device__ __forceinline__ void pred_swap(unsigned (&x)[kPredV], unsigned (&y)[kPredV]) {
+#pragma unroll
+  for (int v = 0; v < kPredV; ++v) {
+    const unsigned t = x[v];
+    x[v] = y[v];
+    y[v] = t;
   }
 }
 
-__device__ __forceinline__ bool pred_cmp(int op, int kind, unsigned x, unsigned y) {
-  if (kind) {
-    const float fx = as_f(x), fy = as_f(y);
-    switch (op) {
-      case 0: return fx == fy;
-      case 1: return fx != fy;
-      case 2: return fx < fy;
-      case 3: return fx <= fy;
-      case 4: return fx > fy;
-      default: return fx >= fy;
+// A column through ids (the padding-safe gather of take_pad: a negative id
+// or an empty column reads absent, value 0; an id past the end reads the
+// last element), for the live slots. `run`: the ids are kPredV consecutive
+// valid ids (identity mode), so aligned columns are read as vectors.
+__device__ __forceinline__ void pred_column(const PredArgs& a, int vbuf, int pbuf,
+                                            const int (&id)[kPredV], unsigned live, bool run,
+                                            unsigned (&tv)[kPredV], unsigned& tp) {
+  const unsigned* vals = static_cast<const unsigned*>(a.buf[vbuf]);
+  const unsigned char* pres = static_cast<const unsigned char*>(a.buf[pbuf]);
+  const int len = static_cast<int>(a.blen[vbuf]);
+  if (run && live && id[0] >= 0 && id[0] <= len - kPredV && pred_aligned(vals + id[0], 16) &&
+      pred_aligned(pres + id[0], 4)) {
+    tp = 0u;
+#pragma unroll
+    for (int q = 0; q < kPredV / 4; ++q) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(vals + id[0]) + q);
+      const unsigned p = __ldg(reinterpret_cast<const unsigned*>(pres + id[0]) + q);
+      tv[4 * q] = w.x;
+      tv[4 * q + 1] = w.y;
+      tv[4 * q + 2] = w.z;
+      tv[4 * q + 3] = w.w;
+      tp |= pred_byte_bits(p) << (4 * q);
+    }
+    return;
+  }
+  unsigned char pb[kPredV];
+#pragma unroll
+  for (int v = 0; v < kPredV; ++v) {
+    tv[v] = 0u;
+    pb[v] = 0;
+    if (((live >> v) & 1u) && id[v] >= 0 && len > 0) {
+      const int j = id[v] < len ? id[v] : len - 1;
+      tv[v] = __ldg(vals + j);
+      pb[v] = __ldg(pres + j);
     }
   }
-  const int ix = static_cast<int>(x), iy = static_cast<int>(y);
+  tp = pred_bits([&](int v) { return pb[v] != 0; });
+}
+
+// A slot-aligned array (binding rows, an earlier launch's values) at slots
+// i0 .. i0 + kPredV - 1, for the live ones (`dead` elsewhere).
+__device__ __forceinline__ void pred_slots(const unsigned* p, long long i0, long long n,
+                                           unsigned live, unsigned dead, unsigned (&out)[kPredV]) {
+  if (live == kPredAll && i0 + kPredV <= n && pred_aligned(p + i0, 16)) {
+#pragma unroll
+    for (int q = 0; q < kPredV / 4; ++q) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(p + i0) + q);
+      out[4 * q] = w.x;
+      out[4 * q + 1] = w.y;
+      out[4 * q + 2] = w.z;
+      out[4 * q + 3] = w.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < kPredV; ++v) out[v] = ((live >> v) & 1u) ? __ldg(p + i0 + v) : dead;
+}
+
+// the presence bytes of an earlier launch at slots i0 .., as bits
+__device__ __forceinline__ unsigned pred_slot_bits(const unsigned char* p, long long i0,
+                                                   long long n, unsigned live) {
+  if (live == kPredAll && i0 + kPredV <= n && pred_aligned(p + i0, 4)) {
+    unsigned m = 0u;
+#pragma unroll
+    for (int q = 0; q < kPredV / 4; ++q) {
+      m |= pred_byte_bits(__ldg(reinterpret_cast<const unsigned*>(p + i0) + q)) << (4 * q);
+    }
+    return m;
+  }
+  unsigned char b[kPredV];
+#pragma unroll
+  for (int v = 0; v < kPredV; ++v) b[v] = ((live >> v) & 1u) ? __ldg(p + i0 + v) : 0;
+  return pred_bits([&](int v) { return b[v] != 0; });
+}
+
+// The class-closure test (CLASS): table[v_class[id]], padding-safe, for
+// the live slots; class ids are vector loads in a run of identity slots.
+__device__ __forceinline__ void pred_class(const PredArgs& a, int cbuf, int tbuf,
+                                           const int (&id)[kPredV], unsigned live, bool run,
+                                           unsigned (&tv)[kPredV], unsigned& tp) {
+  const int* vc = static_cast<const int*>(a.buf[cbuf]);
+  const unsigned char* tab = static_cast<const unsigned char*>(a.buf[tbuf]);
+  const int nc = static_cast<int>(a.blen[cbuf]), nt = static_cast<int>(a.blen[tbuf]);
+  int cls[kPredV];
+  if (run && live && id[0] >= 0 && id[0] <= nc - kPredV && pred_aligned(vc + id[0], 16)) {
+#pragma unroll
+    for (int q = 0; q < kPredV / 4; ++q) {
+      const int4 w = __ldg(reinterpret_cast<const int4*>(vc + id[0]) + q);
+      cls[4 * q] = w.x;
+      cls[4 * q + 1] = w.y;
+      cls[4 * q + 2] = w.z;
+      cls[4 * q + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < kPredV; ++v) {
+      cls[v] = -1;
+      if (((live >> v) & 1u) && id[v] >= 0 && nc > 0) cls[v] = __ldg(vc + (id[v] < nc ? id[v] : nc - 1));
+    }
+  }
+  unsigned char hit[kPredV];
+#pragma unroll
+  for (int v = 0; v < kPredV; ++v) {
+    tv[v] = 0u;
+    hit[v] = 0;
+    if (((live >> v) & 1u) && cls[v] >= 0 && nt > 0) hit[v] = __ldg(tab + (cls[v] < nt ? cls[v] : nt - 1));
+  }
+  tp = pred_bits([&](int v) { return hit[v] != 0; });
+}
+
+// The instructions that push: the current top has been saved below.
+__device__ __forceinline__ void pred_push(const PredArgs& a, int4 ins, const int (&id)[kPredV],
+                                          long long i0, unsigned live, bool run,
+                                          unsigned (&tv)[kPredV], unsigned& tp) {
+  switch (ins.x) {
+    case kCol: pred_column(a, ins.y, ins.z, id, live, run, tv, tp); break;
+    case kBCol: {
+      unsigned r[kPredV];
+      pred_slots(static_cast<const unsigned*>(a.buf[ins.w]), i0, a.n, live, 0xffffffffu, r);
+      int rows[kPredV];
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) rows[v] = static_cast<int>(r[v]);
+      pred_column(a, ins.y, ins.z, rows, live, false, tv, tp);
+      break;
+    }
+    case kConst:
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) tv[v] = static_cast<unsigned>(ins.y);
+      tp = ins.z ? kPredAll : 0u;
+      break;
+    case kParam: {
+      const unsigned p = static_cast<unsigned>(__ldg(a.params + ins.y));
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) tv[v] = p;
+      tp = kPredAll;
+      break;
+    }
+    case kDepth:
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) tv[v] = static_cast<unsigned>(a.depth);
+      tp = kPredAll;
+      break;
+    case kTmp:
+      pred_slots(static_cast<const unsigned*>(a.buf[ins.y]), i0, a.n, live, 0u, tv);
+      tp = pred_slot_bits(static_cast<const unsigned char*>(a.buf[ins.z]), i0, a.n, live);
+      break;
+    case kMask:
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+      tp = ins.y ? kPredAll : 0u;
+      break;
+    case kClass: pred_class(a, ins.y, ins.z, id, live, run, tv, tp); break;
+    case kId:
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) tv[v] = static_cast<unsigned>(id[v]);
+      tp = pred_bits([&](int v) { return id[v] >= 0; });
+      break;
+    default:  // kValid
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+      tp = pred_bits([&](int v) { return id[v] >= 0; });
+      break;
+  }
+}
+
+// x op y for kPredV slots, into y; returns the slots where it is defined
+// (division and modulo by zero are absent)
+__device__ __forceinline__ unsigned pred_arith(int op, int kind, const unsigned (&x)[kPredV],
+                                               unsigned (&y)[kPredV]) {
+  unsigned ok = kPredAll;
+  if (kind) {
+#pragma unroll
+    for (int v = 0; v < kPredV; ++v) {
+      const float fx = as_f(x[v]), fy = as_f(y[v]);
+      float r;
+      if (op == 0) {
+        r = __fadd_rn(fx, fy);
+      } else if (op == 1) {
+        r = __fsub_rn(fx, fy);
+      } else if (op == 2) {
+        r = __fmul_rn(fx, fy);
+      } else {
+        if (fy == 0.0f) ok &= ~(1u << v);
+        const float dd = fy != 0.0f ? fy : 1.0f;
+        if (op == 3) {
+          r = __fdiv_rn(fx, dd);
+        } else {
+          r = fmodf(fx, dd);
+          if (r != 0.0f && ((dd < 0.0f) != (r < 0.0f))) r = __fadd_rn(r, dd);
+        }
+      }
+      y[v] = as_u(r);
+    }
+    return ok;
+  }
+#pragma unroll
+  for (int v = 0; v < kPredV; ++v) {
+    if (op == 0) {
+      y[v] = x[v] + y[v];
+    } else if (op == 1) {
+      y[v] = x[v] - y[v];
+    } else if (op == 2) {
+      y[v] = x[v] * y[v];
+    } else {  // floor modulo (division is always float32)
+      const int ix = static_cast<int>(x[v]), iy = static_cast<int>(y[v]);
+      if (iy == 0) ok &= ~(1u << v);
+      int m = 0;  // x mod -1 = 0; INT_MIN % -1 traps
+      if (iy != 0 && iy != -1) {
+        m = ix % iy;
+        if (m != 0 && ((iy < 0) != (m < 0))) m += iy;
+      }
+      y[v] = static_cast<unsigned>(m);
+    }
+  }
+  return ok;
+}
+
+template <typename T, typename C>
+__device__ __forceinline__ unsigned pred_cmp_as(const unsigned (&x)[kPredV],
+                                                const unsigned (&y)[kPredV], C c) {
+  return pred_bits([&](int v) { return c(bits_as<T>(x[v]), bits_as<T>(y[v])); });
+}
+
+template <typename T>
+__device__ __forceinline__ unsigned pred_cmp_kind(int op, const unsigned (&x)[kPredV],
+                                                  const unsigned (&y)[kPredV]) {
   switch (op) {
-    case 0: return ix == iy;
-    case 1: return ix != iy;
-    case 2: return ix < iy;
-    case 3: return ix <= iy;
-    case 4: return ix > iy;
-    default: return ix >= iy;
+    case 0: return pred_cmp_as<T>(x, y, [](T p, T q) { return p == q; });
+    case 1: return pred_cmp_as<T>(x, y, [](T p, T q) { return p != q; });
+    case 2: return pred_cmp_as<T>(x, y, [](T p, T q) { return p < q; });
+    case 3: return pred_cmp_as<T>(x, y, [](T p, T q) { return p <= q; });
+    case 4: return pred_cmp_as<T>(x, y, [](T p, T q) { return p > q; });
+    default: return pred_cmp_as<T>(x, y, [](T p, T q) { return p >= q; });
   }
 }
 
@@ -1468,116 +1910,211 @@ __device__ __forceinline__ float pred_haversine(float lat1, float lon1, float la
 }
 
 __global__ void __launch_bounds__(kThreads)
-    predicate_eval_kernel(const __grid_constant__ PredArgs a, int smem) {
-  extern __shared__ int4 sprog[];
+    predicate_eval_kernel(const __grid_constant__ PredArgs a, int prog_smem) {
+  extern __shared__ __align__(16) unsigned char pred_smem[];
   const int4* prog = a.prog;
-  if (smem) {
-    for (long long i = threadIdx.x; i < a.len; i += blockDim.x) sprog[i] = a.prog[i];
+  if (prog_smem) {
+    int4* sp = reinterpret_cast<int4*>(pred_smem);
+    for (long long i = threadIdx.x; i < a.len; i += blockDim.x) sp[i] = a.prog[i];
     __syncthreads();
-    prog = sprog;
+    prog = sp;
   }
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const int tid = threadIdx.x;
+  // the entries below the top (need - 1 at most): value v of entry k at
+  // sval[(k * kPredV + v) * kThreads + tid], its presence bits at
+  // spm[k * kThreads + tid]
+  unsigned* sval = reinterpret_cast<unsigned*>(pred_smem + prog_smem);
+  unsigned* spm = sval + static_cast<long long>(a.need - 1) * kPredV * kThreads;
   const int len = static_cast<int>(a.len);
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < a.n;
-       i += step) {
-    const int id = a.ids ? a.ids[i] : (i < a.n_valid ? static_cast<int>(a.base + i) : -1);
-    // the top entry lives in registers (tv, tp); the values below it in
-    // sv[0..d] (sv[0] the empty stack's placeholder), their presence bits in
-    // spm (bit 0: the entry just below the top)
-    unsigned sv[kStack];
-    unsigned spm = 0u;
-    int d = -1;
-    unsigned tv = 0u;
-    bool tp = false;
-    for (int pc = 0; pc < len; ++pc) {
-      const int4 ins = smem ? prog[pc] : __ldg(prog + pc);
-      const int op = ins.x;
-      if (op <= kTmp || op == kMask || op == kClass || op == kValid || op == kId) {  // pushes
-        sv[++d] = tv;
-        spm = (spm << 1) | (tp ? 1u : 0u);
-        switch (op) {
-          case kCol: tp = pred_gather(a, ins.y, ins.z, id, &tv); break;
-          case kBCol:
-            tp = pred_gather(a, ins.y, ins.z, static_cast<const int*>(a.buf[ins.w])[i], &tv);
-            break;
-          case kConst: tv = static_cast<unsigned>(ins.y); tp = ins.z != 0; break;
-          case kParam: tv = static_cast<unsigned>(a.params[ins.y]); tp = true; break;
-          case kDepth: tv = static_cast<unsigned>(a.depth); tp = true; break;
-          case kTmp:
-            tv = static_cast<const unsigned*>(a.buf[ins.y])[i];
-            tp = static_cast<const unsigned char*>(a.buf[ins.z])[i] != 0;
-            break;
-          case kMask: tv = 0u; tp = ins.y != 0; break;
-          case kClass: {
-            const int nc = static_cast<int>(a.blen[ins.y]), nt = static_cast<int>(a.blen[ins.z]);
-            bool m = false;
-            if (id >= 0 && nc > 0) {
-              const int cls = static_cast<const int*>(a.buf[ins.y])[id < nc ? id : nc - 1];
-              if (cls >= 0 && nt > 0) {
-                m = static_cast<const unsigned char*>(a.buf[ins.z])[cls < nt ? cls : nt - 1] != 0;
-              }
-            }
-            tv = 0u;
-            tp = m;
-            break;
-          }
-          case kId: tv = static_cast<unsigned>(id); tp = id >= 0; break;
-          default: tv = 0u; tp = id >= 0; break;  // kValid
+  const long long step = static_cast<long long>(gridDim.x) * kPredTile;
+  for (long long t0 = static_cast<long long>(blockIdx.x) * kPredTile; t0 < a.n; t0 += step) {
+    const long long i0 = t0 + static_cast<long long>(tid) * kPredV;
+    const bool whole = i0 + kPredV <= a.n;
+    int id[kPredV];
+    if (a.ids && whole && pred_aligned(a.ids + i0, 16)) {
+#pragma unroll
+      for (int q = 0; q < kPredV / 4; ++q) {
+        const int4 w = __ldg(reinterpret_cast<const int4*>(a.ids + i0) + q);
+        id[4 * q] = w.x;
+        id[4 * q + 1] = w.y;
+        id[4 * q + 2] = w.z;
+        id[4 * q + 3] = w.w;
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) {
+        const long long i = i0 + v;
+        if (a.ids) {
+          id[v] = i < a.n ? __ldg(a.ids + i) : -1;
+        } else {
+          id[v] = i < a.n_valid ? static_cast<int>(a.base + i) : -1;
         }
+      }
+    }
+    // slots past n are dead from the start; a GUARD kills more
+    unsigned live = pred_bits([&](int v) { return i0 + v < a.n; });
+    const bool run = a.ids == nullptr && whole && i0 + kPredV <= a.n_valid;
+    // the top; with an empty stack it reads (0, present), so a program
+    // that ends on its last GUARD leaves the live bits as its mask
+    unsigned tv[kPredV];
+#pragma unroll
+    for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+    unsigned tp = kPredAll;
+    int depth = 0;  // entries on the stack, the top included
+    for (int pc = 0; pc < len; ++pc) {
+      const int4 ins = prog_smem ? prog[pc] : __ldg(prog + pc);
+      const int op = ins.x;
+      if ((kPredPushes >> op) & 1u) {
+        if (depth > 0) {  // the top goes below (an empty stack's top is not kept)
+          const int k = depth - 1;
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) sval[(k * kPredV + v) * kThreads + tid] = tv[v];
+          spm[k * kThreads + tid] = tp;
+        }
+        ++depth;
+        pred_push(a, ins, id, i0, live, run, tv, tp);
         continue;
       }
+      if (op == kGuard) {
+        live &= tp;
+        --depth;
+        if (depth > 0) {
+          const int k = depth - 1;
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) tv[v] = sval[(k * kPredV + v) * kThreads + tid];
+          tp = spm[k * kThreads + tid];
+        } else {
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+          tp = kPredAll;
+        }
+        if (__ballot_sync(kFull, live != 0u) == 0u) break;  // the warp's slots are all dead
+        continue;
+      }
+      // binary instructions take the entry below the top as their left operand
+      unsigned x[kPredV];
+      unsigned px = 0u;
+      if (op == kArith || op == kCmp || op == kAnd || op == kOr) {
+        const int k = depth - 2;
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) x[v] = sval[(k * kPredV + v) * kThreads + tid];
+        px = spm[k * kThreads + tid];
+        --depth;
+      }
       switch (op) {
-        case kI2F: tv = as_u(__int2float_rn(static_cast<int>(tv))); break;
-        case kNeg: tv = ins.z ? (tv ^ 0x80000000u) : (0u - tv); break;
+        case kI2F:
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) tv[v] = as_u(__int2float_rn(static_cast<int>(tv[v])));
+          break;
+        case kNeg:
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) tv[v] = ins.z ? (tv[v] ^ 0x80000000u) : (0u - tv[v]);
+          break;
         case kArith: {
-          unsigned x = sv[d--], y = tv;
-          bool px = spm & 1u, py = tp;
-          spm >>= 1;
-          if (ins.w) { unsigned t = x; x = y; y = t; bool q = px; px = py; py = q; }
-          bool ok = true;
-          tv = pred_arith(ins.y, ins.z, x, y, &ok);
-          tp = px && py && ok;
+          unsigned py = tp;
+          if (ins.w) {
+            pred_swap(x, tv);
+            const unsigned t = px;
+            px = py;
+            py = t;
+          }
+          tp = px & py & pred_arith(ins.y, ins.z, x, tv);
           break;
         }
         case kCmp: {
-          unsigned x = sv[d--], y = tv;
-          const bool both = (spm & 1u) && tp;
-          spm >>= 1;
-          if (ins.w) { unsigned t = x; x = y; y = t; }
-          tp = both && pred_cmp(ins.y, ins.z, x, y);
-          tv = 0u;
+          const unsigned both = px & tp;
+          if (ins.w) pred_swap(x, tv);
+          tp = both & (ins.z ? pred_cmp_kind<float>(ins.y, x, tv) : pred_cmp_kind<int>(ins.y, x, tv));
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
           break;
         }
         case kTable: {
-          const int n = static_cast<int>(a.blen[ins.y]);
-          const int c = static_cast<int>(tv);
-          const int j = c < 0 ? 0 : (c >= n ? n - 1 : c);
-          tp = tp && n > 0 && static_cast<const unsigned char*>(a.buf[ins.y])[j] != 0;
-          tv = 0u;
+          const unsigned char* tab = static_cast<const unsigned char*>(a.buf[ins.y]);
+          const int nt = static_cast<int>(a.blen[ins.y]);
+          unsigned char hit[kPredV];
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) {
+            hit[v] = 0;
+            const int c = static_cast<int>(tv[v]);
+            if ((((tp & live) >> v) & 1u) && nt > 0) hit[v] = __ldg(tab + (c < 0 ? 0 : (c >= nt ? nt - 1 : c)));
+            tv[v] = 0u;
+          }
+          tp &= pred_bits([&](int v) { return hit[v] != 0; });
           break;
         }
         case kTruthy:
-          tp = tp && (ins.z ? as_f(tv) != 0.0f : tv != 0u);
-          tv = 0u;
+          tp &= pred_bits([&](int v) { return ins.z ? as_f(tv[v]) != 0.0f : tv[v] != 0u; });
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
           break;
-        case kIsNull: tp = ins.y ? tp : !tp; tv = 0u; break;
-        case kAnd: tp = (spm & 1u) && tp; spm >>= 1; --d; break;
-        case kOr: tp = (spm & 1u) || tp; spm >>= 1; --d; break;
-        case kNot: tp = !tp; break;
+        case kIsNull:
+          tp = ins.y ? tp : (~tp & kPredAll);
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+          break;
+        case kAnd:
+        case kOr:
+          tp = op == kAnd ? (px & tp) : (px | tp);
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+          break;
+        case kNot:
+          tp = ~tp & kPredAll;
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+          break;
         case kDist: {
-          const bool p = (spm & 7u) == 7u && tp;
-          tv = as_u(pred_haversine(as_f(sv[d - 2]), as_f(sv[d - 1]), as_f(sv[d]), as_f(tv),
-                                   __int_as_float(ins.y)));
+          // lat1, lng1, lat2 in the three entries below the top, lng2 on it
+          const int k = depth - 4;
+          unsigned p = tp;
+#pragma unroll
+          for (int j = 0; j < 3; ++j) p &= spm[(k + j) * kThreads + tid];
+#pragma unroll
+          for (int v = 0; v < kPredV; ++v) {
+            const float lat1 = as_f(sval[(k * kPredV + v) * kThreads + tid]);
+            const float lng1 = as_f(sval[((k + 1) * kPredV + v) * kThreads + tid]);
+            const float lat2 = as_f(sval[((k + 2) * kPredV + v) * kThreads + tid]);
+            tv[v] = as_u(pred_haversine(lat1, lng1, lat2, as_f(tv[v]), __int_as_float(ins.y)));
+          }
           tp = p;
-          spm >>= 3;
-          d -= 3;
+          depth -= 3;
           break;
         }
         default: break;
       }
     }
-    a.out_p[i] = tp ? 1 : 0;
-    if (a.out_v) a.out_v[i] = static_cast<int>(tv);
+    const unsigned res = live & tp;
+    if (whole && pred_aligned(a.out_p + i0, 4 * (kPredV / 4))) {
+      unsigned w[kPredV / 4];
+#pragma unroll
+      for (int q = 0; q < kPredV / 4; ++q) w[q] = pred_bit_bytes(res >> (4 * q));
+      if constexpr (kPredV == 8) {
+        *reinterpret_cast<uint2*>(a.out_p + i0) = make_uint2(w[0], w[1]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < kPredV / 4; ++q) reinterpret_cast<unsigned*>(a.out_p + i0)[q] = w[q];
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) {
+        if (i0 + v < a.n) a.out_p[i0 + v] = static_cast<unsigned char>((res >> v) & 1u);
+      }
+    }
+    if (a.out_v) {
+      if (whole && pred_aligned(a.out_v + i0, 16)) {
+#pragma unroll
+        for (int q = 0; q < kPredV / 4; ++q) {
+          reinterpret_cast<uint4*>(a.out_v + i0)[q] =
+              make_uint4(tv[4 * q], tv[4 * q + 1], tv[4 * q + 2], tv[4 * q + 3]);
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) {
+          if (i0 + v < a.n) a.out_v[i0 + v] = static_cast<int>(tv[v]);
+        }
+      }
+    }
   }
 }
 
@@ -2153,6 +2690,30 @@ __global__ void rowshard_hop_kernel(const int* __restrict__ indptr, long long r,
   }
 }
 
+template <typename T>
+int launch_segment_sum(const void* vals, long long ne, const void* indptr, long long nseg,
+                       long long out_size, void* out, void* scratch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_size <= 0) return static_cast<int>(cudaGetLastError());
+  // the host sizes the grid by nseg + ne; the merged sequence is nseg + nv
+  // long (nv <= ne, read on the device), and tiles past it are empty
+  const long long tiles = nseg > 0 ? (nseg + ne + kSegTile - 1) / kSegTile : 0;
+  int* rowc = static_cast<int*>(scratch);
+  T* carry = reinterpret_cast<T*>(rowc + tiles + 1);
+  const long long npad = out_size - nseg;
+  const long long work = 32 * (tiles + 1) > npad / 4 ? 32 * (tiles + 1) : npad / 4;
+  const int* ip = static_cast<const int*>(indptr);
+  seg_partition_kernel<<<grid_for(work, 1), kThreads, 0, s>>>(ip, ne, nseg, tiles, rowc,
+                                                             static_cast<unsigned*>(out), out_size);
+  if (tiles > 0) {
+    seg_sum_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+        static_cast<const T*>(vals), ne, ip, nseg, rowc, static_cast<T*>(out), carry);
+    seg_fixup_kernel<T><<<grid_for(tiles, 1), kThreads, 0, s>>>(rowc, carry, tiles, nseg,
+                                                                static_cast<T*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -2232,28 +2793,21 @@ int csr_compact(const void* mask, long long n, long long out_size, void* out, vo
   return static_cast<int>(cudaGetLastError());
 }
 
-int csr_segment_sum_i32(const void* vals, long long ne, const void* indptr,
-                        long long nseg, long long out_size, void* out,
-                        void* stream) {
-  if (out_size > 0) {
-    segment_sum_kernel<unsigned><<<blocks_for(out_size, kWarps), kThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned*>(vals), ne, static_cast<const int*>(indptr),
-        nseg, out_size, static_cast<unsigned*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+// K4's scratch, in int32 words: the tile coordinates (tiles + 1) and the
+// tiles' carries.
+long long csr_segment_scratch(long long nseg, long long ne) {
+  const long long tiles = nseg > 0 ? (nseg + ne + kSegTile - 1) / kSegTile : 0;
+  return 2 * tiles + 1;
 }
 
-int csr_segment_sum_f32(const void* vals, long long ne, const void* indptr,
-                        long long nseg, long long out_size, void* out,
-                        void* stream) {
-  if (out_size > 0) {
-    segment_sum_kernel<float><<<blocks_for(out_size, kWarps), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(vals), ne, static_cast<const int*>(indptr),
-        nseg, out_size, static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+int csr_segment_sum_i32(const void* vals, long long ne, const void* indptr, long long nseg,
+                        long long out_size, void* out, void* scratch, void* stream) {
+  return launch_segment_sum<unsigned>(vals, ne, indptr, nseg, out_size, out, scratch, stream);
+}
+
+int csr_segment_sum_f32(const void* vals, long long ne, const void* indptr, long long nseg,
+                        long long out_size, void* out, void* scratch, void* stream) {
+  return launch_segment_sum<float>(vals, ne, indptr, nseg, out_size, out, scratch, stream);
 }
 
 int csr_take_pad_i32(const void* vals, long long n, const void* idx, long long m,
@@ -2506,14 +3060,24 @@ int csr_group_page(const void* in, long long w, int ncols, long long b, long lon
 }
 
 // `args` is a PredArgs (the wrapper's ctypes twin); the kernel takes it by
-// value, so a captured graph keeps this launch's pointers and scalars.
+// value, so a captured graph keeps this launch's pointers and scalars. The
+// dynamic shared memory holds the program (when it fits in 48 KB) and
+// the need - 1 stack entries below the top; the first call raises the
+// kernel's limit to the most any program can ask (48 KB + kStack - 1
+// entries).
 int csr_predicate_eval(const void* args, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PredArgs& a = *static_cast<const PredArgs*>(args);
   if (a.n <= 0) return static_cast<int>(cudaGetLastError());
+  if (a.need < 1 || a.need > kStack) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t limit = cudaFuncSetAttribute(
+      predicate_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kProgSmem + (kStack - 1) * kPredEntryBytes);
+  if (limit != cudaSuccess) return static_cast<int>(limit);
   const long long bytes = a.len * static_cast<long long>(sizeof(int4));
-  const int smem = bytes <= kProgSmem ? static_cast<int>(bytes) : 0;
-  predicate_eval_kernel<<<grid_for(a.n, 1), kThreads, smem, s>>>(a, smem);
+  const int prog_smem = bytes <= kProgSmem ? static_cast<int>(bytes) : 0;
+  predicate_eval_kernel<<<grid_for(a.n, kPredV), kThreads,
+                          prog_smem + (a.need - 1) * kPredEntryBytes, s>>>(a, prog_smem);
   return static_cast<int>(cudaGetLastError());
 }
 

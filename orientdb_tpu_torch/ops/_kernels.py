@@ -45,8 +45,9 @@ SIGNATURES = {
     "csr_degree_counts": [_P, _N, _P, _N, _P, _P],
     "csr_gather_expand": [_P, _N, _P, _N, _P, _P, _N, _P, _N, _P, _P, _P, _P],
     "csr_compact": [_P, _N, _N, _P, _P, _I, _P],
-    "csr_segment_sum_i32": [_P, _N, _P, _N, _N, _P, _P],
-    "csr_segment_sum_f32": [_P, _N, _P, _N, _N, _P, _P],
+    "csr_segment_scratch": [_N, _N],
+    "csr_segment_sum_i32": [_P, _N, _P, _N, _N, _P, _P, _P],
+    "csr_segment_sum_f32": [_P, _N, _P, _N, _N, _P, _P, _P],
     "csr_take_pad_i32": [_P, _N, _P, _N, _I, _P, _P],
     "csr_take_pad_f32": [_P, _N, _P, _N, _F, _P, _P],
     "csr_take_pad_b8": [_P, _N, _P, _N, _I, _P, _P],

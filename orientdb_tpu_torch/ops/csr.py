@@ -454,23 +454,28 @@ def indptr_segment_sum(
     vals: torch.Tensor, indptr: torch.Tensor, out_size: int
 ) -> torch.Tensor:
     """Per-vertex sums of CSR-ordered values, zero-padded (or cut) to
-    `out_size`."""
+    `out_size`. ``indptr`` is non-decreasing within ``[0, len(vals)]`` (a
+    CSR's own); on the card a merge-path reduction whose float32 sums are
+    the same bit for bit from call to call."""
     _check(vals, (I32, F32), "indptr_segment_sum vals")
     _check(indptr, (I32,), "indptr_segment_sum indptr")
     if not _on_card(vals, indptr):
         return plain_indptr_segment_sum(vals, indptr, out_size)
     lib = _kernels.load()
     out = torch.empty(out_size, dtype=vals.dtype, device=vals.device)
+    nseg, ne = max(min(indptr.shape[0] - 1, out_size), 0), vals.shape[0]
+    scratch = torch.empty(lib.csr_segment_scratch(nseg, ne), dtype=I32, device=vals.device)
     is_int = vals.dtype == I32
     _launch(
         "segment_sum_i32" if is_int else "segment_sum_f32",
         lib.csr_segment_sum_i32 if is_int else lib.csr_segment_sum_f32,
         vals.data_ptr(),
-        vals.shape[0],
+        ne,
         indptr.data_ptr(),
-        min(indptr.shape[0] - 1, out_size),
+        nseg,
         out_size,
         out.data_ptr(),
+        scratch.data_ptr(),
         _stream(vals),
     )
     return out
@@ -1180,7 +1185,10 @@ class PredOp:
     an int32 [L, 4] array of postfix instructions ``(op, a, b, c)`` over a
     per-slot stack of (int32 bits, present) pairs; a mask is a pair whose
     ``present`` is the mask and whose value is 0. Buffer operands index the
-    call's buffer list (``bufs``)."""
+    call's buffer list (``bufs``). A program whose root is an AND may end
+    each conjunct with ``GUARD``: the slot's result is then the AND of every
+    guarded conjunct's presence (with the final top's, if any), and the
+    kernel stops reading buffers for a slot once a guard has rejected it."""
 
     COL = 1  # push column[id]: a values, b presence (padding-safe gather)
     BCOL = 2  # push column[rows[slot]]: a values, b presence, c binding rows
@@ -1203,27 +1211,70 @@ class PredOp:
     VALID = 19  # id >= 0
     DIST = 20  # a: scale (float32 bits); pops lat1, lng1, lat2, lng2 (float32)
     ID = 21  # push (id, id >= 0): the slot's vertex id (a rid filter's operand)
+    GUARD = 22  # pop a conjunct; AND its presence into the slot's live bit
 
 
 ARITH_OPS = ("+", "-", "*", "/", "%")
 CMP_OPS = ("=", "!=", "<", "<=", ">", ">=")
-#: the kernel's per-thread value stack (kStack) and buffer table (kMaxBufs);
-#: the compiler splits whatever would not fit into earlier launches
+#: the most stack entries a program may need (kStack; the kernel sizes its
+#: shared-memory stack by the program's own need) and the buffer table
+#: (kMaxBufs); the compiler splits whatever would not fit into earlier launches
 PRED_STACK = 16
 PRED_BUFS = 32
 _DEG2RAD = 0.017453292519943295  # pi / 180, the reference's deg2rad factor
+
+
+#: each opcode's change to the stack's depth
+_PRED_EFFECT = {
+    **dict.fromkeys(
+        (PredOp.COL, PredOp.BCOL, PredOp.CONST, PredOp.PARAM, PredOp.DEPTH, PredOp.TMP,
+         PredOp.MASK, PredOp.CLASS, PredOp.VALID, PredOp.ID),
+        1,
+    ),
+    **dict.fromkeys(
+        (PredOp.I2F, PredOp.NEG, PredOp.TABLE, PredOp.TRUTHY, PredOp.ISNULL, PredOp.NOT), 0
+    ),
+    **dict.fromkeys((PredOp.ARITH, PredOp.CMP, PredOp.AND, PredOp.OR, PredOp.GUARD), -1),
+    PredOp.DIST: -3,
+}
+
+
+def program_need(rows) -> int:
+    """The most stack entries the postfix program ``rows`` holds at once
+    (what the kernel's shared-memory stack is sized by); raises ValueError
+    on an unknown opcode, a pop of an empty stack, or a program that does
+    not end with one entry (or none after its last GUARD)."""
+    depth = need = 0
+    guarded = False
+    for r in rows:
+        op = r[0]
+        if op not in _PRED_EFFECT:
+            raise ValueError(f"predicate program: unknown opcode {op}")
+        pops = {1: 0, 0: 1, -1: 2, -3: 4}[_PRED_EFFECT[op]]
+        if op == PredOp.GUARD:  # pops one entry and pushes nothing
+            pops, guarded = 1, True
+        if depth < pops:
+            raise ValueError("predicate program pops an empty stack")
+        depth += _PRED_EFFECT[op]
+        need = max(need, depth)
+    if depth != 1 and not (guarded and depth == 0):
+        raise ValueError(f"predicate program ends with {depth} stack entries")
+    return need
 
 
 class PredProgram:
     """A predicate program, uploaded once: its instructions ``(op, a, b,
     c)`` on the host (what the plain version runs, so that it reads nothing
     from a tensor) and as the kernel's contiguous int32 [L, 4] array on
-    ``device``."""
+    ``device``; ``need`` is its stack need (`program_need`)."""
 
     def __init__(self, rows, device) -> None:
         self.rows = [tuple(int(x) for x in r) for r in rows]
         if not self.rows or any(len(r) != 4 for r in self.rows):
             raise ValueError("a predicate program is a non-empty list of 4-tuples")
+        self.need = program_need(self.rows)
+        if self.need > PRED_STACK:
+            raise ValueError(f"predicate program needs {self.need} stack entries > {PRED_STACK}")
         self.code = torch.tensor(self.rows, dtype=I32).reshape(-1, 4).to(device)
 
 
@@ -1242,6 +1293,7 @@ class _PredArgs(ctypes.Structure):
         ("out_v", ctypes.c_void_p),
         ("depth", ctypes.c_int),
         ("nbufs", ctypes.c_int),
+        ("need", ctypes.c_int),
         ("buf", ctypes.c_void_p * PRED_BUFS),
         ("blen", ctypes.c_longlong * PRED_BUFS),
     ]
@@ -1346,6 +1398,7 @@ def plain_predicate_eval(
     sid = _slot_ids(ids, n, n if n_valid is None else n_valid, base, dev)
     zero = torch.zeros(n, dtype=I32, device=dev)
     stack: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    live: Optional[torch.Tensor] = None  # the AND of the guarded conjuncts
 
     def full_mask(b: bool):
         return torch.full((n,), bool(b), dtype=torch.bool, device=dev)
@@ -1401,6 +1454,9 @@ def plain_predicate_eval(
             stack.append((zero, sid >= 0))
         elif op == O.ID:
             stack.append((sid, sid >= 0))
+        elif op == O.GUARD:
+            p = stack.pop()[1]
+            live = p if live is None else live & p
         elif op == O.DIST:
             ops = [stack.pop() for _ in range(4)][::-1]
             p = ops[0][1] & ops[1][1] & ops[2][1] & ops[3][1]
@@ -1409,7 +1465,9 @@ def plain_predicate_eval(
             stack.append((_f_bits(d), p))
         else:
             raise ValueError(f"predicate program: unknown opcode {op}")
-    ((v, p),) = stack
+    ((v, p),) = stack or [(zero, full_mask(True))]
+    if live is not None:
+        p = p & live
     v = v.contiguous()
     return (v, p) if values else p
 
@@ -1463,7 +1521,7 @@ def predicate_eval(
         args.params = params.data_ptr() if params is not None else None
         args.out_p = out_p.data_ptr()
         args.out_v = out_v.data_ptr() if out_v is not None else None
-        args.depth, args.nbufs = int(depth), len(bufs)
+        args.depth, args.nbufs, args.need = int(depth), len(bufs), prog.need
         for j, t in enumerate(bufs):
             args.buf[j] = t.data_ptr()
             args.blen[j] = t.shape[0]

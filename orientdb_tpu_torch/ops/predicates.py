@@ -4,8 +4,10 @@ WHERE AST → a predicate program that evaluates a boolean mask over slots.
 The compiler keeps the reference's decisions node for node
 (`Compiler._value` / `_bool` / `_compare` / ...); what a node emits is an
 instruction tree instead of a closure. `Predicate` ANDs the terms of one
-mask (padding, class closures, WHERE), orders each tree for the smallest
-value stack (the deeper operand first), splits off whatever would not fit
+mask (padding, class closures, WHERE) as guarded conjuncts, cheapest first
+(each followed by a GUARD that drops the slots it rejects from every later
+read), orders each tree for the smallest value stack (the deeper operand
+first), splits off whatever would not fit
 the kernel's stack or buffer table into earlier launches, and uploads the
 postfix program once, at compile. Calling it runs the whole mask as ONE
 `K.predicate_eval` launch (the K15 interpreter on the card, its plain torch
@@ -640,6 +642,8 @@ def _measure(node: _Node) -> None:
     elif node.op in (O.AND, O.OR):
         s = sorted(needs, reverse=True)
         node.need = max([s[0]] + [x + 1 for x in s[1:]])
+    elif node.op == O.GUARD:  # one conjunct on the stack at a time
+        node.need = max(needs)
     elif node.op == O.DIST:
         node.need = max(x + i for i, x in enumerate(needs))
     elif len(kids) == 2:
@@ -665,7 +669,7 @@ def _fit(node: _Node, depth: int, nbufs: int, out: List[_Node]) -> _Node:
     node.kids = [_fit(k, depth, nbufs, out) for k in node.kids]
     _measure(node)
     while node.need > depth or len(node.bufs) > nbufs:
-        if node.op in (O.AND, O.OR) and len(node.bufs) > nbufs:
+        if node.op in (O.AND, O.OR, O.GUARD) and len(node.bufs) > nbufs:
             # chunks of terms whose buffers fit, each its own launch
             groups: List[List[_Node]] = [[]]
             seen: set = set()
@@ -680,7 +684,7 @@ def _fit(node: _Node, depth: int, nbufs: int, out: List[_Node]) -> _Node:
                 if len(g) == 1 and g[0].op == O.TMP:
                     kids.append(g[0])
                     continue
-                sub = _nary(node.op, g)
+                sub = _nary(O.AND if node.op == O.GUARD else node.op, g)
                 _measure(sub)
                 out.append(_fit(sub, depth, nbufs, out))
                 kids.append(_tmp(len(out) - 1))
@@ -696,9 +700,44 @@ def _fit(node: _Node, depth: int, nbufs: int, out: List[_Node]) -> _Node:
     return node
 
 
+def _slot_bytes(node: _Node) -> int:
+    """Bytes a slot reads for the subtree, each buffer once: 4 a value or
+    binding row, 1 a presence byte, a tensor's element size (class ids,
+    closure and code tables)."""
+    sizes: Dict[tuple, int] = {}
+
+    def walk(n: _Node) -> None:
+        for src in n.srcs:
+            kind, obj, field = src
+            if kind == "tensor":
+                size = obj.element_size()
+            else:
+                size = 1 if field in ("present", "p") else 4
+            sizes[_src_key(src)] = size
+        for k in n.kids:
+            walk(k)
+
+    walk(node)
+    return sum(sizes.values())
+
+
+def _guarded_order(kids: List[_Node]) -> List[_Node]:
+    """A guarded root's conjuncts, cheapest first: those that read no
+    buffer (the padding test, ID and compares of constants, parameters and
+    the WHILE level), then by the bytes a slot reads; ties keep their
+    order."""
+    return sorted(kids, key=_slot_bytes)
+
+
 def _emit(node: _Node, rows: List[Tuple[int, int, int, int]], index: Dict, srcs: List) -> None:
-    """Postfix emission, the deeper operand first."""
+    """Postfix emission, the deeper operand first; a guarded root's
+    conjuncts each followed by GUARD, cheapest first."""
     kids = node.kids
+    if node.op == O.GUARD:
+        for k in _guarded_order(kids):
+            _emit(k, rows, index, srcs)
+            rows.append((O.GUARD, 0, 0, 0))
+        return
     if node.op in (O.AND, O.OR):
         order = sorted(kids, key=lambda k: -k.need)
         _emit(order[0], rows, index, srcs)
@@ -753,7 +792,9 @@ class _Program:
 
 class Predicate:
     """A compiled mask: the AND of its terms (padding, class closures,
-    WHERE), as one predicate program. ``pred(idx, env)`` evaluates it over
+    WHERE), as one predicate program whose root AND is a list of guarded
+    conjuncts (a conjunct that rejects a slot stops the kernel's reads for
+    it; split launches stay unguarded). ``pred(idx, env)`` evaluates it over
     the ids ``idx``; ``pred.identity(n, n_valid, base, env)`` over slot ids
     ``base + i`` (``i < n_valid``, else padding) without an id array. Both
     are one `K.predicate_eval` launch, plus one for each subtree split off
@@ -772,6 +813,8 @@ class Predicate:
         self.box = box
         self.uses_bindings = uses_bindings
         root = _nary(O.AND, list(terms))
+        if root.op == O.AND:
+            root = _Node(O.GUARD, kids=root.kids)
         split: List[_Node] = []
         root = _fit(root, max_stack, max_bufs, split)
         self.programs = [_Program(t, device) for t in split] + [_Program(root, device)]

@@ -239,12 +239,41 @@ def test_take_pad_and_mask_count(n):
     assert int(T.mask_count(_t(vals_b))) == int(J.mask_count(jnp.asarray(vals_b)))
 
 
-@pytest.mark.parametrize("n", LENGTHS)
-def test_indptr_segment_sum(n):
-    rng = np.random.default_rng(n + 8)
-    v = max(n // 4, 1)
-    deg = rng.multinomial(n, np.ones(v) / v)
+#: degree shapes beside LENGTHS' uniform ones, (kind, segments): Zipf
+#: degrees with a hub over several of the kernel's 5,120-item tiles, every
+#: segment empty, runs of empty segments around long ones, and a CSR slice
+#: whose indptr starts past 0
+SEGMENT_SHAPES = [("zipf", 3000), ("zipf", 40), ("empty", 500), ("runs", 2000), ("slice", 900)]
+
+
+def _segment_indptr(rng, kind: str, v: int) -> np.ndarray:
+    if kind == "zipf":
+        deg = np.minimum(rng.zipf(1.6, v), 20_000)
+        deg[v // 2] = 9_000
+    elif kind == "empty":
+        deg = np.zeros(v, np.int64)
+    elif kind == "runs":
+        deg = np.zeros(v, np.int64)
+        deg[rng.choice(v, v // 50, replace=False)] = rng.integers(1, 6_000, v // 50)
+    else:
+        deg = rng.poisson(10, v + v // 3)
     indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    return indptr[v // 3 :] if kind == "slice" else indptr
+
+
+@pytest.mark.parametrize(
+    "n", LENGTHS + [pytest.param(s, id=f"{s[0]}-{s[1]}") for s in SEGMENT_SHAPES]
+)
+def test_indptr_segment_sum(n):
+    if isinstance(n, tuple):
+        rng = np.random.default_rng(n[1] + 17)
+        indptr = _segment_indptr(rng, *n)
+        v, n = indptr.shape[0] - 1, int(indptr[-1])
+    else:
+        rng = np.random.default_rng(n + 8)
+        v = max(n // 4, 1)
+        deg = rng.multinomial(n, np.ones(v) / v)
+        indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
     vals_i = rng.integers(0, 2**20, n, dtype=np.int32)
     vals_f = rng.random(n, dtype=np.float32)
     for out_size in (T.bucket(v), max(v // 2, 1)):  # padded, and cut

@@ -154,6 +154,92 @@ def test_captured_scan_replays_equal_plain(card):
     torch.cuda.synchronize()
 
 
+#: K4's degree shapes, (kind, segments): Poisson(10) as in A; Zipf with a
+#: hub over several of the kernel's 5,120-item tiles; every segment empty;
+#: runs of empty segments around long ones; one segment of 100,000 values
+#: (20 tiles) between two short ones; a CSR slice whose indptr starts past 0
+SEGMENT_CASES = [
+    ("poisson", 200_000), ("poisson", 1), ("zipf", 50_000), ("empty", 10_000), ("runs", 30_000),
+    ("long", 3), ("slice", 20_000),
+]
+
+
+def _segment_indptr(rng, kind: str, v: int) -> np.ndarray:
+    if kind == "zipf":
+        deg = np.minimum(rng.zipf(1.6, v), 50_000)
+        deg[v // 2] = 30_000
+    elif kind == "empty":
+        deg = np.zeros(v, np.int64)
+    elif kind == "runs":
+        deg = np.zeros(v, np.int64)
+        deg[rng.choice(v, v // 50, replace=False)] = rng.integers(1, 9_000, v // 50)
+    elif kind == "long":
+        deg = np.array([5, 100_000, 7])
+    else:
+        deg = rng.poisson(10, v + v // 3)
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    return indptr[v // 3 :] if kind == "slice" else indptr
+
+
+def _segment_inputs(card, kind, v, seed):
+    rng = np.random.default_rng(seed)
+    indptr = _segment_indptr(rng, kind, v)
+    ne = int(indptr[-1])
+    vals_i = _t(rng.integers(-(2**31), 2**31 - 1, ne, dtype=np.int32)).to(card)  # sums wrap
+    vals_f = _t(rng.random(ne, dtype=np.float32)).to(card)
+    return _t(indptr).to(card), vals_i, vals_f
+
+
+def _same_f32(got, want):
+    """rtol 1e-6 of the largest magnitude: the kernel adds in tile order,
+    the plain version rounds a float64 difference once."""
+    scale = float(want.abs().max()) if want.numel() else 1.0
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * max(scale, 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [False, True], ids=["padded", "cut"])
+@pytest.mark.parametrize("kind,v", SEGMENT_CASES)
+def test_segment_sum_equals_plain_on_card(card, kind, v, cut):
+    """K4 (merge path) against its plain version: int32 exactly (wrapping
+    sums), float32 to rtol 1e-6 and bit for bit equal from call to call,
+    with ``out_size`` above ``nseg`` (zero padding) and below it (cut)."""
+    indptr, vals_i, vals_f = _segment_inputs(card, kind, v, v + 31)
+    nseg = indptr.shape[0] - 1
+    out_size = max(nseg // 2, 1) if cut else T.bucket(max(nseg, 1)) + 3
+    got = T.indptr_segment_sum(vals_i, indptr, out_size)
+    assert torch.equal(got, T.plain_indptr_segment_sum(vals_i, indptr, out_size))
+    first = T.indptr_segment_sum(vals_f, indptr, out_size)
+    again = T.indptr_segment_sum(vals_f, indptr, out_size)
+    assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+    _same_f32(first, T.plain_indptr_segment_sum(vals_f, indptr, out_size))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_segment_sum_equals_eager_on_card(card):
+    """One captured K4 call (three launches) replayed on other values in
+    place: int32 and float32 bit for bit equal to eager calls."""
+    indptr, vals_i, vals_f = _segment_inputs(card, "zipf", 50_000, 3)
+    _, other_i, other_f = _segment_inputs(card, "zipf", 50_000, 3)
+    other_i, other_f = other_i.roll(7), other_f.roll(7)
+    out_size = T.bucket(indptr.shape[0])
+    for vals, other in ((vals_i, other_i), (vals_f, other_f)):
+        static = vals.clone()
+        T.indptr_segment_sum(static, indptr, out_size)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = T.indptr_segment_sum(static, indptr, out_size)
+        for src in (other, vals, other):
+            static.copy_(src)
+            out.fill_(-7)
+            graph.replay()
+            want = T.indptr_segment_sum(src, indptr, out_size)
+            assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("skew", [0, 20])
 def test_queries_on_card_equal_cpu(card, skew):
@@ -641,6 +727,122 @@ def test_predicate_eval_long_program_on_card(card):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(got[1].sum()) > 0
     assert T.predicate_eval(prog.prog, bufs, ids[:0]).shape == (0,)
+
+
+def _k15_scope(card, n: int, seed: int):
+    import chip_smoke
+    from orientdb_tpu_torch.ops.device_graph import DeviceGraph
+    from orientdb_tpu_torch.ops.predicates import ColumnScope
+
+    snap = chip_smoke.k15_snapshot(np, n, seed)
+    dg = DeviceGraph(snap, card)
+    return dg, ColumnScope(dg.columns, dg.non_columnar, device=card)
+
+
+def _k15_where(scope, where: str, box=None):
+    from orientdb_tpu_torch.ops.predicates import compile_where
+    from orientdb_tpu_torch.sql.parser import parse
+
+    return compile_where(parse(f"SELECT FROM V WHERE {where}").where, scope, box if box is not None else {})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ids", "identity"])
+@pytest.mark.parametrize("first", ["rejects_all", "rejects_none", "id_before_class"])
+def test_predicate_guards_equal_plain_on_card(card, first, mode):
+    """Guarded programs (the padding test, a head conjunct, the class
+    lookup, a WHERE): a head that rejects every slot (a rid no vertex has),
+    none (a true constant), or all but one (an ID compare, which the
+    compiler puts before the class lookup), against the plain version."""
+    from orientdb_tpu_torch.ops.predicates import Predicate, _mask, class_term, id_term, valid_term
+
+    n = 70_001
+    dg, scope = _k15_scope(card, n, 7)
+    head = {"rejects_all": id_term(-2), "rejects_none": _mask(True), "id_before_class": id_term(123)}[first]
+    terms = [valid_term(), head, class_term(dg.v_class, dg.class_table("A")),
+             _k15_where(scope, "i > 3 AND f < 2.5 OR s LIKE 'a%'")]
+    pred = Predicate(terms, card)
+    (prog,) = pred.programs
+    rows = [r[0] for r in prog.prog.rows]
+    head_op = T.PredOp.MASK if first == "rejects_none" else T.PredOp.ID
+    assert rows[-1] == T.PredOp.GUARD and rows.index(head_op) < rows.index(T.PredOp.CLASS)
+    ids = _t(np.random.default_rng(8).integers(-1, n + 3, n).astype(np.int32)).to(card)
+    if mode == "ids":
+        got, want = pred(ids), T.plain_predicate_eval(prog.prog, prog.buffers({}, [], n), ids)
+    else:
+        got = pred.identity(n, n - 1000, 5)
+        want = T.plain_predicate_eval(prog.prog, prog.buffers({}, [], n), None, n, n - 1000, 5)
+    assert torch.equal(got, want)
+    admitted = int(got.sum())
+    slot_ids = ids if mode == "ids" else T._slot_ids(None, n, n - 1000, 5, card)
+    if first == "rejects_all":
+        assert admitted == 0
+    elif first == "rejects_none":
+        assert admitted > 0
+    else:
+        assert admitted <= int((slot_ids == 123).sum())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ids", "identity"])
+def test_predicate_split_launches_equal_one_launch_on_card(card, mode):
+    """The long WHERE of `chip_smoke.K15_WHERES` with the padding test: split
+    into unguarded launches (stack 4, 8 buffers; values read back through
+    TMP) and a guarded last one, each launch against the plain version on
+    the same inputs, and the mask against the one-launch program."""
+    import chip_smoke
+    from orientdb_tpu_torch.ops.predicates import ParamBox, Predicate, valid_term
+
+    n = 70_001
+    dg, scope = _k15_scope(card, n, 9)
+    box = ParamBox(chip_smoke.K15_PARAMS)
+    where = chip_smoke.K15_WHERES[-1]
+    whole = Predicate([valid_term(), _k15_where(scope, where, box)], card, box)
+    split = Predicate([valid_term(), _k15_where(scope, where, box)], card, box, max_stack=4, max_bufs=8)
+    assert len(whole.programs) == 1 and len(split.programs) > 1
+    assert T.PredOp.GUARD not in [r[0] for p in split.programs[:-1] for r in p.prog.rows]
+    ids = _t(np.random.default_rng(10).integers(-1, n + 3, n).astype(np.int32)).to(card)
+    a = (ids, n, n, 0) if mode == "ids" else (None, n, n - 999, 3)
+    row = box.row(card)
+    tmps = []
+    for prog in split.programs:
+        bufs = prog.buffers({}, tmps, n)
+        got = T.predicate_eval(prog.prog, bufs, *a, 0, row, values=True)
+        want = T.plain_predicate_eval(prog.prog, bufs, *a, 0, row, values=True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        tmps.append(got)
+    one = whole(ids) if mode == "ids" else whole.identity(n, n - 999, 3)
+    assert torch.equal(tmps[-1][1], one) and int(one.sum()) > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_predicate_eval_equals_eager_on_card(card):
+    """A guarded mask with parameters captured once and replayed after the
+    parameter row and a column change in place, against eager calls."""
+    from orientdb_tpu_torch.ops.predicates import ParamBox, Predicate, pack_params, valid_term
+
+    n = 70_001
+    dg, scope = _k15_scope(card, n, 11)
+    box = ParamBox({"k": 17, "x": 48.0})
+    pred = Predicate([valid_term(), _k15_where(scope, "i < :k AND f > :x AND s >= 'm'", box)], card, box)
+    row = torch.from_numpy(pack_params({"k": 17, "x": 48.0}, box.used)).to(card)
+    box.set_row(row)
+    pred.identity(n, n - 7)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pred.identity(n, n - 7)
+    col = dg.columns["i"].values
+    for k, x, bump in ((17, 48.0, 0), (-200, -30.5, 3), (500, 0.0, -5)):
+        row.copy_(torch.from_numpy(pack_params({"k": k, "x": x}, box.used)))
+        col.add_(bump)
+        out.fill_(True)
+        graph.replay()
+        assert torch.equal(out, pred.identity(n, n - 7))
+    box.reset()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -86,9 +86,13 @@ class Side:
         penv["bindings"] = {"p": torch.from_numpy(self.rows)}
         return jenv, penv
 
-    def masks(self, where, params=None, depth=None, binding=False):
+    def masks(self, where, params=None, depth=None, binding=False, padded=False, **fit):
         """(reference mask, port mask) of ``where`` over the ids; the port's
-        program without the padding term, so padding reads are compared."""
+        program without the padding term, so padding reads are compared.
+        ``padded``: the port's mask is the padding test AND the WHERE, as
+        `compile_predicate` builds it (always a guarded program), and the
+        reference's mask is ANDed with ``ids >= 0``; ``fit``: the stack and
+        buffer limits (forced splits)."""
         params = params or {}
         js, ps = self.scopes(binding)
         jfn = JP.compile_predicate(
@@ -99,9 +103,11 @@ class Side:
         term = P.compile_where(
             parse(f"SELECT FROM V WHERE {where}").where, ps, box, allow_depth=depth is not None
         )
-        pred = P.Predicate([term], CPU, box)
+        pred = P.Predicate([P.valid_term(), term] if padded else [term], CPU, box, **fit)
         jenv, penv = self.envs(depth)
         jm = np.asarray(jfn(jnp.asarray(self.ids), jenv))
+        if padded:
+            jm = jm & (self.ids >= 0)
         pm = pred(torch.from_numpy(self.ids), penv).numpy()
         return jm, pm, pred
 
@@ -285,16 +291,20 @@ def test_long_and_wide_predicates(demo):
     assert np.array_equal(split(torch.from_numpy(demo.ids)).numpy(), pm)
 
 
-@pytest.mark.parametrize("max_stack,max_bufs", [(4, 8), (5, 6), (16, 10)])
+SPLIT_WHERE = (
+    "(n > 0 AND m > 0 AND big > 0 OR score > 0 AND ratio > 0) AND (flag OR tag IS NOT NULL) "
+    "AND (lat > 0 OR lng > 0 OR p.n > n) AND NOT (p.score < score AND p.tag = tag) "
+    "AND ((n + m) * (big - n) > (score - ratio) * (lat + lng) OR uid % 3 = 0)"
+)
+SPLIT_LIMITS = [(4, 8), (5, 6), (16, 10)]
+
+
+@pytest.mark.parametrize("max_stack,max_bufs", SPLIT_LIMITS)
 def test_split_launches_equal_reference(geo, max_stack, max_bufs):
     """A predicate over more columns than a launch's buffer table holds,
     and deeper than its stack: chunks and subtrees run as earlier launches
     read back through TMP, and the mask stays the reference's."""
-    where = (
-        "(n > 0 AND m > 0 AND big > 0 OR score > 0 AND ratio > 0) AND (flag OR tag IS NOT NULL) "
-        "AND (lat > 0 OR lng > 0 OR p.n > n) AND NOT (p.score < score AND p.tag = tag) "
-        "AND ((n + m) * (big - n) > (score - ratio) * (lat + lng) OR uid % 3 = 0)"
-    )
+    where = SPLIT_WHERE
     jm, pm, _ = geo.masks(where, binding=True)
     assert np.array_equal(jm, pm) and 0 < pm.sum()
     _, ps = geo.scopes(True)
@@ -322,19 +332,23 @@ def _band(d, r):
     return np.abs(d - r) <= 0.01 + 1e-5 * r
 
 
-@pytest.mark.parametrize(
-    "where,other,scale,r",
-    [
-        ("distance(lat, lng, 48.0, 2.0) < 2500", (48.0, 2.0), 1.0, 2500),
-        ("distance(lat, lng, 10.0, 179.9) < 500", (10.0, 179.9), 1.0, 500),
-        ("distance(lat, lng, 0.0, 0.0, 'mi') < 1200", (0.0, 0.0), 0.621371192, 1200),
-        ("distance(lat, lng, -20.5, 130.25) <= 1500", (-20.5, 130.25), 1.0, 1500),
-        ("distance(lat, lng, p.lat, p.lng) < 4000", "bind", 1.0, 4000),
-        ("distance(p.lat, p.lng, lat, lng, 'miles') >= 3000", "bind", 0.621371192, 3000),
-    ],
-)
+DISTANCE_CASES = [
+    ("distance(lat, lng, 48.0, 2.0) < 2500", (48.0, 2.0), 1.0, 2500),
+    ("distance(lat, lng, 10.0, 179.9) < 500", (10.0, 179.9), 1.0, 500),
+    ("distance(lat, lng, 0.0, 0.0, 'mi') < 1200", (0.0, 0.0), 0.621371192, 1200),
+    ("distance(lat, lng, -20.5, 130.25) <= 1500", (-20.5, 130.25), 1.0, 1500),
+    ("distance(lat, lng, p.lat, p.lng) < 4000", "bind", 1.0, 4000),
+    ("distance(p.lat, p.lng, lat, lng, 'miles') >= 3000", "bind", 0.621371192, 3000),
+]
+
+
+@pytest.mark.parametrize("where,other,scale,r", DISTANCE_CASES)
 def test_distance_masks_equal_reference_outside_band(geo, where, other, scale, r):
-    jm, pm, _ = geo.masks(where, binding=True)
+    _distance_masks_outside_band(geo, where, other, scale, r)
+
+
+def _distance_masks_outside_band(geo, where, other, scale, r, padded=False):
+    jm, pm, pred = geo.masks(where, binding=True, padded=padded)
     cols = geo.snap.v_columns
     lat, lng = cols["lat"], cols["lng"]
     at = np.clip(geo.ids, 0, geo.V - 1)
@@ -353,6 +367,7 @@ def test_distance_masks_equal_reference_outside_band(geo, where, other, scale, r
     assert not ((jm != pm) & ~band).any()
     assert not ((pm != want) & ~band).any()
     assert 0 < pm.sum() < live.sum()
+    return pred
 
 
 SPATIAL = "MATCH {class:Place, as:p, where:(distance(lat, lng, 48.0, 2.0) < :r)} RETURN p.name AS name"
@@ -401,3 +416,133 @@ def test_match_distance_shapes_equal_reference(geo, sql, params):
     assert rows
     if params:
         _same_rows(geo, sql, params)  # the replay
+
+
+# ---------------------------------------------------------------------------
+# guarded programs: a mask's root AND as conjuncts, each followed by GUARD
+# ---------------------------------------------------------------------------
+
+_READS = (K.PredOp.COL, K.PredOp.BCOL, K.PredOp.TMP, K.PredOp.TABLE, K.PredOp.CLASS)
+
+
+def _conjuncts(prog):
+    """The final program's conjuncts: the instruction runs between GUARDs."""
+    rows, out, cur = prog.prog.rows, [], []
+    assert rows[-1][0] == K.PredOp.GUARD, "not a guarded program"
+    for r in rows:
+        if r[0] == K.PredOp.GUARD:
+            out.append(cur)
+            cur = []
+        else:
+            cur.append(r)
+    return out
+
+
+def _unguarded(terms) -> "P._Program":
+    """The same terms' root emitted as one AND, as before guards."""
+    root = P._nary(K.PredOp.AND, list(terms))
+    P._fit(root, K.PRED_STACK, K.PRED_BUFS, [])
+    return P._Program(root, CPU)
+
+
+@pytest.mark.parametrize("where", GEO_WHERES)
+def test_guarded_masks_equal_reference(geo, where):
+    """Every WHERE as `compile_predicate` builds its mask (padding test AND
+    WHERE): a guarded program whose plain evaluation equals the reference's
+    mask on non-padding slots."""
+    jm, pm, pred = geo.masks(where, padded=True)
+    assert len(_conjuncts(pred.programs[-1])) >= 2
+    assert np.array_equal(jm, pm), where
+
+
+@pytest.mark.parametrize("max_stack,max_bufs", SPLIT_LIMITS)
+def test_guarded_split_launches_equal_reference(geo, max_stack, max_bufs):
+    """The split WHERE, padded: earlier launches stay unguarded (their
+    values are read back through TMP), the last one is guarded."""
+    jm, pm, pred = geo.masks(SPLIT_WHERE, binding=True, padded=True, max_stack=max_stack, max_bufs=max_bufs)
+    assert len(pred.programs) > 1 and np.array_equal(jm, pm) and 0 < pm.sum()
+    assert all(K.PredOp.GUARD not in [r[0] for r in p.prog.rows] for p in pred.programs[:-1])
+    _conjuncts(pred.programs[-1])
+    assert all(p.prog.need <= max_stack for p in pred.programs)
+
+
+@pytest.mark.parametrize("where,other,scale,r", DISTANCE_CASES)
+def test_guarded_distance_masks_equal_reference_outside_band(geo, where, other, scale, r):
+    pred = _distance_masks_outside_band(geo, where, other, scale, r, padded=True)
+    _conjuncts(pred.programs[-1])
+
+
+@pytest.mark.parametrize(
+    "where",
+    ["n > 3 AND $depth < 2", "tag = 'omega' AND n < :k AND flag", "score * 2.5 - n > 1 AND 1 < 2",
+     "distance(lat, lng, :x, :y) < 900 AND uid = :k", "p.n < n AND n IN [1, 2, 3] AND :k > 0"],
+)
+def test_guarded_conjuncts_buffer_free_first(geo, where):
+    """A guarded root puts the conjuncts that read no buffer (the padding
+    test, compares of constants, parameters, the WHILE level and ID) before
+    every conjunct that reads one, and the rid filter's ID compare before
+    the class lookup."""
+    box = P.ParamBox({"k": 7, "x": 1.0, "y": 2.0})
+    _, ps = geo.scopes(True)
+    term = P.compile_where(parse(f"SELECT FROM V WHERE {where}").where, ps, box, allow_depth=True)
+    terms = [P.valid_term(), P.class_term(geo.dg.v_class, geo.dg.class_table("Place")), term, P.id_term(5)]
+    pred = P.Predicate(terms, CPU, box, uses_bindings=True)
+    reads = [any(r[0] in _READS for r in c) for c in _conjuncts(pred.programs[-1])]
+    assert reads == sorted(reads) and not reads[0] and reads[-1]
+    order = [r[0] for c in _conjuncts(pred.programs[-1]) for r in c]
+    assert order.index(K.PredOp.ID) < order.index(K.PredOp.CLASS)
+    _, penv = geo.envs(1)
+    ids = torch.from_numpy(geo.ids)
+    plain = _unguarded(terms)
+    want = K.plain_predicate_eval(plain.prog, plain.buffers(penv, [], N_IDS), ids, depth=1, params=box.row(CPU))
+    assert torch.equal(pred(ids, penv), want)
+
+
+@pytest.mark.parametrize("where", GEO_WHERES[::4] + [SPLIT_WHERE])
+def test_guarded_stack_need_no_larger(geo, where):
+    """The guarded root's stack need is its largest conjunct's: never more
+    than the same AND emitted unguarded."""
+    _, ps = geo.scopes(True)
+    term = P.compile_where(parse(f"SELECT FROM V WHERE {where}").where, ps, {})
+    terms = [P.valid_term(), P.class_term(geo.dg.v_class, geo.dg.class_table("Place")), term]
+    pred = P.Predicate(terms, CPU, uses_bindings=True)
+    assert len(pred.programs) == 1
+    assert pred.programs[0].prog.need <= _unguarded(terms).prog.need
+
+
+@pytest.mark.parametrize("first", ["none", "all"])
+def test_guard_rejecting_every_slot_or_none(geo, first):
+    """A first conjunct that rejects every slot (a rid no vertex has) or
+    none (a true constant) before column reads: the mask equals the
+    reference's AND of the same terms."""
+    _, ps = geo.scopes(False)
+    js, _ = geo.scopes(False)
+    where = "n > 3 AND score < 2.5"
+    head = P.id_term(-2) if first == "none" else P._mask(True)
+    term = P.compile_where(parse(f"SELECT FROM V WHERE {where}").where, ps, {})
+    pred = P.Predicate([head, term], CPU)
+    assert [r[0] for r in _conjuncts(pred.programs[-1])[0]][-1] in (K.PredOp.CMP, K.PredOp.MASK)
+    got = pred(torch.from_numpy(geo.ids)).numpy()
+    jm = np.asarray(JP.compile_predicate(j_parse(f"SELECT FROM V WHERE {where}").where, js, {})(jnp.asarray(geo.ids), {}))
+    assert np.array_equal(got, np.zeros_like(jm) if first == "none" else jm)
+
+
+@pytest.mark.parametrize(
+    "rows,error",
+    [([(K.PredOp.AND, 0, 0, 0)], "pops an empty stack"),
+     ([(K.PredOp.VALID, 0, 0, 0), (K.PredOp.VALID, 0, 0, 0)], "ends with 2"),
+     ([(K.PredOp.GUARD, 0, 0, 0)], "pops an empty stack"),
+     ([(99, 0, 0, 0)], "unknown opcode"),
+     ([(K.PredOp.MASK, 1, 0, 0)] * 17 + [(K.PredOp.AND, 0, 0, 0)] * 16, "17 stack entries")],
+)
+def test_program_need_refuses_malformed_programs(rows, error):
+    with pytest.raises(ValueError, match=error):
+        K.PredProgram(rows, CPU)
+
+
+def test_program_need_counts_the_stack():
+    O = K.PredOp
+    assert K.program_need([(O.VALID, 0, 0, 0), (O.GUARD, 0, 0, 0)]) == 1
+    assert K.program_need([(O.ID, 0, 0, 0), (O.CONST, 5, 1, 0), (O.CMP, 0, 0, 0)]) == 2
+    dist = [(O.CONST, 0, 1, 0)] * 4 + [(O.DIST, 0, 0, 0), (O.CONST, 0, 1, 0), (O.CMP, 2, 1, 0)]
+    assert K.program_need(dist) == 4
