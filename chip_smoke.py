@@ -47,7 +47,21 @@ from the root of a checkout. Phases, each of which raises on failure:
    Q3's roots, with truncation, and at the same lengths. Both are timed
    eagerly and in a captured graph beside `torch.cumsum` /
    `torch.nonzero`, and each must enqueue one CUDA kernel and one memset a
-   call, counted from the nodes of a graph that captured the call;
+   call, counted from the nodes of a graph that captured the call. K5a
+   `take_pad` (int32, float32, bool) is held exactly at A's weight pass,
+   at the edge lengths and with the index 1–3 elements off 16 bytes (the
+   output is always a fresh allocation), and timed beside
+   ``torch.index_select``; the fused weight gather (`weight_gather`, the
+   COUNT pushdown's per-edge value in one launch) bit for bit against its
+   plain version and the parent's five calls on A's out and in walks (the
+   edge mask through ``edge_id_in``), with and without the weights and
+   the edge mask, int32 and float32, in the node-mask-operand form, on
+   slices one element off and after a fold of the vertex mask into the
+   weights, timed at Q1's and Q2's steps and a masked in walk beside the
+   five calls (Q2's also folded), and (phase 6) on E1's two walks on B;
+   K5b `mask_count` exactly at 2^23, at V1's
+   8-byte chunk, at 0, 1, 15, 17, around its one-block tile and starting
+   1–15 bytes off 16, timed beside ``torch.count_nonzero``;
 4. record — the recording path, with the plan cache off so that every
    call records (solves eagerly, reading each size on the host): zeroes
    the kernels' launch counts, runs the 1-hop COUNT (Q1), the 2-hop COUNT
@@ -267,6 +281,8 @@ REPLACES = {
     "take_pad_f32": "orientdb_tpu/ops/csr.py:211",
     "take_pad_b8": "orientdb_tpu/ops/csr.py:211",
     "mask_count": "orientdb_tpu/ops/csr.py:222",
+    "weight_gather_i32": "orientdb_tpu/exec/tpu_engine.py:1600",
+    "weight_gather_f32": "orientdb_tpu/exec/tpu_engine.py:1600",
     "front_pack": "orientdb_tpu/exec/tpu_engine.py:3030",
     "replay_meta": "orientdb_tpu/exec/tpu_engine.py:3041",
     "narrow_i16": "orientdb_tpu/exec/tpu_engine.py:3197",
@@ -301,10 +317,15 @@ DELTA_ONLY = ("scatter_set", "slab_scan", "slab_probe", "bitmap_hop")
 TIER_ONLY = ("paged_hop", "paged_hop_miss", "paged_expand")
 #: the kernels only a meshed snapshot launches (phase 7m)
 MESH_ONLY = ("degree_counts_range", "shard_gather", "bitmap_hop_eid", "shard_weight_pass", "rowshard_hop")
+#: the kernels no cell launches: the bool take_pad's only callers were the
+#: weight pass's gathers, which the fused weight_gather now makes (it is
+#: still held against its plain version and timed)
+OFF_PATH = ("take_pad_b8",)
 #: the kernels of the Person–knows phases 4–5 (the OPTIONAL arm's left-join
 #: count runs on the SNB-shape phase)
 PK_KERNELS = [
-    n for n in REPLACES if n != "rows_with_matches" and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY + MESH_ONLY
+    n for n in REPLACES
+    if n != "rows_with_matches" and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY + MESH_ONLY + OFF_PATH
 ]
 #: the kernels a Person–knows recording run launches
 RECORD_KERNELS = [n for n in PK_KERNELS if n not in REPLAY_ONLY]
@@ -312,12 +333,12 @@ RECORD_KERNELS = [n for n in PK_KERNELS if n not in REPLAY_ONLY]
 #: BFS there), and on their replays (no float32 overflow twin)
 E_RECORD_KERNELS = [
     n for n in REPLACES
-    if n not in REPLAY_ONLY and n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY + MESH_ONLY
+    if n not in REPLAY_ONLY and n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY + MESH_ONLY + OFF_PATH
 ]
 E_REPLAY_KERNELS = [
     n for n in REPLACES
-    if n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY + MESH_ONLY
-    and n not in ("scan_f32", "segment_sum_f32", "take_pad_f32")
+    if n not in BITMAP_KERNELS and n not in BATCH_ONLY + DELTA_ONLY + TIER_ONLY + MESH_ONLY + OFF_PATH
+    and n not in ("scan_f32", "segment_sum_f32", "take_pad_f32", "weight_gather_f32")
 ]
 EDGE_LENGTHS = [0, 1, 255, 256, 257, 511, 513]
 #: K1's and K3's eager times before their look-back redesign (the
@@ -327,6 +348,8 @@ WAS_MS = {
     "scan_i32": 0.3601, "scan_f32": 0.3599, "compact fill": 0.0921, "compact offset": 0.1179,
     # K4's warp-a-segment design at A's shape (`PERF.md` §6)
     "segment_sum_i32": 1.1925, "segment_sum_f32": 1.1950,
+    # K5's first cut: a thread an index, a byte a thread (`PERF.md` §6)
+    "take_pad_i32": 0.9522, "take_pad_f32": 0.9525, "take_pad_b8": 0.6533, "mask_count": 0.0313,
 }
 #: K11's and K12's times before their sparse redesign, when each read every
 #: byte of its [8, 2^23] bitmaps at every level (`PERF.md` §6: V1's replay
@@ -643,6 +666,198 @@ def check_segment_sum_degrees(np, torch, K, ks, dev) -> None:
     print(f"kernel indptr_segment_sum: equals its plain version on a Zipf CSR ({v} segments, {ne} values)")
 
 
+def _unaligned_views(torch, t, offsets):
+    """Copies of ``t`` that start ``k`` elements into a buffer, for each k."""
+    for k in offsets:
+        buf = torch.empty(t.shape[0] + k, dtype=t.dtype, device=t.device)
+        view = buf[k:]
+        view.copy_(t)
+        yield k, view
+
+
+def check_take_pad(torch, K, ks, w_i, ok_vec, dst, gen, card: str) -> None:
+    """K5a in all three dtypes, exactly: at A's weight pass (the ~80M knows
+    targets into the 2^23 weights and node mask), at the edge lengths with
+    -1 and past-the-end indices, with the index starting 1–3 elements off
+    16 bytes (the output is always a fresh allocation); then each timed
+    eagerly and in a graph beside `torch.index_select` (every index of dst
+    is in range, so one index_select computes the same function)."""
+    E, vb = dst.shape[0], w_i.shape[0]
+    idx_rand = torch.randint(-2, vb + 2, (513,), generator=gen, device=dst.device, dtype=torch.int32)
+    for name, vals, fill, elt in (
+        ("take_pad_i32", w_i, 0, 4),
+        ("take_pad_f32", w_i.to(torch.float32), 0.0, 4),
+        ("take_pad_b8", ok_vec, False, 1),
+    ):
+        want = K.plain_take_pad(vals, dst, fill)
+        ks.same(name, K.take_pad(vals, dst, fill), want)
+        for n in EDGE_LENGTHS:
+            ix = idx_rand[:n].contiguous()
+            ks.same(name, K.take_pad(vals, ix, fill), K.plain_take_pad(vals, ix, fill))
+            cut = vals[:n].contiguous()
+            ks.same(name, K.take_pad(cut, idx_rand, fill), K.plain_take_pad(cut, idx_rand, fill))
+        head = dst[: 1 << 20]
+        want_head = want[: 1 << 20]
+        for _k, ix in _unaligned_views(torch, head, range(1, 4)):
+            ks.same(name, K.take_pad(vals, ix, fill), want_head)
+        kernel = lambda v=vals, fl=fill: K.take_pad(v, dst, fl)  # noqa: E731
+        library = lambda v=vals: torch.index_select(v, 0, dst)  # noqa: E731
+        # bound: each index read and each value written once, the table once
+        ks.timed(name, kernel, lambda v=vals, fl=fill: K.plain_take_pad(v, dst, fl), library, 4.0 * E + elt * E + elt * vb)
+        row = ks.rows[name]
+        print(
+            f"kernel {name} at A's weight pass ({E} indices into {vb}): {row['ms']:.4f} ms eager (was "
+            f"{WAS_MS[name]}), {_graph_ms(torch, kernel):.4f} in a graph; torch.index_select "
+            f"{row['library_ms']:.4f} eager, {_graph_ms(torch, library):.4f} in a graph; bound "
+            f"{row['bound_ms']:.4f} ms (an element gathered an index: "
+            f"{(4.0 * E + 2 * elt * E) / HBM_BYTES_PER_S * 1e3:.4f}) [{card}]"
+        )
+
+
+def five_call_weights(K, emit, dtype, ok, node_ok, emask, eid, w):
+    """The weight pass as the parent tree launched it: take_pad of the edge
+    mask through eid (in walks), the vertex mask's take_pad (or the node
+    mask at the endpoints), ``&``, ``.to``, take_pad of the weights, ``*``."""
+    em = None if emask is None else emask if eid is None else K.take_pad(emask, eid, False)
+    contrib = K.take_pad(ok, emit, False) if ok is not None else node_ok
+    if em is not None:
+        contrib = em if contrib is None else contrib & em
+    vals = emit.new_ones(emit.shape, dtype=dtype) if contrib is None else contrib.to(dtype)
+    if w is not None:
+        vals = vals * K.take_pad(w, emit, 0)
+    return vals
+
+
+def weight_gather_bytes(e: int, ok=None, node_ok=None, emask=None, eid=None, w=None, elt: int = 4) -> float:
+    """The fused gather's bound in bytes: eid and the per-edge masks read
+    once, emit read once where a table is read through it (``ok`` or
+    ``w``: the kernel does not read it otherwise), the output written once,
+    each table read once."""
+    b = elt * e + (4.0 * e if ok is not None or w is not None else 0.0)
+    for t, per_edge in ((node_ok, 1), (eid, 4)):
+        b += 0 if t is None else per_edge * e
+    for t in (ok, emask, w):
+        b += 0 if t is None else t.numel() * t.element_size()
+    return b
+
+
+def time_weight_gather(torch, K, what: str, card: str, emit, dtype, **kw) -> str:
+    """The fused gather's eager and in-graph times on one walk beside its
+    bound and the parent's five-call composition in a graph."""
+    fused = lambda: K.weight_gather(emit, dtype, **kw)  # noqa: E731
+    parent = lambda: five_call_weights(K, emit, dtype, kw.get("ok"), kw.get("node_ok"), kw.get("emask"), kw.get("eid"), kw.get("w"))  # noqa: E731
+    bound = weight_gather_bytes(emit.shape[0], **kw) / HBM_BYTES_PER_S * 1e3
+    line = (
+        f"kernel weight_gather {what} ({emit.shape[0]} edges, {str(dtype).split('.')[-1]}): "
+        f"{_time_ms(torch, fused):.4f} ms eager, {_graph_ms(torch, fused):.4f} in a graph; the parent's "
+        f"five-call composition (with this tree's take_pad) {_graph_ms(torch, parent):.4f} in a graph; "
+        f"bound {bound:.4f} ms [{card}]"
+    )
+    print(line)
+    return line
+
+
+def same_weight_gather(torch, K, ks, emit, dtype, **kw) -> None:
+    """The fused gather against its plain version (int32 exactly, float32
+    bit for bit) and against the five-call composition of the kernels."""
+    name = "weight_gather_i32" if dtype == torch.int32 else "weight_gather_f32"
+    got = K.weight_gather(emit, dtype, **kw)
+    want = K.plain_weight_gather(emit, dtype, **kw)
+    _require(got.dtype == want.dtype and torch.equal(got.view(torch.int32), want.view(torch.int32)),
+             f"{name}: differs from its plain version")
+    parent = five_call_weights(K, emit, dtype, kw.get("ok"), kw.get("node_ok"), kw.get("emask"), kw.get("eid"), kw.get("w"))
+    _require(torch.equal(got.view(torch.int32), parent.view(torch.int32)), f"{name}: differs from the five-call composition")
+
+
+def check_weight_gather(torch, K, ks, dg, ok_vec, w_i, gen, card: str) -> None:
+    """The fused weight gather on A's walks, bit for bit against its plain
+    version and the parent's five calls: the out walk (dst) and the in
+    walk (src, the edge mask through edge_id_in), with and without the
+    weights and the edge mask, int32 and float32; the mask-operand form
+    (the node mask at the endpoints, as where E < vb); slices one element
+    off; the fold of the vertex mask into the weights and the walks' gather
+    of the folded weights. Then times Q1's step (ok only: the row), a
+    masked in walk, and Q2's first step with a sparse and an all-true
+    vertex mask, unfolded and folded."""
+    dec = dg.edges["knows"]
+    E, vb = dec.num_edges, w_i.shape[0]
+    w_f = w_i.to(torch.float32)
+    emask = torch.rand(E, generator=gen, device=dg.device) < 0.7
+    node_ok = K.take_pad(ok_vec, dec.dst, False)
+    for walk, emit, eid in (("out", dec.dst, None), ("in", dec.src, dec.edge_id_in)):
+        for dtype, w in ((torch.int32, w_i), (torch.float32, w_f)):
+            for masked in (False, True):
+                for weighted in (False, True):
+                    kw = dict(ok=ok_vec, emask=emask if masked else None,
+                              eid=eid if masked else None, w=w if weighted else None)
+                    same_weight_gather(torch, K, ks, emit, dtype, **kw)
+    for dtype, w in ((torch.int32, w_i), (torch.float32, w_f)):
+        same_weight_gather(torch, K, ks, dec.dst, dtype, node_ok=node_ok, emask=emask, w=w)
+        for n in EDGE_LENGTHS:
+            same_weight_gather(torch, K, ks, dec.dst[1 : 1 + n], dtype, ok=ok_vec, emask=emask[1 : 1 + n], w=w)
+            same_weight_gather(torch, K, ks, dec.src[1 : 1 + n], dtype, node_ok=node_ok[1 : 1 + n], emask=emask, eid=dec.edge_id_in[1 : 1 + n])
+    # the fold of the vertex mask into weights that fit L2 (the engine's form
+    # of a step that carries weights on A), then the walks' one gather
+    every = torch.zeros_like(ok_vec)
+    every[: dg.num_vertices] = True  # Q2's f, unfiltered: every vertex kept
+    for dtype, w in ((torch.int32, w_i), (torch.float32, w_f)):
+        for ok in (ok_vec, every):
+            folded = K.weight_gather(None, dtype, ok=ok, w=w)
+            _require(torch.equal(folded.view(torch.int32), K.plain_weight_gather(None, dtype, ok=ok, w=w).view(torch.int32)),
+                     "weight_gather: the fold differs from its plain version")
+            for emit, eid in ((dec.dst, None), (dec.src, dec.edge_id_in)):
+                got = K.weight_gather(emit, dtype, emask=emask, eid=eid, w=folded)
+                want = five_call_weights(K, emit, dtype, ok, None, emask, eid, w)
+                _require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                         "weight_gather: a gather of folded weights differs from the five-call composition")
+    print("kernel weight_gather: equals its plain version and the five-call composition on A's walks (folded too)")
+    for name, dtype in (("weight_gather_i32", torch.int32), ("weight_gather_f32", torch.float32)):
+        ks.timed(
+            name,
+            lambda d=dtype: K.weight_gather(dec.dst, d, ok=ok_vec),
+            lambda d=dtype: K.plain_weight_gather(dec.dst, d, ok=ok_vec),
+            None,
+            weight_gather_bytes(E, ok=ok_vec),
+        )
+    time_weight_gather(torch, K, "Q1's step (ok)", card, dec.dst, torch.int32, ok=ok_vec)
+    time_weight_gather(torch, K, "an in walk (ok, emask through edge_id_in, w)", card, dec.src, torch.int32,
+                       ok=ok_vec, emask=emask, eid=dec.edge_id_in, w=w_i)
+    for what, ok in (("age < 30", ok_vec), ("f unfiltered: every vertex kept", every)):
+        time_weight_gather(torch, K, f"Q2's first step ({what})", card, dec.dst, torch.int32, ok=ok, w=w_i)
+        folded = lambda ok=ok: K.weight_gather(dec.dst, torch.int32, w=K.weight_gather(None, torch.int32, ok=ok, w=w_i))  # noqa: E731
+        print(f"kernel weight_gather Q2's first step ({what}), folded (a [vb] fold, then one gather an edge, "
+              f"as the engine runs it on A): {_time_ms(torch, folded):.4f} ms eager, {_graph_ms(torch, folded):.4f} "
+              f"in a graph [{card}]")
+
+
+def check_mask_count(torch, K, ks, dense, card: str) -> None:
+    """K5b exactly against its plain version: at 2^23 (Q1's roots), at
+    V1's chunk length (8 rows), at 0, 1, 15, 17 and the edge lengths, at
+    its one-block tile and past it, starting 1–15 bytes off 16; every call
+    twice. Timed eagerly and in a graph at 2^23 and at V1's chunk beside
+    `torch.count_nonzero`."""
+    vb = dense.shape[0]
+    chunk = dense[:8].contiguous()
+    lengths = [0, 1, 8, 15, 16, 17, 16_384, 16_385, 1_000_003] + EDGE_LENGTHS
+    cases = [dense, chunk] + [dense[:n].contiguous() for n in lengths]
+    for m in cases:
+        for k, view in _unaligned_views(torch, m, (0, 1, 3, 7, 15)):
+            got = K.mask_count(view)
+            ks.same("mask_count", got, K.plain_mask_count(m))
+            ks.same("mask_count", K.mask_count(view), got)
+    ks.timed("mask_count", lambda: K.mask_count(dense), lambda: K.plain_mask_count(dense),
+             lambda: torch.count_nonzero(dense), vb + 4.0)
+    row = ks.rows["mask_count"]
+    small = lambda: K.mask_count(chunk)  # noqa: E731
+    print(
+        f"kernel mask_count at {vb} bytes: {row['ms']:.4f} ms eager (was {WAS_MS['mask_count']}), "
+        f"{_graph_ms(torch, lambda: K.mask_count(dense)):.4f} in a graph; torch.count_nonzero "
+        f"{row['library_ms']:.4f} eager, {_graph_ms(torch, lambda: torch.count_nonzero(dense)):.4f} in a graph; "
+        f"bound {row['bound_ms']:.4f} ms; at V1's chunk (8 bytes): {_time_ms(torch, small):.4f} eager, "
+        f"{_graph_ms(torch, small):.4f} in a graph, torch.count_nonzero {_graph_ms(torch, lambda: torch.count_nonzero(chunk)):.4f} [{card}]"
+    )
+
+
 def check_kernels(np, torch, K, dg, card: str) -> Kernels:
     from orientdb_tpu_torch.exec.tpu_engine import _cap_of
 
@@ -755,15 +970,7 @@ def check_kernels(np, torch, K, dg, card: str) -> Kernels:
     )
 
     # -- K5b popcount ---------------------------------------------------------
-    for m in [dense] + [dense[:n].contiguous() for n in EDGE_LENGTHS]:
-        ks.same("mask_count", K.mask_count(m), K.plain_mask_count(m))
-    ks.timed(
-        "mask_count",
-        lambda: K.mask_count(dense),
-        lambda: K.plain_mask_count(dense),
-        lambda: torch.count_nonzero(dense),
-        vb + 4.0,
-    )
+    check_mask_count(torch, K, ks, dense, card)
 
     # -- K2 degree counts + gather_expand on Q3's frontier --------------------
     def expand_both(s):
@@ -816,29 +1023,10 @@ def check_kernels(np, torch, K, dg, card: str) -> Kernels:
         print_segment_sum(torch, K, ks.rows[name], name, vals, indptr, vb, "A", card)
     check_segment_sum_degrees(np, torch, K, ks, dev)
 
-    # -- K5a padding-safe gathers: the weight pass's [E]-wide gathers ----------
+    # -- K5a padding-safe gathers and the fused weight gather ------------------
     w_i = K.indptr_segment_sum(vals_i, indptr, vb)
-    w_f = w_i.to(torch.float32)
-    idx_rand = torch.randint(-2, vb + 2, (513,), generator=gen, device=dev, dtype=i32)
-    for name, vals, fill, elt in (
-        ("take_pad_i32", w_i, 0, 4),
-        ("take_pad_f32", w_f, 0.0, 4),
-        ("take_pad_b8", ok_vec, False, 1),
-    ):
-        ks.same(name, K.take_pad(vals, dst, fill), K.plain_take_pad(vals, dst, fill))
-        for n in EDGE_LENGTHS:
-            ix = idx_rand[:n].contiguous()
-            ks.same(name, K.take_pad(vals, ix, fill), K.plain_take_pad(vals, ix, fill))
-            ks.same(name, K.take_pad(vals[:n].contiguous(), idx_rand, fill), K.plain_take_pad(vals[:n].contiguous(), idx_rand, fill))
-        # every index of dst is in range, so on these inputs one
-        # index_select computes the same function
-        ks.timed(
-            name,
-            lambda v=vals, fl=fill: K.take_pad(v, dst, fl),
-            lambda v=vals, fl=fill: K.plain_take_pad(v, dst, fl),
-            lambda v=vals: torch.index_select(v, 0, dst),
-            4.0 * E + elt * E + elt * E,
-        )
+    check_take_pad(torch, K, ks, w_i, ok_vec, dst, gen, card)
+    check_weight_gather(torch, K, ks, dg, ok_vec, w_i, gen, card)
     torch.cuda.synchronize()
     return ks
 
@@ -1455,6 +1643,13 @@ def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
             print(f"replay kernels V1 (one profiled replay): {level_profile(torch, lambda: db.query(sql, params).to_dicts())}")
         plans[name] = plan
     _require(plans["direct"].direct_fetch and not plans["Q3"].direct_fetch, "direct-fetch path not taken")
+    # the COUNT pushdown's weight step: one fused gather a class and
+    # direction (Q1 one walk, Q2 two), and a fold of the vertex mask into
+    # A's weights (32 MB, within L2) where a step carries them (Q2's first)
+    for name, gathers in (("Q1", 1), ("Q2", 3)):
+        per = plans[name].launches
+        _require(per.get("weight_gather_i32", 0) == gathers and per.get("take_pad_b8", 0) == 0,
+                 f"{name}: the weight step launched {per}")
     # the bitmap-BFS kernels run inside the V plans' captured replays
     for name, kernels in (("V1", BITMAP_KERNELS), ("V2", BITMAP_KERNELS), ("V3", BITMAP_KERNELS[:3])):
         missing = [n for n in kernels if plans[name].launches.get(n, 0) == 0]
@@ -2021,6 +2216,11 @@ def run_edges_replay(np, torch, K, db, snap, card: str, eref, cells=E_CELLS, ker
     for name in ("E4", "E5"):
         if name in cells:
             _require(plans[name].launches.get("rows_with_matches", 0) > 0, f"{name}: rows_with_matches not in its replay")
+    if "E1" in cells:
+        # two walks, no fold: B's [2^25] weights (128 MB) are past L2
+        per = plans["E1"].launches
+        _require(per.get("weight_gather_i32", 0) == 2 and per.get("take_pad_b8", 0) == 0,
+                 f"E1: the weight step launched {per}")
     sync()
     launches = dict(K.LAUNCHES)
     missing = [n for n in kernels if launches[n] == 0]
@@ -2071,6 +2271,24 @@ def check_snb_kernels(torch, K, ks, dg, e1_plan, card: str) -> None:
         for out_size in (vb, V // 3):
             same_segment_sum(torch, K, ks, name, vals, dec.indptr_out, out_size)
         print_segment_sum(torch, K, None, name, vals, dec.indptr_out, vb, "E1", card)
+    # the fused weight gather on E1's two walks: hasCreator read backwards
+    # from f (16M edges < vb: the node mask at the endpoints), then knows
+    # out of p with the edge mask and the weights from hasCreator
+    hc = dg.edges["hasCreator"]
+    gen = torch.Generator(device=dg.device).manual_seed(71)
+    node_ok = torch.rand(hc.num_edges, generator=gen, device=dg.device) < 0.9
+    age = dg.columns["age"].values
+    ok_vec = torch.cat([age < 30, torch.zeros(vb - V, dtype=torch.bool, device=dg.device)])
+    ws = {}
+    for dtype in (torch.int32, torch.float32):
+        same_weight_gather(torch, K, ks, hc.src, dtype, node_ok=node_ok)
+        ws[dtype] = w = K.indptr_segment_sum(K.weight_gather(hc.src, dtype, node_ok=node_ok), hc.indptr_in, vb)
+        same_weight_gather(torch, K, ks, dec.dst, dtype, ok=ok_vec, emask=emask, w=w)
+        same_weight_gather(torch, K, ks, dec.src, dtype, ok=ok_vec, emask=emask, eid=dec.edge_id_in, w=w)
+    print("kernel weight_gather: equals its plain version on E1's walks")
+    time_weight_gather(torch, K, "E1's hasCreator walk (node mask)", card, hc.src, torch.int32, node_ok=node_ok)
+    time_weight_gather(torch, K, "E1's knows walk (ok, edge mask, w)", card, dec.dst, torch.int32, ok=ok_vec,
+                       emask=emask, w=ws[torch.int32])
     torch.cuda.synchronize()
     K.LAUNCHES.update(counted)
 
@@ -4859,7 +5077,7 @@ def main() -> int:
         + ", ".join(f"{c} {REPLAY_MS.get(c, float('nan')):.3f} (§5 {w})" for c, w in SECTION5_REPLAY_MS.items())
     )
     _require(set(ks.rows) == set(REPLACES), "a kernel was not timed")
-    _require(all(r["launches"] > 0 for r in ks.rows.values()), "a kernel never launched")
+    _require(all(r["launches"] > 0 for n, r in ks.rows.items() if n not in OFF_PATH), "a kernel never launched")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [ks.rows[n] for n in REPLACES]}))
     print(

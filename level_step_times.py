@@ -14,9 +14,19 @@ compare two trees on one card:
   the tree's own compiler: Q1's node mask p (the class lookup and ``age >
   40`` over 2^23 slots, 8M valid), M1's (the class lookup and an ID
   compare), G1's (``distance(lat, lng, :x, :y) < :r``), and E1's edge mask
-  (``creationDate > :d`` over 80M edge slots).
+  (``creationDate > :d`` over 80M edge slots);
+- K5: ``take_pad`` in its three dtypes at A's weight pass (80M random
+  endpoints into 2^23 values), ``mask_count`` at 2^23 bytes and at V1's
+  8-byte chunk, and the COUNT pushdown's weight pass at Q1's step (the
+  vertex mask alone), Q2's first (mask and weights), an out walk with an
+  edge mask and an in walk (the edge mask through a random edge-id
+  permutation), the last two steps also with every vertex kept: the
+  fused ``weight_gather`` where the tree has it, the mask folded into the
+  weights first where the tree folds, and always the five calls the
+  earlier tree made (two bool and one int32 ``take_pad``, ``&``, ``.to``,
+  ``*``), on the tree's own ``take_pad``.
 
-    python3 level_step_times.py [--tree DIR] [--only level,k4,k15]
+    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
 package to time; it is imported before anything else, and the file it was
@@ -225,10 +235,66 @@ def predicate_masks(np, torch, K, cs, times) -> None:
               f"{times[f'K15 {name}'][1]:.4f} in a graph; bound {bound:.4f} (bytes)")
 
 
+def k5(torch, K, cs, times) -> None:
+    """take_pad, mask_count and the weight pass at A's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    i32 = torch.int32
+    dst = torch.randint(0, PERSONS, (EDGES,), generator=gen, device="cuda", dtype=i32)
+    w = torch.randint(0, 50, (VB,), generator=gen, device="cuda", dtype=i32)
+    ok = torch.rand(VB, generator=gen, device="cuda") < 0.3
+    for name, vals, fill in (("i32", w, 0), ("f32", w.to(torch.float32), 0.0), ("b8", ok, False)):
+        fn = lambda v=vals, f=fill: K.take_pad(v, dst, f)  # noqa: E731
+        _same(torch, fn(), K.plain_take_pad(vals, dst, fill), f"take_pad {name}")
+        lib = lambda v=vals: torch.index_select(v, 0, dst)  # noqa: E731
+        times[f"K5 take_pad {name}"] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+        times[f"K5 index_select {name}"] = [cs._time_ms(torch, lib), cs._graph_ms(torch, lib)]
+        print(f"K5 take_pad {name} ({EDGES} into {VB}): {times[f'K5 take_pad {name}']}, "
+              f"index_select {times[f'K5 index_select {name}']}")
+    for what, mask in (("2^23", ok), ("V1's chunk", ok[:8].clone())):
+        fn = lambda m=mask: K.mask_count(m)  # noqa: E731
+        _same(torch, fn(), K.plain_mask_count(mask), "mask_count")
+        times[f"K5 mask_count {what}"] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+        print(f"K5 mask_count {what}: {times[f'K5 mask_count {what}']}")
+    src = torch.randint(0, PERSONS, (EDGES,), generator=gen, device="cuda", dtype=i32)
+    eid = torch.randperm(EDGES, generator=gen, device="cuda").to(i32)
+    emask = torch.rand(EDGES, generator=gen, device="cuda") < 0.7
+    every = torch.zeros(VB, dtype=torch.bool, device="cuda")
+    every[:PERSONS] = True  # a hop to an unfiltered alias: every vertex kept
+    fused = hasattr(K, "weight_gather")
+    folds = hasattr(K, "L2_KEEP_BYTES")  # the tree folds a vertex mask into weights
+    for what, emit, kw in (
+        ("Q1's step", dst, dict(ok=ok)),
+        ("Q2's first step", dst, dict(ok=ok, w=w)),
+        ("Q2's first step, every vertex kept", dst, dict(ok=every, w=w)),
+        ("an out walk with an edge mask", dst, dict(ok=ok, emask=emask, w=w)),
+        ("an in walk", src, dict(ok=ok, emask=emask, eid=eid, w=w)),
+        ("an in walk, every vertex kept", src, dict(ok=every, emask=emask, eid=eid, w=w)),
+    ):
+        calls = lambda e=emit, kw=kw: cs.five_call_weights(  # noqa: E731
+            K, e, i32, kw["ok"], None, kw.get("emask"), kw.get("eid"), kw.get("w"))
+        times[f"K5 weights {what}, five calls"] = [cs._time_ms(torch, calls), cs._graph_ms(torch, calls)]
+        line = f"K5 weights {what}: five calls {times[f'K5 weights {what}, five calls']}"
+        if fused:
+            fn = lambda e=emit, kw=kw: K.weight_gather(e, i32, **kw)  # noqa: E731
+            _same(torch, fn(), calls(), f"weight_gather ({what})")
+            times[f"K5 weights {what}, fused"] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+            line += f", fused {times[f'K5 weights {what}, fused']}"
+        if folds and "w" in kw:
+            # the vertex mask folded into the weights over [vb] first (one
+            # pass), then one gather an edge
+            rest = {k: v for k, v in kw.items() if k not in ("ok", "w")}
+            fold = lambda e=emit, kw=kw, rest=rest: K.weight_gather(  # noqa: E731
+                e, i32, w=K.weight_gather(None, i32, ok=kw["ok"], w=kw["w"]), **rest)
+            _same(torch, fold(), calls(), f"weight_gather folded ({what})")
+            times[f"K5 weights {what}, folded"] = [cs._time_ms(torch, fold), cs._graph_ms(torch, fold)]
+            line += f", folded {times[f'K5 weights {what}, folded']}"
+        print(line)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
-    ap.add_argument("--only", default="level,k4,k15")
+    ap.add_argument("--only", default="level,k4,k15,k5")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     # the tree's package first: chip_smoke.py (this script's) imports the
@@ -257,6 +323,8 @@ def main() -> int:
         segment_sums(np, torch, K, cs, times)
     if "k15" in only:
         predicate_masks(np, torch, K, cs, times)
+    if "k5" in only:
+        k5(torch, K, cs, times)
     print(json.dumps({"tree": tree, "kernels": K.__file__, "card": card, "ms [eager, graph]": times}))
     return 0
 

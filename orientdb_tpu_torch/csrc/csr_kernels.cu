@@ -757,42 +757,371 @@ __global__ void seg_fixup_kernel(const int* __restrict__ rowc, const T* __restri
 }
 
 // ---------------------------------------------------------------------------
-// K5a: take_pad (replaces csr.take_pad :211).
-// Bound: m*4 bytes of indices read, one value read per index >= 0, m values
-// written. One thread per index; indices past the end clip to the last
-// value as the reference's clip does; negative indices give `fill`.
+// K5a: take_pad (replaces csr.take_pad, orientdb_tpu/ops/csr.py:211), and
+// its fused form on the COUNT pushdown's weight pass, weight_gather
+// (replaces the chain of orientdb_tpu/exec/tpu_engine.py:1600-1606).
+//
+// take_pad: out[j] = fill where idx[j] < 0 or the table is empty, else
+// vals[min(idx[j], n - 1)] (the reference's clip). Bound: 4 bytes of index
+// read and one value written an element, the table read once (A's weight
+// pass, 80M indices into 2^23 int32 values: 672 MB, 0.20 ms). A random
+// gather moves a whole 32-byte sector out of L2 whatever its width, so L2's
+// sector rate, and whether the table stays in L2, bound it in practice. The
+// first cut ran one index a thread with one gather in flight, and its 640
+// MB of index and output streamed through the 50 MB L2 at default priority
+// beside the table. Design: a warp owns 32 * kTakeRun consecutive
+// elements in units of four (one 16-byte index load, one store of four
+// values), warp-striped so that each load and store instruction of a warp
+// covers contiguous memory; a thread takes kTakeRun of them (8 values of 4
+// bytes, 16 bytes), loads all its indices, issues all its table loads and
+// only then stores. Index and output stream with evict-first hints (ld/st
+// .cs, in L1 and L2); a table the caller marks `keep` (ops/csr.py decides
+// which tables fit L2) is read on the read-only path under an L2
+// evict_last policy (createpolicy), so that it stays in L2 while the
+// streams pass. The hints are per instruction: no device-wide cache
+// setting changes, and a captured graph replays them as they are. A
+// negative index issues no load (a predicated instruction) and reads the
+// fill. The output is a fresh allocation (aligned); where the index is not
+// 16-byte aligned, or the values are bytes, the same warp-striped pass
+// runs with 4- and 1-byte accesses (kVec false). The aligned body's tail
+// (m % 4 elements) takes one extra thread an element.
 // ---------------------------------------------------------------------------
+constexpr int kTakeRun = 8;  // elements a thread
+
+// Four consecutive 4-byte values stored at once as one 16-byte vector.
 template <typename T>
-__global__ void take_pad_kernel(const T* __restrict__ vals, long long n,
-                                const int* __restrict__ idx, long long m, T fill,
-                                T* __restrict__ out) {
-  long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (j >= m) return;
-  int i = idx[j];
-  if (i < 0 || n == 0) {
-    out[j] = fill;
-    return;
+union Pack4 {
+  uint4 v;
+  T e[4];
+};
+
+__device__ inline unsigned long long l2_policy(bool keep) {
+  unsigned long long policy;
+  if (keep) {
+    asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  } else {
+    asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(policy));
   }
-  out[j] = vals[i < n ? i : n - 1];
+  return policy;
+}
+
+// A table load on the read-only path under an L2 policy, issued only where
+// `pred` holds (a predicated instruction); `v` keeps its value otherwise.
+__device__ inline int ld_table(const int* p, unsigned long long policy, bool pred, int v) {
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %3, 0;\n\t@q ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;\n\t}"
+      : "+r"(v) : "l"(p), "l"(policy), "r"(static_cast<unsigned>(pred)));
+  return v;
+}
+__device__ inline float ld_table(const float* p, unsigned long long policy, bool pred, float v) {
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %3, 0;\n\t@q ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;\n\t}"
+      : "+f"(v) : "l"(p), "l"(policy), "r"(static_cast<unsigned>(pred)));
+  return v;
+}
+__device__ inline unsigned char ld_table(const unsigned char* p, unsigned long long policy, bool pred,
+                                         unsigned char v) {
+  unsigned x = v;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %3, 0;\n\t@q ld.global.nc.L2::cache_hint.u8 %0, [%1], %2;\n\t}"
+      : "+r"(x) : "l"(p), "l"(policy), "r"(static_cast<unsigned>(pred)));
+  return static_cast<unsigned char>(x);
+}
+
+// take_pad of one index: vals[min(i, n - 1)], or the fill where i < 0 or
+// the table is empty (then no load is issued).
+template <typename T>
+__device__ inline T take_one(const T* __restrict__ vals, long long n, int i, T fill,
+                             unsigned long long policy) {
+  const bool go = i >= 0 && n > 0;
+  const long long c = go ? (i < n ? i : n - 1) : 0;
+  return ld_table(vals + c, policy, go, fill);
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    take_pad_kernel(const T* __restrict__ vals, long long n, const int* __restrict__ idx,
+                    long long m, T fill, bool keep, T* __restrict__ out) {
+  constexpr int kRun = kTakeRun, kUnits = kRun / 4;
+  const unsigned long long policy = l2_policy(keep);
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  if constexpr (kVec) {
+    const long long nv = m / 4;  // units of the aligned body
+    const long long tv = (nv + 32 * kUnits - 1) / (32 * kUnits) * 32;
+    if (t < tv) {
+      const long long u0 = (t >> 5) * 32 * kUnits + lane;
+      const int4* vidx = reinterpret_cast<const int4*>(idx);
+      int ix[kRun];
+#pragma unroll
+      for (int k = 0; k < kUnits; ++k) {
+        const long long u = u0 + 32 * k;
+        const int4 x = u < nv ? __ldcs(vidx + u) : make_int4(-1, -1, -1, -1);
+        ix[4 * k] = x.x;
+        ix[4 * k + 1] = x.y;
+        ix[4 * k + 2] = x.z;
+        ix[4 * k + 3] = x.w;
+      }
+      T r[kRun];
+#pragma unroll
+      for (int e = 0; e < kRun; ++e) r[e] = take_one(vals, n, ix[e], fill, policy);
+#pragma unroll
+      for (int k = 0; k < kUnits; ++k) {
+        const long long u = u0 + 32 * k;
+        if (u < nv) {
+          Pack4<T> o;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o.e[e] = r[4 * k + e];
+          __stcs(reinterpret_cast<uint4*>(out) + u, o.v);
+        }
+      }
+      return;
+    }
+    // the tail after the aligned body
+    const long long j = t - tv + 4 * nv;
+    if (j < m) out[j] = take_one(vals, n, __ldcs(idx + j), fill, policy);
+  } else {
+    const long long j0 = (t >> 5) * 32 * kRun + lane;
+    int ix[kRun];
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      const long long j = j0 + 32 * k;
+      ix[k] = j < m ? __ldcs(idx + j) : -1;
+    }
+    T r[kRun];
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) r[k] = take_one(vals, n, ix[k], fill, policy);
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      const long long j = j0 + 32 * k;
+      if (j < m) __stcs(out + j, r[k]);
+    }
+  }
+}
+
+// weight_gather: the COUNT pushdown's value of each edge j of one class and
+// direction,
+//   out[j] = keep(j) ? (w ? take_pad(w, e, 0) : 1) : 0,   e = emit[j],
+//   keep(j) = take_pad(ok, e, false) & node_ok[j]
+//             & (eid ? take_pad(emask, eid[j], false) : emask[j]),
+// each factor only where its operand is given; without emit, e = j (the
+// identity over the vertex universe: `ok ? w : 0`, the vertex mask folded
+// into the weights before the walks gather them). This is the reference's
+// `em & take_pad(ok_vec, emit, False)`, `.astype(dtype)`, `* take_pad(w,
+// emit, dtype(0))` in one pass, bit for bit wherever the weights are finite
+// and not -0.0 (T(0) * w is +0 there), as the pushdown's weights, sums of
+// ones, always are. Bound: 4 bytes of emit, 4
+// of eid, 1 of node_ok and of a direct emask read and 4 written an edge,
+// each table (ok, w, a gathered emask) read once: Q1's step (emit, ok,
+// out) 9 bytes an edge. A random gather moves a 32-byte sector out of L2
+// whatever its width, so the gathers, not the streams, bound it. Design:
+// take_pad's (a warp owns 32 * 8 consecutive edges, a thread 8: two 16-byte
+// vectors of emit, eid and output, two 4-byte words of each byte stream;
+// streams evict-first, each table under take_pad's L2 policy), with the
+// gathers in stages that load only for the edges still kept: the vertex
+// mask (a small table), then the edge mask through eid (the in walk's, as
+// large as the edge list), then the weight, each stage's loads of a
+// thread's 8 edges issued together as predicated instructions; emit is not
+// read where no table is read through it (the node-mask operand alone).
+struct WeightArgs {
+  const int* emit;                // [m] far endpoints, or null (e = j)
+  long long m;
+  const unsigned char* ok;        // [n_ok] a vertex mask read at e, or null
+  long long n_ok;
+  const unsigned char* node_ok;   // [m] the node mask at each edge's endpoint, or null
+  const unsigned char* emask;     // an edge mask, read at eid[j] (or at j), or null
+  long long n_em;
+  const int* eid;                 // [m] edge ids into emask, or null
+  const void* w;                  // [n_w] the weights after this hop, or null (ones)
+  long long n_w;
+  unsigned keep;                  // tables under evict_last: 1 ok, 2 emask, 4 w
+};
+
+constexpr int kWeightRun = 8;  // edges a thread
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads) weight_gather_kernel(const WeightArgs a, T* __restrict__ out) {
+  const bool direct_em = a.emask != nullptr && a.eid == nullptr;
+  const bool need_e = a.ok != nullptr || a.w != nullptr;  // a table is read through emit
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  int e[kWeightRun], id[kWeightRun];
+  unsigned nb[kWeightRun], ed[kWeightRun];  // node_ok and direct emask bytes
+  long long nv = 0, tv = 0, u0 = 0, j0 = 0;
+  bool scalar_one = false;  // this thread takes one element of the tail
+  long long js = 0;
+  if constexpr (kVec) {
+    nv = a.m / 4;
+    tv = (nv + 63) / 64 * 32;
+    if (t < tv) {
+      u0 = (t >> 5) * 64 + lane;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const long long u = u0 + 32 * k;
+        const bool in = u < nv;
+        const int j = static_cast<int>(4 * u);
+        const int4 x = !(in && need_e) ? make_int4(-1, -1, -1, -1)
+                       : a.emit != nullptr ? __ldcs(reinterpret_cast<const int4*>(a.emit) + u)
+                                           : make_int4(j, j + 1, j + 2, j + 3);
+        const int4 y = in && a.eid != nullptr ? __ldcs(reinterpret_cast<const int4*>(a.eid) + u)
+                                              : make_int4(0, 0, 0, 0);
+        const unsigned wn = !in ? 0u
+                            : a.node_ok != nullptr
+                                ? __ldcs(reinterpret_cast<const unsigned*>(a.node_ok) + u)
+                                : 0x01010101u;
+        const unsigned we = !in ? 0u
+                            : direct_em ? __ldcs(reinterpret_cast<const unsigned*>(a.emask) + u)
+                                        : 0x01010101u;
+        e[4 * k] = x.x;
+        e[4 * k + 1] = x.y;
+        e[4 * k + 2] = x.z;
+        e[4 * k + 3] = x.w;
+        id[4 * k] = y.x;
+        id[4 * k + 1] = y.y;
+        id[4 * k + 2] = y.z;
+        id[4 * k + 3] = y.w;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          nb[4 * k + q] = (wn >> (8 * q)) & 0xffu;
+          ed[4 * k + q] = (we >> (8 * q)) & 0xffu;
+        }
+      }
+    } else {
+      js = t - tv + 4 * nv;
+      if (js >= a.m) return;
+      scalar_one = true;
+    }
+  } else {
+    j0 = (t >> 5) * 32 * kWeightRun + lane;
+  }
+  if (!kVec || scalar_one) {
+#pragma unroll
+    for (int k = 0; k < kWeightRun; ++k) {
+      const long long j = scalar_one ? js : j0 + 32 * k;
+      const bool in = j < a.m && (k == 0 || !scalar_one);
+      e[k] = !(in && need_e) ? -1 : a.emit != nullptr ? __ldcs(a.emit + j) : static_cast<int>(j);
+      id[k] = in && a.eid != nullptr ? __ldcs(a.eid + j) : 0;
+      nb[k] = !in ? 0u : a.node_ok != nullptr ? static_cast<unsigned>(__ldcs(a.node_ok + j)) : 1u;
+      ed[k] = !in ? 0u : direct_em ? static_cast<unsigned>(__ldcs(a.emask + j)) : 1u;
+    }
+  }
+  // each stage gathers only for the edges still kept: the vertex mask (a
+  // small table), then the edge mask through eid, then the weight
+  bool keep[kWeightRun];
+#pragma unroll
+  for (int k = 0; k < kWeightRun; ++k) keep[k] = nb[k] != 0u && ed[k] != 0u;
+  if (a.ok != nullptr) {
+    const unsigned long long policy = l2_policy(a.keep & 1u);
+#pragma unroll
+    for (int k = 0; k < kWeightRun; ++k) {
+      keep[k] = take_one(a.ok, a.n_ok, keep[k] ? e[k] : -1, static_cast<unsigned char>(0), policy) != 0;
+    }
+  }
+  if (a.eid != nullptr) {
+    const unsigned long long policy = l2_policy(a.keep & 2u);
+#pragma unroll
+    for (int k = 0; k < kWeightRun; ++k) {
+      keep[k] = take_one(a.emask, a.n_em, keep[k] ? id[k] : -1, static_cast<unsigned char>(0), policy) != 0;
+    }
+  }
+  T r[kWeightRun];
+  if (a.w != nullptr) {
+    const T* w = static_cast<const T*>(a.w);
+    const unsigned long long policy = l2_policy(a.keep & 4u);
+#pragma unroll
+    for (int k = 0; k < kWeightRun; ++k) r[k] = take_one(w, a.n_w, keep[k] ? e[k] : -1, T(0), policy);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kWeightRun; ++k) r[k] = keep[k] ? T(1) : T(0);
+  }
+  if (kVec && !scalar_one) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const long long u = u0 + 32 * k;
+      if (u < nv) {
+        Pack4<T> o;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) o.e[q] = r[4 * k + q];
+        uint4* to = reinterpret_cast<uint4*>(out) + u;
+        if (a.emit != nullptr) {
+          __stcs(to, o.v);
+        } else {
+          *to = o.v;  // folded weights: left in L2 for the walks' gathers
+        }
+      }
+    }
+  } else if (scalar_one) {
+    out[js] = r[0];
+  } else {
+#pragma unroll
+    for (int k = 0; k < kWeightRun; ++k) {
+      const long long j = j0 + 32 * k;
+      if (j < a.m) __stcs(out + j, r[k]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
-// K5b: mask_count (replaces csr.mask_count :222).
-// Bound: n bytes read, 4 written. Grid-stride popcount per thread, warp
-// shuffle reduction, one integer atomicAdd per warp (integer adds commute,
-// so the count is exact and deterministic).
+// K5b: mask_count (replaces csr.mask_count, orientdb_tpu/ops/csr.py:222).
+// Bound: n bytes read, 4 written (2^23: 0.0025 ms). The first cut loaded a
+// byte a thread at a time over up to 4,096 blocks, after a memset of the
+// count, with an atomic a warp. Design: 16-byte loads, kCountLoads of them
+// in flight a thread, bytes counted by __popc(__vcmpne4(word, 0) &
+// 0x01010101) (any non-zero byte counts, as before), a block's sum by warp
+// shuffles and shared memory. A mask of at most one block's tile (16 KiB:
+// V1's chunk counts, small root masks) is counted by one block that
+// stores the count: no memset, no atomic. A larger one gets a one-wave
+// grid (kCountBlocksPerSm blocks an SM, each looping over tiles) and one
+// atomic a block into a count the entry point zeroes first; integer adds
+// commute, so the count is exact and the same on every call. An unaligned
+// head and the tail are counted a byte a thread by block 0.
 // ---------------------------------------------------------------------------
-__global__ void mask_count_kernel(const unsigned char* __restrict__ mask, long long n,
-                                  unsigned* __restrict__ out) {
+constexpr int kCountLoads = 4;
+constexpr long long kCountTile = static_cast<long long>(kThreads) * kCountLoads * 16;
+constexpr int kCountBlocksPerSm = 4;
+
+__device__ inline unsigned nonzero_bytes(unsigned x) { return __popc(__vcmpne4(x, 0u) & 0x01010101u); }
+
+__global__ void __launch_bounds__(kThreads)
+    mask_count_kernel(const unsigned char* __restrict__ mask, long long n, long long head,
+                      unsigned* __restrict__ out, int store) {
+  __shared__ unsigned sums[kWarps];
+  const int tid = threadIdx.x;
+  const long long groups = (n - head) / 16;
+  const uint4* v = reinterpret_cast<const uint4*>(mask + head);
   unsigned c = 0;
-  long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-       i < n; i += stride) {
-    c += mask[i] ? 1u : 0u;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads * kCountLoads;
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads * kCountLoads + tid; base < groups;
+       base += step) {
+    uint4 x[kCountLoads];
+#pragma unroll
+    for (int k = 0; k < kCountLoads; ++k) {
+      const long long g = base + static_cast<long long>(k) * kThreads;
+      x[k] = g < groups ? __ldcs(v + g) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int k = 0; k < kCountLoads; ++k) {
+      c += nonzero_bytes(x[k].x) + nonzero_bytes(x[k].y) + nonzero_bytes(x[k].z) + nonzero_bytes(x[k].w);
+    }
+  }
+  if (blockIdx.x == 0) {
+    const long long tail = head + 16 * groups;
+    if (tid < head) c += mask[tid] != 0;
+    if (tail + tid < n) c += mask[tail + tid] != 0;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(kFull, c, o);
-  if ((threadIdx.x & 31) == 0 && c) atomicAdd(out, c);
+  if ((tid & 31) == 0) sums[tid >> 5] = c;
+  __syncthreads();
+  if (tid < 32) {
+    c = tid < kWarps ? sums[tid] : 0u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(kFull, c, o);
+    if (tid == 0) {
+      if (store) {
+        *out = c;
+      } else if (c) {
+        atomicAdd(out, c);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -2714,6 +3043,58 @@ int launch_segment_sum(const void* vals, long long ne, const void* indptr, long 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_take_pad(const void* vals, long long n, const void* idx, long long m, T fill, int keep, void* out,
+                    void* stream) {
+  if (m > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const T* v = static_cast<const T*>(vals);
+    const int* i = static_cast<const int*>(idx);
+    T* d = static_cast<T*>(out);
+    if constexpr (sizeof(T) == 4) {
+      if (((reinterpret_cast<uintptr_t>(idx) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0) {
+        constexpr long long kUnits = kTakeRun / 4;
+        const long long nv = m / 4;
+        const long long threads = (nv + 32 * kUnits - 1) / (32 * kUnits) * 32 + (m - 4 * nv);
+        take_pad_kernel<T, true><<<blocks_for(threads, kThreads), kThreads, 0, s>>>(v, n, i, m, fill, keep != 0, d);
+        return static_cast<int>(cudaGetLastError());
+      }
+    }
+    const long long run = 32LL * kTakeRun;
+    const long long threads = (m + run - 1) / run * 32;
+    take_pad_kernel<T, false><<<blocks_for(threads, kThreads), kThreads, 0, s>>>(v, n, i, m, fill, keep != 0, d);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_weight_gather(const void* emit, long long m, const void* ok, long long n_ok,
+                         const void* node_ok, const void* emask, long long n_em, const void* eid,
+                         const void* w, long long n_w, int keep, void* out, void* stream) {
+  if (m > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const WeightArgs a = {static_cast<const int*>(emit), m, static_cast<const unsigned char*>(ok), n_ok,
+                          static_cast<const unsigned char*>(node_ok), static_cast<const unsigned char*>(emask),
+                          n_em, static_cast<const int*>(eid), w, n_w, static_cast<unsigned>(keep)};
+    // the output is a fresh allocation (aligned): the vector body runs
+    // where every stream starts aligned with it
+    auto at = [](const void* p, uintptr_t width) {
+      return p == nullptr || (reinterpret_cast<uintptr_t>(p) % width) == 0;
+    };
+    const bool vec = at(out, 16) && at(emit, 16) && at(eid, 16) && at(node_ok, 4) && (eid != nullptr || at(emask, 4));
+    T* d = static_cast<T*>(out);
+    if (vec) {
+      const long long nv = m / 4;
+      const long long threads = (nv + 63) / 64 * 32 + (m - 4 * nv);
+      weight_gather_kernel<T, true><<<blocks_for(threads, kThreads), kThreads, 0, s>>>(a, d);
+    } else {
+      const long long threads = (m + 32LL * kWeightRun - 1) / (32LL * kWeightRun) * 32;
+      weight_gather_kernel<T, false><<<blocks_for(threads, kThreads), kThreads, 0, s>>>(a, d);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -2810,49 +3191,60 @@ int csr_segment_sum_f32(const void* vals, long long ne, const void* indptr, long
   return launch_segment_sum<float>(vals, ne, indptr, nseg, out_size, out, scratch, stream);
 }
 
+// K5a. `keep` (non-zero: gather the table under L2 evict_last; for
+// weight_gather a set of bits, 1 ok, 2 emask, 4 w) is the caller's choice
+// of the tables that fit L2; `out` is a fresh allocation.
 int csr_take_pad_i32(const void* vals, long long n, const void* idx, long long m,
-                     int fill, void* out, void* stream) {
-  if (m > 0) {
-    take_pad_kernel<int><<<blocks_for(m, kThreads), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(vals), n, static_cast<const int*>(idx), m, fill,
-        static_cast<int*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+                     int fill, int keep, void* out, void* stream) {
+  return launch_take_pad<int>(vals, n, idx, m, fill, keep, out, stream);
 }
 
 int csr_take_pad_f32(const void* vals, long long n, const void* idx, long long m,
-                     float fill, void* out, void* stream) {
-  if (m > 0) {
-    take_pad_kernel<float><<<blocks_for(m, kThreads), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(vals), n, static_cast<const int*>(idx), m, fill,
-        static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+                     float fill, int keep, void* out, void* stream) {
+  return launch_take_pad<float>(vals, n, idx, m, fill, keep, out, stream);
 }
 
 int csr_take_pad_b8(const void* vals, long long n, const void* idx, long long m,
-                    int fill, void* out, void* stream) {
-  if (m > 0) {
-    take_pad_kernel<unsigned char><<<blocks_for(m, kThreads), kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned char*>(vals), n, static_cast<const int*>(idx),
-        m, static_cast<unsigned char>(fill != 0), static_cast<unsigned char*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+                    int fill, int keep, void* out, void* stream) {
+  return launch_take_pad<unsigned char>(vals, n, idx, m, static_cast<unsigned char>(fill != 0), keep, out,
+                                        stream);
+}
+
+int csr_weight_gather_i32(const void* emit, long long m, const void* ok, long long n_ok,
+                          const void* node_ok, const void* emask, long long n_em, const void* eid,
+                          const void* w, long long n_w, int keep, void* out, void* stream) {
+  return launch_weight_gather<int>(emit, m, ok, n_ok, node_ok, emask, n_em, eid, w, n_w, keep, out, stream);
+}
+
+int csr_weight_gather_f32(const void* emit, long long m, const void* ok, long long n_ok,
+                          const void* node_ok, const void* emask, long long n_em, const void* eid,
+                          const void* w, long long n_w, int keep, void* out, void* stream) {
+  return launch_weight_gather<float>(emit, m, ok, n_ok, node_ok, emask, n_em, eid, w, n_w, keep, out, stream);
 }
 
 int csr_mask_count(const void* mask, long long n, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned char* p = static_cast<const unsigned char*>(mask);
+  long long head = static_cast<long long>((16u - (reinterpret_cast<uintptr_t>(p) & 15u)) & 15u);
+  if (head > n) head = n;
+  unsigned* count = static_cast<unsigned*>(out);
+  if (n <= kCountTile) {
+    mask_count_kernel<<<1, kThreads, 0, s>>>(p, n, head, count, 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0) {
+      sms = 132;
+    }
+  }
   cudaError_t e = cudaMemsetAsync(out, 0, sizeof(unsigned), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (n > 0) {
-    long long blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > 4096) blocks = 4096;
-    mask_count_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        static_cast<const unsigned char*>(mask), n, static_cast<unsigned*>(out));
-  }
+  long long blocks = ((n - head) / 16 + kThreads * kCountLoads - 1) / (kThreads * kCountLoads);
+  if (blocks > static_cast<long long>(sms) * kCountBlocksPerSm) blocks = static_cast<long long>(sms) * kCountBlocksPerSm;
+  mask_count_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(p, n, head, count, 0);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1275,7 +1275,20 @@ class TpuMatchSolver:
             else None
         )
         f = item.edge_filter
-        new_w = torch.zeros(vb, dtype=dtype, device=self.device)
+        # a [vb] vertex mask and weights that fit L2 fold into one table
+        # (one pass over [vb]), so that a walk gathers once an edge from it;
+        # a walk that reads its edge mask through edge ids keeps the mask
+        # apart, as its first and cheapest filter (PERF.md §6)
+        foldable = (
+            mg is None
+            and w is not None
+            and ok_vec is not None
+            and w.numel() * w.element_size() <= K.L2_KEEP_BYTES
+        )
+        folded_w = None
+        # the mesh's passes add into a zeroed vector; a single-device walk's
+        # sums are the vector itself, or are added to the walks' before
+        new_w = torch.zeros(vb, dtype=dtype, device=self.device) if mg is not None else None
         for cname in classes:
             dec = self.dg.edges[cname]
             E = dec.num_edges
@@ -1296,23 +1309,34 @@ class TpuMatchSolver:
                     continue
                 # both CSR orders are on the device, so either direction
                 # sums per vertex with indptr_segment_sum; the in walk
-                # reads the out-order edge mask through edge_id_in
+                # reads the out-order edge mask through edge_id_in. One
+                # fused gather makes each edge's value from the endpoint's
+                # [vb] mask (or, where the edges are fewer than vb, the node
+                # mask evaluated at the endpoints; neither once folded into
+                # the weights), the edge mask and the endpoint's weight
+                # after this hop
                 if d == "out":
-                    emit, ip, em = dec.dst, dec.indptr_out, emask
+                    emit, ip, eid = dec.dst, dec.indptr_out, None
                 else:
                     emit, ip = dec.src, dec.indptr_in
-                    em = None if emask is None else K.take_pad(emask, dec.edge_id_in, False)
-                if E >= vb:
-                    contrib = K.take_pad(ok_vec, emit, False)
+                    eid = None if emask is None else dec.edge_id_in
+                if foldable and eid is None:
+                    if folded_w is None:
+                        folded_w = K.weight_gather(None, dtype, ok=ok_vec, w=w)
+                    vals = K.weight_gather(emit, dtype, emask=emask, w=folded_w)
                 else:
-                    contrib = node_mask(emit)
-                if em is not None:
-                    contrib = contrib & em
-                vals = contrib.to(dtype)
-                if w is not None:
-                    vals = vals * K.take_pad(w, emit, 0)
-                new_w = new_w + K.indptr_segment_sum(vals, ip, vb)
-        return new_w
+                    vals = K.weight_gather(
+                        emit,
+                        dtype,
+                        ok=ok_vec if E >= vb else None,
+                        node_ok=None if E >= vb else node_mask(emit),
+                        emask=emask,
+                        eid=eid,
+                        w=w,
+                    )
+                part = K.indptr_segment_sum(vals, ip, vb)
+                new_w = part if new_w is None else new_w + part
+        return new_w if new_w is not None else torch.zeros(vb, dtype=dtype, device=self.device)
 
     # -- roots and expansions ----------------------------------------------
 

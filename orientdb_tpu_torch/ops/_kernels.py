@@ -48,10 +48,12 @@ SIGNATURES = {
     "csr_segment_scratch": [_N, _N],
     "csr_segment_sum_i32": [_P, _N, _P, _N, _N, _P, _P, _P],
     "csr_segment_sum_f32": [_P, _N, _P, _N, _N, _P, _P, _P],
-    "csr_take_pad_i32": [_P, _N, _P, _N, _I, _P, _P],
-    "csr_take_pad_f32": [_P, _N, _P, _N, _F, _P, _P],
-    "csr_take_pad_b8": [_P, _N, _P, _N, _I, _P, _P],
+    "csr_take_pad_i32": [_P, _N, _P, _N, _I, _I, _P, _P],
+    "csr_take_pad_f32": [_P, _N, _P, _N, _F, _I, _P, _P],
+    "csr_take_pad_b8": [_P, _N, _P, _N, _I, _I, _P, _P],
     "csr_mask_count": [_P, _N, _P, _P],
+    "csr_weight_gather_i32": [_P, _N, _P, _N, _P, _P, _N, _P, _P, _N, _I, _P, _P],
+    "csr_weight_gather_f32": [_P, _N, _P, _N, _P, _P, _N, _P, _P, _N, _I, _P, _P],
     "csr_front_pack": [_P, _P, _N, _P, _I, _I, _I, _P, _P],
     "csr_replay_meta": [_P, _N, _I, _P, _P, _P, _P],
     "csr_narrow_i16": [_P, _N, _P, _P],

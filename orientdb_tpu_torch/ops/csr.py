@@ -59,6 +59,8 @@ LAUNCHES: Dict[str, int] = {
         "take_pad_f32",
         "take_pad_b8",
         "mask_count",
+        "weight_gather_i32",
+        "weight_gather_f32",
         "front_pack",
         "replay_meta",
         "narrow_i16",
@@ -501,6 +503,22 @@ _TAKE = {
 }
 
 
+#: the largest table take_pad and weight_gather gather under an L2
+#: evict_last policy (of the card's 50 MB L2), so that it stays there while
+#: the index and output stream past; the COUNT pushdown folds its vertex
+#: mask into weights of at most this size
+L2_KEEP_BYTES = 40 << 20
+#: beside a larger gathered table (the in walk's edge mask read through
+#: edge ids, 80 MB at A), weight_gather keeps only tables of at most this
+#: size: pinning a 32 MB weight table as well pushes the edge mask's lines
+#: out twice as fast (PERF.md §6)
+L2_KEEP_BESIDE = 16 << 20
+
+
+def _nbytes(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
 def take_pad(values: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
     """`values[idx]` where idx ≥ 0, else `fill` (padding-safe gather);
     indices past the end read the last value, as the reference's clip."""
@@ -519,8 +537,121 @@ def take_pad(values: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
         idx.data_ptr(),
         idx.shape[0],
         cast(fill),
+        int(_nbytes(values) <= L2_KEEP_BYTES),
         out.data_ptr(),
         _stream(idx),
+    )
+    return out
+
+
+def plain_weight_gather(
+    emit: Optional[torch.Tensor],
+    dtype: torch.dtype,
+    ok: Optional[torch.Tensor] = None,
+    node_ok: Optional[torch.Tensor] = None,
+    emask: Optional[torch.Tensor] = None,
+    eid: Optional[torch.Tensor] = None,
+    w: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The reference's weight-pass chain (`orientdb_tpu/exec/tpu_engine.py`
+    :1600-1606) as separate calls: ``em & take_pad(ok, emit, False)``,
+    ``.to(dtype)``, ``* take_pad(w, emit, 0)``; without ``emit``, over
+    the weights' own indices."""
+    if emit is None:
+        emit = torch.arange(w.shape[0], dtype=I32, device=w.device)
+    keep = None
+    for m in (
+        None if ok is None else plain_take_pad(ok, emit, False),
+        node_ok,
+        None if emask is None else emask if eid is None else plain_take_pad(emask, eid, False),
+    ):
+        if m is not None:
+            keep = m if keep is None else keep & m
+    if keep is None:
+        vals = torch.ones(emit.shape[0], dtype=dtype, device=emit.device)
+    else:
+        vals = keep.to(dtype)
+    if w is not None:
+        vals = vals * plain_take_pad(w, emit, 0)
+    return vals
+
+
+def weight_gather(
+    emit: Optional[torch.Tensor],
+    dtype: torch.dtype,
+    ok: Optional[torch.Tensor] = None,
+    node_ok: Optional[torch.Tensor] = None,
+    emask: Optional[torch.Tensor] = None,
+    eid: Optional[torch.Tensor] = None,
+    w: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The COUNT pushdown's value of each edge of one class and direction,
+    in one launch: ``T(keep) * (w[emit] if w else 1)`` with ``keep`` the AND
+    of ``ok[emit]`` (a [vb] vertex mask), ``node_ok`` (the node mask already
+    at each edge's endpoint) and the edge mask ``emask`` (read through
+    ``eid``, -1 reading False, or directly), each only where given; every
+    gather is `take_pad`'s (clip past the end, a negative index reads the
+    fill). Without ``emit`` it runs over the weights' own indices: ``ok ?
+    w : 0``, the vertex mask folded into the weights before the walks
+    gather them. The kernel writes 0 where ``keep`` is False without
+    reading ``w``: the same bits as the product for finite weights other
+    than -0.0, as the pushdown's sums are."""
+    if dtype not in (I32, F32):
+        raise TypeError(f"weight_gather: dtype {dtype} not int32 or float32")
+    if emit is None:
+        if w is None:
+            raise ValueError("weight_gather: no emit and no weights")
+        m = w.shape[0]
+    else:
+        _check(emit, (I32,), "weight_gather emit")
+        m = emit.shape[0]
+    for t, what in ((ok, "ok"), (node_ok, "node_ok"), (emask, "emask")):
+        if t is not None:
+            _check(t, (torch.bool,), f"weight_gather {what}")
+    for t, what in ((node_ok, "node_ok"), (eid, "eid")):
+        if t is not None and t.shape[0] != m:
+            raise ValueError(f"weight_gather {what}: {t.shape[0]} entries for {m} edges")
+    if eid is not None:
+        _check(eid, (I32,), "weight_gather eid")
+        if emask is None:
+            raise ValueError("weight_gather: eid without emask")
+    elif emask is not None and emask.shape[0] != m:
+        raise ValueError(f"weight_gather emask: {emask.shape[0]} entries for {m} edges")
+    if w is not None:
+        _check(w, (dtype,), "weight_gather w")
+    if not _on_card(*(t for t in (emit, ok, node_ok, emask, eid, w) if t is not None)):
+        return plain_weight_gather(emit, dtype, ok, node_ok, emask, eid, w)
+    name = "weight_gather_i32" if dtype == I32 else "weight_gather_f32"
+    lib = _kernels.load()
+    out = torch.empty(m, dtype=dtype, device=(w if emit is None else emit).device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    # the tables gathered through emit or eid that stay in L2 (bits 1 ok,
+    # 2 emask, 4 w); a fold reads each table once, in order: none
+    keep = 0
+    if emit is not None:
+        tables = (_nbytes(ok), _nbytes(emask) if eid is not None else 0, _nbytes(w))
+        limit = L2_KEEP_BESIDE if max(tables) > L2_KEEP_BYTES else L2_KEEP_BYTES
+        keep = sum(bit for bit, b in zip((1, 2, 4), tables) if b <= limit)
+
+    _launch(
+        name,
+        getattr(lib, "csr_" + name),
+        ptr(emit),
+        m,
+        ptr(ok),
+        0 if ok is None else ok.shape[0],
+        ptr(node_ok),
+        ptr(emask),
+        0 if emask is None else emask.shape[0],
+        ptr(eid),
+        ptr(w),
+        0 if w is None else w.shape[0],
+        keep,
+        out.data_ptr(),
+        _stream(out),
     )
     return out
 

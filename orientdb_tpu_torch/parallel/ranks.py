@@ -7,7 +7,9 @@ job's graph into a port database (`carry.snapshot_from_arrays`), attaches
 it with a mesh over the group, answers the job's statements (each recorded,
 then replayed) and its row-sharded BFS, and writes its answers to
 ``<out_dir>/rank<r>.pkl``. A failed collective or statement ends the rank
-with the exception.
+with the exception. By default a rank runs on a card over NCCL (rank r on
+card r modulo the host's cards); ``backend="gloo", device="cpu"`` runs it on
+the CPU, as the CPU tests do.
 """
 
 from __future__ import annotations
@@ -15,11 +17,12 @@ from __future__ import annotations
 import os
 import pickle
 
+import torch
 import torch.distributed as dist
 
 
 def run_rank(rank: int, world: int, init_file: str, job_file: str, out_dir: str,
-             backend: str = "gloo", device: str = "cpu") -> None:
+             backend: str = "nccl", device: str = "cuda") -> None:
     """The job of ``job_file`` (a pickled dict: ``schema`` and ``arrays`` as
     `carry.snapshot_from_arrays` takes them, ``queries`` a list of ``(sql,
     params)``, ``calls`` how often each runs, ``bfs`` an optional
@@ -31,6 +34,11 @@ def run_rank(rank: int, world: int, init_file: str, job_file: str, out_dir: str,
     from orientdb_tpu_torch.exec.result import canonical_rows
     from orientdb_tpu_torch.parallel.sharded import ShardedCSR, bfs_reachability, make_mesh
 
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError('run_rank: no CUDA card; pass backend="gloo", device="cpu" to run on the CPU')
+        device = f"cuda:{rank % torch.cuda.device_count()}"
+        torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank, world_size=world)
     try:
         with open(job_file, "rb") as f:

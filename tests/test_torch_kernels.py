@@ -1346,3 +1346,158 @@ def test_mesh_queries_on_card_equal_cpu(card):
         ]
         assert (got[0] == got[1]).all() and got[0].sum() > 5
     torch.cuda.synchronize()
+
+
+#: K5's lengths: one element, around the 16-byte vectors and a warp's run
+#: (256 int32 / 512 bytes), a 16 KiB tile, and past K5b's one-block limit
+K5_LENGTHS = [1, 15, 16, 17, 255, 257, 4_099, 16_384, 16_385, 1_000_003]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", K5_LENGTHS)
+def test_take_pad_equals_plain_on_card(card, n):
+    """K5a in all three dtypes, exactly, with -1 and past-the-end indices,
+    index slices at offsets 0–3, and an empty table."""
+    rng = np.random.default_rng(n + 101)
+    idx_all = _t(rng.integers(-2, 5_003, n + 16, dtype=np.int32)).to(card)
+    tables = (
+        (_t(rng.integers(-(2**31), 2**31 - 1, 5_000, dtype=np.int32)).to(card), -1),
+        (_t(rng.standard_normal(5_000).astype(np.float32)).to(card), 0.5),
+        (_t(rng.random(5_000) < 0.5).to(card), True),
+    )
+    for vals, fill in tables:
+        for io in range(4):
+            idx = idx_all[io : io + n]
+            assert torch.equal(T.take_pad(vals, idx, fill), T.plain_take_pad(vals, idx, fill))
+        assert torch.equal(T.take_pad(vals[:0], idx_all, fill), T.plain_take_pad(vals[:0], idx_all, fill))
+    torch.cuda.synchronize()
+
+
+def _weight_operands(card, rng, vb: int, e: int, dtype):
+    emit = _t(rng.integers(-1, vb + 3, e, dtype=np.int32)).to(card)
+    eid = rng.permutation(e).astype(np.int32)
+    eid[rng.random(e) < 0.05] = -1
+    eid[rng.random(e) < 0.02] = e + 5
+    w = rng.integers(0, 2**20, vb, dtype=np.int32) if dtype == torch.int32 else (rng.random(vb) * 1e4).astype(np.float32)
+    return (
+        emit,
+        _t(rng.random(vb) < 0.4).to(card),  # ok: a [vb] vertex mask
+        _t(rng.random(e) < 0.5).to(card),  # node_ok: a node mask at the endpoints
+        _t(rng.random(e) < 0.7).to(card),  # emask
+        _t(eid).to(card),
+        _t(w).to(card),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32], ids=["i32", "f32"])
+@pytest.mark.parametrize("walk", ["out", "in"])
+@pytest.mark.parametrize("form", ["ok_vec", "node_ok"])
+@pytest.mark.parametrize("vb,e", [(64, 1), (64, 700), (1 << 16, 1_000_003)])
+def test_weight_gather_equals_plain_on_card(card, vb, e, form, walk, dtype):
+    """The fused weight gather against its plain version (the parent's
+    take_pad / & / .to / * chain), with and without the edge mask and the
+    weights, on whole arrays and on slices one element off (the scalar
+    form): int32 equal, float32 equal bit for bit (the weights finite and
+    non-negative, as the pushdown's are)."""
+    rng = np.random.default_rng(vb + e)
+    emit, ok, node_ok, emask, eid, w = _weight_operands(card, rng, vb, e + 1, dtype)
+    for off in (0, 1):
+        sl = slice(off, off + e)
+        for masked in (False, True):
+            for weighted in (False, True):
+                kw = dict(
+                    ok=ok if form == "ok_vec" else None,
+                    node_ok=node_ok[sl] if form == "node_ok" else None,
+                    emask=(emask if walk == "in" else emask[sl]) if masked else None,
+                    eid=eid[sl] if masked and walk == "in" else None,
+                    w=w if weighted else None,
+                )
+                got = T.weight_gather(emit[sl], dtype, **kw)
+                want = T.plain_weight_gather(emit[sl], dtype, **kw)
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (off, masked, weighted)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32], ids=["i32", "f32"])
+@pytest.mark.parametrize("vb", [1, 64, 4_099, 1 << 20])
+def test_folded_weights_equal_plain_on_card(card, vb, dtype):
+    """The fold of a vertex mask into the weights (``emit=None``) against
+    its plain version on whole and one-off tables, then an in walk's gather
+    of the folded weights (a fifth of them 0) against the unfolded chain,
+    bit for bit."""
+    rng = np.random.default_rng(vb + 9)
+    e = 3 * vb + 5
+    emit, ok, _node_ok, emask, eid, w = _weight_operands(card, rng, vb + 1, e, dtype)
+    w[torch.from_numpy(rng.random(vb + 1) < 0.2).to(card)] = 0
+    for off in (0, 1):
+        okv, wv = ok[off : off + vb], w[off : off + vb]
+        folded = T.weight_gather(None, dtype, ok=okv, w=wv)
+        want = T.plain_weight_gather(None, dtype, ok=okv, w=wv)
+        assert torch.equal(folded.view(torch.int32), want.view(torch.int32)), off
+        got = T.weight_gather(emit, dtype, emask=emask, eid=eid, w=folded)
+        chain = T.plain_weight_gather(emit, dtype, ok=okv, emask=emask, eid=eid, w=wv)
+        assert torch.equal(got.view(torch.int32), chain.view(torch.int32)), off
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0] + K5_LENGTHS + [(1 << 23) + 5])
+def test_mask_count_equals_plain_on_card(card, n):
+    """K5b at every offset 0–15 of its start (one block up to 16 KiB, a
+    one-wave grid past it), dense and sparse, and any non-zero byte
+    counting once, exactly and the same on every call."""
+    rng = np.random.default_rng(n + 3)
+    for density in (0.3, 1.0):
+        mask = _t(rng.random(n + 16) < density).to(card)
+        for off in range(16):
+            m = mask[off : off + n]
+            got = T.mask_count(m)
+            assert got.dtype == torch.int32 and got.shape == ()
+            assert int(got) == int(T.plain_mask_count(m)) == int(T.mask_count(m))
+    raw = rng.integers(0, 256, n + 16, dtype=np.uint8)
+    bytes_ = _t(raw).to(card).view(torch.bool)
+    assert int(T.mask_count(bytes_[3 : 3 + n])) == int(np.count_nonzero(raw[3 : 3 + n]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_k5_equals_eager_on_card(card):
+    """take_pad, the fused weight gather (unfolded, and after a fold of the
+    vertex mask into the weights) and mask_count (small and large) captured
+    once and replayed on other inputs in place equal eager calls."""
+    rng = np.random.default_rng(77)
+    vb, e = 1 << 16, 300_001
+    emit, ok, _node_ok, emask, eid, w = _weight_operands(card, rng, vb, e, torch.int32)
+    small = _t(rng.random(4_000) < 0.5).to(card)
+    large = _t(rng.random(1 << 20) < 0.5).to(card)
+    static_emit, static_small, static_large = emit.clone(), small.clone(), large.clone()
+
+    def run():
+        return (
+            T.take_pad(w, static_emit, -1),
+            T.weight_gather(static_emit, torch.int32, ok=ok, emask=emask, eid=eid, w=w),
+            T.weight_gather(static_emit, torch.int32, emask=emask, eid=eid,
+                            w=T.weight_gather(None, torch.int32, ok=ok, w=w)),
+            T.mask_count(static_small),
+            T.mask_count(static_large),
+        )
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for k in range(3):
+        static_emit.copy_(emit.roll(k * 7))
+        static_small.copy_(small.roll(k * 5))
+        static_large.copy_(large.roll(k * 11))
+        if k == 2:
+            static_small.zero_()
+        for o in outs:
+            o.fill_(-7)
+        graph.replay()
+        for got, want in zip(outs, run()):
+            assert torch.equal(got, want)
+    torch.cuda.synchronize()

@@ -13,6 +13,8 @@ import pickle
 import time
 
 import numpy as np
+import pytest
+import torch
 
 from orientdb_tpu.storage.ingest import generate_demodb
 from orientdb_tpu.storage.snapshot import attach_fresh_snapshot
@@ -51,7 +53,7 @@ def _spawn_ranks(tmp_path, job, world: int = 2):
     procs = [
         ctx.Process(
             target=run_rank,
-            args=(r, world, str(tmp_path / "rendezvous"), str(job_file), str(tmp_path)),
+            args=(r, world, str(tmp_path / "rendezvous"), str(job_file), str(tmp_path), "gloo", "cpu"),
         )
         for r in range(world)
     ]
@@ -75,6 +77,14 @@ def _spawn_ranks(tmp_path, job, world: int = 2):
         with open(tmp_path / f"rank{r}.pkl", "rb") as f:
             out.append(pickle.load(f))
     return out
+
+
+def test_run_rank_without_a_card_says_how_to_run_on_the_cpu(tmp_path, monkeypatch):
+    """A rank runs on a card unless asked for gloo and the CPU; without a
+    card it refuses before it joins a group, and says how to ask."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='backend="gloo", device="cpu"'):
+        run_rank(0, 1, str(tmp_path / "rendezvous"), str(tmp_path / "job.pkl"), str(tmp_path))
 
 
 def test_two_gloo_ranks_equal_local_shards(tmp_path):
