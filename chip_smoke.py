@@ -61,7 +61,18 @@ from the root of a checkout. Phases, each of which raises on failure:
    five calls (Q2's also folded), and (phase 6) on E1's two walks on B;
    K5b `mask_count` exactly at 2^23, at V1's
    8-byte chunk, at 0, 1, 15, 17, around its one-block tile and starting
-   1–15 bytes off 16, timed beside ``torch.count_nonzero``;
+   1–15 bytes off 16, timed beside ``torch.count_nonzero``; K2 (the degree
+   scan, `expand_offsets`: offsets and total in one look-back launch), K2a
+   `degree_counts` and K2b (the merge-path `gather_expand`, with and
+   without the in walk's ``edge_id_in`` map) exactly at Q3's second-hop
+   frontier out and in, with out sizes equal to, past and below the total,
+   sources off 16 bytes, at the edge lengths, all padding, over an empty
+   edge list, on a Zipf frontier (a 150,000-edge row, runs of empty rows, a
+   third of the sources -1) and at k = 50,000's hop as the engine chunks
+   it, each timed eagerly and in a graph beside its bound and the parent's
+   five launches for the same hop; then `entry.forward` (the graft entry's
+   forward step: K2b, two K5 gathers, ``age > 30``) at Q3's frontier
+   against its plain composition and numpy;
 4. record — the recording path, with the plan cache off so that every
    call records (solves eagerly, reading each size on the host): zeroes
    the kernels' launch counts, runs the 1-hop COUNT (Q1), the 2-hop COUNT
@@ -74,7 +85,8 @@ from the root of a checkout. Phases, each of which raises on failure:
    first run), splits it into its layers (plan, solve, marshal) and reads
    the card's busy share with torch.profiler;
 5. replay — the plan cache on, launch counts zeroed: the first call of
-   Q1, Q2, Q3, V1, V2 and V3 records and captures the replay as a CUDA
+   Q1, Q2, Q3, the direct rows, their in walk, V1, V2 and V3 records and
+   captures the replay as a CUDA
    graph, then 5 timed calls replay it, each equal to numpy, with the
    statement holding exactly one captured plan whose replay counter
    advanced; Q3, V2 and V3 at a lower ``k`` replay the same plan, Q3 and
@@ -83,8 +95,10 @@ from the root of a checkout. Phases, each of which raises on failure:
    Prints record, capture and replay times, the replay's layers
    (parameter upload, dispatch, device wait, fetch, marshal), its busy
    share, the launches per replay and the reserved device memory after
-   each capture; fails unless every kernel launched, and the bitmap-BFS
-   kernels inside the V plans' replays. Then holds the replay's kernels
+   each capture; fails unless every kernel launched, the bitmap-BFS
+   kernels inside the V plans' replays, one degree scan and one gather a
+   walk (no K2a) in Q3's, the direct rows', the in walk's and V3's, and
+   no more take_pads in the in walk's than in the out walk's. Then holds the replay's kernels
    (front-pack, meta row, int16 narrowing) against their plain versions
    at Q3's shapes and at edge lengths, and times them. Then T1 (phase 9's
    query) on resident A, timed as phase 9 times it. Then the G cells
@@ -273,6 +287,7 @@ REPLACES = {
     "scan_i32": "orientdb_tpu/ops/csr.py:129",
     "scan_f32": "orientdb_tpu/ops/csr.py:129",
     "degree_counts": "orientdb_tpu/ops/csr.py:39",
+    "degree_scan_i32": "orientdb_tpu/ops/csr.py:39",
     "gather_expand": "orientdb_tpu/ops/csr.py:54",
     "compact_indices": "orientdb_tpu/ops/csr.py:185",
     "segment_sum_i32": "orientdb_tpu/ops/csr.py:227",
@@ -318,9 +333,11 @@ TIER_ONLY = ("paged_hop", "paged_hop_miss", "paged_expand")
 #: the kernels only a meshed snapshot launches (phase 7m)
 MESH_ONLY = ("degree_counts_range", "shard_gather", "bitmap_hop_eid", "shard_weight_pass", "rowshard_hop")
 #: the kernels no cell launches: the bool take_pad's only callers were the
-#: weight pass's gathers, which the fused weight_gather now makes (it is
-#: still held against its plain version and timed)
-OFF_PATH = ("take_pad_b8",)
+#: weight pass's gathers, which the fused weight_gather now makes, and
+#: degree_counts' the expansion's sizing, which the degree scan
+#: (degree_scan_i32) now computes in one launch (both still held against
+#: their plain versions and timed)
+OFF_PATH = ("take_pad_b8", "degree_counts")
 #: the kernels of the Person–knows phases 4–5 (the OPTIONAL arm's left-join
 #: count runs on the SNB-shape phase)
 PK_KERNELS = [
@@ -391,6 +408,8 @@ Q3_K_OVERFLOW = 50_000
 # a 1-hop row query small enough for the direct-fetch buffer
 Q_DIRECT = "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f} RETURN p.uid AS p, f.uid AS f"
 Q_DIRECT_K = 100
+# its in walk: the edge ids come through edge_id_in inside the gather
+Q_IN = "MATCH {class:Person, as:p, where:(uid < :k)}<-knows-{as:f} RETURN p.uid AS p, f.uid AS f"
 # variable-depth COUNT in the reference bench's shape (bench.py:1285)
 V1 = (
     "MATCH {class:Person, as:p, where:(uid < 200)}"
@@ -468,7 +487,7 @@ G_CELLS = {
 }
 #: the kernels of the G cells (a root scan, one hop with a binding-
 #: referencing mask, a rows front-pack)
-G_RECORD_KERNELS = ["predicate_eval", "compact_indices", "mask_count", "degree_counts", "gather_expand", "scan_i32"]
+G_RECORD_KERNELS = ["predicate_eval", "compact_indices", "mask_count", "degree_scan_i32", "gather_expand"]
 G_REPLAY_KERNELS = G_RECORD_KERNELS + ["front_pack", "replay_meta"]
 
 
@@ -644,12 +663,10 @@ def print_segment_sum(torch, K, row, name, vals, indptr, out_size, shape: str, c
     )
 
 
-def check_segment_sum_degrees(np, torch, K, ks, dev) -> None:
-    """K4 on a Zipf-degree CSR from a seed: 1M segments (~28M values, degrees
-    Zipf(1.6) up to 1,000), one of 150,000 values (30 of the kernel's
-    5,120-item tiles), ten runs of 5,000 empty segments, int32 values over
-    the whole range (the sums wrap) and float32 ones; ``out_size`` above
-    and below the segment count."""
+def zipf_indptr(np, torch, dev):
+    """A Zipf-degree CSR's indptr from a seed: 1M vertices (~28M edges,
+    degrees Zipf(1.6) up to 1,000), one of 150,000 edges, ten runs of 5,000
+    empty vertices; and the generator, to draw more from."""
     rng = np.random.default_rng(41)
     v = 1_000_000
     deg = np.minimum(rng.zipf(1.6, v), 1_000)
@@ -657,6 +674,16 @@ def check_segment_sum_degrees(np, torch, K, ks, dev) -> None:
     for start in rng.choice(v - 5_000, 10, replace=False):
         deg[start : start + 5_000] = 0
     indptr = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)).to(dev)
+    return indptr, rng
+
+
+def check_segment_sum_degrees(np, torch, K, ks, dev) -> None:
+    """K4 on `zipf_indptr`'s CSR: 1M segments, one of 150,000 values (30 of
+    the kernel's 5,120-item tiles), ten runs of 5,000 empty segments, int32
+    values over the whole range (the sums wrap) and float32 ones;
+    ``out_size`` above and below the segment count."""
+    indptr, rng = zipf_indptr(np, torch, dev)
+    v = indptr.shape[0] - 1
     ne = int(indptr[-1])
     vals_i = torch.from_numpy(rng.integers(-(2**31), 2**31 - 1, ne, dtype=np.int32)).to(dev)
     vals_f = torch.from_numpy(rng.random(ne, dtype=np.float32)).to(dev)
@@ -858,6 +885,16 @@ def check_mask_count(torch, K, ks, dense, card: str) -> None:
     )
 
 
+def q3_frontier(torch, dec, k: int):
+    """Q3's second-hop frontier on A: the f vertices of p < k in CSR order,
+    -1-padded to the binding table's capacity."""
+    from orientdb_tpu_torch.exec.tpu_engine import _cap_of
+
+    f = dec.dst[: int(dec.indptr_out[k])]
+    width = _cap_of(f.shape[0])
+    return torch.cat([f, torch.full((width - f.shape[0],), -1, dtype=torch.int32, device=f.device)])
+
+
 def check_kernels(np, torch, K, dg, card: str) -> Kernels:
     from orientdb_tpu_torch.exec.tpu_engine import _cap_of
 
@@ -878,11 +915,7 @@ def check_kernels(np, torch, K, dg, card: str) -> Kernels:
     univ = torch.arange(vb, dtype=i32, device=dev)
     ok_vec = torch.cat([age < 30, torch.zeros(vb - V, dtype=torch.bool, device=dev)])
     root_mask = univ < Q3_K
-    # Q3's second-hop frontier: the f vertices of p < k, padded as the
-    # binding table pads them
-    f = dst[: int(indptr[Q3_K])]
-    width = _cap_of(f.shape[0])
-    srcs = torch.cat([f, torch.full((width - f.shape[0],), -1, dtype=i32, device=dev)])
+    srcs = q3_frontier(torch, dec, Q3_K)
 
     # -- K1 scans: every form, at Q2's weights and around the tile -----------
     from orientdb_tpu_torch.ops import _kernels
@@ -972,39 +1005,8 @@ def check_kernels(np, torch, K, dg, card: str) -> Kernels:
     # -- K5b popcount ---------------------------------------------------------
     check_mask_count(torch, K, ks, dense, card)
 
-    # -- K2 degree counts + gather_expand on Q3's frontier --------------------
-    def expand_both(s):
-        counts = K.degree_counts(indptr, s)
-        ks.same("degree_counts", counts, K.plain_degree_counts(indptr, s))
-        offsets = K.exclusive_cumsum(counts)
-        total = K.value_sum(counts)
-        size = _cap_of(int(total))
-        ks.same(
-            "gather_expand",
-            K.gather_expand(indptr, dst, s, offsets, total, size),
-            K.plain_gather_expand(indptr, dst, s, offsets, total, size),
-        )
-        return counts, offsets, total, size
-
-    for n in EDGE_LENGTHS:
-        expand_both(srcs[:n].contiguous())
-        expand_both(torch.full((n,), -1, dtype=i32, device=dev))  # all padding
-    counts, offsets, total, size = expand_both(srcs)
-    live = int((srcs >= 0).sum())
-    ks.timed(
-        "degree_counts",
-        lambda: K.degree_counts(indptr, srcs),
-        lambda: K.plain_degree_counts(indptr, srcs),
-        None,
-        4.0 * width + 8.0 * live + 4.0 * width,
-    )
-    ks.timed(
-        "gather_expand",
-        lambda: K.gather_expand(indptr, dst, srcs, offsets, total, size),
-        lambda: K.plain_gather_expand(indptr, dst, srcs, offsets, total, size),
-        None,
-        12.0 * width + 4.0 * int(total) + 12.0 * size,
-    )
+    # -- K2 degree scan + K2b merge-path gather on Q3's frontier --------------
+    check_expansion(np, torch, K, ks, dg, srcs, card)
 
     # -- K4 segment sums over the edge list into vb (merge path) -------------
     for name, vals in (("segment_sum_i32", vals_i), ("segment_sum_f32", vals_f)):
@@ -1029,6 +1031,229 @@ def check_kernels(np, torch, K, dg, card: str) -> Kernels:
     check_weight_gather(torch, K, ks, dg, ok_vec, w_i, gen, card)
     torch.cuda.synchronize()
     return ks
+
+
+def expand_bounds(width: int, live_srcs: int, total: int, size: int, mapped: bool = False):
+    """K2's and K2b's bounds in ms at one shape: the degree scan reads each
+    source, a live source's two indptr entries, and writes each offset and
+    the total; the gather reads 12 bytes a source (its source, offset and
+    indptr entry), a neighbour (and, mapped, an edge-map entry) a live slot,
+    and writes 12 bytes a bucket slot."""
+    live = min(total, size)
+    scan = 8.0 * width + 8.0 * live_srcs + 4.0
+    gather = 12.0 * width + (8.0 if mapped else 4.0) * live + 12.0 * size
+    return scan / HBM_BYTES_PER_S * 1e3, gather / HBM_BYTES_PER_S * 1e3
+
+
+def earlier_hop(K, indptr, nbrs, srcs, size, emap=None):
+    """The parent's launches for one one-hop expansion, on this tree's
+    kernels: K2a and K1's sum (the chunk count), K2a and K1's offsets and
+    total again, the gather, and the in walk's take_pad over the map."""
+    K.value_sum(K.degree_counts(indptr, srcs))
+    offsets, total = K.exclusive_cumsum_total(K.degree_counts(indptr, srcs))
+    row, pos, nbr = K.gather_expand(indptr, nbrs, srcs, offsets, total, size)
+    return row, pos if emap is None else K.take_pad(emap, pos, -1), nbr
+
+
+def one_hop(K, indptr, nbrs, srcs, size, emap=None):
+    """This tree's launches for the same expansion: one degree scan, one
+    gather (the map read inside it)."""
+    return K.gather_expand(indptr, nbrs, srcs, *K.expand_offsets(indptr, srcs), size, emap)
+
+
+def time_expansion(torch, K, what: str, card: str, indptr, nbrs, srcs, emap=None) -> None:
+    """Prints, on one line, the eager and in-graph times of K2a, K1's sum of
+    its counts, K2's degree scan and K2b (mapped where ``emap`` is given) at
+    one shape, beside their bounds, the plain versions' times, and the whole
+    hop as the parent launched it and as this tree does."""
+    from orientdb_tpu_torch.exec.tpu_engine import _cap_of
+
+    offsets, total = K.expand_offsets(indptr, srcs)
+    t = int(total)
+    size = _cap_of(t)
+    width, live_srcs = srcs.shape[0], int((srcs >= 0).sum())
+    b_scan, b_gather = expand_bounds(width, live_srcs, t, size, emap is not None)
+    counts = K.degree_counts(indptr, srcs)
+    fns = {
+        "degree_counts": lambda: K.degree_counts(indptr, srcs),
+        "K1 sum": lambda: K.value_sum(counts),
+        "K1 offsets + total": lambda: K.exclusive_cumsum_total(counts),
+        "degree_scan_i32": lambda: K.expand_offsets(indptr, srcs),
+        "gather_expand": lambda: K.gather_expand(indptr, nbrs, srcs, offsets, total, size, emap),
+        "parent's hop": lambda: earlier_hop(K, indptr, nbrs, srcs, size, emap),
+        "this hop": lambda: one_hop(K, indptr, nbrs, srcs, size, emap),
+    }
+    times = {name: (_time_ms(torch, fn), _graph_ms(torch, fn)) for name, fn in fns.items()}
+    plain = {
+        "degree_scan_i32": _time_ms(torch, lambda: K.plain_expand_offsets(indptr, srcs)),
+        "gather_expand": _time_ms(torch, lambda: K.plain_gather_expand(indptr, nbrs, srcs, offsets, total, size, emap)),
+    }
+    print(
+        f"kernel K2/K2b at {what} ({width} sources, {live_srcs} live, {t} slots into {size}"
+        f"{', edge map' if emap is not None else ''}), ms eager / in a graph: "
+        + ", ".join(f"{n} {e:.4f} / {g:.4f}" for n, (e, g) in times.items())
+        + f"; bounds: degree scan {b_scan:.4f}, gather {b_gather:.4f}; plain: degree scan "
+        f"{plain['degree_scan_i32']:.4f}, gather {plain['gather_expand']:.4f} [{card}]"
+    )
+
+
+def check_expansion(np, torch, K, ks, dg, srcs, card: str) -> None:
+    """K2a (`degree_counts`), K2 (`expand_offsets`, the degree scan) and K2b
+    (`gather_expand`, the merge-path gather) exactly against their plain
+    versions: at Q3's second-hop frontier on A, out and in (the in walk's
+    ``edge_id_in`` read inside the gather), with out sizes equal to, past
+    and below the total (a replay that outgrew its bucket: every slot
+    live), the sources one element off 16 bytes; at the edge lengths and
+    all padding; over an empty edge list; on `zipf_indptr`'s CSR from a
+    frontier of every vertex with a third of them -1 (the 150,000-edge row,
+    the runs of empty rows); and at Q3's second hop for k = 50,000 as the
+    engine chunks it. Then times them at Q3's frontier (the JSON rows) and
+    at the k = 50,000 hop, eagerly and in a graph, beside the parent's
+    launches for the same hop."""
+    from orientdb_tpu_torch.exec.tpu_engine import _cap_of
+    from orientdb_tpu_torch.utils.config import config
+
+    dev, i32 = dg.device, torch.int32
+    dec = dg.edges["knows"]
+
+    def same_all(indptr, nbrs, s, emap=None, sizes=None):
+        ks.same("degree_counts", K.degree_counts(indptr, s), K.plain_degree_counts(indptr, s))
+        offsets, total = K.expand_offsets(indptr, s)
+        ks.same("degree_scan_i32", (offsets, total), K.plain_expand_offsets(indptr, s))
+        t = int(total)
+        for size in sizes or (_cap_of(t),):
+            for m in (None, emap) if emap is not None else (None,):
+                ks.same(
+                    "gather_expand",
+                    K.gather_expand(indptr, nbrs, s, offsets, total, size, m),
+                    K.plain_gather_expand(indptr, nbrs, s, offsets, total, size, m),
+                )
+        return t
+
+    walks = (("out", dec.indptr_out, dec.dst, None), ("in", dec.indptr_in, dec.src, dec.edge_id_in))
+    for _d, indptr, nbrs, emap in walks:
+        t = same_all(indptr, nbrs, srcs, emap)
+        same_all(indptr, nbrs, srcs, emap, (t, _cap_of(t) * 4, max(t // 4, 1)))
+        same_all(indptr, nbrs, srcs[1:], emap)  # sources off 16 bytes
+        for n in EDGE_LENGTHS:
+            same_all(indptr, nbrs, srcs[:n].contiguous(), emap)
+            same_all(indptr, nbrs, torch.full((n,), -1, dtype=i32, device=dev), emap)  # all padding
+    empty = torch.zeros(1001, dtype=i32, device=dev)
+    same_all(empty, empty[:0], srcs[:777].contiguous() % 1000, empty[:0], (8, 4096))  # E = 0
+    zip_ip, rng = zipf_indptr(np, torch, dev)
+    zv, ze = zip_ip.shape[0] - 1, int(zip_ip[-1])
+    gen = torch.Generator(device=dev).manual_seed(43)
+    zip_nbrs = torch.randint(0, zv, (ze,), generator=gen, device=dev, dtype=i32)
+    zip_map = torch.randperm(ze, generator=gen, device=dev).to(i32)
+    zip_srcs = torch.arange(zv, dtype=i32, device=dev)
+    zip_srcs[torch.from_numpy(rng.random(zv) < 1 / 3).to(dev)] = -1
+    zt = same_all(zip_ip, zip_nbrs, zip_srcs, zip_map)
+    print(f"kernel K2/K2b: equal their plain versions on a Zipf frontier ({zv} sources, a third -1, {zt} slots)")
+    # Q3's second hop at k = 50,000, as the engine chunks it
+    big = q3_frontier(torch, dec, Q3_K_OVERFLOW)
+    width, big_live = big.shape[0], int((big >= 0).sum())
+    big_total = same_all(dec.indptr_out, dec.dst, big)
+    n_chunks = max(1, -(-_cap_of(big_total) // max(1, config.max_expansion_cap)))
+    chunk = big[: -(-width // n_chunks)]
+    same_all(dec.indptr_out, dec.dst, chunk, dec.edge_id_in)
+
+    # the JSON rows: Q3's second hop (out), as the replay runs it
+    offsets, total = K.expand_offsets(dec.indptr_out, srcs)
+    size = _cap_of(int(total))
+    live = int((srcs >= 0).sum())
+    b_scan, b_gather = expand_bounds(srcs.shape[0], live, int(total), size)
+    ms = HBM_BYTES_PER_S / 1e3
+    ks.timed(
+        "degree_counts",
+        lambda: K.degree_counts(dec.indptr_out, srcs),
+        lambda: K.plain_degree_counts(dec.indptr_out, srcs),
+        None,
+        4.0 * srcs.shape[0] + 8.0 * live + 4.0 * srcs.shape[0],
+    )
+    ks.timed(
+        "degree_scan_i32",
+        lambda: K.expand_offsets(dec.indptr_out, srcs),
+        lambda: K.plain_expand_offsets(dec.indptr_out, srcs),
+        None,
+        b_scan * ms,
+    )
+    ks.timed(
+        "gather_expand",
+        lambda: K.gather_expand(dec.indptr_out, dec.dst, srcs, offsets, total, size),
+        lambda: K.plain_gather_expand(dec.indptr_out, dec.dst, srcs, offsets, total, size),
+        None,
+        b_gather * ms,
+    )
+    print(
+        f"kernel degree_scan_i32 per call at Q3's frontier: "
+        f"{one_kernel_one_memset(torch, 'expand_offsets', lambda: K.expand_offsets(dec.indptr_out, srcs))}"
+    )
+    for what, indptr, nbrs, s, emap in (
+        ("Q3's second hop", dec.indptr_out, dec.dst, srcs, None),
+        ("Q3's second hop, in", dec.indptr_in, dec.src, srcs, dec.edge_id_in),
+        (f"k={Q3_K_OVERFLOW}'s second hop, chunk 1 of {n_chunks}", dec.indptr_out, dec.dst, chunk, None),
+        (f"k={Q3_K_OVERFLOW}'s second hop, chunk 1 of {n_chunks}, in", dec.indptr_in, dec.src, chunk, dec.edge_id_in),
+        ("the Zipf frontier", zip_ip, zip_nbrs, zip_srcs, zip_map),
+    ):
+        time_expansion(torch, K, what, card, indptr, nbrs, s, emap=emap)
+    sizing = lambda: K.expand_offsets(dec.indptr_out, big)  # noqa: E731
+    print(
+        f"kernel degree_scan_i32 at k={Q3_K_OVERFLOW}'s sizing scan ({width} sources, {big_total} slots): "
+        f"{_time_ms(torch, sizing):.4f} ms eager, {_graph_ms(torch, sizing):.4f} in a graph; "
+        f"bound {expand_bounds(width, big_live, 0, 0)[0]:.4f} [{card}]"
+    )
+    del zip_nbrs, zip_map, zip_srcs, zip_ip, big, chunk
+
+
+def numpy_forward(np, indptr, dst, srcs, age, present, out_size: int):
+    """`entry.forward` in numpy: the sources' CSR slices in order, -1 past
+    the total, the reached vertices kept where their age is present and
+    above 30."""
+    s = np.where(srcs >= 0, srcs, 0)
+    counts = np.where(srcs >= 0, indptr[s + 1] - indptr[s], 0).astype(np.int64)
+    total = int(counts.sum())
+    live = min(total, out_size)
+    offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    row = np.repeat(np.arange(srcs.shape[0]), counts)[:live]
+    pos = (indptr[s][row] + np.arange(live) - offsets[row]).astype(np.int64)
+    nbr = dst[pos].astype(np.int64)
+    mask = present[nbr] & (age[nbr] > 30)
+    out = [np.full(out_size, -1, np.int64) for _ in range(3)] + [np.zeros(out_size, bool)]
+    out[0][:live], out[1][:live], out[2][:live], out[3][:live] = row, pos, np.where(mask, nbr, -1), mask
+    return out
+
+
+def check_forward(np, torch, K, dg, snap, card: str) -> None:
+    """The graft entry's forward step in the port (`entry.forward`: K2b, two K5
+    gathers, the mask) on A at Q3's second-hop frontier: equal to its
+    plain composition and to numpy, exactly, in all four outputs; timed
+    eagerly and in a graph."""
+    from orientdb_tpu_torch.entry import forward
+    from orientdb_tpu_torch.exec.tpu_engine import _cap_of
+
+    dec = dg.edges["knows"]
+    age = dg.columns["age"]
+    srcs = q3_frontier(torch, dec, Q3_K)
+    offsets, total = K.expand_offsets(dec.indptr_out, srcs)
+    size = _cap_of(int(total))
+    args = (dec.indptr_out, dec.dst, srcs, offsets, total, age.values, age.present, size)
+    got = forward(*args)
+    row, pos, nbr = K.plain_gather_expand(dec.indptr_out, dec.dst, srcs, offsets, total, size)
+    mask = (nbr >= 0) & K.plain_take_pad(age.present, nbr, False) & (K.plain_take_pad(age.values, nbr, 0) > 30)
+    plain = (row, pos, torch.where(mask, nbr, -1), mask)
+    for g, w in zip(got, plain):
+        _require(g.dtype == w.dtype and torch.equal(g, w), "entry.forward differs from its plain composition")
+    host = snap.edge_classes["knows"]
+    col = snap.v_columns["age"]
+    want = numpy_forward(np, host.indptr_out.astype(np.int64), host.dst, srcs.cpu().numpy(), col.values, col.present, size)
+    for g, w in zip(got, want):
+        _require(np.array_equal(g.cpu().numpy().astype(w.dtype), w), "entry.forward differs from numpy")
+    fn = lambda: forward(*args)  # noqa: E731
+    print(
+        f"forward (entry.forward at Q3's second hop: {srcs.shape[0]} sources, {int(total)} slots into {size}, "
+        f"{int(got[3].sum())} kept): equals its plain composition and numpy; {_time_ms(torch, fn):.4f} ms eager, "
+        f"{_graph_ms(torch, fn):.4f} in a graph [{card}]"
+    )
 
 
 def check_bitmap_kernels(torch, K, ks, dg) -> None:
@@ -1553,6 +1778,15 @@ def numpy_direct_rows(np, snap, k: int):
     return rows[np.lexsort(rows.T[::-1])]
 
 
+def numpy_in_rows(np, snap, k: int):
+    """Sorted (p, f) rows of Q_IN (f -knows-> p) from the host in-CSR."""
+    csr = snap.edge_classes["knows"]
+    ip = csr.indptr_in.astype(np.int64)
+    ps = np.repeat(np.arange(k), np.diff(ip[: k + 1]))
+    rows = np.stack([ps, csr.src[ip[0] : ip[k]].astype(np.int64)], 1)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
 def _sorted_rows(np, rows, names):
     """Rows as a sorted int64 array (None as -1, bools as 0/1)."""
     got = np.array(
@@ -1596,8 +1830,8 @@ def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
             _require(got.shape == exp.shape and np.array_equal(got, exp), f"Q3 k={params['k']} rows differ from numpy")
         else:
             got = _sorted_rows(np, rows, ("p", "f"))
-            exp = numpy_direct_rows(np, snap, params["k"])
-            _require(got.shape == exp.shape and np.array_equal(got, exp), "direct-fetch rows differ from numpy")
+            exp = (numpy_in_rows if name == "in walk" else numpy_direct_rows)(np, snap, params["k"])
+            _require(got.shape == exp.shape and np.array_equal(got, exp), f"{name} rows differ from numpy")
 
     sync = torch.cuda.synchronize
     K.reset_launches()
@@ -1607,6 +1841,7 @@ def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
         ("Q2", Q2, None),
         ("Q3", Q3, {"k": Q3_K}),
         ("direct", Q_DIRECT, {"k": Q_DIRECT_K}),
+        ("in walk", Q_IN, {"k": Q_DIRECT_K}),
         ("V1", V1, None),
         ("V2", V2, {"k": V2_K}),
         ("V3", V3, {"k": V3_K}),
@@ -1643,6 +1878,27 @@ def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
             print(f"replay kernels V1 (one profiled replay): {level_profile(torch, lambda: db.query(sql, params).to_dicts())}")
         plans[name] = plan
     _require(plans["direct"].direct_fetch and not plans["Q3"].direct_fetch, "direct-fetch path not taken")
+    # the one-hop expansion: one degree scan (K2) and one merge-path gather
+    # (K2b) a walk and no K2a; the in walk reads its edge ids inside the
+    # gather, so it launches the out walk's take_pads and not one more
+    for name, walks in (("Q3", 2), ("direct", 1), ("in walk", 1), ("V3", 1)):
+        per = plans[name].launches
+        _require(
+            per.get("degree_scan_i32", 0) == walks and per.get("gather_expand", 0) == walks
+            and per.get("degree_counts", 0) == 0,
+            f"{name}: the expansion launched {per}",
+        )
+    takes = {n: plans[n].launches.get("take_pad_i32", 0) for n in ("direct", "in walk")}
+    _require(takes["in walk"] == takes["direct"], f"the in walk launched take_pads {takes}")
+    print(
+        "replay expansion: degree_scan_i32 / gather_expand / degree_counts / scan_i32 a replay: "
+        + ", ".join(
+            f"{n} {plans[n].launches.get('degree_scan_i32', 0)} / {plans[n].launches.get('gather_expand', 0)} / "
+            f"{plans[n].launches.get('degree_counts', 0)} / {plans[n].launches.get('scan_i32', 0)}"
+            for n in ("Q3", "direct", "in walk", "V3")
+        )
+        + f"; take_pad_i32 out / in walk {takes['direct']} / {takes['in walk']}"
+    )
     # the COUNT pushdown's weight step: one fused gather a class and
     # direction (Q1 one walk, Q2 two), and a fold of the vertex mask into
     # A's weights (32 MB, within L2) where a step carries them (Q2's first)
@@ -1699,7 +1955,8 @@ def run_replay(np, torch, K, db, snap, card: str, vref: VRef):
     print(
         f"replay Q3 k={Q3_K_OVERFLOW}: {len(rows)} rows; the k={Q3_K} plan's replay overflowed and a "
         f"second variant recorded (width {big.width} vs {q3.width}) and captured in {over_ms:.3f} ms "
-        f"(capture {big.capture_ms:.3f} ms, reserved {big.reserved_bytes} bytes)"
+        f"(capture {big.capture_ms:.3f} ms, reserved {big.reserved_bytes} bytes); launches per replay "
+        f"{sum(big.launches.values())} {big.launches}"
     )
     for k in (Q3_K_OVERFLOW, Q3_K):
         rows = db.query(Q3, {"k": k}).to_dicts()
@@ -2307,9 +2564,7 @@ def check_rows_with_matches(torch, K, ks, dg) -> None:
     n = E_CELLS["E4"][1]["n"]
     width = _cap_of(n)
     srcs = torch.cat([torch.arange(n, dtype=i32, device=dev), torch.full((width - n,), -1, dtype=i32, device=dev)])
-    counts = K.degree_counts(dec.indptr_out, srcs)
-    offsets = K.exclusive_cumsum(counts)
-    total = K.value_sum(counts)
+    offsets, total = K.expand_offsets(dec.indptr_out, srcs)
     row, _pos, nbr = K.gather_expand(dec.indptr_out, dec.dst, srcs, offsets, total, _cap_of(int(total)))
     mask = (row >= 0) & (K.take_pad(age, nbr, 0) > 75)
     W = int(row.shape[0])
@@ -2347,8 +2602,10 @@ def check_rows_with_matches(torch, K, ks, dg) -> None:
     big_ms = _time_ms(torch, lambda: K.rows_with_matches(rows_b, mask_b, segs_b))
     big_plain = _time_ms(torch, lambda: K.plain_rows_with_matches(rows_b, mask_b, segs_b))
     big_bound = (5.0 * Wb + 4.0 * segs_b) / HBM_BYTES_PER_S * 1e3
+    graph_ms = _graph_ms(torch, lambda: K.rows_with_matches(row, mask, width))
     print(
-        f"kernel rows_with_matches at E4's shapes: W={W}, num_segments={width}, {matched} of {n} rows matched; "
+        f"kernel rows_with_matches at E4's shapes: W={W}, num_segments={width}, {matched} of {n} rows matched, "
+        f"{graph_ms:.4f} ms in a graph; "
         f"at W=2^26 ascending (10 a row), num_segments={segs_b}: {big_ms:.4f} ms, plain {big_plain:.4f} ms, "
         f"bound {big_bound:.4f} ms"
     )
@@ -4880,6 +5137,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ks = check_kernels(np, torch, K, dg, card)
     check_bitmap_kernels(torch, K, ks, dg)
+    check_forward(np, torch, K, dg, snap, card)
     print(f"kernels: all equal their plain versions ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     vref = VRef(np, snap)

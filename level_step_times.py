@@ -24,9 +24,19 @@ compare two trees on one card:
   fused ``weight_gather`` where the tree has it, the mask folded into the
   weights first where the tree folds, and always the five calls the
   earlier tree made (two bool and one int32 ``take_pad``, ``&``, ``.to``,
-  ``*``), on the tree's own ``take_pad``.
+  ``*``), on the tree's own ``take_pad``;
+- K2 and K2b, the one-hop expansion, at Q3's second hop on an A-shaped CSR
+  (8M Poisson(10) vertices, 80M random targets; the in walk over the
+  matching in-CSR, its edge ids through ``edge_id_in``), at Q3's second hop
+  for k = 50,000 (the first chunk, as the engine splits it) and on a Zipf
+  frontier (`chip_smoke.zipf_indptr`'s CSR, every vertex a source, a third
+  of them -1): K2a ``degree_counts``, K1's sum and its offsets + total of
+  the counts, K2b ``gather_expand``, the in walk's ``take_pad`` over
+  ``edge_id_in``, and the whole hop as the parent launched it; where the
+  tree has them, the degree scan (``expand_offsets``), the gather with the
+  edge map inside it and the hop as this tree launches it.
 
-    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5]
+    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5,k2]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
 package to time; it is imported before anything else, and the file it was
@@ -291,10 +301,87 @@ def k5(torch, K, cs, times) -> None:
         print(line)
 
 
+def k2(np, torch, K, cs, times) -> None:
+    """K2 and K2b at Q3's shapes and on a Zipf frontier (module docstring)."""
+    from orientdb_tpu_torch.exec.tpu_engine import _cap_of
+    from orientdb_tpu_torch.utils.config import config
+
+    i32 = torch.int32
+    rng = np.random.default_rng(19)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    indptr = _poisson_indptr(np, torch, rng, 0)
+    ne = int(indptr[-1])
+    dst = torch.randint(0, PERSONS, (ne,), generator=gen, device="cuda", dtype=i32)
+    # the in-CSR: the edges in a stable order of their targets
+    order = torch.sort(dst, stable=True).indices
+    edge_src = torch.repeat_interleave(torch.arange(PERSONS, dtype=i32, device="cuda"), (indptr[1:] - indptr[:-1]).long())
+    src_in = edge_src[order]
+    indptr_in = torch.cat([torch.zeros(1, dtype=torch.long, device="cuda"),
+                           torch.cumsum(torch.bincount(dst.long(), minlength=PERSONS), 0)]).to(i32)
+    eid_in = order.to(i32)
+    del order, edge_src
+
+    def frontier(k):
+        f = dst[: int(indptr[k])]
+        width = _cap_of(f.shape[0])
+        return torch.cat([f, torch.full((width - f.shape[0],), -1, dtype=i32, device="cuda")])
+
+    q3, big = frontier(2000), frontier(50_000)
+    big_total = int(K.value_sum(K.degree_counts(indptr, big)))
+    chunks = max(1, -(-_cap_of(big_total) // max(1, config.max_expansion_cap)))
+    chunk = big[: -(-big.shape[0] // chunks)]
+    zip_ip, zrng = cs.zipf_indptr(np, torch, "cuda")
+    zv, ze = zip_ip.shape[0] - 1, int(zip_ip[-1])
+    zip_nbrs = torch.randint(0, zv, (ze,), generator=gen, device="cuda", dtype=i32)
+    zip_map = torch.randperm(ze, generator=gen, device="cuda").to(i32)
+    zip_srcs = torch.arange(zv, dtype=i32, device="cuda")
+    zip_srcs[torch.from_numpy(zrng.random(zv) < 1 / 3).cuda()] = -1
+    scans = hasattr(K, "expand_offsets")
+    print(f"K2 the tree has the degree scan and the mapped gather: {scans}")
+    for shape, ip, nb, s, emap in (
+        ("Q3", indptr, dst, q3, None),
+        ("Q3 in", indptr_in, src_in, q3, eid_in),
+        (f"k=50,000 chunk 1 of {chunks}", indptr, dst, chunk, None),
+        (f"k=50,000 chunk 1 of {chunks} in", indptr_in, src_in, chunk, eid_in),
+        ("Zipf", zip_ip, zip_nbrs, zip_srcs, zip_map),
+    ):
+        counts = K.degree_counts(ip, s)
+        offsets, total = K.exclusive_cumsum_total(counts)
+        size = _cap_of(int(total))
+        got = K.gather_expand(ip, nb, s, offsets, total, size)
+        _same(torch, got, K.plain_gather_expand(ip, nb, s, offsets, total, size), f"gather_expand ({shape})")
+        pos = got[1]
+        fns = {
+            "K2a degree_counts": lambda ip=ip, s=s: K.degree_counts(ip, s),
+            "K1 sum": lambda c=counts: K.value_sum(c),
+            "K1 offsets + total": lambda c=counts: K.exclusive_cumsum_total(c),
+            "K2b gather_expand": lambda a=(ip, nb, s, offsets, total, size): K.gather_expand(*a),
+        }
+        if emap is not None:
+            fns["K5 take_pad edge_id_in"] = lambda m=emap, p=pos: K.take_pad(m, p, -1)
+        fns["hop, the parent's launches"] = lambda a=(K, ip, nb, s, size, emap): cs.earlier_hop(*a)
+        if scans:
+            _same(torch, K.expand_offsets(ip, s), K.plain_expand_offsets(ip, s), f"expand_offsets ({shape})")
+            fns["K2 degree_scan_i32"] = lambda ip=ip, s=s: K.expand_offsets(ip, s)
+            if emap is not None:
+                a = (ip, nb, s, offsets, total, size, emap)
+                _same(torch, K.gather_expand(*a), K.plain_gather_expand(*a), f"gather_expand mapped ({shape})")
+                fns["K2b gather_expand mapped"] = lambda a=a: K.gather_expand(*a)
+            fns["hop, this tree's launches"] = lambda a=(K, ip, nb, s, size, emap): cs.one_hop(*a)
+        live = int((s >= 0).sum())
+        b_scan, b_gather = cs.expand_bounds(s.shape[0], live, int(total), size, emap is not None)
+        line = []
+        for name, fn in fns.items():
+            times[f"{name}, {shape}"] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+            line.append(f"{name} {times[f'{name}, {shape}'][0]:.4f} / {times[f'{name}, {shape}'][1]:.4f}")
+        print(f"K2 {shape} ({s.shape[0]} sources, {live} live, {int(total)} slots into {size}), ms eager / in a "
+              f"graph: {'; '.join(line)}; bounds: degree scan {b_scan:.4f}, gather {b_gather:.4f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
-    ap.add_argument("--only", default="level,k4,k15,k5")
+    ap.add_argument("--only", default="level,k4,k15,k5,k2")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     # the tree's package first: chip_smoke.py (this script's) imports the
@@ -325,6 +412,8 @@ def main() -> int:
         predicate_masks(np, torch, K, cs, times)
     if "k5" in only:
         k5(torch, K, cs, times)
+    if "k2" in only:
+        k2(np, torch, K, cs, times)
     print(json.dumps({"tree": tree, "kernels": K.__file__, "card": card, "ms [eager, graph]": times}))
     return 0
 

@@ -220,6 +220,43 @@ __device__ __forceinline__ T tile_prefix(unsigned long long* state, unsigned til
   return *s_prefix;
 }
 
+// Writes a warp's part of a scanned tile in warp_striped_scan's layout (4
+// elements a load): `start` is the sum of every element before the warp's,
+// base[v] that of the warp's elements before lane l's load v; 16-byte
+// stores where the output is aligned.
+template <typename T, int VECS>
+__device__ __forceinline__ void store_scanned(T* __restrict__ out, long long n, long long wbase,
+                                              T start, const T (&x)[VECS][4],
+                                              const T (&base)[VECS], int exclusive, int vec_ok) {
+  constexpr int kVec = 4;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int v = 0; v < VECS; ++v) {
+    const long long e0 = wbase + static_cast<long long>(v * 32 + lane) * kVec;
+    T acc = start + base[v];
+    T y[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      if (exclusive) {
+        y[j] = acc;
+        acc += x[v][j];
+      } else {
+        acc += x[v][j];
+        y[j] = acc;
+      }
+    }
+    if (vec_ok && e0 + kVec <= n) {
+      *reinterpret_cast<uint4*>(out + e0) =
+          make_uint4(lb_bits(y[0]), lb_bits(y[1]), lb_bits(y[2]), lb_bits(y[3]));
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        if (e0 + j < n) out[e0 + j] = y[j];
+      }
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 scan_lookback_kernel(const T* __restrict__ in, T* __restrict__ out, T* __restrict__ total,
@@ -259,36 +296,7 @@ scan_lookback_kernel(const T* __restrict__ in, T* __restrict__ out, T* __restric
   const T prefix = tile_prefix<T>(state, tile, (n + kTileN - 1) / kTileN, warp_sum, s_warp,
                                   &s_prefix, total, warp_off);
   if (out == nullptr) return;
-  const T start = prefix + warp_off;
-#pragma unroll
-  for (int v = 0; v < VECS; ++v) {
-    const long long e0 = wbase + static_cast<long long>(v * 32 + lane) * kVec;
-    T acc = start + base[v];
-    T y[kVec];
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      if (exclusive) {
-        y[j] = acc;
-        acc += x[v][j];
-      } else {
-        acc += x[v][j];
-        y[j] = acc;
-      }
-    }
-    if (vec_ok && e0 + kVec <= n) {
-      uint4* dst = reinterpret_cast<uint4*>(out + e0);
-#pragma unroll
-      for (int q = 0; q < kVec / 4; ++q) {
-        dst[q] = make_uint4(lb_bits(y[4 * q]), lb_bits(y[4 * q + 1]), lb_bits(y[4 * q + 2]),
-                            lb_bits(y[4 * q + 3]));
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        if (e0 + j < n) out[e0 + j] = y[j];
-      }
-    }
-  }
+  store_scanned<T, VECS>(out, n, wbase, prefix + warp_off, x, base, exclusive, vec_ok);
 }
 
 // Exclusive scan of one value per thread across the block; every thread
@@ -347,7 +355,9 @@ cudaError_t scan_lookback(const T* in, T* out, T* total, long long n,
 // K2a: degree_counts (replaces csr.degree_counts :39).
 // Bound: K*4 read (srcs) + 2 indptr reads per valid source + K*4 written.
 // One thread per source; padding (src < 0) counts 0. The source is clipped
-// into [0, V-1] before indexing, where jnp.take would clip silently.
+// into [0, V-1] before indexing, where jnp.take would clip silently. The
+// engine no longer calls it (degree_scan_i32 below computes the counts in
+// its load stage); it stays as the counterpart of the reference function.
 // ---------------------------------------------------------------------------
 __global__ void degree_counts_kernel(const int* __restrict__ indptr, long long nv,
                                      const int* __restrict__ srcs, long long k,
@@ -364,56 +374,278 @@ __global__ void degree_counts_kernel(const int* __restrict__ indptr, long long n
 }
 
 // ---------------------------------------------------------------------------
-// K2b: gather_expand (replaces csr.gather_expand :54).
-// Bound: srcs, offsets and indptr read once per source (12 bytes each), one
-// neighbour read per live slot, three int32 outputs per slot written.
-// Design: one thread per output slot finds its source row by binary search
-// (upper bound) over the exclusive offsets, log2(K) dependent reads that
-// hit L2 for the frontier sizes of the path. The TPU's scatter+cumsum rank
-// search avoided serial gathers on the TPU's vector unit; a GPU thread does
-// a binary search cheaply. Every clip of the reference is kept: an
-// out-of-range index here is a sticky device fault.
+// K2: degree_scan_i32, a one-hop expansion's offsets and total (replaces
+// csr.degree_counts :39 followed by csr.exclusive_cumsum :47 and the sum
+// of the counts, the engine's count → scan → total).
+// Bound: K*4 bytes of srcs read, 8 of indptr a valid source, K*4 of
+// offsets written (Q3's second hop, 65,536 sources of which ~20k live:
+// ~0.69 MB, ~0.0002 ms), so the launch and the look-back chain decide.
+// Design: K1's single-pass decoupled look-back scan (scan_lookback_kernel)
+// with K2a's work in its load stage: a thread loads its sources with
+// 16-byte loads where aligned (kDegVecs of them, warp-striped as in K1),
+// issues both indptr reads of every valid source before it uses any,
+// scans the degrees in registers and shuffles, and writes the exclusive
+// offsets; the last tile writes the total. One launch after one memset of
+// the look-back state; no counts array and no second launch. The tile
+// (kDegTile = 2,048 sources) is smaller than K1's so that a frontier of a
+// few tens of thousands of sources still spreads over several SMs. int32
+// sums are taken in uint32 and wrap as the reference's int32 cumsum does.
 // ---------------------------------------------------------------------------
-__global__ void gather_expand_kernel(const int* __restrict__ indptr, long long nv,
-                                     const int* __restrict__ nbrs, long long ne,
-                                     const int* __restrict__ srcs,
-                                     const int* __restrict__ offsets, long long k,
-                                     const int* __restrict__ total,
-                                     long long out_size, int* __restrict__ row_out,
-                                     int* __restrict__ pos_out,
-                                     int* __restrict__ nbr_out) {
-  long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= out_size) return;
-  if (p >= static_cast<long long>(*total) || k == 0) {
-    row_out[p] = -1;
-    pos_out[p] = -1;
-    nbr_out[p] = -1;
-    return;
-  }
-  long long lo = 0, hi = k;  // first row whose offset is > p
-  while (lo < hi) {
-    long long mid = (lo + hi) >> 1;
-    if (static_cast<long long>(offsets[mid]) <= p) {
-      lo = mid + 1;
+constexpr int kDegVecs = 2;  // 16-byte source loads a thread
+constexpr long long kDegTile = kThreads * 4LL * kDegVecs;
+
+__global__ void __launch_bounds__(kThreads)
+degree_scan_kernel(const unsigned* __restrict__ indptr, long long nv, const int* __restrict__ srcs,
+                   long long k, unsigned* __restrict__ offsets, unsigned* __restrict__ total,
+                   unsigned long long* __restrict__ state, int vec_ok) {
+  constexpr int kVec = 4;
+  __shared__ unsigned s_tile;
+  __shared__ unsigned s_warp[kWarps];
+  __shared__ unsigned s_prefix;
+  const unsigned tile = lb_tile(state, &s_tile);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long wbase = tile * kDegTile + static_cast<long long>(warp) * 32 * kVec * kDegVecs;
+  int src[kDegVecs][kVec];
+#pragma unroll
+  for (int v = 0; v < kDegVecs; ++v) {
+    const long long e0 = wbase + static_cast<long long>(v * 32 + lane) * kVec;
+    if (vec_ok && e0 + kVec <= k) {
+      const int4 raw = __ldg(reinterpret_cast<const int4*>(srcs + e0));
+      src[v][0] = raw.x;
+      src[v][1] = raw.y;
+      src[v][2] = raw.z;
+      src[v][3] = raw.w;
     } else {
-      hi = mid;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) src[v][j] = e0 + j < k ? srcs[e0 + j] : -1;
     }
   }
-  long long r = lo > 0 ? lo - 1 : 0;  // clip(row, 0, K-1)
-  int src = srcs[r];
-  long long s = src < 0 ? 0 : src;  // clip(src, 0, V-1)
-  if (s > nv - 1) s = nv - 1;
-  if (s < 0) s = 0;
-  int edge_pos = indptr[s] + static_cast<int>(p - offsets[r]);
-  int nbr = -1;
-  if (ne > 0) {
-    long long c = edge_pos < 0 ? 0 : edge_pos;  // clip(edge_pos, 0, E-1)
-    if (c > ne - 1) c = ne - 1;
-    nbr = nbrs[c];
+  unsigned lo[kDegVecs][kVec], hi[kDegVecs][kVec];
+#pragma unroll
+  for (int v = 0; v < kDegVecs; ++v) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      lo[v][j] = hi[v][j] = 0u;
+      const int c = src[v][j];
+      if (c >= 0 && nv > 0) {  // clip(src, 0, V-1); padding counts 0
+        const long long cc = c < nv ? c : nv - 1;
+        lo[v][j] = __ldg(indptr + cc);
+        hi[v][j] = __ldg(indptr + cc + 1);
+      }
+    }
   }
-  row_out[p] = static_cast<int>(r);
-  pos_out[p] = edge_pos;
-  nbr_out[p] = nbr;
+  unsigned x[kDegVecs][kVec];
+#pragma unroll
+  for (int v = 0; v < kDegVecs; ++v) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) x[v][j] = hi[v][j] - lo[v][j];
+  }
+  unsigned base[kDegVecs];
+  const unsigned warp_sum = warp_striped_scan<unsigned, kDegVecs, kVec>(x, base);
+  unsigned warp_off;
+  const unsigned prefix = tile_prefix<unsigned>(state, tile, (k + kDegTile - 1) / kDegTile, warp_sum,
+                                                s_warp, &s_prefix, total, warp_off);
+  store_scanned<unsigned, kDegVecs>(offsets, k, wbase, prefix + warp_off, x, base, 1, vec_ok);
+}
+
+// The merge-path split of diagonal d (Merrill and Garland, SC'16): items
+// x = 0, 1, ... of a keyed list (keys non-decreasing) merged with the
+// items y = 0, 1, ... of a plain sequence, keyed item x before item y when
+// key(x) <= y. Returns the number of keyed items among the first d merged
+// items: the first x in [lo, hi) with key(x) > d - x - 1, or hi (the
+// caller passes lo = max(0, d - plain items), hi = min(d, keyed items)).
+// Run by a whole warp: 32 pivots a step narrow the range 33-fold (five
+// steps of dependent loads over 8M keys, against 23 for one thread); every
+// lane gets the answer. The result stays in [lo, hi] whatever the keys.
+// K2b splits row offsets against output slots with it, K4 segment ends
+// against values.
+template <typename Key>
+__device__ __forceinline__ long long warp_merge_split(Key key, long long lo, long long hi,
+                                                      long long d) {
+  const int lane = threadIdx.x & 31;
+  while (hi - lo > 32) {
+    const long long p = lo + (hi - lo) * (lane + 1) / 33;
+    const unsigned below = __ballot_sync(kFull, key(p) <= d - p - 1);
+    const int c = __popc(below);  // the pivots still before the answer
+    const long long plo = __shfl_sync(kFull, p, c > 0 ? c - 1 : 0);
+    const long long phi = __shfl_sync(kFull, p, c < 32 ? c : 31);
+    if (c > 0) lo = plo + 1;
+    if (c < 32) hi = phi;
+  }
+  const long long x = lo + lane;
+  const unsigned before = __ballot_sync(kFull, x < hi && key(x) <= d - x - 1);
+  return lo + __popc(before);
+}
+
+// Writes the triples f(i) = (row, edge position, neighbour) of the slots
+// p0 + i, i < n, by the whole block: a scalar head up to 16-byte alignment
+// of the outputs, four slots a thread with one 16-byte store an output,
+// a scalar tail (all scalar when `vec` is 0). A warp's stores cover
+// consecutive slots either way.
+template <typename F>
+__device__ __forceinline__ void store_triples(long long p0, int n, int vec, int* __restrict__ a,
+                                              int* __restrict__ b, int* __restrict__ c, F f) {
+  int head = vec ? static_cast<int>((4 - (p0 & 3)) & 3) : n;
+  if (head > n) head = n;
+  const int body = (n - head) >> 2;
+  for (int i = threadIdx.x; i < head; i += kThreads) {
+    const int3 v = f(i);
+    a[p0 + i] = v.x;
+    b[p0 + i] = v.y;
+    c[p0 + i] = v.z;
+  }
+  for (int g = threadIdx.x; g < body; g += kThreads) {
+    const int i = head + 4 * g;
+    const int3 v0 = f(i), v1 = f(i + 1), v2 = f(i + 2), v3 = f(i + 3);
+    const long long q = (p0 + i) >> 2;
+    reinterpret_cast<int4*>(a)[q] = make_int4(v0.x, v1.x, v2.x, v3.x);
+    reinterpret_cast<int4*>(b)[q] = make_int4(v0.y, v1.y, v2.y, v3.y);
+    reinterpret_cast<int4*>(c)[q] = make_int4(v0.z, v1.z, v2.z, v3.z);
+  }
+  for (int i = head + 4 * body + threadIdx.x; i < n; i += kThreads) {
+    const int3 v = f(i);
+    a[p0 + i] = v.x;
+    b[p0 + i] = v.y;
+    c[p0 + i] = v.z;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2b: gather_expand (replaces csr.gather_expand :54).
+// Bound: srcs, offsets and indptr read once per source (12 bytes each), one
+// neighbour read per live slot (and one edge-map read with `edge_map`),
+// three int32 outputs per slot written (Q3's second hop: 65,536 sources,
+// ~200k slots in a 524,288 bucket, ~0.0024 ms).
+// Design: a merge-path load-balanced search (moderngpu's LoadBalanceSearch,
+// after Merrill and Garland's merge path). The K row offsets and the
+// n = min(total, out_size) live slots form one merged sequence (row r
+// before slot p when offsets[r] <= p, so a slot follows exactly the rows
+// the reference's upper bound counts); the padding slots [n, out_size)
+// follow it, so the tiles cover K + out_size items, kExpandTile
+// consecutive ones each, however many zero-degree or padding rows share an
+// offset and however long one row is. A block a tile (a grid capped at the
+// blocks the card holds at once, each looping over tiles, measured slower).
+// A block:
+//  1. finds its first and last merged item's row by two warp-cooperative
+//     merge-path searches over offsets (warps 0 and 1);
+//  2. stages its rows' offsets[r] and indptr[clip(srcs[r])] in shared
+//     memory, with the row before its first (a slot at the tile's start
+//     belongs to it; row -1 is row 0, the reference's clip);
+//  3. each thread finds its own start among the tile's items by a search in
+//     shared memory and walks its kExpandItems items once, writing each
+//     slot's row to shared memory;
+//  4. the block writes the slots in order: consecutive slots of a row read
+//     consecutive neighbours (and edge-map entries), so a warp's loads
+//     coalesce, and the outputs go out four slots a thread as 16-byte
+//     stores;
+//  5. a tile past the live slots writes -1 to all three outputs in a
+//     straight line (the tile that holds the total, its part past it).
+// Every clip of the reference is kept: the row into [0, K-1] (the last of
+// several rows that share an offset wins), the source into [0, V-1], the
+// edge position into [0, E-1] for the read only, nbr -1 when E is 0. A
+// replay may see total > out_size: every slot is then live and nothing is
+// written past out_size. With `edge_map` (the in walk's edge_id_in, of nm
+// entries) the position output holds edge_map[clip(edge_pos)] (-1 where
+// edge_pos < 0 or nm is 0), the reference's take_pad(edge_id_in, pos, -1).
+// Offsets that are not non-decreasing give another answer but no access
+// out of range.
+// ---------------------------------------------------------------------------
+constexpr int kExpandItems = 8;  // merged items a thread
+constexpr int kExpandTile = kThreads * kExpandItems;
+
+__global__ void __launch_bounds__(kThreads)
+gather_expand_kernel(const int* __restrict__ indptr, long long nv, const int* __restrict__ nbrs,
+                     long long ne, const int* __restrict__ srcs, const int* __restrict__ offsets,
+                     long long k, const int* __restrict__ total, long long out_size,
+                     const int* __restrict__ edge_map, long long nm, int* __restrict__ row_out,
+                     int* __restrict__ pos_out, int* __restrict__ nbr_out, int vec) {
+  __shared__ int s_off[kExpandTile + 1];   // offsets of rows i0 - 1 .. i1 - 1
+  __shared__ int s_base[kExpandTile + 1];  // indptr[clip(srcs[r])] of the same rows
+  __shared__ int s_row[kExpandTile];       // a slot's row, as its index in the two above
+  __shared__ long long s_split[2];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const long long t = k > 0 ? static_cast<long long>(__ldg(total)) : 0;
+  const long long n_slots = t < 0 ? 0 : (t > out_size ? out_size : t);
+  const long long m = k + n_slots;  // the merged sequence's length
+  const long long d0 = static_cast<long long>(blockIdx.x) * kExpandTile;
+  const long long d1 = d0 + kExpandTile < k + out_size ? d0 + kExpandTile : k + out_size;
+  if (d0 < m) {  // uniform across the block
+    const long long e1 = d1 < m ? d1 : m;
+    if (warp < 2) {
+      const long long d = warp == 0 ? d0 : e1;
+      const long long lo = d > n_slots ? d - n_slots : 0, hi = d < k ? d : k;
+      const long long x = warp_merge_split(
+          [&](long long r) { return static_cast<long long>(__ldg(offsets + r)); }, lo, hi, d);
+      if ((tid & 31) == 0) s_split[warp] = x;
+    }
+    __syncthreads();
+    const long long i0 = s_split[0];
+    const int items = static_cast<int>(e1 - d0);
+    long long i1 = s_split[1];
+    i1 = i1 < i0 ? i0 : (i1 > i0 + items ? i0 + items : i1);
+    const int ni = static_cast<int>(i1 - i0), nj = items - ni;
+    const long long j0 = d0 - i0;  // the tile's first slot
+    for (int e = tid; e <= ni; e += kThreads) {
+      const long long r = i0 - 1 + e < 0 ? 0 : i0 - 1 + e;
+      s_off[e] = __ldg(offsets + r);
+      int b = 0;
+      if (nv >= 0) {
+        long long c = __ldg(srcs + r);
+        c = c > nv - 1 ? nv - 1 : c;
+        b = __ldg(indptr + (c < 0 ? 0 : c));
+      }
+      s_base[e] = b;
+    }
+    __syncthreads();
+    // the tile's row x is staged at x + 1; the thread's first item is the
+    // first x with offsets[i0 + x] > its slot
+    const int ds = tid * kExpandItems < items ? tid * kExpandItems : items;
+    const int cnt = (ds + kExpandItems < items ? ds + kExpandItems : items) - ds;
+    int lo = ds > nj ? ds - nj : 0, hi = ds < ni ? ds : ni;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (static_cast<long long>(s_off[mid + 1]) <= j0 + ds - mid - 1) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    int x = lo, y = ds - lo;
+#pragma unroll
+    for (int q = 0; q < kExpandItems; ++q) {
+      if (q < cnt) {
+        if (x < ni && (y >= nj || static_cast<long long>(s_off[x + 1]) <= j0 + y)) {
+          ++x;  // a row starts: later slots belong to it
+        } else {
+          s_row[y++] = x;  // the slot belongs to the latest row (staged at x)
+        }
+      }
+    }
+    __syncthreads();
+    store_triples(j0, nj, vec, row_out, pos_out, nbr_out, [&](int yy) {
+      const int e = s_row[yy];
+      const long long r = i0 - 1 + e < 0 ? 0 : i0 - 1 + e;
+      // int32 arithmetic, wrapping as the reference's
+      const int ep = static_cast<int>(static_cast<unsigned>(s_base[e]) +
+                                      static_cast<unsigned>(j0 + yy) -
+                                      static_cast<unsigned>(s_off[e]));
+      int nb = -1;
+      if (ne > 0) nb = __ldg(nbrs + (ep < 0 ? 0 : (ep > ne - 1 ? ne - 1 : ep)));
+      int pos = ep;
+      if (edge_map != nullptr) {
+        pos = ep >= 0 && nm > 0 ? __ldg(edge_map + (ep > nm - 1 ? nm - 1 : ep)) : -1;
+      }
+      return make_int3(static_cast<int>(r), pos, nb);
+    });
+  }
+  // the slots past the total: -1 in all three outputs
+  const long long pa = (d0 > m ? d0 : m) - k, pb = d1 - k;
+  if (pb > pa) {
+    store_triples(pa, static_cast<int>(pb - pa), vec, row_out, pos_out, nbr_out,
+                  [](int) { return make_int3(-1, -1, -1); });
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -520,8 +752,8 @@ compact_lookback_kernel(const unsigned char* __restrict__ mask, long long n, lon
 // (Poisson, Zipf, runs of empty segments, one segment over many tiles).
 // Three launches on the caller's stream:
 //  1. seg_partition_kernel: a warp a tile boundary searches the merge path
-//     for the boundary's segment coordinate, 32 pivots a step (five steps
-//     of dependent loads over 8M segments, against 23 for one thread); the
+//     for the boundary's segment coordinate (warp_merge_split, 32 pivots a
+//     step: five steps of dependent loads over 8M segments); the
 //     same launch writes the zero padding [nseg, out_size) with 16-byte
 //     stores;
 //  2. seg_sum_kernel: a block stages its tile's segment ends and values in
@@ -582,24 +814,12 @@ __global__ void seg_partition_kernel(const int* __restrict__ indptr, long long n
     const SegSpan sp = seg_span(indptr, ne, nseg);
     const long long total = nseg + sp.nv;
     // a warp a boundary: the number of segment ends among its first d
-    // items is the first x with end(x) > d - x - 1 (true, then false, as x
-    // grows); 32 pivots a step narrow the range 33-fold
+    // items (a segment end before the value at its own index)
     for (long long t = tid >> 5; t <= tiles; t += step >> 5) {
       const long long d = t * kSegTile < total ? t * kSegTile : total;
-      long long lo = d > sp.nv ? d - sp.nv : 0;
-      long long hi = d < nseg ? d : nseg;
-      while (hi - lo > 32) {
-        const long long p = lo + (hi - lo) * (lane + 1) / 33;
-        const unsigned below = __ballot_sync(kFull, seg_end(indptr, sp, p) <= d - p - 1);
-        const int c = __popc(below);  // the pivots still before the answer
-        const long long plo = __shfl_sync(kFull, p, c > 0 ? c - 1 : 0);
-        const long long phi = __shfl_sync(kFull, p, c < 32 ? c : 31);
-        if (c > 0) lo = plo + 1;
-        if (c < 32) hi = phi;
-      }
-      const long long x = lo + lane;
-      const unsigned before = __ballot_sync(kFull, x < hi && seg_end(indptr, sp, x) <= d - x - 1);
-      if (lane == 0) rowc[t] = static_cast<int>(lo + __popc(before));
+      const long long x = warp_merge_split([&](long long p) { return seg_end(indptr, sp, p); },
+                                           d > sp.nv ? d - sp.nv : 0, d < nseg ? d : nseg, d);
+      if (lane == 0) rowc[t] = static_cast<int>(x);
     }
   }
   // zeros past the segments: a scalar head up to 16-byte alignment, then
@@ -3137,17 +3357,43 @@ int csr_degree_counts(const void* indptr, long long nv, const void* srcs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2's look-back state for k sources, in bytes.
+long long csr_degree_scan_scratch(long long k) {
+  return lb_state_bytes(k > 0 ? (k + kDegTile - 1) / kDegTile : 0);
+}
+
+// K2: the exclusive offsets of the sources' degrees and their total (a
+// device int32), after one memset of `state`.
+int csr_degree_scan_i32(const void* indptr, long long nv, const void* srcs, long long k,
+                        void* offsets, void* total, void* state, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 0) return static_cast<int>(cudaMemsetAsync(total, 0, sizeof(int), s));
+  const long long tiles = (k + kDegTile - 1) / kDegTile;
+  cudaError_t e = cudaMemsetAsync(state, 0xff, lb_state_bytes(tiles), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int vec_ok = aligned16(srcs) && aligned16(offsets);
+  degree_scan_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+      static_cast<const unsigned*>(indptr), nv, static_cast<const int*>(srcs), k,
+      static_cast<unsigned*>(offsets), static_cast<unsigned*>(total),
+      static_cast<unsigned long long*>(state), vec_ok);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2b. `edge_map` (nm entries) is optional: null writes the edge position.
 int csr_gather_expand(const void* indptr, long long nv, const void* nbrs,
                       long long ne, const void* srcs, const void* offsets,
                       long long k, const void* total, long long out_size,
+                      const void* edge_map, long long nm,
                       void* row_out, void* pos_out, void* nbr_out, void* stream) {
   if (out_size > 0) {
-    gather_expand_kernel<<<blocks_for(out_size, kThreads), kThreads, 0,
+    const int vec = aligned16(row_out) && aligned16(pos_out) && aligned16(nbr_out);
+    gather_expand_kernel<<<blocks_for(k + out_size, kExpandTile), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(indptr), nv, static_cast<const int*>(nbrs), ne,
         static_cast<const int*>(srcs), static_cast<const int*>(offsets), k,
-        static_cast<const int*>(total), out_size, static_cast<int*>(row_out),
-        static_cast<int*>(pos_out), static_cast<int*>(nbr_out));
+        static_cast<const int*>(total), out_size, static_cast<const int*>(edge_map), nm,
+        static_cast<int*>(row_out), static_cast<int*>(pos_out), static_cast<int*>(nbr_out),
+        vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -922,12 +922,13 @@ class TpuMatchSolver:
     def _compact(self, mask):
         return _observe_compact(self.sched, mask)
 
-    def _expand_csr(self, indptr, nbrs, srcs):
-        counts = K.degree_counts(indptr, srcs)
-        offsets, total_dev = K.exclusive_cumsum_total(counts)
+    def _expand_csr(self, indptr, nbrs, srcs, offsets, total_dev, edge_map=None):
+        """One CSR expansion sized by ``expand_offsets``' (offsets, device
+        total); with ``edge_map`` (an in walk's ``edge_id_in``) the edge
+        position comes back mapped through it."""
         total = self.sched.observe(total_dev)
         row, edge_pos, nbr = K.gather_expand(
-            indptr, nbrs, srcs, offsets, total_dev, _cap_of(total)
+            indptr, nbrs, srcs, offsets, total_dev, _cap_of(total), edge_map
         )
         if self.overlay is not None:
             # a tombstoned base edge keeps its CSR slot with a -1 endpoint:
@@ -987,11 +988,13 @@ class TpuMatchSolver:
             return [self._expand_one_dir(dec, d, srcs)]
         cap = max(1, config.max_expansion_cap)
         indptr = dec.indptr_out if d == "out" else dec.indptr_in
-        # free: it picks the chunking; each chunk's own observe checks growth
-        total = self.sched.observe(K.value_sum(K.degree_counts(indptr, srcs)), free=True)
+        offsets, total_dev = K.expand_offsets(indptr, srcs)
+        # free: it picks the chunking; the expansion observes the same total
+        # again (one chunk), or each chunk its own, to check growth
+        total = self.sched.observe(total_dev, free=True)
         n_chunks = max(1, -(-_cap_of(total) // cap))
         if n_chunks == 1:
-            return [self._expand_one_dir(dec, d, srcs)]
+            return [self._expand_one_dir(dec, d, srcs, (offsets, total_dev))]
         width = int(srcs.shape[0])
         step = -(-width // n_chunks)
         slabs = []
@@ -1001,18 +1004,16 @@ class TpuMatchSolver:
             slabs.append((row, eid, nbr, t))
         return slabs
 
-    def _expand_paged(self, dec, d: str, srcs):
+    def _expand_paged(self, dec, d: str, srcs, sizing):
         """The expansion of a paged (class, direction): row and edge
-        position from the resident indptr as in `_expand_csr`, the
-        neighbour and (in) the edge id from the tier's pool through the
+        position from the resident indptr's ``sizing`` (`_expand_one_dir`),
+        the neighbour and (in) the edge id from the tier's pool through the
         block → page indirection (K21). The recording run faults the
         sources' blocks in first (the plan's footprint); a replay raises
         K21's cold-miss flag into the overflow flag instead."""
         if self.sched.recording:
             self.tier.ensure_vertices(dec.class_name, d, srcs, self.tier_touched)
-        indptr = dec.indptr_out if d == "out" else dec.indptr_in
-        counts = K.degree_counts(indptr, srcs)
-        offsets, total_dev = K.exclusive_cumsum_total(counts)
+        offsets, total_dev = sizing
         total = self.sched.observe(total_dev)
         row, eid, nbr, cold = tiering.paged_expand(
             self.dg.arrays, dec.class_name, d, srcs, offsets, total_dev, _cap_of(total)
@@ -1043,20 +1044,22 @@ class TpuMatchSolver:
         )
         return row, eid, nbr, total
 
-    def _expand_one_dir(self, dec, d: str, srcs):
+    def _expand_one_dir(self, dec, d: str, srcs, sizing=None):
         """One (edge class, direction) expansion → (row, edge id in out
         order, neighbor, host total): an in-walk maps its CSR position
-        through the class's ``edge_id_in``; a paged one reads the tier's
-        pool (`_expand_paged`); a meshed one the shards (`_expand_sharded`)."""
+        through the class's ``edge_id_in`` inside the gather; a paged one
+        reads the tier's pool (`_expand_paged`); a meshed one the shards
+        (`_expand_sharded`). ``sizing`` is ``expand_offsets(indptr, srcs)``
+        when the caller has it already."""
         if self.dg.mesh_graph is not None:
             return self._expand_sharded(dec, d, srcs)
+        indptr = dec.indptr_out if d == "out" else dec.indptr_in
+        if sizing is None:
+            sizing = K.expand_offsets(indptr, srcs)
         if self.tier is not None and self.tier.pages_dir(dec.class_name, d):
-            return self._expand_paged(dec, d, srcs)
-        if d == "out":
-            row, eid, nbr, total = self._expand_csr(dec.indptr_out, dec.dst, srcs)
-        else:
-            row, pos, nbr, total = self._expand_csr(dec.indptr_in, dec.src, srcs)
-            eid = K.take_pad(dec.edge_id_in, pos, -1)
+            return self._expand_paged(dec, d, srcs, sizing)
+        nbrs, edge_map = (dec.dst, None) if d == "out" else (dec.src, dec.edge_id_in)
+        row, eid, nbr, total = self._expand_csr(indptr, nbrs, srcs, *sizing, edge_map)
         if self.overlay is not None and self.overlay.topology_dirty:
             # appended edges live outside the base CSR: the slab's slots
             # follow the base slots (padding interleaves; masks key on row)

@@ -43,7 +43,9 @@ SIGNATURES = {
     "csr_scan_i32": [_P, _P, _P, _N, _P, _I, _P],
     "csr_scan_f32": [_P, _P, _P, _N, _P, _I, _P],
     "csr_degree_counts": [_P, _N, _P, _N, _P, _P],
-    "csr_gather_expand": [_P, _N, _P, _N, _P, _P, _N, _P, _N, _P, _P, _P, _P],
+    "csr_degree_scan_scratch": [_N],
+    "csr_degree_scan_i32": [_P, _N, _P, _N, _P, _P, _P, _P],
+    "csr_gather_expand": [_P, _N, _P, _N, _P, _P, _N, _P, _N, _P, _N, _P, _P, _P, _P],
     "csr_compact": [_P, _N, _N, _P, _P, _I, _P],
     "csr_segment_scratch": [_N, _N],
     "csr_segment_sum_i32": [_P, _N, _P, _N, _N, _P, _P, _P],

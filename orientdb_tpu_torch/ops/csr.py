@@ -51,6 +51,7 @@ LAUNCHES: Dict[str, int] = {
         "scan_i32",
         "scan_f32",
         "degree_counts",
+        "degree_scan_i32",
         "gather_expand",
         "compact_indices",
         "segment_sum_i32",
@@ -253,7 +254,7 @@ def value_sum(vals: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K2: degree_counts + gather_expand
+# K2: degree_counts, expand_offsets (the degree scan) + gather_expand
 # ---------------------------------------------------------------------------
 
 
@@ -267,7 +268,8 @@ def plain_degree_counts(indptr: torch.Tensor, srcs: torch.Tensor) -> torch.Tenso
 
 
 def degree_counts(indptr: torch.Tensor, srcs: torch.Tensor) -> torch.Tensor:
-    """Per-source neighbor counts; padding (src=-1) counts 0."""
+    """Per-source neighbor counts; padding (src=-1) counts 0. The engine's
+    expansion takes `expand_offsets` instead."""
     _check(indptr, (I32,), "degree_counts indptr")
     _check(srcs, (I32,), "degree_counts srcs")
     if not _on_card(indptr, srcs):
@@ -287,7 +289,52 @@ def degree_counts(indptr: torch.Tensor, srcs: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def plain_gather_expand(indptr, neighbors, srcs, offsets, total, out_size: int):
+def plain_expand_offsets(
+    indptr: torch.Tensor, srcs: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    counts = plain_degree_counts(indptr, srcs)
+    if counts.shape[0] == 0:
+        return counts, torch.zeros((), dtype=I32, device=srcs.device)
+    inc = plain_cumsum(counts)
+    return inc - counts, inc[-1]
+
+
+def expand_offsets(indptr: torch.Tensor, srcs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A one-hop expansion's sizing: the exclusive cumsum of
+    `degree_counts(indptr, srcs)` and its sum (a 0-d tensor), int32 wrapping
+    as the reference's int32 cumsum does. On the card one degree-scan launch
+    (after one memset of its look-back state)."""
+    _check(indptr, (I32,), "expand_offsets indptr")
+    _check(srcs, (I32,), "expand_offsets srcs")
+    if not _on_card(indptr, srcs):
+        return plain_expand_offsets(indptr, srcs)
+    lib = _kernels.load()
+    k, dev = srcs.shape[0], srcs.device
+    offsets = torch.empty_like(srcs)
+    total = torch.empty((), dtype=I32, device=dev)
+    if k == 0:
+        total.zero_()
+        return offsets, total
+    # the look-back state, per call (a capture takes it from the graph's pool)
+    state = torch.empty(int(lib.csr_degree_scan_scratch(k)), dtype=torch.uint8, device=dev)
+    _launch(
+        "degree_scan_i32",
+        lib.csr_degree_scan_i32,
+        indptr.data_ptr(),
+        indptr.shape[0] - 1,
+        srcs.data_ptr(),
+        k,
+        offsets.data_ptr(),
+        total.data_ptr(),
+        state.data_ptr(),
+        _stream(srcs),
+    )
+    return offsets, total
+
+
+def plain_gather_expand(
+    indptr, neighbors, srcs, offsets, total, out_size: int, edge_map: Optional[torch.Tensor] = None
+):
     dev = srcs.device
     K = srcs.shape[0]
     pos = torch.arange(out_size, dtype=I32, device=dev)
@@ -307,9 +354,12 @@ def plain_gather_expand(indptr, neighbors, srcs, offsets, total, out_size: int):
         nbr = neighbors[edge_pos.clamp(0, E - 1).long()]
     else:
         nbr = neg
+    edge_pos = torch.where(valid, edge_pos, -1)
+    if edge_map is not None:
+        edge_pos = plain_take_pad(edge_map, edge_pos, -1)
     return (
         torch.where(valid, row, -1),
-        torch.where(valid, edge_pos, -1),
+        edge_pos,
         torch.where(valid, nbr, -1),
     )
 
@@ -321,15 +371,19 @@ def gather_expand(
     offsets: torch.Tensor,
     total: torch.Tensor,
     out_size: int,
+    edge_map: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Expand every source's CSR slice into flat (row, edge_pos, neighbor).
 
     `offsets` is the exclusive cumsum of `degree_counts(indptr, srcs)` and
-    `total` its sum (0-d int32 tensor); `out_size` ≥ total. Returns int32
-    arrays of length `out_size`, -1 past `total`:
+    `total` its sum (0-d int32 tensor; both from `expand_offsets`). Returns
+    int32 arrays of length `out_size`, -1 past `total` (all live when
+    total > out_size):
       row      — index into `srcs` this output came from
-      edge_pos — position in CSR edge order
+      edge_pos — position in CSR edge order; with ``edge_map`` (an in walk's
+                 ``edge_id_in``) ``take_pad(edge_map, edge_pos, -1)``
       neighbor — the reached vertex (dst for out-CSR, src for in-CSR)
+    On the card one merge-path launch.
     """
     for t, what in ((indptr, "indptr"), (neighbors, "neighbors"), (srcs, "srcs"), (offsets, "offsets")):
         _check(t, (I32,), f"gather_expand {what}")
@@ -337,8 +391,11 @@ def gather_expand(
         raise TypeError("gather_expand total: expected a 0-d int32 tensor")
     if offsets.shape[0] != srcs.shape[0]:
         raise ValueError("gather_expand: offsets and srcs differ in length")
-    if not _on_card(indptr, neighbors, srcs, offsets, total):
-        return plain_gather_expand(indptr, neighbors, srcs, offsets, total, out_size)
+    mapped = () if edge_map is None else (edge_map,)
+    if edge_map is not None:
+        _check(edge_map, (I32,), "gather_expand edge_map")
+    if not _on_card(indptr, neighbors, srcs, offsets, total, *mapped):
+        return plain_gather_expand(indptr, neighbors, srcs, offsets, total, out_size, edge_map)
     lib = _kernels.load()
     row = torch.empty(out_size, dtype=I32, device=srcs.device)
     edge_pos = torch.empty_like(row)
@@ -355,6 +412,8 @@ def gather_expand(
         srcs.shape[0],
         total.data_ptr(),
         out_size,
+        None if edge_map is None else edge_map.data_ptr(),
+        0 if edge_map is None else edge_map.shape[0],
         row.data_ptr(),
         edge_pos.data_ptr(),
         nbr.data_ptr(),

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from orientdb_tpu.ops import csr as J
 from orientdb_tpu_torch.ops import csr as T
+from test_torch_kernels import EXPAND_KINDS, EXPAND_WIDTHS, expand_case, expand_sizes
 
 # value_cumsum's blocking switches at these lengths (csr.py:155-159)
 LENGTHS = [0, 1, 255, 256, 257, 511, 512, 513, 4096 + 7]
@@ -206,6 +207,40 @@ def test_gather_expand_zero_degree_tail_and_padding():
     # an edge list with no neighbors at all
     empty_indptr = np.zeros(65, np.int32)
     _expand_both(empty_indptr, np.zeros(0, np.int32), srcs, 8)
+
+
+def _reference_sizing(indptr, srcs):
+    """The reference's count → exclusive scan → sum."""
+    counts = J.degree_counts(jnp.asarray(indptr), jnp.asarray(srcs))
+    offsets = _np(J.exclusive_cumsum(counts)) if srcs.size else np.zeros(0, np.int32)
+    return offsets, int(np.int32(_np(jnp.sum(counts))))
+
+
+@pytest.mark.parametrize("width", EXPAND_WIDTHS)
+@pytest.mark.parametrize("kind", EXPAND_KINDS)
+def test_expand_offsets_and_gather_equal_reference(kind, width):
+    """`expand_offsets` against the reference's degree_counts →
+    exclusive_cumsum and sum, and `gather_expand` (with and without the
+    edge map) against its gather_expand (and, mapped, against take_pad of
+    the map at the edge positions), exactly, padding slots included: a hub
+    row over several of K2b's tiles, runs of zero-degree rows and of -1
+    sources, total 0, E = 0, out_size equal to, far past and below the
+    total."""
+    indptr, nbrs, emap, srcs = expand_case(kind, width, width + 61)
+    want_off, want_total = _reference_sizing(indptr, srcs)
+    offsets, total = T.expand_offsets(_t(indptr), _t(srcs))
+    assert offsets.dtype == torch.int32 and total.shape == ()
+    np.testing.assert_array_equal(offsets.numpy(), want_off)
+    assert int(total) == want_total
+    args = [jnp.asarray(a) for a in (indptr, nbrs, srcs, want_off)] + [jnp.asarray(np.int32(want_total))]
+    for out_size in expand_sizes(want_total):
+        want = [_np(w) for w in J.gather_expand(*args, out_size)]
+        mapped = _np(J.take_pad(jnp.asarray(emap), jnp.asarray(want[1]), -1))
+        for edge_map, want_pos in ((None, want[1]), (_t(emap), mapped)):
+            got = T.gather_expand(_t(indptr), _t(nbrs), _t(srcs), offsets, total, out_size, edge_map)
+            for g, w in zip(got, (want[0], want_pos, want[2])):
+                assert g.dtype == torch.int32
+                np.testing.assert_array_equal(g.numpy(), w, err_msg=f"out_size={out_size}")
 
 
 @pytest.mark.parametrize("n", LENGTHS)

@@ -85,6 +85,115 @@ def test_kernels_equal_plain_on_card(card, n):
     torch.cuda.synchronize()
 
 
+#: K2's and K2b's source kinds (`expand_case`): a hub row over several of
+#: K2b's tiles, a run of zero-degree rows and one of -1 sources, each longer
+#: than a tile, every source padding (total 0), an empty edge list (E = 0),
+#: and a hub among -1 sources interleaved
+EXPAND_KINDS = ["hub", "zero_run", "padding_run", "all_padding", "no_edges", "mixed"]
+
+
+def expand_case(kind: str, width: int, seed: int):
+    """(indptr, neighbors, edge_map, srcs) as int32 numpy arrays: a CSR over
+    6,000 vertices with Zipf(1.6) degrees up to 400, one hub of 9,000 edges
+    (~4.4 of K2b's 2,048-item tiles) and 3,000 zero-degree vertices in a
+    row (none at all for ``no_edges``), an edge map that permutes the edge
+    ids (an in walk's ``edge_id_in``), and ``width`` sources of ``kind``."""
+    rng = np.random.default_rng(seed)
+    v = 6_000
+    deg = np.minimum(rng.zipf(1.6, v), 400)
+    deg[77] = 9_000
+    deg[2_000:5_000] = 0
+    if kind == "no_edges":
+        deg[:] = 0
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    e = int(indptr[-1])
+    nbrs = rng.integers(0, v, e, dtype=np.int32)
+    emap = rng.permutation(e).astype(np.int32)
+    srcs = rng.integers(0, v, width, dtype=np.int32)
+    mid = width // 3
+    if kind == "hub":
+        srcs[mid] = 77
+        srcs[-1] = 77
+    elif kind == "zero_run":
+        run = min(3_000, width - mid)
+        srcs[mid : mid + run] = np.arange(2_000, 2_000 + run, dtype=np.int32)
+    elif kind == "padding_run":
+        srcs[mid : mid + 2_500] = -1
+    elif kind == "all_padding":
+        srcs[:] = -1
+    elif kind == "mixed":
+        srcs[rng.random(width) < 0.3] = -1
+        srcs[mid] = 77
+    return indptr, nbrs, emap, srcs
+
+
+def expand_sizes(total: int):
+    """out_size == total, far past it, and below it (a replay that
+    outgrew its recorded bucket: every slot live)."""
+    sizes = [4 * T.bucket(max(total, 1)), max(total // 3, 1)]
+    return ([total] if total > 0 else []) + sizes
+
+
+#: K2's sources a look-back tile and K2b's merged items (row offsets and
+#: slots) a block: `csrc/csr_kernels.cu`'s kDegTile and kExpandTile
+EXPAND_TILE = 2048
+#: K2/K2b widths: one source, around the tiles, several tiles
+EXPAND_WIDTHS = [1, EXPAND_TILE - 1, EXPAND_TILE + 1, 3 * EXPAND_TILE + 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", EXPAND_WIDTHS)
+@pytest.mark.parametrize("kind", EXPAND_KINDS)
+def test_expand_kernels_equal_plain_on_card(card, kind, width):
+    """K2's degree scan (offsets and total, sources 16-byte aligned and
+    not) and K2b's merge-path gather (with and without the edge map, out
+    sizes equal to, far past and below the total, outputs always fresh)
+    against their plain versions, exactly."""
+    indptr, nbrs, emap, srcs = (_t(a).to(card) for a in expand_case(kind, width, width + 61))
+    offsets, total = T.expand_offsets(indptr, srcs)
+    p_off, p_total = T.plain_expand_offsets(indptr, srcs)
+    assert torch.equal(offsets, p_off) and torch.equal(total, p_total)
+    if width > 1:
+        shifted = srcs[1:]
+        for g, w in zip(T.expand_offsets(indptr, shifted), T.plain_expand_offsets(indptr, shifted)):
+            assert torch.equal(g, w)
+    for out_size in expand_sizes(int(total)):
+        for emap_arg in (None, emap):
+            got = T.gather_expand(indptr, nbrs, srcs, offsets, total, out_size, emap_arg)
+            want = T.plain_gather_expand(indptr, nbrs, srcs, offsets, total, out_size, emap_arg)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (out_size, emap_arg is not None)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_expansion_replays_equal_plain_on_card(card):
+    """One captured degree scan + gather, replayed on other sources of the
+    same width (the look-back state emptied by its memset node each time),
+    into poisoned outputs: each replay equals the plain versions."""
+    cases = [expand_case(kind, 5_000, 7) for kind in ("hub", "mixed", "zero_run")]
+    indptr, nbrs, emap = (_t(a).to(card) for a in cases[0][:3])
+    inputs = [_t(c[3]).to(card) for c in cases]
+    static = inputs[0].clone()
+    out_size = 1 << 16
+    run = lambda: T.gather_expand(indptr, nbrs, static, *T.expand_offsets(indptr, static), out_size, emap)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for i in range(30):
+        src = inputs[i % len(inputs)]
+        static.copy_(src)
+        for o in outs:
+            o.fill_(-7)
+        graph.replay()
+        off, tot = T.plain_expand_offsets(indptr, src)
+        for g, w in zip(outs, T.plain_gather_expand(indptr, nbrs, src, off, tot, out_size, emap)):
+            assert torch.equal(g, w), i
+    torch.cuda.synchronize()
+
+
 #: lengths around K1's and K3's tiles, and one of 4,097 tiles of the larger:
 #: a look-back that walks back past many predecessors
 TILE_LENGTHS = sorted(
