@@ -183,7 +183,10 @@ from the root of a checkout. Phases, each of which raises on failure:
    roots spread over the shards, depth 3, 2 replicas) against a numpy
    BFS; K2's range form, K22, K10's eid form, K23 and K24 must have
    launched. Then each is held exactly against its plain version at the
-   cells' shapes and timed beside its bound; then MQ2n: MQ2 and MBFS over
+   cells' shapes and timed beside its bound (K10's eid form, the push over
+   the row-sharded CSR, at MV1's level-1 frontiers out and in, with and
+   without an edge mask and a gate, and on an empty frontier, also against
+   the slot walk over the edge-list slices it replaced); then MQ2n: MQ2 and MBFS over
    a one-rank NCCL process group (`ProcessShards`, replays uncaptured).
    After phase 6's E cells, ME1: E1 at d = 12,000 and 15,000 on B's twin
    split four ways, equal to numpy and the single-device port;
@@ -227,7 +230,9 @@ from the root of a checkout. Phases, each of which raises on failure:
    clean once resident, then a re-record through the front door); T2
    (rows through the ``in`` partition, k = 100); T3 (``while:($depth <
    2)`` from 16 roots, twice). K19–K21 must have launched. Then holds
-   K19–K21 exactly against their plain versions at T's pool shapes,
+   K19–K21 exactly against their plain versions at T's pool shapes (K19,
+   the push over the resident indptr and the page indirection, also
+   against the slot walk over the pool it replaced),
    every page evicted, an empty pool, C = 8 and in a captured graph, and
    times them; then T4c (TR1's shape from 50 roots in a cold block: its
    recording faults blocks in, its prefetch reloads them after an eviction
@@ -312,12 +317,12 @@ REPLACES = {
     "scatter_set": "orientdb_tpu/ops/device_graph.py:382",
     "slab_scan": "orientdb_tpu/exec/tpu_engine.py:1007",
     "slab_probe": "orientdb_tpu/exec/tpu_engine.py:1061",
-    "paged_hop": "orientdb_tpu/storage/tiering.py:575",
+    "paged_hop_csr": "orientdb_tpu/storage/tiering.py:575",
     "paged_hop_miss": "orientdb_tpu/storage/tiering.py:590",
     "paged_expand": "orientdb_tpu/storage/tiering.py:606",
     "degree_counts_range": "orientdb_tpu/parallel/mesh_graph.py:258",
     "shard_gather": "orientdb_tpu/parallel/mesh_graph.py:345",
-    "bitmap_hop_eid": "orientdb_tpu/parallel/mesh_graph.py:426",
+    "bitmap_hop_shard": "orientdb_tpu/parallel/mesh_graph.py:426",
     "shard_weight_pass": "orientdb_tpu/parallel/mesh_graph.py:480",
     "rowshard_hop": "orientdb_tpu/parallel/sharded.py:202",
 }
@@ -329,9 +334,9 @@ BATCH_ONLY = ("group_page",)
 #: edge-list form walks the slab's slots once the topology is dirty)
 DELTA_ONLY = ("scatter_set", "slab_scan", "slab_probe", "bitmap_hop")
 #: the kernels only a tiered snapshot launches (phase 9)
-TIER_ONLY = ("paged_hop", "paged_hop_miss", "paged_expand")
+TIER_ONLY = ("paged_hop_csr", "paged_hop_miss", "paged_expand")
 #: the kernels only a meshed snapshot launches (phase 7m)
-MESH_ONLY = ("degree_counts_range", "shard_gather", "bitmap_hop_eid", "shard_weight_pass", "rowshard_hop")
+MESH_ONLY = ("degree_counts_range", "shard_gather", "bitmap_hop_shard", "shard_weight_pass", "rowshard_hop")
 #: the kernels no cell launches: the bool take_pad's only callers were the
 #: weight pass's gathers, which the fused weight_gather now makes, and
 #: degree_counts' the expansion's sizing, which the degree scan
@@ -4230,7 +4235,7 @@ def run_tiered(np, torch, K, TE, ks, db, snap, card, a_qps: float, a_bytes: int)
         t4 = _only_plan(TE, snap, TR1)
         plan = t4.plans[0]
         _require(plan.replays >= 1 and plan.graph is not None, "T4 did not replay a captured plan")
-        for name in ("paged_hop", "paged_hop_miss"):
+        for name in ("paged_hop_csr", "paged_hop_miss"):
             _require(plan.launches.get(name, 0) > 0, f"{name} not in T4's TRAVERSE replay")
         print(
             f"tier T4: {len(rows)} records, levels {levels}; calls {[round(x, 3) for x in times]} ms "
@@ -4383,8 +4388,9 @@ def cold_miss_replay(np, TE, db, snap, tier, tref) -> None:
 
 def check_tier_kernels(np, torch, K, ks, dg, tier):
     """K19–K21 against their plain versions at T's pool shapes (the knows
-    pools of P pages of Wp slots), exactly: K19 on T3's 8-row frontiers
-    with a WHILE gate and on the in pool with an edge mask, K20 on the same
+    pools of P pages of Wp slots), exactly: K19's push on T3's 8-row
+    frontiers with a WHILE gate and on the in pool with an edge mask (also
+    against the slot walk over the pool it replaces), K20 on the same
     frontiers, K21 at T1c's roots (out) and T2's (in); each again with
     every page evicted, with an empty pool, and in a captured graph. Then
     times each beside its bound (bytes at 3.35 TB/s); their launches are
@@ -4393,7 +4399,7 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
 
     counted = dict(K.LAUNCHES)
     dev = dg.device
-    i32, b8 = torch.int32, torch.bool
+    i32 = torch.int32
     V = dg.num_vertices
     vb = K.bucket(V)
     C = 8
@@ -4419,9 +4425,13 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
         for d, p in pools.items()
     }
 
+    def push(p):
+        return (p["indptr"], p["blockv"], p["pageof"], p["estart"], p["nbr"], p["eid"])
+
     def hop(p, m, fr, g=None, alive=None):
-        got = K.paged_hop(p["own"], p["nbr"], p["eid"], m, fr, g, alive)
-        ks.same("paged_hop", got, K.plain_paged_hop(p["own"], p["nbr"], p["eid"], m, fr, g, alive))
+        got = K.paged_hop_csr(*push(p), m, fr, g, alive)
+        ks.same("paged_hop_csr", got, K.plain_paged_hop_csr(*push(p), m, fr, g, alive))
+        ks.same("paged_hop_csr", got, K.plain_paged_hop(p["own"], p["nbr"], p["eid"], m, fr, g, alive))
 
     def miss(p, fr, g=None, alive=None):
         got = K.paged_hop_miss(fr, p["blockv"], p["pageof"], p["indptr"], g, alive)
@@ -4463,9 +4473,10 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
     # in a captured graph: the same launches replayed
     offs, tot, n = expand_args(po, t1c)
     outs = {}
+    k19 = lambda: K.paged_hop_csr(*push(po), None, fr1, gate, alive1)  # noqa: E731
 
     def captured():
-        outs["hop"] = K.paged_hop(po["own"], po["nbr"], po["eid"], None, fr1, gate, alive1)
+        outs["hop"] = k19()
         outs["miss"] = K.paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1)
         outs["expand"] = K.paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True)
 
@@ -4476,7 +4487,7 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
         captured()
     graph.replay()
     torch.cuda.synchronize()
-    ks.same("paged_hop", outs["hop"], K.plain_paged_hop(po["own"], po["nbr"], po["eid"], None, fr1, gate, alive1))
+    ks.same("paged_hop_csr", outs["hop"], K.plain_paged_hop_csr(*push(po), None, fr1, gate, alive1))
     ks.same("paged_hop_miss", outs["miss"], K.plain_paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1))
     ks.same(
         "paged_expand", outs["expand"],
@@ -4487,11 +4498,13 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
     # -- times ----------------------------------------------------------------
     S = po["own"].numel()
     live = int((po["own"] >= 0).sum())
-    bv = po["blockv"].long()
-    res_v = int(((bv >= 0) & (po["pageof"][bv.clamp(min=0)] >= 0)).sum())
     act_v = fr1.any(0) & gate
-    own_live = po["own"].view(-1)[po["own"].view(-1) >= 0].long()
-    act_slots = int(act_v[own_live.clamp(max=vb - 1)].sum())
+    av = act_v[:V].nonzero().view(-1)
+    bv = po["blockv"].long()
+    res = (bv[av] >= 0) & (po["pageof"][bv[av].clamp(min=0)] >= 0)
+    ip = po["indptr"].long()
+    res_v = int(res.sum())
+    act_slots = int((ip[av + 1] - ip[av])[res].sum())
     sp = None
     try:
         # the hop as one sparse product over the resident slots (rows = the
@@ -4501,16 +4514,17 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
         sp = torch.sparse_coo_tensor(idx, torch.ones(live, device=dev), (vb, vb)).coalesce().to_sparse_csr()
         fr1_t = fr1.t().float().contiguous()
     except (RuntimeError, TypeError) as e:
-        print(f"library call for paged_hop refused: {e}")
+        print(f"library call for paged_hop_csr refused: {e}")
     ks.timed(
-        "paged_hop",
-        lambda: K.paged_hop(po["own"], po["nbr"], po["eid"], None, fr1, gate, alive1),
-        lambda: K.plain_paged_hop(po["own"], po["nbr"], po["eid"], None, fr1, gate, alive1),
+        "paged_hop_csr",
+        k19,
+        lambda: K.plain_paged_hop_csr(*push(po), None, fr1, gate, alive1),
         None if sp is None else (lambda: torch.sparse.mm(sp, fr1_t)),
-        # own over the pool; the frontier rows and the gate at the vertices
-        # of resident blocks; nbr at the live slots whose owner is active
-        # (in a frontier row and the gate); the [C, vb] result written once
-        4.0 * S + (C + 1.0) * res_v + 4.0 * act_slots + C * vb + 4.0,
+        # the frontier rows and the gate at the V vertices; at an active
+        # vertex its indptr pair, blockv, pageof and estart; nbr at the
+        # slots of the active vertices of resident blocks; the [C, vb]
+        # result written once
+        (C + 1.0) * V + 20.0 * int(av.shape[0]) + 4.0 * act_slots + C * vb + 4.0,
     )
     in_fr = int(fr1[:, :V].any(0).sum())
     active = int(act_v[:V].sum())
@@ -4535,7 +4549,7 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
         R * 24.0 + 4.0 + int(tot) * 4.0 + n * 12.0 + 1.0,
     )
     g_ms = {
-        "paged_hop": _graph_ms(torch, lambda: K.paged_hop(po["own"], po["nbr"], po["eid"], None, fr1, gate, alive1)),
+        "paged_hop_csr": _graph_ms(torch, k19),
         "paged_hop_miss": _graph_ms(torch, lambda: K.paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1)),
         "paged_expand": _graph_ms(torch, lambda: K.paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True)),
     }
@@ -4547,8 +4561,8 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
             f"plain {r['plain_ms']:.4f}, library {r['library_ms']}"
         )
     print(
-        f"tier kernels: pool S={S} slots ({live} live, {act_slots} with an active owner), "
-        f"V={V} ({res_v} in resident blocks), vb={vb}, K21 R={R} total {int(tot)}"
+        f"tier kernels: pool S={S} slots ({live} live), V={V}; K19's frontier: {int(av.shape[0])} active "
+        f"vertices, {res_v} in resident blocks, {act_slots} slots; vb={vb}, K21 R={R} total {int(tot)}"
     )
     K.LAUNCHES.update(counted)
 
@@ -4999,18 +5013,48 @@ def check_mesh_kernels(np, torch, K, ks, mdg, msnap, roots) -> None:
     gen = torch.Generator(device=dev).manual_seed(23)
     emask = torch.rand(csr.num_edges, generator=gen, device=dev) < 0.7
     gate = torch.rand(vb, generator=gen, device=dev) < 0.8
-    for a, e in ((el[0], el[1]), (el[1], el[0])):
-        for m, g in ((None, None), (emask, gate)):
-            ks.same("bitmap_hop_eid", K.bitmap_hop_eid(a, e, el[2], m, fr, g), K.plain_bitmap_hop_eid(a, e, el[2], m, fr, g))
-    slots = el[0].numel()
-    active = int((fr.any(0)[el[0].view(-1).clamp(min=0).long()] & (el[0].view(-1) >= 0)).sum())
+    sh = {
+        d: tuple(A[f"sh:knows:{d}:{k}"] for k in ("indptr", "nbr", x)) + (d == "out",)
+        for d, x in (("out", "ebase"), ("in", "eid"))
+    }
+    for d, (a, e) in (("out", (el[0], el[1])), ("in", (el[1], el[0]))):
+        for f in (fr, torch.zeros_like(fr)):
+            for m, g in ((None, None), (emask, None), (emask, gate)):
+                got = K.bitmap_hop_shard(*sh[d], 0, m, f, g)
+                ks.same("bitmap_hop_shard", got, K.plain_bitmap_hop_shard(*sh[d], 0, m, f, g))
+                # the slot walk over the edge-list slices it replaces
+                ks.same("bitmap_hop_shard", got, K.plain_bitmap_hop_eid(a, e, el[2], m, f, g))
+    av = np.nonzero(fr.any(0).cpu().numpy())[0]
+    act_edges = int((ip[av + 1] - ip[av]).sum())
+    sp = None
+    try:
+        # the hop as one sparse product over the in-CSR (rows = the reached
+        # endpoint): counts of active in-edges per (vertex, row)
+        ipi = csr.indptr_in.astype(np.int64)
+        crow = torch.from_numpy(np.concatenate([ipi, np.full(vb - V, ipi[-1], np.int64)])).to(dev)
+        col = torch.from_numpy(csr.src.astype(np.int64)).to(dev)
+        sp = torch.sparse_csr_tensor(crow, col, torch.ones(col.shape[0], device=dev), (vb, vb))
+        fr_t = fr.t().float().contiguous()
+    except (RuntimeError, TypeError) as e:
+        print(f"library call for bitmap_hop_shard refused: {e}")
+    k10 = lambda: K.bitmap_hop_shard(*sh["out"], 0, None, fr)  # noqa: E731
     ks.timed(
-        "bitmap_hop_eid",
-        lambda: K.bitmap_hop_eid(el[0], el[1], el[2], None, fr),
-        lambda: K.plain_bitmap_hop_eid(el[0], el[1], el[2], None, fr),
-        None,
-        4 * slots + 2 * fr.numel() + 4 * active,
+        "bitmap_hop_shard",
+        k10,
+        lambda: K.plain_bitmap_hop_shard(*sh["out"], 0, None, fr),
+        None if sp is None else (lambda: torch.sparse.mm(sp, fr_t)),
+        # the frontier read over the held rows and the result written once;
+        # the indptr pair at an active vertex; the neighbours of its edges
+        2 * fr.numel() + 8 * av.shape[0] + 4 * act_edges,
     )
+    r = ks.rows["bitmap_hop_shard"]
+    print(
+        f"kernel bitmap_hop_shard: equals its plain push and the slot walk over the edge-list slices (MV1's "
+        f"level-1 frontiers: {av.shape[0]} active vertices, {act_edges} edges; out and in, an edge mask, a "
+        f"gate, an empty frontier); {r['ms']:.4f} ms ({_graph_ms(torch, k10):.4f} in a graph), bound "
+        f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, library {r['library_ms']}"
+    )
+    del sp
     # MQ2's weight pass: ok = age < 30 over the universe, w a weight vector
     age = torch.from_numpy(msnap.v_columns["age"].values).to(dev)
     ok = torch.zeros(vb, dtype=torch.bool, device=dev)
@@ -5034,7 +5078,7 @@ def check_mesh_kernels(np, torch, K, ks, mdg, msnap, roots) -> None:
         lambda: K.shard_weight_pass(el[0], el[1], el[2], None, ok, w_i, torch.zeros(vb, dtype=torch.int32, device=dev)),
         lambda: K.plain_shard_weight_pass(el[0], el[1], el[2], None, ok, w_i, torch.zeros(vb, dtype=torch.int32, device=dev)),
         None,
-        4 * slots + live * (4 + 1) + int(ok[el[1].view(-1).clamp(min=0).long()].sum()) * 4 + 8 * vb,
+        4 * el[0].numel() + live * (4 + 1) + int(ok[el[1].view(-1).clamp(min=0).long()].sum()) * 4 + 8 * vb,
     )
     # MBFS's first hop: the roots of one replica block, [S, Q, R]
     ind, dst = A["sh:knows:out:indptr"], A["sh:knows:out:nbr"]
@@ -5054,7 +5098,7 @@ def check_mesh_kernels(np, torch, K, ks, mdg, msnap, roots) -> None:
         2 * f0.numel() + 8 * len(lit) + 4 * lit_edges,
     )
     K.LAUNCHES.update(counted)
-    print("mesh kernels: K2's range form, K22, K10's eid form, K23 and K24 equal their plain versions")
+    print("mesh kernels: K2's range form, K22, K10's eid form (the push), K23 and K24 equal their plain versions")
 
 
 def run_mesh_snb(np, torch, K, TE, sdb, ssnap, card, eref) -> dict:

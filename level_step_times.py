@@ -34,9 +34,24 @@ compare two trees on one card:
   the counts, K2b ``gather_expand``, the in walk's ``take_pad`` over
   ``edge_id_in``, and the whole hop as the parent launched it; where the
   tree has them, the degree scan (``expand_offsets``), the gather with the
-  edge map inside it and the hop as this tree launches it.
+  edge map inside it and the hop as this tree launches it;
+- ``hops``: the mesh hop (K10's eid form) and the tier hop (K19) as the
+  tree has them. The mesh hop on an A-shaped graph split four ways (8M
+  Poisson(10) vertices, 80M random targets, R = 2,000,000) at [8, 2^23],
+  out at MV1's level-1 and level-2 frontiers (10 and 110 random vertices
+  a row) and a dense one, and in at level 1: the push over the row-sharded
+  CSR (``bitmap_hop_shard``) where the tree has it, else the slot walk
+  over the edge-list slices (``bitmap_hop_eid``). K19 over that graph's
+  out partition paged as configuration T pages it (blocks of 65,536 edges,
+  213 pages of Wp slots resident: the frontier's blocks and the highest
+  degrees), at T3's frontier (8 rows of 10 vertices and vertex 0, a 0.9
+  WHILE gate) and a dense one: ``paged_hop_csr`` where the tree has it,
+  else the slot walk ``paged_hop``. Each beside its bound as the push
+  reckons it (the frontier read and the result written, 8 bytes of indptr
+  an active vertex, 4 of nbr an active edge; K19 also 12 of blockv,
+  pageof and estart and 1 of gate an active vertex).
 
-    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5,k2]
+    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5,k2,hops]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
 package to time; it is imported before anything else, and the file it was
@@ -378,10 +393,134 @@ def k2(np, torch, K, cs, times) -> None:
               f"graph: {'; '.join(line)}; bounds: degree scan {b_scan:.4f}, gather {b_gather:.4f}")
 
 
+def _shard(torch, ip, nbr, extra, s: int, r: int, emax: int):
+    """Shard s's rebased indptr row, its -1 padded slots of ``nbr`` (and of
+    ``extra``, the in CSR's edge ids) and its first edge."""
+    a, b = int(ip[s * r]), int(ip[(s + 1) * r])
+    row = ip[s * r : (s + 1) * r + 1] - a
+    pad = lambda t: torch.cat([t[a:b], torch.full((emax - (b - a),), -1, dtype=t.dtype, device="cuda")])  # noqa: E731
+    return row, pad(nbr), None if extra is None else pad(extra), a
+
+
+def hops(np, torch, K, cs, times) -> None:
+    """The mesh hop and the tier hop (module docstring)."""
+    i32, S = torch.int32, 4
+    rng = np.random.default_rng(37)
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    indptr = _poisson_indptr(np, torch, rng, 0)
+    ne = int(indptr[-1])
+    dst = torch.randint(0, PERSONS, (ne,), generator=gen, device="cuda", dtype=i32)
+    deg = (indptr[1:] - indptr[:-1]).long()
+    edge_src = torch.repeat_interleave(torch.arange(PERSONS, dtype=i32, device="cuda"), deg)
+    order = torch.sort(dst, stable=True).indices
+    indptr_in = torch.cat([torch.zeros(1, dtype=torch.long, device="cuda"),
+                           torch.cumsum(torch.bincount(dst.long(), minlength=PERSONS), 0)]).to(i32)
+    src_in, eid_in = edge_src[order], order.to(i32)
+    del order
+    R = PERSONS // S
+    push = hasattr(K, "bitmap_hop_shard")
+    print(f"hops: the tree has the pushes: {push}")
+    if push:
+        csr = {}
+        for d, ip, nb, ex in (("out", indptr, dst, None), ("in", indptr_in, src_in, eid_in)):
+            emax = max(int(ip[(s + 1) * R]) - int(ip[s * R]) for s in range(S))
+            parts = [_shard(torch, ip, nb, ex, s, R, emax) for s in range(S)]
+            extra = (torch.tensor([[p[3]] for p in parts], dtype=i32, device="cuda") if ex is None
+                     else torch.stack([p[2] for p in parts]))
+            csr[d] = (torch.stack([p[0] for p in parts]).contiguous(), torch.stack([p[1] for p in parts]), extra, d == "out")
+        mesh_hop = lambda d, f: K.bitmap_hop_shard(*csr[d], 0, None, f)  # noqa: E731
+    W = -(-ne // S)
+    pad = S * W - ne
+
+    def sliced(t):
+        return torch.cat([t, torch.full((pad,), -1, dtype=i32, device="cuda")]).view(S, W)
+
+    el = (sliced(edge_src), sliced(dst), sliced(torch.arange(ne, dtype=i32, device="cuda")))
+    if not push:
+        mesh_hop = lambda d, f: K.bitmap_hop_eid(*((el[0], el[1]) if d == "out" else (el[1], el[0])), el[2], None, f)  # noqa: E731
+    bytes_s = cs.HBM_BYTES_PER_S
+    ipl, ipl_in = indptr.long(), indptr_in.long()
+    for name, d, per_row in (("level 1", "out", 10), ("level 2", "out", 110), ("dense", "out", 0), ("level 1 in", "in", 10)):
+        f = torch.ones((C, VB), dtype=torch.bool, device="cuda") if not per_row else _bitmap(torch, gen, C, VB, per_row)
+        f[:, PERSONS:] = False
+        ip = ipl if d == "out" else ipl_in
+        av = f.any(0).nonzero().view(-1)
+        act_edges = int((ip[av + 1] - ip[av]).sum())
+        a, e = (el[0], el[1]) if d == "out" else (el[1], el[0])
+        if per_row:
+            want = K.plain_bitmap_hop_eid(a, e, el[2], None, f)
+        else:  # every vertex active: every edge's target is reached in every row
+            want = torch.zeros((C, VB), dtype=torch.bool, device="cuda")
+            want[:, (dst if d == "out" else edge_src).long()] = True
+        _same(torch, mesh_hop(d, f), want, f"mesh hop ({name})")
+        bound = (2.0 * C * VB + 8.0 * av.shape[0] + 4.0 * act_edges) / bytes_s * 1e3
+        fn = lambda d=d, f=f: mesh_hop(d, f)  # noqa: E731
+        key = f"mesh hop {name}"
+        times[key] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+        print(f"{key} ({av.shape[0]} active vertices, {act_edges} edges): {times[key][0]:.4f} ms eager, "
+              f"{times[key][1]:.4f} in a graph; bound {bound:.4f}")
+    del el
+    if push:
+        del csr
+    # K19: the out partition paged as T pages it
+    Wb = max(65_536, int(deg.max()))
+    Wp = K.bucket(Wb + int(deg.max()), minimum=8)
+    q = indptr[:-1].long() // Wb
+    _uq, blockv = torch.unique_consecutive(q, return_inverse=True)
+    B = int(blockv.max()) + 1
+    first_v = torch.searchsorted(blockv, torch.arange(B, device="cuda"))
+    estart = torch.cat([indptr[first_v], indptr[-1:]]).to(i32)
+    P = min(213, B)
+    f = _bitmap(torch, gen, C, VB, 10)
+    f[:, PERSONS:] = False
+    f[:, 0] = True
+    gate = torch.rand(VB, generator=gen, device="cuda") < 0.9
+    hot = torch.unique(blockv[(f.any(0) & gate)[:PERSONS]])
+    prio = torch.zeros(B, dtype=torch.long, device="cuda").scatter_reduce(0, blockv, deg, "amax")
+    prio[hot] = 1 << 40  # T3's footprint is resident when it replays
+    resident = torch.argsort(prio, descending=True, stable=True)[:P]
+    pageof = torch.full((B,), -1, dtype=torch.long, device="cuda")
+    pageof[resident] = torch.arange(P, device="cuda")
+    pools = {n: torch.full((P * Wp,), -1, dtype=i32, device="cuda") for n in ("own", "nbr", "eid")}
+    eb = blockv[edge_src.long()]
+    pg = pageof[eb]
+    keep = pg >= 0
+    pos = (pg * Wp + torch.arange(ne, device="cuda") - estart[eb].long())[keep]
+    for n, vals in (("own", edge_src), ("nbr", dst), ("eid", torch.arange(ne, dtype=i32, device="cuda"))):
+        pools[n][pos] = vals[keep]
+    pools = {n: t.view(P, Wp) for n, t in pools.items()}
+    del eb, pg, keep, pos
+    blockv, pageof = blockv.to(i32), pageof.to(i32)
+    if hasattr(K, "paged_hop_csr"):
+        tier_hop = lambda f, a: K.paged_hop_csr(indptr, blockv, pageof, estart, pools["nbr"], pools["eid"], None, f, gate, a)  # noqa: E731
+    else:
+        tier_hop = lambda f, a: K.paged_hop(pools["own"], pools["nbr"], pools["eid"], None, f, gate, a)  # noqa: E731
+    for name, fr in (("T3's frontier", f), ("dense", torch.ones((C, VB), dtype=torch.bool, device="cuda"))):
+        alive = K.mask_count(fr.view(-1))
+        if name != "dense":
+            want = K.plain_paged_hop(pools["own"], pools["nbr"], pools["eid"], None, fr, gate, alive)
+        else:  # every gated owner of a live slot is active in every row
+            own, nbr = pools["own"].view(-1), pools["nbr"].view(-1)
+            ok = own >= 0
+            ok[ok.clone()] = gate[own[ok].long()]
+            want = torch.zeros((C, VB), dtype=torch.bool, device="cuda")
+            want[:, nbr[ok].long()] = True
+        _same(torch, tier_hop(fr, alive), want, f"tier hop ({name})")
+        av = (fr.any(0) & gate)[:PERSONS].nonzero().view(-1)
+        res = pageof[blockv[av].long()] >= 0
+        act_edges = int((ipl[av + 1] - ipl[av])[res].sum())
+        bound = ((C + 1.0) * PERSONS + 20.0 * av.shape[0] + 4.0 * act_edges + C * VB) / bytes_s * 1e3
+        fn = lambda fr=fr, a=alive: tier_hop(fr, a)  # noqa: E731
+        key = f"tier hop {name}"
+        times[key] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+        print(f"{key} ({P} pages of {Wp} slots, B={B}; {av.shape[0]} active vertices, {int(res.sum())} resident, "
+              f"{act_edges} edges): {times[key][0]:.4f} ms eager, {times[key][1]:.4f} in a graph; bound {bound:.4f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
-    ap.add_argument("--only", default="level,k4,k15,k5,k2")
+    ap.add_argument("--only", default="level,k4,k15,k5,k2,hops")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     # the tree's package first: chip_smoke.py (this script's) imports the
@@ -414,6 +553,8 @@ def main() -> int:
         k5(torch, K, cs, times)
     if "k2" in only:
         k2(np, torch, K, cs, times)
+    if "hops" in only:
+        hops(np, torch, K, cs, times)
     print(json.dumps({"tree": tree, "kernels": K.__file__, "card": card, "ms [eager, graph]": times}))
     return 0
 

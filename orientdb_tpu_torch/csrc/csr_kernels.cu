@@ -4,8 +4,8 @@
 // interpreter of a compiled WHERE program, the delta path (the in-place
 // patch scatter and the two append-slab expansions), the tier plane's
 // paged hop, cold-miss flag and paged gather, and the mesh's per-shard
-// expansion totals and gather, edge-list hop, weight pass and row-sharded
-// BFS hop.
+// expansion totals and gather, row-sharded CSR hop, weight pass and
+// row-sharded BFS hop.
 // Port of the jitted functions of
 // orientdb_tpu/ops/csr.py (the OPTIONAL arm's rows_with_matches among them)
 // and of the level emission, level step, front-pack,
@@ -1515,61 +1515,163 @@ __global__ void bitmap_hop_kernel(const int* __restrict__ act,
 }
 
 // ---------------------------------------------------------------------------
-// K10, CSR form: bitmap_hop_csr (replaces csr.bitmap_hop,
-// orientdb_tpu/ops/csr.py:260, as build_bitmap_hops drives it,
-// orientdb_tpu/exec/tpu_engine.py:487, over a class's base CSR).
-// out[c, nbr[s]] |= frontier[c, v] & gate[v] & mask[eid[s] or s] for every
-// slot s of row v of `indptr`: the rows are the endpoint that must be
-// active (indptr_out for an out hop, indptr_in for an in hop), `nbr` the
-// endpoint reached, `eid` (may be null) the slot's out-order edge id, read
-// only to index `mask`. The mask is tested first and `nbr` clipped after,
+// K10, push forms: one frontier hop walked by the endpoint that must be
+// active, reading only the active vertices' adjacency. One kernel body
+// (bitmap_push_kernel) over three row lookups:
+// - CsrRows, K10's CSR form: bitmap_hop_csr (replaces csr.bitmap_hop,
+//   orientdb_tpu/ops/csr.py:260, as build_bitmap_hops drives it,
+//   orientdb_tpu/exec/tpu_engine.py:487, over a class's base CSR);
+// - ShardRows, K10's eid form: bitmap_hop_shard (replaces
+//   mesh_graph.sharded_bitmap_hop, orientdb_tpu/parallel/mesh_graph.py:426,
+//   which scatters every edge of each shard's edge-list slice) over the
+//   row-sharded CSR of the direction (`sh:<class>:{out,in}:*`);
+// - PagedRows, K19: paged_hop_csr (replaces tiering.paged_hop,
+//   orientdb_tpu/storage/tiering.py:575, which walks every pool slot) over
+//   the resident indptr and the page indirection of a paged partition.
+// out[c, nbr[s]] |= frontier[c, v] & gate[v] & mask[edge(s)] for every slot
+// s of row v: the rows are the endpoint that must be active, `nbr` the
+// endpoint reached, edge(s) the slot's out-order edge id, read only to
+// index `mask` (a negative id reads False, one past the end the last entry:
+// take_pad's semantics). The mask is tested first and `nbr` clipped after,
 // as the reference's edge list does (a tombstoned slot's -1 neighbour is
 // masked by `live` before its clip could alias vertex 0).
 // Bound: the work depends on the frontier. Read: C*vb frontier bytes (and
-// vb of gate), 8 bytes of indptr an active vertex, 4 of nbr (+1 of mask,
+// vb of gate), 8 bytes of indptr an active vertex (+4 of ebase a shard
+// row, +12 of blockv / pageof / estart a paged row), 4 of nbr (+1 of mask,
 // +4 of eid) an edge of an active vertex; written: C*vb. At V1's level 1
 // (8 roots, ~80 active vertices, [8, 2^23]): 2*64 MiB, ~0.04 ms.
 // Design: a warp takes 128 vertices a step (4 a lane: one 32-bit load a
 // frontier row, coalesced), ANDs in the gate and packs its vertices' rows
 // into a 32-bit row mask (rows in blocks of 32 when C > 32). A ballot skips
 // the group when none is active, so a sparse hop costs its frontier read
-// and the zeroing. Otherwise the warp lists its active vertices of nonzero
-// degree in shared memory (start slot, exclusive prefix of degree, row
-// mask; two warp scans), walks the flat span of their edges 32 slots a
-// step, each lane finding its slot's vertex by a binary search of the
-// prefixes, and stores a 1 for each set row bit at the reached vertex.
-// Consecutive vertices' slots are contiguous in `nbr`, so those reads
-// coalesce at any density. Racing stores all write 1: no atomics. The grid
-// is sized from the row count, never from the active count, so a captured
-// replay needs no host read; `alive` at 0 returns at once.
+// and the zeroing. Otherwise the warp looks up its active vertices' rows
+// (Rows::row: the slot base, the degree and an operand of the slot and
+// edge-id maps), lists those of nonzero degree in shared memory (base,
+// operand, exclusive prefix of degree, row mask; two warp scans), walks the
+// flat span of their edges 32 slots a step, each lane finding its slot's
+// vertex by a binary search of the prefixes, and stores a 1 for each set
+// row bit at the reached vertex. Every entry keeps its own base, so the
+// slots of neighbouring vertices need not be contiguous (a group straddling
+// two shards, or two pages); within a row they are, so nbr reads coalesce
+// at any density. Racing stores all write 1: no atomics. The walk covers
+// the vertices [lo, hi) (hi <= vb); the grid is sized from that row count,
+// never from the active count, so a captured replay needs no host read;
+// `alive` at 0 returns at once.
 // ---------------------------------------------------------------------------
 constexpr int kHopGroup = 128;  // vertices a warp step: 4 a lane
 
-template <bool kVec>
+// K10's CSR form: row v is indptr[v] .. indptr[v+1] of `nbr`; the edge id is
+// eid[slot] (eid may be null: the mask is then indexed by slot).
+struct CsrRows {
+  const int* indptr;
+  const int* eid;
+  long long lo, hi;
+  __device__ int row(long long v, long long& base, long long& aux) const {
+    const int st = indptr[v];
+    base = st;
+    aux = 0;
+    return indptr[v + 1] - st;
+  }
+  __device__ long long slot(long long base, long long, int j) const { return base + j; }
+  __device__ long long edge(long long s, long long) const { return eid != nullptr ? eid[s] : s; }
+};
+
+// K10's eid form over the row-sharded CSR of the shards s0 .. s0 + S_l - 1
+// held here: vertex v is row v - s*R of shard s = v / R, whose rebased
+// indptr row is indptr[(s - s0) * (R + 1) ...] and whose slots are
+// nbr[(s - s0) * emax ...]. The edge id is ebase[s - s0] + the local slot
+// (out: `extra` is ebase, [S_l]) or eid[s - s0, local slot] (in: `extra` is
+// the in CSR's out-order ids, [S_l, emax]). Rows past V repeat the last
+// offset (degree 0).
+struct ShardRows {
+  const int* indptr;
+  const int* extra;
+  long long r, s0, emax;
+  int is_out;
+  long long lo, hi;
+  __device__ int row(long long v, long long& base, long long& aux) const {
+    const long long sl = v / r - s0;
+    const int* ind = indptr + sl * (r + 1);
+    const long long l = v - (sl + s0) * r;
+    const int st = ind[l];
+    base = sl * emax + st;
+    aux = is_out ? static_cast<long long>(extra[sl]) - sl * emax : 0;
+    return ind[l + 1] - st;
+  }
+  __device__ long long slot(long long base, long long, int j) const { return base + j; }
+  __device__ long long edge(long long s, long long aux) const { return is_out ? s + aux : extra[s]; }
+};
+
+// K19 over a paged partition: vertex v's edges are indptr[v] .. indptr[v+1]
+// of the partition's order; its block b = blockv[v] sits at page p =
+// pageof[b] (-1: cold, no slots), where edge i is slot p*Wp + i - estart[b]
+// of the pool, with K21's clips (b to nb - 1, the local slot to [0, Wp-1],
+// the flat slot to ns - 1). nbr and the edge id are read from the pool's
+// rows in both directions. The push relies on the pool invariant that
+// TierManager keeps (storage/tiering.py): a resident block's page holds
+// that block's slots (`_load_blocks` copies the rows, then `pageof`), and
+// an evicted block's pageof is -1 before its page is reused (`_evict` sets
+// the host entry, and the device copy of pageof ends the same load wave,
+// on the replay stream, before any hop reads the page). So every slot the
+// reference's slot walk counts (own >= 0: a resident block's row) is one
+// the push reaches, and an evicted page's stale nbr / eid rows behind a -1
+// owner row are never read. A cold block contributes nothing, as in the
+// slot walk; K20 raises the cold-miss flag in its own launch.
+struct PagedRows {
+  const int* indptr;
+  const int* blockv;
+  const int* pageof;
+  const int* estart;
+  const int* eid;
+  long long nb, wp, ns;
+  long long lo, hi;
+  __device__ int row(long long v, long long& base, long long& aux) const {
+    const int b = blockv[v];
+    if (b < 0 || nb <= 0) return 0;
+    const long long bc = b < nb ? b : nb - 1;
+    const int p = pageof[bc];
+    if (p < 0) return 0;
+    const int st = indptr[v];
+    base = static_cast<long long>(p) * wp;
+    aux = static_cast<long long>(st) - estart[bc];
+    return indptr[v + 1] - st;
+  }
+  __device__ long long slot(long long base, long long aux, int j) const {
+    long long local = aux + j;
+    local = local < 0 ? 0 : (local < wp ? local : wp - 1);
+    const long long s = base + local;
+    return s < ns ? s : ns - 1;
+  }
+  __device__ long long edge(long long s, long long) const { return eid[s]; }
+};
+
+template <bool kVec, typename Rows>
 __global__ void __launch_bounds__(kThreads)
-bitmap_hop_csr_kernel(const int* __restrict__ indptr, long long nv,
-                      const int* __restrict__ nbr, const int* __restrict__ eid,
-                      const unsigned char* __restrict__ emask, long long ne,
-                      const unsigned char* __restrict__ frontier,
-                      const unsigned char* __restrict__ gate, long long c, long long vb,
-                      const int* __restrict__ alive, unsigned char* __restrict__ out) {
+bitmap_push_kernel(const Rows rows, const int* __restrict__ nbr,
+                   const unsigned char* __restrict__ emask, long long ne,
+                   const unsigned char* __restrict__ frontier,
+                   const unsigned char* __restrict__ gate, long long c, long long vb,
+                   const int* __restrict__ alive, unsigned char* __restrict__ out) {
   if (alive != nullptr && *alive == 0) return;
-  __shared__ int s_start[kWarps][kHopGroup];
+  __shared__ long long s_base[kWarps][kHopGroup];
+  __shared__ long long s_aux[kWarps][kHopGroup];
   __shared__ int s_pref[kWarps][kHopGroup];
   __shared__ unsigned s_rows[kWarps][kHopGroup];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
-  const long long groups = (nv + kHopGroup - 1) / kHopGroup;
+  const long long lo = rows.lo, hi = rows.hi;
+  const long long g0 = lo / kHopGroup;  // groups start 128-aligned: v0 % 4 == 0
+  const long long groups = (hi + kHopGroup - 1) / kHopGroup - g0;
   const long long wstride = static_cast<long long>(gridDim.x) * kWarps;
   for (long long g = static_cast<long long>(blockIdx.x) * kWarps + w; g < groups; g += wstride) {
-    const long long v0 = g * kHopGroup + 4 * lane;  // this lane's first vertex
+    const long long v0 = (g0 + g) * kHopGroup + 4 * lane;  // this lane's first vertex
     for (long long rb = 0; rb < c; rb += 32) {
       const int nr = static_cast<int>(c - rb < 32 ? c - rb : 32);
       unsigned mk[4] = {0u, 0u, 0u, 0u};
-      if (v0 < nv) {
+      if (v0 < hi && v0 + 3 >= lo) {
         const unsigned char* f = frontier + rb * vb + v0;
         if (kVec) {
-          // vb % 4 == 0 and v0 < nv <= vb: the 4 bytes lie inside the row
+          // vb % 4 == 0 and v0 < hi <= vb: the 4 bytes lie inside the row
 #pragma unroll 8
           for (int r = 0; r < nr; ++r) {
             const unsigned x = __ldg(reinterpret_cast<const unsigned*>(f + r * vb));
@@ -1584,25 +1686,27 @@ bitmap_hop_csr_kernel(const int* __restrict__ indptr, long long nv,
         } else {
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            if (v0 + k >= nv) break;
+            if (v0 + k >= hi) break;
+            if (v0 + k < lo) continue;
             for (int r = 0; r < nr; ++r) mk[k] |= static_cast<unsigned>(f[r * vb + k] != 0) << r;
             if (gate != nullptr && !gate[v0 + k]) mk[k] = 0;
           }
         }
 #pragma unroll
-        for (int k = 1; k < 4; ++k) if (v0 + k >= nv) mk[k] = 0;
+        for (int k = 0; k < 4; ++k) if (v0 + k < lo || v0 + k >= hi) mk[k] = 0;
       }
       if (!__any_sync(kFull, (mk[0] | mk[1] | mk[2] | mk[3]) != 0u)) continue;
       // the lane's active vertices of nonzero degree
-      int st[4], dg[4];
+      long long bs[4], ax[4];
+      int dg[4];
       int cnt = 0, dsum = 0;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        st[k] = 0;
+        bs[k] = 0;
+        ax[k] = 0;
         dg[k] = 0;
         if (mk[k] != 0u) {
-          st[k] = indptr[v0 + k];
-          dg[k] = indptr[v0 + k + 1] - st[k];
+          dg[k] = rows.row(v0 + k, bs[k], ax[k]);
           if (dg[k] > 0) {
             ++cnt;
             dsum += dg[k];
@@ -1627,7 +1731,8 @@ bitmap_hop_csr_kernel(const int* __restrict__ indptr, long long nv,
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (mk[k] != 0u) {
-          s_start[w][pos] = st[k];
+          s_base[w][pos] = bs[k];
+          s_aux[w][pos] = ax[k];
           s_pref[w][pos] = off;
           s_rows[w][pos] = mk[k];
           ++pos;
@@ -1636,33 +1741,56 @@ bitmap_hop_csr_kernel(const int* __restrict__ indptr, long long nv,
       }
       __syncwarp();
       for (int p = lane; p < total; p += 32) {
-        int lo = 0, hi = na - 1;  // the last entry whose prefix is <= p
-        while (lo < hi) {
-          const int mid = (lo + hi + 1) >> 1;
-          if (s_pref[w][mid] <= p) lo = mid; else hi = mid - 1;
+        int a = 0, z = na - 1;  // the last entry whose prefix is <= p
+        while (a < z) {
+          const int mid = (a + z + 1) >> 1;
+          if (s_pref[w][mid] <= p) a = mid; else z = mid - 1;
         }
-        const long long slot = static_cast<long long>(s_start[w][lo]) + (p - s_pref[w][lo]);
+        const long long aux = s_aux[w][a];
+        const long long s = rows.slot(s_base[w][a], aux, p - s_pref[w][a]);
         if (emask != nullptr) {
-          long long e = slot;
-          if (eid != nullptr) {
-            const int x = eid[slot];  // take_pad(mask, eid, False)
-            if (x < 0 || ne <= 0) continue;
-            e = x < ne ? x : ne - 1;
-          }
-          if (!emask[e]) continue;
+          long long e = rows.edge(s, aux);  // take_pad(mask, edge, False)
+          if (e < 0 || ne <= 0) continue;
+          if (!emask[e < ne ? e : ne - 1]) continue;
         }
-        long long m = nbr[slot];
+        long long m = nbr[s];
         m = m < 0 ? 0 : (m < vb ? m : vb - 1);  // jnp.clip(emit_idx, 0, vb - 1)
-        unsigned rows = s_rows[w][lo];
-        while (rows != 0u) {
-          const int r = __ffs(rows) - 1;
-          rows &= rows - 1u;
+        unsigned bits = s_rows[w][a];
+        while (bits != 0u) {
+          const int r = __ffs(bits) - 1;
+          bits &= bits - 1u;
           out[(rb + r) * vb + m] = 1;
         }
       }
       __syncwarp();
     }
   }
+}
+
+// Zeroes `out` when asked, then launches bitmap_push_kernel over `rows`
+// (the 4-byte frontier loads when vb and the pointers allow them).
+template <typename Rows>
+int launch_push(const Rows& rows, const void* nbr, const void* emask, long long ne,
+                const void* frontier, const void* gate, long long c, long long vb,
+                const void* alive, int zero_out, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (zero_out && c * vb > 0) {
+    cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(c * vb), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (rows.hi > rows.lo && c > 0 && vb > 0) {
+    const long long groups = (rows.hi + kHopGroup - 1) / kHopGroup - rows.lo / kHopGroup;
+    long long blocks = (groups + kWarps - 1) / kWarps;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    const bool vec = vb % 4 == 0 && (reinterpret_cast<uintptr_t>(frontier) & 3u) == 0 &&
+                     (gate == nullptr || (reinterpret_cast<uintptr_t>(gate) & 3u) == 0);
+    auto kernel = vec ? bitmap_push_kernel<true, Rows> : bitmap_push_kernel<false, Rows>;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+        rows, static_cast<const int*>(nbr), static_cast<const unsigned char*>(emask), ne,
+        static_cast<const unsigned char*>(frontier), static_cast<const unsigned char*>(gate), c,
+        vb, static_cast<const int*>(alive), static_cast<unsigned char*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -2870,53 +2998,9 @@ __global__ void slab_decode_kernel(const int* __restrict__ idx, long long out,
 // these rows in place on the replay stream, so a captured replay reads them
 // through the pointers it holds. Every gather below keeps take_pad's
 // semantics: a negative index reads the fill, an index past the end the
-// last value.
+// last value. K19, the hop, is K10's push over the resident indptr and this
+// indirection (PagedRows, beside K10's CSR form).
 // ---------------------------------------------------------------------------
-
-// K19: paged_hop. out[c, nbr[s]] |= frontier[c, own[s]] over the flattened
-// pool [P*Wp], for slots with own[s] >= 0 and, with an edge mask,
-// emask[eid[s]] (a -1 eid reads False, as take_pad(emask, eid, False)).
-// Bound: `own` over the whole pool (4 bytes a slot), the frontier rows and
-// the gate at the vertices of resident blocks (C + 1 bytes a vertex), nbr
-// (+4 eid and 1 mask byte with an edge mask) only at the live slots whose
-// owner is active, and `out` written once. Design: K10's grid-stride loop
-// over the slots with K10's options (gate, alive, out). `own` is tested
-// before anything else: an evicted page keeps stale nbr and eid rows behind
-// its -1 owner row, and K10's clip of a -1 endpoint to vertex 0 would let a
-// frontier holding vertex 0 reach every stale neighbour. The gate and the
-// frontier come next, so eid, the mask and nbr are read only at slots whose
-// owner is active. The mask is gathered through eid here, so no [P*Wp] mask
-// is ever stored. Stores are only 1s, with no atomics, as in K10.
-__global__ void paged_hop_kernel(const int* __restrict__ own, const int* __restrict__ nbr,
-                                 const int* __restrict__ eid, long long ns,
-                                 const unsigned char* __restrict__ emask, long long ne,
-                                 const unsigned char* __restrict__ frontier,
-                                 const unsigned char* __restrict__ gate, long long c,
-                                 long long vb, const int* __restrict__ alive,
-                                 unsigned char* __restrict__ out) {
-  if (alive != nullptr && *alive == 0) return;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long s = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; s < ns;
-       s += stride) {
-    const int o = own[s];
-    if (o < 0) continue;
-    const long long a = o < vb ? o : vb - 1;
-    if (gate != nullptr && !gate[a]) continue;
-    bool act = false;  // every row read: independent loads, no chain
-    for (long long r = 0; r < c; ++r) act |= frontier[r * vb + a] != 0;
-    if (!act) continue;
-    if (emask != nullptr) {
-      const int e = eid[s];
-      if (e < 0 || ne <= 0) continue;
-      if (!emask[e < ne ? e : ne - 1]) continue;
-    }
-    long long m = nbr[s];
-    m = m < 0 ? 0 : (m < vb ? m : vb - 1);
-    for (long long r = 0; r < c; ++r) {
-      if (frontier[r * vb + a]) out[r * vb + m] = 1;
-    }
-  }
-}
 
 // K20: paged_hop_miss. Sets *flag when some vertex v < V is active in a
 // frontier row (and in the WHILE gate), has degree > 0 in this direction,
@@ -3572,25 +3656,9 @@ int csr_bitmap_hop_csr(const void* indptr, long long nv, const void* nbr, const 
                        const void* emask, long long ne, const void* frontier, const void* gate,
                        long long c, long long vb, const void* alive, int zero_out, void* out,
                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (zero_out && c * vb > 0) {
-    cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(c * vb), s);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (nv > 0 && c > 0 && vb > 0) {
-    const long long groups = (nv + kHopGroup - 1) / kHopGroup;
-    long long blocks = (groups + kWarps - 1) / kWarps;
-    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-    const bool vec = vb % 4 == 0 && (reinterpret_cast<uintptr_t>(frontier) & 3u) == 0 &&
-                     (gate == nullptr || (reinterpret_cast<uintptr_t>(gate) & 3u) == 0);
-    auto kernel = vec ? bitmap_hop_csr_kernel<true> : bitmap_hop_csr_kernel<false>;
-    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        static_cast<const int*>(indptr), nv, static_cast<const int*>(nbr),
-        static_cast<const int*>(eid), static_cast<const unsigned char*>(emask), ne,
-        static_cast<const unsigned char*>(frontier), static_cast<const unsigned char*>(gate), c,
-        vb, static_cast<const int*>(alive), static_cast<unsigned char*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  const CsrRows rows{static_cast<const int*>(indptr), static_cast<const int*>(eid), 0,
+                     nv < vb ? nv : vb};
+  return launch_push(rows, nbr, emask, ne, frontier, gate, c, vb, alive, zero_out, out, stream);
 }
 
 // `bound`, `emit`, `any` and `count` may be null. `any` ([C] bytes) and
@@ -3801,25 +3869,20 @@ int csr_slab_decode(const void* idx, long long out, const void* rel, int bk, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// K19. `emask`, `gate` and `alive` may be null; `zero_out` as for
-// csr_bitmap_hop. `own`, `nbr` and `eid` are the pool's `ns` = P*Wp slots.
-int csr_paged_hop(const void* own, const void* nbr, const void* eid, long long ns,
-                  const void* emask, long long ne, const void* frontier, const void* gate,
-                  long long c, long long vb, const void* alive, int zero_out, void* out,
-                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (zero_out && c * vb > 0) {
-    cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(c * vb), s);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (ns > 0 && c > 0 && vb > 0) {
-    paged_hop_kernel<<<grid_for(ns, 1), kThreads, 0, s>>>(
-        static_cast<const int*>(own), static_cast<const int*>(nbr),
-        static_cast<const int*>(eid), ns, static_cast<const unsigned char*>(emask), ne,
-        static_cast<const unsigned char*>(frontier), static_cast<const unsigned char*>(gate), c,
-        vb, static_cast<const int*>(alive), static_cast<unsigned char*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+// K19's push. `indptr` ([nv + 1]) is the partition's resident indptr,
+// `blockv` [nv], `pageof` [nb], `estart` [nb + 1]; `nbr` and `eid` are the
+// pool's `ns` = P*Wp slots, pages of `wp`. `emask`, `gate` and `alive` may
+// be null; `zero_out` as for csr_bitmap_hop.
+int csr_paged_hop_csr(const void* indptr, long long nv, const void* blockv, const void* pageof,
+                      long long nb, const void* estart, const void* nbr, const void* eid,
+                      long long ns, long long wp, const void* emask, long long ne,
+                      const void* frontier, const void* gate, long long c, long long vb,
+                      const void* alive, int zero_out, void* out, void* stream) {
+  const PagedRows rows{static_cast<const int*>(indptr), static_cast<const int*>(blockv),
+                       static_cast<const int*>(pageof), static_cast<const int*>(estart),
+                       static_cast<const int*>(eid), nb, wp, ns, 0,
+                       ns > 0 ? (nv < vb ? nv : vb) : 0};
+  return launch_push(rows, nbr, emask, ne, frontier, gate, c, vb, alive, zero_out, out, stream);
 }
 
 // K20. `flag` is one byte, zeroed here; `gate` and `alive` may be null.
@@ -3906,15 +3969,20 @@ int csr_shard_gather(const void* ind, long long r1, const void* nbr, long long e
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10's eid form (the mesh hop over edge-list slices): K19's slot kernel,
-// with act as the owner row, emit as the neighbour and the mask read
-// through eid. Arguments as for csr_paged_hop.
-int csr_bitmap_hop_eid(const void* act, const void* emit, const void* eid, long long ns,
-                       const void* emask, long long ne, const void* frontier, const void* gate,
-                       long long c, long long vb, const void* alive, int zero_out, void* out,
-                       void* stream) {
-  return csr_paged_hop(act, emit, eid, ns, emask, ne, frontier, gate, c, vb, alive, zero_out,
-                       out, stream);
+// K10's eid form over the row-sharded CSR of the shards s0 .. s0 + s_local
+// - 1: `indptr` [s_local, r + 1], `nbr` [s_local, emax], `extra` ebase
+// [s_local] (is_out) or the in CSR's eid [s_local, emax]. The rows walked
+// are the held vertices [s0*r, (s0 + s_local)*r) below vb. `emask`, `gate`
+// and `alive` may be null; `zero_out` as for csr_bitmap_hop.
+int csr_bitmap_hop_shard(const void* indptr, long long r, long long s_local, long long s0,
+                         const void* nbr, long long emax, const void* extra, int is_out,
+                         const void* emask, long long ne, const void* frontier, const void* gate,
+                         long long c, long long vb, const void* alive, int zero_out, void* out,
+                         void* stream) {
+  long long hi = (s0 + s_local) * r;
+  const ShardRows rows{static_cast<const int*>(indptr), static_cast<const int*>(extra), r, s0,
+                       emax, is_out, s0 * r, hi < vb ? hi : vb};
+  return launch_push(rows, nbr, emask, ne, frontier, gate, c, vb, alive, zero_out, out, stream);
 }
 
 // K23. `emask` and `w` may be null (every edge / weight 1); `out` ([vb])

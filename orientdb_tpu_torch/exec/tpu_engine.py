@@ -29,7 +29,7 @@ As in the reference:
   with the edge-list K10) and classless nodes on ``v_class >= 0``; plans
   carry the overlay's generation and re-record when the structure moves;
 - on a tiered snapshot (`storage/tiering`), a paged edge class expands
-  through K21 `paged_expand` and hops through K19 `paged_hop` over the
+  through K21 `paged_expand` and hops through K19 `paged_hop_csr` over the
   tier's page pools; the recording run faults every touched block in and
   the touched set becomes the plan's footprint, which each dispatch
   prefetches and pins; a replay's cold-miss flags (K21's, K20
@@ -486,26 +486,28 @@ def build_bitmap_hops(
     tombstoned slots masked by ``live``), ORed into the same bitmap.
     Reading ``edge_src`` uploads it on the recording run.
 
-    A (class, direction) that ``tier`` pages hops over its page pool (K19
-    `paged_hop`) instead: while ``sched`` records, the gated frontier's
-    blocks are faulted in first (into ``touched``, the plan's footprint);
+    A (class, direction) that ``tier`` pages hops over its resident indptr
+    and page pool (K19 `paged_hop_csr`) instead: while ``sched`` records,
+    the gated frontier's blocks are faulted in first (into ``touched``, the
+    plan's footprint);
     on a replay K20 `paged_hop_miss` raises the cold-miss flag into
     ``sched``. Both read the pools from ``dg.arrays`` at the hop, so a
     recording after a pool grew reads the new tensors.
 
-    On a meshed snapshot every hop runs over the class's sharded edge list
-    (`mesh_graph.sharded_bitmap_hop`, K10's eid form): an out hop activates
-    on ``el:src`` and emits ``el:dst``, the mask read through ``el:eid``."""
+    On a meshed snapshot every hop walks the class's row-sharded CSR of the
+    direction (`mesh_graph.sharded_bitmap_hop`, K10's eid form): an out hop
+    the rows of ``:out:indptr`` (edge id ``:out:ebase`` + slot), an in hop
+    those of ``:in:indptr`` (edge id ``:in:eid``)."""
     mg = dg.mesh_graph
     hops = []
     for cname, d, emask in items:
         if mg is not None:
-            p = mg.edge[cname].prefix
-            src_sh, dst_sh, eid_sh = (dg.arrays[f"{p}:el:{k}"] for k in ("src", "dst", "eid"))
-            a_sh, e_sh = (src_sh, dst_sh) if d == "out" else (dst_sh, src_sh)
+            p = f"{mg.edge[cname].prefix}:{d}"
+            extra = "ebase" if d == "out" else "eid"
+            sh = tuple(dg.arrays[f"{p}:{k}"] for k in ("indptr", "nbr", extra)) + (d == "out",)
             hops.append(
-                lambda fr, gate=None, alive=None, out=None, a=a_sh, em=e_sh, i=eid_sh, m=emask: (
-                    MG.sharded_bitmap_hop(mg.mesh, a, em, i, m, fr, gate, alive, out)
+                lambda fr, gate=None, alive=None, out=None, sh=sh, m=emask: (
+                    MG.sharded_bitmap_hop(mg.mesh, *sh, m, fr, gate, alive, out)
                 )
             )
             continue

@@ -72,7 +72,9 @@ SIGNATURES = {
     "csr_slab_scan_emit": [_P, _P, _P, _N, _P, _P, _P, _N, _P, _I, _N, _P, _P, _P, _P],
     "csr_slab_probe": [_P, _P, _P, _N, _P, _N, _I, _I, _I, _P, _P, _P],
     "csr_slab_decode": [_P, _N, _P, _I, _I, _P, _N, _P, _P, _P, _P],
-    "csr_paged_hop": [_P, _P, _P, _N, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
+    "csr_paged_hop_csr": [
+        _P, _N, _P, _P, _N, _P, _P, _P, _N, _N, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P
+    ],
     "csr_paged_hop_miss": [_P, _P, _N, _N, _P, _N, _P, _N, _P, _P, _P, _P],
     "csr_paged_expand": [
         _P, _N, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P, _P, _N, _N, _I, _P, _P, _P, _P, _P
@@ -81,7 +83,9 @@ SIGNATURES = {
     "csr_shard_gather": [
         _P, _N, _P, _N, _P, _N, _P, _P, _N, _P, _P, _N, _N, _N, _N, _N, _I, _I, _P, _P, _P, _P
     ],
-    "csr_bitmap_hop_eid": [_P, _P, _P, _N, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
+    "csr_bitmap_hop_shard": [
+        _P, _N, _N, _N, _P, _N, _P, _I, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P
+    ],
     "csr_shard_weight_pass_i32": [_P, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P],
     "csr_shard_weight_pass_f32": [_P, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P],
     "csr_rowshard_hop": [_P, _N, _P, _N, _P, _N, _N, _N, _I, _P, _P],

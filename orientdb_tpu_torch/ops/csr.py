@@ -9,9 +9,9 @@ module's `_CompiledPlan`) and the compact page of a batch's rows group
 the in-place patch scatter of `ops/device_graph.DeviceGraph.apply_patches`
 (`scatter_set`) and the append-slab expansions of a delta-maintained
 snapshot (`slab_scan`, `slab_probe`), and the paged reads of a tiered
-snapshot (`paged_hop`, `paged_hop_miss`, `paged_expand`, over the page
+snapshot (`paged_hop_csr`, `paged_hop_miss`, `paged_expand`, over the page
 pools of `storage/tiering`), and the mesh's per-shard kernels
-(`degree_counts_range`, `shard_gather`, `bitmap_hop_eid`,
+(`degree_counts_range`, `shard_gather`, `bitmap_hop_shard`,
 `shard_weight_pass`, `rowshard_hop`, for `parallel/`), each as a wrapper over a hand-written
 CUDA kernel (`csrc/csr_kernels.cu`) beside its plain PyTorch version.
 
@@ -76,12 +76,12 @@ LAUNCHES: Dict[str, int] = {
         "scatter_set",
         "slab_scan",
         "slab_probe",
-        "paged_hop",
+        "paged_hop_csr",
         "paged_hop_miss",
         "paged_expand",
         "degree_counts_range",
         "shard_gather",
-        "bitmap_hop_eid",
+        "bitmap_hop_shard",
         "shard_weight_pass",
         "rowshard_hop",
     )
@@ -1115,6 +1115,34 @@ def bitmap_hop_csr(
     return out
 
 
+def _plain_push(lo: int, hi: int, row, slot, edge, nbr_flat, emask, frontier, gate, alive) -> torch.Tensor:
+    """The push walk of K10's row forms (`bitmap_hop_shard`,
+    `paged_hop_csr`) in torch: the vertices of ``[lo, hi)`` (below vb)
+    active in some frontier row, in ``gate`` and with ``alive`` not 0; each
+    one's slot base, operand and degree from ``row``, its ``j``-th slot
+    from ``slot(base, operand, j)`` and that slot's edge id from
+    ``edge(slot, operand)``; then `plain_bitmap_hop` over the slots reached,
+    the mask read through the edge ids as ``take_pad(emask, id, False)``."""
+    C, vb = frontier.shape
+    dev = frontier.device
+    hi = min(hi, vb)
+    if hi <= lo or C == 0:
+        return torch.zeros((C, vb), dtype=B8, device=dev)
+    fa = frontier[:, lo:hi].any(0)
+    if gate is not None:
+        fa = fa & gate[lo:hi]
+    if alive is not None:
+        fa = fa & (alive != 0)
+    v = fa.nonzero().view(-1) + lo
+    base, aux, deg = row(v)
+    deg = deg.clamp(min=0)
+    rep = torch.repeat_interleave(torch.arange(v.shape[0], device=dev), deg)
+    j = torch.arange(rep.shape[0], device=dev) - (torch.cumsum(deg, 0) - deg)[rep]
+    s = slot(base[rep], aux[rep], j)
+    m = None if emask is None else plain_take_pad(emask, edge(s, aux[rep]), False)
+    return plain_bitmap_hop(v[rep].to(I32), nbr_flat[s], m, frontier, gate, alive)
+
+
 EmitResult =Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]
 
 
@@ -1899,9 +1927,10 @@ def _check_pool(t: torch.Tensor, what: str) -> None:
 
 
 def plain_paged_hop(own, nbr, eid, emask, frontier, gate=None, alive=None) -> torch.Tensor:
-    """The reference's `paged_hop`: the flattened pool as an edge list
-    whose slots count when ``own >= 0`` (and ``take_pad(emask, eid,
-    False)``), through `plain_bitmap_hop`."""
+    """The reference's `paged_hop`, the slot walk K19's push is held
+    against: the flattened pool as an edge list whose slots count when
+    ``own >= 0`` (and ``take_pad(emask, eid, False)``), through
+    `plain_bitmap_hop`."""
     own_f, nbr_f = own.reshape(-1), nbr.reshape(-1)
     m = own_f >= 0
     if emask is not None:
@@ -1909,8 +1938,42 @@ def plain_paged_hop(own, nbr, eid, emask, frontier, gate=None, alive=None) -> to
     return plain_bitmap_hop(own_f, nbr_f, m, frontier, gate, alive)
 
 
-def paged_hop(
-    own: torch.Tensor,
+def plain_paged_hop_csr(
+    indptr, blockv, pageof, estart, nbr, eid, emask, frontier, gate=None, alive=None
+) -> torch.Tensor:
+    """K19's push walk in torch (`_plain_push`): an active vertex ``v <
+    V`` reads block ``b = blockv[v]`` at page ``p = pageof[clip(b, 0,
+    B-1)]`` (nothing when ``b`` or ``p`` is -1) and its ``indptr`` row's
+    slots ``p·Wp + clip(indptr[v] + j - estart[b], 0, Wp-1)`` (at most the
+    last pool slot), K21's clips; ``nbr`` and the edge id are read from the
+    pool rows there."""
+    V, nb = blockv.shape[0], pageof.shape[0]
+    Wp, ns = nbr.shape[1], nbr.numel()
+    if ns == 0 or nb == 0:
+        return torch.zeros(frontier.shape, dtype=B8, device=frontier.device)
+    ip, bv, pg, es = indptr.long(), blockv.long(), pageof.long(), estart.long()
+
+    def row(v):
+        b = bv[v]
+        bc = b.clamp(0, nb - 1)
+        p = torch.where(b >= 0, pg[bc], -1)
+        st = ip[v]
+        return p.clamp(min=0) * Wp, st - es[bc], torch.where(p >= 0, ip[v + 1] - st, 0)
+
+    def slot(base, aux, j):
+        return (base + (aux + j).clamp(0, Wp - 1)).clamp(max=ns - 1)
+
+    eid_f = eid.reshape(-1)
+    return _plain_push(
+        0, V, row, slot, lambda s, a: eid_f[s], nbr.reshape(-1), emask, frontier, gate, alive
+    )
+
+
+def paged_hop_csr(
+    indptr: torch.Tensor,
+    blockv: torch.Tensor,
+    pageof: torch.Tensor,
+    estart: torch.Tensor,
     nbr: torch.Tensor,
     eid: torch.Tensor,
     emask: Optional[torch.Tensor],
@@ -1919,34 +1982,43 @@ def paged_hop(
     alive: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One frontier hop over a paged partition's pool (K19):
-    ``out[c, nbr[s]] |= frontier[c, own[s]]`` for the pool slots with
-    ``own[s] >= 0`` and, with ``emask`` (bool [E] in out order), a True
-    ``emask[eid[s]]`` (-1 reads False). ``own`` / ``nbr`` / ``eid`` int32
-    [P, Wp]; ``gate``, ``alive`` and ``out`` as for `bitmap_hop`."""
-    for t, what in ((own, "own"), (nbr, "nbr"), (eid, "eid")):
-        _check_pool(t, f"paged_hop {what}")
-    if nbr.shape != own.shape or eid.shape != own.shape:
-        raise ValueError("paged_hop: own, nbr and eid differ in shape")
-    _check2d(frontier, (B8,), "paged_hop frontier")
+    """One frontier hop over a paged partition (K19), walked by its active
+    vertices: ``out[c, nbr[s]] |= frontier[c, v]`` for the pool slots ``s``
+    of each vertex ``v`` whose block is resident and, with ``emask`` (bool
+    [E] in out order), a True ``emask[eid[s]]`` (-1 reads False).
+    ``indptr`` int32 [V+1] is the partition's resident indptr, ``blockv``
+    int32 [V], ``pageof`` int32 [B], ``estart`` int32 [B+1]; ``nbr`` /
+    ``eid`` int32 [P, Wp] the pool rows; ``gate``, ``alive`` and ``out`` as
+    for `bitmap_hop`. Equals the reference's slot walk (`plain_paged_hop`)
+    on any pool `storage/tiering.TierManager` keeps: a resident block's
+    page holds its slots, an evicted block's ``pageof`` is -1."""
+    for t, what in ((indptr, "indptr"), (blockv, "blockv"), (pageof, "pageof"), (estart, "estart")):
+        _check(t, (I32,), f"paged_hop_csr {what}")
+    for t, what in ((nbr, "nbr"), (eid, "eid")):
+        _check_pool(t, f"paged_hop_csr {what}")
+    if eid.shape != nbr.shape:
+        raise ValueError("paged_hop_csr: nbr and eid differ in shape")
+    if indptr.shape[0] != blockv.shape[0] + 1 or estart.shape[0] != pageof.shape[0] + 1:
+        raise ValueError("paged_hop_csr: indptr / blockv or estart / pageof lengths disagree")
+    _check2d(frontier, (B8,), "paged_hop_csr frontier")
     C, vb = frontier.shape
     opt = []
     if emask is not None:
-        _check(emask, (B8,), "paged_hop emask")
+        _check(emask, (B8,), "paged_hop_csr emask")
         opt.append(emask)
     if gate is not None:
-        _check(gate, (B8,), "paged_hop gate")
+        _check(gate, (B8,), "paged_hop_csr gate")
         if gate.shape[0] != vb:
-            raise ValueError("paged_hop: gate and the frontier differ in width")
+            raise ValueError("paged_hop_csr: gate and the frontier differ in width")
         opt.append(gate)
     if alive is not None:
-        _check_scalar(alive, "paged_hop alive")
+        _check_scalar(alive, "paged_hop_csr alive")
         opt.append(alive)
     if out is not None:
-        _check_out(out, (C, vb), B8, "paged_hop")
+        _check_out(out, (C, vb), B8, "paged_hop_csr")
         opt.append(out)
-    if not _on_card(own, nbr, eid, frontier, *opt):
-        hop = plain_paged_hop(own, nbr, eid, emask, frontier, gate, alive)
+    if not _on_card(indptr, blockv, pageof, estart, nbr, eid, frontier, *opt):
+        hop = plain_paged_hop_csr(indptr, blockv, pageof, estart, nbr, eid, emask, frontier, gate, alive)
         if out is None:
             return hop
         out |= hop
@@ -1956,12 +2028,18 @@ def paged_hop(
     if zero:
         out = torch.empty((C, vb), dtype=B8, device=frontier.device)
     _launch(
-        "paged_hop",
-        lib.csr_paged_hop,
-        own.data_ptr(),
+        "paged_hop_csr",
+        lib.csr_paged_hop_csr,
+        indptr.data_ptr(),
+        blockv.shape[0],
+        blockv.data_ptr(),
+        pageof.data_ptr(),
+        pageof.shape[0],
+        estart.data_ptr(),
         nbr.data_ptr(),
         eid.data_ptr(),
-        own.numel(),
+        nbr.numel(),
+        nbr.shape[1],
         None if emask is None else emask.data_ptr(),
         0 if emask is None else emask.shape[0],
         frontier.data_ptr(),
@@ -2330,51 +2408,88 @@ def shard_gather(
 
 
 def plain_bitmap_hop_eid(act, emit, eid, emask, frontier, gate=None, alive=None) -> torch.Tensor:
-    """The reference's shard hop (`sharded_bitmap_hop` body): slots count
-    where ``act >= 0`` and ``take_pad(emask, eid, False)``, then
-    `plain_bitmap_hop` (K19's plain version over the flat slots)."""
+    """The reference's shard hop (`sharded_bitmap_hop` body) over the
+    edge-list slices, the slot walk K10's eid form is held against: slots
+    count where ``act >= 0`` and ``take_pad(emask, eid, False)``, then
+    `plain_bitmap_hop` (K19's plain slot walk over the flat slots)."""
     return plain_paged_hop(act, emit, eid, emask, frontier, gate, alive)
 
 
-def bitmap_hop_eid(
-    act: torch.Tensor,
-    emit: torch.Tensor,
-    eid: torch.Tensor,
+def plain_bitmap_hop_shard(
+    indptr_sh, nbr_sh, extra_sh, is_out: bool, s0: int, emask, frontier, gate=None, alive=None
+) -> torch.Tensor:
+    """K10's eid form as a push in torch (`_plain_push`): the held vertices
+    ``[s0·R, (s0+S_l)·R)``; vertex ``v`` is row ``v - s·R`` of shard ``s =
+    v // R``, its slots that row of ``nbr_sh[s - s0]``, the edge id
+    ``ebase[s - s0] + slot`` out or ``eid[s - s0, slot]`` in."""
+    S_l, R = indptr_sh.shape[0], indptr_sh.shape[1] - 1
+    if S_l == 0 or R <= 0:
+        return torch.zeros(frontier.shape, dtype=B8, device=frontier.device)
+    emax = nbr_sh.shape[1]
+    ind, ex = indptr_sh.long(), extra_sh.reshape(-1).long()
+
+    def row(v):
+        sl = v // R - s0
+        loc = v - (sl + s0) * R
+        st = ind[sl, loc]
+        aux = ex[sl] - sl * emax if is_out else torch.zeros_like(sl)
+        return sl * emax + st, aux, ind[sl, loc + 1] - st
+
+    edge = (lambda s, a: s + a) if is_out else (lambda s, a: ex[s])
+    return _plain_push(
+        s0 * R, (s0 + S_l) * R, row, lambda b, a, j: b + j, edge, nbr_sh.reshape(-1), emask,
+        frontier, gate, alive,
+    )
+
+
+def bitmap_hop_shard(
+    indptr_sh: torch.Tensor,
+    nbr_sh: torch.Tensor,
+    extra_sh: torch.Tensor,
+    is_out: bool,
+    s0: int,
     emask: Optional[torch.Tensor],
     frontier: torch.Tensor,
     gate: Optional[torch.Tensor] = None,
     alive: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K10's eid form: one frontier hop over the edge-list slices of every
-    shard held (``act`` / ``emit`` / ``eid`` int32 [S_l, W], -1 padded):
-    ``out[c, emit[s]] |= frontier[c, act[s]]`` for the slots with ``act[s]
-    >= 0`` and, with ``emask`` (bool [E] in out order), ``emask[eid[s]]``.
-    ``gate``, ``alive`` and ``out`` as for `bitmap_hop`: the shards' hops
-    OR into one bitmap."""
-    for t, what in ((act, "act"), (emit, "emit"), (eid, "eid")):
-        _check_sharded(t, f"bitmap_hop_eid {what}")
-    if emit.shape != act.shape or eid.shape != act.shape:
-        raise ValueError("bitmap_hop_eid: act, emit and eid differ in shape")
-    _check2d(frontier, (B8,), "bitmap_hop_eid frontier")
+    """K10's eid form: one frontier hop over the row-sharded CSR of the
+    shards ``s0 .. s0+S_l-1`` held here, walked by their active vertices:
+    ``out[c, nbr[s]] |= frontier[c, v]`` for each slot ``s`` of vertex
+    ``v``'s row and, with ``emask`` (bool [E] in out order), a True
+    ``emask[edge id]``. ``indptr_sh`` int32 [S_l, R+1] (rebased rows),
+    ``nbr_sh`` int32 [S_l, emax], ``extra_sh`` ``:out:ebase`` [S_l, 1]
+    (``is_out``: the edge id is ebase + the local slot) or ``:in:eid``
+    [S_l, emax]. ``gate``, ``alive`` and ``out`` as for `bitmap_hop`: the
+    shards' hops OR into one bitmap."""
+    for t, what in ((indptr_sh, "indptr_sh"), (nbr_sh, "nbr_sh"), (extra_sh, "extra_sh")):
+        _check_sharded(t, f"bitmap_hop_shard {what}")
+    S_l = indptr_sh.shape[0]
+    want = (S_l, 1) if is_out else tuple(nbr_sh.shape)
+    if nbr_sh.shape[0] != S_l or tuple(extra_sh.shape) != want:
+        raise ValueError(f"bitmap_hop_shard: nbr_sh / extra_sh do not match {S_l} shards")
+    if s0 < 0:
+        raise ValueError("bitmap_hop_shard: s0 must be >= 0")
+    _check2d(frontier, (B8,), "bitmap_hop_shard frontier")
     C, vb = frontier.shape
     opt = []
     if emask is not None:
-        _check(emask, (B8,), "bitmap_hop_eid emask")
+        _check(emask, (B8,), "bitmap_hop_shard emask")
         opt.append(emask)
     if gate is not None:
-        _check(gate, (B8,), "bitmap_hop_eid gate")
+        _check(gate, (B8,), "bitmap_hop_shard gate")
         if gate.shape[0] != vb:
-            raise ValueError("bitmap_hop_eid: gate and the frontier differ in width")
+            raise ValueError("bitmap_hop_shard: gate and the frontier differ in width")
         opt.append(gate)
     if alive is not None:
-        _check_scalar(alive, "bitmap_hop_eid alive")
+        _check_scalar(alive, "bitmap_hop_shard alive")
         opt.append(alive)
     if out is not None:
-        _check_out(out, (C, vb), B8, "bitmap_hop_eid")
+        _check_out(out, (C, vb), B8, "bitmap_hop_shard")
         opt.append(out)
-    if not _on_card(act, emit, eid, frontier, *opt):
-        hop = plain_bitmap_hop_eid(act, emit, eid, emask, frontier, gate, alive)
+    if not _on_card(indptr_sh, nbr_sh, extra_sh, frontier, *opt):
+        hop = plain_bitmap_hop_shard(indptr_sh, nbr_sh, extra_sh, is_out, s0, emask, frontier, gate, alive)
         if out is None:
             return hop
         out |= hop
@@ -2384,12 +2499,16 @@ def bitmap_hop_eid(
     if zero:
         out = torch.empty((C, vb), dtype=B8, device=frontier.device)
     _launch(
-        "bitmap_hop_eid",
-        lib.csr_bitmap_hop_eid,
-        act.data_ptr(),
-        emit.data_ptr(),
-        eid.data_ptr(),
-        act.numel(),
+        "bitmap_hop_shard",
+        lib.csr_bitmap_hop_shard,
+        indptr_sh.data_ptr(),
+        indptr_sh.shape[1] - 1,
+        S_l,
+        s0,
+        nbr_sh.data_ptr(),
+        nbr_sh.shape[1],
+        extra_sh.data_ptr(),
+        int(bool(is_out)),
         None if emask is None else emask.data_ptr(),
         0 if emask is None else emask.shape[0],
         frontier.data_ptr(),

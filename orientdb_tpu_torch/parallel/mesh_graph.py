@@ -16,8 +16,9 @@ The layout is the reference's, array for array and byte for byte
 A device holds the rows of the shards its process holds (all S with
 `LocalShards`, one with `ProcessShards`). The kernels: `expand_totals`
 (K2's range form), `expand_gather` (K22 `shard_gather`),
-`sharded_bitmap_hop` (K10's eid form) and `sharded_weight_pass` (K23), each
-merged as the group merges (`parallel/collectives`).
+`sharded_bitmap_hop` (K10's eid form, a push over the row-sharded CSR) and
+`sharded_weight_pass` (K23), each merged as the group merges
+(`parallel/collectives`).
 """
 
 from __future__ import annotations
@@ -185,16 +186,23 @@ def expand_gather(
 
 
 def sharded_bitmap_hop(
-    mesh: LocalShards, act_sh, emit_sh, eid_sh, emask, frontier, gate=None, alive=None,
-    out: Optional[torch.Tensor] = None,
+    mesh: LocalShards, ind_sh, nbr_sh, extra_sh, is_out: bool, emask, frontier, gate=None,
+    alive=None, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One frontier hop over every shard's edge-list slice (K10's eid
-    form): the shards' activations OR into one ``[C, vb]`` bitmap (``out``
-    when given). ``emask`` (bool [E] or None) is read through the slices'
-    ``eid``; ``gate`` and ``alive`` as for `bitmap_hop`."""
+    """One frontier hop over the row-sharded CSR of a direction (K10's eid
+    form): each shard held walks the rows of its active vertices
+    (``ind_sh`` / ``nbr_sh`` the ``:out:`` or ``:in:`` indptr and
+    neighbours, ``extra_sh`` ``:out:ebase`` or ``:in:eid``), and the shards'
+    activations OR into one ``[C, vb]`` bitmap (``out`` when given).
+    ``emask`` (bool [E] in out order, or None) is read through the edge
+    ids; ``gate`` and ``alive`` as for `bitmap_hop`. The reference walks
+    the edge-list slices instead; both reach the same bits."""
+    hop = lambda o: K.bitmap_hop_shard(  # noqa: E731
+        ind_sh, nbr_sh, extra_sh, is_out, mesh.s0, emask, frontier, gate, alive, o
+    )
     if not mesh.collective:
-        return K.bitmap_hop_eid(act_sh, emit_sh, eid_sh, emask, frontier, gate, alive, out)
-    merged = merge_bits(mesh, K.bitmap_hop_eid(act_sh, emit_sh, eid_sh, emask, frontier, gate, alive))
+        return hop(out)
+    merged = merge_bits(mesh, hop(None))
     if out is None:
         return merged
     out |= merged

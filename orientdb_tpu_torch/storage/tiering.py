@@ -442,9 +442,12 @@ class TierManager:
         return self._evict(part, victim)
 
     def _evict(self, part: _Partition, b: int) -> int:
-        """Invalidate block ``b``'s page: its owner row reads -1, so the
-        bitmap hop masks its slots out (nbr and eid stay stale but masked;
-        the gather checks ``pageof``, copied at the end of the wave)."""
+        """Invalidate block ``b``'s page: its owner row reads -1 (the
+        reference's slot walk masks its slots out) and its ``pageof`` entry
+        -1, copied to the device at the end of the wave, before any hop or
+        gather runs after it on the replay stream; K19's push and K21 read
+        a page only through ``pageof``, so the stale nbr and eid rows are
+        never read."""
         keys = _keys(part.cname, part.d)
         p = int(part.page_of[b])
         self._dg.arrays[keys["own"]][p].fill_(-1)
@@ -503,9 +506,14 @@ class TierManager:
 
 
 def paged_hop(arrays, cname: str, d: str, emask, frontier, gate=None, alive=None, out=None):
-    """One frontier bitmap hop over a paged partition's pool (K19)."""
+    """One frontier bitmap hop over a paged partition (K19): the active
+    vertices' rows of the resident indptr, through the block → page
+    indirection into the pool."""
     k = _keys(cname, d)
-    return K.paged_hop(arrays[k["own"]], arrays[k["nbr"]], arrays[k["eid"]], emask, frontier, gate, alive, out)
+    return K.paged_hop_csr(
+        arrays[_indptr_key(cname, d)], arrays[k["blockv"]], arrays[k["pageof"]], arrays[k["estart"]],
+        arrays[k["nbr"]], arrays[k["eid"]], emask, frontier, gate, alive, out,
+    )
 
 
 def paged_hop_miss(arrays, cname: str, d: str, frontier, gate=None, alive=None):

@@ -15,6 +15,9 @@ import pytest
 import torch
 
 from orientdb_tpu_torch.ops import csr as T
+from test_torch_push_hops import (
+    PAGED_CASES, SHARD_CASES, frontiers, paged_args, paged_pool, shard_layout, skewed_csr,
+)
 
 F32_RTOL = 1e-5
 
@@ -1105,59 +1108,24 @@ def test_delta_batches_on_card_equal_cpu(card):
     torch.cuda.synchronize()
 
 
-def _paged_pool(rng, v: int, avg: float, block_edges: int, pages: int):
-    """A random CSR cut into a tier partition's blocks (`storage/tiering`)
-    and a pool of ``pages`` pages: random resident blocks at random pages,
-    free pages, and one evicted page that keeps its stale nbr/eid rows
-    behind a -1 owner row. Returns numpy arrays."""
-    from orientdb_tpu_torch.storage import tiering
-    from orientdb_tpu_torch.utils.config import config
-
-    indptr, nbrs = _csr(rng, v, avg, tail_zero=3)
-    E = nbrs.shape[0]
-    host = {
-        "own": np.repeat(np.arange(v, dtype=np.int32), np.diff(indptr)),
-        "nbr": nbrs,
-        "eid": rng.permutation(E).astype(np.int32),
-    }
-    saved = config.tier_block_edges
-    config.tier_block_edges = block_edges
-    try:
-        part = tiering._Partition("c", "in", indptr, host)
-    finally:
-        config.tier_block_edges = saved
-    pools = {n: np.full((pages, part.Wp), -1, np.int32) for n in ("own", "nbr", "eid")}
-    pageof = np.full(part.B, -1, np.int32)
-    blocks = rng.permutation(part.B)[: max(pages - 1, 0)]
-    slots = rng.permutation(pages)
-    for p, b in zip(slots, blocks):
-        for n in pools:
-            pools[n][p] = part.block_values(n, int(b))
-        pageof[b] = p
-    if pages > len(blocks):  # the evicted page
-        p = slots[len(blocks)]
-        b = int(rng.integers(0, part.B))
-        for n in ("nbr", "eid"):
-            pools[n][p] = part.block_values(n, b)
-    # -1 edge ids under live owners (take_pad(emask, -1) reads False)
-    live = pools["own"] >= 0
-    pools["eid"][live & (rng.random(live.shape) < 0.1)] = -1
-    return indptr, part, pools, pageof
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "v,avg,block_edges,pages,c",
-    [(60, 3.0, 16, 3, 1), (60, 3.0, 16, 0, 2), (5_000, 6.0, 256, 20, 8), (100_000, 8.0, 4_096, 60, 8)],
+    [
+        (60, 3.0, 16, 3, 1), (60, 3.0, 16, 0, 2), (5_000, 6.0, 256, 20, 8), (100_000, 8.0, 4_096, 60, 8),
+        (5_000, 6.0, 256, 20, 40),
+    ],
 )
 def test_paged_kernels_equal_plain_on_card(card, v, avg, block_edges, pages, c):
-    """K19 paged_hop, K20 paged_hop_miss and K21 paged_expand against their
-    plain versions, exactly: resident, free and evicted pages with vertex 0
-    in every frontier row, an edge mask with -1 edge ids, a WHILE gate, an
-    empty frontier, padding sources and cold blocks, both directions of
+    """K19 paged_hop_csr (the push), K20 paged_hop_miss and K21
+    paged_expand against their plain versions, exactly, and K19 against
+    the slot walk it replaces: resident, free and evicted pages with vertex
+    0 in every frontier row, an edge mask with -1 edge ids, a WHILE gate,
+    an empty frontier, padding sources and cold blocks, both directions of
     K21, and an empty pool."""
     rng = np.random.default_rng(v + pages)
-    indptr, part, pools, pageof = _paged_pool(rng, v, avg, block_edges, pages)
+    indptr, part, pools, pageof = paged_pool(rng, v, avg, block_edges, pages)
+    push, slot = paged_args(indptr, part, pools, pageof, card)
     vb = T.bucket(v)
     d = {n: _t(a).to(card) for n, a in pools.items()}
     ip, pg = _t(indptr).to(card), _t(pageof).to(card)
@@ -1169,11 +1137,12 @@ def test_paged_kernels_equal_plain_on_card(card, v, avg, block_edges, pages, c):
     gate = _t(rng.random(vb) < 0.8).to(card)
     for m in (None, emask):
         for g in (None, gate):
-            got = T.paged_hop(d["own"], d["nbr"], d["eid"], m, fr_t, g)
-            assert torch.equal(got, T.plain_paged_hop(d["own"], d["nbr"], d["eid"], m, fr_t, g))
+            got = T.paged_hop_csr(*push, m, fr_t, g)
+            assert torch.equal(got, T.plain_paged_hop_csr(*push, m, fr_t, g))
+            assert torch.equal(got, T.plain_paged_hop(*slot, m, fr_t, g))
             acc = torch.zeros_like(fr_t)
             acc[:, -1] = True
-            T.paged_hop(d["own"], d["nbr"], d["eid"], m, fr_t, g, out=acc)
+            T.paged_hop_csr(*push, m, fr_t, g, out=acc)
             assert torch.equal(acc, got | (torch.arange(vb, device=card) == vb - 1)[None, :])
             want = T.plain_paged_hop_miss(fr_t, bv, pg, ip, g)
             assert bool(T.paged_hop_miss(fr_t, bv, pg, ip, g)) == bool(want)
@@ -1181,7 +1150,7 @@ def test_paged_kernels_equal_plain_on_card(card, v, avg, block_edges, pages, c):
     empty = torch.zeros_like(fr_t)
     assert not bool(T.paged_hop_miss(empty, bv, pg, ip))
     assert not bool(T.paged_hop_miss(fr_t, bv, pg, ip, alive=zero))
-    assert not T.paged_hop(d["own"], d["nbr"], d["eid"], None, fr_t, alive=zero).any()
+    assert not T.paged_hop_csr(*push, None, fr_t, alive=zero).any()
     for R in (1, 255, 4_097):
         srcs = rng.integers(-1, v, R).astype(np.int32)
         s_t = _t(srcs).to(card)
@@ -1327,6 +1296,80 @@ def test_traverse_and_records_on_card_equal_cpu(card):
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,v,avg,hub,empty", SHARD_CASES)
+def test_shard_push_equals_plain_on_card(card, S, v, avg, hub, empty):
+    """K10's eid form on the skewed mesh layouts of
+    `tests/test_torch_push_hops.py` (a hub row, empty runs, groups across
+    shard boundaries, a shard past V), at C = 1, 3 and 40, sparse, empty
+    and dense frontiers, with and without mask and gate: equal to its plain
+    push and to the slot walk over the edge-list slices, exactly; each
+    rank's shard alone ORs to the same bitmap; ``alive`` 0 writes nothing;
+    a captured launch replays equal."""
+    rng = np.random.default_rng(S * 1000 + v)
+    indptr, nbrs = skewed_csr(rng, v, avg, hub, empty)
+    csr, el, _R = shard_layout(indptr, nbrs, S)
+    csr = {d: tuple(t.to(card) for t in x[:3]) + (x[3],) for d, x in csr.items()}
+    el = tuple(t.to(card) for t in el)
+    vb = T.bucket(v)
+    emask = _t(rng.random(nbrs.shape[0]) < 0.7).to(card)
+    gate = _t(rng.random(vb) < 0.8).to(card)
+    zero = torch.zeros((), dtype=torch.int32, device=card)
+    for c in (1, 3, 40):
+        for fr in frontiers(rng, c, vb, card):
+            for d, (a, e) in (("out", (el[0], el[1])), ("in", (el[1], el[0]))):
+                sh = csr[d]
+                for m in (None, emask):
+                    for g in (None, gate):
+                        got = T.bitmap_hop_shard(*sh[:3], sh[3], 0, m, fr, g)
+                        assert torch.equal(got, T.plain_bitmap_hop_shard(*sh[:3], sh[3], 0, m, fr, g))
+                        assert torch.equal(got, T.plain_bitmap_hop_eid(a, e, el[2], m, fr, g))
+                        ranks = torch.zeros_like(got)
+                        for s0 in range(S):
+                            T.bitmap_hop_shard(*(t[s0 : s0 + 1] for t in sh[:3]), sh[3], s0, m, fr, g, out=ranks)
+                        assert torch.equal(ranks, got)
+                assert not T.bitmap_hop_shard(*sh[:3], sh[3], 0, emask, fr, gate, zero).any()
+    sh, fr = csr["in"], frontiers(rng, 40, vb, card)[0]
+    outs = {}
+    fn = lambda: outs.__setitem__("hop", T.bitmap_hop_shard(*sh[:3], sh[3], 0, emask, fr, gate))  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    outs["hop"].fill_(True)
+    graph.replay()
+    assert torch.equal(outs["hop"], T.plain_bitmap_hop_shard(*sh[:3], sh[3], 0, emask, fr, gate))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,avg,block_edges,pages,hub,empty", PAGED_CASES)
+def test_paged_push_equals_plain_on_card(card, v, avg, block_edges, pages, hub, empty):
+    """K19's push on the skewed pools of `tests/test_torch_push_hops.py`
+    (cold blocks, free pages, an evicted page with stale rows, -1 edge ids
+    under live owners, a hub block, empty rows), at C = 1, 2 and 40,
+    sparse, empty and dense frontiers, with and without mask and gate:
+    equal to its plain push and to the slot walk over the pool, exactly;
+    ``alive`` 0 writes nothing."""
+    rng = np.random.default_rng(v + pages + hub)
+    indptr, part, pools, pageof = paged_pool(rng, v, avg, block_edges, pages, hub, empty)
+    push, slot = paged_args(indptr, part, pools, pageof, card)
+    vb = T.bucket(v)
+    emask = _t(rng.random(part.E) < 0.7).to(card)
+    gate = _t(rng.random(vb) < 0.8).to(card)
+    zero = torch.zeros((), dtype=torch.int32, device=card)
+    for c in (1, 2, 40):
+        for fr in frontiers(rng, c, vb, card):
+            for m in (None, emask):
+                for g in (None, gate):
+                    got = T.paged_hop_csr(*push, m, fr, g)
+                    assert torch.equal(got, T.plain_paged_hop_csr(*push, m, fr, g))
+                    assert torch.equal(got, T.plain_paged_hop(*slot, m, fr, g))
+            assert not T.paged_hop_csr(*push, emask, fr, gate, zero).any()
+    torch.cuda.synchronize()
+
+
 def _sharded_inputs(rng, S: int, v: int, avg: float):
     """A random graph's mesh layout (`MeshGraph.build` through a CPU device
     graph), its sources with padding and unowned ids, and its edge count."""
@@ -1346,7 +1389,9 @@ def test_mesh_kernels_equal_plain_on_card(card, S, v, avg):
     """K2's range form, K22 shard_gather (both directions, a cap below a
     shard's total, the process form), K10's eid form, K23 (int32 exactly,
     float32 to rtol 1e-5, with and without weights and mask) and K24 against
-    their plain versions, on the same sharded inputs."""
+    their plain versions, on the same sharded inputs; K10's eid form (the
+    push over the row-sharded CSR, also one rank's shard at s0 = 1) also
+    against the slot walk over the edge-list slices."""
     rng = np.random.default_rng(v + S)
     dg, E = _sharded_inputs(rng, S, v, avg)
     A = {k: a.to(card) for k, a in dg.arrays.items() if k.startswith("sh:")}
@@ -1382,11 +1427,17 @@ def test_mesh_kernels_equal_plain_on_card(card, S, v, avg):
     fr[:, 0] = True
     fr_t = _t(fr).to(card)
     gate = _t(rng.random(vb) < 0.8).to(card)
-    for a, e in ((el[0], el[1]), (el[1], el[0])):
+    for (a, e), (d, extra) in (((el[0], el[1]), ("out", "ebase")), ((el[1], el[0]), ("in", "eid"))):
+        sh = tuple(A[f"sh:knows:{d}:{k}"] for k in ("indptr", "nbr", extra))
         for m in (None, emask):
             for g in (None, gate):
-                got = T.bitmap_hop_eid(a, e, el[2], m, fr_t, g)
+                got = T.bitmap_hop_shard(*sh, d == "out", 0, m, fr_t, g)
+                assert torch.equal(got, T.plain_bitmap_hop_shard(*sh, d == "out", 0, m, fr_t, g))
                 assert torch.equal(got, T.plain_bitmap_hop_eid(a, e, el[2], m, fr_t, g))
+                if S > 1:  # one rank's shard of a process group
+                    one = tuple(t[1:2] for t in sh)
+                    got = T.bitmap_hop_shard(*one, d == "out", 1, m, fr_t, g)
+                    assert torch.equal(got, T.plain_bitmap_hop_shard(*one, d == "out", 1, m, fr_t, g))
         ok = _t(rng.random(vb) < 0.6).to(card)
         w_i = _t(rng.integers(0, 50, vb).astype(np.int32)).to(card)
         w_f = w_i.float() * 0.37

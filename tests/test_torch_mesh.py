@@ -128,19 +128,20 @@ def _jmesh(n_devices: int, replicas: int = 1):
 _MESHED = {}
 
 
-def _meshed(S: int):
+def _meshed(S: int, n_profiles: int = 300):
     """The reference's demodb (300 profiles, 4 friends, seed 3) attached
     with an S-shard mesh and its device graph, and the port's carried twin
     attached with an S-shard CPU mesh and its device graph."""
-    if S not in _MESHED:
-        jdb = generate_demodb(n_profiles=300, avg_friends=4, seed=3)
+    key = (S, n_profiles)
+    if key not in _MESHED:
+        jdb = generate_demodb(n_profiles=n_profiles, avg_friends=4, seed=3)
         jsnap = attach_fresh_snapshot(jdb, mesh=_jmesh(S))
         jdg = j_device_graph(jsnap)
         db, snap = snapshot_from_arrays(*_carry_arrays(jdb, jsnap), device="cpu")
         mesh = make_mesh(S, device="cpu")
         db.attach_snapshot(snap, mesh=mesh)
-        _MESHED[S] = (jsnap, jdg, snap, device_graph(snap, db.device), mesh)
-    return _MESHED[S]
+        _MESHED[key] = (jsnap, jdg, snap, device_graph(snap, db.device), mesh)
+    return _MESHED[key]
 
 
 def _t(a) -> torch.Tensor:
@@ -171,8 +172,8 @@ def test_mesh_layout_equals_reference(S):
 # -- (b) the five functions ----------------------------------------------------
 
 
-def _pair(S, key):
-    _jsnap, jdg, _snap, dg, _mesh = _meshed(S)
+def _pair(S, key, n_profiles: int = 300):
+    _jsnap, jdg, _snap, dg, _mesh = _meshed(S, n_profiles)
     return jdg._arrays[key], dg.arrays[key]
 
 
@@ -205,28 +206,55 @@ def test_expand_totals_and_gather_equal_reference(ref_mesh, S):
                     assert g.dtype == torch.int32 and np.array_equal(g.numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("S", SHARDS)
-def test_sharded_bitmap_hop_equals_reference(ref_mesh, S):
-    jsnap, jdg, _snap, _dg, mesh = _meshed(S)
-    rng = np.random.default_rng(10 + S)
+@pytest.mark.parametrize(
+    "S,n_profiles",
+    # R = 300, 150, 100, 75, 38: every R but the first leaves a 128-vertex
+    # group across a shard boundary; 5 profiles on 4 shards (R = 2) leave
+    # the last shard past V
+    [(1, 300), (2, 300), (3, 300), (4, 300), (8, 300), (4, 5)],
+    ids=["1", "2", "3", "4", "8", "4-past-V"],
+)
+def test_sharded_bitmap_hop_equals_reference(ref_mesh, S, n_profiles):
+    """K10's eid form (a push over the row-sharded CSR of each direction)
+    equals the reference's hop over the edge-list slices, exactly: with and
+    without an edge mask, a WHILE gate (the reference's frontier & gate),
+    ``alive`` 0, and each shard walked alone at its ``s0`` as a rank of a
+    process group holds it, the ranks' bitmaps ORed."""
+    jsnap, jdg, _snap, _dg, mesh = _meshed(S, n_profiles)
+    rng = np.random.default_rng(10 + S + n_profiles)
     E = jsnap.edge_classes["HasFriend"].num_edges
     vb = K.bucket(jsnap.num_vertices)
-    src, dst, eid = (_pair(S, f"sh:HasFriend:el:{k}") for k in ("src", "dst", "eid"))
+    src, dst, eid = (_pair(S, f"sh:HasFriend:el:{k}", n_profiles) for k in ("src", "dst", "eid"))
+    csr = {
+        d: tuple(_pair(S, f"sh:HasFriend:{d}:{k}", n_profiles)[1] for k in ("indptr", "nbr", x)) + (d == "out",)
+        for d, x in (("out", "ebase"), ("in", "eid"))
+    }
+    assert mesh.n_shards * (csr["out"][0].shape[1] - 1) >= jsnap.num_vertices
     emask = rng.random(E) < 0.7
-    for C, density in ((1, 0.02), (5, 0.1), (3, 0.0)):
+    gate = rng.random(vb) < 0.6
+    zero = torch.tensor(0, dtype=torch.int32)
+    for C, density in ((1, 0.02), (5, 0.1), (3, 0.0), (2, 1.0)):
         fr = rng.random((C, vb)) < density
-        for a, e in ((src, dst), (dst, src)):
-            want = JMG.sharded_bitmap_hop(
-                jdg.mesh_graph.mesh, a[0], e[0], eid[0], jnp.asarray(emask), jnp.asarray(fr)
-            )
-            got = MG.sharded_bitmap_hop(mesh, a[1], e[1], eid[1], _t(emask), _t(fr))
-            assert got.dtype == torch.bool and np.array_equal(got.numpy(), np.asarray(want))
-            # no mask reads every edge, as the reference's all-ones mask does
-            want = JMG.sharded_bitmap_hop(
-                jdg.mesh_graph.mesh, a[0], e[0], eid[0], jnp.ones(E, bool), jnp.asarray(fr)
-            )
-            got = MG.sharded_bitmap_hop(mesh, a[1], e[1], eid[1], None, _t(fr))
-            assert np.array_equal(got.numpy(), np.asarray(want))
+        for d, (a, e) in (("out", (src, dst)), ("in", (dst, src))):
+            sh = csr[d]
+            for m in (emask, None):
+                jm = jnp.ones(E, bool) if m is None else jnp.asarray(m)  # no mask reads every edge
+                tm = None if m is None else _t(m)
+                want = np.asarray(JMG.sharded_bitmap_hop(jdg.mesh_graph.mesh, a[0], e[0], eid[0], jm, jnp.asarray(fr)))
+                got = MG.sharded_bitmap_hop(mesh, *sh, tm, _t(fr))
+                assert got.dtype == torch.bool and np.array_equal(got.numpy(), want)
+                assert np.array_equal(K.plain_bitmap_hop_eid(a[1], e[1], eid[1], tm, _t(fr)).numpy(), want)
+                want_g = np.asarray(
+                    JMG.sharded_bitmap_hop(jdg.mesh_graph.mesh, a[0], e[0], eid[0], jm, jnp.asarray(fr & gate))
+                )
+                got_g = MG.sharded_bitmap_hop(mesh, *sh, tm, _t(fr), _t(gate))
+                assert np.array_equal(got_g.numpy(), want_g)
+                assert not MG.sharded_bitmap_hop(mesh, *sh, tm, _t(fr), _t(gate), zero).any()
+                ranks = torch.zeros_like(got_g)
+                for s0 in range(S):
+                    one = tuple(t[s0 : s0 + 1] for t in sh[:3])
+                    K.bitmap_hop_shard(*one, sh[3], s0, tm, _t(fr), _t(gate), out=ranks)
+                assert np.array_equal(ranks.numpy(), want_g)
 
 
 @pytest.mark.parametrize("S", SHARDS)

@@ -109,3 +109,49 @@ def test_two_gloo_ranks_equal_local_shards(tmp_path):
     for ans in ranks:
         got = np.unpackbits(ans["bfs"])[: want.size].reshape(want.shape).astype(bool)
         assert (got == want).all()
+
+
+def test_one_gloo_rank_hops_as_local_shards(tmp_path):
+    """A one-rank gloo group in this process (`ProcessShards`, rank 0 of 1):
+    K10's eid form on its shard, merged through the group's all-reduce,
+    equals the one-shard `LocalShards` hop and the slot walk over the
+    edge-list slice (both directions, an edge mask, a WHILE gate), and a
+    variable-depth statement on the group, recorded then replayed, equals
+    it on `LocalShards`."""
+    import torch.distributed as dist
+
+    from orientdb_tpu_torch.ops import csr as K
+    from orientdb_tpu_torch.ops.device_graph import device_graph
+    from orientdb_tpu_torch.parallel import mesh_graph as MG
+
+    jdb = generate_demodb(n_profiles=200, avg_friends=4, seed=9)
+    jsnap = attach_fresh_snapshot(jdb)
+    schema, arrays = _carry_arrays(jdb, jsnap)
+    rng = np.random.default_rng(4)
+    vb = 256
+    emask = torch.from_numpy(rng.random(jsnap.edge_classes["HasFriend"].num_edges) < 0.7)
+    fr = torch.from_numpy(rng.random((3, vb)) < 0.05)
+    gate = torch.from_numpy(rng.random(vb) < 0.8)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0, world_size=1)
+    try:
+        twins = []
+        for group in (dist.group.WORLD, None):
+            db, snap = snapshot_from_arrays(schema, arrays, device="cpu")
+            mesh = make_mesh(1, device="cpu", group=group)
+            db.attach_snapshot(snap, mesh=mesh)
+            twins.append((db, mesh, device_graph(snap, db.device)))
+        assert twins[0][1].collective and not twins[1][1].collective
+        assert K.bucket(jsnap.num_vertices) == vb
+        el = [twins[1][2].arrays[f"sh:HasFriend:el:{k}"] for k in ("src", "dst", "eid")]
+        for d, extra, (a, e) in (("out", "ebase", (el[0], el[1])), ("in", "eid", (el[1], el[0]))):
+            for g in (None, gate):
+                want = K.plain_bitmap_hop_eid(a, e, el[2], emask, fr, g)
+                assert want.any()
+                for _db, mesh, dg in twins:
+                    sh = [dg.arrays[f"sh:HasFriend:{d}:{k}"] for k in ("indptr", "nbr", extra)]
+                    assert torch.equal(MG.sharded_bitmap_hop(mesh, *sh, d == "out", emask, fr, g), want)
+        sql, params = QUERIES[2]
+        rows = [canonical_rows(db.query(sql, params).to_dicts()) for db, _m, _g in twins for _ in range(2)]
+        assert rows[0] and all(r == rows[0] for r in rows)
+    finally:
+        dist.destroy_process_group()

@@ -169,13 +169,18 @@ def test_paged_kernels_equal_reference(tiered, d):
     vb = K.bucket(V)
     rng = np.random.default_rng(7)
     assert (arrays[keys["pageof"]] < 0).any(), "cold blocks expected at cap/2"
-    # an evicted page: its owner row -1, its nbr/eid rows stale, while
-    # vertex 0 (the clip target of a -1 endpoint) is in every frontier row
+    # an evicted page as `TierManager._evict` leaves it: its owner row -1
+    # and its block's pageof -1, its nbr/eid rows stale, while vertex 0 (the
+    # clip target of a -1 endpoint) is in every frontier row
     ev = dict(arrays)
     own = ev[keys["own"]].copy()
     stale = int(np.nonzero((own >= 0).any(axis=1))[0][0])
     own[stale] = -1
     ev[keys["own"]] = own
+    pageof = ev[keys["pageof"]].copy()
+    assert (pageof == stale).sum() == 1
+    pageof[pageof == stale] = -1
+    ev[keys["pageof"]] = pageof
     # an eid row with -1 eids under live owners
     neg = dict(arrays)
     eid = neg[keys["eid"]].copy()
@@ -187,12 +192,16 @@ def test_paged_kernels_equal_reference(tiered, d):
             fr = rng.random((C, vb)) < 0.2
             fr[:, 0] = True
             gate = rng.random(vb) < 0.7
+            push = [_t(arr[k]) for k in (f"e:HasFriend:indptr_{d}", keys["blockv"], keys["pageof"], keys["estart"], keys["nbr"], keys["eid"])]
             for m in (None, emask):
                 want = np.asarray(jt.paged_hop(_j(arr), "HasFriend", d, None if m is None else jnp.asarray(m), jnp.asarray(fr)))
                 got = K.plain_paged_hop(
                     _t(arr[keys["own"]]), _t(arr[keys["nbr"]]), _t(arr[keys["eid"]]),
                     None if m is None else _t(m), _t(fr),
                 )
+                assert np.array_equal(got.numpy(), want)
+                # K19's push (the wrapper's CPU path) reaches the same bits
+                got = K.paged_hop_csr(*push, None if m is None else _t(m), _t(fr))
                 assert np.array_equal(got.numpy(), want)
                 # the gate folds in as the reference's frontier & gate
                 want_g = np.asarray(jt.paged_hop(_j(arr), "HasFriend", d, None if m is None else jnp.asarray(m), jnp.asarray(fr & gate)))
@@ -201,6 +210,10 @@ def test_paged_kernels_equal_reference(tiered, d):
                     None if m is None else _t(m), _t(fr), _t(gate),
                 )
                 assert np.array_equal(got_g.numpy(), want_g)
+                got_g = K.paged_hop_csr(*push, None if m is None else _t(m), _t(fr), _t(gate))
+                assert np.array_equal(got_g.numpy(), want_g)
+                zero = torch.tensor(0, dtype=torch.int32)
+                assert not K.paged_hop_csr(*push, None if m is None else _t(m), _t(fr), alive=zero).any()
             ip = arr[f"e:HasFriend:indptr_{d}"]
             for g in (None, gate):
                 f_eff = fr if g is None else fr & g
@@ -249,8 +262,11 @@ def test_paged_wrappers_take_the_plain_path_on_the_cpu(tiered):
     a = dg.arrays
     k = tiering._keys("HasFriend", "out")
     got = tiering.paged_hop(a, "HasFriend", "out", None, fr)
-    want = K.plain_paged_hop(a[k["own"]], a[k["nbr"]], a[k["eid"]], None, fr)
+    push = (a["e:HasFriend:indptr_out"], a[k["blockv"]], a[k["pageof"]], a[k["estart"]], a[k["nbr"]], a[k["eid"]])
+    want = K.plain_paged_hop_csr(*push, None, fr)
     assert torch.equal(got, want)
+    # on the manager's pool the push equals the reference's slot walk
+    assert torch.equal(got, K.plain_paged_hop(a[k["own"]], a[k["nbr"]], a[k["eid"]], None, fr))
     acc = torch.zeros_like(fr)
     acc[:, -1] = True
     tiering.paged_hop(a, "HasFriend", "out", None, fr, out=acc)
