@@ -3459,6 +3459,7 @@ D1 = (
 )
 D1_K = 100_000
 D_SPARE_VERTICES, D_SPARE_EDGES = 65_536, 1_048_576
+K17_LAUNCHES = 8  # a window scan: the histogram, four radix passes, the runs, the degree scan, the gather
 W_PERSONS, W_EXTRA_EDGES, W_UPDATES, W_DEL_EDGES, W_DEL_PERSONS, W_FANOUT = 16_384, 98_304, 16_384, 4_096, 256, 16
 
 
@@ -3841,6 +3842,11 @@ def run_deltas(np, torch, K, TE, ks, db, snap, card):
     run_cells("after W4", names=("Q3", "direct"), batch=False)
     w4 = dict(K.LAUNCHES)
     _require(w4["slab_scan"] > 0 and w4["slab_probe"] == 0, f"W4's cells did not scan the slab: {w4}")
+    scans = w4["slab_scan"] // K17_LAUNCHES
+    print(
+        f"delta W4 launches: { {k: v for k, v in w4.items() if v} }; {scans} window scans of "
+        f"{K17_LAUNCHES} slab_scan launches each"
+    )
     check_slab_scan(torch, K, ks, dg, snap, src)
     for name in ("scatter_set", "slab_scan", "slab_probe"):
         path[name] += w4[name]
@@ -3920,11 +3926,28 @@ def check_delta_kernels(np, torch, K, ks, dg, snap):
     K.LAUNCHES.update(counted)
 
 
+def _in_adjacency(np, torch, csr, n: int, dev, name: str):
+    """The edge class's in-CSR as a sparse [n, n] float matrix (rows = the
+    reached endpoint), so that one `torch.sparse.mm` of it with a [n, Q]
+    frontier is a hop: counts of lit in-edges per (vertex, query). None,
+    with the reason printed, where PyTorch refuses the tensor."""
+    try:
+        ipi = csr.indptr_in.astype(np.int64)
+        crow = torch.from_numpy(np.concatenate([ipi, np.full(n + 1 - ipi.shape[0], ipi[-1], np.int64)])).to(dev)
+        col = torch.from_numpy(csr.src.astype(np.int64)).to(dev)
+        return torch.sparse_csr_tensor(crow, col, torch.ones(col.shape[0], device=dev), (n, n))
+    except (RuntimeError, TypeError) as e:
+        print(f"library call for {name} refused: {e}")
+        return None
+
+
 def check_slab_scan(torch, K, ks, dg, snap, src: int):
     """K17 against its plain version at the shape of Q3 k=200's second hop
-    after W4 (the 2-hop frontier of the roots, the used slab window), and
-    with padding rows and a truncating capacity; timed, and in a captured
-    graph, beside its bound; its launches are not counted."""
+    after W4 (the 2-hop frontier of the roots, the used slab window), with
+    padding rows and a truncating capacity, with the overflowed person
+    repeated on 64 rows, and on an empty window; timed eager and in a
+    captured graph, beside its byte bound (the reference's compare count
+    printed as a figure); its launches are not counted."""
     from orientdb_tpu_torch.exec.tpu_engine import _cap_of
 
     counted = dict(K.LAUNCHES)
@@ -3941,31 +3964,44 @@ def check_slab_scan(torch, K, ks, dg, snap, src: int):
     srcs = torch.full((R,), -1, dtype=torch.int32, device=dev)
     srcs[: f.shape[0]] = torch.from_numpy(f.astype("int32")).to(dev)
     srcs[0] = src  # the overflowed person
+    repeated = srcs.clone()
+    repeated[1:65] = src
     out = [0]
 
     def size_for(total):
         out[0] = max(_cap_of(int(total)), 8)
         return out[0]
 
-    ks.same("slab_scan", K.slab_scan(a, e, lv, srcs, sl.base, size_for),
-            K.plain_slab_scan(a, e, lv, srcs, sl.base, size_for))
+    for s in (repeated, srcs):
+        ks.same("slab_scan", K.slab_scan(a, e, lv, s, sl.base, size_for),
+                K.plain_slab_scan(a, e, lv, s, sl.base, size_for))
+    n = out[0]
     ks.same("slab_scan", K.slab_scan(a, e, lv, srcs, sl.base, lambda t: 8),
             K.plain_slab_scan(a, e, lv, srcs, sl.base, lambda t: 8))
-    n = out[0]
+    empty = (a[:0], e[:0], lv[:0])
+    ks.same("slab_scan", K.slab_scan(*empty, srcs, sl.base, lambda t: 8),
+            K.plain_slab_scan(*empty, srcs, sl.base, lambda t: 8))
     fixed = lambda t: n  # noqa: E731
+    total = int(K.plain_slab_scan(a, e, lv, srcs, sl.base, fixed)[3])
     ks.timed(
         "slab_scan",
         lambda: K.slab_scan(a, e, lv, srcs, sl.base, fixed),
         lambda: K.plain_slab_scan(a, e, lv, srcs, sl.base, fixed),
         None,
-        R * 4.0 + W * 9.0 + n * 12.0,
-        f.shape[0] * float(W),  # a compare per (real source, window slot)
+        # the sources, the window's active endpoints and liveness, the
+        # emitted endpoint at each hit kept, the output
+        R * 4.0 + W * 5.0 + min(total, n) * 4.0 + n * 12.0,
     )
     g_ms = _graph_ms(torch, lambda: K.slab_scan(a, e, lv, srcs, sl.base, fixed))
+    before = dict(K.LAUNCHES)
+    K.slab_scan(a, e, lv, srcs, sl.base, fixed)
+    per_call = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES if K.LAUNCHES[k] != before[k]}
     print(
-        f"kernel slab_scan: equals its plain version at R={R}, W={W} (used {used}); "
-        f"{ks.rows['slab_scan']['ms']:.4f} ms ({g_ms:.4f} in a graph), bound {ks.rows['slab_scan']['bound_ms']:.4f} "
-        f"({ks.rows['slab_scan']['bound_by']}: {f.shape[0] * W} compares)"
+        f"kernel slab_scan: equals its plain version at R={R}, W={W} (used {used}; total "
+        f"{total} into {n}), with the overflowed person on 64 "
+        f"rows, a capacity of 8 and an empty window; {ks.rows['slab_scan']['ms']:.4f} ms ({g_ms:.4f} in a graph), "
+        f"bound {ks.rows['slab_scan']['bound_ms']:.4f} ({ks.rows['slab_scan']['bound_by']}; the reference's "
+        f"{f.shape[0] * W} compares are its algorithm, not the bound); launches a call {per_call}"
     )
     K.LAUNCHES.update(counted)
 
@@ -5026,17 +5062,8 @@ def check_mesh_kernels(np, torch, K, ks, mdg, msnap, roots) -> None:
                 ks.same("bitmap_hop_shard", got, K.plain_bitmap_hop_eid(a, e, el[2], m, f, g))
     av = np.nonzero(fr.any(0).cpu().numpy())[0]
     act_edges = int((ip[av + 1] - ip[av]).sum())
-    sp = None
-    try:
-        # the hop as one sparse product over the in-CSR (rows = the reached
-        # endpoint): counts of active in-edges per (vertex, row)
-        ipi = csr.indptr_in.astype(np.int64)
-        crow = torch.from_numpy(np.concatenate([ipi, np.full(vb - V, ipi[-1], np.int64)])).to(dev)
-        col = torch.from_numpy(csr.src.astype(np.int64)).to(dev)
-        sp = torch.sparse_csr_tensor(crow, col, torch.ones(col.shape[0], device=dev), (vb, vb))
-        fr_t = fr.t().float().contiguous()
-    except (RuntimeError, TypeError) as e:
-        print(f"library call for bitmap_hop_shard refused: {e}")
+    sp = _in_adjacency(np, torch, csr, vb, dev, "bitmap_hop_shard")
+    fr_t = fr.t().float().contiguous()
     k10 = lambda: K.bitmap_hop_shard(*sh["out"], 0, None, fr)  # noqa: E731
     ks.timed(
         "bitmap_hop_shard",
@@ -5080,23 +5107,51 @@ def check_mesh_kernels(np, torch, K, ks, mdg, msnap, roots) -> None:
         None,
         4 * el[0].numel() + live * (4 + 1) + int(ok[el[1].view(-1).clamp(min=0).long()].sum()) * 4 + 8 * vb,
     )
-    # MBFS's first hop: the roots of one replica block, [S, Q, R]
+    # MBFS's first hop: the roots of one replica block, [S, Q, R]; its second
+    # hop (after one level step), every query lit on one row, 33 queries
     ind, dst = A["sh:knows:out:indptr"], A["sh:knows:out:nbr"]
     R = ind.shape[1] - 1
     qb = len(MBFS_ROOTS) // MBFS_REPLICAS
     block = np.zeros((qb, S * R), bool)
     block[:, :V] = roots[:qb]
     f0 = torch.from_numpy(np.ascontiguousarray(block.reshape(qb, S, R).transpose(1, 0, 2))).to(dev)
-    ks.same("rowshard_hop", K.rowshard_hop(ind, dst, f0, S), K.plain_rowshard_hop(ind, dst, f0, S))
-    lit = [r for r in MBFS_ROOTS[:qb]]
-    lit_edges = int(sum(ip[r + 1] - ip[r] for r in lit))
+    f1 = K.rowshard_hop(ind, dst, f0, S)
+    K.frontier_advance(f1.view(S * qb, R), f0.clone().view(S * qb, R))
+    one = torch.zeros_like(f0)
+    one[1, :, 12_345] = True
+    f33 = torch.zeros((S, 33, R), dtype=torch.bool, device=dev)
+    f33.view(-1)[torch.randint(0, f33.numel(), (330,), generator=gen, device=dev)] = True
+    for f in (f0, f1, one, f33, torch.zeros_like(f0)):
+        ks.same("rowshard_hop", K.rowshard_hop(ind, dst, f, S), K.plain_rowshard_hop(ind, dst, f, S))
+    ipl = ip.astype(np.int64)
+
+    def lit_of(f):
+        lit = f.any(1).view(-1).nonzero().view(-1).cpu().numpy()
+        return lit.shape[0], int((ipl[lit + 1] - ipl[lit]).sum())
+
+    n_lit, lit_edges = lit_of(f0)
+    sp = _in_adjacency(np, torch, csr, S * R, dev, "rowshard_hop")
+    f0_t = f0.permute(0, 2, 1).reshape(S * R, qb).float().contiguous()
     ks.timed(
         "rowshard_hop",
         lambda: K.rowshard_hop(ind, dst, f0, S),
         lambda: K.plain_rowshard_hop(ind, dst, f0, S),
-        None,
-        2 * f0.numel() + 8 * len(lit) + 4 * lit_edges,
+        None if sp is None else (lambda: torch.sparse.mm(sp, f0_t)),
+        # the frontier read and the result written once, indptr a lit row, dst a lit edge
+        2 * f0.numel() + 8 * n_lit + 4 * lit_edges,
     )
+    r = ks.rows["rowshard_hop"]
+    line = [f"MBFS's first hop ({n_lit} lit rows, {lit_edges} edges) {r['ms']:.4f} ms eager, "
+            f"{_graph_ms(torch, lambda: K.rowshard_hop(ind, dst, f0, S)):.4f} in a graph, bound {r['bound_ms']:.4f}"]
+    for name, f in (("its second hop", f1), ("every query on one row", one), ("Q=33", f33)):
+        fn = lambda f=f: K.rowshard_hop(ind, dst, f, S)  # noqa: E731
+        n_lit, lit_edges = lit_of(f)
+        bound = (2 * f.numel() + 8 * n_lit + 4 * lit_edges) / HBM_BYTES_PER_S * 1e3
+        line.append(f"{name} ({n_lit} lit rows, {lit_edges} edges) {_time_ms(torch, fn):.4f} / "
+                    f"{_graph_ms(torch, fn):.4f}, bound {bound:.4f}")
+    print(f"kernel rowshard_hop: equals its plain version on each frontier (and an empty one); " + "; ".join(line)
+          + f"; plain {r['plain_ms']:.4f}, library {r['library_ms']}")
+    del sp
     K.LAUNCHES.update(counted)
     print("mesh kernels: K2's range form, K22, K10's eid form (the push), K23 and K24 equal their plain versions")
 

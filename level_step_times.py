@@ -50,8 +50,20 @@ compare two trees on one card:
   reckons it (the frontier read and the result written, 8 bytes of indptr
   an active vertex, 4 of nbr an active edge; K19 also 12 of blockv,
   pageof and estart and 1 of gate an active vertex).
+- ``k17``: K17 ``slab_scan`` at W4's shape (a 2^19-slot window, 147,472
+  used slots, 3 % tombstoned, 2,048 rows of which 2,000 random sources,
+  the first an overflowed person with 24 slab slots), and with that person
+  owning 4,096 slots on 64 rows; beside its byte bound (the sources, the
+  window's active endpoints and liveness, the emitted endpoint at each hit
+  kept, the output) and its launches a call.
+- ``k24``: K24 ``rowshard_hop`` on the A-shaped graph split four ways
+  ([4, 4, 2,000,000]): MBFS's first hop (one replica block's 4 roots), its
+  second (after one ``frontier_advance``), every query lit on one row, 33
+  queries over 330 random rows, and a dense frontier; beside its bound
+  (the frontier read and the result written, 8 bytes of indptr a lit row,
+  4 of dst a lit edge).
 
-    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5,k2,hops]
+    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5,k2,hops,k17,k24]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
 package to time; it is imported before anything else, and the file it was
@@ -182,7 +194,8 @@ def profile(torch, cs, run) -> str:
     """Device ms of each kernel in one profiled call of ``run``."""
     events, _ = cs._profiled(torch, run)
     rows = [e for e in events if cs._device_us(e) > 0]
-    return ", ".join(f"{e.key[:40]} {cs._device_us(e) / 1e3:.4f} ms x{e.count}" for e in rows) or "not measured"
+    name = lambda e: e.key.replace("void (anonymous namespace)::", "")[:48]  # noqa: E731
+    return ", ".join(f"{name(e)} {cs._device_us(e) / 1e3:.4f} ms x{e.count}" for e in rows) or "not measured"
 
 
 def _snapshot(np, n: int, cols):
@@ -517,10 +530,86 @@ def hops(np, torch, K, cs, times) -> None:
               f"{act_edges} edges): {times[key][0]:.4f} ms eager, {times[key][1]:.4f} in a graph; bound {bound:.4f}")
 
 
+def k17(np, torch, K, cs, times) -> None:
+    """K17 at W4's shape (module docstring)."""
+    i32, W, R, used = torch.int32, 1 << 19, 2_048, 147_472
+    rng = np.random.default_rng(17)
+    a = np.full(W, -1, np.int32)
+    a[:used] = rng.integers(0, PERSONS + 65_536, used)
+    live = np.zeros(W, bool)
+    live[:used] = rng.random(used) >= 0.03
+    srcs = np.full(R, -1, np.int32)
+    srcs[:2_000] = rng.integers(0, PERSONS, 2_000)
+    hot = int(srcs[0])
+    a[rng.choice(used, 24, replace=False)] = hot  # the overflowed person's slab edges
+    e = rng.integers(0, PERSONS, W).astype(np.int32)
+    skew = srcs.copy()
+    skew[1:65] = hot  # the overflowed person on 64 rows, 4,096 slots of its own
+    a_skew = a.copy()
+    a_skew[rng.choice(used, 4_096, replace=False)] = hot
+    for shape, aa, ss in (("W4", a, srcs), ("W4, 4,096 slots of one source on 64 rows", a_skew, skew)):
+        g = [torch.from_numpy(x).cuda() for x in (aa, e, live, ss)]
+        total = int(K.plain_slab_scan(*g, 0, lambda t: 8)[3])
+        size = max(K.bucket(total), 8)
+        fn = lambda g=g, size=size: K.slab_scan(*g, 80_000_000, lambda t: size)  # noqa: E731
+        _same(torch, fn(), K.plain_slab_scan(g[0], g[1], g[2], g[3], 80_000_000, lambda t: size), f"slab_scan ({shape})")
+        K.reset_launches()
+        fn()
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        key = f"K17 slab_scan, {shape}"
+        times[key] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+        nbytes = R * 4.0 + W * 5.0 + min(total, size) * 4.0 + size * 12.0
+        print(f"{key} (R={R}, W={W}, {int(live.sum())} live, total {total} into {size}; launches a call "
+              f"{launches}): {times[key][0]:.4f} ms eager, {times[key][1]:.4f} in a graph; bound "
+              f"{nbytes / cs.HBM_BYTES_PER_S * 1e3:.4f} (bytes; {int((ss >= 0).sum()) * W} compares); "
+              f"kernels of one call: {profile(torch, cs, fn)}")
+
+
+def k24(np, torch, K, cs, times) -> None:
+    """K24 at MBFS's shapes (module docstring)."""
+    i32, S = torch.int32, 4
+    rng = np.random.default_rng(24)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    indptr = _poisson_indptr(np, torch, rng, 0)
+    ne = int(indptr[-1])
+    dst = torch.randint(0, PERSONS, (ne,), generator=gen, device="cuda", dtype=i32)
+    R = PERSONS // S
+    emax = max(int(indptr[(s + 1) * R]) - int(indptr[s * R]) for s in range(S))
+    parts = [_shard(torch, indptr, dst, None, s, R, emax) for s in range(S)]
+    ind = torch.stack([p[0] for p in parts]).contiguous()
+    dst_sh = torch.stack([p[1] for p in parts]).contiguous()
+    del parts
+    roots = cs.MBFS_ROOTS[: len(cs.MBFS_ROOTS) // cs.MBFS_REPLICAS]
+    Q = len(roots)
+    f1 = torch.zeros((S, Q, R), dtype=torch.bool, device="cuda")
+    for q, v in enumerate(roots):
+        f1[v // R, q, v % R] = True
+    f2 = K.rowshard_hop(ind, dst_sh, f1, S)
+    K.frontier_advance(f2.view(S * Q, R), f1.clone().view(S * Q, R))
+    f33 = torch.zeros((S, 33, R), dtype=torch.bool, device="cuda")
+    f33.view(-1)[torch.randint(0, f33.numel(), (330,), generator=gen, device="cuda")] = True
+    one = torch.zeros((S, Q, R), dtype=torch.bool, device="cuda")
+    one[1, :, 12_345] = True  # every query lit on one row
+    dense = torch.ones((S, Q, R), dtype=torch.bool, device="cuda")
+    ipl = indptr.long()
+    for shape, f in (("MBFS hop 1", f1), ("MBFS hop 2", f2), ("every query on one row", one), ("Q=33", f33),
+                     ("dense", dense)):
+        if shape != "dense":
+            _same(torch, K.rowshard_hop(ind, dst_sh, f, S), K.plain_rowshard_hop(ind, dst_sh, f, S), f"rowshard_hop ({shape})")
+        lit = f.any(1).view(-1).nonzero().view(-1)
+        lit_edges = int((ipl[lit + 1] - ipl[lit]).sum())
+        fn = lambda f=f: K.rowshard_hop(ind, dst_sh, f, S)  # noqa: E731
+        key = f"K24 rowshard_hop, {shape}"
+        times[key] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+        bound = (2.0 * f.numel() + 8.0 * lit.shape[0] + 4.0 * lit_edges) / cs.HBM_BYTES_PER_S * 1e3
+        print(f"{key} ([{S}, {f.shape[1]}, {R}], {lit.shape[0]} lit rows, {lit_edges} edges): {times[key][0]:.4f} "
+              f"ms eager, {times[key][1]:.4f} in a graph; bound {bound:.4f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
-    ap.add_argument("--only", default="level,k4,k15,k5,k2,hops")
+    ap.add_argument("--only", default="level,k4,k15,k5,k2,hops,k17,k24")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     # the tree's package first: chip_smoke.py (this script's) imports the
@@ -555,6 +644,10 @@ def main() -> int:
         k2(np, torch, K, cs, times)
     if "hops" in only:
         hops(np, torch, K, cs, times)
+    if "k17" in only:
+        k17(np, torch, K, cs, times)
+    if "k24" in only:
+        k24(np, torch, K, cs, times)
     print(json.dumps({"tree": tree, "kernels": K.__file__, "card": card, "ms [eager, graph]": times}))
     return 0
 

@@ -114,6 +114,22 @@ __device__ __forceinline__ unsigned long long lb_load(unsigned long long* word) 
   return w.load(cuda::memory_order_acquire);
 }
 
+// A tile's status word (K17's look-back by tile), published by one thread
+// after a barrier behind the block's writes of its counts: the fence makes
+// them visible device-wide first (the pattern of a grid barrier), so no
+// other thread of the block pays for a fence. Loaded with acquire before
+// the counts are read.
+__device__ __forceinline__ void tile_publish(unsigned* word, unsigned status) {
+  __threadfence();
+  cuda::atomic_ref<unsigned, cuda::thread_scope_device> w(*word);
+  w.store(status, cuda::memory_order_release);
+}
+
+__device__ __forceinline__ unsigned tile_status(unsigned* word) {
+  cuda::atomic_ref<unsigned, cuda::thread_scope_device> w(*word);
+  return w.load(cuda::memory_order_acquire);
+}
+
 // The block's tile, from the counter in state[0]; every thread gets it.
 __device__ __forceinline__ unsigned lb_tile(unsigned long long* state, unsigned* slot) {
   if (threadIdx.x == 0) *slot = atomicAdd(reinterpret_cast<unsigned*>(state), 1u) + 1u;
@@ -300,7 +316,8 @@ scan_lookback_kernel(const T* __restrict__ in, T* __restrict__ out, T* __restric
 }
 
 // Exclusive scan of one value per thread across the block; every thread
-// gets the sum of the values of the threads before it (K17's emit pass).
+// gets the sum of the values of the threads before it (K17: the digit
+// bases of the sort's plan and the digit offsets of a tile).
 template <typename T>
 __device__ T block_exclusive_scan(T v, T* warp_sums) {
   const int lane = threadIdx.x & 31;
@@ -390,12 +407,42 @@ __global__ void degree_counts_kernel(const int* __restrict__ indptr, long long n
 // (kDegTile = 2,048 sources) is smaller than K1's so that a frontier of a
 // few tens of thousands of sources still spreads over several SMs. int32
 // sums are taken in uint32 and wrap as the reference's int32 cumsum does.
+// The source's span comes from a `Span` (CsrSpan here: the CSR's indptr
+// at the clipped source; K17 passes RunSpan, each row's run in its sorted
+// window).
 // ---------------------------------------------------------------------------
 constexpr int kDegVecs = 2;  // 16-byte source loads a thread
 constexpr long long kDegTile = kThreads * 4LL * kDegVecs;
 
+// A source's CSR span: indptr[c] .. indptr[c+1] at c = clip(src, 0, V-1);
+// padding (src < 0) and an empty graph give an empty span. A span type
+// gives the spans of a thread's sources at once (`bounds`, so that every
+// load can be in flight before any is used), by source or by position.
+struct CsrSpan {
+  static constexpr bool kReadsSrcs = true;
+  const unsigned* indptr;
+  long long nv;
+  template <int V, int J>
+  __device__ __forceinline__ void bounds(long long, long long, const int (&c)[V][J],
+                                         unsigned (&lo)[V][J], unsigned (&hi)[V][J]) const {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        lo[v][j] = hi[v][j] = 0u;
+        if (c[v][j] >= 0 && nv > 0) {
+          const long long cc = c[v][j] < nv ? c[v][j] : nv - 1;
+          lo[v][j] = __ldg(indptr + cc);
+          hi[v][j] = __ldg(indptr + cc + 1);
+        }
+      }
+    }
+  }
+};
+
+template <typename Span>
 __global__ void __launch_bounds__(kThreads)
-degree_scan_kernel(const unsigned* __restrict__ indptr, long long nv, const int* __restrict__ srcs,
+degree_scan_kernel(const Span span, const int* __restrict__ srcs,
                    long long k, unsigned* __restrict__ offsets, unsigned* __restrict__ total,
                    unsigned long long* __restrict__ state, int vec_ok) {
   constexpr int kVec = 4;
@@ -406,35 +453,25 @@ degree_scan_kernel(const unsigned* __restrict__ indptr, long long nv, const int*
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long wbase = tile * kDegTile + static_cast<long long>(warp) * 32 * kVec * kDegVecs;
-  int src[kDegVecs][kVec];
+  int src[kDegVecs][kVec] = {};
+  if constexpr (Span::kReadsSrcs) {
 #pragma unroll
-  for (int v = 0; v < kDegVecs; ++v) {
-    const long long e0 = wbase + static_cast<long long>(v * 32 + lane) * kVec;
-    if (vec_ok && e0 + kVec <= k) {
-      const int4 raw = __ldg(reinterpret_cast<const int4*>(srcs + e0));
-      src[v][0] = raw.x;
-      src[v][1] = raw.y;
-      src[v][2] = raw.z;
-      src[v][3] = raw.w;
-    } else {
+    for (int v = 0; v < kDegVecs; ++v) {
+      const long long e0 = wbase + static_cast<long long>(v * 32 + lane) * kVec;
+      if (vec_ok && e0 + kVec <= k) {
+        const int4 raw = __ldg(reinterpret_cast<const int4*>(srcs + e0));
+        src[v][0] = raw.x;
+        src[v][1] = raw.y;
+        src[v][2] = raw.z;
+        src[v][3] = raw.w;
+      } else {
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) src[v][j] = e0 + j < k ? srcs[e0 + j] : -1;
-    }
-  }
-  unsigned lo[kDegVecs][kVec], hi[kDegVecs][kVec];
-#pragma unroll
-  for (int v = 0; v < kDegVecs; ++v) {
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      lo[v][j] = hi[v][j] = 0u;
-      const int c = src[v][j];
-      if (c >= 0 && nv > 0) {  // clip(src, 0, V-1); padding counts 0
-        const long long cc = c < nv ? c : nv - 1;
-        lo[v][j] = __ldg(indptr + cc);
-        hi[v][j] = __ldg(indptr + cc + 1);
+        for (int j = 0; j < kVec; ++j) src[v][j] = e0 + j < k ? srcs[e0 + j] : -1;
       }
     }
   }
+  unsigned lo[kDegVecs][kVec], hi[kDegVecs][kVec];
+  span.bounds(wbase, k, src, lo, hi);
   unsigned x[kDegVecs][kVec];
 #pragma unroll
   for (int v = 0; v < kDegVecs; ++v) {
@@ -549,19 +586,45 @@ __device__ __forceinline__ void store_triples(long long p0, int n, int vec, int*
 // entries) the position output holds edge_map[clip(edge_pos)] (-1 where
 // edge_pos < 0 or nm is 0), the reference's take_pad(edge_id_in, pos, -1).
 // Offsets that are not non-decreasing give another answer but no access
-// out of range.
+// out of range. A row's base and a slot's outputs come from a `Gather`
+// (CsrGather here; K17 passes SlabGather, the sorted window's runs).
 // ---------------------------------------------------------------------------
 constexpr int kExpandItems = 8;  // merged items a thread
 constexpr int kExpandTile = kThreads * kExpandItems;
 
+// K2b over a CSR: a row's base is indptr[clip(src)]; edge position ep gives
+// (ep, or edge_map[clip(ep)] with a map; nbrs[clip(ep)], -1 when E is 0).
+struct CsrGather {
+  const int* indptr;
+  long long nv;
+  const int* nbrs;
+  long long ne;
+  const int* edge_map;
+  long long nm;
+  __device__ __forceinline__ int base(long long, long long c) const {
+    if (nv < 0) return 0;
+    c = c > nv - 1 ? nv - 1 : c;
+    return __ldg(indptr + (c < 0 ? 0 : c));
+  }
+  __device__ __forceinline__ int2 emit(int ep) const {
+    int nb = -1;
+    if (ne > 0) nb = __ldg(nbrs + (ep < 0 ? 0 : (ep > ne - 1 ? ne - 1 : ep)));
+    int pos = ep;
+    if (edge_map != nullptr) {
+      pos = ep >= 0 && nm > 0 ? __ldg(edge_map + (ep > nm - 1 ? nm - 1 : ep)) : -1;
+    }
+    return make_int2(pos, nb);
+  }
+};
+
+template <typename Gather>
 __global__ void __launch_bounds__(kThreads)
-gather_expand_kernel(const int* __restrict__ indptr, long long nv, const int* __restrict__ nbrs,
-                     long long ne, const int* __restrict__ srcs, const int* __restrict__ offsets,
-                     long long k, const int* __restrict__ total, long long out_size,
-                     const int* __restrict__ edge_map, long long nm, int* __restrict__ row_out,
-                     int* __restrict__ pos_out, int* __restrict__ nbr_out, int vec) {
+gather_expand_kernel(const Gather gather, const int* __restrict__ srcs,
+                     const int* __restrict__ offsets, long long k, const int* __restrict__ total,
+                     long long out_size, int* __restrict__ row_out, int* __restrict__ pos_out,
+                     int* __restrict__ nbr_out, int vec) {
   __shared__ int s_off[kExpandTile + 1];   // offsets of rows i0 - 1 .. i1 - 1
-  __shared__ int s_base[kExpandTile + 1];  // indptr[clip(srcs[r])] of the same rows
+  __shared__ int s_base[kExpandTile + 1];  // gather.base(r, srcs[r]) of the same rows
   __shared__ int s_row[kExpandTile];       // a slot's row, as its index in the two above
   __shared__ long long s_split[2];
   const int tid = threadIdx.x;
@@ -590,13 +653,7 @@ gather_expand_kernel(const int* __restrict__ indptr, long long nv, const int* __
     for (int e = tid; e <= ni; e += kThreads) {
       const long long r = i0 - 1 + e < 0 ? 0 : i0 - 1 + e;
       s_off[e] = __ldg(offsets + r);
-      int b = 0;
-      if (nv >= 0) {
-        long long c = __ldg(srcs + r);
-        c = c > nv - 1 ? nv - 1 : c;
-        b = __ldg(indptr + (c < 0 ? 0 : c));
-      }
-      s_base[e] = b;
+      s_base[e] = gather.base(r, __ldg(srcs + r));
     }
     __syncthreads();
     // the tile's row x is staged at x + 1; the thread's first item is the
@@ -631,13 +688,8 @@ gather_expand_kernel(const int* __restrict__ indptr, long long nv, const int* __
       const int ep = static_cast<int>(static_cast<unsigned>(s_base[e]) +
                                       static_cast<unsigned>(j0 + yy) -
                                       static_cast<unsigned>(s_off[e]));
-      int nb = -1;
-      if (ne > 0) nb = __ldg(nbrs + (ep < 0 ? 0 : (ep > ne - 1 ? ne - 1 : ep)));
-      int pos = ep;
-      if (edge_map != nullptr) {
-        pos = ep >= 0 && nm > 0 ? __ldg(edge_map + (ep > nm - 1 ? nm - 1 : ep)) : -1;
-      }
-      return make_int3(static_cast<int>(r), pos, nb);
+      const int2 pn = gather.emit(ep);
+      return make_int3(static_cast<int>(r), pn.x, pn.y);
     });
   }
   // the slots past the total: -1 in all three outputs
@@ -2837,92 +2889,429 @@ __device__ unsigned block_sum(unsigned v, unsigned* warp_sums) {
 // ---------------------------------------------------------------------------
 // K17: slab_scan (replaces tpu_engine._expand_slab :1007, the window scan a
 // class falls back to once one of its slab buckets overflowed).
-// Bound: the larger of R*4 (sources) + W*(4 + 4 + 1) bytes (the window's
-// active and emitted endpoints and liveness) read plus the output, and the
-// R*W compares (rows with a source times window slots), the reference's own
-// cost, at the card's 32-bit scalar rate.
-// Design: the [R, W] match mask is never stored. A count pass gives each
-// row its matches (kSlabRows rows a block, each window entry loaded once
-// for all of them); the exclusive scan of the counts (K1) gives each row
-// its output offset; an emit pass, one block per row with matches, walks
-// the window in order and writes (row, base + j, e[j]) at offset + rank,
-// ranks from a block scan, and stops after the row's last match:
-// row-major order, as compact_indices over the reshaped mask gives it.
-// Slots from the total to the capacity get -1.
+// Bound: a join of the W window slots with the R rows' sources. Read: R*4
+// bytes of sources, W*(4 + 1) of the window's active endpoints and
+// liveness, and the emitted endpoint at each hit (4 bytes, h of them);
+// written: 12 bytes an output slot (n of them). At W4's shape (R 2,048,
+// W 2^19, 46 hits into 128) ~2.6 MB, ~0.0008 ms. The reference's
+// [R, W] compare mask (R*W compares) is its algorithm, not the function's
+// cost, so no stage here grows with R*W.
+// Design: a window join in eight launches after one memset, no [R, W]
+// mask and no library sort, search or compaction:
+//  1. slab_hist_kernel: one read of the window; the live slots' active
+//     endpoints (keys) counted by each of their four 8-bit digits into
+//     per-pass histograms (a block's counts in shared memory, added to
+//     the global ones once a block); the last block to finish writes the
+//     sort's plan (the live count, one past the last live slot, each
+//     pass's digit bases, which passes move pairs and which buffer each
+//     reads);
+//  2. slab_sort_pass_kernel, four LSD radix passes over (key, slot):
+//     pass 0 reads the window itself, up to its last live slot, and keeps
+//     only the live slots (a tombstone or a -1 endpoint matches no
+//     source), so later passes sort L <= W pairs. A block takes a tile
+//     of 4,096 pairs (16 a thread, warp-striped, so a warp's pairs are
+//     consecutive), ranks each pair among the tile's pairs of its digit in
+//     pair order (the lanes of a digit by eight ballots, a running count a
+//     warp and digit in shared memory, then the warps' counts scanned
+//     digit by digit), stages the tile in shared memory in digit order,
+//     finds the pairs of each digit in earlier tiles by a decoupled
+//     look-back by tile (the tile number from an atomic counter), and
+//     writes each digit's run of the tile to consecutive positions: its
+//     digit's base in the pass + that prefix.
+//     Each pass is stable, so the window ends sorted by (key, slot). A
+//     pass whose digit is one value for every key (the high digits of
+//     vertex ids below 2^24 or 2^16) is skipped: its launch returns, and
+//     the sorted pairs stay in the buffer the last pass wrote (the plan
+//     says which, so a replay needs no host read);
+//  3. each row's hits are one run of the sorted keys, [lower bound,
+//     upper bound) of its source: slab_runs_kernel finds them (a thread a
+//     row, its search narrowed to the source's bucket of the last moving
+//     pass), and K2's degree scan over RunSpan gives each row its output
+//     offset and the device total;
+//  4. K2b's merge-path gather over SlabGather writes (row, base + slot,
+//     e[slot]) for the first min(total, capacity) hits in row-major order
+//     (row ascending, then slot ascending) and -1 to the capacity.
+// Exact under skew: a source with thousands of slab edges is one long run
+// that K2b's merge path splits across blocks, and a source repeated on
+// many rows finds the same run on each. The output capacity comes from
+// the caller's size_for(total) between launches 7 and 8, as before.
 // ---------------------------------------------------------------------------
-constexpr int kSlabRows = 8;
+constexpr int kSortItems = 16;  // pairs a thread
+constexpr long long kSortTile = kThreads * kSortItems;  // pairs a tile
+constexpr int kDigitBits = 8;
+constexpr int kDigits = 1 << kDigitBits;
+constexpr int kSortPasses = 32 / kDigitBits;
+constexpr unsigned kNoDigit = 0xffffffffu;
+static_assert(kDigits == kThreads, "one thread a digit in the look-back and the plans");
 
-__global__ void slab_scan_count_kernel(const int* __restrict__ a,
-                                       const unsigned char* __restrict__ live, long long w,
-                                       const int* __restrict__ srcs, long long r,
-                                       int* __restrict__ counts) {
-  __shared__ unsigned warp_sums[kWarps];
-  for (long long r0 = blockIdx.x * static_cast<long long>(kSlabRows); r0 < r;
-       r0 += static_cast<long long>(gridDim.x) * kSlabRows) {
-    int src[kSlabRows];
-    unsigned c[kSlabRows];
-    bool any = false;
+// The sort's scratch, one allocation set to 0xFF bytes by one memset: the
+// histograms (kSortPasses x kDigits complemented counts: ~x is the count,
+// so the memset is their zero), the plan, then each pass's look-back state
+// (a tile counter word, a status word a tile, then kDigits counts a tile
+// and kDigits inclusive prefixes a tile), then the rows' runs and K2's
+// look-back state.
+inline long long sort_tiles(long long w) { return w > 0 ? (w + kSortTile - 1) / kSortTile : 0; }
+inline long long sort_hist_bytes() { return 4LL * kSortPasses * kDigits; }
+inline long long sort_pass_words(long long w) {
+  return 1 + (sort_tiles(w) + 1) / 2 + sort_tiles(w) * kDigits;  // 8-byte words
+}
+constexpr long long kSortPlanBytes = 4LL * (16 + kSortPasses * kDigits);  // slab_hist_kernel's plan
+inline long long sort_starts_bytes(long long r) { return 8 * ((r + 1) / 2); }
+inline long long sort_scratch_bytes(long long w, long long r) {
+  return sort_hist_bytes() + kSortPlanBytes + 8 * kSortPasses * sort_pass_words(w) +
+         2 * sort_starts_bytes(r) + lb_state_bytes(r > 0 ? (r + kDegTile - 1) / kDegTile : 0);
+}
+
+// The scratch's parts in that order; a row's run is two uint32 arrays
+// ([r] starts, then [r] ends).
+struct SlabScratch {
+  unsigned* hist;
+  unsigned* plan;
+  unsigned long long* pass[kSortPasses];
+  unsigned* starts;
+  unsigned* ends;
+  unsigned long long* scan;
+};
+
+inline SlabScratch slab_scratch(void* p, long long w, long long r) {
+  char* c = static_cast<char*>(p);
+  SlabScratch sc;
+  sc.hist = reinterpret_cast<unsigned*>(c);
+  sc.plan = reinterpret_cast<unsigned*>(c + sort_hist_bytes());
+  unsigned long long* st = reinterpret_cast<unsigned long long*>(c + sort_hist_bytes() + kSortPlanBytes);
+  for (int q = 0; q < kSortPasses; ++q) sc.pass[q] = st + q * sort_pass_words(w);
+  sc.starts = reinterpret_cast<unsigned*>(st + kSortPasses * sort_pass_words(w));
+  sc.ends = reinterpret_cast<unsigned*>(reinterpret_cast<char*>(sc.starts) + sort_starts_bytes(r));
+  sc.scan = reinterpret_cast<unsigned long long*>(reinterpret_cast<char*>(sc.ends) + sort_starts_bytes(r));
+  return sc;
+}
+
+// The sort's plan, written once by the histogram's last block: [0] the
+// sorted pairs' count n (the live slots), [1] the buffer that ends with
+// them, [2 + p] pass p's form (bit 1: it moves pairs; bit 0: the buffer it
+// reads; bits 8-15 of a pass that moves nothing: the digit every key has
+// there), [6] the last pass that moves pairs, [7] the histogram blocks'
+// done counter, [8] one past the window's last live slot (pass 0 reads no
+// further), then from [16] each pass's digit bases (the exclusive scan of
+// its digit counts). Past the last moving pass every key shares its digits, so
+// that pass's bases split the sorted keys into 256 contiguous buckets.
+constexpr int kPlanPass = 2;
+constexpr int kPlanTop = 6;
+constexpr int kPlanDone = 7;
+constexpr int kPlanEnd = 8;
+constexpr int kPlanBase = 16;
+
+__global__ void __launch_bounds__(kThreads)
+slab_hist_kernel(const int* __restrict__ a, const unsigned char* __restrict__ live, long long w,
+                 unsigned* __restrict__ hist, unsigned* __restrict__ plan) {
+  __shared__ unsigned s_h[kSortPasses * kDigits];
+  __shared__ unsigned s_warp[kWarps];
+  __shared__ unsigned s_end;
+  __shared__ bool s_last;
+  const int t = threadIdx.x;
+  for (int i = t; i < kSortPasses * kDigits; i += kThreads) s_h[i] = 0u;
+  if (t == 0) s_end = 0u;
+  __syncthreads();
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  unsigned end = 0u;  // one past this thread's last live slot
+  for (long long j = blockIdx.x * static_cast<long long>(kThreads) + t; j < w; j += stride) {
+    const int x = __ldg(a + j);
+    if (x < 0 || !__ldg(live + j)) continue;
+    end = static_cast<unsigned>(j) + 1u;
 #pragma unroll
-    for (int k = 0; k < kSlabRows; ++k) {
-      src[k] = r0 + k < r ? srcs[r0 + k] : -1;
-      c[k] = 0u;
-      any = any || src[k] >= 0;
+    for (int p = 0; p < kSortPasses; ++p) {
+      atomicAdd(&s_h[p * kDigits + ((static_cast<unsigned>(x) >> (kDigitBits * p)) & (kDigits - 1))], 1u);
     }
-    if (any) {  // uniform across the block
-      for (long long j = threadIdx.x; j < w; j += blockDim.x) {
-        if (!live[j]) continue;
-        const int x = a[j];
+  }
+  if (end != 0u) atomicMax(&s_end, end);
+  __syncthreads();
+  for (int i = t; i < kSortPasses * kDigits; i += kThreads) {
+    if (s_h[i] != 0u) atomicSub(hist + i, s_h[i]);
+  }
+  if (t == 0 && s_end != 0u) atomicMin(plan + kPlanEnd, ~s_end);  // complemented: the memset is 0
+  // the last block to finish writes the plan (the counter starts at ~0)
+  __threadfence();
+  __syncthreads();
+  if (t == 0) s_last = atomicAdd(plan + kPlanDone, 1u) + 1u == gridDim.x - 1u;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  unsigned c[kSortPasses];
 #pragma unroll
-        for (int k = 0; k < kSlabRows; ++k) c[k] += (src[k] >= 0 && x == src[k]) ? 1u : 0u;
+  for (int p = 0; p < kSortPasses; ++p) c[p] = ~__ldcg(hist + p * kDigits + t);
+  const unsigned n = block_sum(c[0], s_warp);
+  int cur = 0, top = 0;  // pass 0 reads the window and writes buffer 0
+#pragma unroll
+  for (int p = 0; p < kSortPasses; ++p) {
+    // a pass whose digit is one value for every key keeps the order
+    const bool moves = p == 0 || __syncthreads_or(c[p] == n) == 0;
+    if (moves) {
+      if (t == 0) plan[kPlanPass + p] = 2u | static_cast<unsigned>(cur);
+      if (p > 0) {
+        cur ^= 1;
+        top = p;
       }
+    } else if (c[p] == n && (n > 0 || t == 0)) {
+      plan[kPlanPass + p] = static_cast<unsigned>(t) << 8 | static_cast<unsigned>(cur);
     }
-#pragma unroll
-    for (int k = 0; k < kSlabRows; ++k) {
-      const unsigned t = block_sum(c[k], warp_sums);
-      if (threadIdx.x == 0 && r0 + k < r) counts[r0 + k] = static_cast<int>(t);
-    }
+    plan[kPlanBase + p * kDigits + t] = block_exclusive_scan<unsigned>(c[p], s_warp);
+  }
+  if (t == 0) {
+    plan[0] = n;
+    plan[1] = static_cast<unsigned>(cur);
+    plan[kPlanTop] = static_cast<unsigned>(top);
+    plan[kPlanEnd] = ~__ldcg(plan + kPlanEnd);
   }
 }
 
-__global__ void slab_scan_emit_kernel(const int* __restrict__ a, const int* __restrict__ e,
-                                      const unsigned char* __restrict__ live, long long w,
-                                      const int* __restrict__ srcs,
-                                      const int* __restrict__ counts,
-                                      const int* __restrict__ offsets, long long r,
-                                      const int* __restrict__ total, int base, long long out,
-                                      int* __restrict__ row_o, int* __restrict__ eid_o,
-                                      int* __restrict__ nbr_o) {
-  __shared__ unsigned warp_sums[kWarps];
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  long long t = *total;
-  if (t < 0) t = 0;
-  for (long long q = t + blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; q < out;
-       q += stride) {
-    row_o[q] = -1;
-    eid_o[q] = -1;
-    nbr_o[q] = -1;
-  }
-  for (long long row = blockIdx.x; row < r; row += gridDim.x) {
-    const int src = srcs[row];
-    if (src < 0 || counts[row] == 0) continue;  // uniform across the block
-    long long pos = offsets[row];
-    const long long end = pos + counts[row];  // past the row's last hit
-    for (long long j0 = 0; j0 < w && pos < end && pos < out; j0 += blockDim.x) {
-      const long long j = j0 + threadIdx.x;
-      const unsigned hit = (j < w && live[j] && a[j] == src) ? 1u : 0u;
-      const unsigned rank = block_exclusive_scan<unsigned>(hit, warp_sums);
-      if (hit) {
-        const long long q = pos + rank;
-        if (q < out) {
-          row_o[q] = static_cast<int>(row);
-          eid_o[q] = base + static_cast<int>(j);
-          nbr_o[q] = e[j];
+template <bool kFirst>
+__global__ void __launch_bounds__(kThreads)
+slab_sort_pass_kernel(const int* __restrict__ a, const unsigned char* __restrict__ live,
+                      long long w, unsigned* __restrict__ keys0, unsigned* __restrict__ slots0,
+                      unsigned* __restrict__ keys1, unsigned* __restrict__ slots1,
+                      const unsigned* __restrict__ plan, unsigned long long* __restrict__ state,
+                      int pass) {
+  __shared__ unsigned s_cnt[kWarps][kDigits];  // a warp's running count, then its offset
+  __shared__ unsigned s_toff[kDigits];         // a digit's first pair in the staged tile
+  __shared__ unsigned s_base[kDigits];         // global position - staged position, by digit
+  __shared__ unsigned s_key[kSortTile];        // the tile's pairs, staged in digit order
+  __shared__ unsigned s_slot[kSortTile];
+  __shared__ unsigned s_warp[kWarps];
+  __shared__ unsigned s_tile;
+  __shared__ unsigned s_m;                     // the tile's pairs
+  __shared__ long long s_from;  // the nearest earlier tile with inclusive prefixes
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const unsigned form = __ldg(plan + kPlanPass + pass);
+  if (!(form & 2u)) return;  // uniform: the pass keeps the order
+  // pass 0 reads the window up to its last live slot, a later pass the n pairs
+  const long long n = static_cast<long long>(__ldg(plan + (kFirst ? kPlanEnd : 0)));
+  const unsigned dbase = __ldg(plan + kPlanBase + pass * kDigits + t);  // the digit's base in the pass
+  const unsigned tile = lb_tile(state, &s_tile);
+  const long long t0 = static_cast<long long>(tile) * kSortTile;
+  if (t0 >= n) return;  // uniform; no later tile is live either
+  // pass 0 reads the window and writes buffer 0; a later pass writes the
+  // buffer it does not read
+  const int from = static_cast<int>(form & 1u);
+  const unsigned* kin = from ? keys1 : keys0;
+  const unsigned* sin = from ? slots1 : slots0;
+  unsigned* kout = kFirst || from ? keys0 : keys1;
+  unsigned* sout = kFirst || from ? slots0 : slots1;
+#pragma unroll
+  for (int wi = 0; wi < kWarps; ++wi) s_cnt[wi][t] = 0u;
+  unsigned key[kSortItems], slot[kSortItems], dig[kSortItems], rank[kSortItems];
+  const long long wbase = t0 + static_cast<long long>(warp) * 32 * kSortItems;
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const long long pos = wbase + i * 32 + lane;
+    dig[i] = kNoDigit;
+    key[i] = slot[i] = 0u;
+    if (pos < n) {
+      if (kFirst) {
+        const int x = __ldg(a + pos);
+        if (x >= 0 && __ldg(live + pos)) {
+          key[i] = static_cast<unsigned>(x);
+          slot[i] = static_cast<unsigned>(pos);
+          dig[i] = key[i] & (kDigits - 1);
         }
+      } else {
+        key[i] = __ldg(kin + pos);
+        slot[i] = __ldg(sin + pos);
+        dig[i] = (key[i] >> (kDigitBits * pass)) & (kDigits - 1);
       }
-      pos += __syncthreads_count(hit);
     }
   }
+  __syncthreads();
+  // a pair's rank among the warp's earlier pairs of its digit (pair order:
+  // item i before i + 1, lane order within an item); the lanes of a digit
+  // by one ballot a digit bit
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const unsigned d = dig[i];
+    unsigned peers = __ballot_sync(kFull, d != kNoDigit);
+#pragma unroll
+    for (int b = 0; b < kDigitBits; ++b) {
+      const unsigned bit = (d >> b) & 1u;
+      const unsigned m = __ballot_sync(kFull, bit != 0u);
+      peers &= bit ? m : ~m;
+    }
+    const unsigned before = __popc(peers & below);
+    if (d != kNoDigit) rank[i] = s_cnt[warp][d] + before;
+    __syncwarp();
+    if (d != kNoDigit && before == 0) s_cnt[warp][d] += __popc(peers);
+    __syncwarp();
+  }
+  __syncthreads();
+  // digit t: the warps' exclusive offsets in the tile and the tile's count
+  unsigned count = 0u;
+#pragma unroll
+  for (int wi = 0; wi < kWarps; ++wi) {
+    const unsigned c = s_cnt[wi][t];
+    s_cnt[wi][t] = count;
+    count += c;
+  }
+  const unsigned toff = block_exclusive_scan<unsigned>(count, s_warp);
+  s_toff[t] = toff;
+  if (t == kThreads - 1) s_m = toff + count;
+  __syncthreads();
+  // the tile's pairs staged in shared memory in (digit, pair) order, so that
+  // each digit's run goes out to consecutive global positions
+#pragma unroll
+  for (int i = 0; i < kSortItems; ++i) {
+    const unsigned d = dig[i];
+    if (d == kNoDigit) continue;
+    const unsigned q = s_toff[d] + s_cnt[warp][d] + rank[i];
+    s_key[q] = key[i];
+    s_slot[q] = slot[i];
+  }
+  // each digit's pairs in the earlier tiles: a decoupled look-back by tile.
+  // A tile publishes its 256 counts, then its status; warp 0 finds the
+  // nearest predecessor with inclusive prefixes (32 status words at once),
+  // and thread t adds that tile's prefix of digit t and the counts of the
+  // tiles after it (eight rows in flight). Only one warp a tile polls.
+  const long long tiles = (w + kSortTile - 1) / kSortTile;
+  unsigned* status = reinterpret_cast<unsigned*>(state + 1);
+  unsigned* agg = reinterpret_cast<unsigned*>(state + 1 + (tiles + 1) / 2);
+  unsigned* incl = agg + tiles * kDigits;
+  unsigned prefix = 0u;
+  if (tile == 0) {
+    incl[t] = count;
+    __syncthreads();
+    if (t == 0) tile_publish(status, kLbPrefix);
+  } else {
+    agg[static_cast<long long>(tile) * kDigits + t] = count;
+    __syncthreads();
+    if (t == 0) tile_publish(status + tile, kLbAggregate);
+    if (warp == 0) {
+      long long pred = static_cast<long long>(tile) - 1 - lane;  // lane 0 the nearest
+      for (;;) {
+        unsigned st = kLbPrefix;  // before tile 0: a zero prefix
+        do {
+          if (pred >= 0) st = tile_status(status + pred);
+        } while (__any_sync(kFull, st == kLbEmpty));
+        const unsigned prefixes = __ballot_sync(kFull, st == kLbPrefix);
+        if (prefixes) {
+          if (lane == __ffs(prefixes) - 1) s_from = pred < 0 ? 0 : pred;
+          break;
+        }
+        pred -= 32;
+      }
+    }
+    __syncthreads();
+    const long long first = s_from;  // < tile
+    unsigned part[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) part[u] = 0u;
+    long long q = first + 1;
+    for (; q + 8 <= tile; q += 8) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) part[u] += __ldcg(agg + (q + u) * kDigits + t);
+    }
+    for (; q < tile; ++q) part[0] += __ldcg(agg + q * kDigits + t);
+    prefix = __ldcg(incl + first * kDigits + t);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) prefix += part[u];
+    incl[static_cast<long long>(tile) * kDigits + t] = prefix + count;
+    __syncthreads();
+    if (t == 0) tile_publish(status + tile, kLbPrefix);
+  }
+  s_base[t] = dbase + prefix - toff;
+  __syncthreads();
+  const int m = static_cast<int>(s_m);
+  for (int i = t; i < m; i += kThreads) {
+    const unsigned k = s_key[i];
+    const unsigned g = s_base[(k >> (kDigitBits * pass)) & (kDigits - 1)] + static_cast<unsigned>(i);
+    kout[g] = k;
+    sout[g] = s_slot[i];
+  }
 }
+
+// Step 3a: each row's run of the sorted keys, [the first key not below its
+// source, the first key above it), one thread a row over as many blocks as
+// the rows need (a search's loads are scattered: one block would be bound
+// by its SM's load rate). The plan narrows the search to the source's
+// bucket of the last moving pass (a source whose higher digits are not
+// every key's matches nothing), then two branch-free binary searches run
+// in lockstep. A -1 source's run is empty.
+constexpr int kRunThreads = 128;
+
+__global__ void __launch_bounds__(kRunThreads)
+slab_runs_kernel(const unsigned* __restrict__ keys0, const unsigned* __restrict__ keys1,
+                 const unsigned* __restrict__ plan, const int* __restrict__ srcs, long long r,
+                 unsigned* __restrict__ starts, unsigned* __restrict__ ends) {
+  const long long i = blockIdx.x * static_cast<long long>(kRunThreads) + threadIdx.x;
+  if (i >= r) return;
+  const int c = __ldg(srcs + i);
+  const unsigned n = __ldg(plan);
+  unsigned lo = 0u, hi = 0u;
+  if (c >= 0 && n > 0u) {
+    const unsigned x = static_cast<unsigned>(c);
+    const int top = static_cast<int>(__ldg(plan + kPlanTop));
+    bool in = true;
+    for (int p = top + 1; p < kSortPasses; ++p) {
+      in = in && ((x >> (kDigitBits * p)) & (kDigits - 1)) == (__ldg(plan + kPlanPass + p) >> 8);
+    }
+    if (in) {
+      const unsigned d = (x >> (kDigitBits * top)) & (kDigits - 1);
+      const unsigned* base = plan + kPlanBase + top * kDigits;
+      lo = hi = __ldg(base + d);
+      const unsigned end = d + 1 < static_cast<unsigned>(kDigits) ? __ldg(base + d + 1) : n;
+      const unsigned* kk = __ldg(plan + 1) ? keys1 : keys0;
+      const unsigned m = end - lo;
+      for (unsigned step = m == 0u ? 0u : 1u << (31 - __clz(m)); step != 0u; step >>= 1) {
+        const unsigned ka = __ldg(kk + min(lo + step, end) - 1);
+        const unsigned kb = __ldg(kk + min(hi + step, end) - 1);
+        if (lo + step <= end && ka < x) lo += step;
+        if (hi + step <= end && kb <= x) hi += step;
+      }
+    }
+  }
+  starts[i] = lo;
+  ends[i] = hi;
+}
+
+// K2 over the sorted window: row i's span is its run, read by position.
+struct RunSpan {
+  static constexpr bool kReadsSrcs = false;  // a row's span is read by position
+  const unsigned* starts;
+  const unsigned* ends;
+  template <int V, int J>
+  __device__ __forceinline__ void bounds(long long wbase, long long k, const int (&)[V][J],
+                                         unsigned (&lo)[V][J], unsigned (&hi)[V][J]) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const long long i = wbase + static_cast<long long>(v * 32 + lane) * J + j;
+        lo[v][j] = i < k ? __ldg(starts + i) : 0u;
+        hi[v][j] = i < k ? __ldg(ends + i) : 0u;
+      }
+    }
+  }
+};
+
+// K2b over the sorted window: row r's base is its run's start; position ep
+// of the sorted pairs is window slot s, written as (base + s, e[s]).
+struct SlabGather {
+  const unsigned* slots[2];
+  const unsigned* plan;
+  const unsigned* starts;
+  const int* e;
+  int eid_base;
+  __device__ __forceinline__ int base(long long r, long long) const {
+    return static_cast<int>(__ldg(starts + r));
+  }
+  __device__ __forceinline__ int2 emit(int ep) const {
+    const unsigned n = __ldg(plan), b = __ldg(plan + 1);
+    if (n == 0u) return make_int2(-1, -1);
+    const unsigned i = ep < 0 ? 0u : (static_cast<unsigned>(ep) < n ? static_cast<unsigned>(ep) : n - 1u);
+    const unsigned s = __ldg((b ? slots[1] : slots[0]) + i);
+    return make_int2(static_cast<int>(static_cast<unsigned>(eid_base) + s), __ldg(e + s));
+  }
+};
 
 // ---------------------------------------------------------------------------
 // K18: slab_probe (replaces tpu_engine._expand_slab_bucketed :1061, the
@@ -3275,49 +3664,162 @@ __global__ void shard_weight_pass_kernel(const int* __restrict__ seg,
 // (out is [S, Q, R], shard-major, so a process group's reduce-scatter hands
 // each rank its own slice). Edges past indptr[R] or with d < 0 are the
 // reference's dead padding (edge_live); d clips to [0, S R - 1] as dst_c
-// does. Design: a warp per local row (no [e_max] source array, where the
-// reference derives each edge's row by searchsorted), the lit queries of a
-// row as a ballot mask of 32, the row's edges strided over the lanes;
-// stores are only 1s, no atomics. Bound: the frontier read once, 8 bytes of
-// indptr and 4 of dst a lit row's edge, out written once.
-__global__ void rowshard_hop_kernel(const int* __restrict__ indptr, long long r,
-                                    const int* __restrict__ dst, long long emax,
-                                    const unsigned char* __restrict__ frontier,
-                                    long long s_local, long long q, long long v_pad,
-                                    unsigned char* __restrict__ out) {
+// does.
+// Bound: the frontier read once and out written once (2 S_l Q R bytes with
+// S_l = S), 8 bytes of indptr a lit row, 4 of dst a lit row's edge. At
+// MBFS's first hop ([4, 4, 2^21], 4 lit rows) ~0.019 ms.
+// Design: a coalesced push. A warp takes a run of 512 consecutive rows of
+// one shard (16 a lane) and reads each query's bytes of them with one
+// 16-byte load a lane (a warp's load of one query is 512 contiguous bytes;
+// a guarded byte loop where R is not a multiple of 16, so a run never
+// reads past its shard's slice), folding them into a 32-bit mask of lit
+// queries a row (32 queries at a time when Q > 32). A ballot skips a run
+// with no lit row, so a sparse hop costs its frontier read and the
+// zeroing. Otherwise the warp lists its lit rows of nonzero span, 128 at a
+// time (as K10's push does: their indptr spans, two warp scans, shared
+// memory), and walks the flat span of their edges 32 slots a step, each
+// lane finding its slot's row by a binary search of the prefixes: dst
+// reads coalesce within a row at any density. Only a lit row reads its
+// indptr pair. Stores are only 1s: no atomics.
+// ---------------------------------------------------------------------------
+constexpr int kRunRows = 16;  // rows a lane: one 16-byte load a query
+constexpr long long kRunLen = 32LL * kRunRows;  // rows a warp run
+constexpr int kRunChunk = kHopGroup / 32;  // rows a lane lists at a time
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+rowshard_hop_kernel(const int* __restrict__ indptr, long long r, const int* __restrict__ dst,
+                    long long emax, const unsigned char* __restrict__ frontier,
+                    long long s_local, long long q, long long v_pad,
+                    unsigned char* __restrict__ out) {
+  __shared__ int s_base[kWarps][kHopGroup];
+  __shared__ int s_pref[kWarps][kHopGroup];
+  __shared__ unsigned s_rows[kWarps][kHopGroup];
   const int lane = threadIdx.x & 31;
-  const long long warps = static_cast<long long>(gridDim.x) * kWarps;
-  const long long rows = s_local * r;
-  for (long long g = (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-       g < rows; g += warps) {
-    const long long sl = g / r;
-    const long long row = g - sl * r;
-    const unsigned char* fr = frontier + sl * q * r + row;
+  const int w = threadIdx.x >> 5;
+  const long long runs = (r + kRunLen - 1) / kRunLen;  // a shard's runs
+  const long long wstride = static_cast<long long>(gridDim.x) * kWarps;
+  const unsigned ur = static_cast<unsigned>(r);  // r <= v_pad < 2^31
+  for (long long g = static_cast<long long>(blockIdx.x) * kWarps + w; g < s_local * runs;
+       g += wstride) {
+    const long long sl = g / runs;
+    const long long row0 = (g - sl * runs) * kRunLen + static_cast<long long>(lane) * kRunRows;
+    const unsigned char* fs = frontier + sl * q * r + row0;
     const int* ip = indptr + sl * (r + 1);
-    long long b = -1, e = -1;
+    const int* dl = dst + sl * emax;
+    long long lim = -1;
     for (long long q0 = 0; q0 < q; q0 += 32) {
-      const unsigned bits = __ballot_sync(kFull, q0 + lane < q && fr[(q0 + lane) * r] != 0);
-      if (bits == 0) continue;
-      if (b < 0) {
-        long long lim = ip[r];
-        if (lim > emax) lim = emax;
-        b = ip[row];
-        e = ip[row + 1];
-        if (b < 0) b = 0;
-        if (e > lim) e = lim;
-      }
-      for (long long i = b + lane; i < e; i += 32) {
-        long long d = dst[sl * emax + i];
-        if (d < 0) continue;
-        if (d > v_pad - 1) d = v_pad - 1;
-        const long long t = d / r;
-        const long long c = d - t * r;
-        unsigned m = bits;
-        while (m) {
-          const long long k = __ffs(m) - 1;
-          m &= m - 1;
-          out[(t * q + q0 + k) * r + c] = 1;
+      const int nq = static_cast<int>(q - q0 < 32 ? q - q0 : 32);
+      unsigned mk[kRunRows];
+#pragma unroll
+      for (int b = 0; b < kRunRows; ++b) mk[b] = 0u;
+      if (row0 < r) {
+        if (kVec) {
+          // R % 16 == 0: the lane's 16 bytes of a query lie inside the row
+          for (int k0 = 0; k0 < nq; k0 += 4) {
+            uint4 x[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              x[j] = k0 + j < nq ? __ldg(reinterpret_cast<const uint4*>(fs + (q0 + k0 + j) * r))
+                                 : make_uint4(0u, 0u, 0u, 0u);
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (!any16(x[j])) continue;
+              const unsigned wd[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
+#pragma unroll
+              for (int b = 0; b < kRunRows; ++b) {
+                mk[b] |= static_cast<unsigned>(((wd[b >> 2] >> (8 * (b & 3))) & 0xffu) != 0u) << (k0 + j);
+              }
+            }
+          }
+        } else {
+          for (int k = 0; k < nq; ++k) {
+            const unsigned char* f = fs + (q0 + k) * r;
+#pragma unroll
+            for (int b = 0; b < kRunRows; ++b) {
+              if (row0 + b < r && f[b] != 0) mk[b] |= 1u << k;
+            }
+          }
         }
+      }
+      unsigned lit = 0u;
+#pragma unroll
+      for (int b = 0; b < kRunRows; ++b) lit |= mk[b];
+      if (!__any_sync(kFull, lit != 0u)) continue;
+      if (lim < 0) {
+        lim = __ldg(ip + r);
+        if (lim > emax) lim = emax;
+      }
+#pragma unroll
+      for (int c = 0; c < kRunRows / kRunChunk; ++c) {
+        // the lane's lit rows of this chunk with a nonempty span
+        int bs[kRunChunk], dg[kRunChunk];
+        unsigned m[kRunChunk];
+        int cnt = 0, dsum = 0;
+#pragma unroll
+        for (int k = 0; k < kRunChunk; ++k) {
+          m[k] = mk[c * kRunChunk + k];
+          bs[k] = dg[k] = 0;
+          if (m[k] != 0u) {
+            const long long row = row0 + c * kRunChunk + k;
+            long long b = __ldg(ip + row), e = __ldg(ip + row + 1);
+            if (b < 0) b = 0;
+            if (e > lim) e = lim;
+            if (e > b) {
+              bs[k] = static_cast<int>(b);
+              dg[k] = static_cast<int>(e - b);
+              ++cnt;
+              dsum += dg[k];
+            } else {
+              m[k] = 0u;
+            }
+          }
+        }
+        if (!__any_sync(kFull, cnt != 0)) continue;
+        int ic = cnt, id = dsum;  // inclusive warp scans
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int tc = __shfl_up_sync(kFull, ic, o);
+          const int td = __shfl_up_sync(kFull, id, o);
+          if (lane >= o) {
+            ic += tc;
+            id += td;
+          }
+        }
+        const int na = __shfl_sync(kFull, ic, 31);
+        const int total = __shfl_sync(kFull, id, 31);
+        int pos = ic - cnt, off = id - dsum;
+#pragma unroll
+        for (int k = 0; k < kRunChunk; ++k) {
+          if (m[k] != 0u) {
+            s_base[w][pos] = bs[k];
+            s_pref[w][pos] = off;
+            s_rows[w][pos] = m[k];
+            ++pos;
+            off += dg[k];
+          }
+        }
+        __syncwarp();
+        for (int p = lane; p < total; p += 32) {
+          int a = 0, z = na - 1;  // the last entry whose prefix is <= p
+          while (a < z) {
+            const int mid = (a + z + 1) >> 1;
+            if (s_pref[w][mid] <= p) a = mid; else z = mid - 1;
+          }
+          long long d = __ldg(dl + s_base[w][a] + (p - s_pref[w][a]));
+          if (d < 0) continue;
+          if (d > v_pad - 1) d = v_pad - 1;
+          const unsigned t = static_cast<unsigned>(d) / ur;
+          const long long col = d - static_cast<long long>(t) * r;
+          unsigned bits = s_rows[w][a];
+          while (bits != 0u) {
+            const int k = __ffs(bits) - 1;
+            bits &= bits - 1u;
+            out[(static_cast<long long>(t) * q + q0 + k) * r + col] = 1;
+          }
+        }
+        __syncwarp();
       }
     }
   }
@@ -3456,8 +3958,8 @@ int csr_degree_scan_i32(const void* indptr, long long nv, const void* srcs, long
   cudaError_t e = cudaMemsetAsync(state, 0xff, lb_state_bytes(tiles), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int vec_ok = aligned16(srcs) && aligned16(offsets);
-  degree_scan_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-      static_cast<const unsigned*>(indptr), nv, static_cast<const int*>(srcs), k,
+  degree_scan_kernel<CsrSpan><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+      CsrSpan{static_cast<const unsigned*>(indptr), nv}, static_cast<const int*>(srcs), k,
       static_cast<unsigned*>(offsets), static_cast<unsigned*>(total),
       static_cast<unsigned long long*>(state), vec_ok);
   return static_cast<int>(cudaGetLastError());
@@ -3471,13 +3973,13 @@ int csr_gather_expand(const void* indptr, long long nv, const void* nbrs,
                       void* row_out, void* pos_out, void* nbr_out, void* stream) {
   if (out_size > 0) {
     const int vec = aligned16(row_out) && aligned16(pos_out) && aligned16(nbr_out);
-    gather_expand_kernel<<<blocks_for(k + out_size, kExpandTile), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), nv, static_cast<const int*>(nbrs), ne,
-        static_cast<const int*>(srcs), static_cast<const int*>(offsets), k,
-        static_cast<const int*>(total), out_size, static_cast<const int*>(edge_map), nm,
-        static_cast<int*>(row_out), static_cast<int*>(pos_out), static_cast<int*>(nbr_out),
-        vec);
+    const CsrGather g{static_cast<const int*>(indptr), nv, static_cast<const int*>(nbrs), ne,
+                      static_cast<const int*>(edge_map), nm};
+    gather_expand_kernel<CsrGather><<<blocks_for(k + out_size, kExpandTile), kThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        g, static_cast<const int*>(srcs), static_cast<const int*>(offsets), k,
+        static_cast<const int*>(total), out_size, static_cast<int*>(row_out),
+        static_cast<int*>(pos_out), static_cast<int*>(nbr_out), vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -3807,36 +4309,85 @@ int csr_scatter_set(void* arr, long long len, const void* idx, const void* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Per row r < `r`, the live window entries j < `w` with a[j] == srcs[r]
-// (0 for a padding row): int32 `counts`.
-int csr_slab_scan_count(const void* a, const void* live, long long w, const void* srcs,
-                        long long r, void* counts, void* stream) {
+// K17's scratch in bytes for a window of w slots and r rows (one memset
+// of 0xFF in csr_slab_scan_hist empties all of it).
+long long csr_slab_scan_scratch(long long w, long long r) { return sort_scratch_bytes(w, r); }
+
+// The radix passes a call makes (csr_slab_scan_pass's `pass` runs over
+// 0 .. this - 1).
+int csr_slab_scan_passes() { return kSortPasses; }
+
+// Step 1: empties the scratch, then counts the live slots' key digits and
+// writes the sort's plan.
+int csr_slab_scan_hist(const void* a, const void* live, long long w, long long r, void* scratch,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (r <= 0) return static_cast<int>(cudaGetLastError());
-  long long blocks = (r + kSlabRows - 1) / kSlabRows;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  slab_scan_count_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      static_cast<const int*>(a), static_cast<const unsigned char*>(live), w,
-      static_cast<const int*>(srcs), r, static_cast<int*>(counts));
+  cudaError_t e = cudaMemsetAsync(scratch, 0xff, static_cast<size_t>(sort_scratch_bytes(w, r)), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  unsigned blocks = w > 0 ? blocks_for(w, kThreads) : 1;
+  if (blocks > 2 * 132) blocks = 2 * 132;
+  const SlabScratch sc = slab_scratch(scratch, w, r);
+  slab_hist_kernel<<<blocks, kThreads, 0, s>>>(static_cast<const int*>(a),
+                                               static_cast<const unsigned char*>(live), w,
+                                               sc.hist, sc.plan);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The matches of csr_slab_scan_count in row-major order into `out` slots of
-// row / eid / nbr; `offsets` is the exclusive scan of `counts` and `total`
-// (device int32) its sum; slots from the total on are -1.
-int csr_slab_scan_emit(const void* a, const void* e, const void* live, long long w,
-                       const void* srcs, const void* counts, const void* offsets, long long r,
-                       const void* total, int base, long long out, void* row, void* eid,
-                       void* nbr, void* stream) {
+// Step 2: radix pass `pass` over the (key, slot) buffers `pairs` ([4, w]
+// int32: keys and slots of buffer 0, then of buffer 1).
+int csr_slab_scan_pass(const void* a, const void* live, long long w, long long r, void* pairs,
+                       void* scratch, int pass, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = r > out ? r : out;
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  slab_scan_emit_kernel<<<grid_for(n, 1), kThreads, 0, s>>>(
-      static_cast<const int*>(a), static_cast<const int*>(e),
-      static_cast<const unsigned char*>(live), w, static_cast<const int*>(srcs),
-      static_cast<const int*>(counts), static_cast<const int*>(offsets), r,
-      static_cast<const int*>(total), base, out, static_cast<int*>(row),
-      static_cast<int*>(eid), static_cast<int*>(nbr));
+  if (pass < 0 || pass >= kSortPasses) return static_cast<int>(cudaErrorInvalidValue);
+  const SlabScratch sc = slab_scratch(scratch, w, r);
+  unsigned* k0 = static_cast<unsigned*>(pairs);
+  const unsigned blocks = static_cast<unsigned>(w > 0 ? sort_tiles(w) : 1);
+  auto kernel = pass == 0 ? slab_sort_pass_kernel<true> : slab_sort_pass_kernel<false>;
+  kernel<<<blocks, kThreads, 0, s>>>(static_cast<const int*>(a),
+                                     static_cast<const unsigned char*>(live), w, k0, k0 + w,
+                                     k0 + 2 * w, k0 + 3 * w, sc.plan, sc.pass[pass], pass);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Step 3a: each row's run of its source in the sorted window (r > 0).
+int csr_slab_scan_runs(const void* pairs, long long w, const void* srcs, long long r,
+                       void* scratch, void* stream) {
+  const SlabScratch sc = slab_scratch(scratch, w, r);
+  const unsigned* k0 = static_cast<const unsigned*>(pairs);
+  slab_runs_kernel<<<blocks_for(r, kRunThreads), kRunThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      k0, k0 + 2 * w, sc.plan, static_cast<const int*>(srcs), r, sc.starts, sc.ends);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Step 3b: each row's output offset (the exclusive scan of its run's
+// length) and the device total (r > 0).
+int csr_slab_scan_rows(long long w, long long r, void* offsets, void* total, void* scratch,
+                       void* stream) {
+  const SlabScratch sc = slab_scratch(scratch, w, r);
+  degree_scan_kernel<RunSpan><<<static_cast<unsigned>((r + kDegTile - 1) / kDegTile), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      RunSpan{sc.starts, sc.ends}, nullptr, r, static_cast<unsigned*>(offsets),
+      static_cast<unsigned*>(total), sc.scan, aligned16(offsets));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Step 4: the hits in row-major order into `out` slots of row / eid / nbr
+// (eid = base + window slot, nbr = e[slot]); -1 from the total on.
+int csr_slab_scan_gather(const void* pairs, long long w, const void* e, int base,
+                         const void* srcs, const void* offsets, long long r, const void* total,
+                         long long out, void* row, void* eid, void* nbr, void* scratch,
+                         void* stream) {
+  if (out > 0) {
+    const SlabScratch sc = slab_scratch(scratch, w, r);
+    const unsigned* k0 = static_cast<const unsigned*>(pairs);
+    const SlabGather g{{k0 + w, k0 + 3 * w}, sc.plan, sc.starts, static_cast<const int*>(e), base};
+    const int vec = aligned16(row) && aligned16(eid) && aligned16(nbr);
+    gather_expand_kernel<SlabGather><<<blocks_for(r + out, kExpandTile), kThreads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+        g, static_cast<const int*>(srcs), static_cast<const int*>(offsets), r,
+        static_cast<const int*>(total), out, static_cast<int*>(row), static_cast<int*>(eid),
+        static_cast<int*>(nbr), vec);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -4027,7 +4578,12 @@ int csr_rowshard_hop(const void* indptr, long long r, const void* dst, long long
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (s_local > 0 && q > 0 && r > 0 && emax > 0) {
-    rowshard_hop_kernel<<<grid_for(s_local * r * 32, 1), kThreads, 0, s>>>(
+    const long long warps = s_local * ((r + kRunLen - 1) / kRunLen);
+    long long blocks = (warps + kWarps - 1) / kWarps;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    const bool vec = r % 16 == 0 && aligned16(frontier);
+    auto kernel = vec ? rowshard_hop_kernel<true> : rowshard_hop_kernel<false>;
+    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         static_cast<const int*>(indptr), r, static_cast<const int*>(dst), emax,
         static_cast<const unsigned char*>(frontier), s_local, q, n_shards * r,
         static_cast<unsigned char*>(out));

@@ -68,8 +68,13 @@ SIGNATURES = {
     "csr_group_page": [_P, _N, _I, _N, _N, _I, _P, _P],
     "csr_predicate_eval": [_P, _P],
     "csr_scatter_set": [_P, _N, _P, _P, _N, _I, _P],
-    "csr_slab_scan_count": [_P, _P, _N, _P, _N, _P, _P],
-    "csr_slab_scan_emit": [_P, _P, _P, _N, _P, _P, _P, _N, _P, _I, _N, _P, _P, _P, _P],
+    "csr_slab_scan_scratch": [_N, _N],
+    "csr_slab_scan_passes": [],
+    "csr_slab_scan_hist": [_P, _P, _N, _N, _P, _P],
+    "csr_slab_scan_pass": [_P, _P, _N, _N, _P, _P, _I, _P],
+    "csr_slab_scan_runs": [_P, _N, _P, _N, _P, _P],
+    "csr_slab_scan_rows": [_N, _N, _P, _P, _P, _P],
+    "csr_slab_scan_gather": [_P, _N, _P, _I, _P, _P, _N, _P, _N, _P, _P, _P, _P, _P],
     "csr_slab_probe": [_P, _P, _P, _N, _P, _N, _I, _I, _I, _P, _P, _P],
     "csr_slab_decode": [_P, _N, _P, _I, _I, _P, _N, _P, _P, _P, _P],
     "csr_paged_hop_csr": [

@@ -1822,8 +1822,11 @@ def slab_scan(a, e, live, srcs, base: int, size_for):
     ``size_for(total)`` maps the device total (0-d int32) to the output
     capacity (the caller's size schedule). Returns int32 ``(row, base + j,
     e[j])`` of that capacity in row-major order, -1 past the total, and the
-    total. Two launches: a count pass and an emit pass (with K1's scan of
-    the counts between them)."""
+    total. On the card a window join in eight launches after one memset:
+    the key histogram, four radix passes that sort the live slots by active
+    endpoint, each row's run of its source in the sorted window, K2's degree
+    scan of the runs' lengths (offsets and total), and K2b's merge-path
+    gather of the runs."""
     for t, what in ((a, "a"), (e, "e"), (srcs, "srcs")):
         _check(t, (I32,), f"slab_scan {what}")
     _check(live, (torch.bool,), "slab_scan live")
@@ -1832,22 +1835,40 @@ def slab_scan(a, e, live, srcs, base: int, size_for):
         raise ValueError("slab_scan: a, e and live differ in length")
     if not _on_card(a, e, live, srcs):
         return plain_slab_scan(a, e, live, srcs, base, size_for)
+    if W >= 1 << 31:
+        raise ValueError("slab_scan: a window of 2^31 slots or more")
     lib = _kernels.load()
-    dev = a.device
-    counts = torch.empty(R, dtype=I32, device=dev)
-    _launch(
-        "slab_scan", lib.csr_slab_scan_count,
-        a.data_ptr(), live.data_ptr(), W, srcs.data_ptr(), R, counts.data_ptr(), _stream(a),
-    )
-    offsets, total = exclusive_cumsum_total(counts)
+    dev, stream = a.device, _stream(a)
+    scratch = torch.empty(int(lib.csr_slab_scan_scratch(W, R)), dtype=torch.uint8, device=dev)
+    pairs = torch.empty((4, W), dtype=I32, device=dev)  # keys and slots, two buffers
+    _launch("slab_scan", lib.csr_slab_scan_hist, a.data_ptr(), live.data_ptr(), W, R, scratch.data_ptr(), stream)
+    for p in range(lib.csr_slab_scan_passes()):
+        _launch(
+            "slab_scan", lib.csr_slab_scan_pass,
+            a.data_ptr(), live.data_ptr(), W, R, pairs.data_ptr(), scratch.data_ptr(), p, stream,
+        )
+    offsets = torch.empty(R, dtype=I32, device=dev)
+    total = torch.empty((), dtype=I32, device=dev)
+    if not R:
+        total.zero_()
+    else:
+        _launch(
+            "slab_scan", lib.csr_slab_scan_runs,
+            pairs.data_ptr(), W, srcs.data_ptr(), R, scratch.data_ptr(), stream,
+        )
+        _launch(
+            "slab_scan", lib.csr_slab_scan_rows,
+            W, R, offsets.data_ptr(), total.data_ptr(), scratch.data_ptr(), stream,
+        )
     out = size_for(total)
     row = torch.empty(out, dtype=I32, device=dev)
     eid, nbr = torch.empty_like(row), torch.empty_like(row)
+    if not out:
+        return row, eid, nbr, total
     _launch(
-        "slab_scan", lib.csr_slab_scan_emit,
-        a.data_ptr(), e.data_ptr(), live.data_ptr(), W, srcs.data_ptr(), counts.data_ptr(),
-        offsets.data_ptr(), R, total.data_ptr(), int(base), out,
-        row.data_ptr(), eid.data_ptr(), nbr.data_ptr(), _stream(a),
+        "slab_scan", lib.csr_slab_scan_gather,
+        pairs.data_ptr(), W, e.data_ptr(), int(base), srcs.data_ptr(), offsets.data_ptr(), R,
+        total.data_ptr(), out, row.data_ptr(), eid.data_ptr(), nbr.data_ptr(), scratch.data_ptr(), stream,
     )
     return row, eid, nbr, total
 

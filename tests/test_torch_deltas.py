@@ -600,3 +600,42 @@ def test_plain_slab_kernels_equal_reference(d, v, base, used, r, seed):
     for g, ww in zip(got[:3], want[:3]):
         _same(g.numpy(), np.asarray(ww), "slab_scan")
     assert int(got[3]) == want[3]
+
+
+@pytest.mark.parametrize("d", ["out", "in"])
+@pytest.mark.parametrize("kind", ["hot", "repeated", "hot_repeated"])
+def test_plain_slab_scan_equals_reference_under_skew(d, kind):
+    """K17's window scan against the reference's `_expand_slab` on skewed
+    windows: one source owning most of the slab (the overflowed person whose
+    overflow is why the class scans at all), one source on many rows, and
+    both at once; a capacity below the total cuts in row-major order."""
+    rng = np.random.default_rng(len(kind))
+    v, base, used, r = 400, 300, 3_000, 96
+    nb, bk, floor = 256, 8, 8
+    cap = base + 4_096
+    src, dst, live, tabs = _slab(rng, v, base, used, cap, nb, bk, dead_frac=0.2)
+    own = src if d == "out" else dst
+    hot = 7
+    if kind != "repeated":
+        idx = base + rng.choice(used, 2_000, replace=False)
+        own[idx] = hot
+        live[idx[::2]] = True
+    srcs = rng.integers(0, v, r).astype(np.int32)
+    srcs[::5] = -1
+    srcs[[1, r // 2]] = hot
+    if kind != "hot":
+        srcs[rng.random(r) < 0.5] = hot
+    nbr = dst if d == "out" else src
+    solver, dec = _stub(src, dst, live, tabs, base, nb, bk, floor, False)
+    want = J_TE.TpuMatchSolver._expand_slab(solver, dec, d, jnp.asarray(srcs))
+    W = min(cap - base, max(TE._cap_of(max(int((src[base:] >= 0).sum()), 1)), floor))
+    win = [torch.from_numpy(x[base : base + W].copy()) for x in (own, nbr, live)]
+    total = int(want[3])
+    assert total > (100 if kind == "repeated" else 2_000)
+    got = K.slab_scan(*win, torch.from_numpy(srcs), base, lambda t: max(TE._cap_of(max(int(t), 1)), floor))
+    for g, ww in zip(got[:3], want[:3]):
+        _same(g.numpy(), np.asarray(ww), "slab_scan")
+    assert int(got[3]) == total
+    cut = K.slab_scan(*win, torch.from_numpy(srcs), base, lambda t: total // 3)
+    for g, ww in zip(cut[:3], want[:3]):
+        _same(g.numpy(), np.asarray(ww)[: total // 3], "slab_scan cut")

@@ -1661,3 +1661,115 @@ def test_captured_k5_equals_eager_on_card(card):
         for got, want in zip(outs, run()):
             assert torch.equal(got, want)
     torch.cuda.synchronize()
+
+
+def _slab_window(rng, kind: str):
+    """A used slab window and its rows' sources: random endpoints (some
+    -1) with a fifth of the slots tombstoned, -1 rows among the sources,
+    and per kind: W and R off the sort's 2,048-slot tile ("ragged"), one
+    source on many rows ("repeated"), one source owning 4,096 window slots
+    ("hot"), keys that move every radix digit ("wide"), an empty window."""
+    w, r, v = {"random": (5_000, 300, 2_000), "ragged": (2_049 * 3 + 5, 2_051, 700),
+               "repeated": (3_000, 640, 400), "hot": (12_000, 257, 3_000),
+               "wide": (6_000, 500, 1 << 31), "empty": (0, 100, 50)}[kind]
+    if kind == "wide":  # endpoints spread over every radix digit, sources drawn from them
+        a = rng.integers(0, v - 1, w, dtype=np.int64).astype(np.int32)
+    else:
+        a = rng.integers(-1, v, w).astype(np.int32)
+    e = rng.integers(0, 1 << 20, w).astype(np.int32)
+    live = rng.random(w) >= 0.2
+    pool = a[a >= 0] if kind == "wide" and w else np.arange(v, dtype=np.int32)
+    srcs = rng.choice(pool, r).astype(np.int32)
+    srcs[::7] = -1
+    if kind == "repeated":
+        srcs[rng.random(r) < 0.6] = 11
+    if kind == "hot":
+        a[rng.choice(w, 4_096, replace=False)] = 5
+        live[a == 5] = True
+        srcs[[0, 1, r // 2, r - 1]] = 5
+    return a, e, live, srcs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ragged", "repeated", "hot", "wide", "empty"])
+def test_slab_scan_window_join_equals_plain_on_card(card, kind):
+    """K17, the window join, against `plain_slab_scan` (the reference's [R, W]
+    mask): row-major order, -1 padding, tombstones and -1 sources matching
+    nothing, under skew, with a capacity that holds the total and one that
+    cuts it; then captured at a fixed W and capacity and replayed over other
+    liveness and sources onto poisoned outputs."""
+    rng = np.random.default_rng(len(kind) * 101)
+    a, e, live, srcs = _slab_window(rng, kind)
+    g = [_t(x).to(card) for x in (a, e, live, srcs)]
+    base = 70_000
+    want_total = int(T.plain_slab_scan(*g, base, lambda t: 8)[3])
+    for cap in (max(T.bucket(want_total), 8), max(want_total // 3, 1)):
+        got = T.slab_scan(*g, base, lambda t, cap=cap: cap)
+        want = T.plain_slab_scan(*g, base, lambda t, cap=cap: cap)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    assert int(got[3]) == want_total
+    live2 = _t(rng.random(a.shape[0]) >= 0.5).to(card)
+    srcs2 = g[3].roll(3)
+    static_live, static_srcs = g[2].clone(), g[3].clone()
+    cap = max(T.bucket(want_total), 8)
+    run = lambda: T.slab_scan(g[0], g[1], static_live, static_srcs, base, lambda t: cap)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for lv, s in ((live2, srcs2), (g[2], g[3])):
+        static_live.copy_(lv)
+        static_srcs.copy_(s)
+        for o in outs:
+            o.fill_(-7)
+        graph.replay()
+        for x, y in zip(outs, T.plain_slab_scan(g[0], g[1], lv, s, base, lambda t: cap)):
+            assert torch.equal(x, y)
+    torch.cuda.synchronize()
+
+
+def _rowshard_case(rng, S: int, R: int, avg: float):
+    """A row-sharded out-CSR of S shards of R rows (rebased indptr, -1
+    padded dst with dead tails past indptr[R]), targets in [-1, S R + 3]
+    (-1 edges dead, the few past S R - 1 clipped)."""
+    ind, dst = [], []
+    for _ in range(S):
+        deg = rng.poisson(avg, R)
+        ip = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+        d = rng.integers(-1, S * R + 4, int(ip[-1])).astype(np.int32)
+        ind.append(ip)
+        dst.append(d)
+    emax = max(max(d.shape[0] for d in dst) + 5, 1)
+    dst_sh = np.full((S, emax), -1, np.int32)
+    for s, d in enumerate(dst):
+        dst_sh[s, : d.shape[0]] = d
+        dst_sh[s, d.shape[0] :] = rng.integers(0, S * R, emax - d.shape[0])  # dead: past indptr[R]
+    return np.stack(ind), dst_sh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 4, 33])
+@pytest.mark.parametrize("R", [1, 15, 17, 129, 512, 1_040])
+def test_rowshard_hop_equals_plain_on_card(card, R, Q):
+    """K24, the coalesced push, against `plain_rowshard_hop` (the reference's
+    searchsorted walk): rows that are and are not multiples of the 16-byte
+    loads, a run crossing a shard's end, Q over a 32-query word, -1 and
+    past-indptr[R] edges, clipped targets; sparse, empty and dense
+    frontiers, into a fresh and a reused output."""
+    rng = np.random.default_rng(R * 7 + Q)
+    S = 3
+    ind, dst = (_t(x).to(card) for x in _rowshard_case(rng, S, R, 3.0))
+    sparse = rng.random((S, Q, R)) < 0.05
+    sparse[1, Q - 1, R - 1] = True
+    for fr in (sparse, np.zeros((S, Q, R), bool), np.ones((S, Q, R), bool)):
+        f = _t(fr).to(card)
+        want = T.plain_rowshard_hop(ind, dst, f, S)
+        assert torch.equal(T.rowshard_hop(ind, dst, f, S), want)
+        out = torch.ones((S, Q, R), dtype=torch.bool, device=card)
+        assert torch.equal(T.rowshard_hop(ind, dst, f, S, out=out), want)
+        for s in range(S):  # one rank's shard of a process group
+            one = T.rowshard_hop(ind[s : s + 1], dst[s : s + 1], f[s : s + 1], S)
+            assert torch.equal(one, T.plain_rowshard_hop(ind[s : s + 1], dst[s : s + 1], f[s : s + 1], S))
+    torch.cuda.synchronize()

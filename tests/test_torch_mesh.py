@@ -378,6 +378,26 @@ def test_bfs_edge_roots_equal_host_and_reference(ref_mesh, bfs_graph, kind):
     assert got.any() == (kind != "empty")
 
 
+@pytest.mark.parametrize("S", [3, 7])
+def test_bfs_ragged_shards_equal_host_and_reference(ref_mesh, bfs_graph, S):
+    """Shards whose row count is a multiple neither of the card's 16-byte
+    frontier loads nor of its 512-row runs (R = 100 and 43 here), and 33
+    queries (one past a 32-query word), against the host BFS and the
+    reference."""
+    jsnap, csr = bfs_graph
+    V = jsnap.num_vertices
+    scsr = ShardedCSR.from_snapshot(jsnap, make_mesh(S, device="cpu"), "HasFriend")
+    assert scsr.rows_per_shard % 16 != 0
+    rng = np.random.default_rng(S)
+    roots = np.zeros((33, V), bool)
+    roots[np.arange(33), rng.integers(0, V, 33)] = True
+    roots[32, scsr.rows_per_shard - 1] = roots[32, V - 1] = True  # a shard's last row, the last vertex
+    got = bfs_reachability(scsr, roots, 3)
+    assert (got == host_bfs(csr.indptr_out, csr.dst, roots, 3)).all()
+    ref = JSH.bfs_reachability(JSH.ShardedCSR.from_snapshot(jsnap, _jmesh(S), "HasFriend"), roots, 3)
+    assert (got == ref).all()
+
+
 # -- (e) refusals --------------------------------------------------------------
 
 

@@ -45,10 +45,16 @@ QUERIES = [
 ]
 
 
-def _spawn_ranks(tmp_path, job, world: int = 2):
+def _spawn_ranks(tmp_path, monkeypatch, job, world: int = 2):
     job_file = tmp_path / "job.pkl"
     with open(job_file, "wb") as f:
         pickle.dump(job, f)
+    # A rank's ops are small and its collectives wait on the other rank:
+    # with an intra-op pool as wide as the host, the ranks' threads contend
+    # with each other and with the other test workers, and a loaded host
+    # slowed the pair several-fold. One thread a rank (read by each spawned
+    # rank's torch at import).
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     ctx = mp.get_context("spawn")
     procs = [
         ctx.Process(
@@ -87,7 +93,7 @@ def test_run_rank_without_a_card_says_how_to_run_on_the_cpu(tmp_path, monkeypatc
         run_rank(0, 1, str(tmp_path / "rendezvous"), str(tmp_path / "job.pkl"), str(tmp_path))
 
 
-def test_two_gloo_ranks_equal_local_shards(tmp_path):
+def test_two_gloo_ranks_equal_local_shards(tmp_path, monkeypatch):
     jdb = generate_demodb(n_profiles=200, avg_friends=4, seed=9)
     jsnap = attach_fresh_snapshot(jdb)
     schema, arrays = _carry_arrays(jdb, jsnap)
@@ -96,7 +102,7 @@ def test_two_gloo_ranks_equal_local_shards(tmp_path):
     roots[0, 0] = roots[1, V - 1] = roots[2, 5] = roots[2, V // 2] = True
     job = {"schema": schema, "arrays": arrays, "queries": QUERIES, "calls": 3,
            "bfs": ("HasFriend", roots, 4, 2)}
-    ranks = _spawn_ranks(tmp_path, job)
+    ranks = _spawn_ranks(tmp_path, monkeypatch, job)
 
     db, snap = snapshot_from_arrays(schema, arrays, device="cpu")
     db.attach_snapshot(snap, mesh=make_mesh(2, device="cpu"))
