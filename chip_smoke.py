@@ -186,7 +186,12 @@ from the root of a checkout. Phases, each of which raises on failure:
    cells' shapes and timed beside its bound (K10's eid form, the push over
    the row-sharded CSR, at MV1's level-1 frontiers out and in, with and
    without an edge mask and a gate, and on an empty frontier, also against
-   the slot walk over the edge-list slices it replaced); then MQ2n: MQ2 and MBFS over
+   the slot walk over the edge-list slices it replaced; K23, the segmented
+   sum over the same CSR, at MQ2's pass against its plain CSR walk and the
+   slices' walk: out and in, with and without an edge mask, ``w`` None and
+   given, int32 and float32 (its sum repeated bit for bit), and a one-hub
+   skew case; timed with the vertex mask folded into the weights first, as
+   the engine runs it); then MQ2n: MQ2 and MBFS over
    a one-rank NCCL process group (`ProcessShards`, replays uncaptured).
    After phase 6's E cells, ME1: E1 at d = 12,000 and 15,000 on B's twin
    split four ways, equal to numpy and the single-device port;
@@ -210,7 +215,9 @@ from the root of a checkout. Phases, each of which raises on failure:
    patches' device ms, and each cell's first and second call; launch
    counts zeroed before W1 and read after W4 (K16–K18, K10, K14, K15
    must launch). K16 is held against its plain version on W1's segments,
-   K18 at D1's probe, K17 at Q3 k = 200's second hop after W4, each
+   K18 at D1's probe, K17 at Q3 k = 200's second hop after W4, K10's
+   edge-list form at its real shape (an out hop over the slab's whole
+   window of 1,048,576 slots after W3, ORed into the CSR hop), each
    timed eager and in a captured graph. TR1 runs before the writes, after
    W1 (the cleared cache records it anew) and after W2 (its stale data
    version sends the cached plan to a re-record), each equal to numpy over
@@ -229,24 +236,28 @@ from the root of a checkout. Phases, each of which raises on failure:
    whose root's block is outside its footprint (the cold-miss flag, then
    clean once resident, then a re-record through the front door); T2
    (rows through the ``in`` partition, k = 100); T3 (``while:($depth <
-   2)`` from 16 roots, twice). K19–K21 must have launched. Then holds
+   2)`` from 16 roots, twice; the second pass's replay median and
+   launches per replay printed). K19 and K21 must have launched, and K20
+   must not: a replay's K19 sets the cold-miss byte itself. Then holds
    K19–K21 exactly against their plain versions at T's pool shapes (K19,
    the push over the resident indptr and the page indirection, also
-   against the slot walk over the pool it replaced),
+   against the slot walk over the pool it replaced; K20 alone and folded
+   into K19's push, also at ``alive`` 0),
    every page evicted, an empty pool, C = 8 and in a captured graph, and
-   times them; then T4c (TR1's shape from 50 roots in a cold block: its
+   times them (K19 also with the flag); then T4c (TR1's shape from 50 roots in a cold block: its
    recording faults blocks in, its prefetch reloads them after an eviction
    pass, a replay without the roots' block flags and re-records); then
    T_GROW (a 2-hop COUNT from ``uid < 2000``) grows the pool, and T1
    re-records and re-captures under the new generation; then T4 (TR1 on
-   T: K19 and K20 inside a captured TRAVERSE replay).
+   T: K19 inside a captured TRAVERSE replay, which launches no K20).
    Every result equals numpy over the host CSR. Prints ``stats()`` and the
    bytes loaded after each pass.
 
 The line before the last is one JSON object with every kernel's numbers
 (``launches`` from phase 5, from phase 6's replay path for
 `rows_with_matches`, from phase 7 for `group_page`, from phase 8 for
-K16–K18 and K10's edge-list form, from phase 9 for K19–K21 and from phase 7m's cells for the mesh
+K16–K18 and K10's edge-list form, from phase 9 for K19–K21 (K20 0: off the
+path, held and timed) and from phase 7m's cells for the mesh
 kernels, each but the mesh's plus phase 5c's replay path;
 K3, K12 and K15 timed in their TRAVERSE forms: the offset form on TR4's
 largest level, the gated step at [1, 2^23], M1's node mask with its ID
@@ -338,11 +349,12 @@ TIER_ONLY = ("paged_hop_csr", "paged_hop_miss", "paged_expand")
 #: the kernels only a meshed snapshot launches (phase 7m)
 MESH_ONLY = ("degree_counts_range", "shard_gather", "bitmap_hop_shard", "shard_weight_pass", "rowshard_hop")
 #: the kernels no cell launches: the bool take_pad's only callers were the
-#: weight pass's gathers, which the fused weight_gather now makes, and
+#: weight pass's gathers, which the fused weight_gather now makes,
 #: degree_counts' the expansion's sizing, which the degree scan
-#: (degree_scan_i32) now computes in one launch (both still held against
-#: their plain versions and timed)
-OFF_PATH = ("take_pad_b8", "degree_counts")
+#: (degree_scan_i32) now computes in one launch, and paged_hop_miss's a
+#: tiered replay's hops, whose cold-miss flag K19's push now sets in its own
+#: launch (each still held against its plain version and timed)
+OFF_PATH = ("take_pad_b8", "degree_counts", "paged_hop_miss")
 #: the kernels of the Person–knows phases 4–5 (the OPTIONAL arm's left-join
 #: count runs on the SNB-shape phase)
 PK_KERNELS = [
@@ -3923,7 +3935,63 @@ def check_delta_kernels(np, torch, K, ks, dg, snap):
         f"{ks.rows['slab_probe']['ms']:.4f} ms ({p_ms:.4f} in a graph), bound {ks.rows['slab_probe']['bound_ms']:.4f} "
         f"({filled} filled bucket entries probed)"
     )
+    check_slab_hop(torch, K, ks, dg, dec, sl)
     K.LAUNCHES.update(counted)
+
+
+def check_slab_hop(torch, K, ks, dg, dec, sl, c: int = 8) -> None:
+    """K10's edge-list form at the shape the engine runs it on this
+    snapshot (`build_bitmap_hops` on dirty topology): an out hop over the
+    slab's whole window of slots [base, cap), ``live`` as the mask, ORed
+    into the CSR form's bitmap; C = 8 rows of 10 random vertices and the
+    sources of 64 random live slab edges each. Held against its plain
+    version and timed (eager and in a graph) beside its bound at this
+    shape: a mask byte a window slot; at a live slot its endpoints and the
+    C frontier bytes at its active endpoint; a byte a row it sets."""
+    dev = dg.device
+    win = slice(sl.base, sl.cap)
+    a, e, m = dec.edge_src[win], dec.dst[win], dec.live[win]
+    W = a.shape[0]
+    vb = K.bucket(dg.num_vertices)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    live = torch.nonzero(m).view(-1)
+    fr = torch.zeros((c, vb), dtype=torch.bool, device=dev)
+    for r in range(c):
+        fr[r, torch.randint(0, dg.num_vertices, (10,), generator=gen, device=dev)] = True
+        if live.numel():
+            fr[r, a[live[torch.randint(0, live.numel(), (64,), generator=gen, device=dev)]].long()] = True
+    alive = K.mask_count(fr.view(-1))
+    base = K.bitmap_hop_csr(dec.indptr_out, dec.dst, None, None, fr)
+    acc = base.clone()
+    K.bitmap_hop(a, e, m, fr, None, alive, acc)
+    want = K.plain_bitmap_hop(a, e, m, fr, None, alive)
+    ks.same("bitmap_hop", acc, base | want)
+    ks.same("bitmap_hop", K.bitmap_hop(a, e, m, fr, None, alive), want)
+    L = int(live.numel())
+    act = int(fr.any(0)[a[live].long().clamp(0, vb - 1)].sum())
+    n_set = int(want.sum())
+    sp = None
+    try:
+        idx = torch.stack([e[live].long(), a[live].long()])
+        sp = torch.sparse_coo_tensor(idx, torch.ones(L, device=dev), (vb, vb)).coalesce().to_sparse_csr()
+        fr_t = fr.t().float().contiguous()
+    except (RuntimeError, TypeError) as err:
+        print(f"library call for bitmap_hop refused: {err}")
+    hop = lambda: K.bitmap_hop(a, e, m, fr, None, alive, acc)  # noqa: E731
+    ks.timed(
+        "bitmap_hop",
+        hop,
+        lambda: K.plain_bitmap_hop(a, e, m, fr, None, alive),
+        None if sp is None else (lambda: torch.sparse.mm(sp, fr_t)),
+        1.0 * W + L * (8.0 + c) + n_set + 4.0,
+    )
+    r = ks.rows["bitmap_hop"]
+    print(
+        f"kernel bitmap_hop at the slab window (out hop, {W} slots [{sl.base}, {sl.cap}), {L} live, {act} with "
+        f"an active endpoint, C={c}, ORed into the CSR hop): equals its plain version; {r['ms']:.4f} ms eager, "
+        f"{_graph_ms(torch, hop):.4f} in a graph, bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+        f"library {r['library_ms']}"
+    )
 
 
 def _in_adjacency(np, torch, csr, n: int, dev, name: str):
@@ -4210,19 +4278,35 @@ def run_tiered(np, torch, K, TE, ks, db, snap, card, a_qps: float, a_bytes: int)
             _require(np.array_equal(_sorted_rows(np, rows, ("pu", "fu")), tref.t2(k)), f"T2 k={k}")
         _require(_only_plan(TE, snap, T2).plans[0].replays == 2, "T2 did not replay")
         loaded("T2", time.perf_counter() - t)
-        # T3: K19 hops with K20 flags, 16 roots recorded, then replayed
+        # T3: K19 hops (each setting the replay's cold-miss byte), 16 roots
+        # recorded, then replayed, the second pass timed
         t = time.perf_counter()
+        times = []
         for rep in range(2):
             for u in T3_ROOTS:
+                t0 = time.perf_counter()
                 rows = db.query(T3, {"u": u}).to_dicts()
+                sync()
+                if rep:
+                    times.append((time.perf_counter() - t0) * 1e3)
                 _require(rows == [{"n": tref.t3(u)}], f"T3 u={u}: {rows}")
         t3 = _only_plan(TE, snap, T3)
-        print(f"tier T3: {len(t3.plans)} variants kept, replays {[p.replays for p in t3.plans]}")
+        t3p = max(t3.plans, key=lambda p: p.replays)
+        per = t3p.launches
+        _require(t3p.replays >= 1 and per.get("paged_hop_csr", 0) > 0, "T3 did not replay its K19 hops")
+        _require(per.get("paged_hop_miss", 0) == 0, f"T3's replay launches K20: {per}")
+        print(
+            f"tier T3: {len(t3.plans)} variants kept, replays {[p.replays for p in t3.plans]}; replay median "
+            f"{statistics.median(times):.3f} ms (second pass over {len(T3_ROOTS)} roots, "
+            f"{[round(x, 3) for x in times]}); launches per replay {sum(per.values())} {per} [{card}]"
+        )
         loaded("T3", time.perf_counter() - t)
         sync()
         path = dict(K.LAUNCHES)
         for name in TIER_ONLY:
-            _require(path[name] > 0, f"{name} never launched in the tiered phase")
+            if name not in OFF_PATH:
+                _require(path[name] > 0, f"{name} never launched in the tiered phase")
+        _require(path["paged_hop_miss"] == 0, "K20 launched in the tiered phase: K19 sets its flag")
         check_tier_kernels(np, torch, K, ks, dg, tier)
         t = time.perf_counter()
         cold_traverse(np, TE, db, snap, tier, tref, card)
@@ -4271,8 +4355,8 @@ def run_tiered(np, torch, K, TE, ks, db, snap, card, a_qps: float, a_bytes: int)
         t4 = _only_plan(TE, snap, TR1)
         plan = t4.plans[0]
         _require(plan.replays >= 1 and plan.graph is not None, "T4 did not replay a captured plan")
-        for name in ("paged_hop_csr", "paged_hop_miss"):
-            _require(plan.launches.get(name, 0) > 0, f"{name} not in T4's TRAVERSE replay")
+        _require(plan.launches.get("paged_hop_csr", 0) > 0, "paged_hop_csr not in T4's TRAVERSE replay")
+        _require(plan.launches.get("paged_hop_miss", 0) == 0, f"T4's replay launches K20: {plan.launches}")
         print(
             f"tier T4: {len(rows)} records, levels {levels}; calls {[round(x, 3) for x in times]} ms "
             f"(the first records); {len(t4.plans)} variant(s), replays {[p.replays for p in t4.plans]}; "
@@ -4427,10 +4511,12 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
     pools of P pages of Wp slots), exactly: K19's push on T3's 8-row
     frontiers with a WHILE gate and on the in pool with an edge mask (also
     against the slot walk over the pool it replaces), K20 on the same
-    frontiers, K21 at T1c's roots (out) and T2's (in); each again with
-    every page evicted, with an empty pool, and in a captured graph. Then
-    times each beside its bound (bytes at 3.35 TB/s); their launches are
-    not counted."""
+    frontiers, alone and folded into K19's push (the flag a replay's hops
+    set, also at ``alive`` 0), K21 at T1c's roots (out) and T2's (in); each
+    again with every page evicted, with an empty pool, and in a captured
+    graph. Then times each beside its bound (bytes at 3.35 TB/s), and K19
+    with and without the flag in a graph; their launches are not
+    counted."""
     from orientdb_tpu_torch.storage import tiering
 
     counted = dict(K.LAUNCHES)
@@ -4469,9 +4555,16 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
         ks.same("paged_hop_csr", got, K.plain_paged_hop_csr(*push(p), m, fr, g, alive))
         ks.same("paged_hop_csr", got, K.plain_paged_hop(p["own"], p["nbr"], p["eid"], m, fr, g, alive))
 
-    def miss(p, fr, g=None, alive=None):
+    def miss(p, m, fr, g=None, alive=None):
+        """K20 alone, and K19 with K20 folded in (the flag the replay's
+        hops set, and its hop), against the plain hop and flag."""
+        want = K.plain_paged_hop_miss(fr, p["blockv"], p["pageof"], p["indptr"], g, alive)
         got = K.paged_hop_miss(fr, p["blockv"], p["pageof"], p["indptr"], g, alive)
-        ks.same("paged_hop_miss", got, K.plain_paged_hop_miss(fr, p["blockv"], p["pageof"], p["indptr"], g, alive))
+        ks.same("paged_hop_miss", got, want)
+        flag = torch.zeros((), dtype=torch.bool, device=dev)
+        hop_f = K.paged_hop_csr(*push(p), m, fr, g, alive, miss=flag)
+        ks.same("paged_hop_csr", flag, want)
+        ks.same("paged_hop_csr", hop_f, K.plain_paged_hop_csr(*push(p), m, fr, g, alive))
         return bool(got)
 
     for case in (pools, evicted, empty):
@@ -4480,11 +4573,13 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
             for fr in (fr0, fr1):
                 hop(p, m, fr)
                 hop(p, m, fr, gate, alive1)
-                miss(p, fr)
-                miss(p, fr, gate)
+                miss(p, m, fr)
+                miss(p, m, fr, gate)
             hop(p, m, torch.zeros_like(fr1), alive=zero)
-            _require(not miss(p, torch.zeros_like(fr1)), "K20 flagged an empty frontier")
-            _require(miss(evicted[d], fr1), "K20 missed an all-evicted pool")
+            _require(not miss(p, m, torch.zeros_like(fr1)), "K20 flagged an empty frontier")
+            _require(not miss(p, m, fr1, gate, zero), "K20 flagged at alive 0")
+            _require(miss(evicted[d], m, fr1), "K20 missed an all-evicted pool")
+            _require(miss(empty[d], m, fr1), "K20 missed an empty pool")
 
     def expand_args(p, srcs):
         counts = K.degree_counts(p["indptr"], srcs)
@@ -4511,8 +4606,15 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
     outs = {}
     k19 = lambda: K.paged_hop_csr(*push(po), None, fr1, gate, alive1)  # noqa: E731
 
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def k19_flag():
+        flag.zero_()
+        return K.paged_hop_csr(*push(po), None, fr1, gate, alive1, miss=flag)
+
     def captured():
         outs["hop"] = k19()
+        outs["hop_f"] = k19_flag()
         outs["miss"] = K.paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1)
         outs["expand"] = K.paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True)
 
@@ -4524,7 +4626,9 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
     graph.replay()
     torch.cuda.synchronize()
     ks.same("paged_hop_csr", outs["hop"], K.plain_paged_hop_csr(*push(po), None, fr1, gate, alive1))
+    ks.same("paged_hop_csr", outs["hop_f"], outs["hop"])
     ks.same("paged_hop_miss", outs["miss"], K.plain_paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1))
+    ks.same("paged_hop_csr", flag, outs["miss"])
     ks.same(
         "paged_expand", outs["expand"],
         K.plain_paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True),
@@ -4586,6 +4690,7 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
     )
     g_ms = {
         "paged_hop_csr": _graph_ms(torch, k19),
+        "paged_hop_csr with the flag": _graph_ms(torch, k19_flag),
         "paged_hop_miss": _graph_ms(torch, lambda: K.paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1)),
         "paged_expand": _graph_ms(torch, lambda: K.paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True)),
     }
@@ -4596,6 +4701,12 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
             f"captured); {r['ms']:.4f} ms ({g_ms[name]:.4f} in a graph), bound {r['bound_ms']:.4f}, "
             f"plain {r['plain_ms']:.4f}, library {r['library_ms']}"
         )
+    print(
+        f"kernel paged_hop_csr with K20 folded in: its flag equals plain_paged_hop_miss (T's pools, every page "
+        f"evicted, an empty pool, alive 0, captured); in a graph {g_ms['paged_hop_csr with the flag']:.4f} ms "
+        f"with the flag (its zeroing included) against {g_ms['paged_hop_csr']:.4f} without and "
+        f"{g_ms['paged_hop_miss']:.4f} for K20 alone"
+    )
     print(
         f"tier kernels: pool S={S} slots ({live} live), V={V}; K19's frontier: {int(av.shape[0])} active "
         f"vertices, {res_v} in resident blocks, {act_slots} slots; vb={vb}, K21 R={R} total {int(tot)}"
@@ -5087,26 +5198,17 @@ def check_mesh_kernels(np, torch, K, ks, mdg, msnap, roots) -> None:
     ok = torch.zeros(vb, dtype=torch.bool, device=dev)
     ok[:V] = age < 30
     w_i = torch.randint(0, 40, (vb,), generator=gen, device=dev, dtype=torch.int32)
-    for m in (None, emask):
-        for w in (None, w_i):
-            got = K.shard_weight_pass(el[0], el[1], el[2], m, ok, w, torch.zeros(vb, dtype=torch.int32, device=dev))
-            want = K.plain_shard_weight_pass(el[0], el[1], el[2], m, ok, w, torch.zeros(vb, dtype=torch.int32, device=dev))
-            ks.same("shard_weight_pass", got, want)
-    w_f = w_i.float()
-    ks.same(
-        "shard_weight_pass",
-        K.shard_weight_pass(el[0], el[1], el[2], None, ok, w_f, torch.zeros(vb, device=dev)),
-        K.plain_shard_weight_pass(el[0], el[1], el[2], None, ok, w_f, torch.zeros(vb, device=dev)),
-        exact=False,
-    )
-    live = csr.num_edges
-    ks.timed(
-        "shard_weight_pass",
-        lambda: K.shard_weight_pass(el[0], el[1], el[2], None, ok, w_i, torch.zeros(vb, dtype=torch.int32, device=dev)),
-        lambda: K.plain_shard_weight_pass(el[0], el[1], el[2], None, ok, w_i, torch.zeros(vb, dtype=torch.int32, device=dev)),
-        None,
-        4 * el[0].numel() + live * (4 + 1) + int(ok[el[1].view(-1).clamp(min=0).long()].sum()) * 4 + 8 * vb,
-    )
+    check_weight_pass(torch, K, ks, sh, el, ok, w_i, emask)
+    skew, skew_el, hub_v, hub_deg = sharded_graph(torch, gen, 2_000_000, S, 10.0, hub=(499_999, 1_000_000))
+    vb_s = K.bucket(2_000_000)
+    ok_s = torch.rand(vb_s, generator=gen, device=dev) < 0.7
+    w_s = torch.randint(-5, 40, (vb_s,), generator=gen, device=dev, dtype=torch.int32)
+    m_s = torch.rand(int((skew_el[0] >= 0).sum()), generator=gen, device=dev) < 0.7
+    check_weight_pass(torch, K, ks, skew, skew_el, ok_s, w_s, m_s)
+    print(f"kernel shard_weight_pass: the one-hub case (V 2,000,000 over {S} shards, vertex {hub_v} holding "
+          f"{hub_deg} edges at its shard's end) equals both plain walks")
+    del skew, skew_el
+    time_weight_pass(torch, K, ks, sh, el, ok, w_i, emask, V)
     # MBFS's first hop: the roots of one replica block, [S, Q, R]; its second
     # hop (after one level step), every query lit on one row, 33 queries
     ind, dst = A["sh:knows:out:indptr"], A["sh:knows:out:nbr"]
@@ -5154,6 +5256,154 @@ def check_mesh_kernels(np, torch, K, ks, mdg, msnap, roots) -> None:
     del sp
     K.LAUNCHES.update(counted)
     print("mesh kernels: K2's range form, K22, K10's eid form (the push), K23 and K24 equal their plain versions")
+
+
+def sharded_graph(torch, gen, v: int, s: int, avg: float, hub=None):
+    """A random graph's mesh arrays on ``gen``'s device, laid out as
+    `MeshGraph.build` lays them out: Poisson(avg) out-degrees (vertex
+    ``hub[0]`` holding ``hub[1]`` edges), random targets; per direction the
+    row-sharded CSR ``(indptr [S, R+1], nbr [S, emax], extra, is_out)``
+    (``extra`` the shards' first edge ids out, the in CSR's out-order ids
+    in) and the edge-list slices ``(src, dst, eid)`` [S, W]. Returns (csr
+    by direction, slices, hub vertex, hub degree)."""
+    dev, i32 = gen.device, torch.int32
+    deg = torch.poisson(torch.full((v,), float(avg), device=dev), generator=gen).long()
+    if hub is not None:
+        deg[hub[0]] = hub[1]
+    indptr = torch.cat([torch.zeros(1, dtype=torch.long, device=dev), torch.cumsum(deg, 0)])
+    ne = int(indptr[-1])
+    dst = torch.randint(0, v, (ne,), generator=gen, device=dev, dtype=i32)
+    src = torch.repeat_interleave(torch.arange(v, dtype=i32, device=dev), deg)
+    order = torch.sort(dst, stable=True).indices
+    indptr_in = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                           torch.cumsum(torch.bincount(dst.long(), minlength=v), 0)])
+    r = -(-v // s)
+    csr = {}
+    for d, ip, nb, ex in (("out", indptr, dst, None), ("in", indptr_in, src[order], order.to(i32))):
+        cuts = [(min(h * r, v), min(h * r + r, v)) for h in range(s)]
+        emax = max(1, max(int(ip[r1] - ip[r0]) for r0, r1 in cuts))
+        ind = torch.zeros((s, r + 1), dtype=i32, device=dev)
+        nbr = torch.full((s, emax), -1, dtype=i32, device=dev)
+        eid = torch.full((s, emax), -1, dtype=i32, device=dev)
+        for h, (r0, r1) in enumerate(cuts):
+            seg = ip[r0 : r1 + 1] - ip[r0]
+            ind[h, : seg.numel()] = seg.to(i32)
+            ind[h, seg.numel():] = int(seg[-1])
+            a, b = int(ip[r0]), int(ip[r1])
+            nbr[h, : b - a] = nb[a:b]
+            if ex is not None:
+                eid[h, : b - a] = ex[a:b]
+        extra = torch.tensor([[int(ip[r0])] for r0, _ in cuts], dtype=i32, device=dev) if ex is None else eid
+        csr[d] = (ind, nbr, extra, d == "out")
+    w = -(-ne // s)
+    pad = s * w - ne
+
+    def sliced(t):
+        return torch.cat([t, torch.full((pad,), -1, dtype=i32, device=dev)]).view(s, w)
+
+    el = (sliced(src), sliced(dst), sliced(torch.arange(ne, dtype=i32, device=dev)))
+    return csr, el, (hub[0] if hub else None), (hub[1] if hub else None)
+
+
+def check_weight_pass(torch, K, ks, sh, el, ok, w_i, emask) -> None:
+    """K23 over the row-sharded CSR ``sh`` (by direction) against its plain
+    CSR walk and the slices' walk ``el``, exactly in int32 (out and in,
+    with and without an edge mask, ``w`` None and given, the vertex mask
+    folded in), float32 to rtol 1e-6 and bit for bit between two calls."""
+    dev, vb = ok.device, ok.shape[0]
+    zeros = lambda dt=torch.int32: torch.zeros(vb, dtype=dt, device=dev)  # noqa: E731
+    every = torch.ones_like(ok)
+    w_f = w_i.float() * 0.37
+    for d, (a, e) in (("out", (el[0], el[1])), ("in", (el[1], el[0]))):
+        for m in (None, emask):
+            for w in (None, w_i):
+                got = K.shard_weight_pass(*sh[d], 0, m, ok, w, zeros())
+                ks.same("shard_weight_pass", got, K.plain_shard_weight_pass_csr(*sh[d], 0, m, ok, w, zeros()))
+                ks.same("shard_weight_pass", got, K.plain_shard_weight_pass(a, e, el[2], m, ok, w, zeros()))
+            # every vertex kept: the kernel folds the mask into the weights
+            ks.same("shard_weight_pass", K.shard_weight_pass(*sh[d], 0, m, every, w_i, zeros()),
+                    K.plain_shard_weight_pass(a, e, el[2], m, every, w_i, zeros()))
+        got = K.shard_weight_pass(*sh[d], 0, None, ok, w_f, zeros(torch.float32))
+        ks.same("shard_weight_pass", got, K.plain_shard_weight_pass_csr(*sh[d], 0, None, ok, w_f, zeros(torch.float32)), exact=False)
+        ks.same("shard_weight_pass", got, K.plain_shard_weight_pass(a, e, el[2], None, ok, w_f, zeros(torch.float32)), exact=False)
+        again = K.shard_weight_pass(*sh[d], 0, None, ok, w_f, zeros(torch.float32))
+        _require(torch.equal(got.view(torch.int32), again.view(torch.int32)), "K23's float32 sums differ between calls")
+
+
+def weight_pass_bytes(sh, vb: int, fold: bool) -> float:
+    """K23's bytes at one pass over ``sh`` (a direction's CSR): the indptr
+    rows, 4 bytes of nbr an edge, the gathered table once (4 bytes a
+    vertex), the output read and written at each held row below vb; with
+    the fold, its [vb] pass (the mask and the weights read, the folded
+    weights written)."""
+    ind, nbr = sh[0], sh[1]
+    edges = int(ind[:, -1].long().sum())
+    rows = min(ind.shape[0] * (ind.shape[1] - 1), vb)
+    return 4.0 * ind.numel() + 4.0 * edges + 4.0 * vb + 8.0 * rows + (9.0 * vb if fold else 0.0)
+
+
+def time_weight_pass(torch, K, ks, sh, el, ok, w_i, emask, v: int) -> None:
+    """K23 at MQ2's pass (out, ok = age < 30, int32 weights), beside its
+    byte bound and the random 32-byte sectors its gathers move. Also in a
+    graph: MQ2's second pass (every vertex kept: the kernel sequence folds
+    the mask into the weights), MQ1's form (``w`` None: the mask alone),
+    and in passes without and with an edge mask read through
+    ``:in:eid``."""
+    dev, vb = ok.device, ok.shape[0]
+    out = torch.zeros(vb, dtype=torch.int32, device=dev)
+
+    def mq2(o=ok):
+        out.zero_()
+        return K.shard_weight_pass(*sh["out"], 0, None, o, w_i, out)
+
+    ks.timed(
+        "shard_weight_pass",
+        mq2,
+        lambda: K.plain_shard_weight_pass_csr(*sh["out"], 0, None, ok, w_i, torch.zeros(vb, dtype=torch.int32, device=dev)),
+        None,
+        weight_pass_bytes(sh["out"], vb, False),
+    )
+    every = torch.ones_like(ok)
+    forms = {
+        "MQ2's pass": mq2,
+        "MQ2's second pass (every vertex kept: folded)": lambda: mq2(every),
+        "MQ1's form (w None)": lambda: K.shard_weight_pass(*sh["out"], 0, None, ok, None, out),
+        "in": lambda: K.shard_weight_pass(*sh["in"], 0, None, ok, w_i, out),
+        "in, the edge mask through :in:eid": lambda: K.shard_weight_pass(*sh["in"], 0, emask, ok, w_i, out),
+    }
+    g = {name: _graph_ms(torch, fn) for name, fn in forms.items()}
+    edges = int(sh["out"][0][:, -1].long().sum())
+    kept = int(ok[el[1].view(-1)[el[1].view(-1) >= 0].long()].sum())
+    r = ks.rows["shard_weight_pass"]
+    print(
+        f"kernel shard_weight_pass (the segmented sum over the row-sharded CSR): equals both plain walks (out and "
+        f"in, an edge mask, w None and given, the fold, int32; float32 to rtol {F32_RTOL}, repeated bit for bit); "
+        f"MQ2's pass ({edges} edges, V {v}): {r['ms']:.4f} ms eager; in a graph "
+        + "; ".join(f"{k} {x:.4f}" for k, x in g.items())
+        + f"; byte bound {r['bound_ms']:.4f} (with the fold, every vertex kept, {weight_pass_bytes(sh['out'], vb, True) / HBM_BYTES_PER_S * 1e3:.4f}); "
+        f"{gather_floor(edges, kept)}; plain {r['plain_ms']:.4f}, library {r['library_ms']}"
+    )
+
+
+#: L2's random 32-byte sector rates on the card (80M random gathers through
+#: take_pad, NVIDIA H100 80GB HBM3 at 700 W; `PERF.md` §6, K23): tables
+#: of 1-16 MiB, and a 32 MiB one
+SECTORS_PER_S_SMALL = 125e9
+SECTORS_PER_S_32MIB = 85e9
+
+
+def gather_floor(edges: int, kept: int) -> str:
+    """K23's random sectors at MQ2's pass beside their time at L2's
+    measured rates: with a sparse mask the kernel gathers the 8 MiB mask at
+    every edge and the 32 MiB weights at the kept ones; with a dense one
+    the weights alone at every edge."""
+    sparse = edges / SECTORS_PER_S_SMALL + kept / SECTORS_PER_S_32MIB
+    return (
+        f"random 32-byte sectors: {edges} mask gathers + {kept} weight gathers take {sparse * 1e3:.4f} ms at "
+        f"L2's measured rates ({SECTORS_PER_S_SMALL / 1e9:.0f}·10^9 a second from an 8 MiB table, "
+        f"{SECTORS_PER_S_32MIB / 1e9:.0f}·10^9 from a 32 MiB one); every vertex kept, {edges} weight gathers "
+        f"{edges / SECTORS_PER_S_32MIB * 1e3:.4f} ms"
+    )
 
 
 def run_mesh_snb(np, torch, K, TE, sdb, ssnap, card, eref) -> dict:

@@ -62,8 +62,27 @@ compare two trees on one card:
   queries over 330 random rows, and a dense frontier; beside its bound
   (the frontier read and the result written, 8 bytes of indptr a lit row,
   4 of dst a lit edge).
+- ``k23``: K23 ``shard_weight_pass`` at MQ2's pass on an A-shaped graph
+  split four ways (`chip_smoke.sharded_graph`: 8M Poisson(10) vertices,
+  80M random targets, R = 2,000,000; a vertex mask admitting a fifth of
+  the vertices, int32 weights), MQ2's second pass (every vertex kept),
+  MQ1's form (``w`` None) and in passes without and with an edge mask
+  read through ``:in:eid``: through the tree's ``shard_weight_pass`` (the
+  row-sharded CSR where the tree walks it, else the edge-list slices as
+  the tree's engine calls them); beside the byte bound and the random
+  sectors' time.
+- ``k20``: K19 ``paged_hop_csr`` over ``hops``' T pool at T3's frontier,
+  at T3's frontier plus one vertex in a cold block, and dense: alone, and
+  as a tiered replay hop of the tree runs it (where the tree folds the
+  cold-miss flag into K19, the push with its flag; else K20
+  ``paged_hop_miss``, its memset and the OR into the overflow flag, then
+  K19).
+- ``replays`` (not in the default set: it builds A, ~1-2 min of host
+  work): MQ1 and MQ2 on A split four ways, T3 (16 roots, the second pass
+  timed) and T4 (TR1) on A tiered at half its adjacency bytes, through
+  the tree's ``db.query``: replay medians and launches per replay.
 
-    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5,k2,hops,k17,k24]
+    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5,k2,hops,k17,k24,k23,k20,replays]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
 package to time; it is imported before anything else, and the file it was
@@ -415,16 +434,60 @@ def _shard(torch, ip, nbr, extra, s: int, r: int, emax: int):
     return row, pad(nbr), None if extra is None else pad(extra), a
 
 
+def _a_graph(np, torch, seed: int):
+    """An A-shaped CSR on the card (8M Poisson(10) vertices, 80M random
+    targets): indptr, dst, the degrees and each edge's source."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    indptr = _poisson_indptr(np, torch, rng, 0)
+    ne = int(indptr[-1])
+    dst = torch.randint(0, PERSONS, (ne,), generator=gen, device="cuda", dtype=torch.int32)
+    deg = (indptr[1:] - indptr[:-1]).long()
+    edge_src = torch.repeat_interleave(torch.arange(PERSONS, dtype=torch.int32, device="cuda"), deg)
+    return indptr, dst, deg, edge_src, gen
+
+
+def _t_pool(torch, K, gen, indptr, dst, deg, edge_src):
+    """That graph's out partition paged as configuration T pages it (blocks
+    of 65,536 edges, 213 pages resident: T3's footprint and the highest
+    degrees), with T3's frontier (8 rows of 10 vertices and vertex 0) and
+    its 0.9 WHILE gate. Returns (blockv, pageof, estart, pools, frontier,
+    gate, P, Wp, B)."""
+    i32, ne = torch.int32, int(indptr[-1])
+    Wb = max(65_536, int(deg.max()))
+    Wp = K.bucket(Wb + int(deg.max()), minimum=8)
+    q = indptr[:-1].long() // Wb
+    _uq, blockv = torch.unique_consecutive(q, return_inverse=True)
+    B = int(blockv.max()) + 1
+    first_v = torch.searchsorted(blockv, torch.arange(B, device="cuda"))
+    estart = torch.cat([indptr[first_v], indptr[-1:]]).to(i32)
+    P = min(213, B)
+    f = _bitmap(torch, gen, C, VB, 10)
+    f[:, PERSONS:] = False
+    f[:, 0] = True
+    gate = torch.rand(VB, generator=gen, device="cuda") < 0.9
+    hot = torch.unique(blockv[(f.any(0) & gate)[:PERSONS]])
+    prio = torch.zeros(B, dtype=torch.long, device="cuda").scatter_reduce(0, blockv, deg, "amax")
+    prio[hot] = 1 << 40  # T3's footprint is resident when it replays
+    resident = torch.argsort(prio, descending=True, stable=True)[:P]
+    pageof = torch.full((B,), -1, dtype=torch.long, device="cuda")
+    pageof[resident] = torch.arange(P, device="cuda")
+    pools = {n: torch.full((P * Wp,), -1, dtype=i32, device="cuda") for n in ("own", "nbr", "eid")}
+    eb = blockv[edge_src.long()]
+    pg = pageof[eb]
+    keep = pg >= 0
+    pos = (pg * Wp + torch.arange(ne, device="cuda") - estart[eb].long())[keep]
+    for n, vals in (("own", edge_src), ("nbr", dst), ("eid", torch.arange(ne, dtype=i32, device="cuda"))):
+        pools[n][pos] = vals[keep]
+    pools = {n: t.view(P, Wp) for n, t in pools.items()}
+    return blockv.to(i32), pageof.to(i32), estart, pools, f, gate, P, Wp, B
+
+
 def hops(np, torch, K, cs, times) -> None:
     """The mesh hop and the tier hop (module docstring)."""
     i32, S = torch.int32, 4
-    rng = np.random.default_rng(37)
-    gen = torch.Generator(device="cuda").manual_seed(37)
-    indptr = _poisson_indptr(np, torch, rng, 0)
+    indptr, dst, deg, edge_src, gen = _a_graph(np, torch, 37)
     ne = int(indptr[-1])
-    dst = torch.randint(0, PERSONS, (ne,), generator=gen, device="cuda", dtype=i32)
-    deg = (indptr[1:] - indptr[:-1]).long()
-    edge_src = torch.repeat_interleave(torch.arange(PERSONS, dtype=i32, device="cuda"), deg)
     order = torch.sort(dst, stable=True).indices
     indptr_in = torch.cat([torch.zeros(1, dtype=torch.long, device="cuda"),
                            torch.cumsum(torch.bincount(dst.long(), minlength=PERSONS), 0)]).to(i32)
@@ -476,34 +539,7 @@ def hops(np, torch, K, cs, times) -> None:
     if push:
         del csr
     # K19: the out partition paged as T pages it
-    Wb = max(65_536, int(deg.max()))
-    Wp = K.bucket(Wb + int(deg.max()), minimum=8)
-    q = indptr[:-1].long() // Wb
-    _uq, blockv = torch.unique_consecutive(q, return_inverse=True)
-    B = int(blockv.max()) + 1
-    first_v = torch.searchsorted(blockv, torch.arange(B, device="cuda"))
-    estart = torch.cat([indptr[first_v], indptr[-1:]]).to(i32)
-    P = min(213, B)
-    f = _bitmap(torch, gen, C, VB, 10)
-    f[:, PERSONS:] = False
-    f[:, 0] = True
-    gate = torch.rand(VB, generator=gen, device="cuda") < 0.9
-    hot = torch.unique(blockv[(f.any(0) & gate)[:PERSONS]])
-    prio = torch.zeros(B, dtype=torch.long, device="cuda").scatter_reduce(0, blockv, deg, "amax")
-    prio[hot] = 1 << 40  # T3's footprint is resident when it replays
-    resident = torch.argsort(prio, descending=True, stable=True)[:P]
-    pageof = torch.full((B,), -1, dtype=torch.long, device="cuda")
-    pageof[resident] = torch.arange(P, device="cuda")
-    pools = {n: torch.full((P * Wp,), -1, dtype=i32, device="cuda") for n in ("own", "nbr", "eid")}
-    eb = blockv[edge_src.long()]
-    pg = pageof[eb]
-    keep = pg >= 0
-    pos = (pg * Wp + torch.arange(ne, device="cuda") - estart[eb].long())[keep]
-    for n, vals in (("own", edge_src), ("nbr", dst), ("eid", torch.arange(ne, dtype=i32, device="cuda"))):
-        pools[n][pos] = vals[keep]
-    pools = {n: t.view(P, Wp) for n, t in pools.items()}
-    del eb, pg, keep, pos
-    blockv, pageof = blockv.to(i32), pageof.to(i32)
+    blockv, pageof, estart, pools, f, gate, P, Wp, B = _t_pool(torch, K, gen, indptr, dst, deg, edge_src)
     if hasattr(K, "paged_hop_csr"):
         tier_hop = lambda f, a: K.paged_hop_csr(indptr, blockv, pageof, estart, pools["nbr"], pools["eid"], None, f, gate, a)  # noqa: E731
     else:
@@ -606,10 +642,196 @@ def k24(np, torch, K, cs, times) -> None:
               f"ms eager, {times[key][1]:.4f} in a graph; bound {bound:.4f}")
 
 
+def k23(np, torch, K, cs, times) -> None:
+    """K23 at MQ2's pass (module docstring)."""
+    S = 4
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    sh, el, _h, _d = cs.sharded_graph(torch, gen, PERSONS, S, 10.0)
+    ok = torch.rand(VB, generator=gen, device="cuda") < 0.2  # MQ2's age < 30 admits ~a fifth
+    ok[PERSONS:] = False
+    w = torch.randint(0, 40, (VB,), generator=gen, device="cuda", dtype=torch.int32)
+    emask = torch.rand(int((el[0] >= 0).sum()), generator=gen, device="cuda") < 0.7
+    out = torch.zeros(VB, dtype=torch.int32, device="cuda")
+    want = K.plain_shard_weight_pass(el[0], el[1], el[2], None, ok, w, torch.zeros_like(out))
+    csr = "indptr_sh" in inspect.signature(K.shard_weight_pass).parameters
+    print(f"K23: the tree walks the row-sharded CSR: {csr}")
+    every = torch.ones_like(ok)
+    every[PERSONS:] = False
+    zero = lambda: torch.zeros_like(out)  # noqa: E731
+    checks = {
+        "MQ2's pass": want,
+        "MQ2's second pass (every vertex kept)": K.plain_shard_weight_pass(el[0], el[1], el[2], None, every, w, zero()),
+        "MQ1's form (w None)": K.plain_shard_weight_pass(el[0], el[1], el[2], None, ok, None, zero()),
+        "in": K.plain_shard_weight_pass(el[1], el[0], el[2], None, ok, w, zero()),
+        "in, the edge mask through :in:eid": K.plain_shard_weight_pass(el[1], el[0], el[2], emask, ok, w, zero()),
+    }
+    if csr:
+        def csr_pass(d, o, m=None, wt=w):
+            out.zero_()
+            return K.shard_weight_pass(*sh[d], 0, m, o, wt, out)
+
+        forms = {
+            "MQ2's pass": lambda: csr_pass("out", ok),
+            "MQ2's second pass (every vertex kept)": lambda: csr_pass("out", every),
+            "MQ1's form (w None)": lambda: csr_pass("out", ok, wt=None),
+            "in": lambda: csr_pass("in", ok),
+            "in, the edge mask through :in:eid": lambda: csr_pass("in", ok, emask),
+        }
+    else:
+        def slot_pass(d, o, m=None, wt=w):
+            out.zero_()
+            a, e = (el[0], el[1]) if d == "out" else (el[1], el[0])
+            return K.shard_weight_pass(a, e, el[2], m, o, wt, out)
+
+        forms = {
+            "MQ2's pass": lambda: slot_pass("out", ok),
+            "MQ2's second pass (every vertex kept)": lambda: slot_pass("out", every),
+            "MQ1's form (w None)": lambda: slot_pass("out", ok, wt=None),
+            "in": lambda: slot_pass("in", ok),
+            "in, the edge mask through :in:eid": lambda: slot_pass("in", ok, emask),
+        }
+    for name, fn in forms.items():
+        if name in checks:
+            out.zero_()
+            _same(torch, fn(), checks[name], f"K23 ({name})")
+    edges = int(el[0].ge(0).sum())
+    bound = cs.weight_pass_bytes(sh["out"], VB, False) / cs.HBM_BYTES_PER_S * 1e3
+    for name, fn in forms.items():
+        key = f"K23 {name}"
+        times[key] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+        print(f"{key}: {times[key][0]:.4f} ms eager, {times[key][1]:.4f} in a graph")
+    kept = int(ok[el[1].view(-1)[el[1].view(-1) >= 0].long()].sum())
+    print(f"K23 at MQ2's pass ({edges} edges over {S} shards of {-(-PERSONS // S)} rows): byte bound {bound:.4f} "
+          f"(no fold at this mask); {cs.gather_floor(edges, kept)}")
+
+
+def k20(np, torch, K, cs, times) -> None:
+    """K19 with and without K20's flag (module docstring)."""
+    indptr, dst, deg, edge_src, gen = _a_graph(np, torch, 20)
+    blockv, pageof, estart, pools, f, gate, P, Wp, B = _t_pool(torch, K, gen, indptr, dst, deg, edge_src)
+    del dst, edge_src
+    folded = "miss" in inspect.signature(K.paged_hop_csr).parameters
+    print(f"K20: the tree folds the cold-miss flag into K19's push: {folded}")
+    push = (indptr, blockv, pageof, estart, pools["nbr"], pools["eid"])
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    over = torch.zeros((), dtype=torch.bool, device="cuda")
+    cold = f.clone()
+    cold[:, torch.nonzero(pageof[blockv.long()] < 0).view(-1)[:1]] = True  # one active vertex in a cold block
+    for name, fr in (("T3's frontier", f), ("T3's frontier and a cold vertex", cold),
+                     ("dense", torch.ones((C, VB), dtype=torch.bool, device="cuda"))):
+        alive = K.mask_count(fr.view(-1))
+        want = K.plain_paged_hop_miss(fr, blockv, pageof, indptr, gate, alive)
+        forms = {"K19": lambda fr=fr, a=alive: K.paged_hop_csr(*push, None, fr, gate, a)}
+        if folded:
+            def with_flag(fr=fr, a=alive):
+                return K.paged_hop_csr(*push, None, fr, gate, a, miss=flag)
+
+            flag.zero_()
+            with_flag()
+            if bool(flag) != bool(want):
+                raise SystemExit(f"K19's flag ({name}) differs from plain_paged_hop_miss")
+            forms["K19 with the flag"] = with_flag
+        else:
+            def with_flag(fr=fr, a=alive):
+                # a tiered hop as this tree replays it: K20 (its memset
+                # inside), the OR into the overflow, then K19
+                torch.logical_or(over, K.paged_hop_miss(fr, blockv, pageof, indptr, gate, a), out=over)
+                return K.paged_hop_csr(*push, None, fr, gate, a)
+
+            if bool(K.paged_hop_miss(fr, blockv, pageof, indptr, gate, alive)) != bool(want):
+                raise SystemExit(f"K20 ({name}) differs from plain_paged_hop_miss")
+            forms["K19 with K20 and the OR"] = with_flag
+        for form, fn in forms.items():
+            key = f"{form}, {name}"
+            times[key] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+            print(f"{key} (flag {bool(want)}): {times[key][0]:.4f} ms eager, {times[key][1]:.4f} in a graph")
+
+
+def replays(np, torch, K, cs, times) -> None:
+    """MQ1, MQ2 (A split four ways) and T3, T4 (A tiered) replays
+    (module docstring)."""
+    import copy
+    import statistics
+    import time
+
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.parallel.sharded import make_mesh
+    from orientdb_tpu_torch.storage import tiering
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+    from orientdb_tpu_torch.utils.config import config
+
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    db, snap = build_person_knows(PERSONS, avg_knows=10, seed=5, geo=True)
+    tdb = copy.deepcopy(db)
+    print(f"replays: A built in {time.perf_counter() - t0:.1f} s")
+    V = snap.num_vertices
+    age = snap.v_columns["age"].values
+    want = {
+        "MQ1": cs.numpy_1hop_count(snap, age > 40, age < 30),
+        "MQ2": cs.numpy_2hop_count(snap, age > 40, np.ones(V, bool), age < 30),
+    }
+    mdb, msnap = cs.mesh_twin(db, snap, make_mesh(cs.M_SHARDS))
+
+    def cell(db_, snap_, name, sql, params, check):
+        db_.query(sql, params).to_dicts()
+        ts = []
+        for _ in range(7):
+            t = time.perf_counter()
+            rows = db_.query(sql, params).to_dicts()
+            sync()
+            ts.append((time.perf_counter() - t) * 1e3)
+            check(rows)
+        plan = max(cs._only_plan(TE, snap_, sql).plans, key=lambda p: p.replays)
+        times[f"replay {name}"] = [statistics.median(ts), None]
+        print(f"replay {name}: median {statistics.median(ts):.3f} ms ({[round(x, 3) for x in ts]}); launches per "
+              f"replay {sum(plan.launches.values())} {dict(sorted(plan.launches.items()))}")
+
+    for name, sql in (("MQ1", cs.Q1), ("MQ2", cs.Q2)):
+        cell(mdb, msnap, name, sql, None, lambda r, n=name: cs._require(r == [{"n": want[n]}], f"{n}: {r}"))
+    TE._plan_cache(msnap).clear()
+    del mdb, msnap, db, snap
+    import gc
+
+    gc.collect()
+    gc.collect()
+    sync()
+    torch.cuda.empty_cache()
+    tsnap = tdb.current_snapshot()
+    tref = cs.TRef(np, tsnap)
+    config.tier_hbm_cap_bytes = tiering.adjacency_bytes(tsnap) // 2
+    try:
+        tdb.attach_snapshot(tsnap)
+        cs._require(tsnap._tier is not None, "A was not admitted to the tier plane")
+        ts = []
+        for rep in range(2):
+            for u in cs.T3_ROOTS:
+                t = time.perf_counter()
+                rows = tdb.query(cs.T3, {"u": u}).to_dicts()
+                sync()
+                if rep:
+                    ts.append((time.perf_counter() - t) * 1e3)
+                cs._require(rows == [{"n": tref.t3(u)}], f"T3 u={u}: {rows}")
+        plan = max(cs._only_plan(TE, tsnap, cs.T3).plans, key=lambda p: p.replays)
+        times["replay T3"] = [statistics.median(ts), None]
+        print(f"replay T3: median {statistics.median(ts):.3f} ms over {len(cs.T3_ROOTS)} roots "
+              f"({[round(x, 3) for x in ts]}); launches per replay {sum(plan.launches.values())} "
+              f"{dict(sorted(plan.launches.items()))}")
+        ip64 = tref.ip.astype(np.int64)
+        ids, _levels = cs.numpy_traverse(
+            np, V, np.arange(50), lambda f: cs.csr_neighbours(np, ip64, tref.dst, f), admit=lambda d: d < 2
+        )
+        check = lambda r: cs._require(  # noqa: E731
+            np.array_equal(np.array([int(x["@rid"].split(":")[1]) for x in r], np.int64), ids), "T4 differs")
+        cell(tdb, tsnap, "T4", cs.TR1, None, check)
+    finally:
+        config.tier_hbm_cap_bytes = 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
-    ap.add_argument("--only", default="level,k4,k15,k5,k2,hops,k17,k24")
+    ap.add_argument("--only", default="level,k4,k15,k5,k2,hops,k17,k24,k23,k20")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     # the tree's package first: chip_smoke.py (this script's) imports the
@@ -648,6 +870,12 @@ def main() -> int:
         k17(np, torch, K, cs, times)
     if "k24" in only:
         k24(np, torch, K, cs, times)
+    if "k23" in only:
+        k23(np, torch, K, cs, times)
+    if "k20" in only:
+        k20(np, torch, K, cs, times)
+    if "replays" in only:
+        replays(np, torch, K, cs, times)
     print(json.dumps({"tree": tree, "kernels": K.__file__, "card": card, "ms [eager, graph]": times}))
     return 0
 

@@ -856,20 +856,27 @@ __device__ __forceinline__ long long seg_end(const int* __restrict__ indptr, Seg
   return seg_clip(indptr[seg + 1], s.v0, s.v0 + s.nv) - s.v0;
 }
 
-__global__ void seg_partition_kernel(const int* __restrict__ indptr, long long ne, long long nseg,
+// The partition of `nsh` independent merge paths (K4: one; K23: a held
+// shard each, its indptr row at indptr + h * ind_stride): rowc[h * (tiles +
+// 1) + t] is the segment coordinate of path h's tile boundary t.
+__global__ void seg_partition_kernel(const int* __restrict__ indptr, long long ind_stride,
+                                     long long nsh, long long ne, long long nseg,
                                      long long tiles, int* __restrict__ rowc,
                                      unsigned* __restrict__ out, long long out_size) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
   if (tiles > 0) {
-    const SegSpan sp = seg_span(indptr, ne, nseg);
-    const long long total = nseg + sp.nv;
     // a warp a boundary: the number of segment ends among its first d
     // items (a segment end before the value at its own index)
-    for (long long t = tid >> 5; t <= tiles; t += step >> 5) {
-      const long long d = t * kSegTile < total ? t * kSegTile : total;
-      const long long x = warp_merge_split([&](long long p) { return seg_end(indptr, sp, p); },
+    for (long long t = tid >> 5; t < nsh * (tiles + 1); t += step >> 5) {
+      const long long h = t / (tiles + 1);
+      const int* ip = indptr + h * ind_stride;
+      const SegSpan sp = seg_span(ip, ne, nseg);
+      const long long total = nseg + sp.nv;
+      const long long b = t - h * (tiles + 1);
+      const long long d = b * kSegTile < total ? b * kSegTile : total;
+      const long long x = warp_merge_split([&](long long p) { return seg_end(ip, sp, p); },
                                            d > sp.nv ? d - sp.nv : 0, d < nseg ? d : nseg, d);
       if (lane == 0) rowc[t] = static_cast<int>(x);
     }
@@ -899,39 +906,24 @@ __device__ __forceinline__ int bits_as<int>(unsigned u) { return static_cast<int
 template <>
 __device__ __forceinline__ float bits_as<float>(unsigned u) { return __uint_as_float(u); }
 
+// K4's value source: the values themselves, in memory, and one output of
+// nseg sums. head() is the scalar head up to the values' 16-byte
+// alignment; stage() copies the tile's values [j, j + nj) into shared
+// memory (16-byte loads and stores where the source is aligned).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    seg_sum_kernel(const T* __restrict__ vals, long long ne, const int* __restrict__ indptr,
-                   long long nseg, const int* __restrict__ rowc, T* __restrict__ out,
-                   T* __restrict__ carry) {
-  // the tile's segment ends (relative to its first value), a sentinel end,
-  // then its values placed so that the 16-byte-aligned part of their
-  // source lands on 16-byte-aligned shared memory (up to 3 slots of gap),
-  // and one spare slot a walk may read past the last
-  __shared__ __align__(16) unsigned s_buf[kSegTile + 6];
-  __shared__ T s_out[kSegTile];
-  __shared__ T s_wv[kWarps];
-  __shared__ int s_wf[kWarps];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const SegSpan sp = seg_span(indptr, ne, nseg);
-  const long long total = nseg + sp.nv;
-  const long long b = blockIdx.x;
-  const long long d0 = b * kSegTile < total ? b * kSegTile : total;
-  const long long d1 = d0 + kSegTile < total ? d0 + kSegTile : total;
-  const int i0 = rowc[b], i1 = rowc[b + 1];
-  const long long j0 = d0 - i0;
-  const int ni = i1 - i0;
-  const int nj = static_cast<int>(d1 - i1 - j0);
-  const unsigned* src = reinterpret_cast<const unsigned*>(vals) + sp.v0 + j0;
-  int head = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(src) & 15u)) & 15u) / 4;
-  if (head > nj) head = nj;
-  int* s_end = reinterpret_cast<int*>(s_buf);
-  unsigned* s_val = s_buf + (((ni + 1 + head + 3) & ~3) - head);
-  for (int k = tid; k < ni; k += kThreads) {
-    s_end[k] = static_cast<int>(seg_end(indptr, sp, i0 + k) - j0);
+struct SegValues {
+  const T* vals;
+  const int* ind;
+  T* out;
+  __device__ const int* indptr(long long) const { return ind; }
+  __device__ int head(long long j, int nj) const {
+    const unsigned* src = reinterpret_cast<const unsigned*>(vals) + j;
+    const int h = static_cast<int>((16 - (reinterpret_cast<uintptr_t>(src) & 15u)) & 15u) / 4;
+    return h > nj ? nj : h;
   }
-  if (tid == 0) s_end[ni] = 0x7fffffff;  // past the tile's last end: only values
-  {
+  __device__ void stage(unsigned* s_val, long long, long long j, int nj, int head) const {
+    const int tid = threadIdx.x;
+    const unsigned* src = reinterpret_cast<const unsigned*>(vals) + j;
     const int body = (nj - head) / 4;
     if (tid < head) s_val[tid] = src[tid];
     const uint4* vsrc = reinterpret_cast<const uint4*>(src + head);
@@ -941,6 +933,46 @@ __global__ void __launch_bounds__(kThreads)
     const int tail = head + 4 * body + tid;
     if (tid < 4 && tail < nj) s_val[tail] = src[tail];
   }
+  __device__ void store(long long, long long i, T v) const { out[i] = v; }
+  __device__ void add(long long, long long i, T v) const { out[i] += v; }
+};
+
+// The tiles of `nsh` merge paths (see seg_partition_kernel), `tiles` a
+// path: block b is tile b % tiles of path b / tiles. `Src` gives a path's
+// indptr, stages a tile's values and takes its finished sums.
+template <typename T, typename Src>
+__global__ void __launch_bounds__(kThreads)
+    seg_sum_kernel(const Src src, long long ne, long long nseg, long long tiles,
+                   const int* __restrict__ rowc_all, T* __restrict__ carry) {
+  // the tile's segment ends (relative to its first value), a sentinel end,
+  // then its values placed so that the 16-byte-aligned part of their
+  // source lands on 16-byte-aligned shared memory (up to 3 slots of gap),
+  // and one spare slot a walk may read past the last
+  __shared__ __align__(16) unsigned s_buf[kSegTile + 6];
+  __shared__ T s_out[kSegTile];
+  __shared__ T s_wv[kWarps];
+  __shared__ int s_wf[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long h = blockIdx.x / tiles;
+  const long long b = blockIdx.x - h * tiles;
+  const int* indptr = src.indptr(h);
+  const int* rowc = rowc_all + h * (tiles + 1);
+  const SegSpan sp = seg_span(indptr, ne, nseg);
+  const long long total = nseg + sp.nv;
+  const long long d0 = b * kSegTile < total ? b * kSegTile : total;
+  const long long d1 = d0 + kSegTile < total ? d0 + kSegTile : total;
+  const int i0 = rowc[b], i1 = rowc[b + 1];
+  const long long j0 = d0 - i0;
+  const int ni = i1 - i0;
+  const int nj = static_cast<int>(d1 - i1 - j0);
+  const int head = src.head(sp.v0 + j0, nj);
+  int* s_end = reinterpret_cast<int*>(s_buf);
+  unsigned* s_val = s_buf + (((ni + 1 + head + 3) & ~3) - head);
+  for (int k = tid; k < ni; k += kThreads) {
+    s_end[k] = static_cast<int>(seg_end(indptr, sp, i0 + k) - j0);
+  }
+  if (tid == 0) s_end[ni] = 0x7fffffff;  // past the tile's last end: only values
+  src.stage(s_val, h, sp.v0 + j0, nj, head);
   __syncthreads();
   // this thread's share of the tile: its start by a search in shared memory
   const int items = ni + nj;
@@ -1006,25 +1038,30 @@ __global__ void __launch_bounds__(kThreads)
   for (int w = 0; w < warp; ++w) pv = s_wf[w] ? s_wv[w] : pv + s_wv[w];
   const T ev = __shfl_up_sync(kFull, v, 1);
   const bool ef = __shfl_up_sync(kFull, f ? 1 : 0, 1) != 0;
-  if (tid == kThreads - 1) carry[b] = f ? v : pv + v;
+  if (tid == kThreads - 1) carry[blockIdx.x] = f ? v : pv + v;
   // the first segment that ends in the share gets the earlier threads' part
   if (tid > 0 && x != xs) s_out[xs] = (lane == 0 ? pv : (ef ? ev : pv + ev)) + s_out[xs];
   __syncthreads();
-  for (int k = tid; k < ni; k += kThreads) out[i0 + k] = s_out[k];
+  for (int k = tid; k < ni; k += kThreads) src.store(h, i0 + k, s_out[k]);
 }
 
-// Adds each run's carries to the segment the run ends in (see above).
-template <typename T>
-__global__ void seg_fixup_kernel(const int* __restrict__ rowc, const T* __restrict__ carry,
-                                 long long tiles, long long nseg, T* __restrict__ out) {
+// Adds each run's carries to the segment the run ends in (see above), path
+// by path: a run never crosses into the next path's tiles.
+template <typename T, typename Src>
+__global__ void seg_fixup_kernel(const Src src, const int* __restrict__ rowc_all,
+                                 const T* __restrict__ carry_all, long long tiles, long long nsh,
+                                 long long nseg) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; t < tiles;
-       t += step) {
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       g < nsh * tiles; g += step) {
+    const long long h = g / tiles, t = g - h * tiles;
+    const int* rowc = rowc_all + h * (tiles + 1);
+    const T* carry = carry_all + h * tiles;
     const int key = rowc[t + 1];
     if (key >= nseg || (t > 0 && rowc[t] == key)) continue;
     T s = carry[t];
     for (long long u = t + 1; u < tiles && rowc[u + 1] == key; ++u) s += carry[u];
-    out[key] += s;
+    src.add(h, key, s);
   }
 }
 
@@ -1083,6 +1120,9 @@ __device__ inline int ld_table(const int* p, unsigned long long policy, bool pre
   asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %3, 0;\n\t@q ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;\n\t}"
       : "+r"(v) : "l"(p), "l"(policy), "r"(static_cast<unsigned>(pred)));
   return v;
+}
+__device__ inline unsigned ld_table(const unsigned* p, unsigned long long policy, bool pred, unsigned v) {
+  return static_cast<unsigned>(ld_table(reinterpret_cast<const int*>(p), policy, pred, static_cast<int>(v)));
 }
 __device__ inline float ld_table(const float* p, unsigned long long policy, bool pred, float v) {
   asm("{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %3, 0;\n\t@q ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;\n\t}"
@@ -1668,7 +1708,12 @@ struct ShardRows {
 // reference's slot walk counts (own >= 0: a resident block's row) is one
 // the push reaches, and an evicted page's stale nbr / eid rows behind a -1
 // owner row are never read. A cold block contributes nothing, as in the
-// slot walk; K20 raises the cold-miss flag in its own launch.
+// slot walk. With `miss` (K20 folded in) the row map also raises the
+// cold-miss flag, as tiering.paged_hop_miss (orientdb_tpu/storage/
+// tiering.py:590) does: an active, gated vertex with edges whose block b
+// lies in [0, nb) (a b past the end is clipped for the reads but never
+// flags) and is cold. It stores only 1s; the caller zeroes the byte. The
+// walk then covers [0, min(V, vb)) even when the pool holds no slot.
 struct PagedRows {
   const int* indptr;
   const int* blockv;
@@ -1677,12 +1722,17 @@ struct PagedRows {
   const int* eid;
   long long nb, wp, ns;
   long long lo, hi;
+  unsigned char* miss;  // the cold-miss flag, or null
   __device__ int row(long long v, long long& base, long long& aux) const {
     const int b = blockv[v];
     if (b < 0 || nb <= 0) return 0;
     const long long bc = b < nb ? b : nb - 1;
     const int p = pageof[bc];
-    if (p < 0) return 0;
+    if (p < 0) {
+      if (miss != nullptr && b < nb && indptr[v + 1] > indptr[v]) *miss = 1;
+      return 0;
+    }
+    if (ns <= 0) return 0;
     const int st = indptr[v];
     base = static_cast<long long>(p) * wp;
     aux = static_cast<long long>(st) - estart[bc];
@@ -3402,6 +3452,9 @@ __global__ void slab_decode_kernel(const int* __restrict__ idx, long long out,
 // first (most vertices are inactive), all C rows loaded without an early
 // exit so the loads overlap; the entry point zeroes the flag and
 // threads store only 1s; nothing syncs. `alive` (may be null) at 0 exits.
+// A replay does not launch it: K19's push raises the same flag in its
+// row map (PagedRows::miss), so a tiered hop is one launch; this kernel
+// stays as the flag's standalone form, held against its plain version.
 __global__ void paged_hop_miss_kernel(const unsigned char* __restrict__ frontier,
                                       const unsigned char* __restrict__ gate, long long c,
                                       long long vb, const int* __restrict__ blockv,
@@ -3620,41 +3673,160 @@ __global__ void shard_gather_kernel(const int* __restrict__ ind, long long r1,
 }
 
 // K23: shard_weight_pass (replaces mesh_graph.sharded_weight_pass,
-// orientdb_tpu/parallel/mesh_graph.py:480). One fused pass over the edge-
-// list slots of every shard held: a slot with seg >= 0, emask[eid] (when a
-// mask is given; eid -1 reads False) and ok[emit] (take_pad: -1 reads
-// False, past the end the last) adds w[emit] (1 without w) into
-// out[clip(seg, 0, vb - 1)]. The reference clips seg the same way and masks
-// the -1 padding with seg >= 0, so no slot writes out of bounds. int32 adds
-// are integer atomics (exact, wrapping); the float32 twin's atomics add in
-// another order than the reference's segment_sum + psum. Bound: 12 bytes of
-// slots, the mask, ok and w at each slot, out read and written.
+// orientdb_tpu/parallel/mesh_graph.py:480): one COUNT-pushdown weight pass
+// over the held shards, out[v] += sum over v's edges of emask(e) * ok(u) *
+// w(u) (each factor only where given). The reference scatters every slot
+// of the equal edge-range slices (`el:*`) into out[clip(seg)]; this walks
+// the row-sharded CSR of the direction instead (`sh:<class>:{out,in}:*`):
+// an out pass sums at the source over `:out:` (u = nbr, edge id ebase +
+// slot), an in pass at the target over `:in:` (u = nbr, edge id
+// `:in:eid`). A held row is vertex (s0 + h) * R + l; rows at or past vb
+// hold no edge in any layout MeshGraph builds (R * S covers V <= vb with
+// empty rows) and are not written. ok, w and emask are take_pad's (-1 reads
+// False / 0, past the end the last).
+// Bound: 4 bytes of nbr an edge (+1 of a direct mask, +4 of eid in), 4 of
+// indptr a row, out read and written at each held row below vb, each
+// table once (and the fold's [vb] pass where it folds); a random gather
+// moves a 32-byte L2 sector, so at A's pass (80M edges) the sectors bound
+// it, not the bytes.
+// Design: K4's merge path (seg_partition_kernel, seg_sum_kernel,
+// seg_fixup_kernel), one path a held shard in one launch each: the grid is
+// S_l * ceil((R + emax) / kSegTile) tiles, sized from the held rows and
+// slots (a tile past its shard's edges has nothing to do), never from a
+// value read on the host. The gather goes in the tile's load stage: each
+// thread takes kSegItems slots in two runs of kWeightStage, streams their
+// nbr (and eid) first, then gathers the tables in stages that load only
+// for the slots still kept (the direct edge mask, the vertex mask, the
+// edge mask through eid, the weight), each stage's loads issued together,
+// and stores the values' bits in shared memory for K4's walk. The vertex
+// mask is folded into the weights first (shard_fold_kernel) where that is
+// worth it: an edge then needs one gather, of the folded weight. A random
+// gather from a 32 MiB table costs ~1.45 times one from an 8 MiB mask on
+// the card (PERF.md §6, K23), so with weights that large the fold
+// kernel samples the mask first and folds only where it keeps at least 30
+// % of the vertices; else the tiles gather the mask, then the weights of
+// the kept edges. Both give the same values. A row that ends in a tile is
+// added into out once, by one thread; a row across tiles gets its carries
+// in tile order. No atomics: int32 sums (in uint32) wrap as the atomics
+// did, and the float32 sums repeat bit for bit between calls.
+constexpr int kWeightStage = kSegItems / 2;  // slots a thread gathers at once
+static_assert(kSegItems % kWeightStage == 0, "whole stage runs");
+// K23's fold of ok into w: none (an in pass reading its edge mask through
+// :in:eid, or tables of other lengths), always (weights L2 gathers at its
+// full rate), or decided on the device by a sample of ok.
+constexpr int kFoldNone = 0, kFoldAlways = 1, kFoldSample = 2;
+// The fold pays from this many kept samples of kThreads (30 %) on.
+constexpr int kSampleKeep = kThreads * 3 / 10;
+
+// K23's fold: folded[i] = ok[i] ? w[i] : 0 over the n weights (ok is as
+// long: launch_shard_weight_pass checks), after *decide is set: 1 to fold
+// and gather the folded weights alone, 0 to gather ok and w as they are. Under
+// kFoldSample every block reads ok at the same kThreads fixed positions
+// (L1 and L2 hits after the first block) and folds only when at least
+// kSampleKeep of them are kept; a block that does not fold returns at once.
+// Bound: n bytes of ok, 4n of w read, 4n written.
 template <typename T>
-__global__ void shard_weight_pass_kernel(const int* __restrict__ seg,
-                                         const int* __restrict__ emit,
-                                         const int* __restrict__ eid, long long ns,
-                                         const unsigned char* __restrict__ emask, long long ne,
-                                         const unsigned char* __restrict__ ok,
-                                         const T* __restrict__ w, long long vb,
-                                         T* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long j = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; j < ns;
-       j += stride) {
-    const int sg = seg[j];
-    if (sg < 0) continue;
-    if (emask != nullptr) {
-      const int e = eid[j];
-      if (e < 0 || ne <= 0 || !emask[e < ne ? e : ne - 1]) continue;
-    }
-    const int m = emit[j];
-    if (m < 0) continue;
-    const long long mc = m < vb ? m : vb - 1;
-    if (!ok[mc]) continue;
-    const T v = w != nullptr ? w[mc] : T(1);
-    const long long dst = sg < vb ? sg : vb - 1;
-    atomicAdd(out + dst, v);
+__global__ void __launch_bounds__(kThreads)
+    shard_fold_kernel(const unsigned char* __restrict__ ok, const T* __restrict__ w, long long n,
+                      int fold, int* __restrict__ decide, T* __restrict__ folded) {
+  int fold_it = 1;
+  if (fold == kFoldSample) {
+    const unsigned long long pos = (static_cast<unsigned long long>(threadIdx.x) * 2654435761ull) % n;
+    fold_it = __syncthreads_count(ok[pos] != 0) >= kSampleKeep;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *decide = fold_it;
+  if (!fold_it) return;
+  const long long step = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n; i += step) {
+    folded[i] = ok[i] ? w[i] : T(0);
   }
 }
+
+template <typename T>
+struct ShardWeights {
+  const int* ind;                // [S_l, r + 1] rebased rows
+  long long r;
+  const int* nbr;                // [S_l, emax]
+  long long emax;
+  const int* extra;              // out: ebase [S_l]; in: eid [S_l, emax]
+  int is_out;
+  const unsigned char* emask;    // [n_em] or null
+  long long n_em;
+  const unsigned char* ok;       // [n_ok] or null
+  long long n_ok;
+  const T* w;                    // [n_w] or null (ones)
+  long long n_w;
+  unsigned keep;                 // tables under evict_last: 1 ok, 2 emask, 4 w
+  const int* decide;             // the fold's decision, or null (no fold)
+  const T* folded;               // [n_w] ok folded into w, where *decide
+  T* out;                        // [vb]
+  long long row0, vb;            // the first held row's vertex (s0 * r)
+  __device__ const int* indptr(long long h) const { return ind + h * (r + 1); }
+  __device__ int head(long long, int) const { return 0; }
+  __device__ void stage(unsigned* s_val, long long h, long long j, int nj, int) const {
+    const int tid = threadIdx.x;
+    // folded: the weight alone, whose gathers return 0 where ok is False
+    const bool fold = decide != nullptr && *decide != 0;
+    const bool use_ok = ok != nullptr && !fold;
+    const T* wt = fold ? folded : w;
+    const int* nb = nbr + h * emax + j;
+    const int* ids = is_out ? nullptr : extra + h * emax + j;
+    const long long ebase = is_out ? static_cast<long long>(extra[h]) + j : 0;
+    const bool in_mask = emask != nullptr && !is_out;
+#pragma unroll 1
+    for (int run = 0; run < kSegItems; run += kWeightStage) {
+      int e[kWeightStage], id[kWeightStage];
+      bool kp[kWeightStage];
+#pragma unroll
+      for (int q = 0; q < kWeightStage; ++q) {
+        const int k = tid + (run + q) * kThreads;
+        kp[q] = k < nj;
+        e[q] = kp[q] ? __ldcs(nb + k) : -1;
+        id[q] = kp[q] && in_mask ? __ldcs(ids + k) : -1;
+      }
+      if (emask != nullptr && is_out) {  // the edge id is ebase + slot: a direct byte stream
+#pragma unroll
+        for (int q = 0; q < kWeightStage; ++q) {
+          const long long i = ebase + tid + (run + q) * kThreads;
+          kp[q] = kp[q] && i >= 0 && n_em > 0 && emask[i < n_em ? i : n_em - 1] != 0;
+        }
+      }
+      if (use_ok) {
+        const unsigned long long policy = l2_policy(keep & 1u);
+#pragma unroll
+        for (int q = 0; q < kWeightStage; ++q) {
+          kp[q] = take_one(ok, n_ok, kp[q] ? e[q] : -1, static_cast<unsigned char>(0), policy) != 0;
+        }
+      }
+      if (in_mask) {
+        const unsigned long long policy = l2_policy(keep & 2u);
+#pragma unroll
+        for (int q = 0; q < kWeightStage; ++q) {
+          kp[q] = take_one(emask, n_em, kp[q] ? id[q] : -1, static_cast<unsigned char>(0), policy) != 0;
+        }
+      }
+      T v[kWeightStage];
+      if (wt != nullptr) {
+        const unsigned long long policy = l2_policy(keep & 4u);
+#pragma unroll
+        for (int q = 0; q < kWeightStage; ++q) v[q] = take_one(wt, n_w, kp[q] ? e[q] : -1, T(0), policy);
+      } else {
+#pragma unroll
+        for (int q = 0; q < kWeightStage; ++q) v[q] = kp[q] ? T(1) : T(0);
+      }
+#pragma unroll
+      for (int q = 0; q < kWeightStage; ++q) {
+        const int k = tid + (run + q) * kThreads;
+        if (k < nj) s_val[k] = lb_bits(v[q]);
+      }
+    }
+  }
+  __device__ void store(long long h, long long i, T v) const { add(h, i, v); }
+  __device__ void add(long long h, long long i, T v) const {
+    const long long g = row0 + h * r + i;
+    if (g < vb) out[g] += v;
+  }
+};
 
 // K24: rowshard_hop (replaces the hop of sharded.build_bfs_step,
 // orientdb_tpu/parallel/sharded.py:202-257). Row-sharded multi-source BFS:
@@ -3838,14 +4010,76 @@ int launch_segment_sum(const void* vals, long long ne, const void* indptr, long 
   const long long npad = out_size - nseg;
   const long long work = 32 * (tiles + 1) > npad / 4 ? 32 * (tiles + 1) : npad / 4;
   const int* ip = static_cast<const int*>(indptr);
-  seg_partition_kernel<<<grid_for(work, 1), kThreads, 0, s>>>(ip, ne, nseg, tiles, rowc,
+  seg_partition_kernel<<<grid_for(work, 1), kThreads, 0, s>>>(ip, 0, 1, ne, nseg, tiles, rowc,
                                                              static_cast<unsigned*>(out), out_size);
   if (tiles > 0) {
-    seg_sum_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-        static_cast<const T*>(vals), ne, ip, nseg, rowc, static_cast<T*>(out), carry);
-    seg_fixup_kernel<T><<<grid_for(tiles, 1), kThreads, 0, s>>>(rowc, carry, tiles, nseg,
-                                                                static_cast<T*>(out));
+    const SegValues<T> src{static_cast<const T*>(vals), ip, static_cast<T*>(out)};
+    seg_sum_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(src, ne, nseg, tiles,
+                                                                        rowc, carry);
+    seg_fixup_kernel<T><<<grid_for(tiles, 1), kThreads, 0, s>>>(src, rowc, carry, tiles, 1, nseg);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K23's scratch: each path's tile coordinates (tiles + 1) and carries,
+// the fold's decision, then (16-byte aligned) the folded weights.
+template <typename T>
+struct ShardScratch {
+  long long tiles;
+  int* rowc;
+  T* carry;
+  int* decide;
+  T* folded;
+};
+
+inline long long shard_tiles(long long r, long long emax) {
+  return r > 0 ? (r + emax + kSegTile - 1) / kSegTile : 0;
+}
+
+inline long long shard_scratch_words(long long s_local, long long r, long long emax) {
+  return (s_local * (2 * shard_tiles(r, emax) + 1) + 4 + 3) / 4 * 4;  // the decision word, aligned
+}
+
+template <typename T>
+ShardScratch<T> shard_scratch(void* scratch, long long s_local, long long r, long long emax) {
+  ShardScratch<T> sc;
+  sc.tiles = shard_tiles(r, emax);
+  sc.rowc = static_cast<int*>(scratch);
+  sc.carry = reinterpret_cast<T*>(sc.rowc + s_local * (sc.tiles + 1));
+  const long long head = shard_scratch_words(s_local, r, emax);
+  sc.decide = sc.rowc + head - 4;
+  sc.folded = reinterpret_cast<T*>(sc.rowc + head);
+  return sc;
+}
+
+// K23 over the held shards (see ShardWeights): `scratch` holds
+// csr_shard_weight_scratch words.
+template <typename T>
+int launch_shard_weight_pass(const void* ind, long long r, long long s_local, long long s0,
+                             const void* nbr, long long emax, const void* extra, int is_out,
+                             const void* emask, long long n_em, const void* ok, long long n_ok,
+                             const void* w, long long n_w, int keep, int fold, long long vb,
+                             void* out, void* scratch, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (s_local <= 0 || r <= 0 || vb <= 0) return static_cast<int>(cudaGetLastError());
+  const ShardScratch<T> sc = shard_scratch<T>(scratch, s_local, r, emax);
+  const int* ip = static_cast<const int*>(ind);
+  seg_partition_kernel<<<grid_for(32 * s_local * (sc.tiles + 1), 1), kThreads, 0, s>>>(
+      ip, r + 1, s_local, emax, r, sc.tiles, sc.rowc, nullptr, 0);
+  const bool folds = fold != kFoldNone && ok != nullptr && w != nullptr && n_w > 0 && n_ok == n_w;
+  if (folds) {
+    shard_fold_kernel<T><<<grid_for(n_w, 1), kThreads, 0, s>>>(
+        static_cast<const unsigned char*>(ok), static_cast<const T*>(w), n_w, fold, sc.decide, sc.folded);
+  }
+  const ShardWeights<T> src{ip, r, static_cast<const int*>(nbr), emax, static_cast<const int*>(extra),
+                            is_out, static_cast<const unsigned char*>(emask), n_em,
+                            static_cast<const unsigned char*>(ok), n_ok, static_cast<const T*>(w), n_w,
+                            static_cast<unsigned>(keep), folds ? sc.decide : nullptr, sc.folded,
+                            static_cast<T*>(out), s0 * r, vb};
+  seg_sum_kernel<T><<<static_cast<unsigned>(s_local * sc.tiles), kThreads, 0, s>>>(
+      src, emax, r, sc.tiles, sc.rowc, sc.carry);
+  seg_fixup_kernel<T><<<grid_for(s_local * sc.tiles, 1), kThreads, 0, s>>>(src, sc.rowc, sc.carry,
+                                                                           sc.tiles, s_local, r);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -4423,16 +4657,18 @@ int csr_slab_decode(const void* idx, long long out, const void* rel, int bk, int
 // K19's push. `indptr` ([nv + 1]) is the partition's resident indptr,
 // `blockv` [nv], `pageof` [nb], `estart` [nb + 1]; `nbr` and `eid` are the
 // pool's `ns` = P*Wp slots, pages of `wp`. `emask`, `gate` and `alive` may
-// be null; `zero_out` as for csr_bitmap_hop.
+// be null; `zero_out` as for csr_bitmap_hop. `miss` (one byte, or null) is
+// the cold-miss flag K20 computes, set here to 1 and never zeroed.
 int csr_paged_hop_csr(const void* indptr, long long nv, const void* blockv, const void* pageof,
                       long long nb, const void* estart, const void* nbr, const void* eid,
                       long long ns, long long wp, const void* emask, long long ne,
                       const void* frontier, const void* gate, long long c, long long vb,
-                      const void* alive, int zero_out, void* out, void* stream) {
+                      const void* alive, int zero_out, void* out, void* miss, void* stream) {
   const PagedRows rows{static_cast<const int*>(indptr), static_cast<const int*>(blockv),
                        static_cast<const int*>(pageof), static_cast<const int*>(estart),
                        static_cast<const int*>(eid), nb, wp, ns, 0,
-                       ns > 0 ? (nv < vb ? nv : vb) : 0};
+                       ns > 0 || miss != nullptr ? (nv < vb ? nv : vb) : 0,
+                       static_cast<unsigned char*>(miss)};
   return launch_push(rows, nbr, emask, ne, frontier, gate, c, vb, alive, zero_out, out, stream);
 }
 
@@ -4536,34 +4772,35 @@ int csr_bitmap_hop_shard(const void* indptr, long long r, long long s_local, lon
   return launch_push(rows, nbr, emask, ne, frontier, gate, c, vb, alive, zero_out, out, stream);
 }
 
-// K23. `emask` and `w` may be null (every edge / weight 1); `out` ([vb])
-// accumulates.
-int csr_shard_weight_pass_i32(const void* seg, const void* emit, const void* eid, long long ns,
-                              const void* emask, long long ne, const void* ok, const void* w,
-                              long long vb, void* out, void* stream) {
-  if (ns > 0 && vb > 0) {
-    shard_weight_pass_kernel<int><<<grid_for(ns, 1), kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(seg), static_cast<const int*>(emit),
-        static_cast<const int*>(eid), ns, static_cast<const unsigned char*>(emask), ne,
-        static_cast<const unsigned char*>(ok), static_cast<const int*>(w), vb,
-        static_cast<int*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+// K23's scratch in int32 words for s_local shards of r rows and emax
+// slots, with room for n_fold folded weights (0: no fold).
+long long csr_shard_weight_scratch(long long s_local, long long r, long long emax, long long n_fold) {
+  return shard_scratch_words(s_local, r, emax) + n_fold;
 }
 
-int csr_shard_weight_pass_f32(const void* seg, const void* emit, const void* eid, long long ns,
-                              const void* emask, long long ne, const void* ok, const void* w,
-                              long long vb, void* out, void* stream) {
-  if (ns > 0 && vb > 0) {
-    shard_weight_pass_kernel<float><<<grid_for(ns, 1), kThreads, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(seg), static_cast<const int*>(emit),
-        static_cast<const int*>(eid), ns, static_cast<const unsigned char*>(emask), ne,
-        static_cast<const unsigned char*>(ok), static_cast<const float*>(w), vb,
-        static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+// K23 over the row-sharded CSR of the shards s0 .. s0 + s_local - 1:
+// `ind` [s_local, r + 1], `nbr` [s_local, emax], `extra` ebase [s_local]
+// (is_out) or eid [s_local, emax]. `emask`, `ok` and `w` may be null (every
+// edge / vertex kept, weight 1); `keep` as for weight_gather; `fold`
+// kFoldNone, kFoldAlways or kFoldSample (ok folded into w in scratch first,
+// always or where a sample of ok says it pays); `out` ([vb]) accumulates.
+int csr_shard_weight_pass_i32(const void* ind, long long r, long long s_local, long long s0,
+                              const void* nbr, long long emax, const void* extra, int is_out,
+                              const void* emask, long long n_em, const void* ok, long long n_ok,
+                              const void* w, long long n_w, int keep, int fold, long long vb,
+                              void* out, void* scratch, void* stream) {
+  return launch_shard_weight_pass<unsigned>(ind, r, s_local, s0, nbr, emax, extra, is_out, emask,
+                                            n_em, ok, n_ok, w, n_w, keep, fold, vb, out, scratch,
+                                            stream);
+}
+
+int csr_shard_weight_pass_f32(const void* ind, long long r, long long s_local, long long s0,
+                              const void* nbr, long long emax, const void* extra, int is_out,
+                              const void* emask, long long n_em, const void* ok, long long n_ok,
+                              const void* w, long long n_w, int keep, int fold, long long vb,
+                              void* out, void* scratch, void* stream) {
+  return launch_shard_weight_pass<float>(ind, r, s_local, s0, nbr, emax, extra, is_out, emask, n_em,
+                                         ok, n_ok, w, n_w, keep, fold, vb, out, scratch, stream);
 }
 
 // K24. `frontier` is [s_local, q, r]; `out` is [n_shards, q, r], zeroed

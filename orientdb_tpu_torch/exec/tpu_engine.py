@@ -32,13 +32,16 @@ As in the reference:
   through K21 `paged_expand` and hops through K19 `paged_hop_csr` over the
   tier's page pools; the recording run faults every touched block in and
   the touched set becomes the plan's footprint, which each dispatch
-  prefetches and pins; a replay's cold-miss flags (K21's, K20
-  `paged_hop_miss`) join its overflow flag, and a pool that grew into new
-  tensors sends the plans captured before it back to a re-record;
+  prefetches and pins; a replay's cold-miss flags (K21's, and the hops'
+  one byte, which K19's push sets as K20 `paged_hop_miss` would) join its
+  overflow flag, and a pool that grew into new tensors sends the plans
+  captured before it back to a re-record;
 - on a snapshot attached with a mesh (`parallel/`), an expansion is the
   shards' K2 range-form totals then K22 `shard_gather` (no chunking), a
-  bitmap hop K10's eid form over the edge-list slices, a COUNT weight pass
-  K23 `shard_weight_pass`, and an endpoint step reads the sharded edge list;
+  bitmap hop K10's eid form over the row-sharded CSR, a COUNT weight pass
+  K23 `shard_weight_pass` over it (the vertex mask folded into the
+  weights inside it where that pays), and an endpoint step reads the
+  sharded edge list;
   a plan over `LocalShards` captures as any other, one over `ProcessShards`
   replays uncaptured (its merges are collectives), and mesh plans replay
   one by one in a batch;
@@ -282,6 +285,8 @@ class SizeSchedule:
         self.pos = 0
         self.recording = True
         self.overflow: Optional[torch.Tensor] = None  # device bool on a replay
+        #: a replay's cold-miss byte, shared by its tiered hops (`miss_flag`)
+        self.miss: Optional[torch.Tensor] = None
 
     def observe(self, dev_scalar: torch.Tensor, free: bool = False, min_capacity: int = 0) -> int:
         """``free=True`` marks a value that sizes no buffer and gates no
@@ -310,15 +315,27 @@ class SizeSchedule:
             return
         self.overflow = dev_flag if self.overflow is None else (self.overflow | dev_flag)
 
+    def miss_flag(self, device) -> torch.Tensor:
+        """The replay's cold-miss byte: zeroed once, at its first tiered
+        hop; each tiered hop's K19 push stores 1s into it (no launch, memset
+        or OR of its own) and `overflow_flag` ORs it in once."""
+        if self.miss is None:
+            self.miss = torch.zeros((), dtype=torch.bool, device=device)
+        return self.miss
+
     def overflow_flag(self, device) -> torch.Tensor:
-        if self.overflow is None:
+        flag = self.overflow
+        if self.miss is not None:
+            flag = self.miss if flag is None else (flag | self.miss)
+        if flag is None:
             return torch.zeros((), dtype=torch.bool, device=device)
-        return self.overflow
+        return flag
 
     def start_replay(self) -> None:
         self.recording = False
         self.pos = 0
         self.overflow = None
+        self.miss = None
 
 
 # ---------------------------------------------------------------------------
@@ -490,8 +507,9 @@ def build_bitmap_hops(
     and page pool (K19 `paged_hop_csr`) instead: while ``sched`` records,
     the gated frontier's blocks are faulted in first (into ``touched``, the
     plan's footprint);
-    on a replay K20 `paged_hop_miss` raises the cold-miss flag into
-    ``sched``. Both read the pools from ``dg.arrays`` at the hop, so a
+    on a replay the push itself raises the cold-miss flag (K20's test, in
+    K19's launch) into ``sched``'s one miss byte (`SizeSchedule.
+    miss_flag`). Both read the pools from ``dg.arrays`` at the hop, so a
     recording after a pool grew reads the new tensors.
 
     On a meshed snapshot every hop walks the class's row-sharded CSR of the
@@ -514,11 +532,12 @@ def build_bitmap_hops(
         if tier is not None and tier.pages_dir(cname, d):
 
             def paged(fr, gate=None, alive=None, out=None, cname=cname, d=d, emask=emask):
+                miss = None
                 if sched.recording:
                     tier.ensure_frontier(cname, d, fr, touched, gate)
                 else:
-                    sched.note_flag(tiering.paged_hop_miss(dg.arrays, cname, d, fr, gate, alive))
-                return tiering.paged_hop(dg.arrays, cname, d, emask, fr, gate, alive, out)
+                    miss = sched.miss_flag(fr.device)
+                return tiering.paged_hop(dg.arrays, cname, d, emask, fr, gate, alive, out, miss)
 
             hops.append(paged)
             continue
@@ -1302,15 +1321,15 @@ class TpuMatchSolver:
             emask = self._edge_mask(cname, f.where if f is not None else None)
             for d in ("out", "in") if direction == "both" else (direction,):
                 if mg is not None:
-                    # K23 over the sharded edge list: an out walk sums at
-                    # the source and weighs the target, an in walk the
-                    # reverse; the mask is read through the slices' eid
-                    p = mg.edge[cname].prefix
-                    src_sh, dst_sh, eid_sh = (
-                        self.dg.arrays[f"{p}:el:{k}"] for k in ("src", "dst", "eid")
-                    )
-                    seg_sh, emit_sh = (src_sh, dst_sh) if d == "out" else (dst_sh, src_sh)
-                    MG.sharded_weight_pass(mg.mesh, seg_sh, emit_sh, eid_sh, emask, ok_vec, w, new_w)
+                    # K23 over the row-sharded CSR of the direction: an out
+                    # walk sums at the source and weighs the target, an in
+                    # walk the reverse, its mask read through :in:eid; K23
+                    # folds the vertex mask into the weights itself where
+                    # that pays
+                    p = f"{mg.edge[cname].prefix}:{d}"
+                    extra = "ebase" if d == "out" else "eid"
+                    sh = tuple(self.dg.arrays[f"{p}:{k}"] for k in ("indptr", "nbr", extra))
+                    MG.sharded_weight_pass(mg.mesh, *sh, d == "out", emask, ok_vec, w, new_w)
                     continue
                 # both CSR orders are on the device, so either direction
                 # sums per vertex with indptr_segment_sum; the in walk

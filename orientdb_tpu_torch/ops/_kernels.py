@@ -78,7 +78,7 @@ SIGNATURES = {
     "csr_slab_probe": [_P, _P, _P, _N, _P, _N, _I, _I, _I, _P, _P, _P],
     "csr_slab_decode": [_P, _N, _P, _I, _I, _P, _N, _P, _P, _P, _P],
     "csr_paged_hop_csr": [
-        _P, _N, _P, _P, _N, _P, _P, _P, _N, _N, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P
+        _P, _N, _P, _P, _N, _P, _P, _P, _N, _N, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P, _P
     ],
     "csr_paged_hop_miss": [_P, _P, _N, _N, _P, _N, _P, _N, _P, _P, _P, _P],
     "csr_paged_expand": [
@@ -91,8 +91,13 @@ SIGNATURES = {
     "csr_bitmap_hop_shard": [
         _P, _N, _N, _N, _P, _N, _P, _I, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P
     ],
-    "csr_shard_weight_pass_i32": [_P, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P],
-    "csr_shard_weight_pass_f32": [_P, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P],
+    "csr_shard_weight_scratch": [_N, _N, _N, _N],
+    "csr_shard_weight_pass_i32": [
+        _P, _N, _N, _N, _P, _N, _P, _I, _P, _N, _P, _N, _P, _N, _I, _I, _N, _P, _P, _P
+    ],
+    "csr_shard_weight_pass_f32": [
+        _P, _N, _N, _N, _P, _N, _P, _I, _P, _N, _P, _N, _P, _N, _I, _I, _N, _P, _P, _P
+    ],
     "csr_rowshard_hop": [_P, _N, _P, _N, _P, _N, _N, _N, _I, _P, _P],
 }
 

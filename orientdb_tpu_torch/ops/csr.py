@@ -572,6 +572,10 @@ L2_KEEP_BYTES = 40 << 20
 #: size: pinning a 32 MB weight table as well pushes the edge mask's lines
 #: out twice as fast (PERF.md §6)
 L2_KEEP_BESIDE = 16 << 20
+#: the largest table the card's L2 gathers from at its full random rate:
+#: 1-16 MiB tables take 0.61-0.66 ms for 80M random gathers, a 32 MiB one
+#: 0.94 (`PERF.md` §6, K23)
+L2_FAST_BYTES = 16 << 20
 
 
 def _nbytes(t: Optional[torch.Tensor]) -> int:
@@ -1960,16 +1964,19 @@ def plain_paged_hop(own, nbr, eid, emask, frontier, gate=None, alive=None) -> to
 
 
 def plain_paged_hop_csr(
-    indptr, blockv, pageof, estart, nbr, eid, emask, frontier, gate=None, alive=None
+    indptr, blockv, pageof, estart, nbr, eid, emask, frontier, gate=None, alive=None, miss=None
 ) -> torch.Tensor:
     """K19's push walk in torch (`_plain_push`): an active vertex ``v <
     V`` reads block ``b = blockv[v]`` at page ``p = pageof[clip(b, 0,
     B-1)]`` (nothing when ``b`` or ``p`` is -1) and its ``indptr`` row's
     slots ``p·Wp + clip(indptr[v] + j - estart[b], 0, Wp-1)`` (at most the
     last pool slot), K21's clips; ``nbr`` and the edge id are read from the
-    pool rows there."""
+    pool rows there. ``miss`` (a 0-d bool) is ORed with the cold-miss
+    flag (`plain_paged_hop_miss`)."""
     V, nb = blockv.shape[0], pageof.shape[0]
     Wp, ns = nbr.shape[1], nbr.numel()
+    if miss is not None:
+        miss |= plain_paged_hop_miss(frontier, blockv, pageof, indptr, gate, alive)
     if ns == 0 or nb == 0:
         return torch.zeros(frontier.shape, dtype=B8, device=frontier.device)
     ip, bv, pg, es = indptr.long(), blockv.long(), pageof.long(), estart.long()
@@ -2002,6 +2009,7 @@ def paged_hop_csr(
     gate: Optional[torch.Tensor] = None,
     alive: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
+    miss: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One frontier hop over a paged partition (K19), walked by its active
     vertices: ``out[c, nbr[s]] |= frontier[c, v]`` for the pool slots ``s``
@@ -2012,7 +2020,10 @@ def paged_hop_csr(
     ``eid`` int32 [P, Wp] the pool rows; ``gate``, ``alive`` and ``out`` as
     for `bitmap_hop`. Equals the reference's slot walk (`plain_paged_hop`)
     on any pool `storage/tiering.TierManager` keeps: a resident block's
-    page holds its slots, an evicted block's ``pageof`` is -1."""
+    page holds its slots, an evicted block's ``pageof`` is -1. ``miss`` (a
+    0-d bool on the device) gets K20's cold-miss flag in the same launch
+    (`paged_hop_miss`'s value, ORed in: the hop sets it and never clears
+    it)."""
     for t, what in ((indptr, "indptr"), (blockv, "blockv"), (pageof, "pageof"), (estart, "estart")):
         _check(t, (I32,), f"paged_hop_csr {what}")
     for t, what in ((nbr, "nbr"), (eid, "eid")):
@@ -2038,8 +2049,11 @@ def paged_hop_csr(
     if out is not None:
         _check_out(out, (C, vb), B8, "paged_hop_csr")
         opt.append(out)
+    if miss is not None:
+        _check_out(miss, (), B8, "paged_hop_csr miss")
+        opt.append(miss)
     if not _on_card(indptr, blockv, pageof, estart, nbr, eid, frontier, *opt):
-        hop = plain_paged_hop_csr(indptr, blockv, pageof, estart, nbr, eid, emask, frontier, gate, alive)
+        hop = plain_paged_hop_csr(indptr, blockv, pageof, estart, nbr, eid, emask, frontier, gate, alive, miss)
         if out is None:
             return hop
         out |= hop
@@ -2070,6 +2084,7 @@ def paged_hop_csr(
         None if alive is None else alive.data_ptr(),
         int(zero),
         out.data_ptr(),
+        None if miss is None else miss.data_ptr(),
         _stream(frontier),
     )
     return out
@@ -2105,7 +2120,8 @@ def paged_hop_miss(
     True when a vertex ``v < V`` active in some frontier row (and in
     ``gate``) has edges in this direction (``indptr`` int32 [V+1]) and its
     block ``blockv[v]`` is cold (``pageof`` int32 [B] below 0). Nothing is
-    read back to the host."""
+    read back to the host. A replay takes the flag from K19's push instead
+    (`paged_hop_csr`'s ``miss``); this is its standalone form."""
     for t, what in ((blockv, "blockv"), (pageof, "pageof"), (indptr, "indptr")):
         _check(t, (I32,), f"paged_hop_miss {what}")
     _check2d(frontier, (B8,), "paged_hop_miss frontier")
@@ -2545,72 +2561,170 @@ def bitmap_hop_shard(
 
 
 def plain_shard_weight_pass(seg, emit, eid, emask, ok, w, out) -> torch.Tensor:
-    """The reference's `sharded_weight_pass` body over the flat slots:
+    """The reference's `sharded_weight_pass` body over the edge-list
+    slices' flat slots, the algorithm K23's CSR walk is held against:
     ``vals = (take_pad(emask, eid, False) & (seg >= 0) & take_pad(ok, emit,
     False)) * take_pad(w, emit, 0)`` summed into ``out`` at ``clip(seg, 0,
-    vb - 1)``."""
+    vb - 1)`` (float32 in float64, rounded once); ``ok`` None keeps every
+    vertex."""
     seg, emit, eid = seg.reshape(-1), emit.reshape(-1), eid.reshape(-1)
     vb = out.shape[0]
-    m = (seg >= 0) & plain_take_pad(ok, emit, False)
+    m = seg >= 0
+    if ok is not None:
+        m = m & plain_take_pad(ok, emit, False)
     if emask is not None:
         m = m & plain_take_pad(emask, eid, False)
     vals = m.to(out.dtype)
     if w is not None:
         vals = vals * plain_take_pad(w, emit, 0)
-    out.index_add_(0, seg.clamp(0, vb - 1).long(), vals)
+    return _add_sums(out, seg.clamp(0, vb - 1).long(), vals)
+
+
+def _add_sums(out: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``out[idx] += vals`` summed per index: int32 exactly (mod 2^32),
+    float32 in float64 and rounded once (as `plain_indptr_segment_sum`),
+    so that a long row's sum does not depend on the order of its adds."""
+    if out.dtype != F32:
+        return out.index_add_(0, idx, vals)
+    acc = torch.zeros(out.shape[0], dtype=torch.float64, device=out.device)
+    acc.index_add_(0, idx, vals.double())
+    out += acc.to(F32)
+    return out
+
+
+def plain_shard_weight_pass_csr(
+    indptr_sh, nbr_sh, extra_sh, is_out: bool, s0: int, emask, ok, w, out
+) -> torch.Tensor:
+    """K23's walk in torch: each held shard ``h`` (vertex rows ``(s0 +
+    h)·R + l``) sums at each row below vb its slots ``[indptr[l],
+    indptr[l+1])`` (K4's clip to the slots ``[0, emax]``), a slot weighing
+    ``take_pad(ok, u, False) & take_pad(emask, edge id, False) ?
+    take_pad(w, u, 0) : 0`` with ``u = nbr_sh[h, slot]`` and the edge id
+    ``ebase[h] + slot`` out or ``eid[h, slot]`` in (each factor only where
+    given), added into ``out`` in place (a float32 row summed in float64)."""
+    S_l, R = indptr_sh.shape[0], indptr_sh.shape[1] - 1
+    emax, vb = nbr_sh.shape[1], out.shape[0]
+    dev = out.device
+    for h in range(S_l):
+        v0 = int(indptr_sh[h, 0].clamp(0, emax))
+        ind = indptr_sh[h].long().clamp(v0, int(indptr_sh[h, R].clamp(v0, emax)))
+        deg = ind[1:] - ind[:-1]
+        rows = torch.repeat_interleave(torch.arange(R, device=dev), deg)
+        slots = torch.arange(v0, int(ind[-1]), device=dev)
+        u = nbr_sh[h, slots]
+        keep = torch.ones(slots.shape[0], dtype=B8, device=dev)
+        if ok is not None:
+            keep &= plain_take_pad(ok, u, False)
+        if emask is not None:
+            ids = (slots + int(extra_sh[h, 0])).to(I32) if is_out else extra_sh[h, slots]
+            keep &= plain_take_pad(emask, ids, False)
+        vals = keep.to(out.dtype)
+        if w is not None:
+            vals = vals * plain_take_pad(w, u, 0)
+        g = (s0 + h) * R + rows
+        sel = g < vb
+        _add_sums(out, g[sel], vals[sel])
     return out
 
 
 def shard_weight_pass(
-    seg: torch.Tensor,
-    emit: torch.Tensor,
-    eid: torch.Tensor,
+    indptr_sh: torch.Tensor,
+    nbr_sh: torch.Tensor,
+    extra_sh: torch.Tensor,
+    is_out: bool,
+    s0: int,
     emask: Optional[torch.Tensor],
-    ok: torch.Tensor,
+    ok: Optional[torch.Tensor],
     w: Optional[torch.Tensor],
     out: torch.Tensor,
 ) -> torch.Tensor:
-    """K23: one COUNT-pushdown weight pass over the edge-list slices of
-    every shard held (``seg`` / ``emit`` / ``eid`` int32 [S_l, W], -1
-    padded), added into ``out`` (int32 or float32 [vb]) in place:
-    ``out[clip(seg)] += emask[eid] & ok[emit] ? w[emit] : 0`` for the slots
-    with ``seg >= 0``; ``emask`` (bool [E]) None admits every edge and
-    ``w`` (``out``'s dtype, [vb]) None weighs 1. Returns ``out``."""
-    for t, what in ((seg, "seg"), (emit, "emit"), (eid, "eid")):
+    """K23: one COUNT-pushdown weight pass over the row-sharded CSR of one
+    direction of the shards ``s0 .. s0+S_l-1`` held here, added into
+    ``out`` (int32 or float32 [vb]) in place: ``out[v] += Σ emask(e) &
+    ok(u) ? w(u) : 0`` over the slots of each held row ``v`` below vb (an
+    out pass sums at the source over ``:out:``, an in pass at the target
+    over ``:in:``). ``indptr_sh`` int32 [S_l, R+1], ``nbr_sh`` int32 [S_l,
+    emax], ``extra_sh`` ``:out:ebase`` [S_l, 1] (``is_out``: the edge id is
+    ebase + the slot) or ``:in:eid`` [S_l, emax]; ``emask`` (bool [E] in
+    out order), ``ok`` (bool, a vertex mask) and ``w`` (``out``'s dtype)
+    may be None (every edge, every vertex, weight 1), each read with
+    take_pad's semantics. The rows of different ranks are disjoint, so a
+    process group's parts sum. On the card a merge-path segmented sum with
+    no atomics: its float32 sums repeat bit for bit. Where ``ok`` and
+    ``w`` are both given (one length, the weights at most 40 MiB) and the
+    pass does not read its edge mask through ``:in:eid``, the kernel
+    sequence first folds ``ok`` into the weights (one gather an edge), for
+    weights over 16 MiB only where a device-side sample finds the mask
+    keeping at least 30 % of the vertices; the sums are the same either
+    way. Returns ``out``."""
+    for t, what in ((indptr_sh, "indptr_sh"), (nbr_sh, "nbr_sh"), (extra_sh, "extra_sh")):
         _check_sharded(t, f"shard_weight_pass {what}")
-    if emit.shape != seg.shape or eid.shape != seg.shape:
-        raise ValueError("shard_weight_pass: seg, emit and eid differ in shape")
+    S_l = indptr_sh.shape[0]
+    want = (S_l, 1) if is_out else tuple(nbr_sh.shape)
+    if nbr_sh.shape[0] != S_l or tuple(extra_sh.shape) != want:
+        raise ValueError(f"shard_weight_pass: nbr_sh / extra_sh do not match {S_l} shards")
+    if s0 < 0:
+        raise ValueError("shard_weight_pass: s0 must be >= 0")
     _check(out, (I32, F32), "shard_weight_pass out")
     vb = out.shape[0]
-    _check(ok, (B8,), "shard_weight_pass ok")
-    if ok.shape[0] != vb:
-        raise ValueError("shard_weight_pass: ok and out differ in length")
-    opt = [ok, out]
-    if emask is not None:
-        _check(emask, (B8,), "shard_weight_pass emask")
-        opt.append(emask)
+    opt = [out]
+    for t, what in ((ok, "ok"), (emask, "emask")):
+        if t is not None:
+            _check(t, (B8,), f"shard_weight_pass {what}")
+            opt.append(t)
     if w is not None:
         _check(w, (out.dtype,), "shard_weight_pass w")
-        if w.shape[0] != vb:
-            raise ValueError("shard_weight_pass: w and out differ in length")
         opt.append(w)
-    if not _on_card(seg, emit, eid, *opt):
-        return plain_shard_weight_pass(seg, emit, eid, emask, ok, w, out)
+    if not _on_card(indptr_sh, nbr_sh, extra_sh, *opt):
+        return plain_shard_weight_pass_csr(indptr_sh, nbr_sh, extra_sh, is_out, s0, emask, ok, w, out)
     lib = _kernels.load()
-    fn = lib.csr_shard_weight_pass_i32 if out.dtype == I32 else lib.csr_shard_weight_pass_f32
+    R, emax = indptr_sh.shape[1] - 1, nbr_sh.shape[1]
+    # the fold of ok into w (csr_kernels.cu, shard_fold_kernel): none for an
+    # in pass that reads its edge mask through :in:eid (as the single-device
+    # weight step keeps it apart), always where L2 gathers the weights at
+    # its full rate, else decided on the device by a sample of ok
+    fold = 0
+    if (
+        ok is not None
+        and w is not None
+        and ok.shape[0] == w.shape[0]
+        and _nbytes(w) <= L2_KEEP_BYTES
+        and (is_out or emask is None)
+    ):
+        fold = 1 if _nbytes(w) <= L2_FAST_BYTES else 2
+    n_fold = w.shape[0] if fold else 0
+    scratch = torch.empty(lib.csr_shard_weight_scratch(S_l, R, emax, n_fold), dtype=I32, device=out.device)
+    # the gathered tables that stay in L2 (bits 1 ok, 2 the edge mask read
+    # through :in:eid, 4 w), as weight_gather chooses them
+    tables = (_nbytes(ok), 0 if is_out else _nbytes(emask), _nbytes(w))
+    limit = L2_KEEP_BESIDE if max(tables) > L2_KEEP_BYTES else L2_KEEP_BYTES
+    keep = sum(bit for bit, b in zip((1, 2, 4), tables) if 0 < b <= limit)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     _launch(
         "shard_weight_pass",
-        fn,
-        seg.data_ptr(),
-        emit.data_ptr(),
-        eid.data_ptr(),
-        seg.numel(),
-        None if emask is None else emask.data_ptr(),
+        lib.csr_shard_weight_pass_i32 if out.dtype == I32 else lib.csr_shard_weight_pass_f32,
+        indptr_sh.data_ptr(),
+        R,
+        S_l,
+        s0,
+        nbr_sh.data_ptr(),
+        emax,
+        extra_sh.data_ptr(),
+        int(bool(is_out)),
+        ptr(emask),
         0 if emask is None else emask.shape[0],
-        ok.data_ptr(),
-        None if w is None else w.data_ptr(),
+        ptr(ok),
+        0 if ok is None else ok.shape[0],
+        ptr(w),
+        0 if w is None else w.shape[0],
+        keep,
+        fold,
         vb,
         out.data_ptr(),
+        scratch.data_ptr(),
         _stream(out),
     )
     return out

@@ -11,13 +11,14 @@ The layout is the reference's, array for array and byte for byte
 - ``sh:<class>:in:{indptr,nbr,ebase,eid}``: the in-CSR alike, with the
   out-order edge id of each in-CSR slot;
 - ``sh:<class>:el:{src,dst,eid}``: the flat edge list in equal slices of W
-  = ``ceil(E / S)`` edges ([S, W], -1 tails).
+  = ``ceil(E / S)`` edges ([S, W], -1 tails), read by `edge_endpoint`.
 
 A device holds the rows of the shards its process holds (all S with
 `LocalShards`, one with `ProcessShards`). The kernels: `expand_totals`
 (K2's range form), `expand_gather` (K22 `shard_gather`),
 `sharded_bitmap_hop` (K10's eid form, a push over the row-sharded CSR) and
-`sharded_weight_pass` (K23), each merged as the group merges
+`sharded_weight_pass` (K23, a segmented sum over it), each merged as the
+group merges
 (`parallel/collectives`).
 """
 
@@ -210,19 +211,27 @@ def sharded_bitmap_hop(
 
 
 def sharded_weight_pass(
-    mesh: LocalShards, seg_sh, emit_sh, eid_sh, emask, ok, w, out: Optional[torch.Tensor] = None
+    mesh: LocalShards, ind_sh, nbr_sh, extra_sh, is_out: bool, emask, ok, w,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One COUNT-pushdown weight pass over every shard's edge-list slice
-    (K23): ``new_w[v] += Σ emask(e)·ok(u)·w[u]`` over the slice's edges v→u
-    (``seg`` the summed endpoint, ``emit`` the weighed one), added into
-    ``out`` (a new zero vector of ``w``'s dtype when None; ``w`` None
-    weighs 1, with ``out`` given)."""
+    """One COUNT-pushdown weight pass over the row-sharded CSR of a
+    direction (K23): ``new_w[v] += Σ emask(e)·ok(u)·w[u]`` over the edges
+    of each held row v (``ind_sh`` / ``nbr_sh`` the ``:out:`` or ``:in:``
+    indptr and neighbours, ``extra_sh`` ``:out:ebase`` or ``:in:eid``: an
+    out pass sums at the source and weighs the target, an in pass the
+    reverse), added into ``out`` (a new zero vector of ``w``'s dtype when
+    None; ``w`` None weighs 1 and ``ok`` None keeps every vertex, with
+    ``out`` given). The reference sums over the edge-list slices instead;
+    both reach the same sums. On a process group each rank sums its own
+    rows, and the parts merge by an all-reduce."""
     if out is None:
         out = torch.zeros_like(w)
+    pass_ = lambda o: K.shard_weight_pass(  # noqa: E731
+        ind_sh, nbr_sh, extra_sh, is_out, mesh.s0, emask, ok, w, o
+    )
     if not mesh.collective:
-        return K.shard_weight_pass(seg_sh, emit_sh, eid_sh, emask, ok, w, out)
-    part = K.shard_weight_pass(seg_sh, emit_sh, eid_sh, emask, ok, w, torch.zeros_like(out))
-    out += mesh.all_reduce_(part)
+        return pass_(out)
+    out += mesh.all_reduce_(pass_(torch.zeros_like(out)))
     return out
 
 

@@ -505,20 +505,21 @@ class TierManager:
 # ---------------------------------------------------------------------------
 
 
-def paged_hop(arrays, cname: str, d: str, emask, frontier, gate=None, alive=None, out=None):
+def paged_hop(arrays, cname: str, d: str, emask, frontier, gate=None, alive=None, out=None, miss=None):
     """One frontier bitmap hop over a paged partition (K19): the active
     vertices' rows of the resident indptr, through the block → page
-    indirection into the pool."""
+    indirection into the pool; with ``miss`` (a 0-d bool) the same launch
+    sets it where `paged_hop_miss` would flag."""
     k = _keys(cname, d)
     return K.paged_hop_csr(
         arrays[_indptr_key(cname, d)], arrays[k["blockv"]], arrays[k["pageof"]], arrays[k["estart"]],
-        arrays[k["nbr"]], arrays[k["eid"]], emask, frontier, gate, alive, out,
+        arrays[k["nbr"]], arrays[k["eid"]], emask, frontier, gate, alive, out, miss,
     )
 
 
 def paged_hop_miss(arrays, cname: str, d: str, frontier, gate=None, alive=None):
-    """The hop's device cold-miss flag (K20): an active vertex with edges
-    whose block is not resident."""
+    """The hop's device cold-miss flag (K20) in a launch of its own: an
+    active vertex with edges whose block is not resident."""
     k = _keys(cname, d)
     return K.paged_hop_miss(
         frontier, arrays[k["blockv"]], arrays[k["pageof"]], arrays[_indptr_key(cname, d)], gate, alive

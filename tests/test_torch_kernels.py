@@ -16,7 +16,7 @@ import torch
 
 from orientdb_tpu_torch.ops import csr as T
 from test_torch_push_hops import (
-    PAGED_CASES, SHARD_CASES, frontiers, paged_args, paged_pool, shard_layout, skewed_csr,
+    PAGED_CASES, SHARD_CASES, WEIGHT_CASES, frontiers, paged_args, paged_pool, shard_layout, skewed_csr,
 )
 
 F32_RTOL = 1e-5
@@ -1370,6 +1370,126 @@ def test_paged_push_equals_plain_on_card(card, v, avg, block_edges, pages, hub, 
     torch.cuda.synchronize()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,v,avg,hub,empty", WEIGHT_CASES)
+def test_shard_weight_pass_equals_plain_on_card(card, S, v, avg, hub, empty):
+    """K23's merge path on skewed row-sharded layouts (a hub of up to
+    100,000 edges across many tiles, runs of empty rows, shards past V)
+    against its plain CSR walk and the slices' walk: int32 exactly (out and
+    in, with and without an edge mask, a vertex mask and weights, all
+    shards and one rank's shard at a time), float32 to rtol 1e-5 and bit
+    for bit between two calls, and in a captured graph."""
+    rng = np.random.default_rng(S * 100 + v + hub)
+    indptr, nbrs = skewed_csr(rng, v, avg, hub, empty)
+    csr, el, R = shard_layout(indptr, nbrs, S)
+    csr = {d: tuple(t.to(card) for t in c[:3]) + (c[3],) for d, c in csr.items()}
+    el = tuple(t.to(card) for t in el)
+    vb = T.bucket(v)
+    emask = _t(rng.random(nbrs.shape[0]) < 0.7).to(card)
+    ok = _t(rng.random(vb) < 0.6).to(card)
+    w_i = _t(rng.integers(-50, 1000, vb).astype(np.int32)).to(card)
+    w_f = _t((rng.random(vb) * 3.0).astype(np.float32)).to(card)
+    i32 = lambda: torch.zeros(vb, dtype=torch.int32, device=card)  # noqa: E731
+    for d, (seg, emit) in (("out", (el[0], el[1])), ("in", (el[1], el[0]))):
+        sh = csr[d]
+        for m in (None, emask):
+            for o in (None, ok):
+                for w in (None, w_i):
+                    got = T.shard_weight_pass(*sh, 0, m, o, w, i32())
+                    assert torch.equal(got, T.plain_shard_weight_pass_csr(*sh, 0, m, o, w, i32()))
+                    assert torch.equal(got, T.plain_shard_weight_pass(seg, emit, el[2], m, o, w, i32()))
+                    ranks = i32()
+                    for s0 in range(S):
+                        T.shard_weight_pass(*(t[s0 : s0 + 1] for t in sh[:3]), sh[3], s0, m, o, w, ranks)
+                    assert torch.equal(ranks, got)
+            got = T.shard_weight_pass(*sh, 0, m, ok, w_f, torch.zeros(vb, device=card))
+            want = T.plain_shard_weight_pass(seg, emit, el[2], m, ok, w_f, torch.zeros(vb, device=card))
+            torch.testing.assert_close(got, want, rtol=F32_RTOL, atol=F32_RTOL * float(want.abs().max() + 1))
+            again = T.shard_weight_pass(*sh, 0, m, ok, w_f, torch.zeros(vb, device=card))
+            assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    out = i32()
+    T.shard_weight_pass(*csr["in"], 0, emask, ok, w_i, out)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.zero_()
+        T.shard_weight_pass(*csr["in"], 0, emask, ok, w_i, out)
+    out.fill_(-1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, T.plain_shard_weight_pass(el[1], el[0], el[2], emask, ok, w_i, i32()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keep", [0.0, 0.2, 0.5, 1.0])
+def test_shard_weight_pass_sampled_fold_on_card(card, keep):
+    """K23 with weights over 16 MiB (vb = 2^23 int32), where a device-side
+    sample of the vertex mask decides whether to fold it into the weights:
+    masks keeping none, a fifth, half and all of the vertices give the
+    plain sums exactly, out and in, with a direct edge mask on the out
+    pass."""
+    rng = np.random.default_rng(int(keep * 10) + 1)
+    v = 4_200_000
+    indptr, nbrs = skewed_csr(rng, v, 1.0, 5_000)
+    csr, el, _R = shard_layout(indptr, nbrs, 2)
+    csr = {d: tuple(t.to(card) for t in c[:3]) + (c[3],) for d, c in csr.items()}
+    el = tuple(t.to(card) for t in el)
+    vb = T.bucket(v)
+    assert vb * 4 > T.L2_FAST_BYTES
+    ok = _t(rng.random(vb) < keep).to(card)
+    w = _t(rng.integers(-5, 40, vb).astype(np.int32)).to(card)
+    emask = _t(rng.random(nbrs.shape[0]) < 0.7).to(card)
+    i32 = lambda: torch.zeros(vb, dtype=torch.int32, device=card)  # noqa: E731
+    for d, (seg, emit), m in (("out", (el[0], el[1]), emask), ("out", (el[0], el[1]), None), ("in", (el[1], el[0]), None)):
+        got = T.shard_weight_pass(*csr[d], 0, m, ok, w, i32())
+        assert torch.equal(got, T.plain_shard_weight_pass(seg, emit, el[2], m, ok, w, i32()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,avg,block_edges,pages,hub,empty", PAGED_CASES)
+def test_paged_push_flag_equals_plain_on_card(card, v, avg, block_edges, pages, hub, empty):
+    """K19 with K20 folded in: the push's cold-miss flag equals
+    `plain_paged_hop_miss` (and the standalone K20) on the pool as kept,
+    every page evicted and an empty pool, with a gate, ``alive`` 0 and an
+    empty frontier; the flag is only ever set; the hop's bits are the same
+    with and without it; and in a captured graph the replayed flag follows
+    the frontier."""
+    rng = np.random.default_rng(3 * v + pages + hub)
+    indptr, part, pools, pageof = paged_pool(rng, v, avg, block_edges, pages, hub, empty)
+    vb = T.bucket(v)
+    gate = _t(rng.random(vb) < 0.8).to(card)
+    zero = torch.zeros((), dtype=torch.int32, device=card)
+    no_pool = {n: np.zeros((0, part.Wp), np.int32) for n in pools}
+    for pl, pg in ((pools, pageof), (pools, np.full_like(pageof, -1)), (no_pool, np.full_like(pageof, -1))):
+        push, _slot = paged_args(indptr, part, pl, pg, card)
+        ip, bv, pgt = push[0], push[1], push[2]
+        for c in (1, 40):
+            for fr in frontiers(rng, c, vb, card):
+                for g in (None, gate):
+                    for a in (None, zero):
+                        want = T.plain_paged_hop_miss(fr, bv, pgt, ip, g, a)
+                        miss = torch.zeros((), dtype=torch.bool, device=card)
+                        hop = T.paged_hop_csr(*push, None, fr, g, a, miss=miss)
+                        assert bool(miss) == bool(want) == bool(T.paged_hop_miss(fr, bv, pgt, ip, g, a))
+                        assert torch.equal(hop, T.paged_hop_csr(*push, None, fr, g, a))
+                        stay = torch.ones((), dtype=torch.bool, device=card)
+                        T.paged_hop_csr(*push, None, fr, g, a, miss=stay)
+                        assert bool(stay)
+    push, _slot = paged_args(indptr, part, pools, pageof, card)
+    fr = torch.zeros((2, vb), dtype=torch.bool, device=card)
+    miss = torch.zeros((), dtype=torch.bool, device=card)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        miss.zero_()
+        T.paged_hop_csr(*push, None, fr, miss=miss)
+    for f in frontiers(rng, 2, vb, card):
+        fr.copy_(f)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert bool(miss) == bool(T.plain_paged_hop_miss(f, push[1], push[2], push[0]))
+
+
 def _sharded_inputs(rng, S: int, v: int, avg: float):
     """A random graph's mesh layout (`MeshGraph.build` through a CPU device
     graph), its sources with padding and unowned ids, and its edge count."""
@@ -1390,8 +1510,9 @@ def test_mesh_kernels_equal_plain_on_card(card, S, v, avg):
     shard's total, the process form), K10's eid form, K23 (int32 exactly,
     float32 to rtol 1e-5, with and without weights and mask) and K24 against
     their plain versions, on the same sharded inputs; K10's eid form (the
-    push over the row-sharded CSR, also one rank's shard at s0 = 1) also
-    against the slot walk over the edge-list slices."""
+    push over the row-sharded CSR, also one rank's shard at s0 = 1) and K23
+    (its segmented sum over that CSR, also one rank's shard) also against
+    the slot walks over the edge-list slices."""
     rng = np.random.default_rng(v + S)
     dg, E = _sharded_inputs(rng, S, v, avg)
     A = {k: a.to(card) for k, a in dg.arrays.items() if k.startswith("sh:")}
@@ -1443,10 +1564,17 @@ def test_mesh_kernels_equal_plain_on_card(card, S, v, avg):
         w_f = w_i.float() * 0.37
         for m in (None, emask):
             for w in (None, w_i):
-                got = T.shard_weight_pass(a, e, el[2], m, ok, w, torch.ones(vb, dtype=torch.int32, device=card))
+                got = T.shard_weight_pass(*sh, d == "out", 0, m, ok, w, torch.ones(vb, dtype=torch.int32, device=card))
                 want = T.plain_shard_weight_pass(a, e, el[2], m, ok, w, torch.ones(vb, dtype=torch.int32, device=card))
                 assert torch.equal(got, want)
-            got = T.shard_weight_pass(a, e, el[2], m, ok, w_f, torch.zeros(vb, device=card))
+                assert torch.equal(got, T.plain_shard_weight_pass_csr(
+                    *sh, d == "out", 0, m, ok, w, torch.ones(vb, dtype=torch.int32, device=card)))
+                if S > 1:  # one rank's shard of a process group
+                    one = tuple(t[1:2] for t in sh)
+                    got = T.shard_weight_pass(*one, d == "out", 1, m, ok, w, torch.zeros(vb, dtype=torch.int32, device=card))
+                    assert torch.equal(got, T.plain_shard_weight_pass_csr(
+                        *one, d == "out", 1, m, ok, w, torch.zeros(vb, dtype=torch.int32, device=card)))
+            got = T.shard_weight_pass(*sh, d == "out", 0, m, ok, w_f, torch.zeros(vb, device=card))
             want = T.plain_shard_weight_pass(a, e, el[2], m, ok, w_f, torch.zeros(vb, device=card))
             torch.testing.assert_close(got, want, rtol=F32_RTOL, atol=F32_RTOL * float(want.abs().max() + 1))
     R = int(A["sh:knows:out:indptr"].shape[1] - 1)

@@ -257,8 +257,19 @@ def test_sharded_bitmap_hop_equals_reference(ref_mesh, S, n_profiles):
                 assert np.array_equal(ranks.numpy(), want_g)
 
 
+def _csr_of(S, d: str, n_profiles: int = 300):
+    """The port's row-sharded CSR of HasFriend's direction ``d`` (indptr,
+    nbr, ``:out:ebase`` or ``:in:eid``)."""
+    extra = "ebase" if d == "out" else "eid"
+    return tuple(_pair(S, f"sh:HasFriend:{d}:{k}", n_profiles)[1] for k in ("indptr", "nbr", extra))
+
+
 @pytest.mark.parametrize("S", SHARDS)
 def test_sharded_weight_pass_equals_reference(ref_mesh, S):
+    """K23 through `sharded_weight_pass` (its row-sharded CSR walk) against
+    the reference's pass over the edge-list slices: out and in, int32 and
+    float32 weights, and the vertex mask folded into the weights (``ok``
+    None)."""
     jsnap, jdg, _snap, _dg, mesh = _meshed(S)
     rng = np.random.default_rng(20 + S)
     E = jsnap.edge_classes["HasFriend"].num_edges
@@ -268,17 +279,63 @@ def test_sharded_weight_pass_equals_reference(ref_mesh, S):
     ok = rng.random(vb) < 0.7
     w_i = rng.integers(0, 1000, vb).astype(np.int32)
     w_f = (rng.random(vb) * 7.5).astype(np.float32)
-    for seg, emit in ((src, dst), (dst, src)):
+    for d, (seg, emit) in (("out", (src, dst)), ("in", (dst, src))):
+        sh = _csr_of(S, d) + (d == "out",)
         want = JMG.sharded_weight_pass(
             jdg.mesh_graph.mesh, seg[0], emit[0], eid[0], jnp.asarray(emask), jnp.asarray(ok), jnp.asarray(w_i)
         )
-        got = MG.sharded_weight_pass(mesh, seg[1], emit[1], eid[1], _t(emask), _t(ok), _t(w_i))
+        got = MG.sharded_weight_pass(mesh, *sh, _t(emask), _t(ok), _t(w_i))
         assert got.dtype == torch.int32 and np.array_equal(got.numpy(), np.asarray(want))
+        folded = torch.where(_t(ok), _t(w_i), 0)
+        got = MG.sharded_weight_pass(mesh, *sh, _t(emask), None, folded)
+        assert np.array_equal(got.numpy(), np.asarray(want))
         want = JMG.sharded_weight_pass(
             jdg.mesh_graph.mesh, seg[0], emit[0], eid[0], jnp.asarray(emask), jnp.asarray(ok), jnp.asarray(w_f)
         )
-        got = MG.sharded_weight_pass(mesh, seg[1], emit[1], eid[1], _t(emask), _t(ok), _t(w_f))
+        got = MG.sharded_weight_pass(mesh, *sh, _t(emask), _t(ok), _t(w_f))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("S", [2, 3, 4])
+def test_plain_shard_weight_pass_csr_equals_reference(ref_mesh, S):
+    """K23's plain CSR walk (`plain_shard_weight_pass_csr`) and the slices'
+    plain walk (`plain_shard_weight_pass`) against the reference's
+    `sharded_weight_pass` on an S-shard mesh: out and in, with and without
+    an edge mask, ``w`` None (ones), int32 or float32, every held shard at
+    once and one shard at a time at its ``s0`` (a rank's part)."""
+    jsnap, jdg, _snap, _dg, _mesh = _meshed(S)
+    rng = np.random.default_rng(30 + S)
+    E = jsnap.edge_classes["HasFriend"].num_edges
+    vb = K.bucket(jsnap.num_vertices)
+    src, dst, eid = (_pair(S, f"sh:HasFriend:el:{k}") for k in ("src", "dst", "eid"))
+    ok = rng.random(vb) < 0.7
+    weights = {
+        "none": (None, np.ones(vb, np.int32)),
+        "i32": (rng.integers(0, 1000, vb).astype(np.int32),) * 2,
+        "f32": ((rng.random(vb) * 7.5).astype(np.float32),) * 2,
+    }
+    for d, (seg, emit) in (("out", (src, dst)), ("in", (dst, src))):
+        sh = _csr_of(S, d)
+        for m in (None, rng.random(E) < 0.6):
+            jm = np.ones(E, bool) if m is None else m
+            tm = None if m is None else _t(m)
+            for tag, (w, jw) in weights.items():
+                want = np.asarray(JMG.sharded_weight_pass(
+                    jdg.mesh_graph.mesh, seg[0], emit[0], eid[0], jnp.asarray(jm), jnp.asarray(ok), jnp.asarray(jw)
+                ))
+                tw = None if w is None else _t(w)
+                zeros = lambda: torch.zeros(vb, dtype=torch.float32 if tag == "f32" else torch.int32)  # noqa: E731
+                got = K.plain_shard_weight_pass_csr(*sh, d == "out", 0, tm, _t(ok), tw, zeros())
+                slices = K.plain_shard_weight_pass(seg[1], emit[1], eid[1], tm, _t(ok), tw, zeros())
+                ranks = zeros()
+                for s0 in range(S):
+                    one = tuple(t[s0 : s0 + 1] for t in sh)
+                    K.plain_shard_weight_pass_csr(*one, d == "out", s0, tm, _t(ok), tw, ranks)
+                for g in (got, slices, ranks):
+                    if tag == "f32":
+                        np.testing.assert_allclose(g.numpy(), want, rtol=1e-6)
+                    else:
+                        assert g.dtype == torch.int32 and np.array_equal(g.numpy(), want), (d, tag)
 
 
 # -- (c) statements, recorded and replayed --------------------------------------

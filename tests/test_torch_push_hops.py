@@ -213,3 +213,86 @@ def test_paged_push_equals_slot_walk(v, avg, block_edges, pages, hub, empty):
                     K.paged_hop_csr(*push, m, fr, g, out=acc)
                     assert torch.equal(acc, want | (torch.arange(vb) == vb - 1)[None, :])
             assert not K.paged_hop_csr(*push, emask, fr, gate, zero).any()
+
+
+#: (S, V, avg degree, hub edges, empty rows) for K23: SHARD_CASES, and one
+#: vertex holding 100,000 edges (rows across many of the kernel's 5,120-item
+#: tiles, and a shard whose edges are nearly all one row's)
+WEIGHT_CASES = SHARD_CASES + [(3, 2_000, 3.0, 100_000, slice(1_000, 1_500))]
+
+
+@pytest.mark.parametrize("S,v,avg,hub,empty", WEIGHT_CASES)
+def test_shard_weight_pass_equals_slot_walk(S, v, avg, hub, empty):
+    """K23: the segmented sum over the row-sharded CSR (the wrapper's CPU
+    path, `plain_shard_weight_pass_csr`) equals the reference's walk over
+    the edge-list slices (`plain_shard_weight_pass`): out and in, with and
+    without an edge mask and a vertex mask, ``w`` None, int32 or float32
+    (to rtol 1e-6), on all shards at once and shard by shard at each rank's
+    ``s0``."""
+    rng = np.random.default_rng(S * 100 + v + hub)
+    indptr, nbrs = skewed_csr(rng, v, avg, hub, empty)
+    csr, el, R = shard_layout(indptr, nbrs, S)
+    vb = K.bucket(v)
+    emask = _t(rng.random(nbrs.shape[0]) < 0.7)
+    ok = _t(rng.random(vb) < 0.6)
+    w_i = _t(rng.integers(-50, 1000, vb).astype(np.int32))
+    w_f = _t((rng.random(vb) * 3.0).astype(np.float32))
+    for d, (seg, emit) in (("out", (el[0], el[1])), ("in", (el[1], el[0]))):
+        sh = csr[d]
+        for m in (None, emask):
+            for o in (None, ok):
+                for w in (None, w_i, w_f):
+                    dt = torch.float32 if w is w_f else torch.int32
+                    want = K.plain_shard_weight_pass(seg, emit, el[2], m, o, w, torch.zeros(vb, dtype=dt))
+                    got = K.shard_weight_pass(*sh[:3], sh[3], 0, m, o, w, torch.zeros(vb, dtype=dt))
+                    ranks = torch.zeros(vb, dtype=dt)
+                    for s0 in range(S):
+                        one = tuple(t[s0 : s0 + 1] for t in sh[:3])
+                        K.shard_weight_pass(*one, sh[3], s0, m, o, w, ranks)
+                    for g in (got, ranks):
+                        if dt == torch.int32:
+                            assert torch.equal(g, want), (d, m is None, o is None, w is None)
+                        else:
+                            torch.testing.assert_close(g, want, rtol=1e-6, atol=1e-6 * float(want.abs().max() + 1))
+    # out accumulates: a pass adds into what is there
+    acc = torch.full((vb,), 7, dtype=torch.int32)
+    K.shard_weight_pass(*csr["out"][:3], True, 0, emask, ok, w_i, acc)
+    want = K.plain_shard_weight_pass(el[0], el[1], el[2], emask, ok, w_i, torch.zeros(vb, dtype=torch.int32)) + 7
+    assert torch.equal(acc, want)
+
+
+def _evicted(pageof):
+    return np.full_like(pageof, -1)
+
+
+@pytest.mark.parametrize("v,avg,block_edges,pages,hub,empty", PAGED_CASES)
+def test_paged_push_flag_equals_miss(v, avg, block_edges, pages, hub, empty):
+    """K20 folded into K19: the push's cold-miss flag (the wrapper's CPU
+    path with ``miss``) equals `plain_paged_hop_miss` on the pool as kept,
+    with every page evicted and with an empty pool (no slot); with a gate,
+    ``alive`` 0, an empty frontier and C up to 40. The flag is only ever
+    set: a True ``miss`` stays True, and the hop's bits do not change."""
+    rng = np.random.default_rng(3 * v + pages + hub)
+    indptr, part, pools, pageof = paged_pool(rng, v, avg, block_edges, pages, hub, empty)
+    vb = K.bucket(v)
+    gate = _t(rng.random(vb) < 0.8)
+    zero = torch.tensor(0, dtype=torch.int32)
+    no_pool = {n: np.zeros((0, part.Wp), np.int32) for n in pools}
+    for tag, pl, pg in (("kept", pools, pageof), ("evicted", pools, _evicted(pageof)), ("empty", no_pool, _evicted(pageof))):
+        push, _slot = paged_args(indptr, part, pl, pg)
+        ip, bv, pgt = push[0], push[1], push[2]
+        for c in (1, 40):
+            for fr in frontiers(rng, c, vb):
+                for g in (None, gate):
+                    for a in (None, zero):
+                        want = K.plain_paged_hop_miss(fr, bv, pgt, ip, g, a)
+                        miss = torch.zeros((), dtype=torch.bool)
+                        hop = K.paged_hop_csr(*push, None, fr, g, a, miss=miss)
+                        assert bool(miss) == bool(want), (tag, c, g is None, a is None)
+                        assert torch.equal(hop, K.paged_hop_csr(*push, None, fr, g, a))
+                        stay = torch.ones((), dtype=torch.bool)
+                        K.paged_hop_csr(*push, None, fr, g, a, miss=stay)
+                        assert bool(stay)
+        if tag != "kept" and part.E:
+            fr = frontiers(rng, 2, vb)[2]  # every vertex active
+            assert bool(K.plain_paged_hop_miss(fr, bv, pgt, ip))

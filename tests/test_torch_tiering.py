@@ -249,6 +249,52 @@ def test_paged_kernels_equal_reference(tiered, d):
             assert bool(got[3]) == bool(want[3])
 
 
+@pytest.mark.parametrize("d", ["out", "in"])
+def test_paged_push_flag_equals_reference(tiered, d):
+    """K20 folded into K19: the push's cold-miss flag (`paged_hop_csr`'s
+    ``miss`` on the CPU, `plain_paged_hop_csr`) equals the reference's
+    jitted `paged_hop_miss` on the tiering fixture's pools, with every block
+    evicted and with an empty pool (no page at all), with and without a
+    WHILE gate (the reference's frontier & gate), and is never set by an
+    empty frontier or ``alive`` 0."""
+    jdb, jsnap, db, snap = tiered
+    arrays = _ref_arrays(jsnap)
+    keys = tiering._keys("HasFriend", d)
+    vb = K.bucket(jsnap._tier.parts[("HasFriend", d)].V)
+    rng = np.random.default_rng(11)
+    evicted = dict(arrays)
+    evicted[keys["pageof"]] = np.full_like(arrays[keys["pageof"]], -1)
+    evicted[keys["own"]] = np.full_like(arrays[keys["own"]], -1)
+    empty = dict(evicted)
+    for n in ("own", "nbr", "eid"):
+        empty[keys[n]] = arrays[keys[n]][:0]
+    zero = torch.tensor(0, dtype=torch.int32)
+    flagged = []
+    for arr in (arrays, evicted, empty):
+        push = [_t(arr[k]) for k in (f"e:HasFriend:indptr_{d}", keys["blockv"], keys["pageof"], keys["estart"], keys["nbr"], keys["eid"])]
+        bv = arr[keys["blockv"]]
+        hot = np.zeros(vb, bool)  # vertices whose block is resident: no miss
+        hot[: bv.shape[0]] = (bv >= 0) & (arr[keys["pageof"]][np.clip(bv, 0, None)] >= 0)
+        for C, fr in ((1, rng.random((1, vb)) < 0.2), (3, rng.random((3, vb)) < 0.2), (2, (rng.random((2, vb)) < 0.5) & hot)):
+            gate = rng.random(vb) < 0.7
+            for g in (None, gate):
+                f_eff = fr if g is None else fr & g
+                want = bool(jt.paged_hop_miss(_j(arr), "HasFriend", d, jnp.asarray(f_eff)))
+                tg = None if g is None else _t(g)
+                miss = torch.zeros((), dtype=torch.bool)
+                K.paged_hop_csr(*push, None, _t(fr), tg, miss=miss)
+                assert bool(miss) == want
+                plain = torch.zeros((), dtype=torch.bool)
+                K.plain_paged_hop_csr(*push, None, _t(fr), tg, miss=plain)
+                assert bool(plain) == want
+                flagged.append(want)
+                for f, a in ((np.zeros_like(fr), None), (fr, zero)):
+                    miss = torch.zeros((), dtype=torch.bool)
+                    K.paged_hop_csr(*push, None, _t(f), tg, a, miss=miss)
+                    assert not bool(miss)
+    assert any(flagged) and not all(flagged)
+
+
 def test_paged_wrappers_take_the_plain_path_on_the_cpu(tiered):
     """The wrappers on CPU tensors equal their plain versions, and ``out``
     accumulates like K10's."""
