@@ -207,17 +207,22 @@ from the root of a checkout. Phases, each of which raises on failure:
    replay their captured graphs), W3 deletes of 4,096 slab edges by RID
    and 256 base persons (16 of them Q3 roots) with the cascade, and W4 16
    edges out of one person (its bucket overflows and the class switches
-   to the K17 window scan; then only Q3 at k = 200 and the direct rows
-   run). After each batch every cell equals numpy over the live host
+   to the K17 window scan and its hops to K10's edge-list form over the
+   window; then only Q3 at k = 200, the direct rows and V1 run). After
+   each batch every cell equals numpy over the live host
    arrays (the base CSR minus tombstones plus the live slab edges); no
    bucket overflows before W4; no resident tensor is reallocated. Prints
    each batch's maintainer host ms, bytes uploaded, K16 launches and the
    patches' device ms, and each cell's first and second call; launch
-   counts zeroed before W1 and read after W4 (K16–K18, K10, K14, K15
-   must launch). K16 is held against its plain version on W1's segments,
-   K18 at D1's probe, K17 at Q3 k = 200's second hop after W4, K10's
-   edge-list form at its real shape (an out hop over the slab's whole
-   window of 1,048,576 slots after W3, ORed into the CSR hop), each
+   counts zeroed before W1 and read after W3 (K16, K18, K10's push with
+   the slab probe, K14, K15 must launch, K10's edge-list form must not)
+   and again after W4 (K17 and the edge-list form must launch, the probe
+   must not). K16 is held against its plain version on W1's segments,
+   K18 at D1's probe, K17 at Q3 k = 200's second hop after W4, and the
+   slab's part of a dirty hop at its real shape (an out hop after W3,
+   the slab's whole window of 1,048,576 slots): K10's push with the probe
+   against the CSR push ORed with the plain edge-list hop over the window,
+   beside the parent's two launches, and the edge-list form alone, each
    timed eager and in a captured graph. TR1 runs before the writes, after
    W1 (the cleared cache records it anew) and after W2 (its stale data
    version sends the cached plan to a re-record), each equal to numpy over
@@ -237,9 +242,12 @@ from the root of a checkout. Phases, each of which raises on failure:
    clean once resident, then a re-record through the front door); T2
    (rows through the ``in`` partition, k = 100); T3 (``while:($depth <
    2)`` from 16 roots, twice; the second pass's replay median and
-   launches per replay printed). K19 and K21 must have launched, and K20
-   must not: a replay's K19 sets the cold-miss byte itself. Then holds
-   K19–K21 exactly against their plain versions at T's pool shapes (K19,
+   launches per replay printed; T1's and T2's launches per replay too).
+   K19 and K21 must have launched, and K20 must not: a replay's K19 push
+   and K21 gather set the replay's one cold-miss byte themselves. Then
+   holds K19–K21 exactly against their plain versions at T's pool shapes
+   (K21 also on a skewed Zipf frontier and with K19 in one captured graph
+   sharing one miss byte; K19,
    the push over the resident indptr and the page indirection, also
    against the slot walk over the pool it replaced; K20 alone and folded
    into K19's push, also at ``alive`` 0),
@@ -256,7 +264,8 @@ from the root of a checkout. Phases, each of which raises on failure:
 The line before the last is one JSON object with every kernel's numbers
 (``launches`` from phase 5, from phase 6's replay path for
 `rows_with_matches`, from phase 7 for `group_page`, from phase 8 for
-K16–K18 and K10's edge-list form, from phase 9 for K19–K21 (K20 0: off the
+K16–K18, K10's push with the slab probe and its edge-list form, from
+phase 9 for K19–K21 (K20 0: off the
 path, held and timed) and from phase 7m's cells for the mesh
 kernels, each but the mesh's plus phase 5c's replay path;
 K3, K12 and K15 timed in their TRAVERSE forms: the offset form on TR4's
@@ -320,6 +329,7 @@ REPLACES = {
     "rows_to_bitmap": "orientdb_tpu/ops/csr.py:251",
     "bitmap_hop": "orientdb_tpu/ops/csr.py:260",
     "bitmap_hop_csr": "orientdb_tpu/ops/csr.py:260",
+    "bitmap_hop_probe": "orientdb_tpu/exec/tpu_engine.py:527",
     "bitmap_emit": "orientdb_tpu/exec/tpu_engine.py:475",
     "frontier_advance": "orientdb_tpu/exec/tpu_engine.py:2171",
     "rows_with_matches": "orientdb_tpu/ops/csr.py:283",
@@ -341,9 +351,10 @@ BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop_csr", "bitmap_emit", "frontier_a
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
 #: the kernel only the batch path launches (phase 7)
 BATCH_ONLY = ("group_page",)
-#: the kernels only a delta-maintained snapshot launches (phase 8; K10's
-#: edge-list form walks the slab's slots once the topology is dirty)
-DELTA_ONLY = ("scatter_set", "slab_scan", "slab_probe", "bitmap_hop")
+#: the kernels only a delta-maintained snapshot launches (phase 8: on dirty
+#: topology K10's push probes the slab's buckets, and its edge-list form
+#: walks the slab's slots once a bucket of the class overflowed)
+DELTA_ONLY = ("scatter_set", "slab_scan", "slab_probe", "bitmap_hop", "bitmap_hop_probe")
 #: the kernels only a tiered snapshot launches (phase 9)
 TIER_ONLY = ("paged_hop_csr", "paged_hop_miss", "paged_expand")
 #: the kernels only a meshed snapshot launches (phase 7m)
@@ -3826,8 +3837,9 @@ def run_deltas(np, torch, K, TE, ks, db, snap, card):
         _require(not ov.bucket_overflow, f"{tag} overflowed a bucket: {ov.bucket_overflow}")
     _require(all(dg.arrays[k].data_ptr() == p for k, p in ptrs.items()), "a patch reallocated a resident tensor")
     path = dict(K.LAUNCHES)
-    for name in ("scatter_set", "slab_probe", "predicate_eval", "bitmap_hop", "bitmap_hop_csr", "group_page"):
+    for name in ("scatter_set", "slab_probe", "predicate_eval", "bitmap_hop_probe", "group_page"):
         _require(path[name] > 0, f"{name} never launched in the delta phase")
+    _require(path["bitmap_hop"] == 0, f"a dirty hop ran the edge-list form before any overflow: {path['bitmap_hop']}")
     check_delta_kernels(np, torch, K, ks, dg, snap)
 
     # W4: one person's out bucket overflows, the class switches to K17
@@ -3851,16 +3863,18 @@ def run_deltas(np, torch, K, TE, ks, db, snap, card):
         "direct": (Q_DIRECT, {"k": Q_DIRECT_K}, lambda rows: _require(
             np.array_equal(_sorted_rows(np, rows, ("p", "f")), dref.direct(Q_DIRECT_K)), "direct after W4"))}
     cells.update(small)
-    run_cells("after W4", names=("Q3", "direct"), batch=False)
+    # V1 hops over the overflowed class: K10's edge-list form over the window
+    run_cells("after W4", names=("Q3", "direct", "V1"), batch=False)
     w4 = dict(K.LAUNCHES)
     _require(w4["slab_scan"] > 0 and w4["slab_probe"] == 0, f"W4's cells did not scan the slab: {w4}")
+    _require(w4["bitmap_hop"] > 0 and w4["bitmap_hop_probe"] == 0, f"V1 after W4 did not hop the window: {w4}")
     scans = w4["slab_scan"] // K17_LAUNCHES
     print(
         f"delta W4 launches: { {k: v for k, v in w4.items() if v} }; {scans} window scans of "
         f"{K17_LAUNCHES} slab_scan launches each"
     )
     check_slab_scan(torch, K, ks, dg, snap, src)
-    for name in ("scatter_set", "slab_scan", "slab_probe"):
+    for name in DELTA_ONLY:
         path[name] += w4[name]
     return path
 
@@ -3869,7 +3883,8 @@ def check_delta_kernels(np, torch, K, ks, dg, snap):
     """K16 against its plain version at W1's segments (the dst and live
     slots of 131,072 new edges), on copies of the resident arrays; K18 at
     D1's probe (the 100,000 roots of `uid < 100,000`); each timed, and in
-    a captured graph, beside its bound; their launches are not counted."""
+    a captured graph, beside its bound; then the slab's part of a dirty hop
+    (`check_slab_hop`); their launches are not counted."""
     counted = dict(K.LAUNCHES)
     dev = dg.device
     ov = snap._overlay
@@ -3935,19 +3950,40 @@ def check_delta_kernels(np, torch, K, ks, dg, snap):
         f"{ks.rows['slab_probe']['ms']:.4f} ms ({p_ms:.4f} in a graph), bound {ks.rows['slab_probe']['bound_ms']:.4f} "
         f"({filled} filled bucket entries probed)"
     )
-    check_slab_hop(torch, K, ks, dg, dec, sl)
+    check_slab_hop(torch, K, ks, dg, dec, sl, ov)
     K.LAUNCHES.update(counted)
 
 
-def check_slab_hop(torch, K, ks, dg, dec, sl, c: int = 8) -> None:
-    """K10's edge-list form at the shape the engine runs it on this
-    snapshot (`build_bitmap_hops` on dirty topology): an out hop over the
-    slab's whole window of slots [base, cap), ``live`` as the mask, ORed
-    into the CSR form's bitmap; C = 8 rows of 10 random vertices and the
-    sources of 64 random live slab edges each. Held against its plain
-    version and timed (eager and in a graph) beside its bound at this
-    shape: a mask byte a window slot; at a live slot its endpoints and the
-    C frontier bytes at its active endpoint; a byte a row it sets."""
+def probe_bytes(torch, probe, fr, emask) -> tuple:
+    """(bytes, active vertices, filled entries, kept entries): what the
+    slab probe adds to K10's push for this frontier: BK int32 of bucket an
+    active vertex, the owning endpoint and liveness (5 bytes) at each filled
+    entry of those buckets, and at each kept entry the mask byte and the
+    emitted endpoint (5 bytes)."""
+    vb = fr.shape[1]
+    v = fr.any(0)[: min(vb, probe.own.shape[0])].nonzero().view(-1)
+    rel = probe.tab.view(probe.nb, probe.bk)[v & (probe.nb - 1)].long()
+    at = (probe.base + rel).clamp(0, probe.own.shape[0] - 1)
+    filled = (rel >= 0) & (probe.base + rel < probe.own.shape[0])
+    kept = filled & (probe.own[at].long() == v[:, None]) & probe.live[at] & emask[at]
+    n_fill, n_kept = int(filled.sum()), int(kept.sum())
+    return probe.bk * 4.0 * v.shape[0] + 5.0 * n_fill + 5.0 * n_kept, int(v.shape[0]), n_fill, n_kept
+
+
+def check_slab_hop(torch, K, ks, dg, dec, sl, ov, c: int = 8) -> None:
+    """The slab's part of a dirty hop at the shape the engine runs it on
+    this snapshot after W3 (`build_bitmap_hops`; an out hop, ``live`` as
+    the mask): K10's push with the slab probe (one launch), held against
+    the CSR form's plain push ORed with the plain edge-list hop over the
+    slab's whole window [base, cap) (the parent's two launches) and against
+    its own plain version; and K10's edge-list form over that window (which
+    a class runs once a bucket overflowed), held against its plain version.
+    C = 8 rows of 10 random vertices and the sources of 64 random live slab
+    edges each. Each timed eager and in a captured graph beside its bound
+    at this shape, the parent's pair beside them: the probe's bound is the
+    CSR push's (`csr_hop_bytes`) plus `probe_bytes`; the edge-list form's a
+    mask byte a window slot, at a live slot its endpoints and the C
+    frontier bytes at its active endpoint, and a byte a row it sets."""
     dev = dg.device
     win = slice(sl.base, sl.cap)
     a, e, m = dec.edge_src[win], dec.dst[win], dec.live[win]
@@ -3961,20 +3997,32 @@ def check_slab_hop(torch, K, ks, dg, dec, sl, c: int = 8) -> None:
         if live.numel():
             fr[r, a[live[torch.randint(0, live.numel(), (64,), generator=gen, device=dev)]].long()] = True
     alive = K.mask_count(fr.view(-1))
-    base = K.bitmap_hop_csr(dec.indptr_out, dec.dst, None, None, fr)
+    csr = (dec.indptr_out, dec.dst, None)
+    lv = dec.live
+    base = K.bitmap_hop_csr(*csr, lv, fr)
     acc = base.clone()
     K.bitmap_hop(a, e, m, fr, None, alive, acc)
     want = K.plain_bitmap_hop(a, e, m, fr, None, alive)
     ks.same("bitmap_hop", acc, base | want)
     ks.same("bitmap_hop", K.bitmap_hop(a, e, m, fr, None, alive), want)
+    probe = K.SlabIndex(dg.arrays["bk:knows:out"], dec.edge_src, dec.dst, lv, sl.base, ov.bk_nb, ov.bk_bk)
+    folded = lambda f=fr, al=alive: K.bitmap_hop_csr(*csr, lv, f, None, al, probe=probe)  # noqa: E731
+    plain_folded = lambda: (  # noqa: E731
+        K.plain_bitmap_hop_csr(*csr, lv, fr, None, alive) | K.plain_bucket_hop(probe, lv, fr, None, alive)
+    )
+    got = folded()
+    ks.same("bitmap_hop_probe", got, K.plain_bitmap_hop_csr(*csr, lv, fr, None, alive) | want)
+    ks.same("bitmap_hop_probe", got, plain_folded())
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    _require(not folded(fr, zero).any(), "the probe hop wrote at alive 0")
     L = int(live.numel())
     act = int(fr.any(0)[a[live].long().clamp(0, vb - 1)].sum())
     n_set = int(want.sum())
     sp = None
+    fr_t = fr.t().float().contiguous()
     try:
         idx = torch.stack([e[live].long(), a[live].long()])
         sp = torch.sparse_coo_tensor(idx, torch.ones(L, device=dev), (vb, vb)).coalesce().to_sparse_csr()
-        fr_t = fr.t().float().contiguous()
     except (RuntimeError, TypeError) as err:
         print(f"library call for bitmap_hop refused: {err}")
     hop = lambda: K.bitmap_hop(a, e, m, fr, None, alive, acc)  # noqa: E731
@@ -3991,6 +4039,38 @@ def check_slab_hop(torch, K, ks, dg, dec, sl, c: int = 8) -> None:
         f"an active endpoint, C={c}, ORed into the CSR hop): equals its plain version; {r['ms']:.4f} ms eager, "
         f"{_graph_ms(torch, hop):.4f} in a graph, bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
         f"library {r['library_ms']}"
+    )
+    # the probe's yardstick: one sparse product over every live edge, base
+    # and slab (rows = the reached endpoint; counts, not bits)
+    sp_all = None
+    try:
+        ok = lv.nonzero().view(-1)
+        idx = torch.stack([dec.dst[ok].long(), dec.edge_src[ok].long()])
+        sp_all = torch.sparse_coo_tensor(idx, torch.ones(ok.shape[0], device=dev), (vb, vb)).coalesce().to_sparse_csr()
+        del idx, ok
+    except (RuntimeError, TypeError) as err:
+        print(f"library call for bitmap_hop_probe refused: {err}")
+    b_csr, n_act, n_edges = csr_hop_bytes(torch, dec.indptr_out, fr, None, True, False)
+    b_probe, _act, n_fill, n_kept = probe_bytes(torch, probe, fr, lv)
+    ks.timed(
+        "bitmap_hop_probe",
+        folded,
+        plain_folded,
+        None if sp_all is None else (lambda: torch.sparse.mm(sp_all, fr_t)),
+        b_csr + b_probe,
+    )
+    del sp_all
+    parent = lambda: K.bitmap_hop(a, e, m, fr, None, alive, K.bitmap_hop_csr(*csr, lv, fr, None, alive))  # noqa: E731
+    push = lambda: K.bitmap_hop_csr(*csr, lv, fr, None, alive)  # noqa: E731
+    r = ks.rows["bitmap_hop_probe"]
+    print(
+        f"kernel bitmap_hop_probe at the slab window (out hop after W3, C={c}: {n_act} active vertices, "
+        f"{n_edges} CSR edges, {n_fill} filled bucket entries probed, {n_kept} kept): equals the CSR push ORed "
+        f"with the plain edge-list hop over the window, and its plain version; {r['ms']:.4f} ms eager, "
+        f"{_graph_ms(torch, folded):.4f} in a graph, bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+        f"library {r['library_ms']}; the parent's two launches (CSR push + edge-list window) "
+        f"{_time_ms(torch, parent):.4f} eager, {_graph_ms(torch, parent):.4f} in a graph; the CSR push alone "
+        f"{_graph_ms(torch, push):.4f} in a graph"
     )
 
 
@@ -4256,7 +4336,12 @@ def run_tiered(np, torch, K, TE, ks, db, snap, card, a_qps: float, a_bytes: int)
         # T1: the reference's tiered/resident statistic
         t = time.perf_counter()
         qps = t1_qps(db, tref)
-        print(f"tier T1: {qps:.1f} q/s tiered, {a_qps:.1f} q/s resident; tiered_vs_resident {qps / a_qps:.4f}")
+        t1p = max(_only_plan(TE, snap, T1).plans, key=lambda p: p.replays)
+        _require(t1p.launches.get("paged_expand", 0) > 0, f"T1's replay does not run K21: {t1p.launches}")
+        print(
+            f"tier T1: {qps:.1f} q/s tiered, {a_qps:.1f} q/s resident; tiered_vs_resident {qps / a_qps:.4f}; "
+            f"launches per replay {sum(t1p.launches.values())} {t1p.launches} [{card}]"
+        )
         loaded("T1", time.perf_counter() - t)
         # T1c: every block, more than the pool holds, on the recording path
         ev0 = tier.evictions
@@ -4276,7 +4361,9 @@ def run_tiered(np, torch, K, TE, ks, db, snap, card, a_qps: float, a_bytes: int)
         for k in (T2_K, T2_K, T2_K // 2):
             rows = db.query(T2, {"k": k}).to_dicts()
             _require(np.array_equal(_sorted_rows(np, rows, ("pu", "fu")), tref.t2(k)), f"T2 k={k}")
-        _require(_only_plan(TE, snap, T2).plans[0].replays == 2, "T2 did not replay")
+        t2p = _only_plan(TE, snap, T2).plans[0]
+        _require(t2p.replays == 2, "T2 did not replay")
+        print(f"tier T2: launches per replay {sum(t2p.launches.values())} {t2p.launches} [{card}]")
         loaded("T2", time.perf_counter() - t)
         # T3: K19 hops (each setting the replay's cold-miss byte), 16 roots
         # recorded, then replayed, the second pass timed
@@ -4597,12 +4684,22 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
 
     t1c = torch.tensor([q["u"] for q in T1C_PARAMS] + [-1] * 7, dtype=i32, device=dev)
     t2 = torch.cat([torch.arange(T2_K, dtype=i32, device=dev), torch.full((K.bucket(T2_K) - T2_K,), -1, dtype=i32, device=dev)])
+    # a skewed frontier: 4,096 sources drawn by Zipf(1.3) ranks of the
+    # vertices ordered by out-degree (the highest repeated hundreds of
+    # times), a sixteenth of them -1
+    deg = (po["indptr"][1:] - po["indptr"][:-1]).long()
+    zr = torch.from_numpy(np.random.default_rng(21).zipf(1.3, 4_096) - 1).clamp(max=V - 1).to(dev)
+    zipf = torch.argsort(deg, descending=True, stable=True)[zr].to(i32)
+    zipf[::16] = -1
     for case in (pools, evicted, empty):
-        for d, srcs in (("out", t1c), ("in", t2), ("out", t1c[:1]), ("in", t1c[-8:])):
+        for d, srcs in (("out", t1c), ("in", t2), ("out", t1c[:1]), ("in", t1c[-8:]), ("out", zipf)):
             expand(case[d], d, srcs)
     _require(bool(expand(evicted["out"], "out", t1c)[3]), "K21 did not flag an all-evicted pool")
-    # in a captured graph: the same launches replayed
+    # in a captured graph: the same launches replayed, and a replay's
+    # tiered reads sharing one miss byte (zeroed once, K19's push and
+    # K21's gather storing into it)
     offs, tot, n = expand_args(po, t1c)
+    z_offs, z_tot, z_n = expand_args(po, zipf)
     outs = {}
     k19 = lambda: K.paged_hop_csr(*push(po), None, fr1, gate, alive1)  # noqa: E731
 
@@ -4612,11 +4709,25 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
         flag.zero_()
         return K.paged_hop_csr(*push(po), None, fr1, gate, alive1, miss=flag)
 
+    def k21(srcs=t1c, o=offs, t=tot, size=n, f=None):
+        return K.paged_expand(po["indptr"], srcs, o, t, size, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True, f)
+
+    def plain_k21(srcs=t1c, o=offs, t=tot, size=n):
+        return K.plain_paged_expand(po["indptr"], srcs, o, t, size, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True)
+
+    shared = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def k21_flag():
+        return k21(f=shared)
+
     def captured():
         outs["hop"] = k19()
         outs["hop_f"] = k19_flag()
         outs["miss"] = K.paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1)
-        outs["expand"] = K.paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True)
+        outs["expand"] = k21()
+        outs["shared"] = torch.zeros((), dtype=torch.bool, device=dev)
+        outs["hop_s"] = K.paged_hop_csr(*push(po), None, fr1, gate, alive1, miss=outs["shared"])
+        outs["zipf_s"] = k21(zipf, z_offs, z_tot, z_n, outs["shared"])
 
     captured()
     torch.cuda.synchronize()
@@ -4629,10 +4740,11 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
     ks.same("paged_hop_csr", outs["hop_f"], outs["hop"])
     ks.same("paged_hop_miss", outs["miss"], K.plain_paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1))
     ks.same("paged_hop_csr", flag, outs["miss"])
-    ks.same(
-        "paged_expand", outs["expand"],
-        K.plain_paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True),
-    )
+    ks.same("paged_expand", outs["expand"], plain_k21())
+    z_want = plain_k21(zipf, z_offs, z_tot, z_n)
+    ks.same("paged_expand", outs["zipf_s"][:3], z_want[:3])
+    ks.same("paged_hop_csr", outs["hop_s"], outs["hop"])
+    ks.same("paged_expand", outs["shared"], outs["miss"] | z_want[3])
     torch.cuda.synchronize()
 
     # -- times ----------------------------------------------------------------
@@ -4679,20 +4791,27 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
         1.0 * C * V + in_fr + active * 16.0 + 1.0,
     )
     R = t1c.shape[0]
-    ks.timed(
-        "paged_expand",
-        lambda: K.paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True),
-        lambda: K.plain_paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True),
-        None,  # a searchsorted then four gathers and the nulling selects
+
+    def k21_bytes(r, t, size):
         # per source its offset, indptr pair, block, page and block start;
         # a pool read per live slot; three int32 outputs a slot; the flag
-        R * 24.0 + 4.0 + int(tot) * 4.0 + n * 12.0 + 1.0,
+        return r * 24.0 + 4.0 + min(int(t), size) * 4.0 + size * 12.0 + 1.0
+
+    ks.timed(
+        "paged_expand",
+        k21,
+        plain_k21,
+        None,  # a searchsorted then four gathers and the nulling selects
+        k21_bytes(R, tot, n),
     )
+    z_ms = [_time_ms(torch, lambda: k21(zipf, z_offs, z_tot, z_n)), _graph_ms(torch, lambda: k21(zipf, z_offs, z_tot, z_n))]
+    z_bound = k21_bytes(zipf.shape[0], z_tot, z_n) / HBM_BYTES_PER_S * 1e3
     g_ms = {
         "paged_hop_csr": _graph_ms(torch, k19),
         "paged_hop_csr with the flag": _graph_ms(torch, k19_flag),
         "paged_hop_miss": _graph_ms(torch, lambda: K.paged_hop_miss(fr1, po["blockv"], po["pageof"], po["indptr"], gate, alive1)),
-        "paged_expand": _graph_ms(torch, lambda: K.paged_expand(po["indptr"], t1c, offs, tot, n, po["blockv"], po["pageof"], po["estart"], po["nbr"], po["eid"], True)),
+        "paged_expand": _graph_ms(torch, k21),
+        "paged_expand with the shared flag": _graph_ms(torch, k21_flag),
     }
     for name in TIER_ONLY:
         r = ks.rows[name]
@@ -4706,6 +4825,13 @@ def check_tier_kernels(np, torch, K, ks, dg, tier):
         f"evicted, an empty pool, alive 0, captured); in a graph {g_ms['paged_hop_csr with the flag']:.4f} ms "
         f"with the flag (its zeroing included) against {g_ms['paged_hop_csr']:.4f} without and "
         f"{g_ms['paged_hop_miss']:.4f} for K20 alone"
+    )
+    print(
+        f"kernel paged_expand as a replay runs it (the shared miss byte, no memset): "
+        f"{g_ms['paged_expand with the shared flag']:.4f} ms in a graph against {g_ms['paged_expand']:.4f} with "
+        f"its own zeroed byte; on the skewed frontier ({zipf.shape[0]} Zipf sources, total {int(z_tot)} into "
+        f"{z_n}) {z_ms[0]:.4f} ms eager, {z_ms[1]:.4f} in a graph, bound {z_bound:.4f}; in one graph with K19 "
+        f"sharing one miss byte: equal to the plain versions and the OR of their flags"
     )
     print(
         f"tier kernels: pool S={S} slots ({live} live), V={V}; K19's frontier: {int(av.shape[0])} active "

@@ -77,12 +77,36 @@ compare two trees on one card:
   cold-miss flag into K19, the push with its flag; else K20
   ``paged_hop_miss``, its memset and the OR into the overflow flag, then
   K19).
+- ``slabhop``: the slab's part of a dirty out hop on an A-shaped graph
+  armed as phase 8 of ``chip_smoke.py`` leaves it after W3 (8,065,536
+  vertices, vb = 2^23; a slab of 1,048,576 slots holding 131,072 edges,
+  16,384 of them out of new vertices, indexed in 2^18 buckets of 8; 4,096
+  slab and 5,000 base edges tombstoned), at C = 8 (10 random vertices
+  and the sources of 64 random live slab edges a row) and dense: the
+  tree's dirty hop as its engine runs it (K10's push with the slab probe
+  where the tree has it, else the CSR push and the edge-list form over
+  the window ORed in), beside the CSR push alone and the bounds. Times
+  at the sparse shape (and K21's) also with 50 calls in one graph, which
+  spreads the graph's own launch over them.
+- ``k21``: K21 ``paged_expand`` over ``hops``' T pool (blocks of 65,536
+  edges, 213 pages), at T1c's 1,031 sources and on a skewed frontier
+  (4,096 Zipf(1.3) ranks of the vertices by degree, a sixteenth -1), and
+  over K2's Zipf-degree CSR paged the same way (every vertex a source, a
+  third -1):
+  alone, and as a tiered replay runs it (this tree: the gather storing
+  into the replay's shared miss byte; a tree without the ``flag``
+  argument: the gather with its own zeroed byte and the OR into the
+  overflow flag).
 - ``replays`` (not in the default set: it builds A, ~1-2 min of host
   work): MQ1 and MQ2 on A split four ways, T3 (16 roots, the second pass
   timed) and T4 (TR1) on A tiered at half its adjacency bytes, through
   the tree's ``db.query``: replay medians and launches per replay.
+- ``dtreplays`` (not in the default set: it builds A, ~3 min of host
+  work): V1 on A armed for deltas after chip_smoke's W1–W3, and T1 (64
+  roots), T2 (k = 100) and T3 (16 roots) on A tiered, through the tree's
+  ``db.query``: replay medians and launches per replay.
 
-    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5,k2,hops,k17,k24,k23,k20,replays]
+    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5,k2,hops,k17,k24,k23,k20,slabhop,k21,replays,dtreplays]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
 package to time; it is imported before anything else, and the file it was
@@ -453,7 +477,7 @@ def _t_pool(torch, K, gen, indptr, dst, deg, edge_src):
     degrees), with T3's frontier (8 rows of 10 vertices and vertex 0) and
     its 0.9 WHILE gate. Returns (blockv, pageof, estart, pools, frontier,
     gate, P, Wp, B)."""
-    i32, ne = torch.int32, int(indptr[-1])
+    i32, ne, nv = torch.int32, int(indptr[-1]), indptr.shape[0] - 1
     Wb = max(65_536, int(deg.max()))
     Wp = K.bucket(Wb + int(deg.max()), minimum=8)
     q = indptr[:-1].long() // Wb
@@ -463,10 +487,10 @@ def _t_pool(torch, K, gen, indptr, dst, deg, edge_src):
     estart = torch.cat([indptr[first_v], indptr[-1:]]).to(i32)
     P = min(213, B)
     f = _bitmap(torch, gen, C, VB, 10)
-    f[:, PERSONS:] = False
+    f[:, nv:] = False
     f[:, 0] = True
     gate = torch.rand(VB, generator=gen, device="cuda") < 0.9
-    hot = torch.unique(blockv[(f.any(0) & gate)[:PERSONS]])
+    hot = torch.unique(blockv[(f.any(0) & gate)[:nv]])
     prio = torch.zeros(B, dtype=torch.long, device="cuda").scatter_reduce(0, blockv, deg, "amax")
     prio[hot] = 1 << 40  # T3's footprint is resident when it replays
     resident = torch.argsort(prio, descending=True, stable=True)[:P]
@@ -747,6 +771,238 @@ def k20(np, torch, K, cs, times) -> None:
             print(f"{key} (flag {bool(want)}): {times[key][0]:.4f} ms eager, {times[key][1]:.4f} in a graph")
 
 
+def _armed_a(np, torch, K, seed: int):
+    """An A-shaped out-CSR armed as phase 8 leaves it after W3 (module
+    docstring): the padded indptr and dst, edge_src and live over every
+    edge slot, the out bucket table, the slab's base, and the generator."""
+    i32 = torch.int32
+    indptr, dst, deg, edge_src, gen = _a_graph(np, torch, seed)
+    del deg
+    ne, vcap, spare, nb, bk = int(indptr[-1]), PERSONS + 65_536, 1 << 20, 1 << 18, 8
+    new, extra = 16_384, 98_304
+    cap = ne + spare
+    pad = lambda t: torch.cat([t, torch.full((spare,), -1, dtype=i32, device="cuda")])  # noqa: E731
+    edge_src, dst = pad(edge_src), pad(dst)
+    indptr = torch.cat([indptr, indptr[-1:].expand(vcap - PERSONS)]).contiguous()
+    fresh = torch.arange(PERSONS, PERSONS + new, dtype=i32, device="cuda")
+    rnd = lambda n: torch.randint(0, PERSONS, (n,), generator=gen, device="cuda", dtype=i32)  # noqa: E731
+    s_src = torch.cat([fresh, rnd(new), rnd(extra)])
+    s_dst = torch.cat([rnd(new), fresh, rnd(extra)])
+    used = s_src.shape[0]
+    edge_src[ne : ne + used], dst[ne : ne + used] = s_src, s_dst
+    live = torch.zeros(cap, dtype=torch.bool, device="cuda")
+    live[: ne + used] = True
+    # the out table as bucket_add fills it: slab slots in order, a bucket's
+    # entries in slot order (no bucket reaches 8 at this load)
+    key = (s_src & (nb - 1)).long()
+    order = torch.sort(key, stable=True).indices
+    sk = key[order]
+    first = torch.searchsorted(sk, sk)
+    rank = torch.arange(used, device="cuda") - first
+    if int(rank.max()) >= bk:
+        raise SystemExit("slabhop: a bucket overflowed the synthetic slab")
+    tab = torch.full((nb * bk,), -1, dtype=i32, device="cuda")
+    tab[sk * bk + rank] = order.to(i32)
+    # W3: 4,096 slab edges and 5,000 base edges tombstoned
+    dead_slab = ne + torch.randperm(used, generator=gen, device="cuda")[:4_096]
+    dead_base = torch.randperm(ne, generator=gen, device="cuda")[:5_000]
+    live[dead_slab] = False
+    live[dead_base] = False
+    dst[dead_base] = -1
+    return indptr, dst, edge_src, live, tab, ne, nb, bk, gen
+
+
+def slabhop(np, torch, K, cs, times) -> None:
+    """The slab's part of a dirty hop (module docstring)."""
+    indptr, dst, edge_src, live, tab, base, nb, bk, gen = _armed_a(np, torch, K, 20)
+    win = slice(base, edge_src.shape[0])
+    a, e, m = edge_src[win], dst[win], live[win]
+    probe = hasattr(K, "SlabIndex")
+    print(f"slabhop: the tree folds the slab into K10's push as a bucket probe: {probe}")
+    live_slab = torch.nonzero(m).view(-1)
+    sparse = torch.zeros((C, VB), dtype=torch.bool, device="cuda")
+    for r in range(C):
+        sparse[r, torch.randint(0, PERSONS, (10,), generator=gen, device="cuda")] = True
+        sparse[r, a[live_slab[torch.randint(0, live_slab.numel(), (64,), generator=gen, device="cuda")]].long()] = True
+    dense = torch.ones((C, VB), dtype=torch.bool, device="cuda")
+    csr = (indptr, dst, None)
+    if probe:
+        index = K.SlabIndex(tab, edge_src, dst, live, base, nb, bk)
+        hop = lambda f, al: K.bitmap_hop_csr(*csr, live, f, None, al, probe=index)  # noqa: E731
+    else:
+        hop = lambda f, al: K.bitmap_hop(a, e, m, f, None, al, K.bitmap_hop_csr(*csr, live, f, None, al))  # noqa: E731
+    for name, f in (("C=8 sparse", sparse), ("dense", dense)):
+        alive = K.mask_count(f.view(-1))
+        if name == "dense":  # every vertex active: every live edge's target is reached in every row
+            want = torch.zeros((C, VB), dtype=torch.bool, device="cuda")
+            want[:, dst[live].long()] = True
+        else:
+            want = K.plain_bitmap_hop_csr(*csr, live, f, None, alive) | K.plain_bitmap_hop(a, e, m, f, None, alive)
+        _same(torch, hop(f, alive), want, f"slab hop ({name})")
+        b_csr, n_act, n_edges = cs.csr_hop_bytes(torch, indptr, f, None, True, False)
+        line = f"slab hop {name} ({n_act} active vertices, {n_edges} CSR edges"
+        if probe:
+            b_probe, _pa, n_fill, n_kept = cs.probe_bytes(torch, index, f, live)
+            line += f", {n_fill} filled entries probed, {n_kept} kept; bound {(b_csr + b_probe) / cs.HBM_BYTES_PER_S * 1e3:.4f}"
+        line += f"; the CSR push alone's bound {b_csr / cs.HBM_BYTES_PER_S * 1e3:.4f})"
+        for form, fn in (("the tree's dirty hop", lambda f=f, al=alive: hop(f, al)),
+                         ("the CSR push alone", lambda f=f, al=alive: K.bitmap_hop_csr(*csr, live, f, None, al))):
+            key = f"slab hop {name}: {form}"
+            times[key] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+            line += f"; {form} {times[key][0]:.4f} ms eager, {times[key][1]:.4f} in a graph"
+            if name != "dense":
+                times[key].append(_graph_ms_many(torch, fn))
+                line += f", {times[key][2]:.4f} a call in a graph of 50"
+        print(line)
+
+
+def _graph_ms_many(torch, fn, n: int = 50, reps: int = 5) -> float:
+    """Mean milliseconds a call of ``fn`` with ``n`` calls captured in one
+    CUDA graph, replayed ``reps`` times: a call's device time with the
+    graph's own launch spread over the n calls."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * n)
+
+
+def k21(np, torch, K, cs, times) -> None:
+    """K21 at T1c's sources, on a skewed frontier and over a Zipf-degree
+    partition (module docstring)."""
+    i32 = torch.int32
+    indptr, dst, deg, edge_src, gen = _a_graph(np, torch, 21)
+    blockv, pageof, estart, pools, _f, _gate, P, Wp, B = _t_pool(torch, K, gen, indptr, dst, deg, edge_src)
+    del dst, edge_src
+    flagged = "flag" in inspect.signature(K.paged_expand).parameters
+    print(f"k21: the tree takes the replay's shared miss byte: {flagged}")
+    t1c = torch.tensor([(i * 65_537) % PERSONS for i in range(1_024)] + [-1] * 7, dtype=i32, device="cuda")
+    zr = torch.from_numpy(np.random.default_rng(21).zipf(1.3, 4_096) - 1).clamp(max=PERSONS - 1).cuda()
+    zipf = torch.argsort(deg, descending=True, stable=True)[zr].to(i32)
+    zipf[::16] = -1
+    shared = torch.zeros((), dtype=torch.bool, device="cuda")
+    over = torch.zeros((), dtype=torch.bool, device="cuda")
+    part = (indptr, blockv, pageof, estart, pools, P, Wp, B)
+    cases = [("T1c's sources", part, t1c), ("Zipf frontier", part, zipf)]
+    # the Zipf-degree CSR of K2's Zipf case (one vertex of 150,000 edges),
+    # paged the same way; every vertex a source, a third of them -1
+    z_ip, zrng = cs.zipf_indptr(np, torch, "cuda")
+    zv, ze = z_ip.shape[0] - 1, int(z_ip[-1])
+    z_deg = (z_ip[1:] - z_ip[:-1]).long()
+    z_dst = torch.randint(0, zv, (ze,), generator=gen, device="cuda", dtype=i32)
+    z_src = torch.repeat_interleave(torch.arange(zv, dtype=i32, device="cuda"), z_deg)
+    zb, zp, zs, zpools, _f, _g, zP, zWp, zB = _t_pool(torch, K, gen, z_ip, z_dst, z_deg, z_src)
+    del z_dst, z_src
+    z_srcs = torch.arange(zv, dtype=i32, device="cuda")
+    z_srcs[torch.from_numpy(zrng.random(zv) < 1 / 3).cuda()] = -1
+    cases.append(("Zipf-degree partition", (z_ip, zb, zp, zs, zpools, zP, zWp, zB), z_srcs))
+    for name, (indptr, blockv, pageof, estart, pools, P, Wp, B), srcs in cases:
+        counts = K.degree_counts(indptr, srcs)
+        offsets, total = K.exclusive_cumsum_total(counts)
+        size = K.bucket(max(int(total), 1))
+        args = (indptr, srcs, offsets, total, size, blockv, pageof, estart, pools["nbr"], pools["eid"], True)
+        _same(torch, K.paged_expand(*args), K.plain_paged_expand(*args), f"paged_expand ({name})")
+        if flagged:
+            replay = lambda a=args: K.paged_expand(*a, flag=shared)  # noqa: E731
+        else:
+            def replay(a=args):
+                out = K.paged_expand(*a)
+                torch.logical_or(over, out[3], out=over)  # SizeSchedule.note_flag's OR
+                return out
+        nbytes = srcs.shape[0] * 24.0 + 4.0 + min(int(total), size) * 4.0 + size * 12.0 + 1.0
+        line = []
+        for form, fn in (("K21", lambda a=args: K.paged_expand(*a)), ("K21 as a replay runs it", replay)):
+            key = f"{form}, {name}"
+            times[key] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn), _graph_ms_many(torch, fn)]
+            line.append(f"{form} {times[key][0]:.4f} ms eager, {times[key][1]:.4f} in a graph, "
+                        f"{times[key][2]:.4f} a call in a graph of 50")
+        print(f"k21 {name} ({srcs.shape[0]} sources, total {int(total)} into {size}; {P} pages of {Wp} slots, "
+              f"B={B}): {'; '.join(line)}; bound {nbytes / cs.HBM_BYTES_PER_S * 1e3:.4f}")
+
+
+def dtreplays(np, torch, K, cs, times) -> None:
+    """V1 on armed A after W1–W3, and T1–T3 on tiered A (module
+    docstring)."""
+    import copy
+    import gc
+    import statistics
+    import time
+
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.storage import tiering
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+    from orientdb_tpu_torch.storage.deltas import arm_delta_maintenance
+    from orientdb_tpu_torch.utils.config import config
+
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    db, snap = build_person_knows(PERSONS, avg_knows=10, seed=5, geo=True)
+    tdb = copy.deepcopy(db)
+    print(f"dtreplays: A built in {time.perf_counter() - t0:.1f} s")
+
+    def median_of(name, run, plan_of, reps=7):
+        run()
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            out = run()
+            sync()
+            ts.append((time.perf_counter() - t) * 1e3)
+        plan = plan_of()
+        times[f"replay {name}"] = [statistics.median(ts), None]
+        print(f"replay {name}: median {statistics.median(ts):.3f} ms ({[round(x, 3) for x in ts]}); result "
+              f"{out}; launches per replay {sum(plan.launches.values())} {dict(sorted(plan.launches.items()))}")
+
+    m = arm_delta_maintenance(db, cs.D_SPARE_VERTICES, cs.D_SPARE_EDGES)
+    writer = cs.DeltaWriter(np, db, snap, seed=8)
+    for make in (lambda: writer.w1(cs.W_PERSONS, cs.W_EXTRA_EDGES), lambda: writer.w2(cs.W_UPDATES),
+                 lambda: writer.w3(cs.W_DEL_EDGES, cs.W_DEL_PERSONS, cs.Q3_K)):
+        cs._require(m.apply_batch(make()), f"a write batch poisoned the overlay: {snap._overlay.poisoned}")
+    sync()
+    cs._require(not snap._overlay.bucket_overflow, "W1–W3 overflowed a bucket")
+    median_of("V1 after W3", lambda: db.query(cs.V1).to_dicts(),
+              lambda: max(cs._only_plan(TE, snap, cs.V1).plans, key=lambda p: p.replays))
+    TE._plan_cache(snap).clear()
+    del db, snap, m, writer
+    gc.collect()
+    gc.collect()
+    sync()
+    torch.cuda.empty_cache()
+    tsnap = tdb.current_snapshot()
+    config.tier_hbm_cap_bytes = tiering.adjacency_bytes(tsnap) // 2
+    try:
+        tdb.attach_snapshot(tsnap)
+        cs._require(tsnap._tier is not None, "A was not admitted to the tier plane")
+        for name, sql, plist in (("T1", cs.T1, cs.T1_PARAMS), ("T2", cs.T2, [{"k": cs.T2_K}]),
+                                 ("T3", cs.T3, [{"u": u} for u in cs.T3_ROOTS])):
+            for p in plist:  # record every variant and fault its footprint in
+                tdb.query(sql, p).to_dicts()
+            ts, res = [], []
+            for p in plist * max(1, 8 // len(plist)):
+                t = time.perf_counter()
+                res.append(tdb.query(sql, p).to_dicts())
+                sync()
+                ts.append((time.perf_counter() - t) * 1e3)
+            plan = max(cs._only_plan(TE, tsnap, sql).plans, key=lambda q: q.replays)
+            times[f"replay {name}"] = [statistics.median(ts), None]
+            print(f"replay {name}: median {statistics.median(ts):.3f} ms over {len(ts)} calls; first result "
+                  f"{res[0][:2]}; launches per replay {sum(plan.launches.values())} "
+                  f"{dict(sorted(plan.launches.items()))}")
+    finally:
+        config.tier_hbm_cap_bytes = 0
+
+
 def replays(np, torch, K, cs, times) -> None:
     """MQ1, MQ2 (A split four ways) and T3, T4 (A tiered) replays
     (module docstring)."""
@@ -831,7 +1087,7 @@ def replays(np, torch, K, cs, times) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
-    ap.add_argument("--only", default="level,k4,k15,k5,k2,hops,k17,k24,k23,k20")
+    ap.add_argument("--only", default="level,k4,k15,k5,k2,hops,k17,k24,k23,k20,slabhop,k21")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     # the tree's package first: chip_smoke.py (this script's) imports the
@@ -874,8 +1130,14 @@ def main() -> int:
         k23(np, torch, K, cs, times)
     if "k20" in only:
         k20(np, torch, K, cs, times)
+    if "slabhop" in only:
+        slabhop(np, torch, K, cs, times)
+    if "k21" in only:
+        k21(np, torch, K, cs, times)
     if "replays" in only:
         replays(np, torch, K, cs, times)
+    if "dtreplays" in only:
+        dtreplays(np, torch, K, cs, times)
     print(json.dumps({"tree": tree, "kernels": K.__file__, "card": card, "ms [eager, graph]": times}))
     return 0
 

@@ -586,8 +586,10 @@ __device__ __forceinline__ void store_triples(long long p0, int n, int vec, int*
 // entries) the position output holds edge_map[clip(edge_pos)] (-1 where
 // edge_pos < 0 or nm is 0), the reference's take_pad(edge_id_in, pos, -1).
 // Offsets that are not non-decreasing give another answer but no access
-// out of range. A row's base and a slot's outputs come from a `Gather`
-// (CsrGather here; K17 passes SlabGather, the sorted window's runs).
+// out of range. A row's staged operand (`Gather::Row`, its edge base at
+// least) and a slot's outputs come from a `Gather` (CsrGather here; K17
+// passes SlabGather, the sorted window's runs; K21 PagedGather, the page
+// indirection of a tiered partition).
 // ---------------------------------------------------------------------------
 constexpr int kExpandItems = 8;  // merged items a thread
 constexpr int kExpandTile = kThreads * kExpandItems;
@@ -601,19 +603,21 @@ struct CsrGather {
   long long ne;
   const int* edge_map;
   long long nm;
-  __device__ __forceinline__ int base(long long, long long c) const {
+  using Row = int;  // the row's edge base
+  __device__ __forceinline__ static int base(Row x) { return x; }
+  __device__ __forceinline__ Row row(long long, long long c) const {
     if (nv < 0) return 0;
     c = c > nv - 1 ? nv - 1 : c;
     return __ldg(indptr + (c < 0 ? 0 : c));
   }
-  __device__ __forceinline__ int2 emit(int ep) const {
+  __device__ __forceinline__ int3 emit(Row, long long r, int ep) const {
     int nb = -1;
     if (ne > 0) nb = __ldg(nbrs + (ep < 0 ? 0 : (ep > ne - 1 ? ne - 1 : ep)));
     int pos = ep;
     if (edge_map != nullptr) {
       pos = ep >= 0 && nm > 0 ? __ldg(edge_map + (ep > nm - 1 ? nm - 1 : ep)) : -1;
     }
-    return make_int2(pos, nb);
+    return make_int3(static_cast<int>(r), pos, nb);
   }
 };
 
@@ -623,8 +627,8 @@ gather_expand_kernel(const Gather gather, const int* __restrict__ srcs,
                      const int* __restrict__ offsets, long long k, const int* __restrict__ total,
                      long long out_size, int* __restrict__ row_out, int* __restrict__ pos_out,
                      int* __restrict__ nbr_out, int vec) {
-  __shared__ int s_off[kExpandTile + 1];   // offsets of rows i0 - 1 .. i1 - 1
-  __shared__ int s_base[kExpandTile + 1];  // gather.base(r, srcs[r]) of the same rows
+  __shared__ int s_off[kExpandTile + 1];  // offsets of rows i0 - 1 .. i1 - 1
+  __shared__ typename Gather::Row s_base[kExpandTile + 1];  // gather.row(r, srcs[r]) of the same rows
   __shared__ int s_row[kExpandTile];       // a slot's row, as its index in the two above
   __shared__ long long s_split[2];
   const int tid = threadIdx.x;
@@ -653,7 +657,7 @@ gather_expand_kernel(const Gather gather, const int* __restrict__ srcs,
     for (int e = tid; e <= ni; e += kThreads) {
       const long long r = i0 - 1 + e < 0 ? 0 : i0 - 1 + e;
       s_off[e] = __ldg(offsets + r);
-      s_base[e] = gather.base(r, __ldg(srcs + r));
+      s_base[e] = gather.row(r, __ldg(srcs + r));
     }
     __syncthreads();
     // the tile's row x is staged at x + 1; the thread's first item is the
@@ -685,11 +689,11 @@ gather_expand_kernel(const Gather gather, const int* __restrict__ srcs,
       const int e = s_row[yy];
       const long long r = i0 - 1 + e < 0 ? 0 : i0 - 1 + e;
       // int32 arithmetic, wrapping as the reference's
-      const int ep = static_cast<int>(static_cast<unsigned>(s_base[e]) +
+      const typename Gather::Row x = s_base[e];
+      const int ep = static_cast<int>(static_cast<unsigned>(Gather::base(x)) +
                                       static_cast<unsigned>(j0 + yy) -
                                       static_cast<unsigned>(s_off[e]));
-      const int2 pn = gather.emit(ep);
-      return make_int3(static_cast<int>(r), pn.x, pn.y);
+      return gather.emit(x, r, ep);
     });
   }
   // the slots past the total: -1 in all three outputs
@@ -1564,7 +1568,9 @@ __global__ void rows_to_bitmap_kernel(const int* __restrict__ rows, long long c,
 // ---------------------------------------------------------------------------
 // K10, edge-list form: bitmap_hop (csr.bitmap_hop, orientdb_tpu/ops/csr.py:260,
 // over an arbitrary edge list; the engine runs it over a delta slab's slots,
-// which no CSR row holds, beside the CSR form below).
+// which no CSR row holds, beside the CSR form below, for a class one of
+// whose buckets filled: the others probe the slab inside the push,
+// SlabProbe below).
 // out[c, emit[e]] |= frontier[c, act[e]] & mask[e] (& gate[act[e]]).
 // Bound: 8 bytes of endpoints (+1 of mask, +1 of gate) an edge, the
 // frontier read once and `out` written once: 9*E + 2*64 MiB ~ 0.85 GB,
@@ -1620,6 +1626,8 @@ __global__ void bitmap_hop_kernel(const int* __restrict__ act,
 // - PagedRows, K19: paged_hop_csr (replaces tiering.paged_hop,
 //   orientdb_tpu/storage/tiering.py:575, which walks every pool slot) over
 //   the resident indptr and the page indirection of a paged partition.
+// With CsrRows a `Probe` (SlabProbe) may add a delta slab's edges of each
+// active vertex (bitmap_hop_probe, K10's CSR form on dirty topology).
 // out[c, nbr[s]] |= frontier[c, v] & gate[v] & mask[edge(s)] for every slot
 // s of row v: the rows are the endpoint that must be active, `nbr` the
 // endpoint reached, edge(s) the slot's out-order edge id, read only to
@@ -1747,9 +1755,67 @@ struct PagedRows {
   __device__ long long edge(long long s, long long) const { return eid[s]; }
 };
 
-template <bool kVec, typename Rows>
+// The slab's part of a dirty hop, folded into K10's CSR push (replaces the
+// edge-list form over a delta slab's whole window [base, cap), which the
+// engine ran beside the CSR form: orientdb_tpu/exec/tpu_engine.py:527-542
+// runs csr.bitmap_hop over every edge with the `live` mask). A delta-
+// maintained snapshot indexes its appended edges by endpoint
+// (storage/deltas.py's bucket tables `bk:{class}:{out,in}`): NB buckets of
+// BK relative slab slots, bucket key & (NB - 1), -1 empty; every live slab
+// edge of a class whose buckets never filled is in the bucket of its active
+// endpoint. For each active, gated vertex v of its group the push reads
+// bucket v & (NB - 1) (BK int32: one 32-byte sector at BK = 8) and keeps
+// entry rel >= 0 at slot at = base + rel where at < the edge count, own[at]
+// == v (a bucket is shared by many vertices), live[at] and take_pad(emask,
+// at, False) hold; it stores a 1 at clip(nbr[at], 0, vb - 1) for each set
+// row bit. Bound added to the push: BK * 4 bytes an active vertex, 5 (own
+// and live) a filled entry, 4 (+1 of emask) a kept one. A vertex of base
+// degree 0 probes too (a vertex appended to the slab has no CSR row); the
+// walk covers [0, min(nv, vb)), every vertex a slab edge can start from
+// when the CSR's indptr spans the padded vertex universe.
+struct SlabProbe {
+  const int* tab;  // [nb * bk]
+  const int* own;  // the endpoint that must be active, a slot
+  const int* nbr;  // the endpoint reached, a slot
+  const unsigned char* live;
+  long long base, ecap;
+  int nb, bk;
+  __device__ __forceinline__ void visit(long long v, unsigned bits, const unsigned char* __restrict__ emask,
+                                        long long ne, long long rb, long long vb,
+                                        unsigned char* __restrict__ out) const {
+    const int* t = tab + static_cast<long long>(static_cast<int>(v) & (nb - 1)) * bk;
+    for (int j0 = 0; j0 < bk; j0 += 8) {
+      int rel[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) rel[q] = j0 + q < bk ? __ldg(t + j0 + q) : -1;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const long long at = base + rel[q];
+        if (rel[q] < 0 || at >= ecap) continue;
+        if (__ldg(own + at) != v || !__ldg(live + at)) continue;
+        if (emask != nullptr && (ne <= 0 || !emask[at < ne ? at : ne - 1])) continue;
+        long long m = __ldg(nbr + at);
+        m = m < 0 ? 0 : (m < vb ? m : vb - 1);  // jnp.clip(emit_idx, 0, vb - 1)
+        unsigned b = bits;
+        while (b != 0u) {
+          const int r = __ffs(b) - 1;
+          b &= b - 1u;
+          out[(rb + r) * vb + m] = 1;
+        }
+      }
+    }
+  }
+};
+
+// No slab: the push forms without a probe.
+struct NoProbe {
+  __device__ __forceinline__ void visit(long long, unsigned, const unsigned char*, long long, long long,
+                                        long long, unsigned char*) const {}
+};
+
+template <bool kVec, typename Rows, typename Probe>
 __global__ void __launch_bounds__(kThreads)
-bitmap_push_kernel(const Rows rows, const int* __restrict__ nbr,
+bitmap_push_kernel(const Rows rows, const Probe probe, const int* __restrict__ nbr,
                    const unsigned char* __restrict__ emask, long long ne,
                    const unsigned char* __restrict__ frontier,
                    const unsigned char* __restrict__ gate, long long c, long long vb,
@@ -1808,6 +1874,7 @@ bitmap_push_kernel(const Rows rows, const int* __restrict__ nbr,
         ax[k] = 0;
         dg[k] = 0;
         if (mk[k] != 0u) {
+          probe.visit(v0 + k, mk[k], emask, ne, rb, vb, out);
           dg[k] = rows.row(v0 + k, bs[k], ax[k]);
           if (dg[k] > 0) {
             ++cnt;
@@ -1870,11 +1937,13 @@ bitmap_push_kernel(const Rows rows, const int* __restrict__ nbr,
 }
 
 // Zeroes `out` when asked, then launches bitmap_push_kernel over `rows`
-// (the 4-byte frontier loads when vb and the pointers allow them).
-template <typename Rows>
+// (the 4-byte frontier loads when vb and the pointers allow them), with
+// `probe` at each active vertex.
+template <typename Rows, typename Probe = NoProbe>
 int launch_push(const Rows& rows, const void* nbr, const void* emask, long long ne,
                 const void* frontier, const void* gate, long long c, long long vb,
-                const void* alive, int zero_out, void* out, void* stream) {
+                const void* alive, int zero_out, void* out, void* stream,
+                const Probe& probe = Probe{}) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (zero_out && c * vb > 0) {
     cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(c * vb), s);
@@ -1886,9 +1955,9 @@ int launch_push(const Rows& rows, const void* nbr, const void* emask, long long 
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     const bool vec = vb % 4 == 0 && (reinterpret_cast<uintptr_t>(frontier) & 3u) == 0 &&
                      (gate == nullptr || (reinterpret_cast<uintptr_t>(gate) & 3u) == 0);
-    auto kernel = vec ? bitmap_push_kernel<true, Rows> : bitmap_push_kernel<false, Rows>;
+    auto kernel = vec ? bitmap_push_kernel<true, Rows, Probe> : bitmap_push_kernel<false, Rows, Probe>;
     kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        rows, static_cast<const int*>(nbr), static_cast<const unsigned char*>(emask), ne,
+        rows, probe, static_cast<const int*>(nbr), static_cast<const unsigned char*>(emask), ne,
         static_cast<const unsigned char*>(frontier), static_cast<const unsigned char*>(gate), c,
         vb, static_cast<const int*>(alive), static_cast<unsigned char*>(out));
   }
@@ -3351,15 +3420,17 @@ struct SlabGather {
   const unsigned* starts;
   const int* e;
   int eid_base;
-  __device__ __forceinline__ int base(long long r, long long) const {
+  using Row = int;  // the row's run start
+  __device__ __forceinline__ static int base(Row x) { return x; }
+  __device__ __forceinline__ Row row(long long r, long long) const {
     return static_cast<int>(__ldg(starts + r));
   }
-  __device__ __forceinline__ int2 emit(int ep) const {
+  __device__ __forceinline__ int3 emit(Row, long long r, int ep) const {
     const unsigned n = __ldg(plan), b = __ldg(plan + 1);
-    if (n == 0u) return make_int2(-1, -1);
+    if (n == 0u) return make_int3(static_cast<int>(r), -1, -1);
     const unsigned i = ep < 0 ? 0u : (static_cast<unsigned>(ep) < n ? static_cast<unsigned>(ep) : n - 1u);
     const unsigned s = __ldg((b ? slots[1] : slots[0]) + i);
-    return make_int2(static_cast<int>(static_cast<unsigned>(eid_base) + s), __ldg(e + s));
+    return make_int3(static_cast<int>(r), static_cast<int>(static_cast<unsigned>(eid_base) + s), __ldg(e + s));
   }
 };
 
@@ -3476,68 +3547,68 @@ __global__ void paged_hop_miss_kernel(const unsigned char* __restrict__ frontier
   }
 }
 
-// K21: paged_expand. The CSR gather of K2b (row by an upper-bound search
-// over the exclusive offsets, edge_pos from the resident indptr), fused
-// with the block -> page indirection: nbr (and, for the in direction, eid)
-// read from pool[pageof[blockv[src]] * Wp + edge_pos - estart[b]], with the
-// reference's clips clip(src, 0, V-1), clip(p, 0) and clip(local, 0,
-// Wp-1). A live slot whose block is cold (p < 0) sets *flag; row, eid and
-// nbr are -1 there and past the total. The out direction's eid is
-// edge_pos. Bound: K2b's (12 bytes a source, three int32 outputs a slot)
-// plus a slot's blockv, pageof, estart and one or two pool reads. Design:
-// one thread per output slot; the three index reads of a slot hit L2
-// (blockv, pageof and estart of one source are shared by its slots).
-__global__ void paged_expand_kernel(const int* __restrict__ indptr, long long nv,
-                                    const int* __restrict__ srcs,
-                                    const int* __restrict__ offsets, long long k,
-                                    const int* __restrict__ total, long long out_size,
-                                    const int* __restrict__ blockv,
-                                    const int* __restrict__ pageof, long long nb,
-                                    const int* __restrict__ estart,
-                                    const int* __restrict__ pool_nbr,
-                                    const int* __restrict__ pool_eid, long long ns,
-                                    long long wp, int out_dir, int* __restrict__ row_out,
-                                    int* __restrict__ eid_out, int* __restrict__ nbr_out,
-                                    unsigned char* __restrict__ flag) {
-  long long q = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (q >= out_size) return;
-  if (q >= static_cast<long long>(*total) || k == 0 || nv <= 0) {
-    row_out[q] = -1;
-    eid_out[q] = -1;
-    nbr_out[q] = -1;
-    return;
-  }
-  long long lo = 0, hi = k;  // first row whose offset is > q
-  while (lo < hi) {
-    long long mid = (lo + hi) >> 1;
-    if (static_cast<long long>(offsets[mid]) <= q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+// K21: paged_expand (replaces tiering.paged_expand, orientdb_tpu/storage/
+// tiering.py:606): K2b's merge-path gather (gather_expand_kernel) over the
+// resident indptr, with PagedGather as its Gather. Row and edge position
+// are K2b's; nbr (and, for the in direction, the out-order edge id) come
+// from pool[pageof[b] * Wp + clip(edge_pos - estart[b], 0, Wp-1)] (at most
+// the last pool slot) with b = blockv[clip(src, 0, V-1)] clipped to B-1 for
+// the reads, the reference's take_pad clips. A live slot of a row whose
+// block is cold (b or pageof[b] below 0, or no blocks) is -1 in all three
+// outputs and stores 1 into the cold flag; the out direction's edge id is
+// the edge position. Bound: K2b's (12 bytes a source, three int32 outputs
+// a slot) plus 12 bytes of blockv / pageof / estart a source and one or
+// two pool reads a live slot.
+// Design: the row stage stages, once a row, the edge base indptr[clip(src)],
+// the page p and the block start estart[b] (Row, 12 bytes: 41 KB of shared
+// memory a block with K2b's other arrays), so that a slot reads only the
+// pool; consecutive slots of a row read consecutive pool slots, and a row
+// longer than a tile spans tiles as in K2b. The flag byte only receives 1s:
+// a replay passes its schedule's shared miss byte (zeroed once), else the
+// host entry zeroes the byte first.
+struct PagedGather {
+  const int* indptr;
+  long long nv;
+  const int* blockv;
+  const int* pageof;
+  long long nb;
+  const int* estart;
+  const int* pool_nbr;
+  const int* pool_eid;  // null on the out direction
+  long long ns, wp;
+  unsigned char* flag;
+  struct Row {
+    int base;   // indptr[clip(src)]
+    int page;   // pageof[b], -1 cold
+    int start;  // estart[b]
+  };
+  __device__ __forceinline__ static int base(const Row& x) { return x.base; }
+  __device__ __forceinline__ Row row(long long, long long c) const {
+    c = c > nv - 1 ? nv - 1 : c;
+    c = c < 0 ? 0 : c;
+    Row x{__ldg(indptr + c), -1, 0};
+    const long long b = nv > 0 ? __ldg(blockv + c) : -1;
+    const long long bc = b < nb ? b : nb - 1;
+    if (bc >= 0) {
+      x.page = __ldg(pageof + bc);
+      x.start = __ldg(estart + bc);
     }
+    return x;
   }
-  const long long r = lo > 0 ? lo - 1 : 0;  // clip(row, 0, K-1)
-  const int src = srcs[r];
-  long long s = src < 0 ? 0 : src;  // clip(src, 0, V-1)
-  if (s > nv - 1) s = nv - 1;
-  const int edge_pos = indptr[s] + static_cast<int>(q - offsets[r]);
-  const int b = blockv[s];
-  const int p = b < 0 ? -1 : pageof[b < nb ? b : nb - 1];
-  if (p < 0) {  // a cold block: the slot is nulled and flags
-    *flag = 1;
-    row_out[q] = -1;
-    eid_out[q] = -1;
-    nbr_out[q] = -1;
-    return;
+  __device__ __forceinline__ int3 emit(const Row& x, long long r, int ep) const {
+    if (x.page < 0) {
+      *flag = 1;
+      return make_int3(-1, -1, -1);
+    }
+    long long local = static_cast<long long>(ep) - x.start;
+    local = local < 0 ? 0 : (local < wp ? local : wp - 1);
+    long long flat = static_cast<long long>(x.page) * wp + local;
+    flat = flat > ns - 1 ? ns - 1 : flat;
+    const int nbr = ns > 0 ? __ldg(pool_nbr + flat) : -1;
+    const int eid = pool_eid == nullptr ? ep : (ns > 0 ? __ldg(pool_eid + flat) : -1);
+    return make_int3(static_cast<int>(r), eid, nbr);
   }
-  long long local = static_cast<long long>(edge_pos) - estart[b < nb ? b : nb - 1];
-  local = local < 0 ? 0 : (local < wp ? local : wp - 1);
-  long long flat = static_cast<long long>(p) * wp + local;
-  if (flat > ns - 1) flat = ns - 1;
-  row_out[q] = static_cast<int>(r);
-  nbr_out[q] = ns > 0 ? pool_nbr[flat] : -1;
-  eid_out[q] = out_dir ? edge_pos : (ns > 0 ? pool_eid[flat] : -1);
-}
+};
 
 // ---------------------------------------------------------------------------
 // The mesh (orientdb_tpu/parallel/mesh_graph.py, orientdb_tpu/parallel/
@@ -4397,6 +4468,24 @@ int csr_bitmap_hop_csr(const void* indptr, long long nv, const void* nbr, const 
   return launch_push(rows, nbr, emask, ne, frontier, gate, c, vb, alive, zero_out, out, stream);
 }
 
+// K10's CSR form with the slab probe: `tab` ([nb * bk] int32, nb a power
+// of two) holds relative slots of the slab that starts at edge slot `base`;
+// `own`, `snbr` and `live` have `ecap` entries, one an edge slot (the
+// endpoint that must be active, the one reached, liveness). The rest as
+// for csr_bitmap_hop_csr.
+int csr_bitmap_hop_probe(const void* indptr, long long nv, const void* nbr, const void* eid,
+                         const void* emask, long long ne, const void* tab, const void* own,
+                         const void* snbr, const void* live, long long base, long long ecap, int nb,
+                         int bk, const void* frontier, const void* gate, long long c, long long vb,
+                         const void* alive, int zero_out, void* out, void* stream) {
+  const CsrRows rows{static_cast<const int*>(indptr), static_cast<const int*>(eid), 0,
+                     nv < vb ? nv : vb};
+  const SlabProbe probe{static_cast<const int*>(tab), static_cast<const int*>(own),
+                        static_cast<const int*>(snbr), static_cast<const unsigned char*>(live),
+                        base, ecap, nb, bk};
+  return launch_push(rows, nbr, emask, ne, frontier, gate, c, vb, alive, zero_out, out, stream, probe);
+}
+
 // `bound`, `emit`, `any` and `count` may be null. `any` ([C] bytes) and
 // `count` (one int32) are zeroed here before the pass.
 int csr_bitmap_emit(const void* reached, const void* node, const void* bound,
@@ -4690,26 +4779,31 @@ int csr_paged_hop_miss(const void* frontier, const void* gate, long long c, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// K21. `pool_eid` may be null when `out_dir`; `flag` is one byte, zeroed
-// here. `ns` is the pool's P*Wp slots.
+// K21. `pool_eid` is read only when not `out_dir`; `ns` is the pool's P*Wp
+// slots. `flag` (one byte) only receives 1s; with `zero_flag` it is zeroed
+// here first.
 int csr_paged_expand(const void* indptr, long long nv, const void* srcs, const void* offsets,
                      long long k, const void* total, long long out_size, const void* blockv,
                      const void* pageof, long long nb, const void* estart,
                      const void* pool_nbr, const void* pool_eid, long long ns, long long wp,
                      int out_dir, void* row_out, void* eid_out, void* nbr_out, void* flag,
-                     void* stream) {
+                     int zero_flag, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(flag, 0, 1, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (zero_flag) {
+    cudaError_t e = cudaMemsetAsync(flag, 0, 1, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (out_size > 0) {
-    paged_expand_kernel<<<blocks_for(out_size, kThreads), kThreads, 0, s>>>(
-        static_cast<const int*>(indptr), nv, static_cast<const int*>(srcs),
-        static_cast<const int*>(offsets), k, static_cast<const int*>(total), out_size,
-        static_cast<const int*>(blockv), static_cast<const int*>(pageof), nb,
-        static_cast<const int*>(estart), static_cast<const int*>(pool_nbr),
-        static_cast<const int*>(pool_eid), ns, wp, out_dir, static_cast<int*>(row_out),
-        static_cast<int*>(eid_out), static_cast<int*>(nbr_out),
-        static_cast<unsigned char*>(flag));
+    const int vec = aligned16(row_out) && aligned16(eid_out) && aligned16(nbr_out);
+    const PagedGather g{static_cast<const int*>(indptr), nv, static_cast<const int*>(blockv),
+                        static_cast<const int*>(pageof), nb, static_cast<const int*>(estart),
+                        static_cast<const int*>(pool_nbr),
+                        out_dir ? nullptr : static_cast<const int*>(pool_eid), ns, wp,
+                        static_cast<unsigned char*>(flag)};
+    gather_expand_kernel<PagedGather><<<blocks_for(k + out_size, kExpandTile), kThreads, 0, s>>>(
+        g, static_cast<const int*>(srcs), static_cast<const int*>(offsets), k,
+        static_cast<const int*>(total), out_size, static_cast<int*>(row_out),
+        static_cast<int*>(eid_out), static_cast<int*>(nbr_out), vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

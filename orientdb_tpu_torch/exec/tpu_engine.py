@@ -317,8 +317,9 @@ class SizeSchedule:
 
     def miss_flag(self, device) -> torch.Tensor:
         """The replay's cold-miss byte: zeroed once, at its first tiered
-        hop; each tiered hop's K19 push stores 1s into it (no launch, memset
-        or OR of its own) and `overflow_flag` ORs it in once."""
+        read; each tiered hop's K19 push and each paged expansion's K21
+        gather store 1s into it (no launch, memset or OR of their own) and
+        `overflow_flag` ORs it in once."""
         if self.miss is None:
             self.miss = torch.zeros((), dtype=torch.bool, device=device)
         return self.miss
@@ -498,9 +499,14 @@ def build_bitmap_hops(
 
     On a delta-maintained snapshot whose topology is dirty (``overlay``),
     appended edges sit in the slab's out-order slots ``[base, cap)``, which
-    no CSR row holds: each hop also runs the edge-list `K.bitmap_hop` over
-    that whole slot range (``edge_src`` beside ``dst``, spare and
-    tombstoned slots masked by ``live``), ORed into the same bitmap.
+    no CSR row holds. While no bucket of the class filled, the same push
+    probes each active vertex's bucket of the slab's endpoint index
+    (``bk:{class}:{dir}``, read from ``dg.arrays`` so that its in-place
+    patches reach captured replays; `K.SlabIndex`) and adds the live slab
+    edges found there: one launch a hop. A class in ``bucket_overflow``
+    (whose overflow re-records every plan) runs the edge-list `K.bitmap_hop`
+    over the whole slot range instead (``edge_src`` beside ``dst``, spare
+    and tombstoned slots masked by ``live``), ORed into the same bitmap.
     Reading ``edge_src`` uploads it on the recording run.
 
     A (class, direction) that ``tier`` pages hops over its resident indptr
@@ -546,15 +552,22 @@ def build_bitmap_hops(
             csr = (dec.indptr_out, dec.dst, None)
         else:
             csr = (dec.indptr_in, dec.src, dec.edge_id_in)
-        slab = None
+        slab = probe = None
         if overlay is not None and overlay.topology_dirty:
-            # an armed snapshot's emask always carries ``live``
-            w = slice(overlay.edge_slabs[cname].base, overlay.edge_slabs[cname].cap)
+            base = overlay.edge_base(cname)
             a, em = (dec.edge_src, dec.dst) if d == "out" else (dec.dst, dec.edge_src)
-            slab = (a[w], em[w], emask[w])
+            if cname in overlay.bk and cname not in overlay.bucket_overflow:
+                # the push walks indptr's rows: `pad_for_deltas` pads them
+                # to every vertex a slab edge can start from
+                tab = dg.arrays[f"bk:{cname}:{d}"]
+                probe = K.SlabIndex(tab, a, em, dec.live, base, overlay.bk_nb, overlay.bk_bk)
+            else:
+                # an armed snapshot's emask always carries ``live``
+                w = slice(base, overlay.edge_slabs[cname].cap)
+                slab = (a[w], em[w], emask[w])
 
-        def flat(fr, gate=None, alive=None, out=None, csr=csr, emask=emask, slab=slab):
-            out = K.bitmap_hop_csr(*csr, emask, fr, gate, alive, out)
+        def flat(fr, gate=None, alive=None, out=None, csr=csr, emask=emask, slab=slab, probe=probe):
+            out = K.bitmap_hop_csr(*csr, emask, fr, gate, alive, out, probe)
             if slab is not None:
                 K.bitmap_hop(*slab, fr, gate, alive, out)
             return out
@@ -1030,16 +1043,20 @@ class TpuMatchSolver:
         position from the resident indptr's ``sizing`` (`_expand_one_dir`),
         the neighbour and (in) the edge id from the tier's pool through the
         block → page indirection (K21). The recording run faults the
-        sources' blocks in first (the plan's footprint); a replay raises
-        K21's cold-miss flag into the overflow flag instead."""
+        sources' blocks in first (the plan's footprint); on a replay K21
+        stores its cold miss into the replay's one miss byte (`SizeSchedule.
+        miss_flag`, shared with the tiered hops), so the expansion is one
+        launch."""
+        flag = None
         if self.sched.recording:
             self.tier.ensure_vertices(dec.class_name, d, srcs, self.tier_touched)
+        else:
+            flag = self.sched.miss_flag(srcs.device)
         offsets, total_dev = sizing
         total = self.sched.observe(total_dev)
-        row, eid, nbr, cold = tiering.paged_expand(
-            self.dg.arrays, dec.class_name, d, srcs, offsets, total_dev, _cap_of(total)
+        row, eid, nbr, _ = tiering.paged_expand(
+            self.dg.arrays, dec.class_name, d, srcs, offsets, total_dev, _cap_of(total), flag
         )
-        self.sched.note_flag(cold)
         return row, eid, nbr, total
 
     def _expand_sharded(self, dec, d: str, srcs):

@@ -62,6 +62,9 @@ SIGNATURES = {
     "csr_rows_to_bitmap": [_P, _N, _N, _P, _P],
     "csr_bitmap_hop": [_P, _P, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
     "csr_bitmap_hop_csr": [_P, _N, _P, _P, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
+    "csr_bitmap_hop_probe": [
+        _P, _N, _P, _P, _P, _N, _P, _P, _P, _P, _N, _N, _I, _I, _P, _P, _N, _N, _P, _I, _P, _P
+    ],
     "csr_bitmap_emit": [_P, _P, _P, _N, _N, _P, _P, _P, _P],
     "csr_frontier_advance": [_P, _P, _P, _P, _P, _N, _N, _P, _P, _P],
     "csr_rows_with_matches": [_P, _P, _N, _N, _I, _P, _P],
@@ -82,7 +85,7 @@ SIGNATURES = {
     ],
     "csr_paged_hop_miss": [_P, _P, _N, _N, _P, _N, _P, _N, _P, _P, _P, _P],
     "csr_paged_expand": [
-        _P, _N, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P, _P, _N, _N, _I, _P, _P, _P, _P, _P
+        _P, _N, _P, _P, _N, _P, _N, _P, _P, _N, _P, _P, _P, _N, _N, _I, _P, _P, _P, _P, _I, _P
     ],
     "csr_degree_counts_range": [_P, _N, _P, _P, _N, _N, _P, _P, _P],
     "csr_shard_gather": [

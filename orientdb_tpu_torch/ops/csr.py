@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -68,6 +68,7 @@ LAUNCHES: Dict[str, int] = {
         "rows_to_bitmap",
         "bitmap_hop",
         "bitmap_hop_csr",
+        "bitmap_hop_probe",
         "bitmap_emit",
         "frontier_advance",
         "rows_with_matches",
@@ -1035,6 +1036,60 @@ def plain_bitmap_hop_csr(
     return plain_bitmap_hop(act, nbr[slots], m, frontier, gate, alive)
 
 
+class SlabIndex(NamedTuple):
+    """A delta slab's endpoint index for one (class, direction), as
+    `storage/deltas.SnapshotOverlay` keeps it: ``tab`` int32 [nb * bk] holds
+    relative slab slots (-1 empty), bucket ``endpoint & (nb - 1)``; ``own``
+    / ``nbr`` int32 and ``live`` bool, one entry an edge slot, are the
+    endpoint that must be active, the endpoint reached and liveness; the
+    slab's slots start at edge slot ``base``."""
+
+    tab: torch.Tensor
+    own: torch.Tensor
+    nbr: torch.Tensor
+    live: torch.Tensor
+    base: int
+    nb: int
+    bk: int
+
+
+def plain_bucket_hop(
+    probe: SlabIndex,
+    edge_mask: Optional[torch.Tensor],
+    frontier: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+    hi: Optional[int] = None,
+) -> torch.Tensor:
+    """The slab probe's hop in torch: each vertex below ``hi`` (default vb)
+    active in some frontier row (and in ``gate``, with ``alive`` not 0)
+    reads its bucket ``v & (nb - 1)``; an entry ``rel >= 0`` at slot ``at =
+    base + rel`` is kept where ``at`` lies below the edge count, ``own[at]
+    == v``, ``live[at]`` and ``take_pad(edge_mask, at, False)``; then
+    `plain_bitmap_hop` over the kept entries (active endpoint ``v``,
+    reached ``nbr[at]``)."""
+    C, vb = frontier.shape
+    dev = frontier.device
+    ecap = probe.own.shape[0]
+    fa = frontier.any(0)
+    if gate is not None:
+        fa = fa & gate
+    if alive is not None:
+        fa = fa & (alive != 0)
+    v = fa[: vb if hi is None else min(hi, vb)].nonzero().view(-1)
+    if C == 0 or ecap == 0 or probe.nb * probe.bk == 0:
+        return torch.zeros((C, vb), dtype=B8, device=dev)
+    rel = probe.tab.view(probe.nb, probe.bk)[v & (probe.nb - 1)].long()
+    at = probe.base + rel
+    ok = (rel >= 0) & (at < ecap)
+    atc = at.clamp(0, ecap - 1)
+    ok = ok & (probe.own[atc].long() == v[:, None]) & probe.live[atc]
+    if edge_mask is not None:
+        ok = ok & plain_take_pad(edge_mask, atc.view(-1), False).view(atc.shape)
+    act = v[:, None].expand_as(atc).reshape(-1).to(I32)
+    return plain_bitmap_hop(act, probe.nbr[atc].reshape(-1), ok.reshape(-1), frontier, gate, alive)
+
+
 def bitmap_hop_csr(
     indptr: torch.Tensor,
     nbr: torch.Tensor,
@@ -1044,6 +1099,7 @@ def bitmap_hop_csr(
     gate: Optional[torch.Tensor] = None,
     alive: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
+    probe: Optional[SlabIndex] = None,
 ) -> torch.Tensor:
     """`bitmap_hop` walked by the endpoint that must be active, reading only
     the active vertices' adjacency:
@@ -1056,7 +1112,12 @@ def bitmap_hop_csr(
     (int32, one a slot, or None) maps a slot to its out-order edge id, read
     only to index ``edge_mask`` (bool, in out order; without ``eid`` it is
     indexed by slot and has one entry a slot). ``gate``, ``alive`` and
-    ``out`` as for `bitmap_hop`. Returns the bitmap."""
+    ``out`` as for `bitmap_hop`. With ``probe`` (a `SlabIndex`) the same
+    launch also walks each active vertex's slab edges through its bucket
+    (`plain_bucket_hop`; ``edge_mask`` is then indexed by out-order edge id,
+    the slab's slots included): the hop over the CSR and the slab of a
+    delta-maintained snapshot, exact while no bucket of the class filled,
+    for the vertices below nv. Returns the bitmap."""
     _check(indptr, (I32,), "bitmap_hop_csr indptr")
     _check(nbr, (I32,), "bitmap_hop_csr nbr")
     _check2d(frontier, (B8,), "bitmap_hop_csr frontier")
@@ -1088,8 +1149,13 @@ def bitmap_hop_csr(
     if out is not None:
         _check_out(out, (C, vb), B8, "bitmap_hop_csr")
         opt.append(out)
+    if probe is not None:
+        _check_probe(probe, edge_mask)
+        opt.extend((probe.tab, probe.own, probe.nbr, probe.live))
     if not _on_card(indptr, nbr, frontier, *opt):
         hop = plain_bitmap_hop_csr(indptr, nbr, eid, edge_mask, frontier, gate, alive)
+        if probe is not None:
+            hop |= plain_bucket_hop(probe, edge_mask, frontier, gate, alive, nv)
         if out is None:
             return hop
         out |= hop
@@ -1098,15 +1164,15 @@ def bitmap_hop_csr(
     zero = out is None
     if zero:
         out = torch.empty((C, vb), dtype=B8, device=frontier.device)
-    _launch(
-        "bitmap_hop_csr",
-        lib.csr_bitmap_hop_csr,
+    head = (
         indptr.data_ptr(),
         nv,
         nbr.data_ptr(),
         None if eid is None or edge_mask is None else eid.data_ptr(),
         None if edge_mask is None else edge_mask.data_ptr(),
         ne,
+    )
+    tail = (
         frontier.data_ptr(),
         None if gate is None else gate.data_ptr(),
         C,
@@ -1116,7 +1182,36 @@ def bitmap_hop_csr(
         out.data_ptr(),
         _stream(frontier),
     )
+    if probe is None:
+        _launch("bitmap_hop_csr", lib.csr_bitmap_hop_csr, *head, *tail)
+        return out
+    slab = (
+        probe.tab.data_ptr(),
+        probe.own.data_ptr(),
+        probe.nbr.data_ptr(),
+        probe.live.data_ptr(),
+        probe.base,
+        probe.own.shape[0],
+        probe.nb,
+        probe.bk,
+    )
+    _launch("bitmap_hop_probe", lib.csr_bitmap_hop_probe, *head, *slab, *tail)
     return out
+
+
+def _check_probe(probe: SlabIndex, edge_mask: Optional[torch.Tensor]) -> None:
+    for t, what in ((probe.tab, "tab"), (probe.own, "own"), (probe.nbr, "nbr")):
+        _check(t, (I32,), f"bitmap_hop_csr probe {what}")
+    _check(probe.live, (B8,), "bitmap_hop_csr probe live")
+    ecap = probe.own.shape[0]
+    if probe.nbr.shape[0] != ecap or probe.live.shape[0] != ecap:
+        raise ValueError("bitmap_hop_csr: the probe's own, nbr and live differ in length")
+    if probe.nb <= 0 or probe.nb & (probe.nb - 1) or probe.bk <= 0 or probe.tab.shape[0] != probe.nb * probe.bk:
+        raise ValueError("bitmap_hop_csr: the probe's table is not nb (a power of two) × bk entries")
+    if not 0 <= probe.base <= ecap:
+        raise ValueError("bitmap_hop_csr: the probe's slab base lies outside the edge slots")
+    if edge_mask is not None and edge_mask.shape[0] != ecap:
+        raise ValueError("bitmap_hop_csr: with a probe the edge mask has one entry an edge slot")
 
 
 def _plain_push(lo: int, hi: int, row, slot, edge, nbr_flat, emask, frontier, gate, alive) -> torch.Tensor:
@@ -2161,11 +2256,14 @@ def paged_hop_miss(
     return flag
 
 
-def plain_paged_expand(indptr, srcs, offsets, total, out_size, blockv, pageof, estart, pool_nbr, pool_eid, out_dir):
+def plain_paged_expand(
+    indptr, srcs, offsets, total, out_size, blockv, pageof, estart, pool_nbr, pool_eid, out_dir, flag=None
+):
     """The reference's `paged_expand`: `plain_gather_expand` without a
     neighbour array for row and edge_pos, then the block → page
     indirection with its clips, cold and padding slots nulled, and the
-    flag ``any(live & cold)``. Every gather is a `plain_take_pad`."""
+    flag ``any(live & cold)`` (ORed into ``flag`` and returned as it, when
+    given). Every gather is a `plain_take_pad`."""
     dev = srcs.device
     empty = torch.zeros(0, dtype=I32, device=dev)
     row, edge_pos, _ = plain_gather_expand(indptr, empty, srcs, offsets, total, out_size)
@@ -2187,7 +2285,11 @@ def plain_paged_expand(indptr, srcs, offsets, total, out_size, blockv, pageof, e
     eid = edge_pos if out_dir else take(pool_eid)
     cold = live & (p < 0)
     ok = live & ~cold
-    return torch.where(ok, row, -1), torch.where(ok, eid, -1), torch.where(ok, nbr, -1), cold.any()
+    miss = cold.any()
+    if flag is not None:
+        flag |= miss
+        miss = flag
+    return torch.where(ok, row, -1), torch.where(ok, eid, -1), torch.where(ok, nbr, -1), miss
 
 
 def paged_expand(
@@ -2202,6 +2304,7 @@ def paged_expand(
     pool_nbr: torch.Tensor,
     pool_eid: Optional[torch.Tensor],
     out_dir: bool,
+    flag: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The CSR gather of a paged partition (K21): ``(row, eid, nbr,
     cold)``. Row and edge position come from the resident ``indptr`` as in
@@ -2211,7 +2314,8 @@ def paged_expand(
     ``pageof[blockv[src]]``, slot ``edge_pos - estart[block]``. The out
     direction's edge id is the edge position (``pool_eid`` may be None).
     Slots of a cold block are -1 and raise ``cold``, a 0-d bool on the
-    device."""
+    device: ``flag`` when given (only 1s are stored into it, so a replay's
+    tiered reads share one byte zeroed once), else a byte zeroed here."""
     for t, what in (
         (indptr, "indptr"), (srcs, "srcs"), (offsets, "offsets"), (blockv, "blockv"),
         (pageof, "pageof"), (estart, "estart"),
@@ -2231,15 +2335,18 @@ def paged_expand(
         if pool_eid.shape != pool_nbr.shape:
             raise ValueError("paged_expand: pool_nbr and pool_eid differ in shape")
         opt.append(pool_eid)
+    if flag is not None:
+        _check_out(flag, (), B8, "paged_expand flag")
+        opt.append(flag)
     if not _on_card(indptr, srcs, offsets, total, blockv, pageof, estart, pool_nbr, *opt):
         return plain_paged_expand(
-            indptr, srcs, offsets, total, out_size, blockv, pageof, estart, pool_nbr, pool_eid, out_dir
+            indptr, srcs, offsets, total, out_size, blockv, pageof, estart, pool_nbr, pool_eid, out_dir, flag
         )
     lib = _kernels.load()
     dev = srcs.device
     row = torch.empty(out_size, dtype=I32, device=dev)
     eid, nbr = torch.empty_like(row), torch.empty_like(row)
-    cold = torch.empty((), dtype=B8, device=dev)
+    cold = torch.empty((), dtype=B8, device=dev) if flag is None else flag
     _launch(
         "paged_expand",
         lib.csr_paged_expand,
@@ -2263,6 +2370,7 @@ def paged_expand(
         eid.data_ptr(),
         nbr.data_ptr(),
         cold.data_ptr(),
+        int(flag is None),
         _stream(srcs),
     )
     return row, eid, nbr, cold

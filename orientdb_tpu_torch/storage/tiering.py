@@ -526,14 +526,15 @@ def paged_hop_miss(arrays, cname: str, d: str, frontier, gate=None, alive=None):
     )
 
 
-def paged_expand(arrays, cname: str, d: str, srcs, offsets, total_dev, out_size: int):
+def paged_expand(arrays, cname: str, d: str, srcs, offsets, total_dev, out_size: int, flag=None):
     """CSR gather over a paged partition (K21): ``(row, eid, nbr,
-    cold_miss_flag)``, cold slots nulled."""
+    cold_miss_flag)``, cold slots nulled; with ``flag`` (a 0-d bool) the
+    launch stores the cold miss into it and returns it as the flag."""
     k = _keys(cname, d)
     return K.paged_expand(
         arrays[_indptr_key(cname, d)], srcs, offsets, total_dev, out_size,
         arrays[k["blockv"]], arrays[k["pageof"]], arrays[k["estart"]],
-        arrays[k["nbr"]], None if d == "out" else arrays[k["eid"]], d == "out",
+        arrays[k["nbr"]], None if d == "out" else arrays[k["eid"]], d == "out", flag,
     )
 
 

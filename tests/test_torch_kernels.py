@@ -16,7 +16,8 @@ import torch
 
 from orientdb_tpu_torch.ops import csr as T
 from test_torch_push_hops import (
-    PAGED_CASES, SHARD_CASES, WEIGHT_CASES, frontiers, paged_args, paged_pool, shard_layout, skewed_csr,
+    EXPAND_CASES, PAGED_CASES, SHARD_CASES, WEIGHT_CASES, armed_graph, expand_sources, frontiers, paged_args,
+    paged_pool, probe_hop_args, shard_layout, skewed_csr,
 )
 
 F32_RTOL = 1e-5
@@ -1900,4 +1901,160 @@ def test_rowshard_hop_equals_plain_on_card(card, R, Q):
         for s in range(S):  # one rank's shard of a process group
             one = T.rowshard_hop(ind[s : s + 1], dst[s : s + 1], f[s : s + 1], S)
             assert torch.equal(one, T.plain_rowshard_hop(ind[s : s + 1], dst[s : s + 1], f[s : s + 1], S))
+    torch.cuda.synchronize()
+
+
+#: (base vertices, slab vertices, avg degree, slab slots, slab edges, NB):
+#: `tests/test_torch_slab_hop.py`'s, and one with 2^18 buckets over 200,000
+#: vertices and 60,000 slab edges
+PROBE_CASES = [
+    (5_000, 64, 3.0, 2_048, 1_500, 256),
+    (40, 8, 1.5, 64, 40, 256),
+    (200_000, 4_096, 8.0, 131_072, 60_000, 1 << 18),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ["out", "in"])
+@pytest.mark.parametrize("v,slab_v,avg,spare,used,nb", PROBE_CASES)
+def test_probe_hop_equals_plain_on_card(card, d, v, slab_v, avg, spare, used, nb):
+    """K10's push with the slab probe (`bitmap_hop_probe`) against its
+    plain version (the CSR push's ORed with `plain_bucket_hop`), exactly:
+    collisions, a bucket filled to BK, a slab vertex of base degree 0, base
+    and slab tombstones, an edge WHERE, a gate, C 1, 3 and 33, sparse,
+    empty and dense frontiers, ``alive`` 0, ``out`` accumulation, and in a
+    captured graph replayed over other frontiers and a patched table."""
+    rng = np.random.default_rng(v + used + (d == "in"))
+    g = armed_graph(rng, v, slab_v, avg, spare, used, nb)
+    vb = T.bucket(g["v"])
+    where = rng.random(g["live"].shape[0]) < 0.7
+    zero = torch.zeros((), dtype=torch.int32, device=card)
+    for m in (g["live"], g["live"] & where):
+        csr, probe, em = probe_hop_args(g, d, m, card)
+        for c in (1, 3, 33):
+            gate = _t(rng.random(vb) < 0.8).to(card)
+            for fr in frontiers(rng, c, vb, card):
+                fr[:, v] = True  # the slab vertex whose out bucket is full
+                for gt in (None, gate):
+                    got = T.bitmap_hop_csr(*csr, em, fr, gt, probe=probe)
+                    want = T.plain_bitmap_hop_csr(*csr, em, fr, gt) | T.plain_bucket_hop(probe, em, fr, gt)
+                    assert torch.equal(got, want), (c, gt is None)
+                acc = torch.zeros_like(fr)
+                acc[:, -1] = True
+                T.bitmap_hop_csr(*csr, em, fr, gate, None, acc, probe)
+                want = T.plain_bitmap_hop_csr(*csr, em, fr, gate) | T.plain_bucket_hop(probe, em, fr, gate)
+                assert torch.equal(acc, want | (torch.arange(vb, device=card) == vb - 1)[None, :])
+                assert not T.bitmap_hop_csr(*csr, em, fr, gate, zero, probe=probe).any()
+    csr, probe, em = probe_hop_args(g, d, g["live"], card)
+    fr = frontiers(rng, 8, vb, card)[0]
+    static = fr.clone()
+    alive = torch.zeros((), dtype=torch.int32, device=card)
+    run = lambda: T.bitmap_hop_csr(*csr, em, static, None, alive, probe=probe)  # noqa: E731
+    alive.fill_(1)
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    tab = probe.tab
+    for i in range(3):
+        f = frontiers(rng, 8, vb, card)[0] if i else fr
+        if i == 2:  # an entry patched in place, as K16 does: the replay reads it
+            free = torch.nonzero(tab < 0).view(-1)[:1]
+            tab[free] = 0
+        static.copy_(f)
+        out.fill_(True)
+        graph.replay()
+        assert torch.equal(out, T.plain_bitmap_hop_csr(*csr, em, f, None, alive) | T.plain_bucket_hop(probe, em, f))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ["out", "in"])
+@pytest.mark.parametrize(
+    "v,avg,block_edges,pages,hub,empty", EXPAND_CASES + [(100_000, 8.0, 4_096, 60, 50_000, slice(0, 20_000))]
+)
+def test_paged_expand_equals_plain_on_card(card, d, v, avg, block_edges, pages, hub, empty):
+    """K21, K2b's merge path over the page indirection, against its plain
+    version, exactly: a hub row across many 2,048-item tiles, zero-degree,
+    -1 and repeated sources, resident, free and evicted pages, every page
+    evicted, an empty pool, an output shorter than the total; the caller's
+    flag byte only set, never cleared."""
+    rng = np.random.default_rng(v + hub + (d == "in"))
+    indptr, part, pools, pageof = paged_pool(rng, v, avg, block_edges, pages, hub, empty)
+    ip, bv, es = (_t(a).to(card) for a in (indptr, part.block_of_v, part.edge_start))
+    no_pool = {n: np.zeros((0, part.Wp), np.int32) for n in pools}
+    evicted = np.full_like(pageof, -1)
+    for pl, pgn in ((pools, pageof), (pools, evicted), (no_pool, evicted)):
+        pg = _t(pgn).to(card)
+        nbr, eid = (_t(pl[n]).to(card) for n in ("nbr", "eid"))
+        hot = np.nonzero(pgn[part.block_of_v] >= 0)[0]
+        for width, among in ((1, None), (255, None), (4_097, None), (64, hot if hot.size else None)):
+            srcs, offsets, total = expand_sources(rng, indptr, width, among)
+            s_t, o_t = _t(srcs).to(card), _t(offsets).to(card)
+            tot = torch.tensor(total, dtype=torch.int32, device=card)
+            for out_size in {T.bucket(max(total, 1)), max(8, T.bucket(max(total, 1)) // 4)}:
+                args = (ip, s_t, o_t, tot, out_size, bv, pg, es, nbr, None if d == "out" else eid, d == "out")
+                want = T.plain_paged_expand(*args)
+                got = T.paged_expand(*args)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+                flag = torch.ones((), dtype=torch.bool, device=card)
+                assert bool(T.paged_expand(*args, flag=flag)[3])
+                flag.zero_()
+                got = T.paged_expand(*args, flag=flag)
+                assert got[3] is flag and bool(flag) == bool(want[3])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_paged_reads_share_one_miss_byte_on_card(card):
+    """A tiered replay's reads in one captured graph: the miss byte zeroed
+    once, K19's push and K21's gather storing into it; replayed over
+    sources inside and outside the resident blocks, the byte equals the OR
+    of the plain versions' flags and the outputs equal theirs."""
+    rng = np.random.default_rng(21)
+    indptr, part, pools, pageof = paged_pool(rng, 20_000, 6.0, 1_024, 12, 3_000)
+    push, _slot = paged_args(indptr, part, pools, pageof, card)
+    ip, bv, pg, es = push[:4]
+    vb = T.bucket(20_000)
+    hot = np.nonzero(pageof[part.block_of_v] >= 0)[0]
+    cases = [expand_sources(rng, indptr, 512, hot), expand_sources(rng, indptr, 512)]
+    width = max(c[0].shape[0] for c in cases)
+    s_t = torch.full((width,), -1, dtype=torch.int32, device=card)
+    o_t = torch.zeros(width, dtype=torch.int32, device=card)
+    tot = torch.zeros((), dtype=torch.int32, device=card)
+    out_size = T.bucket(max(c[2] for c in cases))
+    fr = torch.zeros((2, vb), dtype=torch.bool, device=card)
+    fr_cases = [torch.zeros_like(fr), torch.zeros_like(fr)]
+    fr_cases[0][:, hot[:20]] = True
+    fr_cases[1][:, rng.integers(0, 20_000, 40)] = True
+
+    def run():
+        miss = torch.zeros((), dtype=torch.bool, device=card)
+        hop = T.paged_hop_csr(*push, None, fr, None, None, None, miss)
+        row, eid, nbr, _ = T.paged_expand(ip, s_t, o_t, tot, out_size, bv, pg, es, push[4], push[5], False, miss)
+        return hop, row, eid, nbr, miss
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    for (srcs, offsets, total), f in zip(cases, fr_cases):
+        s_t.copy_(_t(srcs).to(card))
+        o_t.copy_(_t(offsets).to(card))
+        tot.fill_(total)
+        fr.copy_(f)
+        for o in outs[:4]:
+            o.fill_(-7 if o.dtype == torch.int32 else True)
+        outs[4].fill_(True)
+        graph.replay()
+        hop_miss = torch.zeros((), dtype=torch.bool, device=card)
+        want_hop = T.plain_paged_hop_csr(*push, None, f, miss=hop_miss)
+        want = T.plain_paged_expand(ip, s_t, o_t, tot, out_size, bv, pg, es, push[4], push[5], False)
+        assert torch.equal(outs[0], want_hop)
+        for a, b in zip(outs[1:4], want[:3]):
+            assert torch.equal(a, b)
+        assert bool(outs[4]) == bool(hop_miss | want[3])
     torch.cuda.synchronize()

@@ -9,8 +9,9 @@ row's slot base and degree, its slots, their edge ids. The cases are
 skewed: a hub row, runs of empty rows, shards whose 128-vertex groups
 straddle a boundary, shards past V, cold blocks, an evicted page that keeps
 its stale nbr / eid rows, and -1 edge ids under live owners. The helpers
-here also build the card tests' inputs (`tests/test_torch_kernels.py`), so
-the file imports neither JAX nor the reference package.
+here also build the card tests' inputs (`tests/test_torch_kernels.py`, and
+`armed_graph`, the delta slab of `tests/test_torch_slab_hop.py`), so the
+file imports neither JAX nor the reference package.
 """
 
 import math
@@ -296,3 +297,121 @@ def test_paged_push_flag_equals_miss(v, avg, block_edges, pages, hub, empty):
         if tag != "kept" and part.E:
             fr = frontiers(rng, 2, vb)[2]  # every vertex active
             assert bool(K.plain_paged_hop_miss(fr, bv, pgt, ip))
+
+
+def armed_graph(rng, v_base: int, slab_v: int, avg: float, spare: int, used: int, nb: int, bk: int = 8,
+                dead: float = 0.1, full_bucket: bool = True):
+    """One edge class of a delta-maintained snapshot as `storage/deltas`
+    leaves it, in numpy: a base CSR over ``v_base`` vertices (Poisson(avg)
+    out-degrees), padded to ``v_base + slab_v`` vertices and ``spare`` slab
+    slots; ``used`` slab edges between any of the padded vertices, indexed
+    in the out and in bucket tables (``nb`` buckets of ``bk``) as
+    `SnapshotOverlay.bucket_add` fills them, an edge that would overflow a
+    bucket drawn again; with ``full_bucket`` the first slab vertex (base
+    degree 0) first fills its out bucket to exactly ``bk`` entries. A
+    fraction ``dead`` of the base and of the slab edges is tombstoned as the
+    maintainer does it (``live`` False; a base edge's ``dst`` and in-CSR
+    ``src`` -1; bucket entries stay). Returns a dict of the arrays
+    (``indptr_out``, ``dst``, ``edge_src``, ``indptr_in``, ``src``,
+    ``edge_id_in``, ``live``, ``tab_out``, ``tab_in``) and ``base``,
+    ``nb``, ``bk``, ``v``."""
+    v_cap = v_base + slab_v
+    deg = rng.poisson(avg, v_base).astype(np.int64)
+    e_base = int(deg.sum())
+    cap = e_base + spare
+    edge_src = np.full(cap, -1, np.int32)
+    dst = np.full(cap, -1, np.int32)
+    live = np.zeros(cap, bool)
+    edge_src[:e_base] = np.repeat(np.arange(v_base, dtype=np.int32), deg)
+    dst[:e_base] = rng.integers(0, max(v_base, 1), e_base)
+    live[:e_base] = True
+    indptr_out = np.full(v_cap + 1, e_base, np.int32)
+    indptr_out[: v_base + 1] = np.concatenate([[0], np.cumsum(deg)])
+    order = np.argsort(dst[:e_base], kind="stable")
+    indptr_in = np.concatenate([[0], np.cumsum(np.bincount(dst[:e_base], minlength=v_cap))]).astype(np.int32)
+    src = np.full(cap, -1, np.int32)
+    src[:e_base] = edge_src[order]
+    edge_id_in = np.full(cap, -1, np.int32)
+    edge_id_in[:e_base] = order
+    tabs = {d: np.full(nb * bk, -1, np.int32) for d in ("out", "in")}
+    fill = {d: np.zeros(nb, np.int32) for d in ("out", "in")}
+    n = 0
+
+    def add(s: int, d_: int) -> bool:
+        nonlocal n
+        bo, bi = s & (nb - 1), d_ & (nb - 1)
+        if n >= min(used, spare) or fill["out"][bo] >= bk or fill["in"][bi] >= bk:
+            return False
+        pos = e_base + n
+        edge_src[pos], dst[pos], live[pos] = s, d_, True
+        for d, b in (("out", bo), ("in", bi)):
+            tabs[d][b * bk + fill[d][b]] = n
+            fill[d][b] += 1
+        n += 1
+        return True
+
+    if full_bucket and slab_v:
+        hot = v_base
+        while fill["out"][hot & (nb - 1)] < bk and n < min(used, spare):
+            add(hot, int(rng.integers(0, v_cap)))
+    tries = 0
+    while n < min(used, spare) and tries < 50 * max(used, 1):
+        add(int(rng.integers(0, v_cap)), int(rng.integers(0, v_cap)))
+        tries += 1
+    slab = np.arange(e_base, e_base + n)
+    live[slab[rng.random(n) < dead]] = False
+    in_pos = np.empty(e_base, np.int64)
+    in_pos[order] = np.arange(e_base)
+    gone = np.nonzero(rng.random(e_base) < dead)[0]
+    live[gone] = False
+    dst[gone] = -1
+    src[in_pos[gone]] = -1
+    return {
+        "indptr_out": indptr_out, "dst": dst, "edge_src": edge_src, "indptr_in": indptr_in, "src": src,
+        "edge_id_in": edge_id_in, "live": live, "tab_out": tabs["out"], "tab_in": tabs["in"],
+        "base": e_base, "nb": nb, "bk": bk, "v": v_cap,
+    }
+
+
+def probe_hop_args(g, d: str, emask, device="cpu"):
+    """`bitmap_hop_csr`'s CSR arrays of direction ``d`` and its `SlabIndex`
+    over `armed_graph`'s arrays, on ``device``."""
+    t = {k: _t(a).to(device) for k, a in g.items() if isinstance(a, np.ndarray)}
+    if d == "out":
+        csr = (t["indptr_out"], t["dst"], None)
+        own, nbr = t["edge_src"], t["dst"]
+    else:
+        csr = (t["indptr_in"], t["src"], t["edge_id_in"])
+        own, nbr = t["dst"], t["edge_src"]
+    probe = K.SlabIndex(t[f"tab_{d}"], own, nbr, t["live"], g["base"], g["nb"], g["bk"])
+    return csr, probe, None if emask is None else _t(emask).to(device)
+
+
+def expand_sources(rng, indptr: np.ndarray, width: int, among=None):
+    """K21's sources over ``indptr``: random vertices and -1 padding, the
+    largest row repeated at every seventh slot and zero-degree rows (or,
+    with ``among``, vertices drawn from it alone); with their exclusive
+    offsets and total, as numpy."""
+    v = indptr.shape[0] - 1
+    deg = np.diff(indptr)
+    if among is not None:
+        srcs = rng.choice(among, width).astype(np.int32)
+    else:
+        srcs = rng.integers(-1, max(v, 1), width).astype(np.int32)
+    if v and among is None:
+        srcs[::7] = int(np.argmax(deg))
+        zero = np.nonzero(deg == 0)[0]
+        if zero.size:
+            srcs[3::11] = zero[np.arange(srcs[3::11].shape[0]) % zero.size]
+    counts = np.where(srcs >= 0, deg[np.clip(srcs, 0, max(v - 1, 0))] if v else 0, 0)
+    offsets = (np.cumsum(counts) - counts).astype(np.int32)
+    return srcs, offsets, int(counts.sum())
+
+
+#: K21's partitions (V, avg degree, block edges, pages, hub edges, empty
+#: rows): a 5,000-edge row spans three of the gather's 2,048-item tiles
+EXPAND_CASES = [
+    (60, 3.0, 16, 3, 0, None),
+    (2_000, 5.0, 64, 12, 5_000, slice(500, 900)),
+    (3_000, 2.0, 128, 20, 0, slice(0, 1_000)),
+]

@@ -33,6 +33,7 @@ from orientdb_tpu_torch.storage import tiering
 from orientdb_tpu_torch.storage.deltas import arm_delta_maintenance, pad_for_deltas
 from orientdb_tpu_torch.utils.config import config
 from test_torch_match import _carry_arrays
+from test_torch_push_hops import EXPAND_CASES, expand_sources, paged_pool
 
 COUNT_2HOP = (
     "MATCH {class:Profiles, as:p, where:(uid = :u)}"
@@ -293,6 +294,91 @@ def test_paged_push_flag_equals_reference(tiered, d):
                     K.paged_hop_csr(*push, None, _t(f), tg, a, miss=miss)
                     assert not bool(miss)
     assert any(flagged) and not all(flagged)
+
+
+def _pool_arrays(d, indptr, part, pools, pageof):
+    """A synthetic partition's arrays under the tier plane's keys."""
+    k = tiering._keys("c", d)
+    arrays = {f"e:c:indptr_{d}": indptr, k["blockv"]: part.block_of_v, k["pageof"]: pageof,
+              k["estart"]: part.edge_start}
+    arrays.update({k[n]: pools[n] for n in ("own", "nbr", "eid")})
+    return arrays
+
+
+@pytest.mark.parametrize("d", ["out", "in"])
+@pytest.mark.parametrize("v,avg,block_edges,pages,hub,empty", EXPAND_CASES)
+def test_paged_expand_equals_reference_under_skew(d, v, avg, block_edges, pages, hub, empty):
+    """K21's plain version and its wrapper's CPU path equal the reference's
+    jitted `paged_expand` on skewed partitions: a row longer than the
+    gather's 2,048-item tile, zero-degree, -1 and repeated sources, cold
+    blocks and an evicted page, every page evicted, an empty pool, and an
+    output shorter than the total. With ``flag`` the cold miss is ORed into
+    the caller's byte, which is returned as the flag and never cleared."""
+    rng = np.random.default_rng(v + hub + (d == "in"))
+    indptr, part, pools, pageof = paged_pool(rng, v, avg, block_edges, pages, hub, empty)
+    no_pool = {n: np.zeros((0, part.Wp), np.int32) for n in pools}
+    evicted = np.full_like(pageof, -1)
+    flags = []
+    # the reference cannot take from an empty pool: with every page evicted
+    # no slot reads it, so the evicted pool's answer is the empty one's
+    for pl, pg, ref_pl in ((pools, pageof, pools), (pools, evicted, pools), (no_pool, evicted, pools)):
+        arrays = _pool_arrays(d, indptr, part, pl, pg)
+        ref = _j(_pool_arrays(d, indptr, part, ref_pl, pg))
+        k = tiering._keys("c", d)
+        hot = np.nonzero(pg[part.block_of_v] >= 0)[0]
+        for width, among in ((1, None), (64, None), (700, None), (40, hot if hot.size else None)):
+            srcs, offsets, total = expand_sources(rng, indptr, width, among)
+            for out_size in {K.bucket(max(total, 1)), max(8, K.bucket(max(total, 1)) // 4)}:
+                want = jt.paged_expand(
+                    ref, "c", d, jnp.asarray(srcs), jnp.asarray(offsets), jnp.int32(total), out_size, part.Wp
+                )
+                args = (
+                    _t(indptr), _t(srcs), _t(offsets), torch.tensor(total, dtype=torch.int32), out_size,
+                    _t(arrays[k["blockv"]]), _t(arrays[k["pageof"]]), _t(arrays[k["estart"]]),
+                    _t(arrays[k["nbr"]]), None if d == "out" else _t(arrays[k["eid"]]), d == "out",
+                )
+                for got in (K.plain_paged_expand(*args), K.paged_expand(*args)):
+                    for g, w in zip(got[:3], want[:3]):
+                        assert np.array_equal(g.numpy(), np.asarray(w))
+                    assert bool(got[3]) == bool(want[3])
+                flag = torch.zeros((), dtype=torch.bool)
+                got = K.paged_expand(*args, flag=flag)
+                assert got[3] is flag and bool(flag) == bool(want[3])
+                stay = torch.ones((), dtype=torch.bool)
+                assert bool(K.paged_expand(*args, flag=stay)[3])
+                flags.append(bool(want[3]))
+    assert any(flags) and not all(flags)
+
+
+def test_replay_expansion_shares_the_miss_byte(tiered, monkeypatch):
+    """A replay's paged expansion passes the schedule's one miss byte to
+    K21 (no flag of its own, no OR into the overflow), a recording passes
+    none; the rows stay equal to the reference's."""
+    jdb, jsnap, db, snap = tiered
+    seen, notes = [], []
+    expand, miss_flag = tiering.paged_expand, TE.SizeSchedule.miss_flag
+
+    def spy_expand(*a, **kw):
+        seen.append(a[7] if len(a) > 7 else kw.get("flag"))
+        return expand(*a, **kw)
+
+    def spy_miss(sched, device):
+        out = miss_flag(sched, device)
+        notes.append(("miss", out))
+        return out
+
+    monkeypatch.setattr(tiering, "paged_expand", spy_expand)
+    monkeypatch.setattr(TE.SizeSchedule, "miss_flag", spy_miss)
+    monkeypatch.setattr(TE.SizeSchedule, "note_flag", lambda s, f: notes.append(("note", f)))
+    p = {"u": 5}
+    want = _ref_rows(jdb, ROWS_1HOP, p, "oracle")
+    assert _rows(db, ROWS_1HOP, p) == want  # records
+    assert seen == [None] and not notes
+    assert _rows(db, ROWS_1HOP, p) == want  # replays
+    (variants,) = TE._plan_cache(snap).values()
+    assert variants.plans[0].replays == 1
+    assert len(seen) == 2 and seen[1] is not None
+    assert [n for n, _ in notes] == ["miss"] and notes[0][1] is seen[1]
 
 
 def test_paged_wrappers_take_the_plain_path_on_the_cpu(tiered):
