@@ -1,16 +1,21 @@
-"""Times the shared-batch cells BQ1 and BQ2 (64 × Q1 or Q2, one shared
-replay) of one tree of the port on one CUDA card, on the Person–knows graph
-A of ``chip_smoke.py`` (8M persons, ~80M knows, seed 5), so that one call
-can compare two trees on one card.
+"""Times batch cells of one tree of the port on one CUDA card, so that one
+call can compare two trees on one card: the shared-batch cells BQ1 and BQ2
+(64 × Q1 or Q2, one shared replay) and the count group BG1 (G1 × 16, r =
+300 + 500·i) on the Person–knows graph A of ``chip_smoke.py`` (8M persons,
+~80M knows, seed 5), and the count group BE1 (E1 × 64, d = 12,000 + (211·i
+mod 8,000): 4 chunks of 16 lanes) on its SNB-shape graph B (24M vertices,
+seed 7).
 
 For each cell: the first batch checked against numpy, its launches and the
-path its plan took, the batch's q/s by the reference's statistic, the
-sequential q/s, one batch's host split and the device's busy share with its
-top kernels (``chip_smoke.run_batch_cell``); then ``--reps`` more readings
-of the batched q/s (each the q/s of 3 batches), printed sorted with their
-median.
+path its plan took (a group's lane axis, launches a group replay, capture
+ms, graph nodes and reserved bytes), the batch's q/s by the reference's
+statistic, the sequential q/s, one batch's host split and the device's busy
+share with its top kernels (``chip_smoke.run_batch_cell``); then ``--reps``
+more readings of the batched q/s (each the q/s of 3 batches), printed sorted
+with their median; for a group cell each batched reading alternates with a
+reading of the same items as sequential ``db.query`` calls (one pass).
 
-    python3 batch_times.py [--tree DIR] [--reps N]
+    python3 batch_times.py [--tree DIR] [--reps N] [--cells BQ1,BQ2,BG1,BE1]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
 package to time; it is imported before anything else, and the file it was
@@ -23,6 +28,7 @@ last line; exits 1 without a card.
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib.util
 import json
 import os
@@ -37,7 +43,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
     ap.add_argument("--reps", type=int, default=9)
+    ap.add_argument("--cells", default="BQ1,BQ2,BG1,BE1")
     args = ap.parse_args()
+    cells = args.cells.split(",")
     tree = os.path.abspath(args.tree)
     # the tree's package first: chip_smoke.py (this script's) imports the
     # package by name, and the first import binds it for the process
@@ -51,7 +59,7 @@ def main() -> int:
     from orientdb_tpu_torch.exec import tpu_engine as TE
     from orientdb_tpu_torch.ops import csr as K
     from orientdb_tpu_torch.ops.device_graph import device_graph
-    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows, build_snb_shape
 
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
@@ -61,29 +69,75 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"tree {tree} (kernels from {K.__file__}): {card}")
 
-    db, snap = build_person_knows(8_000_000, avg_knows=10, seed=5, geo=True)
-    device_graph(snap, db.device)
-    torch.cuda.synchronize()
-    age = snap.v_columns["age"].values
-    want = {
-        "BQ1": (cs.Q1, cs.numpy_1hop_count(snap, age > 40, age < 30)),
-        "BQ2": (cs.Q2, cs.numpy_2hop_count(snap, age > 40, np.ones(snap.num_vertices, bool), age < 30)),
-    }
     readings = {}
-    for name, (sql, n) in want.items():
-        check = lambda i, rows, n=n: cs._require(rows == [{"n": n}], f"count {rows} != numpy {n}")  # noqa: E731
-        cell = cs.BatchCell(name, [sql] * 64, None, check, "shared", warm=[(sql, None)])
-        cs.run_batch_cell(torch, K, TE, db, snap, card, cell)
 
-        def run(cell=cell):
+    def timed(name, db, sql, plist, n_items, check, path, warm):
+        cell = cs.BatchCell(name, [sql] * n_items, plist, check, path, warm=warm)
+        ((plan, _dr, _dg),) = cs.run_batch_cell(torch, K, TE, db, db.current_snapshot(), card, cell)
+
+        def run():
             for rs in db.query_batch(cell.sqls, cell.plist):
                 rs.to_dicts()
             torch.cuda.synchronize()
 
-        qps = sorted(cs._batch_qps(run, 64, iters=3, reps=1) for _ in range(args.reps))
-        readings[name] = qps
-        print(f"batch {name}: {args.reps} more readings, q/s batched {[round(q, 1) for q in qps]}, "
-              f"median {statistics.median(qps):.1f} [{card}]")
+        def seq():
+            for s, p in zip(cell.sqls, cell.plist):
+                db.query(s, p).to_dicts()
+            torch.cuda.synchronize()
+
+        if path != "group":
+            qps = sorted(cs._batch_qps(run, n_items, iters=3, reps=1) for _ in range(args.reps))
+            readings[name] = qps
+            print(f"batch {name}: {args.reps} more readings, q/s batched {[round(q, 1) for q in qps]}, "
+                  f"median {statistics.median(qps):.1f} [{card}]")
+            return
+        bq, sq = [], []
+        for _ in range(args.reps):  # alternated: batched, then sequential
+            bq.append(cs._batch_qps(run, n_items, iters=3, reps=1))
+            sq.append(cs._batch_qps(seq, n_items, iters=1, reps=1))
+        readings[name] = {"batched": sorted(bq), "sequential": sorted(sq)}
+        g = max(plan.groups.items())[1]
+        print(
+            f"batch {name}: lane axis {getattr(plan, 'lane_axis', None)}, launches a group replay "
+            f"{sum(g.launches.values())}, {g.nodes} graph nodes, capture {g.capture_ms:.1f} ms; {args.reps} "
+            f"alternated readings, q/s batched {[round(q, 1) for q in sorted(bq)]} (median "
+            f"{statistics.median(bq):.1f}), sequential {[round(q, 1) for q in sorted(sq)]} (median "
+            f"{statistics.median(sq):.1f}), x{statistics.median(bq) / statistics.median(sq):.2f} [{card}]"
+        )
+
+    if {"BQ1", "BQ2", "BG1"} & set(cells):
+        db, snap = build_person_knows(8_000_000, avg_knows=10, seed=5, geo=True)
+        device_graph(snap, db.device)
+        torch.cuda.synchronize()
+        age = snap.v_columns["age"].values
+        want = {
+            "BQ1": (cs.Q1, cs.numpy_1hop_count(snap, age > 40, age < 30)),
+            "BQ2": (cs.Q2, cs.numpy_2hop_count(snap, age > 40, np.ones(snap.num_vertices, bool), age < 30)),
+        }
+        for name, (sql, n) in want.items():
+            if name not in cells:
+                continue
+            check = lambda i, rows, n=n: cs._require(rows == [{"n": n}], f"count {rows} != numpy {n}")  # noqa: E731
+            timed(name, db, sql, None, 64, check, "shared", [(sql, None)])
+        if "BG1" in cells:
+            gref = cs.GRef(np, snap)
+            g1 = [{"x": 48.0, "y": 2.0, "r": 300.0 + 500.0 * i} for i in range(16)]
+            timed("BG1", db, cs.G1, g1, 16, lambda i, rows: gref.check("G1", rows, g1[i]), "group",
+                  [(cs.G1, cs.G_CELLS["G1"][1])])
+        TE._plan_cache(snap).clear()
+        del db, snap
+        gc.collect()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    if "BE1" in cells:
+        sdb, ssnap = build_snb_shape(8_000_000, msgs_per_person=2, avg_knows=10, seed=7)
+        device_graph(ssnap, sdb.device)
+        torch.cuda.synchronize()
+        ds = [12_000 + (i * 211) % 8_000 for i in range(64)]
+        counts = cs.numpy_config5_counts(ssnap, ds)
+        check = lambda i, rows: cs._require(rows == [{"n": counts[i]}], f"BE1 item {i}")  # noqa: E731
+        timed("BE1", sdb, cs.E1, [{"d": d} for d in ds], 64, check, "group", [(cs.E1, {"d": min(ds)})])
     print(json.dumps({"tree": tree, "kernels": K.__file__, "card": card, "q/s batched": readings}))
     return 0
 

@@ -163,8 +163,15 @@ from the root of a checkout. Phases, each of which raises on failure:
    re-records), BE1 (E1 × 64, `bench.py:372-377`: a count group of 16
    lanes in 4 chunks), BE2 (E2 × 16: a rows group with edge columns) and
    BE5 (E5 × 8, K13 inside the lanes), and BG1 (G1 × 16, r = 300 + 500·i:
-   a count group). Every item equals numpy (BG1 outside the band); K15
-   launches in both graphs' batch cells. Each cell
+   a count group). BG1 and BE1 must run on the lane axis
+   (``plan.lane_axis``: one replay over the 16 lanes' parameter stack, the
+   lane forms of K15, K5a, K4 and K5b inside it). Every item equals numpy
+   (BG1 outside the band); K15 launches in both graphs' batch cells. The
+   lane forms are held at BG1's and BE1's shapes (each call of one eager
+   run of the group body) against their plain versions and, lane by lane,
+   against the single-lane kernels, and timed eager and in a graph beside
+   their bounds and beside B single-lane launches; each group's captured
+   replay is timed. Each cell
    prints its path, each group's capture ms, graph nodes, launches per
    group replay and reserved bytes, its batch q/s (the reference's
    statistic, `bench.py:273`) beside the same items as sequential
@@ -226,7 +233,11 @@ from the root of a checkout. Phases, each of which raises on failure:
    timed eager and in a captured graph. TR1 runs before the writes, after
    W1 (the cleared cache records it anew) and after W2 (its stale data
    version sends the cached plan to a re-record), each equal to numpy over
-   the base graph plus the events.
+   the base graph plus the events. W5 deletes a person and then writes an
+   edge to it: the overlay poisons ("endpoint not in snapshot") and
+   ``apply_batch`` compacts it into a clean, re-padded snapshot; D1 (back
+   on the pushdown), Q3, V1, BQ3 and TR1 then equal numpy; prints the
+   fold's host ms, the new snapshot's bytes uploaded and ``compactions``.
 9. tiering — after phase 8, A's second twin (copied before A's upload)
    is attached with ``tier_hbm_cap_bytes`` = its adjacency bytes / 2
    (configuration T, `bench.py:507`; ``tier_block_edges`` 65,536): its
@@ -263,7 +274,7 @@ from the root of a checkout. Phases, each of which raises on failure:
 
 The line before the last is one JSON object with every kernel's numbers
 (``launches`` from phase 5, from phase 6's replay path for
-`rows_with_matches`, from phase 7 for `group_page`, from phase 8 for
+`rows_with_matches`, from phase 7 for `group_page` and the lane forms, from phase 8 for
 K16–K18, K10's push with the slab probe and its edge-list form, from
 phase 9 for K19–K21 (K20 0: off the
 path, held and timed) and from phase 7m's cells for the mesh
@@ -346,11 +357,25 @@ REPLACES = {
     "bitmap_hop_shard": "orientdb_tpu/parallel/mesh_graph.py:426",
     "shard_weight_pass": "orientdb_tpu/parallel/mesh_graph.py:480",
     "rowshard_hop": "orientdb_tpu/parallel/sharded.py:202",
+    # the lane forms: K15, K5a, K4 and K5b under the group replay's vmap
+    "predicate_eval_lanes": "orientdb_tpu/exec/tpu_engine.py:3436",
+    "weight_gather_lanes_i32": "orientdb_tpu/exec/tpu_engine.py:3436",
+    "segment_sum_lanes_i32": "orientdb_tpu/exec/tpu_engine.py:3436",
+    "mask_count_lanes": "orientdb_tpu/exec/tpu_engine.py:3436",
 }
 BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop_csr", "bitmap_emit", "frontier_advance"]
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
-#: the kernel only the batch path launches (phase 7)
-BATCH_ONLY = ("group_page",)
+#: the lane forms of K15, K5a, K4 and K5b, which a count group on the lane
+#: axis runs (phase 7: BG1 and BE1), and their wrappers in ops/csr.py
+LANE_KERNELS = ("predicate_eval_lanes", "weight_gather_lanes_i32", "segment_sum_lanes_i32", "mask_count_lanes")
+LANE_FORMS = {
+    "predicate_eval_lanes": "predicate_eval_lanes",
+    "weight_gather_lanes": "weight_gather_lanes_i32",
+    "indptr_segment_sum_lanes": "segment_sum_lanes_i32",
+    "mask_count_lanes": "mask_count_lanes",
+}
+#: the kernels only the batch path launches (phase 7)
+BATCH_ONLY = ("group_page",) + LANE_KERNELS
 #: the kernels only a delta-maintained snapshot launches (phase 8: on dirty
 #: topology K10's push probes the slab's buckets, and its edge-list form
 #: walks the slab's slots once a bucket of the class overflowed)
@@ -2156,6 +2181,15 @@ def time_predicate_kernel(np, torch, K, ks, db, card: str) -> None:
         f"the long program {length} instructions; distance() band slots {band} "
         f"({time.perf_counter() - t0:.1f} s)"
     )
+    t0 = time.perf_counter()
+    band, checked = check_predicate_lanes(np, torch, K, 1 << 23, 16)
+    torch.cuda.synchronize()
+    gc.collect()
+    print(
+        f"kernel predicate_eval_lanes: equals its plain version and the single-lane kernel row by row on "
+        f"{checked} programs of {len(K15_LANE_WHERES)} WHEREs over 2^23 slots and 16 parameter rows, ids and "
+        f"identity mode; distance() band slots {band} ({time.perf_counter() - t0:.1f} s)"
+    )
     solver = TpuMatchSolver(db, parse(Q1), {})
     V = solver.dg.num_vertices
     vb = solver._vb()
@@ -3218,7 +3252,8 @@ def run_batch_cell(torch, K, TE, db, snap, card, cell: BatchCell, timed: bool = 
             Bb = min(1 << (len(cell.sqls) - 1).bit_length(), p._group_lane_cap())
             g = p.groups[Bb]
             d += (
-                f"; Bb {Bb}, {dg} chunks, capture {g.capture_ms} ms, {g.nodes} graph nodes, "
+                f"; Bb {Bb}, lane axis {getattr(p, 'lane_axis', None)}, {dg} chunks, capture {g.capture_ms} ms, "
+                f"{g.nodes} graph nodes, "
                 f"launches per group replay {sum(g.launches.values())} {g.launches}, reserved after "
                 f"the group capture {g.reserved_bytes} bytes vs {p.reserved_bytes} after the plan's own"
             )
@@ -3315,8 +3350,13 @@ def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big, gref):
     g1 = [{"x": 48.0, "y": 2.0, "r": 300.0 + 500.0 * i} for i in range(16)]
     bg1 = BatchCell("BG1", [G1] * 16, g1, lambda i, rows: gref.check("G1", rows, g1[i]), "group",
                     warm=[(G1, G_CELLS["G1"][1])])
-    run_batch_cell(torch, K, TE, db, snap, card, bg1)
+    ((bg1_plan, _dr, _dg),) = run_batch_cell(torch, K, TE, db, snap, card, bg1)
     done.append(bg1)
+    _require(bg1_plan.lane_axis and 16 in bg1_plan.groups, "BG1 is not a count group of 16 lanes on the lane axis")
+    check_lane_kernels(
+        np, torch, K, ks, bg1_plan, bg1_plan.groups[16].stack.clone(), "BG1", card,
+        band_of=lambda b, slots: distance_band(np, gref.d[slots], g1[b]["r"]),
+    )
     (q3,) = _cell_plans(TE, snap, [Q3])
     _require(q3._rows_grouped() and 16 in q3.groups, "BQ3 is not a rows group of 16 lanes")
     check_group_page(torch, K, ks, q3.groups[16].out["data"], q3, ks3, q3_big)
@@ -3423,9 +3463,166 @@ def check_group_page(torch, K, ks, stack, plan, ks3, q3_big):
     K.LAUNCHES.update(counted)
 
 
-def run_batches_snb(np, torch, K, db, snap, card):
+def lane_calls(torch, K, plan, stack):
+    """One eager run of ``plan``'s group body on the lane axis over the
+    parameter stack ``stack``, recording each lane form's arguments (the
+    shapes the main path gives it) in call order; its launches are not
+    counted."""
+    counted = dict(K.LAUNCHES)
+    calls = []
+    orig = {name: getattr(K, name) for name in LANE_FORMS}
+
+    def spy(name):
+        def call(*a, **kw):
+            calls.append((name, a, kw))
+            return orig[name](*a, **kw)
+
+        return call
+
+    for name in LANE_FORMS:
+        setattr(K, name, spy(name))
+    try:
+        plan._run_group(stack, plan._group_outputs(stack.shape[0]))
+    finally:
+        for name, fn in orig.items():
+            setattr(K, name, fn)
+    if stack.is_cuda:
+        torch.cuda.synchronize()
+    K.LAUNCHES.update(counted)
+    return calls
+
+
+def _lane_single(K, name, a, kw, b):
+    """Lane ``b`` of a lane form's call as the single-lane wrapper's call."""
+    if name == "predicate_eval_lanes":
+        prog, bufs, ids, n, n_valid, base, depth, params = a
+        return K.predicate_eval(prog, bufs, ids, n, n_valid, base, depth, params[b])
+    if name == "weight_gather_lanes":
+        lane = lambda t: t[b] if t is not None and t.dim() == 2 else t  # noqa: E731
+        emit, dtype, *rest = a
+        ops = dict(zip(("ok", "node_ok", "emask", "eid", "w"), rest), **kw)
+        return K.weight_gather(emit, dtype, **{k: lane(v) if k != "eid" else v for k, v in ops.items()})
+    if name == "indptr_segment_sum_lanes":
+        vals, indptr, out_size = a
+        return K.indptr_segment_sum(vals[b], indptr, out_size)
+    return K.mask_count(a[0][b])
+
+
+def _lane_bound(torch, name, a, kw):
+    """(bytes, operations, random 32-byte sectors) of a lane form's call:
+    each shared input once, each lane-stacked input and each output once; a
+    gather of a table through emit or eid a sector an index (shared: once,
+    lane-stacked: a lane)."""
+    if name == "predicate_eval_lanes":
+        prog, bufs, ids, n, _nv, _b, _d, params = a
+        B = params.shape[0]
+        per_slot = sum(t.element_size() for t in bufs) + (4 if ids is not None else 0)
+        dist = any(r[0] == 20 for r in prog.rows)  # PredOp.DIST
+        return per_slot * n + B * n, (G1_SLOT_OPS * n * B if dist else 0.0), 0
+    if name == "weight_gather_lanes":
+        emit, _dtype, *rest = a
+        ops = dict(zip(("ok", "node_ok", "emask", "eid", "w"), rest), **kw)
+        m = ops["w"].shape[-1] if emit is None else emit.shape[0]
+        B = max(t.shape[0] for t in ops.values() if t is not None and t.dim() == 2)
+        nbytes = 4.0 * m * (emit is not None) + 4.0 * m * (ops.get("eid") is not None) + 4.0 * B * m
+        sectors = 0
+        for key in ("ok", "node_ok", "emask", "w"):
+            t = ops.get(key)
+            if t is None:
+                continue
+            nbytes += t.numel() * t.element_size()
+            through = emit is not None and key in ("ok", "w") or key == "emask" and ops.get("eid") is not None
+            if through:
+                sectors += m * (t.shape[0] if t.dim() == 2 else 1)
+        return nbytes, 0.0, sectors
+    if name == "indptr_segment_sum_lanes":
+        vals, indptr, out_size = a
+        return 4.0 * vals.numel() + 4.0 * indptr.numel() + 4.0 * vals.shape[0] * out_size, 0.0, 0
+    mask = a[0]
+    return float(mask.numel()) + 4.0 * mask.shape[0], 0.0, 0
+
+
+def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None):
+    """The lane forms at ``cell``'s shapes (BE1's or BG1's lanes): each
+    call of one eager run of the plan's lane-axis group body (`lane_calls`)
+    held against its plain version (int32 and bool exactly; a distance()
+    mask outside the boundary band, ``band_of(lane, slots)``) and, lane by
+    lane, against the single-lane kernel exactly; each form's largest call
+    timed eager and in a captured graph beside its bound (bytes, or a
+    distance() mask's operations) and beside B single-lane launches; then
+    the group's captured replay timed (device ms a replay of all its
+    lanes). Returns the lane forms' rows; their launches are not counted."""
+    counted = dict(K.LAUNCHES)
+    calls = lane_calls(torch, K, plan, stack)
+    _require(calls, f"{cell}: the group body ran no lane form")
+    B = stack.shape[0]
+    largest = {}
+    for name, a, kw in calls:
+        got = getattr(K, name)(*a, **kw)
+        want = getattr(K, "plain_" + name)(*a, **kw)
+        kname = LANE_FORMS[name]
+        singles = [_lane_single(K, name, a, kw, b) for b in range(B)]
+        _require(
+            all(torch.equal(got[b], singles[b]) for b in range(B)),
+            f"{cell}: {name} differs from the single-lane kernel lane by lane",
+        )
+        if band_of is not None and name == "predicate_eval_lanes":
+            _require(got.shape == want.shape and got.dtype == want.dtype, f"{cell}: {name} shape/dtype")
+            for b in range(B):
+                slots = torch.nonzero(got[b] != want[b]).flatten().cpu().numpy()
+                _require(bool(band_of(b, slots).all()), f"{cell}: {name} lane {b} differs outside the band")
+        else:
+            ks.same(kname, got, want)
+        size = got.numel()
+        if size >= largest.get(name, (0,))[0]:
+            largest[name] = (size, a, kw)
+        del got, want, singles
+    rows = {}
+    for name, (_size, a, kw) in largest.items():
+        kname = LANE_FORMS[name]
+        kernel = lambda n=name, a=a, kw=kw: getattr(K, n)(*a, **kw)  # noqa: E731
+        plain = lambda n=name, a=a, kw=kw: getattr(K, "plain_" + n)(*a, **kw)  # noqa: E731
+
+        def singles(n=name, a=a, kw=kw):
+            for b in range(B):
+                _lane_single(K, n, a, kw, b)
+
+        nbytes, ops, sectors = _lane_bound(torch, name, a, kw)
+        ks.timed(kname, kernel, plain, None, nbytes, ops)
+        row = dict(ks.rows[kname])
+        row["graph_ms"] = _graph_ms(torch, kernel)
+        row["singles_ms"] = _time_ms(torch, singles)
+        row["singles_graph_ms"] = _graph_ms(torch, singles)
+        rows[kname] = row
+        shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
+        print(
+            f"kernel {kname} at {cell}'s shape {shapes}: {row['ms']:.4f} ms eager, {row['graph_ms']:.4f} in a "
+            f"graph; {B} single-lane launches {row['singles_ms']:.4f} / {row['singles_graph_ms']:.4f}; plain "
+            f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}); random 32-byte "
+            f"sectors {sectors} [{card}]"
+        )
+    g = plan.groups[B]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    g.graph.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(10):
+        g.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    print(
+        f"group replay {cell}: lane axis {plan.lane_axis}, {B} lanes, {start.elapsed_time(end) / 10:.4f} ms a "
+        f"replay, {sum(g.launches.values())} launches {g.launches}, {g.nodes} graph nodes, capture "
+        f"{g.capture_ms:.1f} ms, reserved after the capture {g.reserved_bytes} bytes [{card}]"
+    )
+    K.LAUNCHES.update(counted)
+    return rows
+
+
+def run_batches_snb(np, torch, K, ks, db, snap, card):
     """Phase 7b: the batch cells on the SNB-shape graph, the plan cache
-    cleared first. Returns the peak device bytes allocated."""
+    cleared first; BE1's lane forms against their plain versions
+    (`check_lane_kernels`). Returns the peak device bytes allocated."""
     from orientdb_tpu_torch.exec import tpu_engine as TE
 
     TE._plan_cache(snap).clear()
@@ -3456,9 +3653,10 @@ def run_batches_snb(np, torch, K, db, snap, card):
         ((plan, _dr, dg),) = run_batch_cell(torch, K, TE, db, snap, card, cell)
         if cell.name == "BE1":
             _require(
-                plan.count_name is not None and plan._group_lane_cap() == 16 and dg == 4,
-                f"BE1: not a count group of 16 lanes in 4 chunks ({dg} chunks)",
+                plan.count_name is not None and plan._group_lane_cap() == 16 and dg == 4 and plan.lane_axis,
+                f"BE1: not a count group of 16 lanes in 4 chunks on the lane axis ({dg} chunks)",
             )
+            check_lane_kernels(np, torch, K, ks, plan, plan.groups[16].stack.clone(), "BE1", card)
         elif cell.name == "BE2":
             _require(plan._rows_grouped(), "BE2 is not a rows group")
         else:
@@ -3876,6 +4074,43 @@ def run_deltas(np, torch, K, TE, ks, db, snap, card):
     check_slab_scan(torch, K, ks, dg, snap, src)
     for name in DELTA_ONLY:
         path[name] += w4[name]
+
+    # W5: the overlay poisons (a person deleted, then an edge written to
+    # it: "endpoint not in snapshot"); apply_batch compacts, as the
+    # reference's maintainer does, and the fresh snapshot answers
+    victim = int(dref.roots(Q3_K)[1])
+    events = [
+        {"op": "delete", "rid": f"#{writer.pc}:{victim}", "class": "Person"},
+        writer.edge(int(dref.roots(Q3_K)[0]), victim),
+    ]
+    before = m.compactions
+    t = time.perf_counter()
+    ok = m.apply_batch(events)
+    sync()
+    host_ms = (time.perf_counter() - t) * 1e3
+    _require(
+        ok and m.compactions == before + 1 and "endpoint not in snapshot" in m.last_compact_reason,
+        f"W5 did not compact on the poisoned overlay: {m.stats()}",
+    )
+    dref.apply(events)
+    dref.refresh()
+    snap = db.current_snapshot()
+    ov = snap._overlay
+    _require(not ov.bucket_overflow and not ov.topology_dirty, "W5's compacted overlay is not clean")
+    cells = _delta_cells(np, dref)
+    t = time.perf_counter()
+    run_cells("after W5 (compacted; the first calls upload the new snapshot, record and capture)")
+    first_ms = (time.perf_counter() - t) * 1e3
+    tr1("after W5")
+    _require(_only_plan(TE, snap, D1).plans[0].solver._count_pushdown_steps(), "D1 lost the pushdown after W5")
+    new_mem = device_graph(snap, db.device).memory_report()
+    print(
+        f"delta W5: {len(events)} events, maintainer {host_ms:.1f} ms (host, the compaction included), the "
+        f"fold {m.last_compact['fold_ms']:.1f} ms host ({m.last_compact['vertices']} vertex rows, "
+        f"{ov.edge_slabs['knows'].base} knows edges folded), the new snapshot's {new_mem['total_bytes']} bytes uploaded at its first "
+        f"query; the cells after it {first_ms:.1f} ms; compactions {m.compactions}, reason "
+        f"{m.last_compact_reason!r}, dead fraction {m.stats()['dead_fraction']} [{card}]"
+    )
     return path
 
 
@@ -4979,6 +5214,81 @@ def check_predicate_kernel(np, torch, K, n: int, seed: int = 15, device: str = "
     return band_total, checked, len(whole.programs[0].prog.rows)
 
 
+#: K15's lane form: the WHEREs of `K15_WHERES` that read parameters, and
+#: more (string ranks, arithmetic, binding rows, NOT and OR around them)
+K15_LANE_WHERES = [w for w in K15_WHERES if ":" in w] + [
+    "s >= 'm' AND i > :k",
+    "i + :k > j * 2 OR f IS NULL",
+    "NOT (f > :x) AND (b = :t OR g < :y)",
+    "i < p.i + :k AND lat > :x",
+]
+
+
+def k15_lane_params(lanes: int):
+    """``lanes`` parameter sets around `K15_PARAMS`, one a lane."""
+    return [
+        {"k": 17 + 3 * b, "x": 48.0 - b, "y": 2.0 + 0.5 * b, "r": 2500.0 - 100.0 * b, "t": b % 2 == 0}
+        for b in range(lanes)
+    ]
+
+
+def check_predicate_lanes(np, torch, K, n: int, lanes: int, seed: int = 15, device: str = "cuda"):
+    """K15's lane form on ``n`` synthetic slots (`k15_snapshot`): each WHERE
+    of `K15_LANE_WHERES` against a ``[lanes, P]`` parameter stack, over ids
+    with -1 and past-end entries and in identity mode, with binding rows:
+    row b equals the single-lane kernel on parameter row b exactly, and the
+    plain version's lane b exactly (distance() outside the boundary band of
+    lane b's point and radius). Returns (band slots, programs checked). On a
+    CPU ``device`` both sides are plain versions."""
+    from orientdb_tpu_torch.ops.device_graph import DeviceGraph
+    from orientdb_tpu_torch.ops.predicates import ColumnScope, ParamBox, Predicate, compile_where, pack_params
+    from orientdb_tpu_torch.sql.parser import parse
+
+    dev = torch.device(device)
+    snap = k15_snapshot(np, n, seed)
+    dg = DeviceGraph(snap, dev)
+    rng = np.random.default_rng(seed + 2)
+    ids_np = rng.integers(-1, n + 3, n).astype(np.int32)
+    rows_np = rng.integers(-1, n + 2, n).astype(np.int32)
+    ids = torch.from_numpy(ids_np).to(dev)
+    env = {"bindings": {"p": torch.from_numpy(rows_np).to(dev)}, "depth": K15_DEPTH}
+    params = k15_lane_params(lanes)
+    lat, lng = snap.v_columns["lat"].values, snap.v_columns["lng"].values
+    base, n_valid = 5, n - n // 3
+    band_total, checked = 0, 0
+    for where in K15_LANE_WHERES:
+        box = ParamBox(params[0])
+        scope = ColumnScope(
+            dg.columns, dg.non_columnar, device=dev, binding_columns=dg.columns, visible_aliases={"p"}
+        )
+        term = compile_where(parse(f"SELECT FROM V WHERE {where}").where, scope, box, allow_depth=True)
+        pred = Predicate([term], dev, box, uses_bindings=True)
+        _require(pred.uses_params and pred.lane_ok, f"K15 lanes: {where!r} is not a lane-form program")
+        (prog,) = pred.programs
+        stack = torch.from_numpy(np.stack([pack_params(p, box.used) for p in params])).to(dev)
+        for mode in ("ids", "identity"):
+            a = (ids, n, n, 0) if mode == "ids" else (None, n, n_valid, base)
+            bufs = prog.buffers(env, [], n)
+            got = K.predicate_eval(prog.prog, bufs, *a, K15_DEPTH, stack)
+            want = K.plain_predicate_eval_lanes(prog.prog, bufs, *a, K15_DEPTH, stack)
+            _require(got.shape == (lanes, n), f"K15 lanes {where!r}: shape {tuple(got.shape)}")
+            slot_ids = ids_np if mode == "ids" else np.where(np.arange(n) < n_valid, np.arange(n) + base, -1)
+            at = np.clip(slot_ids, 0, n - 1)
+            for b in range(lanes):
+                one = K.predicate_eval(prog.prog, bufs, *a, K15_DEPTH, stack[b])
+                _require(torch.equal(got[b], one), f"K15 lanes {where!r} ({mode}) lane {b} != the single kernel")
+                diff = (got[b] != want[b]).cpu().numpy()
+                if "distance" not in where:
+                    _require(not diff.any(), f"K15 lanes {where!r} ({mode}) lane {b} differs from plain")
+                    continue
+                p = params[b]
+                band = distance_band(np, numpy_distance_km(lat[at], lng[at], p["x"], p["y"]), p["r"])
+                _require(not (diff & ~band).any(), f"K15 lanes {where!r} ({mode}) lane {b} differs outside the band")
+                band_total += int(band.sum())
+            checked += 1
+    return band_total, checked
+
+
 # ---------------------------------------------------------------------------
 # phase 7m: the mesh (A on a 4-shard LocalShards mesh; ME1 on B; MQ2n over a
 # one-rank NCCL process group)
@@ -5774,7 +6084,7 @@ def main() -> int:
     # 7b. batches on the SNB-shape graph
     t0 = time.perf_counter()
     K.reset_launches()
-    s_peak = max(torch.cuda.max_memory_allocated(), run_batches_snb(np, torch, K, sdb, ssnap, card))
+    s_peak = max(torch.cuda.max_memory_allocated(), run_batches_snb(np, torch, K, ks, sdb, ssnap, card))
     torch.cuda.synchronize()
     print(f"batch phase E: {time.perf_counter() - t0:.1f} s; launches {dict(K.LAUNCHES)}")
     _require(K.LAUNCHES["predicate_eval"] > 0, "predicate_eval never launched in the SNB-shape batch phase")

@@ -71,6 +71,15 @@ def snapshot_from_arrays(
             superclasses=tuple(c.get("superclasses", ())),
             abstract=bool(c.get("abstract", False)),
         )
+    snap = snapshot_of_arrays(arrays)
+    db.attach_snapshot(snap)
+    return db, snap
+
+
+def snapshot_of_arrays(arrays: Dict) -> GraphSnapshot:
+    """The `GraphSnapshot` of ``arrays`` (the layout above), attached to
+    nothing: the build `snapshot_from_arrays` and the delta maintainer's
+    compaction (`storage/deltas.SnapshotMaintainer.compact`) share."""
     snap = GraphSnapshot()
     snap.num_vertices = int(arrays["num_vertices"])
     snap.v_class = _i32(arrays["v_class"])
@@ -96,5 +105,4 @@ def snapshot_from_arrays(
             csr.e_cluster = _i32(e["e_cluster"])
             csr.e_position = _i32(e["e_position"])
         snap.edge_classes[cname] = csr
-    db.attach_snapshot(snap)
-    return db, snap
+    return snap

@@ -862,11 +862,14 @@ __device__ __forceinline__ long long seg_end(const int* __restrict__ indptr, Seg
 
 // The partition of `nsh` independent merge paths (K4: one; K23: a held
 // shard each, its indptr row at indptr + h * ind_stride): rowc[h * (tiles +
-// 1) + t] is the segment coordinate of path h's tile boundary t.
+// 1) + t] is the segment coordinate of path h's tile boundary t. The zero
+// padding goes to `nout` output rows of out_size (K4's lane form: a lane
+// each).
 __global__ void seg_partition_kernel(const int* __restrict__ indptr, long long ind_stride,
                                      long long nsh, long long ne, long long nseg,
                                      long long tiles, int* __restrict__ rowc,
-                                     unsigned* __restrict__ out, long long out_size) {
+                                     unsigned* __restrict__ out, long long out_size,
+                                     long long nout) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
@@ -885,19 +888,21 @@ __global__ void seg_partition_kernel(const int* __restrict__ indptr, long long i
       if (lane == 0) rowc[t] = static_cast<int>(x);
     }
   }
-  // zeros past the segments: a scalar head up to 16-byte alignment, then
-  // 16-byte stores, then a scalar tail
+  // zeros past the segments of each output row: a scalar head up to
+  // 16-byte alignment, then 16-byte stores, then a scalar tail
   const long long npad = out_size - nseg;
   if (npad <= 0) return;
-  unsigned* pad = out + nseg;
-  long long head = static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(pad) & 15u)) & 15u) / 4;
-  if (head > npad) head = npad;
-  const long long body = (npad - head) / 4;
-  if (tid < head) pad[tid] = 0u;
-  uint4* vec = reinterpret_cast<uint4*>(pad + head);
-  for (long long k = tid; k < body; k += step) vec[k] = make_uint4(0u, 0u, 0u, 0u);
-  const long long tail = head + 4 * body + tid;
-  if (tail < npad && tid < 4) pad[tail] = 0u;
+  for (long long r = 0; r < nout; ++r) {
+    unsigned* pad = out + r * out_size + nseg;
+    long long head = static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(pad) & 15u)) & 15u) / 4;
+    if (head > npad) head = npad;
+    const long long body = (npad - head) / 4;
+    if (tid < head) pad[tid] = 0u;
+    uint4* vec = reinterpret_cast<uint4*>(pad + head);
+    for (long long k = tid; k < body; k += step) vec[k] = make_uint4(0u, 0u, 0u, 0u);
+    const long long tail = head + 4 * body + tid;
+    if (tail < npad && tid < 4) pad[tail] = 0u;
+  }
 }
 
 // 32 bits read as T
@@ -941,63 +946,25 @@ struct SegValues {
   __device__ void add(long long, long long i, T v) const { out[i] += v; }
 };
 
-// The tiles of `nsh` merge paths (see seg_partition_kernel), `tiles` a
-// path: block b is tile b % tiles of path b / tiles. `Src` gives a path's
-// indptr, stages a tile's values and takes its finished sums.
-template <typename T, typename Src>
-__global__ void __launch_bounds__(kThreads)
-    seg_sum_kernel(const Src src, long long ne, long long nseg, long long tiles,
-                   const int* __restrict__ rowc_all, T* __restrict__ carry) {
-  // the tile's segment ends (relative to its first value), a sentinel end,
-  // then its values placed so that the 16-byte-aligned part of their
-  // source lands on 16-byte-aligned shared memory (up to 3 slots of gap),
-  // and one spare slot a walk may read past the last
-  __shared__ __align__(16) unsigned s_buf[kSegTile + 6];
-  __shared__ T s_out[kSegTile];
-  __shared__ T s_wv[kWarps];
-  __shared__ int s_wf[kWarps];
+// One tile's pass over its staged segment ends (s_end, ni of them and a
+// sentinel) and values (s_val, nj): each thread walks its `cnt` merged
+// items from (xs, ds - xs) once, branch-free, writing every segment that
+// ends in its share to s_out (an empty one writes 0); the block combines
+// the threads' trailing partials by a segmented scan (a fixed tree: the
+// float32 order is the same every run) and adds each thread's carry-in to
+// its first finished segment; `store(k, v)` takes finished segment k of the
+// tile, and *carry_slot the partial of the segment still open at its end.
+template <typename T, typename Store>
+__device__ __forceinline__ void seg_tile_pass(const int* s_end, const unsigned* s_val, T* s_out,
+                                              T* s_wv, int* s_wf, int ni, int xs, int ds, int cnt,
+                                              T* carry_slot, Store store) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long h = blockIdx.x / tiles;
-  const long long b = blockIdx.x - h * tiles;
-  const int* indptr = src.indptr(h);
-  const int* rowc = rowc_all + h * (tiles + 1);
-  const SegSpan sp = seg_span(indptr, ne, nseg);
-  const long long total = nseg + sp.nv;
-  const long long d0 = b * kSegTile < total ? b * kSegTile : total;
-  const long long d1 = d0 + kSegTile < total ? d0 + kSegTile : total;
-  const int i0 = rowc[b], i1 = rowc[b + 1];
-  const long long j0 = d0 - i0;
-  const int ni = i1 - i0;
-  const int nj = static_cast<int>(d1 - i1 - j0);
-  const int head = src.head(sp.v0 + j0, nj);
-  int* s_end = reinterpret_cast<int*>(s_buf);
-  unsigned* s_val = s_buf + (((ni + 1 + head + 3) & ~3) - head);
-  for (int k = tid; k < ni; k += kThreads) {
-    s_end[k] = static_cast<int>(seg_end(indptr, sp, i0 + k) - j0);
-  }
-  if (tid == 0) s_end[ni] = 0x7fffffff;  // past the tile's last end: only values
-  src.stage(s_val, h, sp.v0 + j0, nj, head);
-  __syncthreads();
-  // this thread's share of the tile: its start by a search in shared memory
-  const int items = ni + nj;
-  const int ds = tid * kSegItems < items ? tid * kSegItems : items;
-  const int cnt = (ds + kSegItems < items ? ds + kSegItems : items) - ds;
-  int lo = ds > nj ? ds - nj : 0, hi = ds < ni ? ds : ni;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (s_end[mid] <= ds - mid - 1) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  const int xs = lo;
   // one branch-free walk: a segment end stores the running sum (the first
   // one without the earlier threads' part of it, added below), a value
   // adds to it; the current end stays in a register and is read again only
   // after a segment ended
   T acc = T(0);
-  int x = xs, y = ds - lo;
+  int x = xs, y = ds - xs;
   int e = s_end[x];
   auto walk = [&](bool all) {
 #pragma unroll
@@ -1042,24 +1009,146 @@ __global__ void __launch_bounds__(kThreads)
   for (int w = 0; w < warp; ++w) pv = s_wf[w] ? s_wv[w] : pv + s_wv[w];
   const T ev = __shfl_up_sync(kFull, v, 1);
   const bool ef = __shfl_up_sync(kFull, f ? 1 : 0, 1) != 0;
-  if (tid == kThreads - 1) carry[blockIdx.x] = f ? v : pv + v;
+  if (tid == kThreads - 1) *carry_slot = f ? v : pv + v;
   // the first segment that ends in the share gets the earlier threads' part
   if (tid > 0 && x != xs) s_out[xs] = (lane == 0 ? pv : (ef ? ev : pv + ev)) + s_out[xs];
   __syncthreads();
-  for (int k = tid; k < ni; k += kThreads) src.store(h, i0 + k, s_out[k]);
+  for (int k = tid; k < ni; k += kThreads) store(k, s_out[k]);
+}
+
+// A thread's share of a tile of `items` merged items (ni segment ends in
+// s_end, the rest values): its first item ds, its count, and its first
+// segment xs by a search in shared memory.
+__device__ __forceinline__ void seg_share(const int* s_end, int ni, int nj, int& xs, int& ds,
+                                          int& cnt) {
+  const int items = ni + nj;
+  ds = threadIdx.x * kSegItems < items ? threadIdx.x * kSegItems : items;
+  cnt = (ds + kSegItems < items ? ds + kSegItems : items) - ds;
+  int lo = ds > nj ? ds - nj : 0, hi = ds < ni ? ds : ni;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s_end[mid] <= ds - mid - 1) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  xs = lo;
+}
+
+// The tiles of `nsh` merge paths (see seg_partition_kernel), `tiles` a
+// path: block b is tile b % tiles of path b / tiles. `Src` gives a path's
+// indptr, stages a tile's values and takes its finished sums.
+template <typename T, typename Src>
+__global__ void __launch_bounds__(kThreads)
+    seg_sum_kernel(const Src src, long long ne, long long nseg, long long tiles,
+                   const int* __restrict__ rowc_all, T* __restrict__ carry) {
+  // the tile's segment ends (relative to its first value), a sentinel end,
+  // then its values placed so that the 16-byte-aligned part of their
+  // source lands on 16-byte-aligned shared memory (up to 3 slots of gap),
+  // and one spare slot a walk may read past the last
+  __shared__ __align__(16) unsigned s_buf[kSegTile + 6];
+  __shared__ T s_out[kSegTile];
+  __shared__ T s_wv[kWarps];
+  __shared__ int s_wf[kWarps];
+  const int tid = threadIdx.x;
+  const long long h = blockIdx.x / tiles;
+  const long long b = blockIdx.x - h * tiles;
+  const int* indptr = src.indptr(h);
+  const int* rowc = rowc_all + h * (tiles + 1);
+  const SegSpan sp = seg_span(indptr, ne, nseg);
+  const long long total = nseg + sp.nv;
+  const long long d0 = b * kSegTile < total ? b * kSegTile : total;
+  const long long d1 = d0 + kSegTile < total ? d0 + kSegTile : total;
+  const int i0 = rowc[b], i1 = rowc[b + 1];
+  const long long j0 = d0 - i0;
+  const int ni = i1 - i0;
+  const int nj = static_cast<int>(d1 - i1 - j0);
+  const int head = src.head(sp.v0 + j0, nj);
+  int* s_end = reinterpret_cast<int*>(s_buf);
+  unsigned* s_val = s_buf + (((ni + 1 + head + 3) & ~3) - head);
+  for (int k = tid; k < ni; k += kThreads) {
+    s_end[k] = static_cast<int>(seg_end(indptr, sp, i0 + k) - j0);
+  }
+  if (tid == 0) s_end[ni] = 0x7fffffff;  // past the tile's last end: only values
+  src.stage(s_val, h, sp.v0 + j0, nj, head);
+  __syncthreads();
+  int xs, ds, cnt;
+  seg_share(s_end, ni, nj, xs, ds, cnt);
+  seg_tile_pass<T>(s_end, s_val, s_out, s_wv, s_wf, ni, xs, ds, cnt, carry + blockIdx.x,
+                   [&](int k, T v) { src.store(h, i0 + k, v); });
+}
+
+// K4's lane form: B lanes of values, lane-major ([B, ne]: lane l's at
+// vals + l * ne), over ONE indptr, into B output rows of out_size. The
+// partition is the single form's (it depends only on indptr and ne).
+template <typename T>
+struct SegLanes {
+  const T* vals;
+  long long ne;
+  const int* ind;
+  T* out;
+  long long out_size;
+  __device__ void add(long long lane, long long i, T v) const { out[lane * out_size + i] += v; }
+};
+
+// The lane form's tile pass: block b stages tile b's segment ends and
+// finds each thread's share once, then for each lane stages that lane's
+// values, walks them over the same ends and stores the lane's finished
+// sums and carry (carry[lane * tiles + b]); each lane's float32 sums are
+// the single form's, bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    seg_sum_lanes_kernel(const SegLanes<T> src, long long lanes, long long nseg, long long tiles,
+                         const int* __restrict__ rowc, T* __restrict__ carry) {
+  __shared__ __align__(16) unsigned s_buf[kSegTile + 6];
+  __shared__ T s_out[kSegTile];
+  __shared__ T s_wv[kWarps];
+  __shared__ int s_wf[kWarps];
+  const int tid = threadIdx.x;
+  const long long b = blockIdx.x;
+  const SegSpan sp = seg_span(src.ind, src.ne, nseg);
+  const long long total = nseg + sp.nv;
+  const long long d0 = b * kSegTile < total ? b * kSegTile : total;
+  const long long d1 = d0 + kSegTile < total ? d0 + kSegTile : total;
+  const int i0 = rowc[b], i1 = rowc[b + 1];
+  const long long j0 = d0 - i0;
+  const int ni = i1 - i0;
+  const int nj = static_cast<int>(d1 - i1 - j0);
+  int* s_end = reinterpret_cast<int*>(s_buf);
+  for (int k = tid; k < ni; k += kThreads) {
+    s_end[k] = static_cast<int>(seg_end(src.ind, sp, i0 + k) - j0);
+  }
+  if (tid == 0) s_end[ni] = 0x7fffffff;
+  __syncthreads();
+  int xs, ds, cnt;
+  seg_share(s_end, ni, nj, xs, ds, cnt);
+  for (long long l = 0; l < lanes; ++l) {
+    const SegValues<T> lane{src.vals + l * src.ne, src.ind, nullptr};
+    const int head = lane.head(sp.v0 + j0, nj);
+    unsigned* s_val = s_buf + (((ni + 1 + head + 3) & ~3) - head);
+    lane.stage(s_val, 0, sp.v0 + j0, nj, head);
+    __syncthreads();
+    T* out = src.out + l * src.out_size;
+    seg_tile_pass<T>(s_end, s_val, s_out, s_wv, s_wf, ni, xs, ds, cnt, carry + l * tiles + b,
+                     [&](int k, T v) { out[i0 + k] = v; });
+    __syncthreads();  // s_val and s_out are the next lane's
+  }
 }
 
 // Adds each run's carries to the segment the run ends in (see above), path
 // by path: a run never crosses into the next path's tiles.
+// The lanes of K4's lane form are paths that share one partition
+// (`rowc_stride` 0; tiles + 1 where each path has its own).
 template <typename T, typename Src>
 __global__ void seg_fixup_kernel(const Src src, const int* __restrict__ rowc_all,
                                  const T* __restrict__ carry_all, long long tiles, long long nsh,
-                                 long long nseg) {
+                                 long long nseg, long long rowc_stride) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        g < nsh * tiles; g += step) {
     const long long h = g / tiles, t = g - h * tiles;
-    const int* rowc = rowc_all + h * (tiles + 1);
+    const int* rowc = rowc_all + h * rowc_stride;
     const T* carry = carry_all + h * tiles;
     const int key = rowc[t + 1];
     if (key >= nseg || (t > 0 && rowc[t] == key)) continue;
@@ -1374,6 +1463,131 @@ __global__ void __launch_bounds__(kThreads) weight_gather_kernel(const WeightArg
   }
 }
 
+// weight_gather's lane form: out[l * m + j] for B lanes l (the reference's
+// chain under its vmap over a group's lanes), each of ok, node_ok, emask
+// and w shared (stride 0) or lane-stacked, lane-major (lane l's row at
+// + l * stride: K15's lane form writes masks so, K4's reads values so, and a
+// lane's stream stays contiguous); emit and eid are shared. Bound: emit,
+// eid and the shared streams once an edge, each shared table once; a lane
+// its lane-stacked mask bytes (or, read through emit or eid, a random
+// 32-byte sector each) and 4 bytes written an edge. Design: the lane loop
+// runs inside the thread over the lane-varying operands only. A thread
+// owns kWeightRun edges warp-striped (a warp's load or store instruction
+// covers contiguous memory), loads their emit and eid, the shared node and
+// direct edge masks, and gathers the shared tables (the vertex mask, the
+// edge mask through eid, the weight) once, for the edges still kept; then
+// for each lane it ANDs that lane's masks in (a gather through emit or eid
+// for a lane-stacked table, only where the edge is still kept) and stores
+// the lane's values. E1's random gathers of its folded weights through
+// emit then happen once for all lanes, not once a lane.
+struct WeightLaneArgs {
+  const int* emit;                // [m] far endpoints, or null (e = j)
+  long long m;
+  const unsigned char* ok;        // a vertex mask [n_ok] a row, or null
+  long long n_ok, ok_stride;      // stride 0: shared
+  const unsigned char* node_ok;   // [m] a row, or null
+  long long node_stride;
+  const unsigned char* emask;     // an edge mask [n_em] a row, at eid[j] (or j), or null
+  long long n_em, em_stride;
+  const int* eid;                 // [m] edge ids into emask, or null
+  const void* w;                  // weights [n_w] a row, or null (ones)
+  long long n_w, w_stride;
+  long long lanes;
+  unsigned keep;                  // tables under evict_last: 1 ok, 2 emask, 4 w
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) weight_gather_lanes_kernel(const WeightLaneArgs a,
+                                                                      T* __restrict__ out) {
+  const bool need_e = a.ok != nullptr || a.w != nullptr;
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long j0 = (t >> 5) * 32 * kWeightRun + (threadIdx.x & 31);
+  const unsigned long long p_ok = l2_policy(a.keep & 1u), p_em = l2_policy(a.keep & 2u),
+                           p_w = l2_policy(a.keep & 4u);
+  const T* w = static_cast<const T*>(a.w);
+  int e[kWeightRun], id[kWeightRun];
+  bool in[kWeightRun], keep[kWeightRun];
+  T wv[kWeightRun];
+#pragma unroll
+  for (int k = 0; k < kWeightRun; ++k) {
+    const long long j = j0 + 32 * k;
+    in[k] = j < a.m;
+    e[k] = !(in[k] && need_e) ? -1 : a.emit != nullptr ? __ldcs(a.emit + j) : static_cast<int>(j);
+    id[k] = in[k] && a.eid != nullptr ? __ldcs(a.eid + j) : 0;
+    keep[k] = in[k];
+    if (in[k] && a.node_ok != nullptr && a.node_stride == 0) keep[k] = __ldcs(a.node_ok + j) != 0;
+    if (keep[k] && a.emask != nullptr && a.eid == nullptr && a.em_stride == 0) {
+      keep[k] = __ldcs(a.emask + j) != 0;
+    }
+  }
+  // the shared tables, once for every lane, for the edges still kept
+  if (a.ok != nullptr && a.ok_stride == 0) {
+#pragma unroll
+    for (int k = 0; k < kWeightRun; ++k) {
+      keep[k] = take_one(a.ok, a.n_ok, keep[k] ? e[k] : -1, static_cast<unsigned char>(0), p_ok) != 0;
+    }
+  }
+  if (a.emask != nullptr && a.eid != nullptr && a.em_stride == 0) {
+#pragma unroll
+    for (int k = 0; k < kWeightRun; ++k) {
+      keep[k] = take_one(a.emask, a.n_em, keep[k] ? id[k] : -1, static_cast<unsigned char>(0), p_em) != 0;
+    }
+  }
+  const bool w_shared = w != nullptr && a.w_stride == 0;
+#pragma unroll
+  for (int k = 0; k < kWeightRun; ++k) {
+    wv[k] = w_shared ? take_one(w, a.n_w, keep[k] ? e[k] : -1, T(0), p_w) : T(1);
+  }
+  // the lane-varying operands, lane by lane
+  for (long long l = 0; l < a.lanes; ++l) {
+    bool kl[kWeightRun];
+#pragma unroll
+    for (int k = 0; k < kWeightRun; ++k) {
+      const long long j = j0 + 32 * k;
+      kl[k] = keep[k];
+      if (kl[k] && a.node_stride != 0) kl[k] = __ldcs(a.node_ok + l * a.node_stride + j) != 0;
+      if (kl[k] && a.emask != nullptr && a.eid == nullptr && a.em_stride != 0) {
+        kl[k] = __ldcs(a.emask + l * a.em_stride + j) != 0;
+      }
+    }
+    if (a.ok != nullptr && a.ok_stride != 0) {
+      const unsigned char* ok = a.ok + l * a.ok_stride;
+#pragma unroll
+      for (int k = 0; k < kWeightRun; ++k) {
+        kl[k] = take_one(ok, a.n_ok, kl[k] ? e[k] : -1, static_cast<unsigned char>(0), p_ok) != 0;
+      }
+    }
+    if (a.emask != nullptr && a.eid != nullptr && a.em_stride != 0) {
+      const unsigned char* em = a.emask + l * a.em_stride;
+#pragma unroll
+      for (int k = 0; k < kWeightRun; ++k) {
+        kl[k] = take_one(em, a.n_em, kl[k] ? id[k] : -1, static_cast<unsigned char>(0), p_em) != 0;
+      }
+    }
+    T r[kWeightRun];
+    if (w != nullptr && !w_shared) {
+      const T* wl = w + l * a.w_stride;
+#pragma unroll
+      for (int k = 0; k < kWeightRun; ++k) r[k] = take_one(wl, a.n_w, kl[k] ? e[k] : -1, T(0), p_w);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kWeightRun; ++k) r[k] = kl[k] ? wv[k] : T(0);
+    }
+    T* ol = out + l * a.m;
+#pragma unroll
+    for (int k = 0; k < kWeightRun; ++k) {
+      const long long j = j0 + 32 * k;
+      if (in[k]) {
+        if (a.emit != nullptr) {
+          __stcs(ol + j, r[k]);
+        } else {
+          ol[j] = r[k];  // folded weights: left in L2 for the walks' gathers
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K5b: mask_count (replaces csr.mask_count, orientdb_tpu/ops/csr.py:222).
 // Bound: n bytes read, 4 written (2^23: 0.0025 ms). The first cut loaded a
@@ -1388,6 +1602,10 @@ __global__ void __launch_bounds__(kThreads) weight_gather_kernel(const WeightArg
 // atomic a block into a count the entry point zeroes first; integer adds
 // commute, so the count is exact and the same on every call. An unaligned
 // head and the tail are counted a byte a thread by block 0.
+// The lane form (K5b over a [B, n] mask, replacing csr.mask_count under the
+// reference's vmap) counts row b in grid row b (blockIdx.y): one launch for
+// all lanes, each row counted as above; a row shares nothing with another,
+// so the lane is a grid dimension here.
 // ---------------------------------------------------------------------------
 constexpr int kCountLoads = 4;
 constexpr long long kCountTile = static_cast<long long>(kThreads) * kCountLoads * 16;
@@ -1396,10 +1614,14 @@ constexpr int kCountBlocksPerSm = 4;
 __device__ inline unsigned nonzero_bytes(unsigned x) { return __popc(__vcmpne4(x, 0u) & 0x01010101u); }
 
 __global__ void __launch_bounds__(kThreads)
-    mask_count_kernel(const unsigned char* __restrict__ mask, long long n, long long head,
-                      unsigned* __restrict__ out, int store) {
+    mask_count_kernel(const unsigned char* __restrict__ masks, long long n, long long stride,
+                      unsigned* __restrict__ outs, int store) {
   __shared__ unsigned sums[kWarps];
   const int tid = threadIdx.x;
+  const unsigned char* mask = masks + blockIdx.y * stride;
+  unsigned* out = outs + blockIdx.y;
+  long long head = static_cast<long long>((16u - (reinterpret_cast<uintptr_t>(mask) & 15u)) & 15u);
+  if (head > n) head = n;
   const long long groups = (n - head) / 16;
   const uint4* v = reinterpret_cast<const uint4*>(mask + head);
   unsigned c = 0;
@@ -2434,6 +2656,13 @@ constexpr int kStack = 16;     // a program's stack need at most (PRED_STACK)
 constexpr int kMaxBufs = 32;   // buffers a launch reads (PRED_BUFS)
 constexpr int kProgSmem = 48 * 1024;
 constexpr int kPredV = 8;      // consecutive slots a thread
+// the lane form: rows a launch, parameters a row, shared-memory entries
+// (the stack below the top and the cached loads; PRED_LANES,
+// PRED_LANE_PARAMS, PRED_LANE_ENTRIES) and its dynamic shared memory
+constexpr int kPredLanes = 64;
+constexpr int kPredLaneParams = 32;
+constexpr int kPredLaneEntries = 20;
+constexpr int kPredLaneSmem = 232448;
 static_assert(kPredV % 4 == 0, "a thread's mask bytes go out as 4-byte words");
 constexpr long long kPredTile = static_cast<long long>(kThreads) * kPredV;
 constexpr unsigned kPredAll = (1u << kPredV) - 1u;
@@ -2757,6 +2986,216 @@ __device__ __forceinline__ float pred_haversine(float lat1, float lon1, float la
   return __fmul_rn(__fmul_rn(12742.0f, asinf(sqrtf(h))), scale);
 }
 
+// The instructions that read a buffer at the slot (COL, BCOL, CLASS, TMP):
+// the lane form loads each once a tile and caches it (PredProgram.loads).
+constexpr unsigned kPredLoads = (1u << kCol) | (1u << kBCol) | (1u << kClass) | (1u << kTmp);
+
+// The interpreter over a thread's kPredV slots: runs the program on the
+// stack below the top (sval / spm) and returns the slots' mask bits, the
+// top's values in tv. kLanes (the lane form): a push that reads a buffer
+// takes its values from the tile's cache (cval / cpm, entry c the
+// program's c-th such push), and PARAM reads `params`, the lane's row in
+// shared memory; otherwise PARAM reads a.params in device memory.
+template <bool kLanes>
+__device__ __forceinline__ unsigned pred_run(const PredArgs& a, const int4* prog, bool prog_in_smem,
+                                             unsigned* sval, unsigned* spm, const unsigned* cval,
+                                             const unsigned* cpm, const int* params,
+                                             const int (&id)[kPredV], long long i0, unsigned live,
+                                             bool run, unsigned (&tv)[kPredV]) {
+  const int tid = threadIdx.x;
+  const int len = static_cast<int>(a.len);
+  // the top; with an empty stack it reads (0, present), so a program
+  // that ends on its last GUARD leaves the live bits as its mask
+#pragma unroll
+  for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+  unsigned tp = kPredAll;
+  int depth = 0;  // entries on the stack, the top included
+  int c = 0;      // the lane form's cache entry of the next buffer push
+  for (int pc = 0; pc < len; ++pc) {
+    const int4 ins = prog_in_smem ? prog[pc] : __ldg(prog + pc);
+    const int op = ins.x;
+    if ((kPredPushes >> op) & 1u) {
+      if (depth > 0) {  // the top goes below (an empty stack's top is not kept)
+        const int k = depth - 1;
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) sval[(k * kPredV + v) * kThreads + tid] = tv[v];
+        spm[k * kThreads + tid] = tp;
+      }
+      ++depth;
+      if (kLanes && ((kPredLoads >> op) & 1u)) {
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = cval[(c * kPredV + v) * kThreads + tid];
+        tp = cpm[c * kThreads + tid];
+        ++c;
+      } else if (kLanes && op == kParam) {
+        const unsigned p = static_cast<unsigned>(params[ins.y]);
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = p;
+        tp = kPredAll;
+      } else {
+        pred_push(a, ins, id, i0, live, run, tv, tp);
+      }
+      continue;
+    }
+    if (op == kGuard) {
+      live &= tp;
+      --depth;
+      if (depth > 0) {
+        const int k = depth - 1;
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = sval[(k * kPredV + v) * kThreads + tid];
+        tp = spm[k * kThreads + tid];
+      } else {
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+        tp = kPredAll;
+      }
+      if (__ballot_sync(kFull, live != 0u) == 0u) break;  // the warp's slots are all dead
+      continue;
+    }
+    // binary instructions take the entry below the top as their left operand
+    unsigned x[kPredV];
+    unsigned px = 0u;
+    if (op == kArith || op == kCmp || op == kAnd || op == kOr) {
+      const int k = depth - 2;
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) x[v] = sval[(k * kPredV + v) * kThreads + tid];
+      px = spm[k * kThreads + tid];
+      --depth;
+    }
+    switch (op) {
+      case kI2F:
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = as_u(__int2float_rn(static_cast<int>(tv[v])));
+        break;
+      case kNeg:
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = ins.z ? (tv[v] ^ 0x80000000u) : (0u - tv[v]);
+        break;
+      case kArith: {
+        unsigned py = tp;
+        if (ins.w) {
+          pred_swap(x, tv);
+          const unsigned t = px;
+          px = py;
+          py = t;
+        }
+        tp = px & py & pred_arith(ins.y, ins.z, x, tv);
+        break;
+      }
+      case kCmp: {
+        const unsigned both = px & tp;
+        if (ins.w) pred_swap(x, tv);
+        tp = both & (ins.z ? pred_cmp_kind<float>(ins.y, x, tv) : pred_cmp_kind<int>(ins.y, x, tv));
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+        break;
+      }
+      case kTable: {
+        const unsigned char* tab = static_cast<const unsigned char*>(a.buf[ins.y]);
+        const int nt = static_cast<int>(a.blen[ins.y]);
+        unsigned char hit[kPredV];
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) {
+          hit[v] = 0;
+          const int cv = static_cast<int>(tv[v]);
+          if ((((tp & live) >> v) & 1u) && nt > 0) hit[v] = __ldg(tab + (cv < 0 ? 0 : (cv >= nt ? nt - 1 : cv)));
+          tv[v] = 0u;
+        }
+        tp &= pred_bits([&](int v) { return hit[v] != 0; });
+        break;
+      }
+      case kTruthy:
+        tp &= pred_bits([&](int v) { return ins.z ? as_f(tv[v]) != 0.0f : tv[v] != 0u; });
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+        break;
+      case kIsNull:
+        tp = ins.y ? tp : (~tp & kPredAll);
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+        break;
+      case kAnd:
+      case kOr:
+        tp = op == kAnd ? (px & tp) : (px | tp);
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+        break;
+      case kNot:
+        tp = ~tp & kPredAll;
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
+        break;
+      case kDist: {
+        // lat1, lng1, lat2 in the three entries below the top, lng2 on it
+        const int k = depth - 4;
+        unsigned p = tp;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) p &= spm[(k + j) * kThreads + tid];
+#pragma unroll
+        for (int v = 0; v < kPredV; ++v) {
+          const float lat1 = as_f(sval[(k * kPredV + v) * kThreads + tid]);
+          const float lng1 = as_f(sval[((k + 1) * kPredV + v) * kThreads + tid]);
+          const float lat2 = as_f(sval[((k + 2) * kPredV + v) * kThreads + tid]);
+          tv[v] = as_u(pred_haversine(lat1, lng1, lat2, as_f(tv[v]), __int_as_float(ins.y)));
+        }
+        tp = p;
+        depth -= 3;
+        break;
+      }
+      default: break;
+    }
+  }
+  return live & tp;
+}
+
+// A tile's slot ids: kPredV consecutive slots from i0, from the id array
+// (16-byte loads where aligned) or in identity mode (base + i below
+// n_valid, else -1).
+__device__ __forceinline__ void pred_ids(const PredArgs& a, long long i0, bool whole, int (&id)[kPredV]) {
+  if (a.ids && whole && pred_aligned(a.ids + i0, 16)) {
+#pragma unroll
+    for (int q = 0; q < kPredV / 4; ++q) {
+      const int4 w = __ldg(reinterpret_cast<const int4*>(a.ids + i0) + q);
+      id[4 * q] = w.x;
+      id[4 * q + 1] = w.y;
+      id[4 * q + 2] = w.z;
+      id[4 * q + 3] = w.w;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < kPredV; ++v) {
+      const long long i = i0 + v;
+      if (a.ids) {
+        id[v] = i < a.n ? __ldg(a.ids + i) : -1;
+      } else {
+        id[v] = i < a.n_valid ? static_cast<int>(a.base + i) : -1;
+      }
+    }
+  }
+}
+
+// The mask bytes of slots i0 .. (kPredV of them, those below n) at out.
+__device__ __forceinline__ void pred_store_mask(unsigned char* out, long long i0, long long n, bool whole,
+                                                unsigned res) {
+  if (whole && pred_aligned(out + i0, 4 * (kPredV / 4))) {
+    unsigned w[kPredV / 4];
+#pragma unroll
+    for (int q = 0; q < kPredV / 4; ++q) w[q] = pred_bit_bytes(res >> (4 * q));
+    if constexpr (kPredV == 8) {
+      *reinterpret_cast<uint2*>(out + i0) = make_uint2(w[0], w[1]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kPredV / 4; ++q) reinterpret_cast<unsigned*>(out + i0)[q] = w[q];
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < kPredV; ++v) {
+      if (i0 + v < n) out[i0 + v] = static_cast<unsigned char>((res >> v) & 1u);
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
     predicate_eval_kernel(const __grid_constant__ PredArgs a, int prog_smem) {
   extern __shared__ __align__(16) unsigned char pred_smem[];
@@ -2773,182 +3212,19 @@ __global__ void __launch_bounds__(kThreads)
   // spm[k * kThreads + tid]
   unsigned* sval = reinterpret_cast<unsigned*>(pred_smem + prog_smem);
   unsigned* spm = sval + static_cast<long long>(a.need - 1) * kPredV * kThreads;
-  const int len = static_cast<int>(a.len);
   const long long step = static_cast<long long>(gridDim.x) * kPredTile;
   for (long long t0 = static_cast<long long>(blockIdx.x) * kPredTile; t0 < a.n; t0 += step) {
     const long long i0 = t0 + static_cast<long long>(tid) * kPredV;
     const bool whole = i0 + kPredV <= a.n;
     int id[kPredV];
-    if (a.ids && whole && pred_aligned(a.ids + i0, 16)) {
-#pragma unroll
-      for (int q = 0; q < kPredV / 4; ++q) {
-        const int4 w = __ldg(reinterpret_cast<const int4*>(a.ids + i0) + q);
-        id[4 * q] = w.x;
-        id[4 * q + 1] = w.y;
-        id[4 * q + 2] = w.z;
-        id[4 * q + 3] = w.w;
-      }
-    } else {
-#pragma unroll
-      for (int v = 0; v < kPredV; ++v) {
-        const long long i = i0 + v;
-        if (a.ids) {
-          id[v] = i < a.n ? __ldg(a.ids + i) : -1;
-        } else {
-          id[v] = i < a.n_valid ? static_cast<int>(a.base + i) : -1;
-        }
-      }
-    }
+    pred_ids(a, i0, whole, id);
     // slots past n are dead from the start; a GUARD kills more
-    unsigned live = pred_bits([&](int v) { return i0 + v < a.n; });
+    const unsigned live = pred_bits([&](int v) { return i0 + v < a.n; });
     const bool run = a.ids == nullptr && whole && i0 + kPredV <= a.n_valid;
-    // the top; with an empty stack it reads (0, present), so a program
-    // that ends on its last GUARD leaves the live bits as its mask
     unsigned tv[kPredV];
-#pragma unroll
-    for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
-    unsigned tp = kPredAll;
-    int depth = 0;  // entries on the stack, the top included
-    for (int pc = 0; pc < len; ++pc) {
-      const int4 ins = prog_smem ? prog[pc] : __ldg(prog + pc);
-      const int op = ins.x;
-      if ((kPredPushes >> op) & 1u) {
-        if (depth > 0) {  // the top goes below (an empty stack's top is not kept)
-          const int k = depth - 1;
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) sval[(k * kPredV + v) * kThreads + tid] = tv[v];
-          spm[k * kThreads + tid] = tp;
-        }
-        ++depth;
-        pred_push(a, ins, id, i0, live, run, tv, tp);
-        continue;
-      }
-      if (op == kGuard) {
-        live &= tp;
-        --depth;
-        if (depth > 0) {
-          const int k = depth - 1;
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) tv[v] = sval[(k * kPredV + v) * kThreads + tid];
-          tp = spm[k * kThreads + tid];
-        } else {
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
-          tp = kPredAll;
-        }
-        if (__ballot_sync(kFull, live != 0u) == 0u) break;  // the warp's slots are all dead
-        continue;
-      }
-      // binary instructions take the entry below the top as their left operand
-      unsigned x[kPredV];
-      unsigned px = 0u;
-      if (op == kArith || op == kCmp || op == kAnd || op == kOr) {
-        const int k = depth - 2;
-#pragma unroll
-        for (int v = 0; v < kPredV; ++v) x[v] = sval[(k * kPredV + v) * kThreads + tid];
-        px = spm[k * kThreads + tid];
-        --depth;
-      }
-      switch (op) {
-        case kI2F:
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) tv[v] = as_u(__int2float_rn(static_cast<int>(tv[v])));
-          break;
-        case kNeg:
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) tv[v] = ins.z ? (tv[v] ^ 0x80000000u) : (0u - tv[v]);
-          break;
-        case kArith: {
-          unsigned py = tp;
-          if (ins.w) {
-            pred_swap(x, tv);
-            const unsigned t = px;
-            px = py;
-            py = t;
-          }
-          tp = px & py & pred_arith(ins.y, ins.z, x, tv);
-          break;
-        }
-        case kCmp: {
-          const unsigned both = px & tp;
-          if (ins.w) pred_swap(x, tv);
-          tp = both & (ins.z ? pred_cmp_kind<float>(ins.y, x, tv) : pred_cmp_kind<int>(ins.y, x, tv));
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
-          break;
-        }
-        case kTable: {
-          const unsigned char* tab = static_cast<const unsigned char*>(a.buf[ins.y]);
-          const int nt = static_cast<int>(a.blen[ins.y]);
-          unsigned char hit[kPredV];
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) {
-            hit[v] = 0;
-            const int c = static_cast<int>(tv[v]);
-            if ((((tp & live) >> v) & 1u) && nt > 0) hit[v] = __ldg(tab + (c < 0 ? 0 : (c >= nt ? nt - 1 : c)));
-            tv[v] = 0u;
-          }
-          tp &= pred_bits([&](int v) { return hit[v] != 0; });
-          break;
-        }
-        case kTruthy:
-          tp &= pred_bits([&](int v) { return ins.z ? as_f(tv[v]) != 0.0f : tv[v] != 0u; });
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
-          break;
-        case kIsNull:
-          tp = ins.y ? tp : (~tp & kPredAll);
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
-          break;
-        case kAnd:
-        case kOr:
-          tp = op == kAnd ? (px & tp) : (px | tp);
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
-          break;
-        case kNot:
-          tp = ~tp & kPredAll;
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) tv[v] = 0u;
-          break;
-        case kDist: {
-          // lat1, lng1, lat2 in the three entries below the top, lng2 on it
-          const int k = depth - 4;
-          unsigned p = tp;
-#pragma unroll
-          for (int j = 0; j < 3; ++j) p &= spm[(k + j) * kThreads + tid];
-#pragma unroll
-          for (int v = 0; v < kPredV; ++v) {
-            const float lat1 = as_f(sval[(k * kPredV + v) * kThreads + tid]);
-            const float lng1 = as_f(sval[((k + 1) * kPredV + v) * kThreads + tid]);
-            const float lat2 = as_f(sval[((k + 2) * kPredV + v) * kThreads + tid]);
-            tv[v] = as_u(pred_haversine(lat1, lng1, lat2, as_f(tv[v]), __int_as_float(ins.y)));
-          }
-          tp = p;
-          depth -= 3;
-          break;
-        }
-        default: break;
-      }
-    }
-    const unsigned res = live & tp;
-    if (whole && pred_aligned(a.out_p + i0, 4 * (kPredV / 4))) {
-      unsigned w[kPredV / 4];
-#pragma unroll
-      for (int q = 0; q < kPredV / 4; ++q) w[q] = pred_bit_bytes(res >> (4 * q));
-      if constexpr (kPredV == 8) {
-        *reinterpret_cast<uint2*>(a.out_p + i0) = make_uint2(w[0], w[1]);
-      } else {
-#pragma unroll
-        for (int q = 0; q < kPredV / 4; ++q) reinterpret_cast<unsigned*>(a.out_p + i0)[q] = w[q];
-      }
-    } else {
-#pragma unroll
-      for (int v = 0; v < kPredV; ++v) {
-        if (i0 + v < a.n) a.out_p[i0 + v] = static_cast<unsigned char>((res >> v) & 1u);
-      }
-    }
+    const unsigned res = pred_run<false>(a, prog, prog_smem != 0, sval, spm, nullptr, nullptr, nullptr,
+                                         id, i0, live, run, tv);
+    pred_store_mask(a.out_p, i0, a.n, whole, res);
     if (a.out_v) {
       if (whole && pred_aligned(a.out_v + i0, 16)) {
 #pragma unroll
@@ -2962,6 +3238,68 @@ __global__ void __launch_bounds__(kThreads)
           if (i0 + v < a.n) a.out_v[i0 + v] = static_cast<int>(tv[v]);
         }
       }
+    }
+  }
+}
+
+// K15's lane form (the compiled WHERE under the reference's vmap over a
+// group's lanes): one program over n slots against each of `lanes`
+// parameter rows (nparams values each), out_p [lanes, n]. Bound: the
+// column bytes once (each slot's ids, values and presence as the single
+// form reads them) and lanes * n mask bytes written. Design: the lane loop
+// runs inside the thread, over what varies by lane only. The rows are
+// staged in shared memory once a block. For each tile a thread loads its
+// slots' ids, then runs every buffer-reading push of the program (`nloads`
+// of them) once, for all its slots in range, into a cache in shared memory
+// beside the stack ([nloads][kPredV][kThreads] values and [nloads]
+// [kThreads] presence words: no load is skipped by a lane's GUARD, since
+// another lane may keep the slot); then it runs the program once a lane
+// against the cache and that lane's row, and stores the lane's kPredV mask
+// bytes (coalesced along the lane's row). A lane's arithmetic is the
+// single form's, so its mask is the single form's on that row.
+__global__ void __launch_bounds__(kThreads)
+    predicate_eval_lanes_kernel(const __grid_constant__ PredArgs a, int prog_smem, int lanes,
+                                int nparams, int nloads) {
+  extern __shared__ __align__(16) unsigned char pred_smem[];
+  const int4* prog = a.prog;
+  if (prog_smem) {
+    int4* sp = reinterpret_cast<int4*>(pred_smem);
+    for (long long i = threadIdx.x; i < a.len; i += blockDim.x) sp[i] = a.prog[i];
+    prog = sp;
+  }
+  const int tid = threadIdx.x;
+  unsigned* sval = reinterpret_cast<unsigned*>(pred_smem + prog_smem);
+  unsigned* spm = sval + static_cast<long long>(a.need - 1) * kPredV * kThreads;
+  unsigned* cval = spm + static_cast<long long>(a.need - 1) * kThreads;
+  unsigned* cpm = cval + static_cast<long long>(nloads) * kPredV * kThreads;
+  int* s_params = reinterpret_cast<int*>(cpm + static_cast<long long>(nloads) * kThreads);
+  for (int i = tid; i < lanes * nparams; i += kThreads) s_params[i] = a.params[i];
+  __syncthreads();
+  const int len = static_cast<int>(a.len);
+  const long long step = static_cast<long long>(gridDim.x) * kPredTile;
+  for (long long t0 = static_cast<long long>(blockIdx.x) * kPredTile; t0 < a.n; t0 += step) {
+    const long long i0 = t0 + static_cast<long long>(tid) * kPredV;
+    const bool whole = i0 + kPredV <= a.n;
+    int id[kPredV];
+    pred_ids(a, i0, whole, id);
+    const unsigned live = pred_bits([&](int v) { return i0 + v < a.n; });
+    const bool run = a.ids == nullptr && whole && i0 + kPredV <= a.n_valid;
+    // the tile's buffer loads, once for every lane
+    unsigned tv[kPredV];
+    unsigned tp;
+    for (int pc = 0, c = 0; pc < len && c < nloads; ++pc) {
+      const int4 ins = prog_smem ? prog[pc] : __ldg(prog + pc);
+      if (!((kPredLoads >> ins.x) & 1u)) continue;
+      pred_push(a, ins, id, i0, live, run, tv, tp);
+#pragma unroll
+      for (int v = 0; v < kPredV; ++v) cval[(c * kPredV + v) * kThreads + tid] = tv[v];
+      cpm[c * kThreads + tid] = tp;
+      ++c;
+    }
+    for (int l = 0; l < lanes; ++l) {
+      const unsigned res = pred_run<true>(a, prog, prog_smem != 0, sval, spm, cval, cpm,
+                                          s_params + l * nparams, id, i0, live, run, tv);
+      pred_store_mask(a.out_p + static_cast<long long>(l) * a.n, i0, a.n, whole, res);
     }
   }
 }
@@ -4082,12 +4420,39 @@ int launch_segment_sum(const void* vals, long long ne, const void* indptr, long 
   const long long work = 32 * (tiles + 1) > npad / 4 ? 32 * (tiles + 1) : npad / 4;
   const int* ip = static_cast<const int*>(indptr);
   seg_partition_kernel<<<grid_for(work, 1), kThreads, 0, s>>>(ip, 0, 1, ne, nseg, tiles, rowc,
-                                                             static_cast<unsigned*>(out), out_size);
+                                                             static_cast<unsigned*>(out), out_size, 1);
   if (tiles > 0) {
     const SegValues<T> src{static_cast<const T*>(vals), ip, static_cast<T*>(out)};
     seg_sum_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(src, ne, nseg, tiles,
                                                                         rowc, carry);
-    seg_fixup_kernel<T><<<grid_for(tiles, 1), kThreads, 0, s>>>(src, rowc, carry, tiles, 1, nseg);
+    seg_fixup_kernel<T><<<grid_for(tiles, 1), kThreads, 0, s>>>(src, rowc, carry, tiles, 1, nseg,
+                                                                tiles + 1);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4's lane form: the partition once, the lanes' tile passes, the lanes'
+// carries; `scratch` holds csr_segment_lanes_scratch words.
+template <typename T>
+int launch_segment_sum_lanes(const void* vals, long long ne, long long lanes, const void* indptr,
+                             long long nseg, long long out_size, void* out, void* scratch,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (out_size <= 0 || lanes <= 0) return static_cast<int>(cudaGetLastError());
+  const long long tiles = nseg > 0 ? (nseg + ne + kSegTile - 1) / kSegTile : 0;
+  int* rowc = static_cast<int*>(scratch);
+  T* carry = reinterpret_cast<T*>(rowc + tiles + 1);
+  const long long npad = out_size - nseg;
+  const long long work = 32 * (tiles + 1) > npad / 4 ? 32 * (tiles + 1) : npad / 4;
+  const int* ip = static_cast<const int*>(indptr);
+  seg_partition_kernel<<<grid_for(work, 1), kThreads, 0, s>>>(ip, 0, 1, ne, nseg, tiles, rowc,
+                                                             static_cast<unsigned*>(out), out_size, lanes);
+  if (tiles > 0) {
+    const SegLanes<T> src{static_cast<const T*>(vals), ne, ip, static_cast<T*>(out), out_size};
+    seg_sum_lanes_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(src, lanes, nseg, tiles,
+                                                                              rowc, carry);
+    seg_fixup_kernel<T><<<grid_for(lanes * tiles, 1), kThreads, 0, s>>>(src, rowc, carry, tiles, lanes,
+                                                                        nseg, 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -4136,7 +4501,7 @@ int launch_shard_weight_pass(const void* ind, long long r, long long s_local, lo
   const ShardScratch<T> sc = shard_scratch<T>(scratch, s_local, r, emax);
   const int* ip = static_cast<const int*>(ind);
   seg_partition_kernel<<<grid_for(32 * s_local * (sc.tiles + 1), 1), kThreads, 0, s>>>(
-      ip, r + 1, s_local, emax, r, sc.tiles, sc.rowc, nullptr, 0);
+      ip, r + 1, s_local, emax, r, sc.tiles, sc.rowc, nullptr, 0, 0);
   const bool folds = fold != kFoldNone && ok != nullptr && w != nullptr && n_w > 0 && n_ok == n_w;
   if (folds) {
     shard_fold_kernel<T><<<grid_for(n_w, 1), kThreads, 0, s>>>(
@@ -4150,7 +4515,8 @@ int launch_shard_weight_pass(const void* ind, long long r, long long s_local, lo
   seg_sum_kernel<T><<<static_cast<unsigned>(s_local * sc.tiles), kThreads, 0, s>>>(
       src, emax, r, sc.tiles, sc.rowc, sc.carry);
   seg_fixup_kernel<T><<<grid_for(s_local * sc.tiles, 1), kThreads, 0, s>>>(src, sc.rowc, sc.carry,
-                                                                           sc.tiles, s_local, r);
+                                                                           sc.tiles, s_local, r,
+                                                                           sc.tiles + 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -4202,6 +4568,57 @@ int launch_weight_gather(const void* emit, long long m, const void* ok, long lon
       const long long threads = (m + 32LL * kWeightRun - 1) / (32LL * kWeightRun) * 32;
       weight_gather_kernel<T, false><<<blocks_for(threads, kThreads), kThreads, 0, s>>>(a, d);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5b over `lanes` rows of n bytes each (a row a lane, stride n): one
+// block a row that stores its count up to kCountTile, else a one-wave grid
+// of blocks a row, after a memset of the counts, with an atomic a block.
+int launch_mask_count(const void* mask, long long n, long long lanes, void* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes <= 0) return static_cast<int>(cudaGetLastError());
+  const unsigned char* p = static_cast<const unsigned char*>(mask);
+  unsigned* count = static_cast<unsigned*>(out);
+  if (n <= kCountTile) {
+    mask_count_kernel<<<dim3(1, static_cast<unsigned>(lanes)), kThreads, 0, s>>>(p, n, n, count, 1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0) {
+      sms = 132;
+    }
+  }
+  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(unsigned) * lanes, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  long long blocks = (n / 16 + kThreads * kCountLoads - 1) / (kThreads * kCountLoads);
+  long long wave = static_cast<long long>(sms) * kCountBlocksPerSm / lanes;
+  if (wave < 1) wave = 1;
+  if (blocks > wave) blocks = wave;
+  mask_count_kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(lanes)), kThreads, 0, s>>>(
+      p, n, n, count, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_weight_gather_lanes(const void* emit, long long m, const void* ok, long long n_ok,
+                               long long ok_stride, const void* node_ok, long long node_stride,
+                               const void* emask, long long n_em, long long em_stride, const void* eid,
+                               const void* w, long long n_w, long long w_stride, long long lanes,
+                               int keep, void* out, void* stream) {
+  if (m > 0 && lanes > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const WeightLaneArgs a = {static_cast<const int*>(emit), m,
+                              static_cast<const unsigned char*>(ok), n_ok, ok_stride,
+                              static_cast<const unsigned char*>(node_ok), node_stride,
+                              static_cast<const unsigned char*>(emask), n_em, em_stride,
+                              static_cast<const int*>(eid), w, n_w, w_stride, lanes,
+                              static_cast<unsigned>(keep)};
+    const long long threads = (m + 32LL * kWeightRun - 1) / (32LL * kWeightRun) * 32;
+    weight_gather_lanes_kernel<T><<<blocks_for(threads, kThreads), kThreads, 0, s>>>(a, static_cast<T*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -4328,6 +4745,25 @@ int csr_segment_sum_f32(const void* vals, long long ne, const void* indptr, long
   return launch_segment_sum<float>(vals, ne, indptr, nseg, out_size, out, scratch, stream);
 }
 
+// K4's lane form's scratch, in int32 words: the tile coordinates (tiles +
+// 1) and each lane's carries.
+long long csr_segment_lanes_scratch(long long nseg, long long ne, long long lanes) {
+  const long long tiles = nseg > 0 ? (nseg + ne + kSegTile - 1) / kSegTile : 0;
+  return tiles + 1 + lanes * tiles;
+}
+
+int csr_segment_sum_lanes_i32(const void* vals, long long ne, long long lanes, const void* indptr,
+                              long long nseg, long long out_size, void* out, void* scratch,
+                              void* stream) {
+  return launch_segment_sum_lanes<unsigned>(vals, ne, lanes, indptr, nseg, out_size, out, scratch, stream);
+}
+
+int csr_segment_sum_lanes_f32(const void* vals, long long ne, long long lanes, const void* indptr,
+                              long long nseg, long long out_size, void* out, void* scratch,
+                              void* stream) {
+  return launch_segment_sum_lanes<float>(vals, ne, lanes, indptr, nseg, out_size, out, scratch, stream);
+}
+
 // K5a. `keep` (non-zero: gather the table under L2 evict_last; for
 // weight_gather a set of bits, 1 ok, 2 emask, 4 w) is the caller's choice
 // of the tables that fit L2; `out` is a fresh allocation.
@@ -4359,30 +4795,32 @@ int csr_weight_gather_f32(const void* emit, long long m, const void* ok, long lo
   return launch_weight_gather<float>(emit, m, ok, n_ok, node_ok, emask, n_em, eid, w, n_w, keep, out, stream);
 }
 
+// K5a's lane form: strides 0 mark the shared operands; `out` is [lanes, m].
+int csr_weight_gather_lanes_i32(const void* emit, long long m, const void* ok, long long n_ok,
+                                long long ok_stride, const void* node_ok, long long node_stride,
+                                const void* emask, long long n_em, long long em_stride, const void* eid,
+                                const void* w, long long n_w, long long w_stride, long long lanes,
+                                int keep, void* out, void* stream) {
+  return launch_weight_gather_lanes<int>(emit, m, ok, n_ok, ok_stride, node_ok, node_stride, emask, n_em,
+                                         em_stride, eid, w, n_w, w_stride, lanes, keep, out, stream);
+}
+
+int csr_weight_gather_lanes_f32(const void* emit, long long m, const void* ok, long long n_ok,
+                                long long ok_stride, const void* node_ok, long long node_stride,
+                                const void* emask, long long n_em, long long em_stride, const void* eid,
+                                const void* w, long long n_w, long long w_stride, long long lanes,
+                                int keep, void* out, void* stream) {
+  return launch_weight_gather_lanes<float>(emit, m, ok, n_ok, ok_stride, node_ok, node_stride, emask, n_em,
+                                           em_stride, eid, w, n_w, w_stride, lanes, keep, out, stream);
+}
+
 int csr_mask_count(const void* mask, long long n, void* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned char* p = static_cast<const unsigned char*>(mask);
-  long long head = static_cast<long long>((16u - (reinterpret_cast<uintptr_t>(p) & 15u)) & 15u);
-  if (head > n) head = n;
-  unsigned* count = static_cast<unsigned*>(out);
-  if (n <= kCountTile) {
-    mask_count_kernel<<<1, kThreads, 0, s>>>(p, n, head, count, 1);
-    return static_cast<int>(cudaGetLastError());
-  }
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms <= 0) {
-      sms = 132;
-    }
-  }
-  cudaError_t e = cudaMemsetAsync(out, 0, sizeof(unsigned), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  long long blocks = ((n - head) / 16 + kThreads * kCountLoads - 1) / (kThreads * kCountLoads);
-  if (blocks > static_cast<long long>(sms) * kCountBlocksPerSm) blocks = static_cast<long long>(sms) * kCountBlocksPerSm;
-  mask_count_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(p, n, head, count, 0);
-  return static_cast<int>(cudaGetLastError());
+  return launch_mask_count(mask, n, 1, out, stream);
+}
+
+// K5b's lane form: `lanes` rows of n bytes into `lanes` int32 counts.
+int csr_mask_count_lanes(const void* mask, long long n, long long lanes, void* out, void* stream) {
+  return launch_mask_count(mask, n, lanes, out, stream);
 }
 
 // `col_ptrs` is a HOST array of `ncols` (<= kMaxCols) device pointers; the
@@ -4609,6 +5047,31 @@ int csr_predicate_eval(const void* args, void* stream) {
   const int prog_smem = bytes <= kProgSmem ? static_cast<int>(bytes) : 0;
   predicate_eval_kernel<<<grid_for(a.n, kPredV), kThreads,
                           prog_smem + (a.need - 1) * kPredEntryBytes, s>>>(a, prog_smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K15's lane form: `params` [lanes, nparams] (at most kPredLanes rows of
+// kPredLaneParams), `out_p` [lanes, n]; dynamic shared memory holds the
+// program (when everything fits), the stack below the top, the tile's
+// cache of its `nloads` buffer loads and the parameter rows.
+int csr_predicate_eval_lanes(const void* args, long long lanes, long long nparams, long long nloads,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const PredArgs& a = *static_cast<const PredArgs*>(args);
+  if (a.n <= 0 || lanes <= 0) return static_cast<int>(cudaGetLastError());
+  if (a.need < 1 || a.need > kStack || lanes > kPredLanes || nparams < 1 || nparams > kPredLaneParams ||
+      nloads < 0 || a.need - 1 + nloads > kPredLaneEntries) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const cudaError_t limit = cudaFuncSetAttribute(
+      predicate_eval_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPredLaneSmem);
+  if (limit != cudaSuccess) return static_cast<int>(limit);
+  const long long data = (a.need - 1 + nloads) * static_cast<long long>(kPredEntryBytes) +
+                         lanes * nparams * static_cast<long long>(sizeof(int));
+  const long long bytes = a.len * static_cast<long long>(sizeof(int4));
+  const int prog_smem = bytes <= kProgSmem && bytes + data <= kPredLaneSmem ? static_cast<int>(bytes) : 0;
+  predicate_eval_lanes_kernel<<<grid_for(a.n, kPredV), kThreads, prog_smem + data, s>>>(
+      a, prog_smem, static_cast<int>(lanes), static_cast<int>(nparams), static_cast<int>(nloads));
   return static_cast<int>(cudaGetLastError());
 }
 

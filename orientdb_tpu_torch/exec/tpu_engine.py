@@ -69,13 +69,18 @@ read, a device overflow flag that sends the call back to a re-record, the
 live rows front-packed on the card and copied with the meta row into
 pinned host memory. On the CPU a replay runs the same replay-mode solve
 without capture. A batch (`execute_batch`) dispatches its cached plans
-back to back: four or more items of one plan replay as one group graph
-that runs the replay lane after lane on a stack of parameter rows, a plan
+back to back: four or more items of one plan replay as one group graph on
+a stack of parameter rows, a plan
 without numeric parameters replays once for all its items, and after one
 wave of meta rows each row-returning item or group ships one page (a
-group's cut from its lane stack by the `group_page` kernel). A shape
-outside the compiled subset raises `Uncompilable` with the reason; nothing
-falls back to an interpreter.
+group's cut from its lane stack by the `group_page` kernel). A count group
+whose lane-varying masks meet only the COUNT pushdown or a counted root
+(`TpuMatchSolver.lane_route`) runs on the lane axis, the port of the
+reference's ``jax.vmap``: one replay over the whole stack, each kernel
+once with a leading lane axis on what varies by lane (the lane forms of
+K15, K5a, K4 and K5b); every other group runs the replay lane after lane.
+A shape outside the compiled subset raises `Uncompilable` with the reason;
+nothing falls back to an interpreter.
 """
 
 from __future__ import annotations
@@ -303,6 +308,16 @@ class SizeSchedule:
             cap = max(min_capacity, _cap_of(v) if v > 0 else 0)
             flag = dev_scalar > cap
             self.overflow = flag if self.overflow is None else (self.overflow | flag)
+        return v
+
+    def observed(self) -> int:
+        """A replay's next recorded value, consumed without a device scalar:
+        an observation that sizes nothing where the replay takes it (a root
+        the lane axis only counts)."""
+        if self.recording:
+            raise RuntimeError("observed() consumes a recorded value: replays only")
+        v = self.values[self.pos]
+        self.pos += 1
         return v
 
     def note_flag(self, dev_flag: torch.Tensor) -> None:
@@ -639,6 +654,8 @@ class TpuMatchSolver:
         self.plan = build_plan(self.pattern, self.interp)
         self.dg: DeviceGraph = device_graph(snap, db.device)
         self.sched = SizeSchedule()
+        #: the lane axis's one-segment indptrs, by length (`_lane_sums`)
+        self._one_segment: Dict[int, torch.Tensor] = {}
         self._vertex_scope_cache: Optional[ColumnScope] = None
         #: (edge class, WHERE, visible aliases) → its compiled Predicate:
         #: compiled (and uploaded) while recording, reused by the replays
@@ -1120,6 +1137,14 @@ class TpuMatchSolver:
             steps = self.plan[:-1]
         else:
             steps = self.plan
+        if (
+            self.param_box.lanes is not None
+            and var_count is None
+            and len(steps) == 1
+            and self._lane_varying_root(steps[0])
+        ):
+            # the lane axis: the root's mask is only counted
+            return self._lane_root_count(steps[0].alias, pushdown)
         table = Table(self.device, count=1, width=0)
         for step in steps:
             if table.empty():
@@ -1251,7 +1276,11 @@ class TpuMatchSolver:
         if srcs is None:
             raise Uncompilable(f"alias {src_alias} not bound before expansion")
         w = self._pushdown_weights(steps, torch.int32)
-        total_dev = K.value_sum(K.take_pad(w, srcs, 0))
+        if w.dim() == 2:
+            # lane-stacked weights: each lane's sum over the shared rows
+            total_dev = self._lane_sums(K.weight_gather(srcs, torch.int32, w=w))
+        else:
+            total_dev = K.value_sum(K.take_pad(w, srcs, 0))
         if self.sched.recording:
             # int32 overflow guard: a float32 twin of the whole weight chain
             # detects wraps anywhere in the segment sums — float32 is
@@ -1270,6 +1299,97 @@ class TpuMatchSolver:
                 )
         # free: the count IS the result; it sizes no buffer
         t = Table(self.device, count=self.sched.observe(total_dev, free=True), width=0)
+        t.count_dev = total_dev
+        return t
+
+    # -- the lane axis of a count group ----------------------------------------
+
+    def _step_predicates(self, step: PlanStep) -> List[Predicate]:
+        """The masks a step reads that the recording compiled: a root's node
+        mask; an expansion's target node mask, its edge WHEREs (the COUNT
+        pushdown's, or any compiled for its arm) and its WHILE condition."""
+        if step.kind == "root":
+            return [self._node_masks[step.alias]]
+        e = step.edge
+        preds = [self._node_masks[e.from_alias if step.reverse else e.to_alias]]
+        f = e.item.edge_filter
+        if f is not None and f.where is not None:
+            preds += [p for k, p in self._edge_preds.items() if k[1] == id(f.where)]
+        if id(e) in self._while_fns:
+            preds.append(self._while_fns[id(e)])
+        return preds
+
+    def _lane_varying_root(self, step: PlanStep) -> bool:
+        return step.kind == "root" and self._node_masks[step.alias].uses_params
+
+    def lane_route(self) -> bool:
+        """True when a group of this plan runs on the lane axis: one
+        replay-mode solve over the whole ``[B, P]`` parameter stack, each
+        kernel once with a leading lane axis on what varies by lane (the
+        reference's ``jax.vmap`` of its replay). That holds for a lone
+        COUNT(*) whose lane-varying masks (those that read a numeric
+        parameter) meet only the lane forms of K15, K5a, K4 and K5b: the
+        COUNT pushdown's node and edge masks, and a root whose mask is only
+        counted (the plan's only step, or the only one before the
+        pushdown). A lane-varying mask anywhere else (compacted into rows,
+        expanded, a variable-depth level, a NOT arm) keeps the plan lane
+        after lane. Decided from the recorded plan's shape alone."""
+        if (
+            self.count_only_name() is None
+            or self.stmt.group_by
+            or self._not_compiled
+            or self.tier is not None
+            or self.dg.mesh_graph is not None
+        ):
+            return False
+        pushdown = self._count_pushdown_steps()
+        head = self.plan[: len(self.plan) - len(pushdown)]
+        if not pushdown and (self._var_count_step() is not None or len(head) != 1):
+            return False
+        varying: List[Predicate] = []
+        for step in head:
+            mine = [p for p in self._step_predicates(step) if p.uses_params]
+            if mine and not (len(head) == 1 and self._lane_varying_root(step)):
+                return False
+            varying += mine
+        for step in pushdown:
+            varying += [p for p in self._step_predicates(step) if p.uses_params]
+        return bool(varying) and all(p.lane_ok for p in varying)
+
+    def _lane_sums(self, vals: torch.Tensor) -> torch.Tensor:
+        """Each lane's sum of its row of ``vals`` [B, m], int32 [B]: K4's lane
+        form over one segment a lane."""
+        m = int(vals.shape[1])
+        ip = self._one_segment.get(m)
+        if ip is None:
+            # made while the group's first run is eager, before its capture
+            ip = self._one_segment[m] = torch.tensor([0, m], dtype=I32, device=self.device)
+        return K.indptr_segment_sum(vals, ip, 1).view(-1)
+
+    def _lane_root_count(self, alias: str, pushdown: List[PlanStep]) -> Table:
+        """A lane-varying root that is only counted, on the lane axis: its
+        [B, ·] mask popcounted a lane (K5b's lane form), or with a COUNT
+        pushdown behind it ``Σ_v root_b[v]·w_b[v]`` (K5a's lane form folding
+        the mask into the weights, then K4's over one segment a lane). It
+        consumes the recording's observations as they were taken: the
+        root's count (which sizes no buffer here; where the recording saw
+        none, a lane that finds roots flags its overflow, as its own replay
+        would), then the pushdown's total."""
+        sched = self.sched
+        if not pushdown:
+            total_dev = K.mask_count(self._root_scan(alias)[0])
+            t = Table(self.device, count=sched.observed(), width=0)
+        elif sched.values[sched.pos] > 0:
+            sched.observed()
+            mask = self._vertex_vec(self._node_masks[alias])
+            w = self._pushdown_weights(pushdown, torch.int32)
+            total_dev = self._lane_sums(K.weight_gather(None, torch.int32, ok=mask, w=w))
+            t = Table(self.device, count=sched.observe(total_dev, free=True), width=0)
+        else:
+            # the recording found no root, so its pushdown never ran
+            count_dev = K.mask_count(self._root_scan(alias)[0])
+            t = Table(self.device, count=sched.observe(count_dev), width=0)
+            total_dev = torch.zeros_like(count_dev)
         t.count_dev = total_dev
         return t
 
@@ -1382,10 +1502,22 @@ class TpuMatchSolver:
     # -- roots and expansions ----------------------------------------------
 
     def _root_candidates(self, alias: str):
-        """Candidate scan for a root alias, restricted to the dense-index
-        hull of its class filters' polymorphic closures (each concrete
-        class is one contiguous slab). Admission masks still run in full:
-        the hull can contain foreign vertices."""
+        """Candidate scan for a root alias (`_root_scan`), compacted: the
+        candidates' vertex ids, their host and device counts."""
+        mask, idx, start = self._root_scan(alias)
+        cand, n, n_dev = self._compact(mask)
+        if idx is not None:
+            return K.take_pad(idx, cand, -1), n, n_dev
+        return (torch.where(cand >= 0, cand + start, -1) if start else cand), n, n_dev
+
+    def _root_scan(self, alias: str):
+        """The admission mask of a root alias over its candidate scan,
+        restricted to the dense-index hull of its class filters' polymorphic
+        closures (each concrete class is one contiguous slab; admission
+        masks still run in full: the hull can contain foreign vertices).
+        Returns ``(mask, idx, start)``: the scan's vertex ids ``idx`` where
+        it also covers an armed snapshot's append slab, else None and the
+        hull's first vertex ``start``."""
         node = self.pattern.nodes[alias]
         start, end = 0, self.dg.num_vertices
         has_class = False
@@ -1405,11 +1537,9 @@ class TpuMatchSolver:
             idx = torch.where(
                 pos < size, start + pos, torch.where(pos < size + slab, slo + (pos - size), -1)
             ).to(I32)
-            cand, n, n_dev = self._compact(self._node_masks[alias](idx))
-            return K.take_pad(idx, cand, -1), n, n_dev
+            return self._node_masks[alias](idx), idx, 0
         mask = self._node_masks[alias].identity(K.bucket(max(size, 1)), size, base=start)
-        cand, n, n_dev = self._compact(mask)
-        return (torch.where(cand >= 0, cand + start, -1) if start else cand), n, n_dev
+        return mask, None, start
 
     def _root(self, table: Table, alias: str) -> Table:
         cand, n, n_dev = self._root_candidates(alias)
@@ -2554,6 +2684,10 @@ class _CompiledPlan:
         self.dyn_spec = dict(dyn_spec or {})
         #: lane bucket → group replay (`dispatch_many`)
         self.groups: Dict[int, _GroupReplay] = {}
+        #: the group replay's route, decided when its first group is built
+        #: (`TpuMatchSolver.lane_route`): True on the lane axis, False lane
+        #: after lane, None before any group
+        self.lane_axis: Optional[bool] = None
         #: group replays run: one per chunk of a batch's group
         self.group_replays = 0
         #: static int32 parameter buffer (float32 values by their bits)
@@ -2684,15 +2818,18 @@ class _CompiledPlan:
         ``config.group_hbm_budget_bytes``, E the largest edge class the
         plan's arms walk (the reference's formula, sized there by the
         classes its recording touched), floored to a power of two; a plan
-        that reads no edges is not capped."""
+        that reads no edges is not capped by it. On the lane axis also at
+        most `K.PRED_LANES` (the lane forms' limit)."""
         dg = self.solver.dg
         E = max(
             (dg.edges[c].num_edges for c in self.solver.edge_classes_read() if c in dg.edges),
             default=0,
         )
-        if E <= 0:
-            return 1 << 30
-        cap = max(1, int(config.group_hbm_budget_bytes) // (4 * E))
+        cap = 1 << 30
+        if E > 0:
+            cap = max(1, int(config.group_hbm_budget_bytes) // (4 * E))
+        if self.lane_axis:
+            cap = min(cap, K.PRED_LANES)  # the lane forms' most lanes a launch
         return 1 << (cap.bit_length() - 1)
 
     @staticmethod
@@ -2715,9 +2852,29 @@ class _CompiledPlan:
             out["data"] = torch.empty((Bb, W, C), dtype=I32, device=dev)
         return out
 
-    def _replay_lanes(self, stack: torch.Tensor, out: Dict[str, torch.Tensor]) -> None:
+    def _run_group(self, stack: torch.Tensor, out: Dict[str, torch.Tensor]) -> None:
         """The group replay's body, the port's form of the reference's
-        ``jax.vmap(replay)``: lane k runs the replay-mode solve on row k of
+        ``jax.vmap(replay)``: on the lane axis (`_replay_lane_axis`) or lane
+        after lane (`_replay_lanes`), as `lane_axis` says."""
+        if self.lane_axis:
+            self._replay_lane_axis(stack, out)
+        else:
+            self._replay_lanes(stack, out)
+
+    def _replay_lane_axis(self, stack: torch.Tensor, out: Dict[str, torch.Tensor]) -> None:
+        """The lane axis: ONE replay-mode solve over the whole parameter
+        stack. Masks that read a parameter come out [B, ·] (K15's lane form)
+        and carry their lane axis through the lane forms of K5a, K4 and K5b
+        to a [B] count; what the lanes share runs once. Each lane's meta row
+        gets its count and its overflow flag (a shared observation's flag
+        is every lane's)."""
+        count_dev, overflow, _data = self._replay_core(params=stack)
+        B = stack.shape[0]
+        meta = torch.stack([count_dev.expand(B), overflow.expand(B), torch.zeros_like(stack[:, 0])], dim=1)
+        out["meta"].copy_(meta)
+
+    def _replay_lanes(self, stack: torch.Tensor, out: Dict[str, torch.Tensor]) -> None:
+        """Lane after lane: lane k runs the replay-mode solve on row k of
         the parameter stack and writes only row k of ``out``. Lanes run one
         after another, each dropping its table before the next starts; the
         solver resets its parameters, schedule cursor and overflow flag for
@@ -2760,13 +2917,13 @@ class _CompiledPlan:
             with torch.cuda.stream(stream):
                 g = _GroupReplay(torch.zeros((Bb, P), dtype=I32, device=dev), self._group_outputs(Bb))
                 g.stack.copy_(torch.from_numpy(first).pin_memory(), non_blocking=True)
-                self._replay_lanes(g.stack, g.out)  # warm-up, uncaptured
+                self._run_group(g.stack, g.out)  # warm-up, uncaptured
             stream.synchronize()
             before = dict(K.LAUNCHES)
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             try:
                 with torch.cuda.graph(graph, pool=pool, stream=stream):
-                    self._replay_lanes(g.stack, g.out)
+                    self._run_group(g.stack, g.out)
             finally:
                 recorded = {k: K.LAUNCHES[k] - before[k] for k in before}
                 K.LAUNCHES.update(before)
@@ -2790,6 +2947,8 @@ class _CompiledPlan:
         stack on the card for the page election. Returns None for a rows
         plan whose bucket exceeds the cap (it stays per-lane, as in the
         reference: its page election takes one stack)."""
+        if self.lane_axis is None:
+            self.lane_axis = self.solver.lane_route()
         B = len(params_list)
         Bb = 1 << (B - 1).bit_length()
         cap = self._group_lane_cap()
@@ -2807,7 +2966,7 @@ class _CompiledPlan:
                 for c in range(nchunks):
                     g.stack.copy_(torch.from_numpy(host[c * Bb : (c + 1) * Bb]))
                     out = self._group_outputs(Bb)
-                    self._replay_lanes(g.stack, out)
+                    self._run_group(g.stack, out)
                     chunks.append(out)
                 key = "direct" if self.direct_fetch else "meta"
                 fetch = _Fetch(None, [torch.cat([o[key] for o in chunks])])

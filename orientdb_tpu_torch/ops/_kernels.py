@@ -50,12 +50,18 @@ SIGNATURES = {
     "csr_segment_scratch": [_N, _N],
     "csr_segment_sum_i32": [_P, _N, _P, _N, _N, _P, _P, _P],
     "csr_segment_sum_f32": [_P, _N, _P, _N, _N, _P, _P, _P],
+    "csr_segment_lanes_scratch": [_N, _N, _N],
+    "csr_segment_sum_lanes_i32": [_P, _N, _N, _P, _N, _N, _P, _P, _P],
+    "csr_segment_sum_lanes_f32": [_P, _N, _N, _P, _N, _N, _P, _P, _P],
     "csr_take_pad_i32": [_P, _N, _P, _N, _I, _I, _P, _P],
     "csr_take_pad_f32": [_P, _N, _P, _N, _F, _I, _P, _P],
     "csr_take_pad_b8": [_P, _N, _P, _N, _I, _I, _P, _P],
     "csr_mask_count": [_P, _N, _P, _P],
+    "csr_mask_count_lanes": [_P, _N, _N, _P, _P],
     "csr_weight_gather_i32": [_P, _N, _P, _N, _P, _P, _N, _P, _P, _N, _I, _P, _P],
     "csr_weight_gather_f32": [_P, _N, _P, _N, _P, _P, _N, _P, _P, _N, _I, _P, _P],
+    "csr_weight_gather_lanes_i32": [_P, _N, _P, _N, _N, _P, _N, _P, _N, _N, _P, _P, _N, _N, _N, _I, _P, _P],
+    "csr_weight_gather_lanes_f32": [_P, _N, _P, _N, _N, _P, _N, _P, _N, _N, _P, _P, _N, _N, _N, _I, _P, _P],
     "csr_front_pack": [_P, _P, _N, _P, _I, _I, _I, _P, _P],
     "csr_replay_meta": [_P, _N, _I, _P, _P, _P, _P],
     "csr_narrow_i16": [_P, _N, _P, _P],
@@ -70,6 +76,7 @@ SIGNATURES = {
     "csr_rows_with_matches": [_P, _P, _N, _N, _I, _P, _P],
     "csr_group_page": [_P, _N, _I, _N, _N, _I, _P, _P],
     "csr_predicate_eval": [_P, _P],
+    "csr_predicate_eval_lanes": [_P, _N, _N, _N, _P],
     "csr_scatter_set": [_P, _N, _P, _P, _N, _I, _P],
     "csr_slab_scan_scratch": [_N, _N],
     "csr_slab_scan_passes": [],

@@ -14,6 +14,13 @@ pools of `storage/tiering`), and the mesh's per-shard kernels
 (`degree_counts_range`, `shard_gather`, `bitmap_hop_shard`,
 `shard_weight_pass`, `rowshard_hop`, for `parallel/`), each as a wrapper over a hand-written
 CUDA kernel (`csrc/csr_kernels.cu`) beside its plain PyTorch version.
+Four wrappers also take a leading lane axis, the port's form of the
+reference's ``jax.vmap`` over a batch group's lanes: `predicate_eval` with
+a ``[B, P]`` parameter stack, `weight_gather` with lane-stacked masks or
+weights, `indptr_segment_sum` with ``[B, E]`` values and `mask_count` with
+``[B, n]`` masks, each one launch for all B lanes that reads what the
+lanes share once (their plain versions: the single-lane plain version a
+lane).
 
 A wrapper checks dtype, contiguity and device, then:
 - a CPU tensor goes to the plain version (``plain_*``), the reference's
@@ -56,12 +63,17 @@ LAUNCHES: Dict[str, int] = {
         "compact_indices",
         "segment_sum_i32",
         "segment_sum_f32",
+        "segment_sum_lanes_i32",
+        "segment_sum_lanes_f32",
         "take_pad_i32",
         "take_pad_f32",
         "take_pad_b8",
         "mask_count",
+        "mask_count_lanes",
         "weight_gather_i32",
         "weight_gather_f32",
+        "weight_gather_lanes_i32",
+        "weight_gather_lanes_f32",
         "front_pack",
         "replay_meta",
         "narrow_i16",
@@ -74,6 +86,7 @@ LAUNCHES: Dict[str, int] = {
         "rows_with_matches",
         "group_page",
         "predicate_eval",
+        "predicate_eval_lanes",
         "scatter_set",
         "slab_scan",
         "slab_probe",
@@ -126,6 +139,31 @@ def _check2d(t: torch.Tensor, dtypes, what: str) -> None:
         raise ValueError(f"{what}: expected a 2-d tensor, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
+
+
+def _lanes_of(*ts: Optional[torch.Tensor]) -> Optional[int]:
+    """The lane count B of the lane-stacked (2-d) operands among ``ts``,
+    or None when every operand is shared (1-d); raises when two disagree."""
+    B = None
+    for t in ts:
+        if t is not None and t.dim() == 2:
+            if B is not None and t.shape[0] != B:
+                raise ValueError(f"lane-stacked operands of {B} and {t.shape[0]} lanes")
+            B = t.shape[0]
+    return B
+
+
+def _check_operand(t: torch.Tensor, dtypes, what: str, lanes: Optional[int]) -> None:
+    """`_check` of a shared operand, or `_check2d` of a lane-stacked one."""
+    if lanes is not None and t.dim() == 2:
+        _check2d(t, dtypes, what)
+    else:
+        _check(t, dtypes, what)
+
+
+def _lane(t: Optional[torch.Tensor], b: int) -> Optional[torch.Tensor]:
+    """Lane ``b`` of a lane-stacked operand, or the shared operand itself."""
+    return t[b] if t is not None and t.dim() == 2 else t
 
 
 def _check_scalar(t: torch.Tensor, what: str) -> None:
@@ -512,13 +550,26 @@ def plain_indptr_segment_sum(
     return out
 
 
+def plain_indptr_segment_sum_lanes(
+    vals: torch.Tensor, indptr: torch.Tensor, out_size: int
+) -> torch.Tensor:
+    """The lane form's plain version: lane b's sums of ``vals[b]``."""
+    B = vals.shape[0]
+    if B == 0:
+        return torch.zeros((0, out_size), dtype=vals.dtype, device=vals.device)
+    return torch.stack([plain_indptr_segment_sum(vals[b], indptr, out_size) for b in range(B)])
+
+
 def indptr_segment_sum(
     vals: torch.Tensor, indptr: torch.Tensor, out_size: int
 ) -> torch.Tensor:
     """Per-vertex sums of CSR-ordered values, zero-padded (or cut) to
     `out_size`. ``indptr`` is non-decreasing within ``[0, len(vals)]`` (a
     CSR's own); on the card a merge-path reduction whose float32 sums are
-    the same bit for bit from call to call."""
+    the same bit for bit from call to call. Lane-stacked ``vals`` [B, E]
+    give [B, out_size] (`indptr_segment_sum_lanes`)."""
+    if vals.dim() == 2:
+        return indptr_segment_sum_lanes(vals, indptr, out_size)
     _check(vals, (I32, F32), "indptr_segment_sum vals")
     _check(indptr, (I32,), "indptr_segment_sum indptr")
     if not _on_card(vals, indptr):
@@ -533,6 +584,43 @@ def indptr_segment_sum(
         lib.csr_segment_sum_i32 if is_int else lib.csr_segment_sum_f32,
         vals.data_ptr(),
         ne,
+        indptr.data_ptr(),
+        nseg,
+        out_size,
+        out.data_ptr(),
+        scratch.data_ptr(),
+        _stream(vals),
+    )
+    return out
+
+
+def indptr_segment_sum_lanes(
+    vals: torch.Tensor, indptr: torch.Tensor, out_size: int
+) -> torch.Tensor:
+    """K4's lane form: the sums of B lanes of values [B, E] over ONE
+    ``indptr``, [B, out_size]. On the card one partition of the merge path
+    serves every lane (it depends only on ``indptr`` and E), and a block
+    stages its tile's segment ends once and walks each lane's values over
+    them; each lane's float32 sums are the same bit for bit from call to
+    call, and equal the single-lane kernel's."""
+    _check2d(vals, (I32, F32), "indptr_segment_sum_lanes vals")
+    _check(indptr, (I32,), "indptr_segment_sum_lanes indptr")
+    if not _on_card(vals, indptr):
+        return plain_indptr_segment_sum_lanes(vals, indptr, out_size)
+    lib = _kernels.load()
+    B, ne = vals.shape
+    out = torch.empty((B, out_size), dtype=vals.dtype, device=vals.device)
+    nseg = max(min(indptr.shape[0] - 1, out_size), 0)
+    scratch = torch.empty(
+        max(int(lib.csr_segment_lanes_scratch(nseg, ne, B)), 1), dtype=I32, device=vals.device
+    )
+    is_int = vals.dtype == I32
+    _launch(
+        "segment_sum_lanes_i32" if is_int else "segment_sum_lanes_f32",
+        lib.csr_segment_sum_lanes_i32 if is_int else lib.csr_segment_sum_lanes_f32,
+        vals.data_ptr(),
+        ne,
+        B,
         indptr.data_ptr(),
         nseg,
         out_size,
@@ -659,7 +747,11 @@ def weight_gather(
     w : 0``, the vertex mask folded into the weights before the walks
     gather them. The kernel writes 0 where ``keep`` is False without
     reading ``w``: the same bits as the product for finite weights other
-    than -0.0, as the pushdown's sums are."""
+    than -0.0, as the pushdown's sums are. Where ``ok``, ``node_ok``,
+    ``emask`` or ``w`` is lane-stacked ([B, ·]) the result is [B, m]
+    (`weight_gather_lanes`)."""
+    if _lanes_of(ok, node_ok, emask, w) is not None:
+        return weight_gather_lanes(emit, dtype, ok, node_ok, emask, eid, w)
     if dtype not in (I32, F32):
         raise TypeError(f"weight_gather: dtype {dtype} not int32 or float32")
     if emit is None:
@@ -720,12 +812,158 @@ def weight_gather(
     return out
 
 
+def plain_weight_gather_lanes(
+    emit: Optional[torch.Tensor],
+    dtype: torch.dtype,
+    ok: Optional[torch.Tensor] = None,
+    node_ok: Optional[torch.Tensor] = None,
+    emask: Optional[torch.Tensor] = None,
+    eid: Optional[torch.Tensor] = None,
+    w: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The lane form's plain version: `plain_weight_gather` a lane, with
+    each lane-stacked operand's row of that lane and the shared ones as
+    they are."""
+    B = _lanes_of(ok, node_ok, emask, w)
+    m = (w.shape[-1] if emit is None else emit.shape[0])
+    dev = (w if emit is None else emit).device
+    if not B:
+        return torch.zeros((0, m), dtype=dtype, device=dev)
+    return torch.stack(
+        [
+            plain_weight_gather(emit, dtype, _lane(ok, b), _lane(node_ok, b), _lane(emask, b), eid, _lane(w, b))
+            for b in range(B)
+        ]
+    )
+
+
+def weight_gather_lanes(
+    emit: Optional[torch.Tensor],
+    dtype: torch.dtype,
+    ok: Optional[torch.Tensor] = None,
+    node_ok: Optional[torch.Tensor] = None,
+    emask: Optional[torch.Tensor] = None,
+    eid: Optional[torch.Tensor] = None,
+    w: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K5a's lane form: `weight_gather` for B lanes at once, [B, m]. Each
+    of ``ok`` [vb], ``node_ok`` [m], ``emask`` and ``w`` is shared (1-d) or
+    lane-stacked (2-d, a lane a row: lane-major, so that a lane's stream is
+    contiguous, as K15's lane form writes it and K4's reads it); ``emit``
+    and ``eid`` are always shared. On the card a thread reads its edges'
+    ``emit``, ``eid`` and every shared gathered value once, and loops over
+    the lanes for the lane-stacked ones only."""
+    if dtype not in (I32, F32):
+        raise TypeError(f"weight_gather_lanes: dtype {dtype} not int32 or float32")
+    B = _lanes_of(ok, node_ok, emask, w)
+    if B is None:
+        raise ValueError("weight_gather_lanes: no lane-stacked operand")
+    if emit is None:
+        if w is None:
+            raise ValueError("weight_gather_lanes: no emit and no weights")
+        m = w.shape[-1]
+    else:
+        _check(emit, (I32,), "weight_gather_lanes emit")
+        m = emit.shape[0]
+    for t, what in ((ok, "ok"), (node_ok, "node_ok"), (emask, "emask")):
+        if t is not None:
+            _check_operand(t, (torch.bool,), f"weight_gather_lanes {what}", B)
+    if node_ok is not None and node_ok.shape[-1] != m:
+        raise ValueError(f"weight_gather_lanes node_ok: {node_ok.shape[-1]} entries for {m} edges")
+    if eid is not None:
+        _check(eid, (I32,), "weight_gather_lanes eid")
+        if eid.shape[0] != m:
+            raise ValueError(f"weight_gather_lanes eid: {eid.shape[0]} entries for {m} edges")
+        if emask is None:
+            raise ValueError("weight_gather_lanes: eid without emask")
+    elif emask is not None and emask.shape[-1] != m:
+        raise ValueError(f"weight_gather_lanes emask: {emask.shape[-1]} entries for {m} edges")
+    if w is not None:
+        _check_operand(w, (dtype,), "weight_gather_lanes w", B)
+    ts = [t for t in (emit, ok, node_ok, emask, eid, w) if t is not None]
+    if not _on_card(*ts):
+        return plain_weight_gather_lanes(emit, dtype, ok, node_ok, emask, eid, w)
+    name = "weight_gather_lanes_i32" if dtype == I32 else "weight_gather_lanes_f32"
+    lib = _kernels.load()
+    out = torch.empty((B, m), dtype=dtype, device=ts[0].device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def n_of(t):
+        return 0 if t is None else t.shape[-1]
+
+    def stride(t):
+        return n_of(t) if t is not None and t.dim() == 2 else 0
+
+    # the shared tables gathered through emit or eid that stay in L2 (bits
+    # 1 ok, 2 emask, 4 w), chosen as the single-lane form chooses
+    keep = 0
+    if emit is not None:
+        tables = (_nbytes(ok), _nbytes(emask) if eid is not None else 0, _nbytes(w))
+        limit = L2_KEEP_BESIDE if max(tables) > L2_KEEP_BYTES else L2_KEEP_BYTES
+        keep = sum(bit for bit, b in zip((1, 2, 4), tables) if b <= limit)
+    _launch(
+        name,
+        getattr(lib, "csr_" + name),
+        ptr(emit),
+        m,
+        ptr(ok),
+        n_of(ok),
+        stride(ok),
+        ptr(node_ok),
+        stride(node_ok),
+        ptr(emask),
+        n_of(emask),
+        stride(emask),
+        ptr(eid),
+        ptr(w),
+        n_of(w),
+        stride(w),
+        B,
+        keep,
+        out.data_ptr(),
+        _stream(out),
+    )
+    return out
+
+
 def plain_mask_count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dtype=I32)
 
 
+def plain_mask_count_lanes(mask: torch.Tensor) -> torch.Tensor:
+    """The lane form's plain version: each lane's popcount, int32 [B]."""
+    return mask.sum(dim=1, dtype=I32)
+
+
+def mask_count_lanes(mask: torch.Tensor) -> torch.Tensor:
+    """K5b's lane form: the popcount of each row of a [B, n] bool mask, as
+    int32 [B], in one launch for all lanes (each row counted as K5b counts
+    a mask)."""
+    _check2d(mask, (torch.bool,), "mask_count_lanes")
+    if not _on_card(mask):
+        return plain_mask_count_lanes(mask)
+    lib = _kernels.load()
+    B, n = mask.shape
+    out = torch.empty(B, dtype=I32, device=mask.device)
+    _launch(
+        "mask_count_lanes",
+        lib.csr_mask_count_lanes,
+        mask.data_ptr(),
+        n,
+        B,
+        out.data_ptr(),
+        _stream(mask),
+    )
+    return out
+
+
 def mask_count(mask: torch.Tensor) -> torch.Tensor:
-    """Popcount of a boolean mask as a 0-d int32 tensor."""
+    """Popcount of a boolean mask as a 0-d int32 tensor; of each row of a
+    lane-stacked [B, n] mask as int32 [B] (`mask_count_lanes`)."""
+    if mask.dim() == 2:
+        return mask_count_lanes(mask)
     _check(mask, (torch.bool,), "mask_count")
     if not _on_card(mask):
         return plain_mask_count(mask)
@@ -1538,6 +1776,12 @@ CMP_OPS = ("=", "!=", "<", "<=", ">", ">=")
 #: (kMaxBufs); the compiler splits whatever would not fit into earlier launches
 PRED_STACK = 16
 PRED_BUFS = 32
+#: the lane form's limits (kPredLanes, kPredLaneParams, kPredLaneEntries):
+#: lanes a launch, parameters a lane, and shared-memory entries of a
+#: thread's slots, the stack below the top plus the cached buffer loads
+PRED_LANES = 64
+PRED_LANE_PARAMS = 32
+PRED_LANE_ENTRIES = 20
 _DEG2RAD = 0.017453292519943295  # pi / 180, the reference's deg2rad factor
 
 
@@ -1554,6 +1798,10 @@ _PRED_EFFECT = {
     **dict.fromkeys((PredOp.ARITH, PredOp.CMP, PredOp.AND, PredOp.OR, PredOp.GUARD), -1),
     PredOp.DIST: -3,
 }
+
+
+#: the instructions that read a buffer at each slot
+_PRED_LOADS = (PredOp.COL, PredOp.BCOL, PredOp.CLASS, PredOp.TMP)
 
 
 def program_need(rows) -> int:
@@ -1592,7 +1840,16 @@ class PredProgram:
         self.need = program_need(self.rows)
         if self.need > PRED_STACK:
             raise ValueError(f"predicate program needs {self.need} stack entries > {PRED_STACK}")
+        #: instructions that read a buffer at the slot (the lane form reads
+        #: each once for all lanes and caches it)
+        self.loads = sum(1 for r in self.rows if r[0] in _PRED_LOADS)
         self.code = torch.tensor(self.rows, dtype=I32).reshape(-1, 4).to(device)
+
+    @property
+    def lane_ok(self) -> bool:
+        """True when the lane form takes the program (its cached loads and
+        stack fit the kernel's shared memory)."""
+        return self.need - 1 + self.loads <= PRED_LANE_ENTRIES
 
 
 class _PredArgs(ctypes.Structure):
@@ -1809,7 +2066,12 @@ def predicate_eval(
     float32 or bool: column values and presence, slot-aligned binding rows,
     code and class tables, an earlier launch's values and presence),
     ``params`` the int32 parameter row (float32 values by their bits),
-    ``depth`` the WHILE level."""
+    ``depth`` the WHILE level. A ``[B, P]`` parameter stack gives the
+    [B, n] masks of its B rows (`predicate_eval_lanes`)."""
+    if params is not None and params.dim() == 2:
+        if values:
+            raise ValueError("predicate_eval: the lane form returns masks only")
+        return predicate_eval_lanes(prog, bufs, ids, n, n_valid, base, depth, params)
     if len(bufs) > PRED_BUFS:
         raise ValueError(f"predicate_eval: {len(bufs)} buffers > {PRED_BUFS}")
     for t in bufs:
@@ -1845,6 +2107,96 @@ def predicate_eval(
         lib = _kernels.load()
         _launch("predicate_eval", lib.csr_predicate_eval, ctypes.byref(args), _stream(prog.code))
     return (out_v, out_p) if values else out_p
+
+
+def plain_predicate_eval_lanes(
+    prog: PredProgram,
+    bufs: List[torch.Tensor],
+    ids: Optional[torch.Tensor],
+    n: int,
+    n_valid: Optional[int],
+    base: int,
+    depth: int,
+    params: torch.Tensor,
+) -> torch.Tensor:
+    """The lane form's plain version: `plain_predicate_eval` a parameter
+    row, stacked [B, n]."""
+    n = ids.shape[0] if ids is not None else n
+    if params.shape[0] == 0:
+        return torch.zeros((0, n), dtype=torch.bool, device=prog.code.device)
+    return torch.stack(
+        [plain_predicate_eval(prog, bufs, ids, n, n_valid, base, depth, row) for row in params]
+    )
+
+
+def predicate_eval_lanes(
+    prog: PredProgram,
+    bufs: List[torch.Tensor],
+    ids: Optional[torch.Tensor],
+    n: int,
+    n_valid: Optional[int],
+    base: int,
+    depth: int,
+    params: torch.Tensor,
+) -> torch.Tensor:
+    """K15's lane form: one program over ``n`` slots against each of the B
+    rows of the int32 parameter stack ``params`` [B, P], bool [B, n]. On the
+    card a thread reads its slots' ids and every buffer the program loads
+    once, caches them in shared memory, and evaluates the program once a
+    lane with that lane's row (the rows staged in shared memory). Raises
+    where the kernel does not take the program or the stack
+    (`PredProgram.lane_ok`, at most `PRED_LANES` rows of `PRED_LANE_PARAMS`
+    values)."""
+    if len(bufs) > PRED_BUFS:
+        raise ValueError(f"predicate_eval_lanes: {len(bufs)} buffers > {PRED_BUFS}")
+    for t in bufs:
+        _check(t, (I32, F32, torch.bool), "predicate_eval_lanes buffer")
+    _check2d(params, (I32,), "predicate_eval_lanes params")
+    B, P = params.shape
+    if B > PRED_LANES or P > PRED_LANE_PARAMS:
+        raise ValueError(
+            f"predicate_eval_lanes: a [{B}, {P}] stack (at most [{PRED_LANES}, {PRED_LANE_PARAMS}])"
+        )
+    if not prog.lane_ok:
+        raise ValueError(
+            f"predicate_eval_lanes: {prog.need - 1} stack and {prog.loads} cached entries "
+            f"> {PRED_LANE_ENTRIES}"
+        )
+    ts = [prog.code, *bufs, params]
+    if ids is not None:
+        _check(ids, (I32,), "predicate_eval_lanes ids")
+        n = ids.shape[0]
+        ts.append(ids)
+    if n_valid is None:
+        n_valid = n
+    if not _on_card(*ts):
+        return plain_predicate_eval_lanes(prog, bufs, ids, n, n_valid, base, depth, params)
+    dev = prog.code.device
+    out = torch.empty((B, n), dtype=torch.bool, device=dev)
+    if n > 0 and B > 0:
+        args = _PredArgs()
+        args.prog = prog.code.data_ptr()
+        args.len = len(prog.rows)
+        args.ids = ids.data_ptr() if ids is not None else None
+        args.n, args.n_valid, args.base = n, n_valid, base
+        args.params = params.data_ptr()
+        args.out_p = out.data_ptr()
+        args.out_v = None
+        args.depth, args.nbufs, args.need = int(depth), len(bufs), prog.need
+        for j, t in enumerate(bufs):
+            args.buf[j] = t.data_ptr()
+            args.blen[j] = t.shape[0]
+        lib = _kernels.load()
+        _launch(
+            "predicate_eval_lanes",
+            lib.csr_predicate_eval_lanes,
+            ctypes.byref(args),
+            B,
+            P,
+            prog.loads,
+            _stream(prog.code),
+        )
+    return out
 
 
 # ---------------------------------------------------------------------------

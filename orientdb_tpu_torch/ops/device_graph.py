@@ -355,6 +355,18 @@ def cached_device_graph(snap: GraphSnapshot):
         return _CACHE.get(snap)
 
 
+def release_device_graph(snap: GraphSnapshot) -> None:
+    """Drop the snapshot's device graph and free its tensors (a snapshot
+    replaced by its compaction, `storage/deltas`): the caller has drained
+    every replay that reads them."""
+    with _CACHE_LOCK:
+        dg = _CACHE.pop(snap, None)
+    if dg is not None:
+        dg.arrays.clear()
+        dg._pending.clear()
+        dg._class_tables.clear()
+
+
 def device_graph(snap: GraphSnapshot, device: torch.device) -> DeviceGraph:
     """Build (or fetch the cached) device form of a snapshot on ``device``."""
     with _CACHE_LOCK:

@@ -98,7 +98,10 @@ class ParamBox:
     A recording run reads a row uploaded from the concrete values; a replay
     hands in its own row (`set_row`: the plan's static buffer, or a group
     lane's row of its stack), which the dispatch fills on the device, so no
-    parameter value is baked into a captured graph."""
+    parameter value is baked into a captured graph. A group replay on the
+    lane axis hands in the whole ``[B, P]`` stack: the box then holds a
+    stack (`lanes`), and every program that reads a parameter evaluates
+    once a row."""
 
     def __init__(self, params: Dict) -> None:
         self.initial = dict(params)
@@ -120,6 +123,12 @@ class ParamBox:
 
     def set_row(self, row: torch.Tensor) -> None:
         self._row = row
+
+    @property
+    def lanes(self) -> Optional[int]:
+        """B when the box holds a ``[B, P]`` stack, else None."""
+        row = self._row
+        return row.shape[0] if row is not None and row.dim() == 2 else None
 
     def reset(self) -> None:
         self._row = None
@@ -798,7 +807,10 @@ class Predicate:
     the ids ``idx``; ``pred.identity(n, n_valid, base, env)`` over slot ids
     ``base + i`` (``i < n_valid``, else padding) without an id array. Both
     are one `K.predicate_eval` launch, plus one for each subtree split off
-    because it passed the kernel's stack depth or buffer table."""
+    because it passed the kernel's stack depth or buffer table. They return
+    bool [n], or [B, n] (one row a lane) when the program reads a parameter
+    and the box holds a ``[B, P]`` stack (`ParamBox.lanes`): K15's lane
+    form, which takes an unsplit program only (`lane_ok`)."""
 
     def __init__(
         self,
@@ -819,6 +831,12 @@ class Predicate:
         root = _fit(root, max_stack, max_bufs, split)
         self.programs = [_Program(t, device) for t in split] + [_Program(root, device)]
         self.uses_params = any(p.uses_params for p in self.programs)
+
+    @property
+    def lane_ok(self) -> bool:
+        """True when a parameter stack evaluates this mask in one lane-form
+        launch: one program (no split) that the lane form takes."""
+        return len(self.programs) == 1 and self.programs[0].prog.lane_ok
 
     def __call__(self, idx: torch.Tensor, env: Optional[Dict] = None) -> torch.Tensor:
         return self._run(idx, idx.shape[0], None, 0, env)

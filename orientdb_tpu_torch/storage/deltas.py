@@ -27,25 +27,37 @@ whole re-upload.
   DATA-only batch (column updates) leaves it, and cached plans replay the
   same graphs on the new values.
 
-Unsupported deltas poison the overlay, loudly: new columnar properties,
-type changes, unknown classes, and a full slab. The reference then serves
-queries from its interpreter and compacts (rebuilds from its records); the
-port has neither records nor an interpreter, so every compiled query on a
-poisoned overlay raises `Uncompilable` with the reason. String columns
-take new dictionary entries by appending (equality stays exact; ordered
-compares refuse to compile, `ops/predicates`).
+Unsupported deltas poison the overlay: a full slab, an edge whose endpoint
+is not in the snapshot, new columnar properties, type changes, unknown
+classes. As the reference's maintainer does, `apply_batch` then compacts
+before it returns (`SnapshotMaintainer.compact`), and also once the worst
+slab fill or the dead fraction reaches ``config.delta_compact_ratio``. The
+port has no records to rebuild from, but its host arrays are the whole
+truth (each patch lands there before it ships), so a compaction folds them
+into a clean snapshot: the live vertex rows in the reference's rebuild
+order, each edge class's live base and slab slots as a clean CSR, re-padded
+and swapped in once the replays queued on the old snapshot have run. The
+batch's remaining events then apply to the fresh overlay; an edge whose
+endpoint is gone is dropped there, as the reference's rebuild drops a
+dangling edge, and an event a fresh overlay cannot take either raises. A
+compiled query on an overlay that is poisoned and not yet compacted (a
+caller that patched around `apply_batch`) raises `Uncompilable` with the
+reason. String columns take new dictionary entries by appending (equality
+stays exact; ordered compares refuse to compile, `ops/predicates`); a
+compaction keeps the dictionaries as they are.
 """
 
 from __future__ import annotations
 
 import base64
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from orientdb_tpu_torch.models.rid import RID
-from orientdb_tpu_torch.ops.device_graph import cached_device_graph
+from orientdb_tpu_torch.ops.device_graph import cached_device_graph, release_device_graph
 from orientdb_tpu_torch.ops.replay_stream import REPLAY_LOCK, on_replay_stream, replay_resources
 from orientdb_tpu_torch.storage.snapshot import (
     MISSING_FLOAT,
@@ -54,11 +66,18 @@ from orientdb_tpu_torch.storage.snapshot import (
     PropertyColumn,
     RidIndex,
 )
+from orientdb_tpu_torch.utils.config import config
 
 
 class DeltaUnsupported(Exception):
     """An event the overlay cannot apply on the card: the overlay is
     poisoned."""
+
+
+class _DanglingEdge(DeltaUnsupported):
+    """An edge create whose endpoint is not a live vertex of the snapshot:
+    it poisons the overlay, and a compaction drops it (the reference's
+    rebuild drops dangling edges)."""
 
 
 class _EdgeSlab:
@@ -184,6 +203,14 @@ class SnapshotOverlay:
                 fills.append((slab.next_slot - slab.base) / ecap)
         return max(fills) if fills else 0.0
 
+    def dead_fraction(self) -> float:
+        """The larger of the deleted share of the base vertices and, per edge
+        class, the tombstoned share of the slots used (the reference's
+        second compaction trigger)."""
+        v = self.dead_vertices / max(1, self.base_vertices)
+        e = max((s.dead / max(1, s.next_slot) for s in self.edge_slabs.values()), default=0.0)
+        return max(v, e)
+
     def stats(self) -> Dict:
         return {
             "base_vertices": self.base_vertices,
@@ -192,6 +219,7 @@ class SnapshotOverlay:
             "dead_vertices": self.dead_vertices,
             "slab_edges": {c: s.next_slot - s.base for c, s in self.edge_slabs.items()},
             "slab_fill": round(self.slab_fill(), 4),
+            "dead_fraction": round(self.dead_fraction(), 4),
             "topology_dirty": self.topology_dirty,
             "plan_gen": self.plan_gen,
             "applied_events": self.applied_events,
@@ -288,6 +316,107 @@ def pad_for_deltas(
 
 
 # ---------------------------------------------------------------------------
+# compaction: the fold of an armed snapshot into a clean one
+# ---------------------------------------------------------------------------
+
+
+def _folded_column(col: PropertyColumn, take: np.ndarray) -> Dict:
+    return {
+        "kind": col.kind,
+        "values": col.values[take],
+        "present": col.present[take],
+        "dictionary": col.dictionary,
+    }
+
+
+def fold_snapshot(snap: GraphSnapshot, schema) -> GraphSnapshot:
+    """The clean snapshot an armed ``snap`` stands for: what the reference's
+    compaction rebuilds from its records (`build_snapshot`,
+    orientdb_tpu/storage/snapshot.py:479), folded from the host arrays.
+
+    Vertices: the live rows (class >= 0) in RID order (cluster, then
+    position), so that each class is one contiguous range again; each
+    class's range is the reference's (its clusters' span in the sorted
+    clusters). Edges, per class: the live base and slab slots, endpoints
+    renumbered, in out order by source and then by edge RID (the
+    reference's browse order; slot order without edge RIDs), the in CSR by
+    a stable sort of the targets. Columns, RIDs, dictionaries and the class
+    tables carry over as they are. The result is unpadded and has no
+    overlay: `pad_for_deltas` arms it."""
+    from orientdb_tpu_torch.carry import snapshot_of_arrays
+
+    ov = snap._overlay
+    if ov is None:
+        raise ValueError("fold_snapshot: the snapshot is not padded for deltas")
+    live = np.flatnonzero(snap.v_class >= 0)
+    rows = live[np.lexsort((live, snap.v_position[live], snap.v_cluster[live]))]
+    V = int(rows.shape[0])
+    new_of = np.full(snap.num_vertices, -1, np.int64)
+    new_of[rows] = np.arange(V, dtype=np.int64)
+    v_cluster = snap.v_cluster[rows]
+    ranges = {}
+    for name in snap.class_vertex_range:
+        cls = schema.get_class(name)
+        ids = list(cls.cluster_ids) if cls is not None else []
+        if ids:
+            lo = int(np.searchsorted(v_cluster, min(ids), "left"))
+            hi = int(np.searchsorted(v_cluster, max(ids), "right"))
+            ranges[name] = (lo, hi)
+        else:
+            ranges[name] = (0, 0)
+    edges = {}
+    for cname, csr in snap.edge_classes.items():
+        used = ov.edge_slabs[cname].next_slot
+        slots = np.flatnonzero(csr.live[:used])
+        src = new_of[csr.edge_src[slots]]
+        dst = new_of[csr.dst[slots]]
+        if slots.size and (src.min() < 0 or dst.min() < 0):
+            raise ValueError(f"fold_snapshot: a live {cname} edge has a deleted endpoint")
+        ec, ep = csr.e_cluster[slots], csr.e_position[slots]
+        if slots.size and ec.min() >= 0:
+            order = np.lexsort((ep, ec, src))
+        else:
+            order = np.argsort(src, kind="stable")
+        take = slots[order]
+        src_o, dst_o = src[order], dst[order]
+        order_in = np.argsort(dst_o, kind="stable")
+        edges[cname] = {
+            "indptr_out": np.concatenate([[0], np.cumsum(np.bincount(src_o, minlength=V))]),
+            "dst": dst_o,
+            "indptr_in": np.concatenate([[0], np.cumsum(np.bincount(dst_o, minlength=V))]),
+            "src": src_o[order_in],
+            "edge_id_in": order_in,
+            "columns": {n: _folded_column(c, take) for n, c in csr.edge_columns.items()},
+            "non_columnar": sorted(csr.non_columnar),
+            "e_cluster": csr.e_cluster[take],
+            "e_position": csr.e_position[take],
+        }
+    folded = snapshot_of_arrays(
+        {
+            "num_vertices": V,
+            "v_class": snap.v_class[rows],
+            "v_cluster": v_cluster,
+            "v_position": snap.v_position[rows],
+            "class_names": snap.class_names,
+            "class_id_of": snap.class_id_of,
+            "class_closure": snap.class_closure,
+            "class_vertex_range": ranges,
+            "edge_closure": snap.edge_closure,
+            "v_columns": {n: _folded_column(c, rows) for n, c in snap.v_columns.items()},
+            "v_non_columnar": sorted(snap.v_non_columnar),
+            "edge_classes": edges,
+        }
+    )
+    # a dictionary the maintainer appended to stays unsorted
+    for cols, new in [(snap.v_columns, folded.v_columns)] + [
+        (csr.edge_columns, folded.edge_classes[c].edge_columns) for c, csr in snap.edge_classes.items()
+    ]:
+        for n, col in cols.items():
+            new[n].dict_unsorted = col.dict_unsorted
+    return folded
+
+
+# ---------------------------------------------------------------------------
 # the maintainer
 # ---------------------------------------------------------------------------
 
@@ -343,14 +472,22 @@ def _dec(v):
 
 class SnapshotMaintainer:
     """Keeps a database's attached snapshot current across writes by
-    applying each write batch as in-place patches (`apply_batch`). Made by
-    `arm_delta_maintenance`."""
+    applying each write batch as in-place patches (`apply_batch`), and by
+    compacting it (`compact`) where the reference's maintainer does. Made
+    by `arm_delta_maintenance`."""
 
-    def __init__(self, db) -> None:
+    def __init__(self, db, spare_vertices: int = 1024, spare_edges: int = 4096) -> None:
         self.db = db
+        #: the spare counts every compaction re-pads with
+        self.spare_vertices = spare_vertices
+        self.spare_edges = spare_edges
         #: the last batch's bytes uploaded and K16 launches
         self.last: Dict[str, int] = {}
         self._events = None  # CUDA events around the last batch's patches
+        self.compactions = 0
+        self.last_compact_reason: Optional[str] = None
+        #: the last compaction's host fold milliseconds and vertex rows
+        self.last_compact: Dict[str, object] = {}
 
     def patch_device_ms(self) -> Optional[float]:
         """Device milliseconds of the last batch's patches on the card
@@ -369,25 +506,107 @@ class SnapshotMaintainer:
     # -- event application --------------------------------------------------
 
     def apply_batch(self, events: List[Dict]) -> bool:
-        """Apply one ordered batch of write events; False when the overlay
-        is poisoned (every compiled query then raises `Uncompilable`)."""
+        """Apply one ordered batch of write events, then compact where the
+        reference's maintainer does (`SnapshotMaintainer.catch_up`,
+        orientdb_tpu/storage/deltas.py:474-490, :543-550): when an event
+        poisoned the overlay (the batch's remaining events, that one first,
+        then apply to the compacted snapshot; if they dirtied its slabs, it
+        is folded once more, so that the snapshot is the clean one of the
+        whole batch), and when the worst slab fill or the dead fraction
+        reached ``config.delta_compact_ratio``. Returns True: the attached
+        snapshot holds the batch (False only without an overlay). A
+        compaction that cannot fold the batch raises."""
         ov = self.overlay
         if ov is None:
             return False
-        patches = _PatchSet()
-        for ev in events:
-            if ov.poisoned is not None:
+        rest, fresh = list(events), False
+        while True:
+            done = self._apply_events(ov, rest, fresh)
+            if ov.poisoned is None:
                 break
+            reason = f"poisoned: {ov.poisoned}"
+            ov = self.compact(reason)
+            rest, fresh = rest[done:], True
+        if fresh and ov.topology_dirty:
+            ov = self.compact(reason)
+        fill = ov.slab_fill()
+        if fill >= config.delta_compact_ratio or ov.dead_fraction() >= config.delta_compact_ratio:
+            self.compact(f"slab fill {fill:.2f}")
+        return True
+
+    def _apply_events(self, ov: SnapshotOverlay, events: List[Dict], fresh: bool) -> int:
+        """Apply ``events`` in order as one patch set and ship it; returns
+        how many applied before one poisoned the overlay (all of them when
+        none did). On a freshly compacted overlay (``fresh``) the first
+        event is the one that poisoned the old overlay: a dangling edge is
+        dropped, as the reference's rebuild drops it, and any other refusal
+        raises (compaction cannot fold it)."""
+        patches = _PatchSet()
+        done = 0
+        for ev in events:
+            first = fresh and done == 0
             try:
                 self._apply_event(ov, ev, patches)
+            except _DanglingEdge as e:
+                if not first:
+                    ov.poison(str(e))
+                    break
             except DeltaUnsupported as e:
+                if first:
+                    raise DeltaUnsupported(f"compaction cannot fold the event: {e}") from e
                 ov.poison(str(e))
+                break
             except Exception as e:  # never leave a batch half-tracked
+                if first:
+                    raise
                 ov.poison(f"{type(e).__name__}: {e}")
+                break
+            done += 1
         self._flush_patches(ov, patches)
-        ov.applied_events += len(events)
+        ov.applied_events += done
         ov.data_version += 1
-        return ov.poisoned is None
+        return done
+
+    def compact(self, reason: str) -> SnapshotOverlay:
+        """Fold the overlay into a clean snapshot and swap it in: the port of
+        the reference's `SnapshotMaintainer.compact`
+        (orientdb_tpu/storage/deltas.py:960), which rebuilds from its
+        records. `fold_snapshot` of the host arrays, re-padded with this
+        maintainer's spare counts (`pad_for_deltas`), is attached in place
+        of the old snapshot under the replay lock, once every replay queued
+        on the old one has run (the reference's retain / release); then the
+        old overlay's generation bumps (its plans drop, and a plan picked
+        before the swap re-records) and its device tensors are freed. The
+        new snapshot uploads at its first query. Returns its overlay."""
+        db = self.db
+        old = db.current_snapshot()
+        t0 = time.perf_counter()
+        snap = fold_snapshot(old, db.schema)
+        ov = pad_for_deltas(snap, self.spare_vertices, self.spare_edges)
+        fold_ms = (time.perf_counter() - t0) * 1e3
+        dg = cached_device_graph(old)
+        with REPLAY_LOCK:
+            if dg is not None and dg.device.type == "cuda":
+                torch.cuda.synchronize(dg.device)
+            db.attach_snapshot(snap)
+            old._overlay.bump_plan_gen()
+            release_device_graph(old)
+        self.compactions += 1
+        self.last_compact_reason = reason
+        self.last_compact = {"reason": reason, "fold_ms": fold_ms, "vertices": ov.base_vertices}
+        return ov
+
+    def stats(self) -> Dict:
+        """The reference's maintainer stats: compactions, the last one's
+        reason, the dead fraction and the overlay's own stats."""
+        ov = self.overlay
+        return {
+            "armed": ov is not None,
+            "compactions": self.compactions,
+            "last_compact_reason": self.last_compact_reason,
+            "dead_fraction": ov.dead_fraction() if ov is not None else None,
+            "overlay": ov.stats() if ov is not None else None,
+        }
 
     def _flush_patches(self, ov: SnapshotOverlay, patches: _PatchSet) -> None:
         """Ship the batch's phases in order, on the replay stream, under
@@ -613,7 +832,7 @@ class SnapshotMaintainer:
         src = snap.rid_to_idx.get(src_rid)
         dst = snap.rid_to_idx.get(dst_rid)
         if src is None or dst is None:
-            raise DeltaUnsupported(f"edge {rid} endpoint not in snapshot")
+            raise _DanglingEdge(f"edge {rid} endpoint not in snapshot")
         if slab.next_slot >= slab.cap:
             raise DeltaUnsupported(f"edge slab full for {cname!r}")
         ov.mark_topology_dirty()
@@ -676,4 +895,4 @@ def arm_delta_maintenance(
     if snap is None:
         raise ValueError("no snapshot attached")
     pad_for_deltas(snap, spare_vertices, spare_edges)
-    return SnapshotMaintainer(db)
+    return SnapshotMaintainer(db, spare_vertices, spare_edges)

@@ -66,6 +66,11 @@ class Config:
     # splitting it).
     tier_hbm_cap_bytes: int = 0
     tier_block_edges: int = 65536
+    # Delta maintenance (storage/deltas): once the worst slab's fill or the
+    # dead fraction reaches this ratio, `apply_batch` folds the overlay into
+    # a clean, re-padded snapshot (`SnapshotMaintainer.compact`), as it
+    # does for a poisoned overlay.
+    delta_compact_ratio: float = 0.75
 
 
 config = Config()

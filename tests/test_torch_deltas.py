@@ -14,6 +14,7 @@ held equal too. Then the plain versions of the delta kernels (K16–K18)
 against the reference's functions at random shapes."""
 
 import copy
+import inspect
 import types
 
 import jax.numpy as jnp
@@ -130,6 +131,7 @@ class Pair:
 
     def __init__(self, monkeypatch, jdb, sv, se):
         self.jdb = jdb
+        self.monkeypatch = monkeypatch
         self.ref_batches, self.ref_phases, self.port_phases = [], [], []
         orig_batch = J_D.SnapshotMaintainer._apply_batch
         orig_jp = J_DG.DeviceGraph.apply_patches
@@ -152,7 +154,7 @@ class Pair:
         monkeypatch.setattr(T_DG.DeviceGraph, "apply_patches", rec_t)
         # the port carries a separate build of the same records, before the
         # reference arms (its maintainer patches its own arrays in place)
-        self.tdb, self.tsnap = snapshot_from_arrays(
+        self.tdb, _snap = snapshot_from_arrays(
             *carry_arrays(jdb, build_snapshot(jdb)), device="cpu"
         )
         self.jm = J_D.arm_delta_maintenance(jdb, spare_vertices=sv, spare_edges=se)
@@ -162,6 +164,10 @@ class Pair:
     @property
     def jsnap(self):
         return self.jdb._snapshot
+
+    @property
+    def tsnap(self):
+        return self.tdb.current_snapshot()
 
     def sync(self):
         """Catch the reference up, replay its batches into the port, and
@@ -220,6 +226,38 @@ class Pair:
                 for d in ("out", "in"):
                     _same(dg.arrays[f"bk:{cname}:{d}"].numpy(), to.bk[cname][d], f"device bk {d}")
 
+    def check_compacted(self):
+        """After a compaction on both sides: the port's fresh snapshot holds
+        the reference's rebuilt one's vertex rows, RIDs and class ranges
+        exactly, its columns value for value where present (dictionaries may
+        differ: the port keeps its own), every live edge with its endpoints,
+        RID and columns as a multiset (so each vertex's neighbour lists are
+        equal as multisets), and the same fresh overlay geometry."""
+        j, t = self.jsnap, self.tsnap
+        assert t.num_vertices == j.num_vertices
+        for key in ("v_class", "v_cluster", "v_position"):
+            _same(getattr(t, key), getattr(j, key), key)
+        assert t.class_vertex_range == {k: tuple(v) for k, v in j.class_vertex_range.items()}
+        live = np.flatnonzero(j.v_class >= 0)
+        for name, col in j.v_columns.items():
+            _same_objects(t.v_columns[name], col, live, name)
+        for cname, jc in j.edge_classes.items():
+            tc = t.edge_classes[cname]
+            assert _edge_multiset(tc, tc.edge_src, tc.e_cluster, tc.e_position) == _edge_multiset(
+                jc, jc.edge_src_np(), *_rid_arrays(jc.edge_rids)
+            ), cname
+        jo, to = j._overlay, t._overlay
+        assert (to.base_vertices, to.cap_vertices, to.next_v_slot, to.dead_vertices, to.bk_nb) == (
+            jo.base_vertices, jo.cap_vertices, jo.next_v_slot, jo.dead_vertices, jo.bk_nb
+        )
+        assert {c: (s.base, s.cap, s.next_slot) for c, s in to.edge_slabs.items()} == {
+            c: (s.base, s.cap, s.next_slot) for c, s in jo.edge_slabs.items()
+        }
+        assert to.poisoned is None and not to.topology_dirty and not to.bucket_overflow
+        assert {tuple(r): i for r, i in t.rid_to_idx.items()} == {
+            tuple(r): i for r, i in j.rid_to_idx.items()
+        }
+
     def check_queries(self, queries=QUERIES):
         for q in queries:
             o = canon(self.jdb.query(q, engine="oracle").to_dicts())
@@ -239,6 +277,38 @@ def _phase(patches):
         v = np.asarray(vals)
         out[key] = (np.asarray(idx, np.int32).tobytes(), v.dtype.str, v.tobytes())
     return out
+
+
+def _same_objects(tcol, jcol, idx, what):
+    """Two columns' values at ``idx`` as Python objects (None where absent)."""
+    assert tcol.kind == jcol.kind, what
+    pres = np.asarray(jcol.present, bool)[idx]
+    _same(tcol.present[idx], pres, f"{what} presence")
+    got = tcol.objects_at(np.asarray(idx, np.int64))
+    d = jcol.dict_array() if jcol.kind == "str" else None
+    for g, i, p in zip(got, idx, pres):
+        want = jcol.values[i] if d is None else d[jcol.values[i]]
+        assert not p or g == (bool(want) if jcol.kind == "bool" else want), what
+
+
+def _edge_multiset(csr, edge_src, e_cluster, e_position):
+    """The live edges of one class as a sorted list of (source, target,
+    RID, column values): each vertex's out- and in-neighbour lists as
+    multisets."""
+    slots = np.flatnonzero(np.asarray(csr.live, bool))
+    cols = sorted(csr.edge_columns)
+    vals = {
+        n: csr.edge_columns[n].objects_at(slots.astype(np.int64))
+        if hasattr(csr.edge_columns[n], "objects_at")
+        else [csr.edge_columns[n].decode(csr.edge_columns[n].values[k], csr.edge_columns[n].present[k])
+              for k in slots]
+        for n in cols
+    }
+    return sorted(
+        (int(edge_src[k]), int(csr.dst[k]), int(e_cluster[k]), int(e_position[k]),
+         *(repr(vals[n][i]) for n in cols))
+        for i, k in enumerate(slots)
+    )
 
 
 def _same(got, want, what):
@@ -405,18 +475,134 @@ def test_bucket_overflow_switches_to_the_scan(pair, monkeypatch):
     assert len(variants.plans) == 1 and variants.plans[0].solver.delta_gen == ov.plan_gen
 
 
+def _answers_like_reference(pair, queries):
+    for q in queries:
+        o = canon(pair.jdb.query(q, engine="oracle").to_dicts())
+        j = canon(pair.jdb.query(q, engine="tpu", strict=True).to_dicts())
+        for _ in range(2):  # a recording on the fresh snapshot, then a replay
+            assert canon(pair.tdb.query(q).to_dicts()) == o == j, q
+
+
 def test_full_slab_poisons(monkeypatch):
+    """A full edge slab poisons the overlay mid-batch. The reference then
+    compacts (rebuilds from its records); the port folds its host arrays
+    into a clean snapshot, applies the rest of the batch and folds again,
+    and answers like the reference. A plan recorded on the old snapshot
+    re-records on the new one."""
     jdb, vs = build_db()
     pair = Pair(monkeypatch, jdb, sv=4, se=3)
     pair.check_queries()
+    old = pair.tsnap
     for i in range(4):
         jdb.new_edge("Knows", vs[i], vs[i + 4], since=1)
-    assert not pair.sync()  # the reference compacts after this batch
-    assert "edge slab full" in pair.tsnap._overlay.poisoned
-    with pytest.raises(Uncompilable, match="edge slab full"):
-        pair.tdb.query(COUNT_Q)
-    with pytest.raises(Uncompilable, match="edge slab full"):
-        pair.tdb.query(ROWS_Q)
+    assert pair.sync()
+    assert "edge slab full" in old._overlay.poisoned
+    assert pair.jm.compactions == 1 and pair.tm.compactions >= 1
+    assert "edge slab full" in pair.tm.last_compact_reason
+    assert pair.tsnap is not old and T_DG.cached_device_graph(old) is None
+    stats = pair.tm.stats()
+    assert stats["compactions"] == pair.tm.compactions and stats["dead_fraction"] == 0.0
+    pair.check_compacted()
+    _answers_like_reference(pair, [COUNT_Q, ROWS_Q])
+    pair.check_queries()
+    # the fresh overlay takes the next writes in place
+    jdb.new_edge("Knows", vs[9], vs[2], since=4)
+    assert pair.sync()
+    pair.check_host()
+    pair.check_queries()
+
+
+def test_poisoned_overlay_raises_until_compacted(monkeypatch):
+    """A caller that patches around `apply_batch` and poisons the overlay
+    gets `Uncompilable` from every compiled query until it compacts."""
+    jdb, _vs = build_db()
+    pair = Pair(monkeypatch, jdb, sv=8, se=8)
+    pair.check_queries()
+    pair.tsnap._overlay.poison("edge slab full for 'Knows'")
+    for q in (COUNT_Q, ROWS_Q):
+        with pytest.raises(Uncompilable, match="edge slab full"):
+            pair.tdb.query(q)
+    pair.tm.compact("poisoned: edge slab full for 'Knows'")
+    assert pair.tsnap._overlay.poisoned is None
+    _answers_like_reference(pair, [COUNT_Q, ROWS_Q])
+
+
+def test_edge_to_deleted_vertex_compacts(monkeypatch):
+    """The case that showed the gap: on demodb(100, 3, seed=3) armed with
+    16 spare vertices, a profile is deleted and then a HasFriend edge is
+    written to it. Both sides poison ("endpoint not in snapshot"), compact
+    to one row fewer, drop the dangling edge, and answer alike."""
+    jdb = generate_demodb(n_profiles=100, avg_friends=3, seed=3)
+    pair = Pair(monkeypatch, jdb, sv=16, se=64)
+    one_hop = "MATCH {class:Profiles, as:p}-HasFriend->{as:f} RETURN count(*) AS n"
+    rows = "MATCH {class:Profiles, as:p, where:(age > 50)}-HasFriend->{as:f} RETURN p.uid AS p, f.uid AS f"
+    _answers_like_reference(pair, [one_hop, rows])
+    rows_before = pair.tsnap._overlay.base_vertices
+    profs = list(jdb.browse_class("Profiles"))
+    victim = profs[7]
+    jdb.delete(victim)
+    jdb.new_edge("HasFriend", profs[3], victim)
+    assert pair.sync()
+    assert pair.jm.compactions == 1 and pair.tm.compactions == 1
+    assert "endpoint not in snapshot" in pair.tm.last_compact_reason
+    assert pair.tsnap._overlay.base_vertices == rows_before - 1 == pair.jsnap._overlay.base_vertices
+    pair.check_compacted()
+    _answers_like_reference(pair, [one_hop, rows])
+
+
+def test_dead_fraction_compacts(monkeypatch):
+    """Tombstones past ``delta_compact_ratio`` of a class's used slots
+    compact both sides; the maintainer's stats say why."""
+    jdb, _vs = build_db()
+    pair = Pair(monkeypatch, jdb, sv=64, se=64)
+    pair.check_queries()
+    knows = list(jdb.browse_class("Knows"))
+    for e in knows[:9]:  # 9 of 11: a dead fraction of 0.82
+        jdb.delete(e)
+    assert pair.sync()
+    assert pair.jm.compactions == 1 and pair.tm.compactions == 1
+    assert pair.tm.last_compact_reason == pair.jm.last_compact_reason
+    assert pair.tm.stats()["dead_fraction"] == 0.0
+    pair.check_compacted()
+    pair.check_queries()
+
+
+def test_overflowed_class_clears_on_compaction(monkeypatch):
+    """Nine edges out of one vertex overflow its Knows bucket, and fill the
+    slab to the compaction ratio: after the compaction the class has no
+    overflow, its dirty hops probe buckets again (no edge-list hop), and
+    every answer equals the reference's."""
+    jdb, vs = build_db()
+    pair = Pair(monkeypatch, jdb, sv=64, se=12)
+    pair.check_queries()
+    for i in range(9):
+        jdb.new_edge("Knows", vs[0], vs[(i % 11) + 1], since=i)
+    old = pair.tsnap._overlay
+    assert pair.sync()
+    assert old.bucket_overflow == {"Knows"}
+    assert pair.jm.compactions == 1 and pair.tm.compactions == 1
+    pair.check_compacted()
+    pair.check_queries()
+    jdb.new_edge("Knows", vs[0], vs[5], since=2)  # a dirty hop again
+    assert pair.sync()
+    pair.check_host()
+    calls = {"bitmap_hop": 0, "bitmap_hop_probe": 0}
+    orig_hop, orig_csr = K.bitmap_hop, K.bitmap_hop_csr
+
+    def hop(*a, **kw):
+        calls["bitmap_hop"] += 1
+        return orig_hop(*a, **kw)
+
+    def csr(*a, **kw):
+        bound = inspect.signature(orig_csr).bind(*a, **kw)
+        calls["bitmap_hop_probe"] += bound.arguments.get("probe") is not None
+        return orig_csr(*a, **kw)
+
+    pair.monkeypatch.setattr(K, "bitmap_hop", hop)
+    pair.monkeypatch.setattr(K, "bitmap_hop_csr", csr)
+    assert not pair.tsnap._overlay.bucket_overflow
+    _answers_like_reference(pair, [VAR_Q])
+    assert calls["bitmap_hop_probe"] > 0 and calls["bitmap_hop"] == 0
 
 
 def test_data_only_batch_replays_the_cached_plan(pair):

@@ -2058,3 +2058,161 @@ def test_captured_paged_reads_share_one_miss_byte_on_card(card):
             assert torch.equal(a, b)
         assert bool(outs[4]) == bool(hop_miss | want[3])
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the lane forms (a count group's lane axis): K15, K5a, K4 and K5b
+# ---------------------------------------------------------------------------
+
+
+def _lane_stack(rows, card):
+    return _t(np.stack(rows)).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 16, 64])
+@pytest.mark.parametrize("walk", ["out", "in", "fold"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["i32", "f32"])
+def test_weight_gather_lanes_equal_plain_on_card(card, dtype, walk, B):
+    """K5a's lane form against its plain version and, lane by lane,
+    against the single-lane kernel, bit for bit: each of ok, node_ok,
+    emask and w lane-stacked in turn and all together, the rest shared, on
+    an out walk (direct edge mask), an in walk (the mask through eid, -1
+    and past-end ids) and the fold (no emit); an edge count off 16 bytes,
+    a lane of zeros."""
+    rng = np.random.default_rng(B * 13 + len(walk))
+    vb, e = 8192, 300_001
+    tdtype = torch.int32 if dtype == np.int32 else torch.float32
+
+    def weights(n):
+        return rng.integers(0, 2**20, n, dtype=np.int32) if dtype == np.int32 else (rng.random(n) * 100).astype(np.float32)
+
+    emit = _t(rng.integers(-1, vb + 3, e, dtype=np.int32)).to(card)
+    eid_np = rng.permutation(e).astype(np.int32)
+    eid_np[rng.random(e) < 0.05] = -1
+    eid_np[rng.random(e) < 0.02] = e + 5
+    eid = _t(eid_np).to(card)
+    m = vb if walk == "fold" else e
+    shared = {
+        "ok": _t(rng.random(vb) < 0.4).to(card),
+        "node_ok": _t(rng.random(m) < 0.5).to(card),
+        "emask": _t(rng.random(e) < 0.7).to(card),
+        "w": _t(weights(vb)).to(card),
+    }
+    lanes = {
+        "ok": _lane_stack([rng.random(vb) < 0.4 for _ in range(B)], card),
+        "node_ok": _lane_stack([rng.random(m) < 0.5 for _ in range(B)], card),
+        "emask": _lane_stack([rng.random(e) < 0.7 for _ in range(B)], card),
+        "w": _lane_stack([weights(vb) for _ in range(B)], card),
+    }
+    for t in lanes.values():
+        t[0].zero_()
+    names = ("ok", "w") if walk == "fold" else ("ok", "node_ok", "emask", "w")
+    for stacked in [(n,) for n in names] + [names]:
+        kw = {n: (lanes[n] if n in stacked else shared[n]) for n in names}
+        if walk == "fold":
+            args = (None, tdtype)
+        else:
+            args = (emit, tdtype)
+            if walk == "in":
+                kw["eid"] = eid
+        got = T.weight_gather(*args, **kw)
+        assert got.shape == (B, m)
+        want = T.plain_weight_gather_lanes(*args, **kw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), stacked
+        for b in range(B):
+            one = {k: (v[b] if v.dim() == 2 else v) for k, v in kw.items()}
+            assert torch.equal(got[b].view(torch.int32), T.weight_gather(*args, **one).view(torch.int32))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("kind,v", SEGMENT_CASES)
+def test_segment_sum_lanes_equal_plain_on_card(card, kind, v, B):
+    """K4's lane form: int32 exactly against its plain version (wrapping
+    sums), float32 bit for bit against the single-lane kernel lane by lane
+    (and to rtol 1e-6 against the plain version), padded and cut, and
+    equal from call to call; a lane of zeros."""
+    rng = np.random.default_rng(v + B)
+    indptr = _t(_segment_indptr(rng, kind, v)).to(card)
+    ne = int(indptr[-1])
+    vals_i = _lane_stack([rng.integers(-(2**31), 2**31 - 1, ne, dtype=np.int32) for _ in range(B)], card)
+    vals_f = _lane_stack([rng.random(ne, dtype=np.float32) for _ in range(B)], card)
+    vals_i[0].zero_()
+    nseg = indptr.shape[0] - 1
+    for out_size in (T.bucket(max(nseg, 1)) + 3, max(nseg // 2, 1)):
+        got = T.indptr_segment_sum(vals_i, indptr, out_size)
+        assert torch.equal(got, T.plain_indptr_segment_sum_lanes(vals_i, indptr, out_size))
+        assert not got[0].any()
+        first = T.indptr_segment_sum(vals_f, indptr, out_size)
+        again = T.indptr_segment_sum(vals_f, indptr, out_size)
+        assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+        for b in range(B):
+            one = T.indptr_segment_sum(vals_f[b], indptr, out_size)
+            assert torch.equal(first[b].view(torch.int32), one.view(torch.int32))
+            _same_f32(first[b], T.plain_indptr_segment_sum(vals_f[b], indptr, out_size))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 16, 64])
+@pytest.mark.parametrize("n", [0, 5, 16_384, 16_385, 1_000_003])
+def test_mask_count_lanes_equal_plain_on_card(card, n, B):
+    """K5b's lane form: [B, n] masks (rows off 16 bytes where n is odd, an
+    all-False and an all-True lane, one block a row up to 16 KiB, else the
+    one-wave grid) against its plain version and the single-lane kernel."""
+    rng = np.random.default_rng(n + B)
+    mask = _lane_stack([rng.random(n) < 0.3 for _ in range(B)], card)
+    mask[0].zero_()
+    mask[-1].fill_(True)
+    got = T.mask_count(mask)
+    assert got.dtype == torch.int32 and torch.equal(got, T.plain_mask_count_lanes(mask))
+    for b in range(B):
+        assert int(got[b]) == int(T.mask_count(mask[b]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 5, 64])
+@pytest.mark.parametrize("n", [1, 257, 70_001])
+def test_predicate_eval_lanes_equal_plain_on_card(card, n, lanes):
+    """K15's lane form on `chip_smoke.K15_LANE_WHERES` (ids and identity
+    mode, binding rows): row b equals the single-lane kernel exactly, and
+    the plain version outside distance()'s boundary band."""
+    import chip_smoke
+
+    _band, checked = chip_smoke.check_predicate_lanes(np, torch, T, n, lanes, seed=n)
+    torch.cuda.synchronize()
+    assert checked == 2 * len(chip_smoke.K15_LANE_WHERES)
+
+
+@pytest.mark.cuda
+def test_captured_lane_groups_equal_cpu(card):
+    """Count groups on the lane axis captured on the card (a lane-varying
+    root counted by K5b's lane form, and the two-hop COUNT through the lane
+    forms of K15, K5a and K4) against the same batches on the CPU."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+
+    two_hop = ("MATCH {class:Person, as:p, where:(age > :a)}-knows->{as:f}"
+               "-knows->{as:g, where:(age < :b)} RETURN count(*) AS n")
+    geo = "MATCH {class:Person, as:p, where:(distance(lat, lng, :x, :y) < :r)} RETURN count(*) AS n"
+    batches = [
+        ([two_hop] * 16, [{"a": 30 + 2 * i, "b": 20 + 2 * i} for i in range(16)]),
+        ([geo] * 16, [{"x": 48.0, "y": 2.0, "r": 8000.0 - 400.0 * i} for i in range(16)]),
+    ]
+    kw = dict(avg_knows=6, seed=11, geo=True)
+    gpu, gsnap = build_person_knows(5_000, device=card, **kw)
+    cpu, _ = build_person_knows(5_000, device="cpu", **kw)
+    for sqls, plist in batches:
+        gpu.query(sqls[0], plist[0])
+        cpu.query(sqls[0], plist[0])
+        for _ in range(2):
+            got = [rs.to_dicts() for rs in gpu.query_batch(sqls, plist)]
+            want = [rs.to_dicts() for rs in cpu.query_batch(sqls, plist)]
+            assert got == want
+    plans = [p for v in TE._plan_cache(gsnap).values() for p in v.plans if p.group_replays]
+    assert plans and all(p.lane_axis for p in plans)
+    assert all(g.graph is not None and g.nodes > 0 for p in plans for g in p.groups.values())
+    torch.cuda.synchronize()

@@ -1,0 +1,499 @@
+"""The lane axis of a count group: the lane forms of K15 (`predicate_eval`
+with a ``[B, P]`` parameter stack), K5a (`weight_gather` with lane-stacked
+masks or weights), K4 (`indptr_segment_sum` over ``[B, E]`` values) and K5b
+(`mask_count` of ``[B, n]`` masks), and the group replays that run on them
+(`TpuMatchSolver.lane_route`, the port of the reference's ``jax.vmap`` of
+its replay at `orientdb_tpu/exec/tpu_engine.py:3436-3437`), on the CPU.
+
+On the CPU each wrapper runs its plain version. A lane form's result must
+equal its lanes computed one by one: by the single-lane wrapper, and by the
+reference's function (its weight chain, `indptr_segment_sum`,
+`mask_count`) a lane, exactly for int32 and bool and bit for bit for
+float32 (each lane's arithmetic is the single lane's, in its order). The
+kernels themselves run only on a card (`tests/test_torch_kernels.py`).
+Then count groups through ``db.query_batch``: every lane equals the port's
+single query and the reference's ``engine="tpu"`` (and on a graph with
+records its ``engine="oracle"``), and the plans that should take the lane
+axis do, while a rows group stays lane after lane."""
+
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from orientdb_tpu.models.database import Database as JDatabase
+from orientdb_tpu.ops import csr as J
+from orientdb_tpu.storage.bigshape import build_person_knows as j_build_person_knows
+from orientdb_tpu.storage.bigshape import build_snb_shape as j_build_snb_shape
+from orientdb_tpu.storage.snapshot import attach_fresh_snapshot
+from orientdb_tpu_torch.carry import snapshot_from_arrays
+from orientdb_tpu_torch.exec import tpu_engine as TE
+from orientdb_tpu_torch.exec.result import canonical_rows
+from orientdb_tpu_torch.ops import csr as K
+from orientdb_tpu_torch.ops.predicates import ColumnScope, ParamBox, compile_predicate
+from orientdb_tpu_torch.sql.parser import Parser, parse
+from orientdb_tpu_torch.storage.bigshape import build_person_knows, build_snb_shape, numpy_config5_count
+from test_torch_match import _carry_arrays
+from test_torch_weight_gather import _jax_chain, _operands, _same_bits, _t
+
+I32 = torch.int32
+F32 = torch.float32
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _stacked(rows, dtype):
+    return _t(np.stack(rows).astype(dtype))
+
+
+# ---------------------------------------------------------------------------
+# the lane forms against their lanes one by one
+# ---------------------------------------------------------------------------
+
+LANES = [1, 3, 16]
+
+
+@pytest.mark.parametrize("B", LANES)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["i32", "f32"])
+@pytest.mark.parametrize("walk", ["out", "in"])
+@pytest.mark.parametrize("stacked", ["ok", "node_ok", "emask", "w", "all"])
+def test_weight_gather_lanes_equal_each_lane(stacked, walk, dtype, B):
+    """Each of ``ok``, ``node_ok``, ``emask`` and ``w`` lane-stacked in turn
+    (and all of them), the others shared, on an out walk and an in walk
+    (the edge mask through eid): lane b equals the single-lane wrapper and
+    the reference's chain on lane b's operands. Lane 0 keeps nothing (an
+    empty lane); the last lane repeats the one before it (a padded lane)."""
+    rng = np.random.default_rng(zlib.crc32(f"{stacked} {walk} {np.dtype(dtype).name} {B}".encode()))
+    vb, e = 64, 700
+    emit, ok, emask, eid, w = _operands(rng, vb, e, dtype)
+    node_ok = rng.random(e) < 0.5
+    shared = dict(ok=ok, node_ok=node_ok, emask=emask, w=w)
+    lanes = []
+    for b in range(B):
+        _e, ok_b, em_b, _i, w_b = _operands(rng, vb, e, dtype)
+        lane = dict(ok=ok_b, node_ok=rng.random(e) < 0.5, emask=em_b, w=w_b)
+        if b == 0:
+            lane = {k: np.zeros_like(v) for k, v in lane.items()}
+        if b == B - 1 and B > 1:
+            lane = lanes[-1]
+        lanes.append(lane)
+    names = ("ok", "node_ok", "emask", "w") if stacked == "all" else (stacked,)
+    # E >= vb reads ok through emit; node_ok stands for it where E < vb
+    use_ok = stacked != "node_ok"
+    kw, per_lane = {}, [{} for _ in range(B)]
+    for k in ("ok", "node_ok", "emask", "w"):
+        if (k == "ok" and not use_ok) or (k == "node_ok" and use_ok and stacked != "all"):
+            continue
+        if k in names:
+            kw[k] = _stacked([lane[k] for lane in lanes], shared[k].dtype)
+            for b in range(B):
+                per_lane[b][k] = lanes[b][k]
+        else:
+            kw[k] = _t(shared[k])
+            for b in range(B):
+                per_lane[b][k] = shared[k]
+    if walk == "in":
+        kw["eid"] = _t(eid)
+    tdtype = I32 if dtype == np.int32 else F32
+    got = K.weight_gather(_t(emit), tdtype, **kw)
+    assert got.shape == (B, e)
+    plain = K.plain_weight_gather_lanes(_t(emit), tdtype, **kw)
+    for b in range(B):
+        one = {k: _t(v) for k, v in per_lane[b].items()}
+        if walk == "in":
+            one["eid"] = _t(eid)
+        single = K.weight_gather(_t(emit), tdtype, **one)
+        assert torch.equal(got[b].view(I32), single.view(I32))
+        assert torch.equal(plain[b].view(I32), single.view(I32))
+        ref = dict(per_lane[b], eid=eid if walk == "in" else None)
+        _same_bits(got[b], _jax_chain(emit, dtype, **ref))
+    if B > 1:
+        assert torch.equal(got[-1], got[-2])
+    if stacked == "all":
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("B", LANES)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["i32", "f32"])
+def test_folded_weights_lanes_equal_each_lane(dtype, B):
+    """The fold (no emit: ``ok ? w : 0`` over [vb]) with a lane-stacked
+    mask and shared weights, then with both lane-stacked."""
+    rng = np.random.default_rng(B * 7 + (dtype == np.int32))
+    vb = 256
+    _e, ok, _m, _i, w = _operands(rng, vb, 8, dtype)
+    oks = [rng.random(vb) < 0.4 for _ in range(B)]
+    ws = [_operands(rng, vb, 8, dtype)[4] for _ in range(B)]
+    tdtype = I32 if dtype == np.int32 else F32
+    for wk in (_t(w), _stacked(ws, dtype)):
+        got = K.weight_gather(None, tdtype, ok=_stacked(oks, bool), w=wk)
+        for b in range(B):
+            wb = w if wk.dim() == 1 else ws[b]
+            _same_bits(got[b], _jax_chain(np.arange(vb, dtype=np.int32), dtype, ok=oks[b], w=wb))
+
+
+def _zipf_indptr(rng, v: int):
+    deg = np.minimum(rng.zipf(1.5, v), 500)
+    deg[rng.random(v) < 0.3] = 0  # runs of empty segments
+    return np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("B", LANES)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["i32", "f32"])
+@pytest.mark.parametrize("v", [1, 300, 6000])
+def test_segment_sum_lanes_equal_each_lane(v, dtype, B):
+    """B lanes of values over one Zipf-degree indptr (empty segments, long
+    ones), out cut short and padded: lane b equals the single-lane wrapper
+    (bit for bit); int32 equals the reference's `indptr_segment_sum`
+    exactly, float32 the float64 segment sums to rtol 1e-6 (the port's
+    plain version rounds a float64 scan once; the reference's float32 scan
+    and difference loses up to 1e-3 relative at these sizes, so it is no
+    yardstick for float32). A lane of zeros sums to zeros."""
+    rng = np.random.default_rng(v * 31 + B)
+    indptr = _zipf_indptr(rng, v)
+    ne = int(indptr[-1])
+    if dtype == np.int32:
+        vals = [rng.integers(-(2**30), 2**30, ne, dtype=np.int32) for _ in range(B)]
+    else:
+        vals = [(rng.random(ne) * 100).astype(np.float32) for _ in range(B)]
+    vals[0][:] = 0
+    for out_size in (v, max(v - 7, 0), v + 40):
+        got = K.indptr_segment_sum(_stacked(vals, dtype), _t(indptr), out_size)
+        assert got.shape == (B, out_size)
+        for b in range(B):
+            single = K.indptr_segment_sum(_t(vals[b]), _t(indptr), out_size)
+            assert torch.equal(got[b].view(I32), single.view(I32))
+            if dtype == np.int32:
+                want = J.indptr_segment_sum(jnp.asarray(vals[b]), jnp.asarray(indptr), out_size)
+                assert np.array_equal(got[b].numpy(), np.asarray(want))
+            else:
+                tot = np.concatenate([[0.0], np.cumsum(vals[b].astype(np.float64))])
+                nseg = min(v, out_size)
+                want = np.zeros(out_size)
+                want[:nseg] = tot[indptr[1 : nseg + 1]] - tot[indptr[:nseg]]
+                np.testing.assert_allclose(got[b].numpy(), want, rtol=1e-6, atol=1e-9)
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("B", LANES + [0])
+@pytest.mark.parametrize("n", [0, 5, 16_400])
+def test_mask_count_lanes_equal_each_lane(n, B):
+    """[B, n] masks (an all-False lane, an all-True lane) counted a lane:
+    the single-lane wrapper and the reference's `mask_count`."""
+    rng = np.random.default_rng(n + B)
+    rows = [rng.random(n) < 0.3 for _ in range(B)]
+    if B:
+        rows[0][:] = False
+        rows[-1][:] = True
+    mask = _stacked(rows, bool) if B else torch.zeros((0, n), dtype=torch.bool)
+    got = K.mask_count(mask)
+    assert got.dtype == I32 and got.shape == (B,)
+    for b in range(B):
+        assert int(got[b]) == int(K.mask_count(_t(rows[b]))) == int(J.mask_count(jnp.asarray(rows[b])))
+
+
+def _person_columns(n: int, seed: int):
+    """A small vertex universe's device columns (CPU): age with absent
+    cells, float lat / lng, and the scope predicates compile against."""
+    db, snap = build_person_knows(n, seed=seed, geo=True, device="cpu")
+    dg = TE.device_graph(snap, db.device)
+    return db, snap, dg
+
+
+WHERES = [
+    ("age > :a AND age < :b", lambda b: {"a": 20 + 3 * b, "b": 60 - b}),
+    ("distance(lat, lng, :x, :y) < :r", lambda b: {"x": 48.0, "y": 2.0, "r": 200.0 + 900.0 * b}),
+    ("uid < :k OR age = :a", lambda b: {"k": 10 * b, "a": 30 + b}),
+]
+
+
+@pytest.mark.parametrize("B", LANES)
+@pytest.mark.parametrize("mode", ["identity", "ids"])
+@pytest.mark.parametrize("where", range(len(WHERES)))
+def test_predicate_eval_lanes_equal_each_row(where, mode, B):
+    """One compiled WHERE over the slots against a [B, P] parameter stack:
+    row b equals the program run on parameter row b alone (the single-lane
+    wrapper), in identity mode (slots past n_valid padding) and over an id
+    array with -1 and repeated ids. Lane 0's parameters match nothing (an
+    empty lane: the range is empty or r = 0), the last lane repeats the
+    one before it (a padded lane)."""
+    text, values = WHERES[where]
+    _db, snap, dg = _person_columns(3_000, seed=where)
+    params = [values(b) for b in range(B)]
+    if where == 0:
+        params[0] = {"a": 50, "b": 40}
+    elif where == 1:
+        params[0] = dict(params[0], r=0.0)
+    else:
+        params[0] = {"k": 0, "a": -5}
+    if B > 1:
+        params[-1] = params[-2]
+    box = ParamBox(params[0])
+    scope = ColumnScope(dg.columns, dg.non_columnar, device=dg.device)
+    pred = compile_predicate(Parser(text).parse_expression(), scope, box)
+    assert pred.uses_params and pred.lane_ok
+    stack = torch.from_numpy(np.stack([TE.pack_params(p, box.used) for p in params]))
+    rng = np.random.default_rng(where)
+    ids = _t(rng.integers(-1, snap.num_vertices, 5_000, dtype=np.int32))
+
+    def run(row):
+        box.set_row(row)
+        try:
+            if mode == "ids":
+                return pred(ids)
+            return pred.identity(4_096, snap.num_vertices - 100)
+        finally:
+            box.reset()
+
+    got = run(stack)
+    assert got.dtype == torch.bool and got.shape[0] == B
+    for b in range(B):
+        assert torch.equal(got[b], run(stack[b]))
+    assert not got[0].any()
+    if B > 1:
+        assert torch.equal(got[-1], got[-2])
+
+
+def test_lane_forms_refuse_what_their_kernels_do_not_take():
+    """Each wrapper checks its shapes: lanes that disagree, a stacked
+    operand of the wrong width, values from a lane-form mask program, and
+    a parameter stack over the kernel's lanes."""
+    ok = torch.zeros((3, 64), dtype=torch.bool)
+    w = torch.zeros((4, 64), dtype=I32)
+    emit = torch.zeros(10, dtype=I32)
+    with pytest.raises(ValueError, match="lanes"):
+        K.weight_gather(emit, I32, ok=ok, w=w)
+    with pytest.raises(ValueError, match="node_ok"):
+        K.weight_gather(emit, I32, node_ok=torch.zeros((3, 9), dtype=torch.bool))
+    with pytest.raises(TypeError):
+        K.indptr_segment_sum(torch.zeros((2, 5), dtype=torch.int64), torch.zeros(3, dtype=I32), 2)
+    prog = K.PredProgram([(K.PredOp.PARAM, 0, 0, 0), (K.PredOp.TRUTHY, 0, 0, 0)], "cpu")
+    with pytest.raises(ValueError, match="masks only"):
+        K.predicate_eval(prog, [], None, 4, params=torch.zeros((2, 1), dtype=I32), values=True)
+    with pytest.raises(ValueError, match="stack"):
+        K.predicate_eval(prog, [], None, 4, params=torch.zeros((K.PRED_LANES + 1, 1), dtype=I32))
+
+
+# ---------------------------------------------------------------------------
+# count groups on the lane axis
+# ---------------------------------------------------------------------------
+
+
+def _plans(snap, sql):
+    return [p for k, v in TE._plan_cache(snap).items() if k[0] == parse(sql) for p in v.plans]
+
+
+class _LaneSpy:
+    """Counts the lane forms' calls (their wrappers, which on the CPU run
+    the plain versions)."""
+
+    NAMES = ("predicate_eval_lanes", "weight_gather_lanes", "indptr_segment_sum_lanes", "mask_count_lanes")
+
+    def __init__(self, monkeypatch):
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        for name in self.NAMES:
+            def spy(*a, _f=getattr(K, name), _n=name, **kw):
+                self.calls[_n] += 1
+                return _f(*a, **kw)
+
+            monkeypatch.setattr(K, name, spy)
+
+
+def _group(monkeypatch, db, snap, sql, plist, want, lane_axis=True):
+    """``db.query_batch`` of ``sql`` over ``plist`` (16 items): the first
+    batch records the statement, the second runs the group. Every lane
+    equals ``want[i]`` and the port's single query; the plan takes the lane
+    axis (or not); returns the lane forms' calls in the group batch, a
+    group replay's (the items may split over recorded variants, a group
+    each)."""
+    single = [db.query(sql, p).to_dicts() for p in plist]
+    for i, rows in enumerate(single):
+        assert canonical_rows(rows) == canonical_rows(want[i]), (sql, plist[i])
+    db.query_batch([sql] * len(plist), plist)
+    before = {id(p): p.group_replays for p in _plans(snap, sql)}
+    spy = _LaneSpy(monkeypatch)
+    got = [rs.to_dicts() for rs in db.query_batch([sql] * len(plist), plist)]
+    monkeypatch.undo()
+    assert got == single, sql
+    grouped = [p for p in _plans(snap, sql) if p.group_replays]
+    assert grouped and all(p.lane_axis is lane_axis for p in grouped), sql
+    replays = sum(p.group_replays - before.get(id(p), 0) for p in grouped)
+    assert replays > 0, sql
+    return {k: n / replays for k, n in spy.calls.items()}
+
+
+Q2P = (
+    "MATCH {class:Person, as:p, where:(age > :a)}-knows->{as:f}"
+    "-knows->{as:g, where:(age < :b)} RETURN count(*) AS n"
+)
+Q3 = (
+    "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f}"
+    "-knows->{as:g, where:(age < 30)} RETURN p.uid AS p, f.uid AS f, g.uid AS g"
+)
+VAR_Q = "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f, while:($depth < 2)} RETURN count(*) AS n"
+
+
+@pytest.fixture(scope="module")
+def person_knows():
+    jdb, _ = j_build_person_knows(20_000, seed=3)
+    db, snap = build_person_knows(20_000, seed=3, device="cpu")
+    return jdb, db, snap
+
+
+def test_two_hop_count_group_runs_on_the_lane_axis(monkeypatch, person_knows):
+    """The parametric two-hop COUNT: a lane-varying root and a lane-varying
+    last hop. One group replay of 16 lanes counts the root mask into the
+    pushdown's weights (no compaction), and every lane equals the
+    reference's ``engine="tpu"``; lane 0 finds no root (an empty lane)."""
+    jdb, db, snap = person_knows
+    plist = [{"a": 80 if i == 0 else 30 + 2 * i, "b": 20 + 2 * i} for i in range(16)]
+    want = [jdb.query(Q2P, p, engine="tpu", strict=True).to_dicts() for p in plist]
+    assert want[0] == [{"n": 0}]
+    calls = _group(monkeypatch, db, snap, Q2P, plist, want)
+    # two masks (p, g) a group: one lane-form launch each; the two walks,
+    # the fold of p and the total in K5a's and K4's lane forms
+    assert calls["predicate_eval_lanes"] == 2 and calls["mask_count_lanes"] == 0
+    assert calls["weight_gather_lanes"] >= 3 and calls["indptr_segment_sum_lanes"] >= 3
+
+
+def test_rows_and_var_depth_groups_stay_lane_after_lane(monkeypatch, person_knows):
+    """A rows group (BQ3's shape) and a COUNT whose lane-varying root is
+    expanded by a variable-depth arm keep the lane-after-lane group, and
+    equal the reference."""
+    jdb, db, snap = person_knows
+    plist = [{"k": 100 + 10 * i} for i in range(16)]
+    want = [jdb.query(Q3, p, engine="tpu", strict=True).to_dicts() for p in plist]
+    calls = _group(monkeypatch, db, snap, Q3, plist, want, lane_axis=False)
+    assert not any(calls.values())
+    plist = [{"k": 5 + i} for i in range(16)]
+    want = [jdb.query(VAR_Q, p, engine="tpu", strict=True).to_dicts() for p in plist]
+    calls = _group(monkeypatch, db, snap, VAR_Q, plist, want, lane_axis=False)
+    assert not any(calls.values())
+
+
+E1 = (
+    "MATCH {class:Person, as:p, where:(age > 40)}"
+    ".outE('knows'){where:(creationDate > :d)}"
+    ".inV(){as:f, where:(age < 30)}, "
+    "{class:Message, as:m}-hasCreator->{as:f} "
+    "RETURN count(*) AS n"
+)
+
+
+def test_config5_count_group_runs_on_the_lane_axis(monkeypatch):
+    """E1 (the config-5 COUNT) with 16 values of :d, BE1's: only the edge
+    mask varies by lane. One K15 lane launch for the edge mask, and every
+    lane equals the reference's ``engine="tpu"`` and the numpy count."""
+    jdb, _ = j_build_snb_shape(2_000, msgs_per_person=2, avg_knows=10, seed=7)
+    db, snap = build_snb_shape(2_000, msgs_per_person=2, avg_knows=10, seed=7, device="cpu")
+    plist = [{"d": 12_000 + (211 * i) % 8_000} for i in range(16)]
+    plist[3] = {"d": 10**9}  # an empty lane: no edge passes
+    want = [jdb.query(E1, p, engine="tpu", strict=True).to_dicts() for p in plist]
+    for p, w in zip(plist, want):
+        assert w == [{"n": numpy_config5_count(snap, p["d"])}]
+    assert want[3] == [{"n": 0}]
+    calls = _group(monkeypatch, db, snap, E1, plist, want)
+    assert calls["predicate_eval_lanes"] == 1 and calls["mask_count_lanes"] == 0
+    assert calls["indptr_segment_sum_lanes"] >= 2
+
+
+def _geo_record_db(n: int, seed: int):
+    """A record graph with E1's, G1's and the two-hop COUNT's shapes:
+    Person (age with absent cells, lat, lng), Message, Knows (since) and
+    HasCreator (Message → Person)."""
+    rng = np.random.default_rng(seed)
+    db = JDatabase(f"lanes{seed}")
+    db.schema.create_vertex_class("Person")
+    db.schema.create_vertex_class("Message")
+    db.schema.create_edge_class("Knows")
+    db.schema.create_edge_class("HasCreator")
+    people = []
+    for i in range(n):
+        fields = {"uid": i, "lat": float(rng.uniform(35, 60)), "lng": float(rng.uniform(-10, 30))}
+        if rng.random() > 0.1:
+            fields["age"] = int(rng.integers(15, 80))
+        people.append(db.new_vertex("Person", **fields))
+    for _ in range(n * 4):
+        s, d = int(rng.integers(0, n)), int(rng.integers(0, n))
+        db.new_edge("Knows", people[s], people[d], since=int(rng.integers(0, 20)))
+    for i in range(n):
+        m = db.new_vertex("Message", uid=i)
+        db.new_edge("HasCreator", m, people[int(rng.integers(0, n))])
+    attach_fresh_snapshot(db)
+    return db
+
+
+RECORD_GROUPS = [
+    (
+        "MATCH {class:Person, as:p, where:(age > 40)}.outE('Knows'){where:(since > :d)}"
+        ".inV(){as:f, where:(age < 30)}, {class:Message, as:m}-HasCreator->{as:f} RETURN count(*) AS n",
+        lambda i: {"d": 40 if i == 0 else i},
+    ),
+    (
+        "MATCH {class:Person, as:p, where:(distance(lat, lng, :x, :y) < :r)} RETURN count(*) AS n",
+        lambda i: {"x": 48.0 + 0.25 * i, "y": 2.0, "r": 0.0 if i == 0 else 100.0 + 97.0 * i},
+    ),
+    (Q2P.replace("knows", "Knows"), lambda i: {"a": 90 if i == 0 else 30 + 2 * i, "b": 20 + 3 * i}),
+]
+
+
+@pytest.mark.parametrize("g", range(len(RECORD_GROUPS)), ids=["E1", "G1", "two_hop"])
+def test_record_graph_count_groups_equal_both_engines(monkeypatch, g):
+    """The three count groups on a graph with records: every lane equals
+    the port's single query, the reference's ``engine="tpu"`` and its
+    ``engine="oracle"`` (G1's radii stay clear of the float32 boundary
+    band by construction: the test checks it)."""
+    jdb = _geo_record_db(400, seed=g)
+    db, snap = snapshot_from_arrays(*_carry_arrays(jdb, jdb.current_snapshot()), device="cpu")
+    sql, params = RECORD_GROUPS[g]
+    plist = [params(i) for i in range(16)]
+    if g == 1:
+        lat = np.radians(snap.v_columns["lat"].values.astype(np.float64))
+        lng = np.radians(snap.v_columns["lng"].values.astype(np.float64))
+        for p in plist:
+            x, y = np.radians(p["x"]), np.radians(p["y"])
+            h = np.sin((lat - x) / 2) ** 2 + np.cos(x) * np.cos(lat) * np.sin((lng - y) / 2) ** 2
+            d = 12742.0 * np.arcsin(np.sqrt(h))
+            assert not (np.abs(d - p["r"]) < 0.01 + 1e-5 * p["r"]).any(), p
+    want = []
+    for p in plist:
+        o = jdb.query(sql, p, engine="oracle").to_dicts()
+        assert canonical_rows(jdb.query(sql, p, engine="tpu", strict=True).to_dicts()) == canonical_rows(o)
+        want.append(o)
+    assert want[0] == [{"n": 0}]
+    calls = _group(monkeypatch, db, snap, sql, plist, want)
+    assert calls["predicate_eval_lanes"] >= 1
+    if g == 1:  # a lane-varying root that is only counted
+        assert calls["mask_count_lanes"] == 1 and calls["weight_gather_lanes"] == 0
+
+
+def test_chip_smoke_lane_checks_run_on_the_cpu(person_knows):
+    """The card run's lane checks, on the CPU where both sides are plain
+    versions: K15's lane programs compile and equal their rows, and one
+    eager run of the two-hop group body records its lane forms' calls,
+    each equal to its single-lane calls lane by lane, with a bound."""
+    import chip_smoke
+
+    band, checked = chip_smoke.check_predicate_lanes(np, torch, K, 2_000, 3, device="cpu")
+    assert checked == 2 * len(chip_smoke.K15_LANE_WHERES) and band >= 0
+    _jdb, db, snap = person_knows
+    plist = [{"a": 30 + 2 * i, "b": 20 + 2 * i} for i in range(16)]
+    for _ in range(2):
+        db.query_batch([Q2P] * 16, plist)
+    (plan,) = [p for p in _plans(snap, Q2P) if p.group_replays]
+    stack = torch.from_numpy(np.stack([plan._dyn_args(p) for p in plist]))
+    calls = chip_smoke.lane_calls(torch, K, plan, stack)
+    assert {name for name, _a, _kw in calls} == {"predicate_eval_lanes", "weight_gather_lanes", "indptr_segment_sum_lanes"}
+    for name, a, kw in calls:
+        got = getattr(K, name)(*a, **kw)
+        for b in range(16):
+            assert torch.equal(got[b], chip_smoke._lane_single(K, name, a, kw, b))
+        nbytes, ops, sectors = chip_smoke._lane_bound(torch, name, a, kw)
+        assert nbytes > 0 and ops == 0 and sectors >= 0
