@@ -1,8 +1,9 @@
 """Times batch cells of one tree of the port on one CUDA card, so that one
 call can compare two trees on one card: the shared-batch cells BQ1 and BQ2
-(64 × Q1 or Q2, one shared replay) and the count group BG1 (G1 × 16, r =
-300 + 500·i) on the Person–knows graph A of ``chip_smoke.py`` (8M persons,
-~80M knows, seed 5), and the count group BE1 (E1 × 64, d = 12,000 + (211·i
+(64 × Q1 or Q2, one shared replay), the count group BG1 (G1 × 16, r =
+300 + 500·i) and the rows group BQ3 (Q3 × 16, k = 1000 + 62·i) on the
+Person–knows graph A of ``chip_smoke.py`` (8M persons, ~80M knows, seed
+5), and the count group BE1 (E1 × 64, d = 12,000 + (211·i
 mod 8,000): 4 chunks of 16 lanes) on its SNB-shape graph B (24M vertices,
 seed 7).
 
@@ -13,9 +14,12 @@ statistic, the sequential q/s, one batch's host split and the device's busy
 share with its top kernels (``chip_smoke.run_batch_cell``); then ``--reps``
 more readings of the batched q/s (each the q/s of 3 batches), printed sorted
 with their median; for a group cell each batched reading alternates with a
-reading of the same items as sequential ``db.query`` calls (one pass).
+reading of the same items as sequential ``db.query`` calls (one pass), and
+after each pair one more batch is split into its ``query_batch`` and its
+``to_dicts`` host ms; its captured group replay is timed alone (device ms
+a replay, CUDA events over 20 replays).
 
-    python3 batch_times.py [--tree DIR] [--reps N] [--cells BQ1,BQ2,BG1,BE1]
+    python3 batch_times.py [--tree DIR] [--reps N] [--cells BQ1,BQ2,BG1,BQ3,BE1]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
 package to time; it is imported before anything else, and the file it was
@@ -35,6 +39,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -91,21 +96,46 @@ def main() -> int:
             print(f"batch {name}: {args.reps} more readings, q/s batched {[round(q, 1) for q in qps]}, "
                   f"median {statistics.median(qps):.1f} [{card}]")
             return
-        bq, sq = [], []
-        for _ in range(args.reps):  # alternated: batched, then sequential
+        def split():
+            t0 = time.perf_counter()
+            rss = db.query_batch(cell.sqls, cell.plist)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for rs in rss:
+                rs.to_dicts()
+            return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+        bq, sq, qb, td = [], [], [], []
+        for _ in range(args.reps):  # alternated: batched, sequential, one batch's host split
             bq.append(cs._batch_qps(run, n_items, iters=3, reps=1))
             sq.append(cs._batch_qps(seq, n_items, iters=1, reps=1))
-        readings[name] = {"batched": sorted(bq), "sequential": sorted(sq)}
+            a, b = split()
+            qb.append(a)
+            td.append(b)
         g = max(plan.groups.items())[1]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            g.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        replay_ms = start.elapsed_time(end) / 20
+        readings[name] = {
+            "batched": sorted(bq), "sequential": sorted(sq), "query_batch ms": sorted(qb),
+            "to_dicts ms": sorted(td), "group replay ms": replay_ms,
+        }
         print(
             f"batch {name}: lane axis {getattr(plan, 'lane_axis', None)}, launches a group replay "
-            f"{sum(g.launches.values())}, {g.nodes} graph nodes, capture {g.capture_ms:.1f} ms; {args.reps} "
+            f"{sum(g.launches.values())}, {replay_ms:.4f} ms a group replay on the card, "
+            f"{g.nodes} graph nodes, capture {g.capture_ms:.1f} ms; {args.reps} "
             f"alternated readings, q/s batched {[round(q, 1) for q in sorted(bq)]} (median "
             f"{statistics.median(bq):.1f}), sequential {[round(q, 1) for q in sorted(sq)]} (median "
-            f"{statistics.median(sq):.1f}), x{statistics.median(bq) / statistics.median(sq):.2f} [{card}]"
+            f"{statistics.median(sq):.1f}), x{statistics.median(bq) / statistics.median(sq):.2f}; a batch's "
+            f"host split, query_batch {[round(x, 1) for x in sorted(qb)]} ms (median {statistics.median(qb):.1f}), "
+            f"to_dicts {[round(x, 1) for x in sorted(td)]} ms (median {statistics.median(td):.1f}) [{card}]"
         )
 
-    if {"BQ1", "BQ2", "BG1"} & set(cells):
+    if {"BQ1", "BQ2", "BG1", "BQ3"} & set(cells):
         db, snap = build_person_knows(8_000_000, avg_knows=10, seed=5, geo=True)
         device_graph(snap, db.device)
         torch.cuda.synchronize()
@@ -124,6 +154,11 @@ def main() -> int:
             g1 = [{"x": 48.0, "y": 2.0, "r": 300.0 + 500.0 * i} for i in range(16)]
             timed("BG1", db, cs.G1, g1, 16, lambda i, rows: gref.check("G1", rows, g1[i]), "group",
                   [(cs.G1, cs.G_CELLS["G1"][1])])
+        if "BQ3" in cells:
+            ks3 = [cs.Q3_K // 2 + cs.Q3_K // 32 * i for i in range(16)]  # 1000 + 62·i
+            q3_all = cs.numpy_q3_rows(np, snap, max(ks3))
+            check = cs._rows_check(np, "BQ3", lambda i: cs._below(q3_all, ks3[i]), ("p", "f", "g"))
+            timed("BQ3", db, cs.Q3, [{"k": k} for k in ks3], 16, check, "group", [(cs.Q3, {"k": max(ks3)})])
         TE._plan_cache(snap).clear()
         del db, snap
         gc.collect()

@@ -162,16 +162,21 @@ from the root of a checkout. Phases, each of which raises on failure:
    kept), BQ3o (BQ3 with lane 15 at k = 50,000: that lane alone
    re-records), BE1 (E1 × 64, `bench.py:372-377`: a count group of 16
    lanes in 4 chunks), BE2 (E2 × 16: a rows group with edge columns) and
-   BE5 (E5 × 8, K13 inside the lanes), and BG1 (G1 × 16, r = 300 + 500·i:
-   a count group). BG1 and BE1 must run on the lane axis
+   BE5 (E5 × 8, K13 inside the lanes), BG1 (G1 × 16, r = 300 + 500·i:
+   a count group) and BQD (the direct rows × 16, k = 100 − 4·i: a
+   direct-fetch group). BG1 and BE1 must run on the lane axis
    (``plan.lane_axis``: one replay over the 16 lanes' parameter stack, the
-   lane forms of K15, K5a, K4 and K5b inside it). Every item equals numpy
+   lane forms of K15, K5a, K4 and K5b inside it), and so must BQ3, BQD and
+   BQ3o's lanes 0–14 (the lane forms of K15, K5b, K3, K2, K2b, K5's lane
+   stride, K1 and K6/K7). Every item equals numpy
    (BG1 outside the band); K15 launches in both graphs' batch cells. The
-   lane forms are held at BG1's and BE1's shapes (each call of one eager
-   run of the group body) against their plain versions and, lane by lane,
-   against the single-lane kernels, and timed eager and in a graph beside
-   their bounds and beside B single-lane launches; each group's captured
-   replay is timed. Each cell
+   lane forms are held at BG1's, BE1's and BQ3's shapes (each call of one
+   eager run of the group body) against their plain versions and, lane by
+   lane, against the single-lane kernels, and timed eager and in a graph
+   beside their bounds and beside B single-lane launches; each group's
+   captured replay is timed, and BQ3's group is captured anew on the lane
+   axis and lane after lane in the same run: each route's launches, graph
+   nodes, capture peak bytes and device ms a replay side by side. Each cell
    prints its path, each group's capture ms, graph nodes, launches per
    group replay and reserved bytes, its batch q/s (the reference's
    statistic, `bench.py:273`) beside the same items as sequential
@@ -362,18 +367,40 @@ REPLACES = {
     "weight_gather_lanes_i32": "orientdb_tpu/exec/tpu_engine.py:3436",
     "segment_sum_lanes_i32": "orientdb_tpu/exec/tpu_engine.py:3436",
     "mask_count_lanes": "orientdb_tpu/exec/tpu_engine.py:3436",
+    # a rows group's lane forms under the same vmap: K1 (the front-pack's
+    # ranks), K3, K2, K2b, K5's lane stride, K6 and K7
+    "scan_lanes_i32": "orientdb_tpu/ops/csr.py:129",
+    "compact_indices_lanes": "orientdb_tpu/ops/csr.py:185",
+    "degree_scan_lanes_i32": "orientdb_tpu/ops/csr.py:39",
+    "gather_expand_lanes": "orientdb_tpu/ops/csr.py:54",
+    "take_pad_lanes": "orientdb_tpu/ops/csr.py:211",
+    "front_pack_lanes": "orientdb_tpu/exec/tpu_engine.py:3030",
+    "replay_meta_lanes": "orientdb_tpu/exec/tpu_engine.py:3041",
 }
 BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop_csr", "bitmap_emit", "frontier_advance"]
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
 #: the lane forms of K15, K5a, K4 and K5b, which a count group on the lane
-#: axis runs (phase 7: BG1 and BE1), and their wrappers in ops/csr.py
-LANE_KERNELS = ("predicate_eval_lanes", "weight_gather_lanes_i32", "segment_sum_lanes_i32", "mask_count_lanes")
+#: axis runs (phase 7: BG1 and BE1), and of K1, K3, K2, K2b, K5's lane
+#: stride, K6 and K7, which a rows group on the lane axis runs (BQ3, BQD)
+#: with K15's and K5b's; their wrappers in ops/csr.py (`take_pad` with a
+#: lane-stacked table: its lane stride)
+ROWS_LANE_FORMS = {
+    "value_cumsum_lanes": "scan_lanes_i32",
+    "compact_indices_lanes": "compact_indices_lanes",
+    "expand_offsets_lanes": "degree_scan_lanes_i32",
+    "gather_expand_lanes": "gather_expand_lanes",
+    "take_pad": "take_pad_lanes",
+    "front_pack_lanes": "front_pack_lanes",
+    "replay_meta_lanes": "replay_meta_lanes",
+}
 LANE_FORMS = {
     "predicate_eval_lanes": "predicate_eval_lanes",
     "weight_gather_lanes": "weight_gather_lanes_i32",
     "indptr_segment_sum_lanes": "segment_sum_lanes_i32",
     "mask_count_lanes": "mask_count_lanes",
+    **ROWS_LANE_FORMS,
 }
+LANE_KERNELS = tuple(dict.fromkeys(LANE_FORMS.values()))
 #: the kernels only the batch path launches (phase 7)
 BATCH_ONLY = ("group_page",) + LANE_KERNELS
 #: the kernels only a delta-maintained snapshot launches (phase 8: on dirty
@@ -3359,7 +3386,19 @@ def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big, gref):
     )
     (q3,) = _cell_plans(TE, snap, [Q3])
     _require(q3._rows_grouped() and 16 in q3.groups, "BQ3 is not a rows group of 16 lanes")
+    _require(q3.lane_axis, "BQ3 did not run on the lane axis")
     check_group_page(torch, K, ks, q3.groups[16].out["data"], q3, ks3, q3_big)
+    check_lane_kernels(np, torch, K, ks, q3, q3.groups[16].stack.clone(), "BQ3", card, forms=ROWS_LANE_FORMS)
+    compare_group_routes(torch, K, q3, q3.groups[16].stack.cpu().numpy(), "BQ3", card)
+    # BQD: a direct-fetch group (Q_DIRECT × 16), its pages and meta rows
+    # written straight into the group's direct stack
+    kd = [Q_DIRECT_K - 4 * i for i in range(16)]
+    bqd = BatchCell("BQD", [Q_DIRECT] * 16, [{"k": k} for k in kd],
+                    _rows_check(np, "BQD", lambda i: numpy_direct_rows(np, snap, kd[i]), ("p", "f")), "group",
+                    warm=[(Q_DIRECT, {"k": max(kd)})])
+    ((qd, _dr, _dg),) = run_batch_cell(torch, K, TE, db, snap, card, bqd)
+    done.append(bqd)
+    _require(qd.direct_fetch and qd.lane_axis and 16 in qd.groups, "BQD is not a direct-fetch group on the lane axis")
     for cell in (
         BatchCell("BV2", [V2] * 8, [{"k": k} for k in kv],
                   _rows_check(np, "BV2", lambda i: _below(v2_all, kv[i]), ("p", "f", "d")), "group",
@@ -3394,6 +3433,7 @@ def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big, gref):
     plist = [{"k": k} for k in ks_o]
     done.append(BatchCell("BQ3o", [Q3] * 16, plist,
                           _rows_check(np, "BQ3o", lambda i: _below(q3_big, ks_o[i]), ("p", "f", "g")), None))
+    g3 = q3.group_replays
     run_batch_cell(torch, K, TE, db, snap, card, done[-1], timed=False)
     variants = _only_plan(TE, snap, Q3)
     _require(
@@ -3401,11 +3441,59 @@ def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big, gref):
         and all(variants.pick(p) is q3 for p in plist[:15]) and variants.pick(plist[15]) is variants.plans[0],
         "BQ3o: lane 15 did not re-record alone",
     )
+    _require(q3.group_replays == g3 + 1 and q3.lane_axis, "BQ3o: lanes 0-14 did not run as one lane-axis group")
     print(
         f"batch BQ3o: lane 15 (k={Q3_K_OVERFLOW}) overflowed and recorded a second variant "
         f"(width {variants.plans[0].width} vs {q3.width}); lanes 0-14 kept their rows from the group"
     )
     return max(c.peak_bytes for c in done)
+
+
+def compare_group_routes(torch, K, plan, host, cell, card, reps: int = 20):
+    """The group replay of ``plan`` captured anew on each route, the lane
+    axis then lane after lane, on the parameter stack ``host`` (numpy [B,
+    P]): each capture's peak device bytes above what was allocated before
+    it (the eager warm-up run included), its launches, graph nodes, and
+    its device ms a replay (CUDA events over ``reps`` replays), side by
+    side; both routes' meta rows and pages must agree. The plan keeps its
+    own groups and route; these launches are not counted."""
+    counted = dict(K.LAUNCHES)
+    saved = plan.groups, plan.lane_axis
+    B = host.shape[0]
+    outs, line = {}, []
+    try:
+        for route in (True, False):
+            plan.groups, plan.lane_axis = {}, route
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            g = plan._group_replay(B, host)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            g.graph.replay()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                g.graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            outs[route] = {k: v.clone() for k, v in g.out.items()}
+            line.append(
+                f"{'lane axis' if route else 'lane after lane'} {start.elapsed_time(end) / reps:.4f} ms a replay, "
+                f"{sum(g.launches.values())} launches, {g.nodes} graph nodes, capture peak {peak} bytes"
+            )
+            del g
+    finally:
+        plan.groups, plan.lane_axis = saved
+        K.LAUNCHES.update(counted)
+    meta = outs[True].get("meta", outs[True].get("direct"))
+    _require(torch.equal(meta, outs[False].get("meta", outs[False].get("direct"))), f"{cell}: routes' meta rows differ")
+    if "data" in outs[True]:
+        for b in range(B):
+            n = int(meta[b, 0])
+            _require(torch.equal(outs[True]["data"][b, :n], outs[False]["data"][b, :n]), f"{cell}: lane {b} differs")
+    print(f"group replay {cell} ({B} lanes), same run: {'; '.join(line)} [{card}]")
 
 
 def check_group_page(torch, K, ks, stack, plan, ks3, q3_big):
@@ -3466,15 +3554,16 @@ def check_group_page(torch, K, ks, stack, plan, ks3, q3_big):
 def lane_calls(torch, K, plan, stack):
     """One eager run of ``plan``'s group body on the lane axis over the
     parameter stack ``stack``, recording each lane form's arguments (the
-    shapes the main path gives it) in call order; its launches are not
-    counted."""
+    shapes the main path gives it) in call order (`take_pad`'s only with a
+    lane-stacked table: its lane stride); its launches are not counted."""
     counted = dict(K.LAUNCHES)
     calls = []
     orig = {name: getattr(K, name) for name in LANE_FORMS}
 
     def spy(name):
         def call(*a, **kw):
-            calls.append((name, a, kw))
+            if name != "take_pad" or a[0].dim() == 2:
+                calls.append((name, a, kw))
             return orig[name](*a, **kw)
 
         return call
@@ -3492,8 +3581,48 @@ def lane_calls(torch, K, plan, stack):
     return calls
 
 
+def _lane_plain(K, name, a, kw):
+    """A lane form's call through its plain version (an ``out`` dropped)."""
+    if name == "take_pad":
+        return K.plain_take_pad_lanes(*a, **kw)
+    if name in ("front_pack_lanes", "replay_meta_lanes"):
+        return getattr(K, "plain_" + name)(*a[: 2 if name == "front_pack_lanes" else 3])
+    return getattr(K, "plain_" + name)(*a, **kw)
+
+
+def _lane_of(got, b):
+    """Lane ``b`` of a lane form's result (each tensor of a tuple)."""
+    return tuple(g[b] for g in got) if isinstance(got, tuple) else got[b]
+
+
+def _lane_equal(torch, got, single) -> bool:
+    got = got if isinstance(got, tuple) else (got,)
+    single = single if isinstance(single, tuple) else (single,)
+    return len(got) == len(single) and all(torch.equal(g, w) for g, w in zip(got, single))
+
+
 def _lane_single(K, name, a, kw, b):
     """Lane ``b`` of a lane form's call as the single-lane wrapper's call."""
+    if name == "value_cumsum_lanes":
+        return K.value_cumsum(a[0][b])
+    if name == "compact_indices_lanes":
+        mask, out_size = a
+        return K.compact_indices(mask[b], out_size)
+    if name == "expand_offsets_lanes":
+        indptr, srcs = a
+        return K.expand_offsets(indptr, srcs[b])
+    if name == "gather_expand_lanes":
+        indptr, nbrs, srcs, offsets, total, out_size, *emap = a
+        return K.gather_expand(indptr, nbrs, srcs[b], offsets[b], total[b], out_size, *emap, **kw)
+    if name == "take_pad":
+        values, idx, fill = a
+        return K.take_pad(values[b], idx[b], fill)
+    if name == "front_pack_lanes":
+        valid, cols = a[:2]
+        return K.front_pack(valid[b], [c[b] for c in cols])
+    if name == "replay_meta_lanes":
+        data, count, overflow = a[:3]
+        return K.replay_meta(data[b], count[b], overflow[b])
     if name == "predicate_eval_lanes":
         prog, bufs, ids, n, n_valid, base, depth, params = a
         return K.predicate_eval(prog, bufs, ids, n, n_valid, base, depth, params[b])
@@ -3538,32 +3667,93 @@ def _lane_bound(torch, name, a, kw):
     if name == "indptr_segment_sum_lanes":
         vals, indptr, out_size = a
         return 4.0 * vals.numel() + 4.0 * indptr.numel() + 4.0 * vals.shape[0] * out_size, 0.0, 0
+    if name == "value_cumsum_lanes":
+        return 8.0 * a[0].numel(), 0.0, 0
+    if name == "compact_indices_lanes":
+        mask, out_size = a
+        return float(mask.numel()) + 4.0 * mask.shape[0] * out_size, 0.0, 0
+    if name == "expand_offsets_lanes":
+        # each source read, a live source's two indptr entries, each offset
+        # and total written
+        _indptr, srcs = a
+        live = int((srcs >= 0).sum())
+        return 8.0 * srcs.numel() + 8.0 * live + 4.0 * srcs.shape[0], 0.0, live
+    if name == "gather_expand_lanes":
+        # `expand_bounds`' gather a lane: 12 bytes a source, a neighbour (and
+        # an edge-map entry) a live slot, 12 bytes a bucket slot written
+        _ip, _nb, srcs, _off, total, size, *emap = a
+        mapped = bool(emap and emap[0] is not None) or kw.get("edge_map") is not None
+        live = int(total.clamp(0, size).sum())
+        nbytes = 12.0 * srcs.numel() + (8.0 if mapped else 4.0) * live + 12.0 * srcs.shape[0] * size
+        return nbytes, 0.0, live * (2 if mapped else 1)
+    if name == "take_pad":
+        values, idx, _fill = a
+        live = int((idx >= 0).sum())
+        elt = values.element_size()
+        return 4.0 * idx.numel() + elt * idx.numel() + min(values.numel(), live) * elt, 0.0, live
+    if name == "front_pack_lanes":
+        valid, cols = a[:2]
+        return 4.0 * valid.numel() * (1 + 2 * len(cols)), 0.0, 0
+    if name == "replay_meta_lanes":
+        data, count = a[:2]
+        rows = int(count.clamp(0, data.shape[1]).sum())
+        return 4.0 * rows * data.shape[2] + 12.0 * data.shape[0], 0.0, 0
     mask = a[0]
     return float(mask.numel()) + 4.0 * mask.shape[0], 0.0, 0
 
 
-def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None):
-    """The lane forms at ``cell``'s shapes (BE1's or BG1's lanes): each
+def _lane_library(torch, name, a):
+    """The one PyTorch call that computes a lane form's function on the same
+    inputs, as the single rows' yardsticks do (`torch.cumsum`, `torch.gather`
+    on the clamped lane-local index, `torch.nonzero`, `torch.count_nonzero`,
+    `torch.segment_reduce` along the lanes' edges), or None where no single
+    call computes it (K2's sizing, K2b's merge path, K6, K7, K15, K5a)."""
+    if name == "value_cumsum_lanes":
+        vals = a[0]
+        return lambda: torch.cumsum(vals, 1, dtype=vals.dtype)
+    if name == "take_pad":
+        values, idx, _fill = a
+        ix = idx.clamp(0, max(values.shape[1] - 1, 0)).long()
+        return lambda: torch.gather(values, 1, ix)
+    if name == "compact_indices_lanes":
+        mask = a[0]
+        return lambda: torch.nonzero(mask)
+    if name == "mask_count_lanes":
+        mask = a[0]
+        return lambda: torch.count_nonzero(mask, dim=1)
+    if name == "indptr_segment_sum_lanes":
+        vals, indptr, _out_size = a
+        offsets = indptr.expand(vals.shape[0], -1).contiguous()
+        return lambda: torch.segment_reduce(vals, "sum", offsets=offsets, axis=1)
+    return None
+
+
+def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None, forms=None):
+    """The lane forms at ``cell``'s shapes (BE1's, BG1's or BQ3's lanes;
+    ``forms`` the wrappers to hold, default all): each
     call of one eager run of the plan's lane-axis group body (`lane_calls`)
     held against its plain version (int32 and bool exactly; a distance()
-    mask outside the boundary band, ``band_of(lane, slots)``) and, lane by
-    lane, against the single-lane kernel exactly; each form's largest call
-    timed eager and in a captured graph beside its bound (bytes, or a
-    distance() mask's operations) and beside B single-lane launches; then
+    mask outside the boundary band, ``band_of(lane, slots)``), which decides
+    correctness, and, lane by lane, against the single-lane wrapper exactly
+    (for K1, K2, K2b, K3, K6 and K7 that is the same kernel at one lane: it
+    checks only the lane offsets); each form's largest call timed eager and
+    in a captured graph beside its bound (bytes, or a distance() mask's
+    operations), its library call and B single-lane launches; then
     the group's captured replay timed (device ms a replay of all its
     lanes). Returns the lane forms' rows; their launches are not counted."""
     counted = dict(K.LAUNCHES)
-    calls = lane_calls(torch, K, plan, stack)
+    calls = [c for c in lane_calls(torch, K, plan, stack) if forms is None or c[0] in forms]
     _require(calls, f"{cell}: the group body ran no lane form")
+    _require(forms is None or {c[0] for c in calls} == set(forms), f"{cell}: lane forms {forms} did not all run")
     B = stack.shape[0]
     largest = {}
     for name, a, kw in calls:
         got = getattr(K, name)(*a, **kw)
-        want = getattr(K, "plain_" + name)(*a, **kw)
+        want = _lane_plain(K, name, a, kw)
         kname = LANE_FORMS[name]
         singles = [_lane_single(K, name, a, kw, b) for b in range(B)]
         _require(
-            all(torch.equal(got[b], singles[b]) for b in range(B)),
+            all(_lane_equal(torch, _lane_of(got, b), singles[b]) for b in range(B)),
             f"{cell}: {name} differs from the single-lane kernel lane by lane",
         )
         if band_of is not None and name == "predicate_eval_lanes":
@@ -3573,7 +3763,7 @@ def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None):
                 _require(bool(band_of(b, slots).all()), f"{cell}: {name} lane {b} differs outside the band")
         else:
             ks.same(kname, got, want)
-        size = got.numel()
+        size = (got[0] if isinstance(got, tuple) else got).numel()
         if size >= largest.get(name, (0,))[0]:
             largest[name] = (size, a, kw)
         del got, want, singles
@@ -3581,24 +3771,26 @@ def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None):
     for name, (_size, a, kw) in largest.items():
         kname = LANE_FORMS[name]
         kernel = lambda n=name, a=a, kw=kw: getattr(K, n)(*a, **kw)  # noqa: E731
-        plain = lambda n=name, a=a, kw=kw: getattr(K, "plain_" + n)(*a, **kw)  # noqa: E731
+        plain = lambda n=name, a=a, kw=kw: _lane_plain(K, n, a, kw)  # noqa: E731
 
         def singles(n=name, a=a, kw=kw):
             for b in range(B):
                 _lane_single(K, n, a, kw, b)
 
         nbytes, ops, sectors = _lane_bound(torch, name, a, kw)
-        ks.timed(kname, kernel, plain, None, nbytes, ops)
+        ks.timed(kname, kernel, plain, _lane_library(torch, name, a), nbytes, ops)
         row = dict(ks.rows[kname])
         row["graph_ms"] = _graph_ms(torch, kernel)
         row["singles_ms"] = _time_ms(torch, singles)
         row["singles_graph_ms"] = _graph_ms(torch, singles)
         rows[kname] = row
         shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
+        if name == "front_pack_lanes":
+            shapes += [f"{len(a[1])} columns"]
         print(
             f"kernel {kname} at {cell}'s shape {shapes}: {row['ms']:.4f} ms eager, {row['graph_ms']:.4f} in a "
             f"graph; {B} single-lane launches {row['singles_ms']:.4f} / {row['singles_graph_ms']:.4f}; plain "
-            f"{row['plain_ms']:.4f}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}); random 32-byte "
+            f"{row['plain_ms']:.4f}; library {row['library_ms']}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}); random 32-byte "
             f"sectors {sectors} [{card}]"
         )
     g = plan.groups[B]
@@ -3610,10 +3802,14 @@ def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None):
         g.graph.replay()
     end.record()
     torch.cuda.synchronize()
+    # the group's own bound: every lane-form call of one replay at its bytes
+    # (each at 3.35 TB/s; K15's shared masks over flattened ids not counted)
+    group_bytes = sum(_lane_bound(torch, n, a, kw)[0] for n, a, kw in lane_calls(torch, K, plan, stack))
     print(
         f"group replay {cell}: lane axis {plan.lane_axis}, {B} lanes, {start.elapsed_time(end) / 10:.4f} ms a "
         f"replay, {sum(g.launches.values())} launches {g.launches}, {g.nodes} graph nodes, capture "
-        f"{g.capture_ms:.1f} ms, reserved after the capture {g.reserved_bytes} bytes [{card}]"
+        f"{g.capture_ms:.1f} ms, reserved after the capture {g.reserved_bytes} bytes; its lane-form calls' "
+        f"bound {group_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({group_bytes:.0f} bytes) [{card}]"
     )
     K.LAUNCHES.update(counted)
     return rows

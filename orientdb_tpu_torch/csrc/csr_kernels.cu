@@ -284,6 +284,15 @@ scan_lookback_kernel(const T* __restrict__ in, T* __restrict__ out, T* __restric
   __shared__ unsigned s_tile;
   __shared__ T s_warp[kWarps];
   __shared__ T s_prefix;
+  {
+    // the lane form: grid row y scans lane y of [lanes, n], on its own
+    // look-back state (a counter and a word a tile) and into its own total
+    const long long y = blockIdx.y;
+    in += y * n;
+    if (out != nullptr) out += y * n;
+    if (total != nullptr) total += y;
+    state += y * ((n + kTileN - 1) / kTileN + 1);
+  }
   const unsigned tile = lb_tile(state, &s_tile);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -352,18 +361,23 @@ __device__ T block_exclusive_scan(T v, T* warp_sums) {
 // word a tile.
 inline long long lb_state_bytes(long long tiles) { return 8 * (tiles + 1); }
 
+// `lanes` rows of n values each (lane-major), a look-back chain a lane:
+// the one memset empties every lane's state, and a lane's tiles wait only
+// on that lane's (its own counter hands them out).
 template <typename T>
 cudaError_t scan_lookback(const T* in, T* out, T* total, long long n,
-                          unsigned long long* state, int exclusive, cudaStream_t s) {
+                          unsigned long long* state, int exclusive, cudaStream_t s,
+                          long long lanes = 1) {
+  if (lanes <= 0) return cudaSuccess;
   if (n <= 0) {
-    return total != nullptr ? cudaMemsetAsync(total, 0, sizeof(T), s) : cudaSuccess;
+    return total != nullptr ? cudaMemsetAsync(total, 0, lanes * sizeof(T), s) : cudaSuccess;
   }
   const long long tiles = (n + kScanTile - 1) / kScanTile;
-  cudaError_t e = cudaMemsetAsync(state, 0xff, lb_state_bytes(tiles), s);
+  cudaError_t e = cudaMemsetAsync(state, 0xff, lanes * lb_state_bytes(tiles), s);
   if (e != cudaSuccess) return e;
   const int vec_ok = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  scan_lookback_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0 && (lanes == 1 || n % 4 == 0);
+  scan_lookback_kernel<T><<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(lanes)), kThreads, 0, s>>>(
       in, out, total, n, state, exclusive, vec_ok);
   return cudaGetLastError();
 }
@@ -449,6 +463,15 @@ degree_scan_kernel(const Span span, const int* __restrict__ srcs,
   __shared__ unsigned s_tile;
   __shared__ unsigned s_warp[kWarps];
   __shared__ unsigned s_prefix;
+  {
+    // the lane form: grid row y takes lane y's k sources of [lanes, k]
+    // into its offsets and total, on its own look-back state
+    const long long y = blockIdx.y;
+    srcs += y * k;
+    offsets += y * k;
+    total += y;
+    state += y * ((k + kDegTile - 1) / kDegTile + 1);
+  }
   const unsigned tile = lb_tile(state, &s_tile);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -631,6 +654,17 @@ gather_expand_kernel(const Gather gather, const int* __restrict__ srcs,
   __shared__ typename Gather::Row s_base[kExpandTile + 1];  // gather.row(r, srcs[r]) of the same rows
   __shared__ int s_row[kExpandTile];       // a slot's row, as its index in the two above
   __shared__ long long s_split[2];
+  {
+    // the lane form: grid row y expands lane y's k sources and offsets of
+    // [lanes, k] by its total into its row of the [lanes, out_size] outputs
+    const long long y = blockIdx.y;
+    srcs += y * k;
+    offsets += y * k;
+    total += y;
+    row_out += y * out_size;
+    pos_out += y * out_size;
+    nbr_out += y * out_size;
+  }
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const long long t = k > 0 ? static_cast<long long>(__ldg(total)) : 0;
@@ -741,6 +775,14 @@ compact_lookback_kernel(const unsigned char* __restrict__ mask, long long n, lon
   __shared__ unsigned s_warp[kWarps];
   __shared__ unsigned s_prefix;
   __shared__ int s_stage[kWarps][32 * 16];  // a warp's kept indices of one load
+  {
+    // the lane form: grid row y compacts lane y of a [lanes, n] mask into
+    // its row of the [lanes, out_size] output, on its own look-back state
+    const long long y = blockIdx.y;
+    mask += y * n;
+    out += y * out_size;
+    state += y * ((n + kTileN - 1) / kTileN + 1);
+  }
   const unsigned tile = lb_tile(state, &s_tile);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -1240,9 +1282,22 @@ __device__ inline T take_one(const T* __restrict__ vals, long long n, int i, T f
   return ld_table(vals + c, policy, go, fill);
 }
 
+// The table that index j reads: `vals` itself, or with a lane stride
+// (`lane_m` > 0: the index is a [lanes, lane_m] stack of lane-local rows)
+// lane j / lane_m's table of n values at vals + lane * stride.
+template <typename T>
+struct TakeTable {
+  const T* vals;
+  long long lane_m;
+  long long stride;
+  __device__ __forceinline__ const T* at(long long j) const {
+    return lane_m > 0 ? vals + (j / lane_m) * stride : vals;
+  }
+};
+
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    take_pad_kernel(const T* __restrict__ vals, long long n, const int* __restrict__ idx,
+    take_pad_kernel(const TakeTable<T> tab, long long n, const int* __restrict__ idx,
                     long long m, T fill, bool keep, T* __restrict__ out) {
   constexpr int kRun = kTakeRun, kUnits = kRun / 4;
   const unsigned long long policy = l2_policy(keep);
@@ -1266,7 +1321,9 @@ __global__ void __launch_bounds__(kThreads)
       }
       T r[kRun];
 #pragma unroll
-      for (int e = 0; e < kRun; ++e) r[e] = take_one(vals, n, ix[e], fill, policy);
+      for (int e = 0; e < kRun; ++e) {
+        r[e] = take_one(tab.at(4 * (u0 + 32 * (e / 4)) + e % 4), n, ix[e], fill, policy);
+      }
 #pragma unroll
       for (int k = 0; k < kUnits; ++k) {
         const long long u = u0 + 32 * k;
@@ -1281,7 +1338,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     // the tail after the aligned body
     const long long j = t - tv + 4 * nv;
-    if (j < m) out[j] = take_one(vals, n, __ldcs(idx + j), fill, policy);
+    if (j < m) out[j] = take_one(tab.at(j), n, __ldcs(idx + j), fill, policy);
   } else {
     const long long j0 = (t >> 5) * 32 * kRun + lane;
     int ix[kRun];
@@ -1292,7 +1349,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     T r[kRun];
 #pragma unroll
-    for (int k = 0; k < kRun; ++k) r[k] = take_one(vals, n, ix[k], fill, policy);
+    for (int k = 0; k < kRun; ++k) r[k] = take_one(tab.at(j0 + 32 * k), n, ix[k], fill, policy);
 #pragma unroll
     for (int k = 0; k < kRun; ++k) {
       const long long j = j0 + 32 * k;
@@ -1682,12 +1739,18 @@ struct ColPtrs {
 __global__ void front_pack_kernel(const int* __restrict__ valid,
                                   const int* __restrict__ ranks, long long w,
                                   ColPtrs cols, int ncols, int col0, int stride,
-                                  int* __restrict__ out) {
+                                  int* __restrict__ out, long long out_lane) {
+  // the lane form: grid row y packs lane y of [lanes, w] valid masks,
+  // ranks and columns into the [w, stride] rows at out + y * out_lane
+  const long long y = blockIdx.y;
+  valid += y * w;
+  ranks += y * w;
+  out += y * out_lane;
   long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= w) return;
   if (valid[t] != 0) {
     long long r = static_cast<long long>(ranks[t]) - 1;
-    for (int c = 0; c < ncols; ++c) out[r * stride + col0 + c] = cols.p[c][t];
+    for (int c = 0; c < ncols; ++c) out[r * stride + col0 + c] = cols.p[c][y * w + t];
   }
   if (t >= static_cast<long long>(ranks[w - 1])) {
     for (int c = 0; c < ncols; ++c) out[t * stride + col0 + c] = -1;
@@ -1709,7 +1772,14 @@ constexpr int kMetaThreads = 1024;
 __global__ void replay_meta_kernel(const int* __restrict__ data, long long w,
                                    int ncols, const int* __restrict__ count,
                                    const int* __restrict__ overflow,
-                                   int* __restrict__ out) {
+                                   int* __restrict__ out, long long data_lane, long long out_lane) {
+  // the lane form: block b writes lane b's row from its [w, ncols] page at
+  // data + b * data_lane, its count and its flag, to out + b * out_lane
+  const long long b = blockIdx.x;
+  data += b * data_lane;
+  count += b;
+  overflow += b;
+  out += b * out_lane;
   long long n = *count;
   if (n < 0) n = 0;
   if (n > w) n = w;
@@ -4522,10 +4592,10 @@ int launch_shard_weight_pass(const void* ind, long long r, long long s_local, lo
 
 template <typename T>
 int launch_take_pad(const void* vals, long long n, const void* idx, long long m, T fill, int keep, void* out,
-                    void* stream) {
+                    void* stream, long long lane_m = 0, long long stride = 0) {
   if (m > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const T* v = static_cast<const T*>(vals);
+    const TakeTable<T> v{static_cast<const T*>(vals), lane_m, stride};
     const int* i = static_cast<const int*>(idx);
     T* d = static_cast<T*>(out);
     if constexpr (sizeof(T) == 4) {
@@ -4654,6 +4724,16 @@ int csr_scan_f32(const void* in, void* out, void* total, long long n, void* stat
       static_cast<unsigned long long*>(state), exclusive, static_cast<cudaStream_t>(stream)));
 }
 
+// K1's lane form: `lanes` rows of n values (lane-major) scanned a row each,
+// one memset of `lanes` look-back states (csr_scan_scratch(n) bytes a lane)
+// and one launch; `total` (optional) takes a sum a lane.
+int csr_scan_lanes_i32(const void* in, void* out, void* total, long long n, long long lanes, void* state,
+                       int exclusive, void* stream) {
+  return static_cast<int>(scan_lookback<unsigned>(
+      static_cast<const unsigned*>(in), static_cast<unsigned*>(out), static_cast<unsigned*>(total), n,
+      static_cast<unsigned long long*>(state), exclusive, static_cast<cudaStream_t>(stream), lanes));
+}
+
 int csr_degree_counts(const void* indptr, long long nv, const void* srcs,
                       long long k, void* out, void* stream) {
   if (k > 0) {
@@ -4670,58 +4750,68 @@ long long csr_degree_scan_scratch(long long k) {
   return lb_state_bytes(k > 0 ? (k + kDegTile - 1) / kDegTile : 0);
 }
 
-// K2: the exclusive offsets of the sources' degrees and their total (a
-// device int32), after one memset of `state`.
-int csr_degree_scan_i32(const void* indptr, long long nv, const void* srcs, long long k,
-                        void* offsets, void* total, void* state, void* stream) {
+// K2: lane y's k sources of [lanes, k] into the exclusive offsets of their
+// degrees and their total (of [lanes], device int32s), one memset of every
+// lane's state (csr_degree_scan_scratch(k) bytes a lane) and one launch; a
+// single call is one lane.
+int csr_degree_scan_lanes_i32(const void* indptr, long long nv, const void* srcs, long long k,
+                              long long lanes, void* offsets, void* total, void* state, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 0) return static_cast<int>(cudaMemsetAsync(total, 0, sizeof(int), s));
+  if (lanes <= 0) return static_cast<int>(cudaGetLastError());
+  if (k <= 0) return static_cast<int>(cudaMemsetAsync(total, 0, lanes * sizeof(int), s));
   const long long tiles = (k + kDegTile - 1) / kDegTile;
-  cudaError_t e = cudaMemsetAsync(state, 0xff, lb_state_bytes(tiles), s);
+  cudaError_t e = cudaMemsetAsync(state, 0xff, lanes * lb_state_bytes(tiles), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int vec_ok = aligned16(srcs) && aligned16(offsets);
-  degree_scan_kernel<CsrSpan><<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+  const int vec_ok = aligned16(srcs) && aligned16(offsets) && (lanes == 1 || k % 4 == 0);
+  degree_scan_kernel<CsrSpan><<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(lanes)), kThreads, 0, s>>>(
       CsrSpan{static_cast<const unsigned*>(indptr), nv}, static_cast<const int*>(srcs), k,
       static_cast<unsigned*>(offsets), static_cast<unsigned*>(total),
       static_cast<unsigned long long*>(state), vec_ok);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2b. `edge_map` (nm entries) is optional: null writes the edge position.
-int csr_gather_expand(const void* indptr, long long nv, const void* nbrs,
-                      long long ne, const void* srcs, const void* offsets,
-                      long long k, const void* total, long long out_size,
-                      const void* edge_map, long long nm,
-                      void* row_out, void* pos_out, void* nbr_out, void* stream) {
-  if (out_size > 0) {
-    const int vec = aligned16(row_out) && aligned16(pos_out) && aligned16(nbr_out);
+// K2b: lane y's k sources and offsets of [lanes, k] and its total into row
+// y of the [lanes, out_size] outputs (a single call is one lane); the CSR
+// and `edge_map` are shared. `edge_map` (nm entries) is optional: null
+// writes the edge position.
+int csr_gather_expand_lanes(const void* indptr, long long nv, const void* nbrs, long long ne,
+                            const void* srcs, const void* offsets, long long k, long long lanes,
+                            const void* total, long long out_size, const void* edge_map, long long nm,
+                            void* row_out, void* pos_out, void* nbr_out, void* stream) {
+  if (out_size > 0 && lanes > 0) {
+    const int vec = aligned16(row_out) && aligned16(pos_out) && aligned16(nbr_out) && (lanes == 1 || out_size % 4 == 0);
     const CsrGather g{static_cast<const int*>(indptr), nv, static_cast<const int*>(nbrs), ne,
                       static_cast<const int*>(edge_map), nm};
-    gather_expand_kernel<CsrGather><<<blocks_for(k + out_size, kExpandTile), kThreads, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-        g, static_cast<const int*>(srcs), static_cast<const int*>(offsets), k,
-        static_cast<const int*>(total), out_size, static_cast<int*>(row_out),
-        static_cast<int*>(pos_out), static_cast<int*>(nbr_out), vec);
+    gather_expand_kernel<CsrGather>
+        <<<dim3(blocks_for(k + out_size, kExpandTile), static_cast<unsigned>(lanes)), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            g, static_cast<const int*>(srcs), static_cast<const int*>(offsets), k,
+            static_cast<const int*>(total), out_size, static_cast<int*>(row_out),
+            static_cast<int*>(pos_out), static_cast<int*>(nbr_out), vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3. The fill form (`fill` 1) needs `state` right behind the out_size
-// slots of `out` in one allocation: one memset of 0xFF bytes covers both.
-int csr_compact(const void* mask, long long n, long long out_size, void* out, void* state,
-                int fill, void* stream) {
+// K3: lane y of a [lanes, n] mask into row y of the [lanes, out_size]
+// output (a single call is one lane). The fill form (`fill` 1) needs the
+// lanes' states (csr_compact_scratch(n) bytes a lane) right behind the
+// lanes * out_size slots in one allocation: one memset of 0xFF bytes covers
+// all of them.
+int csr_compact_lanes(const void* mask, long long n, long long lanes, long long out_size, void* out,
+                      void* state, int fill, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (lanes <= 0) return static_cast<int>(cudaGetLastError());
   const long long tiles = n > 0 ? (n + kCompactTile - 1) / kCompactTile : 0;
   char* lo = static_cast<char*>(fill ? out : state);
-  char* hi = static_cast<char*>(state) + lb_state_bytes(tiles);
-  if (fill && static_cast<char*>(state) < static_cast<char*>(out) + 4 * out_size) {
+  char* hi = static_cast<char*>(state) + lanes * lb_state_bytes(tiles);
+  if (fill && static_cast<char*>(state) < static_cast<char*>(out) + 4 * lanes * out_size) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = cudaMemsetAsync(lo, 0xff, hi - lo, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (n > 0 && out_size > 0) {
-    const int vec_ok = reinterpret_cast<uintptr_t>(mask) % 16 == 0;
-    compact_lookback_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
+    const int vec_ok = reinterpret_cast<uintptr_t>(mask) % 16 == 0 && (lanes == 1 || n % 16 == 0);
+    compact_lookback_kernel<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(lanes)), kThreads, 0, s>>>(
         static_cast<const unsigned char*>(mask), n, out_size, static_cast<int*>(out),
         static_cast<unsigned long long*>(state), vec_ok);
   }
@@ -4767,20 +4857,24 @@ int csr_segment_sum_lanes_f32(const void* vals, long long ne, long long lanes, c
 // K5a. `keep` (non-zero: gather the table under L2 evict_last; for
 // weight_gather a set of bits, 1 ok, 2 emask, 4 w) is the caller's choice
 // of the tables that fit L2; `out` is a fresh allocation.
+// The lane stride (`lane_m` > 0): the m indices are a [m / lane_m, lane_m]
+// stack of lane-local rows, and index j reads the n-value table at vals +
+// (j / lane_m) * stride (a lane-stacked table of stride values a lane);
+// lane_m 0 reads the one table.
 int csr_take_pad_i32(const void* vals, long long n, const void* idx, long long m,
-                     int fill, int keep, void* out, void* stream) {
-  return launch_take_pad<int>(vals, n, idx, m, fill, keep, out, stream);
+                     int fill, int keep, void* out, long long lane_m, long long stride, void* stream) {
+  return launch_take_pad<int>(vals, n, idx, m, fill, keep, out, stream, lane_m, stride);
 }
 
 int csr_take_pad_f32(const void* vals, long long n, const void* idx, long long m,
-                     float fill, int keep, void* out, void* stream) {
-  return launch_take_pad<float>(vals, n, idx, m, fill, keep, out, stream);
+                     float fill, int keep, void* out, long long lane_m, long long stride, void* stream) {
+  return launch_take_pad<float>(vals, n, idx, m, fill, keep, out, stream, lane_m, stride);
 }
 
 int csr_take_pad_b8(const void* vals, long long n, const void* idx, long long m,
-                    int fill, int keep, void* out, void* stream) {
+                    int fill, int keep, void* out, long long lane_m, long long stride, void* stream) {
   return launch_take_pad<unsigned char>(vals, n, idx, m, static_cast<unsigned char>(fill != 0), keep, out,
-                                        stream);
+                                        stream, lane_m, stride);
 }
 
 int csr_weight_gather_i32(const void* emit, long long m, const void* ok, long long n_ok,
@@ -4825,30 +4919,38 @@ int csr_mask_count_lanes(const void* mask, long long n, long long lanes, void* o
 
 // `col_ptrs` is a HOST array of `ncols` (<= kMaxCols) device pointers; the
 // columns land at [col0, col0 + ncols) of each output row of `stride` ints.
-int csr_front_pack(const void* valid, const void* ranks, long long w,
-                   const void* col_ptrs, int ncols, int col0, int stride,
-                   void* out, void* stream) {
+// K6 (under the group replay's vmap too): `lanes` rows of w valid flags,
+// ranks (K1) and column values (each column a [lanes, w] stack), lane y's
+// page at out + y * out_lane; a single call is one lane.
+int csr_front_pack_lanes(const void* valid, const void* ranks, long long w, long long lanes,
+                         const void* col_ptrs, int ncols, int col0, int stride,
+                         void* out, long long out_lane, void* stream) {
   if (ncols < 0 || ncols > kMaxCols) return static_cast<int>(cudaErrorInvalidValue);
   ColPtrs cols = {};
   const void* const* ptrs = static_cast<const void* const*>(col_ptrs);
   for (int c = 0; c < ncols; ++c) cols.p[c] = static_cast<const int*>(ptrs[c]);
-  if (w > 0 && ncols > 0) {
-    front_pack_kernel<<<blocks_for(w, kThreads), kThreads, 0,
+  if (w > 0 && ncols > 0 && lanes > 0) {
+    front_pack_kernel<<<dim3(blocks_for(w, kThreads), static_cast<unsigned>(lanes)), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(valid), static_cast<const int*>(ranks), w, cols,
-        ncols, col0, stride, static_cast<int*>(out));
+        ncols, col0, stride, static_cast<int*>(out), out_lane);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int csr_replay_meta(const void* data, long long w, int ncols, const void* count,
-                    const void* overflow, void* out, void* stream) {
-  replay_meta_kernel<<<1, kMetaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(data), w, ncols, static_cast<const int*>(count),
-      static_cast<const int*>(overflow), static_cast<int*>(out));
+// K7: a block a lane, lane b's page at data + b * data_lane, its count and
+// flag at count[b], overflow[b], its row at out + b * out_lane; a single
+// call is one lane.
+int csr_replay_meta_lanes(const void* data, long long w, int ncols, long long lanes, long long data_lane,
+                          const void* count, const void* overflow, void* out, long long out_lane,
+                          void* stream) {
+  if (lanes > 0) {
+    replay_meta_kernel<<<static_cast<unsigned>(lanes), kMetaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(data), w, ncols, static_cast<const int*>(count),
+        static_cast<const int*>(overflow), static_cast<int*>(out), data_lane, out_lane);
+  }
   return static_cast<int>(cudaGetLastError());
 }
-
 int csr_narrow_i16(const void* in, long long n, void* out, void* stream) {
   if (n > 0) {
     narrow_i16_kernel<<<blocks_for(n, kThreads), kThreads, 0,

@@ -74,11 +74,14 @@ a stack of parameter rows, a plan
 without numeric parameters replays once for all its items, and after one
 wave of meta rows each row-returning item or group ships one page (a
 group's cut from its lane stack by the `group_page` kernel). A count group
-whose lane-varying masks meet only the COUNT pushdown or a counted root
-(`TpuMatchSolver.lane_route`) runs on the lane axis, the port of the
-reference's ``jax.vmap``: one replay over the whole stack, each kernel
-once with a leading lane axis on what varies by lane (the lane forms of
-K15, K5a, K4 and K5b); every other group runs the replay lane after lane.
+whose lane-varying masks meet only the COUNT pushdown or a counted root,
+and a rows or direct-fetch group of fixed-depth arms whose only
+lane-varying mask is its root's (`TpuMatchSolver.lane_route`), run on the
+lane axis, the port of the reference's ``jax.vmap``: one replay over the
+whole stack, each kernel once with a leading lane axis on what varies by
+lane (the lane forms of K15, K5a, K4 and K5b; of K3, K2, K2b, K5's lane
+stride and K6/K7 for rows); every other group runs the replay lane after
+lane.
 A shape outside the compiled subset raises `Uncompilable` with the reason;
 nothing falls back to an interpreter.
 """
@@ -156,10 +159,16 @@ SLAB_FLOOR = 256
 
 
 class Table:
-    """Device binding table: padded columns + a host-known valid count."""
+    """Device binding table: padded columns + a host-known valid count.
+
+    On the lane axis (`lanes` B) every column, the valid mask and the device
+    count carry a leading lane axis: columns [B, width] of lane-local rows,
+    ``count_dev`` int32 [B]; ``count`` stays the recording's."""
 
     def __init__(self, device: torch.device, count: int = 1, width: int = 0) -> None:
         self.device = device
+        #: B on the lane axis, else None
+        self.lanes: Optional[int] = None
         #: alias → int32 [width] dense vertex index (-1 null / padding)
         self.cols: Dict[str, torch.Tensor] = {}
         #: edge alias → (int32 [width] edge class index into the solver's
@@ -186,14 +195,18 @@ class Table:
         if self.valid is not None:
             return self.valid
         pos = torch.arange(max(self.width, 1), dtype=I32, device=self.device)
-        return (pos < self.count_device).to(I32)
+        count = self.count_device
+        return (pos < (count[:, None] if count.dim() else count)).to(I32)
 
     def empty(self) -> bool:
         return self.count == 0
 
     def gather(self, rows: torch.Tensor) -> "Table":
-        """New table selecting `rows` (padded with -1) from this one."""
-        t = Table(self.device, count=self.count, width=int(rows.shape[0]))
+        """New table selecting `rows` (padded with -1) from this one; on the
+        lane axis ``rows`` [B, m] are each lane's own (`K.take_pad`'s lane
+        stride)."""
+        t = Table(self.device, count=self.count, width=int(rows.shape[-1]))
+        t.lanes = self.lanes
         for a, c in self.cols.items():
             t.cols[a] = K.take_pad(c, rows, -1)
         for a, (ci, eid) in self.edge_cols.items():
@@ -214,6 +227,7 @@ def _concat_tables(parts: List[Table], counts: List[int], device) -> Table:
         out.count = 0
         out.count_dev = torch.zeros((), dtype=I32, device=device)
         return out
+    out.lanes = parts[0].lanes
     out.count_dev = parts[0].count_device
     for p in parts[1:]:
         out.count_dev = out.count_dev + p.count_device
@@ -231,10 +245,12 @@ def _concat_tables(parts: List[Table], counts: List[int], device) -> Table:
 
 
 def _pad_concat(segs: List[torch.Tensor], width: int, device, pad: int = -1) -> torch.Tensor:
-    cat = torch.cat(segs) if segs else torch.zeros(0, dtype=I32, device=device)
-    n = width - cat.shape[0]
+    """The segments joined along their last axis (a lane-stacked one's
+    slots), padded to ``width`` slots."""
+    cat = torch.cat(segs, dim=-1) if segs else torch.zeros(0, dtype=I32, device=device)
+    n = width - cat.shape[-1]
     if n > 0:
-        cat = torch.cat([cat, torch.full((n,), pad, dtype=I32, device=device)])
+        cat = torch.cat([cat, torch.full((*cat.shape[:-1], n), pad, dtype=I32, device=device)], dim=-1)
     return cat
 
 
@@ -283,7 +299,9 @@ class SizeSchedule:
     replay's buffers were too small for its parameters: the result is
     discarded and the caller re-records (buckets grow, so re-records
     converge). Live sizes under capacity flow through the table's device
-    valid mask and count."""
+    valid mask and count. On the lane axis a device value is int32 [B], a
+    lane's own, and its flag [B] is that lane's alone; the recorded value,
+    and so every lane's buffer, stays the recording's."""
 
     def __init__(self) -> None:
         self.values: List[int] = []
@@ -339,12 +357,16 @@ class SizeSchedule:
             self.miss = torch.zeros((), dtype=torch.bool, device=device)
         return self.miss
 
-    def overflow_flag(self, device) -> torch.Tensor:
+    def overflow_flag(self, device, lanes: Optional[int] = None) -> torch.Tensor:
+        """The replay's overflow flag: 0-d, or with ``lanes`` a bool [B] of
+        each lane's (a flag no lane-stacked value raised is every lane's)."""
         flag = self.overflow
         if self.miss is not None:
             flag = self.miss if flag is None else (flag | self.miss)
         if flag is None:
-            return torch.zeros((), dtype=torch.bool, device=device)
+            flag = torch.zeros((), dtype=torch.bool, device=device)
+        if lanes is not None and flag.dim() == 0:
+            flag = flag.expand(lanes).contiguous()
         return flag
 
     def start_replay(self) -> None:
@@ -1046,11 +1068,12 @@ class TpuMatchSolver:
         n_chunks = max(1, -(-_cap_of(total) // cap))
         if n_chunks == 1:
             return [self._expand_one_dir(dec, d, srcs, (offsets, total_dev))]
-        width = int(srcs.shape[0])
+        width = int(srcs.shape[-1])
         step = -(-width // n_chunks)
         slabs = []
         for a in range(0, width, step):
-            row, eid, nbr, t = self._expand_one_dir(dec, d, srcs[a : a + step])
+            # a lane-stacked table's chunk: each lane's slots [a, a + step)
+            row, eid, nbr, t = self._expand_one_dir(dec, d, srcs[..., a : a + step].contiguous())
             row = torch.where(row >= 0, row + a, row)  # local → table rows
             slabs.append((row, eid, nbr, t))
         return slabs
@@ -1139,6 +1162,7 @@ class TpuMatchSolver:
             steps = self.plan
         if (
             self.param_box.lanes is not None
+            and self.count_only_name() is not None
             and var_count is None
             and len(steps) == 1
             and self._lane_varying_root(steps[0])
@@ -1331,12 +1355,16 @@ class TpuMatchSolver:
         parameter) meet only the lane forms of K15, K5a, K4 and K5b: the
         COUNT pushdown's node and edge masks, and a root whose mask is only
         counted (the plan's only step, or the only one before the
-        pushdown). A lane-varying mask anywhere else (compacted into rows,
-        expanded, a variable-depth level, a NOT arm) keeps the plan lane
-        after lane. Decided from the recorded plan's shape alone."""
+        pushdown); and for a rows or direct-fetch plan of fixed-depth arms
+        whose one lane-varying mask is its root's (`_rows_lane_route`). A
+        lane-varying mask anywhere else (an expanded or compacted count
+        root, a variable-depth level, a NOT arm, an arm past the root)
+        keeps the plan lane after lane. Decided from the recorded plan's
+        shape alone."""
+        if self.count_only_name() is None:
+            return self._rows_lane_route()
         if (
-            self.count_only_name() is None
-            or self.stmt.group_by
+            self.stmt.group_by
             or self._not_compiled
             or self.tier is not None
             or self.dg.mesh_graph is not None
@@ -1355,6 +1383,41 @@ class TpuMatchSolver:
         for step in pushdown:
             varying += [p for p in self._step_predicates(step) if p.uses_params]
         return bool(varying) and all(p.lane_ok for p in varying)
+
+    def _rows_lane_route(self) -> bool:
+        """A rows plan on the lane axis: its only root first, with a
+        lane-varying mask that K15's lane form takes, then required
+        fixed-depth arms (no OPTIONAL, variable-depth, NOT or edge-method
+        arm) whose masks read neither a parameter nor a binding; not over
+        a dirty delta slab, a tier or a mesh. The root's [B, hull] mask
+        then carries its lane axis through K3, K2, K2b, K5's lane stride
+        and K6/K7; every arm's mask, shared by the lanes, runs once over
+        the flattened ids."""
+        ov = self.overlay
+        if (
+            self.stmt.group_by
+            or self._not_compiled
+            or self.tier is not None
+            or self.dg.mesh_graph is not None
+            or (ov is not None and ov.topology_dirty)
+            or not self.plan
+        ):
+            return False
+        root, arms = self.plan[0], self.plan[1:]
+        if not self._lane_varying_root(root) or not self._node_masks[root.alias].lane_ok:
+            return False
+        for step in arms:
+            if step.kind != "expand":
+                return False
+            item = step.edge.item
+            if item.target.while_cond is not None or item.target.max_depth is not None:
+                return False
+            m = (item.method or "").lower()
+            if (m in _EDGE_METHODS and item.edge_filter is None) or m in _VERTEX_METHODS:
+                return False
+            if any(p.uses_params or p.uses_bindings for p in self._step_predicates(step)):
+                return False
+        return True
 
     def _lane_sums(self, vals: torch.Tensor) -> torch.Tensor:
         """Each lane's sum of its row of ``vals`` [B, m], int32 [B]: K4's lane
@@ -1544,7 +1607,9 @@ class TpuMatchSolver:
     def _root(self, table: Table, alias: str) -> Table:
         cand, n, n_dev = self._root_candidates(alias)
         if table.width == 0 and not table.cols:
-            t = Table(self.device, count=n, width=int(cand.shape[0]))
+            t = Table(self.device, count=n, width=int(cand.shape[-1]))
+            if cand.dim() == 2:
+                t.lanes = int(cand.shape[0])  # a lane-varying root's [B, cap]
             t.cols[alias] = cand
             t.count_dev = n_dev
             t.valid = (cand >= 0).to(I32)
@@ -1610,10 +1675,11 @@ class TpuMatchSolver:
     def _empty_like(self, table: Table, dst_alias: str, edge_alias=None, depth_alias=None) -> Table:
         """A table of no rows with the columns an arm adds, so that later
         steps find the structure they expect."""
-        t = table.gather(torch.full((K.bucket(1),), -1, dtype=I32, device=self.device))
+        lead = () if table.lanes is None else (table.lanes,)
+        t = table.gather(torch.full((*lead, K.bucket(1)), -1, dtype=I32, device=self.device))
         t.count = 0
-        t.count_dev = torch.zeros((), dtype=I32, device=self.device)
-        null = torch.full((t.width,), -1, dtype=I32, device=self.device)
+        t.count_dev = torch.zeros(lead, dtype=I32, device=self.device)
+        null = torch.full((*lead, t.width), -1, dtype=I32, device=self.device)
         if dst_alias is not None:
             t.cols[dst_alias] = null
         if edge_alias is not None:
@@ -2744,9 +2810,12 @@ class _CompiledPlan:
         """Run the replay-mode solve on ``params`` (default: the static
         buffer) and front-pack the result columns (into ``out`` when given).
         Returns ``(count_dev, overflow, data)``, ``data`` the [W, C] int32
-        page (None for count-only or column-less plans)."""
+        page (None for count-only or column-less plans); on the lane axis
+        (a ``[B, P]`` stack and a rows plan) int32 [B] counts and flags and
+        the [B, W, C] stack of pages."""
         table = self._replay_table(params)
-        overflow = self.solver.sched.overflow_flag(self.solver.device).to(I32)
+        lanes = table.lanes
+        overflow = self.solver.sched.overflow_flag(self.solver.device, lanes).to(I32)
         count_dev = table.count_device.to(I32)
         if self.count_name is not None or self.width == 0:
             return count_dev, overflow, None
@@ -2756,8 +2825,9 @@ class _CompiledPlan:
         flat.extend(table.depth_cols[a] for a in self.d_names)
         if not flat:
             return count_dev, overflow, None
-        width = flat[0].shape[0]
-        data = K.front_pack(table.valid_device[:width].contiguous(), flat, out=out)
+        width = flat[0].shape[-1]
+        # on the lane axis [B, W] columns into a [B, W, C] stack (K6's lane form)
+        data = K.front_pack(table.valid_device[..., :width].contiguous(), flat, out=out)
         return count_dev, overflow, data
 
     def _replay(self) -> Dict:
@@ -2865,11 +2935,23 @@ class _CompiledPlan:
         """The lane axis: ONE replay-mode solve over the whole parameter
         stack. Masks that read a parameter come out [B, ·] (K15's lane form)
         and carry their lane axis through the lane forms of K5a, K4 and K5b
-        to a [B] count; what the lanes share runs once. Each lane's meta row
-        gets its count and its overflow flag (a shared observation's flag
-        is every lane's)."""
-        count_dev, overflow, _data = self._replay_core(params=stack)
+        to a count group's [B] count, or of K3, K2, K2b, K5's lane stride
+        and K6 to a rows group's [B, W, C] stack of pages, written straight
+        into ``out["data"]`` (or the direct-fetch stack's rows) with each
+        lane's meta row by K7's lane form; what the lanes share runs once.
+        Each lane's meta row gets its count and its overflow flag (a shared
+        observation's flag is every lane's)."""
         B = stack.shape[0]
+        if "direct" in out:
+            W, C = self.width, self.ncols
+            direct = out["direct"]
+            count_dev, overflow, data = self._replay_core(out=direct[:, : W * C].view(B, W, C), params=stack)
+            K.replay_meta(data, count_dev, overflow, out=direct[:, W * C :])
+            return
+        count_dev, overflow, data = self._replay_core(out=out.get("data"), params=stack)
+        if data is not None:
+            K.replay_meta(data, count_dev, overflow, out=out["meta"])
+            return
         meta = torch.stack([count_dev.expand(B), overflow.expand(B), torch.zeros_like(stack[:, 0])], dim=1)
         out["meta"].copy_(meta)
 

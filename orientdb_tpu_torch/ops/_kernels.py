@@ -42,28 +42,29 @@ SIGNATURES = {
     "csr_compact_scratch": [_N],
     "csr_scan_i32": [_P, _P, _P, _N, _P, _I, _P],
     "csr_scan_f32": [_P, _P, _P, _N, _P, _I, _P],
+    "csr_scan_lanes_i32": [_P, _P, _P, _N, _N, _P, _I, _P],
     "csr_degree_counts": [_P, _N, _P, _N, _P, _P],
     "csr_degree_scan_scratch": [_N],
-    "csr_degree_scan_i32": [_P, _N, _P, _N, _P, _P, _P, _P],
-    "csr_gather_expand": [_P, _N, _P, _N, _P, _P, _N, _P, _N, _P, _N, _P, _P, _P, _P],
-    "csr_compact": [_P, _N, _N, _P, _P, _I, _P],
+    "csr_degree_scan_lanes_i32": [_P, _N, _P, _N, _N, _P, _P, _P, _P],
+    "csr_gather_expand_lanes": [_P, _N, _P, _N, _P, _P, _N, _N, _P, _N, _P, _N, _P, _P, _P, _P],
+    "csr_compact_lanes": [_P, _N, _N, _N, _P, _P, _I, _P],
     "csr_segment_scratch": [_N, _N],
     "csr_segment_sum_i32": [_P, _N, _P, _N, _N, _P, _P, _P],
     "csr_segment_sum_f32": [_P, _N, _P, _N, _N, _P, _P, _P],
     "csr_segment_lanes_scratch": [_N, _N, _N],
     "csr_segment_sum_lanes_i32": [_P, _N, _N, _P, _N, _N, _P, _P, _P],
     "csr_segment_sum_lanes_f32": [_P, _N, _N, _P, _N, _N, _P, _P, _P],
-    "csr_take_pad_i32": [_P, _N, _P, _N, _I, _I, _P, _P],
-    "csr_take_pad_f32": [_P, _N, _P, _N, _F, _I, _P, _P],
-    "csr_take_pad_b8": [_P, _N, _P, _N, _I, _I, _P, _P],
+    "csr_take_pad_i32": [_P, _N, _P, _N, _I, _I, _P, _N, _N, _P],
+    "csr_take_pad_f32": [_P, _N, _P, _N, _F, _I, _P, _N, _N, _P],
+    "csr_take_pad_b8": [_P, _N, _P, _N, _I, _I, _P, _N, _N, _P],
     "csr_mask_count": [_P, _N, _P, _P],
     "csr_mask_count_lanes": [_P, _N, _N, _P, _P],
     "csr_weight_gather_i32": [_P, _N, _P, _N, _P, _P, _N, _P, _P, _N, _I, _P, _P],
     "csr_weight_gather_f32": [_P, _N, _P, _N, _P, _P, _N, _P, _P, _N, _I, _P, _P],
     "csr_weight_gather_lanes_i32": [_P, _N, _P, _N, _N, _P, _N, _P, _N, _N, _P, _P, _N, _N, _N, _I, _P, _P],
     "csr_weight_gather_lanes_f32": [_P, _N, _P, _N, _N, _P, _N, _P, _N, _N, _P, _P, _N, _N, _N, _I, _P, _P],
-    "csr_front_pack": [_P, _P, _N, _P, _I, _I, _I, _P, _P],
-    "csr_replay_meta": [_P, _N, _I, _P, _P, _P, _P],
+    "csr_front_pack_lanes": [_P, _P, _N, _N, _P, _I, _I, _I, _P, _N, _P],
+    "csr_replay_meta_lanes": [_P, _N, _I, _N, _N, _P, _P, _P, _N, _P],
     "csr_narrow_i16": [_P, _N, _P, _P],
     "csr_rows_to_bitmap": [_P, _N, _N, _P, _P],
     "csr_bitmap_hop": [_P, _P, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],

@@ -14,13 +14,20 @@ pools of `storage/tiering`), and the mesh's per-shard kernels
 (`degree_counts_range`, `shard_gather`, `bitmap_hop_shard`,
 `shard_weight_pass`, `rowshard_hop`, for `parallel/`), each as a wrapper over a hand-written
 CUDA kernel (`csrc/csr_kernels.cu`) beside its plain PyTorch version.
-Four wrappers also take a leading lane axis, the port's form of the
+Wrappers also take a leading lane axis, the port's form of the
 reference's ``jax.vmap`` over a batch group's lanes: `predicate_eval` with
 a ``[B, P]`` parameter stack, `weight_gather` with lane-stacked masks or
 weights, `indptr_segment_sum` with ``[B, E]`` values and `mask_count` with
-``[B, n]`` masks, each one launch for all B lanes that reads what the
-lanes share once (their plain versions: the single-lane plain version a
-lane).
+``[B, n]`` masks (a count group's), and for a rows group `value_cumsum`
+of ``[B, n]``, `compact_indices` of a ``[B, n]`` mask, `expand_offsets` and
+`gather_expand` of ``[B, k]`` sources, `take_pad` of lane-local ``[B, m]``
+rows (from a ``[B, n]`` table with a lane stride, or from one shared table
+through the flattened index), `front_pack` of ``[B, W]`` columns and
+`replay_meta` of ``[B, W, C]`` pages; each one launch for all B lanes that
+reads what the lanes share once (their plain versions: the single-lane
+plain version a lane). Lane-stacked operands are lane-major and
+contiguous, so each lane's row keeps the single kernel's 16-byte
+accesses.
 
 A wrapper checks dtype, contiguity and device, then:
 - a CPU tensor goes to the plain version (``plain_*``), the reference's
@@ -57,10 +64,14 @@ LAUNCHES: Dict[str, int] = {
     for name in (
         "scan_i32",
         "scan_f32",
+        "scan_lanes_i32",
         "degree_counts",
         "degree_scan_i32",
+        "degree_scan_lanes_i32",
         "gather_expand",
+        "gather_expand_lanes",
         "compact_indices",
+        "compact_indices_lanes",
         "segment_sum_i32",
         "segment_sum_f32",
         "segment_sum_lanes_i32",
@@ -68,6 +79,7 @@ LAUNCHES: Dict[str, int] = {
         "take_pad_i32",
         "take_pad_f32",
         "take_pad_b8",
+        "take_pad_lanes",
         "mask_count",
         "mask_count_lanes",
         "weight_gather_i32",
@@ -75,7 +87,9 @@ LAUNCHES: Dict[str, int] = {
         "weight_gather_lanes_i32",
         "weight_gather_lanes_f32",
         "front_pack",
+        "front_pack_lanes",
         "replay_meta",
+        "replay_meta_lanes",
         "narrow_i16",
         "rows_to_bitmap",
         "bitmap_hop",
@@ -255,8 +269,46 @@ def _scan(vals: torch.Tensor, exclusive: bool) -> torch.Tensor:
 
 
 def value_cumsum(vals: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum of int32/float32 values (exact in int32)."""
+    """Inclusive prefix sum of int32/float32 values (exact in int32); of
+    each row of lane-stacked int32 [B, n] values (`value_cumsum_lanes`)."""
+    if vals.dim() == 2:
+        return value_cumsum_lanes(vals)
     return _scan(vals, exclusive=False)
+
+
+def plain_value_cumsum_lanes(vals: torch.Tensor) -> torch.Tensor:
+    """The lane form's plain version: lane b's `plain_cumsum`."""
+    if vals.shape[0] == 0:
+        return vals.clone()
+    return torch.stack([plain_cumsum(vals[b]) for b in range(vals.shape[0])])
+
+
+def value_cumsum_lanes(vals: torch.Tensor) -> torch.Tensor:
+    """K1's lane form: the inclusive scan of each row of int32 [B, n]
+    values, one look-back chain a lane (the ranks of K6's lane form). On
+    the card one launch after one memset of every lane's state."""
+    _check2d(vals, (I32,), "value_cumsum_lanes")
+    if not _on_card(vals):
+        return plain_value_cumsum_lanes(vals)
+    lib = _kernels.load()
+    B, n = vals.shape
+    out = torch.empty_like(vals)
+    if B == 0 or n == 0:
+        return out
+    state = torch.empty(B * int(lib.csr_scan_scratch(n)), dtype=torch.uint8, device=vals.device)
+    _launch(
+        "scan_lanes_i32",
+        lib.csr_scan_lanes_i32,
+        vals.data_ptr(),
+        out.data_ptr(),
+        None,
+        n,
+        B,
+        state.data_ptr(),
+        0,
+        _stream(vals),
+    )
+    return out
 
 
 def exclusive_cumsum(counts: torch.Tensor) -> torch.Tensor:
@@ -338,31 +390,65 @@ def plain_expand_offsets(
     return inc - counts, inc[-1]
 
 
+def plain_expand_offsets_lanes(
+    indptr: torch.Tensor, srcs: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lane form's plain version: lane b's `plain_expand_offsets`."""
+    B = srcs.shape[0]
+    if B == 0:
+        return srcs.clone(), torch.zeros(0, dtype=I32, device=srcs.device)
+    pairs = [plain_expand_offsets(indptr, srcs[b]) for b in range(B)]
+    return torch.stack([o for o, _t in pairs]), torch.stack([t for _o, t in pairs])
+
+
+def expand_offsets_lanes(indptr: torch.Tensor, srcs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's lane form: the sizing of B lanes of sources [B, k] over one
+    CSR, offsets [B, k] and totals int32 [B], a look-back chain a lane. On
+    the card one launch after one memset of every lane's state."""
+    _check2d(srcs, (I32,), "expand_offsets_lanes srcs")
+    return _expand_offsets(indptr, srcs)
+
+
 def expand_offsets(indptr: torch.Tensor, srcs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """A one-hop expansion's sizing: the exclusive cumsum of
     `degree_counts(indptr, srcs)` and its sum (a 0-d tensor), int32 wrapping
     as the reference's int32 cumsum does. On the card one degree-scan launch
-    (after one memset of its look-back state)."""
+    (after one memset of its look-back state). Lane-stacked sources [B, k]
+    give offsets [B, k] and totals [B] (`expand_offsets_lanes`)."""
+    if srcs.dim() == 2:
+        return expand_offsets_lanes(indptr, srcs)
+    return _expand_offsets(indptr, srcs)
+
+
+def _expand_offsets(indptr: torch.Tensor, srcs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's one launch path for [k] sources (a lane) and [B, k] (a
+    look-back chain a lane)."""
+    lanes = _lanes_of(srcs)
     _check(indptr, (I32,), "expand_offsets indptr")
-    _check(srcs, (I32,), "expand_offsets srcs")
+    _check_operand(srcs, (I32,), "expand_offsets srcs", lanes)
     if not _on_card(indptr, srcs):
-        return plain_expand_offsets(indptr, srcs)
+        plain = plain_expand_offsets if lanes is None else plain_expand_offsets_lanes
+        return plain(indptr, srcs)
     lib = _kernels.load()
-    k, dev = srcs.shape[0], srcs.device
+    k, dev = srcs.shape[-1], srcs.device
+    B = 1 if lanes is None else lanes
     offsets = torch.empty_like(srcs)
-    total = torch.empty((), dtype=I32, device=dev)
+    total = torch.empty(srcs.shape[:-1], dtype=I32, device=dev)
+    if B == 0:
+        return offsets, total
     if k == 0:
         total.zero_()
         return offsets, total
     # the look-back state, per call (a capture takes it from the graph's pool)
-    state = torch.empty(int(lib.csr_degree_scan_scratch(k)), dtype=torch.uint8, device=dev)
+    state = torch.empty(B * int(lib.csr_degree_scan_scratch(k)), dtype=torch.uint8, device=dev)
     _launch(
-        "degree_scan_i32",
-        lib.csr_degree_scan_i32,
+        "degree_scan_i32" if lanes is None else "degree_scan_lanes_i32",
+        lib.csr_degree_scan_lanes_i32,
         indptr.data_ptr(),
         indptr.shape[0] - 1,
         srcs.data_ptr(),
         k,
+        B,
         offsets.data_ptr(),
         total.data_ptr(),
         state.data_ptr(),
@@ -403,6 +489,40 @@ def plain_gather_expand(
     )
 
 
+def plain_gather_expand_lanes(
+    indptr, neighbors, srcs, offsets, total, out_size: int, edge_map: Optional[torch.Tensor] = None
+):
+    """The lane form's plain version: lane b's `plain_gather_expand`."""
+    B = srcs.shape[0]
+    if B == 0:
+        empty = torch.zeros((0, out_size), dtype=I32, device=srcs.device)
+        return empty, empty.clone(), empty.clone()
+    lanes = [
+        plain_gather_expand(indptr, neighbors, srcs[b], offsets[b], total[b], out_size, edge_map)
+        for b in range(B)
+    ]
+    return tuple(torch.stack([ln[i] for ln in lanes]) for i in range(3))
+
+
+def gather_expand_lanes(
+    indptr: torch.Tensor,
+    neighbors: torch.Tensor,
+    srcs: torch.Tensor,
+    offsets: torch.Tensor,
+    total: torch.Tensor,
+    out_size: int,
+    edge_map: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2b's lane form: B lanes of sources and offsets [B, k] with totals
+    int32 [B] over one CSR (and one ``edge_map``), each lane expanded as
+    `gather_expand` expands it into its row of [B, out_size] (row,
+    edge_pos, neighbour); a lane whose total exceeds ``out_size`` fills its
+    row and writes nothing past it. On the card one merge-path launch, a
+    grid row a lane."""
+    _check2d(srcs, (I32,), "gather_expand_lanes srcs")
+    return _gather_expand(indptr, neighbors, srcs, offsets, total, out_size, edge_map)
+
+
 def gather_expand(
     indptr: torch.Tensor,
     neighbors: torch.Tensor,
@@ -422,33 +542,50 @@ def gather_expand(
       edge_pos — position in CSR edge order; with ``edge_map`` (an in walk's
                  ``edge_id_in``) ``take_pad(edge_map, edge_pos, -1)``
       neighbor — the reached vertex (dst for out-CSR, src for in-CSR)
-    On the card one merge-path launch.
+    On the card one merge-path launch. Lane-stacked sources and offsets
+    [B, k] with totals [B] give [B, out_size] (`gather_expand_lanes`).
     """
-    for t, what in ((indptr, "indptr"), (neighbors, "neighbors"), (srcs, "srcs"), (offsets, "offsets")):
-        _check(t, (I32,), f"gather_expand {what}")
-    if total.dtype != I32 or total.dim() != 0:
-        raise TypeError("gather_expand total: expected a 0-d int32 tensor")
-    if offsets.shape[0] != srcs.shape[0]:
-        raise ValueError("gather_expand: offsets and srcs differ in length")
+    if srcs.dim() == 2:
+        return gather_expand_lanes(indptr, neighbors, srcs, offsets, total, out_size, edge_map)
+    return _gather_expand(indptr, neighbors, srcs, offsets, total, out_size, edge_map)
+
+
+def _gather_expand(indptr, neighbors, srcs, offsets, total, out_size: int, edge_map=None):
+    """K2b's one launch path for [k] sources (a lane) and [B, k] (a grid
+    row a lane)."""
+    lanes = _lanes_of(srcs)
+    _check(indptr, (I32,), "gather_expand indptr")
+    _check(neighbors, (I32,), "gather_expand neighbors")
+    _check_operand(srcs, (I32,), "gather_expand srcs", lanes)
+    _check_operand(offsets, (I32,), "gather_expand offsets", lanes)
+    if offsets.shape != srcs.shape:
+        raise ValueError("gather_expand: offsets and srcs differ in shape")
+    if total.dtype != I32 or total.shape != srcs.shape[:-1] or not total.is_contiguous():
+        raise TypeError(f"gather_expand total: expected a contiguous int32 tensor of shape {tuple(srcs.shape[:-1])}")
     mapped = () if edge_map is None else (edge_map,)
     if edge_map is not None:
         _check(edge_map, (I32,), "gather_expand edge_map")
     if not _on_card(indptr, neighbors, srcs, offsets, total, *mapped):
-        return plain_gather_expand(indptr, neighbors, srcs, offsets, total, out_size, edge_map)
+        plain = plain_gather_expand if lanes is None else plain_gather_expand_lanes
+        return plain(indptr, neighbors, srcs, offsets, total, out_size, edge_map)
     lib = _kernels.load()
-    row = torch.empty(out_size, dtype=I32, device=srcs.device)
+    B = 1 if lanes is None else lanes
+    row = torch.empty((*srcs.shape[:-1], out_size), dtype=I32, device=srcs.device)
     edge_pos = torch.empty_like(row)
     nbr = torch.empty_like(row)
+    if B == 0:
+        return row, edge_pos, nbr
     _launch(
-        "gather_expand",
-        lib.csr_gather_expand,
+        "gather_expand" if lanes is None else "gather_expand_lanes",
+        lib.csr_gather_expand_lanes,
         indptr.data_ptr(),
         indptr.shape[0] - 1,
         neighbors.data_ptr(),
         neighbors.shape[0],
         srcs.data_ptr(),
         offsets.data_ptr(),
-        srcs.shape[0],
+        srcs.shape[-1],
+        B,
         total.data_ptr(),
         out_size,
         None if edge_map is None else edge_map.data_ptr(),
@@ -482,6 +619,23 @@ def plain_compact_indices(
     return out[offset : offset + out_size]
 
 
+def plain_compact_indices_lanes(mask: torch.Tensor, out_size: int) -> torch.Tensor:
+    """The lane form's plain version: lane b's `plain_compact_indices`."""
+    if mask.shape[0] == 0:
+        return torch.full((0, out_size), -1, dtype=I32, device=mask.device)
+    return torch.stack([plain_compact_indices(mask[b], out_size) for b in range(mask.shape[0])])
+
+
+def compact_indices_lanes(mask: torch.Tensor, out_size: int) -> torch.Tensor:
+    """K3's lane form: each row of a [B, n] bool mask compacted as
+    `compact_indices` compacts it, into int32 [B, out_size] (a lane clipped
+    to ``out_size`` and padded with -1). On the card one launch after one
+    memset that sets every lane's slots to -1 and empties every lane's
+    look-back state (the states right behind the B·out_size slots)."""
+    _check2d(mask, (torch.bool,), "compact_indices_lanes")
+    return _compact_indices(mask, out_size)
+
+
 def compact_indices(
     mask: torch.Tensor, out_size: int, out: Optional[torch.Tensor] = None, offset: int = 0
 ) -> torch.Tensor:
@@ -491,40 +645,60 @@ def compact_indices(
     The offset form (``out`` given: an int32 buffer) writes the indices into
     ``out[offset : offset + out_size]`` and returns that view; the slots past
     the mask's count are left as they are (the caller fills the buffer
-    once)."""
-    _check(mask, (torch.bool,), "compact_indices")
+    once). A lane-stacked [B, n] mask gives [B, out_size]
+    (`compact_indices_lanes`; no offset form)."""
+    if mask.dim() == 2 and out is None:
+        return compact_indices_lanes(mask, out_size)
+    return _compact_indices(mask, out_size, out, offset)
+
+
+def _compact_indices(
+    mask: torch.Tensor, out_size: int, out: Optional[torch.Tensor] = None, offset: int = 0
+) -> torch.Tensor:
+    """K3's one launch path for an [n] mask (a lane) and a [B, n] one (a
+    look-back chain a lane)."""
+    lanes = _lanes_of(mask)
+    _check_operand(mask, (torch.bool,), "compact_indices", lanes)
     if out is not None:
+        if lanes is not None:
+            raise ValueError("compact_indices: a lane-stacked mask has no offset form")
         _check(out, (I32,), "compact_indices out")
         if offset < 0 or offset + out_size > out.shape[0]:
             raise ValueError(
                 f"compact_indices: [{offset}, {offset + out_size}) outside the {out.shape[0]}-slot buffer"
             )
     if not (_on_card(mask) if out is None else _on_card(mask, out)):
+        if lanes is not None:
+            return plain_compact_indices_lanes(mask, out_size)
         return plain_compact_indices(mask, out_size, out, offset)
     lib = _kernels.load()
-    n, dev = mask.shape[0], mask.device
-    state_bytes = int(lib.csr_compact_scratch(n))
+    n, dev = mask.shape[-1], mask.device
+    B = 1 if lanes is None else lanes
+    state_bytes = B * int(lib.csr_compact_scratch(n))
     if out is None:
-        # the fill form: the look-back state right behind the slots (8-byte
+        # the fill form: the look-back states right behind the slots (8-byte
         # aligned), so that one memset sets both
-        lead = out_size + (out_size & 1)
+        lead = B * out_size + ((B * out_size) & 1)
         buf = torch.empty(lead + state_bytes // 4, dtype=I32, device=dev)
         dst, state = buf.data_ptr(), buf.data_ptr() + 4 * lead
     else:
         buf = torch.empty(state_bytes, dtype=torch.uint8, device=dev)
         dst, state = out.data_ptr() + 4 * offset, buf.data_ptr()
     _launch(
-        "compact_indices",
-        lib.csr_compact,
+        "compact_indices" if lanes is None else "compact_indices_lanes",
+        lib.csr_compact_lanes,
         mask.data_ptr(),
         n,
+        B,
         out_size,
         dst,
         state,
         int(out is None),
         _stream(mask),
     )
-    return buf[:out_size] if out is None else out[offset : offset + out_size]
+    if out is not None:
+        return out[offset : offset + out_size]
+    return buf[: B * out_size].view(*mask.shape[:-1], out_size)
 
 
 # ---------------------------------------------------------------------------
@@ -671,26 +845,57 @@ def _nbytes(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.numel() * t.element_size()
 
 
+def plain_take_pad_lanes(values: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """The lane stride's plain version: lane b's `plain_take_pad` of
+    ``values[b]`` at ``idx[b]``."""
+    if idx.shape[0] == 0:
+        return torch.full(idx.shape, fill, dtype=values.dtype, device=idx.device)
+    return torch.stack([plain_take_pad(values[b], idx[b], fill) for b in range(idx.shape[0])])
+
+
 def take_pad(values: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
     """`values[idx]` where idx ≥ 0, else `fill` (padding-safe gather);
-    indices past the end read the last value, as the reference's clip."""
-    _check(values, tuple(_TAKE), "take_pad values")
-    _check(idx, (I32,), "take_pad idx")
-    if not _on_card(values, idx):
-        return plain_take_pad(values, idx, fill)
+    indices past the end read the last value, as the reference's clip.
+
+    On the lane axis ``idx`` is a [B, m] stack of lane-local rows: from a
+    lane-stacked table ``values`` [B, n] lane b reads its own row (the same
+    kernel with a lane stride: index i of lane b reads ``values[b·n + i]``);
+    from a table the lanes share (1-d) the flattened index is one call."""
+    if idx.dim() == 2:
+        if values.dim() == 1:
+            if not idx.is_contiguous():
+                raise ValueError("take_pad idx: tensor must be contiguous")
+            return take_pad(values, idx.view(-1), fill).view(idx.shape)
+        _check2d(values, tuple(_TAKE), "take_pad values")
+        _check2d(idx, (I32,), "take_pad idx")
+        if values.shape[0] != idx.shape[0]:
+            raise ValueError(f"take_pad: a table of {values.shape[0]} lanes and an index of {idx.shape[0]}")
+        if not _on_card(values, idx):
+            return plain_take_pad_lanes(values, idx, fill)
+        lane_m, stride = idx.shape[1], values.shape[1]
+    else:
+        _check(values, tuple(_TAKE), "take_pad values")
+        _check(idx, (I32,), "take_pad idx")
+        if not _on_card(values, idx):
+            return plain_take_pad(values, idx, fill)
+        lane_m = stride = 0
     name, entry, cast = _TAKE[values.dtype]
     lib = _kernels.load()
-    out = torch.empty(idx.shape[0], dtype=values.dtype, device=idx.device)
+    out = torch.empty(idx.shape, dtype=values.dtype, device=idx.device)
+    if lane_m and values.shape[1] == 0:
+        return out.fill_(fill)
     _launch(
-        name,
+        "take_pad_lanes" if lane_m else name,  # the same kernel, its lane stride counted apart
         getattr(lib, entry),
         values.data_ptr(),
-        values.shape[0],
+        values.shape[-1],
         idx.data_ptr(),
-        idx.shape[0],
+        idx.numel(),
         cast(fill),
         int(_nbytes(values) <= L2_KEEP_BYTES),
         out.data_ptr(),
+        lane_m,
+        stride,
         _stream(idx),
     )
     return out
@@ -1000,27 +1205,77 @@ def plain_front_pack(valid: torch.Tensor, cols: List[torch.Tensor]) -> torch.Ten
     return torch.stack([plain_take_pad(c, perm, -1) for c in cols], dim=1)
 
 
+def _check_lane_out(out: torch.Tensor, shape, what: str) -> None:
+    """A lane form's output: int32 of ``shape``, each lane's part contiguous
+    (its rows back to back), lanes at any stride (a direct-fetch stack's
+    rows)."""
+    inner = [1]
+    for d in reversed(shape[2:]):
+        inner.insert(0, inner[0] * d)
+    if (
+        tuple(out.shape) != tuple(shape)
+        or out.dtype != I32
+        or list(out.stride()[1:]) != inner
+        or out.stride(0) < (inner[0] * shape[1] if len(shape) > 1 else 1)
+    ):
+        raise ValueError(f"{what}: out must be int32 {tuple(shape)} with contiguous lanes")
+
+
+def plain_front_pack_lanes(valid: torch.Tensor, cols: List[torch.Tensor]) -> torch.Tensor:
+    """The lane form's plain version: lane b's `plain_front_pack`."""
+    B, W = valid.shape
+    if B == 0:
+        return torch.zeros((0, W, len(cols)), dtype=I32, device=valid.device)
+    return torch.stack([plain_front_pack(valid[b], [c[b] for c in cols]) for b in range(B)])
+
+
+def front_pack_lanes(
+    valid: torch.Tensor, cols: List[torch.Tensor], out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """K6's lane form: each lane of [B, W] valid masks and [B, W] columns
+    front-packed as `front_pack` packs it, into [B, W, C] (``out`` may
+    place the lanes at any stride: a direct-fetch stack). On the card K1's
+    lane form for the ranks, then one launch a 16 columns for all lanes."""
+    _check2d(valid, (I32,), "front_pack_lanes valid")
+    return _front_pack(valid, cols, out)
+
+
 def front_pack(
     valid: torch.Tensor, cols: List[torch.Tensor], out: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Live rows (``valid != 0``) first, in slot order, then rows of -1:
     int32 [W, C], row-major, so that a page of the result is a prefix of
-    its rows. ``out`` (optional) receives the result."""
-    _check(valid, (I32,), "front_pack valid")
-    W, C = valid.shape[0], len(cols)
+    its rows. ``out`` (optional) receives the result. Lane-stacked [B, W]
+    masks and columns give [B, W, C] (`front_pack_lanes`)."""
+    if valid.dim() == 2:
+        return front_pack_lanes(valid, cols, out)
+    return _front_pack(valid, cols, out)
+
+
+def _front_pack(valid: torch.Tensor, cols: List[torch.Tensor], out: Optional[torch.Tensor]) -> torch.Tensor:
+    """K6's one launch path for [W] masks (a lane) and [B, W] (a grid row a
+    lane)."""
+    lanes = _lanes_of(valid)
+    _check_operand(valid, (I32,), "front_pack valid", lanes)
+    C = len(cols)
     if C == 0:
         raise ValueError("front_pack: no columns")
     for c in cols:
-        _check(c, (I32,), "front_pack column")
-        if c.shape[0] != W:
-            raise ValueError("front_pack: a column and the valid mask differ in length")
+        _check_operand(c, (I32,), "front_pack column", lanes)
+        if c.shape != valid.shape:
+            raise ValueError("front_pack: a column and the valid mask differ in shape")
+    shape = (*valid.shape, C)
     if out is None:
-        out = torch.empty((W, C), dtype=I32, device=valid.device)
-    _check_out(out, (W, C), I32, "front_pack")
+        out = torch.empty(shape, dtype=I32, device=valid.device)
+    if lanes is None:
+        _check_out(out, shape, I32, "front_pack")
+    else:
+        _check_lane_out(out, shape, "front_pack_lanes")
     if not _on_card(valid, out, *cols):
-        out.copy_(plain_front_pack(valid, cols))
+        out.copy_((plain_front_pack if lanes is None else plain_front_pack_lanes)(valid, cols))
         return out
-    if W == 0:
+    W, B = valid.shape[-1], 1 if lanes is None else lanes
+    if W == 0 or B == 0:
         return out
     lib = _kernels.load()
     ranks = value_cumsum(valid)
@@ -1028,16 +1283,18 @@ def front_pack(
         chunk = cols[c0 : c0 + _PACK_COLS]
         ptrs = (ctypes.c_void_p * len(chunk))(*(c.data_ptr() for c in chunk))
         _launch(
-            "front_pack",
-            lib.csr_front_pack,
+            "front_pack" if lanes is None else "front_pack_lanes",
+            lib.csr_front_pack_lanes,
             valid.data_ptr(),
             ranks.data_ptr(),
             W,
+            B,
             ctypes.cast(ptrs, ctypes.c_void_p),
             len(chunk),
             c0,
             C,
             out.data_ptr(),
+            0 if lanes is None else out.stride(0),
             _stream(valid),
         )
     return out
@@ -1058,6 +1315,31 @@ def plain_replay_meta(
     return torch.stack([count.to(I32), overflow.to(I32), fits.to(I32)])
 
 
+def plain_replay_meta_lanes(
+    data: torch.Tensor, count: torch.Tensor, overflow: torch.Tensor
+) -> torch.Tensor:
+    """The lane form's plain version: lane b's `plain_replay_meta`."""
+    if data.shape[0] == 0:
+        return torch.zeros((0, 3), dtype=I32, device=data.device)
+    return torch.stack([plain_replay_meta(data[b], count[b], overflow[b]) for b in range(data.shape[0])])
+
+
+def replay_meta_lanes(
+    data: torch.Tensor,
+    count: torch.Tensor,
+    overflow: torch.Tensor,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K7's lane form: the meta row of each lane, int32 [B, 3], from its
+    front-packed [W, C] page of ``data`` [B, W, C] (lanes at any stride),
+    its count and its flag (int32 [B] each); ``out`` may place the rows at
+    any stride (a direct-fetch stack's tails). On the card one launch, a
+    block a lane."""
+    if data.dim() != 3:
+        raise ValueError("replay_meta_lanes data: expected an int32 [B, W, C] tensor")
+    return _replay_meta(data, count, overflow, out)
+
+
 def replay_meta(
     data: torch.Tensor,
     count: torch.Tensor,
@@ -1066,28 +1348,48 @@ def replay_meta(
 ) -> torch.Tensor:
     """The meta row of a replay's result, int32 [3]: the live count, the
     overflow flag and the int16 election flag over the front-packed
-    int32 [W, C] ``data``. ``out`` (optional) receives the row."""
-    if data.dtype != I32 or data.dim() != 2 or not data.is_contiguous():
-        raise ValueError("replay_meta data: expected a contiguous int32 [W, C] tensor")
+    int32 [W, C] ``data``. ``out`` (optional) receives the row. Lane-stacked
+    [B, W, C] pages give [B, 3] (`replay_meta_lanes`)."""
+    if data.dim() == 3:
+        return replay_meta_lanes(data, count, overflow, out)
+    return _replay_meta(data, count, overflow, out)
+
+
+def _replay_meta(data, count, overflow, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """K7's one launch path for a [W, C] page (a lane) and [B, W, C] pages
+    (a block a lane)."""
+    lanes = data.shape[0] if data.dim() == 3 else None
+    if lanes is None:
+        if data.dtype != I32 or data.dim() != 2 or not data.is_contiguous():
+            raise ValueError("replay_meta data: expected a contiguous int32 [W, C] tensor")
+    else:
+        _check_lane_out(data, tuple(data.shape), "replay_meta_lanes data")
+    lead = data.shape[:-2]
     for t, what in ((count, "count"), (overflow, "overflow")):
-        if t.dtype != I32 or t.dim() != 0:
-            raise TypeError(f"replay_meta {what}: expected a 0-d int32 tensor")
+        if t.dtype != I32 or t.shape != lead or not t.is_contiguous():
+            raise TypeError(f"replay_meta {what}: expected a contiguous int32 tensor of shape {tuple(lead)}")
     if out is None:
-        out = torch.empty(3, dtype=I32, device=data.device)
-    _check_out(out, (3,), I32, "replay_meta")
+        out = torch.empty((*lead, 3), dtype=I32, device=data.device)
+    if lanes is None:
+        _check_out(out, (3,), I32, "replay_meta")
+    else:
+        _check_lane_out(out, (lanes, 3), "replay_meta_lanes")
     if not _on_card(data, count, overflow, out):
-        out.copy_(plain_replay_meta(data, count, overflow))
+        out.copy_((plain_replay_meta if lanes is None else plain_replay_meta_lanes)(data, count, overflow))
         return out
     lib = _kernels.load()
     _launch(
-        "replay_meta",
-        lib.csr_replay_meta,
+        "replay_meta" if lanes is None else "replay_meta_lanes",
+        lib.csr_replay_meta_lanes,
         data.data_ptr(),
-        data.shape[0],
-        data.shape[1],
+        data.shape[-2],
+        data.shape[-1],
+        1 if lanes is None else lanes,
+        0 if lanes is None else data.stride(0),
         count.data_ptr(),
         overflow.data_ptr(),
         out.data_ptr(),
+        0 if lanes is None else out.stride(0),
         _stream(data),
     )
     return out

@@ -810,7 +810,8 @@ class Predicate:
     because it passed the kernel's stack depth or buffer table. They return
     bool [n], or [B, n] (one row a lane) when the program reads a parameter
     and the box holds a ``[B, P]`` stack (`ParamBox.lanes`): K15's lane
-    form, which takes an unsplit program only (`lane_ok`)."""
+    form, which takes an unsplit program only (`lane_ok`). Lane-stacked ids
+    [B, n] of a mask the lanes share run once, flattened, into [B, n]."""
 
     def __init__(
         self,
@@ -839,6 +840,15 @@ class Predicate:
         return len(self.programs) == 1 and self.programs[0].prog.lane_ok
 
     def __call__(self, idx: torch.Tensor, env: Optional[Dict] = None) -> torch.Tensor:
+        if idx.dim() == 2:
+            # lane-stacked ids [B, n] (a rows group's arm on the lane axis):
+            # a mask the lanes share runs once over the flattened ids
+            if self.uses_params and self.box.lanes is not None:
+                raise ValueError("a lane-varying mask over lane-stacked ids has no lane form")
+            if env and env.get("bindings"):
+                raise ValueError("a binding-reading mask over lane-stacked ids has no lane form")
+            flat = idx.reshape(-1)
+            return self._run(flat, flat.shape[0], None, 0, env).view(idx.shape)
         return self._run(idx, idx.shape[0], None, 0, env)
 
     def identity(

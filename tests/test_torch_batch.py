@@ -297,7 +297,7 @@ def test_one_overflowing_lane_rerecords(person_knows):
     first = variants.plans[0]
     groups = first.group_replays
     assert _port(db, sqls, plist) == want
-    assert first.group_replays == groups + 1
+    assert first.group_replays == groups + 1 and first.lane_axis  # the group ran on the lane axis
     assert len(variants.plans) == 2 and variants.plans[1] is first  # the k=2000 lane recorded
     assert variants.pick(plist[-1]) is variants.plans[0]
     assert all(variants.pick(p) is first for p in plist[:-1])  # the others kept their rows

@@ -2216,3 +2216,199 @@ def test_captured_lane_groups_equal_cpu(card):
     assert plans and all(p.lane_axis for p in plans)
     assert all(g.graph is not None and g.nodes > 0 for p in plans for g in p.groups.values())
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the lane forms of a rows group: K1, K3, K2, K2b, K5's lane stride, K6, K7
+# ---------------------------------------------------------------------------
+
+
+def _rows_lane_operands(rng, B: int, k: int, v: int = 3_000):
+    """B lanes of k sources over one Poisson CSR (lane 0 empty, the last
+    lane repeating the one before it: a padding lane), and an edge map."""
+    indptr, nbrs = _csr(rng, v, 6.0, tail_zero=5)
+    rows = [rng.integers(-1, v, k, dtype=np.int32) for _ in range(B)]
+    rows[0][:] = -1
+    if B > 1:
+        rows[-1] = rows[-2].copy()
+    emap = rng.permutation(nbrs.shape[0]).astype(np.int32)
+    return indptr, nbrs, np.stack(rows), emap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 16, 64])
+@pytest.mark.parametrize("n", [0, 1, 4_097, 16_384, 16_385, 1_000_003])
+def test_scan_and_compact_lanes_equal_plain_on_card(card, n, B):
+    """K1's and K3's lane forms: [B, n] values and masks (rows off 16 bytes
+    where n is odd; an all-False lane, an all-True lane, a padding lane),
+    compacted into a cap under, at and over a lane's count, against their
+    plain versions and, lane by lane, the single-lane wrappers (the same
+    kernel at one lane: a check of the lane offsets only)."""
+    rng = np.random.default_rng(n * 7 + B)
+    vals = _lane_stack([rng.integers(0, 2, n, dtype=np.int32) for _ in range(B)], card)
+    got = T.value_cumsum(vals)
+    assert torch.equal(got, T.plain_value_cumsum_lanes(vals))
+    for b in range(B):
+        assert torch.equal(got[b], T.value_cumsum(vals[b].contiguous()))
+    rows = [rng.random(n) < 0.3 for _ in range(B)]
+    if B > 1:
+        rows[0][:] = False
+        rows[1][:] = True
+        rows[-1] = rows[-2]
+    mask = _lane_stack(rows, card)
+    for cap in (8, T.bucket(max(n // 3, 1)), T.bucket(max(n, 1))):
+        got = T.compact_indices(mask, cap)
+        assert got.shape == (B, cap) and torch.equal(got, T.plain_compact_indices_lanes(mask, cap))
+        for b in range(B):
+            assert torch.equal(got[b], T.compact_indices(mask[b].contiguous(), cap))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 16, 64])
+@pytest.mark.parametrize("k", [1, 2_047, 2_048, 20_001, 65_536])
+@pytest.mark.parametrize("walk", ["out", "in"])
+def test_expand_lanes_equal_plain_on_card(card, walk, k, B):
+    """K2's and K2b's lane forms: B lanes of k sources (-1 padding, an
+    empty lane, a padding lane) sized and gathered, into a bucket that
+    holds the largest lane and into one that cuts it (a lane over its cap
+    fills its row and writes nothing past it), with and without an in
+    walk's edge map, against their plain versions and, lane by lane, the
+    single-lane wrappers (the same kernel at one lane: a check of the lane
+    offsets only)."""
+    rng = np.random.default_rng(k + 13 * B)
+    indptr, nbrs, srcs, emap = _rows_lane_operands(rng, B, k)
+    indptr, nbrs, srcs = _t(indptr).to(card), _t(nbrs).to(card), _t(srcs).to(card)
+    emap = _t(emap).to(card) if walk == "in" else None
+    offsets, total = T.expand_offsets(indptr, srcs)
+    p_off, p_tot = T.plain_expand_offsets_lanes(indptr, srcs)
+    assert torch.equal(offsets, p_off) and torch.equal(total, p_tot)
+    for b in range(B):
+        o1, t1 = T.expand_offsets(indptr, srcs[b].contiguous())
+        assert torch.equal(offsets[b], o1) and int(total[b]) == int(t1)
+    most = int(total.max())
+    for size in (T.bucket(max(most, 1)), max(4, T.bucket(max(most, 1)) // 4)):
+        got = T.gather_expand(indptr, nbrs, srcs, offsets, total, size, emap)
+        want = T.plain_gather_expand_lanes(indptr, nbrs, srcs, offsets, total, size, emap)
+        for g, w in zip(got, want):
+            assert g.shape == (B, size) and torch.equal(g, w)
+        for b in range(B):
+            one = T.gather_expand(indptr, nbrs, srcs[b].contiguous(), offsets[b].contiguous(), total[b], size, emap)
+            for g, w in zip(got, one):
+                assert torch.equal(g[b], w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 16, 64])
+@pytest.mark.parametrize("m", [1, 5, 4_096, 131_075])
+@pytest.mark.parametrize("dtype", ["i32", "f32", "b8"])
+def test_take_pad_lane_stride_equals_plain_on_card(card, dtype, m, B):
+    """K5's lane stride: [B, m] lane-local rows (-1 padding, indices past a
+    lane's end, an m that is not a multiple of 4 so the 16-byte path's
+    units straddle lanes) read from a [B, n] table, and from a shared table
+    through the flattened index, against the plain versions and the
+    single-lane kernel lane by lane."""
+    rng = np.random.default_rng(m + B)
+    n = 1_000
+    if dtype == "i32":
+        vals, fill = _t(rng.integers(-(2**31), 2**31 - 1, (B, n), dtype=np.int64).astype(np.int32)), -1
+    elif dtype == "f32":
+        vals, fill = _t(rng.random((B, n), dtype=np.float32)), 0.0
+    else:
+        vals, fill = _t(rng.random((B, n)) < 0.5), False
+    vals = vals.to(card)
+    idx = _t(rng.integers(-2, n + 3, (B, m), dtype=np.int32)).to(card)
+    got = T.take_pad(vals, idx, fill)
+    assert got.shape == (B, m) and torch.equal(got, T.plain_take_pad_lanes(vals, idx, fill))
+    shared = T.take_pad(vals[0].contiguous(), idx, fill)
+    assert torch.equal(shared, T.plain_take_pad(vals[0], idx.view(-1), fill).view(B, m))
+    for b in range(B):
+        assert torch.equal(got[b], T.take_pad(vals[b].contiguous(), idx[b].contiguous(), fill))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 16, 64])
+@pytest.mark.parametrize("w", [1, 1_024, 131_072])
+@pytest.mark.parametrize("c", [1, 3, 17])
+@pytest.mark.parametrize("direct", [False, True])
+def test_front_pack_and_meta_lanes_equal_plain_on_card(card, direct, c, w, B):
+    """K6's and K7's lane forms: B lanes of [w] valid masks and c columns
+    (an empty lane, a full lane, values past int16 in one lane only, more
+    columns than one launch moves) packed into a [B, w, c] stack, or into
+    a direct-fetch stack's rows (lanes at a stride of w·c + 3 with the meta
+    row behind each), against their plain versions and, lane by lane, the
+    single-lane wrappers (the same kernel at one lane: a check of the lane
+    offsets only)."""
+    rng = np.random.default_rng(w + c + B + direct)
+    valid = [(rng.random(w) < 0.4).astype(np.int32) for _ in range(B)]
+    valid[0][:] = 0
+    if B > 1:
+        valid[1][:] = 1
+    cols = [rng.integers(-30_000, 30_000, (B, w), dtype=np.int32) for _ in range(c)]
+    if B > 2:
+        cols[0][2, w // 2] = 40_000
+    valid_d = _lane_stack(valid, card)
+    cols_d = [_t(x).to(card) for x in cols]
+    count = valid_d.sum(dim=1, dtype=torch.int32)
+    flag = _t(rng.integers(0, 2, B, dtype=np.int32)).to(card)
+    if direct:
+        buf = torch.full((B, w * c + 3), 7, dtype=torch.int32, device=card)
+        data = T.front_pack(valid_d, cols_d, out=buf[:, : w * c].view(B, w, c))
+        meta = T.replay_meta(data, count, flag, out=buf[:, w * c :])
+    else:
+        data = T.front_pack(valid_d, cols_d)
+        meta = T.replay_meta(data, count, flag)
+    want = T.plain_front_pack_lanes(valid_d, cols_d)
+    assert torch.equal(data, want)
+    assert torch.equal(meta, T.plain_replay_meta_lanes(want, count, flag))
+    for b in range(B):
+        one = T.front_pack(valid_d[b].contiguous(), [x[b].contiguous() for x in cols_d])
+        assert torch.equal(data[b], one)
+        assert torch.equal(meta[b], T.replay_meta(one, count[b], flag[b]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_rows_lane_groups_equal_cpu(card):
+    """Rows groups on the lane axis captured on the card (BQ3's two-hop
+    rows, a direct-fetch one-hop and its in walk, a LIMIT group, one lane
+    overflowing into a new variant) against the same batches on the CPU,
+    and each group's captured launches through the rows lane forms."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+
+    rows = ("MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f}"
+            "-knows->{as:g, where:(age < 30)} RETURN p.uid AS p, f.uid AS f, g.uid AS g")
+    small = "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f} RETURN p.uid AS p, f.uid AS f"
+    walk_in = "MATCH {class:Person, as:p, where:(uid < :k)}<-knows-{as:f} RETURN p.uid AS p, f.uid AS f"
+    limit = ("MATCH {class:Person, as:p, where:(age > :a)}-knows->{as:f} "
+             "RETURN p.uid AS p, f.uid AS f LIMIT 5")
+    batches = [
+        ([rows] * 16, [{"k": 400 - 20 * i} for i in range(16)]),
+        ([rows] * 16, [{"k": 400 - 20 * i} for i in range(15)] + [{"k": 3_000}]),
+        ([small] * 8, [{"k": 10 + 5 * i} for i in range(8)]),
+        ([walk_in] * 8, [{"k": 10 + 5 * i} for i in range(8)]),
+        ([limit] * 8, [{"a": 40 + 5 * i} for i in range(8)]),
+    ]
+    kw = dict(avg_knows=6, seed=11)
+    gpu, gsnap = build_person_knows(5_000, device=card, **kw)
+    cpu, _ = build_person_knows(5_000, device="cpu", **kw)
+    key = lambda r: tuple(sorted(r.items()))  # noqa: E731
+    for sqls, plist in batches:
+        gpu.query(sqls[0], plist[0])
+        cpu.query(sqls[0], plist[0])
+        for _ in range(2):
+            got = [sorted(rs.to_dicts(), key=key) for rs in gpu.query_batch(sqls, plist)]
+            want = [sorted(rs.to_dicts(), key=key) for rs in cpu.query_batch(sqls, plist)]
+            assert got == want
+    plans = [p for v in TE._plan_cache(gsnap).values() for p in v.plans if p.group_replays]
+    assert plans and all(p.lane_axis for p in plans)
+    assert any(p.direct_fetch for p in plans) and any(p._rows_grouped() for p in plans)
+    for p in plans:
+        for g in p.groups.values():
+            assert g.graph is not None and g.nodes > 0
+            assert g.launches.get("compact_indices_lanes", 0) > 0
+            assert g.launches.get("front_pack_lanes", 0) > 0 and g.launches.get("replay_meta_lanes", 0) == 1
+    torch.cuda.synchronize()

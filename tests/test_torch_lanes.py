@@ -18,6 +18,7 @@ axis do, while a rows group stays lane after lane."""
 
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,7 +35,12 @@ from orientdb_tpu_torch.exec.result import canonical_rows
 from orientdb_tpu_torch.ops import csr as K
 from orientdb_tpu_torch.ops.predicates import ColumnScope, ParamBox, compile_predicate
 from orientdb_tpu_torch.sql.parser import Parser, parse
-from orientdb_tpu_torch.storage.bigshape import build_person_knows, build_snb_shape, numpy_config5_count
+from orientdb_tpu_torch.storage.bigshape import (
+    build_person_knows,
+    build_snb_shape,
+    numpy_config5_count,
+    numpy_out_edge_rows,
+)
 from test_torch_match import _carry_arrays
 from test_torch_weight_gather import _jax_chain, _operands, _same_bits, _t
 
@@ -199,6 +205,186 @@ def test_mask_count_lanes_equal_each_lane(n, B):
         assert int(got[b]) == int(K.mask_count(_t(rows[b]))) == int(J.mask_count(jnp.asarray(rows[b])))
 
 
+# ---------------------------------------------------------------------------
+# the rows group's lane forms against the reference under jax.vmap
+# ---------------------------------------------------------------------------
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x)
+
+
+def _rows_csr(rng, v: int = 300, avg: float = 4.0):
+    deg = rng.poisson(avg, v).astype(np.int64)
+    deg[-7:] = 0  # a zero-degree tail
+    indptr = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    nbrs = rng.integers(0, v, int(deg.sum()), dtype=np.int32)
+    return indptr, nbrs
+
+
+def _lane_rows(rng, B: int, k: int, v: int):
+    """B lanes of k sources: lane 0 empty (all -1), lane 1 every vertex's
+    hub run (its total past the caps below), the last lane repeating the
+    one before it (a padding lane)."""
+    rows = [rng.integers(-1, v, k, dtype=np.int32) for _ in range(B)]
+    rows[0][:] = -1
+    if B > 2:
+        rows[1] = np.resize(np.arange(v - 20, v, dtype=np.int32), k)
+        rows[1][: k // 2] = rng.integers(0, v, k // 2, dtype=np.int32)
+    if B > 1:
+        rows[-1] = rows[-2].copy()
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("B", LANES)
+@pytest.mark.parametrize("n", [0, 7, 5_000, 16_400])
+def test_compact_and_scan_lanes_equal_vmap(n, B):
+    """K3's lane form over a [B, n] mask (an empty lane, a full lane whose
+    count passes every cap but the last, a padding lane) equals
+    ``jax.vmap`` of the reference's `compact_indices` and each lane through
+    the single wrapper, exactly, -1 padding included; K1's lane form the
+    vmapped `value_cumsum`."""
+    rng = np.random.default_rng(n * 3 + B)
+    rows = [rng.random(n) < 0.3 for _ in range(B)]
+    rows[0][:] = False
+    if B > 2:
+        rows[1][:] = True
+    if B > 1:
+        rows[-1] = rows[-2].copy()
+    m = np.stack(rows) if n else np.zeros((B, 0), bool)
+    for cap in sorted({8, K.bucket(max(n // 4, 1)), K.bucket(max(n, 1))}):
+        got = K.compact_indices(_t(m), cap)
+        assert got.dtype == I32 and got.shape == (B, cap)
+        want = _np(jax.vmap(lambda x, c=cap: J.compact_indices(x, c))(jnp.asarray(m)))
+        np.testing.assert_array_equal(got.numpy(), want)
+        for b in range(B):
+            assert torch.equal(got[b], K.compact_indices(_t(m[b]), cap))
+    if n:
+        vals = m.astype(np.int32)
+        got = K.value_cumsum(_t(vals))
+        np.testing.assert_array_equal(got.numpy(), _np(jax.vmap(J.value_cumsum)(jnp.asarray(vals))))
+
+
+@pytest.mark.parametrize("B", LANES)
+@pytest.mark.parametrize("k", [1, 64, 3_000])
+@pytest.mark.parametrize("walk", ["out", "in"])
+def test_expand_lanes_equal_vmap(walk, k, B):
+    """K2's lane form (offsets, totals) equals ``jax.vmap`` of the
+    reference's `degree_counts` → `exclusive_cumsum` and sum, and K2b's
+    ``jax.vmap`` of its `gather_expand` (an in walk's edge position through
+    `take_pad` of ``edge_id_in``), into a bucket over every lane, one that
+    fits the largest lane exactly and one that a lane's total exceeds:
+    exactly, padding included, and each lane equals the single wrapper."""
+    rng = np.random.default_rng(k + 7 * B + (walk == "in"))
+    v = 300
+    indptr, nbrs = _rows_csr(rng, v)
+    emap = rng.permutation(nbrs.shape[0]).astype(np.int32)
+    srcs = _lane_rows(rng, B, k, v)
+    counts = jax.vmap(J.degree_counts, in_axes=(None, 0))(jnp.asarray(indptr), jnp.asarray(srcs))
+    want_off = _np(jax.vmap(J.exclusive_cumsum)(counts))
+    want_tot = _np(jnp.sum(counts, axis=1, dtype=jnp.int32))
+    offsets, total = K.expand_offsets(_t(indptr), _t(srcs))
+    assert offsets.shape == (B, k) and total.shape == (B,)
+    np.testing.assert_array_equal(offsets.numpy(), want_off)
+    np.testing.assert_array_equal(total.numpy(), want_tot)
+    most = int(want_tot.max())
+    if B > 2 and k > 8:
+        assert most > 8  # lane 1's total passes the smallest bucket
+    edge_map = _t(emap) if walk == "in" else None
+    for size in sorted({8, max(most, 1), K.bucket(max(most, 1)) * 2}):
+        got = K.gather_expand(_t(indptr), _t(nbrs), _t(srcs), offsets, total, size, edge_map)
+        ref = jax.vmap(
+            lambda s, o, t, c=size: J.gather_expand(jnp.asarray(indptr), jnp.asarray(nbrs), s, o, t, c)
+        )(jnp.asarray(srcs), jnp.asarray(want_off), jnp.asarray(want_tot))
+        ref = [_np(r) for r in ref]
+        if walk == "in":
+            ref[1] = _np(jax.vmap(J.take_pad, in_axes=(None, 0, None))(jnp.asarray(emap), jnp.asarray(ref[1]), -1))
+        for g, w in zip(got, ref):
+            assert g.shape == (B, size)
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=f"size={size}")
+        for b in range(B):
+            one = K.gather_expand(_t(indptr), _t(nbrs), _t(srcs[b]), offsets[b], total[b], size, edge_map)
+            for g, w in zip(got, one):
+                assert torch.equal(g[b], w)
+
+
+@pytest.mark.parametrize("B", LANES)
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.bool_], ids=["i32", "f32", "b8"])
+def test_take_pad_lanes_equal_vmap(dtype, B):
+    """`take_pad` of lane-local [B, m] rows (-1 padding, past-the-end
+    indices) from a lane-stacked [B, n] table (K5's lane stride) and from a
+    shared table (the flattened index) equals ``jax.vmap`` of the
+    reference's `take_pad`, exactly."""
+    rng = np.random.default_rng(B + 5)
+    n, m = 50, 37
+    if dtype == np.int32:
+        vals, fill = rng.integers(-(2**20), 2**20, (B, n), dtype=np.int32), -1
+    elif dtype == np.float32:
+        vals, fill = rng.random((B, n), dtype=np.float32), 0.0
+    else:
+        vals, fill = rng.random((B, n)) < 0.5, False
+    idx = rng.integers(-2, n + 3, (B, m), dtype=np.int32)
+    idx[0] = -1  # an empty lane
+    got = K.take_pad(_t(vals), _t(idx), fill)
+    want = _np(jax.vmap(J.take_pad, in_axes=(0, 0, None))(jnp.asarray(vals), jnp.asarray(idx), fill))
+    assert got.shape == (B, m)
+    np.testing.assert_array_equal(got.numpy(), want)
+    shared = K.take_pad(_t(vals[0]), _t(idx), fill)
+    want = _np(jax.vmap(J.take_pad, in_axes=(None, 0, None))(jnp.asarray(vals[0]), jnp.asarray(idx), fill))
+    np.testing.assert_array_equal(shared.numpy(), want)
+
+
+@pytest.mark.parametrize("B", LANES)
+@pytest.mark.parametrize("direct", [False, True])
+def test_front_pack_and_meta_lanes_equal_reference(direct, B):
+    """K6's and K7's lane forms equal the reference's front-pack of
+    `_CompiledPlan._replay_core` (``compact_indices`` of the valid mask,
+    then ``take_pad`` of each column) and its `_fits16_flag` with the meta
+    row, one lane at a time: an empty lane, a full lane, a lane with a
+    value past int16 among its live rows and one past it only in a dead
+    slot, a padding lane; into a [B, W, C] stack and into a direct-fetch
+    stack's rows."""
+    from orientdb_tpu.exec.tpu_engine import _CompiledPlan as JPlan
+
+    rng = np.random.default_rng(B * 11 + direct)
+    W, C = 64, 3
+    valid = (rng.random((B, W)) < 0.4).astype(np.int32)
+    cols = [rng.integers(-30_000, 30_000, (B, W), dtype=np.int32) for _ in range(C)]
+    valid[0] = 0
+    if B > 2:
+        valid[1] = 1
+        j = int(np.flatnonzero(valid[2])[0]) if valid[2].any() else 0
+        valid[2, j] = 1
+        cols[1][2, j] = 40_000
+    if B > 3:
+        valid[3, 0] = 0
+        cols[0][3, 0] = -50_000  # past int16 in a dead slot only
+    if B > 1:
+        valid[-1] = valid[-2]
+        for c in cols:
+            c[-1] = c[-2]
+    count = valid.sum(axis=1).astype(np.int32)
+    flag = rng.integers(0, 2, B).astype(np.int32)
+    if direct:
+        buf = torch.full((B, W * C + 3), 7, dtype=I32)
+        data = K.front_pack(_t(valid), [_t(c) for c in cols], out=buf[:, : W * C].view(B, W, C))
+        meta = K.replay_meta(data, _t(count), _t(flag), out=buf[:, W * C :])
+    else:
+        data = K.front_pack(_t(valid), [_t(c) for c in cols])
+        meta = K.replay_meta(data, _t(count), _t(flag))
+    assert data.shape == (B, W, C) and meta.shape == (B, 3)
+    for b in range(B):
+        perm = J.compact_indices(jnp.asarray(valid[b] != 0), W)
+        ref = jnp.stack([J.take_pad(jnp.asarray(c[b]), perm, -1) for c in cols])
+        np.testing.assert_array_equal(data[b].numpy(), _np(ref).T)
+        fits = int(JPlan._fits16_flag(ref, jnp.int32(count[b]), W))
+        assert meta[b].tolist() == [int(count[b]), int(flag[b]), fits]
+        one = K.front_pack(_t(valid[b]), [_t(c[b]) for c in cols])
+        assert torch.equal(data[b], one) and torch.equal(meta[b], K.replay_meta(one, torch.tensor(count[b]), torch.tensor(flag[b])))
+    if B > 3:
+        assert meta[2, 2] == 0 and meta[3, 2] == 1
+
+
 def _person_columns(n: int, seed: int):
     """A small vertex universe's device columns (CPU): age with absent
     cells, float lat / lng, and the scope predicates compile against."""
@@ -292,18 +478,29 @@ def _plans(snap, sql):
 
 class _LaneSpy:
     """Counts the lane forms' calls (their wrappers, which on the CPU run
-    the plain versions)."""
+    the plain versions): a count group's, a rows group's, and `take_pad`'s
+    lane stride (``take_pad_lanes``: a call with a lane-stacked table)."""
 
-    NAMES = ("predicate_eval_lanes", "weight_gather_lanes", "indptr_segment_sum_lanes", "mask_count_lanes")
+    NAMES = (
+        "predicate_eval_lanes", "weight_gather_lanes", "indptr_segment_sum_lanes", "mask_count_lanes",
+        "value_cumsum_lanes", "compact_indices_lanes", "expand_offsets_lanes", "gather_expand_lanes",
+        "front_pack_lanes", "replay_meta_lanes",
+    )
 
     def __init__(self, monkeypatch):
-        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.calls = dict.fromkeys(self.NAMES + ("take_pad_lanes",), 0)
         for name in self.NAMES:
             def spy(*a, _f=getattr(K, name), _n=name, **kw):
                 self.calls[_n] += 1
                 return _f(*a, **kw)
 
             monkeypatch.setattr(K, name, spy)
+
+        def take(values, idx, fill, _f=K.take_pad):
+            self.calls["take_pad_lanes"] += values.dim() == 2
+            return _f(values, idx, fill)
+
+        monkeypatch.setattr(K, "take_pad", take)
 
 
 def _group(monkeypatch, db, snap, sql, plist, want, lane_axis=True):
@@ -338,6 +535,11 @@ Q3 = (
     "-knows->{as:g, where:(age < 30)} RETURN p.uid AS p, f.uid AS f, g.uid AS g"
 )
 VAR_Q = "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f, while:($depth < 2)} RETURN count(*) AS n"
+E2 = (
+    "MATCH {class:Person, as:p, where:(uid < :n)}"
+    ".outE('knows'){as:e, where:(creationDate > :d)}.inV(){as:f, where:(age < 30)} "
+    "RETURN p.uid AS p, f.uid AS f, e.creationDate AS cd"
+)
 
 
 @pytest.fixture(scope="module")
@@ -345,6 +547,11 @@ def person_knows():
     jdb, _ = j_build_person_knows(20_000, seed=3)
     db, snap = build_person_knows(20_000, seed=3, device="cpu")
     return jdb, db, snap
+
+
+@pytest.fixture(scope="module")
+def snb():
+    return build_snb_shape(2_000, device="cpu")
 
 
 def test_two_hop_count_group_runs_on_the_lane_axis(monkeypatch, person_knows):
@@ -363,19 +570,119 @@ def test_two_hop_count_group_runs_on_the_lane_axis(monkeypatch, person_knows):
     assert calls["weight_gather_lanes"] >= 3 and calls["indptr_segment_sum_lanes"] >= 3
 
 
-def test_rows_and_var_depth_groups_stay_lane_after_lane(monkeypatch, person_knows):
-    """A rows group (BQ3's shape) and a COUNT whose lane-varying root is
-    expanded by a variable-depth arm keep the lane-after-lane group, and
-    equal the reference."""
+def test_rows_group_runs_on_the_lane_axis(monkeypatch, person_knows):
+    """A rows group of BQ3's shape (Q3 × 16: a lane-varying root, two hops
+    and a shared node mask) takes the lane axis: one group replay runs the
+    root's K15 lane launch, K3's lane form for the roots and each hop's
+    survivors, K2's and K2b's for each hop, K6's and K7's for the pages; and
+    every lane equals the reference's ``engine="tpu"``; lane 5 finds no
+    root (an empty lane), the last lane repeats the one before it."""
     jdb, db, snap = person_knows
-    plist = [{"k": 100 + 10 * i} for i in range(16)]
+    plist = [{"k": 0 if i == 5 else 260 - 10 * i} for i in range(15)] + [{"k": 120}]
     want = [jdb.query(Q3, p, engine="tpu", strict=True).to_dicts() for p in plist]
-    calls = _group(monkeypatch, db, snap, Q3, plist, want, lane_axis=False)
-    assert not any(calls.values())
+    assert want[5] == [] and want[-1] == want[-2]
+    calls = _group(monkeypatch, db, snap, Q3, plist, want)
+    assert calls["predicate_eval_lanes"] == 1 and calls["weight_gather_lanes"] == 0
+    assert calls["compact_indices_lanes"] == 3 and calls["expand_offsets_lanes"] == 2
+    assert calls["gather_expand_lanes"] == 2 and calls["mask_count_lanes"] == 3
+    assert calls["front_pack_lanes"] == 1 and calls["replay_meta_lanes"] == 1
+    assert calls["take_pad_lanes"] > 0
+
+
+def test_var_depth_and_lane_varying_arm_groups_stay_lane_after_lane(monkeypatch, person_knows, snb):
+    """A COUNT whose lane-varying root is expanded by a variable-depth arm,
+    and an E2-shaped rows group (a lane-varying edge WHERE past the root),
+    keep the lane-after-lane group, and equal the reference."""
+    jdb, db, snap = person_knows
     plist = [{"k": 5 + i} for i in range(16)]
     want = [jdb.query(VAR_Q, p, engine="tpu", strict=True).to_dicts() for p in plist]
     calls = _group(monkeypatch, db, snap, VAR_Q, plist, want, lane_axis=False)
     assert not any(calls.values())
+    db, snap = snb
+    young = snap.v_columns["age"].values < 30
+    plist = [{"n": 2_000 - 100 * i, "d": 10_000 + 50 * i} for i in range(16)]
+    want = [
+        [{"p": int(a), "f": int(b), "cd": int(c)} for a, b, c in numpy_out_edge_rows(snap, p["n"], p["d"], young)]
+        for p in plist
+    ]
+    calls = _group(monkeypatch, db, snap, E2, plist, want, lane_axis=False)
+    assert not any(calls.values())
+
+
+def test_e2_shaped_group_equals_both_engines_on_a_carried_graph(monkeypatch):
+    """The E2-shaped rows group (a lane-varying edge WHERE past the root)
+    on a record-backed graph of E2's schema carried into the port: it stays
+    lane after lane, and every lane equals the reference's
+    ``engine="oracle"`` and its ``engine="tpu"`` (which on an array-built
+    snapshot, `build_snb_shape`'s, cannot bind the edge alias: it has no
+    edge records); lane 4 finds no root."""
+    from test_torch_edges import _carry
+
+    rng = np.random.default_rng(7)
+    jdb = JDatabase("e2")
+    jdb.schema.create_vertex_class("Person")
+    jdb.schema.create_edge_class("knows")
+    vs = [jdb.new_vertex("Person", uid=i, age=int(rng.integers(10, 70))) for i in range(300)]
+    for s, d, cd in zip(rng.integers(0, 300, 1_800), rng.integers(0, 300, 1_800), rng.integers(0, 20_000, 1_800)):
+        jdb.new_edge("knows", vs[int(s)], vs[int(d)], creationDate=int(cd))
+    attach_fresh_snapshot(jdb)
+    db, snap = _carry(jdb)
+    plist = [{"n": 0 if i == 4 else 300 - 15 * i, "d": 8_000 + 500 * i} for i in range(16)]
+    want = [jdb.query(E2, p, engine="oracle").to_dicts() for p in plist]
+    for p, rows in zip(plist, want):
+        assert canonical_rows(jdb.query(E2, p, engine="tpu", strict=True).to_dicts()) == canonical_rows(rows), p
+    assert want[4] == [] and all(want[i] for i in range(16) if i != 4)
+    calls = _group(monkeypatch, db, snap, E2, plist, want, lane_axis=False)
+    assert not any(calls.values())
+
+
+DIRECT = "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f} RETURN p.uid AS p, f.uid AS f"
+DIRECT_IN = "MATCH {class:Person, as:p, where:(uid < :k)}<-knows-{as:f} RETURN p.uid AS p, f.uid AS f"
+LIMIT = "MATCH {class:Person, as:p, where:(age > :a)}-knows->{as:f} RETURN p.uid AS p, f.uid AS f LIMIT 5"
+
+
+@pytest.mark.parametrize("sql", [DIRECT, DIRECT_IN, LIMIT], ids=["direct", "in_walk", "limit"])
+def test_direct_fetch_and_limit_groups_run_on_the_lane_axis(monkeypatch, person_knows, sql):
+    """A direct-fetch one-hop group (the lanes' pages and meta rows written
+    straight into the ``[Bb, W·C + 3]`` stack), its in walk (K2b's lane
+    form through ``edge_id_in``) and a LIMIT group take the lane axis, and
+    every lane equals the reference's ``engine="tpu"``; lane 3 finds no
+    root."""
+    jdb, db, snap = person_knows
+    if sql == LIMIT:
+        plist = [{"a": 90 if i == 3 else 40 + 2 * i} for i in range(16)]
+    else:
+        plist = [{"k": 0 if i == 3 else 40 - 2 * i} for i in range(16)]
+    want = [jdb.query(sql, p, engine="tpu", strict=True).to_dicts() for p in plist]
+    assert want[3] == []
+    calls = _group(monkeypatch, db, snap, sql, plist, want)
+    assert calls["predicate_eval_lanes"] == 1 and calls["gather_expand_lanes"] == 1
+    assert calls["compact_indices_lanes"] == 2 and calls["replay_meta_lanes"] == 1
+    plans = [p for p in _plans(snap, sql) if p.group_replays]
+    assert all(p.direct_fetch is (sql != LIMIT) for p in plans)
+
+
+def test_demodb_rows_group_equals_both_engines(monkeypatch):
+    """The reference's own rows-group case (`tests/test_group_dispatch.py`'s
+    ``ROWS_SQL`` × 12 on demodb) on the lane axis: every lane equals the
+    reference's ``engine="tpu"`` and its ``engine="oracle"``."""
+    from orientdb_tpu.storage.ingest import generate_demodb
+    from orientdb_tpu.storage.snapshot import build_snapshot
+    from test_torch_edges import _carry
+
+    jdb = generate_demodb(n_profiles=400, avg_friends=6, seed=5)
+    jdb.attach_snapshot(build_snapshot(jdb))
+    db, snap = _carry(jdb)
+    sql = "MATCH {class:Profiles, as:p, where:(age > :a)}-HasFriend->{as:f} RETURN p.uid AS p, f.uid AS f"
+    plist = [{"a": 20 + (i % 7) * 5} for i in range(12)]
+    plist[0] = {"a": 20}  # recorded first: the widest lane
+    want = []
+    for p in plist:
+        o = jdb.query(sql, p, engine="oracle").to_dicts()
+        assert canonical_rows(jdb.query(sql, p, engine="tpu", strict=True).to_dicts()) == canonical_rows(o)
+        want.append(o)
+    calls = _group(monkeypatch, db, snap, sql, plist, want)
+    assert calls["predicate_eval_lanes"] == 1 and calls["gather_expand_lanes"] == 1
 
 
 E1 = (
@@ -497,3 +804,34 @@ def test_chip_smoke_lane_checks_run_on_the_cpu(person_knows):
             assert torch.equal(got[b], chip_smoke._lane_single(K, name, a, kw, b))
         nbytes, ops, sectors = chip_smoke._lane_bound(torch, name, a, kw)
         assert nbytes > 0 and ops == 0 and sectors >= 0
+
+
+def test_chip_smoke_rows_lane_checks_run_on_the_cpu(person_knows):
+    """The card run's rows-group lane checks, on the CPU where both sides
+    are plain versions: one eager run of BQ3's group body records the rows
+    lane forms' calls (K1's lane form runs inside K6's only on a card),
+    each equal to its plain version and to its single-lane calls lane by
+    lane, with a bound."""
+    import chip_smoke
+
+    _jdb, db, snap = person_knows
+    plist = [{"k": 300 - 12 * i} for i in range(16)]
+    for _ in range(2):
+        db.query_batch([Q3] * 16, plist)
+    (plan,) = [p for p in _plans(snap, Q3) if p.group_replays and p.lane_axis]
+    stack = torch.from_numpy(np.stack([plan._dyn_args(p) for p in plist]))
+    calls = [c for c in chip_smoke.lane_calls(torch, K, plan, stack) if c[0] in chip_smoke.ROWS_LANE_FORMS]
+    assert {name for name, _a, _kw in calls} == set(chip_smoke.ROWS_LANE_FORMS) - {"value_cumsum_lanes"}
+    for name, a, kw in calls:
+        got = getattr(K, name)(*a, **kw)
+        want = chip_smoke._lane_plain(K, name, a, kw)
+        assert chip_smoke._lane_equal(torch, got, want), name
+        for b in range(16):
+            assert chip_smoke._lane_equal(torch, chip_smoke._lane_of(got, b), chip_smoke._lane_single(K, name, a, kw, b)), name
+        nbytes, ops, sectors = chip_smoke._lane_bound(torch, name, a, kw)
+        assert nbytes > 0 and ops == 0 and sectors >= 0
+    vals = torch.from_numpy(np.random.default_rng(1).integers(0, 2, (16, 4096), dtype=np.int32))
+    (name, a, kw) = ("value_cumsum_lanes", (vals,), {})
+    got = K.value_cumsum_lanes(vals)
+    assert chip_smoke._lane_equal(torch, got, chip_smoke._lane_plain(K, name, a, kw))
+    assert all(torch.equal(got[b], chip_smoke._lane_single(K, name, a, kw, b)) for b in range(16))
