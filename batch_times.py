@@ -3,9 +3,12 @@ call can compare two trees on one card: the shared-batch cells BQ1 and BQ2
 (64 × Q1 or Q2, one shared replay), the count group BG1 (G1 × 16, r =
 300 + 500·i) and the rows group BQ3 (Q3 × 16, k = 1000 + 62·i) on the
 Person–knows graph A of ``chip_smoke.py`` (8M persons, ~80M knows, seed
-5), and the count group BE1 (E1 × 64, d = 12,000 + (211·i
-mod 8,000): 4 chunks of 16 lanes) on its SNB-shape graph B (24M vertices,
-seed 7).
+5), and on its SNB-shape graph B (24M vertices, seed 7) the count group
+BE1 (E1 × 64, d = 12,000 + (211·i mod 8,000): 4 chunks of 16 lanes) and
+the rows groups BE2 (E2 × 16, n = 10,000 + 625·i, d = 15,000: an edge
+WHERE on a bare ``.outE()`` arm, then an endpoint arm) and BE5 (E5 × 8,
+n = 1,000 + 125·i, d = 15,000: a binding-reading mask and an OPTIONAL
+closing arm), with ``chip_smoke.py``'s parameters and numpy checks.
 
 For each cell: the first batch checked against numpy, its launches and the
 path its plan took (a group's lane axis, launches a group replay, capture
@@ -19,7 +22,7 @@ after each pair one more batch is split into its ``query_batch`` and its
 ``to_dicts`` host ms; its captured group replay is timed alone (device ms
 a replay, CUDA events over 20 replays).
 
-    python3 batch_times.py [--tree DIR] [--reps N] [--cells BQ1,BQ2,BG1,BQ3,BE1]
+    python3 batch_times.py [--tree DIR] [--reps N] [--cells BQ1,BQ2,BG1,BQ3,BE1,BE2,BE5]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
 package to time; it is imported before anything else, and the file it was
@@ -165,14 +168,27 @@ def main() -> int:
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    if "BE1" in cells:
+    if {"BE1", "BE2", "BE5"} & set(cells):
         sdb, ssnap = build_snb_shape(8_000_000, msgs_per_person=2, avg_knows=10, seed=7)
         device_graph(ssnap, sdb.device)
         torch.cuda.synchronize()
+    if "BE1" in cells:
         ds = [12_000 + (i * 211) % 8_000 for i in range(64)]
         counts = cs.numpy_config5_counts(ssnap, ds)
         check = lambda i, rows: cs._require(rows == [{"n": counts[i]}], f"BE1 item {i}")  # noqa: E731
         timed("BE1", sdb, cs.E1, [{"d": d} for d in ds], 64, check, "group", [(cs.E1, {"d": min(ds)})])
+    if "BE2" in cells:
+        ns2 = [10_000 + 625 * i for i in range(16)]
+        e2_all = cs.numpy_out_edge_rows(ssnap, max(ns2), 15_000, ssnap.v_columns["age"].values < 30)
+        check = cs._rows_check(np, "BE2", lambda i: cs._below(e2_all, ns2[i]), ("p", "f", "cd"))
+        timed("BE2", sdb, cs.E2, [{"n": n, "d": 15_000} for n in ns2], 16, check, "group",
+              [(cs.E2, {"n": max(ns2), "d": 15_000})])
+    if "BE5" in cells:
+        ns5 = [1_000 + 125 * i for i in range(8)]
+        e5_all = cs.numpy_probe_rows(ssnap, max(ns5), 15_000)
+        check = cs._rows_check(np, "BE5", lambda i: cs._below(e5_all, ns5[i]), ("p", "f", "probe"))
+        timed("BE5", sdb, cs.E5, [{"n": n, "d": 15_000} for n in ns5], 8, check, "group",
+              [(cs.E5, {"n": max(ns5), "d": 15_000})])
     print(json.dumps({"tree": tree, "kernels": K.__file__, "card": card, "q/s batched": readings}))
     return 0
 

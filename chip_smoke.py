@@ -30,7 +30,11 @@ from the root of a checkout. Phases, each of which raises on failure:
    synthetic slots with ~10 % absent values, ids with -1 and past-end
    entries, identity mode, binding rows, the WHILE level and a parameter
    row (distance() masks outside the boundary band: float64 distance
-   within 0.01 km + 1e-5·r of r), with split launches against one, then
+   within 0.01 km + 1e-5·r of r), with split launches against one; its
+   lane form against 16 parameter rows (`check_predicate_lanes`) and its
+   stacked form over 16 lanes of 2^20 lane-stacked ids, binding rows and
+   split values (`check_predicate_stacked`) lane by lane against the single
+   kernel and the plain version; then
    timed on Q1's two node masks over the 2^23-vertex universe, on G1's
    (beside its byte and operation bounds) and on guarded programs whose
    first conjunct rejects every slot or none. K4 (the merge-path segment
@@ -161,22 +165,26 @@ from the root of a checkout. Phases, each of which raises on failure:
    plans: one replay each, pages elected from each plan's ladder, order
    kept), BQ3o (BQ3 with lane 15 at k = 50,000: that lane alone
    re-records), BE1 (E1 × 64, `bench.py:372-377`: a count group of 16
-   lanes in 4 chunks), BE2 (E2 × 16: a rows group with edge columns) and
-   BE5 (E5 × 8, K13 inside the lanes), BG1 (G1 × 16, r = 300 + 500·i:
+   lanes in 4 chunks), BE2 (E2 × 16: a rows group with edge columns and a
+   lane-varying edge WHERE past the root) and BE5 (E5 × 8: a binding-reading
+   mask and an OPTIONAL closing arm), BG1 (G1 × 16, r = 300 + 500·i:
    a count group) and BQD (the direct rows × 16, k = 100 − 4·i: a
    direct-fetch group). BG1 and BE1 must run on the lane axis
    (``plan.lane_axis``: one replay over the 16 lanes' parameter stack, the
    lane forms of K15, K5a, K4 and K5b inside it), and so must BQ3, BQD and
    BQ3o's lanes 0–14 (the lane forms of K15, K5b, K3, K2, K2b, K5's lane
-   stride, K1 and K6/K7). Every item equals numpy
+   stride, K1 and K6/K7), and BE2 and BE5 (with them K15's stacked form over
+   an arm's lane-stacked ids, and in BE5 K13's lane form). Every item equals numpy
    (BG1 outside the band); K15 launches in both graphs' batch cells. The
    lane forms are held at BG1's, BE1's and BQ3's shapes (each call of one
    eager run of the group body) against their plain versions and, lane by
    lane, against the single-lane kernels, and timed eager and in a graph
-   beside their bounds and beside B single-lane launches; each group's
-   captured replay is timed, and BQ3's group is captured anew on the lane
-   axis and lane after lane in the same run: each route's launches, graph
-   nodes, capture peak bytes and device ms a replay side by side. Each cell
+   beside their bounds and beside B single-lane launches (K15's stacked form
+   and K13's lane form at BE5's and BE2's shapes, with K13's ``out``); each
+   group's captured replay is timed, and the groups of BQ3, BE5 and BE2 are
+   captured anew on the lane axis and lane after lane in the same run: each
+   route's launches, graph nodes, capture peak bytes and device ms a replay
+   side by side. Each cell
    prints its path, each group's capture ms, graph nodes, launches per
    group replay and reserved bytes, its batch q/s (the reference's
    statistic, `bench.py:273`) beside the same items as sequential
@@ -376,6 +384,9 @@ REPLACES = {
     "take_pad_lanes": "orientdb_tpu/ops/csr.py:211",
     "front_pack_lanes": "orientdb_tpu/exec/tpu_engine.py:3030",
     "replay_meta_lanes": "orientdb_tpu/exec/tpu_engine.py:3041",
+    # past the root (BE2, BE5): K15 over lane-stacked ids, K13's lane form
+    "predicate_eval_stacked": "orientdb_tpu/ops/predicates.py:550",
+    "rows_with_matches_lanes": "orientdb_tpu/ops/csr.py:283",
 }
 BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop_csr", "bitmap_emit", "frontier_advance"]
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
@@ -393,12 +404,20 @@ ROWS_LANE_FORMS = {
     "front_pack_lanes": "front_pack_lanes",
     "replay_meta_lanes": "replay_meta_lanes",
 }
+#: the lane forms of a rows group's arms past the root (BE2, BE5): K15 over
+#: lane-stacked ids (an arm's mask that reads a parameter) and K13's lane
+#: form (an OPTIONAL arm's left join)
+ARM_LANE_FORMS = {
+    "predicate_eval_stacked": "predicate_eval_stacked",
+    "rows_with_matches_lanes": "rows_with_matches_lanes",
+}
 LANE_FORMS = {
     "predicate_eval_lanes": "predicate_eval_lanes",
     "weight_gather_lanes": "weight_gather_lanes_i32",
     "indptr_segment_sum_lanes": "segment_sum_lanes_i32",
     "mask_count_lanes": "mask_count_lanes",
     **ROWS_LANE_FORMS,
+    **ARM_LANE_FORMS,
 }
 LANE_KERNELS = tuple(dict.fromkeys(LANE_FORMS.values()))
 #: the kernels only the batch path launches (phase 7)
@@ -2217,6 +2236,16 @@ def time_predicate_kernel(np, torch, K, ks, db, card: str) -> None:
         f"{checked} programs of {len(K15_LANE_WHERES)} WHEREs over 2^23 slots and 16 parameter rows, ids and "
         f"identity mode; distance() band slots {band} ({time.perf_counter() - t0:.1f} s)"
     )
+    t0 = time.perf_counter()
+    band, checked = check_predicate_stacked(np, torch, K, 1 << 20, 16)
+    torch.cuda.synchronize()
+    gc.collect()
+    print(
+        f"kernel predicate_eval_stacked: equals its plain version and the single kernel lane by lane on "
+        f"{checked} launches of {len(K15_LANE_WHERES) + 1} WHEREs (the last split) over 16 lanes of 2^20 "
+        f"lane-stacked ids and binding rows, ids and identity mode; distance() band slots {band} "
+        f"({time.perf_counter() - t0:.1f} s)"
+    )
     solver = TpuMatchSolver(db, parse(Q1), {})
     V = solver.dg.num_vertices
     vb = solver._vb()
@@ -3555,14 +3584,17 @@ def lane_calls(torch, K, plan, stack):
     """One eager run of ``plan``'s group body on the lane axis over the
     parameter stack ``stack``, recording each lane form's arguments (the
     shapes the main path gives it) in call order (`take_pad`'s only with a
-    lane-stacked table: its lane stride); its launches are not counted."""
+    lane-stacked table: its lane stride; K13's without the counts it adds
+    into); its launches are not counted."""
     counted = dict(K.LAUNCHES)
     calls = []
     orig = {name: getattr(K, name) for name in LANE_FORMS}
 
     def spy(name):
         def call(*a, **kw):
-            if name != "take_pad" or a[0].dim() == 2:
+            if name == "rows_with_matches_lanes":
+                calls.append((name, a[:3], {}))
+            elif name != "take_pad" or a[0].dim() == 2:
                 calls.append((name, a, kw))
             return orig[name](*a, **kw)
 
@@ -3626,6 +3658,14 @@ def _lane_single(K, name, a, kw, b):
     if name == "predicate_eval_lanes":
         prog, bufs, ids, n, n_valid, base, depth, params = a
         return K.predicate_eval(prog, bufs, ids, n, n_valid, base, depth, params[b])
+    if name == "predicate_eval_stacked":
+        lane = lambda t: t[b] if t is not None and t.dim() == 2 else t  # noqa: E731
+        prog, bufs, ids, n, n_valid, base, depth, params, values = a
+        bufs = [lane(t) for t in bufs]
+        return K.predicate_eval(prog, bufs, lane(ids), n, n_valid, base, depth, lane(params), values)
+    if name == "rows_with_matches_lanes":
+        rows, mask, nseg = a
+        return K.rows_with_matches(rows[b], mask[b], nseg)
     if name == "weight_gather_lanes":
         lane = lambda t: t[b] if t is not None and t.dim() == 2 else t  # noqa: E731
         emit, dtype, *rest = a
@@ -3648,6 +3688,20 @@ def _lane_bound(torch, name, a, kw):
         per_slot = sum(t.element_size() for t in bufs) + (4 if ids is not None else 0)
         dist = any(r[0] == 20 for r in prog.rows)  # PredOp.DIST
         return per_slot * n + B * n, (G1_SLOT_OPS * n * B if dist else 0.0), 0
+    if name == "predicate_eval_stacked":
+        # each lane's ids, lane-stacked buffers and outputs once; a shared
+        # buffer (a column or table) at most once a live id, at most whole
+        prog, bufs, ids, _n, _nv, _b, _d, params, values = a
+        B, n = ids.shape
+        live = int((ids >= 0).sum())
+        nbytes = 4.0 * B * n + (1 + 4 * bool(values)) * B * n
+        for t in bufs:
+            nbytes += t.numel() * t.element_size() if t.dim() == 2 else min(t.numel(), live) * t.element_size()
+        dist = any(r[0] == 20 for r in prog.rows)  # PredOp.DIST
+        return nbytes, (G1_SLOT_OPS * live if dist else 0.0), live
+    if name == "rows_with_matches_lanes":
+        rows, _mask, nseg = a
+        return 5.0 * rows.numel() + 4.0 * rows.shape[0] * nseg, 0.0, 0
     if name == "weight_gather_lanes":
         emit, _dtype, *rest = a
         ops = dict(zip(("ok", "node_ok", "emask", "eid", "w"), rest), **kw)
@@ -3706,8 +3760,9 @@ def _lane_library(torch, name, a):
     """The one PyTorch call that computes a lane form's function on the same
     inputs, as the single rows' yardsticks do (`torch.cumsum`, `torch.gather`
     on the clamped lane-local index, `torch.nonzero`, `torch.count_nonzero`,
-    `torch.segment_reduce` along the lanes' edges), or None where no single
-    call computes it (K2's sizing, K2b's merge path, K6, K7, K15, K5a)."""
+    `torch.segment_reduce` along the lanes' edges, `Tensor.scatter_add_` of
+    K13's counts), or None where no single call computes it (K2's sizing,
+    K2b's merge path, K6, K7, K15's lane and stacked forms, K5a)."""
     if name == "value_cumsum_lanes":
         vals = a[0]
         return lambda: torch.cumsum(vals, 1, dtype=vals.dtype)
@@ -3725,6 +3780,14 @@ def _lane_library(torch, name, a):
         vals, indptr, _out_size = a
         offsets = indptr.expand(vals.shape[0], -1).contiguous()
         return lambda: torch.segment_reduce(vals, "sum", offsets=offsets, axis=1)
+    if name == "rows_with_matches_lanes":
+        # `scatter_add_` along the lanes' rows of the clamped, masked rows
+        rows, mask, nseg = a
+        ok = mask & (rows >= 0) & (rows < nseg)
+        idx = torch.where(ok, rows, 0).long()
+        src = ok.to(torch.int32)
+        shape = (rows.shape[0], nseg)
+        return lambda: torch.zeros(shape, dtype=torch.int32, device=rows.device).scatter_add_(1, idx, src)
     return None
 
 
@@ -3763,6 +3826,10 @@ def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None, 
                 _require(bool(band_of(b, slots).all()), f"{cell}: {name} lane {b} differs outside the band")
         else:
             ks.same(kname, got, want)
+        if name == "rows_with_matches_lanes":
+            # with ``out`` the counts add into each lane's row
+            acc = torch.ones_like(want)
+            _require(torch.equal(K.rows_with_matches_lanes(*a, out=acc), want + 1), f"{cell}: {name} with out")
         size = (got[0] if isinstance(got, tuple) else got).numel()
         if size >= largest.get(name, (0,))[0]:
             largest[name] = (size, a, kw)
@@ -3818,7 +3885,12 @@ def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None, 
 def run_batches_snb(np, torch, K, ks, db, snap, card):
     """Phase 7b: the batch cells on the SNB-shape graph, the plan cache
     cleared first; BE1's lane forms against their plain versions
-    (`check_lane_kernels`). Returns the peak device bytes allocated."""
+    (`check_lane_kernels`). BE2 and BE5 must run on the lane axis: K15's
+    stacked form (BE2's edge WHERE, BE5's closing arm) and K13's lane form
+    (BE5's OPTIONAL arm) are held at their shapes (BE5's first, so that the
+    JSON row of K15's stacked form is BE2's larger call), and each group is
+    captured anew on both routes (`compare_group_routes`). Returns the peak
+    device bytes allocated."""
     from orientdb_tpu_torch.exec import tpu_engine as TE
 
     TE._plan_cache(snap).clear()
@@ -3841,26 +3913,37 @@ def run_batches_snb(np, torch, K, ks, db, snap, card):
                   _rows_check(np, "BE2", lambda i: _below(e2_all, ns2[i]), ("p", "f", "cd")), "group",
                   warm=[(E2, {"n": max(ns2), "d": 15_000})]),
         BatchCell("BE5", [E5] * 8, [{"n": n, "d": 15_000} for n in ns5],
-                  _rows_check(np, "BE5", lambda i: _below(e5_all, ns5[i]), ("p", "f", "probe")), None,
+                  _rows_check(np, "BE5", lambda i: _below(e5_all, ns5[i]), ("p", "f", "probe")), "group",
                   warm=[(E5, {"n": max(ns5), "d": 15_000})]),
     )
+    plans = {}
     for cell in cells:
-        k13 = K.LAUNCHES["rows_with_matches"]
         ((plan, _dr, dg),) = run_batch_cell(torch, K, TE, db, snap, card, cell)
+        plans[cell.name] = plan
         if cell.name == "BE1":
             _require(
                 plan.count_name is not None and plan._group_lane_cap() == 16 and dg == 4 and plan.lane_axis,
                 f"BE1: not a count group of 16 lanes in 4 chunks on the lane axis ({dg} chunks)",
             )
             check_lane_kernels(np, torch, K, ks, plan, plan.groups[16].stack.clone(), "BE1", card)
-        elif cell.name == "BE2":
-            _require(plan._rows_grouped(), "BE2 is not a rows group")
-        else:
-            print(f"batch BE5: batchable {plan.batchable()}, rows group {plan._rows_grouped()}")
-            _require(
-                db.device.type != "cuda" or K.LAUNCHES["rows_with_matches"] > k13,
-                "BE5: rows_with_matches never launched",
-            )
+            continue
+        B = len(cell.sqls)
+        print(
+            f"batch {cell.name}: batchable {plan.batchable()}, rows group {plan._rows_grouped()}, "
+            f"lane axis {plan.lane_axis}"
+        )
+        _require(plan._rows_grouped() and B in plan.groups, f"{cell.name} is not a rows group of {B} lanes")
+        _require(plan.lane_axis, f"{cell.name} did not run on the lane axis")
+        launched = plan.groups[B].launches
+        want = ["predicate_eval_stacked"] + (["rows_with_matches_lanes"] if cell.name == "BE5" else [])
+        missing = [n for n in want if not launched.get(n)]
+        _require(db.device.type != "cuda" or not missing, f"{cell.name}: {missing} not in the group replay")
+    for name, forms in (("BE5", ARM_LANE_FORMS), ("BE2", ["predicate_eval_stacked"])):
+        plan = plans[name]
+        B = max(plan.groups)
+        stack = plan.groups[B].stack.clone()
+        check_lane_kernels(np, torch, K, ks, plan, stack, name, card, forms=forms)
+        compare_group_routes(torch, K, plan, stack.cpu().numpy(), name, card)
     return max(c.peak_bytes for c in cells)
 
 
@@ -5482,6 +5565,97 @@ def check_predicate_lanes(np, torch, K, n: int, lanes: int, seed: int = 15, devi
                 _require(not (diff & ~band).any(), f"K15 lanes {where!r} ({mode}) lane {b} differs outside the band")
                 band_total += int(band.sum())
             checked += 1
+    return band_total, checked
+
+
+#: K15's stacked form: `K15_LANE_WHERES`, then the long WHERE of
+#: `K15_WHERES` with parameters and binding rows, split into launches of
+#: stack 4 and 8 buffers (each launch's [B, n] values read by the next)
+K15_STACKED_LONG = K15_WHERES[-1] + " AND i < p.i + :k AND f > :x"
+
+
+def check_predicate_stacked(np, torch, K, n: int, lanes: int, seed: int = 15, device: str = "cuda"):
+    """K15's stacked form on ``lanes`` × ``n`` synthetic slots
+    (`k15_snapshot`): each WHERE of `K15_LANE_WHERES` and the split
+    `K15_STACKED_LONG` over lane-stacked ids (each lane its own, with -1
+    and past-end entries; lane 0 all padding) and in identity mode, with
+    lane-stacked binding rows, against a ``[lanes, P]`` parameter stack:
+    every launch's lane b equals the single kernel on lane b's ids, rows,
+    earlier values and parameter row exactly, and the plain version's lane
+    b exactly (a distance() mask outside lane b's boundary band); over ids
+    the mask through `Predicate` (the engine's path) equals the launches'.
+    Returns (band slots, launches checked). On a CPU ``device`` both sides
+    are plain versions."""
+    from orientdb_tpu_torch.ops.device_graph import DeviceGraph
+    from orientdb_tpu_torch.ops.predicates import ColumnScope, ParamBox, Predicate, compile_where, pack_params
+    from orientdb_tpu_torch.sql.parser import parse
+
+    dev = torch.device(device)
+    snap = k15_snapshot(np, n, seed)
+    dg = DeviceGraph(snap, dev)
+    rng = np.random.default_rng(seed + 3)
+    ids_np = rng.integers(-1, n + 3, (lanes, n)).astype(np.int32)
+    ids_np[0] = -1
+    rows_np = rng.integers(-1, n + 2, (lanes, n)).astype(np.int32)
+    ids, rows = torch.from_numpy(ids_np).to(dev), torch.from_numpy(rows_np).to(dev)
+    params = k15_lane_params(lanes)
+    lat, lng = snap.v_columns["lat"].values, snap.v_columns["lng"].values
+    base, n_valid = 5, n - n // 3
+    band_total, checked = 0, 0
+    for where in K15_LANE_WHERES + [K15_STACKED_LONG]:
+        split = where == K15_STACKED_LONG
+        box = ParamBox(params[0])
+        scope = ColumnScope(
+            dg.columns, dg.non_columnar, device=dev, binding_columns=dg.columns, visible_aliases={"p"}
+        )
+        term = compile_where(parse(f"SELECT FROM V WHERE {where}").where, scope, box, allow_depth=True)
+        kw = dict(max_stack=4, max_bufs=8) if split else {}
+        pred = Predicate([term], dev, box, uses_bindings=True, **kw)
+        _require(pred.uses_params and (len(pred.programs) > 1) == split, f"K15 stacked: {where!r} programs")
+        stack = torch.from_numpy(np.stack([pack_params(p, box.used) for p in params])).to(dev)
+        for mode in ("ids", "identity"):
+            env = {"bindings": {"p": rows}, "depth": K15_DEPTH}
+            a = (ids, n, n, 0) if mode == "ids" else (None, n, n_valid, base)
+            tmps, singles = [], [[] for _ in range(lanes)]
+            for prog in pred.programs:
+                bufs = prog.buffers(env, tmps, n)
+                got = K.predicate_eval_stacked(prog.prog, bufs, *a, K15_DEPTH, stack, values=True)
+                want = K.plain_predicate_eval_stacked(prog.prog, bufs, *a, K15_DEPTH, stack, values=True)
+                _require(got[1].shape == (lanes, n), f"K15 stacked {where!r}: shape {tuple(got[1].shape)}")
+                for b in range(lanes):
+                    a_b = (ids[b], n, n, 0) if mode == "ids" else a
+                    bufs_b = prog.buffers({"bindings": {"p": rows[b]}, "depth": K15_DEPTH}, singles[b], n)
+                    one = K.predicate_eval(prog.prog, bufs_b, *a_b, K15_DEPTH, stack[b], values=True)
+                    _require(
+                        torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1]),
+                        f"K15 stacked {where!r} ({mode}) lane {b} != the single kernel",
+                    )
+                    singles[b].append(one)
+                    if "distance" not in where:
+                        _require(
+                            torch.equal(got[0][b], want[0][b]) and torch.equal(got[1][b], want[1][b]),
+                            f"K15 stacked {where!r} ({mode}) lane {b} differs from plain",
+                        )
+                        continue
+                    diff = (got[1][b] != want[1][b]).cpu().numpy()
+                    slots = np.arange(n)
+                    slot_ids = ids_np[b] if mode == "ids" else np.where(slots < n_valid, slots + base, -1)
+                    at = np.clip(slot_ids, 0, n - 1)
+                    x, y, r = (40.0, -3.5, 4000.0) if split else (params[b]["x"], params[b]["y"], params[b]["r"])
+                    band = distance_band(np, numpy_distance_km(lat[at], lng[at], x, y), r)
+                    _require(
+                        not (diff & ~band).any(), f"K15 stacked {where!r} ({mode}) lane {b} differs outside the band"
+                    )
+                    band_total += int(band.sum())
+                tmps.append(got)
+                checked += 1
+            if mode == "ids":
+                box.set_row(stack)
+                try:
+                    mask = pred(ids, env)
+                finally:
+                    box.reset()
+                _require(torch.equal(mask, tmps[-1][1]), f"K15 stacked {where!r}: the Predicate's mask differs")
     return band_total, checked
 
 

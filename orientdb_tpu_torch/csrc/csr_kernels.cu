@@ -2550,11 +2550,18 @@ __global__ void frontier_advance_kernel(unsigned char* __restrict__ nxt,
 // a warp's 32 slots name one or two rows: __match_any_sync groups the lanes
 // by row and the lowest lane of each group adds the group's size, one
 // integer atomic a distinct row a warp (integer adds commute: exact).
+// The lane form (under the reference's vmap of a group replay): rows and
+// mask [lanes, w] of lane-local rows, out [lanes, nseg]; blockIdx.y is the
+// lane, which reads and adds only its own rows. The single form is the
+// lane form at one lane. Bound: lanes times the single form's bytes.
 // ---------------------------------------------------------------------------
 __global__ void rows_with_matches_kernel(const int* __restrict__ rows,
                                          const unsigned char* __restrict__ mask,
                                          long long w, long long nseg,
                                          unsigned* __restrict__ out) {
+  rows += static_cast<long long>(blockIdx.y) * w;
+  mask += static_cast<long long>(blockIdx.y) * w;
+  out += static_cast<long long>(blockIdx.y) * nseg;
   const int lane = threadIdx.x & 31;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long base = static_cast<long long>(blockIdx.x) * kThreads + (threadIdx.x & ~31);
@@ -2721,6 +2728,18 @@ void launch_group_page(const int* in, long long src_run, long long lanes, long l
 // card (PERF.md §6): 8 slots a thread beat 4; 16 would need more shared
 // memory than a deep program's stack leaves; a one-wave grid looping over
 // tiles was no faster than grid_for's.
+// The stacked form (K15 over lane-stacked ids, under the reference's vmap of
+// a group replay): blockIdx.y is the lane. Lane b reads ids + b*n, its
+// parameter row params + b*pstride and writes out + b*n; each buffer has a
+// lane stride, 0 for what the lanes share (columns, code and class tables)
+// and n for what is lane-stacked (slot-aligned binding rows, a split
+// program's earlier values and presence: the `lane_bufs` bits). Nothing is
+// cached across lanes, so the shared memory is the single form's and a
+// split program runs too. The single form is the stacked form at one lane,
+// the same body instantiated without the lane offsets (kStacked false: with
+// them it ran 1.7-2.7 % slower in a graph, PERF.md §6).
+// Bound: the single form's bytes a lane (ids, gathers and mask bytes a
+// lane; the shared columns through L2).
 // ---------------------------------------------------------------------------
 constexpr int kStack = 16;     // a program's stack need at most (PRED_STACK)
 constexpr int kMaxBufs = 32;   // buffers a launch reads (PRED_BUFS)
@@ -2763,6 +2782,8 @@ struct PredArgs {
   int depth;
   int nbufs;
   int need;                // the program's stack need: entries in shared memory
+  unsigned lane_bufs;      // the stacked form: bit k set when buf[k] is lane-stacked
+  long long pstride;       // the stacked form: params' lane stride (0: one row shared)
   const void* buf[kMaxBufs];
   long long blen[kMaxBufs];
 };
@@ -2842,6 +2863,22 @@ __device__ __forceinline__ void pred_column(const PredArgs& a, int vbuf, int pbu
   tp = pred_bits([&](int v) { return pb[v] != 0; });
 }
 
+// The block's lane in the stacked form (blockIdx.y, a grid row a lane); the
+// single and lane forms compile no lane offset.
+template <bool kStacked>
+__device__ __forceinline__ long long pred_lane() {
+  return kStacked ? static_cast<long long>(blockIdx.y) : 0;
+}
+
+// A slot-aligned buffer of the block's lane: lane-stacked ones ([lanes, n],
+// a lane_bufs bit) at the lane's row, shared ones as they are.
+template <bool kStacked, typename T>
+__device__ __forceinline__ const T* pred_slot_buf(const PredArgs& a, int k) {
+  const T* p = static_cast<const T*>(a.buf[k]);
+  if (!kStacked) return p;
+  return ((a.lane_bufs >> k) & 1u) ? p + pred_lane<kStacked>() * a.n : p;
+}
+
 // A slot-aligned array (binding rows, an earlier launch's values) at slots
 // i0 .. i0 + kPredV - 1, for the live ones (`dead` elsewhere).
 __device__ __forceinline__ void pred_slots(const unsigned* p, long long i0, long long n,
@@ -2914,6 +2951,7 @@ __device__ __forceinline__ void pred_class(const PredArgs& a, int cbuf, int tbuf
 }
 
 // The instructions that push: the current top has been saved below.
+template <bool kStacked>
 __device__ __forceinline__ void pred_push(const PredArgs& a, int4 ins, const int (&id)[kPredV],
                                           long long i0, unsigned live, bool run,
                                           unsigned (&tv)[kPredV], unsigned& tp) {
@@ -2921,7 +2959,7 @@ __device__ __forceinline__ void pred_push(const PredArgs& a, int4 ins, const int
     case kCol: pred_column(a, ins.y, ins.z, id, live, run, tv, tp); break;
     case kBCol: {
       unsigned r[kPredV];
-      pred_slots(static_cast<const unsigned*>(a.buf[ins.w]), i0, a.n, live, 0xffffffffu, r);
+      pred_slots(pred_slot_buf<kStacked, unsigned>(a, ins.w), i0, a.n, live, 0xffffffffu, r);
       int rows[kPredV];
 #pragma unroll
       for (int v = 0; v < kPredV; ++v) rows[v] = static_cast<int>(r[v]);
@@ -2934,7 +2972,7 @@ __device__ __forceinline__ void pred_push(const PredArgs& a, int4 ins, const int
       tp = ins.z ? kPredAll : 0u;
       break;
     case kParam: {
-      const unsigned p = static_cast<unsigned>(__ldg(a.params + ins.y));
+      const unsigned p = static_cast<unsigned>(__ldg(a.params + pred_lane<kStacked>() * a.pstride + ins.y));
 #pragma unroll
       for (int v = 0; v < kPredV; ++v) tv[v] = p;
       tp = kPredAll;
@@ -2946,8 +2984,8 @@ __device__ __forceinline__ void pred_push(const PredArgs& a, int4 ins, const int
       tp = kPredAll;
       break;
     case kTmp:
-      pred_slots(static_cast<const unsigned*>(a.buf[ins.y]), i0, a.n, live, 0u, tv);
-      tp = pred_slot_bits(static_cast<const unsigned char*>(a.buf[ins.z]), i0, a.n, live);
+      pred_slots(pred_slot_buf<kStacked, unsigned>(a, ins.y), i0, a.n, live, 0u, tv);
+      tp = pred_slot_bits(pred_slot_buf<kStacked, unsigned char>(a, ins.z), i0, a.n, live);
       break;
     case kMask:
 #pragma unroll
@@ -3065,8 +3103,9 @@ constexpr unsigned kPredLoads = (1u << kCol) | (1u << kBCol) | (1u << kClass) | 
 // top's values in tv. kLanes (the lane form): a push that reads a buffer
 // takes its values from the tile's cache (cval / cpm, entry c the
 // program's c-th such push), and PARAM reads `params`, the lane's row in
-// shared memory; otherwise PARAM reads a.params in device memory.
-template <bool kLanes>
+// shared memory; otherwise PARAM reads a.params in device memory (the
+// block's lane's row in the stacked form, kStacked).
+template <bool kLanes, bool kStacked>
 __device__ __forceinline__ unsigned pred_run(const PredArgs& a, const int4* prog, bool prog_in_smem,
                                              unsigned* sval, unsigned* spm, const unsigned* cval,
                                              const unsigned* cpm, const int* params,
@@ -3103,7 +3142,7 @@ __device__ __forceinline__ unsigned pred_run(const PredArgs& a, const int4* prog
         for (int v = 0; v < kPredV; ++v) tv[v] = p;
         tp = kPredAll;
       } else {
-        pred_push(a, ins, id, i0, live, run, tv, tp);
+        pred_push<kStacked>(a, ins, id, i0, live, run, tv, tp);
       }
       continue;
     }
@@ -3220,13 +3259,15 @@ __device__ __forceinline__ unsigned pred_run(const PredArgs& a, const int4* prog
 }
 
 // A tile's slot ids: kPredV consecutive slots from i0, from the id array
-// (16-byte loads where aligned) or in identity mode (base + i below
-// n_valid, else -1).
+// (the block's lane's row; 16-byte loads where aligned) or in identity mode
+// (base + i below n_valid, else -1).
+template <bool kStacked>
 __device__ __forceinline__ void pred_ids(const PredArgs& a, long long i0, bool whole, int (&id)[kPredV]) {
-  if (a.ids && whole && pred_aligned(a.ids + i0, 16)) {
+  const int* ids = a.ids ? a.ids + pred_lane<kStacked>() * a.n : nullptr;
+  if (ids && whole && pred_aligned(ids + i0, 16)) {
 #pragma unroll
     for (int q = 0; q < kPredV / 4; ++q) {
-      const int4 w = __ldg(reinterpret_cast<const int4*>(a.ids + i0) + q);
+      const int4 w = __ldg(reinterpret_cast<const int4*>(ids + i0) + q);
       id[4 * q] = w.x;
       id[4 * q + 1] = w.y;
       id[4 * q + 2] = w.z;
@@ -3236,8 +3277,8 @@ __device__ __forceinline__ void pred_ids(const PredArgs& a, long long i0, bool w
 #pragma unroll
     for (int v = 0; v < kPredV; ++v) {
       const long long i = i0 + v;
-      if (a.ids) {
-        id[v] = i < a.n ? __ldg(a.ids + i) : -1;
+      if (ids) {
+        id[v] = i < a.n ? __ldg(ids + i) : -1;
       } else {
         id[v] = i < a.n_valid ? static_cast<int>(a.base + i) : -1;
       }
@@ -3266,6 +3307,7 @@ __device__ __forceinline__ void pred_store_mask(unsigned char* out, long long i0
   }
 }
 
+template <bool kStacked>
 __global__ void __launch_bounds__(kThreads)
     predicate_eval_kernel(const __grid_constant__ PredArgs a, int prog_smem) {
   extern __shared__ __align__(16) unsigned char pred_smem[];
@@ -3282,30 +3324,34 @@ __global__ void __launch_bounds__(kThreads)
   // spm[k * kThreads + tid]
   unsigned* sval = reinterpret_cast<unsigned*>(pred_smem + prog_smem);
   unsigned* spm = sval + static_cast<long long>(a.need - 1) * kPredV * kThreads;
+  // the block's lane (the stacked form; 0 in the single form)
+  const long long lane_off = pred_lane<kStacked>() * a.n;
+  unsigned char* out_p = a.out_p + lane_off;
+  int* out_v = a.out_v ? a.out_v + lane_off : nullptr;
   const long long step = static_cast<long long>(gridDim.x) * kPredTile;
   for (long long t0 = static_cast<long long>(blockIdx.x) * kPredTile; t0 < a.n; t0 += step) {
     const long long i0 = t0 + static_cast<long long>(tid) * kPredV;
     const bool whole = i0 + kPredV <= a.n;
     int id[kPredV];
-    pred_ids(a, i0, whole, id);
+    pred_ids<kStacked>(a, i0, whole, id);
     // slots past n are dead from the start; a GUARD kills more
     const unsigned live = pred_bits([&](int v) { return i0 + v < a.n; });
     const bool run = a.ids == nullptr && whole && i0 + kPredV <= a.n_valid;
     unsigned tv[kPredV];
-    const unsigned res = pred_run<false>(a, prog, prog_smem != 0, sval, spm, nullptr, nullptr, nullptr,
-                                         id, i0, live, run, tv);
-    pred_store_mask(a.out_p, i0, a.n, whole, res);
-    if (a.out_v) {
-      if (whole && pred_aligned(a.out_v + i0, 16)) {
+    const unsigned res = pred_run<false, kStacked>(a, prog, prog_smem != 0, sval, spm, nullptr, nullptr,
+                                                   nullptr, id, i0, live, run, tv);
+    pred_store_mask(out_p, i0, a.n, whole, res);
+    if (out_v) {
+      if (whole && pred_aligned(out_v + i0, 16)) {
 #pragma unroll
         for (int q = 0; q < kPredV / 4; ++q) {
-          reinterpret_cast<uint4*>(a.out_v + i0)[q] =
+          reinterpret_cast<uint4*>(out_v + i0)[q] =
               make_uint4(tv[4 * q], tv[4 * q + 1], tv[4 * q + 2], tv[4 * q + 3]);
         }
       } else {
 #pragma unroll
         for (int v = 0; v < kPredV; ++v) {
-          if (i0 + v < a.n) a.out_v[i0 + v] = static_cast<int>(tv[v]);
+          if (i0 + v < a.n) out_v[i0 + v] = static_cast<int>(tv[v]);
         }
       }
     }
@@ -3351,7 +3397,7 @@ __global__ void __launch_bounds__(kThreads)
     const long long i0 = t0 + static_cast<long long>(tid) * kPredV;
     const bool whole = i0 + kPredV <= a.n;
     int id[kPredV];
-    pred_ids(a, i0, whole, id);
+    pred_ids<false>(a, i0, whole, id);
     const unsigned live = pred_bits([&](int v) { return i0 + v < a.n; });
     const bool run = a.ids == nullptr && whole && i0 + kPredV <= a.n_valid;
     // the tile's buffer loads, once for every lane
@@ -3360,14 +3406,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int pc = 0, c = 0; pc < len && c < nloads; ++pc) {
       const int4 ins = prog_smem ? prog[pc] : __ldg(prog + pc);
       if (!((kPredLoads >> ins.x) & 1u)) continue;
-      pred_push(a, ins, id, i0, live, run, tv, tp);
+      pred_push<false>(a, ins, id, i0, live, run, tv, tp);
 #pragma unroll
       for (int v = 0; v < kPredV; ++v) cval[(c * kPredV + v) * kThreads + tid] = tv[v];
       cpm[c * kThreads + tid] = tp;
       ++c;
     }
     for (int l = 0; l < lanes; ++l) {
-      const unsigned res = pred_run<true>(a, prog, prog_smem != 0, sval, spm, cval, cpm,
+      const unsigned res = pred_run<true, false>(a, prog, prog_smem != 0, sval, spm, cval, cpm,
                                           s_params + l * nparams, id, i0, live, run, tv);
       pred_store_mask(a.out_p + static_cast<long long>(l) * a.n, i0, a.n, whole, res);
     }
@@ -5096,17 +5142,19 @@ int csr_frontier_advance(void* nxt, void* visited, const void* gate, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// `out` holds `nseg` int32 counts; zeroed here first when `zero` is set,
-// else the counts add into it.
-int csr_rows_with_matches(const void* rows, const void* mask, long long w,
-                          long long nseg, int zero, void* out, void* stream) {
+// `rows` and `mask` hold `lanes` rows of `w` slots, `out` `lanes` rows of
+// `nseg` int32 counts; zeroed here first when `zero` is set, else the
+// counts add into it. The single form is one lane.
+int csr_rows_with_matches_lanes(const void* rows, const void* mask, long long w, long long lanes,
+                                long long nseg, int zero, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes <= 0 || lanes > 65535) return lanes == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   if (zero && nseg > 0) {
-    cudaError_t e = cudaMemsetAsync(out, 0, nseg * sizeof(unsigned), s);
+    cudaError_t e = cudaMemsetAsync(out, 0, lanes * nseg * sizeof(unsigned), s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (w > 0 && nseg > 0) {
-    rows_with_matches_kernel<<<grid_for(w, 1), kThreads, 0, s>>>(
+    rows_with_matches_kernel<<<dim3(grid_for(w, 1), static_cast<unsigned>(lanes)), kThreads, 0, s>>>(
         static_cast<const int*>(rows), static_cast<const unsigned char*>(mask), w, nseg,
         static_cast<unsigned*>(out));
   }
@@ -5135,20 +5183,34 @@ int csr_group_page(const void* in, long long w, int ncols, long long b, long lon
 // dynamic shared memory holds the program (when it fits in 48 KB) and
 // the need - 1 stack entries below the top; the first call raises the
 // kernel's limit to the most any program can ask (48 KB + kStack - 1
-// entries).
-int csr_predicate_eval(const void* args, void* stream) {
+// entries). `lanes` rows of ids (the stacked form; the single form is one
+// lane), each lane a grid row.
+int csr_predicate_eval_stacked(const void* args, long long lanes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const PredArgs& a = *static_cast<const PredArgs*>(args);
-  if (a.n <= 0) return static_cast<int>(cudaGetLastError());
-  if (a.need < 1 || a.need > kStack) return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t limit = cudaFuncSetAttribute(
-      predicate_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kProgSmem + (kStack - 1) * kPredEntryBytes);
+  if (a.n <= 0 || lanes == 0) return static_cast<int>(cudaGetLastError());
+  if (a.need < 1 || a.need > kStack || lanes < 0 || lanes > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem_max = kProgSmem + (kStack - 1) * kPredEntryBytes;
+  static const cudaError_t limit = [smem_max] {
+    const cudaError_t one = cudaFuncSetAttribute(predicate_eval_kernel<false>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+    return one != cudaSuccess ? one
+                              : cudaFuncSetAttribute(predicate_eval_kernel<true>,
+                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+  }();
   if (limit != cudaSuccess) return static_cast<int>(limit);
   const long long bytes = a.len * static_cast<long long>(sizeof(int4));
   const int prog_smem = bytes <= kProgSmem ? static_cast<int>(bytes) : 0;
-  predicate_eval_kernel<<<grid_for(a.n, kPredV), kThreads,
-                          prog_smem + (a.need - 1) * kPredEntryBytes, s>>>(a, prog_smem);
+  const size_t smem = prog_smem + (a.need - 1) * kPredEntryBytes;
+  // one lane (the single form) compiles no lane offset: lane 0's are zero
+  if (lanes == 1) {
+    predicate_eval_kernel<false><<<grid_for(a.n, kPredV), kThreads, smem, s>>>(a, prog_smem);
+  } else {
+    predicate_eval_kernel<true><<<dim3(grid_for(a.n, kPredV), static_cast<unsigned>(lanes)), kThreads, smem, s>>>(
+        a, prog_smem);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

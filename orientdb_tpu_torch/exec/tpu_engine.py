@@ -217,6 +217,11 @@ class Table:
         return t
 
 
+def _lead(table: Table) -> Tuple[int, ...]:
+    """The leading shape of the table's columns: (B,) on the lane axis."""
+    return () if table.lanes is None else (table.lanes,)
+
+
 def _concat_tables(parts: List[Table], counts: List[int], device) -> Table:
     """Concatenate gathered part-tables (same column sets). Parts keep their
     full bucketed capacity; liveness flows through the valid mask."""
@@ -978,12 +983,14 @@ class TpuMatchSolver:
     def _binding_env(table: Table, row: Optional[torch.Tensor], visible: set) -> Dict:
         """``env`` of a binding-referencing predicate: each visible alias's
         vertex ids per slot, aligned with ``row`` (the table row of each
-        expansion slot; None: the table's own rows)."""
+        expansion slot; None: the table's own rows). On the lane axis the
+        rows are [B, n], each lane's from its own table rows (`K.take_pad`'s
+        lane stride)."""
 
         def col(a):
             if a not in table.cols:
-                n = row.shape[0] if row is not None else (table.width or 1)
-                return torch.full((n,), -1, dtype=I32, device=table.device)
+                shape = row.shape if row is not None else (*_lead(table), table.width or 1)
+                return torch.full(shape, -1, dtype=I32, device=table.device)
             if row is None:
                 return table.cols[a]
             return K.take_pad(table.cols[a], row, -1)
@@ -1356,11 +1363,11 @@ class TpuMatchSolver:
         COUNT pushdown's node and edge masks, and a root whose mask is only
         counted (the plan's only step, or the only one before the
         pushdown); and for a rows or direct-fetch plan of fixed-depth arms
-        whose one lane-varying mask is its root's (`_rows_lane_route`). A
-        lane-varying mask anywhere else (an expanded or compacted count
-        root, a variable-depth level, a NOT arm, an arm past the root)
-        keeps the plan lane after lane. Decided from the recorded plan's
-        shape alone."""
+        from a lane-varying root (`_rows_lane_route`). A COUNT whose
+        lane-varying mask lies anywhere else (an expanded or compacted count
+        root, an arm that is not the pushdown's), a variable-depth or NOT
+        arm, and a cartesian root keep the plan lane after lane. Decided
+        from the recorded plan's shape alone."""
         if self.count_only_name() is None:
             return self._rows_lane_route()
         if (
@@ -1386,13 +1393,17 @@ class TpuMatchSolver:
 
     def _rows_lane_route(self) -> bool:
         """A rows plan on the lane axis: its only root first, with a
-        lane-varying mask that K15's lane form takes, then required
-        fixed-depth arms (no OPTIONAL, variable-depth, NOT or edge-method
-        arm) whose masks read neither a parameter nor a binding; not over
-        a dirty delta slab, a tier or a mesh. The root's [B, hull] mask
-        then carries its lane axis through K3, K2, K2b, K5's lane stride
-        and K6/K7; every arm's mask, shared by the lanes, runs once over
-        the flattened ids."""
+        lane-varying mask that K15's lane form takes, then fixed-depth
+        arms: required or OPTIONAL, closing or not, arrows, bare
+        edge-method arms (``.outE()``) and endpoint arms (``.inV()``),
+        whose masks may read a parameter or a binding; no variable-depth or
+        NOT arm and no second (cartesian) root; not over a dirty delta
+        slab, a tier or a mesh. The root's [B, hull] mask then carries its
+        lane axis through K3, K2, K2b, K5's lane stride and K6/K7; an arm's
+        mask that reads a parameter runs K15's stacked form over its [B,
+        cap] ids, one the lanes share (binding-reading ones included) the
+        single form over the flattened ids, and an OPTIONAL arm's left join
+        K13's lane form."""
         ov = self.overlay
         if (
             self.stmt.group_by
@@ -1407,15 +1418,10 @@ class TpuMatchSolver:
         if not self._lane_varying_root(root) or not self._node_masks[root.alias].lane_ok:
             return False
         for step in arms:
-            if step.kind != "expand":
+            if step.kind == "root":
                 return False
-            item = step.edge.item
-            if item.target.while_cond is not None or item.target.max_depth is not None:
-                return False
-            m = (item.method or "").lower()
-            if (m in _EDGE_METHODS and item.edge_filter is None) or m in _VERTEX_METHODS:
-                return False
-            if any(p.uses_params or p.uses_bindings for p in self._step_predicates(step)):
+            target = step.edge.item.target
+            if target.while_cond is not None or target.max_depth is not None:
                 return False
         return True
 
@@ -1675,7 +1681,7 @@ class TpuMatchSolver:
     def _empty_like(self, table: Table, dst_alias: str, edge_alias=None, depth_alias=None) -> Table:
         """A table of no rows with the columns an arm adds, so that later
         steps find the structure they expect."""
-        lead = () if table.lanes is None else (table.lanes,)
+        lead = _lead(table)
         t = table.gather(torch.full((*lead, K.bucket(1)), -1, dtype=I32, device=self.device))
         t.count = 0
         t.count_dev = torch.zeros(lead, dtype=I32, device=self.device)
@@ -1691,9 +1697,12 @@ class TpuMatchSolver:
     def _unmatched_part(self, table: Table, matched: torch.Tensor):
         """The left join's other half: the table's live rows with no match
         (``matched`` bool [width]), compacted through the size schedule —
-        recorded while recording, a device overflow flag on a replay.
-        Returns (part or None, the kept table rows)."""
-        valid = table.valid_device[: table.width].to(torch.bool)
+        recorded while recording, a device overflow flag on a replay. On
+        the lane axis ``matched`` is [B, width] and each lane keeps its own
+        rows (K5b's and K3's lane forms, then the table's lane stride); a
+        lane past the recorded bucket flags only its own overflow. Returns
+        (part or None, the kept table rows)."""
+        valid = table.valid_device[..., : table.width].to(torch.bool)
         ukeep, un, un_dev = self._compact(valid & ~matched)
         if un == 0:
             return None, ukeep
@@ -1708,7 +1717,11 @@ class TpuMatchSolver:
         (with the rows' bindings where they read them), and compact the
         survivors into a new table. An OPTIONAL arm also keeps each live
         row with no survivor (`K.rows_with_matches` counts them), with the
-        reference's null rules."""
+        reference's null rules. On the lane axis every intermediate is [B,
+        ·]: a mask that reads a parameter runs K15's stacked form over the
+        [B, cap] ids, one the lanes share the single form over the flattened
+        ids and binding rows, and the left join counts through K13's lane
+        form."""
         e = step.edge
         item = e.item
         if item.target.while_cond is not None or item.target.max_depth is not None:
@@ -1731,7 +1744,8 @@ class TpuMatchSolver:
         visible = self._step_visible.get(id(step), set())
         node_mask = self._node_masks[dst_alias]
         width = table.width or 1
-        matched_any = torch.zeros(width, dtype=I32, device=self.device) if optional else None
+        lead = _lead(table)
+        matched_any = torch.zeros((*lead, width), dtype=I32, device=self.device) if optional else None
         parts: List[Table] = []
         counts: List[int] = []
         for cname in self._resolve_edge_classes(item):
@@ -1774,9 +1788,9 @@ class TpuMatchSolver:
                     parts.append(part)
                     counts.append(kn)
         if optional:
-            upart, ukeep = self._unmatched_part(table, matched_any[: table.width] > 0)
+            upart, ukeep = self._unmatched_part(table, matched_any[..., : table.width] > 0)
             if upart is not None:
-                null = torch.full((upart.width,), -1, dtype=I32, device=self.device)
+                null = torch.full((*lead, upart.width), -1, dtype=I32, device=self.device)
                 arm_opt = f is not None and f.optional
                 if step.close and arm_opt:
                     pass  # a probe between two bound aliases: both survive
@@ -1805,7 +1819,9 @@ class TpuMatchSolver:
     def _expand_bind_edge(self, table: Table, step: PlanStep, optional: bool) -> Table:
         """A bare ``.outE('EC'){as:e}``: the target alias binds the EDGE.
         Expansion slots carry the edge id; the target's class and WHERE
-        apply to the edge (an edge class restriction and an edge WHERE)."""
+        apply to the edge (an edge class restriction and an edge WHERE). On
+        the lane axis as `_expand`: [B, w] sources through K2's and K2b's
+        lane forms, the edge WHEREs over [B, cap] edge ids."""
         e = step.edge
         item = e.item
         if step.reverse:
@@ -1828,7 +1844,8 @@ class TpuMatchSolver:
         parts: List[Table] = []
         counts: List[int] = []
         width = table.width or 1
-        matched_any = torch.zeros(width, dtype=I32, device=self.device) if optional else None
+        lead = _lead(table)
+        matched_any = torch.zeros((*lead, width), dtype=I32, device=self.device) if optional else None
         for cname in concrete:
             dec = self.dg.edges[cname]
             where_fns = [self._edge_where(cname, w, visible) for w in tgt_wheres]
@@ -1861,10 +1878,10 @@ class TpuMatchSolver:
                 parts.append(part)
                 counts.append(kn)
         if optional:
-            upart, _ukeep = self._unmatched_part(table, matched_any[:width] > 0)
+            upart, _ukeep = self._unmatched_part(table, matched_any[..., :width] > 0)
             if upart is not None:
                 if not step.close:
-                    null = torch.full((upart.width,), -1, dtype=I32, device=self.device)
+                    null = torch.full((*lead, upart.width), -1, dtype=I32, device=self.device)
                     upart.edge_cols[dst_alias] = (null, null)
                 parts.append(upart)
                 counts.append(upart.count)
@@ -1877,7 +1894,9 @@ class TpuMatchSolver:
         endpoint vertex: a 1:1 (1:2 for bothV) gather per row through the
         edge columns, ``edge_src`` for the source and ``dst`` for the
         target (on a mesh the sharded edge list's ``el:src`` / ``el:dst``),
-        no fan-out."""
+        no fan-out. On the lane axis every column is [B, width]: the
+        endpoint tables are shared, so their gather is the single K5 over
+        the flattened index."""
         e = step.edge
         if step.reverse:
             raise Uncompilable("reverse endpoint arm")
@@ -1887,16 +1906,17 @@ class TpuMatchSolver:
             raise Uncompilable(f"edge alias {src_alias} not bound before endpoint step")
         ci, eid = ecols
         width = table.width or 1
+        lead = _lead(table)
         node_mask = self._node_masks[dst_alias]
         env = {}
         if node_mask.uses_bindings:
             env = self._binding_env(table, None, self._step_visible.get(id(step), set()))
-        live = table.valid_device[:width].to(torch.bool)
+        live = table.valid_device[..., :width].to(torch.bool)
         parts: List[Table] = []
         counts: List[int] = []
-        matched_any = torch.zeros(width, dtype=torch.bool, device=self.device)
+        matched_any = torch.zeros((*lead, width), dtype=torch.bool, device=self.device)
         for kind in {"outv": ("src",), "inv": ("dst",), "bothv": ("src", "dst")}[m]:
-            cand = torch.full((width,), -1, dtype=I32, device=self.device)
+            cand = torch.full((*lead, width), -1, dtype=I32, device=self.device)
             for k, cname in enumerate(self.edge_class_list):
                 dec = self.dg.edges[cname]
                 if dec.num_edges == 0:
@@ -1927,7 +1947,7 @@ class TpuMatchSolver:
             upart, _ukeep = self._unmatched_part(table, matched_any)
             if upart is not None:
                 if not step.close:
-                    upart.cols[dst_alias] = torch.full((upart.width,), -1, dtype=I32, device=self.device)
+                    upart.cols[dst_alias] = torch.full((*lead, upart.width), -1, dtype=I32, device=self.device)
                 parts.append(upart)
                 counts.append(upart.count)
         if not parts:

@@ -74,9 +74,9 @@ SIGNATURES = {
     ],
     "csr_bitmap_emit": [_P, _P, _P, _N, _N, _P, _P, _P, _P],
     "csr_frontier_advance": [_P, _P, _P, _P, _P, _N, _N, _P, _P, _P],
-    "csr_rows_with_matches": [_P, _P, _N, _N, _I, _P, _P],
+    "csr_rows_with_matches_lanes": [_P, _P, _N, _N, _N, _I, _P, _P],
     "csr_group_page": [_P, _N, _I, _N, _N, _I, _P, _P],
-    "csr_predicate_eval": [_P, _P],
+    "csr_predicate_eval_stacked": [_P, _N, _P],
     "csr_predicate_eval_lanes": [_P, _N, _N, _N, _P],
     "csr_scatter_set": [_P, _N, _P, _P, _N, _I, _P],
     "csr_slab_scan_scratch": [_N, _N],

@@ -23,11 +23,13 @@ of ``[B, n]``, `compact_indices` of a ``[B, n]`` mask, `expand_offsets` and
 `gather_expand` of ``[B, k]`` sources, `take_pad` of lane-local ``[B, m]``
 rows (from a ``[B, n]`` table with a lane stride, or from one shared table
 through the flattened index), `front_pack` of ``[B, W]`` columns and
-`replay_meta` of ``[B, W, C]`` pages; each one launch for all B lanes that
-reads what the lanes share once (their plain versions: the single-lane
-plain version a lane). Lane-stacked operands are lane-major and
-contiguous, so each lane's row keeps the single kernel's 16-byte
-accesses.
+`replay_meta` of ``[B, W, C]`` pages, `predicate_eval` over lane-stacked
+``[B, n]`` ids (its stacked form: each lane its own ids, parameter row,
+binding rows and split values) and `rows_with_matches` of ``[B, W]`` rows;
+each one launch for all B lanes that reads what the lanes share once (their
+plain versions: the single-lane plain version a lane). Lane-stacked
+operands are lane-major and contiguous, so each lane's row keeps the single
+kernel's 16-byte accesses.
 
 A wrapper checks dtype, contiguity and device, then:
 - a CPU tensor goes to the plain version (``plain_*``), the reference's
@@ -98,9 +100,11 @@ LAUNCHES: Dict[str, int] = {
         "bitmap_emit",
         "frontier_advance",
         "rows_with_matches",
+        "rows_with_matches_lanes",
         "group_page",
         "predicate_eval",
         "predicate_eval_lanes",
+        "predicate_eval_stacked",
         "scatter_set",
         "slab_scan",
         "slab_probe",
@@ -1947,6 +1951,18 @@ def plain_rows_with_matches(
     return out
 
 
+def plain_rows_with_matches_lanes(
+    rows: torch.Tensor, mask: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """The lane form's plain version: `plain_rows_with_matches` a lane,
+    stacked [B, num_segments]."""
+    if rows.shape[0] == 0:
+        return torch.zeros((0, num_segments), dtype=I32, device=rows.device)
+    return torch.stack(
+        [plain_rows_with_matches(rows[b], mask[b], num_segments) for b in range(rows.shape[0])]
+    )
+
+
 def rows_with_matches(
     rows: torch.Tensor,
     mask: torch.Tensor,
@@ -1958,7 +1974,10 @@ def rows_with_matches(
     num_segments`` (int32 [num_segments]); ``rows`` int32 [W] with -1
     padding, ``mask`` bool [W]. With ``out`` the counts add into it (the
     next edge class or direction of the same arm), else into a new zeroed
-    tensor. Returns the counts."""
+    tensor. Returns the counts. Lane-local ``rows`` and ``mask`` [B, W]
+    give [B, num_segments] (`rows_with_matches_lanes`)."""
+    if rows.dim() == 2:
+        return rows_with_matches_lanes(rows, mask, num_segments, out)
     _check(rows, (I32,), "rows_with_matches rows")
     _check(mask, (B8,), "rows_with_matches mask")
     if mask.shape[0] != rows.shape[0]:
@@ -1973,16 +1992,55 @@ def rows_with_matches(
             return got
         out += got
         return out
+    return _rows_with_matches(rows, mask, num_segments, out, 1, "rows_with_matches")
+
+
+def rows_with_matches_lanes(
+    rows: torch.Tensor,
+    mask: torch.Tensor,
+    num_segments: int,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K13's lane form: ``out[b, r] = #{i : mask[b, i] and rows[b, i] ==
+    r}`` over lane-local rows ``rows`` int32 [B, W] (-1 padding) and
+    ``mask`` bool [B, W], int32 [B, num_segments]; with ``out`` the counts
+    add into each lane's row. On the card one launch, a grid row a lane
+    (the single form's kernel)."""
+    _check2d(rows, (I32,), "rows_with_matches_lanes rows")
+    _check2d(mask, (B8,), "rows_with_matches_lanes mask")
+    if mask.shape != rows.shape:
+        raise ValueError("rows_with_matches_lanes: rows and mask differ in shape")
+    B = rows.shape[0]
+    opt = []
+    if out is not None:
+        _check_out(out, (B, num_segments), I32, "rows_with_matches_lanes")
+        opt.append(out)
+    if not _on_card(rows, mask, *opt):
+        got = plain_rows_with_matches_lanes(rows, mask, num_segments)
+        if out is None:
+            return got
+        out += got
+        return out
+    return _rows_with_matches(rows, mask, num_segments, out, B, "rows_with_matches_lanes")
+
+
+def _rows_with_matches(rows, mask, num_segments: int, out, lanes: int, name: str) -> torch.Tensor:
+    """K13's one launch path: ``lanes`` rows of slots (1 for the single
+    form), counted under ``name``."""
     lib = _kernels.load()
     zero = out is None
     if zero:
-        out = torch.empty(num_segments, dtype=I32, device=rows.device)
+        shape = (lanes, num_segments) if rows.dim() == 2 else (num_segments,)
+        out = torch.empty(shape, dtype=I32, device=rows.device)
+    if lanes == 0:
+        return out
     _launch(
-        "rows_with_matches",
-        lib.csr_rows_with_matches,
+        name,
+        lib.csr_rows_with_matches_lanes,
         rows.data_ptr(),
         mask.data_ptr(),
-        rows.shape[0],
+        rows.shape[-1],
+        lanes,
         num_segments,
         int(zero),
         out.data_ptr(),
@@ -2170,6 +2228,8 @@ class _PredArgs(ctypes.Structure):
         ("depth", ctypes.c_int),
         ("nbufs", ctypes.c_int),
         ("need", ctypes.c_int),
+        ("lane_bufs", ctypes.c_uint),
+        ("pstride", ctypes.c_longlong),
         ("buf", ctypes.c_void_p * PRED_BUFS),
         ("blen", ctypes.c_longlong * PRED_BUFS),
     ]
@@ -2369,7 +2429,10 @@ def predicate_eval(
     code and class tables, an earlier launch's values and presence),
     ``params`` the int32 parameter row (float32 values by their bits),
     ``depth`` the WHILE level. A ``[B, P]`` parameter stack gives the
-    [B, n] masks of its B rows (`predicate_eval_lanes`)."""
+    [B, n] masks of its B rows (`predicate_eval_lanes`); lane-stacked ids
+    [B, n] give [B, n] (`predicate_eval_stacked`)."""
+    if ids is not None and ids.dim() == 2:
+        return predicate_eval_stacked(prog, bufs, ids, n, n_valid, base, depth, params, values)
     if params is not None and params.dim() == 2:
         if values:
             raise ValueError("predicate_eval: the lane form returns masks only")
@@ -2394,21 +2457,29 @@ def predicate_eval(
     out_p = torch.empty(n, dtype=torch.bool, device=dev)
     out_v = torch.empty(n, dtype=I32, device=dev) if values else None
     if n > 0:
-        args = _PredArgs()
-        args.prog = prog.code.data_ptr()
-        args.len = len(prog.rows)
-        args.ids = ids.data_ptr() if ids is not None else None
-        args.n, args.n_valid, args.base = n, n_valid, base
-        args.params = params.data_ptr() if params is not None else None
-        args.out_p = out_p.data_ptr()
-        args.out_v = out_v.data_ptr() if out_v is not None else None
-        args.depth, args.nbufs, args.need = int(depth), len(bufs), prog.need
-        for j, t in enumerate(bufs):
-            args.buf[j] = t.data_ptr()
-            args.blen[j] = t.shape[0]
+        args = _pred_args(prog, bufs, ids, n, n_valid, base, depth, params, out_p, out_v)
         lib = _kernels.load()
-        _launch("predicate_eval", lib.csr_predicate_eval, ctypes.byref(args), _stream(prog.code))
+        # the stacked form's kernel at one lane
+        _launch("predicate_eval", lib.csr_predicate_eval_stacked, ctypes.byref(args), 1, _stream(prog.code))
     return (out_v, out_p) if values else out_p
+
+
+def _pred_args(prog, bufs, ids, n, n_valid, base, depth, params, out_p, out_v=None) -> _PredArgs:
+    """The kernel's `PredArgs` of one launch (a buffer's length its last
+    axis's: a lane-stacked one's a lane's)."""
+    args = _PredArgs()
+    args.prog = prog.code.data_ptr()
+    args.len = len(prog.rows)
+    args.ids = ids.data_ptr() if ids is not None else None
+    args.n, args.n_valid, args.base = n, n_valid, base
+    args.params = params.data_ptr() if params is not None else None
+    args.out_p = out_p.data_ptr()
+    args.out_v = out_v.data_ptr() if out_v is not None else None
+    args.depth, args.nbufs, args.need = int(depth), len(bufs), prog.need
+    for j, t in enumerate(bufs):
+        args.buf[j] = t.data_ptr()
+        args.blen[j] = t.shape[-1]
+    return args
 
 
 def plain_predicate_eval_lanes(
@@ -2476,18 +2547,7 @@ def predicate_eval_lanes(
     dev = prog.code.device
     out = torch.empty((B, n), dtype=torch.bool, device=dev)
     if n > 0 and B > 0:
-        args = _PredArgs()
-        args.prog = prog.code.data_ptr()
-        args.len = len(prog.rows)
-        args.ids = ids.data_ptr() if ids is not None else None
-        args.n, args.n_valid, args.base = n, n_valid, base
-        args.params = params.data_ptr()
-        args.out_p = out.data_ptr()
-        args.out_v = None
-        args.depth, args.nbufs, args.need = int(depth), len(bufs), prog.need
-        for j, t in enumerate(bufs):
-            args.buf[j] = t.data_ptr()
-            args.blen[j] = t.shape[0]
+        args = _pred_args(prog, bufs, ids, n, n_valid, base, depth, params, out)
         lib = _kernels.load()
         _launch(
             "predicate_eval_lanes",
@@ -2499,6 +2559,131 @@ def predicate_eval_lanes(
             _stream(prog.code),
         )
     return out
+
+
+#: the most lanes of the stacked form (a grid row a lane)
+PRED_STACKED_LANES = 65535
+
+
+def _slot_buffers(prog: PredProgram) -> set:
+    """The buffers the program reads at the slot (BCOL's binding rows,
+    TMP's earlier values and presence): the ones a lane may stack."""
+    O = PredOp
+    out = set()
+    for op, a, b, c in prog.rows:
+        if op == O.BCOL:
+            out.add(c)
+        elif op == O.TMP:
+            out.update((a, b))
+    return out
+
+
+def plain_predicate_eval_stacked(
+    prog: PredProgram,
+    bufs: List[torch.Tensor],
+    ids: Optional[torch.Tensor],
+    n: int = 0,
+    n_valid: Optional[int] = None,
+    base: int = 0,
+    depth: int = 0,
+    params: Optional[torch.Tensor] = None,
+    values: bool = False,
+):
+    """The stacked form's plain version: `plain_predicate_eval` a lane, on
+    its ids, its rows of the lane-stacked buffers and its parameter row,
+    stacked [B, n]."""
+    B = ids.shape[0] if ids is not None else params.shape[0]
+    n = ids.shape[1] if ids is not None else n
+    outs = [
+        plain_predicate_eval(
+            prog, [_lane(t, b) for t in bufs], _lane(ids, b), n, n_valid, base, depth, _lane(params, b), values
+        )
+        for b in range(B)
+    ]
+    dev = prog.code.device
+    empty = torch.zeros((0, n), dtype=torch.bool, device=dev)
+    if values:
+        if not outs:
+            return empty.to(I32), empty
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    return torch.stack(outs) if outs else empty
+
+
+def predicate_eval_stacked(
+    prog: PredProgram,
+    bufs: List[torch.Tensor],
+    ids: Optional[torch.Tensor],
+    n: int = 0,
+    n_valid: Optional[int] = None,
+    base: int = 0,
+    depth: int = 0,
+    params: Optional[torch.Tensor] = None,
+    values: bool = False,
+):
+    """K15's stacked form: one program over lane-stacked ids ``ids`` int32
+    [B, n], each lane its own (or, with ``ids`` None, each lane's identity
+    slots ``base + i`` below ``n_valid``), with ``params`` a [B, P] stack (a
+    row a lane; None where the program reads no parameter and ``ids`` are
+    given); bool [B, n], or ``(int32 value bits, mask)`` [B, n] with
+    ``values``. A buffer is shared (1-d: columns, code and class tables)
+    or lane-stacked [B, n] (only what the program reads at the slot:
+    binding rows, a split program's earlier values and presence), so a
+    split program runs too, each launch's [B, n] values read by the next
+    at its lane's row. On the card one launch of the single form's kernel
+    with a grid row a lane: nothing is cached across lanes, so the lane
+    form's limits (`PredProgram.lane_ok`'s `PRED_LANE_ENTRIES`,
+    `PRED_LANES`, `PRED_LANE_PARAMS`) do not apply, only the single
+    form's (`PRED_STACK`, `PRED_BUFS`) and at most `PRED_STACKED_LANES`
+    lanes."""
+    if len(bufs) > PRED_BUFS:
+        raise ValueError(f"predicate_eval_stacked: {len(bufs)} buffers > {PRED_BUFS}")
+    ts = [prog.code, *bufs]
+    if ids is not None:
+        _check2d(ids, (I32,), "predicate_eval_stacked ids")
+        B, n = ids.shape
+        n_valid = n
+        ts.append(ids)
+    elif params is None or params.dim() != 2:
+        raise ValueError("predicate_eval_stacked: identity slots need a [B, P] parameter stack")
+    else:
+        B = params.shape[0]
+    if n_valid is None:
+        n_valid = n
+    if B > PRED_STACKED_LANES:
+        raise ValueError(f"predicate_eval_stacked: {B} lanes > {PRED_STACKED_LANES}")
+    slot = _slot_buffers(prog)
+    lane_bufs = 0
+    for j, t in enumerate(bufs):
+        if t.dim() == 2:
+            _check2d(t, (I32, F32, torch.bool), "predicate_eval_stacked buffer")
+            if j not in slot or tuple(t.shape) != (B, n):
+                raise ValueError(
+                    f"predicate_eval_stacked: buffer {j} of shape {tuple(t.shape)} is lane-stacked but "
+                    f"not a slot-aligned [{B}, {n}] one"
+                )
+            lane_bufs |= 1 << j
+        else:
+            _check(t, (I32, F32, torch.bool), "predicate_eval_stacked buffer")
+    pstride = 0
+    if params is not None:
+        _check2d(params, (I32,), "predicate_eval_stacked params")
+        if params.shape[0] != B:
+            raise ValueError(f"predicate_eval_stacked: {params.shape[0]} parameter rows for {B} lanes")
+        pstride = params.shape[1]
+        ts.append(params)
+    if not _on_card(*ts):
+        return plain_predicate_eval_stacked(prog, bufs, ids, n, n_valid, base, depth, params, values)
+    dev = prog.code.device
+    out_p = torch.empty((B, n), dtype=torch.bool, device=dev)
+    out_v = torch.empty((B, n), dtype=I32, device=dev) if values else None
+    if n > 0 and B > 0:
+        args = _pred_args(prog, bufs, ids, n, n_valid, base, depth, params, out_p, out_v)
+        args.lane_bufs, args.pstride = lane_bufs, pstride
+        lib = _kernels.load()
+        _launch(
+            "predicate_eval_stacked", lib.csr_predicate_eval_stacked, ctypes.byref(args), B, _stream(prog.code)
+        )
+    return (out_v, out_p) if values else out_p
 
 
 # ---------------------------------------------------------------------------

@@ -788,9 +788,10 @@ class _Program:
             if kind == "col":
                 out.append(getattr(obj, field))
             elif kind == "bind":
+                # slot-aligned: [n], or a lane's [B, n] over lane-stacked ids
                 rows = env["bindings"][obj]
-                if rows.shape[0] != n:
-                    raise ValueError(f"binding rows of {obj!r}: {rows.shape[0]} for {n} slots")
+                if rows.shape[-1] != n:
+                    raise ValueError(f"binding rows of {obj!r}: {rows.shape[-1]} for {n} slots")
                 out.append(rows)
             elif kind == "tensor":
                 out.append(obj)
@@ -810,8 +811,13 @@ class Predicate:
     because it passed the kernel's stack depth or buffer table. They return
     bool [n], or [B, n] (one row a lane) when the program reads a parameter
     and the box holds a ``[B, P]`` stack (`ParamBox.lanes`): K15's lane
-    form, which takes an unsplit program only (`lane_ok`). Lane-stacked ids
-    [B, n] of a mask the lanes share run once, flattened, into [B, n]."""
+    form, which takes an unsplit program only (`lane_ok`). Over
+    lane-stacked ids [B, n] (an arm past the root on the lane axis) a mask
+    that reads a parameter takes K15's stacked form, each lane its own ids,
+    binding rows [B, n] and parameter row, split programs included; a mask
+    the lanes share, binding-reading ones included (their rows are
+    slot-aligned like the ids), runs the single form once over the
+    flattened [B·n] ids and rows."""
 
     def __init__(
         self,
@@ -841,13 +847,13 @@ class Predicate:
 
     def __call__(self, idx: torch.Tensor, env: Optional[Dict] = None) -> torch.Tensor:
         if idx.dim() == 2:
-            # lane-stacked ids [B, n] (a rows group's arm on the lane axis):
-            # a mask the lanes share runs once over the flattened ids
+            # lane-stacked ids [B, n] (a rows group's arm on the lane axis)
             if self.uses_params and self.box.lanes is not None:
-                raise ValueError("a lane-varying mask over lane-stacked ids has no lane form")
-            if env and env.get("bindings"):
-                raise ValueError("a binding-reading mask over lane-stacked ids has no lane form")
+                # K15's stacked form (`K.predicate_eval` on 2-d ids)
+                return self._run(idx, idx.shape[1], None, 0, env)
             flat = idx.reshape(-1)
+            if env and env.get("bindings"):
+                env = dict(env, bindings={a: r.reshape(-1) for a, r in env["bindings"].items()})
             return self._run(flat, flat.shape[0], None, 0, env).view(idx.shape)
         return self._run(idx, idx.shape[0], None, 0, env)
 

@@ -2412,3 +2412,134 @@ def test_captured_rows_lane_groups_equal_cpu(card):
             assert g.launches.get("compact_indices_lanes", 0) > 0
             assert g.launches.get("front_pack_lanes", 0) > 0 and g.launches.get("replay_meta_lanes", 0) == 1
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# past the root: K15's stacked form and K13's lane form
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 5, 64])
+@pytest.mark.parametrize("n", [1, 257, 70_001])
+def test_predicate_eval_stacked_equals_plain_on_card(card, n, lanes):
+    """K15's stacked form on `chip_smoke.K15_LANE_WHERES` and the split
+    `K15_STACKED_LONG` (lane-stacked ids, identity slots, lane-stacked
+    binding rows and split values): every launch's lane b equals the single
+    kernel exactly, and the plain version outside distance()'s band."""
+    import chip_smoke
+
+    _band, checked = chip_smoke.check_predicate_stacked(np, torch, T, n, lanes, seed=n)
+    torch.cuda.synchronize()
+    assert checked > 2 * len(chip_smoke.K15_LANE_WHERES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 16, 64])
+@pytest.mark.parametrize("w,n", [(0, 1), (1, 7), (255, 1024), (257, 7), (1 << 18, 50_000)])
+def test_rows_with_matches_lanes_equal_plain_on_card(card, w, n, B):
+    """K13's lane form: ascending lane-local rows as an expansion emits them,
+    shuffled rows, ids past the end, an all-padding lane and the
+    accumulating form, against its plain version and, lane by lane, the
+    single kernel, exactly."""
+    rng = np.random.default_rng(w + n + B)
+    asc = np.sort(rng.integers(-1, n + 2, (B, w)), axis=1).astype(np.int32)
+    asc[0] = -1
+    for rows in (asc, rng.permuted(asc, axis=1)):
+        r = _t(rows).to(card)
+        m = _t(rng.random((B, w)) < 0.5).to(card)
+        want = T.plain_rows_with_matches_lanes(r, m, n)
+        got = T.rows_with_matches(r, m, n)
+        assert got.shape == (B, n) and torch.equal(got, want)
+        for b in range(B):
+            assert torch.equal(got[b], T.rows_with_matches(r[b].contiguous(), m[b].contiguous(), n))
+        acc = torch.full((B, n), 3, dtype=torch.int32, device=card)
+        assert torch.equal(T.rows_with_matches(r, m, n, out=acc), want + 3)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_stacked_forms_equal_eager_on_card(card):
+    """K15's stacked form (a split program with binding rows) and K13's lane
+    form captured once, replayed after the ids, binding rows, parameter
+    stack and mask change in place, against eager calls."""
+    import chip_smoke
+    from orientdb_tpu_torch.ops.predicates import ColumnScope, ParamBox, Predicate, pack_params
+
+    B, n = 6, 70_001
+    dg, _scope = _k15_scope(card, n, 13)
+    scope = ColumnScope(dg.columns, dg.non_columnar, device=card, binding_columns=dg.columns, visible_aliases={"p"})
+    params = chip_smoke.k15_lane_params(B)
+    box = ParamBox(params[0])
+    pred = Predicate([_k15_where(scope, chip_smoke.K15_STACKED_LONG, box)], card, box, uses_bindings=True,
+                     max_stack=4, max_bufs=8)
+    assert len(pred.programs) > 1
+    rng = np.random.default_rng(13)
+    ids = _t(rng.integers(-1, n + 3, (B, n)).astype(np.int32)).to(card)
+    rows = _t(rng.integers(-1, n + 2, (B, n)).astype(np.int32)).to(card)
+    stack = torch.from_numpy(np.stack([pack_params(p, box.used) for p in params])).to(card)
+    seg = _t(np.sort(rng.integers(-1, 900, (B, n)), axis=1).astype(np.int32)).to(card)
+    env = {"bindings": {"p": rows}}
+    box.set_row(stack)
+    try:
+        pred(ids, env)
+        T.rows_with_matches(seg, pred(ids, env), 900)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            mask = pred(ids, env)
+            counts = T.rows_with_matches(seg, mask, 900)
+        for k in range(3):
+            ids.copy_(_t(rng.integers(-1, n + 3, (B, n)).astype(np.int32)))
+            rows.copy_(_t(rng.integers(-1, n + 2, (B, n)).astype(np.int32)))
+            rows_k = chip_smoke.k15_lane_params(B + k)[k:]
+            stack.copy_(torch.from_numpy(np.stack([pack_params(p, box.used) for p in rows_k])))
+            graph.replay()
+            want = pred(ids, env)
+            assert torch.equal(mask, want) and torch.equal(counts, T.plain_rows_with_matches_lanes(seg, want, 900))
+    finally:
+        box.reset()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_arm_lane_groups_equal_cpu(card):
+    """Rows groups past the root on the lane axis captured on the card (E2's
+    lane-varying edge WHERE and endpoint arm, E4's OPTIONAL arm, E5's
+    binding mask and OPTIONAL closing arm, E2b's ``.bothE()/.bothV()``, and
+    an E2 batch whose one lane overflows past the root into a new variant)
+    against the same batches on the CPU, and each group's captured launches
+    through K15's stacked form and K13's lane form where it has them."""
+    import chip_smoke
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.storage.bigshape import build_snb_shape
+
+    batches = [
+        ([chip_smoke.E2] * 16, [{"n": 2_000 - 100 * i, "d": 10_000 + 500 * i} for i in range(16)]),
+        ([chip_smoke.E2] * 16, [{"n": 600, "d": 10_000 if i == 9 else 19_900} for i in range(16)]),
+        ([chip_smoke.E4] * 16, [{"n": 1_000 - 60 * i} for i in range(16)]),
+        ([chip_smoke.E5] * 8, [{"n": 400 - 40 * i, "d": 11_000 + 900 * i} for i in range(8)]),
+        ([chip_smoke.E2_BOTH] * 16, [{"n": 70 - 4 * i} for i in range(16)]),
+    ]
+    from orientdb_tpu_torch.exec.result import canonical_rows
+
+    kw = dict(msgs_per_person=2, avg_knows=10, seed=7)
+    gpu, gsnap = build_snb_shape(2_000, device=card, **kw)
+    cpu, _ = build_snb_shape(2_000, device="cpu", **kw)
+    for sqls, plist in batches:
+        gpu.query(sqls[0], plist[0])
+        cpu.query(sqls[0], plist[0])
+        for _ in range(2):
+            got = [canonical_rows(rs.to_dicts()) for rs in gpu.query_batch(sqls, plist)]
+            want = [canonical_rows(rs.to_dicts()) for rs in cpu.query_batch(sqls, plist)]
+            assert got == want
+    plans = [p for v in TE._plan_cache(gsnap).values() for p in v.plans if p.group_replays]
+    assert plans and all(p.lane_axis for p in plans)
+    launched = {}
+    for p in plans:
+        for g in p.groups.values():
+            assert g.graph is not None and g.nodes > 0
+            for name, k in g.launches.items():
+                launched[name] = launched.get(name, 0) + k
+    assert launched.get("predicate_eval_stacked", 0) > 0 and launched.get("rows_with_matches_lanes", 0) > 0
+    torch.cuda.synchronize()

@@ -3,7 +3,11 @@ with a ``[B, P]`` parameter stack), K5a (`weight_gather` with lane-stacked
 masks or weights), K4 (`indptr_segment_sum` over ``[B, E]`` values) and K5b
 (`mask_count` of ``[B, n]`` masks), and the group replays that run on them
 (`TpuMatchSolver.lane_route`, the port of the reference's ``jax.vmap`` of
-its replay at `orientdb_tpu/exec/tpu_engine.py:3436-3437`), on the CPU.
+its replay at `orientdb_tpu/exec/tpu_engine.py:3436-3437`), on the CPU;
+then a rows group's lane forms, and past the root K15's stacked form
+(`predicate_eval` over lane-stacked ids) and K13's lane form
+(`rows_with_matches` of ``[B, W]`` rows) with the E2-, E4-, E5- and
+E2b-shaped groups that run on them.
 
 On the CPU each wrapper runs its plain version. A lane form's result must
 equal its lanes computed one by one: by the single-lane wrapper, and by the
@@ -39,7 +43,10 @@ from orientdb_tpu_torch.storage.bigshape import (
     build_person_knows,
     build_snb_shape,
     numpy_config5_count,
+    numpy_incident_rows,
+    numpy_optional_rows,
     numpy_out_edge_rows,
+    numpy_probe_rows,
 )
 from test_torch_match import _carry_arrays
 from test_torch_weight_gather import _jax_chain, _operands, _same_bits, _t
@@ -447,6 +454,127 @@ def test_predicate_eval_lanes_equal_each_row(where, mode, B):
         assert torch.equal(got[-1], got[-2])
 
 
+STACKED = {
+    "where": ("age > :a AND age < :b", {}),
+    "binding": ("age < p.age + :a OR uid = :b", {}),
+    "split": ("(age > :a OR uid < 7) AND (age < :b OR uid > 2900) AND lat > 10.0 AND lng < 25.0 "
+              "AND age < p.age + 40", dict(max_stack=3, max_bufs=4)),
+}
+
+
+@pytest.mark.parametrize("B", LANES)
+@pytest.mark.parametrize("mode", ["identity", "ids"])
+@pytest.mark.parametrize("program", list(STACKED))
+def test_predicate_eval_stacked_equals_each_lane(program, mode, B):
+    """K15's stacked form: a WHERE that reads parameters over lane-stacked
+    ids (each lane its own, -1 and past-end entries) or each lane's identity
+    slots, with lane-stacked binding rows, split into launches whose [B, n]
+    values the next reads: every launch's lane b equals the single-lane
+    plain version on lane b's ids, binding rows, earlier values and
+    parameter row, exactly; over ids the `Predicate` (the engine's path)
+    gives the last launch's mask. Lane 0's ids are all padding (an empty
+    lane), the last lane repeats the one before it."""
+    text, kw = STACKED[program]
+    _db, snap, dg = _person_columns(3_000, seed=B)
+    V = snap.num_vertices
+    params = [{"a": 20 + 3 * b, "b": 60 - b} for b in range(B)]
+    box = ParamBox(params[0])
+    scope = ColumnScope(
+        dg.columns, dg.non_columnar, device=dg.device, binding_columns=dg.columns, visible_aliases={"p"}
+    )
+    from orientdb_tpu_torch.ops.predicates import Predicate, compile_where
+
+    pred = Predicate([compile_where(Parser(text).parse_expression(), scope, box)], dg.device, box,
+                     uses_bindings=scope.uses_bindings, **kw)
+    assert pred.uses_params and (len(pred.programs) > 1) == (program == "split")
+    rng = np.random.default_rng(B * 3 + (mode == "ids"))
+    n = 2_000
+    ids = rng.integers(-1, V + 3, (B, n), dtype=np.int32)
+    rows = rng.integers(-1, V + 2, (B, n), dtype=np.int32)
+    ids[0] = -1
+    if B > 1:
+        ids[-1], rows[-1], params[-1] = ids[-2], rows[-2], params[-2]
+    stack = torch.from_numpy(np.stack([TE.pack_params(p, box.used) for p in params]))
+    env = {"bindings": {"p": _t(rows)}}
+    a = (_t(ids), n, n, 0) if mode == "ids" else (None, n, V - 100, 7)
+    tmps, singles = [], [[] for _ in range(B)]
+    for prog in pred.programs:
+        got = K.predicate_eval_stacked(prog.prog, prog.buffers(env, tmps, n), *a, 0, stack, values=True)
+        assert got[1].shape == (B, n) and got[1].dtype == torch.bool
+        for b in range(B):
+            a_b = (_t(ids[b]), n, n, 0) if mode == "ids" else a
+            bufs = prog.buffers({"bindings": {"p": _t(rows[b])}}, singles[b], n)
+            one = K.plain_predicate_eval(prog.prog, bufs, *a_b, 0, stack[b], values=True)
+            assert torch.equal(got[0][b], one[0]) and torch.equal(got[1][b], one[1]), b
+            singles[b].append(one)
+        tmps.append(got)
+    if mode == "ids":
+        box.set_row(stack)
+        try:
+            mask = pred(_t(ids), env)
+        finally:
+            box.reset()
+        assert torch.equal(mask, tmps[-1][1])
+        assert not mask[0].any() and (B == 1 or mask[1:].any())
+
+
+def test_shared_binding_mask_runs_once_flattened(monkeypatch):
+    """A binding-reading mask that reads no parameter, over lane-stacked
+    ids with lane-stacked binding rows: one single-form launch over the
+    flattened [B·n] ids and rows, equal to each lane's own launch; a split
+    program too (its values stay flattened from launch to launch)."""
+    _db, snap, dg = _person_columns(3_000, seed=5)
+    scope = ColumnScope(
+        dg.columns, dg.non_columnar, device=dg.device, binding_columns=dg.columns, visible_aliases={"p"}
+    )
+    from orientdb_tpu_torch.ops.predicates import Predicate, compile_where
+
+    text = "age < p.age AND (uid > 5 OR lat > p.lat) AND lng < 25.0"
+    rng = np.random.default_rng(5)
+    ids = _t(rng.integers(-1, snap.num_vertices, (4, 900), dtype=np.int32))
+    rows = _t(rng.integers(-1, snap.num_vertices, (4, 900), dtype=np.int32))
+    for kw in ({}, dict(max_stack=3, max_bufs=4)):
+        pred = Predicate([compile_where(Parser(text).parse_expression(), scope, {})], dg.device,
+                         uses_bindings=True, **kw)
+        seen = []
+        monkeypatch.setattr(K, "predicate_eval_stacked", lambda *a, **k: seen.append(a))
+        got = pred(ids, {"bindings": {"p": rows}})
+        monkeypatch.undo()
+        assert not seen and got.shape == (4, 900)
+        for b in range(4):
+            assert torch.equal(got[b], pred(ids[b], {"bindings": {"p": rows[b]}}))
+
+
+@pytest.mark.parametrize("B", LANES + [0])
+@pytest.mark.parametrize("out", [False, True], ids=["fresh", "out"])
+def test_rows_with_matches_lanes_equal_reference(out, B):
+    """K13's lane form over lane-local [B, W] rows (ascending as an
+    expansion emits them, -1 padding, ids past the end, an all-padding
+    lane, a lane repeating the one before it): lane b equals the
+    reference's `rows_with_matches` and the single-lane wrapper, exactly;
+    with ``out`` the counts add into each lane's row."""
+    rng = np.random.default_rng(B * 5 + out)
+    W, nseg = 700, 97
+    rows = np.sort(rng.integers(-1, nseg + 3, (B, W)), axis=1).astype(np.int32)
+    mask = rng.random((B, W)) < 0.6
+    if B:
+        rows[0] = -1
+    if B > 1:
+        rows[-1], mask[-1] = rows[-2], mask[-2]
+    acc = torch.from_numpy(rng.integers(0, 5, (B, nseg), dtype=np.int32)) if out else None
+    start = acc.clone() if out else torch.zeros((B, nseg), dtype=I32)
+    got = K.rows_with_matches(_t(rows), _t(mask), nseg, out=acc)
+    assert got.shape == (B, nseg) and got.dtype == I32
+    if out:
+        assert got is acc
+    for b in range(B):
+        want = np.asarray(J.rows_with_matches(rows[b], mask[b], num_segments=nseg))
+        np.testing.assert_array_equal((got[b] - start[b]).numpy(), want)
+        assert torch.equal(got[b] - start[b], K.rows_with_matches(_t(rows[b]), _t(mask[b]), nseg))
+    if B:
+        assert torch.equal(got[0], start[0])
+
+
 def test_lane_forms_refuse_what_their_kernels_do_not_take():
     """Each wrapper checks its shapes: lanes that disagree, a stacked
     operand of the wrong width, values from a lane-form mask program, and
@@ -484,7 +612,7 @@ class _LaneSpy:
     NAMES = (
         "predicate_eval_lanes", "weight_gather_lanes", "indptr_segment_sum_lanes", "mask_count_lanes",
         "value_cumsum_lanes", "compact_indices_lanes", "expand_offsets_lanes", "gather_expand_lanes",
-        "front_pack_lanes", "replay_meta_lanes",
+        "front_pack_lanes", "replay_meta_lanes", "predicate_eval_stacked", "rows_with_matches_lanes",
     )
 
     def __init__(self, monkeypatch):
@@ -589,33 +717,57 @@ def test_rows_group_runs_on_the_lane_axis(monkeypatch, person_knows):
     assert calls["take_pad_lanes"] > 0
 
 
-def test_var_depth_and_lane_varying_arm_groups_stay_lane_after_lane(monkeypatch, person_knows, snb):
-    """A COUNT whose lane-varying root is expanded by a variable-depth arm,
-    and an E2-shaped rows group (a lane-varying edge WHERE past the root),
-    keep the lane-after-lane group, and equal the reference."""
+def test_var_depth_count_group_stays_lane_after_lane(monkeypatch, person_knows):
+    """A COUNT whose lane-varying root is expanded by a variable-depth arm
+    keeps the lane-after-lane group, and equals the reference."""
     jdb, db, snap = person_knows
     plist = [{"k": 5 + i} for i in range(16)]
     want = [jdb.query(VAR_Q, p, engine="tpu", strict=True).to_dicts() for p in plist]
     calls = _group(monkeypatch, db, snap, VAR_Q, plist, want, lane_axis=False)
     assert not any(calls.values())
+
+
+def test_e2_shaped_group_runs_on_the_lane_axis(monkeypatch, snb):
+    """The E2-shaped rows group (a lane-varying edge WHERE on a bare
+    ``.outE()`` arm past the root, then an endpoint arm) with ``n`` and
+    ``d`` varying by lane takes the lane axis: the root's K15 lane launch,
+    the edge WHERE through K15's stacked form over the [B, cap] edge ids,
+    the shared node mask once over the flattened ids; every lane equals
+    numpy, lane 4 finds no root."""
     db, snap = snb
     young = snap.v_columns["age"].values < 30
-    plist = [{"n": 2_000 - 100 * i, "d": 10_000 + 50 * i} for i in range(16)]
+    plist = [{"n": 0 if i == 4 else 2_000 - 100 * i, "d": 10_000 + 500 * i} for i in range(16)]
     want = [
         [{"p": int(a), "f": int(b), "cd": int(c)} for a, b, c in numpy_out_edge_rows(snap, p["n"], p["d"], young)]
         for p in plist
     ]
-    calls = _group(monkeypatch, db, snap, E2, plist, want, lane_axis=False)
-    assert not any(calls.values())
+    assert want[4] == [] and all(want[i] for i in range(16) if i != 4)
+    calls = _group(monkeypatch, db, snap, E2, plist, want)
+    assert calls["predicate_eval_lanes"] == 1 and calls["predicate_eval_stacked"] == 1
+    assert calls["expand_offsets_lanes"] == 1 and calls["gather_expand_lanes"] == 1
+    assert calls["front_pack_lanes"] == 1 and calls["rows_with_matches_lanes"] == 0
 
 
 def test_e2_shaped_group_equals_both_engines_on_a_carried_graph(monkeypatch):
     """The E2-shaped rows group (a lane-varying edge WHERE past the root)
-    on a record-backed graph of E2's schema carried into the port: it stays
-    lane after lane, and every lane equals the reference's
+    on a record-backed graph of E2's schema carried into the port: it runs
+    on the lane axis, and every lane equals the reference's
     ``engine="oracle"`` and its ``engine="tpu"`` (which on an array-built
     snapshot, `build_snb_shape`'s, cannot bind the edge alias: it has no
     edge records); lane 4 finds no root."""
+    jdb, db, snap = _e_record_graph()
+    plist = [{"n": 0 if i == 4 else 300 - 15 * i, "d": 8_000 + 500 * i} for i in range(16)]
+    want = [jdb.query(E2, p, engine="oracle").to_dicts() for p in plist]
+    for p, rows in zip(plist, want):
+        assert canonical_rows(jdb.query(E2, p, engine="tpu", strict=True).to_dicts()) == canonical_rows(rows), p
+    assert want[4] == [] and all(want[i] for i in range(16) if i != 4)
+    calls = _group(monkeypatch, db, snap, E2, plist, want)
+    assert calls["predicate_eval_stacked"] == 1 and calls["predicate_eval_lanes"] == 1
+
+
+def _e_record_graph():
+    """A record-backed graph of E2's and E5's schema (Person uid, age;
+    knows creationDate), carried into the port."""
     from test_torch_edges import _carry
 
     rng = np.random.default_rng(7)
@@ -627,12 +779,141 @@ def test_e2_shaped_group_equals_both_engines_on_a_carried_graph(monkeypatch):
         jdb.new_edge("knows", vs[int(s)], vs[int(d)], creationDate=int(cd))
     attach_fresh_snapshot(jdb)
     db, snap = _carry(jdb)
-    plist = [{"n": 0 if i == 4 else 300 - 15 * i, "d": 8_000 + 500 * i} for i in range(16)]
-    want = [jdb.query(E2, p, engine="oracle").to_dicts() for p in plist]
-    for p, rows in zip(plist, want):
-        assert canonical_rows(jdb.query(E2, p, engine="tpu", strict=True).to_dicts()) == canonical_rows(rows), p
-    assert want[4] == [] and all(want[i] for i in range(16) if i != 4)
-    calls = _group(monkeypatch, db, snap, E2, plist, want, lane_axis=False)
+    return jdb, db, snap
+
+
+E4 = (
+    "MATCH {class:Person, as:p, where:(uid < :n)}"
+    "-knows->{as:f, optional:true, where:(age > 75)} RETURN p.uid AS p, f.uid AS f"
+)
+E5 = (
+    "MATCH {class:Person, as:p, where:(uid < :n)}-knows->{as:f, where:(age < p.age)}, "
+    "{as:f}-knows{as:kn, optional:true, where:(creationDate > :d)}-{as:p} "
+    "RETURN p.uid AS p, f.uid AS f, kn IS NOT NULL AS probe"
+)
+E2_BOTH = (
+    "MATCH {class:Person, as:p, where:(uid < :n)}.bothE('knows'){as:e}, "
+    "{as:e}.bothV(){as:v} RETURN p.uid AS p, v.uid AS v"
+)
+
+
+def _dicts(rows, names):
+    """numpy rows as result dicts (-1 → None, a probe column as bool)."""
+    out = []
+    for r in rows:
+        d = {k: (None if int(v) < 0 else int(v)) for k, v in zip(names, r)}
+        if "probe" in d:
+            d["probe"] = bool(d["probe"])
+        out.append(d)
+    return out
+
+
+def test_e5_shaped_group_runs_on_the_lane_axis(monkeypatch, snb):
+    """The E5-shaped rows group (IS7: an arm whose node mask reads the
+    binding ``p.age``, then an OPTIONAL closing arm whose edge WHERE reads
+    ``:d``) with ``n`` and ``d`` varying by lane takes the lane axis: the
+    binding mask once over the flattened ids and binding rows, the closing
+    arm's edge WHERE and ``p``'s mask through K15's stacked form, its left
+    join through K13's lane form (both directions); every lane equals
+    numpy, lane 2 finds no root."""
+    db, snap = snb
+    plist = [{"n": 0 if i == 2 else 400 - 40 * i, "d": 11_000 + 900 * i} for i in range(8)]
+    want = [_dicts(numpy_probe_rows(snap, p["n"], p["d"]), ("p", "f", "probe")) for p in plist]
+    assert want[2] == [] and all(want[i] for i in range(8) if i != 2)
+    calls = _group(monkeypatch, db, snap, E5, plist, want)
+    assert calls["predicate_eval_lanes"] == 1 and calls["predicate_eval_stacked"] >= 2
+    assert calls["rows_with_matches_lanes"] == 2 and calls["compact_indices_lanes"] >= 4
+
+
+def test_e5_shaped_group_equals_the_oracle_on_a_carried_graph(monkeypatch):
+    """The E5-shaped group on the record-backed graph: on the lane axis,
+    every lane equals the reference's ``engine="oracle"``."""
+    jdb, db, snap = _e_record_graph()
+    plist = [{"n": 0 if i == 1 else 300 - 30 * i, "d": 6_000 + 1_500 * i} for i in range(8)]
+    want = [jdb.query(E5, p, engine="oracle").to_dicts() for p in plist]
+    assert want[1] == [] and all(want[i] for i in range(8) if i != 1)
+    calls = _group(monkeypatch, db, snap, E5, plist, want)
+    assert calls["rows_with_matches_lanes"] == 2 and calls["predicate_eval_stacked"] >= 2
+
+
+def test_e4_shaped_optional_group_runs_on_the_lane_axis(monkeypatch, snb):
+    """The E4-shaped OPTIONAL group (a left join whose node mask the lanes
+    share) takes the lane axis: K13's lane form counts each lane's matches,
+    and each lane's unmatched rows come back with a null ``f``; every lane
+    equals numpy, lane 5 finds no root."""
+    db, snap = snb
+    old = snap.v_columns["age"].values > 75
+    plist = [{"n": 0 if i == 5 else 1_000 - 60 * i} for i in range(16)]
+    want = [_dicts(numpy_optional_rows(snap, p["n"], old), ("p", "f")) for p in plist]
+    assert want[5] == [] and any(r["f"] is None for r in want[0])
+    calls = _group(monkeypatch, db, snap, E4, plist, want)
+    assert calls["rows_with_matches_lanes"] == 1 and calls["predicate_eval_stacked"] == 0
+    assert calls["compact_indices_lanes"] == 3
+
+
+def test_e2b_shaped_group_runs_on_the_lane_axis(monkeypatch, snb):
+    """The E2b-shaped group (``.bothE()`` binding the edge, then
+    ``.bothV()`` to both its endpoints) takes the lane axis: K2's and K2b's
+    lane forms for each direction, the endpoints through the shared edge
+    lists' flattened gather; every lane equals numpy, lane 0 finds no
+    root."""
+    db, snap = snb
+    plist = [{"n": 0 if i == 0 else 70 - 4 * i} for i in range(16)]
+    want = [_dicts(numpy_incident_rows(snap, p["n"]), ("p", "v")) for p in plist]
+    assert want[0] == []
+    calls = _group(monkeypatch, db, snap, E2_BOTH, plist, want)
+    assert calls["expand_offsets_lanes"] == 2 and calls["gather_expand_lanes"] == 2
+    assert calls["predicate_eval_stacked"] == 0 and calls["predicate_eval_lanes"] == 1
+
+
+@pytest.mark.parametrize("recorded", [19_900, 19_999], ids=["few", "none"])
+def test_lane_overflowing_past_the_root_reruns_alone(monkeypatch, snb, recorded):
+    """E2 recorded where its edge WHERE keeps few edges (or none: the
+    compaction's capacity is then 0), then a batch of 16 whose lane 9 keeps
+    every edge: the group runs on the lane axis, lane 9's meta row flags
+    only its own overflow and it re-records alone, lane 3 (no root) gives
+    no rows, and every lane equals numpy."""
+    db, snap = snb
+    young = snap.v_columns["age"].values < 30
+    plist = [{"n": 0 if i == 3 else 600, "d": 10_000 if i == 9 else recorded} for i in range(16)]
+    want = [numpy_out_edge_rows(snap, p["n"], p["d"], young) for p in plist]
+    assert want[3].shape[0] == 0 and want[9].shape[0] > 4 * max(want[0].shape[0], 8)
+    TE._plan_cache(snap).clear()  # E2 records anew, at plist[0]
+    db.query(E2, plist[0]).to_dicts()
+    (first,) = _plans(snap, E2)
+    spy = _LaneSpy(monkeypatch)
+    got = [rs.to_dicts() for rs in db.query_batch([E2] * 16, plist)]
+    monkeypatch.undo()
+    for i, rows in enumerate(got):
+        assert canonical_rows(rows) == canonical_rows(
+            [{"p": int(a), "f": int(b), "cd": int(c)} for a, b, c in want[i]]
+        ), i
+    assert first.lane_axis and first.group_replays == 1
+    assert spy.calls["predicate_eval_stacked"] >= 1
+    variants = [v for k, v in TE._plan_cache(snap).items() if k[0] == parse(E2)]
+    (v,) = variants
+    assert len(v.plans) == 2 and v.plans[1] is first and v.pick(plist[9]) is v.plans[0]
+    assert all(v.pick(p) is first for i, p in enumerate(plist) if i != 9)
+    TE._plan_cache(snap).clear()
+
+
+@pytest.mark.parametrize("shape", ["not", "cartesian"])
+def test_not_and_cartesian_rows_groups_stay_lane_after_lane(monkeypatch, person_knows, shape):
+    """A NOT arm and a second (cartesian) root keep the rows group lane
+    after lane, and every lane equals the reference's ``engine="tpu"`` (the
+    cartesian lanes keep the recorded cardinalities, which its pairing
+    stride needs: ``:z`` varies and ``:k`` does not)."""
+    jdb, db, snap = person_knows
+    if shape == "not":
+        sql = ("MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f}, "
+               "NOT {as:f}-knows->{where:(age > 70)} RETURN p.uid AS p, f.uid AS f")
+        plist = [{"k": 4 + i} for i in range(16)]
+    else:
+        sql = ("MATCH {class:Person, as:p, where:(uid < :k AND uid > :z)}, {class:Person, as:q, where:(uid < 3)} "
+               "RETURN p.uid AS p, q.uid AS q")
+        plist = [{"k": 6, "z": -1 - i} for i in range(16)]
+    want = [jdb.query(sql, p, engine="tpu", strict=True).to_dicts() for p in plist]
+    calls = _group(monkeypatch, db, snap, sql, plist, want, lane_axis=False)
     assert not any(calls.values())
 
 
@@ -835,3 +1116,39 @@ def test_chip_smoke_rows_lane_checks_run_on_the_cpu(person_knows):
     got = K.value_cumsum_lanes(vals)
     assert chip_smoke._lane_equal(torch, got, chip_smoke._lane_plain(K, name, a, kw))
     assert all(torch.equal(got[b], chip_smoke._lane_single(K, name, a, kw, b)) for b in range(16))
+
+
+def test_chip_smoke_arm_lane_checks_run_on_the_cpu(snb):
+    """The card run's checks of K15's stacked form and K13's lane form, on
+    the CPU where both sides are plain versions: the synthetic stacked
+    programs (a split one among them) equal the single form lane by lane,
+    and one eager run of BE5's group body (E5 × 8) records both forms'
+    calls, each equal to its plain version and to its single-lane calls
+    lane by lane, with a bound and (K13) the library's ``scatter_add_``."""
+    import chip_smoke
+
+    band, checked = chip_smoke.check_predicate_stacked(np, torch, K, 2_000, 3, device="cpu")
+    assert checked > 2 * len(chip_smoke.K15_LANE_WHERES) and band >= 0
+    db, snap = snb
+    sql = chip_smoke.E5
+    plist = [{"n": 300 + 40 * i, "d": 15_000} for i in range(8)]
+    for _ in range(2):
+        db.query_batch([sql] * 8, plist)
+    (plan,) = [p for p in _plans(snap, sql) if p.group_replays and p.lane_axis]
+    stack = torch.from_numpy(np.stack([plan._dyn_args(p) for p in plist]))
+    calls = [c for c in chip_smoke.lane_calls(torch, K, plan, stack) if c[0] in chip_smoke.ARM_LANE_FORMS]
+    assert {name for name, _a, _kw in calls} == set(chip_smoke.ARM_LANE_FORMS)
+    for name, a, kw in calls:
+        got = getattr(K, name)(*a, **kw)
+        assert chip_smoke._lane_equal(torch, got, chip_smoke._lane_plain(K, name, a, kw)), name
+        for b in range(8):
+            assert chip_smoke._lane_equal(
+                torch, chip_smoke._lane_of(got, b), chip_smoke._lane_single(K, name, a, kw, b)
+            ), name
+        nbytes, ops, _sectors = chip_smoke._lane_bound(torch, name, a, kw)
+        assert nbytes > 0 and ops == 0
+        lib = chip_smoke._lane_library(torch, name, a)
+        if name == "rows_with_matches_lanes":
+            assert torch.equal(lib(), got)
+        else:
+            assert lib is None
