@@ -160,8 +160,9 @@ from the root of a checkout. Phases, each of which raises on failure:
    once at its cell's largest parameter, launch counts zeroed before each
    graph's cells and read after: BQ1/BQ2 (Q1/Q2 × 64, one shared replay),
    BQ3 (Q3 × 16, k = 1000 + 62·i: a rows group of 16 lanes, its page
-   elected through K14 `group_page`), BV2/BV3 (V2/V3 × 8, k = 9..16:
-   groups with the bitmap BFS inside the lanes), Bmix (seven items of six
+   elected through K14 `group_page`), BV1 (V1 from ``uid < :k`` × 8, k =
+   200 − 12·i: a variable-depth COUNT group), BV2/BV3 (V2/V3 × 8, k =
+   9..16: rows groups with the bitmap BFS inside the lanes), Bmix (seven items of six
    plans: one replay each, pages elected from each plan's ladder, order
    kept), BQ3o (BQ3 with lane 15 at k = 50,000: that lane alone
    re-records), BE1 (E1 × 64, `bench.py:372-377`: a count group of 16
@@ -174,14 +175,17 @@ from the root of a checkout. Phases, each of which raises on failure:
    lane forms of K15, K5a, K4 and K5b inside it), and so must BQ3, BQD and
    BQ3o's lanes 0–14 (the lane forms of K15, K5b, K3, K2, K2b, K5's lane
    stride, K1 and K6/K7), and BE2 and BE5 (with them K15's stacked form over
-   an arm's lane-stacked ids, and in BE5 K13's lane form). Every item equals numpy
+   an arm's lane-stacked ids, and in BE5 K13's lane form), and BV1–BV3 (the
+   lanes' [B, C, vb] bitmap stacks through the lane forms of K10, K11 and,
+   but for BV3's NOT arm, K12). Every item equals numpy
    (BG1 outside the band); K15 launches in both graphs' batch cells. The
    lane forms are held at BG1's, BE1's and BQ3's shapes (each call of one
    eager run of the group body) against their plain versions and, lane by
    lane, against the single-lane kernels, and timed eager and in a graph
    beside their bounds and beside B single-lane launches (K15's stacked form
-   and K13's lane form at BE5's and BE2's shapes, with K13's ``out``); each
-   group's captured replay is timed, and the groups of BQ3, BE5 and BE2 are
+   and K13's lane form at BE5's and BE2's shapes, with K13's ``out``; K10's,
+   K11's and K12's at BV1's, BV3's and BV2's); each
+   group's captured replay is timed, and the groups of BQ3, BE5, BE2, BV2 and BV3 are
    captured anew on the lane axis and lane after lane in the same run: each
    route's launches, graph nodes, capture peak bytes and device ms a replay
    side by side. Each cell
@@ -300,7 +304,9 @@ instruction); the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import functools
 import gc
+import inspect
 import json
 import statistics
 import subprocess
@@ -387,6 +393,11 @@ REPLACES = {
     # past the root (BE2, BE5): K15 over lane-stacked ids, K13's lane form
     "predicate_eval_stacked": "orientdb_tpu/ops/predicates.py:550",
     "rows_with_matches_lanes": "orientdb_tpu/ops/csr.py:283",
+    # the bitmap BFS under the same vmap (BV1-BV3): K10's hop, K11's
+    # emission and counts, K12's level step over [B, C, vb] stacks
+    "bitmap_hop_csr_lanes": "orientdb_tpu/ops/csr.py:260",
+    "bitmap_emit_lanes": "orientdb_tpu/exec/tpu_engine.py:475",
+    "frontier_advance_lanes": "orientdb_tpu/exec/tpu_engine.py:2171",
 }
 BITMAP_KERNELS = ["rows_to_bitmap", "bitmap_hop_csr", "bitmap_emit", "frontier_advance"]
 REPLAY_ONLY = ("front_pack", "replay_meta", "narrow_i16")
@@ -411,6 +422,22 @@ ARM_LANE_FORMS = {
     "predicate_eval_stacked": "predicate_eval_stacked",
     "rows_with_matches_lanes": "rows_with_matches_lanes",
 }
+#: the lane forms of the bitmap BFS (BV1-BV3): K10's hop over the lanes'
+#: [B, C, vb] frontier stack, K11's emission with a count a lane, K12's
+#: level step with an alive (and emitted) count a lane
+BITMAP_LANE_FORMS = {
+    "bitmap_hop_csr_lanes": "bitmap_hop_csr_lanes",
+    "bitmap_emit_lanes": "bitmap_emit_lanes",
+    "frontier_advance_lanes": "frontier_advance_lanes",
+}
+#: the operands (positional indices) of a lane form that it writes in
+#: place, or that a later call of its group replay writes (K12 steps the
+#: frontier K10 read and the level K11 emitted from): copied when a call is
+#: recorded and again for each rerun
+LANE_COPIES = {"bitmap_hop_csr_lanes": (4, 7), "bitmap_emit_lanes": (0,), "frontier_advance_lanes": (0, 1)}
+#: calls of each form in `LANE_COPIES` a check keeps (copies of their [B, C,
+#: vb] operands, 512 MiB each at A's 8 lanes): a chunk's levels
+BITMAP_LANE_CALLS = 4
 LANE_FORMS = {
     "predicate_eval_lanes": "predicate_eval_lanes",
     "weight_gather_lanes": "weight_gather_lanes_i32",
@@ -418,6 +445,7 @@ LANE_FORMS = {
     "mask_count_lanes": "mask_count_lanes",
     **ROWS_LANE_FORMS,
     **ARM_LANE_FORMS,
+    **BITMAP_LANE_FORMS,
 }
 LANE_KERNELS = tuple(dict.fromkeys(LANE_FORMS.values()))
 #: the kernels only the batch path launches (phase 7)
@@ -514,6 +542,9 @@ V1 = (
     "MATCH {class:Person, as:p, where:(uid < 200)}"
     "-knows->{as:f, while:($depth < 3), where:(age < 30)} RETURN count(*) AS n"
 )
+#: V1 with its roots a parameter: BV1's items (k = 200 - 12·i), a
+#: variable-depth COUNT group on the lane axis
+V1P = V1.replace("uid < 200", "uid < :k")
 # variable-depth rows, both directions, with a depth alias
 V2 = (
     "MATCH {class:Person, as:p, where:(uid < :k)}"
@@ -1754,9 +1785,14 @@ class VRef:
     def __init__(self, np, snap):
         self.np, self.snap = np, snap
         age = snap.v_columns["age"].values
-        self.v1 = int(numpy_var_depth_rows(snap, range(200), "out", age < 30, while_depth=3).shape[0])
+        self._v1 = numpy_var_depth_rows(snap, range(200), "out", age < 30, while_depth=3)
+        self.v1 = int(self._v1.shape[0])
         self._drop = numpy_has_out_neighbour(snap, age > 70)
         self._v2, self._v3 = {}, {}
+
+    def v1_below(self, k) -> int:
+        """V1's count from the roots ``uid < k`` (k <= 200): BV1's items."""
+        return int((self._v1[:, 0] < k).sum())
 
     def v2(self, k):
         if k not in self._v2:
@@ -3428,7 +3464,13 @@ def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big, gref):
     ((qd, _dr, _dg),) = run_batch_cell(torch, K, TE, db, snap, card, bqd)
     done.append(bqd)
     _require(qd.direct_fetch and qd.lane_axis and 16 in qd.groups, "BQD is not a direct-fetch group on the lane axis")
+    k1 = [200 - 12 * i for i in range(8)]
+    bv = {}
     for cell in (
+        BatchCell("BV1", [V1P] * 8, [{"k": k} for k in k1],
+                  lambda i, rows: _require(rows == [{"n": vref.v1_below(k1[i])}],
+                                           f"BV1 k={k1[i]}: {rows} != numpy {vref.v1_below(k1[i])}"), "group",
+                  warm=[(V1P, {"k": max(k1)})]),
         BatchCell("BV2", [V2] * 8, [{"k": k} for k in kv],
                   _rows_check(np, "BV2", lambda i: _below(v2_all, kv[i]), ("p", "f", "d")), "group",
                   warm=[(V2, {"k": 16})]),
@@ -3438,12 +3480,26 @@ def run_batches_pk(np, torch, K, ks, db, snap, card, vref, q3_big, gref):
     ):
         ((plan, _dr, _dg),) = run_batch_cell(torch, K, TE, db, snap, card, cell)
         done.append(cell)
+        bv[cell.name] = plan
         g = plan.groups[8]
         print(f"batch {cell.name}: direct_fetch {plan.direct_fetch}, rows group {plan._rows_grouped()}")
-        if cell.name == "BV2":
-            missing = [n for n in BITMAP_KERNELS if g.launches.get(n, 0) == 0]
-            _require(plan._rows_grouped(), "BV2 is not a rows group")
-            _require(db.device.type != "cuda" or not missing, f"BV2: {missing} not in the group replay")
+        # the bitmap BFS inside the group replay through K10's, K11's and
+        # (but for V3's NOT arm) K12's lane forms
+        need = ["rows_to_bitmap", "bitmap_hop_csr_lanes", "bitmap_emit_lanes"]
+        need += [] if cell.name == "BV3" else ["frontier_advance_lanes"]
+        missing = [n for n in need if g.launches.get(n, 0) == 0]
+        _require(plan.lane_axis, f"{cell.name} did not run on the lane axis")
+        _require(cell.name != "BV2" or plan._rows_grouped(), "BV2 is not a rows group")
+        _require(db.device.type != "cuda" or not missing, f"{cell.name}: {missing} not in the group replay")
+    # the bitmap lane forms held at BV1's (K11's count-only depth 0, K12's
+    # folded count), BV3's and then BV2's shapes (BV2's rows are the
+    # JSON's), and BV2 and BV3 captured anew on each route
+    for name, forms in (("BV1", BITMAP_LANE_FORMS), ("BV3", ("bitmap_hop_csr_lanes", "bitmap_emit_lanes")),
+                        ("BV2", BITMAP_LANE_FORMS)):
+        plan = bv[name]
+        check_lane_kernels(np, torch, K, ks, plan, plan.groups[8].stack.clone(), name, card, forms=forms)
+    for name in ("BV2", "BV3"):
+        compare_group_routes(torch, K, bv[name], bv[name].groups[8].stack.cpu().numpy(), name, card)
     mix = [
         (Q1, None, count_is(n1)),
         (Q3, {"k": 2000}, q3_rows(2000)),
@@ -3580,22 +3636,34 @@ def check_group_page(torch, K, ks, stack, plan, ks3, q3_big):
     K.LAUNCHES.update(counted)
 
 
-def lane_calls(torch, K, plan, stack):
+def lane_calls(torch, K, plan, stack, forms=None, at_call=None):
     """One eager run of ``plan``'s group body on the lane axis over the
     parameter stack ``stack``, recording each lane form's arguments (the
     shapes the main path gives it) in call order (`take_pad`'s only with a
     lane-stacked table: its lane stride; K13's without the counts it adds
-    into); its launches are not counted."""
+    into; of ``forms`` only, when given). The operands of `LANE_COPIES` are
+    kept as copies taken before the call, for a form's first
+    `BITMAP_LANE_CALLS` calls. With ``at_call``, each call's arguments go
+    to ``at_call(name, a, kw)`` before the call instead, and nothing is
+    kept. Its launches are not counted."""
     counted = dict(K.LAUNCHES)
     calls = []
+    kept = dict.fromkeys(LANE_COPIES, 0)
     orig = {name: getattr(K, name) for name in LANE_FORMS}
 
     def spy(name):
+        @functools.wraps(orig[name])  # `_named` reads the wrapper's signature
         def call(*a, **kw):
-            if name == "rows_with_matches_lanes":
-                calls.append((name, a[:3], {}))
-            elif name != "take_pad" or a[0].dim() == 2:
-                calls.append((name, a, kw))
+            args = (a[:3], {}) if name == "rows_with_matches_lanes" else (a, kw)
+            if forms is not None and name not in forms or name == "take_pad" and a[0].dim() != 2:
+                pass
+            elif at_call is not None:
+                at_call(name, *args)
+            elif name not in LANE_COPIES:
+                calls.append((name, *args))
+            elif kept[name] < BITMAP_LANE_CALLS:
+                kept[name] += 1
+                calls.append((name, _copied(name, a), dict(kw)))
             return orig[name](*a, **kw)
 
         return call
@@ -3613,8 +3681,50 @@ def lane_calls(torch, K, plan, stack):
     return calls
 
 
+def _copied(name, a):
+    """``a`` with the operands of `LANE_COPIES` cloned."""
+    a = list(a)
+    for i in LANE_COPIES.get(name, ()):
+        if i < len(a) and a[i] is not None:
+            a[i] = a[i].clone()
+    return tuple(a)
+
+
+def _named(K, name, a, kw) -> dict:
+    """A lane form's arguments by parameter name, defaults filled in."""
+    bound = inspect.signature(getattr(K, name)).bind(*a, **kw)
+    bound.apply_defaults()
+    return dict(bound.arguments)
+
+
+def _row(t, b):
+    """Lane ``b``'s row of a [B, vb] gate or node mask, or the shared one."""
+    return t if t is None or t.dim() == 1 else t[b]
+
+
+def _lane_run(K, name, a, kw):
+    """A lane form's call on fresh copies of the operands it writes in
+    place (`LANE_COPIES`); K12's result is ``(nxt, visited, alive[,
+    emitted])``."""
+    a = _copied(name, a)
+    got = getattr(K, name)(*a, **kw)
+    if name == "frontier_advance_lanes":
+        return (a[0], a[1], *(got if isinstance(got, tuple) else (got,)))
+    return got
+
+
 def _lane_plain(K, name, a, kw):
-    """A lane form's call through its plain version (an ``out`` dropped)."""
+    """A lane form's call through its plain version (an ``out`` dropped;
+    K10's ``out`` ORed in, as the kernel does; in-place operands copied)."""
+    if name == "bitmap_hop_csr_lanes":
+        n = _named(K, name, a, kw)
+        out = n.pop("out")
+        hop = K.plain_bitmap_hop_csr_lanes(**n)
+        return hop if out is None else out | hop
+    if name == "frontier_advance_lanes":
+        a = _copied(name, a)
+        got = K.plain_frontier_advance_lanes(*a, **kw)
+        return (a[0], a[1], *(got if isinstance(got, tuple) else (got,)))
     if name == "take_pad":
         return K.plain_take_pad_lanes(*a, **kw)
     if name in ("front_pack_lanes", "replay_meta_lanes"):
@@ -3624,17 +3734,37 @@ def _lane_plain(K, name, a, kw):
 
 def _lane_of(got, b):
     """Lane ``b`` of a lane form's result (each tensor of a tuple)."""
-    return tuple(g[b] for g in got) if isinstance(got, tuple) else got[b]
+    return tuple(None if g is None else g[b] for g in got) if isinstance(got, tuple) else got[b]
 
 
 def _lane_equal(torch, got, single) -> bool:
     got = got if isinstance(got, tuple) else (got,)
     single = single if isinstance(single, tuple) else (single,)
-    return len(got) == len(single) and all(torch.equal(g, w) for g, w in zip(got, single))
+    return len(got) == len(single) and all(
+        (g is None and w is None) or (g is not None and w is not None and torch.equal(g, w))
+        for g, w in zip(got, single)
+    )
 
 
-def _lane_single(K, name, a, kw, b):
-    """Lane ``b`` of a lane form's call as the single-lane wrapper's call."""
+def _lane_single(K, name, a, kw, b, copy: bool = True):
+    """Lane ``b`` of a lane form's call as the single-lane wrapper's call
+    (on copies of the rows K10 ORs into and K12 steps; with ``copy`` False
+    the rows themselves, for timing)."""
+    if name in BITMAP_LANE_FORMS:
+        n = _named(K, name, a, kw)
+        rows = lambda t: None if t is None else (t[b].clone() if copy else t[b])  # noqa: E731
+        if name == "bitmap_hop_csr_lanes":
+            alive = n["alive"]
+            return K.bitmap_hop_csr(
+                n["indptr"], n["nbr"], n["eid"], n["edge_mask"], n["frontier"][b], _row(n["gate"], b),
+                None if alive is None else alive[b], rows(n["out"]),
+            )
+        bound = None if n["bound"] is None else n["bound"][b]
+        if name == "bitmap_emit_lanes":
+            return K.bitmap_emit(n["reached"][b], _row(n["node"], b), bound, n["emit"], n["any_row"], n["count"])
+        nxt, vis = rows(n["nxt"]), rows(n["visited"])
+        got = K.frontier_advance(nxt, vis, _row(n["gate"], b), _row(n["node"], b), bound)
+        return (nxt, vis, *(got if isinstance(got, tuple) else (got,)))
     if name == "value_cumsum_lanes":
         return K.value_cumsum(a[0][b])
     if name == "compact_indices_lanes":
@@ -3677,11 +3807,56 @@ def _lane_single(K, name, a, kw, b):
     return K.mask_count(a[0][b])
 
 
+def _hop_lanes_bytes(torch, K, n) -> float:
+    """The bytes K10's lane form must move for this call: a live lane
+    (alive not 0) reads its C frontier rows once, 8 bytes of indptr an
+    active vertex and 4 of nbr (+1 of mask, +4 of eid) an edge of an active
+    vertex (`csr_hop_bytes` without its output and gate), and its gate row
+    (a shared gate once); a dead lane reads nothing. The output: when this
+    call zeroes it, every lane's rows written once; when it ORs into a
+    given ``out``, only the 1s the hop stores (each (row, vertex) it
+    reaches, a byte each; the kernel reads nothing of ``out``)."""
+    fr, gate, alive, out = n["frontier"], n["gate"], n["alive"], n["out"]
+    B, C, vb = fr.shape
+    alive_h = None if alive is None else alive.cpu()
+    live = [b for b in range(B) if alive_h is None or int(alive_h[b]) != 0]
+    masked, eid = n["edge_mask"] is not None, n["eid"] is not None
+    total = 0.0
+    for b in live:
+        g = _row(gate, b)
+        nbytes, _act, _edges = csr_hop_bytes(torch, n["indptr"], fr[b], g, masked, eid)
+        total += nbytes - C * vb - (vb if g is not None else 0.0)
+    if gate is not None and live:
+        total += vb * (len(live) if gate.dim() == 2 else 1)
+    if out is None:
+        return total + B * C * vb
+    n = {k: v for k, v in n.items() if k != "out"}
+    return total + int(K.plain_bitmap_hop_csr_lanes(**n).sum())
+
+
 def _lane_bound(torch, name, a, kw):
     """(bytes, operations, random 32-byte sectors) of a lane form's call:
     each shared input once, each lane-stacked input and each output once; a
     gather of a table through emit or eid a sector an index (shared: once,
-    lane-stacked: a lane)."""
+    lane-stacked: a lane); the bitmap forms' bytes a lane as their single
+    forms' (`_hop_lanes_bytes`, `emit_bytes`, `level_step_bytes`)."""
+    if name in BITMAP_LANE_FORMS:
+        from orientdb_tpu_torch.ops import csr as K
+
+        n = _named(K, name, a, kw)
+        if name == "bitmap_hop_csr_lanes":
+            return _hop_lanes_bytes(torch, K, n), 0.0, 0
+        rows = lambda t, b: None if t is None else t[b]  # noqa: E731
+        if name == "bitmap_emit_lanes":
+            reached = n["reached"]
+            return sum(
+                emit_bytes(torch, reached[b], n["emit"], rows(n["bound"], b)) for b in range(reached.shape[0])
+            ), 0.0, 0
+        nxt = n["nxt"]
+        return sum(
+            level_step_bytes(torch, nxt[b], _row(n["gate"], b), _row(n["node"], b), rows(n["bound"], b))
+            for b in range(nxt.shape[0])
+        ), 0.0, 0
     if name == "predicate_eval_lanes":
         prog, bufs, ids, n, _nv, _b, _d, params = a
         B = params.shape[0]
@@ -3761,8 +3936,29 @@ def _lane_library(torch, name, a):
     inputs, as the single rows' yardsticks do (`torch.cumsum`, `torch.gather`
     on the clamped lane-local index, `torch.nonzero`, `torch.count_nonzero`,
     `torch.segment_reduce` along the lanes' edges, `Tensor.scatter_add_` of
-    K13's counts), or None where no single call computes it (K2's sizing,
-    K2b's merge path, K6, K7, K15's lane and stacked forms, K5a)."""
+    K13's counts; K10's hop as `torch.sparse.mm` of the walk's transposed
+    adjacency and the [vb, B·C] float frontier, counts, not bits, as K10's
+    single row; K11's and K12's counts as one `torch.count_nonzero` a lane),
+    or None where no single call computes it (K2's sizing, K2b's merge
+    path, K6, K7, K15's lane and stacked forms, K5a)."""
+    if name == "bitmap_hop_csr_lanes":
+        indptr, nbr, _eid, _m, fr = a[:5]
+        vb = fr.shape[-1]
+        try:
+            nv = indptr.shape[0] - 1
+            act = torch.repeat_interleave(torch.arange(nv, device=fr.device), (indptr[1:] - indptr[:-1]).long())
+            reach = nbr[indptr[0].long() : indptr[0].long() + act.shape[0]].long().clamp(0, vb - 1)
+            mt = torch.sparse_coo_tensor(
+                torch.stack([reach, act]), torch.ones(act.shape[0], device=fr.device), (vb, vb)
+            ).to_sparse_csr()
+            fr_t = fr.view(-1, vb).t().float().contiguous()
+        except (RuntimeError, TypeError) as e:
+            print(f"library call for {name} refused: {e}")
+            return None
+        return lambda: torch.sparse.mm(mt, fr_t)
+    if name in ("bitmap_emit_lanes", "frontier_advance_lanes"):
+        flat = a[0].view(a[0].shape[0], -1)
+        return lambda: torch.count_nonzero(flat, 1)
     if name == "value_cumsum_lanes":
         vals = a[0]
         return lambda: torch.cumsum(vals, 1, dtype=vals.dtype)
@@ -3792,26 +3988,28 @@ def _lane_library(torch, name, a):
 
 
 def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None, forms=None):
-    """The lane forms at ``cell``'s shapes (BE1's, BG1's or BQ3's lanes;
-    ``forms`` the wrappers to hold, default all): each
-    call of one eager run of the plan's lane-axis group body (`lane_calls`)
+    """The lane forms at ``cell``'s shapes (BE1's, BG1's, BQ3's, BV1's,
+    BV2's or BV3's lanes; ``forms`` the wrappers to hold, default all): each
+    call of one eager run of the plan's lane-axis group body (`lane_calls`;
+    a bitmap lane form's first calls, on copies of the bitmaps it writes)
     held against its plain version (int32 and bool exactly; a distance()
     mask outside the boundary band, ``band_of(lane, slots)``), which decides
     correctness, and, lane by lane, against the single-lane wrapper exactly
-    (for K1, K2, K2b, K3, K6 and K7 that is the same kernel at one lane: it
-    checks only the lane offsets); each form's largest call timed eager and
-    in a captured graph beside its bound (bytes, or a distance() mask's
-    operations), its library call and B single-lane launches; then
-    the group's captured replay timed (device ms a replay of all its
-    lanes). Returns the lane forms' rows; their launches are not counted."""
+    (for K1, K2, K2b, K3, K6, K7, K10, K11 and K12 that is the same kernel at
+    one lane: it checks only the lane offsets); each form's largest call
+    timed eager and in a captured graph beside its bound (bytes, or a
+    distance() mask's operations), its library call and B single-lane
+    launches (K12's on fresh copies of its bitmaps a call); then the
+    group's captured replay timed (device ms a replay of all its lanes).
+    Returns the lane forms' rows; their launches are not counted."""
     counted = dict(K.LAUNCHES)
-    calls = [c for c in lane_calls(torch, K, plan, stack) if forms is None or c[0] in forms]
+    calls = lane_calls(torch, K, plan, stack, forms=forms)
     _require(calls, f"{cell}: the group body ran no lane form")
     _require(forms is None or {c[0] for c in calls} == set(forms), f"{cell}: lane forms {forms} did not all run")
     B = stack.shape[0]
     largest = {}
     for name, a, kw in calls:
-        got = getattr(K, name)(*a, **kw)
+        got = _lane_run(K, name, a, kw)
         want = _lane_plain(K, name, a, kw)
         kname = LANE_FORMS[name]
         singles = [_lane_single(K, name, a, kw, b) for b in range(B)]
@@ -3824,32 +4022,34 @@ def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None, 
             for b in range(B):
                 slots = torch.nonzero(got[b] != want[b]).flatten().cpu().numpy()
                 _require(bool(band_of(b, slots).all()), f"{cell}: {name} lane {b} differs outside the band")
+        elif isinstance(got, tuple):
+            _require(all((g is None) == (w is None) for g, w in zip(got, want)), f"{cell}: {name} outputs")
+            ks.same(kname, tuple(g for g in got if g is not None), tuple(w for w in want if w is not None))
         else:
             ks.same(kname, got, want)
         if name == "rows_with_matches_lanes":
             # with ``out`` the counts add into each lane's row
             acc = torch.ones_like(want)
             _require(torch.equal(K.rows_with_matches_lanes(*a, out=acc), want + 1), f"{cell}: {name} with out")
-        size = (got[0] if isinstance(got, tuple) else got).numel()
+        size = next(g for g in (got if isinstance(got, tuple) else (got,)) if g is not None).numel()
         if size >= largest.get(name, (0,))[0]:
             largest[name] = (size, a, kw)
         del got, want, singles
     rows = {}
     for name, (_size, a, kw) in largest.items():
         kname = LANE_FORMS[name]
-        kernel = lambda n=name, a=a, kw=kw: getattr(K, n)(*a, **kw)  # noqa: E731
-        plain = lambda n=name, a=a, kw=kw: _lane_plain(K, n, a, kw)  # noqa: E731
-
-        def singles(n=name, a=a, kw=kw):
-            for b in range(B):
-                _lane_single(K, n, a, kw, b)
-
         nbytes, ops, sectors = _lane_bound(torch, name, a, kw)
-        ks.timed(kname, kernel, plain, _lane_library(torch, name, a), nbytes, ops)
-        row = dict(ks.rows[kname])
-        row["graph_ms"] = _graph_ms(torch, kernel)
-        row["singles_ms"] = _time_ms(torch, singles)
-        row["singles_graph_ms"] = _graph_ms(torch, singles)
+        if name == "frontier_advance_lanes":
+            row = _time_level_step_lanes(torch, K, ks, kname, a, kw, nbytes)
+        else:
+            kernel = lambda n=name, a=a, kw=kw: getattr(K, n)(*a, **kw)  # noqa: E731
+            plain = lambda n=name, a=a, kw=kw: _lane_plain(K, n, a, kw)  # noqa: E731
+            singles = lambda n=name, a=a, kw=kw: [_lane_single(K, n, a, kw, b, copy=False) for b in range(B)]  # noqa: E731
+            ks.timed(kname, kernel, plain, _lane_library(torch, name, a), nbytes, ops)
+            row = dict(ks.rows[kname])
+            row["graph_ms"] = _graph_ms(torch, kernel)
+            row["singles_ms"] = _time_ms(torch, singles)
+            row["singles_graph_ms"] = _graph_ms(torch, singles)
         rows[kname] = row
         shapes = [tuple(t.shape) for t in a if isinstance(t, torch.Tensor)]
         if name == "front_pack_lanes":
@@ -3857,8 +4057,8 @@ def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None, 
         print(
             f"kernel {kname} at {cell}'s shape {shapes}: {row['ms']:.4f} ms eager, {row['graph_ms']:.4f} in a "
             f"graph; {B} single-lane launches {row['singles_ms']:.4f} / {row['singles_graph_ms']:.4f}; plain "
-            f"{row['plain_ms']:.4f}; library {row['library_ms']}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}); random 32-byte "
-            f"sectors {sectors} [{card}]"
+            f"{row['plain_ms']:.4f}; library {row['library_ms']}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{nbytes:.0f} bytes); random 32-byte sectors {sectors} [{card}]"
         )
     g = plan.groups[B]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -3870,16 +4070,52 @@ def check_lane_kernels(np, torch, K, ks, plan, stack, cell, card, band_of=None, 
     end.record()
     torch.cuda.synchronize()
     # the group's own bound: every lane-form call of one replay at its bytes
-    # (each at 3.35 TB/s; K15's shared masks over flattened ids not counted)
-    group_bytes = sum(_lane_bound(torch, n, a, kw)[0] for n, a, kw in lane_calls(torch, K, plan, stack))
+    # (each at 3.35 TB/s; K15's shared masks over flattened ids not counted),
+    # each call's bytes counted before it runs
+    group_bytes = dict.fromkeys(LANE_FORMS, 0.0)
+
+    def add(n, a, kw):
+        group_bytes[n] += _lane_bound(torch, n, a, kw)[0]
+
+    lane_calls(torch, K, plan, stack, at_call=add)
+    total = sum(group_bytes.values())
+    parts = ", ".join(f"{n} {v:.0f}" for n, v in group_bytes.items() if v)
     print(
         f"group replay {cell}: lane axis {plan.lane_axis}, {B} lanes, {start.elapsed_time(end) / 10:.4f} ms a "
         f"replay, {sum(g.launches.values())} launches {g.launches}, {g.nodes} graph nodes, capture "
         f"{g.capture_ms:.1f} ms, reserved after the capture {g.reserved_bytes} bytes; its lane-form calls' "
-        f"bound {group_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({group_bytes:.0f} bytes) [{card}]"
+        f"bound {total / HBM_BYTES_PER_S * 1e3:.4f} ms ({total:.0f} bytes: {parts}) [{card}]"
     )
     K.LAUNCHES.update(counted)
     return rows
+
+
+def _time_level_step_lanes(torch, K, ks, kname, a, kw, nbytes: float) -> dict:
+    """K12's lane form timed as its single form is (`time_level_steps`):
+    each call on fresh copies of its two bitmaps, eager and in a graph, its
+    plain version and B single-lane launches the same way, beside its bound
+    and one `torch.count_nonzero` a lane; sets its kernel row."""
+    nxt, vis, *rest = a
+    name = "frontier_advance_lanes"
+    step = lambda n, v: K.frontier_advance_lanes(n, v, *rest, **kw)  # noqa: E731
+    pstep = lambda n, v: K.plain_frontier_advance_lanes(n, v, *rest, **kw)  # noqa: E731
+    singles = lambda n, v: [_lane_single(K, name, (n, v, *rest), kw, b, copy=False) for b in range(n.shape[0])]  # noqa: E731
+    ks.rows[kname] = {
+        "name": kname,
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": REPLACES[kname],
+        "ms": _fresh_ms(torch, step, (nxt, vis), reps=3),
+        "plain_ms": _fresh_ms(torch, pstep, (nxt, vis), reps=3),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": _library_ms(torch, kname, _lane_library(torch, name, a)),
+    }
+    row = dict(ks.rows[kname])
+    row["graph_ms"] = _fresh_ms(torch, step, (nxt, vis), reps=3, graph=True)
+    row["singles_ms"] = _fresh_ms(torch, singles, (nxt, vis), reps=3)
+    row["singles_graph_ms"] = _fresh_ms(torch, singles, (nxt, vis), reps=3, graph=True)
+    return row
 
 
 def run_batches_snb(np, torch, K, ks, db, snap, card):

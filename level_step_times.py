@@ -97,6 +97,23 @@ compare two trees on one card:
   into the replay's shared miss byte; a tree without the ``flag``
   argument: the gather with its own zeroed byte and the OR into the
   overflow flag).
+- ``k10``: K10's CSR form ``bitmap_hop_csr`` (the variable-depth arm's
+  hop) on an A-shaped graph (8M Poisson(10) vertices, 80M random targets)
+  at [8, 2^23]: out at V1's level-1 and level-2 frontiers (10 and 110
+  random vertices a row), with a 0.8 WHILE gate, in at level 1 (the
+  in-CSR, an edge mask read through its edge ids), and dense; then, where
+  the tree has them, the lane forms of K10, K11 and K12 over 8 lanes of
+  those rows stacked as [8, 8, 2^23] (a lane-stacked gate and node mask)
+  beside 8 single launches on the same rows.
+- ``singles_ab`` (not in the default set; needs ``--against DIR``): the
+  single K11 (five V1 cases), K12 (level 2 with the folded count) and K10
+  (level 2, out) at [8, 2^23], ``--tree``'s library and ``DIR``'s loaded
+  side by side in one process and called through their C entry points on
+  the same inputs, in a graph, the two trees in turns for ``--rounds``
+  rounds (default 30): medians, their ratio and the spread of the paired
+  ratios; then the SASS of both libraries' bitmap kernels (``cuobjdump``:
+  instruction counts and an opcode digest a function; the opcodes into
+  ``chiprun_out/singles_ab_sass.json``).
 - ``replays`` (not in the default set: it builds A, ~1-2 min of host
   work): MQ1 and MQ2 on A split four ways, T3 (16 roots, the second pass
   timed) and T4 (TR1) on A tiered at half its adjacency bytes, through
@@ -106,7 +123,7 @@ compare two trees on one card:
   roots), T2 (k = 100) and T3 (16 roots) on A tiered, through the tree's
   ``db.query``: replay medians and launches per replay.
 
-    python3 level_step_times.py [--tree DIR] [--only level,k4,k15,k5,k2,hops,k17,k24,k23,k20,slabhop,k21,replays,dtreplays]
+    python3 level_step_times.py [--tree DIR] [--only level,k10,k4,k15,k5,k2,hops,k17,k24,k23,k20,slabhop,k21,replays,dtreplays,singles_ab] [--against DIR] [--rounds N]
 
 ``DIR`` (default: this script's directory) holds the ``orientdb_tpu_torch``
 package to time; it is imported before anything else, and the file it was
@@ -122,10 +139,12 @@ without a card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -469,6 +488,68 @@ def _a_graph(np, torch, seed: int):
     deg = (indptr[1:] - indptr[:-1]).long()
     edge_src = torch.repeat_interleave(torch.arange(PERSONS, dtype=torch.int32, device="cuda"), deg)
     return indptr, dst, deg, edge_src, gen
+
+
+def k10(np, torch, K, cs, times) -> None:
+    """K10's CSR form at V1's shapes, and the bitmap lane forms where the
+    tree has them (module docstring)."""
+    i32, B = torch.int32, 8
+    indptr, dst, _deg, edge_src, gen = _a_graph(np, torch, 41)
+    order = torch.sort(dst, stable=True).indices
+    indptr_in = torch.cat([torch.zeros(1, dtype=torch.long, device="cuda"),
+                           torch.cumsum(torch.bincount(dst.long(), minlength=PERSONS), 0)]).to(i32)
+    src_in, eid_in = edge_src[order], order.to(i32)
+    del order
+    emask = torch.rand(dst.shape[0], generator=gen, device="cuda") < 0.7
+    gate = torch.rand(VB, generator=gen, device="cuda") < 0.8
+    csr = {"out": (indptr, dst, None), "in": (indptr_in, src_in, eid_in)}
+    frs = {}
+    for name, d, per_row, m, g in (("level 1", "out", 10, None, None), ("level 2", "out", 110, None, None),
+                                   ("level 2 gated", "out", 110, None, gate), ("level 1 in", "in", 10, emask, None),
+                                   ("dense", "out", 0, None, None)):
+        f = torch.ones((C, VB), dtype=torch.bool, device="cuda") if not per_row else _bitmap(torch, gen, C, VB, per_row)
+        f[:, PERSONS:] = False
+        frs[name] = f
+        alive = K.mask_count(f.view(-1))
+        fn = lambda d=d, f=f, m=m, g=g, alive=alive: K.bitmap_hop_csr(*csr[d], m, f, g, alive)  # noqa: E731
+        if per_row:
+            _same(torch, fn(), K.plain_bitmap_hop_csr(*csr[d], m, f, g, alive), f"bitmap_hop_csr ({name})")
+        nbytes, n_act, n_edges = cs.csr_hop_bytes(torch, csr[d][0], f, g, m is not None, d == "in")
+        key = f"K10 {name}"
+        times[key] = [cs._time_ms(torch, fn), cs._graph_ms(torch, fn)]
+        print(f"{key} ({n_act} active vertices, {n_edges} edges): {times[key][0]:.4f} ms eager, "
+              f"{times[key][1]:.4f} in a graph; bound {nbytes / cs.HBM_BYTES_PER_S * 1e3:.4f}")
+    if not hasattr(K, "bitmap_hop_csr_lanes"):
+        print("k10: the tree has no bitmap lane forms")
+        return
+    # 8 lanes of V1's level-2 rows (each lane its own frontier) stacked as
+    # [8, 8, 2^23], a gate and a node mask a lane
+    fr = torch.stack([_bitmap(torch, gen, C, VB, 110) for _ in range(B)])
+    fr[:, :, PERSONS:] = False
+    alive = K.mask_count_lanes(fr.view(B, -1))
+    gates = torch.rand((B, VB), generator=gen, device="cuda") < 0.8
+    node = torch.rand((B, VB), generator=gen, device="cuda") < 0.2
+    lanes = lambda: K.bitmap_hop_csr_lanes(*csr["out"], None, fr, gates, alive)  # noqa: E731
+    singles = lambda: [K.bitmap_hop_csr(*csr["out"], None, fr[b], gates[b], alive[b]) for b in range(B)]  # noqa: E731
+    _same(torch, lanes(), K.plain_bitmap_hop_csr_lanes(*csr["out"], None, fr, gates, alive), "bitmap_hop_csr_lanes")
+    times["K10 lanes [64, 2^23]"] = [cs._time_ms(torch, lanes), cs._graph_ms(torch, lanes)]
+    times["K10 8 singles [8, 2^23]"] = [cs._time_ms(torch, singles), cs._graph_ms(torch, singles)]
+    nxt = lanes()
+    emit = lambda r: K.bitmap_emit_lanes(r, node, None, True, False, True)  # noqa: E731
+    _same(torch, emit(nxt), K.plain_bitmap_emit_lanes(nxt, node, None, True, False, True), "bitmap_emit_lanes")
+    emit1 = lambda r: [K.bitmap_emit(r[b], node[b], None, True, False, True) for b in range(B)]  # noqa: E731
+    times["K11 lanes emit + count"] = [cs._time_ms(torch, lambda: emit(nxt)), cs._graph_ms(torch, lambda: emit(nxt))]
+    times["K11 8 singles emit + count"] = [cs._time_ms(torch, lambda: emit1(nxt)), cs._graph_ms(torch, lambda: emit1(nxt))]
+    step = lambda n, v: K.frontier_advance_lanes(n, v)  # noqa: E731
+    step1 = lambda n, v: [K.frontier_advance(n[b], v[b]) for b in range(B)]  # noqa: E731
+    n1, v1, n2, v2 = nxt.clone(), fr.clone(), nxt.clone(), fr.clone()
+    _same(torch, (n1, v1, step(n1, v1)), (n2, v2, K.plain_frontier_advance_lanes(n2, v2)), "frontier_advance_lanes")
+    times["K12 lanes"] = [cs._fresh_ms(torch, step, (nxt, fr), reps=3), cs._fresh_ms(torch, step, (nxt, fr), reps=3, graph=True)]
+    times["K12 8 singles"] = [cs._fresh_ms(torch, step1, (nxt, fr), reps=3),
+                              cs._fresh_ms(torch, step1, (nxt, fr), reps=3, graph=True)]
+    for key in ("K10 lanes [64, 2^23]", "K10 8 singles [8, 2^23]", "K11 lanes emit + count",
+                "K11 8 singles emit + count", "K12 lanes", "K12 8 singles"):
+        print(f"{key}: {times[key][0]:.4f} ms eager, {times[key][1]:.4f} in a graph")
 
 
 def _t_pool(torch, K, gen, indptr, dst, deg, edge_src):
@@ -1084,10 +1165,153 @@ def replays(np, torch, K, cs, times) -> None:
         config.tier_hbm_cap_bytes = 0
 
 
+#: the kernel modules `_tree_library` loaded, kept alive with their libraries
+_LIBS: list = []
+
+
+def _tree_library(tree: str):
+    """The kernel library of the package in ``tree``, built from that
+    tree's source: its ``ops/_kernels.py`` loaded by file path under a name
+    of its own (it imports nothing of its package), so two trees' libraries
+    load side by side in one process."""
+    path = os.path.join(tree, "orientdb_tpu_torch", "ops", "_kernels.py")
+    spec = importlib.util.spec_from_file_location(f"_kernels_of_{len(_LIBS)}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _LIBS.append(mod)
+    return mod.load(), mod.build()
+
+
+def _c_call(torch, lib, name: str, *args) -> None:
+    """``lib``'s C entry ``name`` on ``args`` and the current stream (read
+    at the call, so that a graph capture records it); an entry that takes
+    lane arguments before the stream (this tree's) gets one lane and no
+    lane-stacked operand."""
+    fn = getattr(lib, name)
+    extra = len(fn.argtypes) - len(args) - 1
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*args, *((1,) + (0,) * (extra - 1) if extra > 0 else ()), stream)
+    if rc != 0:
+        raise SystemExit(f"{name}: CUDA error {rc}")
+
+
+def _sass(lib_path, keys) -> dict:
+    """Name → opcode list of the functions of ``lib_path`` whose mangled
+    name holds one of ``keys``, from ``cuobjdump -sass``; {} when the
+    toolkit has no cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if any(k in name for k in keys):
+            out[name] = [ln.split("*/", 1)[1].strip().split(" ", 1)[0].rstrip(";")
+                         for ln in part.splitlines() if re.match(r"\s+/\*[0-9a-f]{4}\*/", ln)]
+    return out
+
+
+def singles_ab(np, torch, K, cs, times, tree: str, against: str, rounds: int) -> None:
+    """The single K11 and K12 (and K10's CSR form) at V1's [8, 2^23] level
+    shapes, ``tree``'s library and ``against``'s (the parent's) in one
+    process: each case captured in a CUDA graph through either library's C
+    entry on the same inputs and replayed, the two trees in turns
+    (this, parent; then parent, this) for ``rounds`` rounds; prints each
+    case's median ms a tree, their ratio and the spread of the paired
+    ratios; then the SASS of the bitmap kernels of both libraries
+    (instruction counts and whether the opcode sequences are equal)."""
+    libs = {"this": _tree_library(tree), "parent": _tree_library(os.path.abspath(against))}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    node = torch.rand(VB, generator=gen, device="cuda") < 0.2
+    roots = _bitmap(torch, gen, C, VB, 1)
+    lvl1 = _bitmap(torch, gen, C, VB, REACHED["level 1"])
+    lvl2 = _bitmap(torch, gen, C, VB, REACHED["level 2"])
+    seen2 = roots | lvl1
+    bound = torch.tensor([-2, 0, VB - 1, 5, 77, -2, 1 << 20, VB - 2], dtype=torch.int32, device="cuda")
+    emit_out = torch.empty((C, VB), dtype=torch.bool, device="cuda")
+    any_out = torch.empty(C, dtype=torch.bool, device="cuda")
+    count = torch.empty((), dtype=torch.int32, device="cuda")
+    emitted = torch.empty((), dtype=torch.int32, device="cuda")
+    indptr, dst, _deg, _src, _gen = _a_graph(np, torch, 41)
+    hop_fr = _bitmap(torch, gen, C, VB, 110)
+    hop_fr[:, PERSONS:] = False
+    hop_out = torch.empty((C, VB), dtype=torch.bool, device="cuda")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+    def emit(reached, b, e, a, c):
+        return lambda lib: _c_call(torch, lib, "csr_bitmap_emit", ptr(reached), ptr(node), ptr(b), C, VB, ptr(e),
+                                   ptr(a), ptr(c))
+
+    cases = {
+        "K11 count-only, depth 0": emit(roots, None, None, None, count),
+        "K11 count-only, level 2": emit(lvl2, None, None, None, count),
+        "K11 emit + count, level 2": emit(lvl2, None, emit_out, None, count),
+        "K11 any-only, level 2": emit(lvl2, None, None, any_out, None),
+        "K11 close-arm count, level 2": emit(lvl2, bound, None, None, count),
+        "K10 level 2 out": lambda lib: _c_call(
+            torch, lib, "csr_bitmap_hop_csr", ptr(indptr), indptr.shape[0] - 1, ptr(dst), None, None, 0, ptr(hop_fr),
+            None, C, VB, None, 1, ptr(hop_out)),
+    }
+    step = lambda lib: (lambda n, v: _c_call(  # noqa: E731
+        torch, lib, "csr_frontier_advance", ptr(n), ptr(v), None, ptr(node), None, C * VB, VB, ptr(count),
+        ptr(emitted)))
+    want = {}
+    for which, (lib, _path) in libs.items():  # both libraries agree with the plain versions first
+        cases["K11 emit + count, level 2"](lib)
+        got = (emit_out.clone(), int(count))
+        n, v = lvl2.clone(), seen2.clone()
+        step(lib)(n, v)
+        torch.cuda.synchronize()
+        want[which] = (got, (n, v, int(count), int(emitted)))
+    e_ref, _a, c_ref = K.plain_bitmap_emit(lvl2, node, None, True, False, True)
+    n_ref, v_ref = lvl2.clone(), seen2.clone()
+    a_ref, em_ref = K.plain_frontier_advance(n_ref, v_ref, None, node)
+    for which, ((e, c), (n, v, a, em)) in want.items():
+        if not (torch.equal(e, e_ref) and c == int(c_ref) and torch.equal(n, n_ref) and torch.equal(v, v_ref)
+                and a == int(a_ref) and em == int(em_ref)):
+            raise SystemExit(f"singles_ab: {which}'s K11 / K12 differ from the plain versions")
+    keys = list(cases) + ["K12 level 2, folded count"]
+    ms = {k: {"this": [], "parent": []} for k in keys}
+    for r in range(rounds):
+        order = ("this", "parent") if r % 2 == 0 else ("parent", "this")
+        for key in keys:
+            for which in order:
+                lib = libs[which][0]
+                if key.startswith("K12"):
+                    t = cs._fresh_ms(torch, step(lib), (lvl2, seen2), reps=10, graph=True)
+                else:
+                    t = cs._graph_ms(torch, lambda f=cases[key], lib=lib: f(lib), reps=50)
+                ms[key][which].append(t)
+    for key in keys:
+        this, parent = np.array(ms[key]["this"]), np.array(ms[key]["parent"])
+        ratio = this / parent
+        lo, hi = np.percentile(ratio, [10, 90])
+        times[f"AB {key}"] = [float(np.median(parent)), float(np.median(this))]
+        print(f"AB {key}: parent {np.median(parent):.5f} ms, this {np.median(this):.5f} ms in a graph (medians of "
+              f"{rounds}); this / parent {np.median(this) / np.median(parent):.4f}, paired ratios median "
+              f"{np.median(ratio):.4f}, 10-90 % {lo:.4f}-{hi:.4f}; parent spread {parent.min():.5f}-{parent.max():.5f}")
+    # K11's, K12's and K10's CSR push instantiations
+    sass = {which: _sass(path, ("bitmap_emit", "frontier_advance_kernel", "CsrRows"))
+            for which, (_lib, path) in libs.items()}
+    if not sass["this"]:
+        print("singles_ab: no cuobjdump, SASS not compared")
+        return
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "singles_ab_sass.json"), "w") as out:
+        json.dump(sass, out)
+    for which, funcs in sass.items():
+        for name, ops in sorted(funcs.items()):
+            digest = hashlib.sha1(" ".join(ops).encode()).hexdigest()[:12]
+            print(f"SASS {which} {name}: {len(ops)} instructions, opcodes {digest}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=HERE)
-    ap.add_argument("--only", default="level,k4,k15,k5,k2,hops,k17,k24,k23,k20,slabhop,k21")
+    ap.add_argument("--only", default="level,k10,k4,k15,k5,k2,hops,k17,k24,k23,k20,slabhop,k21")
+    ap.add_argument("--against", help="singles_ab: the parent tree whose library runs beside --tree's")
+    ap.add_argument("--rounds", type=int, default=30, help="singles_ab: alternated rounds")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     # the tree's package first: chip_smoke.py (this script's) imports the
@@ -1112,6 +1336,8 @@ def main() -> int:
     only = set(args.only.split(","))
     if "level" in only:
         level_steps(torch, K, cs, times)
+    if "k10" in only:
+        k10(np, torch, K, cs, times)
     if "k4" in only:
         segment_sums(np, torch, K, cs, times)
     if "k15" in only:
@@ -1138,6 +1364,10 @@ def main() -> int:
         replays(np, torch, K, cs, times)
     if "dtreplays" in only:
         dtreplays(np, torch, K, cs, times)
+    if "singles_ab" in only:
+        if not args.against:
+            raise SystemExit("singles_ab needs --against DIR")
+        singles_ab(np, torch, K, cs, times, tree, args.against, args.rounds)
     print(json.dumps({"tree": tree, "kernels": K.__file__, "card": card, "ms [eager, graph]": times}))
     return 0
 

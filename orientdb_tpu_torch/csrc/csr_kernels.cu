@@ -2105,13 +2105,28 @@ struct NoProbe {
                                         long long, unsigned char*) const {}
 };
 
-template <bool kVec, typename Rows, typename Probe>
+// The lane form (under the reference's vmap of a group replay: frontier
+// [B, C, vb], lane-major): blockIdx.y is the lane, whose blocks walk only
+// its own C rows, so a 32-row batch never straddles two lanes and the
+// lane's gate row (gate_stride vb; 0: one gate the lanes share) and alive
+// count are the block's constants; a lane whose alive is 0 returns at once.
+// The single form is instantiated without the lane arithmetic (kLanes
+// false).
+template <bool kVec, bool kLanes, typename Rows, typename Probe>
 __global__ void __launch_bounds__(kThreads)
 bitmap_push_kernel(const Rows rows, const Probe probe, const int* __restrict__ nbr,
                    const unsigned char* __restrict__ emask, long long ne,
                    const unsigned char* __restrict__ frontier,
                    const unsigned char* __restrict__ gate, long long c, long long vb,
-                   const int* __restrict__ alive, unsigned char* __restrict__ out) {
+                   const int* __restrict__ alive, unsigned char* __restrict__ out,
+                   long long gate_stride) {
+  if constexpr (kLanes) {
+    const long long lane = blockIdx.y;
+    frontier += lane * c * vb;
+    out += lane * c * vb;
+    if (gate != nullptr) gate += lane * gate_stride;
+    if (alive != nullptr) alive += lane;
+  }
   if (alive != nullptr && *alive == 0) return;
   __shared__ long long s_base[kWarps][kHopGroup];
   __shared__ long long s_aux[kWarps][kHopGroup];
@@ -2230,15 +2245,17 @@ bitmap_push_kernel(const Rows rows, const Probe probe, const int* __restrict__ n
 
 // Zeroes `out` when asked, then launches bitmap_push_kernel over `rows`
 // (the 4-byte frontier loads when vb and the pointers allow them), with
-// `probe` at each active vertex.
-template <typename Rows, typename Probe = NoProbe>
+// `probe` at each active vertex. kLaneForm: `lanes` lanes of `c` rows each
+// (grid y), `gate_stride` between the lanes' gate rows.
+template <typename Rows, typename Probe = NoProbe, bool kLaneForm = false>
 int launch_push(const Rows& rows, const void* nbr, const void* emask, long long ne,
                 const void* frontier, const void* gate, long long c, long long vb,
                 const void* alive, int zero_out, void* out, void* stream,
-                const Probe& probe = Probe{}) {
+                const Probe& probe = Probe{}, long long lanes = 1, long long gate_stride = 0) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lanes <= 0 || lanes > 65535) return lanes == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   if (zero_out && c * vb > 0) {
-    cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(c * vb), s);
+    cudaError_t e = cudaMemsetAsync(out, 0, static_cast<size_t>(lanes * c * vb), s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (rows.hi > rows.lo && c > 0 && vb > 0) {
@@ -2247,11 +2264,12 @@ int launch_push(const Rows& rows, const void* nbr, const void* emask, long long 
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;
     const bool vec = vb % 4 == 0 && (reinterpret_cast<uintptr_t>(frontier) & 3u) == 0 &&
                      (gate == nullptr || (reinterpret_cast<uintptr_t>(gate) & 3u) == 0);
-    auto kernel = vec ? bitmap_push_kernel<true, Rows, Probe> : bitmap_push_kernel<false, Rows, Probe>;
-    kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+    auto kernel = vec ? bitmap_push_kernel<true, kLaneForm, Rows, Probe>
+                      : bitmap_push_kernel<false, kLaneForm, Rows, Probe>;
+    kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(lanes)), kThreads, 0, s>>>(
         rows, probe, static_cast<const int*>(nbr), static_cast<const unsigned char*>(emask), ne,
         static_cast<const unsigned char*>(frontier), static_cast<const unsigned char*>(gate), c,
-        vb, static_cast<const int*>(alive), static_cast<unsigned char*>(out));
+        vb, static_cast<const int*>(alive), static_cast<unsigned char*>(out), gate_stride);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -2334,13 +2352,29 @@ __device__ inline unsigned popc16(const Bytes16& x) {
   return __popc(x.w[0]) + __popc(x.w[1]) + __popc(x.w[2]) + __popc(x.w[3]);
 }
 
-template <bool kVec>
+// The lane form (under the reference's vmap of a group replay): reached,
+// emit [B, C, vb], bound and any [B, C], node shared or [B, vb]
+// (node_stride vb), one count a lane ([B]); blockIdx.y is the lane, whose
+// blocks read and write only its rows, so the block's count is its lane's.
+// The single form is instantiated without the lane arithmetic (kLanes
+// false). Bound: the single form's bytes over all lanes' rows, a stacked
+// node once.
+template <bool kVec, bool kLanes>
 __global__ void bitmap_emit_kernel(const unsigned char* __restrict__ reached,
                                    const unsigned char* __restrict__ node,
                                    const int* __restrict__ bound, long long c,
                                    long long vb, unsigned char* __restrict__ emit,
                                    unsigned char* __restrict__ any,
-                                   unsigned* __restrict__ count) {
+                                   unsigned* __restrict__ count, long long node_stride) {
+  if constexpr (kLanes) {
+    const long long lane = blockIdx.y;
+    reached += lane * c * vb;
+    node += lane * node_stride;
+    if (bound != nullptr) bound += lane * c;
+    if (emit != nullptr) emit += lane * c * vb;
+    if (any != nullptr) any += lane * c;
+    if (count != nullptr) count += lane;
+  }
   constexpr long long kW = kVec ? 16 : 1;
   const long long groups = c * vb / kW;
   const long long row_groups = vb / kW;
@@ -2407,11 +2441,20 @@ __global__ void bitmap_emit_kernel(const unsigned char* __restrict__ reached,
 
 // K11 with `bound` and no emit bitmap: row r can emit only at column
 // bound[r], so a thread a row reads reached[r, bound[r]] and node[bound[r]].
+template <bool kLanes>
 __global__ void bitmap_emit_bound_kernel(const unsigned char* __restrict__ reached,
                                          const unsigned char* __restrict__ node,
                                          const int* __restrict__ bound, long long c,
                                          long long vb, unsigned char* __restrict__ any,
-                                         unsigned* __restrict__ count) {
+                                         unsigned* __restrict__ count, long long node_stride) {
+  if constexpr (kLanes) {
+    const long long lane = blockIdx.y;
+    reached += lane * c * vb;
+    node += lane * node_stride;
+    bound += lane * c;
+    if (any != nullptr) any += lane * c;
+    if (count != nullptr) count += lane;
+  }
   const long long r = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   unsigned v = 0;
   if (r < c) {
@@ -2452,14 +2495,30 @@ __global__ void bitmap_emit_bound_kernel(const unsigned char* __restrict__ reach
 // group changes no result: nxt & ~visited is zero there and visited keeps
 // its bytes.
 // ---------------------------------------------------------------------------
-template <bool kVec>
+// The lane form (under the reference's vmap of a group replay): nxt and
+// visited [B, C, vb] (n bytes a lane), gate and node shared or
+// [B, vb] (their strides vb), bound [B, C], one alive and one emitted count a
+// lane ([B]); blockIdx.y is the lane, whose blocks touch only its rows. The
+// single form is instantiated without the lane arithmetic (kLanes false).
+template <bool kVec, bool kLanes>
 __global__ void frontier_advance_kernel(unsigned char* __restrict__ nxt,
                                         unsigned char* __restrict__ visited,
                                         const unsigned char* __restrict__ gate,
                                         const unsigned char* __restrict__ node,
                                         const int* __restrict__ bound, long long n,
                                         long long vb, unsigned* __restrict__ count,
-                                        unsigned* __restrict__ emitted) {
+                                        unsigned* __restrict__ emitted, long long gate_stride,
+                                        long long node_stride) {
+  if constexpr (kLanes) {
+    const long long lane = blockIdx.y;
+    nxt += lane * n;
+    visited += lane * n;
+    if (gate != nullptr) gate += lane * gate_stride;
+    if (node != nullptr) node += lane * node_stride;
+    if (bound != nullptr) bound += lane * (n / vb);
+    count += lane;
+    if (emitted != nullptr) emitted += lane;
+  }
   constexpr long long kW = kVec ? 16 : 1;
   const long long groups = n / kW;
   const long long row_groups = vb / kW;  // used only with gate or node
@@ -5044,21 +5103,29 @@ int csr_bitmap_hop(const void* act, const void* emit, const void* emask,
 
 // K10's CSR form. `indptr` has nv + 1 entries (nv <= vb); `eid`, `emask`
 // (ne entries, indexed by eid when given, else by slot), `gate` and `alive`
-// may be null; `zero_out` as for csr_bitmap_hop.
+// may be null; `zero_out` as for csr_bitmap_hop. The lane form: `lanes` > 1
+// lanes of `c` rows each (the frontier and `out` hold lanes * c rows),
+// `alive` one count a lane, `gate` one row a lane when `gate_lanes` is set
+// (else shared); the single form is lanes = 1.
 int csr_bitmap_hop_csr(const void* indptr, long long nv, const void* nbr, const void* eid,
                        const void* emask, long long ne, const void* frontier, const void* gate,
                        long long c, long long vb, const void* alive, int zero_out, void* out,
-                       void* stream) {
+                       long long lanes, int gate_lanes, void* stream) {
   const CsrRows rows{static_cast<const int*>(indptr), static_cast<const int*>(eid), 0,
                      nv < vb ? nv : vb};
-  return launch_push(rows, nbr, emask, ne, frontier, gate, c, vb, alive, zero_out, out, stream);
+  if (lanes == 1) {
+    return launch_push(rows, nbr, emask, ne, frontier, gate, c, vb, alive, zero_out, out, stream);
+  }
+  return launch_push<CsrRows, NoProbe, true>(rows, nbr, emask, ne, frontier, gate, c, vb, alive,
+                                             zero_out, out, stream, NoProbe{}, lanes,
+                                             gate_lanes ? vb : 0);
 }
 
 // K10's CSR form with the slab probe: `tab` ([nb * bk] int32, nb a power
 // of two) holds relative slots of the slab that starts at edge slot `base`;
 // `own`, `snbr` and `live` have `ecap` entries, one an edge slot (the
 // endpoint that must be active, the one reached, liveness). The rest as
-// for csr_bitmap_hop_csr.
+// for csr_bitmap_hop_csr's single form.
 int csr_bitmap_hop_probe(const void* indptr, long long nv, const void* nbr, const void* eid,
                          const void* emask, long long ne, const void* tab, const void* own,
                          const void* snbr, const void* live, long long base, long long ecap, int nb,
@@ -5072,19 +5139,22 @@ int csr_bitmap_hop_probe(const void* indptr, long long nv, const void* nbr, cons
   return launch_push(rows, nbr, emask, ne, frontier, gate, c, vb, alive, zero_out, out, stream, probe);
 }
 
-// `bound`, `emit`, `any` and `count` may be null. `any` ([C] bytes) and
-// `count` (one int32) are zeroed here before the pass.
+// `bound`, `emit`, `any` and `count` may be null. `any` ([lanes * c] bytes)
+// and `count` (one int32 a lane) are zeroed here before the pass. The lane
+// form: `lanes` > 1 lanes of `c` rows each, `node` one row a lane when
+// `node_lanes` is set (else shared); the single form is lanes = 1.
 int csr_bitmap_emit(const void* reached, const void* node, const void* bound,
                     long long c, long long vb, void* emit, void* any, void* count,
-                    void* stream) {
+                    long long lanes, int node_lanes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
+  if (lanes <= 0 || lanes > 65535) return lanes == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   if (any != nullptr && c > 0) {
-    e = cudaMemsetAsync(any, 0, static_cast<size_t>(c), s);
+    e = cudaMemsetAsync(any, 0, static_cast<size_t>(lanes * c), s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (count != nullptr) {
-    e = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+    e = cudaMemsetAsync(count, 0, static_cast<size_t>(lanes) * sizeof(unsigned), s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const long long n = c * vb;
@@ -5095,32 +5165,38 @@ int csr_bitmap_emit(const void* reached, const void* node, const void* bound,
   unsigned char* em = static_cast<unsigned char*>(emit);
   unsigned char* an = static_cast<unsigned char*>(any);
   unsigned* cn = static_cast<unsigned*>(count);
+  const long long ns = node_lanes ? vb : 0;
+  const bool many = lanes > 1;  // the single form: no lane arithmetic
+  const unsigned gy = static_cast<unsigned>(lanes);
   if (b != nullptr && em == nullptr) {
-    bitmap_emit_bound_kernel<<<blocks_for(c, kThreads), kThreads, 0, s>>>(r, nd, b, c, vb, an, cn);
+    auto kernel = many ? bitmap_emit_bound_kernel<true> : bitmap_emit_bound_kernel<false>;
+    kernel<<<dim3(blocks_for(c, kThreads), gy), kThreads, 0, s>>>(r, nd, b, c, vb, an, cn, ns);
     return static_cast<int>(cudaGetLastError());
   }
   const bool vec = vb % 16 == 0 && aligned16(reached) && aligned16(node) &&
                    (emit == nullptr || aligned16(emit));
-  if (vec) {
-    bitmap_emit_kernel<true><<<grid_for(n, 16 * kInFlight), kThreads, 0, s>>>(r, nd, b, c, vb, em, an, cn);
-  } else {
-    bitmap_emit_kernel<false><<<grid_for(n, kInFlight), kThreads, 0, s>>>(r, nd, b, c, vb, em, an, cn);
-  }
+  auto kernel = vec ? (many ? bitmap_emit_kernel<true, true> : bitmap_emit_kernel<true, false>)
+                    : (many ? bitmap_emit_kernel<false, true> : bitmap_emit_kernel<false, false>);
+  kernel<<<dim3(grid_for(n, (vec ? 16 : 1) * kInFlight), gy), kThreads, 0, s>>>(r, nd, b, c, vb, em, an,
+                                                                                cn, ns);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Both bitmaps hold `n` bytes (rows of `vb`); `gate` and `node` (null:
-// none) hold `vb`, `bound` (null: none; only with `node`) n / vb int32;
-// `count` and `emitted` (one int32 each; `emitted` only with `node`) are
-// zeroed here.
+// Both bitmaps hold `n` bytes a lane (rows of `vb`); `gate` and `node`
+// (null: none) hold `vb` (a row a lane with `gate_lanes` / `node_lanes`),
+// `bound` (null: none; only with `node`) n / vb int32 a lane; `count` and
+// `emitted` (one int32 a lane each; `emitted` only with `node`) are zeroed
+// here. The single form is lanes = 1.
 int csr_frontier_advance(void* nxt, void* visited, const void* gate, const void* node,
                          const void* bound, long long n, long long vb, void* count,
-                         void* emitted, void* stream) {
+                         void* emitted, long long lanes, int gate_lanes, int node_lanes,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
+  if (lanes <= 0 || lanes > 65535) return lanes == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaMemsetAsync(count, 0, static_cast<size_t>(lanes) * sizeof(unsigned), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (emitted != nullptr) {
-    e = cudaMemsetAsync(emitted, 0, sizeof(unsigned), s);
+    e = cudaMemsetAsync(emitted, 0, static_cast<size_t>(lanes) * sizeof(unsigned), s);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   if (n <= 0) return static_cast<int>(cudaGetLastError());
@@ -5131,14 +5207,15 @@ int csr_frontier_advance(void* nxt, void* visited, const void* gate, const void*
   const int* b = static_cast<const int*>(bound);
   unsigned* cn = static_cast<unsigned*>(count);
   unsigned* en = static_cast<unsigned*>(emitted);
+  const long long gs = gate_lanes ? vb : 0, ns = node_lanes ? vb : 0;
+  const bool many = lanes > 1;  // the single form: no lane arithmetic
   const bool vec = n % 16 == 0 && aligned16(nxt) && aligned16(visited) &&
                    (gate == nullptr || (vb % 16 == 0 && aligned16(gate))) &&
                    (node == nullptr || (vb % 16 == 0 && aligned16(node)));
-  if (vec) {
-    frontier_advance_kernel<true><<<grid_for(n, 16 * kInFlight), kThreads, 0, s>>>(x, v, a, nd, b, n, vb, cn, en);
-  } else {
-    frontier_advance_kernel<false><<<grid_for(n, kInFlight), kThreads, 0, s>>>(x, v, a, nd, b, n, vb, cn, en);
-  }
+  auto kernel = vec ? (many ? frontier_advance_kernel<true, true> : frontier_advance_kernel<true, false>)
+                    : (many ? frontier_advance_kernel<false, true> : frontier_advance_kernel<false, false>);
+  kernel<<<dim3(grid_for(n, (vec ? 16 : 1) * kInFlight), static_cast<unsigned>(lanes)), kThreads, 0, s>>>(
+      x, v, a, nd, b, n, vb, cn, en, gs, ns);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1171,6 +1171,7 @@ class TpuMatchSolver:
             self.param_box.lanes is not None
             and self.count_only_name() is not None
             and var_count is None
+            and not self._not_compiled
             and len(steps) == 1
             and self._lane_varying_root(steps[0])
         ):
@@ -1362,24 +1363,23 @@ class TpuMatchSolver:
         parameter) meet only the lane forms of K15, K5a, K4 and K5b: the
         COUNT pushdown's node and edge masks, and a root whose mask is only
         counted (the plan's only step, or the only one before the
-        pushdown); and for a rows or direct-fetch plan of fixed-depth arms
-        from a lane-varying root (`_rows_lane_route`). A COUNT whose
-        lane-varying mask lies anywhere else (an expanded or compacted count
-        root, an arm that is not the pushdown's), a variable-depth or NOT
-        arm, and a cartesian root keep the plan lane after lane. Decided
-        from the recorded plan's shape alone."""
+        pushdown); for a variable-depth COUNT or a COUNT with a NOT arm,
+        and for a rows or direct-fetch plan, from a lane-varying root
+        (`_rows_lane_route`). A COUNT whose lane-varying mask lies anywhere
+        else (an expanded or compacted count root, an arm that is not the
+        pushdown's) and a cartesian root keep the plan lane after lane.
+        Decided from the recorded plan's shape alone."""
         if self.count_only_name() is None:
             return self._rows_lane_route()
-        if (
-            self.stmt.group_by
-            or self._not_compiled
-            or self.tier is not None
-            or self.dg.mesh_graph is not None
-        ):
+        if self.stmt.group_by or self.tier is not None or self.dg.mesh_graph is not None:
             return False
+        if self._not_compiled or self._var_count_step() is not None:
+            # the count of the rows solve: a NOT arm's survivors, or the
+            # variable-depth arm's per-level popcounts
+            return self._rows_lane_route()
         pushdown = self._count_pushdown_steps()
         head = self.plan[: len(self.plan) - len(pushdown)]
-        if not pushdown and (self._var_count_step() is not None or len(head) != 1):
+        if not pushdown and len(head) != 1:
             return False
         varying: List[Predicate] = []
         for step in head:
@@ -1393,21 +1393,26 @@ class TpuMatchSolver:
 
     def _rows_lane_route(self) -> bool:
         """A rows plan on the lane axis: its only root first, with a
-        lane-varying mask that K15's lane form takes, then fixed-depth
-        arms: required or OPTIONAL, closing or not, arrows, bare
-        edge-method arms (``.outE()``) and endpoint arms (``.inV()``),
-        whose masks may read a parameter or a binding; no variable-depth or
-        NOT arm and no second (cartesian) root; not over a dirty delta
-        slab, a tier or a mesh. The root's [B, hull] mask then carries its
-        lane axis through K3, K2, K2b, K5's lane stride and K6/K7; an arm's
-        mask that reads a parameter runs K15's stacked form over its [B,
-        cap] ids, one the lanes share (binding-reading ones included) the
-        single form over the flattened ids, and an OPTIONAL arm's left join
-        K13's lane form."""
+        lane-varying mask that K15's lane form takes, then its arms:
+        required or OPTIONAL, closing or not, arrows, bare edge-method arms
+        (``.outE()``) and endpoint arms (``.inV()``), whose masks may read a
+        parameter or a binding, and variable-depth arms; then its NOT arms;
+        no second (cartesian) root; not over a dirty delta slab, a tier or a
+        mesh. The root's [B, hull] mask then carries its lane axis through
+        K3, K2, K2b, K5's lane stride and K6/K7; an arm's mask that reads a
+        parameter runs K15's stacked form over its [B, cap] ids, one the
+        lanes share (binding-reading ones included) the single form over the
+        flattened ids, and an OPTIONAL arm's left join K13's lane form. A
+        variable-depth or NOT arm runs its bitmap BFS through the lane forms
+        of K10, K11 and K12 (`_expand_var_depth`, `_apply_not_path`): a
+        WHILE, target or NOT mask that reads a parameter becomes a [B, vb]
+        vector through K15's lane form, so it must take it (``lane_ok``);
+        an edge WHERE of such an arm that reads a parameter (a [B, E] edge
+        mask, which K10's lane form does not take) keeps the plan lane after
+        lane."""
         ov = self.overlay
         if (
             self.stmt.group_by
-            or self._not_compiled
             or self.tier is not None
             or self.dg.mesh_graph is not None
             or (ov is not None and ov.topology_dirty)
@@ -1420,10 +1425,32 @@ class TpuMatchSolver:
         for step in arms:
             if step.kind == "root":
                 return False
-            target = step.edge.item.target
-            if target.while_cond is not None or target.max_depth is not None:
+            e = step.edge
+            target = e.item.target
+            if target.while_cond is None and target.max_depth is None:
+                continue
+            masks = [self._node_masks[e.from_alias if step.reverse else e.to_alias]]
+            if id(e) in self._while_fns:
+                masks.append(self._while_fns[id(e)])
+            if not self._bitmap_lane_ok(masks, [e.item]):
+                return False
+        for _aliases, masks, items in self._not_compiled:
+            if not self._bitmap_lane_ok(masks, items):
                 return False
         return True
+
+    def _bitmap_lane_ok(self, masks: List[Predicate], items) -> bool:
+        """True when a bitmap arm's masks (``masks``: vertex masks and
+        WHILE conditions, evaluated over the universe) and the edge WHEREs
+        compiled for its path ``items`` run on the lane axis: a vertex mask
+        that reads a parameter in one lane-form launch, no edge WHERE that
+        reads one."""
+        for it in items:
+            f = it.edge_filter
+            if f is not None and f.where is not None:
+                if any(p.uses_params for k, p in self._edge_preds.items() if k[1] == id(f.where)):
+                    return False
+        return all(p.lane_ok for p in masks if p.uses_params)
 
     def _lane_sums(self, vals: torch.Tensor) -> torch.Tensor:
         """Each lane's sum of its row of ``vals`` [B, m], int32 [B]: K4's lane
@@ -1971,9 +1998,13 @@ class TpuMatchSolver:
         """Table rows ``cs .. cs+C`` of a chunk, -1 where the slot is past
         the table or not live, and their liveness. Chunks run over the
         bucketed width, not the recorded count: on a replay live rows may
-        sit in any slot under the recorded capacity."""
+        sit in any slot under the recorded capacity. On the lane axis
+        (``valid_dev`` [B, width]) both are [B, C], each lane's own rows
+        (`K.take_pad`'s lane stride)."""
         rows = torch.arange(cs, cs + C, dtype=I32, device=self.device)
-        in_range = torch.where(rows < valid_dev.shape[0], rows, -1)
+        in_range = torch.where(rows < valid_dev.shape[-1], rows, -1)
+        if valid_dev.dim() == 2:
+            in_range = in_range.expand(valid_dev.shape[0], C).contiguous()
         live = K.take_pad(valid_dev, in_range, 0) > 0
         return torch.where(live, rows, -1), live
 
@@ -1996,7 +2027,16 @@ class TpuMatchSolver:
         ``optional`` keeps each live row that emitted at no level, with the
         null rules of `_expand`. ``count_only`` is the variable-depth COUNT
         (`_var_count_step`): the sum of each level's emission popcount, no
-        rows."""
+        rows.
+
+        On the lane axis (the reference's ``jax.vmap``: a lane table of B
+        lanes) a chunk is the lanes' C rows stacked as a ``[B, C, vb]``
+        bitmap (K9 one-hots the flattened sources),
+        stepped by the lane forms of K10, K11 and K12 with the WHILE gate and
+        the node mask shared or [B, vb] where they read a parameter. The
+        alive counts are [B], so that the post-loop observe flags only a lane
+        whose walk outgrew the recorded levels; the COUNT is [B]; a level's
+        emission compacts through K3's lane form over ``[B, C·vb]``."""
         e = step.edge
         item = e.item
         direction = item.direction
@@ -2026,7 +2066,8 @@ class TpuMatchSolver:
         counts: List[int] = []
         matched_chunks: List[torch.Tensor] = []
         recording = self.sched.recording
-        total_dev = torch.zeros((), dtype=I32, device=self.device)
+        lead = _lead(table)
+        total_dev = torch.zeros(lead, dtype=I32, device=self.device)
         totalf_dev = torch.zeros((), dtype=F32, device=self.device)
         width = table.width or 1
         C = self._var_chunk_rows(width, vb)
@@ -2034,11 +2075,12 @@ class TpuMatchSolver:
         pad = max(1, config.var_depth_pad_levels)
         for cs in range(0, width, C):
             chunk_rows, _live = self._chunk_rows(valid_dev, cs, C)
+            # [C] sources, or the lanes' [B, C]
             src_chunk = K.take_pad(srcs, chunk_rows, -1)
-            bound_chunk = (
-                K.take_pad(table.cols[dst_alias], chunk_rows, -2) if step.close else None
+            bound_chunk = K.take_pad(table.cols[dst_alias], chunk_rows, -2) if step.close else None
+            matched = (
+                torch.zeros(src_chunk.shape, dtype=torch.bool, device=self.device) if optional else None
             )
-            matched = torch.zeros(C, dtype=torch.bool, device=self.device) if optional else None
 
             def add_count(n):
                 nonlocal total_dev, totalf_dev
@@ -2058,7 +2100,8 @@ class TpuMatchSolver:
                     return
                 add_count(K.bitmap_emit(reached, node_vec, bound_chunk, emit=False, count=True)[2])
 
-            frontier = K.rows_to_bitmap(src_chunk, vb)
+            # [C, vb], or the lanes' [B, C, vb] stack (K9 over the flat rows)
+            frontier = K.rows_to_bitmap(src_chunk.view(-1), vb).view(*src_chunk.shape, vb)
             # the frontier is its own visited set until the first level step
             # updates it in place (after the hop has read the frontier)
             visited = frontier
@@ -2113,10 +2156,10 @@ class TpuMatchSolver:
             t.count_dev = total_dev
             return t
         if optional:
-            matched_all = torch.cat(matched_chunks)[: table.width]
+            matched_all = torch.cat([m.view(*lead, C) for m in matched_chunks], dim=-1)[..., : table.width]
             upart, ukeep = self._unmatched_part(table, matched_all)
             if upart is not None:
-                null = torch.full((upart.width,), -1, dtype=I32, device=self.device)
+                null = torch.full((*lead, upart.width), -1, dtype=I32, device=self.device)
                 if step.close and f is not None and f.optional:
                     pass  # a probe between two bound aliases: both survive
                 elif step.close:
@@ -2140,12 +2183,15 @@ class TpuMatchSolver:
         A level whose recorded emission is empty still appends a
         minimum-capacity part, so a replay may emit there without an
         overflow. With ``any_row``, returns which chunk rows emitted (an
-        OPTIONAL arm's match flags)."""
+        OPTIONAL arm's match flags). On the lane axis K11's lane form emits
+        the ``[B, C, vb]`` stack with a count a lane, and K3's lane form
+        compacts each lane's ``[C·vb]`` into lane-local (row, vertex)
+        slots."""
         emit, hit, n_dev = K.bitmap_emit(
             reached, node_vec, bound_chunk, emit=True, any_row=any_row, count=True
         )
         keep, kn, kn_dev = _observe_compact(
-            self.sched, emit.view(-1), min_capacity=K.bucket(0), count_dev=n_dev
+            self.sched, emit.view(*_lead(table), -1), min_capacity=K.bucket(0), count_dev=n_dev,
         )
         ok = keep >= 0
         rowid = torch.where(ok, cs + keep // vb, -1)
@@ -2175,9 +2221,13 @@ class TpuMatchSolver:
         over every vertex), one hop per arm item (over the edges its edge
         WHERE admits) with the target's mask (and binding, where the alias
         is bound) ANDed in; a row with a survivor at the chain's end
-        matches the arm and is dropped."""
+        matches the arm and is dropped. On the lane axis a chunk is the
+        lanes' C rows stacked as ``[B, C, vb]`` through the lane forms of K10
+        and K11 (a candidate mask that reads a parameter gives each lane its
+        own row), and the survivors compact through K3's lane form."""
         width = table.width or 1
         vb = self._vb()
+        lead = _lead(table)
         node_vecs = [self._vertex_vec(m) for m in masks]
         hops_per_item = []
         for it in items:
@@ -2200,24 +2250,26 @@ class TpuMatchSolver:
             if aliases[0] in table.cols:
                 src = K.take_pad(table.cols[aliases[0]], chunk_rows, -1)
                 cur, _, alive = K.bitmap_emit(
-                    K.rows_to_bitmap(src, vb), node_vecs[0], emit=True, count=True
+                    K.rows_to_bitmap(src.view(-1), vb).view(*src.shape, vb), node_vecs[0],
+                    emit=True, count=True,
                 )
             else:
-                cur, alive = (node_vecs[0][None, :] & live[:, None]).contiguous(), None
-            exists = None if items else cur.any(dim=1)
+                # every candidate of each live row: [C, vb], or the lanes'
+                # [B, C, vb] from a shared or a lane's [vb] mask
+                cand = node_vecs[0].view(-1, 1, vb) & live.view(-1, C, 1)
+                cur, alive = cand.reshape(*lead, C, vb).contiguous(), None
+            exists = None if items else cur.any(dim=-1)
             for k, hops in enumerate(hops_per_item):
                 nxt = _run_hops(hops, cur, None, alive)
                 tgt = aliases[k + 1]
-                bound = (
-                    K.take_pad(table.cols[tgt], chunk_rows, -2) if tgt in table.cols else None
-                )
+                bound = K.take_pad(table.cols[tgt], chunk_rows, -2) if tgt in table.cols else None
                 last = k == len(hops_per_item) - 1
                 cur, exists, alive = K.bitmap_emit(
                     nxt, node_vecs[k + 1], bound, emit=not last, any_row=last, count=not last
                 )
-            exists_chunks.append(exists)
-        exists = torch.cat(exists_chunks)[:width]
-        keep_mask = valid_dev[:width].to(torch.bool) & ~exists
+            exists_chunks.append(exists.view(*lead, C))
+        exists = torch.cat(exists_chunks, dim=-1)[..., :width]
+        keep_mask = valid_dev[..., :width].to(torch.bool) & ~exists
         keep, kn, kn_dev = self._compact(keep_mask)
         t = table.gather(keep)
         t.count = kn

@@ -68,12 +68,12 @@ SIGNATURES = {
     "csr_narrow_i16": [_P, _N, _P, _P],
     "csr_rows_to_bitmap": [_P, _N, _N, _P, _P],
     "csr_bitmap_hop": [_P, _P, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
-    "csr_bitmap_hop_csr": [_P, _N, _P, _P, _P, _N, _P, _P, _N, _N, _P, _I, _P, _P],
+    "csr_bitmap_hop_csr": [_P, _N, _P, _P, _P, _N, _P, _P, _N, _N, _P, _I, _P, _N, _I, _P],
     "csr_bitmap_hop_probe": [
         _P, _N, _P, _P, _P, _N, _P, _P, _P, _P, _N, _N, _I, _I, _P, _P, _N, _N, _P, _I, _P, _P
     ],
-    "csr_bitmap_emit": [_P, _P, _P, _N, _N, _P, _P, _P, _P],
-    "csr_frontier_advance": [_P, _P, _P, _P, _P, _N, _N, _P, _P, _P],
+    "csr_bitmap_emit": [_P, _P, _P, _N, _N, _P, _P, _P, _N, _I, _P],
+    "csr_frontier_advance": [_P, _P, _P, _P, _P, _N, _N, _P, _P, _N, _I, _I, _P],
     "csr_rows_with_matches_lanes": [_P, _P, _N, _N, _N, _I, _P, _P],
     "csr_group_page": [_P, _N, _I, _N, _N, _I, _P, _P],
     "csr_predicate_eval_stacked": [_P, _N, _P],

@@ -26,6 +26,9 @@ through the flattened index), `front_pack` of ``[B, W]`` columns and
 `replay_meta` of ``[B, W, C]`` pages, `predicate_eval` over lane-stacked
 ``[B, n]`` ids (its stacked form: each lane its own ids, parameter row,
 binding rows and split values) and `rows_with_matches` of ``[B, W]`` rows;
+and for a variable-depth or NOT group the bitmap BFS's `bitmap_hop_csr`,
+`bitmap_emit` and `frontier_advance` over the lanes' ``[B, C, vb]`` bitmap
+stacks (a lane's gate, node mask, alive and counts its own);
 each one launch for all B lanes that reads what the lanes share once (their
 plain versions: the single-lane plain version a lane). Lane-stacked
 operands are lane-major and contiguous, so each lane's row keeps the single
@@ -97,8 +100,11 @@ LAUNCHES: Dict[str, int] = {
         "bitmap_hop",
         "bitmap_hop_csr",
         "bitmap_hop_probe",
+        "bitmap_hop_csr_lanes",
         "bitmap_emit",
+        "bitmap_emit_lanes",
         "frontier_advance",
+        "frontier_advance_lanes",
         "rows_with_matches",
         "rows_with_matches_lanes",
         "group_page",
@@ -610,12 +616,13 @@ def _gather_expand(indptr, neighbors, srcs, offsets, total, out_size: int, edge_
 def plain_compact_indices(
     mask: torch.Tensor, out_size: int, out: Optional[torch.Tensor] = None, offset: int = 0
 ) -> torch.Tensor:
+    """The reference's rank scatter (each kept slot's position at its rank
+    minus one, the ranks past ``out_size`` dropped): the first ``out_size``
+    True positions in order, -1 after them."""
     res = torch.full((out_size,), -1, dtype=I32, device=mask.device)
     if mask.shape[0]:
-        ranks = plain_cumsum(mask.to(I32))
-        keep = mask & (ranks <= out_size)
-        pos = torch.arange(mask.shape[0], dtype=I32, device=mask.device)
-        res[(ranks[keep] - 1).long()] = pos[keep]
+        pos = mask.nonzero().view(-1)[:out_size]
+        res[: pos.shape[0]] = pos.to(I32)
     if out is None:
         return res
     kept = min(int(mask.sum()), out_size)
@@ -1569,15 +1576,31 @@ def plain_bitmap_hop_csr(
     """The reference's hop over the edge list a CSR expands to: row ``v``'s
     slots activate on ``v`` and emit ``nbr[slot]``, the mask read at
     ``take_pad(edge_mask, eid[slot], False)`` (at the slot without
-    ``eid``), then `plain_bitmap_hop`."""
-    nv = indptr.shape[0] - 1
-    deg = (indptr[1:] - indptr[:-1]).long()
-    act = torch.repeat_interleave(torch.arange(nv, dtype=I32, device=indptr.device), deg)
-    slots = torch.arange(act.shape[0], device=indptr.device) + indptr[0].long()
-    m = None
+    ``eid``), as `plain_bitmap_hop` scatters them; walked from the set
+    (row, vertex) pairs of the gated frontier, so that it costs the active
+    edges, not [C, E]."""
+    C, vb = frontier.shape
+    dev = frontier.device
+    out = torch.zeros((C, vb), dtype=B8, device=dev)
+    nv = min(indptr.shape[0] - 1, vb)
+    if C == 0 or nv <= 0:
+        return out
+    fr = frontier[:, :nv]
+    if gate is not None:
+        fr = fr & gate[None, :nv]
+    if alive is not None:
+        fr = fr & (alive != 0)
+    r, v = fr.nonzero(as_tuple=True)
+    start = indptr[v].long()
+    deg = indptr[v + 1].long() - start
+    rep = torch.repeat_interleave(torch.arange(v.shape[0], device=dev), deg)
+    slots = start[rep] + torch.arange(rep.shape[0], device=dev) - (torch.cumsum(deg, 0) - deg)[rep]
     if edge_mask is not None:
         m = edge_mask[slots] if eid is None else plain_take_pad(edge_mask, eid[slots], False)
-    return plain_bitmap_hop(act, nbr[slots], m, frontier, gate, alive)
+        rep, slots = rep[m], slots[m]
+    cols = nbr[slots].clamp(0, vb - 1).long()
+    out.view(-1)[r[rep] * vb + cols] = True
+    return out
 
 
 class SlabIndex(NamedTuple):
@@ -1634,6 +1657,93 @@ def plain_bucket_hop(
     return plain_bitmap_hop(act, probe.nbr[atc].reshape(-1), ok.reshape(-1), frontier, gate, alive)
 
 
+#: the most lanes of a bitmap lane form (one grid row a lane)
+_GRID_LANES = 65535
+
+
+def _check_stack(t: torch.Tensor, what: str) -> None:
+    """`_check2d` for a lane form's bitmap stack: bool [B, C, vb], B lanes
+    of C rows (row c of lane b is ``t[b, c]``), at most a grid's rows."""
+    if t.dtype != B8:
+        raise TypeError(f"{what}: dtype {t.dtype} is not torch.bool")
+    if t.dim() != 3:
+        raise ValueError(f"{what}: expected a [B, C, vb] stack, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+    if t.shape[0] > _GRID_LANES:
+        raise ValueError(f"{what}: {t.shape[0]} lanes, at most {_GRID_LANES}")
+
+
+def _lane_vec(vec: Optional[torch.Tensor], B: int, vb: int, what: str) -> int:
+    """Checks a shared [vb] or lane-stacked [B, vb] bool vector; returns 1
+    when it is lane-stacked (its kernel reads row ``lane``)."""
+    if vec is None:
+        return 0
+    if vec.dim() == 2:
+        _check2d(vec, (B8,), what)
+        if vec.shape != (B, vb):
+            raise ValueError(f"{what}: shape {tuple(vec.shape)} is not [{B}, {vb}]")
+        return 1
+    _check(vec, (B8,), what)
+    if vec.shape[0] != vb:
+        raise ValueError(f"{what}: {vec.shape[0]} entries for bitmap rows of {vb}")
+    return 0
+
+
+def _check_bound(bound: torch.Tensor, rows, what: str) -> None:
+    """A close arm's bound column: int32, one a bitmap row ([C], or [B, C]
+    for a lane form's stack)."""
+    if len(rows) == 2:
+        _check2d(bound, (I32,), f"{what} bound")
+    else:
+        _check(bound, (I32,), f"{what} bound")
+    if tuple(bound.shape) != tuple(rows):
+        raise ValueError(f"{what}: bound and bitmap differ in rows")
+
+
+def plain_bitmap_hop_csr_lanes(
+    indptr: torch.Tensor,
+    nbr: torch.Tensor,
+    eid: Optional[torch.Tensor],
+    edge_mask: Optional[torch.Tensor],
+    frontier: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The lane form's plain version: lane b of the ``[B, C, vb]`` frontier
+    hops as `plain_bitmap_hop_csr` hops it with lane b's gate row (or the
+    shared gate) and ``alive[b]``: the gate and the alive test applied to
+    each lane's rows first, then one hop of every row."""
+    B, C, vb = frontier.shape
+    fr = frontier
+    if gate is not None:
+        fr = fr & gate.view(-1, 1, vb)
+    if alive is not None:
+        fr = fr & (alive != 0).view(B, 1, 1)
+    return plain_bitmap_hop_csr(indptr, nbr, eid, edge_mask, fr.reshape(B * C, vb)).view(B, C, vb)
+
+
+def bitmap_hop_csr_lanes(
+    indptr: torch.Tensor,
+    nbr: torch.Tensor,
+    eid: Optional[torch.Tensor],
+    edge_mask: Optional[torch.Tensor],
+    frontier: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    alive: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K10's lane form (the reference's ``jax.vmap`` of `bitmap_hop` over a
+    group's lanes): the frontier holds B lanes of C rows, bool [B, C, vb];
+    ``alive`` int32 [B] is each lane's frontier popcount (a lane at 0 adds
+    nothing), ``gate`` a bool [vb] the lanes share or [B, vb] (a WHILE that
+    reads a parameter). ``out`` ([B, C, vb]) as for `bitmap_hop_csr`, ORed
+    in place. One launch for all lanes (the single form's kernel and entry
+    point, a lane a grid row)."""
+    _check_stack(frontier, "bitmap_hop_csr_lanes frontier")
+    return _bitmap_hop_csr(indptr, nbr, eid, edge_mask, frontier, gate, alive, out, None)
+
+
 def bitmap_hop_csr(
     indptr: torch.Tensor,
     nbr: torch.Tensor,
@@ -1661,11 +1771,24 @@ def bitmap_hop_csr(
     (`plain_bucket_hop`; ``edge_mask`` is then indexed by out-order edge id,
     the slab's slots included): the hop over the CSR and the slab of a
     delta-maintained snapshot, exact while no bucket of the class filled,
-    for the vertices below nv. Returns the bitmap."""
-    _check(indptr, (I32,), "bitmap_hop_csr indptr")
-    _check(nbr, (I32,), "bitmap_hop_csr nbr")
+    for the vertices below nv. A lane-stacked frontier (bool [B, C, vb])
+    makes it the lane form (`bitmap_hop_csr_lanes`). Returns the bitmap."""
+    if frontier.dim() == 3:
+        if probe is not None:
+            raise ValueError("bitmap_hop_csr: the lane form takes no slab probe")
+        return bitmap_hop_csr_lanes(indptr, nbr, eid, edge_mask, frontier, gate, alive, out)
     _check2d(frontier, (B8,), "bitmap_hop_csr frontier")
-    C, vb = frontier.shape
+    return _bitmap_hop_csr(indptr, nbr, eid, edge_mask, frontier, gate, alive, out, probe)
+
+
+def _bitmap_hop_csr(indptr, nbr, eid, edge_mask, frontier, gate, alive, out, probe) -> torch.Tensor:
+    """K10's CSR push for one [C, vb] frontier, or for B lanes of C rows
+    stacked as [B, C, vb] (a checked frontier)."""
+    lanes = frontier.dim() == 3
+    what = "bitmap_hop_csr_lanes" if lanes else "bitmap_hop_csr"
+    _check(indptr, (I32,), f"{what} indptr")
+    _check(nbr, (I32,), f"{what} nbr")
+    B, C, vb = frontier.shape if lanes else (1, *frontier.shape)
     nv = indptr.shape[0] - 1
     if nv < 0 or nv > vb:
         raise ValueError(f"bitmap_hop_csr: {nv} rows for a frontier {vb} wide")
@@ -1682,22 +1805,30 @@ def bitmap_hop_csr(
         if eid is None and ne != nbr.shape[0]:
             raise ValueError("bitmap_hop_csr: edge_mask indexed by slot differs from nbr in length")
         opt.append(edge_mask)
+    gate_lanes = 0
     if gate is not None:
-        _check(gate, (B8,), "bitmap_hop_csr gate")
-        if gate.shape[0] != vb:
-            raise ValueError("bitmap_hop_csr: gate and the frontier differ in width")
+        if lanes:
+            gate_lanes = _lane_vec(gate, B, vb, f"{what} gate")
+        else:
+            _check(gate, (B8,), "bitmap_hop_csr gate")
+            if gate.shape[0] != vb:
+                raise ValueError("bitmap_hop_csr: gate and the frontier differ in width")
         opt.append(gate)
     if alive is not None:
-        _check_scalar(alive, "bitmap_hop_csr alive")
+        if not lanes:
+            _check_scalar(alive, "bitmap_hop_csr alive")
+        elif alive.dtype != I32 or alive.shape != (B,):
+            raise TypeError(f"{what} alive: expected int32 [{B}]")
         opt.append(alive)
     if out is not None:
-        _check_out(out, (C, vb), B8, "bitmap_hop_csr")
+        _check_out(out, frontier.shape, B8, what)
         opt.append(out)
     if probe is not None:
         _check_probe(probe, edge_mask)
         opt.extend((probe.tab, probe.own, probe.nbr, probe.live))
     if not _on_card(indptr, nbr, frontier, *opt):
-        hop = plain_bitmap_hop_csr(indptr, nbr, eid, edge_mask, frontier, gate, alive)
+        plain = plain_bitmap_hop_csr_lanes if lanes else plain_bitmap_hop_csr
+        hop = plain(indptr, nbr, eid, edge_mask, frontier, gate, alive)
         if probe is not None:
             hop |= plain_bucket_hop(probe, edge_mask, frontier, gate, alive, nv)
         if out is None:
@@ -1707,7 +1838,7 @@ def bitmap_hop_csr(
     lib = _kernels.load()
     zero = out is None
     if zero:
-        out = torch.empty((C, vb), dtype=B8, device=frontier.device)
+        out = torch.empty(frontier.shape, dtype=B8, device=frontier.device)
     head = (
         indptr.data_ptr(),
         nv,
@@ -1724,10 +1855,9 @@ def bitmap_hop_csr(
         None if alive is None else alive.data_ptr(),
         int(zero),
         out.data_ptr(),
-        _stream(frontier),
     )
     if probe is None:
-        _launch("bitmap_hop_csr", lib.csr_bitmap_hop_csr, *head, *tail)
+        _launch(what, lib.csr_bitmap_hop_csr, *head, *tail, B, gate_lanes, _stream(frontier))
         return out
     slab = (
         probe.tab.data_ptr(),
@@ -1739,7 +1869,7 @@ def bitmap_hop_csr(
         probe.nb,
         probe.bk,
     )
-    _launch("bitmap_hop_probe", lib.csr_bitmap_hop_probe, *head, *slab, *tail)
+    _launch("bitmap_hop_probe", lib.csr_bitmap_hop_probe, *head, *slab, *tail, _stream(frontier))
     return out
 
 
@@ -1810,6 +1940,48 @@ def plain_bitmap_emit(
     )
 
 
+def plain_bitmap_emit_lanes(
+    reached: torch.Tensor,
+    node: torch.Tensor,
+    bound: Optional[torch.Tensor] = None,
+    emit: bool = True,
+    any_row: bool = False,
+    count: bool = False,
+) -> EmitResult:
+    """The lane form's plain version: lane b of the ``[B, C, vb]`` stack
+    through `plain_bitmap_emit` with lane b's node row (or the shared node)
+    and bound row, its count one int32 a lane."""
+    B, C, vb = reached.shape
+    e = reached & node.view(-1, 1, vb)
+    if bound is not None:
+        vcol = torch.arange(vb, dtype=I32, device=reached.device)
+        e = e & (vcol.view(1, 1, vb) == bound.view(B, C, 1))
+    return (
+        e if emit else None,
+        e.any(dim=2) if any_row else None,
+        e.sum(dim=(1, 2), dtype=I32) if count else None,
+    )
+
+
+def bitmap_emit_lanes(
+    reached: torch.Tensor,
+    node: torch.Tensor,
+    bound: Optional[torch.Tensor] = None,
+    emit: bool = True,
+    any_row: bool = False,
+    count: bool = False,
+) -> EmitResult:
+    """K11's lane form (the reference's ``jax.vmap`` of `_var_emit_mask`,
+    its level sums and the NOT arm's any): ``reached`` holds B lanes of C
+    rows, bool [B, C, vb]; ``node`` is a bool [vb] the lanes share or [B,
+    vb], ``bound`` int32 [B, C]. Returns ``(bitmap [B, C, vb], any [B, C],
+    popcount int32 [B])``, each None unless asked for: the count is each
+    lane's own. One launch for all lanes (the single form's kernel and
+    entry point, a lane a grid row)."""
+    _check_stack(reached, "bitmap_emit_lanes reached")
+    return _bitmap_emit(reached, node, bound, emit, any_row, count)
+
+
 def bitmap_emit(
     reached: torch.Tensor,
     node: torch.Tensor,
@@ -1822,27 +1994,41 @@ def bitmap_emit(
     column ``bound[c]`` in row c when ``bound`` (int32 [C]) is given (a
     close arm's bound endpoint; a negative bound matches nothing).
     Returns ``(bitmap, per-row any, popcount)``, each None unless asked
-    for: bool [C, vb], bool [C] and a 0-d int32."""
+    for: bool [C, vb], bool [C] and a 0-d int32. A lane-stacked ``reached``
+    (bool [B, C, vb]) makes it the lane form (`bitmap_emit_lanes`)."""
+    if reached.dim() == 3:
+        return bitmap_emit_lanes(reached, node, bound, emit=emit, any_row=any_row, count=count)
     _check2d(reached, (B8,), "bitmap_emit reached")
-    _check(node, (B8,), "bitmap_emit node")
-    C, vb = reached.shape
-    if node.shape[0] != vb:
-        raise ValueError("bitmap_emit: node mask and bitmap differ in width")
+    return _bitmap_emit(reached, node, bound, emit, any_row, count)
+
+
+def _bitmap_emit(reached, node, bound, emit, any_row, count) -> EmitResult:
+    """K11 for one [C, vb] bitmap, or for B lanes of C rows stacked as [B,
+    C, vb] (a checked ``reached``)."""
+    lanes = reached.dim() == 3
+    what = "bitmap_emit_lanes" if lanes else "bitmap_emit"
+    B, C, vb = reached.shape if lanes else (1, *reached.shape)
+    if lanes:
+        node_lanes = _lane_vec(node, B, vb, f"{what} node")
+    else:
+        _check(node, (B8,), "bitmap_emit node")
+        if node.shape[0] != vb:
+            raise ValueError("bitmap_emit: node mask and bitmap differ in width")
+        node_lanes = 0
     opt = []
     if bound is not None:
-        _check(bound, (I32,), "bitmap_emit bound")
-        if bound.shape[0] != C:
-            raise ValueError("bitmap_emit: bound and bitmap differ in rows")
+        _check_bound(bound, reached.shape[:-1], what)
         opt.append(bound)
     if not _on_card(reached, node, *opt):
-        return plain_bitmap_emit(reached, node, bound, emit, any_row, count)
+        plain = plain_bitmap_emit_lanes if lanes else plain_bitmap_emit
+        return plain(reached, node, bound, emit, any_row, count)
     lib = _kernels.load()
     dev = reached.device
-    e_out = torch.empty((C, vb), dtype=B8, device=dev) if emit else None
-    a_out = torch.empty(C, dtype=B8, device=dev) if any_row else None
-    c_out = torch.empty((), dtype=I32, device=dev) if count else None
+    e_out = torch.empty(reached.shape, dtype=B8, device=dev) if emit else None
+    a_out = torch.empty(reached.shape[:-1], dtype=B8, device=dev) if any_row else None
+    c_out = torch.empty((B,) if lanes else (), dtype=I32, device=dev) if count else None
     _launch(
-        "bitmap_emit",
+        what,
         lib.csr_bitmap_emit,
         reached.data_ptr(),
         node.data_ptr(),
@@ -1852,6 +2038,8 @@ def bitmap_emit(
         None if e_out is None else e_out.data_ptr(),
         None if a_out is None else a_out.data_ptr(),
         None if c_out is None else c_out.data_ptr(),
+        B,
+        node_lanes,
         _stream(reached),
     )
     return e_out, a_out, c_out
@@ -1877,6 +2065,45 @@ def plain_frontier_advance(
     return alive, plain_bitmap_emit(nxt, node, bound, emit=False, count=True)[2]
 
 
+def plain_frontier_advance_lanes(
+    nxt: torch.Tensor,
+    visited: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    node: Optional[torch.Tensor] = None,
+    bound: Optional[torch.Tensor] = None,
+) -> AdvanceResult:
+    """The lane form's plain version: lane b of the ``[B, C, vb]`` stacks
+    stepped as `plain_frontier_advance` steps them with lane b's gate and
+    node rows (or the shared ones), its counts one int32 a lane."""
+    vb = nxt.shape[2]
+    nxt &= ~visited
+    if gate is not None:
+        nxt &= gate.view(-1, 1, vb)
+    visited |= nxt
+    alive = nxt.sum(dim=(1, 2), dtype=I32)
+    if node is None:
+        return alive
+    return alive, plain_bitmap_emit_lanes(nxt, node, bound, emit=False, count=True)[2]
+
+
+def frontier_advance_lanes(
+    nxt: torch.Tensor,
+    visited: torch.Tensor,
+    gate: Optional[torch.Tensor] = None,
+    node: Optional[torch.Tensor] = None,
+    bound: Optional[torch.Tensor] = None,
+) -> AdvanceResult:
+    """K12's lane form (the reference's ``jax.vmap`` of the level step):
+    both bitmaps hold B lanes of C rows, bool [B, C, vb], stepped in place
+    as `frontier_advance` steps them; ``gate`` and ``node`` are a bool [vb]
+    the lanes share or [B, vb], ``bound`` int32 [B, C]. Returns each lane's
+    alive count, int32 [B], or with ``node`` ``(alive, emitted)``, both
+    [B]. One launch for all lanes (the single form's kernel and entry
+    point, a lane a grid row)."""
+    _check_stack(nxt, "frontier_advance_lanes nxt")
+    return _frontier_advance(nxt, visited, gate, node, bound)
+
+
 def frontier_advance(
     nxt: torch.Tensor,
     visited: torch.Tensor,
@@ -1891,43 +2118,62 @@ def frontier_advance(
     popcount of the new ``nxt`` as a 0-d int32 (the level's alive count).
     With ``node`` (bool [vb]) it returns ``(alive, emitted)``: ``emitted``
     is `bitmap_emit`'s count over the new ``nxt`` (``bound``, int32 [C],
-    as there), from the same pass."""
+    as there), from the same pass. Lane-stacked bitmaps (bool [B, C, vb])
+    make it the lane form (`frontier_advance_lanes`)."""
+    if nxt.dim() == 3:
+        return frontier_advance_lanes(nxt, visited, gate, node, bound)
     _check2d(nxt, (B8,), "frontier_advance nxt")
-    _check2d(visited, (B8,), "frontier_advance visited")
+    return _frontier_advance(nxt, visited, gate, node, bound)
+
+
+def _frontier_advance(nxt, visited, gate, node, bound) -> AdvanceResult:
+    """K12 for one pair of [C, vb] bitmaps, or for B lanes of C rows stacked
+    as [B, C, vb] (a checked ``nxt``)."""
+    lanes = nxt.dim() == 3
+    what = "frontier_advance_lanes" if lanes else "frontier_advance"
+    if visited.dtype != B8 or not visited.is_contiguous():
+        raise TypeError(f"{what} visited: expected a contiguous bool tensor")
     if nxt.shape != visited.shape:
-        raise ValueError("frontier_advance: bitmaps differ in shape")
-    C, vb = nxt.shape
+        raise ValueError(f"{what}: bitmaps differ in shape")
+    B, C, vb = nxt.shape if lanes else (1, *nxt.shape)
     ts = [nxt, visited]
-    for vec, what in ((gate, "gate"), (node, "node")):
+    stacked = {}
+    for vec, name in ((gate, "gate"), (node, "node")):
         if vec is not None:
-            _check(vec, (B8,), f"frontier_advance {what}")
-            if vec.shape[0] != vb:
-                raise ValueError(f"frontier_advance: {what} and bitmap rows differ in length")
+            if lanes:
+                stacked[name] = _lane_vec(vec, B, vb, f"{what} {name}")
+            else:
+                _check(vec, (B8,), f"frontier_advance {name}")
+                if vec.shape[0] != vb:
+                    raise ValueError(f"frontier_advance: {name} and bitmap rows differ in length")
             ts.append(vec)
     if bound is not None:
         if node is None:
-            raise ValueError("frontier_advance: bound without node")
-        _check(bound, (I32,), "frontier_advance bound")
-        if bound.shape[0] != C:
-            raise ValueError("frontier_advance: bound and bitmap differ in rows")
+            raise ValueError(f"{what}: bound without node")
+        _check_bound(bound, nxt.shape[:-1], what)
         ts.append(bound)
     if not _on_card(*ts):
-        return plain_frontier_advance(nxt, visited, gate, node, bound)
+        plain = plain_frontier_advance_lanes if lanes else plain_frontier_advance
+        return plain(nxt, visited, gate, node, bound)
     lib = _kernels.load()
-    count = torch.empty((), dtype=I32, device=nxt.device)
-    emitted = None if node is None else torch.empty((), dtype=I32, device=nxt.device)
+    shape = (B,) if lanes else ()
+    count = torch.empty(shape, dtype=I32, device=nxt.device)
+    emitted = None if node is None else torch.empty(shape, dtype=I32, device=nxt.device)
     _launch(
-        "frontier_advance",
+        what,
         lib.csr_frontier_advance,
         nxt.data_ptr(),
         visited.data_ptr(),
         None if gate is None else gate.data_ptr(),
         None if node is None else node.data_ptr(),
         None if bound is None else bound.data_ptr(),
-        nxt.numel(),
+        C * vb,
         vb,
         count.data_ptr(),
         None if emitted is None else emitted.data_ptr(),
+        B,
+        stacked.get("gate", 0),
+        stacked.get("node", 0),
         _stream(nxt),
     )
     return count if emitted is None else (count, emitted)

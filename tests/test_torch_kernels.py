@@ -2543,3 +2543,111 @@ def test_captured_arm_lane_groups_equal_cpu(card):
                 launched[name] = launched.get(name, 0) + k
     assert launched.get("predicate_eval_stacked", 0) > 0 and launched.get("rows_with_matches_lanes", 0) > 0
     torch.cuda.synchronize()
+
+
+BITMAP_LANE_CASES = [(1, 8, 1 << 16), (8, 8, 1 << 16), (16, 3, 4_096), (8, 33, 1_002), (8, 8, 1 << 23)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,c,vb", BITMAP_LANE_CASES)
+def test_bitmap_lane_forms_equal_plain_on_card(card, B, c, vb):
+    """The lane forms of K10 (`bitmap_hop_csr_lanes`), K11
+    (`bitmap_emit_lanes`) and K12 (`frontier_advance_lanes`) over B lanes
+    of c rows stacked as [B, c, vb], against their plain versions and, lane
+    by lane, against the single forms, exactly: shared and lane-stacked
+    gates and node masks, a bound column, an empty lane (alive 0), ORed
+    into ``out``, per-lane counts; c = 3 and 33 put lanes across the push's
+    32-row batches and vb = 1,002 takes the one-byte paths."""
+    rng = np.random.default_rng(B * 31 + c + vb)
+    v = min(vb - 2, 200_000)
+    indptr, nbrs = _csr(rng, v, 6.0)
+    ip, nb = _t(indptr).to(card), _t(nbrs).to(card)
+    e = nbrs.shape[0]
+    emask = _t(rng.random(e) < 0.7).to(card)
+    fr_np = np.zeros((B * c, vb), bool)
+    fr_np[np.arange(B * c)[:, None], rng.integers(0, v, (B * c, 3 if vb > 4096 else 40))] = True
+    fr_np[:c] = False  # lane 0 is empty
+    fr = _t(fr_np.reshape(B, c, vb)).to(card)
+    alive = T.mask_count_lanes(fr.view(B, -1))
+    gates = [_t(rng.random(vb) < 0.6).to(card), _t(rng.random((B, vb)) < 0.6).to(card)]
+    nodes = [_t(rng.random(vb) < 0.5).to(card), _t(rng.random((B, vb)) < 0.5).to(card)]
+    lane = lambda t, b: t if t is None or t.dim() == 1 else t[b]  # noqa: E731
+    for g in (None, *gates):
+        for m in (None, emask):
+            got = T.bitmap_hop_csr_lanes(ip, nb, None, m, fr, g, alive)
+            assert torch.equal(got, T.plain_bitmap_hop_csr_lanes(ip, nb, None, m, fr, g, alive))
+            for b in range(B):
+                assert torch.equal(got[b], T.bitmap_hop_csr(ip, nb, None, m, fr[b], lane(g, b), alive[b]))
+            assert not got[0].any()
+    base = _t(rng.random((B, c, vb)) < 0.01).to(card)
+    acc = T.bitmap_hop_csr(ip, nb, None, emask, fr, gates[1], alive, out=base.clone())
+    assert torch.equal(acc, base | T.plain_bitmap_hop_csr_lanes(ip, nb, None, emask, fr, gates[1], alive))
+    nxt = T.bitmap_hop_csr_lanes(ip, nb, None, None, fr, None, alive)
+    bound = _t(_bound_for(rng, nxt.cpu().numpy().reshape(B * c, vb)).reshape(B, c)).to(card)
+    for node in nodes:
+        for bd in (None, bound):
+            for flags in ((True, True, True), (False, False, True), (False, True, False)):
+                got = T.bitmap_emit_lanes(nxt, node, bd, *flags)
+                want = T.plain_bitmap_emit_lanes(nxt, node, bd, *flags)
+                for x, y in zip(got, want):
+                    assert (x is None and y is None) or torch.equal(x, y)
+                for b in range(B):
+                    one = T.bitmap_emit(nxt[b], lane(node, b), None if bd is None else bd[b], *flags)
+                    for x, y in zip(got, one):
+                        assert (x is None and y is None) or torch.equal(x[b], y)
+    for g in (None, *gates):
+        for nd, bd in ((None, None), (nodes[0], None), (nodes[1], bound)):
+            a, w = [nxt.clone(), fr.clone()], [nxt.clone(), fr.clone()]
+            got = T.frontier_advance_lanes(a[0], a[1], g, nd, bd)
+            want = T.plain_frontier_advance_lanes(w[0], w[1], g, nd, bd)
+            assert torch.equal(a[0], w[0]) and torch.equal(a[1], w[1])
+            got, want = (got, want) if nd is not None else ((got,), (want,))
+            for x, y in zip(got, want):
+                assert x.shape == (B,) and torch.equal(x, y)
+            for b in range(B):
+                n1, v1 = nxt[b].clone(), fr[b].clone()
+                one = T.frontier_advance(n1, v1, lane(g, b), lane(nd, b), None if bd is None else bd[b])
+                one = one if nd is not None else (one,)
+                assert torch.equal(a[0][b], n1) and torch.equal(a[1][b], v1)
+                assert all(int(x[b]) == int(y) for x, y in zip(got, one))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_captured_var_lane_groups_equal_cpu(card):
+    """Variable-depth and NOT groups on the lane axis captured on the card
+    (V2's both-direction rows with a depth alias, V3's NOT arm, the
+    variable-depth COUNT, a WHILE that reads a parameter) against the same
+    batches on the CPU, with the lane forms of K10, K11 and K12 among each
+    group's captured launches."""
+    from orientdb_tpu_torch.exec import tpu_engine as TE
+    from orientdb_tpu_torch.exec.result import canonical_rows
+    from orientdb_tpu_torch.storage.bigshape import build_person_knows
+
+    root = "MATCH {class:Person, as:p, where:(uid < :k)}"
+    batches = [
+        (root + "-knows-{as:f, maxDepth:2, depthAlias:d} RETURN p.uid AS p, f.uid AS f, d AS d",
+         [{"k": 16 - i} for i in range(8)]),
+        (root + "-knows->{as:f}, NOT {as:f}-knows->{where:(age > 70)} RETURN p.uid AS p, f.uid AS f",
+         [{"k": 16 - i} for i in range(8)]),
+        (root + "-knows->{as:f, while:($depth < 3), where:(age < 30)} RETURN count(*) AS n",
+         [{"k": 60 - 5 * i} for i in range(8)]),
+        (root + "-knows->{as:f, while:($depth < :d)} RETURN p.uid AS p, f.uid AS f",
+         [{"k": 12 - i, "d": 3 - i % 3} for i in range(8)]),
+    ]
+    kw = dict(avg_knows=6, seed=11)
+    gpu, gsnap = build_person_knows(5_000, device=card, **kw)
+    cpu, _ = build_person_knows(5_000, device="cpu", **kw)
+    for sql, plist in batches:
+        gpu.query(sql, plist[0])
+        cpu.query(sql, plist[0])
+        for _ in range(2):
+            got = [canonical_rows(rs.to_dicts()) for rs in gpu.query_batch([sql] * 8, plist)]
+            want = [canonical_rows(rs.to_dicts()) for rs in cpu.query_batch([sql] * 8, plist)]
+            assert got == want
+    plans = [p for v in TE._plan_cache(gsnap).values() for p in v.plans if p.group_replays]
+    assert len(plans) >= 4 and all(p.lane_axis for p in plans)
+    for p in plans:
+        launched = {n for g in p.groups.values() for n in g.launches}
+        assert {"bitmap_hop_csr_lanes", "bitmap_emit_lanes"} <= launched or "frontier_advance_lanes" in launched
+    torch.cuda.synchronize()

@@ -606,13 +606,15 @@ def _plans(snap, sql):
 
 class _LaneSpy:
     """Counts the lane forms' calls (their wrappers, which on the CPU run
-    the plain versions): a count group's, a rows group's, and `take_pad`'s
-    lane stride (``take_pad_lanes``: a call with a lane-stacked table)."""
+    the plain versions): a count group's, a rows group's, the bitmap BFS's
+    (K10, K11, K12), and `take_pad`'s lane stride (``take_pad_lanes``: a
+    call with a lane-stacked table)."""
 
     NAMES = (
         "predicate_eval_lanes", "weight_gather_lanes", "indptr_segment_sum_lanes", "mask_count_lanes",
         "value_cumsum_lanes", "compact_indices_lanes", "expand_offsets_lanes", "gather_expand_lanes",
         "front_pack_lanes", "replay_meta_lanes", "predicate_eval_stacked", "rows_with_matches_lanes",
+        "bitmap_hop_csr_lanes", "bitmap_emit_lanes", "frontier_advance_lanes",
     )
 
     def __init__(self, monkeypatch):
@@ -719,12 +721,18 @@ def test_rows_group_runs_on_the_lane_axis(monkeypatch, person_knows):
 
 def test_var_depth_count_group_stays_lane_after_lane(monkeypatch, person_knows):
     """A COUNT whose lane-varying root is expanded by a variable-depth arm
-    keeps the lane-after-lane group, and equals the reference."""
+    (the name is older than the route: the group no longer stays lane after
+    lane) runs on the lane axis: the root through K15's and K3's lane forms,
+    its bitmap BFS through K10's, K11's (the depth-0 count) and K12's (each
+    level's alive and folded emission counts, [B]); every lane equals the
+    reference."""
     jdb, db, snap = person_knows
     plist = [{"k": 5 + i} for i in range(16)]
     want = [jdb.query(VAR_Q, p, engine="tpu", strict=True).to_dicts() for p in plist]
-    calls = _group(monkeypatch, db, snap, VAR_Q, plist, want, lane_axis=False)
-    assert not any(calls.values())
+    calls = _group(monkeypatch, db, snap, VAR_Q, plist, want)
+    assert calls["predicate_eval_lanes"] == 1 and calls["compact_indices_lanes"] == 1
+    assert calls["bitmap_hop_csr_lanes"] >= 2 and calls["frontier_advance_lanes"] >= 2
+    assert calls["bitmap_emit_lanes"] >= 1 and calls["weight_gather_lanes"] == 0
 
 
 def test_e2_shaped_group_runs_on_the_lane_axis(monkeypatch, snb):
@@ -899,10 +907,13 @@ def test_lane_overflowing_past_the_root_reruns_alone(monkeypatch, snb, recorded)
 
 @pytest.mark.parametrize("shape", ["not", "cartesian"])
 def test_not_and_cartesian_rows_groups_stay_lane_after_lane(monkeypatch, person_knows, shape):
-    """A NOT arm and a second (cartesian) root keep the rows group lane
-    after lane, and every lane equals the reference's ``engine="tpu"`` (the
-    cartesian lanes keep the recorded cardinalities, which its pairing
-    stride needs: ``:z`` varies and ``:k`` does not)."""
+    """A second (cartesian) root keeps the rows group lane after lane; a NOT
+    arm no longer does (the name is older than its route): its anti-join
+    runs on the lane axis, the arm's hop through K10's lane form and its
+    last step through K11's, the survivors through K3's. Every lane equals
+    the reference's ``engine="tpu"`` (the cartesian lanes keep the recorded
+    cardinalities, which its pairing stride needs: ``:z`` varies and ``:k``
+    does not)."""
     jdb, db, snap = person_knows
     if shape == "not":
         sql = ("MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f}, "
@@ -913,8 +924,12 @@ def test_not_and_cartesian_rows_groups_stay_lane_after_lane(monkeypatch, person_
                "RETURN p.uid AS p, q.uid AS q")
         plist = [{"k": 6, "z": -1 - i} for i in range(16)]
     want = [jdb.query(sql, p, engine="tpu", strict=True).to_dicts() for p in plist]
-    calls = _group(monkeypatch, db, snap, sql, plist, want, lane_axis=False)
-    assert not any(calls.values())
+    calls = _group(monkeypatch, db, snap, sql, plist, want, lane_axis=shape == "not")
+    if shape == "cartesian":
+        assert not any(calls.values())
+        return
+    assert calls["bitmap_hop_csr_lanes"] >= 1 and calls["bitmap_emit_lanes"] >= 1
+    assert calls["frontier_advance_lanes"] == 0 and calls["compact_indices_lanes"] >= 3
 
 
 DIRECT = "MATCH {class:Person, as:p, where:(uid < :k)}-knows->{as:f} RETURN p.uid AS p, f.uid AS f"
